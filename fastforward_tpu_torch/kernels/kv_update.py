@@ -1,0 +1,75 @@
+"""Decode-step KV-cache append, ported from `fastforward_tpu/kernels/kv_update.py:32-189`.
+
+The JAX functions are pure and return new caches; here the append writes
+the cache tensors in place (they are the serving loop's only copy) and
+returns them, so call sites read the same either way.
+"""
+
+import torch
+
+from fastforward_tpu_torch.kernels import _build
+
+
+def kv_append_decode_reference(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts):
+    """Masked-select oracle (`kv_update.py:32`): write row ``starts[b]`` of S.
+
+    kc/vc (B, Hkv, S, D) int8; ks/vs (B, Hkv, S) f32; k_new/v_new
+    (B, Hkv, 1, D); ks_new/vs_new (B, Hkv, 1); starts (B,). Returns new
+    tensors.
+    """
+    S = kc.shape[2]
+    sel = torch.arange(S, device=kc.device)[None, :] == starts[:, None].long()
+    sel4 = sel[:, None, :, None]
+    sel3 = sel[:, None, :]
+    return (
+        torch.where(sel4, k_new.to(kc.dtype), kc),
+        torch.where(sel4, v_new.to(vc.dtype), vc),
+        torch.where(sel3, ks_new.to(ks.dtype), ks),
+        torch.where(sel3, vs_new.to(vs.dtype), vs),
+    )
+
+
+def kv_append_decode_stacked_reference(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new,
+                                       starts, layer):
+    """Oracle for the stacked append (`kv_update.py:50`): layer ``layer`` of
+    (L, ...) arrays is replaced by its appended copy, in place."""
+    layer = int(layer)
+    upd = kv_append_decode_reference(
+        kc[layer], vc[layer], ks[layer], vs[layer], k_new, v_new, ks_new, vs_new, starts,
+    )
+    for dst, src in zip((kc, vc, ks, vs), upd):
+        dst[layer] = src
+    return kc, vc, ks, vs
+
+
+def kv_append_decode_int8_stacked(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new,
+                                  starts, layer):
+    """Layer-indexed in-place append into the stacked (L, B, Hkv, S, D)
+    int8 cache (`kv_update.py:100`). Returns ``(kc, vc, ks, vs)``, written
+    in place."""
+    if kc.device.type == "cpu":
+        return kv_append_decode_stacked_reference(
+            kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts, layer,
+        )
+    layer = int(layer)
+    L, B, Hkv, S, D = kc.shape
+    dev = kc.device
+    _build.require(kc, "kc", torch.int8, (L, B, Hkv, S, D), dev)
+    _build.require(vc, "vc", torch.int8, (L, B, Hkv, S, D), dev)
+    _build.require(ks, "ks", torch.float32, (L, B, Hkv, S), dev)
+    _build.require(vs, "vs", torch.float32, (L, B, Hkv, S), dev)
+    _build.require(k_new, "k_new", torch.int8, (B, Hkv, 1, D), dev)
+    _build.require(v_new, "v_new", torch.int8, (B, Hkv, 1, D), dev)
+    _build.require(ks_new, "ks_new", torch.float32, (B, Hkv, 1), dev)
+    _build.require(vs_new, "vs_new", torch.float32, (B, Hkv, 1), dev)
+    _build.require(starts, "starts", torch.int32, (B,), dev)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside [0, {L})")
+    err = _build.lib("kv_append").ff_kv_append(
+        kc.data_ptr(), vc.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), ks_new.data_ptr(), vs_new.data_ptr(),
+        starts.data_ptr(), L, B, Hkv, S, D, layer, _build.stream_ptr(dev),
+    )
+    _build.launch_counts["kv_append"] += 1
+    _build.check(err, "kv_append")
+    return kc, vc, ks, vs

@@ -1,0 +1,103 @@
+"""Carry serving weights between the JAX package and the port.
+
+The input is a flat ``{path: numpy array}`` dict of a JAX ``ServingParams``
+and its stacked layers (plain `ServingLayer` or `FusedServingLayer`):
+
+    params.embedding, params.final_norm,
+    params.lm_head.<field>          (absent for tied embeddings)
+    layers.<projection>.<field>, layers.input_norm, layers.post_norm
+
+where ``<field>`` is an array of a QuantLinear (``data``, ``scale``,
+``mult``, ``mult_packed``, ``in_scale``; absent when None) or one of its
+static fields (``mode``, ``group_size``, ``paired``) as a 0-d numpy array.
+Arrays are copied byte for byte: bf16 arrives as 2-byte words and is
+reinterpreted, never converted, so both packages compute the same function
+on the same bits.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from fastforward_tpu_torch.device import resolve_device
+from fastforward_tpu_torch.serving.engine import QuantLinear, ServingLayer, ServingParams
+from fastforward_tpu_torch.serving.stacked import FusedServingLayer
+
+_QL_ARRAYS = ("data", "scale", "mult", "mult_packed", "in_scale")
+_QL_STATIC = ("mode", "group_size", "paired")
+_UNFUSED = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+_FUSED = ("qkv_proj", "o_proj", "gateup_proj", "down_proj")
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """Bytes of ``t`` as numpy; bf16 comes back as its int16 words."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def _ql(flat: Dict[str, np.ndarray], prefix: str, device) -> QuantLinear:
+    arrays = {f: _tensor(flat[f"{prefix}.{f}"], device)
+              for f in _QL_ARRAYS if f"{prefix}.{f}" in flat}
+    return QuantLinear(
+        arrays["data"], arrays["scale"],
+        mode=str(flat[f"{prefix}.mode"]),
+        group_size=int(flat[f"{prefix}.group_size"]),
+        mult=arrays.get("mult"),
+        paired=bool(flat[f"{prefix}.paired"]),
+        mult_packed=arrays.get("mult_packed"),
+        in_scale=arrays.get("in_scale"),
+    )
+
+
+def params_from_flat(flat: Dict[str, np.ndarray], device=None):
+    """(ServingParams, stacked layers) of the port from a flat dict."""
+    dev = resolve_device(device)
+    fused = "layers.qkv_proj.data" in flat
+    projs = {name: _ql(flat, f"layers.{name}", dev) for name in (_FUSED if fused else _UNFUSED)}
+    norms = dict(
+        input_norm=_tensor(flat["layers.input_norm"], dev),
+        post_norm=_tensor(flat["layers.post_norm"], dev),
+    )
+    layers = FusedServingLayer(**projs, **norms) if fused else ServingLayer(**projs, **norms)
+    params = ServingParams(
+        embedding=_tensor(flat["params.embedding"], dev),
+        layers=(),
+        final_norm=_tensor(flat["params.final_norm"], dev),
+        lm_head=_ql(flat, "params.lm_head", dev) if "params.lm_head.data" in flat else None,
+    )
+    return params, layers
+
+
+def params_to_flat(params: ServingParams, layers) -> Dict[str, np.ndarray]:
+    """Inverse of `params_from_flat` (bf16 arrays come back as int16 words)."""
+    flat = {
+        "params.embedding": _numpy(params.embedding),
+        "params.final_norm": _numpy(params.final_norm),
+    }
+
+    def put_ql(prefix, ql):
+        for f in _QL_ARRAYS:
+            t = getattr(ql, f)
+            if t is not None:
+                flat[f"{prefix}.{f}"] = _numpy(t)
+        for f in _QL_STATIC:
+            flat[f"{prefix}.{f}"] = np.asarray(getattr(ql, f))
+
+    if params.lm_head is not None:
+        put_ql("params.lm_head", params.lm_head)
+    names = _FUSED if isinstance(layers, FusedServingLayer) else _UNFUSED
+    for name in names:
+        put_ql(f"layers.{name}", getattr(layers, name))
+    flat["layers.input_norm"] = _numpy(layers.input_norm)
+    flat["layers.post_norm"] = _numpy(layers.post_norm)
+    return flat

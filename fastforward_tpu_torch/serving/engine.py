@@ -1,0 +1,196 @@
+"""Frozen quantized linear layers and the forward's building blocks,
+ported from `fastforward_tpu/serving/engine.py`.
+
+This slice ports the two two-level int4 modes of the main path: ``w4a4_2l``
+(decoder projections, A4 GEMV) and ``w4a8_2l`` (the lm_head, W4A8 GEMV).
+Both serve at most `GEMV_MAX_M` rows; larger inputs take the dequant +
+dense-matmul prefill path of the JAX package, which is the next slice
+(ROADMAP Queue 2, `dequantize_int4_vertical_stacked`).
+"""
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from fastforward_tpu_torch.kernels.matmul import (
+    GEMV_MAX_M,
+    convert_two_level,
+    convert_two_level_a4,
+    matmul_w4a4_2l_gemv,
+    matmul_w4a4_2l_gemv_stacked,
+    matmul_w4a8_2l_gemv,
+    quantize_rowwise,
+    quantize_rowwise_a4,
+)
+from fastforward_tpu_torch.kernels.packing import pack_int4
+
+PORTED_MODES = ("w4a4_2l", "w4a8_2l")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 5 and Queue 2)"
+    )
+
+
+def _too_many_rows(M: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{M} rows exceed the GEMV's {GEMV_MAX_M}: the prefill dequant path "
+        "(dequantize_int4_vertical_stacked) is the next slice of the port"
+    )
+
+
+@dataclasses.dataclass
+class QuantLinear:
+    """Frozen quantized linear weights, layout (in, out) (`engine.py:54`).
+
+    ``data`` packed int8 (K//2, N), or (L, K//2, N) stacked; ``scale`` the
+    per-column ``s_col`` (N,) / (L, N); ``mult`` per-group multipliers
+    (K//g, N) int8; ``mult_packed`` their nibble-packed form for the
+    stacked decode GEMV; ``paired`` the W4A8 adjacent-group layout.
+    """
+
+    data: torch.Tensor
+    scale: torch.Tensor
+    mode: str = "w4a4_2l"
+    group_size: int = 128
+    mult: Optional[torch.Tensor] = None
+    paired: bool = False
+    mult_packed: Optional[torch.Tensor] = None
+    in_scale: Optional[torch.Tensor] = None
+
+    def _check(self, M: int) -> None:
+        if self.mode not in PORTED_MODES:
+            raise _not_ported(f"QuantLinear mode {self.mode!r}")
+        if self.in_scale is not None:
+            raise _not_ported("static activation scales (in_scale)")
+        if M > GEMV_MAX_M:
+            raise _too_many_rows(M)
+
+    def __call__(self, x: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+        """y = x @ W with the mode's kernel. x: (..., K)."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        self._check(x2.shape[0])
+        if self.mode == "w4a8_2l":
+            x_q, x_s = quantize_rowwise(x2)
+            out = matmul_w4a8_2l_gemv(
+                x_q, x_s, self.data, self.mult, self.scale,
+                group_size=self.group_size, out_dtype=out_dtype, paired=self.paired,
+            )
+        else:
+            x_q, x_s = quantize_rowwise_a4(x2)
+            out = matmul_w4a4_2l_gemv(
+                x_q, x_s, self.data, self.mult, self.scale,
+                group_size=self.group_size, out_dtype=out_dtype,
+            )
+        return out.reshape(*lead, -1)
+
+    def call_layer(self, x: torch.Tensor, layer: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+        """y = x @ W[layer] for stacked (L, ...) weights (`engine.py:163`).
+
+        The A4 GEMV takes the layer index itself; the W4A8 mode applies the
+        non-stacked GEMV to the layer's views (no copy), as the JAX package
+        does off the TPU.
+        """
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        self._check(x2.shape[0])
+        if self.mode == "w4a4_2l" and self.mult_packed is not None:
+            x_q, x_s = quantize_rowwise_a4(x2)
+            out = matmul_w4a4_2l_gemv_stacked(
+                x_q, x_s, self.data, self.mult_packed, self.scale, layer,
+                group_size=self.group_size, out_dtype=out_dtype,
+            )
+            return out.reshape(*lead, -1)
+        sliced = QuantLinear(
+            self.data[layer], self.scale[layer], mode=self.mode,
+            group_size=self.group_size,
+            mult=None if self.mult is None else self.mult[layer],
+            paired=self.paired,
+        )
+        return sliced(x, out_dtype=out_dtype)
+
+
+def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
+                    scale: Optional[torch.Tensor] = None) -> QuantLinear:
+    """Quantize a dense (K, N) weight into frozen two-level storage
+    (`engine.py:289`); symmetric min-max scales unless ``scale`` is given."""
+    if mode not in PORTED_MODES:
+        raise _not_ported(f"quantize_linear mode {mode!r}")
+    w = w.float()
+    K, N = w.shape
+    g = group_size if K % group_size == 0 else K
+    wg = w.reshape(K // g, g, N)
+    if scale is None:
+        scale = torch.clamp(wg.abs().amax(dim=1) / 7.0, min=1e-8)
+    scale = scale.float().reshape(K // g, N)
+    q = torch.clamp(torch.round(wg / scale[:, None, :]), -8, 7).to(torch.int8)
+    packed = pack_int4(q.reshape(K, N), group_size=g)
+    if mode == "w4a8_2l":
+        paired = (K // g) % 2 == 0
+        packed, mult, s_col = convert_two_level(packed, scale, g, paired=paired)
+        return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult, paired=paired)
+    packed, mult, s_col = convert_two_level_a4(packed, scale, g)
+    return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult, paired=False)
+
+
+@dataclasses.dataclass
+class ServingLayer:
+    q_proj: QuantLinear
+    k_proj: QuantLinear
+    v_proj: QuantLinear
+    o_proj: QuantLinear
+    gate_proj: QuantLinear
+    up_proj: QuantLinear
+    down_proj: QuantLinear
+    input_norm: torch.Tensor
+    post_norm: torch.Tensor
+
+
+@dataclasses.dataclass
+class ServingParams:
+    embedding: torch.Tensor  # (vocab, hidden) bf16
+    layers: tuple
+    final_norm: torch.Tensor
+    lm_head: Optional[QuantLinear]  # None => tied embeddings
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, cast back to x's dtype BEFORE the weight multiply
+    (`engine.py:526`)."""
+    dt = x.dtype
+    xf = x.float()
+    out = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return out.to(dt) * weight
+
+
+def _attention(q, k, v, mask):
+    """(B, H, T, D) attention with an additive mask; f32 softmax."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
+    if mask is not None:
+        scores = scores + mask
+    weights = F.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bhsd->bhtd", weights, v)
+
+
+def _attention_grouped(q, k, v, mask):
+    """GQA attention without repeating K/V (`engine.py:543`): q (B, H, T, d)
+    against k/v (B, Hkv, S, d) through a grouped einsum."""
+    B, H, T, d = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    if g == 1:
+        return _attention(q, k, v, mask)
+    scale = 1.0 / math.sqrt(d)
+    q5 = q.reshape(B, Hkv, g, T, d)
+    scores = torch.einsum("bkgtd,bksd->bkgts", q5, k).float() * scale
+    if mask is not None:
+        scores = scores + mask[:, :, None]
+    weights = F.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bksd->bkgtd", weights, v)
+    return out.reshape(B, H, T, d)
