@@ -69,13 +69,14 @@ __device__ __forceinline__ void transpose4x4(const unsigned r[4], unsigned c[4])
 // Split-K partial GEMV.
 //   x        (M, K) int8 activations
 //   w        (K/2, N) int8 packed weights of one layer
-//   mult     kVertical: (n_pack, N) int32, 8 nibble multipliers per word
-//            kPaired:   (n_groups, N) int8
+//   mult     PACKED: (n_pack, N) int32, 8 nibble multipliers per word
+//            (always for kVertical; the stacked W4A8 GEMV for kPaired)
+//            else:   (n_groups, N) int8
 //   partial  (n_split, M, N) int32
 // Grid: (ceil(M/8), ceil(N/128), n_split); kThreads threads; dynamic
 // shared memory = gemv_smem_bytes(units_per_split * rows_per_unit, units).
 // rows_per_unit: byte rows of one unit (group/2 vertical, group paired).
-template <int LAYOUT>
+template <int LAYOUT, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
@@ -158,13 +159,16 @@ gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int u = 0; u < n_u; ++u) {
       const int unit = u0 + u;
       unsigned ma[4], mb[4];
-      if (LAYOUT == kVertical) {
-        const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(unit / 8) * N + n0;
-        const int sh = 4 * (unit % 8);
+      if (PACKED) {
+        // vertical: the unit is group `unit`; paired: groups 2u and 2u + 1,
+        // adjacent nibbles of one word (2u % 8 is even)
+        const int g0 = LAYOUT == kVertical ? unit : 2 * unit;
+        const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
+        const int sh = 4 * (g0 % 8);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
-          mb[c] = ma[c];
+          mb[c] = LAYOUT == kVertical ? ma[c] : (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu;
         }
       } else {
         const int8_t* mr = static_cast<const int8_t*>(mult);
@@ -243,7 +247,7 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
          (size_t)kWarps * kBM * kBN * 4;
 }
 
-template <int LAYOUT>
+template <int LAYOUT, bool PACKED = LAYOUT == kVertical>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
                                 int n_split, cudaStream_t stream) {
@@ -251,10 +255,10 @@ cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mu
   const int n_units = LAYOUT == kVertical ? K / group : K / (2 * group);
   const int ups = (n_units + n_split - 1) / n_split;
   const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
-  cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT>,
+  cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, PACKED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
-  gemv_partial_kernel<LAYOUT><<<grid, kThreads, smem, stream>>>(
+  gemv_partial_kernel<LAYOUT, PACKED><<<grid, kThreads, smem, stream>>>(
       x, w, mult, partial, M, K, N, group, ups, n_units);
   return cudaGetLastError();
 }

@@ -1,0 +1,189 @@
+// Int4 -> bf16 dequantization of two-level weights, for the prefill path.
+//
+// Replaces: fastforward_tpu/kernels/matmul.py
+// dequantize_int4_vertical_stacked (:1736, kernel :1724) and
+// dequantize_int4_paired_stacked (:1650, kernel :1634, flat layout); at
+// L = 1 with a ready per-group scale also dequantize_int4_vertical (:1511)
+// and the paired branch of dequantize_int4 (:1561, kernel :1549).
+//   out[k, n] = bf16(float(v[k, n]) * s_eff[k / g, n])
+//   s_eff[i, n] = float(mult[l, i, n]) * s_col[l, n]    (or given, f32)
+// Rounding: two f32 products and one bf16 rounding, as the JAX package's
+// CPU path computes it (matmul.py:1526-1527, :1583-1585, :1756-1760), bit
+// for bit. The TPU kernels round s_eff to bf16 and multiply in bf16, which
+// differs from that path; the port holds the CPU form.
+// Layouts, byte row r of the packed (K/2, N):
+//   vertical: rows 2r (low nibble) and 2r + 1 (high), two's complement;
+//   paired:   p = r / g, i = r % g: rows 2pg + i (low) and (2p + 1)g + i
+//             (high), offset binary u = v + 8.
+//
+// Bound on the H100: bytes. K*N/2 packed bytes read and K*N*2 bf16 bytes
+// written per call (the multipliers and scales are 1/g of that): 545 MB
+// for the four projections of a Llama-3-8B layer, ~0.16 ms at 3.35 TB/s,
+// with a few integer and float operations per byte.
+//
+// Design for that bound: a thread owns 16 adjacent columns and walks 8
+// byte rows: per row one 16-byte load of packed weights and four 16-byte
+// stores (two output rows of 32 bytes); neighbouring threads take
+// neighbouring columns, so a warp moves 512 contiguous bytes in and two
+// 1 KB runs out per row. The 16 per-group scales are formed in registers
+// and re-formed only when a row enters another group. An N that is not a
+// multiple of 16 takes the same kernel with one column per thread.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRowsPerBlock = 8;  // packed byte rows per block
+enum Layout { kVertical = 0, kPaired = 1 };
+
+// The V per-group scales of group `gi` at columns col0.. (f32).
+template <int V, bool MULT>
+__device__ __forceinline__ void group_scales(const int8_t* __restrict__ mult,
+                                             const float* __restrict__ scale, int gi, int col0,
+                                             int N, float s[V]) {
+  if constexpr (MULT) {
+    const int8_t* mp = mult + (size_t)gi * N + col0;
+#pragma unroll
+    for (int c = 0; c < V; ++c) s[c] = __fmul_rn(static_cast<float>(mp[c]), scale[col0 + c]);
+  } else {
+    const float* sp = scale + (size_t)gi * N + col0;
+#pragma unroll
+    for (int c = 0; c < V; ++c) s[c] = sp[c];
+  }
+}
+
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// Writes V bf16 values of one output row at columns col0...
+template <int V>
+__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ dst, const float y[V]) {
+  if constexpr (V == 16) {
+    uint4 a, b;
+    a.x = bf16x2(y[0], y[1]);
+    a.y = bf16x2(y[2], y[3]);
+    a.z = bf16x2(y[4], y[5]);
+    a.w = bf16x2(y[6], y[7]);
+    b.x = bf16x2(y[8], y[9]);
+    b.y = bf16x2(y[10], y[11]);
+    b.z = bf16x2(y[12], y[13]);
+    b.w = bf16x2(y[14], y[15]);
+    reinterpret_cast<uint4*>(dst)[0] = a;
+    reinterpret_cast<uint4*>(dst)[1] = b;
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c) dst[c] = __float2bfloat16_rn(y[c]);
+  }
+}
+
+// Grid: (ceil(N / V / kThreads), ceil(K/2 / kRowsPerBlock)). w, mult and
+// scale point at the selected layer. MULT: scale is s_col (N,) and mult
+// (K/g, N) int8; else scale is s_eff (K/g, N) f32 and mult is unused.
+template <int LAYOUT, int V, bool MULT>
+__global__ void __launch_bounds__(kThreads)
+dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
+               const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int K,
+               int N, int group) {
+  const int col0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  if (col0 >= N) return;
+  const int r0 = blockIdx.y * kRowsPerBlock;
+  const int r1 = min(K / 2, r0 + kRowsPerBlock);
+  float s_lo[V], s_hi[V];
+  int cur = -1;  // group of the low plane whose scales s_lo holds
+  for (int r = r0; r < r1; ++r) {
+    int row_lo, row_hi, g_lo;
+    if (LAYOUT == kVertical) {
+      row_lo = 2 * r;
+      row_hi = row_lo + 1;
+      g_lo = row_lo / group;
+    } else {
+      const int p = r / group, i = r % group;
+      row_lo = 2 * p * group + i;
+      row_hi = row_lo + group;
+      g_lo = 2 * p;
+    }
+    if (g_lo != cur) {
+      cur = g_lo;
+      group_scales<V, MULT>(mult, scale, g_lo, col0, N, s_lo);
+      if (LAYOUT == kVertical) {
+#pragma unroll
+        for (int c = 0; c < V; ++c) s_hi[c] = s_lo[c];
+      } else {
+        group_scales<V, MULT>(mult, scale, g_lo + 1, col0, N, s_hi);
+      }
+    }
+    unsigned bytes[V];
+    const int8_t* wp = w + (size_t)r * N + col0;
+    if constexpr (V == 16) {
+      const uint4 pk = *reinterpret_cast<const uint4*>(wp);
+      const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
+#pragma unroll
+      for (int c = 0; c < V; ++c) bytes[c] = (words[c / 4] >> (8 * (c % 4))) & 0xFFu;
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) bytes[c] = static_cast<unsigned char>(wp[c]);
+    }
+    float y_lo[V], y_hi[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      int v_lo, v_hi;
+      if (LAYOUT == kVertical) {  // two's complement nibbles
+        v_lo = static_cast<int>((bytes[c] & 0xFu) ^ 8u) - 8;
+        v_hi = static_cast<int>(static_cast<int8_t>(bytes[c])) >> 4;
+      } else {  // offset binary
+        v_lo = static_cast<int>(bytes[c] & 0xFu) - 8;
+        v_hi = static_cast<int>(bytes[c] >> 4) - 8;
+      }
+      y_lo[c] = __fmul_rn(static_cast<float>(v_lo), s_lo[c]);
+      y_hi[c] = __fmul_rn(static_cast<float>(v_hi), s_hi[c]);
+    }
+    store_row<V>(out + (size_t)row_lo * N + col0, y_lo);
+    store_row<V>(out + (size_t)row_hi * N + col0, y_hi);
+  }
+}
+
+template <int LAYOUT>
+int launch(const void* w, const void* mult, const void* scale, void* out, int K, int N, int L,
+           int layer, int group, void* stream) {
+  (void)L;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
+  const int8_t* ml = mult ? static_cast<const int8_t*>(mult) + (size_t)layer * (K / group) * N
+                          : nullptr;
+  const float* sl = static_cast<const float*>(scale) + (mult ? (size_t)layer * N : 0);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  const int v = N % 16 == 0 ? 16 : 1;
+  const dim3 grid((N / v + kThreads - 1) / kThreads, (K / 2 + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (v == 16) {
+    if (ml)
+      dequant_kernel<LAYOUT, 16, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+    else
+      dequant_kernel<LAYOUT, 16, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+  } else {
+    if (ml)
+      dequant_kernel<LAYOUT, 1, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+    else
+      dequant_kernel<LAYOUT, 1, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// w (L, K/2, N) int8; mult (L, K/g, N) int8 with scale = s_col (L, N) f32,
+// or mult = NULL with scale = s_eff (K/g, N) f32 (L = 1, layer 0);
+// out (K, N) bf16.
+extern "C" int ff_dequant_vertical(const void* w, const void* mult, const void* scale, void* out,
+                                   int K, int N, int L, int layer, int group, void* stream) {
+  return launch<kVertical>(w, mult, scale, out, K, N, L, layer, group, stream);
+}
+
+extern "C" int ff_dequant_paired(const void* w, const void* mult, const void* scale, void* out,
+                                 int K, int N, int L, int layer, int group, void* stream) {
+  return launch<kPaired>(w, mult, scale, out, K, N, L, layer, group, stream);
+}

@@ -32,7 +32,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "fastforward_tpu_torch"
 
-SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode")
+SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,6 +58,9 @@ SIGNATURES = {
         # x, xs, w, mult, s_col, partial, pair_val, pair_idx, idx_out,
         # M, K, N, group, n_split, stream
         "ff_w4a8_gemv_argmax": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        # x, xs, w, mult_packed, s_col, partial, out, M, K, N, L, layer,
+        # group, n_pack, n_split, out_kind, stream
+        "ff_w4a8_gemv_stacked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     },
     "kv_append": {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts,
@@ -68,6 +71,15 @@ SIGNATURES = {
         # q, k, ks, v, vs, lengths, out, L, B, H, Hkv, S, D, layer,
         # sm_scale, stream
         "ff_flash_decode": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    },
+    "dequant": {
+        # w, mult (or NULL), scale, out, K, N, L, layer, group, stream
+        "ff_dequant_vertical": [P, P, P, P, I, I, I, I, I, P],
+        "ff_dequant_paired": [P, P, P, P, I, I, I, I, I, P],
+    },
+    "flash_prefill": {
+        # q, k, ks, v, vs, starts, out, B, H, Hkv, T, S, D, sm_scale, stream
+        "ff_flash_prefill": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     },
 }
 

@@ -1,10 +1,13 @@
-"""Flash-decode attention over the INT8 KV cache, ported from
+"""Flash attention over the INT8 KV cache, ported from
 `fastforward_tpu/kernels/attention.py`.
 
 `flash_decode_int8_stacked` stands for both stacked JAX wrappers, the
 whole-slab `flash_decode_int8_stacked` (:271) and the length-aware
 `flash_decode_int8_stacked_ragged` (:635): they compute one function, and
 the CUDA kernel (`csrc/flash_decode.cu`) always reads only the live blocks.
+`flash_prefill` (:971) is the blocked causal prefill attention
+(`csrc/flash_prefill.cu`), reading only the key tiles at or below each
+query tile's causal frontier.
 """
 
 import math
@@ -70,4 +73,67 @@ def flash_decode_int8_stacked(q, k, k_scale, v, v_scale, lengths, layer,
     )
     _build.launch_counts["flash_decode"] += 1
     _build.check(err, "flash_decode")
+    return out
+
+
+def flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = None):
+    """Oracle (`attention.py:848`): dense causal attention with the (T, S)
+    score matrix in f32. q (B, H, T, d); k/v (B, Hkv, S, d) int8 with
+    scales (B, Hkv, S), or bf16 with None scales; starts (B,): query row t
+    sits at position starts[b] + t and sees keys s <= starts[b] + t.
+    Output in q's dtype."""
+    B, H, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    groups = H // Hkv
+    sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+    if v_scale is not None:
+        vf = vf * v_scale[..., None]
+    if groups > 1:
+        kf = torch.repeat_interleave(kf, groups, dim=1)
+        vf = torch.repeat_interleave(vf, groups, dim=1)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), kf) * sm_scale
+    pos = starts[:, None].long() + torch.arange(T, device=q.device)[None, :]
+    valid = torch.arange(S, device=q.device)[None, None, None, :] <= pos[:, None, :, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", weights, vf).to(q.dtype)
+
+
+def flash_prefill(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = None):
+    """Blocked causal prefill attention (`attention.py:971`) over one
+    layer's cache: q (B, H, T, 128) bf16; k/v (B, Hkv, S, 128) int8 with
+    f32 scales (B, Hkv, S); starts (B,) int32; H / Hkv in (1, 2, 4, 8).
+    Within 8e-3 of the largest output of `flash_prefill_reference`."""
+    if q.device.type == "cpu":
+        return flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale)
+    if k_scale is None or v_scale is None:
+        raise NotImplementedError(
+            "flash_prefill over a bf16 KV cache: the bf16 cache is not ported yet "
+            "(ROADMAP.md, Queue 1 item 4)"
+        )
+    B, H, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dev = q.device
+    _build.require(q, "q", torch.bfloat16, (B, H, T, d), dev)
+    _build.require(k, "k", torch.int8, (B, Hkv, S, d), dev)
+    _build.require(v, "v", torch.int8, (B, Hkv, S, d), dev)
+    _build.require(k_scale, "k_scale", torch.float32, (B, Hkv, S), dev)
+    _build.require(v_scale, "v_scale", torch.float32, (B, Hkv, S), dev)
+    _build.require(starts, "starts", torch.int32, (B,), dev)
+    if d != 128 or H % Hkv != 0 or H // Hkv not in (1, 2, 4, 8) or T < 1 or S < 1:
+        raise ValueError(
+            f"flash prefill kernel needs head dim 128, H/Hkv in (1, 2, 4, 8) and T, S >= 1 "
+            f"(d={d}, H={H}, Hkv={Hkv}, T={T}, S={S})"
+        )
+    sm_scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    out = torch.empty_like(q)
+    err = _build.lib("flash_prefill").ff_flash_prefill(
+        q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
+        starts.data_ptr(), out.data_ptr(), B, H, Hkv, T, S, d, sm_scale, _build.stream_ptr(dev),
+    )
+    _build.launch_counts["flash_prefill"] += 1
+    _build.check(err, "flash_prefill")
     return out

@@ -1,10 +1,11 @@
-"""Two-level int4 GEMVs, ported from `fastforward_tpu/kernels/matmul.py`.
+"""Two-level int4 GEMVs and the prefill dequant, ported from
+`fastforward_tpu/kernels/matmul.py`.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs
 the plain PyTorch version beside it (the port of the JAX oracle), a CUDA
 tensor launches the hand-written kernel (`csrc/a4_gemv.cu`,
-`csrc/w4a8_gemv.cu`) or raises. There is no fallback from one to the
-other.
+`csrc/w4a8_gemv.cu`, `csrc/dequant.cu`) or raises. There is no fallback
+from one to the other.
 
 The activation quantizers divide by a constant as a multiplication by its
 float32 reciprocal (``amax * (1.0 / 127.0)``): XLA compiles
@@ -35,8 +36,8 @@ from fastforward_tpu_torch.kernels.packing import (
     unpack_uint4_offset_paired,
 )
 
-# Largest row count the decode GEMVs serve (`matmul.py:309`); more rows are
-# the prefill dequant path, not ported yet.
+# Largest row count the decode GEMVs serve (`matmul.py:309`); more rows take
+# the prefill path: dequantize to bf16, then a dense product.
 GEMV_MAX_M = 256
 
 # Activation rows and columns one GEMV block covers (csrc/common.cuh kBM, kBN).
@@ -288,3 +289,150 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
     _build.launch_counts["w4a8_gemv"] += 1
     _build.check(err, "w4a8_gemv_argmax")
     return idx
+
+
+def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
+                                group_size: int = 128, out_dtype=torch.bfloat16):
+    """Two-level W4A8 decode GEMV over stacked weights (`matmul.py:1023`).
+
+    ``w_packed`` (L, K//2, N) paired offset-binary; ``mult`` (L,
+    ceil(n_groups/8), N) int32 nibble-packed; ``s_col`` (L, N). Bit-exact
+    against `matmul_w4a8_2l_reference` (paired) on layer ``layer``.
+    """
+    layer = int(layer)
+    M, K = x_q.shape
+    L, Kh, N = w_packed.shape
+    n_groups = K // group_size
+    if x_q.device.type == "cpu":
+        return matmul_w4a8_2l_reference(
+            x_q, x_scale, w_packed[layer], unpack_mult_nibbles(mult[layer], n_groups),
+            s_col[layer], None, group_size, out_dtype, paired=True,
+        )
+    dev = x_q.device
+    _check_gemv(x_q, x_scale, K, N, group_size)
+    n_pack = mult.shape[1]
+    _build.require(w_packed, "w_packed", torch.int8, (L, K // 2, N), dev)
+    _build.require(mult, "mult", torch.int32, (L, n_pack, N), dev)
+    _build.require(s_col, "s_col", torch.float32, (L, N), dev)
+    if K % (2 * group_size) != 0 or group_size % 4 != 0:
+        raise NotImplementedError(
+            "the stacked W4A8 GEMV kernel takes the paired layout (even group count, "
+            "group % 4 == 0) only"
+        )
+    if out_dtype not in (torch.float32, torch.bfloat16) or n_pack * 8 < n_groups \
+            or not 0 <= layer < L:
+        raise ValueError(
+            f"stacked W4A8 GEMV kernel needs f32 or bf16 out, a full multiplier pack and "
+            f"a valid layer (out={out_dtype}, layer={layer})"
+        )
+    n_split = gemv_split(M, N, K // (2 * group_size), group_size)
+    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _build.lib("w4a8_gemv").ff_w4a8_gemv_stacked(
+        x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
+        s_col.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K, N, L, layer,
+        group_size, n_pack, n_split, 0 if out_dtype == torch.float32 else 1,
+        _build.stream_ptr(dev),
+    )
+    _build.launch_counts["w4a8_gemv_stacked"] += 1
+    _build.check(err, "w4a8_gemv_stacked")
+    return out
+
+
+def dequantize_int4_vertical_reference(w_packed, s_eff, group_size: int = 128,
+                                       out_dtype=torch.bfloat16):
+    """Oracle: vertical-layout int4 (K//2, N) to dense (K, N) with per-group
+    scales ``s_eff`` (K//g, N): ``v * s_eff`` in f32, rounded once
+    (`matmul.py:1511`)."""
+    K, N = w_packed.shape[0] * 2, w_packed.shape[1]
+    v = unpack_int4_vertical(w_packed).reshape(K // group_size, group_size, N)
+    return (v.float() * s_eff.float()[:, None, :]).reshape(K, N).to(out_dtype)
+
+
+def dequantize_int4_paired_reference(w_packed, w_scale, group_size: int = 128):
+    """Oracle of `dequantize_int4`'s paired branch (`matmul.py:1579-1585`):
+    paired offset-binary int4 to dense bf16 with per-group scales."""
+    K, N = w_packed.shape[0] * 2, w_packed.shape[1]
+    v = unpack_uint4_offset_paired(w_packed, group_size).reshape(K // group_size, group_size, N)
+    return (v.float() * w_scale.float()[:, None, :]).reshape(K, N).to(torch.bfloat16)
+
+
+def _dequant(entry, count, w_packed, mult, scale, layer, group_size, paired):
+    """Launch `csrc/dequant.cu` on layer ``layer`` of (L, K//2, N) weights:
+    with ``mult`` (L, K//g, N) int8 and ``scale`` = s_col (L, N), or with
+    ``mult`` None and ``scale`` = s_eff (K//g, N) at L = 1."""
+    layer = int(layer)
+    L, K2, N = w_packed.shape
+    K = 2 * K2
+    dev = w_packed.device
+    _build.require(w_packed, "w_packed", torch.int8, (L, K2, N))
+    if mult is None:
+        _build.require(scale, "s_eff", torch.float32, (K // group_size, N), dev)
+    else:
+        _build.require(mult, "mult", torch.int8, (L, K // group_size, N), dev)
+        _build.require(scale, "s_col", torch.float32, (L, N), dev)
+    unit = 2 * group_size if paired else group_size
+    if group_size % 2 != 0 or K % unit != 0 or not 0 <= layer < L:
+        raise ValueError(
+            f"dequant kernel needs an even group, K divisible by {unit} and a valid layer "
+            f"(K={K}, group={group_size}, layer={layer})"
+        )
+    out = torch.empty((K, N), dtype=torch.bfloat16, device=dev)
+    err = getattr(_build.lib("dequant"), entry)(
+        w_packed.data_ptr(), None if mult is None else mult.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), K, N, L, layer, group_size, _build.stream_ptr(dev),
+    )
+    _build.launch_counts[count] += 1
+    _build.check(err, count)
+    return out
+
+
+def dequantize_int4_vertical(w_packed, s_eff, group_size: int = 128, out_dtype=torch.bfloat16):
+    """Vertical-layout int4 to dense bf16 (`matmul.py:1511`): the stacked
+    kernel at L = 1 with the per-group scales given."""
+    if w_packed.device.type == "cpu":
+        return dequantize_int4_vertical_reference(w_packed, s_eff, group_size, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the dequant kernel writes bf16, not {out_dtype}")
+    return _dequant("ff_dequant_vertical", "dequant_vertical", w_packed[None], None, s_eff, 0,
+                    group_size, paired=False)
+
+
+def dequantize_int4(w_packed, w_scale, group_size: int = 128, offset_binary: bool = False,
+                    paired: bool = False):
+    """Packed int4 to dense bf16 (`matmul.py:1561`); the paired layout only,
+    through the stacked paired kernel at L = 1."""
+    if not paired:
+        raise NotImplementedError(
+            "dequantize_int4 of the group-halves layouts is not ported yet "
+            "(ROADMAP.md, Queue 2 item 13)"
+        )
+    if w_packed.device.type == "cpu":
+        return dequantize_int4_paired_reference(w_packed, w_scale, group_size)
+    return _dequant("ff_dequant_paired", "dequant_paired", w_packed[None], None, w_scale, 0,
+                    group_size, paired=True)
+
+
+def dequantize_int4_vertical_stacked(w_packed, mult, s_col, layer, group_size: int = 512):
+    """Layer ``layer`` of stacked vertical W4A4 weights to dense bf16
+    (`matmul.py:1736`): ``w_packed`` (L, K//2, N), ``mult`` (L, K//g, N)
+    int8, ``s_col`` (L, N); s_eff = f32(mult) * s_col. Bit-exact against the
+    JAX package's CPU path (see `csrc/dequant.cu` on the TPU kernel's)."""
+    layer = int(layer)
+    if w_packed.device.type == "cpu":
+        s_eff = mult[layer].float() * s_col[layer].float()[None, :]
+        return dequantize_int4_vertical_reference(w_packed[layer], s_eff, group_size)
+    return _dequant("ff_dequant_vertical", "dequant_vertical", w_packed, mult, s_col, layer,
+                    group_size, paired=False)
+
+
+def dequantize_int4_paired_stacked(w_packed, mult, s_col, layer, group_size: int = 128):
+    """Layer ``layer`` of stacked paired W4A8 weights to dense bf16
+    (`matmul.py:1650`, flat layout): shapes as in
+    `dequantize_int4_vertical_stacked`."""
+    layer = int(layer)
+    if w_packed.device.type == "cpu":
+        s_eff = mult[layer].float() * s_col[layer].float()[None, :]
+        return dequantize_int4_paired_reference(w_packed[layer], s_eff, group_size)
+    return _dequant("ff_dequant_paired", "dequant_paired", w_packed, mult, s_col, layer,
+                    group_size, paired=True)

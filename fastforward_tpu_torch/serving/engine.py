@@ -1,11 +1,13 @@
 """Frozen quantized linear layers and the forward's building blocks,
 ported from `fastforward_tpu/serving/engine.py`.
 
-This slice ports the two two-level int4 modes of the main path: ``w4a4_2l``
-(decoder projections, A4 GEMV) and ``w4a8_2l`` (the lm_head, W4A8 GEMV).
-Both serve at most `GEMV_MAX_M` rows; larger inputs take the dequant +
-dense-matmul prefill path of the JAX package, which is the next slice
-(ROADMAP Queue 2, `dequantize_int4_vertical_stacked`).
+The port serves the two two-level int4 modes of the main path: ``w4a4_2l``
+(decoder projections) and ``w4a8_2l`` (the lm_head, and the decoder
+projections of bench.py's ``FF_BENCH_MODE=w4a8_2l``). The routing is the
+JAX package's TPU routing on every device (its ``_on_tpu()`` read as
+true): up to `GEMV_MAX_M` rows take the decode GEMVs; more rows (prefill)
+dequantize the weight to bf16 and take a dense product with f32
+accumulation. Only the kernel wrappers look at the device.
 """
 
 import dataclasses
@@ -19,9 +21,14 @@ from fastforward_tpu_torch.kernels.matmul import (
     GEMV_MAX_M,
     convert_two_level,
     convert_two_level_a4,
+    dequantize_int4,
+    dequantize_int4_paired_stacked,
+    dequantize_int4_vertical,
+    dequantize_int4_vertical_stacked,
     matmul_w4a4_2l_gemv,
     matmul_w4a4_2l_gemv_stacked,
     matmul_w4a8_2l_gemv,
+    matmul_w4a8_2l_gemv_stacked,
     quantize_rowwise,
     quantize_rowwise_a4,
 )
@@ -36,11 +43,15 @@ def _not_ported(what: str) -> NotImplementedError:
     )
 
 
-def _too_many_rows(M: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{M} rows exceed the GEMV's {GEMV_MAX_M}: the prefill dequant path "
-        "(dequantize_int4_vertical_stacked) is the next slice of the port"
-    )
+def _prefill_product(x_q, x_s, w, out_dtype):
+    """``bf16(x_q * x_s) @ w`` with f32 accumulation, rounded once to
+    ``out_dtype`` (`engine.py:115-118`, XLA's ``jax.lax.dot`` with an f32
+    result). A plain large product, left to the library: cuBLAS computes a
+    bf16 product in f32 and rounds its bf16 result once."""
+    xb = (x_q.float() * x_s[:, None]).to(torch.bfloat16)
+    if xb.device.type == "cuda" and out_dtype == torch.bfloat16:
+        return torch.matmul(xb, w)
+    return torch.matmul(xb.float(), w.float()).to(out_dtype)
 
 
 @dataclasses.dataclass
@@ -50,7 +61,7 @@ class QuantLinear:
     ``data`` packed int8 (K//2, N), or (L, K//2, N) stacked; ``scale`` the
     per-column ``s_col`` (N,) / (L, N); ``mult`` per-group multipliers
     (K//g, N) int8; ``mult_packed`` their nibble-packed form for the
-    stacked decode GEMV; ``paired`` the W4A8 adjacent-group layout.
+    stacked decode GEMVs; ``paired`` the W4A8 adjacent-group layout.
     """
 
     data: torch.Tensor
@@ -62,57 +73,86 @@ class QuantLinear:
     mult_packed: Optional[torch.Tensor] = None
     in_scale: Optional[torch.Tensor] = None
 
-    def _check(self, M: int) -> None:
+    def _check(self) -> None:
         if self.mode not in PORTED_MODES:
             raise _not_ported(f"QuantLinear mode {self.mode!r}")
         if self.in_scale is not None:
             raise _not_ported("static activation scales (in_scale)")
-        if M > GEMV_MAX_M:
-            raise _too_many_rows(M)
 
     def __call__(self, x: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-        """y = x @ W with the mode's kernel. x: (..., K)."""
+        """y = x @ W with the mode's kernel (`engine.py:85`). x: (..., K)."""
+        self._check()
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        self._check(x2.shape[0])
+        decode = x2.shape[0] <= GEMV_MAX_M
         if self.mode == "w4a8_2l":
             x_q, x_s = quantize_rowwise(x2)
-            out = matmul_w4a8_2l_gemv(
-                x_q, x_s, self.data, self.mult, self.scale,
-                group_size=self.group_size, out_dtype=out_dtype, paired=self.paired,
-            )
+            if decode:
+                out = matmul_w4a8_2l_gemv(
+                    x_q, x_s, self.data, self.mult, self.scale,
+                    group_size=self.group_size, out_dtype=out_dtype, paired=self.paired,
+                )
+            else:
+                s_eff = self.mult.float() * self.scale[None, :]
+                w = dequantize_int4(self.data, s_eff, self.group_size, offset_binary=True,
+                                    paired=self.paired)
+                out = _prefill_product(x_q, x_s, w, out_dtype)
         else:
             x_q, x_s = quantize_rowwise_a4(x2)
-            out = matmul_w4a4_2l_gemv(
-                x_q, x_s, self.data, self.mult, self.scale,
-                group_size=self.group_size, out_dtype=out_dtype,
-            )
+            if decode:
+                out = matmul_w4a4_2l_gemv(
+                    x_q, x_s, self.data, self.mult, self.scale,
+                    group_size=self.group_size, out_dtype=out_dtype,
+                )
+            else:
+                s_eff = self.mult.float() * self.scale[None, :]
+                w = dequantize_int4_vertical(self.data, s_eff, self.group_size)
+                out = _prefill_product(x_q, x_s, w, out_dtype)
         return out.reshape(*lead, -1)
 
     def call_layer(self, x: torch.Tensor, layer: int, out_dtype=torch.bfloat16) -> torch.Tensor:
         """y = x @ W[layer] for stacked (L, ...) weights (`engine.py:163`).
 
-        The A4 GEMV takes the layer index itself; the W4A8 mode applies the
-        non-stacked GEMV to the layer's views (no copy), as the JAX package
-        does off the TPU.
+        The layer index goes into the kernels, so no per-layer weight slice
+        is copied: the stacked GEMVs up to `GEMV_MAX_M` rows, the stacked
+        dequant before the prefill product above. Other cases apply
+        `__call__` to the layer's views.
         """
+        self._check()
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        self._check(x2.shape[0])
-        if self.mode == "w4a4_2l" and self.mult_packed is not None:
+        decode = x2.shape[0] <= GEMV_MAX_M
+        paired_a8 = self.mode == "w4a8_2l" and self.paired
+        g = self.group_size
+        if decode and paired_a8 and self.mult_packed is not None:
+            x_q, x_s = quantize_rowwise(x2)
+            out = matmul_w4a8_2l_gemv_stacked(
+                x_q, x_s, self.data, self.mult_packed, self.scale, layer,
+                group_size=g, out_dtype=out_dtype,
+            )
+        elif decode and self.mode == "w4a4_2l" and self.mult_packed is not None:
             x_q, x_s = quantize_rowwise_a4(x2)
             out = matmul_w4a4_2l_gemv_stacked(
                 x_q, x_s, self.data, self.mult_packed, self.scale, layer,
-                group_size=self.group_size, out_dtype=out_dtype,
+                group_size=g, out_dtype=out_dtype,
             )
-            return out.reshape(*lead, -1)
-        sliced = QuantLinear(
-            self.data[layer], self.scale[layer], mode=self.mode,
-            group_size=self.group_size,
-            mult=None if self.mult is None else self.mult[layer],
-            paired=self.paired,
-        )
-        return sliced(x, out_dtype=out_dtype)
+        elif not decode and self.mode == "w4a4_2l" and self.mult is not None:
+            x_q, x_s = quantize_rowwise_a4(x2)
+            w = dequantize_int4_vertical_stacked(self.data, self.mult, self.scale, layer,
+                                                 group_size=g)
+            out = _prefill_product(x_q, x_s, w, out_dtype)
+        elif not decode and paired_a8 and self.mult is not None:
+            x_q, x_s = quantize_rowwise(x2)
+            w = dequantize_int4_paired_stacked(self.data, self.mult, self.scale, layer,
+                                               group_size=g)
+            out = _prefill_product(x_q, x_s, w, out_dtype)
+        else:
+            sliced = QuantLinear(
+                self.data[layer], self.scale[layer], mode=self.mode, group_size=g,
+                mult=None if self.mult is None else self.mult[layer], paired=self.paired,
+            )
+            return sliced(x, out_dtype=out_dtype)
+        return out.reshape(*lead, -1)
 
 
 def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,

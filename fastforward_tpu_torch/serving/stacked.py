@@ -8,11 +8,11 @@ decode step appends one row through the KV-append kernel and attends with
 the flash-decode kernel.
 
 Ported branches (`stacked.py:378-909`): the stacked-KV decode step
-(`:590-608`), the stacked prefill (`:609-649`) with plain grouped
-attention over the just-written cache (what the JAX package runs off the
-TPU and with ``FF_FLASH_PREFILL=0``), and the no-cache forward. Paged
-caches, tensor parallelism and the fused W4A8 layer head and tail are not
-ported; prefill of more than 256 rows is the next slice.
+(`:590-608`), the stacked prefill (`:609-649`) with the flash-prefill
+kernel over the just-written cache where the head dim is a multiple of
+128 (plain grouped attention otherwise, as the JAX package's TPU route
+does), and the no-cache forward. Paged caches, tensor parallelism and the
+fused W4A8 layer head and tail are not ported.
 """
 
 import dataclasses
@@ -24,13 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from fastforward_tpu_torch.device import resolve_device
-from fastforward_tpu_torch.kernels.attention import flash_decode_int8_stacked
+from fastforward_tpu_torch.kernels.attention import flash_decode_int8_stacked, flash_prefill
 from fastforward_tpu_torch.kernels.kv_update import kv_append_decode_int8_stacked
-from fastforward_tpu_torch.kernels.matmul import (
-    GEMV_MAX_M,
-    matmul_w4a8_2l_gemv_argmax,
-    quantize_rowwise,
-)
+from fastforward_tpu_torch.kernels.matmul import matmul_w4a8_2l_gemv_argmax, quantize_rowwise
 from fastforward_tpu_torch.kernels.packing import (
     pack_int4_vertical,
     pack_mult_nibbles,
@@ -45,7 +41,6 @@ from fastforward_tpu_torch.serving.engine import (
     ServingParams,
     _attention_grouped,
     _rms_norm,
-    _too_many_rows,
 )
 from fastforward_tpu_torch.serving.kv_cache import NEG_INF, _quantize_kv
 
@@ -251,9 +246,10 @@ def serving_forward_stacked(
 
     Runs where its tensors are. With a cache, a one-token step appends
     through the KV-append kernel and attends through the flash-decode
-    kernel; a longer step (prefill, B*T <= 256) writes its block of the
-    cache and attends with plain grouped attention over it. The cache
-    tensors are updated in place; the returned cache shares them.
+    kernel; a longer step (prefill) writes its block of the cache and
+    attends over it through the flash-prefill kernel (head dim a multiple
+    of 128; plain grouped attention otherwise). The cache tensors are
+    updated in place; the returned cache shares them.
     ``greedy_head`` with T == 1 and a W4A8 lm_head runs the fused
     GEMV + argmax kernel, so the logits never reach device memory.
     """
@@ -267,8 +263,6 @@ def serving_forward_stacked(
     if positions is None:
         start0 = cache.length if cache is not None else 0
         positions = torch.arange(T, device=dev) + start0
-    if B * T > GEMV_MAX_M:
-        raise _too_many_rows(B * T)
 
     x = params.embedding[input_ids]
     pos2 = positions if positions.dim() == 2 else positions[None, :]
@@ -283,9 +277,10 @@ def serving_forward_stacked(
         starts = (positions[:, 0] if positions.dim() == 2
                   else positions[0].expand(B)).to(torch.int32).contiguous()
         kc, vc, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
-    if cache is None or T > 1:
-        if start0 is None and cache is not None:
-            start0 = int(positions[0])
+    if cache is not None and T > 1 and start0 is None:
+        start0 = int(positions[0])
+    flash = cache is not None and T > 1 and d % 128 == 0
+    if cache is None or (T > 1 and not flash):
         s_idx = torch.arange(T if cache is None else cache.max_len, device=dev)
         mask = torch.where(
             s_idx[None, None, None, :] <= pos2[:, None, :, None], 0.0, NEG_INF
@@ -329,9 +324,12 @@ def serving_forward_stacked(
             vc[l, :, :, start0:start0 + T] = vq8
             ks[l, :, :, start0:start0 + T] = ksc
             vs[l, :, :, start0:start0 + T] = vsc
-            k_all = (kc[l].float() * ks[l][..., None]).to(x.dtype)
-            v_all = (vc[l].float() * vs[l][..., None]).to(x.dtype)
-            attn = _attention_grouped(q, k_all, v_all, mask)
+            if flash:
+                attn = flash_prefill(q.contiguous(), kc[l], ks[l], vc[l], vs[l], starts)
+            else:
+                k_all = (kc[l].float() * ks[l][..., None]).to(x.dtype)
+                v_all = (vc[l].float() * vs[l][..., None]).to(x.dtype)
+                attn = _attention_grouped(q, k_all, v_all, mask)
         attn = attn.transpose(1, 2).reshape(B, T, nh * d)
         x = x + layer.o_proj.call_layer(attn, l)
 

@@ -134,3 +134,62 @@ def test_flash_decode_select_lifts_a_per_layer_cache():
            ta.flash_decode_int8_reference(torch.from_numpy(q).to(torch.bfloat16),
                                           *map(torch.from_numpy, (kc[0], ks[0], vc[0], vs[0],
                                                                   lengths))))
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp of each value of ``a`` (8 significant bits)."""
+    mag = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _prefill_inputs(B, H, Hkv, T, S, d, int8_kv, seed):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, H, T, d).astype(np.float32)
+    if int8_kv:
+        k = rs.randint(-128, 128, (B, Hkv, S, d)).astype(np.int8)
+        v = rs.randint(-128, 128, (B, Hkv, S, d)).astype(np.int8)
+        ks = (rs.rand(B, Hkv, S) * 0.02).astype(np.float32)
+        vs = (rs.rand(B, Hkv, S) * 0.05).astype(np.float32)
+        return q, k, ks, v, vs
+    k = rs.randn(B, Hkv, S, d).astype(np.float32) * 0.3
+    v = rs.randn(B, Hkv, S, d).astype(np.float32)
+    return q, k, None, v, None
+
+
+@pytest.mark.parametrize("int8_kv", [True, False])
+@pytest.mark.parametrize("T", [8, 40, 128])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_prefill_matches_jax(G, T, int8_kv):
+    # GIVEN causal prefill queries (head dim 128) over a cache of S = T + 24
+    # rows, int8 with per-token scales or bf16, starting at 0 or later
+    B, Hkv, d = 2, 2, 128
+    H, S = Hkv * G, T + 24
+    q, k, ks, v, vs = _prefill_inputs(B, H, Hkv, T, S, d, int8_kv, seed=G * T)
+    for starts in (np.array([0, 0], np.int32), np.array([24, 7], np.int32)):
+        for q_dtype in ("float32", "bfloat16"):
+            qj = jnp.asarray(q).astype(getattr(jnp, q_dtype))
+            qt = torch.from_numpy(q).to(getattr(torch, q_dtype))
+            if int8_kv:
+                kvj = [jnp.asarray(a) for a in (k, ks, v, vs)]
+                kvt = [torch.from_numpy(a) for a in (k, ks, v, vs)]
+            else:
+                kj, vj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (k, v))
+                kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (k, v))
+                kvj, kvt = [kj, None, vj, None], [kt, None, vt, None]
+            # WHEN attended by both packages (JAX's flash_prefill runs its
+            # reference off the TPU; so does the port's wrapper on the CPU)
+            a = ja.flash_prefill(qj, *kvj, jnp.asarray(starts))
+            b = ta.flash_prefill(qt, *kvt, torch.from_numpy(starts))
+            ra = ja.flash_prefill_reference(qj, *kvj, jnp.asarray(starts))
+            rb = ta.flash_prefill_reference(qt, *kvt, torch.from_numpy(starts))
+            assert b.dtype == qt.dtype and tuple(b.shape) == (B, H, T, d)
+            # THEN within atol 1e-5 in f32 (another summation order); in
+            # bf16 within that and one bf16 ulp of the value (the two f32
+            # results may round to neighbouring bf16 values)
+            for x, y in ((a, b), (ra, rb)):
+                x = np.asarray(x.astype(jnp.float32))
+                y = y.float().numpy()
+                if q_dtype == "float32":
+                    np.testing.assert_allclose(y, x, rtol=0, atol=1e-5)
+                else:
+                    assert (np.abs(x - y) <= _bf16_ulp(x) + 1e-5).all()

@@ -178,3 +178,70 @@ def test_gemv_split_covers_every_unit(M, N, n_units, rows):
     assert 1 <= n_split <= n_units
     assert (n_split - 1) * per < n_units <= n_split * per
     assert per * rows <= max(tm._SPLIT_ROWS, rows)
+
+
+def _stacked_two_level(L, K, N, g, seed):
+    rs = np.random.RandomState(seed)
+    w = rs.randint(-128, 128, (L, K // 2, N)).astype(np.int8)
+    m = rs.randint(1, 16, (L, K // g, N)).astype(np.int8)
+    s = (rs.rand(L, N) * 1e-2 + 1e-4).astype(np.float32)
+    return w, m, s
+
+
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_w4a8_gemv_stacked_bit_exact(g, out_dtype):
+    # GIVEN 3 layers of paired W4A8 weights, multipliers nibble-packed by JAX
+    L, M, K, N = 3, 6, 8 * g, 40
+    w, m, s = _stacked_two_level(L, K, N, g, seed=g)
+    xj, xt = _act((M, K), seed=g + 1)
+    qj, sj = jax.jit(jm.quantize_rowwise)(xj)
+    qt, st = tm.quantize_rowwise(xt)
+    mpj = jpk.pack_mult_nibbles(jnp.asarray(m))
+    mpt = torch.from_numpy(np.array(mpj))
+    for layer in range(L):
+        # WHEN each layer's GEMV runs in both packages THEN the outputs agree
+        a = jm.matmul_w4a8_2l_gemv_stacked(qj, sj, jnp.asarray(w), mpj, jnp.asarray(s),
+                                           jnp.int32(layer), group_size=g,
+                                           out_dtype=getattr(jnp, out_dtype))
+        b = tm.matmul_w4a8_2l_gemv_stacked(qt, st, torch.from_numpy(w), mpt,
+                                           torch.from_numpy(s), layer, group_size=g,
+                                           out_dtype=getattr(torch, out_dtype))
+        assert b.dtype == getattr(torch, out_dtype)
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("layout", ["vertical", "paired"])
+@pytest.mark.parametrize("g", [32, 128])
+def test_dequant_stacked_bit_exact(layout, g):
+    # GIVEN 3 layers of two-level weights (vertical W4A4 or paired W4A8)
+    L, K, N = 3, 4 * g, 48
+    w, m, s = _stacked_two_level(L, K, N, g, seed=7 * g)
+    jfn = getattr(jm, f"dequantize_int4_{layout}_stacked")
+    tfn = getattr(tm, f"dequantize_int4_{layout}_stacked")
+    for layer in range(L):
+        # WHEN each layer is dequantized by both packages THEN the bf16
+        # weights agree bit for bit (the JAX package's CPU rounding)
+        a = jfn(jnp.asarray(w), jnp.asarray(m), jnp.asarray(s), jnp.int32(layer), group_size=g)
+        b = tfn(torch.from_numpy(w), torch.from_numpy(m), torch.from_numpy(s), layer,
+                group_size=g)
+        assert b.dtype == torch.bfloat16 and tuple(b.shape) == (K, N)
+        _eq(a, b)
+
+
+def test_dequant_non_stacked_bit_exact():
+    # the non-stacked forms take a ready per-group scale (mult * s_col)
+    K, N, g = 128, 40, 32
+    w, m, s = _stacked_two_level(1, K, N, g, seed=11)
+    s_eff = m[0].astype(np.float32) * s[0][None, :]
+    _eq(jm.dequantize_int4_vertical(jnp.asarray(w[0]), jnp.asarray(s_eff), g),
+        tm.dequantize_int4_vertical(torch.from_numpy(w[0]), torch.from_numpy(s_eff), g))
+    _eq(jm.dequantize_int4(jnp.asarray(w[0]), jnp.asarray(s_eff), g, offset_binary=True,
+                           paired=True),
+        tm.dequantize_int4(torch.from_numpy(w[0]), torch.from_numpy(s_eff), g,
+                           offset_binary=True, paired=True))
+    # the group-halves branches are not ported
+    for offset_binary in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm.dequantize_int4(torch.from_numpy(w[0]), torch.from_numpy(s_eff), g,
+                               offset_binary=offset_binary)
