@@ -1,6 +1,7 @@
 // Shared device code of the port's two-level int4 GEMVs (a4_gemv.cu,
-// w4a8_gemv.cu): the split-K partial-sum kernel and the epilogue, whose
-// compile-time ARGMAX flag turns the logits into token ids.
+// w4a8_gemv.cu, fused_tail.cu): the split-K partial-sum tile and kernel,
+// and the epilogue, whose compile-time ARGMAX flag turns the logits into
+// token ids.
 //
 // Both GEMVs compute, per output column n and row m,
 //   acc[m, n] = sum_g m_g[n] * sum_{k in g} x[m, k] * v[k, n]      (int32)
@@ -73,18 +74,20 @@ __device__ __forceinline__ void transpose4x4(const unsigned r[4], unsigned c[4])
 //            (always for kVertical; the stacked W4A8 GEMV for kPaired)
 //            else:   (n_groups, N) int8
 //   partial  (n_split, M, N) int32
-// Grid: (ceil(M/8), ceil(N/128), n_split); kThreads threads; dynamic
-// shared memory = gemv_smem_bytes(units_per_split * rows_per_unit, units).
+// gemv_tile computes one (row tile, column tile, split) of it with all
+// kThreads threads of the block, in dynamic shared memory `smem` of
+// gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes;
+// gemv_partial_kernel runs one tile per block on the grid
+// (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
+// block of a persistent grid.
 // rows_per_unit: byte rows of one unit (group/2 vertical, group paired).
 template <int LAYOUT, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    const void* __restrict__ mult, int32_t* __restrict__ partial,
-                    int M, int K, int N, int group, int units_per_split,
-                    int n_units) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void
+gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+          const void* __restrict__ mult, int32_t* __restrict__ partial,
+          int M, int K, int N, int group, int units_per_split, int n_units,
+          int m_tile, int n_tile, int split, unsigned char* smem) {
   const int rows_per_unit = LAYOUT == kVertical ? group / 2 : group;
-  const int split = blockIdx.z;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
   const int KR = units_per_split * rows_per_unit;  // smem row pitch (bytes)
@@ -94,7 +97,7 @@ gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   int* sxb = sxa + kBM * units_per_split;                   // [kBM][units]
   int* red = sxb + kBM * units_per_split;                   // [kWarps][kBM][kBN]
 
-  const int m0 = blockIdx.x * kBM;
+  const int m0 = m_tile * kBM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = u0 * rows_per_unit;  // first byte row of this split
 
@@ -147,7 +150,7 @@ gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
   __syncthreads();
 
-  const int n0 = blockIdx.y * kBN + lane * 4;
+  const int n0 = n_tile * kBN + lane * 4;
   const bool live = n0 < N;  // N % 4 == 0: a live lane owns 4 valid columns
   int acc[kBM][4];
 #pragma unroll
@@ -233,13 +236,24 @@ gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   __syncthreads();
   for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
     const int m = i / kBN, nl = i % kBN;
-    const int n = blockIdx.y * kBN + nl;
+    const int n = n_tile * kBN + nl;
     if (m0 + m >= M || n >= N) continue;
     int s = 0;
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi) s += red[(wi * kBM + m) * kBN + nl];
     partial[((size_t)split * M + m0 + m) * N + n] = s;
   }
+}
+
+template <int LAYOUT, bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                    const void* __restrict__ mult, int32_t* __restrict__ partial,
+                    int M, int K, int N, int group, int units_per_split,
+                    int n_units) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gemv_tile<LAYOUT, PACKED>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
+                            blockIdx.x, blockIdx.y, blockIdx.z, smem);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {

@@ -1,4 +1,5 @@
-// Length-aware flash-decode attention over the layer-stacked INT8 KV cache.
+// Length-aware flash-decode attention over the layer-stacked INT8 KV cache,
+// and over the paged INT8 pool through a page table.
 //
 // Replaces: fastforward_tpu/kernels/attention.py
 // flash_decode_int8_stacked_ragged (:635, bodies :518 and :408) and
@@ -20,6 +21,17 @@
 // dims, dequantizes with the token's scale in registers and keeps an f32
 // online softmax (running max, sum, accumulator) per query head. The four
 // warps' states are merged in shared memory at the end.
+//
+// Paged form. Replaces fastforward_tpu/kernels/paged_attention.py
+// paged_flash_decode_int8 (:156, body _paged_flash_decode_kernel :56):
+// the same function with block i of sequence b read from pool
+// (L, P, Hkv, page, D) page table[b, i] (-1 reads page 0, the trash page);
+// it walks min(ceil(len / page), MP) pages. Bound: the live pages' bytes,
+// as the slab form, plus one 4-byte table entry per page. Both forms run
+// one kernel body, templated on where a block of tokens lives (SlabRows,
+// PagedRows): a warp visits the tokens t = warp (mod 4) in increasing
+// order whatever the block size, so over the same tokens the paged and
+// slab forms sum in the same order and give the same bits.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -30,21 +42,42 @@ namespace {
 
 constexpr int kD = 128;       // head dim (4 per lane)
 constexpr int kWarps = 4;
-constexpr int kBlockS = 256;  // tokens per cache block
+constexpr int kBlockS = 256;  // tokens per slab block
 
-template <int G>
+// Row index (in token rows of kD bytes) of the first token of block `blk`
+// of sequence b, kv head h; blocks hold `block` tokens.
+struct SlabRows {
+  int B, Hkv, S, layer;
+  __device__ int limit() const { return S; }
+  __device__ int block() const { return kBlockS; }
+  __device__ size_t row0(int b, int h, int blk) const {
+    return (((size_t)layer * B + b) * Hkv + h) * S + (size_t)blk * kBlockS;
+  }
+};
+
+struct PagedRows {
+  const int* table;
+  int P, Hkv, page, MP, layer;
+  __device__ int limit() const { return MP * page; }
+  __device__ int block() const { return page; }
+  __device__ size_t row0(int b, int h, int blk) const {
+    const int pid = min(max(table[(size_t)b * MP + blk], 0), P - 1);
+    return (((size_t)layer * P + pid) * Hkv + h) * page;
+  }
+};
+
+template <int G, class Rows>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
                     const float* __restrict__ ks, const int8_t* __restrict__ v,
                     const float* __restrict__ vs, const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out, int B, int Hkv, int S, int layer,
-                    float sm_scale) {
+                    __nv_bfloat16* __restrict__ out, int Hkv, Rows rows, float sm_scale) {
   __shared__ float sh_m[kWarps][G], sh_l[kWarps][G];
   __shared__ float sh_acc[kWarps][G][kD];
   const int b = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int H = Hkv * G;
-  const int len = min(lengths[b], S);
+  const int len = min(lengths[b], rows.limit());
 
   float qf[G][4];
 #pragma unroll
@@ -62,19 +95,18 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
     for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
   }
 
-  const size_t row = ((size_t)layer * B + b) * Hkv + h;  // (l, b, h)
-  const int8_t* kr = k + row * S * kD;
-  const int8_t* vr = v + row * S * kD;
-  const float* ksr = ks + row * S;
-  const float* vsr = vs + row * S;
-  const int n_blocks = (len + kBlockS - 1) / kBlockS;
+  const int bs = rows.block();
+  const int n_blocks = (len + bs - 1) / bs;
   for (int blk = 0; blk < n_blocks; ++blk) {
-    const int t_end = min(len, (blk + 1) * kBlockS);
-    for (int t = blk * kBlockS + warp; t < t_end; t += kWarps) {
-      const unsigned kw = *reinterpret_cast<const unsigned*>(kr + (size_t)t * kD + lane * 4);
-      const unsigned vw = *reinterpret_cast<const unsigned*>(vr + (size_t)t * kD + lane * 4);
+    const size_t r0 = rows.row0(b, h, blk);
+    const int t0 = blk * bs;
+    const int t_end = min(len, t0 + bs);
+    for (int t = t0 + warp; t < t_end; t += kWarps) {
+      const size_t r = r0 + (t - t0);
+      const unsigned kw = *reinterpret_cast<const unsigned*>(k + r * kD + lane * 4);
+      const unsigned vw = *reinterpret_cast<const unsigned*>(v + r * kD + lane * 4);
       float kf[4], vf[4];
-      const float kscale = ksr[t], vscale = vsr[t];
+      const float kscale = ks[r], vscale = vs[r];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         kf[j] = static_cast<float>(static_cast<int8_t>((kw >> (8 * j)) & 0xFF)) * kscale;
@@ -124,34 +156,50 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
   }
 }
 
-template <int G>
+template <class Rows>
 cudaError_t launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
-                   const void* lengths, void* out, int B, int Hkv, int S, int layer,
+                   const void* lengths, void* out, int B, int H, int Hkv, int D, Rows rows,
                    float sm_scale, cudaStream_t st) {
-  flash_decode_kernel<G><<<dim3(B, Hkv), kWarps * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
-      static_cast<const float*>(vs), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), B, Hkv, S, layer, sm_scale);
+  if (D != kD || H % Hkv != 0) return cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const int8_t*>(k);
+  const auto* ksp = static_cast<const float*>(ks);
+  const auto* vp = static_cast<const int8_t*>(v);
+  const auto* vsp = static_cast<const float*>(vs);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  switch (H / Hkv) {
+    case 1: flash_decode_kernel<1, Rows><<<grid, kWarps * 32, 0, st>>>(qp, kp, ksp, vp, vsp, lp, op, Hkv, rows, sm_scale); break;
+    case 2: flash_decode_kernel<2, Rows><<<grid, kWarps * 32, 0, st>>>(qp, kp, ksp, vp, vsp, lp, op, Hkv, rows, sm_scale); break;
+    case 4: flash_decode_kernel<4, Rows><<<grid, kWarps * 32, 0, st>>>(qp, kp, ksp, vp, vsp, lp, op, Hkv, rows, sm_scale); break;
+    case 8: flash_decode_kernel<8, Rows><<<grid, kWarps * 32, 0, st>>>(qp, kp, ksp, vp, vsp, lp, op, Hkv, rows, sm_scale); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaErrorInvalidValue for a head dim other than 128 or a group
-// size outside {1, 2, 4, 8}; the wrapper checks both before the call.
+// Both entries return cudaErrorInvalidValue for a head dim other than 128
+// or a group size outside {1, 2, 4, 8}; the wrappers check both first.
 extern "C" int ff_flash_decode(const void* q, const void* k, const void* ks, const void* v,
                                const void* vs, const void* lengths, void* out, int L, int B,
                                int H, int Hkv, int S, int D, int layer, float sm_scale,
                                void* stream) {
   (void)L;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != kD || H % Hkv != 0) return cudaErrorInvalidValue;
-  switch (H / Hkv) {
-    case 1: return launch<1>(q, k, ks, v, vs, lengths, out, B, Hkv, S, layer, sm_scale, st);
-    case 2: return launch<2>(q, k, ks, v, vs, lengths, out, B, Hkv, S, layer, sm_scale, st);
-    case 4: return launch<4>(q, k, ks, v, vs, lengths, out, B, Hkv, S, layer, sm_scale, st);
-    case 8: return launch<8>(q, k, ks, v, vs, lengths, out, B, Hkv, S, layer, sm_scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch(q, k, ks, v, vs, lengths, out, B, H, Hkv, D, SlabRows{B, Hkv, S, layer},
+                sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// table (B, MP) int32; page a multiple of 4 tokens.
+extern "C" int ff_paged_flash_decode(const void* q, const void* k, const void* ks,
+                                     const void* v, const void* vs, const void* table,
+                                     const void* lengths, void* out, int L, int P, int B, int H,
+                                     int Hkv, int page, int MP, int D, int layer,
+                                     float sm_scale, void* stream) {
+  (void)L;
+  return launch(q, k, ks, v, vs, lengths, out, B, H, Hkv, D,
+                PagedRows{static_cast<const int*>(table), P, Hkv, page, MP, layer}, sm_scale,
+                static_cast<cudaStream_t>(stream));
 }

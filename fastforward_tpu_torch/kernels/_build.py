@@ -32,7 +32,8 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "fastforward_tpu_torch"
 
-SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill")
+SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill",
+           "fused_tail")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -66,11 +67,17 @@ SIGNATURES = {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts,
         # L, B, Hkv, S, D, layer, stream
         "ff_kv_append": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, positions, table,
+        # L, P, B, Hkv, page, MP, D, layer, stream
+        "ff_paged_kv_append": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "flash_decode": {
         # q, k, ks, v, vs, lengths, out, L, B, H, Hkv, S, D, layer,
         # sm_scale, stream
         "ff_flash_decode": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+        # q, k, ks, v, vs, table, lengths, out, L, P, B, H, Hkv, page, MP,
+        # D, layer, sm_scale, stream
+        "ff_paged_flash_decode": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     },
     "dequant": {
         # w, mult (or NULL), scale, out, K, N, L, layer, group, stream
@@ -80,6 +87,13 @@ SIGNATURES = {
     "flash_prefill": {
         # q, k, ks, v, vs, starts, out, B, H, Hkv, T, S, D, sm_scale, stream
         "ff_flash_prefill": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    },
+    "fused_tail": {
+        # xq, xs, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m,
+        # dn_s, partial, x1, hq, gated, x2, red_a, red_b, scales, out, M, K1,
+        # H, I, L, layer, group, n_pack_o, n_pack_gu, n_pack_dn, split_o,
+        # split_gu, split_dn, eps, out_bf16, stream
+        "ff_fused_o_mlp": [P] * 22 + [I] * 13 + [F, I, P],
     },
 }
 

@@ -1,10 +1,10 @@
-"""Two-level int4 GEMVs and the prefill dequant, ported from
-`fastforward_tpu/kernels/matmul.py`.
+"""Two-level int4 GEMVs, the prefill dequant and the fused W4A8 layer
+tail, ported from `fastforward_tpu/kernels/matmul.py`.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs
 the plain PyTorch version beside it (the port of the JAX oracle), a CUDA
 tensor launches the hand-written kernel (`csrc/a4_gemv.cu`,
-`csrc/w4a8_gemv.cu`, `csrc/dequant.cu`) or raises. There is no fallback
+`csrc/w4a8_gemv.cu`, `csrc/dequant.cu`, `csrc/fused_tail.cu`) or raises. There is no fallback
 from one to the other.
 
 The activation quantizers divide by a constant as a multiplication by its
@@ -19,6 +19,7 @@ is an integer of magnitude below 2**53, so it is exact, and converting
 the float64 result to float32 rounds exactly as int32 → float32 does.
 """
 
+import functools
 from typing import Optional
 
 import torch
@@ -436,3 +437,145 @@ def dequantize_int4_paired_stacked(w_packed, mult, s_col, layer, group_size: int
         return dequantize_int4_paired_reference(w_packed[layer], s_eff, group_size)
     return _dequant("ff_dequant_paired", "dequant_paired", w_packed, mult, s_col, layer,
                     group_size, paired=True)
+
+
+# --- Fused W4A8 layer tail (`matmul.py:1909-2049`, `:2263-2433`) -------------
+
+
+def _fused_o_mlp_parts(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m, dn_s,
+                       group_size: int = 128, eps: float = 1e-5):
+    """The oracle's steps with their intermediates: (y, x1, hq, s_h, x2,
+    s_g), all f32 but the int8 hq and x2. Per-layer operands, multipliers
+    unpacked (K//g, N) int8."""
+    x_q, x_s = quantize_rowwise(attn)
+    o_out = matmul_w4a8_2l_reference(x_q, x_s, o_w, o_m, o_s, None, group_size, torch.float32,
+                                     paired=True)
+    x1 = x_res.float() + o_out
+    inv = torch.rsqrt(torch.mean(x1 * x1, dim=1, keepdim=True) + eps)
+    h = x1 * inv * norm_w[None, :].float()
+    h_q, h_s = quantize_rowwise(h)
+    gu = matmul_w4a8_2l_reference(h_q, h_s, gu_w, gu_m, gu_s, None, group_size, torch.float32,
+                                  paired=True)
+    gu = gu.to(torch.bfloat16).float()  # the kernel stages gate/up through bf16
+    inter = gu.shape[1] // 2
+    gate, up = gu[:, :inter], gu[:, inter:]
+    gated = gate * torch.sigmoid(gate) * up
+    g_q, g_s = quantize_rowwise(gated)
+    dn = matmul_w4a8_2l_reference(g_q, g_s, dn_w, dn_m, dn_s, None, group_size, torch.float32,
+                                  paired=True)
+    return x1 + dn, x1, h_q, h_s, g_q, g_s
+
+
+def fused_o_mlp_reference(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m,
+                          dn_s, group_size: int = 128, eps: float = 1e-5):
+    """Oracle of the fused layer tail (`matmul.py:2263`), per-layer operands:
+    f32 residual chain, dynamic int8 activation quantization at each
+    product's input, two-level W4A8 products (paired), gate/up rounded
+    through bf16. Returns (M, H) f32."""
+    return _fused_o_mlp_parts(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m,
+                              dn_s, group_size, eps)[0]
+
+
+def _fused_o_mlp_layer(norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp, dn_sc, layer,
+                       group_size):
+    """Layer ``layer`` of the stacked operands, multipliers unpacked (each
+    to its own K's group count: the JAX CPU path unpacks gate/up's with
+    o_proj's, which holds only where the attention width equals H)."""
+    def groups(w):
+        return w.shape[1] * 2 // group_size
+    return (norm_w[layer], o_w[layer], unpack_mult_nibbles(o_mp[layer], groups(o_w)),
+            o_sc[layer], gu_w[layer], unpack_mult_nibbles(gu_mp[layer], groups(gu_w)),
+            gu_sc[layer], dn_w[layer], unpack_mult_nibbles(dn_mp[layer], groups(dn_w)),
+            dn_sc[layer])
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_o_mlp_layout(M, K1, H, I, g):
+    """K splits of the three products and the scratch layout of one fused
+    tail launch: (splits, byte sizes, byte offsets, total bytes), each
+    region 256-byte aligned, in the argument order of `ff_fused_o_mlp`."""
+    splits = tuple(gemv_split(M, N, K // (2 * g), g) for K, N in ((K1, H), (H, 2 * I), (I, H)))
+    n_chunks = -(-max(H, I) // 128)
+    sizes = {"partial": 4 * max(s * M * N for s, N in zip(splits, (H, 2 * I, H))),
+             "x1": 4 * M * H, "hq": M * H, "gated": 4 * M * I, "x2": M * I,
+             "red_a": 4 * M * n_chunks, "red_b": 4 * M * n_chunks, "scales": 4 * 2 * M}
+    offsets, total = {}, 0
+    for name, size in sizes.items():
+        offsets[name] = total
+        total += -(-size // 256) * 256
+    return splits, sizes, offsets, total
+
+
+def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
+                        dn_sc, layer, group_size, eps):
+    """Launch `csrc/fused_tail.cu`; returns (y in attn's dtype, scratch
+    views x1, hq, s_h, x2, s_g)."""
+    layer = int(layer)
+    M, K1 = attn.shape
+    L, _, H = o_w.shape
+    N_GU = gu_w.shape[2]
+    I = N_GU // 2
+    dev = attn.device
+    g = group_size
+    _build.require(attn, "attn", attn.dtype, (M, K1), dev)
+    _build.require(x_res, "x_res", torch.bfloat16, (M, H), dev)
+    _build.require(norm_w, "norm_w", torch.bfloat16, (L, H), dev)
+    for name, w, mp, sc, K, N in (("o", o_w, o_mp, o_sc, K1, H), ("gu", gu_w, gu_mp, gu_sc, H, N_GU),
+                                  ("dn", dn_w, dn_mp, dn_sc, I, H)):
+        _build.require(w, f"{name}_w", torch.int8, (L, K // 2, N), dev)
+        _build.require(mp, f"{name}_mp", torch.int32, (L, mp.shape[1], N), dev)
+        _build.require(sc, f"{name}_sc", torch.float32, (L, N), dev)
+        if K % (2 * g) != 0 or mp.shape[1] * 8 < K // g:
+            raise ValueError(f"fused tail: {name} needs K % (2 * group) == 0 and a full "
+                             f"multiplier pack (K={K}, group={g})")
+    if attn.dtype not in (torch.float32, torch.bfloat16) or g % 4 != 0 or H % 4 != 0 \
+            or I % 4 != 0 or not 0 <= layer < L or M < 1:
+        raise ValueError(
+            f"fused tail kernel needs f32 or bf16 attn, group % 4 == 0, H and inter "
+            f"divisible by 4 and a valid layer (attn={attn.dtype}, group={g}, H={H}, I={I}, "
+            f"layer={layer})"
+        )
+    x_q, x_s = quantize_rowwise(attn)
+    splits, sizes, offsets, total = _fused_o_mlp_layout(M, K1, H, I, g)
+    scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
+    ptr = {name: scratch.data_ptr() + off for name, off in offsets.items()}
+    out = torch.empty((M, H), dtype=attn.dtype, device=dev)
+    err = _build.lib("fused_tail").ff_fused_o_mlp(
+        x_q.data_ptr(), x_s.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
+        o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
+        gu_sc.data_ptr(), dn_w.data_ptr(), dn_mp.data_ptr(), dn_sc.data_ptr(),
+        *ptr.values(), out.data_ptr(),
+        M, K1, H, I, L, layer, g, o_mp.shape[1], gu_mp.shape[1], dn_mp.shape[1], *splits,
+        float(eps), int(attn.dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.launch_counts["fused_o_mlp"] += 1
+    _build.check(err, "fused_o_mlp")
+
+    def view(name, dtype, shape):
+        n = sizes[name]
+        return scratch[offsets[name]:offsets[name] + n].view(dtype).view(shape)
+
+    return (out, view("x1", torch.float32, (M, H)), view("hq", torch.int8, (M, H)),
+            view("scales", torch.float32, (2, M))[0], view("x2", torch.int8, (M, I)),
+            view("scales", torch.float32, (2, M))[1])
+
+
+def fused_o_mlp_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
+                        dn_sc, layer, group_size: int = 128, eps: float = 1e-5):
+    """The W4A8 layer tail in one call (`matmul.py:2298`):
+    ``y = x1 + down(silu-mlp(rmsnorm(x1)))`` with ``x1 = x_res +
+    o_proj(attn)``, on layer ``layer`` of stacked paired two-level weights
+    (L, K//2, N) with nibble-packed multipliers and column scales (L, N).
+    attn (M, K1); x_res (M, H) bf16; norm_w (L, H) bf16. Returns (M, H) in
+    attn's dtype. On the card `csrc/fused_tail.cu`: x1 bit-equal to the
+    oracle, the int8 hq and x2 within one level where the IEEE rsqrt and
+    exp round differently, y within 8e-3 of its largest value."""
+    if attn.device.type == "cpu":
+        return fused_o_mlp_reference(
+            attn.float(), x_res.float(),
+            *_fused_o_mlp_layer(norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
+                                dn_sc, layer, group_size),
+            group_size, eps,
+        ).to(attn.dtype)
+    return _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w,
+                               dn_mp, dn_sc, layer, group_size, eps)[0]

@@ -3,16 +3,25 @@
 All decoder layers share one shape, so their frozen weights stack along a
 leading L axis and the forward is a Python loop over the layer index (the
 JAX package's `lax.scan`). The KV cache is one stacked (L, B, Hkv, S, D)
-int8 tensor, written in place: the prefill writes a block per layer, the
-decode step appends one row through the KV-append kernel and attends with
-the flash-decode kernel.
+int8 tensor or a paged pool (`serving/paged.py`), written in place: the
+prefill writes a block per layer, the decode step appends one row through
+the KV-append kernel and attends with the flash-decode kernel (their paged
+forms for a pool).
 
-Ported branches (`stacked.py:378-909`): the stacked-KV decode step
-(`:590-608`), the stacked prefill (`:609-649`) with the flash-prefill
-kernel over the just-written cache where the head dim is a multiple of
-128 (plain grouped attention otherwise, as the JAX package's TPU route
-does), and the no-cache forward. Paged caches, tensor parallelism and the
-fused W4A8 layer head and tail are not ported.
+Ported branches (`stacked.py:378-909`), taken under the JAX package's TPU
+routing with its default flags: the paged decode step (`:568-589`), the
+stacked-KV decode step (`:590-608`), the stacked prefill (`:609-649`) with
+the flash-prefill kernel over the just-written cache where the head dim is
+a multiple of 128 (plain grouped attention otherwise, as the JAX
+package's TPU route does), the no-cache forward, and the fused W4A8 layer
+tail (`:744-778`: one call for o_proj through down at B·T <= 64). The
+paged step always calls the paged append kernel (any page and head dim)
+and the paged flash-decode kernel (any page of a multiple of 4 tokens,
+1, 2, 4 or 8 query heads per kv head), also where the JAX package's TPU
+tile limits send a shape to its reference; only a head dim other than
+128, which the flash-decode kernel cannot run, calls the plain attention
+by name. Tensor parallelism and the fused layer head (off by default)
+are not ported.
 """
 
 import dataclasses
@@ -26,7 +35,16 @@ import torch.nn.functional as F
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.kernels.attention import flash_decode_int8_stacked, flash_prefill
 from fastforward_tpu_torch.kernels.kv_update import kv_append_decode_int8_stacked
-from fastforward_tpu_torch.kernels.matmul import matmul_w4a8_2l_gemv_argmax, quantize_rowwise
+from fastforward_tpu_torch.kernels.matmul import (
+    fused_o_mlp_stacked,
+    matmul_w4a8_2l_gemv_argmax,
+    quantize_rowwise,
+)
+from fastforward_tpu_torch.kernels.paged_attention import (
+    paged_flash_decode_int8,
+    paged_flash_decode_reference,
+    paged_kv_append_decode_int8,
+)
 from fastforward_tpu_torch.kernels.packing import (
     pack_int4_vertical,
     pack_mult_nibbles,
@@ -43,6 +61,10 @@ from fastforward_tpu_torch.serving.engine import (
     _rms_norm,
 )
 from fastforward_tpu_torch.serving.kv_cache import NEG_INF, _quantize_kv
+from fastforward_tpu_torch.serving.paged import PagedKVCache
+
+# Largest B·T the fused layer tail serves (`stacked.py:744-749`).
+FUSED_TAIL_MAX_ROWS = 64
 
 
 @dataclasses.dataclass
@@ -246,10 +268,13 @@ def serving_forward_stacked(
 
     Runs where its tensors are. With a cache, a one-token step appends
     through the KV-append kernel and attends through the flash-decode
-    kernel; a longer step (prefill) writes its block of the cache and
-    attends over it through the flash-prefill kernel (head dim a multiple
-    of 128; plain grouped attention otherwise). The cache tensors are
-    updated in place; the returned cache shares them.
+    kernel (through the page table for a `PagedKVCache`, which takes
+    one-token steps only); a longer step (prefill) writes its block of the
+    cache and attends over it through the flash-prefill kernel (head dim a
+    multiple of 128; plain grouped attention otherwise). The cache tensors
+    are updated in place; the returned cache shares them. A one-token step
+    of at most 64 rows over fused paired W4A8 layers runs the layer tail
+    (o_proj through down) as one fused kernel.
     ``greedy_head`` with T == 1 and a W4A8 lm_head runs the fused
     GEMV + argmax kernel, so the logits never reach device memory.
     """
@@ -267,6 +292,12 @@ def serving_forward_stacked(
     x = params.embedding[input_ids]
     pos2 = positions if positions.dim() == 2 else positions[None, :]
 
+    paged = isinstance(cache, PagedKVCache)
+    if paged and T != 1:
+        raise ValueError(
+            "PagedKVCache supports decode-shaped (T == 1) forwards; prefill goes "
+            "through a contiguous cache + scatter_prefill_to_pages"
+        )
     if cache is not None:
         if not cache.is_quantized:
             raise NotImplementedError("only the INT8 stacked KV cache is ported")
@@ -291,6 +322,18 @@ def serving_forward_stacked(
 
     layer = stacked_layers
     fused = isinstance(layer, FusedServingLayer)
+    groups = nh // nkv
+    o = layer.o_proj
+    fused_tail = (
+        T == 1
+        and B * T <= FUSED_TAIL_MAX_ROWS
+        and fused
+        and o.mode == "w4a8_2l"
+        and o.paired
+        and o.in_scale is None
+        and all(p.mult_packed is not None and p.data.dim() == 3
+                for p in (o, layer.gateup_proj, layer.down_proj))
+    )
     for l in range(config.num_layers):
         h = _rms_norm(x, layer.input_norm[l], eps)
         if fused:
@@ -307,6 +350,19 @@ def serving_forward_stacked(
 
         if cache is None:
             attn = _attention_grouped(q, k, v, mask)
+        elif paged:
+            kq8, ksc = _quantize_kv(k)
+            vq8, vsc = _quantize_kv(v)
+            paged_kv_append_decode_int8(kc, vc, ks, vs, kq8.contiguous(), vq8.contiguous(),
+                                        ksc.contiguous(), vsc.contiguous(), starts,
+                                        cache.table, l)
+            q3 = q[:, :, 0, :].contiguous()
+            if d == 128:
+                attn = paged_flash_decode_int8(q3, kc, ks, vc, vs, cache.table, starts + 1, l)
+            else:
+                attn = paged_flash_decode_reference(q3, kc[l], ks[l], vc[l], vs[l], cache.table,
+                                                    starts + 1)
+            attn = attn[:, :, None, :]
         elif T == 1:
             kq8, ksc = _quantize_kv(k)
             vq8, vsc = _quantize_kv(v)
@@ -331,6 +387,14 @@ def serving_forward_stacked(
                 v_all = (vc[l].float() * vs[l][..., None]).to(x.dtype)
                 attn = _attention_grouped(q, k_all, v_all, mask)
         attn = attn.transpose(1, 2).reshape(B, T, nh * d)
+        if fused_tail:
+            gu, dn = layer.gateup_proj, layer.down_proj
+            x = fused_o_mlp_stacked(
+                attn[:, 0, :], x[:, 0, :].contiguous(), layer.post_norm,
+                o.data, o.mult_packed, o.scale, gu.data, gu.mult_packed, gu.scale,
+                dn.data, dn.mult_packed, dn.scale, l, group_size=o.group_size, eps=eps,
+            )[:, None, :]
+            continue
         x = x + layer.o_proj.call_layer(attn, l)
 
         h = _rms_norm(x, layer.post_norm[l], eps)

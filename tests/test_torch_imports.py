@@ -34,7 +34,9 @@ def test_port_modules_import_no_jax():
     # GIVEN every module of the port
     expected = sorted(m.name for m in pkgutil.walk_packages(
         fastforward_tpu_torch.__path__, "fastforward_tpu_torch."))
-    assert "fastforward_tpu_torch.serving.stacked" in expected
+    for name in ("serving.stacked", "serving.sampling", "serving.paged", "serving.batching",
+                 "kernels.paged_attention", "kernels.matmul"):
+        assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,

@@ -245,3 +245,72 @@ def test_dequant_non_stacked_bit_exact():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.dequantize_int4(torch.from_numpy(w[0]), torch.from_numpy(s_eff), g,
                                offset_binary=offset_binary)
+
+
+EXACT = {"xla_allow_excess_precision": False}
+
+
+def _tail_operands(L, H, inter, g, seed):
+    """Stacked paired W4A8 o, gate/up and down weights of a layer tail,
+    multipliers nibble-packed, and bf16 post-norm weights."""
+    ops = []
+    for K, N, s in ((H, H, 0), (H, 2 * inter, 1), (inter, H, 2)):
+        w, m, sc = _stacked_two_level(L, K, N, g, seed=seed + s)
+        ops += [w, np.array(jpk.pack_mult_nibbles(jnp.asarray(m))), sc]
+    norm = (np.random.RandomState(seed + 3).rand(L, H) + 0.5).astype(np.float32)
+    return norm, ops
+
+
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_fused_o_mlp_matches_jax(M):
+    # GIVEN a 2-layer stack of tail weights (H 256, inter 384, group 64:
+    # even group counts, the paired layout) and bf16 attention output and
+    # residual rows
+    L, H, inter, g, eps = 2, 256, 384, 64, 1e-5
+    norm, ops = _tail_operands(L, H, inter, g, seed=M)
+    attn_j, attn_t = _act((M, H), seed=M + 10)
+    res_j, res_t = _act((M, H), seed=M + 11)
+    norm_j = jnp.asarray(norm).astype(jnp.bfloat16)
+    norm_t = torch.from_numpy(norm).to(torch.bfloat16)
+    jops = [jnp.asarray(a) for a in ops]
+    tops = [torch.from_numpy(a) for a in ops]
+    jfn = jax.jit(lambda a, r, n, *w: jm.fused_o_mlp_stacked(a, r, n, *w[:9], w[9],
+                                                            group_size=g, eps=eps))
+    for layer in range(L):
+        args = (attn_j, res_j, norm_j, *jops, jnp.int32(layer))
+        # WHEN both packages run the tail (JAX off the TPU runs its oracle,
+        # the port on the CPU its plain version)
+        a = np.asarray(jfn.lower(*args).compile(compiler_options=EXACT)(*args)).astype(np.float32)
+        b = tm.fused_o_mlp_stacked(attn_t, res_t, norm_t, *tops, layer, group_size=g, eps=eps)
+        # THEN the bf16 outputs agree within one bf16 ulp of the largest
+        # value (the f32 mean and sigmoid may round differently in XLA and
+        # PyTorch; a moved int8 level moves the output by less)
+        assert b.dtype == torch.bfloat16 and tuple(b.shape) == (M, H)
+        b = b.float().numpy()
+        assert np.abs(a - b).max() <= 8e-3 * np.abs(a).max()
+
+
+def test_fused_o_mlp_reference_parts():
+    # the oracle's intermediates: x1 is the residual plus the o_proj GEMV,
+    # hq and x2 the row-quantized inputs of gate/up and down, and the output
+    # x1 + down; the f32 oracle agrees with JAX's within 1e-5 of its largest
+    L, H, inter, g, M = 1, 256, 256, 64, 4
+    norm, ops = _tail_operands(L, H, inter, g, seed=40)
+    attn_j, attn_t = _act((M, H), seed=41)
+    res_j, res_t = _act((M, H), seed=42)
+    layer_ops = tm._fused_o_mlp_layer(torch.from_numpy(norm).to(torch.bfloat16),
+                                      *[torch.from_numpy(a) for a in ops], 0, g)
+    y, x1, hq, hs, x2, gs = tm._fused_o_mlp_parts(attn_t.float(), res_t.float(), *layer_ops,
+                                                  group_size=g)
+    xq, xs = tm.quantize_rowwise(attn_t.float())
+    o = tm.matmul_w4a8_2l_reference(xq, xs, layer_ops[1], layer_ops[2], layer_ops[3], None, g,
+                                    torch.float32, paired=True)
+    assert torch.equal(x1, res_t.float() + o)
+    assert hq.dtype == x2.dtype == torch.int8 and tuple(x2.shape) == (M, inter)
+    assert tuple(hs.shape) == tuple(gs.shape) == (M,)
+    jl = [jnp.asarray(np.asarray(t)) if t.dtype != torch.bfloat16 else
+          jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in layer_ops]
+    args = (attn_j.astype(jnp.float32), res_j.astype(jnp.float32), *jl)
+    ref = jax.jit(lambda *a: jm.fused_o_mlp_reference(*a, group_size=g, eps=1e-5))
+    a = np.asarray(ref.lower(*args).compile(compiler_options=EXACT)(*args))
+    assert np.abs(a - y.numpy()).max() <= 1e-5 * np.abs(a).max()

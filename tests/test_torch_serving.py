@@ -186,9 +186,11 @@ def test_tiny_prefill_and_greedy_decode_match_jax(tiny_models, monkeypatch):
     assert tcache.length == int(jcache.length) == T
 
     # WHEN both decode 8 greedy tokens (JAX through its stacked-KV flow, the
-    # port through its append and flash-decode wrappers and fused argmax head)
+    # port through its append and flash-decode wrappers and fused argmax head;
+    # in w4a8_2l both through the fused layer tail, JAX's on its TPU route)
     first = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)[:, None]
     monkeypatch.setenv("FF_KV_STACKED", "force")
+    monkeypatch.setattr(js, "_serving_on_tpu", lambda: True)
     loop = js.make_stacked_decode_loop(jc, steps, donate=False)
     largs = (jp, jl, jcache, first)
     jtok, _ = loop.lower(*largs).compile(compiler_options=EXACT)(*largs)
@@ -298,9 +300,11 @@ def test_prefill_over_256_rows_and_greedy_decode_match_jax(wide_head_models, tpu
     assert tcache.length == int(jcache.length) == T
 
     # WHEN both decode greedy tokens from the last position (the W4A8 mode
-    # through the stacked W4A8 GEMV in both packages)
+    # through the stacked W4A8 GEMV and the fused layer tail in both
+    # packages, JAX's on its TPU route)
     first = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)[:, None]
     monkeypatch.setenv("FF_KV_STACKED", "force")
+    monkeypatch.setattr(js, "_serving_on_tpu", lambda: True)
     loop = js.make_stacked_decode_loop(jc, steps, donate=False)
     largs = (jp, jl, jcache, first)
     jtok, _ = loop.lower(*largs).compile(compiler_options=EXACT)(*largs)
