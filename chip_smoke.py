@@ -9,23 +9,26 @@ each raising on failure:
    per source, in parallel) and print the build time;
 2. kernels — run each kernel and its plain PyTorch version on the card at
    the Llama-3-8B shapes of the serving and engine phases and hold them
-   together (GEMVs, argmax ids, the dequant and the KV appends bit-equal;
-   flash decode, paged flash decode and flash prefill within rtol 8e-3 of
-   the largest output; the fused layer tail with x1 bit-equal, its int8
-   activations within one level in a stated share of elements and its
-   output within rtol 8e-3); print median times, device times and bounds;
+   together (GEMVs, the W8A8 GEMM, argmax ids, the dequants and the KV
+   appends bit-equal; the W4 GEMV within W4_GEMV_RTOL; flash decode, paged
+   flash decode and flash prefill within rtol 8e-3 of the largest output;
+   the fused layer tail with x1 bit-equal, its int8 activations within one
+   level in a stated share of elements and its output within rtol 8e-3);
+   print median times, device times, bounds and library times;
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params`, INT8 KV on a 512-token
-   slab, greedy decoding. Three runs, each with its launch counts set to
-   0 before it and asserted exactly after it:
+   slab, greedy decoding. Six runs, each with its launch counts set to 0
+   before it and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
    (b) bench.py's FF_BENCH_MODE=w4a8_2l: W4A8 at group 128, same shape;
    (c) W4A4 g512, 8 prompts of 32 tokens: the prefill of at most 256
-       rows, through the A4 GEMV.
+       rows, through the A4 GEMV;
+   (e), (f), (g) bench.py's FF_BENCH_MODE=w4a8, w4a16 and w8a8, group 128,
+       bench.py's shape, the lm_head in the layers' mode.
    Each prints prefill ms, decode tok/s, peak memory and profiles of one
-   decode step and one prefill. Then, at depth 2 for (a) and (b), the
-   kernel path is compared with the plain path on the card;
+   decode step and one prefill. Then, at depth 2 for every run but (c),
+   the kernel path is compared with the plain path on the card;
 4. engine — bench.py's continuous-batching workload (measure_engine with
    FF_BENCH_MODE=w4a8_2l FF_BENCH_ENGINE_PAGED=1 FF_BENCH_ENGINE_SAT=1,
    one pass): Llama-3-8B w4a8_2l g128 at full depth, 32 slots on the paged
@@ -60,10 +63,16 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 FLASH_RTOL = 8e-3              # one bf16 ulp, relative to the largest output
+# W4 GEMV (w4a16 decode) against its plain version: f32 outputs within this
+# share of the largest output (tensor-core sums in another order; the
+# error measured on an H100 is in PERF.md), bf16 outputs one bf16 ulp more.
+W4_GEMV_RTOL = 1e-4
 # Kernel path vs plain path at depth 2: relative RMS error of the logits
-# (see compare_paths). Measured on an H100 at the prefill: 0.144 (w4a4_2l)
-# and 0.0099 (w4a8_2l); the limits leave room for other weights and inputs.
-LOGIT_RMS = {"w4a4_2l": 0.3, "w4a8_2l": 0.03}
+# (see compare_paths). Measured on an H100 at the prefill: 0.144 (w4a4_2l),
+# 0.0099 (w4a8_2l), 0.058 (w8a8: its random int8 weights amplify each
+# layer's input more), 0.0012 (w4a8), 0.0005 (w4a16); the limits leave
+# room for other weights and inputs.
+LOGIT_RMS = {"w4a4_2l": 0.3, "w4a8_2l": 0.03, "w8a8": 0.15, "w4a8": 0.03, "w4a16": 0.03}
 
 # The fused layer tail's int8 activations (hq, x2) may sit one level from
 # the plain version's where the IEEE rsqrt and the row sums round unlike
@@ -73,6 +82,7 @@ TAIL_LEVEL_SHARE = 1e-3
 
 PROJ = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
         "down": (14336, 4096)}   # (K, N) of one fused Llama-3-8B layer
+VOCAB = 128256                   # Llama-3-8B's lm_head width
 BATCH, PROMPT, STEPS, SLAB = 192, 128, 32, 512   # bench.py's shape
 # bench.py's engine workload (measure_engine, FF_BENCH_ENGINE_PAGED=1,
 # FF_BENCH_ENGINE_SAT=1) at max_batch 32: 2 x 32 requests, pool of
@@ -81,13 +91,16 @@ ENGINE_SLOTS, ENGINE_MAXLEN, ENGINE_PAGE, ENGINE_BURST = 32, 512, 256, 8
 ENGINE_PAGES = int(ENGINE_SLOTS * 2 * 0.6) + 1
 ENGINE_PROMPTS = (16, 32, 64, 96)
 
-_LOG = []
+_LOG = {"file": None}
 
 
 def log(*args):
+    """Print a line, and append it to the log file of ``--out``."""
     line = " ".join(str(a) for a in args)
-    _LOG.append(line)
     print(line, flush=True)
+    if _LOG["file"] is not None:
+        _LOG["file"].write(line + "\n")
+        _LOG["file"].flush()
 
 
 def median_ms(fn, n=20):
@@ -147,15 +160,17 @@ def bound(nbytes, ops, ops_per_s):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
 
 
-def measure(name, label, kern, plain, nbytes, ops, ops_per_s, check, library=None):
+def measure(name, label, kern, plain, nbytes, ops, ops_per_s, check, library=None, plain_n=20):
     """Check ``kern`` against ``plain`` with ``check(out, ref) -> (ok, err)``,
-    time both, log one line; returns the row."""
+    time both (the plain version over ``plain_n`` calls), log one line;
+    returns the row."""
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     ok, err = check(out, ref)
+    del out, ref
     if not ok:
         raise AssertionError(f"{name} {label}: kernel disagrees with its plain version (err {err})")
-    ms, pms, dms = median_ms(kern), median_ms(plain), device_ms(kern)
+    ms, pms, dms = median_ms(kern), median_ms(plain, plain_n), device_ms(kern)
     bb, bo = bound(nbytes, ops, ops_per_s)
     lib = median_ms(library) if library is not None else None
     log(f"{name} {label}: {ms:.4f} ms, device {fmt_ms(dms)} (plain {pms:.3f} ms, bound "
@@ -173,14 +188,35 @@ def within_rtol(out, ref):
     return err <= FLASH_RTOL * ref.float().abs().max().item(), err
 
 
+# Largest error of the W4 GEMV's f32 outputs relative to the largest plain
+# output, per dtype, over every check of this run (w4_close).
+W4_REL_ERR = collections.Counter()
+
+
+def w4_close(out, ref):
+    """The W4 GEMV (tensor-core f32 sums in another order than the plain
+    version's): each output within W4_GEMV_RTOL of the largest plain output,
+    plus one bf16 ulp for bf16 outputs."""
+    o, r = out.float(), ref.float()
+    top = r.abs().max()
+    tol = W4_GEMV_RTOL * top
+    if out.dtype == torch.bfloat16:
+        mag = torch.maximum(o.abs(), r.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (o - r).abs()
+    key = str(out.dtype).split(".")[-1]
+    W4_REL_ERR[key] = max(W4_REL_ERR[key], (err.max() / top).item())
+    return bool((err <= tol).all()), err.max().item()
+
+
 def add_rows(rows):
     """One row summing the times and bounds of ``rows`` (the four
     projections of a layer)."""
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
-    dms = [r["device_ms"] for r in rows]
-    total["device_ms"] = None if None in dms else sum(dms)
+    for k in ("device_ms", "library_ms"):
+        v = [r[k] for r in rows]
+        total[k] = None if None in v else sum(v)
     total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-    total["library_ms"] = None
     return total
 
 
@@ -380,6 +416,8 @@ def phase_kernels(dev):
     rows.update(_paged_kernels(dev, gen, randint))
     rows.update(_fused_tail_kernel(dev, gen, randint))
     torch.cuda.empty_cache()
+    rows.update(_float_scale_kernels(dev, gen, randint))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -510,6 +548,112 @@ def _fused_tail_kernel(dev, gen, randint):
     return rows
 
 
+def _greedy_ids_agree(what, logits, ref):
+    """The argmax ids of ``logits`` equal those of the plain ``ref`` in every
+    row whose plain top-2 margin exceeds the largest logit error."""
+    err = (logits - ref).abs().max().item()
+    top2 = torch.topk(ref, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    differ = torch.argmax(logits, dim=-1) != torch.argmax(ref, dim=-1)
+    wrong = (differ & (margin > err)).nonzero().flatten().tolist()
+    log(f"{what}: {int(differ.sum())} of {len(differ)} argmax ids differ (max logit error "
+        f"{err:.3g}); rows whose margin exceeds it: {wrong}")
+    if wrong:
+        raise AssertionError(f"{what}: argmax ids differ where the margin exceeds the error: {wrong}")
+
+
+def _float_scale_kernels(dev, gen, randint):
+    """The kernels of the float-scale modes at the 8B shapes, g128: the
+    W8A8 GEMM, the W4A8 halves GEMV and the W4 GEMV over the four fused
+    projections at M = 192 (the JSON rows) and the lm_head at M = 192
+    (f32 logits); the W8A8 GEMM at the prefill's M = 24,576; the halves
+    dequant (w4a8 and w4a16 prefill) over the four projections."""
+    from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import unpack_int4
+
+    g, M = 128, BATCH
+    rows, shapes = {}, dict(PROJ, lm_head=(PROJ["qkv"][0], VOCAB))
+
+    def w4(K, N):
+        w = randint(-128, 128, (K // 2, N))
+        s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+        return w, s
+
+    def act(M, K):
+        return torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    per = {k: [] for k in ("w8a8_gemm", "w4a8_gemv_halves", "w4_gemv", "dequant_halves")}
+    for pname, (K, N) in shapes.items():
+        head = pname == "lm_head"
+        out_dtype = torch.float32 if head else torch.bfloat16
+        osz = M * N * (4 if head else 2)
+        x = act(M, K)
+        x_q, x_s = mm.quantize_rowwise(x)
+        w8 = randint(-127, 128, (K, N))
+        ws = torch.rand((N,), generator=gen, device=dev) * (0.02 / K ** 0.5)
+        r = measure(
+            "w8a8_gemm", f"{pname} M={M} K={K} N={N} {out_dtype}",
+            lambda: mm.matmul_w8a8(x_q, x_s, w8, ws, out_dtype=out_dtype),
+            lambda: mm.matmul_w8a8_reference(x_q, x_s, w8, ws, out_dtype=out_dtype),
+            M * K + M * 4 + K * N + N * 4 + osz, 2 * M * K * N, INT8_OPS_PER_S, bit_equal,
+            library=lambda: torch._int_mm(x_q, w8))
+        if not head:
+            per["w8a8_gemm"].append(r)
+        del w8
+        w, s = w4(K, N)
+        w_int8 = unpack_int4(w, g)
+        r = measure(
+            "w4a8_gemv_halves", f"{pname} M={M} K={K} N={N} g={g} {out_dtype}",
+            lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype),
+            lambda: mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, out_dtype),
+            M * K + M * 4 + K * N // 2 + s.numel() * 4 + osz, 2 * M * K * N, INT8_OPS_PER_S,
+            bit_equal, library=lambda: torch._int_mm(x_q, w_int8))
+        if not head:
+            per["w4a8_gemv_halves"].append(r)
+        del w_int8
+        w_bf16 = mm.dequantize_int4_reference(w, s, g)
+        r = measure(
+            "w4_gemv", f"{pname} M={M} K={K} N={N} g={g} {out_dtype}",
+            lambda: mm.matmul_w4_gemv(x, w, s, g, out_dtype),
+            lambda: mm.matmul_w4_gemv_reference(x, w, s, g, out_dtype),
+            M * K * 2 + K * N // 2 + s.numel() * 4 + osz, 2 * M * K * N, BF16_OPS_PER_S,
+            w4_close, library=lambda: torch.matmul(x, w_bf16))
+        if head:
+            _greedy_ids_agree("w4_gemv lm_head", mm.matmul_w4_gemv(x, w, s, g, out_dtype),
+                              mm.matmul_w4_gemv_reference(x, w, s, g, out_dtype))
+        else:
+            per["w4_gemv"].append(r)
+            per["dequant_halves"].append(measure(
+                "dequant_halves", f"{pname} K={K} N={N} g={g}",
+                lambda: mm.dequantize_int4(w, s, g),
+                lambda: mm.dequantize_int4_reference(w, s, g),
+                K * N // 2 + s.numel() * 4 + K * N * 2, K * N, F32_OPS_PER_S, bit_equal))
+        del w_bf16, w, s
+    for name, r in per.items():
+        rows[name] = add_rows(r)
+    log(f"w4_gemv: largest error relative to the largest plain output {dict(W4_REL_ERR)} "
+        f"(limit {W4_GEMV_RTOL}, bf16 one ulp more)")
+
+    # The W8A8 GEMM at the prefill (bench.py's 192 x 128 rows); the plain
+    # version (an f64 product) over 2 calls
+    MP = BATCH * PROMPT
+    pre = []
+    for pname, (K, N) in PROJ.items():
+        x_q, x_s = mm.quantize_rowwise(act(MP, K))
+        w8 = randint(-127, 128, (K, N))
+        ws = torch.rand((N,), generator=gen, device=dev) * (0.02 / K ** 0.5)
+        pre.append(measure(
+            "w8a8_gemm", f"prefill {pname} M={MP} K={K} N={N}",
+            lambda: mm.matmul_w8a8(x_q, x_s, w8, ws),
+            lambda: mm.matmul_w8a8_reference(x_q, x_s, w8, ws),
+            MP * K + MP * 4 + K * N + N * 4 + MP * N * 2, 2 * MP * K * N, INT8_OPS_PER_S,
+            bit_equal, library=lambda: torch._int_mm(x_q, w8), plain_n=2))
+        del x_q, w8
+        torch.cuda.empty_cache()
+    rows["w8a8_gemm"]["prefill"] = add_rows(pre)
+    return rows
+
+
 def _plain_versions():
     """(patch target, plain version, check) of every kernel wrapper the
     serving path calls, under the name that `engine`/`stacked` import."""
@@ -544,8 +688,8 @@ def _plain_versions():
             return reference(w[layer], mult[layer].float() * s_col[layer][None, :], group_size)
         return plain
 
-    def dequant_paired(w, s_eff, group_size, offset_binary, paired):
-        return mm.dequantize_int4_paired_reference(w, s_eff, group_size)
+    def w4a8_halves(x_q, x_s, w, s, group_size, out_dtype):
+        return mm.matmul_w4a8_reference(x_q, x_s, w, s, None, group_size, out_dtype)
 
     def flash(q, k, ks, v, vs, lengths, layer):
         return att.flash_decode_int8_reference(q, k[layer], ks[layer], v[layer], vs[layer], lengths)
@@ -561,6 +705,7 @@ def _plain_versions():
             group_size, eps).to(attn.dtype)
 
     eng, stk = "fastforward_tpu_torch.serving.engine", "fastforward_tpu_torch.serving.stacked"
+    mmod = "fastforward_tpu_torch.kernels.matmul"  # the names matmul_w4a8 / _w4a16 route to
     return [
         (f"{eng}.matmul_w4a4_2l_gemv_stacked", a4, bit_equal),
         (f"{eng}.matmul_w4a8_2l_gemv_stacked", w4a8_stacked, bit_equal),
@@ -570,7 +715,11 @@ def _plain_versions():
         (f"{eng}.dequantize_int4_paired_stacked", dequant(mm.dequantize_int4_paired_reference),
          bit_equal),
         (f"{eng}.dequantize_int4_vertical", mm.dequantize_int4_vertical_reference, bit_equal),
-        (f"{eng}.dequantize_int4", dequant_paired, bit_equal),
+        (f"{eng}.dequantize_int4", mm.dequantize_int4_reference, bit_equal),
+        (f"{eng}.matmul_w8a8", mm.matmul_w8a8_reference, bit_equal),
+        (f"{mmod}.matmul_w4a8_gemv", w4a8_halves, bit_equal),
+        (f"{mmod}.matmul_w4_gemv", mm.matmul_w4_gemv_reference, w4_close),
+        (f"{mmod}.dequantize_int4", mm.dequantize_int4_reference, bit_equal),
         (f"{stk}.matmul_w4a8_2l_gemv_argmax", argmax, bit_equal),
         (f"{stk}.kv_append_decode_int8_stacked", kvu.kv_append_decode_stacked_reference, None),
         (f"{stk}.flash_decode_int8_stacked", flash, within_rtol),
@@ -674,7 +823,8 @@ def _serve(config, params, layers, ids, steps, dev):
 # substrings of the device names of the port's CUDA kernels
 PORT_KERNELS = ("gemv_partial_kernel", "gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
-                "flash_prefill_kernel", "fused_tail_kernel")
+                "flash_prefill_kernel", "fused_tail_kernel", "w8a8_kernel",
+                "w4a8_halves_kernel", "w4_gemv_kernel")
 
 
 def _report_profile(what, wall_ms, rows, top=10):
@@ -838,6 +988,10 @@ def phase_serve(dev):
     L = config.num_layers
     shared = {"flash_prefill": L, "kv_append": L * STEPS, "flash_decode": L * STEPS,
               "w4a8_gemv": 1 + STEPS}
+    # the float-scale modes: their lm_head (the prefill's last position and
+    # each decode step, f32 logits) runs the layers' decode kernel
+    attn = {k: v for k, v in shared.items() if k != "w4a8_gemv"}
+    decode = 4 * L * STEPS + 1 + STEPS
     runs = {
         "a": serve_run("(a)", config, "w4a4_2l", 512, BATCH, PROMPT, STEPS, dev,
                        {"dequant_vertical": 4 * L, "a4_gemv": 4 * L * STEPS, **shared}),
@@ -845,8 +999,15 @@ def phase_serve(dev):
                        {"dequant_paired": 4 * L, "w4a8_gemv_stacked": 4 * L * STEPS, **shared}),
         "c": serve_run("(c)", config, "w4a4_2l", 512, 8, 32, STEPS, dev,
                        {"a4_gemv": 4 * L * (STEPS + 1), **shared}),
+        "e": serve_run("(e)", config, "w4a8", 128, BATCH, PROMPT, STEPS, dev,
+                       {"dequant_halves": 4 * L, "w4a8_gemv_halves": decode, **attn}),
+        "f": serve_run("(f)", config, "w4a16", 128, BATCH, PROMPT, STEPS, dev,
+                       {"dequant_halves": 4 * L, "w4_gemv": decode, **attn}),
+        "g": serve_run("(g)", config, "w8a8", 128, BATCH, PROMPT, STEPS, dev,
+                       {"w8a8_gemm": decode + 4 * L, **attn}),
     }
-    for mode, g, run in (("w4a4_2l", 512, "a"), ("w4a8_2l", 128, "b")):
+    for mode, g, run in (("w4a4_2l", 512, "a"), ("w4a8_2l", 128, "b"), ("w4a8", 128, "e"),
+                         ("w4a16", 128, "f"), ("w8a8", 128, "g")):
         launched = compare_paths(config, mode, g, dev)
         if launched != set(runs[run]["counts"]):
             raise AssertionError(f"{mode}: the checked run launched {sorted(launched)}, the main "
@@ -1002,6 +1163,14 @@ SOURCES = {
                            "fastforward_tpu/kernels/paged_attention.py:156"),
     "fused_o_mlp": ("fastforward_tpu_torch/csrc/fused_tail.cu",
                     "fastforward_tpu/kernels/matmul.py:2298"),
+    "dequant_halves": ("fastforward_tpu_torch/csrc/dequant.cu",
+                       "fastforward_tpu/kernels/matmul.py:1561 (kernel :1535)"),
+    "w4a8_gemv_halves": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                         "fastforward_tpu/kernels/matmul.py:341 (kernel :312)"),
+    "w4_gemv": ("fastforward_tpu_torch/csrc/w4_gemv.cu",
+                "fastforward_tpu/kernels/matmul.py:262 (kernel :240; routed by :1832)"),
+    "w8a8_gemm": ("fastforward_tpu_torch/csrc/w8a8_gemm.cu",
+                  "fastforward_tpu/kernels/matmul.py:95 (kernel :78)"),
 }
 
 
@@ -1012,6 +1181,9 @@ def main():
     import fastforward_tpu_torch  # noqa: F401  (fails outside the repository)
 
     out_dir = sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv else None
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        _LOG["file"] = open(os.path.join(out_dir, "chip_smoke.log"), "w")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1026,8 +1198,8 @@ def main():
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
-        launches = (runs["a"]["counts"].get(name) or runs["b"]["counts"].get(name)
-                    or runs["engine"]["counts"].get(name, 0))
+        launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "engine")
+                         if runs[k]["counts"].get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1036,9 +1208,8 @@ def main():
             library_ms=r["library_ms"],
         ))
     if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "chip_smoke.log"), "w") as f:
-            f.write("\n".join(_LOG + [json.dumps({"kernels": kernels, "runs": runs})]) + "\n")
+        _LOG["file"].write(json.dumps({"kernels": kernels, "runs": runs}) + "\n")
+        _LOG["file"].close()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

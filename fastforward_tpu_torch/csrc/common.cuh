@@ -32,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma.cuh"  // transpose4x4
+
 namespace ff {
 
 constexpr int kBM = 8;          // activation rows per block
@@ -52,19 +54,6 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
   int d;
   asm("dp4a.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
-}
-
-// 4x4 byte transpose: r[i] holds row i of 4 columns; c[j] gets column j
-// of the 4 rows (byte i = row i).
-__device__ __forceinline__ void transpose4x4(const unsigned r[4], unsigned c[4]) {
-  unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
-  unsigned t1 = __byte_perm(r[0], r[1], 0x7362);
-  unsigned t2 = __byte_perm(r[2], r[3], 0x5140);
-  unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 // Split-K partial GEMV.

@@ -1,10 +1,13 @@
-// Int4 -> bf16 dequantization of two-level weights, for the prefill path.
+// Int4 -> bf16 dequantization of two-level and float-scale weights, for
+// the prefill path.
 //
 // Replaces: fastforward_tpu/kernels/matmul.py
 // dequantize_int4_vertical_stacked (:1736, kernel :1724) and
 // dequantize_int4_paired_stacked (:1650, kernel :1634, flat layout); at
 // L = 1 with a ready per-group scale also dequantize_int4_vertical (:1511)
-// and the paired branch of dequantize_int4 (:1561, kernel :1549).
+// and dequantize_int4 (:1561, kernels :1535 and :1549): its paired branch
+// and its two group-halves branches (pack_int4's two's complement, the
+// prefill of FF_BENCH_MODE=w4a8 and w4a16, and offset binary).
 //   out[k, n] = bf16(float(v[k, n]) * s_eff[k / g, n])
 //   s_eff[i, n] = float(mult[l, i, n]) * s_col[l, n]    (or given, f32)
 // Rounding: two f32 products and one bf16 rounding, as the JAX package's
@@ -14,7 +17,9 @@
 // Layouts, byte row r of the packed (K/2, N):
 //   vertical: rows 2r (low nibble) and 2r + 1 (high), two's complement;
 //   paired:   p = r / g, i = r % g: rows 2pg + i (low) and (2p + 1)g + i
-//             (high), offset binary u = v + 8.
+//             (high), offset binary u = v + 8;
+//   halves:   p = r / (g/2), i = r % (g/2): rows pg + i (low) and
+//             pg + g/2 + i (high), two's complement or offset binary.
 //
 // Bound on the H100: bytes. K*N/2 packed bytes read and K*N*2 bf16 bytes
 // written per call (the multipliers and scales are 1/g of that): 545 MB
@@ -37,7 +42,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRowsPerBlock = 8;  // packed byte rows per block
-enum Layout { kVertical = 0, kPaired = 1 };
+enum Layout { kVertical = 0, kPaired = 1, kHalves = 2, kHalvesOffset = 3 };
 
 // The V per-group scales of group `gi` at columns col0.. (f32).
 template <int V, bool MULT>
@@ -101,16 +106,21 @@ dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
       row_lo = 2 * r;
       row_hi = row_lo + 1;
       g_lo = row_lo / group;
-    } else {
+    } else if (LAYOUT == kPaired) {
       const int p = r / group, i = r % group;
       row_lo = 2 * p * group + i;
       row_hi = row_lo + group;
       g_lo = 2 * p;
+    } else {
+      const int half = group / 2, p = r / half, i = r % half;
+      row_lo = p * group + i;
+      row_hi = row_lo + half;
+      g_lo = p;
     }
     if (g_lo != cur) {
       cur = g_lo;
       group_scales<V, MULT>(mult, scale, g_lo, col0, N, s_lo);
-      if (LAYOUT == kVertical) {
+      if (LAYOUT != kPaired) {  // both nibbles in one group
 #pragma unroll
         for (int c = 0; c < V; ++c) s_hi[c] = s_lo[c];
       } else {
@@ -132,7 +142,7 @@ dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       int v_lo, v_hi;
-      if (LAYOUT == kVertical) {  // two's complement nibbles
+      if (LAYOUT == kVertical || LAYOUT == kHalves) {  // two's complement nibbles
         v_lo = static_cast<int>((bytes[c] & 0xFu) ^ 8u) - 8;
         v_hi = static_cast<int>(static_cast<int8_t>(bytes[c])) >> 4;
       } else {  // offset binary
@@ -186,4 +196,13 @@ extern "C" int ff_dequant_vertical(const void* w, const void* mult, const void* 
 extern "C" int ff_dequant_paired(const void* w, const void* mult, const void* scale, void* out,
                                  int K, int N, int L, int layer, int group, void* stream) {
   return launch<kPaired>(w, mult, scale, out, K, N, L, layer, group, stream);
+}
+
+// The group-halves layouts: offset_binary 0 (pack_int4) or 1.
+extern "C" int ff_dequant_halves(const void* w, const void* mult, const void* scale, void* out,
+                                 int K, int N, int L, int layer, int group, int offset_binary,
+                                 void* stream) {
+  if (offset_binary)
+    return launch<kHalvesOffset>(w, mult, scale, out, K, N, L, layer, group, stream);
+  return launch<kHalves>(w, mult, scale, out, K, N, L, layer, group, stream);
 }

@@ -33,7 +33,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "fastforward_tpu_torch"
 
 SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill",
-           "fused_tail")
+           "fused_tail", "w8a8_gemm", "w4_gemv")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,6 +62,8 @@ SIGNATURES = {
         # x, xs, w, mult_packed, s_col, partial, out, M, K, N, L, layer,
         # group, n_pack, n_split, out_kind, stream
         "ff_w4a8_gemv_stacked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream
+        "ff_w4a8_gemv_halves": [P, P, P, P, P, I, I, I, I, I, P],
     },
     "kv_append": {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts,
@@ -83,6 +85,8 @@ SIGNATURES = {
         # w, mult (or NULL), scale, out, K, N, L, layer, group, stream
         "ff_dequant_vertical": [P, P, P, P, I, I, I, I, I, P],
         "ff_dequant_paired": [P, P, P, P, I, I, I, I, I, P],
+        # ... group, offset_binary, stream
+        "ff_dequant_halves": [P, P, P, P, I, I, I, I, I, I, P],
     },
     "flash_prefill": {
         # q, k, ks, v, vs, starts, out, B, H, Hkv, T, S, D, sm_scale, stream
@@ -94,6 +98,14 @@ SIGNATURES = {
         # H, I, L, layer, group, n_pack_o, n_pack_gu, n_pack_dn, split_o,
         # split_gu, split_dn, eps, out_bf16, stream
         "ff_fused_o_mlp": [P] * 22 + [I] * 13 + [F, I, P],
+    },
+    "w8a8_gemm": {
+        # x, xs, w, ws, bias (or NULL), out, M, K, N, out_bf16, stream
+        "ff_w8a8_gemm": [P, P, P, P, P, P, I, I, I, I, P],
+    },
+    "w4_gemv": {
+        # x, w, w_scale, out, M, K, N, group, out_bf16, stream
+        "ff_w4_gemv": [P, P, P, P, I, I, I, I, I, P],
     },
 }
 

@@ -1,11 +1,15 @@
-"""Two-level int4 GEMVs, the prefill dequant and the fused W4A8 layer
-tail, ported from `fastforward_tpu/kernels/matmul.py`.
+"""The quantized matmuls of `fastforward_tpu/kernels/matmul.py`: the
+two-level int4 GEMVs, the float-scale W8A8, W4A8 and W4A16 products, the
+prefill dequant and the fused W4A8 layer tail.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs
 the plain PyTorch version beside it (the port of the JAX oracle), a CUDA
 tensor launches the hand-written kernel (`csrc/a4_gemv.cu`,
-`csrc/w4a8_gemv.cu`, `csrc/dequant.cu`, `csrc/fused_tail.cu`) or raises. There is no fallback
-from one to the other.
+`csrc/w4a8_gemv.cu`, `csrc/w4_gemv.cu`, `csrc/w8a8_gemm.cu`,
+`csrc/dequant.cu`, `csrc/fused_tail.cu`) or raises. There is no fallback
+from one to the other. `matmul_w4a8` and `matmul_w4a16` take the JAX
+package's TPU routing: a GEMV up to `GEMV_MAX_M` rows, else the dequant
+and a dense product.
 
 The activation quantizers divide by a constant as a multiplication by its
 float32 reciprocal (``amax * (1.0 / 127.0)``): XLA compiles
@@ -350,18 +354,32 @@ def dequantize_int4_vertical_reference(w_packed, s_eff, group_size: int = 128,
     return (v.float() * s_eff.float()[:, None, :]).reshape(K, N).to(out_dtype)
 
 
-def dequantize_int4_paired_reference(w_packed, w_scale, group_size: int = 128):
-    """Oracle of `dequantize_int4`'s paired branch (`matmul.py:1579-1585`):
-    paired offset-binary int4 to dense bf16 with per-group scales."""
+def dequantize_int4_reference(w_packed, w_scale, group_size: int = 128,
+                              offset_binary: bool = False, paired: bool = False):
+    """Oracle of `dequantize_int4`'s CPU path (`matmul.py:1578-1585`):
+    packed int4 (K//2, N) to dense bf16 (K, N) with per-group scales
+    (K//g, N), ``v * s`` in f32 rounded once. Layouts: group halves with
+    two's-complement nibbles (`pack_int4`), group halves offset-binary
+    (``offset_binary``), or the adjacent-group pairing (``paired``)."""
+    if paired:
+        unpack = unpack_uint4_offset_paired
+    else:
+        unpack = unpack_uint4_offset if offset_binary else unpack_int4
     K, N = w_packed.shape[0] * 2, w_packed.shape[1]
-    v = unpack_uint4_offset_paired(w_packed, group_size).reshape(K // group_size, group_size, N)
+    v = unpack(w_packed, group_size).reshape(K // group_size, group_size, N)
     return (v.float() * w_scale.float()[:, None, :]).reshape(K, N).to(torch.bfloat16)
 
 
-def _dequant(entry, count, w_packed, mult, scale, layer, group_size, paired):
+def dequantize_int4_paired_reference(w_packed, w_scale, group_size: int = 128):
+    """Oracle of `dequantize_int4`'s paired branch (`matmul.py:1579-1585`)."""
+    return dequantize_int4_reference(w_packed, w_scale, group_size, paired=True)
+
+
+def _dequant(entry, count, w_packed, mult, scale, layer, group_size, unit, *flags):
     """Launch `csrc/dequant.cu` on layer ``layer`` of (L, K//2, N) weights:
     with ``mult`` (L, K//g, N) int8 and ``scale`` = s_col (L, N), or with
-    ``mult`` None and ``scale`` = s_eff (K//g, N) at L = 1."""
+    ``mult`` None and ``scale`` = s_eff (K//g, N) at L = 1. ``unit``: the
+    K rows one layout block spans; ``flags``: the entry's extra ints."""
     layer = int(layer)
     L, K2, N = w_packed.shape
     K = 2 * K2
@@ -372,7 +390,6 @@ def _dequant(entry, count, w_packed, mult, scale, layer, group_size, paired):
     else:
         _build.require(mult, "mult", torch.int8, (L, K // group_size, N), dev)
         _build.require(scale, "s_col", torch.float32, (L, N), dev)
-    unit = 2 * group_size if paired else group_size
     if group_size % 2 != 0 or K % unit != 0 or not 0 <= layer < L:
         raise ValueError(
             f"dequant kernel needs an even group, K divisible by {unit} and a valid layer "
@@ -381,7 +398,7 @@ def _dequant(entry, count, w_packed, mult, scale, layer, group_size, paired):
     out = torch.empty((K, N), dtype=torch.bfloat16, device=dev)
     err = getattr(_build.lib("dequant"), entry)(
         w_packed.data_ptr(), None if mult is None else mult.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), K, N, L, layer, group_size, _build.stream_ptr(dev),
+        out.data_ptr(), K, N, L, layer, group_size, *flags, _build.stream_ptr(dev),
     )
     _build.launch_counts[count] += 1
     _build.check(err, count)
@@ -396,22 +413,23 @@ def dequantize_int4_vertical(w_packed, s_eff, group_size: int = 128, out_dtype=t
     if out_dtype != torch.bfloat16:
         raise ValueError(f"the dequant kernel writes bf16, not {out_dtype}")
     return _dequant("ff_dequant_vertical", "dequant_vertical", w_packed[None], None, s_eff, 0,
-                    group_size, paired=False)
+                    group_size, group_size)
 
 
 def dequantize_int4(w_packed, w_scale, group_size: int = 128, offset_binary: bool = False,
                     paired: bool = False):
-    """Packed int4 to dense bf16 (`matmul.py:1561`); the paired layout only,
-    through the stacked paired kernel at L = 1."""
-    if not paired:
-        raise NotImplementedError(
-            "dequantize_int4 of the group-halves layouts is not ported yet "
-            "(ROADMAP.md, Queue 2 item 13)"
-        )
+    """Packed int4 (K//2, N) to dense bf16 (K, N) with per-group scales
+    (K//g, N) (`matmul.py:1561`): the paired layout through the stacked
+    paired kernel at L = 1, the group-halves layouts (two's complement or
+    ``offset_binary``) through their own entry of `csrc/dequant.cu`.
+    Bit-exact against `dequantize_int4_reference`."""
     if w_packed.device.type == "cpu":
-        return dequantize_int4_paired_reference(w_packed, w_scale, group_size)
-    return _dequant("ff_dequant_paired", "dequant_paired", w_packed[None], None, w_scale, 0,
-                    group_size, paired=True)
+        return dequantize_int4_reference(w_packed, w_scale, group_size, offset_binary, paired)
+    if paired:
+        return _dequant("ff_dequant_paired", "dequant_paired", w_packed[None], None, w_scale, 0,
+                        group_size, 2 * group_size)
+    return _dequant("ff_dequant_halves", "dequant_halves", w_packed[None], None, w_scale, 0,
+                    group_size, group_size, int(offset_binary))
 
 
 def dequantize_int4_vertical_stacked(w_packed, mult, s_col, layer, group_size: int = 512):
@@ -424,7 +442,7 @@ def dequantize_int4_vertical_stacked(w_packed, mult, s_col, layer, group_size: i
         s_eff = mult[layer].float() * s_col[layer].float()[None, :]
         return dequantize_int4_vertical_reference(w_packed[layer], s_eff, group_size)
     return _dequant("ff_dequant_vertical", "dequant_vertical", w_packed, mult, s_col, layer,
-                    group_size, paired=False)
+                    group_size, group_size)
 
 
 def dequantize_int4_paired_stacked(w_packed, mult, s_col, layer, group_size: int = 128):
@@ -436,7 +454,271 @@ def dequantize_int4_paired_stacked(w_packed, mult, s_col, layer, group_size: int
         s_eff = mult[layer].float() * s_col[layer].float()[None, :]
         return dequantize_int4_paired_reference(w_packed[layer], s_eff, group_size)
     return _dequant("ff_dequant_paired", "dequant_paired", w_packed, mult, s_col, layer,
-                    group_size, paired=True)
+                    group_size, 2 * group_size)
+
+
+def dense_product(xb, w, out_dtype, bias=None):
+    """``xb @ w`` of bf16 operands with f32 accumulation, plus ``bias`` in
+    f32, rounded once to ``out_dtype`` (XLA's ``jax.lax.dot`` with an f32
+    result, `matmul.py:229-232`). A plain large product, left to the
+    library: cuBLAS computes a bf16 product in f32 and rounds its bf16
+    result once."""
+    if bias is None and xb.device.type == "cuda" and out_dtype == torch.bfloat16:
+        return torch.matmul(xb, w)
+    out = torch.matmul(xb.float(), w.float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def prefill_product(x_q, x_s, w, out_dtype, bias=None):
+    """``bf16(x_q * x_s) @ w`` (`matmul.py:228-232`, `engine.py:115-118`):
+    the int8 activations expanded to bf16 against a dequantized weight."""
+    xb = (x_q.float() * x_s[:, None]).to(torch.bfloat16)
+    return dense_product(xb, w, out_dtype, bias)
+
+
+# --- Float-scale modes: W8A8, W4A8 and W4A16 (`matmul.py:59-384`, `:1797-1889`)
+#
+# Their references are float functions, and the port holds the jitted JAX
+# ones bit for bit where the kernel is exact in integers: XLA's CPU compiler
+# fuses a multiply feeding an add into one fused multiply-add (the W8A8 bias
+# epilogue, W4A8's group sum up to 32 groups), and rewrites a longer sum as
+# a tree of windows of 32 (`_group_sum`). The plain versions below write
+# those orders out.
+
+_SUM_WINDOW = 32  # XLA CPU's tree-reduction window
+# Group sizes the tensor-core GEMVs (csrc/w4a8_gemv.cu halves, csrc/w4_gemv.cu) take.
+_MMA_GROUPS = (32, 64, 128)
+
+
+def _fma_f32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product is exact in float64; the float64 sum is made round-to-odd from
+    its exact error (TwoSum), and a round-to-odd value with 29 spare bits
+    rounds to float32 as the exact value would."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    bits = s.view(torch.int64)
+    even = (err != 0) & ((bits & 1) == 0)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(even, bits + toward, bits).view(torch.float64).float()
+
+
+def _window_sum(terms):
+    """Sum of f32 tensors as XLA's CPU tree-reduction rewrite orders it:
+    up to 32 terms in order from +0; more are padded with zeros to a
+    multiple of 32 (the smaller half of the padding in front), each window
+    of 32 summed in order, then the window sums the same way."""
+    n = len(terms)
+    if n <= _SUM_WINDOW:
+        acc = torch.zeros_like(terms[0])
+        for t in terms:
+            acc = acc + t
+        return acc
+    lo = (-(-n // _SUM_WINDOW) * _SUM_WINDOW - n) // 2
+    windows, acc = [], torch.zeros_like(terms[0])
+    for i, t in enumerate(terms):
+        if i > 0 and (i + lo) % _SUM_WINDOW == 0:
+            windows.append(acc)
+            acc = torch.zeros_like(terms[0])
+        acc = acc + t
+    return _window_sum(windows + [acc])
+
+
+def _group_sum(gdots, scales):
+    """(M, N) f32 ``sum_g f32(gdot_g) * s_g`` in the order of the jitted
+    `matmul_w4a8_reference` (`matmul.py:171-173`): up to 32 groups a fused
+    multiply-add chain in group order; beyond, rounded products summed by
+    `_window_sum`. ``gdots`` yields the (M, N) f32 group dots in order,
+    ``scales`` is (G, N) f32."""
+    G = scales.shape[0]
+    if G <= _SUM_WINDOW:
+        acc = None
+        for g, gd in enumerate(gdots):
+            acc = torch.zeros_like(gd) if acc is None else acc
+            acc = _fma_f32(gd, scales[g][None, :].expand_as(gd), acc)
+        return acc
+    return _window_sum([gd * scales[g][None, :] for g, gd in enumerate(gdots)])
+
+
+def matmul_w8a8_reference(x_q, x_scale, w_q, w_scale, bias=None, out_dtype=torch.bfloat16):
+    """Oracle (`matmul.py:64`): ``f32(x_q @ w_q) * x_scale[:, None] *
+    w_scale[None, :]``, left to right, then ``+ bias`` fused into the last
+    product (one rounding, as jitted XLA computes it)."""
+    out = _int_dot(x_q, w_q) * x_scale.float()[:, None]
+    ws = w_scale.float()[None, :].expand_as(out)
+    if bias is None:
+        out = out * ws
+    else:
+        out = _fma_f32(out, ws, bias.float()[None, :].expand_as(out))
+    return out.to(out_dtype)
+
+
+def matmul_w8a8(x_q, x_scale, w_q, w_scale, bias=None, out_dtype=torch.bfloat16):
+    """W8A8 matmul (`matmul.py:95`): x_q (M, K) int8 with per-row scale
+    x_scale (M,) f32, w_q (K, N) int8 with per-column scale w_scale (N,)
+    f32, bias (N,) or None; bf16 or f32 out. On CUDA `csrc/w8a8_gemm.cu`
+    (int8 tensor cores; any M, the decode's and the prefill's), bit-exact
+    against `matmul_w8a8_reference`."""
+    if x_q.device.type == "cpu":
+        return matmul_w8a8_reference(x_q, x_scale, w_q, w_scale, bias, out_dtype)
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    dev = x_q.device
+    _build.require(x_q, "x_q", torch.int8, (M, K))
+    _build.require(x_scale, "x_scale", torch.float32, (M,), dev)
+    _build.require(w_q, "w_q", torch.int8, (K, N), dev)
+    _build.require(w_scale, "w_scale", torch.float32, (N,), dev)
+    if bias is not None:
+        bias = bias.float().contiguous()
+        _build.require(bias, "bias", torch.float32, (N,), dev)
+    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or K % 16 != 0 or N % 4 != 0:
+        raise ValueError(f"W8A8 GEMM kernel needs f32 or bf16 out, M >= 1, K % 16 == 0 and "
+                         f"N % 4 == 0 (out={out_dtype}, M={M}, K={K}, N={N})")
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _build.lib("w8a8_gemm").ff_w8a8_gemm(
+        x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.launch_counts["w8a8_gemm"] += 1
+    _build.check(err, "w8a8_gemm")
+    return out
+
+
+def matmul_w4a8_reference(x_q, x_scale, w_packed, w_scale, bias=None, group_size: int = 128,
+                          out_dtype=torch.bfloat16):
+    """Oracle (`matmul.py:159`): per-group int32 dots of x_q (M, K) against
+    two's-complement group-halves nibbles (K//2, N), each times its group
+    scale w_scale (K//g, N) f32, summed over groups in the jitted order
+    (`_group_sum`), times x_scale (with ``bias``: fused with the add)."""
+    M, K = x_q.shape
+    N = w_packed.shape[1]
+    G = K // group_size
+    w = unpack_int4(w_packed, group_size).double().reshape(G, group_size, N)
+    xg = x_q.double().reshape(M, G, group_size)
+    acc = _group_sum(((xg[:, g] @ w[g]).float() for g in range(G)), w_scale.float())
+    xs = x_scale.float()[:, None].expand_as(acc)
+    if bias is None:
+        out = acc * xs
+    else:
+        out = _fma_f32(acc, xs, bias.float()[None, :].expand_as(acc))
+    return out.to(out_dtype)
+
+
+def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
+                     out_dtype=torch.bfloat16):
+    """Decode-shaped W4A8 with float per-group scales (`matmul.py:341`):
+    x_q (M, K) int8, x_scale (M,) f32, w_packed (K//2, N) `pack_int4`
+    layout, w_scale (K//g, N) f32; bf16 or f32 out. On CUDA the halves
+    entry of `csrc/w4a8_gemv.cu`, bit-exact against
+    `matmul_w4a8_reference` (the same group-sum order)."""
+    if x_q.device.type == "cpu":
+        return matmul_w4a8_reference(x_q, x_scale, w_packed, w_scale, None, group_size, out_dtype)
+    M, K = x_q.shape
+    N = w_packed.shape[1]
+    dev = x_q.device
+    _check_gemv(x_q, x_scale, K, N, group_size)
+    _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
+    _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
+    if out_dtype not in (torch.float32, torch.bfloat16) or group_size not in _MMA_GROUPS \
+            or K // group_size > _SUM_WINDOW ** 2:
+        raise ValueError(
+            f"W4A8 halves GEMV kernel needs f32 or bf16 out, group 32, 64 or 128 and at most "
+            f"{_SUM_WINDOW ** 2} groups (out={out_dtype}, group={group_size}, K={K})"
+        )
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _build.lib("w4a8_gemv").ff_w4a8_gemv_halves(
+        x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
+    )
+    _build.launch_counts["w4a8_gemv_halves"] += 1
+    _build.check(err, "w4a8_gemv_halves")
+    return out
+
+
+def matmul_w4a8(x_q, x_scale, w_packed, w_scale, bias=None, group_size: int = 128,
+                out_dtype=torch.bfloat16):
+    """Per-group W4A8 matmul under the JAX package's TPU routing
+    (`matmul.py:193`): up to `GEMV_MAX_M` rows `matmul_w4a8_gemv`; more
+    rows dequantize the weight to bf16 and take `prefill_product`."""
+    if x_q.shape[0] <= GEMV_MAX_M:
+        out = matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size, out_dtype)
+        if bias is not None:
+            out = (out.float() + bias.float()).to(out_dtype)
+        return out
+    w = dequantize_int4(w_packed, w_scale, group_size)
+    return prefill_product(x_q, x_scale, w, out_dtype, bias)
+
+
+def matmul_w4a16_reference(x, w_packed, w_scale, bias=None, group_size: int = 128,
+                           out_dtype=None):
+    """Oracle (`matmul.py:1797`): the weight dequantized in f32 and rounded
+    to x's dtype, ``x @ w`` in x's dtype (a bf16 x gives bf16 logits)."""
+    w = dequantize_int4_reference(w_packed, w_scale, group_size).to(x.dtype)
+    out = x @ w
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype or x.dtype)
+
+
+def matmul_w4_gemv_reference(x, w_packed, w_scale, group_size: int = 128,
+                             out_dtype=torch.bfloat16):
+    """Plain version of `matmul_w4_gemv`: ``bf16(x) @ dequantize_int4(w)``
+    in f32, rounded once to ``out_dtype``."""
+    w = dequantize_int4_reference(w_packed, w_scale, group_size)
+    return torch.matmul(x.to(torch.bfloat16).float(), w.float()).to(out_dtype)
+
+
+def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.bfloat16):
+    """Decode-shaped weight-only int4 matmul (`matmul.py:262`): bf16 x (M,
+    K) against the `pack_int4` weight (K//2, N) dequantized to bf16 with
+    w_scale (K//g, N), f32 accumulation, rounded once to ``out_dtype``. The
+    dequant rounds once, as `dequantize_int4`'s CPU path (the TPU kernel
+    rounds the scale to bf16 first). On CUDA `csrc/w4_gemv.cu` (bf16
+    tensor cores); its sums run in another order than the plain version's."""
+    if x.device.type == "cpu":
+        return matmul_w4_gemv_reference(x, w_packed, w_scale, group_size, out_dtype)
+    M, K = x.shape
+    N = w_packed.shape[1]
+    dev = x.device
+    _build.require(x, "x", torch.bfloat16, (M, K))
+    _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
+    _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
+    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
+            or group_size not in _MMA_GROUPS or K % group_size != 0:
+        raise ValueError(
+            f"W4 GEMV kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, group 32, 64 or 128 "
+            f"and K % group == 0 (out={out_dtype}, M={M}, N={N}, group={group_size}, K={K})"
+        )
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _build.lib("w4_gemv").ff_w4_gemv(
+        x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
+        group_size, int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.launch_counts["w4_gemv"] += 1
+    _build.check(err, "w4_gemv")
+    return out
+
+
+def matmul_w4a16(x, w_packed, w_scale, bias=None, group_size: int = 128, out_dtype=None):
+    """Weight-only int4 matmul under the JAX package's TPU routing
+    (`matmul.py:1832-1860`): up to `GEMV_MAX_M` rows `matmul_w4_gemv`; more
+    rows dequantize the weight to bf16 and take a dense product with f32
+    accumulation. (The tiled Pallas body after `:1860` is unreachable.)"""
+    out_dtype = out_dtype or x.dtype
+    xb = x.to(torch.bfloat16).contiguous()
+    if x.shape[0] <= GEMV_MAX_M:
+        out = matmul_w4_gemv(xb, w_packed, w_scale, group_size, out_dtype)
+        if bias is not None:
+            out = (out.float() + bias.float()).to(out_dtype)
+        return out
+    return dense_product(xb, dequantize_int4(w_packed, w_scale, group_size), out_dtype, bias)
 
 
 # --- Fused W4A8 layer tail (`matmul.py:1909-2049`, `:2263-2433`) -------------

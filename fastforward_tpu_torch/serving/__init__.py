@@ -1,6 +1,7 @@
-"""Serving path of the port: frozen two-level int4 weights, the stacked
-forward over an INT8 KV cache (slab or paged pool), greedy and sampled
-decoding, and the continuous-batching engine."""
+"""Serving path of the port: frozen quantized weights (two-level int4,
+W8A8, W4A8, W4A16), the stacked forward over an INT8 KV cache (slab or
+paged pool), greedy and sampled decoding, and the continuous-batching
+engine."""
 
 from fastforward_tpu_torch.serving.batching import (
     ContinuousBatchingEngine,

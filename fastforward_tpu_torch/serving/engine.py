@@ -1,13 +1,16 @@
 """Frozen quantized linear layers and the forward's building blocks,
 ported from `fastforward_tpu/serving/engine.py`.
 
-The port serves the two two-level int4 modes of the main path: ``w4a4_2l``
-(decoder projections) and ``w4a8_2l`` (the lm_head, and the decoder
-projections of bench.py's ``FF_BENCH_MODE=w4a8_2l``). The routing is the
-JAX package's TPU routing on every device (its ``_on_tpu()`` read as
-true): up to `GEMV_MAX_M` rows take the decode GEMVs; more rows (prefill)
-dequantize the weight to bf16 and take a dense product with f32
-accumulation. Only the kernel wrappers look at the device.
+The port serves bench.py's modes: the two two-level int4 modes ``w4a4_2l``
+(decoder projections) and ``w4a8_2l`` (the lm_head of both, and the
+decoder projections of ``FF_BENCH_MODE=w4a8_2l``), and the float-scale
+modes ``w8a8``, ``w4a8`` and ``w4a16`` (``FF_BENCH_MODE=w8a8|w4a8|w4a16``,
+lm_head in the layers' mode). The routing is the JAX package's TPU
+routing on every device (its ``_on_tpu()`` read as true): up to
+`GEMV_MAX_M` rows take the decode GEMVs (W8A8: its GEMM at any size); more
+rows (prefill) dequantize the weight to bf16 and take a dense product with
+f32 accumulation. Only the kernel wrappers look at the device. The
+baseline tier's ``sim_w8`` and ``sim_w4`` are not ported.
 """
 
 import dataclasses
@@ -27,14 +30,18 @@ from fastforward_tpu_torch.kernels.matmul import (
     dequantize_int4_vertical_stacked,
     matmul_w4a4_2l_gemv,
     matmul_w4a4_2l_gemv_stacked,
+    matmul_w4a8,
     matmul_w4a8_2l_gemv,
     matmul_w4a8_2l_gemv_stacked,
+    matmul_w4a16,
+    matmul_w8a8,
+    prefill_product,
     quantize_rowwise,
     quantize_rowwise_a4,
 )
 from fastforward_tpu_torch.kernels.packing import pack_int4
 
-PORTED_MODES = ("w4a4_2l", "w4a8_2l")
+PORTED_MODES = ("w4a4_2l", "w4a8_2l", "w8a8", "w4a8", "w4a16")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -43,25 +50,28 @@ def _not_ported(what: str) -> NotImplementedError:
     )
 
 
-def _prefill_product(x_q, x_s, w, out_dtype):
-    """``bf16(x_q * x_s) @ w`` with f32 accumulation, rounded once to
-    ``out_dtype`` (`engine.py:115-118`, XLA's ``jax.lax.dot`` with an f32
-    result). A plain large product, left to the library: cuBLAS computes a
-    bf16 product in f32 and rounds its bf16 result once."""
-    xb = (x_q.float() * x_s[:, None]).to(torch.bfloat16)
-    if xb.device.type == "cuda" and out_dtype == torch.bfloat16:
-        return torch.matmul(xb, w)
-    return torch.matmul(xb.float(), w.float()).to(out_dtype)
+def quantize_static(x2: torch.Tensor, scale: torch.Tensor):
+    """Static symmetric int8 activation quantization on a calibrated
+    per-tensor grid (`engine.py:278`): (x_q int8, the scale per row), the
+    contract of `quantize_rowwise`. The scale is a runtime value, so XLA
+    keeps the division (no reciprocal multiply), and so does the port."""
+    sc = scale.float().reshape(())
+    x_q = torch.clamp(torch.round(x2.float() / sc), -127, 127).to(torch.int8)
+    return x_q, sc.reshape(1).expand(x2.shape[0]).contiguous()
 
 
 @dataclasses.dataclass
 class QuantLinear:
     """Frozen quantized linear weights, layout (in, out) (`engine.py:54`).
 
-    ``data`` packed int8 (K//2, N), or (L, K//2, N) stacked; ``scale`` the
-    per-column ``s_col`` (N,) / (L, N); ``mult`` per-group multipliers
-    (K//g, N) int8; ``mult_packed`` their nibble-packed form for the
-    stacked decode GEMVs; ``paired`` the W4A8 adjacent-group layout.
+    ``data`` int8 (K, N) for w8a8, packed int8 (K//2, N) for the int4
+    modes, or (L, ...) stacked; ``scale`` per column (N,) for w8a8 and the
+    two-level modes (their ``s_col``), per group (K//g, N) for w4a8 and
+    w4a16; ``mult`` two-level per-group multipliers (K//g, N) int8;
+    ``mult_packed`` their nibble-packed form for the stacked decode GEMVs;
+    ``paired`` the two-level W4A8 adjacent-group layout; ``in_scale`` a
+    calibrated per-tensor input scale ((L,) stacked) for the int8-activation
+    modes, in place of the dynamic per-row one.
     """
 
     data: torch.Tensor
@@ -76,8 +86,11 @@ class QuantLinear:
     def _check(self) -> None:
         if self.mode not in PORTED_MODES:
             raise _not_ported(f"QuantLinear mode {self.mode!r}")
-        if self.in_scale is not None:
-            raise _not_ported("static activation scales (in_scale)")
+
+    def _quantize_input(self, x2, in_scale):
+        if in_scale is not None:
+            return quantize_static(x2, in_scale)
+        return quantize_rowwise(x2)
 
     def __call__(self, x: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
         """y = x @ W with the mode's kernel (`engine.py:85`). x: (..., K)."""
@@ -85,38 +98,49 @@ class QuantLinear:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         decode = x2.shape[0] <= GEMV_MAX_M
-        if self.mode == "w4a8_2l":
-            x_q, x_s = quantize_rowwise(x2)
+        g = self.group_size
+        if self.mode == "w8a8":
+            x_q, x_s = self._quantize_input(x2, self.in_scale)
+            out = matmul_w8a8(x_q, x_s, self.data, self.scale, out_dtype=out_dtype)
+        elif self.mode == "w4a8":
+            x_q, x_s = self._quantize_input(x2, self.in_scale)
+            out = matmul_w4a8(x_q, x_s, self.data, self.scale, group_size=g, out_dtype=out_dtype)
+        elif self.mode == "w4a16":
+            out = matmul_w4a16(x2.to(torch.bfloat16), self.data, self.scale, group_size=g,
+                               out_dtype=out_dtype)
+        elif self.mode == "w4a8_2l":
+            x_q, x_s = self._quantize_input(x2, self.in_scale)
             if decode:
                 out = matmul_w4a8_2l_gemv(
                     x_q, x_s, self.data, self.mult, self.scale,
-                    group_size=self.group_size, out_dtype=out_dtype, paired=self.paired,
+                    group_size=g, out_dtype=out_dtype, paired=self.paired,
                 )
             else:
                 s_eff = self.mult.float() * self.scale[None, :]
-                w = dequantize_int4(self.data, s_eff, self.group_size, offset_binary=True,
-                                    paired=self.paired)
-                out = _prefill_product(x_q, x_s, w, out_dtype)
+                w = dequantize_int4(self.data, s_eff, g, offset_binary=True, paired=self.paired)
+                out = prefill_product(x_q, x_s, w, out_dtype)
         else:
             x_q, x_s = quantize_rowwise_a4(x2)
             if decode:
                 out = matmul_w4a4_2l_gemv(
                     x_q, x_s, self.data, self.mult, self.scale,
-                    group_size=self.group_size, out_dtype=out_dtype,
+                    group_size=g, out_dtype=out_dtype,
                 )
             else:
                 s_eff = self.mult.float() * self.scale[None, :]
-                w = dequantize_int4_vertical(self.data, s_eff, self.group_size)
-                out = _prefill_product(x_q, x_s, w, out_dtype)
+                w = dequantize_int4_vertical(self.data, s_eff, g)
+                out = prefill_product(x_q, x_s, w, out_dtype)
         return out.reshape(*lead, -1)
 
     def call_layer(self, x: torch.Tensor, layer: int, out_dtype=torch.bfloat16) -> torch.Tensor:
         """y = x @ W[layer] for stacked (L, ...) weights (`engine.py:163`).
 
-        The layer index goes into the kernels, so no per-layer weight slice
-        is copied: the stacked GEMVs up to `GEMV_MAX_M` rows, the stacked
-        dequant before the prefill product above. Other cases apply
-        `__call__` to the layer's views.
+        For the two-level modes the layer index goes into the kernels, so no
+        per-layer weight slice is copied: the stacked GEMVs up to
+        `GEMV_MAX_M` rows, the stacked dequant before the prefill product
+        above. Other cases (the float-scale modes among them) apply
+        `__call__` to the layer's views, which copy nothing either. A
+        stacked ``in_scale`` (L,) is indexed by the layer.
         """
         self._check()
         lead = x.shape[:-1]
@@ -124,8 +148,12 @@ class QuantLinear:
         decode = x2.shape[0] <= GEMV_MAX_M
         paired_a8 = self.mode == "w4a8_2l" and self.paired
         g = self.group_size
+        in_scale = self.in_scale
+        if in_scale is not None and in_scale.dim() >= 1 \
+                and in_scale.shape[0] == self.data.shape[0]:
+            in_scale = in_scale[layer]
         if decode and paired_a8 and self.mult_packed is not None:
-            x_q, x_s = quantize_rowwise(x2)
+            x_q, x_s = self._quantize_input(x2, in_scale)
             out = matmul_w4a8_2l_gemv_stacked(
                 x_q, x_s, self.data, self.mult_packed, self.scale, layer,
                 group_size=g, out_dtype=out_dtype,
@@ -140,16 +168,17 @@ class QuantLinear:
             x_q, x_s = quantize_rowwise_a4(x2)
             w = dequantize_int4_vertical_stacked(self.data, self.mult, self.scale, layer,
                                                  group_size=g)
-            out = _prefill_product(x_q, x_s, w, out_dtype)
+            out = prefill_product(x_q, x_s, w, out_dtype)
         elif not decode and paired_a8 and self.mult is not None:
-            x_q, x_s = quantize_rowwise(x2)
+            x_q, x_s = self._quantize_input(x2, in_scale)
             w = dequantize_int4_paired_stacked(self.data, self.mult, self.scale, layer,
                                                group_size=g)
-            out = _prefill_product(x_q, x_s, w, out_dtype)
+            out = prefill_product(x_q, x_s, w, out_dtype)
         else:
             sliced = QuantLinear(
                 self.data[layer], self.scale[layer], mode=self.mode, group_size=g,
                 mult=None if self.mult is None else self.mult[layer], paired=self.paired,
+                in_scale=in_scale,
             )
             return sliced(x, out_dtype=out_dtype)
         return out.reshape(*lead, -1)
@@ -157,12 +186,19 @@ class QuantLinear:
 
 def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
                     scale: Optional[torch.Tensor] = None) -> QuantLinear:
-    """Quantize a dense (K, N) weight into frozen two-level storage
-    (`engine.py:289`); symmetric min-max scales unless ``scale`` is given."""
+    """Quantize a dense (K, N) weight into frozen storage (`engine.py:289`);
+    symmetric min-max scales (per column for w8a8, per group for the int4
+    modes) unless ``scale`` is given."""
     if mode not in PORTED_MODES:
         raise _not_ported(f"quantize_linear mode {mode!r}")
     w = w.float()
     K, N = w.shape
+    if mode == "w8a8":
+        if scale is None:
+            scale = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-8)
+        scale = scale.float().reshape(N)
+        q = torch.clamp(torch.round(w / scale[None, :]), -128, 127).to(torch.int8)
+        return QuantLinear(q, scale, mode=mode)
     g = group_size if K % group_size == 0 else K
     wg = w.reshape(K // g, g, N)
     if scale is None:
@@ -174,8 +210,10 @@ def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
         paired = (K // g) % 2 == 0
         packed, mult, s_col = convert_two_level(packed, scale, g, paired=paired)
         return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult, paired=paired)
-    packed, mult, s_col = convert_two_level_a4(packed, scale, g)
-    return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult, paired=False)
+    if mode == "w4a4_2l":
+        packed, mult, s_col = convert_two_level_a4(packed, scale, g)
+        return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult, paired=False)
+    return QuantLinear(packed, scale, mode=mode, group_size=g)
 
 
 @dataclasses.dataclass

@@ -14,7 +14,8 @@ stacked-KV decode step (`:590-608`), the stacked prefill (`:609-649`) with
 the flash-prefill kernel over the just-written cache where the head dim is
 a multiple of 128 (plain grouped attention otherwise, as the JAX
 package's TPU route does), the no-cache forward, and the fused W4A8 layer
-tail (`:744-778`: one call for o_proj through down at B·T <= 64). The
+tail (`:744-778`: one call for o_proj through down at B·T <= 64, paired
+``w4a8_2l`` only; the float-scale modes take a kernel per projection). The
 paged step always calls the paged append kernel (any page and head dim)
 and the paged flash-decode kernel (any page of a multiple of 4 tokens,
 1, 2, 4 or 8 query heads per kv head), also where the JAX package's TPU
@@ -46,6 +47,7 @@ from fastforward_tpu_torch.kernels.paged_attention import (
     paged_kv_append_decode_int8,
 )
 from fastforward_tpu_torch.kernels.packing import (
+    pack_int4,
     pack_int4_vertical,
     pack_mult_nibbles,
     pack_uint4_offset_paired,
@@ -167,12 +169,15 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     (`stacked.py:206`), on ``device`` (default: the GPU) from a
     ``torch.Generator`` seeded with ``seed``.
 
-    Same layouts and distributions as the JAX package (uniform int4 grid
-    values, multipliers uniform in [1, 15], s_col = 0.25/sqrt(K)/8,
-    embedding N(0, 0.02^2) in bf16, unit norms), not the same bits. Layer
-    weights are packed one layer at a time so no int8 copy of the whole
-    stack exists besides the result. The lm_head is two-level W4A8 in both
-    modes.
+    Same layouts and distributions as the JAX package, not the same bits:
+    w8a8 int8 weights uniform in [-127, 127] with per-column scales
+    0.02/sqrt(K); w4a8 and w4a16 uniform int4 grid values (`pack_int4`)
+    with per-group scales 0.25/sqrt(K); the two-level modes uniform int4
+    values, multipliers uniform in [1, 15], s_col = 0.25/sqrt(K)/8;
+    embedding N(0, 0.02^2) in bf16, unit norms. Layer weights are packed
+    one layer at a time so no int8 copy of the whole stack exists besides
+    the result. The lm_head is in the layers' mode, except that both
+    two-level modes take a two-level W4A8 head.
     """
     if mode not in PORTED_MODES:
         raise NotImplementedError(
@@ -184,6 +189,7 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     h, inter = config.hidden_size, config.intermediate_size
     nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
     L = config.num_layers
+    two_level = mode in ("w4a4_2l", "w4a8_2l")
 
     def groups(K):
         return group_size if K % group_size == 0 else K
@@ -191,14 +197,26 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     def packed(K, N, g, layout):
         if layout == "vertical":
             return pack_int4_vertical(_rand_nibbles(gen, (K, N), dev))
-        pack = pack_uint4_offset_paired if layout == "paired" else pack_uint4_offset
+        pack = {"paired": pack_uint4_offset_paired, "halves": pack_uint4_offset,
+                "int4": pack_int4}[layout]
         return pack(_rand_nibbles(gen, (K, N), dev), group_size=g)
+
+    def float_scale(shape, K):
+        return torch.full(shape, (0.02 if mode == "w8a8" else 0.25) / math.sqrt(K),
+                          dtype=torch.float32, device=dev)
 
     def ql(K, N):
         g = groups(K)
+        if mode == "w8a8":
+            data = torch.randint(-127, 128, (L, K, N), generator=gen, dtype=torch.int8, device=dev)
+            return QuantLinear(data, float_scale((L, N), K), mode=mode)
+        data = torch.empty((L, K // 2, N), dtype=torch.int8, device=dev)
+        if not two_level:
+            for l in range(L):
+                data[l] = packed(K, N, g, "int4")
+            return QuantLinear(data, float_scale((L, K // g, N), K), mode=mode, group_size=g)
         paired = mode == "w4a8_2l" and (K // g) % 2 == 0
         layout = "vertical" if mode == "w4a4_2l" else ("paired" if paired else "halves")
-        data = torch.empty((L, K // 2, N), dtype=torch.int8, device=dev)
         for l in range(L):
             data[l] = packed(K, N, g, layout)
         mult = torch.randint(1, 16, (L, K // g, N), generator=gen, dtype=torch.int8, device=dev)
@@ -221,14 +239,24 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     if not config.tie_embeddings:
         K, N = h, config.vocab_size
         g = groups(K)
-        paired = (K // g) % 2 == 0
-        lm_head = QuantLinear(
-            packed(K, N, g, "paired" if paired else "halves"),
-            torch.full((N,), 0.25 / math.sqrt(K) / 8.0, dtype=torch.float32, device=dev),
-            mode="w4a8_2l", group_size=g,
-            mult=torch.randint(1, 16, (K // g, N), generator=gen, dtype=torch.int8, device=dev),
-            paired=paired,
-        )
+        if mode == "w8a8":
+            lm_head = QuantLinear(
+                torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8, device=dev),
+                float_scale((N,), K), mode=mode,
+            )
+        elif not two_level:
+            lm_head = QuantLinear(packed(K, N, g, "int4"), float_scale((K // g, N), K),
+                                  mode=mode, group_size=g)
+        else:
+            paired = (K // g) % 2 == 0
+            lm_head = QuantLinear(
+                packed(K, N, g, "paired" if paired else "halves"),
+                torch.full((N,), 0.25 / math.sqrt(K) / 8.0, dtype=torch.float32, device=dev),
+                mode="w4a8_2l", group_size=g,
+                mult=torch.randint(1, 16, (K // g, N), generator=gen, dtype=torch.int8,
+                                   device=dev),
+                paired=paired,
+            )
     embedding = (
         torch.randn((config.vocab_size, h), generator=gen, device=dev) * 0.02
     ).to(torch.bfloat16)
@@ -275,8 +303,10 @@ def serving_forward_stacked(
     are updated in place; the returned cache shares them. A one-token step
     of at most 64 rows over fused paired W4A8 layers runs the layer tail
     (o_proj through down) as one fused kernel.
-    ``greedy_head`` with T == 1 and a W4A8 lm_head runs the fused
-    GEMV + argmax kernel, so the logits never reach device memory.
+    ``greedy_head`` with T == 1 and a two-level W4A8 lm_head runs the fused
+    GEMV + argmax kernel, so the logits never reach device memory; another
+    lm_head (w8a8, w4a8, w4a16) computes f32 logits and takes their argmax
+    (`stacked.py:903-908`).
     """
     B, T = input_ids.shape
     dev = input_ids.device
@@ -441,8 +471,9 @@ def serving_forward_stacked(
 def make_stacked_decode_loop(config: LlamaConfig, num_steps: int):
     """Greedy decode loop over the stacked forward (`stacked.py:912`):
     ``loop(params, stacked_layers, cache, token (B, 1))`` →
-    ``(tokens (B, num_steps), cache)``. Each step runs the fused
-    GEMV + argmax head; the cache is updated in place."""
+    ``(tokens (B, num_steps), cache)``. Each step runs the greedy head
+    (the fused GEMV + argmax kernel for a two-level W4A8 lm_head, else f32
+    logits and their argmax); the cache is updated in place."""
 
     def loop(params, stacked_layers, cache, token):
         out = []

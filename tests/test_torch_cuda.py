@@ -6,10 +6,12 @@ one. Run them on the card with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest``: the shared conftest imports JAX, which the GPU host
-need not have). Tolerances: the GEMVs, argmax ids, the dequant and the KV
-appends (slab and paged) are bit-equal; flash decode (slab and paged) and
-flash prefill are within one bf16 ulp of the largest output (rtol 8e-3),
-and paged flash decode gives the slab kernel's bits over the same tokens.
+need not have). Tolerances: the GEMVs, the W8A8 GEMM, argmax ids, the
+dequants and the KV appends (slab and paged) are bit-equal; the W4 GEMV
+(w4a16) is within 1e-4 of its largest output in f32, one bf16 ulp more in
+bf16; flash decode (slab and paged) and flash prefill are within one bf16
+ulp of the largest output (rtol 8e-3), and paged flash decode gives the
+slab kernel's bits over the same tokens.
 The fused layer tail: x1 bit-equal, the int8 activations hq and x2 within
 one level (the IEEE rsqrt and exp round unlike PyTorch's in a few rows),
 the output within rtol 8e-3.
@@ -406,3 +408,147 @@ def test_paged_decode_step_takes_the_kernels_at_any_page(dev):
     assert torch.isfinite(logits).all()
     rel_rms = ((logits - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
     assert rel_rms <= 0.03
+
+
+# --- the float-scale modes (w8a8, w4a8, w4a16): W8A8 GEMM, W4A8 halves
+# GEMV, W4 GEMV and the group-halves dequant. M covers one row, a ragged
+# tile, one 8-row tile, bench.py's batch and the GEMV limit; N = 4100 and
+# 260 are multiples of 4 but not of 16 (the 4-byte weight copies); K =
+# 14336 and 1056 at g = 32 give 112 and 33 groups (the windowed W4A8 sum).
+
+# W4 GEMV: f32 outputs within this share of the largest output of the
+# plain version (tensor-core sums in another order); bf16 outputs within
+# one bf16 ulp more.
+W4_GEMV_RTOL = 1e-4
+_MS = [1, 7, 8, 192, 256]
+
+
+def _w4(gen, K, N, g, dev):
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    s = torch.rand((K // g, N), generator=gen, device=dev) * 0.05 + 1e-3
+    return w, s
+
+
+def _bf16_ulp(a):
+    return torch.exp2(torch.floor(torch.log2(a.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+
+
+@pytest.mark.parametrize("M", _MS + [1000])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 260), (1024, 4100)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_gemm_kernel_bit_equal(dev, M, K, N, out_dtype):
+    gen = _gen(dev, M + K + N)
+    w = _ri(gen, -127, 128, (K, N), torch.int8, dev)
+    ws = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    before = _build.launch_counts["w8a8_gemm"]
+    out = mm.matmul_w8a8(x_q, x_s, w, ws, out_dtype=out_dtype)
+    assert _build.launch_counts["w8a8_gemm"] == before + 1
+    ref = mm.matmul_w8a8_reference(x_q, x_s, w, ws, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+
+
+def test_w8a8_gemm_kernel_bias_and_ragged_k(dev):
+    # a bias fused into the last product; K = 80, not a multiple of the
+    # 64-deep k step
+    gen = _gen(dev, 80)
+    M, K, N = 37, 80, 136
+    w = _ri(gen, -127, 128, (K, N), torch.int8, dev)
+    ws = torch.rand((N,), generator=gen, device=dev) * 1e-2
+    bias = torch.randn((N,), generator=gen, device=dev)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = mm.matmul_w8a8(x_q, x_s, w, ws, bias, out_dtype=out_dtype)
+        assert torch.equal(out, mm.matmul_w8a8_reference(x_q, x_s, w, ws, bias, out_dtype))
+
+
+@pytest.mark.parametrize("M", _MS)
+@pytest.mark.parametrize("K,N,g", [(4096, 6144, 128), (14336, 4100, 128), (1056, 260, 32),
+                                   (512, 132, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_halves_gemv_kernel_bit_equal(dev, M, K, N, g, out_dtype):
+    gen = _gen(dev, M + K + N + g)
+    w, s = _w4(gen, K, N, g, dev)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    before = _build.launch_counts["w4a8_gemv_halves"]
+    out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype)
+    assert _build.launch_counts["w4a8_gemv_halves"] == before + 1
+    ref = mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", _MS)
+@pytest.mark.parametrize("K,N,g", [(4096, 6144, 128), (14336, 4100, 128), (256, 40, 32),
+                                   (512, 132, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4_gemv_kernel_within_tolerance(dev, M, K, N, g, out_dtype):
+    gen = _gen(dev, M + K + N + g)
+    w, s = _w4(gen, K, N, g, dev)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.launch_counts["w4_gemv"]
+    out = mm.matmul_w4_gemv(x, w, s, g, out_dtype)
+    assert _build.launch_counts["w4_gemv"] == before + 1
+    ref32 = mm.matmul_w4_gemv_reference(x, w, s, g, torch.float32)
+    assert out.dtype == out_dtype
+    err = (out.float() - ref32).abs()
+    tol = W4_GEMV_RTOL * ref32.abs().max()
+    if out_dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(ref32)
+    assert (err <= tol).all()
+    if out_dtype == torch.float32:
+        # the greedy ids agree wherever the top-2 margin exceeds the error
+        top2 = torch.topk(ref32, 2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > err.max()
+        assert torch.equal(torch.argmax(out, -1)[sure], torch.argmax(ref32, -1)[sure])
+
+
+@pytest.mark.parametrize("offset_binary", [False, True])
+@pytest.mark.parametrize("K,N,g", [(4096, 6144, 128), (14336, 4096, 128), (1024, 4100, 128),
+                                   (256, 40, 32)])
+def test_dequant_halves_kernel_bit_equal(dev, offset_binary, K, N, g):
+    gen = _gen(dev, K + N + g + offset_binary)
+    w, s = _w4(gen, K, N, g, dev)
+    before = _build.launch_counts["dequant_halves"]
+    out = mm.dequantize_int4(w, s, g, offset_binary=offset_binary)
+    assert _build.launch_counts["dequant_halves"] == before + 1
+    ref = mm.dequantize_int4_reference(w, s, g, offset_binary=offset_binary)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+def test_float_scale_routing_takes_the_kernels(dev):
+    # up to 256 rows the GEMVs, above them the halves dequant and a dense
+    # product; W8A8 its GEMM at any size
+    gen = _gen(dev, 5)
+    K, N, g = 512, 64, 128
+    w, s = _w4(gen, K, N, g, dev)
+    w8 = _ri(gen, -127, 128, (K, N), torch.int8, dev)
+    names = ("w4a8_gemv_halves", "w4_gemv", "dequant_halves", "w8a8_gemm")
+    for M, expect in ((256, (1, 1, 0, 1)), (257, (0, 0, 2, 1))):
+        before = [_build.launch_counts[n] for n in names]
+        x = torch.randn((M, K), generator=gen, device=dev)
+        x_q, x_s = mm.quantize_rowwise(x)
+        mm.matmul_w4a8(x_q, x_s, w, s, group_size=g)
+        mm.matmul_w4a16(x.to(torch.bfloat16), w, s, group_size=g)
+        mm.matmul_w8a8(x_q, x_s, w8, s[0])
+        assert tuple(_build.launch_counts[n] - b for n, b in zip(names, before)) == expect
+
+
+def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x_q = torch.zeros((2, 256), dtype=torch.int8, device=dev)
+    x_s = torch.ones((2,), device=dev)
+    w = torch.zeros((128, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="group"):  # group 256 is not a kernel group
+        mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((1, 64), device=dev), 256)
+    with pytest.raises(ValueError, match="group"):
+        mm.matmul_w4_gemv(x_q.to(torch.bfloat16), w, torch.ones((1, 64), device=dev), 256)
+    with pytest.raises(ValueError, match="shape"):  # scales of another group count
+        mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((4, 64), device=dev), 128)
+    with pytest.raises(ValueError, match="K % 16"):
+        mm.matmul_w8a8(torch.zeros((2, 40), dtype=torch.int8, device=dev), x_s,
+                       torch.zeros((40, 64), dtype=torch.int8, device=dev), torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="int8"):
+        mm.matmul_w8a8(x_q, x_s, torch.zeros((256, 64), dtype=torch.uint8, device=dev),
+                       torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.dequantize_int4(torch.zeros((64, 128), dtype=torch.int8, device=dev).t(),
+                           torch.ones((2, 64), device=dev), 128)

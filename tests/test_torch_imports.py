@@ -2,7 +2,8 @@
 
 Every module of `fastforward_tpu_torch` is imported in a fresh Python
 process; afterwards neither ``jax`` nor any ``fastforward_tpu.`` module may
-be loaded there.
+be loaded there. The kernel build table names every CUDA source of
+`csrc/`, and each C entry point it binds is defined in its source.
 """
 
 import json
@@ -13,6 +14,7 @@ import sys
 from pathlib import Path
 
 import fastforward_tpu_torch
+from fastforward_tpu_torch.kernels import _build
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -45,3 +47,19 @@ def test_port_modules_import_no_jax():
     # THEN each imported, and no JAX module was loaded
     assert sorted(result["modules"]) == expected
     assert result["forbidden"] == []
+
+
+def test_build_table_covers_every_source():
+    # GIVEN the CUDA sources of the port
+    sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    # THEN the build table compiles each, including the float-scale modes'
+    assert sorted(_build.SOURCES) == sources == sorted(_build.SIGNATURES)
+    for name in ("w8a8_gemm", "w4_gemv"):
+        assert name in sources
+    # AND every bound entry point is an extern "C" function of its source
+    for name, entries in _build.SIGNATURES.items():
+        text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        for fn in entries:
+            assert f'extern "C" int {fn}(' in text, (name, fn)
+    assert "ff_w4a8_gemv_halves" in _build.SIGNATURES["w4a8_gemv"]
+    assert "ff_dequant_halves" in _build.SIGNATURES["dequant"]

@@ -240,11 +240,12 @@ def test_dequant_non_stacked_bit_exact():
                            paired=True),
         tm.dequantize_int4(torch.from_numpy(w[0]), torch.from_numpy(s_eff), g,
                            offset_binary=True, paired=True))
-    # the group-halves branches are not ported
+    # the group-halves branches (two's complement and offset binary) too
     for offset_binary in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _eq(jm.dequantize_int4(jnp.asarray(w[0]), jnp.asarray(s_eff), g,
+                               offset_binary=offset_binary),
             tm.dequantize_int4(torch.from_numpy(w[0]), torch.from_numpy(s_eff), g,
-                               offset_binary=offset_binary)
+                               offset_binary=offset_binary))
 
 
 EXACT = {"xla_allow_excess_precision": False}

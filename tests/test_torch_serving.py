@@ -117,11 +117,12 @@ def test_quantize_linear_and_quant_linear_bit_exact(mode):
 
 
 def test_quant_linear_rejects_what_is_not_ported(tpu_routing):
-    ql = te.QuantLinear(torch.zeros(4, 4, dtype=torch.int8), torch.ones(4), mode="w8a8")
+    # bench.py's baseline tier (sim_w8, sim_w4) is not ported
+    ql = te.QuantLinear(torch.zeros(4, 4, dtype=torch.bfloat16), torch.ones(4), mode="sim_w8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ql(torch.zeros(1, 4))
     with pytest.raises(NotImplementedError):
-        te.quantize_linear(torch.zeros(8, 4), "w4a16")
+        te.quantize_linear(torch.zeros(8, 4), "sim_w4")
     # more than 256 rows take the prefill dequant + dense product, as the
     # JAX package's TPU route does: within 1e-5 of the largest output (the
     # f32 sums run in another order)
@@ -135,11 +136,14 @@ def test_quant_linear_rejects_what_is_not_ported(tpu_routing):
             qj, jnp.asarray(x).astype(jnp.bfloat16)))
         b = qt(torch.from_numpy(x).to(torch.bfloat16), out_dtype=torch.float32).numpy()
         assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max(), mode
-    # the unpaired (group-halves) W4A8 prefill dequant is not ported
+    # the unpaired (group-halves, offset-binary) W4A8 prefill dequant too
+    qj = je.quantize_linear(jnp.asarray(w[:96]), "w4a8_2l", group_size=32)
     ql = te.quantize_linear(torch.from_numpy(w[:96]), "w4a8_2l", group_size=32)
-    assert not ql.paired
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ql(torch.zeros(257, 96, dtype=torch.bfloat16))
+    assert not ql.paired and not qj.paired
+    a = np.asarray(jax.jit(lambda q, x: q(x, out_dtype=jnp.float32))(
+        qj, jnp.asarray(x[:, :96]).astype(jnp.bfloat16)))
+    b = ql(torch.from_numpy(x[:, :96]).to(torch.bfloat16), out_dtype=torch.float32).numpy()
+    assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max()
 
 
 @pytest.fixture(scope="module", params=["w4a4_2l", "w4a8_2l"])
@@ -250,7 +254,7 @@ def test_no_cache_forward_and_limits(tiny_models, tpu_routing):
     b = ts.serving_forward_stacked(tp, tl, tc, torch.from_numpy(ids))[0].numpy()
     assert _rel_rms(a, b) <= 2e-2
     with pytest.raises(NotImplementedError):
-        ts.random_stacked_params(tc, "w8a8", device="cpu")
+        ts.random_stacked_params(tc, "sim_w8", device="cpu")
 
 
 # Relative RMS error of the prefill logits, per mode. The port attends
