@@ -2,33 +2,43 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Four phases,
+Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Five phases,
 each raising on failure:
 
 1. build  — compile every CUDA kernel of the port from `csrc/` (one nvcc
    per source, in parallel) and print the build time;
 2. kernels — run each kernel and its plain PyTorch version on the card at
    the Llama-3-8B shapes of the serving and engine phases and hold them
-   together (GEMVs, the W8A8 GEMM, argmax ids, the dequants and the KV
-   appends bit-equal; the W4 GEMV within W4_GEMV_RTOL; flash decode, paged
-   flash decode and flash prefill within rtol 8e-3 of the largest output;
+   together (GEMVs, the unpaired two-level one too, the W8A8 GEMM, argmax
+   ids, the dequants and the KV appends, stacked, per-layer and paged,
+   bit-equal; the W4 GEMV within W4_GEMV_RTOL; flash decode (stacked,
+   per-layer, paged) and flash prefill (int8 and bf16 K/V) within rtol
+   8e-3 of the largest output;
    the fused layer tail with x1 bit-equal, its int8 activations within one
    level in a stated share of elements and its output within rtol 8e-3);
    print median times, device times, bounds and library times;
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
-   from the port's own `random_stacked_params`, INT8 KV on a 512-token
-   slab, greedy decoding. Six runs, each with its launch counts set to 0
-   before it and asserted exactly after it:
+   from the port's own `random_stacked_params` (stacked runs) or
+   `random_serving_params` (per-layer runs), a 512-token cache, greedy
+   decoding. Eight runs, each with its launch counts set to 0 before it
+   and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
    (b) bench.py's FF_BENCH_MODE=w4a8_2l: W4A8 at group 128, same shape;
    (c) W4A4 g512, 8 prompts of 32 tokens: the prefill of at most 256
        rows, through the A4 GEMV;
    (e), (f), (g) bench.py's FF_BENCH_MODE=w4a8, w4a16 and w8a8, group 128,
-       bench.py's shape, the lm_head in the layers' mode.
+       bench.py's shape, the lm_head in the layers' mode;
+   (h) the per-layer path (`serving_forward` + `make_decode_loop` over a
+       `KVCache`) in w4a8 g128 with an INT8 cache, bench.py's shape;
+   (i) the per-layer path in w4a8_2l g128 (unpaired, as the JAX package's
+       `random_serving_params` makes it) with the default bf16 cache.
    Each prints prefill ms, decode tok/s, peak memory and profiles of one
-   decode step and one prefill. Then, at depth 2 for every run but (c),
-   the kernel path is compared with the plain path on the card;
+   decode step and one prefill. (h)'s weights also go through
+   `stack_serving_layers` and the stacked forward, 8 prompts of 128 tokens
+   and 32 steps, which must give the per-layer path's greedy tokens. Then,
+   at depth 2 for every run but (c), the kernel path is compared with the
+   plain path on the card, 192 prompts of 128 tokens;
 4. engine — bench.py's continuous-batching workload (measure_engine with
    FF_BENCH_MODE=w4a8_2l FF_BENCH_ENGINE_PAGED=1 FF_BENCH_ENGINE_SAT=1,
    one pass): Llama-3-8B w4a8_2l g128 at full depth, 32 slots on the paged
@@ -37,7 +47,13 @@ each raising on failure:
    from the engine's own counters; the same trace through a slab engine
    gives the same tokens, request by request; at depth 2 the paged decode
    at 32 rows (paged append, paged flash decode, fused layer tail) is
-   compared with the plain path.
+   compared with the plain path;
+5. loader — (j): a Llama-3-8B-wide, 2-layer bf16 checkpoint in HF layout
+   (~3 GB, written by the port's own safetensors writer to a temporary
+   directory) loaded by `load_llama` on the card in w8a8 and w4a8 (load
+   time and GB/s printed); the card's quantized q_proj and lm_head equal
+   the plain quantizer's on the CPU byte for byte; the loaded model serves
+   8 prompts of 32 tokens and 8 greedy steps over an INT8 cache.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -82,6 +98,9 @@ TAIL_LEVEL_SHARE = 1e-3
 
 PROJ = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
         "down": (14336, 4096)}   # (K, N) of one fused Llama-3-8B layer
+LAYER_PROJ = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024), "o": (4096, 4096),
+              "gate": (4096, 14336), "up": (4096, 14336),
+              "down": (14336, 4096)}  # (K, N) of one unfused Llama-3-8B layer
 VOCAB = 128256                   # Llama-3-8B's lm_head width
 BATCH, PROMPT, STEPS, SLAB = 192, 128, 32, 512   # bench.py's shape
 # bench.py's engine workload (measure_engine, FF_BENCH_ENGINE_PAGED=1,
@@ -418,6 +437,8 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     rows.update(_float_scale_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
+    rows.update(_layer_kernels(dev, gen, randint))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -654,6 +675,97 @@ def _float_scale_kernels(dev, gen, randint):
     return rows
 
 
+def _layer_kernels(dev, gen, randint):
+    """The per-layer cache path's kernels at bench.py's shapes: the
+    unpaired two-level W4A8 GEMV over the seven projections of a layer at
+    M = 192 (the JSON row) and the lm_head (f32 logits); the per-layer
+    append and flash decode at B = 192, lengths 129..160 (Hkv 8, G 4, S
+    512); flash prefill over bf16 K/V at B = 192, T = 128, starts 0."""
+    from fastforward_tpu_torch.kernels import attention as att
+    from fastforward_tpu_torch.kernels import kv_update as kvu
+    from fastforward_tpu_torch.kernels import matmul as mm
+
+    g, M = 128, BATCH
+    rows, per = {}, []
+    for pname, (K, N) in dict(LAYER_PROJ, lm_head=(4096, VOCAB)).items():
+        head = pname == "lm_head"
+        out_dtype = torch.float32 if head else torch.bfloat16
+        w = randint(-128, 128, (K // 2, N))
+        mult = randint(1, 16, (K // g, N))
+        s_col = torch.rand((N,), generator=gen, device=dev) * 1e-3
+        x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+        xb = (x_q.float() * x_s[:, None]).to(torch.bfloat16)
+        w_bf16 = mm.dequantize_int4_reference(w, mult.float() * s_col[None, :], g,
+                                              offset_binary=True)
+        r = measure(
+            "w4a8_gemv_unpaired", f"{pname} M={M} K={K} N={N} g={g} {out_dtype}",
+            lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w, mult, s_col, g, out_dtype, paired=False),
+            lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w, mult, s_col, None, g, out_dtype,
+                                                paired=False),
+            M * K + M * 4 + K * N // 2 + (K // g) * N + N * 4 + M * N * (4 if head else 2),
+            2 * M * K * N, INT8_OPS_PER_S, bit_equal,
+            library=lambda: torch.matmul(xb, w_bf16), plain_n=5 if head else 20)
+        if not head:
+            per.append(r)
+        del w, mult, w_bf16
+    rows["w4a8_gemv_unpaired"] = add_rows(per)
+
+    Hkv, G, d, S, B = 8, 4, 128, SLAB, BATCH
+    H = Hkv * G
+    kc, vc = randint(-128, 128, (B, Hkv, S, d)), randint(-128, 128, (B, Hkv, S, d))
+    ks = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    vs = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    new = [randint(-128, 128, (B, Hkv, 1, d)) for _ in range(2)]
+    new += [torch.rand((B, Hkv, 1), generator=gen, device=dev) for _ in range(2)]
+    lo, hi = PROMPT + 1, PROMPT + STEPS + 1
+    lengths = torch.randint(lo, hi, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = lo, hi - 1
+    starts = (lengths - 1).contiguous()
+    bufs = [t.clone() for t in (kc, vc, ks, vs)]
+
+    def append_check(out, ref):
+        return all(torch.equal(a, r) for a, r in zip(out, ref)), \
+            max(max_err(a, r) for a, r in zip(out, ref))
+
+    rows["kv_append_layer"] = measure(
+        "kv_append_layer", f"B={B} Hkv={Hkv} d={d} S={S}",
+        lambda: kvu.kv_append_decode_int8(*bufs, *new, starts),
+        lambda: kvu.kv_append_decode_reference(kc, vc, ks, vs, *new, starts),
+        2 * 2 * B * Hkv * (d + 4) + B * 4, 0, INT8_OPS_PER_S, append_check)
+    del bufs
+    q = torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
+    live = int(lengths.sum().item())
+    kd = (kc.float() * ks[..., None]).to(torch.bfloat16)
+    vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
+    amask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    rows["flash_decode_layer"] = measure(
+        "flash_decode_layer", f"B={B} H={H} Hkv={Hkv} d={d} S={S} lengths {lo}..{hi - 1}",
+        lambda: att.flash_decode_int8(q, kc, ks, vc, vs, lengths),
+        lambda: att.flash_decode_int8_reference(q, kc, ks, vc, vs, lengths),
+        live * Hkv * 2 * (d + 4) + 2 * B * H * d * 2 + B * 4, 4 * live * G * d * Hkv,
+        F32_OPS_PER_S, within_rtol,
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, attn_mask=amask, enable_gqa=True))
+    del kc, vc, kd, vd
+
+    T = PROMPT
+    k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, H, T, d), generator=gen, device=dev).to(torch.bfloat16)
+    starts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pos = torch.arange(T, device=dev)
+    cmask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[None, None]
+    rows["flash_prefill_bf16"] = measure(
+        "flash_prefill_bf16", f"B={B} H={H} Hkv={Hkv} T={T} S={S} starts 0",
+        lambda: att.flash_prefill(q, k, None, v, None, starts),
+        lambda: att.flash_prefill_reference(q, k, None, v, None, starts),
+        2 * B * H * T * d * 2 + B * T * Hkv * 2 * d * 2 + B * 4,
+        4 * H * d * B * T * (T + 1) // 2, BF16_OPS_PER_S, within_rtol,
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=cmask, enable_gqa=True))
+    return rows
+
+
 def _plain_versions():
     """(patch target, plain version, check) of every kernel wrapper the
     serving path calls, under the name that `engine`/`stacked` import."""
@@ -691,8 +803,13 @@ def _plain_versions():
     def w4a8_halves(x_q, x_s, w, s, group_size, out_dtype):
         return mm.matmul_w4a8_reference(x_q, x_s, w, s, None, group_size, out_dtype)
 
-    def flash(q, k, ks, v, vs, lengths, layer):
+    def flash(q, k, ks, v, vs, lengths, layer, count=None):
         return att.flash_decode_int8_reference(q, k[layer], ks[layer], v[layer], vs[layer], lengths)
+
+    def layer_append(kc, vc, ks, vs, *new):
+        for dst, src in zip((kc, vc, ks, vs), kvu.kv_append_decode_reference(kc, vc, ks, vs, *new)):
+            dst.copy_(src)
+        return kc, vc, ks, vs
 
     def paged_flash(q, k, ks, v, vs, table, lengths, layer):
         return pa.paged_flash_decode_reference(q, k[layer], ks[layer], v[layer], vs[layer], table,
@@ -705,6 +822,7 @@ def _plain_versions():
             group_size, eps).to(attn.dtype)
 
     eng, stk = "fastforward_tpu_torch.serving.engine", "fastforward_tpu_torch.serving.stacked"
+    kvc = "fastforward_tpu_torch.serving.kv_cache"
     mmod = "fastforward_tpu_torch.kernels.matmul"  # the names matmul_w4a8 / _w4a16 route to
     return [
         (f"{eng}.matmul_w4a4_2l_gemv_stacked", a4, bit_equal),
@@ -727,6 +845,7 @@ def _plain_versions():
         (f"{stk}.paged_kv_append_decode_int8", pa.paged_kv_append_reference, None),
         (f"{stk}.paged_flash_decode_int8", paged_flash, within_rtol),
         (f"{stk}.fused_o_mlp_stacked", fused_tail, within_rtol),
+        (f"{kvc}.kv_append_decode_int8", layer_append, "layer_append"),
     ]
 
 
@@ -756,6 +875,12 @@ def _checked_patches(checked):
                 ok, err = bit_equal(torch.cat([t[layer:layer + 1].flatten().view(torch.uint8)
                                                for t in out]),
                                     torch.cat([t.flatten().view(torch.uint8) for t in ref]))
+            elif _check == "layer_append":  # one layer's cache, in place: the
+                copy = [t.clone() for t in args[:4]]  # plain version appends to a copy
+                out = _kernel(*args, **kwargs)
+                ref = _plain(*copy, *args[4:])
+                ok, err = bit_equal(torch.cat([t.flatten().view(torch.uint8) for t in out]),
+                                    torch.cat([t.flatten().view(torch.uint8) for t in ref]))
             else:
                 out = _kernel(*args, **kwargs)
                 ok, err = _check(out, _plain(*args, **kwargs))
@@ -769,18 +894,70 @@ def _checked_patches(checked):
     return patches
 
 
-def _model(config, mode, g, seed, dev):
-    from fastforward_tpu_torch.serving import fuse_stacked_layers, random_stacked_params
+@dataclasses.dataclass
+class ServePath:
+    """A model on one of the port's two serving paths: the stacked forward
+    over ``layers`` on a StackedKVCache (``kv`` None), or the per-layer
+    forward on a KVCache, INT8 (``kv`` "int8") or bf16 ("bf16"). Only its
+    methods tell the two apart."""
 
-    params, layers = random_stacked_params(config, mode=mode, group_size=g, seed=seed, device=dev)
-    return params, fuse_stacked_layers(layers)
+    config: object
+    params: object
+    layers: object = None
+    kv: str = None
 
+    @staticmethod
+    def random(config, mode, g, seed, dev, kv=None):
+        """Random weights: per layer from `random_serving_params` (``kv``
+        given), else stacked from `random_stacked_params`, fused."""
+        from fastforward_tpu_torch.serving import (
+            fuse_stacked_layers,
+            random_serving_params,
+            random_stacked_params,
+        )
 
-def _new_cache(config, B, dev, S=SLAB):
-    from fastforward_tpu_torch.serving import StackedKVCache
+        if kv is not None:
+            params = random_serving_params(config, mode=mode, group_size=g, seed=seed, device=dev)
+            return ServePath(config, params, kv=kv)
+        params, layers = random_stacked_params(config, mode=mode, group_size=g, seed=seed,
+                                               device=dev)
+        return ServePath(config, params, fuse_stacked_layers(layers))
 
-    return StackedKVCache.create(config.num_layers, B, S, config.num_kv_heads,
-                                 config.head_dim, device=dev)
+    def new_cache(self, B, dev, S=SLAB):
+        from fastforward_tpu_torch.serving import KVCache, StackedKVCache
+
+        c = self.config
+        if self.kv is not None:
+            return KVCache.create(c.num_layers, B, S, c.num_kv_heads, c.head_dim,
+                                  quantized=self.kv == "int8", device=dev)
+        return StackedKVCache.create(c.num_layers, B, S, c.num_kv_heads, c.head_dim, device=dev)
+
+    def forward(self, ids, cache, **kw):
+        from fastforward_tpu_torch.serving import serving_forward, serving_forward_stacked
+
+        if self.kv is not None:
+            return serving_forward(self.params, self.config, ids, cache, **kw)
+        return serving_forward_stacked(self.params, self.layers, self.config, ids, cache=cache,
+                                       **kw)
+
+    def greedy_step(self, token, cache):
+        """One decode step's greedy tokens (B,) and the cache: the stacked
+        path's greedy head, the argmax of the per-layer path's logits."""
+        if self.kv is not None:
+            logits, cache = self.forward(token, cache)
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+        return self.forward(token, cache, greedy_head=True)
+
+    def decode(self, cache, token, steps):
+        from fastforward_tpu_torch.serving import make_decode_loop, make_stacked_decode_loop
+
+        if self.kv is not None:
+            return make_decode_loop(self.config, steps)(self.params, cache, token)
+        return make_stacked_decode_loop(self.config, steps)(self.params, self.layers, cache, token)
+
+    @property
+    def label(self):
+        return "stacked" if self.kv is None else f"per-layer, {self.kv} KVCache"
 
 
 def _to_pages(slab, config, dev):
@@ -801,20 +978,18 @@ def _to_pages(slab, config, dev):
     return pool
 
 
-def _serve(config, params, layers, ids, steps, dev):
-    """Prefill (last-position logits) + ``steps`` greedy tokens; returns
-    (logits, first token, tokens, cache, prefill ms, decode s)."""
-    from fastforward_tpu_torch.serving import make_stacked_decode_loop, serving_forward_stacked
-
-    cache = _new_cache(config, ids.shape[0], dev)
+def _serve(path, ids, steps, dev):
+    """Prefill (last-position logits) + ``steps`` greedy tokens on
+    ``path``; returns (logits, first token, tokens, cache, prefill ms,
+    decode s)."""
+    cache = path.new_cache(ids.shape[0], dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = serving_forward_stacked(params, layers, config, ids, cache=cache,
-                                            logits_positions="last")
+    logits, cache = path.forward(ids, cache, logits_positions="last")
     first = torch.argmax(logits[:, -1], dim=-1).to(ids.dtype)[:, None]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    tokens, cache = make_stacked_decode_loop(config, steps)(params, layers, cache, first)
+    tokens, cache = path.decode(cache, first, steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return logits, first, tokens, cache, (t1 - t0) * 1e3, (t2 - t1)
@@ -837,43 +1012,40 @@ def _report_profile(what, wall_ms, rows, top=10):
         log(f"  {ms:9.4f} ms  x{count:6.0f}  {name[:90]}")
 
 
-def profile_steps(config, params, layers, cache, token, ids):
+def profile_steps(path, cache, token, ids):
     """Profile one decode step (mean of 3, rewriting the last 3 rows of the
-    slab) and one prefill (on a fresh cache)."""
-    from fastforward_tpu_torch.serving import serving_forward_stacked
-
+    cache) and one prefill (on a fresh cache)."""
     state = {"cache": cache, "token": token}
     cache.length -= 3
 
     def step():
-        tok, state["cache"] = serving_forward_stacked(params, layers, config, state["token"],
-                                                      state["cache"], greedy_head=True)
+        tok, state["cache"] = path.greedy_step(state["token"], state["cache"])
         state["token"] = tok.to(token.dtype)[:, None]
 
     _report_profile("decode step", *_profile(step, 3))
-    fresh = _new_cache(config, ids.shape[0], ids.device)
+    fresh = path.new_cache(ids.shape[0], ids.device)
     _report_profile("prefill", *_profile(
-        lambda: serving_forward_stacked(params, layers, config, ids, cache=fresh,
-                                        logits_positions="last"), 1))
+        lambda: path.forward(ids, fresh, logits_positions="last"), 1))
 
 
-def serve_run(label, config, mode, g, B, T, steps, dev, expect):
+def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=False):
     """One main-path run: warm-up, then the measured run with the launch
-    counts set to 0 before it and asserted equal to ``expect`` after it."""
+    counts set to 0 before it and asserted equal to ``expect`` after it.
+    ``kv`` "int8" or "bf16": the per-layer forward over a KVCache of that
+    kind. ``keep``: also return the path."""
     from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
-    params, layers = _model(config, mode, g, 0, dev)
+    path = ServePath.random(config, mode, g, 0, dev, kv)
     torch.cuda.synchronize()
-    log(f"serve {label}: Llama-3-8B {mode} g{g}, {config.num_layers} layers, weights on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"serve {label}: Llama-3-8B {mode} g{g} ({path.label}), {config.num_layers} layers, "
+        f"weights on the card in {time.perf_counter() - t0:.1f} s")
     ids = torch.randint(0, config.vocab_size, (B, T), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(7))
-    _serve(config, params, layers, ids, 2, dev)  # warm-up: no first-call costs below
+    _serve(path, ids, 2, dev)  # warm-up: no first-call costs below
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    logits, first, tokens, cache, prefill_ms, decode_s = _serve(config, params, layers, ids,
-                                                                steps, dev)
+    logits, first, tokens, cache, prefill_ms, decode_s = _serve(path, ids, steps, dev)
     counts = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"serve {label}: prefill {B}x{T} {prefill_ms:.1f} ms; decode {B}x{steps} tokens in "
@@ -887,10 +1059,15 @@ def serve_run(label, config, mode, g, B, T, steps, dev, expect):
         raise AssertionError(f"{label}: decoded tokens out of range: {tokens.shape}")
     if cache.length != T + steps:
         raise AssertionError(f"{label}: cache length {cache.length} != {T + steps}")
-    profile_steps(config, params, layers, cache, tokens[:, -1:], ids)
-    del params, layers, cache
+    profile_steps(path, cache, tokens[:, -1:], ids)
+    del cache
+    if not keep:
+        del path
     torch.cuda.empty_cache()
-    return dict(counts=counts, prefill_ms=prefill_ms, tok_s=B * steps / decode_s, peak_gib=peak)
+    out = dict(counts=counts, prefill_ms=prefill_ms, tok_s=B * steps / decode_s, peak_gib=peak,
+               seconds=time.perf_counter() - t0)
+    log(f"serve {label}: {out['seconds']:.1f} s with its warm-up and profiles")
+    return (out, path) if keep else out
 
 
 def _margin(logits):
@@ -904,13 +1081,14 @@ def _rel_rms(a, b):
     return ((a - b).pow(2).mean() / b.pow(2).mean()).sqrt().item()
 
 
-def compare_paths(config, mode, g, dev, batch=BATCH, paged=False):
+def compare_paths(config, mode, g, dev, batch=BATCH, paged=False, kv=None):
     """Kernel path against plain path on the card at full width and depth
-    2, bench.py's shape: prefill logits, then one decode step from the same
-    token (its logits, and the greedy head's token). Returns the names of
+    2, ``batch`` prompts of 128 tokens: prefill logits, then one decode
+    step from the same token (its logits, and the greedy token). Returns the names of
     the kernels the kernel path launched. ``paged``: ``batch`` prompts
     prefilled into one page each of a slab, copied into a pool of the
-    engine's size, and the decode step through the page table.
+    engine's size, and the decode step through the page table. ``kv``
+    "int8" or "bf16": the per-layer forward over a KVCache of that kind.
 
     On the kernel path every kernel call is also held against its plain
     version on the same inputs (bit-equal; flash attention within
@@ -920,28 +1098,25 @@ def compare_paths(config, mode, g, dev, batch=BATCH, paged=False):
     are held to LOGIT_RMS[mode] and a greedy token may differ only in a row
     whose plain top-2 margin is at most twice that row's logit error.
     """
-    from fastforward_tpu_torch.serving import serving_forward_stacked
-
+    t0 = time.perf_counter()
     small = dataclasses.replace(config, num_layers=2)
-    params, layers = _model(small, mode, g, 1, dev)
+    path = ServePath.random(small, mode, g, 1, dev, kv)
     ids = torch.randint(0, small.vocab_size, (batch, PROMPT), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(11))
-    label = f"{mode}{' paged' if paged else ''}"
+    label = f"{mode}{' paged' if paged else ''}{'' if kv is None else f' per-layer {kv}'}"
 
     def run(patches, token=None):
         for p in patches:
             p.start()
         try:
-            cache = _new_cache(small, batch, dev, ENGINE_PAGE if paged else SLAB)
-            logits, cache = serving_forward_stacked(params, layers, small, ids, cache=cache,
-                                                    logits_positions="last")
+            cache = path.new_cache(batch, dev, ENGINE_PAGE if paged else SLAB)
+            logits, cache = path.forward(ids, cache, logits_positions="last")
             if paged:
                 cache = _to_pages(cache, small, dev)
             if token is None:
                 token = torch.argmax(logits[:, -1], dim=-1).to(ids.dtype)[:, None]
-            step_logits, _ = serving_forward_stacked(params, layers, small, token, cache)
-            step_tok, _ = serving_forward_stacked(params, layers, small, token, cache,
-                                                  greedy_head=True)  # rewrites the same row
+            step_logits, _ = path.forward(token, cache)
+            step_tok, _ = path.greedy_step(token, cache)  # rewrites the same row
         finally:
             for p in patches:
                 p.stop()
@@ -976,9 +1151,37 @@ def compare_paths(config, mode, g, dev, batch=BATCH, paged=False):
         if wrong:
             raise AssertionError(f"{label} {what}: greedy tokens differ where the plain margin "
                                  f"exceeds twice the logit error: rows {wrong}")
-    del params, layers
+    del path
     torch.cuda.empty_cache()
+    log(f"serve {label} depth 2, batch {batch}: {time.perf_counter() - t0:.1f} s")
     return launched
+
+
+def per_layer_vs_stacked(path, dev):
+    """(h)'s per-layer weights through `stack_serving_layers` and the
+    stacked forward on a StackedKVCache, and through the per-layer forward
+    on a KVCache, both INT8: 8 prompts of 128 tokens, 32 greedy steps. The
+    same kernels read the same bytes, so the greedy tokens must be
+    identical."""
+    from fastforward_tpu_torch.serving import stack_serving_layers
+
+    config, params = path.config, path.params
+    ids = torch.randint(0, config.vocab_size, (8, PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(13))
+    stacked = ServePath(config, dataclasses.replace(params, layers=()),
+                        stack_serving_layers(params))
+    a = _serve(path, ids, STEPS, dev)
+    b = _serve(stacked, ids, STEPS, dev)
+    same_tokens = torch.equal(a[2], b[2])
+    same_logits = torch.equal(a[0], b[0])
+    log(f"serve (h) per-layer vs stacked, 8x{PROMPT} + {STEPS} steps: greedy tokens "
+        f"{'identical' if same_tokens else 'DIFFER'}; prefill logits "
+        f"{'bit-equal' if same_logits else f'max diff {max_err(a[0], b[0]):.3g}'}")
+    if not same_tokens:
+        raise AssertionError("per-layer and stacked forwards give different greedy tokens")
+    del stacked
+    torch.cuda.empty_cache()
+    return dict(identical_tokens=same_tokens, identical_logits=same_logits)
 
 
 def phase_serve(dev):
@@ -992,6 +1195,9 @@ def phase_serve(dev):
     # each decode step, f32 logits) runs the layers' decode kernel
     attn = {k: v for k, v in shared.items() if k != "w4a8_gemv"}
     decode = 4 * L * STEPS + 1 + STEPS
+    # the per-layer path: seven unfused projections a layer, the lm_head in
+    # the layers' mode
+    layer_decode = 7 * L * STEPS + 1 + STEPS
     runs = {
         "a": serve_run("(a)", config, "w4a4_2l", 512, BATCH, PROMPT, STEPS, dev,
                        {"dequant_vertical": 4 * L, "a4_gemv": 4 * L * STEPS, **shared}),
@@ -1006,9 +1212,22 @@ def phase_serve(dev):
         "g": serve_run("(g)", config, "w8a8", 128, BATCH, PROMPT, STEPS, dev,
                        {"w8a8_gemm": decode + 4 * L, **attn}),
     }
-    for mode, g, run in (("w4a4_2l", 512, "a"), ("w4a8_2l", 128, "b"), ("w4a8", 128, "e"),
-                         ("w4a16", 128, "f"), ("w8a8", 128, "g")):
-        launched = compare_paths(config, mode, g, dev)
+    runs["h"], path = serve_run(
+        "(h)", config, "w4a8", 128, BATCH, PROMPT, STEPS, dev,
+        {"dequant_halves": 7 * L, "w4a8_gemv_halves": layer_decode, "flash_prefill": L,
+         "kv_append_layer": L * STEPS, "flash_decode_layer": L * STEPS}, kv="int8", keep=True)
+    runs["h"]["per_layer_vs_stacked"] = per_layer_vs_stacked(path, dev)
+    del path
+    torch.cuda.empty_cache()
+    runs["i"] = serve_run(
+        "(i)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
+        {"dequant_halves": 7 * L, "w4a8_gemv_unpaired": layer_decode, "flash_prefill_bf16": L},
+        kv="bf16")
+    for mode, g, run, kv in (("w4a4_2l", 512, "a", None), ("w4a8_2l", 128, "b", None),
+                             ("w4a8", 128, "e", None), ("w4a16", 128, "f", None),
+                             ("w8a8", 128, "g", None), ("w4a8", 128, "h", "int8"),
+                             ("w4a8_2l", 128, "i", "bf16")):
+        launched = compare_paths(config, mode, g, dev, kv=kv)
         if launched != set(runs[run]["counts"]):
             raise AssertionError(f"{mode}: the checked run launched {sorted(launched)}, the main "
                                  f"path {sorted(runs[run]['counts'])}")
@@ -1105,7 +1324,9 @@ def phase_engine(dev):
 
     config = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    params, layers = _model(config, "w4a8_2l", 128, 0, dev)
+    path = ServePath.random(config, "w4a8_2l", 128, 0, dev)
+    params, layers = path.params, path.layers
+    del path
     torch.cuda.synchronize()
     log(f"engine: Llama-3-8B w4a8_2l g128, {config.num_layers} layers, weights on the card in "
         f"{time.perf_counter() - t0:.1f} s; {ENGINE_SLOTS} slots, max_len {ENGINE_MAXLEN}, "
@@ -1140,6 +1361,99 @@ def phase_engine(dev):
     return dict(counts=counts, paged=paged, slab=slab, slab_counts=slab_counts)
 
 
+def phase_loader(dev):
+    """(j): a Llama-3-8B-wide, 2-layer bf16 checkpoint in HF layout written
+    to a temporary directory, loaded on the card in w8a8 and w4a8; the
+    card's quantized q_proj and lm_head held against the plain quantizer on
+    the CPU byte for byte; 8 prompts of 32 tokens and 8 greedy steps served
+    from it over an INT8 KVCache. Launch counts are read just after the
+    serving run."""
+    import shutil
+    import tempfile
+
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+    from fastforward_tpu_torch.serving import load_llama
+    from fastforward_tpu_torch.serving.loader import (
+        load_tensors,
+        quantize_int8,
+        quantize_pack_int4,
+        write_safetensors,
+    )
+
+    config = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2)
+    h, inter, V = config.hidden_size, config.intermediate_size, config.vocab_size
+    nq, nkv = config.num_heads * config.head_dim, config.num_kv_heads * config.head_dim
+    shapes = {"model.embed_tokens.weight": (V, h), "model.norm.weight": (h,),
+              "lm_head.weight": (V, h)}
+    for i in range(config.num_layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "self_attn.q_proj.weight": (nq, h), p + "self_attn.k_proj.weight": (nkv, h),
+                       p + "self_attn.v_proj.weight": (nkv, h), p + "self_attn.o_proj.weight": (h, nq),
+                       p + "mlp.gate_proj.weight": (inter, h), p + "mlp.up_proj.weight": (inter, h),
+                       p + "mlp.down_proj.weight": (h, inter), p + "input_layernorm.weight": (h,),
+                       p + "post_attention_layernorm.weight": (h,)})
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tmp = tempfile.mkdtemp(prefix="ff_checkpoint_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        tensors = {}
+        for name, shape in shapes.items():
+            t = torch.randn(shape, generator=gen, device=dev)
+            tensors[name] = (0.02 * t if len(shape) == 2 else 1 + 0.1 * t).to(torch.bfloat16)
+        path = os.path.join(tmp, "model.safetensors")
+        write_safetensors(path, tensors)
+        del tensors
+        nbytes = os.path.getsize(path)
+        log(f"loader (j): wrote a {config.num_layers}-layer Llama-3-8B-wide bf16 checkpoint, "
+            f"{nbytes / 1e9:.3f} GB, in {time.perf_counter() - t0:.1f} s")
+        host = load_tensors(path)
+        for mode in ("w8a8", "w4a8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = load_llama(tmp, config, mode=mode, group_size=128, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            log(f"loader (j) {mode}: loaded and quantized on the card in {load_s:.2f} s = "
+                f"{nbytes / load_s / 1e9:.2f} GB/s of checkpoint")
+            t0 = time.perf_counter()
+            for name, ql in (("model.layers.0.self_attn.q_proj.weight", params.layers[0].q_proj),
+                             ("lm_head.weight", params.lm_head)):
+                w = host[name].float().t().contiguous()
+                data, scale = quantize_int8(w) if mode == "w8a8" else quantize_pack_int4(w, 128)
+                if not (torch.equal(ql.data.cpu(), data) and torch.equal(ql.scale.cpu(), scale)):
+                    raise AssertionError(f"loader {mode}: {name} quantized on the card differs "
+                                         "from the plain quantizer on the CPU")
+            log(f"loader (j) {mode}: q_proj and lm_head byte-equal to the plain quantizer on the "
+                f"CPU (checked in {time.perf_counter() - t0:.1f} s)")
+            ids = torch.randint(0, V, (8, 32), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(23))
+            served = ServePath(config, params, kv="int8")
+            cache = served.new_cache(8, dev, S=64)
+            reset_launch_counts()
+            logits, cache = served.forward(ids, cache, logits_positions="last")
+            first = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            tokens, cache = served.decode(cache, first, 8)
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+            log(f"loader (j) {mode}: served 8x32 + 8 greedy steps; launches {counts}")
+            L = config.num_layers
+            if not torch.isfinite(logits).all() or tuple(tokens.shape) != (8, 8) \
+                    or cache.length != 40 or counts.get("flash_prefill") != L \
+                    or counts.get("kv_append_layer") != 8 * L \
+                    or counts.get("flash_decode_layer") != 8 * L:
+                raise AssertionError(f"loader {mode}: the loaded model did not serve as expected")
+            out[mode] = dict(load_seconds=load_s, gb_per_s=nbytes / load_s / 1e9, counts=counts)
+            del params, served, cache
+            torch.cuda.empty_cache()
+        del host
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["checkpoint_bytes"] = nbytes
+    return out
+
+
 SOURCES = {
     "a4_gemv": ("fastforward_tpu_torch/csrc/a4_gemv.cu",
                 "fastforward_tpu/kernels/matmul.py:1406"),
@@ -1171,6 +1485,14 @@ SOURCES = {
                 "fastforward_tpu/kernels/matmul.py:262 (kernel :240; routed by :1832)"),
     "w8a8_gemm": ("fastforward_tpu_torch/csrc/w8a8_gemm.cu",
                   "fastforward_tpu/kernels/matmul.py:95 (kernel :78)"),
+    "kv_append_layer": ("fastforward_tpu_torch/csrc/kv_append.cu",
+                        "fastforward_tpu/kernels/kv_update.py:219"),
+    "flash_decode_layer": ("fastforward_tpu_torch/csrc/flash_decode.cu",
+                           "fastforward_tpu/kernels/attention.py:721"),
+    "flash_prefill_bf16": ("fastforward_tpu_torch/csrc/flash_prefill.cu",
+                           "fastforward_tpu/kernels/attention.py:971 (bf16 KV branch)"),
+    "w4a8_gemv_unpaired": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                           "fastforward_tpu/kernels/matmul.py:571 (unpaired kernel :479)"),
 }
 
 
@@ -1190,15 +1512,26 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
     t_all = time.perf_counter()
-    phase_build()
-    rows = phase_kernels(dev)
-    runs = phase_serve(dev)
-    runs["engine"] = phase_engine(dev)
+    phases = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phases[name]:.1f} s")
+        return result
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, dev)
+    runs = timed("serve", phase_serve, dev)
+    runs["engine"] = timed("engine", phase_engine, dev)
+    runs["j"] = timed("loader", phase_loader, dev)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
-        launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "engine")
+        launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "h", "i",
+                                                            "engine")
                          if runs[k]["counts"].get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,

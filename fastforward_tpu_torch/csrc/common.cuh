@@ -8,12 +8,13 @@
 //   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]
 // with v in [-8, 7] stored as nibbles and m_g in [1, 15]. They differ only
 // in where the two nibbles of a weight byte sit along K (the LAYOUT
-// template argument) and how the multipliers are stored.
+// template argument: vertical, adjacent-group pairs or group halves) and
+// how the multipliers are stored.
 //
 // Work split. A block owns 128 columns (32 lanes x 4 adjacent columns,
 // one 4-byte load per lane per byte row, 128 contiguous bytes per warp) and
-// 8 activation rows, over one K split of whole "units" (a group for the
-// vertical layout, an adjacent-group pair for the paired layout). Its 8
+// 8 activation rows, over one K split of whole "units" (an adjacent-group
+// pair for the paired layout, else a group). Its 8
 // warps take interleaved quads of 4 byte rows. A lane transposes the 4x4
 // bytes it loaded so each 32-bit word holds one column's 4 consecutive
 // rows, splits the nibble planes with two masks, multiplies each plane by
@@ -41,7 +42,13 @@ constexpr int kWarps = 8;       // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kBN = 128;        // columns per block (32 lanes x 4)
 
-enum Layout { kVertical = 0, kPaired = 1 };
+// kVertical: byte row r holds k = 2r (low nibble) and 2r + 1 (high), two's
+//            complement (pack_int4_vertical);
+// kPaired:   byte row i of pair p holds k = 2pg + i and (2p+1)g + i,
+//            offset binary (pack_uint4_offset_paired);
+// kHalves:   byte row i of group p holds k = pg + i and pg + g/2 + i,
+//            offset binary (pack_uint4_offset).
+enum Layout { kVertical = 0, kPaired = 1, kHalves = 2 };
 
 // d = a . b + c over 4 byte lanes, a signed, b unsigned.
 __device__ __forceinline__ int dp4a_su(int a, unsigned b, int c) {
@@ -61,7 +68,7 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
 //   w        (K/2, N) int8 packed weights of one layer
 //   mult     PACKED: (n_pack, N) int32, 8 nibble multipliers per word
 //            (always for kVertical; the stacked W4A8 GEMV for kPaired)
-//            else:   (n_groups, N) int8
+//            else:   (n_groups, N) int8 (kPaired, kHalves)
 //   partial  (n_split, M, N) int32
 // gemv_tile computes one (row tile, column tile, split) of it with all
 // kThreads threads of the block, in dynamic shared memory `smem` of
@@ -69,14 +76,14 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
 // gemv_partial_kernel runs one tile per block on the grid
 // (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
 // block of a persistent grid.
-// rows_per_unit: byte rows of one unit (group/2 vertical, group paired).
+// rows_per_unit: byte rows of one unit (group paired, else group/2).
 template <int LAYOUT, bool PACKED>
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
           int m_tile, int n_tile, int split, unsigned char* smem) {
-  const int rows_per_unit = LAYOUT == kVertical ? group / 2 : group;
+  const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
   const int KR = units_per_split * rows_per_unit;  // smem row pitch (bytes)
@@ -105,12 +112,18 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const unsigned hi = *reinterpret_cast<const unsigned*>(xr + k + 4);
         a = __byte_perm(lo, hi, 0x6420);
         b = __byte_perm(lo, hi, 0x7531);
-      } else {
+      } else if (LAYOUT == kPaired) {
         // byte row i of pair p holds k = 2pg + i (low) and (2p+1)g + i (high)
         const int r = row0 + 4 * q;
         const int p = r / group, i_in = r % group;
         a = *reinterpret_cast<const unsigned*>(xr + 2 * p * group + i_in);
         b = *reinterpret_cast<const unsigned*>(xr + (2 * p + 1) * group + i_in);
+      } else {
+        // byte row i of group p holds k = pg + i (low) and pg + g/2 + i (high)
+        const int r = row0 + 4 * q;
+        const int p = r / rows_per_unit, i_in = r % rows_per_unit;
+        a = *reinterpret_cast<const unsigned*>(xr + p * group + i_in);
+        b = *reinterpret_cast<const unsigned*>(xr + p * group + rows_per_unit + i_in);
       }
     }
     reinterpret_cast<unsigned*>(xa + m * KR)[q] = a;
@@ -152,20 +165,23 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int unit = u0 + u;
       unsigned ma[4], mb[4];
       if (PACKED) {
-        // vertical: the unit is group `unit`; paired: groups 2u and 2u + 1,
-        // adjacent nibbles of one word (2u % 8 is even)
-        const int g0 = LAYOUT == kVertical ? unit : 2 * unit;
+        // paired: groups 2u and 2u + 1, adjacent nibbles of one word
+        // (2u % 8 is even); otherwise the unit is group `unit`
+        const int g0 = LAYOUT == kPaired ? 2 * unit : unit;
         const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
         const int sh = 4 * (g0 % 8);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
-          mb[c] = LAYOUT == kVertical ? ma[c] : (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu;
+          mb[c] = LAYOUT == kPaired ? (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu : ma[c];
         }
       } else {
+        // paired: multiplier rows 2u and 2u + 1; halves: row u for both planes
         const int8_t* mr = static_cast<const int8_t*>(mult);
-        const unsigned wa = *reinterpret_cast<const unsigned*>(mr + (size_t)(2 * unit) * N + n0);
-        const unsigned wb = *reinterpret_cast<const unsigned*>(mr + (size_t)(2 * unit + 1) * N + n0);
+        const int ra = LAYOUT == kPaired ? 2 * unit : unit;
+        const int rb = LAYOUT == kPaired ? 2 * unit + 1 : unit;
+        const unsigned wa = *reinterpret_cast<const unsigned*>(mr + (size_t)ra * N + n0);
+        const unsigned wb = *reinterpret_cast<const unsigned*>(mr + (size_t)rb * N + n0);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           ma[c] = (wa >> (8 * c)) & 0xFFu;
@@ -254,8 +270,8 @@ template <int LAYOUT, bool PACKED = LAYOUT == kVertical>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
                                 int n_split, cudaStream_t stream) {
-  const int rows_per_unit = LAYOUT == kVertical ? group / 2 : group;
-  const int n_units = LAYOUT == kVertical ? K / group : K / (2 * group);
+  const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
+  const int n_units = LAYOUT == kPaired ? K / (2 * group) : K / group;
   const int ups = (n_units + n_split - 1) / n_split;
   const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
   cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, PACKED>,

@@ -4,7 +4,10 @@
 // Replaces: fastforward_tpu/kernels/attention.py
 // flash_decode_int8_stacked_ragged (:635, bodies :518 and :408) and
 // flash_decode_int8_stacked (:271, bodies :204 / :131): the same function
-// over the whole slab or over the live blocks. One query token per
+// over the whole slab or over the live blocks; and the per-layer
+// flash_decode_int8 (:721, bodies _flash_decode_kernel_allheads and
+// _flash_decode_kernel): a (B, Hkv, S, D) cache is layer 0 of L = 1 to
+// ff_flash_decode, the same rows at the same offsets. One query token per
 // sequence; q (B, H, D) bf16; K/V layer l of (L, B, Hkv, S, D) int8 with
 // per-token scales (L, B, Hkv, S) f32; GQA with G = H / Hkv query heads
 // per kv head; out (B, H, D) bf16. Held against flash_decode_int8_reference

@@ -1,9 +1,12 @@
-// Blocked causal prefill attention over one layer of the INT8 KV cache.
+// Blocked causal prefill attention over one layer of the KV cache, INT8
+// or bf16.
 //
 // Replaces: fastforward_tpu/kernels/attention.py flash_prefill (:971,
-// kernel _flash_prefill_kernel :886), its int8-KV branch.
+// kernel _flash_prefill_kernel :886), both branches.
 //   q (B, H, T, D) bf16; k, v (B, Hkv, S, D) int8 with per-token f32
-//   scales (B, Hkv, S); starts (B,) int32; out (B, H, T, D) bf16; D = 128.
+//   scales (B, Hkv, S), or bf16 without scales (ff_flash_prefill_bf16:
+//   the TPU kernel multiplies by all-ones scales, which here are the
+//   constant 1); starts (B,) int32; out (B, H, T, D) bf16; D = 128.
 // Query row t of sequence b sits at position starts[b] + t and sees the
 // keys s <= starts[b] + t. The G = H / Hkv query heads of a kv head share
 // its K/V tiles (no repeat). Per tile of 64 keys, as the TPU kernel
@@ -18,16 +21,19 @@
 //
 // Bound on the H100: bytes. q is read and out written once (B*H*T*D*2
 // bytes each), and the live K/V rows with their scales once: at bench.py's
-// shape (B 192, H 32, Hkv 8, T 128, starts 0) ~0.45 GB, ~0.135 ms; the
-// 4*B*H*D*T(T+1)/2 = 2.6e10 bf16 operations take 0.026 ms at 989 TFLOP/s.
+// shape (B 192, H 32, Hkv 8, T 128, starts 0) ~0.45 GB, ~0.135 ms (bf16
+// K/V: ~0.53 GB, ~0.16 ms); the 4*B*H*D*T(T+1)/2 = 2.6e10 bf16 operations
+// take 0.026 ms at 989 TFLOP/s.
 //
 // Design for that bound: one block per (t tile, kv head, sequence) with
 // 64 query rows (G heads x 64/G positions), 4 warps of 16 rows. The block
 // walks only the key tiles at or below its causal frontier
 // starts[b] + t_last, never the dead rest of the slab (the TPU kernel
-// skipped their compute but still copied them in). Each tile's int8 K and
-// V rows are read once for all G heads and widened to bf16 in shared
-// memory. Both products run on the tensor cores (mma.sync m16n8k16 bf16,
+// skipped their compute but still copied them in). Each tile's K and V
+// rows are read once for all G heads into shared memory as bf16: int8
+// widened on the way (exact), bf16 copied as it is. The element type is a
+// template argument of the one kernel body, so both caches run the same
+// products in the same order. Both products run on the tensor cores (mma.sync m16n8k16 bf16,
 // f32 accumulation); the score fragments stay in registers, become the
 // bf16 A fragments of the PV product in place, and the output accumulator
 // never leaves registers until the final store.
@@ -82,10 +88,25 @@ __device__ __forceinline__ void widen16(const uint4 src, __nv_bfloat16* dst) {
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
-// Grid: (ceil(T / (64 / G)), Hkv, B); kThreads threads.
+// 16 cache values at src (16-byte aligned) into bf16 at dst.
+__device__ __forceinline__ void load16(const int8_t* src, __nv_bfloat16* dst) {
+  widen16(*reinterpret_cast<const uint4*>(src), dst);
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* src, __nv_bfloat16* dst) {
+  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(src)[0];
+  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(src)[1];
+}
+__device__ __forceinline__ void zero16(__nv_bfloat16* dst) {
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(0, 0, 0, 0);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(0, 0, 0, 0);
+}
+
+// Grid: (ceil(T / (64 / G)), Hkv, B); kThreads threads. KV: int8_t with
+// f32 scales ks/vs, or __nv_bfloat16 with ks = vs = nullptr (scale 1).
+template <typename KV>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
-                     const float* __restrict__ ks, const int8_t* __restrict__ v,
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+                     const float* __restrict__ ks, const KV* __restrict__ v,
                      const float* __restrict__ vs, const int* __restrict__ starts,
                      __nv_bfloat16* __restrict__ out, int Hkv, int G, int T, int S,
                      float sm_scale) {
@@ -138,18 +159,18 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restri
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < kBS * (kD / 16); i += kThreads) {
       const int r = i / (kD / 16), c = (i % (kD / 16)) * 16;
-      uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
       if (s0 + r < S) {
-        kw = *reinterpret_cast<const uint4*>(k + (kv0 + s0 + r) * kD + c);
-        vw = *reinterpret_cast<const uint4*>(v + (kv0 + s0 + r) * kD + c);
+        load16(k + (kv0 + s0 + r) * kD + c, sk + r * kPitch + c);
+        load16(v + (kv0 + s0 + r) * kD + c, sv + r * kPitch + c);
+      } else {
+        zero16(sk + r * kPitch + c);
+        zero16(sv + r * kPitch + c);
       }
-      widen16(kw, sk + r * kPitch + c);
-      widen16(vw, sv + r * kPitch + c);
     }
     if (threadIdx.x < kBS) {
       const int s = s0 + threadIdx.x;
-      sks[threadIdx.x] = s < S ? ks[kv0 + s] : 0.f;
-      svs[threadIdx.x] = s < S ? vs[kv0 + s] : 0.f;
+      sks[threadIdx.x] = s < S ? (ks != nullptr ? ks[kv0 + s] : 1.f) : 0.f;
+      svs[threadIdx.x] = s < S ? (vs != nullptr ? vs[kv0 + s] : 1.f) : 0.f;
     }
     __syncthreads();
 
@@ -245,22 +266,38 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restri
   }
 }
 
-}  // namespace
-
-// Returns cudaErrorInvalidValue for a head dim other than 128 or a group
-// size outside {1, 2, 4, 8}; the wrapper checks both before the call.
-extern "C" int ff_flash_prefill(const void* q, const void* k, const void* ks, const void* v,
-                                const void* vs, const void* starts, void* out, int B, int H,
-                                int Hkv, int T, int S, int D, float sm_scale, void* stream) {
+template <typename KV>
+int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+           const void* starts, void* out, int B, int H, int Hkv, int T, int S, int D,
+           float sm_scale, cudaStream_t st) {
   if (D != kD || H % Hkv != 0) return cudaErrorInvalidValue;
   const int G = H / Hkv;
   if (G != 1 && G != 2 && G != 4 && G != 8) return cudaErrorInvalidValue;
   const int bt = kRows / G;
   const dim3 grid((T + bt - 1) / bt, Hkv, B);
-  flash_prefill_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
-      static_cast<const float*>(vs), static_cast<const int*>(starts),
-      static_cast<__nv_bfloat16*>(out), Hkv, G, T, S, sm_scale);
+  flash_prefill_kernel<KV><<<grid, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const float*>(ks), static_cast<const KV*>(v), static_cast<const float*>(vs),
+      static_cast<const int*>(starts), static_cast<__nv_bfloat16*>(out), Hkv, G, T, S,
+      sm_scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Both entries return cudaErrorInvalidValue for a head dim other than 128
+// or a group size outside {1, 2, 4, 8}; the wrappers check both first.
+extern "C" int ff_flash_prefill(const void* q, const void* k, const void* ks, const void* v,
+                                const void* vs, const void* starts, void* out, int B, int H,
+                                int Hkv, int T, int S, int D, float sm_scale, void* stream) {
+  return launch<int8_t>(q, k, ks, v, vs, starts, out, B, H, Hkv, T, S, D, sm_scale,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// bf16 K/V (B, Hkv, S, D), no scales.
+extern "C" int ff_flash_prefill_bf16(const void* q, const void* k, const void* v,
+                                     const void* starts, void* out, int B, int H, int Hkv, int T,
+                                     int S, int D, float sm_scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, nullptr, v, nullptr, starts, out, B, H, Hkv, T, S, D,
+                               sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,10 @@
 // into the paged pool through a page table.
 //
 // Replaces: fastforward_tpu/kernels/kv_update.py
-// kv_append_decode_int8_stacked (:100, body _kv_update_stacked_kernel :69),
+// kv_append_decode_int8_stacked (:100, body _kv_update_stacked_kernel :69)
+// and the per-layer kv_append_decode_int8 (:219, body _kv_update_kernel
+// :192): a per-layer (B, Hkv, S, D) cache is layer 0 of L = 1, the same
+// rows at the same offsets, so ff_kv_append serves both exactly;
 // and fastforward_tpu/kernels/paged_attention.py
 // paged_kv_append_decode_int8 (:293, body _paged_append_kernel :260).
 // Writes one token's int8 K and V rows (B, Hkv, D) and their f32 scales

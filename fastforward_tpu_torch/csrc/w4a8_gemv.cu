@@ -1,15 +1,19 @@
-// W4A8 two-level GEMV, paired layout, with an optional argmax epilogue, and
-// its layer-stacked form.
+// W4A8 two-level GEMV, paired and group-halves layouts, with an optional
+// argmax epilogue (paired), and its layer-stacked form.
 //
 // Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571,
-// paired body :537), matmul_w4a8_2l_gemv_argmax (:708, body :650) and
-// matmul_w4a8_2l_gemv_stacked (:1023, default body :815; the :780, :879,
-// :949 and :989 variants compute the same function).
+// paired body :537, group-halves body :479), matmul_w4a8_2l_gemv_argmax
+// (:708, body :650) and matmul_w4a8_2l_gemv_stacked (:1023, default body
+// :815; the :780, :879, :949 and :989 variants compute the same function).
 //   y = (sum_k x[m,k] * w8[k,n]) * s_col[n] * x_scale[m],
 //   w8 = (u * m_g) - 8 * m_g per nibble plane
 // x int8 (M, K); w (K/2, N) offset-binary nibbles in the adjacent-group
 // pairing (byte row i of pair p: row 2p*g + i low, row (2p+1)*g + i high);
-// m (K/g, N) int8 in [1, 15]; f32 or bf16 logits, or with the argmax
+// m (K/g, N) int8 in [1, 15]; ff_w4a8_gemv_unpaired takes the
+// group-halves pairing instead (pack_uint4_offset: byte row i of group p,
+// row pg + i low, row pg + g/2 + i high), both planes scaled by m_p, the
+// JAX package's unpaired layout (random_serving_params, repack_unpaired).
+// f32 or bf16 logits, or with the argmax
 // epilogue one int32 token id per row (first occurrence wins ties, a NaN
 // counts as the maximum: the ids of torch.argmax over the logits).
 // Bit-exact against matmul_w4a8_2l_reference.
@@ -26,8 +30,11 @@
 //
 // Design for that bound: the same split-K partial kernel as the A4 GEMV
 // (common.cuh) reads each weight byte once per 8 rows; the two nibble
-// planes of a byte go to the two groups of its pair, each plane scaled by
-// its own group multiplier in one register multiply. The TPU kernel
+// planes of a byte go to the two groups of its pair (paired) or the two
+// halves of its group (unpaired), each plane scaled by its group
+// multiplier in one register multiply. The TPU's unpaired kernel folded
+// and concatenated the planes before one MXU dot; here the planes never
+// meet: each feeds dp4a against its own staged activations. The TPU kernel
 // carried a running (max, index) across its sequential grid; here blocks
 // run in no order, so the argmax epilogue writes one (max, index) pair per
 // row and 1024-column tile and a second tiny pass reduces the pairs in
@@ -273,11 +280,13 @@ extern "C" int ff_w4a8_gemv_halves(const void* x, const void* xs, const void* w,
   return launch_halves_group<float>(x, xs, w, w_scale, out, M, K, N, group, st);
 }
 
-extern "C" int ff_w4a8_gemv(const void* x, const void* xs, const void* w, const void* mult,
-                            const void* s_col, void* partial, void* out, int M, int K, int N,
-                            int group, int n_split, int out_kind, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = ff::launch_gemv_partial<ff::kPaired>(
+namespace {
+
+template <int LAYOUT>
+int gemv_2l(const void* x, const void* xs, const void* w, const void* mult, const void* s_col,
+            void* partial, void* out, int M, int K, int N, int group, int n_split, int out_kind,
+            cudaStream_t st) {
+  cudaError_t err = ff::launch_gemv_partial<LAYOUT>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), mult,
       static_cast<int32_t*>(partial), M, K, N, group, n_split, st);
   if (err != cudaSuccess) return err;
@@ -289,6 +298,24 @@ extern "C" int ff_w4a8_gemv(const void* x, const void* xs, const void* w, const 
                                                   static_cast<float*>(out), nullptr, nullptr, st);
   return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
       p, n_split, M, N, sc, xsf, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
+}
+
+}  // namespace
+
+extern "C" int ff_w4a8_gemv(const void* x, const void* xs, const void* w, const void* mult,
+                            const void* s_col, void* partial, void* out, int M, int K, int N,
+                            int group, int n_split, int out_kind, void* stream) {
+  return gemv_2l<ff::kPaired>(x, xs, w, mult, s_col, partial, out, M, K, N, group, n_split,
+                              out_kind, static_cast<cudaStream_t>(stream));
+}
+
+// Group-halves layout; group % 8 == 0.
+extern "C" int ff_w4a8_gemv_unpaired(const void* x, const void* xs, const void* w,
+                                     const void* mult, const void* s_col, void* partial,
+                                     void* out, int M, int K, int N, int group, int n_split,
+                                     int out_kind, void* stream) {
+  return gemv_2l<ff::kHalves>(x, xs, w, mult, s_col, partial, out, M, K, N, group, n_split,
+                              out_kind, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ff_w4a8_gemv_argmax(const void* x, const void* xs, const void* w,

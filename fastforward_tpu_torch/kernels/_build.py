@@ -54,8 +54,9 @@ SIGNATURES = {
     },
     "w4a8_gemv": {
         # x, xs, w, mult, s_col, partial, out, M, K, N, group, n_split,
-        # out_kind (0 f32, 1 bf16), stream
+        # out_kind (0 f32, 1 bf16), stream; paired and group-halves layouts
         "ff_w4a8_gemv": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "ff_w4a8_gemv_unpaired": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         # x, xs, w, mult, s_col, partial, pair_val, pair_idx, idx_out,
         # M, K, N, group, n_split, stream
         "ff_w4a8_gemv_argmax": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
@@ -91,6 +92,8 @@ SIGNATURES = {
     "flash_prefill": {
         # q, k, ks, v, vs, starts, out, B, H, Hkv, T, S, D, sm_scale, stream
         "ff_flash_prefill": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        # q, k, v, starts, out, B, H, Hkv, T, S, D, sm_scale, stream
+        "ff_flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, F, P],
     },
     "fused_tail": {
         # xq, xs, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m,

@@ -5,9 +5,10 @@
 whole-slab `flash_decode_int8_stacked` (:271) and the length-aware
 `flash_decode_int8_stacked_ragged` (:635): they compute one function, and
 the CUDA kernel (`csrc/flash_decode.cu`) always reads only the live blocks.
+`flash_decode_int8` (:721) is the same kernel over one layer's cache.
 `flash_prefill` (:971) is the blocked causal prefill attention
-(`csrc/flash_prefill.cu`), reading only the key tiles at or below each
-query tile's causal frontier.
+(`csrc/flash_prefill.cu`) over an int8 or a bf16 cache, reading only the
+key tiles at or below each query tile's causal frontier.
 """
 
 import math
@@ -40,16 +41,10 @@ def flash_decode_int8_reference(q, k, k_scale, v, v_scale, lengths,
     return out.to(q.dtype)
 
 
-def flash_decode_int8_stacked(q, k, k_scale, v, v_scale, lengths, layer,
-                              scale: Optional[float] = None):
-    """Flash decode over layer ``layer`` of the stacked cache:
-    q (B, H, d) bf16; k/v (L, B, Hkv, S, d) int8; scales (L, B, Hkv, S) f32;
-    lengths (B,) int32. Reads ceil(len/256) blocks per sequence."""
+def _flash_decode(q, k, k_scale, v, v_scale, lengths, layer, scale, count):
+    """Launch `csrc/flash_decode.cu` on layer ``layer`` of (L, B, Hkv, S, d)
+    CUDA tensors, counted under ``count``."""
     layer = int(layer)
-    if q.device.type == "cpu":
-        return flash_decode_int8_reference(
-            q, k[layer], k_scale[layer], v[layer], v_scale[layer], lengths, scale,
-        )
     B, H, d = q.shape
     L, _, Hkv, S, _ = k.shape
     dev = q.device
@@ -71,9 +66,38 @@ def flash_decode_int8_stacked(q, k, k_scale, v, v_scale, lengths, layer,
         lengths.data_ptr(), out.data_ptr(), L, B, H, Hkv, S, d, layer, sm_scale,
         _build.stream_ptr(dev),
     )
-    _build.launch_counts["flash_decode"] += 1
-    _build.check(err, "flash_decode")
+    _build.launch_counts[count] += 1
+    _build.check(err, count)
     return out
+
+
+def flash_decode_int8_stacked(q, k, k_scale, v, v_scale, lengths, layer,
+                              scale: Optional[float] = None, count: str = "flash_decode"):
+    """Flash decode over layer ``layer`` of the stacked cache:
+    q (B, H, d) bf16; k/v (L, B, Hkv, S, d) int8; scales (L, B, Hkv, S) f32;
+    lengths (B,) int32. Reads ceil(len/256) blocks per sequence. Launches
+    are counted under ``count``."""
+    layer = int(layer)
+    if q.device.type == "cpu":
+        return flash_decode_int8_reference(
+            q, k[layer], k_scale[layer], v[layer], v_scale[layer], lengths, scale,
+        )
+    return _flash_decode(q, k, k_scale, v, v_scale, lengths, layer, scale, count)
+
+
+def flash_decode_int8(q, k, k_scale, v, v_scale, lengths, scale: Optional[float] = None):
+    """Flash decode over one layer's int8 cache (`attention.py:721`): q
+    (B, H, d) bf16; k/v (B, Hkv, S, d) int8; scales (B, Hkv, S) f32;
+    lengths (B,) int32. The JAX TPU route's own choice (`:742`) sends fewer
+    than 2 query heads per kv head, or a head dim that is no multiple of
+    128, to `flash_decode_int8_reference`; so does this wrapper, by name. On
+    the card otherwise the stacked kernel at L = 1, layer 0, counted under
+    ``flash_decode_layer``."""
+    H, d, Hkv = q.shape[1], q.shape[2], k.shape[1]
+    if q.device.type == "cpu" or H // Hkv < 2 or d % 128 != 0:
+        return flash_decode_int8_reference(q, k, k_scale, v, v_scale, lengths, scale)
+    return _flash_decode(q, k[None], k_scale[None], v[None], v_scale[None], lengths, 0, scale,
+                         "flash_decode_layer")
 
 
 def flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = None):
@@ -105,23 +129,25 @@ def flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale: Optional[f
 def flash_prefill(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = None):
     """Blocked causal prefill attention (`attention.py:971`) over one
     layer's cache: q (B, H, T, 128) bf16; k/v (B, Hkv, S, 128) int8 with
-    f32 scales (B, Hkv, S); starts (B,) int32; H / Hkv in (1, 2, 4, 8).
+    f32 scales (B, Hkv, S), or bf16 with None scales (counted under
+    ``flash_prefill_bf16``); starts (B,) int32; H / Hkv in (1, 2, 4, 8).
     Within 8e-3 of the largest output of `flash_prefill_reference`."""
     if q.device.type == "cpu":
         return flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale)
-    if k_scale is None or v_scale is None:
-        raise NotImplementedError(
-            "flash_prefill over a bf16 KV cache: the bf16 cache is not ported yet "
-            "(ROADMAP.md, Queue 1 item 4)"
-        )
     B, H, T, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     dev = q.device
+    bf16_kv = k.dtype == torch.bfloat16
+    if bf16_kv != (k_scale is None) or bf16_kv != (v_scale is None):
+        raise ValueError("flash prefill kernel takes int8 K/V with f32 scales or bf16 K/V "
+                         f"without (k {k.dtype}, scales {k_scale is not None})")
+    kv_dtype = torch.bfloat16 if bf16_kv else torch.int8
     _build.require(q, "q", torch.bfloat16, (B, H, T, d), dev)
-    _build.require(k, "k", torch.int8, (B, Hkv, S, d), dev)
-    _build.require(v, "v", torch.int8, (B, Hkv, S, d), dev)
-    _build.require(k_scale, "k_scale", torch.float32, (B, Hkv, S), dev)
-    _build.require(v_scale, "v_scale", torch.float32, (B, Hkv, S), dev)
+    _build.require(k, "k", kv_dtype, (B, Hkv, S, d), dev)
+    _build.require(v, "v", kv_dtype, (B, Hkv, S, d), dev)
+    if not bf16_kv:
+        _build.require(k_scale, "k_scale", torch.float32, (B, Hkv, S), dev)
+        _build.require(v_scale, "v_scale", torch.float32, (B, Hkv, S), dev)
     _build.require(starts, "starts", torch.int32, (B,), dev)
     if d != 128 or H % Hkv != 0 or H // Hkv not in (1, 2, 4, 8) or T < 1 or S < 1:
         raise ValueError(
@@ -130,10 +156,20 @@ def flash_prefill(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = No
         )
     sm_scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     out = torch.empty_like(q)
-    err = _build.lib("flash_prefill").ff_flash_prefill(
-        q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
-        starts.data_ptr(), out.data_ptr(), B, H, Hkv, T, S, d, sm_scale, _build.stream_ptr(dev),
-    )
-    _build.launch_counts["flash_prefill"] += 1
-    _build.check(err, "flash_prefill")
+    lib = _build.lib("flash_prefill")
+    if bf16_kv:
+        err = lib.ff_flash_prefill_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(), out.data_ptr(),
+            B, H, Hkv, T, S, d, sm_scale, _build.stream_ptr(dev),
+        )
+        name = "flash_prefill_bf16"
+    else:
+        err = lib.ff_flash_prefill(
+            q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
+            starts.data_ptr(), out.data_ptr(), B, H, Hkv, T, S, d, sm_scale,
+            _build.stream_ptr(dev),
+        )
+        name = "flash_prefill"
+    _build.launch_counts[name] += 1
+    _build.check(err, name)
     return out

@@ -1,4 +1,6 @@
-"""Decode-step KV-cache append, ported from `fastforward_tpu/kernels/kv_update.py:32-189`.
+"""Decode-step KV-cache append, ported from `fastforward_tpu/kernels/kv_update.py`:
+the stacked append (:100) and the per-layer one (:219), both through
+`csrc/kv_append.cu` (a per-layer cache is layer 0 of one).
 
 The JAX functions are pure and return new caches; here the append writes
 the cache tensors in place (they are the serving loop's only copy) and
@@ -42,15 +44,9 @@ def kv_append_decode_stacked_reference(kc, vc, ks, vs, k_new, v_new, ks_new, vs_
     return kc, vc, ks, vs
 
 
-def kv_append_decode_int8_stacked(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new,
-                                  starts, layer):
-    """Layer-indexed in-place append into the stacked (L, B, Hkv, S, D)
-    int8 cache (`kv_update.py:100`). Returns ``(kc, vc, ks, vs)``, written
-    in place."""
-    if kc.device.type == "cpu":
-        return kv_append_decode_stacked_reference(
-            kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts, layer,
-        )
+def _append(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts, layer, count):
+    """Launch `csrc/kv_append.cu` on layer ``layer`` of (L, B, Hkv, S, D)
+    CUDA tensors, counted under ``count``."""
     layer = int(layer)
     L, B, Hkv, S, D = kc.shape
     dev = kc.device
@@ -70,6 +66,34 @@ def kv_append_decode_int8_stacked(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new,
         k_new.data_ptr(), v_new.data_ptr(), ks_new.data_ptr(), vs_new.data_ptr(),
         starts.data_ptr(), L, B, Hkv, S, D, layer, _build.stream_ptr(dev),
     )
-    _build.launch_counts["kv_append"] += 1
-    _build.check(err, "kv_append")
+    _build.launch_counts[count] += 1
+    _build.check(err, count)
+
+
+def kv_append_decode_int8_stacked(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new,
+                                  starts, layer):
+    """Layer-indexed in-place append into the stacked (L, B, Hkv, S, D)
+    int8 cache (`kv_update.py:100`). Returns ``(kc, vc, ks, vs)``, written
+    in place."""
+    if kc.device.type == "cpu":
+        return kv_append_decode_stacked_reference(
+            kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts, layer,
+        )
+    _append(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts, layer, "kv_append")
+    return kc, vc, ks, vs
+
+
+def kv_append_decode_int8(kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts):
+    """In-place append into one layer's (B, Hkv, S, D) int8 cache
+    (`kv_update.py:219`): row ``starts[b]`` of each sequence takes
+    ``k_new``/``v_new`` (B, Hkv, 1, D) int8 and their scales (B, Hkv, 1)
+    f32; a start outside [0, S) writes nothing, as the masked-select oracle
+    does. Returns ``(kc, vc, ks, vs)``, written in place. On the card the
+    stacked kernel at L = 1, layer 0, counted under ``kv_append_layer``."""
+    if kc.device.type == "cpu":
+        kv_append_decode_stacked_reference(kc[None], vc[None], ks[None], vs[None], k_new, v_new,
+                                           ks_new, vs_new, starts, 0)
+    else:
+        _append(kc[None], vc[None], ks[None], vs[None], k_new, v_new, ks_new, vs_new, starts, 0,
+                "kv_append_layer")
     return kc, vc, ks, vs

@@ -222,7 +222,10 @@ def matmul_w4a4_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
     )
 
 
-def _check_paired(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
+def _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
+    """Check the operands of the two-level W4A8 GEMV kernel; returns (M, K,
+    N, n_split). Paired: an even group count and group % 4 == 0; group
+    halves (unpaired): group % 8 == 0."""
     M, K = x_q.shape
     N = w_packed.shape[1]
     dev = x_q.device
@@ -230,17 +233,25 @@ def _check_paired(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(mult, "mult", torch.int8, (K // group_size, N), dev)
     _build.require(s_col, "s_col", torch.float32, (N,), dev)
-    if not paired or K % (2 * group_size) != 0 or group_size % 4 != 0:
-        raise NotImplementedError(
-            "the W4A8 GEMV kernel takes the paired layout (even group count, "
-            "group % 4 == 0) only"
-        )
-    return M, K, N, gemv_split(M, N, K // (2 * group_size), group_size)
+    if paired and (K % (2 * group_size) != 0 or group_size % 4 != 0):
+        raise ValueError(f"the paired W4A8 GEMV kernel needs an even group count and group % 4 "
+                         f"== 0 (K={K}, group={group_size})")
+    if not paired and group_size % 8 != 0:
+        raise ValueError(f"the unpaired W4A8 GEMV kernel needs group % 8 == 0 "
+                         f"(group={group_size})")
+    if paired:
+        return M, K, N, gemv_split(M, N, K // (2 * group_size), group_size)
+    return M, K, N, gemv_split(M, N, K // group_size, group_size // 2)
 
 
 def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 128,
                         out_dtype=torch.bfloat16, paired: Optional[bool] = None):
-    """Two-level W4A8 GEMV (`matmul.py:571`); f32 or bf16 out."""
+    """Two-level W4A8 GEMV (`matmul.py:571`); f32 or bf16 out. On the card
+    `csrc/w4a8_gemv.cu`: the paired layout through ``ff_w4a8_gemv``
+    (counted under ``w4a8_gemv``), the group-halves layout
+    (`pack_uint4_offset`, the JAX kernel `:479`) through
+    ``ff_w4a8_gemv_unpaired`` (``w4a8_gemv_unpaired``); both bit-exact
+    against `matmul_w4a8_2l_reference`."""
     M, K = x_q.shape
     if paired is None:
         paired = _paired_default(K // group_size)
@@ -248,20 +259,23 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
         return matmul_w4a8_2l_reference(
             x_q, x_scale, w_packed, mult, s_col, None, group_size, out_dtype, paired=paired,
         )
-    M, K, N, n_split = _check_paired(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    M, K, N, n_split = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"W4A8 GEMV kernel writes f32 or bf16, not {out_dtype}")
     dev = x_q.device
     partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    err = _build.lib("w4a8_gemv").ff_w4a8_gemv(
+    lib = _build.lib("w4a8_gemv")
+    entry, name = ((lib.ff_w4a8_gemv, "w4a8_gemv") if paired
+                   else (lib.ff_w4a8_gemv_unpaired, "w4a8_gemv_unpaired"))
+    err = entry(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), partial.data_ptr(), out.data_ptr(),
         M, K, N, group_size, n_split, 0 if out_dtype == torch.float32 else 1,
         _build.stream_ptr(dev),
     )
-    _build.launch_counts["w4a8_gemv"] += 1
-    _build.check(err, "w4a8_gemv")
+    _build.launch_counts[name] += 1
+    _build.check(err, name)
     return out
 
 
@@ -269,7 +283,9 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
                                group_size: int = 128, paired: Optional[bool] = None):
     """Greedy lm_head (`matmul.py:708`): int32 argmax over N per row of the
     two-level W4A8 logits — the ids of ``torch.argmax`` over the f32
-    logits (first occurrence wins ties, a NaN counts as the maximum)."""
+    logits (first occurrence wins ties, a NaN counts as the maximum). The
+    fused kernel takes the paired layout; an unpaired head takes the GEMV
+    and the argmax of its logits, as the JAX TPU route does."""
     M, K = x_q.shape
     if paired is None:
         paired = _paired_default(K // group_size)
@@ -279,7 +295,13 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
             paired=paired,
         )
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    M, K, N, n_split = _check_paired(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    if not paired:
+        # the JAX TPU route (`matmul.py:730-737`): the unpaired GEMV's f32
+        # logits, then their argmax
+        logits = matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size,
+                                     torch.float32, paired=False)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    M, K, N, n_split = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
     dev = x_q.device
     n_tiles = -(-N // _ARGMAX_TILE)
     partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)

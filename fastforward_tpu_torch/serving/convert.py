@@ -1,11 +1,15 @@
 """Carry serving weights between the JAX package and the port.
 
 The input is a flat ``{path: numpy array}`` dict of a JAX ``ServingParams``
-and its stacked layers (plain `ServingLayer` or `FusedServingLayer`):
+and its stacked layers (plain `ServingLayer` or `FusedServingLayer`), or
+of a per-layer ``ServingParams`` (its ``layers`` tuple):
 
     params.embedding, params.final_norm,
     params.lm_head.<field>          (absent for tied embeddings)
     layers.<projection>.<field>, layers.input_norm, layers.post_norm
+                                    (stacked form)
+    layers.<i>.<projection>.<field>, layers.<i>.input_norm,
+    layers.<i>.post_norm            (per-layer form, i = 0 .. L-1)
 
 where ``<field>`` is an array of a QuantLinear (``data``, ``scale``,
 ``mult``, ``mult_packed``, ``in_scale``; absent when None) or one of its
@@ -59,27 +63,38 @@ def _ql(flat: Dict[str, np.ndarray], prefix: str, device) -> QuantLinear:
     )
 
 
-def params_from_flat(flat: Dict[str, np.ndarray], device=None):
-    """(ServingParams, stacked layers) of the port from a flat dict."""
-    dev = resolve_device(device)
-    fused = "layers.qkv_proj.data" in flat
-    projs = {name: _ql(flat, f"layers.{name}", dev) for name in (_FUSED if fused else _UNFUSED)}
+def _layer(flat: Dict[str, np.ndarray], prefix: str, device):
+    """The `ServingLayer` (or `FusedServingLayer`) under ``prefix``."""
+    fused = f"{prefix}.qkv_proj.data" in flat
+    projs = {name: _ql(flat, f"{prefix}.{name}", device)
+             for name in (_FUSED if fused else _UNFUSED)}
     norms = dict(
-        input_norm=_tensor(flat["layers.input_norm"], dev),
-        post_norm=_tensor(flat["layers.post_norm"], dev),
+        input_norm=_tensor(flat[f"{prefix}.input_norm"], device),
+        post_norm=_tensor(flat[f"{prefix}.post_norm"], device),
     )
-    layers = FusedServingLayer(**projs, **norms) if fused else ServingLayer(**projs, **norms)
+    return FusedServingLayer(**projs, **norms) if fused else ServingLayer(**projs, **norms)
+
+
+def params_from_flat(flat: Dict[str, np.ndarray], device=None):
+    """(ServingParams, stacked layers) of the port from a flat dict; for
+    the per-layer form (ServingParams with its ``layers`` tuple, None)."""
+    dev = resolve_device(device)
+    per_layer = "layers.input_norm" not in flat
+    n_layers = 0
+    while per_layer and f"layers.{n_layers}.input_norm" in flat:
+        n_layers += 1
     params = ServingParams(
         embedding=_tensor(flat["params.embedding"], dev),
-        layers=(),
+        layers=tuple(_layer(flat, f"layers.{i}", dev) for i in range(n_layers)),
         final_norm=_tensor(flat["params.final_norm"], dev),
         lm_head=_ql(flat, "params.lm_head", dev) if "params.lm_head.data" in flat else None,
     )
-    return params, layers
+    return params, (None if per_layer else _layer(flat, "layers", dev))
 
 
-def params_to_flat(params: ServingParams, layers) -> Dict[str, np.ndarray]:
-    """Inverse of `params_from_flat` (bf16 arrays come back as int16 words)."""
+def params_to_flat(params: ServingParams, layers=None) -> Dict[str, np.ndarray]:
+    """Inverse of `params_from_flat` (bf16 arrays come back as int16
+    words): the stacked ``layers`` when given, else ``params.layers``."""
     flat = {
         "params.embedding": _numpy(params.embedding),
         "params.final_norm": _numpy(params.final_norm),
@@ -93,11 +108,16 @@ def params_to_flat(params: ServingParams, layers) -> Dict[str, np.ndarray]:
         for f in _QL_STATIC:
             flat[f"{prefix}.{f}"] = np.asarray(getattr(ql, f))
 
+    def put_layer(prefix, layer):
+        for name in _FUSED if isinstance(layer, FusedServingLayer) else _UNFUSED:
+            put_ql(f"{prefix}.{name}", getattr(layer, name))
+        flat[f"{prefix}.input_norm"] = _numpy(layer.input_norm)
+        flat[f"{prefix}.post_norm"] = _numpy(layer.post_norm)
+
     if params.lm_head is not None:
         put_ql("params.lm_head", params.lm_head)
-    names = _FUSED if isinstance(layers, FusedServingLayer) else _UNFUSED
-    for name in names:
-        put_ql(f"layers.{name}", getattr(layers, name))
-    flat["layers.input_norm"] = _numpy(layers.input_norm)
-    flat["layers.post_norm"] = _numpy(layers.post_norm)
+    if layers is not None:
+        put_layer("layers", layers)
+    for i, layer in enumerate(params.layers):
+        put_layer(f"layers.{i}", layer)
     return flat

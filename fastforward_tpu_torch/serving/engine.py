@@ -1,5 +1,5 @@
-"""Frozen quantized linear layers and the forward's building blocks,
-ported from `fastforward_tpu/serving/engine.py`.
+"""Frozen quantized linear layers, the per-layer serving forward and its
+greedy decode loop, ported from `fastforward_tpu/serving/engine.py`.
 
 The port serves bench.py's modes: the two two-level int4 modes ``w4a4_2l``
 (decoder projections) and ``w4a8_2l`` (the lm_head of both, and the
@@ -11,6 +11,17 @@ routing on every device (its ``_on_tpu()`` read as true): up to
 rows (prefill) dequantize the weight to bf16 and take a dense product with
 f32 accumulation. Only the kernel wrappers look at the device. The
 baseline tier's ``sim_w8`` and ``sim_w4`` are not ported.
+
+`serving_forward` runs a per-layer `ServingParams` (a tuple of
+`ServingLayer`) over a per-layer `KVCache` (`serving/kv_cache.py`), int8
+or bf16, with the JAX package's TPU routing of attention
+(`engine.py:600-646`): a one-token step over an int8 cache with at least
+2 query heads per kv head goes through `flash_decode_select` (the
+flash-decode kernel at L = 1); a prefill with 1-D positions through
+`flash_prefill` (its kernel at a head dim that is a multiple of 128, its
+plain version by name otherwise); everything else through dense grouped
+attention over the dequantized cache. Its layer is `serving/stacked.py`'s
+`decoder_layer`, which the layer-stacked forward runs too.
 """
 
 import dataclasses
@@ -39,7 +50,15 @@ from fastforward_tpu_torch.kernels.matmul import (
     quantize_rowwise,
     quantize_rowwise_a4,
 )
-from fastforward_tpu_torch.kernels.packing import pack_int4
+from fastforward_tpu_torch.kernels.packing import (
+    pack_int4,
+    pack_int4_vertical,
+    pack_uint4_offset,
+    unpack_uint4_offset_paired,
+)
+from fastforward_tpu_torch.device import resolve_device
+from fastforward_tpu_torch.models.llama import LlamaConfig, rope_frequencies
+from fastforward_tpu_torch.serving.kv_cache import KVCache, causal_mask, row_starts
 
 PORTED_MODES = ("w4a4_2l", "w4a8_2l", "w8a8", "w4a8", "w4a16")
 
@@ -272,3 +291,147 @@ def _attention_grouped(q, k, v, mask):
     weights = F.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bksd->bkgtd", weights, v)
     return out.reshape(B, H, T, d)
+
+
+def random_serving_params(config: LlamaConfig, mode: str = "w4a8", group_size: int = 128,
+                          seed: int = 0, device=None) -> ServingParams:
+    """Random per-layer serving params (`engine.py:461`), built layer by
+    layer on ``device`` (default: the GPU) from a ``torch.Generator``
+    seeded with ``seed``.
+
+    The JAX function's layouts, dtypes and distributions, not its bits:
+    w8a8 int8 weights uniform in [-127, 127] with per-column scales
+    0.02/sqrt(K); the int4 modes uniform int4 values in `pack_int4`'s
+    group halves (w4a4_2l: the vertical layout) with per-group scales
+    0.25/sqrt(K) (w4a8, w4a16), or multipliers uniform in [1, 15] and
+    s_col = 0.25/sqrt(K)/8 (the two-level modes, unpaired: the JAX
+    function packs with `pack_int4` and leaves ``paired`` False, so the
+    two-level kernels read the bytes as offset-binary group halves);
+    embedding N(0, 0.02^2) in bf16, unit norms. The lm_head is in the
+    layers' mode, a two-level W4A8 head for w4a4_2l.
+    """
+    if mode not in PORTED_MODES:
+        raise _not_ported(f"random_serving_params mode {mode!r}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, inter = config.hidden_size, config.intermediate_size
+    nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int8, device=dev)
+
+    def ql(K, N, mode=mode):
+        if mode == "w8a8":
+            return QuantLinear(randint(-127, 128, (K, N)),
+                               torch.full((N,), 0.02 / math.sqrt(K), device=dev), mode="w8a8")
+        g = group_size if K % group_size == 0 else K
+        q = randint(-8, 8, (K, N))
+        packed = pack_int4_vertical(q) if mode == "w4a4_2l" else pack_int4(q, group_size=g)
+        if mode in ("w4a8_2l", "w4a4_2l"):
+            mult = randint(1, 16, (K // g, N))
+            s_col = torch.full((N,), 0.25 / math.sqrt(K) / 8.0, device=dev)
+            return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult)
+        scale = torch.full((K // g, N), 0.25 / math.sqrt(K), device=dev)
+        return QuantLinear(packed, scale, mode=mode, group_size=g)
+
+    layers = tuple(
+        ServingLayer(
+            q_proj=ql(h, nh * d), k_proj=ql(h, nkv * d), v_proj=ql(h, nkv * d),
+            o_proj=ql(nh * d, h), gate_proj=ql(h, inter), up_proj=ql(h, inter),
+            down_proj=ql(inter, h),
+            input_norm=torch.ones((h,), dtype=torch.bfloat16, device=dev),
+            post_norm=torch.ones((h,), dtype=torch.bfloat16, device=dev),
+        )
+        for _ in range(config.num_layers)
+    )
+    embedding = (torch.randn((config.vocab_size, h), generator=gen, device=dev) * 0.02
+                 ).to(torch.bfloat16)
+    head_mode = "w4a8_2l" if mode == "w4a4_2l" else mode
+    return ServingParams(
+        embedding=embedding,
+        layers=layers,
+        final_norm=torch.ones((h,), dtype=torch.bfloat16, device=dev),
+        lm_head=None if config.tie_embeddings else ql(h, config.vocab_size, head_mode),
+    )
+
+
+def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch.Tensor,
+                    cache: Optional[KVCache] = None, positions: Optional[torch.Tensor] = None,
+                    logits_positions="all"):
+    """One forward pass over per-layer params (`engine.py:564`); returns
+    (f32 logits, new cache).
+
+    ``positions``: (T,) or (B, T) absolute positions, by default the T
+    positions after ``cache.length``. ``logits_positions``: "all", "last"
+    (the (B, T, vocab) logits of a prefill are never made) or a (B,)
+    position per row. The cache's tensors are written in place; the
+    returned cache shares them and is ``length + T`` long.
+    """
+    # the layer and its attention routing are shared with the stacked
+    # forward, which imports this module
+    from fastforward_tpu_torch.serving.stacked import LayerWeights, decoder_layer
+
+    B, T = input_ids.shape
+    dev = input_ids.device
+    inv_freq = rope_frequencies(config, device=dev)
+    if positions is None:
+        positions = torch.arange(T, device=dev) + (cache.length if cache is not None else 0)
+    x = params.embedding[input_ids]
+    starts = rows = None
+    if cache is not None:
+        starts = row_starts(positions, B)
+        rows = starts if T == 1 else starts.tolist()
+    mask = causal_mask(positions, T if cache is None else cache.max_len)
+    for i, layer in enumerate(params.layers):
+        x = decoder_layer(x, LayerWeights(layer), config, positions, inv_freq,
+                          None if cache is None else cache.layer(i), starts, rows, mask)
+
+    x = _rms_norm(x, params.final_norm, config.rms_norm_eps)
+    if isinstance(logits_positions, str):
+        if logits_positions == "last":
+            x = x[:, -1:, :]
+    else:
+        x = torch.take_along_dim(
+            x, torch.as_tensor(logits_positions, device=dev)[:, None, None], dim=1
+        )
+    if params.lm_head is not None:
+        logits = params.lm_head(x, out_dtype=torch.float32)
+    else:
+        logits = torch.einsum("bth,vh->btv", x, params.embedding).float()
+    if cache is not None:
+        cache = cache.with_layers(cache.layers, advance=T)
+    return logits, cache
+
+
+def make_decode_loop(config: LlamaConfig, num_steps: int):
+    """Greedy decode loop (`engine.py:672`): ``loop(params, cache, token
+    (B, 1))`` → ``(tokens (B, num_steps), cache)``. Each step takes the
+    argmax of the last position's f32 logits (the first maximum, as
+    ``jnp.argmax``); the cache is written in place."""
+
+    def loop(params: ServingParams, cache: KVCache, token: torch.Tensor):
+        out = []
+        for _ in range(num_steps):
+            logits, cache = serving_forward(params, config, token, cache)
+            token = torch.argmax(logits[:, -1], dim=-1).to(token.dtype)[:, None]
+            out.append(token[:, 0])
+        return torch.stack(out, dim=1), cache
+
+    return loop
+
+
+def repack_unpaired(ql: QuantLinear) -> QuantLinear:
+    """A paired two-level `QuantLinear` in the group-halves layout
+    (`engine.py:690`): a relabeling of the same nibbles, bit-exact. As in
+    the JAX function, the result keeps data, scale, mode, group size and
+    multipliers only."""
+    if not ql.paired:
+        return ql
+    g = ql.group_size
+
+    def conv(d2):
+        return pack_uint4_offset(unpack_uint4_offset_paired(d2, g), g)
+
+    data = torch.stack([conv(d) for d in ql.data]) if ql.data.dim() == 3 else conv(ql.data)
+    return QuantLinear(data, ql.scale, mode=ql.mode, group_size=g, mult=ql.mult, paired=False)

@@ -1,19 +1,24 @@
 """Layer-stacked serving forward, ported from `fastforward_tpu/serving/stacked.py`.
 
 All decoder layers share one shape, so their frozen weights stack along a
-leading L axis and the forward is a Python loop over the layer index (the
-JAX package's `lax.scan`). The KV cache is one stacked (L, B, Hkv, S, D)
-int8 tensor or a paged pool (`serving/paged.py`), written in place: the
-prefill writes a block per layer, the decode step appends one row through
-the KV-append kernel and attends with the flash-decode kernel (their paged
-forms for a pool).
+leading L axis (`stack_serving_layers` stacks per-layer params) and the
+forward is a Python loop over the layer index (the JAX package's
+`lax.scan`). The KV cache is one stacked (L, B, Hkv, S, D) int8 or bf16
+tensor or a paged int8 pool (`serving/paged.py`), written in place: the
+prefill writes a block per layer, the int8 decode step appends one row
+through the KV-append kernel and attends with the flash-decode kernel
+(their paged forms for a pool); a bf16 cache takes its rows by slice
+assignment and its decode attends densely, as on the JAX package's TPU
+route.
 
 Ported branches (`stacked.py:378-909`), taken under the JAX package's TPU
 routing with its default flags: the paged decode step (`:568-589`), the
 stacked-KV decode step (`:590-608`), the stacked prefill (`:609-649`) with
 the flash-prefill kernel over the just-written cache where the head dim is
-a multiple of 128 (plain grouped attention otherwise, as the JAX
-package's TPU route does), the no-cache forward, and the fused W4A8 layer
+a multiple of 128 and the positions are 1-D (plain grouped attention
+otherwise, as the JAX package's TPU route does), the bf16 cache
+(`:718-735`: flash prefill over bf16 K/V on the same condition), the
+no-cache forward, and the fused W4A8 layer
 tail (`:744-778`: one call for o_proj through down at B·T <= 64, paired
 ``w4a8_2l`` only; the float-scale modes take a kernel per projection). The
 paged step always calls the paged append kernel (any page and head dim)
@@ -22,7 +27,19 @@ and the paged flash-decode kernel (any page of a multiple of 4 tokens,
 tile limits send a shape to its reference; only a head dim other than
 128, which the flash-decode kernel cannot run, calls the plain attention
 by name. Tensor parallelism and the fused layer head (off by default)
-are not ported.
+are not ported. The JAX slab flow (``FF_KV_STACKED=0``: per-layer cache
+slabs as scan inputs and outputs, per-layer append and flash decode) is
+no mode of its own here: eagerly, a layer's view of the stacked cache is
+that slab, written in place, so the one loop below computes it; its
+per-row prefill writes (2-D positions) and their dense attention are the
+branch this loop takes for 2-D positions.
+
+One decoder layer (`decoder_layer`) and its attention routing
+(`layer_attention`) serve this forward and the per-layer
+`engine.serving_forward` alike; they differ only where the JAX package's
+two forwards do (the one-token int8 append's kernel, the group condition
+of the flash decode, the plain prefill at a head dim that is no multiple
+of 128).
 """
 
 import dataclasses
@@ -34,7 +51,11 @@ import torch
 import torch.nn.functional as F
 
 from fastforward_tpu_torch.device import resolve_device
-from fastforward_tpu_torch.kernels.attention import flash_decode_int8_stacked, flash_prefill
+from fastforward_tpu_torch.kernels.attention import (
+    flash_decode_int8_stacked,
+    flash_prefill,
+    flash_prefill_reference,
+)
 from fastforward_tpu_torch.kernels.kv_update import kv_append_decode_int8_stacked
 from fastforward_tpu_torch.kernels.matmul import (
     fused_o_mlp_stacked,
@@ -62,7 +83,12 @@ from fastforward_tpu_torch.serving.engine import (
     _attention_grouped,
     _rms_norm,
 )
-from fastforward_tpu_torch.serving.kv_cache import NEG_INF, _quantize_kv
+from fastforward_tpu_torch.serving.kv_cache import (
+    LayerKVCache,
+    _quantize_kv,
+    causal_mask,
+    row_starts,
+)
 from fastforward_tpu_torch.serving.paged import PagedKVCache
 
 # Largest B·T the fused layer tail serves (`stacked.py:744-749`).
@@ -71,24 +97,24 @@ FUSED_TAIL_MAX_ROWS = 64
 
 @dataclasses.dataclass
 class StackedKVCache:
-    """Whole-model INT8 KV cache (L, B, n_kv, S, D) with f32 scales
-    (L, B, n_kv, S) (`stacked.py:30`). ``length`` is a host integer."""
+    """Whole-model KV cache (L, B, n_kv, S, D): int8 with f32 scales
+    (L, B, n_kv, S), or ``dtype`` (bf16) without scales (`stacked.py:30`).
+    ``length`` is a host integer."""
 
     k: torch.Tensor
     v: torch.Tensor
-    k_scale: torch.Tensor
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
     length: int = 0
 
     @staticmethod
     def create(num_layers, batch_size, max_len, num_kv_heads, head_dim,
-               quantized=True, device=None):
-        if not quantized:
-            raise NotImplementedError(
-                "the bf16 KV cache is not ported yet (ROADMAP.md, Queue 1 item 4)"
-            )
+               dtype=torch.bfloat16, quantized=True, device=None):
         dev = resolve_device(device)
         shape = (num_layers, batch_size, num_kv_heads, max_len, head_dim)
+        if not quantized:
+            return StackedKVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                                  v=torch.zeros(shape, dtype=dtype, device=dev))
         return StackedKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=dev),
             v=torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -157,6 +183,34 @@ def fuse_stacked_layers(stacked: ServingLayer) -> FusedServingLayer:
         input_norm=stacked.input_norm,
         post_norm=stacked.post_norm,
     )
+
+
+def stack_serving_layers(params: ServingParams) -> ServingLayer:
+    """Stack per-layer weights along a new leading axis (`stacked.py:67`):
+    every tensor of the layers' `ServingLayer`s, each `QuantLinear` field
+    included; its static fields (mode, group size, layout) must agree."""
+
+    def stack_ql(qls):
+        first = qls[0]
+        for f in ("mode", "group_size", "paired"):
+            if any(getattr(q, f) != getattr(first, f) for q in qls):
+                raise ValueError(f"stack_serving_layers: the layers' {f} differ")
+        fields = {}
+        for f in ("data", "scale", "mult", "mult_packed", "in_scale"):
+            vals = [getattr(q, f) for q in qls]
+            if any((v is None) != (vals[0] is None) for v in vals):
+                raise ValueError(f"stack_serving_layers: {f} is set in some layers only")
+            fields[f] = None if vals[0] is None else torch.stack(vals)
+        return QuantLinear(fields["data"], fields["scale"], mode=first.mode,
+                           group_size=first.group_size, mult=fields["mult"],
+                           paired=first.paired, mult_packed=fields["mult_packed"],
+                           in_scale=fields["in_scale"])
+
+    out = {}
+    for f in dataclasses.fields(ServingLayer):
+        vals = [getattr(layer, f.name) for layer in params.layers]
+        out[f.name] = stack_ql(vals) if isinstance(vals[0], QuantLinear) else torch.stack(vals)
+    return ServingLayer(**out)
 
 
 def _rand_nibbles(gen, shape, device):
@@ -273,12 +327,146 @@ def flash_decode_select(q3, kc, ks, vc, vs, lengths, layer):
     """The one flash-decode dispatch (`stacked.py:304`). The JAX package
     picks among ragged, bucketed and whole-slab kernels by slab size; they
     compute one function, and the port's single kernel reads only the live
-    blocks in every regime. A per-layer (B, Hkv, S, d) cache is lifted to
-    one layer."""
+    blocks in every regime. A per-layer (B, Hkv, S, d) cache (the per-layer
+    forward's) is lifted to the same kernel at L = 1, layer 0, as the JAX
+    dispatch lifts it (`stacked.py:333-335`), and counted under
+    ``flash_decode_layer``."""
     if kc.dim() == 4:
-        kc, ks, vc, vs = kc[None], ks[None], vc[None], vs[None]
-        layer = 0
+        return flash_decode_int8_stacked(q3, kc[None], ks[None], vc[None], vs[None], lengths, 0,
+                                         count="flash_decode_layer")
     return flash_decode_int8_stacked(q3, kc, ks, vc, vs, lengths=lengths, layer=layer)
+
+
+@dataclasses.dataclass
+class LayerWeights:
+    """One decoder layer's weights as `decoder_layer` reads them: a
+    per-layer `ServingLayer` (``index`` None), or layer ``index`` of stacked
+    layers, unfused or fused (`FusedServingLayer`), whose projections take
+    the index into their kernels (`QuantLinear.call_layer`)."""
+
+    layer: object
+    index: Optional[int] = None
+
+    def proj(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        ql = getattr(self.layer, name)
+        return ql(t) if self.index is None else ql.call_layer(t, self.index)
+
+    def norm(self, name: str) -> torch.Tensor:
+        w = getattr(self.layer, name)
+        return w if self.index is None else w[self.index]
+
+    def qkv(self, h: torch.Tensor, q_width: int, kv_width: int):
+        if isinstance(self.layer, FusedServingLayer):
+            qkv = self.proj("qkv_proj", h)
+            return (qkv[..., :q_width], qkv[..., q_width:q_width + kv_width],
+                    qkv[..., q_width + kv_width:])
+        return tuple(self.proj(n, h) for n in ("q_proj", "k_proj", "v_proj"))
+
+    def gate_up(self, h: torch.Tensor):
+        if isinstance(self.layer, FusedServingLayer):
+            gateup = self.proj("gateup_proj", h)
+            inter = gateup.shape[-1] // 2
+            return gateup[..., :inter], gateup[..., inter:]
+        return self.proj("gate_proj", h), self.proj("up_proj", h)
+
+
+def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
+    """One decoder layer's attention with this step's q (B, H, T, d) and
+    k, v (B, Hkv, T, d), by the JAX package's TPU routing; both forwards
+    call it (`engine.py:600-646`, `stacked.py:566-742`).
+
+    ``cache`` None: dense grouped attention over k, v under ``mask``.
+    Otherwise k, v are written into the cache in place (rows from
+    ``starts`` / ``rows``, see `LayerKVCache.write`) and the step attends
+    over it; ``cache`` is a per-layer `LayerKVCache`, or a `StackedKVCache`
+    or `PagedKVCache` at layer ``layer``:
+    - paged (one-token steps): the paged append kernel, then the paged
+      flash-decode kernel (its plain version by name at a head dim other
+      than 128);
+    - int8, one token: the append kernel (stacked, or per-layer under its
+      own count), then `flash_decode_select`: always for a stacked cache
+      (`stacked.py:590-608`), with at least 2 query heads per kv head for a
+      per-layer one (`engine.py:620-637`; dense otherwise);
+    - a block with 1-D positions at a head dim that is a multiple of 128:
+      `flash_prefill` over the layer's just-written int8 or bf16 K/V; a
+      per-layer cache at another head dim takes its plain version by name,
+      as JAX's `flash_prefill` does (`attention.py:998`);
+    - otherwise dense grouped attention over the layer's (dequantized)
+      cache under ``mask``.
+    """
+    T, d = q.shape[2], q.shape[3]
+    if cache is None:
+        return _attention_grouped(q, k, v, mask)
+    if isinstance(cache, PagedKVCache):
+        kq8, ksc = _quantize_kv(k)
+        vq8, vsc = _quantize_kv(v)
+        kc, vc, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
+        paged_kv_append_decode_int8(kc, vc, ks, vs, kq8.contiguous(), vq8.contiguous(),
+                                    ksc.contiguous(), vsc.contiguous(), starts, cache.table, layer)
+        q3 = q[:, :, 0, :].contiguous()
+        if d == 128:
+            attn = paged_flash_decode_int8(q3, kc, ks, vc, vs, cache.table, starts + 1, layer)
+        else:
+            attn = paged_flash_decode_reference(q3, kc[layer], ks[layer], vc[layer], vs[layer],
+                                                cache.table, starts + 1)
+        return attn[:, :, None, :]
+    per_layer = isinstance(cache, LayerKVCache)
+    if per_layer:
+        lc = cache
+    else:
+        lc = LayerKVCache(cache.k[layer], cache.v[layer],
+                          *(None if s is None else s[layer] for s in (cache.k_scale, cache.v_scale)))
+    if T == 1 and lc.is_quantized and not per_layer:
+        kq8, ksc = _quantize_kv(k)
+        vq8, vsc = _quantize_kv(v)
+        kv_append_decode_int8_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                                      kq8.contiguous(), vq8.contiguous(), ksc.contiguous(),
+                                      vsc.contiguous(), starts, layer)
+    else:
+        lc.write(k, v, starts, rows)
+    if T == 1 and lc.is_quantized and (not per_layer or q.shape[1] // k.shape[1] >= 2):
+        return flash_decode_select(q[:, :, 0, :].contiguous(), cache.k, cache.k_scale, cache.v,
+                                   cache.v_scale, lengths=starts + 1, layer=layer)[:, :, None, :]
+    if T > 1 and positions.dim() == 1 and (d % 128 == 0 or per_layer):
+        k_all, v_all = lc.k, lc.v
+        if not lc.is_quantized:
+            k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
+        prefill = flash_prefill if d % 128 == 0 else flash_prefill_reference
+        return prefill(q.contiguous(), k_all, lc.k_scale, v_all, lc.v_scale, starts)
+    k_all, v_all = lc.read(dtype=q.dtype)
+    return _attention_grouped(q, k_all.to(q.dtype), v_all.to(q.dtype), mask)
+
+
+def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_freq, cache,
+                  starts, rows, mask, fused_tail: bool = False):
+    """One decoder layer (`engine.py:592-652`, `stacked.py:495-790`), for
+    both forwards: RMSNorm, the q/k/v projections, RoPE, `layer_attention`
+    over ``cache`` (at ``weights.index`` for a stacked cache), o_proj and
+    the residual, RMSNorm, the gated MLP and the residual. ``fused_tail``:
+    o_proj through down_proj as one fused kernel (fused paired W4A8
+    stacked layers, one token)."""
+    B, T, _ = x.shape
+    nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
+    eps = config.rms_norm_eps
+    h = _rms_norm(x, weights.norm("input_norm"), eps)
+    q, k, v = (t.reshape(B, T, n, d).transpose(1, 2)
+               for t, n in zip(weights.qkv(h, nh * d, nkv * d), (nh, nkv, nkv)))
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    attn = layer_attention(q, k, v, cache, weights.index, positions, starts, rows, mask)
+    attn = attn.transpose(1, 2).reshape(B, T, nh * d)
+    if fused_tail:
+        layer, l = weights.layer, weights.index
+        o, gu, dn = layer.o_proj, layer.gateup_proj, layer.down_proj
+        return fused_o_mlp_stacked(
+            attn[:, 0, :], x[:, 0, :].contiguous(), layer.post_norm,
+            o.data, o.mult_packed, o.scale, gu.data, gu.mult_packed, gu.scale,
+            dn.data, dn.mult_packed, dn.scale, l, group_size=o.group_size, eps=eps,
+        )[:, None, :]
+    x = x + weights.proj("o_proj", attn)
+    h = _rms_norm(x, weights.norm("post_norm"), eps)
+    gate, up = weights.gate_up(h)
+    return x + weights.proj("down_proj", F.silu(gate.float()).to(x.dtype) * up)
 
 
 def serving_forward_stacked(
@@ -294,13 +482,16 @@ def serving_forward_stacked(
     """Forward over the stacked layers; returns (logits, new_cache), or
     (token ids (B,) int32, new_cache) with ``greedy_head`` (`stacked.py:378`).
 
-    Runs where its tensors are. With a cache, a one-token step appends
-    through the KV-append kernel and attends through the flash-decode
-    kernel (through the page table for a `PagedKVCache`, which takes
-    one-token steps only); a longer step (prefill) writes its block of the
-    cache and attends over it through the flash-prefill kernel (head dim a
-    multiple of 128; plain grouped attention otherwise). The cache tensors
-    are updated in place; the returned cache shares them. A one-token step
+    Runs where its tensors are. With an int8 cache, a one-token step
+    appends through the KV-append kernel and attends through the
+    flash-decode kernel (through the page table for a `PagedKVCache`, which
+    takes one-token steps only); a longer step (prefill) writes its block
+    of the cache and attends over it through the flash-prefill kernel
+    (1-D positions and a head dim that is a multiple of 128; plain grouped
+    attention otherwise). A bf16 cache takes its rows as they are; its
+    prefill runs the same flash-prefill kernel over bf16 K/V, its decode
+    step dense grouped attention. The cache tensors are updated in place;
+    the returned cache shares them. A one-token step
     of at most 64 rows over fused paired W4A8 layers runs the layer tail
     (o_proj through down) as one fused kernel.
     ``greedy_head`` with T == 1 and a two-level W4A8 lm_head runs the fused
@@ -310,54 +501,30 @@ def serving_forward_stacked(
     """
     B, T = input_ids.shape
     dev = input_ids.device
-    nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
     inv_freq = rope_frequencies(config, device=dev)
     eps = config.rms_norm_eps
 
-    start0 = None  # first cache row this step writes, as a host int
     if positions is None:
-        start0 = cache.length if cache is not None else 0
-        positions = torch.arange(T, device=dev) + start0
+        positions = torch.arange(T, device=dev) + (cache.length if cache is not None else 0)
 
     x = params.embedding[input_ids]
-    pos2 = positions if positions.dim() == 2 else positions[None, :]
-
-    paged = isinstance(cache, PagedKVCache)
-    if paged and T != 1:
+    if isinstance(cache, PagedKVCache) and T != 1:
         raise ValueError(
             "PagedKVCache supports decode-shaped (T == 1) forwards; prefill goes "
             "through a contiguous cache + scatter_prefill_to_pages"
         )
+    starts = rows = None
     if cache is not None:
-        if not cache.is_quantized:
-            raise NotImplementedError("only the INT8 stacked KV cache is ported")
-        if T > 1 and positions.dim() != 1:
-            raise NotImplementedError(
-                "prefill with per-row positions takes the slab flow, not ported yet"
-            )
-        starts = (positions[:, 0] if positions.dim() == 2
-                  else positions[0].expand(B)).to(torch.int32).contiguous()
-        kc, vc, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
-    if cache is not None and T > 1 and start0 is None:
-        start0 = int(positions[0])
-    flash = cache is not None and T > 1 and d % 128 == 0
-    if cache is None or (T > 1 and not flash):
-        s_idx = torch.arange(T if cache is None else cache.max_len, device=dev)
-        mask = torch.where(
-            s_idx[None, None, None, :] <= pos2[:, None, :, None], 0.0, NEG_INF
-        ).float()
-
-    def split_heads(t, n):
-        return t.reshape(B, T, n, d).transpose(1, 2)
+        starts = row_starts(positions, B)
+        rows = starts if T == 1 else starts.tolist()
+    mask = causal_mask(positions, T if cache is None else cache.max_len)
 
     layer = stacked_layers
-    fused = isinstance(layer, FusedServingLayer)
-    groups = nh // nkv
     o = layer.o_proj
     fused_tail = (
         T == 1
         and B * T <= FUSED_TAIL_MAX_ROWS
-        and fused
+        and isinstance(layer, FusedServingLayer)
         and o.mode == "w4a8_2l"
         and o.paired
         and o.in_scale is None
@@ -365,79 +532,8 @@ def serving_forward_stacked(
                 for p in (o, layer.gateup_proj, layer.down_proj))
     )
     for l in range(config.num_layers):
-        h = _rms_norm(x, layer.input_norm[l], eps)
-        if fused:
-            qkv = layer.qkv_proj.call_layer(h, l)
-            q = split_heads(qkv[..., : nh * d], nh)
-            k = split_heads(qkv[..., nh * d: (nh + nkv) * d], nkv)
-            v = split_heads(qkv[..., (nh + nkv) * d:], nkv)
-        else:
-            q = split_heads(layer.q_proj.call_layer(h, l), nh)
-            k = split_heads(layer.k_proj.call_layer(h, l), nkv)
-            v = split_heads(layer.v_proj.call_layer(h, l), nkv)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
-
-        if cache is None:
-            attn = _attention_grouped(q, k, v, mask)
-        elif paged:
-            kq8, ksc = _quantize_kv(k)
-            vq8, vsc = _quantize_kv(v)
-            paged_kv_append_decode_int8(kc, vc, ks, vs, kq8.contiguous(), vq8.contiguous(),
-                                        ksc.contiguous(), vsc.contiguous(), starts,
-                                        cache.table, l)
-            q3 = q[:, :, 0, :].contiguous()
-            if d == 128:
-                attn = paged_flash_decode_int8(q3, kc, ks, vc, vs, cache.table, starts + 1, l)
-            else:
-                attn = paged_flash_decode_reference(q3, kc[l], ks[l], vc[l], vs[l], cache.table,
-                                                    starts + 1)
-            attn = attn[:, :, None, :]
-        elif T == 1:
-            kq8, ksc = _quantize_kv(k)
-            vq8, vsc = _quantize_kv(v)
-            kv_append_decode_int8_stacked(
-                kc, vc, ks, vs, kq8.contiguous(), vq8.contiguous(),
-                ksc.contiguous(), vsc.contiguous(), starts, l,
-            )
-            attn = flash_decode_select(
-                q[:, :, 0, :].contiguous(), kc, ks, vc, vs, lengths=starts + 1, layer=l,
-            )[:, :, None, :]
-        else:
-            kq8, ksc = _quantize_kv(k)
-            vq8, vsc = _quantize_kv(v)
-            kc[l, :, :, start0:start0 + T] = kq8
-            vc[l, :, :, start0:start0 + T] = vq8
-            ks[l, :, :, start0:start0 + T] = ksc
-            vs[l, :, :, start0:start0 + T] = vsc
-            if flash:
-                attn = flash_prefill(q.contiguous(), kc[l], ks[l], vc[l], vs[l], starts)
-            else:
-                k_all = (kc[l].float() * ks[l][..., None]).to(x.dtype)
-                v_all = (vc[l].float() * vs[l][..., None]).to(x.dtype)
-                attn = _attention_grouped(q, k_all, v_all, mask)
-        attn = attn.transpose(1, 2).reshape(B, T, nh * d)
-        if fused_tail:
-            gu, dn = layer.gateup_proj, layer.down_proj
-            x = fused_o_mlp_stacked(
-                attn[:, 0, :], x[:, 0, :].contiguous(), layer.post_norm,
-                o.data, o.mult_packed, o.scale, gu.data, gu.mult_packed, gu.scale,
-                dn.data, dn.mult_packed, dn.scale, l, group_size=o.group_size, eps=eps,
-            )[:, None, :]
-            continue
-        x = x + layer.o_proj.call_layer(attn, l)
-
-        h = _rms_norm(x, layer.post_norm[l], eps)
-        if fused:
-            gateup = layer.gateup_proj.call_layer(h, l)
-            inter = gateup.shape[-1] // 2
-            gate, up = gateup[..., :inter], gateup[..., inter:]
-            gated = F.silu(gate.float()).to(x.dtype)
-            mlp_out = layer.down_proj.call_layer(gated * up, l)
-        else:
-            gated = F.silu(layer.gate_proj.call_layer(h, l).float()).to(x.dtype)
-            mlp_out = layer.down_proj.call_layer(gated * layer.up_proj.call_layer(h, l), l)
-        x = x + mlp_out
+        x = decoder_layer(x, LayerWeights(layer, l), config, positions, inv_freq, cache, starts,
+                          rows, mask, fused_tail=fused_tail)
 
     new_cache = None
     if cache is not None:

@@ -6,12 +6,13 @@ one. Run them on the card with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest``: the shared conftest imports JAX, which the GPU host
-need not have). Tolerances: the GEMVs, the W8A8 GEMM, argmax ids, the
-dequants and the KV appends (slab and paged) are bit-equal; the W4 GEMV
+need not have). Tolerances: the GEMVs (the unpaired two-level one too), the
+W8A8 GEMM, argmax ids, the dequants and the KV appends (slab, per-layer
+and paged) are bit-equal; the W4 GEMV
 (w4a16) is within 1e-4 of its largest output in f32, one bf16 ulp more in
-bf16; flash decode (slab and paged) and flash prefill are within one bf16
-ulp of the largest output (rtol 8e-3), and paged flash decode gives the
-slab kernel's bits over the same tokens.
+bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
+and bf16 K/V) are within one bf16 ulp of the largest output (rtol 8e-3),
+and paged flash decode gives the slab kernel's bits over the same tokens.
 The fused layer tail: x1 bit-equal, the int8 activations hq and x2 within
 one level (the IEEE rsqrt and exp round unlike PyTorch's in a few rows),
 the output within rtol 8e-3.
@@ -98,12 +99,14 @@ def test_w4a8_argmax_kernel_ids_equal(dev, M, N):
 
 
 def test_w4a8_kernel_rejects_unpaired_layout(dev):
+    # the group-halves kernel stages 4 byte rows of one group at a time: an
+    # unpaired layout whose group is no multiple of 8 is refused
     x_q = torch.zeros((1, 256), dtype=torch.int8, device=dev)
     x_s = torch.ones((1,), device=dev)
     w = torch.zeros((128, 64), dtype=torch.int8, device=dev)
-    m = torch.ones((2, 64), dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError):
-        mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, torch.ones(64, device=dev), 128, paired=False)
+    m = torch.ones((64, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="group % 8"):
+        mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, torch.ones(64, device=dev), 4, paired=False)
 
 
 def test_kv_append_kernel_bit_equal(dev):
@@ -232,8 +235,10 @@ def test_new_wrappers_check_their_inputs(dev):
     k = torch.zeros((B, Hkv, S, d), dtype=torch.int8, device=dev)
     sc = torch.ones((B, Hkv, S), device=dev)
     st = torch.zeros((B,), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        att.flash_prefill(q, k.to(torch.bfloat16), None, k.to(torch.bfloat16), None, st)
+    with pytest.raises(ValueError, match="without"):  # bf16 K/V take no scales
+        att.flash_prefill(q, k.to(torch.bfloat16), sc, k.to(torch.bfloat16), sc, st)
+    with pytest.raises(ValueError, match="without"):  # int8 K/V need them
+        att.flash_prefill(q, k, None, k, None, st)
     with pytest.raises(ValueError, match="bfloat16"):
         att.flash_prefill(q.float(), k, sc, k, sc, st)
     with pytest.raises(ValueError, match="contiguous"):
@@ -408,6 +413,186 @@ def test_paged_decode_step_takes_the_kernels_at_any_page(dev):
     assert torch.isfinite(logits).all()
     rel_rms = ((logits - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
     assert rel_rms <= 0.03
+
+
+# --- the per-layer cache path: the unpaired two-level W4A8 GEMV, the
+# per-layer append and flash decode, flash prefill over bf16 K/V, and the
+# forward and loader on the card
+
+
+@pytest.mark.parametrize("M,K,N,g", [
+    (1, 256, 132, 64), (192, 4096, 4096, 128), (13, 1024, 4100, 32), (192, 14336, 4096, 128),
+    (8, 384, 260, 128), (192, 4096, 128256, 128),
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_unpaired_gemv_kernel_bit_equal(dev, M, K, N, g, out_dtype):
+    # group halves, offset binary (pack_uint4_offset); 3 groups in one case
+    gen = _gen(dev, M + K + N + g)
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    m = _ri(gen, 1, 16, (K // g, N), torch.int8, dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-2
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    before = _build.launch_counts["w4a8_gemv_unpaired"]
+    out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, out_dtype, paired=False)
+    assert _build.launch_counts["w4a8_gemv_unpaired"] == before + 1
+    ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, out_dtype, paired=False)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+
+
+def test_per_layer_kv_append_kernel_bit_equal(dev):
+    # starts 0, S - 1, S (no write) and one inside; written in place
+    gen = _gen(dev, 21)
+    B, Hkv, S, D = 4, 8, 512, 128
+    cache = [_ri(gen, -128, 128, (B, Hkv, S, D), torch.int8, dev) for _ in range(2)]
+    cache += [torch.rand((B, Hkv, S), generator=gen, device=dev) for _ in range(2)]
+    new = [_ri(gen, -128, 128, (B, Hkv, 1, D), torch.int8, dev) for _ in range(2)]
+    new += [torch.rand((B, Hkv, 1), generator=gen, device=dev) for _ in range(2)]
+    starts = torch.tensor([0, S - 1, S, 77], dtype=torch.int32, device=dev)
+    ref = kvu.kv_append_decode_reference(*cache, *new, starts)
+    bufs = [t.clone() for t in cache]
+    before = _build.launch_counts["kv_append_layer"]
+    out = kvu.kv_append_decode_int8(*bufs, *new, starts)
+    assert _build.launch_counts["kv_append_layer"] == before + 1
+    for a, b, r in zip(out, bufs, ref):
+        assert a is b and torch.equal(a, r)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_per_layer_flash_decode_kernel(dev, G):
+    # G >= 2: the kernel, within one bf16 ulp of the largest output; G = 1:
+    # the plain version by name, as the JAX TPU route (no launch)
+    gen = _gen(dev, 30 + G)
+    B, Hkv, S, d = 5, 2 if G == 8 else 4, 512, 128
+    k = _ri(gen, -128, 128, (B, Hkv, S, d), torch.int8, dev)
+    v = _ri(gen, -128, 128, (B, Hkv, S, d), torch.int8, dev)
+    ks = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    vs = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    q = torch.randn((B, Hkv * G, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([1, 256, 257, 500, S], dtype=torch.int32, device=dev)
+    before = _build.launch_counts["flash_decode_layer"]
+    out = att.flash_decode_int8(q, k, ks, v, vs, lengths)
+    ref = att.flash_decode_int8_reference(q, k, ks, v, vs, lengths)
+    assert _build.launch_counts["flash_decode_layer"] == before + (G >= 2)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 8e-3 * ref.float().abs().max().item()
+    if G == 1:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_decode_select_lifts_a_per_layer_cache_to_the_kernel(dev, G):
+    # a per-layer cache goes to the kernel at L = 1 at every group count, as
+    # the JAX dispatch lifts it to its stacked kernels; counted per layer
+    from fastforward_tpu_torch.serving import stacked as stk
+
+    gen = _gen(dev, 40 + G)
+    B, Hkv, S, d = 3, 4, 512, 128
+    k = _ri(gen, -128, 128, (B, Hkv, S, d), torch.int8, dev)
+    v = _ri(gen, -128, 128, (B, Hkv, S, d), torch.int8, dev)
+    ks = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    vs = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    q = torch.randn((B, Hkv * G, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([1, 300, S], dtype=torch.int32, device=dev)
+    before = dict(_build.launch_counts)
+    out = stk.flash_decode_select(q, k, ks, v, vs, lengths, None)
+    assert _build.launch_counts["flash_decode_layer"] == before.get("flash_decode_layer", 0) + 1
+    assert _build.launch_counts["flash_decode"] == before.get("flash_decode", 0)
+    ref = att.flash_decode_int8_reference(q, k, ks, v, vs, lengths)
+    assert (out.float() - ref.float()).abs().max().item() <= 8e-3 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("T,S,starts", [(128, 512, (0, 0, 0)), (40, 100, (0, 7, 60)),
+                                        (77, 300, (5, 0, 223))])
+def test_flash_prefill_bf16_kernel_within_tolerance(dev, G, T, S, starts):
+    gen = _gen(dev, 7 * G + T + S)
+    B, Hkv, d = 3, 2, 128
+    k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, Hkv * G, T, d), generator=gen, device=dev).to(torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    before = _build.launch_counts["flash_prefill_bf16"]
+    out = att.flash_prefill(q, k, None, v, None, st)
+    assert _build.launch_counts["flash_prefill_bf16"] == before + 1
+    ref = att.flash_prefill_reference(q, k, None, v, None, st)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert out.shape == q.shape and err <= 8e-3 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("mode,quantized", [("w4a8_2l", False), ("w4a8", True)])
+def test_per_layer_forward_takes_the_kernels(dev, mode, quantized):
+    """The per-layer prefill and decode on the card launch this path's
+    kernels once per layer (projection GEMVs per call) and stay within the
+    mode's relative RMS bound of the same forward on the CPU."""
+    import dataclasses
+
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+    from fastforward_tpu_torch.serving import KVCache, make_decode_loop, serving_forward
+    from fastforward_tpu_torch.serving.engine import random_serving_params
+
+    def to_cpu(obj):
+        if torch.is_tensor(obj):
+            return obj.cpu()
+        if isinstance(obj, tuple):
+            return tuple(to_cpu(o) for o in obj)
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{f.name: to_cpu(getattr(obj, f.name))
+                                               for f in dataclasses.fields(obj)})
+        return obj
+
+    config = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, head_dim=128)
+    params = random_serving_params(config, mode, group_size=64, seed=4, device=dev)
+    cpu = to_cpu(params)
+    ids = torch.randint(0, 512, (3, 9), generator=_gen(dev, 5), device=dev)
+    out = {}
+    for where, p in ((dev, params), (torch.device("cpu"), cpu)):
+        cache = KVCache.create(2, 3, 32, 2, 128, quantized=quantized, device=where)
+        _build.reset_launch_counts()
+        logits, cache = serving_forward(p, config, ids.to(where), cache)
+        toks, cache = make_decode_loop(config, 3)(p, cache, ids[:, -1:].to(where))
+        out[where.type] = (logits, dict(_build.launch_counts))
+    counts = out["cuda"][1]
+    gemv = "w4a8_gemv_unpaired" if mode == "w4a8_2l" else "w4a8_gemv_halves"
+    assert counts[gemv] == 7 * 2 * 4 + 1 + 3 and not out["cpu"][1]
+    assert counts["flash_prefill_bf16" if not quantized else "flash_prefill"] == 2
+    if quantized:
+        assert counts["kv_append_layer"] == counts["flash_decode_layer"] == 2 * 3
+    else:
+        assert "kv_append_layer" not in counts and "flash_decode_layer" not in counts
+    a, b = out["cuda"][0].cpu(), out["cpu"][0]
+    assert torch.isfinite(a).all()
+    assert ((a - b).pow(2).mean() / b.pow(2).mean()).sqrt().item() <= 0.03
+
+
+def test_load_llama_on_the_card_gives_the_cpu_bytes(dev, tmp_path):
+    """A bf16 checkpoint written by the port's writer, loaded on the card
+    and on the CPU: every quantized array byte-equal."""
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+    from fastforward_tpu_torch.serving.convert import params_to_flat
+    from fastforward_tpu_torch.serving.loader import load_llama, write_safetensors
+
+    config = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=2, num_kv_heads=1, head_dim=128)
+    gen = torch.Generator().manual_seed(9)
+    shapes = {"embed_tokens": (512, 256), "norm": (256,)}
+    for i in range(2):
+        p = f"layers.{i}."
+        shapes.update({p + "self_attn.q_proj": (256, 256), p + "self_attn.k_proj": (128, 256),
+                       p + "self_attn.v_proj": (128, 256), p + "self_attn.o_proj": (256, 256),
+                       p + "mlp.gate_proj": (512, 256), p + "mlp.up_proj": (512, 256),
+                       p + "mlp.down_proj": (256, 512), p + "input_layernorm": (256,),
+                       p + "post_attention_layernorm": (256,)})
+    tensors = {f"model.{k}.weight": (torch.randn(v, generator=gen) * 0.05).to(torch.bfloat16)
+               for k, v in shapes.items()}
+    tensors["lm_head.weight"] = (torch.randn((512, 256), generator=gen) * 0.05).to(torch.bfloat16)
+    write_safetensors(str(tmp_path / "m.safetensors"), tensors)
+    for mode in ("w8a8", "w4a8", "w4a16"):
+        a = params_to_flat(load_llama(str(tmp_path), config, mode, device=dev))
+        b = params_to_flat(load_llama(str(tmp_path), config, mode, device="cpu"))
+        assert set(a) == set(b)
+        for key in a:
+            assert a[key].tobytes() == b[key].tobytes(), (mode, key)
 
 
 # --- the float-scale modes (w8a8, w4a8, w4a16): W8A8 GEMM, W4A8 halves

@@ -37,7 +37,8 @@ def test_port_modules_import_no_jax():
     expected = sorted(m.name for m in pkgutil.walk_packages(
         fastforward_tpu_torch.__path__, "fastforward_tpu_torch."))
     for name in ("serving.stacked", "serving.sampling", "serving.paged", "serving.batching",
-                 "kernels.paged_attention", "kernels.matmul"):
+                 "serving.kv_cache", "serving.engine", "serving.loader",
+                 "kernels.paged_attention", "kernels.matmul", "kernels.kv_update"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -63,3 +64,5 @@ def test_build_table_covers_every_source():
             assert f'extern "C" int {fn}(' in text, (name, fn)
     assert "ff_w4a8_gemv_halves" in _build.SIGNATURES["w4a8_gemv"]
     assert "ff_dequant_halves" in _build.SIGNATURES["dequant"]
+    assert "ff_w4a8_gemv_unpaired" in _build.SIGNATURES["w4a8_gemv"]
+    assert "ff_flash_prefill_bf16" in _build.SIGNATURES["flash_prefill"]
