@@ -14,8 +14,11 @@ each raising on failure:
    bit-equal; the W4 GEMV within W4_GEMV_RTOL; flash decode (stacked,
    per-layer, paged) and flash prefill (int8 and bf16 K/V) within rtol
    8e-3 of the largest output;
-   the fused layer tail with x1 bit-equal, its int8 activations within one
-   level in a stated share of elements and its output within rtol 8e-3);
+   the fused layer tail and the fused o + gate/up head with x1 bit-equal,
+   their int8 activations within one level in a stated share of elements
+   and their output within rtol 8e-3; the fused layer heads (W4A8, A4) with
+   their activations within one level in that share and their output
+   within rtol 8e-3, bit-equality logged);
    print median times, device times, bounds and library times;
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
@@ -32,13 +35,21 @@ each raising on failure:
    (h) the per-layer path (`serving_forward` + `make_decode_loop` over a
        `KVCache`) in w4a8 g128 with an INT8 cache, bench.py's shape;
    (i) the per-layer path in w4a8_2l g128 (unpaired, as the JAX package's
-       `random_serving_params` makes it) with the default bf16 cache.
+       `random_serving_params` makes it) with the default bf16 cache;
+   (k) (a) with FF_FUSED_QKV=1: the fused A4 layer head;
+   (l) (b) with FF_FUSED_QKV=1 FF_FUSED_OGU=1: the fused W4A8 layer head
+       and the fused o + gate/up head of the tail (192 rows: past the
+       fused tail's 64), down_proj by the stacked GEMV.
+   The serving flags (FF_FUSED_QKV, FF_FUSED_OGU, FF_FUSED_LAYER) are unset
+   for every other run and set only around (k)'s and (l)'s.
    Each prints prefill ms, decode tok/s, peak memory and profiles of one
    decode step and one prefill. (h)'s weights also go through
    `stack_serving_layers` and the stacked forward, 8 prompts of 128 tokens
    and 32 steps, which must give the per-layer path's greedy tokens. Then,
    at depth 2 for every run but (c), the kernel path is compared with the
-   plain path on the card, 192 prompts of 128 tokens;
+   plain path on the card, 192 prompts of 128 tokens, under the run's flags;
+   and 8 prompts with FF_FUSED_LAYER=0 FF_FUSED_OGU=1 (the o + gate/up head
+   at 8 rows);
 4. engine — bench.py's continuous-batching workload (measure_engine with
    FF_BENCH_MODE=w4a8_2l FF_BENCH_ENGINE_PAGED=1 FF_BENCH_ENGINE_SAT=1,
    one pass): Llama-3-8B w4a8_2l g128 at full depth, 32 slots on the paged
@@ -103,6 +114,8 @@ LAYER_PROJ = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024), "o": (409
               "down": (14336, 4096)}  # (K, N) of one unfused Llama-3-8B layer
 VOCAB = 128256                   # Llama-3-8B's lm_head width
 BATCH, PROMPT, STEPS, SLAB = 192, 128, 32, 512   # bench.py's shape
+FLAGS_K = {"FF_FUSED_QKV": "1"}                          # run (k): the A4 layer head
+FLAGS_L = {"FF_FUSED_QKV": "1", "FF_FUSED_OGU": "1"}     # run (l): head and o + gate/up
 # bench.py's engine workload (measure_engine, FF_BENCH_ENGINE_PAGED=1,
 # FF_BENCH_ENGINE_SAT=1) at max_batch 32: 2 x 32 requests, pool of
 # int(32 * 2 * 0.6) + 1 pages of 256 tokens, bursts of 8
@@ -111,6 +124,16 @@ ENGINE_PAGES = int(ENGINE_SLOTS * 2 * 0.6) + 1
 ENGINE_PROMPTS = (16, 32, 64, 96)
 
 _LOG = {"file": None}
+
+# The serving flags the port reads (fastforward_tpu_torch/flags.py).
+FLAG_VARS = ("FF_FUSED_QKV", "FF_FUSED_OGU", "FF_FUSED_LAYER")
+
+
+def flag_env(**flags):
+    """The process environment with the serving flags set to ``flags`` and
+    the others unset, for the time of a ``with`` block."""
+    env = {k: v for k, v in os.environ.items() if k not in FLAG_VARS}
+    return mock.patch.dict(os.environ, {**env, **flags}, clear=True)
 
 
 def log(*args):
@@ -439,6 +462,8 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     rows.update(_layer_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
+    rows.update(_fused_route_kernels(dev, gen, randint))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -766,6 +791,112 @@ def _layer_kernels(dev, gen, randint):
     return rows
 
 
+def _level_check(diffs, name, a, b):
+    """Int8 (or int4) activations ``a`` of a kernel against ``b`` of its
+    plain version: within one level in at most TAIL_LEVEL_SHARE of the
+    elements; records (elements off, total) in ``diffs[name]``."""
+    d = (a.int() - b.int()).abs()
+    diffs[name] = (int(d.count_nonzero().item()), a.numel())
+    return d.max().item() <= 1 and diffs[name][0] <= TAIL_LEVEL_SHARE * a.numel()
+
+
+def _fused_route_kernels(dev, gen, randint):
+    """The kernels of the flag-gated fused decode routes at the 8B widths,
+    M = 192 (the JSON rows, bench.py's decode), 64 and 8, layer 1 of 2: the
+    fused W4A8 layer head (g128) and A4 layer head (g512), K = 4096, N =
+    6144; the fused o + gate/up head of the tail, K1 = H = 4096, gate/up
+    2 x 14336, g128. Held to the fused tail's policy (x1 bit-equal, the
+    activations one level off in at most TAIL_LEVEL_SHARE of the elements,
+    the outputs within rtol 8e-3); whether the heads' activations and
+    outputs came out bit-equal is logged. Library: for the heads, one
+    `torch.matmul` of the dequantized activations and weight (the product
+    alone); none for o + gate/up (two products)."""
+    from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles, unpack_mult_nibbles
+
+    L, eps = 2, 1e-5
+    K, N = PROJ["qkv"]
+    rows = {}
+    for name, a4, g in (("fused_norm_qkv", False, 128), ("fused_norm_qkv_a4", True, 512)):
+        w = randint(-128, 128, (L, K // 2, N))
+        mult = randint(1, 16, (L, K // g, N))
+        mp = pack_mult_nibbles(mult).contiguous()
+        s_col = torch.rand((L, N), generator=gen, device=dev) * 1e-3
+        norm = (torch.rand((L, K), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+        quant = mm.quantize_rowwise_a4 if a4 else mm.quantize_rowwise
+        if a4:
+            w_bf16 = mm.dequantize_int4_vertical_reference(w[1], mult[1].float() * s_col[1][None, :], g)
+        else:
+            w_bf16 = mm.dequantize_int4_paired_reference(w[1], mult[1].float() * s_col[1][None, :], g)
+        for M in (BATCH, 64, 8):
+            x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(torch.bfloat16)
+            diffs, exact = {}, {}
+
+            def plain(x=x):
+                h_q, h_s = mm._norm_quant(x, norm[1], eps, quant)
+                ref = (mm.matmul_w4a4_2l_reference if a4 else mm.matmul_w4a8_2l_reference)(
+                    h_q, h_s, w[1], mult[1], s_col[1], None, g, torch.float32)
+                return ref.to(torch.bfloat16), h_q, h_s
+
+            def check(out, ref, _d=diffs, _e=exact):
+                _e["bit-equal"] = all(torch.equal(a, b) for a, b in zip(out, ref))
+                ok = _level_check(_d, "hq", out[1], ref[1])
+                ok_y, err = within_rtol(out[0], ref[0])
+                return ok and ok_y, err
+
+            h_q, h_s = quant(x.float())
+            xb = (h_q.float() * h_s[:, None]).to(torch.bfloat16)
+            r = measure(
+                name, f"M={M} K={K} N={N} g={g}",
+                lambda x=x: mm._fused_head_launch(a4, x, norm, w, mp, s_col, 1, g, eps,
+                                                  torch.bfloat16),
+                plain, K * N // 2 + mp[1].numel() * 4 + N * 4 + K * 2 + M * K * 2 + M * N * 2,
+                2 * M * K * N, INT8_OPS_PER_S, check,
+                library=lambda xb=xb: torch.matmul(xb, w_bf16))
+            log(f"{name} M={M}: activations and output "
+                f"{'bit-equal' if exact['bit-equal'] else 'not bit-equal'} to the plain version; "
+                f"int{4 if a4 else 8} elements one level off: {diffs['hq'][0]} of {diffs['hq'][1]}; "
+                "library: torch.matmul of the dequantized operands (the product alone)")
+            if M == BATCH:
+                rows[name] = r
+        del w, mult, mp, w_bf16
+
+    H, inter, g = 4096, 14336, 128
+    ops, nbytes_w = [], 0
+    for Kp, Np in ((H, H), (H, 2 * inter)):
+        w = randint(-128, 128, (L, Kp // 2, Np))
+        mp = pack_mult_nibbles(randint(1, 16, (L, Kp // g, Np))).contiguous()
+        sc = torch.rand((L, Np), generator=gen, device=dev) * (4.0 / Kp)
+        ops += [w, mp, sc]
+        nbytes_w += Kp * Np // 2 + mp[1].numel() * 4 + Np * 4
+    norm = (torch.rand((L, H), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc = ops
+    layer_ops = (norm[1], o_w[1], unpack_mult_nibbles(o_mp[1], H // g), o_sc[1], gu_w[1],
+                 unpack_mult_nibbles(gu_mp[1], H // g), gu_sc[1])
+    for M in (BATCH, 64, 8):
+        attn = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+        x_res = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+        diffs = {}
+
+        def check(out, ref, _d=diffs):
+            ok = torch.equal(out[0], ref[0]) and _level_check(_d, "hq", out[2], ref[2])
+            ok_y, err = within_rtol(out[1], ref[1])
+            return ok and ok_y, err
+
+        r = measure(
+            "fused_o_gu", f"M={M} H={H} gate/up {2 * inter} g={g}",
+            lambda attn=attn, x_res=x_res: mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, eps),
+            lambda attn=attn, x_res=x_res: mm._fused_o_gu_parts(attn.float(), x_res.float(),
+                                                                *layer_ops, g, eps),
+            nbytes_w + H * 2 + M * H * 2 * 2 + M * H * 4 + M * 2 * inter * 2,
+            2 * M * (H * H + H * 2 * inter), INT8_OPS_PER_S, check)
+        log(f"fused_o_gu M={M}: x1 bit-equal; int8 elements one level off: "
+            f"{diffs['hq'][0]} of {diffs['hq'][1]}")
+        if M == BATCH:
+            rows["fused_o_gu"] = r
+    return rows
+
+
 def _plain_versions():
     """(patch target, plain version, check) of every kernel wrapper the
     serving path calls, under the name that `engine`/`stacked` import."""
@@ -821,6 +952,24 @@ def _plain_versions():
             attn.float(), x_res.float(), *mm._fused_o_mlp_layer(norm_w, *w, layer, group_size),
             group_size, eps).to(attn.dtype)
 
+    def head(reference):
+        def plain(x, norm_w, w, mp, s_col, layer, group_size, eps):
+            return reference(x.float(), norm_w[layer], w[layer],
+                             unpack_mult_nibbles(mp[layer], x.shape[1] // group_size),
+                             s_col[layer], group_size, eps).to(torch.bfloat16)
+        return plain
+
+    def o_gu(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer, group_size, eps):
+        g = group_size
+        return mm.fused_o_gu_reference(
+            attn.float(), x_res.float(), norm_w[layer], o_w[layer],
+            unpack_mult_nibbles(o_mp[layer], o_w.shape[1] * 2 // g), o_sc[layer], gu_w[layer],
+            unpack_mult_nibbles(gu_mp[layer], gu_w.shape[1] * 2 // g), gu_sc[layer], g, eps)
+
+    def o_gu_check(out, ref):
+        ok, err = within_rtol(out[1], ref[1])
+        return ok and torch.equal(out[0], ref[0]), err
+
     eng, stk = "fastforward_tpu_torch.serving.engine", "fastforward_tpu_torch.serving.stacked"
     kvc = "fastforward_tpu_torch.serving.kv_cache"
     mmod = "fastforward_tpu_torch.kernels.matmul"  # the names matmul_w4a8 / _w4a16 route to
@@ -845,6 +994,9 @@ def _plain_versions():
         (f"{stk}.paged_kv_append_decode_int8", pa.paged_kv_append_reference, None),
         (f"{stk}.paged_flash_decode_int8", paged_flash, within_rtol),
         (f"{stk}.fused_o_mlp_stacked", fused_tail, within_rtol),
+        (f"{stk}.fused_norm_qkv_stacked", head(mm.fused_norm_qkv_reference), within_rtol),
+        (f"{stk}.fused_norm_qkv_stacked_a4", head(mm.fused_norm_qkv_a4_reference), within_rtol),
+        (f"{stk}.fused_o_gu_stacked", o_gu, o_gu_check),
         (f"{kvc}.kv_append_decode_int8", layer_append, "layer_append"),
     ]
 
@@ -999,7 +1151,7 @@ def _serve(path, ids, steps, dev):
 PORT_KERNELS = ("gemv_partial_kernel", "gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
                 "flash_prefill_kernel", "fused_tail_kernel", "w8a8_kernel",
-                "w4a8_halves_kernel", "w4_gemv_kernel")
+                "w4a8_halves_kernel", "w4_gemv_kernel", "norm_quant_kernel")
 
 
 def _report_profile(what, wall_ms, rows, top=10):
@@ -1223,14 +1375,34 @@ def phase_serve(dev):
         "(i)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
         {"dequant_halves": 7 * L, "w4a8_gemv_unpaired": layer_decode, "flash_prefill_bf16": L},
         kv="bf16")
-    for mode, g, run, kv in (("w4a4_2l", 512, "a", None), ("w4a8_2l", 128, "b", None),
-                             ("w4a8", 128, "e", None), ("w4a16", 128, "f", None),
-                             ("w8a8", 128, "g", None), ("w4a8", 128, "h", "int8"),
-                             ("w4a8_2l", 128, "i", "bf16")):
-        launched = compare_paths(config, mode, g, dev, kv=kv)
+    # the flag-gated fused routes (k) and (l), each with its flags set only
+    # around its runs
+    with flag_env(**FLAGS_K):
+        runs["k"] = serve_run(
+            "(k)", config, "w4a4_2l", 512, BATCH, PROMPT, STEPS, dev,
+            {"dequant_vertical": 4 * L, "fused_norm_qkv_a4": L * STEPS,
+             "a4_gemv": 3 * L * STEPS, **shared})
+    with flag_env(**FLAGS_L):
+        runs["l"] = serve_run(
+            "(l)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
+            {"dequant_paired": 4 * L, "fused_norm_qkv": L * STEPS, "fused_o_gu": L * STEPS,
+             "w4a8_gemv_stacked": L * STEPS, **shared})
+    for mode, g, run, kv, flags in (
+            ("w4a4_2l", 512, "a", None, {}), ("w4a8_2l", 128, "b", None, {}),
+            ("w4a8", 128, "e", None, {}), ("w4a16", 128, "f", None, {}),
+            ("w8a8", 128, "g", None, {}), ("w4a8", 128, "h", "int8", {}),
+            ("w4a8_2l", 128, "i", "bf16", {}), ("w4a4_2l", 512, "k", None, FLAGS_K),
+            ("w4a8_2l", 128, "l", None, FLAGS_L)):
+        with flag_env(**flags):
+            launched = compare_paths(config, mode, g, dev, kv=kv)
         if launched != set(runs[run]["counts"]):
             raise AssertionError(f"{mode}: the checked run launched {sorted(launched)}, the main "
                                  f"path {sorted(runs[run]['counts'])}")
+    # the o + gate/up head at 8 rows, where the fused tail is switched off
+    with flag_env(FF_FUSED_LAYER="0", FF_FUSED_OGU="1"):
+        launched = compare_paths(config, "w4a8_2l", 128, dev, batch=8)
+    if "fused_o_gu" not in launched or "fused_o_mlp" in launched:
+        raise AssertionError(f"FF_FUSED_LAYER=0 FF_FUSED_OGU=1 at 8 rows launched {sorted(launched)}")
     return runs
 
 
@@ -1493,6 +1665,12 @@ SOURCES = {
                            "fastforward_tpu/kernels/attention.py:971 (bf16 KV branch)"),
     "w4a8_gemv_unpaired": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
                            "fastforward_tpu/kernels/matmul.py:571 (unpaired kernel :479)"),
+    "fused_norm_qkv": ("fastforward_tpu_torch/csrc/fused_head.cu",
+                       "fastforward_tpu/kernels/matmul.py:2615 (kernel :2436)"),
+    "fused_norm_qkv_a4": ("fastforward_tpu_torch/csrc/fused_head.cu",
+                          "fastforward_tpu/kernels/matmul.py:2539 (kernel :2485)"),
+    "fused_o_gu": ("fastforward_tpu_torch/csrc/fused_tail.cu",
+                   "fastforward_tpu/kernels/matmul.py:2118 (kernel :2051)"),
 }
 
 
@@ -1521,17 +1699,18 @@ def main():
         log(f"phase {name}: {phases[name]:.1f} s")
         return result
 
-    timed("build", phase_build)
-    rows = timed("kernels", phase_kernels, dev)
-    runs = timed("serve", phase_serve, dev)
-    runs["engine"] = timed("engine", phase_engine, dev)
-    runs["j"] = timed("loader", phase_loader, dev)
+    with flag_env():  # no serving flag set, but where a run sets its own
+        timed("build", phase_build)
+        rows = timed("kernels", phase_kernels, dev)
+        runs = timed("serve", phase_serve, dev)
+        runs["engine"] = timed("engine", phase_engine, dev)
+        runs["j"] = timed("loader", phase_loader, dev)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "h", "i",
-                                                            "engine")
+                                                            "engine", "k", "l")
                          if runs[k]["counts"].get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,

@@ -1,9 +1,16 @@
 // Fused W4A8 layer tail: o_proj + residual + RMSNorm + int8 requant +
-// gate/up + SiLU + requant + down + residual, in one cooperative launch.
+// gate/up + SiLU + requant + down + residual, in one cooperative launch;
+// and its head alone, o_proj through gate/up (ff_fused_o_gu).
 //
 // Replaces: fastforward_tpu/kernels/matmul.py fused_o_mlp_stacked (:2298,
 // body _fused_o_mlp_kernel :1959); held against fused_o_mlp_reference
-// (:2263). Per row m of the decode batch (M <= 64 on the serving path):
+// (:2263). And fused_o_gu_stacked (:2118, body _fused_o_gu_kernel :2051;
+// oracle fused_o_gu_reference :2241): the same kernel through phase GU,
+// which then writes x1 and bf16 gu and stops (the GU_ONLY template flag);
+// its x1 takes the o_proj epilogue's last product and the residual add as
+// one fused multiply-add, as the jitted oracle computes it. The serving
+// path runs it where the full tail is not taken, up to 256 rows. Per row m
+// of the decode batch (M <= 64 for the full tail on the serving path):
 //   x1 = x_res + o(quant(attn))                       f32
 //   h  = x1 * rsqrt(mean(x1^2) + eps) * w_norm
 //   gu = bf16(gateup(quant(h)))
@@ -41,7 +48,10 @@
 //   DN   GEMV tiles of down on x2
 //   E6   y = x1 + epilogue
 // Intermediates live in one global scratch the wrapper allocates (~5.6 MB
-// at M = 64, held in the 50 MB L2). Row reductions never use float
+// at M = 64, held in the 50 MB L2; for the o + gate/up head at M = 192 the
+// gate/up partials alone are 22 MB per K split). The grid and the per-row
+// shared memory (8 bytes a row) take any M the launch's memory holds; the
+// launch refuses a shape whose tile does not fit an SM. Row reductions never use float
 // atomics: every block reads the per-chunk partials in the same order, so
 // the result does not change from run to run. IEEE functions only
 // (expf, __frsqrt_rn, __fdiv_rn), no fast-math intrinsics.
@@ -80,7 +90,7 @@ struct TailArgs {
   float* red_a;      // (M, max chunks) row partials
   float* red_b;
   float* scales;     // (2, M): s_h, s_g
-  void* out;         // (M, H) f32 or bf16
+  void* out;         // (M, H) f32 or bf16; GU_ONLY: gu (M, 2I) bf16
   int M, K1, H, I, group, split_o, split_gu, split_dn, out_bf16;
   float eps;
 };
@@ -148,79 +158,14 @@ __device__ __forceinline__ float row_scale(float amax) {
   return fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
 }
 
-__global__ void __launch_bounds__(ff::kThreads) fused_tail_kernel(TailArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
+// Phases E4, E5, DN and E6 of the full tail (after GU), on the grid of
+// fused_tail_kernel.
+__device__ void mlp_down_phases(const TailArgs& a, cg::grid_group& grid, unsigned char* smem,
+                                float* row_b) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gw = blockIdx.x * ff::kWarps + warp, nw = gridDim.x * ff::kWarps;
   const int M = a.M, H = a.H, I = a.I;
-  const int nck_h = (H + kChunk - 1) / kChunk, nck_i = (I + kChunk - 1) / kChunk;
-  float* row_a = reinterpret_cast<float*>(smem);  // (M,) per-row values between phases
-  float* row_b = row_a + M;
-
-  // O: o_proj partials
-  gemv_phase(a.xq, a.o_w, a.o_m, a.partial, M, a.K1, H, a.group, a.split_o, smem);
-  grid.sync();
-
-  // E1: x1 and per-chunk sums of squares
-  for (int item = gw; item < M * nck_h; item += nw) {
-    const int m = item / nck_h, c = item % nck_h;
-    const int n0 = c * kChunk + lane * 4;
-    float sq = 0.f;
-    if (n0 < H) {
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + j;
-        const int acc = sum_splits(a.partial, a.split_o, M, H, m, n);
-        const float x1 = __fadd_rn(__bfloat162float(a.x_res[(size_t)m * H + n]),
-                                   epi(acc, a.o_s[n], a.xs[m]));
-        a.x1[(size_t)m * H + n] = x1;
-        sq = __fadd_rn(sq, __fmul_rn(x1, x1));
-      }
-    }
-    sq = warp_sum(sq);
-    if (lane == 0) a.red_a[(size_t)m * nck_h + c] = sq;
-  }
-  grid.sync();
-
-  // E2: inv per row; h and per-chunk amax |h|
-  row_totals<false>(a.red_a, M, nck_h, row_a);
-  for (int m = threadIdx.x; m < M; m += blockDim.x)
-    row_a[m] = __frsqrt_rn(__fadd_rn(__fdiv_rn(row_a[m], (float)H), a.eps));
-  __syncthreads();
-  for (int item = gw; item < M * nck_h; item += nw) {
-    const int m = item / nck_h, c = item % nck_h;
-    const int n0 = c * kChunk + lane * 4;
-    float mx = 0.f;
-    if (n0 < H) {
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + j;
-        const float h = __fmul_rn(__fmul_rn(a.x1[(size_t)m * H + n], row_a[m]),
-                                  __bfloat162float(a.norm_w[n]));
-        mx = fmaxf(mx, fabsf(h));
-      }
-    }
-    mx = warp_max(mx);
-    if (lane == 0) a.red_b[(size_t)m * nck_h + c] = mx;
-  }
-  grid.sync();
-
-  // E3: s_h per row; hq (row_a still holds inv)
-  row_totals<true>(a.red_b, M, nck_h, row_b);
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    row_b[m] = row_scale(row_b[m]);
-    if (blockIdx.x == 0) a.scales[m] = row_b[m];
-  }
-  __syncthreads();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < M * H; i += gridDim.x * blockDim.x) {
-    const int m = i / H, n = i % H;
-    const float h = __fmul_rn(__fmul_rn(a.x1[i], row_a[m]), __bfloat162float(a.norm_w[n]));
-    a.hq[i] = quant8(h, row_b[m]);
-  }
-  grid.sync();
-
-  // GU: gate/up partials on hq
-  gemv_phase(a.hq, a.gu_w, a.gu_m, a.partial, M, H, 2 * I, a.group, a.split_gu, smem);
-  grid.sync();
+  const int nck_i = (I + kChunk - 1) / kChunk;
 
   // E4: bf16 gate/up, SiLU-gated product and per-chunk amax
   for (int item = gw; item < M * nck_i; item += nw) {
@@ -273,11 +218,103 @@ __global__ void __launch_bounds__(ff::kThreads) fused_tail_kernel(TailArgs a) {
   }
 }
 
+template <bool GU_ONLY>
+__global__ void __launch_bounds__(ff::kThreads) fused_tail_kernel(TailArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gw = blockIdx.x * ff::kWarps + warp, nw = gridDim.x * ff::kWarps;
+  const int M = a.M, H = a.H, I = a.I;
+  const int nck_h = (H + kChunk - 1) / kChunk;
+  float* row_a = reinterpret_cast<float*>(smem);  // (M,) per-row values between phases
+  float* row_b = row_a + M;
+
+  // O: o_proj partials
+  gemv_phase(a.xq, a.o_w, a.o_m, a.partial, M, a.K1, H, a.group, a.split_o, smem);
+  grid.sync();
+
+  // E1: x1 and per-chunk sums of squares
+  for (int item = gw; item < M * nck_h; item += nw) {
+    const int m = item / nck_h, c = item % nck_h;
+    const int n0 = c * kChunk + lane * 4;
+    float sq = 0.f;
+    if (n0 < H) {
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + j;
+        const int acc = sum_splits(a.partial, a.split_o, M, H, m, n);
+        const float res = __bfloat162float(a.x_res[(size_t)m * H + n]);
+        const float x1 =
+            GU_ONLY ? __fmaf_rn(__fmul_rn(__int2float_rn(acc), a.o_s[n]), a.xs[m], res)
+                    : __fadd_rn(res, epi(acc, a.o_s[n], a.xs[m]));
+        a.x1[(size_t)m * H + n] = x1;
+        sq = __fadd_rn(sq, __fmul_rn(x1, x1));
+      }
+    }
+    sq = warp_sum(sq);
+    if (lane == 0) a.red_a[(size_t)m * nck_h + c] = sq;
+  }
+  grid.sync();
+
+  // E2: inv per row; h and per-chunk amax |h|
+  row_totals<false>(a.red_a, M, nck_h, row_a);
+  for (int m = threadIdx.x; m < M; m += blockDim.x)
+    row_a[m] = __frsqrt_rn(__fadd_rn(__fdiv_rn(row_a[m], (float)H), a.eps));
+  __syncthreads();
+  for (int item = gw; item < M * nck_h; item += nw) {
+    const int m = item / nck_h, c = item % nck_h;
+    const int n0 = c * kChunk + lane * 4;
+    float mx = 0.f;
+    if (n0 < H) {
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + j;
+        const float h = __fmul_rn(__fmul_rn(a.x1[(size_t)m * H + n], row_a[m]),
+                                  __bfloat162float(a.norm_w[n]));
+        mx = fmaxf(mx, fabsf(h));
+      }
+    }
+    mx = warp_max(mx);
+    if (lane == 0) a.red_b[(size_t)m * nck_h + c] = mx;
+  }
+  grid.sync();
+
+  // E3: s_h per row; hq (row_a still holds inv)
+  row_totals<true>(a.red_b, M, nck_h, row_b);
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    row_b[m] = row_scale(row_b[m]);
+    if (blockIdx.x == 0) a.scales[m] = row_b[m];
+  }
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < M * H; i += gridDim.x * blockDim.x) {
+    const int m = i / H, n = i % H;
+    const float h = __fmul_rn(__fmul_rn(a.x1[i], row_a[m]), __bfloat162float(a.norm_w[n]));
+    a.hq[i] = quant8(h, row_b[m]);
+  }
+  grid.sync();
+
+  // GU: gate/up partials on hq
+  gemv_phase(a.hq, a.gu_w, a.gu_m, a.partial, M, H, 2 * I, a.group, a.split_gu, smem);
+  grid.sync();
+
+  if constexpr (GU_ONLY) {
+    // EGU: gu = bf16(epilogue), and stop
+    __nv_bfloat16* gu = static_cast<__nv_bfloat16*>(a.out);
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < M * 2 * I;
+         i += gridDim.x * blockDim.x) {
+      const int m = i / (2 * I), n = i % (2 * I);
+      const int acc = sum_splits(a.partial, a.split_gu, M, 2 * I, m, n);
+      gu[i] = __float2bfloat16_rn(epi(acc, a.gu_s[n], a.scales[m]));
+    }
+  } else {
+    mlp_down_phases(a, grid, smem, row_b);
+  }
+}
+
 // Blocks of the persistent grid on device `dev` at `smem` bytes of dynamic
 // shared memory: (resident blocks per SM) x SMs. The attribute setting and
 // the occupancy query run once per (device, smem); a decode step launches
 // the tail once per layer with the same few keys. The attribute only ever
 // grows, so a smaller size cached earlier stays launchable.
+template <bool GU_ONLY>
 cudaError_t grid_blocks(int dev, size_t smem, int* blocks) {
   struct Entry {
     int dev;
@@ -298,20 +335,47 @@ cudaError_t grid_blocks(int dev, size_t smem, int* blocks) {
   cudaError_t err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem > attr_bytes[dev]) {
-    err = cudaFuncSetAttribute(fused_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(fused_tail_kernel<GU_ONLY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     attr_bytes[dev] = smem;
   }
   int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel, ff::kThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel<GU_ONLY>,
+                                                      ff::kThreads, smem);
   if (err != cudaSuccess) return err;
   *blocks = per_sm * sms;
   if (n_cached < kMaxEntries) cache[n_cached++] = {dev, smem, *blocks};
   return cudaSuccess;
+}
+
+// Dynamic shared memory (the largest GEMV tile of the products run, and
+// two floats per row between the elementwise phases), the persistent grid,
+// and the cooperative launch. Products: o, gu and, unless GU_ONLY, dn.
+template <bool GU_ONLY>
+cudaError_t launch_tail(TailArgs& a, cudaStream_t stream) {
+  size_t smem = 2 * sizeof(float) * (size_t)a.M;
+  const int ks[3] = {a.K1, a.H, a.I}, splits[3] = {a.split_o, a.split_gu, a.split_dn};
+  for (int i = 0; i < (GU_ONLY ? 2 : 3); ++i) {
+    const int n_units = ks[i] / (2 * a.group);
+    const int ups = (n_units + splits[i] - 1) / splits[i];
+    const size_t t = ff::gemv_smem_bytes(ups * a.group, ups);
+    if (t > smem) smem = t;
+  }
+  if (smem > 232448) return cudaErrorInvalidConfiguration;  // above an H100 block's 227 KB
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  if ((err = grid_blocks<GU_ONLY>(dev, smem, &blocks)) != cudaSuccess) return err;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_tail_kernel<GU_ONLY>),
+                                    dim3(blocks), dim3(ff::kThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -364,27 +428,44 @@ extern "C" int ff_fused_o_mlp(const void* xq, const void* xs, const void* x_res,
   a.split_dn = split_dn;
   a.out_bf16 = out_bf16;
   a.eps = eps;
+  return launch_tail<false>(a, static_cast<cudaStream_t>(stream));
+}
 
-  // Dynamic shared memory: the largest GEMV tile of the three products,
-  // and two floats per row between the elementwise phases.
-  size_t smem = 2 * sizeof(float) * (size_t)M;
-  const int ks[3] = {K1, H, I}, splits[3] = {split_o, split_gu, split_dn};
-  for (int i = 0; i < 3; ++i) {
-    const int n_units = ks[i] / (2 * group);
-    const int ups = (n_units + splits[i] - 1) / splits[i];
-    const size_t t = ff::gemv_smem_bytes(ups * group, ups);
-    if (t > smem) smem = t;
-  }
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  if ((err = grid_blocks(dev, smem, &blocks)) != cudaSuccess) return err;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_tail_kernel),
-                                    dim3(blocks), dim3(ff::kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+// The o + gate/up head: o (L, K1/2, H), gu (L, H/2, 2I); scratch partial,
+// hq, red_a, red_b, scales (2, M); outputs x1 (M, H) f32 and gu (M, 2I)
+// bf16. Errors as ff_fused_o_mlp.
+extern "C" int ff_fused_o_gu(const void* xq, const void* xs, const void* x_res,
+                             const void* norm_w, const void* o_w, const void* o_m,
+                             const void* o_s, const void* gu_w, const void* gu_m,
+                             const void* gu_s, void* partial, void* hq, void* red_a, void* red_b,
+                             void* scales, void* x1, void* gu, int M, int K1, int H, int I,
+                             int layer, int group, int n_pack_o, int n_pack_gu, int split_o,
+                             int split_gu, float eps, void* stream) {
+  TailArgs a = {};
+  a.xq = static_cast<const int8_t*>(xq);
+  a.xs = static_cast<const float*>(xs);
+  a.x_res = static_cast<const __nv_bfloat16*>(x_res);
+  a.norm_w = static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H;
+  a.o_w = static_cast<const int8_t*>(o_w) + (size_t)layer * (K1 / 2) * H;
+  a.o_m = static_cast<const int32_t*>(o_m) + (size_t)layer * n_pack_o * H;
+  a.o_s = static_cast<const float*>(o_s) + (size_t)layer * H;
+  a.gu_w = static_cast<const int8_t*>(gu_w) + (size_t)layer * (H / 2) * (2 * I);
+  a.gu_m = static_cast<const int32_t*>(gu_m) + (size_t)layer * n_pack_gu * (2 * I);
+  a.gu_s = static_cast<const float*>(gu_s) + (size_t)layer * (2 * I);
+  a.partial = static_cast<int32_t*>(partial);
+  a.x1 = static_cast<float*>(x1);
+  a.hq = static_cast<int8_t*>(hq);
+  a.red_a = static_cast<float*>(red_a);
+  a.red_b = static_cast<float*>(red_b);
+  a.scales = static_cast<float*>(scales);
+  a.out = gu;
+  a.M = M;
+  a.K1 = K1;
+  a.H = H;
+  a.I = I;
+  a.group = group;
+  a.split_o = split_o;
+  a.split_gu = split_gu;
+  a.eps = eps;
+  return launch_tail<true>(a, static_cast<cudaStream_t>(stream));
 }

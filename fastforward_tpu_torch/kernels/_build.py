@@ -33,7 +33,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "fastforward_tpu_torch"
 
 SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill",
-           "fused_tail", "w8a8_gemm", "w4_gemv")
+           "fused_tail", "w8a8_gemm", "w4_gemv", "fused_head")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -101,6 +101,16 @@ SIGNATURES = {
         # H, I, L, layer, group, n_pack_o, n_pack_gu, n_pack_dn, split_o,
         # split_gu, split_dn, eps, out_bf16, stream
         "ff_fused_o_mlp": [P] * 22 + [I] * 13 + [F, I, P],
+        # xq, xs, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, partial, hq,
+        # red_a, red_b, scales, x1, gu, M, K1, H, I, layer, group, n_pack_o,
+        # n_pack_gu, split_o, split_gu, eps, stream
+        "ff_fused_o_gu": [P] * 17 + [I] * 10 + [F, P],
+    },
+    "fused_head": {
+        # x, norm_w, w, mult_packed, s_col, hq, hs, partial, out, M, K, N,
+        # layer, group, n_pack, n_split, inv_k, eps, out_bf16, stream
+        "ff_fused_norm_qkv": [P] * 9 + [I] * 7 + [F, F, I, P],
+        "ff_fused_norm_qkv_a4": [P] * 9 + [I] * 7 + [F, F, I, P],
     },
     "w8a8_gemm": {
         # x, xs, w, ws, bias (or NULL), out, M, K, N, out_bf16, stream

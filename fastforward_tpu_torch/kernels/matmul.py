@@ -1,12 +1,13 @@
 """The quantized matmuls of `fastforward_tpu/kernels/matmul.py`: the
 two-level int4 GEMVs, the float-scale W8A8, W4A8 and W4A16 products, the
-prefill dequant and the fused W4A8 layer tail.
+prefill dequant, the fused W4A8 layer tail and its o + gate/up head, and
+the fused layer heads.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs
 the plain PyTorch version beside it (the port of the JAX oracle), a CUDA
 tensor launches the hand-written kernel (`csrc/a4_gemv.cu`,
 `csrc/w4a8_gemv.cu`, `csrc/w4_gemv.cu`, `csrc/w8a8_gemm.cu`,
-`csrc/dequant.cu`, `csrc/fused_tail.cu`) or raises. There is no fallback
+`csrc/dequant.cu`, `csrc/fused_tail.cu`, `csrc/fused_head.cu`) or raises. There is no fallback
 from one to the other. `matmul_w4a8` and `matmul_w4a16` take the JAX
 package's TPU routing: a GEMV up to `GEMV_MAX_M` rows, else the dequant
 and a dense product.
@@ -121,19 +122,25 @@ def _epilogue(acc, s_col, x_scale, bias, out_dtype):
     return out.to(out_dtype)
 
 
+def _w4a8_2l_dot(x_q, w_packed, mult, group_size, paired):
+    """The two-level W4A8 integer product (M, N), as float32."""
+    K = x_q.shape[1]
+    N = w_packed.shape[1]
+    n_groups = K // group_size
+    unpack = unpack_uint4_offset_paired if paired else unpack_uint4_offset
+    v = unpack(w_packed, group_size).reshape(n_groups, group_size, N)
+    w8 = (v.to(torch.int32) * mult.to(torch.int32)[:, None, :]).reshape(K, N)
+    return _int_dot(x_q, w8)
+
+
 def matmul_w4a8_2l_reference(x_q, x_scale, w_packed, mult, s_col, bias=None,
                              group_size: int = 128, out_dtype=torch.bfloat16,
                              paired: Optional[bool] = None):
     """Oracle: integer math end to end, one float scaling (`matmul.py:444`)."""
-    M, K = x_q.shape
-    N = w_packed.shape[1]
-    n_groups = K // group_size
     if paired is None:
-        paired = _paired_default(n_groups)
-    unpack = unpack_uint4_offset_paired if paired else unpack_uint4_offset
-    v = unpack(w_packed, group_size).reshape(n_groups, group_size, N)
-    w8 = (v.to(torch.int32) * mult.to(torch.int32)[:, None, :]).reshape(K, N)
-    return _epilogue(_int_dot(x_q, w8), s_col, x_scale, bias, out_dtype)
+        paired = _paired_default(x_q.shape[1] // group_size)
+    return _epilogue(_w4a8_2l_dot(x_q, w_packed, mult, group_size, paired), s_col, x_scale,
+                     bias, out_dtype)
 
 
 def matmul_w4a4_2l_reference(x_q, x_scale, w_packed, mult, s_col, bias=None,
@@ -530,25 +537,21 @@ def _fma_f32(a, b, c):
     return torch.where(even, bits + toward, bits).view(torch.float64).float()
 
 
-def _window_sum(terms):
-    """Sum of f32 tensors as XLA's CPU tree-reduction rewrite orders it:
-    up to 32 terms in order from +0; more are padded with zeros to a
-    multiple of 32 (the smaller half of the padding in front), each window
-    of 32 summed in order, then the window sums the same way."""
-    n = len(terms)
-    if n <= _SUM_WINDOW:
-        acc = torch.zeros_like(terms[0])
-        for t in terms:
-            acc = acc + t
-        return acc
-    lo = (-(-n // _SUM_WINDOW) * _SUM_WINDOW - n) // 2
-    windows, acc = [], torch.zeros_like(terms[0])
-    for i, t in enumerate(terms):
-        if i > 0 and (i + lo) % _SUM_WINDOW == 0:
-            windows.append(acc)
-            acc = torch.zeros_like(terms[0])
-        acc = acc + t
-    return _window_sum(windows + [acc])
+def _window_sum(t):
+    """Sum of f32 ``t`` over its last axis as XLA's CPU tree-reduction
+    rewrite orders it: up to 32 terms in order from +0; more are padded
+    with zeros to a multiple of 32 (the smaller half of the padding in
+    front), each window of 32 summed in order, then the window sums the
+    same way."""
+    n = t.shape[-1]
+    if n > _SUM_WINDOW:
+        pad = -(-n // _SUM_WINDOW) * _SUM_WINDOW - n
+        t = torch.nn.functional.pad(t, (pad // 2, pad - pad // 2))
+        t = t.reshape(*t.shape[:-1], -1, _SUM_WINDOW)
+    acc = torch.zeros_like(t[..., 0])
+    for i in range(t.shape[-1]):
+        acc = acc + t[..., i]
+    return acc if n <= _SUM_WINDOW else _window_sum(acc)
 
 
 def _group_sum(gdots, scales):
@@ -564,7 +567,7 @@ def _group_sum(gdots, scales):
             acc = torch.zeros_like(gd) if acc is None else acc
             acc = _fma_f32(gd, scales[g][None, :].expand_as(gd), acc)
         return acc
-    return _window_sum([gd * scales[g][None, :] for g, gd in enumerate(gdots)])
+    return _window_sum(torch.stack([gd * scales[g][None, :] for g, gd in enumerate(gdots)], -1))
 
 
 def matmul_w8a8_reference(x_q, x_scale, w_q, w_scale, bias=None, out_dtype=torch.bfloat16):
@@ -780,34 +783,73 @@ def fused_o_mlp_reference(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, 
                               dn_s, group_size, eps)[0]
 
 
+def _layer_mult(mp, w, layer, group_size):
+    """Layer ``layer``'s multipliers of stacked weights ``w`` (L, K//2, N),
+    unpacked from ``mp`` to the group count of w's own K."""
+    return unpack_mult_nibbles(mp[layer], w.shape[1] * 2 // group_size)
+
+
 def _fused_o_mlp_layer(norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp, dn_sc, layer,
                        group_size):
     """Layer ``layer`` of the stacked operands, multipliers unpacked (each
     to its own K's group count: the JAX CPU path unpacks gate/up's with
     o_proj's, which holds only where the attention width equals H)."""
-    def groups(w):
-        return w.shape[1] * 2 // group_size
-    return (norm_w[layer], o_w[layer], unpack_mult_nibbles(o_mp[layer], groups(o_w)),
-            o_sc[layer], gu_w[layer], unpack_mult_nibbles(gu_mp[layer], groups(gu_w)),
-            gu_sc[layer], dn_w[layer], unpack_mult_nibbles(dn_mp[layer], groups(dn_w)),
-            dn_sc[layer])
+    g = group_size
+    return (norm_w[layer], o_w[layer], _layer_mult(o_mp, o_w, layer, g), o_sc[layer],
+            gu_w[layer], _layer_mult(gu_mp, gu_w, layer, g), gu_sc[layer], dn_w[layer],
+            _layer_mult(dn_mp, dn_w, layer, g), dn_sc[layer])
 
 
 @functools.lru_cache(maxsize=64)
-def _fused_o_mlp_layout(M, K1, H, I, g):
-    """K splits of the three products and the scratch layout of one fused
-    tail launch: (splits, byte sizes, byte offsets, total bytes), each
-    region 256-byte aligned, in the argument order of `ff_fused_o_mlp`."""
-    splits = tuple(gemv_split(M, N, K // (2 * g), g) for K, N in ((K1, H), (H, 2 * I), (I, H)))
-    n_chunks = -(-max(H, I) // 128)
-    sizes = {"partial": 4 * max(s * M * N for s, N in zip(splits, (H, 2 * I, H))),
-             "x1": 4 * M * H, "hq": M * H, "gated": 4 * M * I, "x2": M * I,
-             "red_a": 4 * M * n_chunks, "red_b": 4 * M * n_chunks, "scales": 4 * 2 * M}
+def _fused_layout(M, g, shapes, regions):
+    """K splits of the products ``shapes`` ((K, N), ...) of one
+    `csrc/fused_tail.cu` launch and its scratch layout: the split partials,
+    then ``regions`` ((name, bytes), ...) in the argument order of its C
+    entry, each 256-byte aligned. Returns (splits, byte sizes, byte
+    offsets, total bytes)."""
+    splits = tuple(gemv_split(M, N, K // (2 * g), g) for K, N in shapes)
+    sizes = {"partial": 4 * max(s * M * N for s, (_, N) in zip(splits, shapes)), **dict(regions)}
     offsets, total = {}, 0
     for name, size in sizes.items():
         offsets[name] = total
         total += -(-size // 256) * 256
     return splits, sizes, offsets, total
+
+
+def _check_tail(attn, x_res, norm_w, products, layer, g):
+    """Check the operands of a `csrc/fused_tail.cu` launch; ``products``:
+    (name, w, mp, sc, K, N) of each product it runs."""
+    M, K1 = attn.shape
+    L, H = norm_w.shape
+    dev = attn.device
+    _build.require(attn, "attn", attn.dtype, (M, K1), dev)
+    _build.require(x_res, "x_res", torch.bfloat16, (M, H), dev)
+    _build.require(norm_w, "norm_w", torch.bfloat16, (L, H), dev)
+    if attn.dtype not in (torch.float32, torch.bfloat16) or g % 4 != 0 \
+            or not 0 <= layer < L or M < 1:
+        raise ValueError(
+            f"fused tail kernel needs f32 or bf16 attn, group % 4 == 0 and a valid layer "
+            f"(attn={attn.dtype}, group={g}, layer={layer})"
+        )
+    for name, w, mp, sc, K, N in products:
+        _build.require(w, f"{name}_w", torch.int8, (L, K // 2, N), dev)
+        _build.require(mp, f"{name}_mp", torch.int32, (L, mp.shape[1], N), dev)
+        _build.require(sc, f"{name}_sc", torch.float32, (L, N), dev)
+        if K % (2 * g) != 0 or mp.shape[1] * 8 < K // g or N % 4 != 0:
+            raise ValueError(f"fused tail: {name} needs K % (2 * group) == 0, a full "
+                             f"multiplier pack and N % 4 == 0 (K={K}, N={N}, group={g})")
+
+
+def _scratch(layout, dev):
+    """One scratch buffer of a fused launch: ({region: pointer},
+    view(region, dtype, shape)); the view function holds the buffer."""
+    _, sizes, offsets, total = layout
+    scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
+
+    def view(name, dtype, shape):
+        return scratch[offsets[name]:offsets[name] + sizes[name]].view(dtype).view(shape)
+
+    return {name: scratch.data_ptr() + off for name, off in offsets.items()}, view
 
 
 def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
@@ -817,51 +859,32 @@ def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
     layer = int(layer)
     M, K1 = attn.shape
     L, _, H = o_w.shape
-    N_GU = gu_w.shape[2]
-    I = N_GU // 2
+    I = gu_w.shape[2] // 2
     dev = attn.device
     g = group_size
-    _build.require(attn, "attn", attn.dtype, (M, K1), dev)
-    _build.require(x_res, "x_res", torch.bfloat16, (M, H), dev)
-    _build.require(norm_w, "norm_w", torch.bfloat16, (L, H), dev)
-    for name, w, mp, sc, K, N in (("o", o_w, o_mp, o_sc, K1, H), ("gu", gu_w, gu_mp, gu_sc, H, N_GU),
-                                  ("dn", dn_w, dn_mp, dn_sc, I, H)):
-        _build.require(w, f"{name}_w", torch.int8, (L, K // 2, N), dev)
-        _build.require(mp, f"{name}_mp", torch.int32, (L, mp.shape[1], N), dev)
-        _build.require(sc, f"{name}_sc", torch.float32, (L, N), dev)
-        if K % (2 * g) != 0 or mp.shape[1] * 8 < K // g:
-            raise ValueError(f"fused tail: {name} needs K % (2 * group) == 0 and a full "
-                             f"multiplier pack (K={K}, group={g})")
-    if attn.dtype not in (torch.float32, torch.bfloat16) or g % 4 != 0 or H % 4 != 0 \
-            or I % 4 != 0 or not 0 <= layer < L or M < 1:
-        raise ValueError(
-            f"fused tail kernel needs f32 or bf16 attn, group % 4 == 0, H and inter "
-            f"divisible by 4 and a valid layer (attn={attn.dtype}, group={g}, H={H}, I={I}, "
-            f"layer={layer})"
-        )
+    _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
+                                      ("gu", gu_w, gu_mp, gu_sc, H, 2 * I),
+                                      ("dn", dn_w, dn_mp, dn_sc, I, H)), layer, g)
     x_q, x_s = quantize_rowwise(attn)
-    splits, sizes, offsets, total = _fused_o_mlp_layout(M, K1, H, I, g)
-    scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
-    ptr = {name: scratch.data_ptr() + off for name, off in offsets.items()}
+    n_chunks = -(-max(H, I) // 128)  # the row reductions' 128-column chunks
+    layout = _fused_layout(M, g, ((K1, H), (H, 2 * I), (I, H)), (
+        ("x1", 4 * M * H), ("hq", M * H), ("gated", 4 * M * I), ("x2", M * I),
+        ("red_a", 4 * M * n_chunks), ("red_b", 4 * M * n_chunks), ("scales", 4 * 2 * M)))
+    ptr, view = _scratch(layout, dev)
     out = torch.empty((M, H), dtype=attn.dtype, device=dev)
     err = _build.lib("fused_tail").ff_fused_o_mlp(
         x_q.data_ptr(), x_s.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
         gu_sc.data_ptr(), dn_w.data_ptr(), dn_mp.data_ptr(), dn_sc.data_ptr(),
         *ptr.values(), out.data_ptr(),
-        M, K1, H, I, L, layer, g, o_mp.shape[1], gu_mp.shape[1], dn_mp.shape[1], *splits,
+        M, K1, H, I, L, layer, g, o_mp.shape[1], gu_mp.shape[1], dn_mp.shape[1], *layout[0],
         float(eps), int(attn.dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.launch_counts["fused_o_mlp"] += 1
     _build.check(err, "fused_o_mlp")
-
-    def view(name, dtype, shape):
-        n = sizes[name]
-        return scratch[offsets[name]:offsets[name] + n].view(dtype).view(shape)
-
-    return (out, view("x1", torch.float32, (M, H)), view("hq", torch.int8, (M, H)),
-            view("scales", torch.float32, (2, M))[0], view("x2", torch.int8, (M, I)),
-            view("scales", torch.float32, (2, M))[1])
+    scales = view("scales", torch.float32, (2, M))
+    return (out, view("x1", torch.float32, (M, H)), view("hq", torch.int8, (M, H)), scales[0],
+            view("x2", torch.int8, (M, I)), scales[1])
 
 
 def fused_o_mlp_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
@@ -883,3 +906,199 @@ def fused_o_mlp_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
         ).to(attn.dtype)
     return _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w,
                                dn_mp, dn_sc, layer, group_size, eps)[0]
+
+
+# --- The fused layer heads (`matmul.py:2436-2695`) and the o + gate/up head
+# of the tail (`:2051-2260`)
+#
+# Their plain versions hold the jitted JAX oracles: the mean of squares is
+# XLA's CPU sum (`_window_sum`) times float32(1/K), and the residual add
+# takes the o_proj epilogue's last product as one fused multiply-add, as
+# XLA contracts it. Their rsqrt is rounded correctly (the kernels'
+# `__frsqrt_rn`); XLA's CPU rsqrt refines the CPU's estimate instruction by
+# two Newton steps and sits one ulp off in about an eighth of its inputs.
+
+
+def _rms_inverse(x, eps):
+    """(M,) rsqrt(mean(x^2) + eps) of f32 rows ``x``, correctly rounded."""
+    ms = _window_sum(x * x) * (1.0 / x.shape[-1])
+    return torch.rsqrt((ms + eps).double()).float()
+
+
+def _norm_quant(x, norm_w, eps, quantize):
+    """The fused heads' prologue: f32 RMSNorm with the norm weight applied
+    in f32 (h is not rounded to bf16), then the row quantizer; (h_q, h_s)."""
+    xf = x.float()
+    return quantize(xf * _rms_inverse(xf, eps)[:, None] * norm_w.float()[None, :])
+
+
+def fused_norm_qkv_reference(x, norm_w, w, m, s, group_size: int = 128, eps: float = 1e-5):
+    """Oracle of the fused W4A8 layer head (`matmul.py:2471`), per-layer
+    operands: RMSNorm, int8 row quantization, the paired two-level W4A8
+    GEMV; f32 out."""
+    h_q, h_s = _norm_quant(x, norm_w, eps, quantize_rowwise)
+    return matmul_w4a8_2l_reference(h_q, h_s, w, m, s, None, group_size, torch.float32,
+                                    paired=True)
+
+
+def fused_norm_qkv_a4_reference(x, norm_w, w, m, s, group_size: int = 512, eps: float = 1e-5):
+    """Oracle of the fused A4 layer head (`matmul.py:2527`): RMSNorm, int4
+    row quantization, the vertical-layout W4A4 GEMV; f32 out."""
+    h_q, h_s = _norm_quant(x, norm_w, eps, quantize_rowwise_a4)
+    return matmul_w4a4_2l_reference(h_q, h_s, w, m, s, None, group_size, torch.float32)
+
+
+def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
+                       out_dtype):
+    """Launch `csrc/fused_head.cu` (``a4``: the int4 head); returns (out,
+    h_q, h_s)."""
+    layer = int(layer)
+    M, K = x.shape
+    L, _, N = w_packed.shape
+    dev = x.device
+    g = group_size
+    n_pack = mult_packed.shape[1]
+    _build.require(x, "x", torch.bfloat16, (M, K))
+    _build.require(norm_w, "norm_w", torch.bfloat16, (L, K), dev)
+    _build.require(w_packed, "w_packed", torch.int8, (L, K // 2, N), dev)
+    _build.require(mult_packed, "mult_packed", torch.int32, (L, n_pack, N), dev)
+    _build.require(s_col, "s_col", torch.float32, (L, N), dev)
+    unit = g if a4 else 2 * g  # K rows of one GEMV unit: a group, or a group pair
+    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
+            or g % (8 if a4 else 4) != 0 or K % unit != 0 or n_pack * 8 < K // g \
+            or not 0 <= layer < L:
+        raise ValueError(
+            f"fused {'A4 ' if a4 else ''}head kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, "
+            f"group % {8 if a4 else 4} == 0, K % {'group' if a4 else '(2 * group)'} == 0, a "
+            f"full multiplier pack and a valid layer (out={out_dtype}, M={M}, N={N}, K={K}, "
+            f"group={g}, layer={layer})"
+        )
+    n_split = gemv_split(M, N, K // unit, g // 2 if a4 else g)
+    h_q = torch.empty((M, K), dtype=torch.int8, device=dev)
+    h_s = torch.empty((M,), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
+    err = getattr(_build.lib("fused_head"), f"ff_{name}")(
+        x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
+        s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        M, K, N, layer, g, n_pack, n_split, 1.0 / K, float(eps),
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.launch_counts[name] += 1
+    _build.check(err, name)
+    return out, h_q, h_s
+
+
+def _fused_head(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
+                out_dtype):
+    """A fused head on the device of ``x``: its plain version on the CPU,
+    else `csrc/fused_head.cu`."""
+    if x.device.type != "cpu":
+        return _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group_size,
+                                  eps, out_dtype)[0]
+    layer = int(layer)
+    reference = fused_norm_qkv_a4_reference if a4 else fused_norm_qkv_reference
+    return reference(x.float(), norm_w[layer], w_packed[layer],
+                     _layer_mult(mult_packed, w_packed, layer, group_size), s_col[layer],
+                     group_size, eps).to(out_dtype)
+
+
+def fused_norm_qkv_stacked(x, norm_w, w_packed, mult_packed, s_col, layer,
+                           group_size: int = 128, eps: float = 1e-5, out_dtype=torch.bfloat16):
+    """The W4A8 layer head in one call (`matmul.py:2615`): qkv =
+    GEMV(quant(rmsnorm(x))) on layer ``layer`` of stacked paired two-level
+    weights (L, K//2, N), nibble-packed multipliers (L, ceil(K/g/8), N) and
+    column scales (L, N); x (M, K) is the residual stream before the input
+    norm, norm_w (L, K). On the card `csrc/fused_head.cu` (bf16 x and
+    norm), bit-exact against `fused_norm_qkv_reference`."""
+    return _fused_head(False, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
+                       out_dtype)
+
+
+def fused_norm_qkv_stacked_a4(x, norm_w, w_packed, mult_packed, s_col, layer,
+                              group_size: int = 512, eps: float = 1e-5,
+                              out_dtype=torch.bfloat16):
+    """The A4 layer head in one call (`matmul.py:2539`): int4 row
+    quantization and the vertical-layout W4A4 GEMV; operands as
+    `fused_norm_qkv_stacked`. On the card `csrc/fused_head.cu`, bit-exact
+    against `fused_norm_qkv_a4_reference`."""
+    return _fused_head(True, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
+                       out_dtype)
+
+
+def _fused_o_gu_parts(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s,
+                      group_size: int = 128, eps: float = 1e-5):
+    """The oracle's steps: (x1 f32, gu bf16, hq int8, s_h f32)."""
+    x_q, x_s = quantize_rowwise(attn)
+    o = _w4a8_2l_dot(x_q, o_w, o_m, group_size, True) * o_s.float()[None, :]
+    x1 = _fma_f32(o, x_s[:, None].expand_as(o), x_res.float())
+    h_q, h_s = _norm_quant(x1, norm_w, eps, quantize_rowwise)
+    gu = matmul_w4a8_2l_reference(h_q, h_s, gu_w, gu_m, gu_s, None, group_size, torch.float32,
+                                  paired=True)
+    return x1, gu.to(torch.bfloat16), h_q, h_s
+
+
+def fused_o_gu_reference(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s,
+                         group_size: int = 128, eps: float = 1e-5):
+    """Oracle of the o + gate/up head of the tail (`matmul.py:2241`),
+    per-layer operands, multipliers unpacked: ``x1 = x_res + o(quant(attn))``
+    in f32 and ``gu = bf16(gateup(quant(rmsnorm(x1))))``."""
+    return _fused_o_gu_parts(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, group_size,
+                             eps)[:2]
+
+
+def _fused_o_gu_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer,
+                       group_size, eps):
+    """Launch `ff_fused_o_gu` of `csrc/fused_tail.cu`; returns (x1, gu,
+    hq, s_h)."""
+    layer = int(layer)
+    M, K1 = attn.shape
+    L, _, H = o_w.shape
+    N_GU = gu_w.shape[2]
+    dev = attn.device
+    g = group_size
+    _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
+                                      ("gu", gu_w, gu_mp, gu_sc, H, N_GU)), layer, g)
+    if N_GU % 2 != 0:
+        raise ValueError(f"fused o + gate/up needs an even gate/up width, got {N_GU}")
+    x_q, x_s = quantize_rowwise(attn)
+    n_chunks = -(-H // 128)
+    layout = _fused_layout(M, g, ((K1, H), (H, N_GU)), (
+        ("hq", M * H), ("red_a", 4 * M * n_chunks), ("red_b", 4 * M * n_chunks),
+        ("scales", 4 * 2 * M)))
+    ptr, view = _scratch(layout, dev)
+    x1 = torch.empty((M, H), dtype=torch.float32, device=dev)
+    gu = torch.empty((M, N_GU), dtype=torch.bfloat16, device=dev)
+    err = _build.lib("fused_tail").ff_fused_o_gu(
+        x_q.data_ptr(), x_s.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
+        o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
+        gu_sc.data_ptr(), *ptr.values(), x1.data_ptr(), gu.data_ptr(),
+        M, K1, H, N_GU // 2, layer, g, o_mp.shape[1], gu_mp.shape[1], *layout[0], float(eps),
+        _build.stream_ptr(dev),
+    )
+    _build.launch_counts["fused_o_gu"] += 1
+    _build.check(err, "fused_o_gu")
+    return x1, gu, view("hq", torch.int8, (M, H)), view("scales", torch.float32, (2, M))[0]
+
+
+def fused_o_gu_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer,
+                       group_size: int = 128, eps: float = 1e-5):
+    """o_proj + residual + RMSNorm + int8 requantization + gate/up in one
+    call (`matmul.py:2118`): ``(x1, gu)`` with ``x1 = x_res + o_proj(attn)``
+    (M, H) f32 and ``gu = gateup(quant(rmsnorm(x1)))`` (M, N_GU) bf16, on
+    layer ``layer`` of stacked paired two-level weights (the caller finishes
+    the MLP). attn (M, K1); x_res (M, H) bf16; norm_w (L, H) bf16. Each
+    product's multipliers are unpacked to its own K's group count. On the
+    card `ff_fused_o_gu` of `csrc/fused_tail.cu`: x1 bit-equal to the
+    oracle, hq within one level where the row sums round differently, gu
+    within 8e-3 of its largest value."""
+    if attn.device.type == "cpu":
+        layer, g = int(layer), group_size
+        return fused_o_gu_reference(
+            attn.float(), x_res.float(), norm_w[layer], o_w[layer],
+            _layer_mult(o_mp, o_w, layer, g), o_sc[layer], gu_w[layer],
+            _layer_mult(gu_mp, gu_w, layer, g), gu_sc[layer], g, eps,
+        )
+    return _fused_o_gu_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer,
+                              group_size, eps)[:2]

@@ -20,19 +20,21 @@ otherwise, as the JAX package's TPU route does), the bf16 cache
 (`:718-735`: flash prefill over bf16 K/V on the same condition), the
 no-cache forward, and the fused W4A8 layer
 tail (`:744-778`: one call for o_proj through down at B·T <= 64, paired
-``w4a8_2l`` only; the float-scale modes take a kernel per projection). The
+``w4a8_2l`` only; the float-scale modes take a kernel per projection), and,
+under the port's copies of the JAX flags (`fastforward_tpu_torch.flags`,
+off by default), the fused layer head (`:509-551`) and the fused o +
+gate/up head of the tail (`:779-816`). The
 paged step always calls the paged append kernel (any page and head dim)
 and the paged flash-decode kernel (any page of a multiple of 4 tokens,
 1, 2, 4 or 8 query heads per kv head), also where the JAX package's TPU
 tile limits send a shape to its reference; only a head dim other than
 128, which the flash-decode kernel cannot run, calls the plain attention
-by name. Tensor parallelism and the fused layer head (off by default)
-are not ported. The JAX slab flow (``FF_KV_STACKED=0``: per-layer cache
-slabs as scan inputs and outputs, per-layer append and flash decode) is
-no mode of its own here: eagerly, a layer's view of the stacked cache is
-that slab, written in place, so the one loop below computes it; its
-per-row prefill writes (2-D positions) and their dense attention are the
-branch this loop takes for 2-D positions.
+by name. Tensor parallelism is not ported. The JAX slab flow
+(``FF_KV_STACKED=0``: per-layer cache slabs as scan inputs and outputs,
+per-layer append and flash decode) is no mode of its own here: eagerly, a
+layer's view of the stacked cache is that slab, written in place, so the
+one loop below computes it; its per-row prefill writes (2-D positions) and
+their dense attention are the branch this loop takes for 2-D positions.
 
 One decoder layer (`decoder_layer`) and its attention routing
 (`layer_attention`) serve this forward and the per-layer
@@ -50,6 +52,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from fastforward_tpu_torch import flags
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.kernels.attention import (
     flash_decode_int8_stacked,
@@ -58,6 +61,9 @@ from fastforward_tpu_torch.kernels.attention import (
 )
 from fastforward_tpu_torch.kernels.kv_update import kv_append_decode_int8_stacked
 from fastforward_tpu_torch.kernels.matmul import (
+    fused_norm_qkv_stacked,
+    fused_norm_qkv_stacked_a4,
+    fused_o_gu_stacked,
     fused_o_mlp_stacked,
     matmul_w4a8_2l_gemv_argmax,
     quantize_rowwise,
@@ -91,8 +97,10 @@ from fastforward_tpu_torch.serving.kv_cache import (
 )
 from fastforward_tpu_torch.serving.paged import PagedKVCache
 
-# Largest B·T the fused layer tail serves (`stacked.py:744-749`).
+# Largest B·T the fused layer tail serves (`stacked.py:744-749`), and the
+# fused o + gate/up head of the tail (`stacked.py:782`).
 FUSED_TAIL_MAX_ROWS = 64
+FUSED_OGU_MAX_ROWS = 256
 
 
 @dataclasses.dataclass
@@ -438,31 +446,53 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
 
 
 def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_freq, cache,
-                  starts, rows, mask, fused_tail: bool = False):
-    """One decoder layer (`engine.py:592-652`, `stacked.py:495-790`), for
+                  starts, rows, mask, fused_head: bool = False, tail: Optional[str] = None):
+    """One decoder layer (`engine.py:592-652`, `stacked.py:495-816`), for
     both forwards: RMSNorm, the q/k/v projections, RoPE, `layer_attention`
     over ``cache`` (at ``weights.index`` for a stacked cache), o_proj and
-    the residual, RMSNorm, the gated MLP and the residual. ``fused_tail``:
-    o_proj through down_proj as one fused kernel (fused paired W4A8
-    stacked layers, one token)."""
+    the residual, RMSNorm, the gated MLP and the residual. The fused routes
+    of stacked `FusedServingLayer`s at one token (`serving_forward_stacked`
+    picks them): ``fused_head``, the input RMSNorm and the qkv projection as
+    one kernel (paired W4A8 or W4A4); ``tail`` "fused_tail", o_proj through
+    down_proj as one kernel, or "fused_ogu", o_proj through gate/up as one
+    kernel with SiLU and down_proj after it (paired W4A8)."""
     B, T, _ = x.shape
     nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
     eps = config.rms_norm_eps
-    h = _rms_norm(x, weights.norm("input_norm"), eps)
-    q, k, v = (t.reshape(B, T, n, d).transpose(1, 2)
-               for t, n in zip(weights.qkv(h, nh * d, nkv * d), (nh, nkv, nkv)))
+    if fused_head:
+        qp = weights.layer.qkv_proj
+        head = fused_norm_qkv_stacked_a4 if qp.mode == "w4a4_2l" else fused_norm_qkv_stacked
+        qkv = head(x[:, 0, :].contiguous(), weights.layer.input_norm, qp.data, qp.mult_packed,
+                   qp.scale, weights.index, group_size=qp.group_size, eps=eps)[:, None, :]
+        qkv = (qkv[..., :nh * d], qkv[..., nh * d:(nh + nkv) * d], qkv[..., (nh + nkv) * d:])
+    else:
+        qkv = weights.qkv(_rms_norm(x, weights.norm("input_norm"), eps), nh * d, nkv * d)
+    q, k, v = (t.reshape(B, T, n, d).transpose(1, 2) for t, n in zip(qkv, (nh, nkv, nkv)))
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     attn = layer_attention(q, k, v, cache, weights.index, positions, starts, rows, mask)
     attn = attn.transpose(1, 2).reshape(B, T, nh * d)
-    if fused_tail:
-        layer, l = weights.layer, weights.index
+    layer, l = weights.layer, weights.index
+    if tail == "fused_tail":
         o, gu, dn = layer.o_proj, layer.gateup_proj, layer.down_proj
         return fused_o_mlp_stacked(
             attn[:, 0, :], x[:, 0, :].contiguous(), layer.post_norm,
             o.data, o.mult_packed, o.scale, gu.data, gu.mult_packed, gu.scale,
             dn.data, dn.mult_packed, dn.scale, l, group_size=o.group_size, eps=eps,
         )[:, None, :]
+    if tail == "fused_ogu":
+        o, gup = layer.o_proj, layer.gateup_proj
+        x1, gu = fused_o_gu_stacked(
+            attn[:, 0, :], x[:, 0, :].contiguous(), layer.post_norm,
+            o.data, o.mult_packed, o.scale, gup.data, gup.mult_packed, gup.scale,
+            l, group_size=o.group_size, eps=eps,
+        )
+        inter = gu.shape[-1] // 2
+        gate, up = gu[:, :inter].float(), gu[:, inter:].float()
+        # jax.nn.silu written out: F.silu rounds otherwise in float32
+        gated = (gate * torch.sigmoid(gate) * up).to(x.dtype)
+        mlp_out = weights.proj("down_proj", gated[:, None, :])
+        return (x1[:, None, :] + mlp_out.float()).to(x.dtype)
     x = x + weights.proj("o_proj", attn)
     h = _rms_norm(x, weights.norm("post_norm"), eps)
     gate, up = weights.gate_up(h)
@@ -493,7 +523,12 @@ def serving_forward_stacked(
     step dense grouped attention. The cache tensors are updated in place;
     the returned cache shares them. A one-token step
     of at most 64 rows over fused paired W4A8 layers runs the layer tail
-    (o_proj through down) as one fused kernel.
+    (o_proj through down) as one fused kernel (``FF_FUSED_LAYER``, on by
+    default). Off by default (`fastforward_tpu_torch.flags`, read on each
+    call): ``FF_FUSED_QKV=1``, the fused layer head of a one-token step over
+    fused paired W4A8 or W4A4 layers; ``FF_FUSED_OGU=1``, o_proj through
+    gate/up as one kernel where the fused tail is not taken, up to 256 rows
+    of paired W4A8.
     ``greedy_head`` with T == 1 and a two-level W4A8 lm_head runs the fused
     GEMV + argmax kernel, so the logits never reach device memory; another
     lm_head (w8a8, w4a8, w4a16) computes f32 logits and takes their argmax
@@ -520,20 +555,30 @@ def serving_forward_stacked(
     mask = causal_mask(positions, T if cache is None else cache.max_len)
 
     layer = stacked_layers
-    o = layer.o_proj
-    fused_tail = (
-        T == 1
-        and B * T <= FUSED_TAIL_MAX_ROWS
-        and isinstance(layer, FusedServingLayer)
-        and o.mode == "w4a8_2l"
-        and o.paired
-        and o.in_scale is None
-        and all(p.mult_packed is not None and p.data.dim() == 3
-                for p in (o, layer.gateup_proj, layer.down_proj))
+    fused = T == 1 and isinstance(layer, FusedServingLayer)
+    qp, o = layer.qkv_proj if fused else None, layer.o_proj
+    fused_head = (
+        fused
+        and ((qp.mode == "w4a8_2l" and qp.paired) or qp.mode == "w4a4_2l")
+        and qp.mult_packed is not None
+        and qp.in_scale is None
+        and qp.data.dim() == 3
+        and flags.fused_qkv()
     )
+    paired_o = (fused and o.mode == "w4a8_2l" and o.paired and o.mult_packed is not None
+                and o.in_scale is None and o.data.dim() == 3)
+    tail = None
+    if (paired_o and B * T <= FUSED_TAIL_MAX_ROWS
+            and all(p.mult_packed is not None and p.data.dim() == 3
+                    for p in (layer.gateup_proj, layer.down_proj))
+            and flags.fused_layer()):
+        tail = "fused_tail"
+    elif paired_o and B * T <= FUSED_OGU_MAX_ROWS and layer.gateup_proj.data.dim() == 3 \
+            and flags.fused_ogu():
+        tail = "fused_ogu"
     for l in range(config.num_layers):
         x = decoder_layer(x, LayerWeights(layer, l), config, positions, inv_freq, cache, starts,
-                          rows, mask, fused_tail=fused_tail)
+                          rows, mask, fused_head=fused_head, tail=tail)
 
     new_cache = None
     if cache is not None:

@@ -737,3 +737,201 @@ def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         mm.dequantize_int4(torch.zeros((64, 128), dtype=torch.int8, device=dev).t(),
                            torch.ones((2, 64), device=dev), 128)
+
+
+# --- the fused decode routes: the fused layer heads (W4A8 and A4) and the
+# fused o + gate/up head of the tail
+
+
+def _head_case(dev, M, K, N, g, seed):
+    gen = _gen(dev, seed)
+    L = 3
+    w = _ri(gen, -128, 128, (L, K // 2, N), torch.int8, dev)
+    mp = pack_mult_nibbles(_ri(gen, 1, 16, (L, K // g, N), torch.int8, dev)).contiguous()
+    s = torch.rand((L, N), generator=gen, device=dev) * 1e-2
+    x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    norm = (torch.rand((L, K), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    return x, norm, w, mp, s
+
+
+@pytest.mark.parametrize("a4,M,K,N,g", [
+    (False, 1, 4096, 6144, 128), (False, 8, 4096, 6144, 128), (False, 64, 512, 260, 64),
+    (False, 192, 4096, 6144, 128), (False, 256, 1024, 132, 64),
+    (True, 1, 4096, 6144, 512), (True, 8, 2048, 264, 128), (True, 64, 4096, 6144, 512),
+    (True, 192, 4096, 6144, 512), (True, 256, 1024, 516, 64),
+])
+def test_fused_head_kernel_bit_equal(dev, a4, M, K, N, g):
+    # the norm, the row quantizer and the GEMV: hq, its scale and the
+    # output bit-equal to the plain version, on the first and last layer
+    x, norm, w, mp, s = _head_case(dev, M, K, N, g, M + K + N)
+    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
+    quant = mm.quantize_rowwise_a4 if a4 else mm.quantize_rowwise
+    for layer in (0, 2):
+        before = _build.launch_counts[name]
+        out, hq, hs = mm._fused_head_launch(a4, x, norm, w, mp, s, layer, g, 1e-5, torch.bfloat16)
+        assert _build.launch_counts[name] == before + 1
+        rq, rs = mm._norm_quant(x, norm[layer], 1e-5, quant)
+        assert torch.equal(hq, rq) and torch.equal(hs, rs)
+        fn = mm.fused_norm_qkv_stacked_a4 if a4 else mm.fused_norm_qkv_stacked
+        ref = fn(x.cpu(), norm.cpu(), w.cpu(), mp.cpu(), s.cpu(), layer, group_size=g)
+        assert out.dtype == torch.bfloat16 and torch.equal(out.cpu(), ref)
+    f32 = (mm.fused_norm_qkv_stacked_a4 if a4 else mm.fused_norm_qkv_stacked)(
+        x, norm, w, mp, s, 2, group_size=g, out_dtype=torch.float32)
+    ref = (mm.fused_norm_qkv_a4_reference if a4 else mm.fused_norm_qkv_reference)(
+        x.float(), norm[2], w[2], unpack_mult_nibbles(mp[2], K // g), s[2], g)
+    assert f32.dtype == torch.float32 and torch.equal(f32, ref)
+
+
+def test_fused_heads_reject_what_the_kernels_do_not_take(dev):
+    x, norm, w, mp, s = _head_case(dev, 4, 384, 132, 64, 1)
+    with pytest.raises(ValueError, match="2 \\* group"):  # 6 groups of 64: 3 pairs, but
+        mm.fused_norm_qkv_stacked(x, norm, w, mp, s, 0, group_size=128)  # 3 groups of 128
+    with pytest.raises(ValueError, match="group % 8"):
+        mm.fused_norm_qkv_stacked_a4(x, norm, w, mp, s, 0, group_size=4)
+    with pytest.raises(ValueError, match="layer"):
+        mm.fused_norm_qkv_stacked(x, norm, w, mp, s, 3, group_size=64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mm.fused_norm_qkv_stacked(x.float(), norm, w, mp, s, 0, group_size=64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mm.fused_norm_qkv_stacked_a4(x, norm.float(), w, mp, s, 0, group_size=64)
+    with pytest.raises(ValueError, match="out"):
+        mm.fused_norm_qkv_stacked(x, norm, w, mp, s, 0, group_size=64, out_dtype=torch.float16)
+
+
+def _ogu_case(dev, M, K1, H, inter, g, seed):
+    gen = _gen(dev, seed)
+    L = 2
+    ops = []
+    for K, N in ((K1, H), (H, 2 * inter)):
+        ops += [_ri(gen, -128, 128, (L, K // 2, N), torch.int8, dev),
+                pack_mult_nibbles(_ri(gen, 1, 16, (L, K // g, N), torch.int8, dev)).contiguous(),
+                torch.rand((L, N), generator=gen, device=dev) * (4.0 / K)]
+    norm = (torch.rand((L, H), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    attn = torch.randn((M, K1), generator=gen, device=dev).to(torch.bfloat16)
+    x_res = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+    return attn, x_res, norm, ops
+
+
+@pytest.mark.parametrize("M,K1,H,inter,g", [
+    (1, 4096, 4096, 14336, 128), (8, 4096, 4096, 14336, 128), (64, 4096, 4096, 14336, 128),
+    (192, 4096, 4096, 14336, 128), (256, 4096, 4096, 14336, 128), (5, 512, 256, 384, 64),
+    (33, 256, 256, 512, 32), (72, 2048, 1024, 384, 512),
+])
+def test_fused_o_gu_kernel(dev, M, K1, H, inter, g):
+    # x1 bit-equal (the residual add fused with the o_proj epilogue), hq
+    # within one level in a few elements, gu within rtol 8e-3; layer 1 of 2
+    attn, x_res, norm, ops = _ogu_case(dev, M, K1, H, inter, g, M + K1 + g)
+    before = _build.launch_counts["fused_o_gu"]
+    x1, gu, hq, hs = mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, 1e-5)
+    assert _build.launch_counts["fused_o_gu"] == before + 1
+    o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc = ops
+    rx1, rgu, rhq, rhs = mm._fused_o_gu_parts(
+        attn.float(), x_res.float(), norm[1], o_w[1], unpack_mult_nibbles(o_mp[1], K1 // g),
+        o_sc[1], gu_w[1], unpack_mult_nibbles(gu_mp[1], H // g), gu_sc[1], g)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, rx1)
+    diff = (hq.int() - rhq.int()).abs()
+    assert diff.max().item() <= 1
+    assert diff.count_nonzero().item() <= max(4, hq.numel() // 1000)
+    torch.testing.assert_close(hs, rhs, rtol=1e-6, atol=0)
+    assert gu.dtype == torch.bfloat16 and tuple(gu.shape) == (M, 2 * inter)
+    err = (gu.float() - rgu.float()).abs().max().item()
+    assert err <= 8e-3 * rgu.float().abs().max().item()
+    again = mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 1, group_size=g)
+    assert torch.equal(again[0], x1) and torch.equal(again[1], gu)
+
+
+def test_fused_o_gu_kernel_after_other_shapes(dev):
+    """The cooperative grid and shared-memory attribute cached per shape: a
+    bench-sized launch, a small one, the fused tail's, then the first again
+    give the first bits."""
+    big = _ogu_case(dev, 192, 4096, 4096, 14336, 128, 9)
+    small = _ogu_case(dev, 5, 512, 256, 384, 64, 10)
+    first = mm.fused_o_gu_stacked(big[0], big[1], big[2], *big[3], 1, group_size=128)
+    mm.fused_o_gu_stacked(small[0], small[1], small[2], *small[3], 0, group_size=64)
+    tail = _tail_case(dev, 64, 4096, 4096, 14336, 128, 11)
+    mm.fused_o_mlp_stacked(tail[0], tail[1], tail[2], *tail[3], 1, group_size=128)
+    again = mm.fused_o_gu_stacked(big[0], big[1], big[2], *big[3], 1, group_size=128)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_fused_o_gu_rejects_what_the_kernel_does_not_take(dev):
+    attn, x_res, norm, ops = _ogu_case(dev, 4, 256, 256, 384, 64, 12)
+    with pytest.raises(ValueError, match="2 \\* group"):  # 4 groups of 64 are 2 of 128
+        mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 0, group_size=256)
+    with pytest.raises(ValueError, match="group % 4"):
+        mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 0, group_size=2)
+    with pytest.raises(ValueError, match="layer"):
+        mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 2, group_size=64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mm.fused_o_gu_stacked(attn, x_res.float(), norm, *ops, 0, group_size=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = ops[3].transpose(1, 2).contiguous().transpose(1, 2)  # same shape, transposed
+        mm.fused_o_gu_stacked(attn, x_res, norm, *ops[:3], strided, *ops[4:], 0, group_size=64)
+
+
+@pytest.mark.parametrize("B,env,counts", [
+    (72, {"FF_FUSED_QKV": "1", "FF_FUSED_OGU": "1"},
+     {"fused_norm_qkv": 2, "fused_o_gu": 2, "w4a8_gemv_stacked": 2}),
+    (4, {"FF_FUSED_LAYER": "0", "FF_FUSED_OGU": "1"}, {"fused_o_gu": 2, "w4a8_gemv_stacked": 4}),
+    (4, {"FF_FUSED_QKV": "1"}, {"fused_norm_qkv": 2, "fused_o_mlp": 2}),
+    (4, {}, {"fused_o_mlp": 2, "w4a8_gemv_stacked": 2}),
+])
+def test_fused_routes_decode_step(dev, B, env, counts):
+    """One w4a8_2l decode step of a narrow model under the flags: the
+    launches of each route per layer, and the logits of the plain path
+    (every fused wrapper and GEMV swapped for its plain version) within the
+    w4a8_2l relative RMS bound."""
+    import os
+    from unittest import mock
+
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+    from fastforward_tpu_torch.serving import stacked as stk
+
+    config = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=2, num_kv_heads=1, head_dim=128)
+    params, layers = stk.random_stacked_params(config, mode="w4a8_2l", group_size=64, seed=4,
+                                               device=dev)
+    fused = stk.fuse_stacked_layers(layers)
+    gen = _gen(dev, 13)
+    cache = stk.StackedKVCache.create(2, B, 64, 1, 128, device=dev)
+    for t in (cache.k, cache.v):
+        t.copy_(_ri(gen, -128, 128, t.shape, torch.int8, dev))
+    for t in (cache.k_scale, cache.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.05)
+    cache.length = 40
+    plain = stk.StackedKVCache(*[t.clone() for t in (cache.k, cache.v, cache.k_scale,
+                                                     cache.v_scale)], length=40)
+    tokens = _ri(gen, 0, 512, (B, 1), torch.int64, dev)
+    flag_env = {k: v for k, v in os.environ.items()
+                if k not in ("FF_FUSED_QKV", "FF_FUSED_OGU", "FF_FUSED_LAYER")}
+    with mock.patch.dict(os.environ, {**flag_env, **env}, clear=True):
+        before = dict(_build.launch_counts)
+        logits, _ = stk.serving_forward_stacked(params, fused, config, tokens, cache)
+        got = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
+               if v != before.get(k, 0) and k in ("fused_norm_qkv", "fused_o_gu", "fused_o_mlp",
+                                                  "w4a8_gemv_stacked")}
+        assert got == counts
+        cpu = lambda t: t.cpu()  # noqa: E731  (the plain path: every tensor on the CPU)
+        ref, _ = stk.serving_forward_stacked(
+            _map(params, cpu), _map(fused, cpu), config, tokens.cpu(),
+            stk.StackedKVCache(*[cpu(t) for t in (plain.k, plain.v, plain.k_scale,
+                                                  plain.v_scale)], length=40))
+    assert torch.isfinite(logits).all()
+    ref = ref.to(dev)
+    rel_rms = ((logits - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+    assert rel_rms <= 0.03
+
+
+def _map(obj, fn):
+    """``obj`` (a params or layers dataclass) with ``fn`` applied to every tensor."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _map(getattr(obj, f.name), fn)
+                                           for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple):
+        return tuple(_map(o, fn) for o in obj)
+    return obj

@@ -38,7 +38,7 @@ def test_port_modules_import_no_jax():
         fastforward_tpu_torch.__path__, "fastforward_tpu_torch."))
     for name in ("serving.stacked", "serving.sampling", "serving.paged", "serving.batching",
                  "serving.kv_cache", "serving.engine", "serving.loader",
-                 "kernels.paged_attention", "kernels.matmul", "kernels.kv_update"):
+                 "kernels.paged_attention", "kernels.matmul", "kernels.kv_update", "flags"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -66,3 +66,5 @@ def test_build_table_covers_every_source():
     assert "ff_dequant_halves" in _build.SIGNATURES["dequant"]
     assert "ff_w4a8_gemv_unpaired" in _build.SIGNATURES["w4a8_gemv"]
     assert "ff_flash_prefill_bf16" in _build.SIGNATURES["flash_prefill"]
+    assert "ff_fused_o_gu" in _build.SIGNATURES["fused_tail"]
+    assert sorted(_build.SIGNATURES["fused_head"]) == ["ff_fused_norm_qkv", "ff_fused_norm_qkv_a4"]
