@@ -14,16 +14,20 @@ each raising on failure:
    bit-equal; the W4 GEMV within W4_GEMV_RTOL; flash decode (stacked,
    per-layer, paged) and flash prefill (int8 and bf16 K/V) within rtol
    8e-3 of the largest output;
+   every route of the stacked W4A8 GEMV (flat, pre-blocked, the manual
+   stream at 2 and 4 stages, split-W) and the pre-blocked dequant
+   bit-equal, at M = 192 and 8 with the ring depth of each shape logged;
    the fused layer tail and the fused o + gate/up head with x1 bit-equal,
    their int8 activations within one level in a stated share of elements
    and their output within rtol 8e-3; the fused layer heads (W4A8, A4) with
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
-   print median times, device times, bounds and library times;
+   print median times, device times, bounds and library times (the
+   two-level GEMVs: torch.matmul of the dequantized operands);
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
-   decoding. Eight runs, each with its launch counts set to 0 before it
+   decoding. Fourteen runs, each with its launch counts set to 0 before it
    and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
@@ -39,17 +43,24 @@ each raising on failure:
    (k) (a) with FF_FUSED_QKV=1: the fused A4 layer head;
    (l) (b) with FF_FUSED_QKV=1 FF_FUSED_OGU=1: the fused W4A8 layer head
        and the fused o + gate/up head of the tail (192 rows: past the
-       fused tail's 64), down_proj by the stacked GEMV.
-   The serving flags (FF_FUSED_QKV, FF_FUSED_OGU, FF_FUSED_LAYER) are unset
-   for every other run and set only around (k)'s and (l)'s.
+       fused tail's 64), down_proj by the stacked GEMV;
+   (m) (b) with FF_2L_PREBLOCK=1: weights pre-blocked into 512-column
+       panels at fuse time, the pre-blocked dequant and GEMV;
+   (n) (b) with FF_2L_PREBLOCK=1 FF_2L_MANUAL=4: the manual stream;
+   (o) (b) with FF_2L_SPLITW=1: split-W on flat weights.
+   (m), (n) and (o) run on (b)'s seed and weights and must give (b)'s
+   greedy tokens, and its prefill logits bit for bit where (b)'s were
+   bit-equal to its warm-up's. The serving flags (FF_FUSED_*, FF_2L_*) are
+   unset for every other run and set only around (k)-(o)'s.
    Each prints prefill ms, decode tok/s, peak memory and profiles of one
    decode step and one prefill. (h)'s weights also go through
    `stack_serving_layers` and the stacked forward, 8 prompts of 128 tokens
    and 32 steps, which must give the per-layer path's greedy tokens. Then,
    at depth 2 for every run but (c), the kernel path is compared with the
    plain path on the card, 192 prompts of 128 tokens, under the run's flags;
-   and 8 prompts with FF_FUSED_LAYER=0 FF_FUSED_OGU=1 (the o + gate/up head
-   at 8 rows);
+   8 prompts with FF_FUSED_LAYER=0 FF_FUSED_OGU=1 (the o + gate/up head
+   at 8 rows); and 8 prompts with FF_2L_PREBLOCK=1 (the pre-blocked GEMV,
+   not the fused tail);
 4. engine — bench.py's continuous-batching workload (measure_engine with
    FF_BENCH_MODE=w4a8_2l FF_BENCH_ENGINE_PAGED=1 FF_BENCH_ENGINE_SAT=1,
    one pass): Llama-3-8B w4a8_2l g128 at full depth, 32 slots on the paged
@@ -116,6 +127,10 @@ VOCAB = 128256                   # Llama-3-8B's lm_head width
 BATCH, PROMPT, STEPS, SLAB = 192, 128, 32, 512   # bench.py's shape
 FLAGS_K = {"FF_FUSED_QKV": "1"}                          # run (k): the A4 layer head
 FLAGS_L = {"FF_FUSED_QKV": "1", "FF_FUSED_OGU": "1"}     # run (l): head and o + gate/up
+FLAGS_M = {"FF_2L_PREBLOCK": "1"}                        # run (m): pre-blocked weights
+FLAGS_N = {"FF_2L_PREBLOCK": "1", "FF_2L_MANUAL": "4"}   # run (n): the manual stream
+FLAGS_O = {"FF_2L_SPLITW": "1"}                          # run (o): split-W
+PANEL = 512   # FF_2L_BLOCK_N's default: the pre-blocked panel width of (m), (n)
 # bench.py's engine workload (measure_engine, FF_BENCH_ENGINE_PAGED=1,
 # FF_BENCH_ENGINE_SAT=1) at max_batch 32: 2 x 32 requests, pool of
 # int(32 * 2 * 0.6) + 1 pages of 256 tokens, bursts of 8
@@ -126,7 +141,8 @@ ENGINE_PROMPTS = (16, 32, 64, 96)
 _LOG = {"file": None}
 
 # The serving flags the port reads (fastforward_tpu_torch/flags.py).
-FLAG_VARS = ("FF_FUSED_QKV", "FF_FUSED_OGU", "FF_FUSED_LAYER")
+FLAG_VARS = ("FF_FUSED_QKV", "FF_FUSED_OGU", "FF_FUSED_LAYER", "FF_FUSED_ARGMAX",
+             "FF_2L_PREBLOCK", "FF_2L_BLOCK_N", "FF_2L_MANUAL", "FF_2L_SPLITW")
 
 
 def flag_env(**flags):
@@ -299,8 +315,12 @@ def phase_kernels(dev):
     def act(M, K):
         return torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
 
+    def dequantized(x_q, x_s):
+        return (x_q.float() * x_s[:, None]).to(torch.bfloat16)
+
     # --- A4 GEMV (w4a4_2l decode), g512: M = 8, bench batch 192, 256 (the
-    # largest GEMV prefill); the JSON row is one decode layer at M = 192
+    # largest GEMV prefill); the JSON row is one decode layer at M = 192.
+    # Library: torch.matmul of the dequantized activations and weight.
     g = 512
     for M in (8, BATCH, 256):
         per = []
@@ -308,32 +328,79 @@ def phase_kernels(dev):
             w, mult, s_col = stacked(K, N, g)
             mp = pack_mult_nibbles(mult).contiguous()
             x_q, x_s = mm.quantize_rowwise_a4(act(M, K))
+            xb = dequantized(x_q, x_s)
+            w_bf16 = mm.dequantize_int4_vertical_reference(w[1], mult[1].float() * s_col[1][None, :],
+                                                           g)
             nbytes = K * N // 2 + mp[1].numel() * 4 + N * 4 + M * K + M * 4 + M * N * 2
             per.append(measure(
                 "a4_gemv", f"{pname} M={M} K={K} N={N}",
                 lambda: mm.matmul_w4a4_2l_gemv_stacked(x_q, x_s, w, mp, s_col, 1, group_size=g),
                 lambda: mm.matmul_w4a4_2l_reference(x_q, x_s, w[1], unpack_mult_nibbles(mp[1], K // g),
                                                     s_col[1], None, g),
-                nbytes, 2 * M * K * N, INT8_OPS_PER_S, bit_equal))
+                nbytes, 2 * M * K * N, INT8_OPS_PER_S, bit_equal,
+                library=lambda: torch.matmul(xb, w_bf16)))
+            del w_bf16
         if M == BATCH:
             rows["a4_gemv"] = add_rows(per)
 
-    # --- W4A8 two-level GEMV (w4a8_2l decode), stacked, g128, M = 192
+    # --- W4A8 two-level GEMV (w4a8_2l decode), stacked, g128, M = 192 and
+    # 8, on flat and pre-blocked (panels of PANEL) weights: every route of
+    # the stacked GEMV (the default call on either layout, the manual
+    # stream at 2 and 4 stages, split-W) under its flags; the JSON rows are
+    # one decode layer at M = 192 (the manual stream at 4 stages, (n)'s)
     g = 128
-    per = []
-    for pname, (K, N) in PROJ.items():
-        w, mult, s_col = stacked(K, N, g)
-        mp = pack_mult_nibbles(mult).contiguous()
-        x_q, x_s = mm.quantize_rowwise(act(BATCH, K))
-        M = BATCH
-        nbytes = K * N // 2 + mp[1].numel() * 4 + N * 4 + M * K + M * 4 + M * N * 2
-        per.append(measure(
-            "w4a8_gemv_stacked", f"{pname} M={M} K={K} N={N}",
-            lambda: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w, mp, s_col, 1, group_size=g),
-            lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], unpack_mult_nibbles(mp[1], K // g),
-                                                s_col[1], None, g, paired=True),
-            nbytes, 2 * M * K * N, INT8_OPS_PER_S, bit_equal))
-    rows["w4a8_gemv_stacked"] = add_rows(per)
+    routes = (("w4a8_gemv_stacked", "flat", {}), ("w4a8_gemv_preblocked", "pre", {}),
+              ("w4a8_gemv_manual", "pre", {"FF_2L_MANUAL": "2"}),
+              ("w4a8_gemv_manual", "pre", {"FF_2L_MANUAL": "4"}),
+              ("w4a8_gemv_splitw", "flat", FLAGS_O))
+    for M in (BATCH, 8):
+        per = collections.defaultdict(list)
+        for pname, (K, N) in PROJ.items():
+            w, mult, s_col = stacked(K, N, g)
+            w4 = mm.preblock_stacked(w, PANEL)
+            mp = pack_mult_nibbles(mult).contiguous()
+            x_q, x_s = mm.quantize_rowwise(act(M, K))
+            xb = dequantized(x_q, x_s)
+            w_bf16 = mm.dequantize_int4_paired_reference(w[1], mult[1].float() * s_col[1][None, :], g)
+            nbytes = K * N // 2 + mp[1].numel() * 4 + N * 4 + M * K + M * 4 + M * N * 2
+            n_split = mm.gemv_split(M, N, K // (2 * g), g)
+            for name, layout, flags in routes:
+                label = f"{pname} M={M} K={K} N={N}"
+                if layout == "pre":
+                    label += f" bn={PANEL}"
+                if "FF_2L_MANUAL" in flags:
+                    nbuf = int(flags["FF_2L_MANUAL"])
+                    label += f" nbuf={nbuf} (ring depth {mm.manual_depth(K, g, n_split, nbuf)})"
+                wt = w4 if layout == "pre" else w
+                with flag_env(**flags):
+                    r = measure(
+                        name, label,
+                        lambda wt=wt: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, wt, mp, s_col, 1,
+                                                                     group_size=g),
+                        lambda: mm.matmul_w4a8_2l_reference(
+                            x_q, x_s, w[1], unpack_mult_nibbles(mp[1], K // g), s_col[1], None, g,
+                            paired=True),
+                        nbytes, 2 * M * K * N, INT8_OPS_PER_S, bit_equal,
+                        library=lambda: torch.matmul(xb, w_bf16))
+                per[name, flags.get("FF_2L_MANUAL")].append(r)
+            if M == BATCH:  # the pre-blocked prefill dequant
+                nb = K * N // 2 + (K // g) * N + N * 4 + K * N * 2
+                per["dequant_paired_preblocked", None].append(measure(
+                    "dequant_paired_preblocked", f"{pname} K={K} N={N} g={g} bn={PANEL}",
+                    lambda: mm.dequantize_int4_paired_stacked(w4, mult, s_col, 1, group_size=g),
+                    lambda: mm.dequantize_int4_paired_reference(
+                        w[1], mult[1].float() * s_col[1][None, :], g),
+                    nb, K * N, F32_OPS_PER_S, bit_equal))
+            del w, w4, w_bf16
+        for (name, nbuf), r in per.items():
+            total = add_rows(r)
+            log(f"{name}{'' if nbuf is None else f' nbuf={nbuf}'} M={M}, four projections: "
+                f"{total['ms']:.4f} ms, device {fmt_ms(total['device_ms'])}, bound "
+                f"{max(total['bytes_ms'], total['ops_ms']):.4f} ms, library "
+                f"{fmt_ms(total['library_ms'])}")
+            if M == BATCH and nbuf in (None, "4"):
+                rows[name] = total
+        torch.cuda.empty_cache()
 
     # --- Prefill dequant: vertical (w4a4_2l, g512) and paired (w4a8_2l,
     # g128), the four projections of a layer
@@ -913,10 +980,10 @@ def _plain_versions():
             group_size, out_dtype)
 
     def w4a8_stacked(x_q, x_s, w, mp, s_col, layer, group_size, out_dtype=torch.bfloat16):
-        n_groups = x_q.shape[1] // group_size
+        n_groups = x_q.shape[1] // group_size  # w flat or pre-blocked: every route's function
         return mm.matmul_w4a8_2l_reference(
-            x_q, x_s, w[layer], unpack_mult_nibbles(mp[layer], n_groups), s_col[layer], None,
-            group_size, out_dtype, paired=True)
+            x_q, x_s, mm.flat_layer(w, layer), unpack_mult_nibbles(mp[layer], n_groups),
+            s_col[layer], None, group_size, out_dtype, paired=True)
 
     def w4a8(x_q, x_s, w, mult, s_col, group_size, out_dtype, paired):
         return mm.matmul_w4a8_2l_reference(x_q, x_s, w, mult, s_col, None, group_size,
@@ -928,7 +995,8 @@ def _plain_versions():
 
     def dequant(reference):
         def plain(w, mult, s_col, layer, group_size):
-            return reference(w[layer], mult[layer].float() * s_col[layer][None, :], group_size)
+            return reference(mm.flat_layer(w, layer), mult[layer].float() * s_col[layer][None, :],
+                             group_size)
         return plain
 
     def w4a8_halves(x_q, x_s, w, s, group_size, out_dtype):
@@ -1180,11 +1248,16 @@ def profile_steps(path, cache, token, ids):
         lambda: path.forward(ids, fresh, logits_positions="last"), 1))
 
 
-def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=False):
+def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=False,
+              record=None, against=None):
     """One main-path run: warm-up, then the measured run with the launch
     counts set to 0 before it and asserted equal to ``expect`` after it.
     ``kv`` "int8" or "bf16": the per-layer forward over a KVCache of that
-    kind. ``keep``: also return the path."""
+    kind. ``keep``: also return the path. ``record`` (a dict): filled with
+    the run's prefill logits and greedy tokens (on the host), and whether
+    its prefill logits were bit-equal to the warm-up's; ``against`` (such a
+    dict of another run on the same seed): the tokens must be identical,
+    and the prefill logits bit-equal where that run's were stable."""
     from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
@@ -1194,12 +1267,27 @@ def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=Fa
         f"weights on the card in {time.perf_counter() - t0:.1f} s")
     ids = torch.randint(0, config.vocab_size, (B, T), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(7))
-    _serve(path, ids, 2, dev)  # warm-up: no first-call costs below
+    warm = _serve(path, ids, 2, dev)[0]  # warm-up: no first-call costs below
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     logits, first, tokens, cache, prefill_ms, decode_s = _serve(path, ids, steps, dev)
     counts = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    stable = torch.equal(warm, logits)
+    log(f"serve {label}: prefill logits {'bit-equal' if stable else 'NOT bit-equal'} to the "
+        f"warm-up's (max diff {max_err(warm, logits):.3g})")
+    del warm
+    if record is not None:
+        record.update(logits=logits.cpu(), tokens=tokens.cpu(), stable=stable)
+    same = None
+    if against is not None:
+        same = dict(tokens=torch.equal(tokens.cpu(), against["tokens"]),
+                    logits=torch.equal(logits.cpu(), against["logits"]))
+        log(f"serve {label}: greedy tokens {'identical' if same['tokens'] else 'DIFFER'}, "
+            f"prefill logits {'bit-equal' if same['logits'] else 'NOT bit-equal'} to the "
+            "reference run's on the same seed")
+        if not same["tokens"] or (against["stable"] and not same["logits"]):
+            raise AssertionError(f"{label}: tokens or prefill logits differ from the reference run")
     log(f"serve {label}: prefill {B}x{T} {prefill_ms:.1f} ms; decode {B}x{steps} tokens in "
         f"{decode_s:.3f} s = {B * steps / decode_s:.1f} tok/s; peak memory {peak:.2f} GiB")
     log(f"serve {label}: launches {counts}")
@@ -1217,7 +1305,9 @@ def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=Fa
         del path
     torch.cuda.empty_cache()
     out = dict(counts=counts, prefill_ms=prefill_ms, tok_s=B * steps / decode_s, peak_gib=peak,
-               seconds=time.perf_counter() - t0)
+               seconds=time.perf_counter() - t0, prefill_stable=stable)
+    if same is not None:
+        out["same_as_reference"] = same
     log(f"serve {label}: {out['seconds']:.1f} s with its warm-up and profiles")
     return (out, path) if keep else out
 
@@ -1350,11 +1440,13 @@ def phase_serve(dev):
     # the per-layer path: seven unfused projections a layer, the lm_head in
     # the layers' mode
     layer_decode = 7 * L * STEPS + 1 + STEPS
+    ref_b = {}  # (b)'s prefill logits and tokens: (m), (n), (o) must give them
     runs = {
         "a": serve_run("(a)", config, "w4a4_2l", 512, BATCH, PROMPT, STEPS, dev,
                        {"dequant_vertical": 4 * L, "a4_gemv": 4 * L * STEPS, **shared}),
         "b": serve_run("(b)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
-                       {"dequant_paired": 4 * L, "w4a8_gemv_stacked": 4 * L * STEPS, **shared}),
+                       {"dequant_paired": 4 * L, "w4a8_gemv_stacked": 4 * L * STEPS, **shared},
+                       record=ref_b),
         "c": serve_run("(c)", config, "w4a4_2l", 512, 8, 32, STEPS, dev,
                        {"a4_gemv": 4 * L * (STEPS + 1), **shared}),
         "e": serve_run("(e)", config, "w4a8", 128, BATCH, PROMPT, STEPS, dev,
@@ -1387,12 +1479,23 @@ def phase_serve(dev):
             "(l)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
             {"dequant_paired": 4 * L, "fused_norm_qkv": L * STEPS, "fused_o_gu": L * STEPS,
              "w4a8_gemv_stacked": L * STEPS, **shared})
+    # the rest of the stacked configurations, on (b)'s seed and weights: (m)
+    # pre-blocked, (n) pre-blocked through the manual stream, (o) split-W
+    for run, flags, dequant, gemv in (
+            ("m", FLAGS_M, "dequant_paired_preblocked", "w4a8_gemv_preblocked"),
+            ("n", FLAGS_N, "dequant_paired_preblocked", "w4a8_gemv_manual"),
+            ("o", FLAGS_O, "dequant_paired", "w4a8_gemv_splitw")):
+        with flag_env(**flags):
+            runs[run] = serve_run(f"({run})", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
+                                  {dequant: 4 * L, gemv: 4 * L * STEPS, **shared}, against=ref_b)
+    del ref_b
     for mode, g, run, kv, flags in (
             ("w4a4_2l", 512, "a", None, {}), ("w4a8_2l", 128, "b", None, {}),
             ("w4a8", 128, "e", None, {}), ("w4a16", 128, "f", None, {}),
             ("w8a8", 128, "g", None, {}), ("w4a8", 128, "h", "int8", {}),
             ("w4a8_2l", 128, "i", "bf16", {}), ("w4a4_2l", 512, "k", None, FLAGS_K),
-            ("w4a8_2l", 128, "l", None, FLAGS_L)):
+            ("w4a8_2l", 128, "l", None, FLAGS_L), ("w4a8_2l", 128, "m", None, FLAGS_M),
+            ("w4a8_2l", 128, "n", None, FLAGS_N), ("w4a8_2l", 128, "o", None, FLAGS_O)):
         with flag_env(**flags):
             launched = compare_paths(config, mode, g, dev, kv=kv)
         if launched != set(runs[run]["counts"]):
@@ -1403,6 +1506,12 @@ def phase_serve(dev):
         launched = compare_paths(config, "w4a8_2l", 128, dev, batch=8)
     if "fused_o_gu" not in launched or "fused_o_mlp" in launched:
         raise AssertionError(f"FF_FUSED_LAYER=0 FF_FUSED_OGU=1 at 8 rows launched {sorted(launched)}")
+    # pre-blocked weights at 8 rows: the pre-blocked GEMV, not the fused tail
+    # (every fused route needs flat weights)
+    with flag_env(**FLAGS_M):
+        launched = compare_paths(config, "w4a8_2l", 128, dev, batch=8)
+    if "w4a8_gemv_preblocked" not in launched or "fused_o_mlp" in launched:
+        raise AssertionError(f"FF_2L_PREBLOCK=1 at 8 rows launched {sorted(launched)}")
     return runs
 
 
@@ -1671,6 +1780,16 @@ SOURCES = {
                           "fastforward_tpu/kernels/matmul.py:2539 (kernel :2485)"),
     "fused_o_gu": ("fastforward_tpu_torch/csrc/fused_tail.cu",
                    "fastforward_tpu/kernels/matmul.py:2118 (kernel :2051)"),
+    "w4a8_gemv_preblocked": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                             "fastforward_tpu/kernels/matmul.py:1023 (pre-blocked layout, "
+                             ":1055-1066, :1211-1214)"),
+    "w4a8_gemv_manual": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                         "fastforward_tpu/kernels/matmul.py:879 (call :1107)"),
+    "w4a8_gemv_splitw": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                         "fastforward_tpu/kernels/matmul.py:989 (call :1185)"),
+    "dequant_paired_preblocked": ("fastforward_tpu_torch/csrc/dequant.cu",
+                                  "fastforward_tpu/kernels/matmul.py:1650 (pre-blocked branch "
+                                  ":1666-1686, call :1709)"),
 }
 
 
@@ -1710,7 +1829,7 @@ def main():
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "h", "i",
-                                                            "engine", "k", "l")
+                                                            "engine", "k", "l", "m", "n", "o")
                          if runs[k]["counts"].get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,

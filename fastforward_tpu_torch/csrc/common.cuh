@@ -9,7 +9,9 @@
 // with v in [-8, 7] stored as nibbles and m_g in [1, 15]. They differ only
 // in where the two nibbles of a weight byte sit along K (the LAYOUT
 // template argument: vertical, adjacent-group pairs or group halves) and
-// how the multipliers are stored.
+// how the multipliers are stored. A layer's packed weights lie flat
+// (K/2, N) or pre-blocked into contiguous panels (N/bn, K/2, bn), and the
+// ROUTE argument says how a tile reads them (below).
 //
 // Work split. A block owns 128 columns (32 lanes x 4 adjacent columns,
 // one 4-byte load per lane per byte row, 128 contiguous bytes per warp) and
@@ -63,29 +65,137 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
   return d;
 }
 
+// Where a tile's weight bytes come from (gemv_tile's ROUTE):
+//   kDirect: each live lane loads its 4 columns of 4 byte rows straight
+//            from device memory (__ldg); the 8 warps interleave quads of
+//            byte rows within each unit;
+//   kSplitW: as kDirect, but warps 0-3 walk the first half of the block's
+//            units and warps 4-7 the second half: two independent load
+//            streams over disjoint K ranges (the TPU's split-W operand
+//            pair, matmul.py:989);
+//   kRing:   the block's byte rows are streamed unit by unit into a ring of
+//            `depth` shared-memory stages by cp.async, each stage's arrival
+//            tracked by its own mbarrier; depth - 1 units are in flight
+//            while the block computes on one (the TPU's manual
+//            multi-buffered DMA, matmul.py:879).
+// The int32 sums are the same whatever the route: every route is
+// bit-equal to the others.
+enum Route { kDirect = 0, kSplitW = 1, kRing = 2 };
+
+// Byte row 0, column n of a layer's packed weights. bn: the panel width
+// of the pre-blocked layout (N/bn, K/2, bn), whose byte (r, n) lies at
+// (n / bn) * (K/2) * bn + r * bn + n % bn; 0 for the flat (K/2, N) layout.
+// Rows lie `bn` (pre-blocked) or N (flat) bytes apart.
+__device__ __forceinline__ const int8_t* panel_col(const int8_t* w, int K, int N, int bn, int n) {
+  return bn > 0 ? w + (size_t)(n / bn) * (K / 2) * bn + n % bn : w + n;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread has issued so far has
+// landed (the barrier counts this arrival among its initial count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "FF_MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra FF_MBAR_DONE;\n"
+      "bra FF_MBAR_WAIT;\n"
+      "FF_MBAR_DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Shared memory of a kRing tile's ring, ahead of the tile's own: `depth`
+// mbarriers (padded to 16 bytes), then `depth` stages of one unit's byte
+// rows x kBN columns each.
+inline __host__ __device__ size_t ring_bar_bytes(int depth) {
+  return ((size_t)depth * 8 + 15) / 16 * 16;
+}
+inline __host__ __device__ size_t ring_smem_bytes(int depth, int rows_per_unit) {
+  return ring_bar_bytes(depth) + (size_t)depth * rows_per_unit * kBN;
+}
+
+// This thread's share of copying byte rows row .. row + rows - 1 of the
+// tile's kBN columns into a ring stage (kBN bytes a row), then its arrival
+// on the stage's barrier. 16-byte copies where the row pitch allows (each
+// then lies inside one panel and is 16-byte aligned), else 4-byte ones;
+// columns past N are not copied (their lanes are not live).
+__device__ __forceinline__ void ring_fill(int8_t* dst, uint64_t* bar, const int8_t* w, int K,
+                                          int N, int bn, int n_tile, int row, int rows) {
+  const int pitch = bn > 0 ? bn : N;
+  if (pitch % 16 == 0) {
+    for (int i = threadIdx.x; i < rows * (kBN / 16); i += kThreads) {
+      const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
+      const int n = n_tile * kBN + c;
+      if (n < N)
+        cp_async<16>(dst + r * kBN + c, panel_col(w, K, N, bn, n) + (size_t)(row + r) * pitch,
+                     true);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * (kBN / 4); i += kThreads) {
+      const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
+      const int n = n_tile * kBN + c;
+      if (n < N)
+        cp_async<4>(dst + r * kBN + c, panel_col(w, K, N, bn, n) + (size_t)(row + r) * pitch,
+                    true);
+    }
+  }
+  cp_async_arrive(bar);
+}
+
 // Split-K partial GEMV.
 //   x        (M, K) int8 activations
-//   w        (K/2, N) int8 packed weights of one layer
+//   w        (K/2, N) int8 packed weights of one layer, or its pre-blocked
+//            form (N/bn, K/2, bn) when bn > 0 (see panel_col)
 //   mult     PACKED: (n_pack, N) int32, 8 nibble multipliers per word
 //            (always for kVertical; the stacked W4A8 GEMV for kPaired)
 //            else:   (n_groups, N) int8 (kPaired, kHalves)
 //   partial  (n_split, M, N) int32
 // gemv_tile computes one (row tile, column tile, split) of it with all
 // kThreads threads of the block, in dynamic shared memory `smem` of
-// gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes;
+// gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes
+// (kRing: ring_smem_bytes(depth, rows_per_unit) more, ahead of it);
 // gemv_partial_kernel runs one tile per block on the grid
 // (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
-// block of a persistent grid.
+// block of a persistent grid (kDirect).
 // rows_per_unit: byte rows of one unit (group paired, else group/2).
-template <int LAYOUT, bool PACKED>
+template <int LAYOUT, bool PACKED, int ROUTE = kDirect>
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
-          int m_tile, int n_tile, int split, unsigned char* smem) {
+          int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int depth = 0) {
+  static_assert(ROUTE != kRing || LAYOUT == kPaired, "the ring streams paired weights");
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
+  const int row0 = u0 * rows_per_unit;  // first byte row of this split
+  const int stage_bytes = rows_per_unit * kBN;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + ring_bar_bytes(depth));
+  if constexpr (ROUTE == kRing) {
+    // Start the first `depth` units' copies; they land while the
+    // activations are staged below.
+    if (threadIdx.x == 0)
+      for (int s = 0; s < depth; ++s) mbar_init(bar + s, kThreads);
+    __syncthreads();
+    for (int s = 0; s < depth && s < n_u; ++s)
+      ring_fill(ring + s * stage_bytes, bar + s, w, K, N, bn, n_tile, row0 + s * rows_per_unit,
+                rows_per_unit);
+    smem += ring_smem_bytes(depth, rows_per_unit);
+  }
   const int KR = units_per_split * rows_per_unit;  // smem row pitch (bytes)
   int8_t* xa = reinterpret_cast<int8_t*>(smem);             // [kBM][KR]
   int8_t* xb = xa + kBM * KR;                               // [kBM][KR]
@@ -95,7 +205,6 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   const int m0 = m_tile * kBM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = u0 * rows_per_unit;  // first byte row of this split
 
   // Stage the activations: xa pairs with the low nibble plane, xb with the
   // high one, both indexed by the byte row local to the split.
@@ -154,14 +263,27 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   const int n0 = n_tile * kBN + lane * 4;
   const bool live = n0 < N;  // N % 4 == 0: a live lane owns 4 valid columns
+  // this lane's 4 columns in byte row 0 (a multiple of 4 columns lies in
+  // one panel), and the row pitch
+  const int8_t* wcol = live ? panel_col(w, K, N, bn, n0) : w;
+  const int pitch = bn > 0 ? bn : N;
   int acc[kBM][4];
 #pragma unroll
   for (int m = 0; m < kBM; ++m)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = 0;
 
-  if (live) {
-    for (int u = 0; u < n_u; ++u) {
+  // kSplitW: two warp groups, each over its half of the split's units;
+  // otherwise one group of all 8 warps over all of them.
+  constexpr int kGroups = ROUTE == kSplitW ? 2 : 1;
+  constexpr int kGroupWarps = kWarps / kGroups;
+  const int wq = warp % kGroupWarps;  // the warp's place in its group
+  const int half = (n_u + kGroups - 1) / kGroups;
+  const int ub = (warp / kGroupWarps) * half;
+  const int ue = min(n_u, ub + half);
+  for (int u = ub; u < ue; ++u) {
+    if constexpr (ROUTE == kRing) mbar_wait(bar + u % depth, (u / depth) & 1);
+    if (live) {
       const int unit = u0 + u;
       unsigned ma[4], mb[4];
       if (PACKED) {
@@ -188,8 +310,9 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           mb[c] = (wb >> (8 * c)) & 0xFFu;
         }
       }
-      // The correction term is added once per block: by warp 0.
-      if (warp == 0) {
+      // The correction term is added once per block and unit: by the first
+      // warp of the unit's group.
+      if (wq == 0) {
 #pragma unroll
         for (int m = 0; m < kBM; ++m) {
           const int sa = sxa[m * units_per_split + u], sb = sxb[m * units_per_split + u];
@@ -200,13 +323,19 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       }
       const int quads = rows_per_unit / 4;
 #pragma unroll 2
-      for (int q = warp; q < quads; q += kWarps) {
+      for (int q = wq; q < quads; q += kGroupWarps) {
         const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
-        const int8_t* wp = w + (size_t)(row0 + lr) * N + n0;
         unsigned r[4], col[4];
+        if constexpr (ROUTE == kRing) {
+          const int8_t* sp = ring + (u % depth) * stage_bytes + 4 * q * kBN + lane * 4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * N));
+          for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const unsigned*>(sp + i * kBN);
+        } else {
+          const int8_t* wp = wcol + (size_t)(row0 + lr) * pitch;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * pitch));
+        }
         transpose4x4(r, col);
         unsigned pa[4], pb[4];
 #pragma unroll
@@ -231,6 +360,14 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         }
       }
     }
+    if constexpr (ROUTE == kRing) {
+      // Every warp is done with this stage: refill it with the unit
+      // `depth` ahead.
+      __syncthreads();
+      if (u + depth < n_u)
+        ring_fill(ring + (u % depth) * stage_bytes, bar + u % depth, w, K, N, bn, n_tile,
+                  row0 + (u + depth) * rows_per_unit, rows_per_unit);
+    }
   }
 
   // Sum the 8 warps' accumulators and write this split's partial.
@@ -250,15 +387,15 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int LAYOUT, bool PACKED>
+template <int LAYOUT, bool PACKED, int ROUTE>
 __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
                     int M, int K, int N, int group, int units_per_split,
-                    int n_units) {
+                    int n_units, int bn, int depth) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gemv_tile<LAYOUT, PACKED>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
-                            blockIdx.x, blockIdx.y, blockIdx.z, smem);
+  gemv_tile<LAYOUT, PACKED, ROUTE>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
+                                   blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, depth);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
@@ -266,19 +403,25 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
          (size_t)kWarps * kBM * kBN * 4;
 }
 
-template <int LAYOUT, bool PACKED = LAYOUT == kVertical>
+// bn: the pre-blocked panel width (0: flat); depth: the ring's stages (kRing).
+template <int LAYOUT, bool PACKED = LAYOUT == kVertical, int ROUTE = kDirect>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
-                                int n_split, cudaStream_t stream) {
+                                int n_split, cudaStream_t stream, int bn = 0, int depth = 0) {
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int n_units = LAYOUT == kPaired ? K / (2 * group) : K / group;
   const int ups = (n_units + n_split - 1) / n_split;
-  const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
-  cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, PACKED>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
+  if (ROUTE == kRing) {
+    if (depth < 1) return cudaErrorInvalidValue;
+    smem += ring_smem_bytes(depth, rows_per_unit);
+  }
+  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, PACKED, ROUTE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
-  gemv_partial_kernel<LAYOUT, PACKED><<<grid, kThreads, smem, stream>>>(
-      x, w, mult, partial, M, K, N, group, ups, n_units);
+  gemv_partial_kernel<LAYOUT, PACKED, ROUTE><<<grid, kThreads, smem, stream>>>(
+      x, w, mult, partial, M, K, N, group, ups, n_units, bn, depth);
   return cudaGetLastError();
 }
 

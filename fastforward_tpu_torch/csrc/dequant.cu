@@ -3,7 +3,8 @@
 //
 // Replaces: fastforward_tpu/kernels/matmul.py
 // dequantize_int4_vertical_stacked (:1736, kernel :1724) and
-// dequantize_int4_paired_stacked (:1650, kernel :1634, flat layout); at
+// dequantize_int4_paired_stacked (:1650, kernel :1634, on flat weights and
+// on its pre-blocked branch :1666-1686, ff_dequant_paired_preblocked); at
 // L = 1 with a ready per-group scale also dequantize_int4_vertical (:1511)
 // and dequantize_int4 (:1561, kernels :1535 and :1549): its paired branch
 // and its two group-halves branches (pack_int4's two's complement, the
@@ -20,6 +21,11 @@
 //             (high), offset binary u = v + 8;
 //   halves:   p = r / (g/2), i = r % (g/2): rows pg + i (low) and
 //             pg + g/2 + i (high), two's complement or offset binary.
+// Byte (r, n) lies at r * N + n (flat), or in the pre-blocked form
+// (N/bn, K/2, bn) of preblock_stacked at (n / bn) * (K/2) * bn + r * bn +
+// n % bn: a thread's columns lie in one panel (16 of them where
+// bn % 16 == 0, else one), and rows lie bn bytes apart. The output is the
+// flat (K, N) either way.
 //
 // Bound on the H100: bytes. K*N/2 packed bytes read and K*N*2 bf16 bytes
 // written per call (the multipliers and scales are 1/g of that): 545 MB
@@ -32,7 +38,8 @@
 // neighbouring columns, so a warp moves 512 contiguous bytes in and two
 // 1 KB runs out per row. The 16 per-group scales are formed in registers
 // and re-formed only when a row enters another group. An N that is not a
-// multiple of 16 takes the same kernel with one column per thread.
+// multiple of 16 (pre-blocked: a bn that is not) takes the same kernel
+// with one column per thread.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -89,13 +96,15 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ dst, const
 // Grid: (ceil(N / V / kThreads), ceil(K/2 / kRowsPerBlock)). w, mult and
 // scale point at the selected layer. MULT: scale is s_col (N,) and mult
 // (K/g, N) int8; else scale is s_eff (K/g, N) f32 and mult is unused.
+// bn: the pre-blocked panel width, or N for the flat layout (one panel).
 template <int LAYOUT, int V, bool MULT>
 __global__ void __launch_bounds__(kThreads)
 dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int K,
-               int N, int group) {
+               int N, int group, int bn) {
   const int col0 = (blockIdx.x * kThreads + threadIdx.x) * V;
   if (col0 >= N) return;
+  const int8_t* wcol = w + (size_t)(col0 / bn) * (K / 2) * bn + col0 % bn;
   const int r0 = blockIdx.y * kRowsPerBlock;
   const int r1 = min(K / 2, r0 + kRowsPerBlock);
   float s_lo[V], s_hi[V];
@@ -128,7 +137,7 @@ dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
       }
     }
     unsigned bytes[V];
-    const int8_t* wp = w + (size_t)r * N + col0;
+    const int8_t* wp = wcol + (size_t)r * bn;
     if constexpr (V == 16) {
       const uint4 pk = *reinterpret_cast<const uint4*>(wp);
       const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
@@ -159,7 +168,7 @@ dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
 
 template <int LAYOUT>
 int launch(const void* w, const void* mult, const void* scale, void* out, int K, int N, int L,
-           int layer, int group, void* stream) {
+           int layer, int group, void* stream, int bn = 0) {
   (void)L;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
@@ -167,18 +176,19 @@ int launch(const void* w, const void* mult, const void* scale, void* out, int K,
                           : nullptr;
   const float* sl = static_cast<const float*>(scale) + (mult ? (size_t)layer * N : 0);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  const int v = N % 16 == 0 ? 16 : 1;
+  if (bn <= 0) bn = N;
+  const int v = bn % 16 == 0 ? 16 : 1;
   const dim3 grid((N / v + kThreads - 1) / kThreads, (K / 2 + kRowsPerBlock - 1) / kRowsPerBlock);
   if (v == 16) {
     if (ml)
-      dequant_kernel<LAYOUT, 16, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+      dequant_kernel<LAYOUT, 16, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
     else
-      dequant_kernel<LAYOUT, 16, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+      dequant_kernel<LAYOUT, 16, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
   } else {
     if (ml)
-      dequant_kernel<LAYOUT, 1, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+      dequant_kernel<LAYOUT, 1, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
     else
-      dequant_kernel<LAYOUT, 1, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group);
+      dequant_kernel<LAYOUT, 1, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
   }
   return cudaGetLastError();
 }
@@ -205,4 +215,13 @@ extern "C" int ff_dequant_halves(const void* w, const void* mult, const void* sc
   if (offset_binary)
     return launch<kHalvesOffset>(w, mult, scale, out, K, N, L, layer, group, stream);
   return launch<kHalves>(w, mult, scale, out, K, N, L, layer, group, stream);
+}
+
+// Pre-blocked paired weights (L, N/bn, K/2, bn), mult (L, K/g, N) int8 and
+// s_col (L, N) f32 (the multipliers and scales stay flat); out (K, N) bf16.
+extern "C" int ff_dequant_paired_preblocked(const void* w, const void* mult, const void* scale,
+                                           void* out, int K, int N, int L, int layer, int group,
+                                           int bn, void* stream) {
+  if (bn <= 0 || N % bn != 0) return cudaErrorInvalidValue;
+  return launch<kPaired>(w, mult, scale, out, K, N, L, layer, group, stream, bn);
 }

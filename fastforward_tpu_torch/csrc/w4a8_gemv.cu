@@ -3,8 +3,10 @@
 //
 // Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571,
 // paired body :537, group-halves body :479), matmul_w4a8_2l_gemv_argmax
-// (:708, body :650) and matmul_w4a8_2l_gemv_stacked (:1023, default body
-// :815; the :780, :879, :949 and :989 variants compute the same function).
+// (:708, body :650) and matmul_w4a8_2l_gemv_stacked (:1023): its default
+// body (:815) on flat and on pre-blocked weights, its manual-DMA kernel
+// (:879) and its split-W kernel (:989), one entry each; its :780 and :949
+// bodies compute the same function in other inner loops.
 //   y = (sum_k x[m,k] * w8[k,n]) * s_col[n] * x_scale[m],
 //   w8 = (u * m_g) - 8 * m_g per nibble plane
 // x int8 (M, K); w (K/2, N) offset-binary nibbles in the adjacent-group
@@ -18,9 +20,34 @@
 // counts as the maximum: the ids of torch.argmax over the logits).
 // Bit-exact against matmul_w4a8_2l_reference.
 //
-// The stacked entry reads layer `layer` of (L, K/2, N) weights, its
-// nibble-packed multipliers (L, ceil(K/g/8), N) int32 and s_col (L, N) in
-// place: no per-layer slice is copied.
+// The stacked entries read layer `layer` of (L, K/2, N) weights, or of
+// their pre-blocked form (L, N/bn, K/2, bn) (preblock_stacked, matmul.py:
+// 1240: each bn-column panel one contiguous chunk), its nibble-packed
+// multipliers (L, ceil(K/g/8), N) int32 and s_col (L, N) in place: no
+// per-layer slice is copied. Four routes, all through common.cuh's tile
+// and epilogue, so all bit-equal:
+//   ff_w4a8_gemv_stacked     flat, each lane's words by __ldg;
+//   ff_w4a8_gemv_preblocked  pre-blocked: the same tile given the panel
+//                            base and a row pitch of bn (any bn % 4 == 0:
+//                            a lane's 4 columns lie in one panel);
+//   ff_w4a8_gemv_manual      pre-blocked, FF_2L_MANUAL = nbuf: the TPU
+//                            kernel keeps nbuf - 1 panels in flight in a
+//                            ring of nbuf VMEM slots; here each block
+//                            streams its byte rows, unit by unit, through
+//                            a ring of `depth` shared-memory stages by
+//                            cp.async, each stage's arrival on its own
+//                            mbarrier, depth - 1 units in flight while it
+//                            computes on one (the wrapper takes depth =
+//                            min(nbuf, the block's units, what fits in
+//                            227 KB));
+//   ff_w4a8_gemv_splitw      flat, FF_2L_SPLITW: the TPU kernel reads each
+//                            panel as two half-K operands (two DMA
+//                            streams); here warps 0-3 and 4-7 walk the two
+//                            halves of the block's units, two independent
+//                            load streams whose int32 sums the warp
+//                            reduction adds in a fixed order.
+// Bound: as the decoder layer below for every route (the same bytes and
+// operations); the routes differ only in how the weight bytes travel.
 //
 // Bound on the H100: the lm_head of Llama-3-8B moves 263 MB of packed
 // weights per call against M <= 256 rows: bandwidth-bound (~78 us). A
@@ -339,18 +366,24 @@ extern "C" int ff_w4a8_gemv_argmax(const void* x, const void* xs, const void* w,
   return cudaGetLastError();
 }
 
-extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w,
-                                    const void* mult_packed, const void* s_col, void* partial,
-                                    void* out, int M, int K, int N, int L, int layer, int group,
-                                    int n_pack, int n_split, int out_kind, void* stream) {
-  (void)L;
+namespace {
+
+// Layer `layer` of stacked weights: flat (L, K/2, N), or pre-blocked
+// (L, N/bn, K/2, bn) when bn > 0 (a layer is K*N/2 bytes either way), its
+// nibble-packed multipliers and s_col; the tile reads it by ROUTE
+// (common.cuh), `depth` ring stages for kRing.
+template <int ROUTE>
+int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_packed,
+                 const void* s_col, void* partial, void* out, int M, int K, int N, int layer,
+                 int group, int n_pack, int n_split, int out_kind, int bn, int depth,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
-  cudaError_t err = ff::launch_gemv_partial<ff::kPaired, true>(
+  cudaError_t err = ff::launch_gemv_partial<ff::kPaired, true, ROUTE>(
       static_cast<const int8_t*>(x), wl, ml, static_cast<int32_t*>(partial), M, K, N, group,
-      n_split, st);
+      n_split, st, bn, depth);
   if (err != cudaSuccess) return err;
   const int32_t* p = static_cast<const int32_t*>(partial);
   const float* xsf = static_cast<const float*>(xs);
@@ -359,4 +392,52 @@ extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w
                                                   static_cast<float*>(out), nullptr, nullptr, st);
   return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
       p, n_split, M, N, sl, xsf, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
+}
+
+}  // namespace
+
+// The stacked GEMV's routes (matmul.py:1023-1237), one entry each. Flat
+// weights: the default call (:1217) and split-W (kernel :989, call :1185:
+// the block's units in two halves, one warp group each). Pre-blocked
+// weights (bn % 4 == 0): the default call on panels (:1211-1214), and the
+// manual stream (kernel :879, call :1107: `depth` shared-memory stages,
+// depth - 1 units in flight).
+extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w,
+                                    const void* mult_packed, const void* s_col, void* partial,
+                                    void* out, int M, int K, int N, int L, int layer, int group,
+                                    int n_pack, int n_split, int out_kind, void* stream) {
+  (void)L;
+  return gemv_stacked<ff::kDirect>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
+                                   group, n_pack, n_split, out_kind, 0, 0, stream);
+}
+
+extern "C" int ff_w4a8_gemv_splitw(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* partial,
+                                   void* out, int M, int K, int N, int L, int layer, int group,
+                                   int n_pack, int n_split, int out_kind, void* stream) {
+  (void)L;
+  return gemv_stacked<ff::kSplitW>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
+                                   group, n_pack, n_split, out_kind, 0, 0, stream);
+}
+
+extern "C" int ff_w4a8_gemv_preblocked(const void* x, const void* xs, const void* w,
+                                       const void* mult_packed, const void* s_col, void* partial,
+                                       void* out, int M, int K, int N, int L, int layer,
+                                       int group, int n_pack, int n_split, int out_kind, int bn,
+                                       void* stream) {
+  (void)L;
+  if (bn <= 0 || bn % 4 != 0 || N % bn != 0) return cudaErrorInvalidValue;
+  return gemv_stacked<ff::kDirect>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
+                                   group, n_pack, n_split, out_kind, bn, 0, stream);
+}
+
+extern "C" int ff_w4a8_gemv_manual(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* partial,
+                                   void* out, int M, int K, int N, int L, int layer, int group,
+                                   int n_pack, int n_split, int out_kind, int bn, int depth,
+                                   void* stream) {
+  (void)L;
+  if (bn <= 0 || bn % 4 != 0 || N % bn != 0) return cudaErrorInvalidValue;
+  return gemv_stacked<ff::kRing>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
+                                 group, n_pack, n_split, out_kind, bn, depth, stream);
 }

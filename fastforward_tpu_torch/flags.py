@@ -1,9 +1,10 @@
 """The serving flags the port reads, with the JAX package's names, defaults
 and parsing (`fastforward_tpu/flags.py`): an unset variable gives the
-default, and the value ``"1"`` alone turns a flag on.
+default, the value ``"1"`` alone turns a boolean flag on, and an integer
+flag is ``int`` of its value.
 
-They select routes of the stacked decode step (`serving/stacked.py`),
-read on every call of `serving_forward_stacked`:
+Routes of the stacked decode step (`serving/stacked.py`), read on every
+call of `serving_forward_stacked`:
 
 - ``FF_FUSED_QKV`` (`fused_qkv`, off): the fused layer head, input RMSNorm
   + activation quantization + the qkv GEMV in one kernel;
@@ -11,6 +12,26 @@ read on every call of `serving_forward_stacked`:
   requantization + gate/up in one kernel where the fused tail is not taken;
 - ``FF_FUSED_LAYER`` (`fused_layer`, on): the fused layer tail, o_proj
   through down_proj in one kernel, at up to 64 rows.
+
+The at-rest layout of the fused paired W4A8 weights, read at
+`fuse_stacked_layers` time:
+
+- ``FF_2L_PREBLOCK`` (`two_level_preblock`, off): packed weights
+  (L, K/2, N) become (L, N/bn, K/2, bn), one contiguous panel per bn
+  columns, where N % bn == 0;
+- ``FF_2L_BLOCK_N`` (`two_level_block_n`, 512): that panel width bn.
+
+Routes of the stacked W4A8 GEMV (`kernels/matmul.py`), read at each call:
+
+- ``FF_2L_MANUAL`` (`two_level_manual_bufs`, 0): at 2 or more, pre-blocked
+  weights stream through a ring of that many shared-memory stages;
+- ``FF_2L_SPLITW`` (`two_level_split_w`, off): flat weights read as two
+  half-K streams.
+
+The greedy head of `make_stacked_decode_loop`, read when the loop is made:
+
+- ``FF_FUSED_ARGMAX`` (`fused_argmax`, on): the fused GEMV + argmax
+  lm_head, else f32 logits and their argmax.
 """
 
 import os
@@ -21,6 +42,11 @@ def _env_bool(name: str, default: bool) -> bool:
     if raw is None:
         return default
     return raw == "1"
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    return default if raw is None else int(raw)
 
 
 def fused_qkv() -> bool:
@@ -37,3 +63,32 @@ def fused_ogu() -> bool:
 def fused_layer() -> bool:
     """The fused layer tail in the stacked decode step (FF_FUSED_LAYER)."""
     return _env_bool("FF_FUSED_LAYER", True)
+
+
+def fused_argmax() -> bool:
+    """The fused GEMV + argmax lm_head of the greedy stacked decode loop
+    (FF_FUSED_ARGMAX)."""
+    return _env_bool("FF_FUSED_ARGMAX", True)
+
+
+def two_level_preblock() -> bool:
+    """Pre-blocked stacked paired W4A8 weights (L, N/bn, K/2, bn), applied
+    at fuse time (FF_2L_PREBLOCK)."""
+    return _env_bool("FF_2L_PREBLOCK", False)
+
+
+def two_level_block_n() -> int:
+    """Panel width bn of the pre-blocked layout (FF_2L_BLOCK_N)."""
+    return _env_int("FF_2L_BLOCK_N", 512)
+
+
+def two_level_manual_bufs() -> int:
+    """Stages of the manual weight stream of the stacked W4A8 GEMV over
+    pre-blocked weights; below 2, off (FF_2L_MANUAL)."""
+    return _env_int("FF_2L_MANUAL", 0)
+
+
+def two_level_split_w() -> bool:
+    """The stacked W4A8 GEMV reads flat weights as two half-K streams
+    (FF_2L_SPLITW)."""
+    return _env_bool("FF_2L_SPLITW", False)

@@ -21,6 +21,7 @@ from fastforward_tpu_torch.kernels.matmul import (
     matmul_w4a16_reference,
     matmul_w8a8,
     matmul_w8a8_reference,
+    preblock_stacked,
     quantize_rowwise,
 )
 from fastforward_tpu_torch.kernels.packing import (
@@ -47,6 +48,7 @@ __all__ = [
     "matmul_w4a8_2l_gemv",
     "matmul_w4a8_2l_gemv_stacked",
     "matmul_w4a8_2l_reference",
+    "preblock_stacked",
     "pack_int4",
     "pack_uint4_offset",
     "flash_decode_int8",

@@ -63,6 +63,11 @@ SIGNATURES = {
         # x, xs, w, mult_packed, s_col, partial, out, M, K, N, L, layer,
         # group, n_pack, n_split, out_kind, stream
         "ff_w4a8_gemv_stacked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        "ff_w4a8_gemv_splitw": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        # ... out_kind, bn, stream: pre-blocked (L, N/bn, K/2, bn) weights;
+        # ... out_kind, bn, depth, stream: the manual stream's ring stages
+        "ff_w4a8_gemv_preblocked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+        "ff_w4a8_gemv_manual": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
         # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream
         "ff_w4a8_gemv_halves": [P, P, P, P, P, I, I, I, I, I, P],
     },
@@ -86,6 +91,8 @@ SIGNATURES = {
         # w, mult (or NULL), scale, out, K, N, L, layer, group, stream
         "ff_dequant_vertical": [P, P, P, P, I, I, I, I, I, P],
         "ff_dequant_paired": [P, P, P, P, I, I, I, I, I, P],
+        # ... group, bn, stream: pre-blocked (L, N/bn, K/2, bn) weights
+        "ff_dequant_paired_preblocked": [P, P, P, P, I, I, I, I, I, I, P],
         # ... group, offset_binary, stream
         "ff_dequant_halves": [P, P, P, P, I, I, I, I, I, I, P],
     },

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from fastforward_tpu_torch import flags
 from fastforward_tpu_torch.kernels import _build
 from fastforward_tpu_torch.kernels.packing import (
     pack_int4_vertical,
@@ -325,27 +326,108 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
     return idx
 
 
+def preblock_stacked(w_packed, block_n: int):
+    """Stacked packed weights (L, K//2, N) to the pre-blocked layout (L,
+    N//bn, K//2, bn) (`matmul.py:1240`): each bn-column panel one
+    contiguous chunk. Raises ValueError unless N % block_n == 0."""
+    L, Kh, N = w_packed.shape
+    if N % block_n:
+        raise ValueError(f"N={N} not divisible by block_n={block_n}")
+    return w_packed.reshape(L, Kh, N // block_n, block_n).permute(0, 2, 1, 3).contiguous()
+
+
+def flat_layer(w_packed, layer):
+    """Layer ``layer`` of stacked packed weights as (K//2, N): flat (L,
+    K//2, N) weights as they are, pre-blocked (L, N//bn, K//2, bn) ones
+    restored to the flat form (`matmul.py:1062-1063`)."""
+    wl = w_packed[int(layer)]
+    if wl.dim() == 3:
+        nb, kh, bn = wl.shape
+        wl = wl.permute(1, 0, 2).reshape(kh, nb * bn)
+    return wl
+
+
+def stacked_gemv_route(preblocked: bool, n_groups: int, half_k: int, manual_bufs: int,
+                       split_w: bool) -> str:
+    """The kernel route of the stacked W4A8 GEMV, in the JAX package's
+    order (`matmul.py:1081-1217`), named by its launch count: the manual
+    stream for pre-blocked weights at ``FF_2L_MANUAL`` >= 2; else split-W
+    (``FF_2L_SPLITW``) for flat weights at a group count divisible by 4 and
+    an even K//2; else the default call on either layout."""
+    if preblocked and manual_bufs >= 2:
+        return "w4a8_gemv_manual"
+    if split_w and not preblocked and n_groups % 4 == 0 and half_k % 2 == 0:
+        return "w4a8_gemv_splitw"
+    return "w4a8_gemv_preblocked" if preblocked else "w4a8_gemv_stacked"
+
+
+# Shared memory a block may use on the H100, and the constants of
+# csrc/common.cuh's tile (gemv_smem_bytes, ring_smem_bytes).
+_SMEM_MAX = 232448
+_WARPS = 8
+
+
+def _tile_smem(units_per_split: int, rows_per_unit: int) -> int:
+    return (2 * _BLOCK_M * units_per_split * rows_per_unit + 2 * _BLOCK_M * units_per_split * 4
+            + _WARPS * _BLOCK_M * _BLOCK_N * 4)
+
+
+def _ring_smem(depth: int, rows_per_unit: int) -> int:
+    return -(-depth * 8 // 16) * 16 + depth * rows_per_unit * _BLOCK_N
+
+
+def manual_depth(K: int, group_size: int, n_split: int, nbuf: int) -> int:
+    """Stages of the manual stream's ring (`csrc/common.cuh` kRing): the
+    least of ``nbuf`` (``FF_2L_MANUAL``), the units (group pairs) of a
+    block's K range, and the stages that fit beside the tile in the 227 KB
+    a block may use (in place of the TPU kernel's 6 MB VMEM cap,
+    `matmul.py:1084-1085`)."""
+    n_units = K // (2 * group_size)
+    ups = -(-n_units // n_split)
+    tile = _tile_smem(ups, group_size)
+    depth = min(nbuf, ups, (_SMEM_MAX - tile) // (group_size * _BLOCK_N))
+    while depth > 0 and tile + _ring_smem(depth, group_size) > _SMEM_MAX:
+        depth -= 1
+    if depth < 1:
+        raise ValueError(f"the manual W4A8 GEMV ring has no room for a stage (K={K}, "
+                         f"group={group_size})")
+    return depth
+
+
 def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
                                 group_size: int = 128, out_dtype=torch.bfloat16):
     """Two-level W4A8 decode GEMV over stacked weights (`matmul.py:1023`).
 
-    ``w_packed`` (L, K//2, N) paired offset-binary; ``mult`` (L,
+    ``w_packed`` (L, K//2, N) paired offset-binary, or its pre-blocked
+    form (L, N//bn, K//2, bn) (`preblock_stacked`); ``mult`` (L,
     ceil(n_groups/8), N) int32 nibble-packed; ``s_col`` (L, N). Bit-exact
-    against `matmul_w4a8_2l_reference` (paired) on layer ``layer``.
+    against `matmul_w4a8_2l_reference` (paired) on layer ``layer``, whose
+    weights the plain version restores to the flat form as the JAX CPU
+    path does. On the card one entry of `csrc/w4a8_gemv.cu` per route
+    (`stacked_gemv_route`, the flags read at each call), each under its own
+    launch count: ``w4a8_gemv_stacked`` (flat), ``w4a8_gemv_preblocked``,
+    ``w4a8_gemv_manual`` (``FF_2L_MANUAL`` >= 2, pre-blocked; its ring
+    depth `manual_depth`), ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat).
     """
     layer = int(layer)
     M, K = x_q.shape
-    L, Kh, N = w_packed.shape
+    preblocked = w_packed.dim() == 4
+    if preblocked:
+        L, NB, Kh, bn = w_packed.shape
+        N = NB * bn
+    else:
+        L, Kh, N = w_packed.shape
     n_groups = K // group_size
     if x_q.device.type == "cpu":
         return matmul_w4a8_2l_reference(
-            x_q, x_scale, w_packed[layer], unpack_mult_nibbles(mult[layer], n_groups),
+            x_q, x_scale, flat_layer(w_packed, layer), unpack_mult_nibbles(mult[layer], n_groups),
             s_col[layer], None, group_size, out_dtype, paired=True,
         )
     dev = x_q.device
     _check_gemv(x_q, x_scale, K, N, group_size)
     n_pack = mult.shape[1]
-    _build.require(w_packed, "w_packed", torch.int8, (L, K // 2, N), dev)
+    _build.require(w_packed, "w_packed", torch.int8,
+                   (L, NB, K // 2, bn) if preblocked else (L, K // 2, N), dev)
     _build.require(mult, "mult", torch.int32, (L, n_pack, N), dev)
     _build.require(s_col, "s_col", torch.float32, (L, N), dev)
     if K % (2 * group_size) != 0 or group_size % 4 != 0:
@@ -359,17 +441,27 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
             f"stacked W4A8 GEMV kernel needs f32 or bf16 out, a full multiplier pack and "
             f"a valid layer (out={out_dtype}, layer={layer})"
         )
+    if preblocked and bn % 4 != 0:
+        raise ValueError(f"the pre-blocked W4A8 GEMV kernels need a panel width bn that is a "
+                         f"multiple of 4 (a lane's 4 columns in one panel), got bn={bn}")
+    manual_bufs = flags.two_level_manual_bufs()
+    route = stacked_gemv_route(preblocked, n_groups, Kh, manual_bufs, flags.two_level_split_w())
     n_split = gemv_split(M, N, K // (2 * group_size), group_size)
     partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    err = _build.lib("w4a8_gemv").ff_w4a8_gemv_stacked(
+    extra = ()
+    if route == "w4a8_gemv_preblocked":
+        extra = (bn,)
+    elif route == "w4a8_gemv_manual":
+        extra = (bn, manual_depth(K, group_size, n_split, manual_bufs))
+    err = getattr(_build.lib("w4a8_gemv"), f"ff_{route}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K, N, L, layer,
-        group_size, n_pack, n_split, 0 if out_dtype == torch.float32 else 1,
+        group_size, n_pack, n_split, 0 if out_dtype == torch.float32 else 1, *extra,
         _build.stream_ptr(dev),
     )
-    _build.launch_counts["w4a8_gemv_stacked"] += 1
-    _build.check(err, "w4a8_gemv_stacked")
+    _build.launch_counts[route] += 1
+    _build.check(err, route)
     return out
 
 
@@ -404,16 +496,22 @@ def dequantize_int4_paired_reference(w_packed, w_scale, group_size: int = 128):
     return dequantize_int4_reference(w_packed, w_scale, group_size, paired=True)
 
 
-def _dequant(entry, count, w_packed, mult, scale, layer, group_size, unit, *flags):
-    """Launch `csrc/dequant.cu` on layer ``layer`` of (L, K//2, N) weights:
-    with ``mult`` (L, K//g, N) int8 and ``scale`` = s_col (L, N), or with
-    ``mult`` None and ``scale`` = s_eff (K//g, N) at L = 1. ``unit``: the
-    K rows one layout block spans; ``flags``: the entry's extra ints."""
+def _dequant(entry, count, w_packed, mult, scale, layer, group_size, unit, *extra):
+    """Launch `csrc/dequant.cu` on layer ``layer`` of (L, K//2, N) weights
+    (or of their pre-blocked form (L, N//bn, K//2, bn), whose entry takes
+    bn as its extra int): with ``mult`` (L, K//g, N) int8 and ``scale`` =
+    s_col (L, N), or with ``mult`` None and ``scale`` = s_eff (K//g, N) at
+    L = 1. ``unit``: the K rows one layout block spans; ``extra``: the
+    entry's extra ints."""
     layer = int(layer)
-    L, K2, N = w_packed.shape
+    if w_packed.dim() == 4:
+        L, NB, K2, bn = w_packed.shape
+        N = NB * bn
+    else:
+        L, K2, N = w_packed.shape
     K = 2 * K2
     dev = w_packed.device
-    _build.require(w_packed, "w_packed", torch.int8, (L, K2, N))
+    _build.require(w_packed, "w_packed", torch.int8, w_packed.shape)
     if mult is None:
         _build.require(scale, "s_eff", torch.float32, (K // group_size, N), dev)
     else:
@@ -427,7 +525,7 @@ def _dequant(entry, count, w_packed, mult, scale, layer, group_size, unit, *flag
     out = torch.empty((K, N), dtype=torch.bfloat16, device=dev)
     err = getattr(_build.lib("dequant"), entry)(
         w_packed.data_ptr(), None if mult is None else mult.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), K, N, L, layer, group_size, *flags, _build.stream_ptr(dev),
+        out.data_ptr(), K, N, L, layer, group_size, *extra, _build.stream_ptr(dev),
     )
     _build.launch_counts[count] += 1
     _build.check(err, count)
@@ -476,12 +574,20 @@ def dequantize_int4_vertical_stacked(w_packed, mult, s_col, layer, group_size: i
 
 def dequantize_int4_paired_stacked(w_packed, mult, s_col, layer, group_size: int = 128):
     """Layer ``layer`` of stacked paired W4A8 weights to dense bf16
-    (`matmul.py:1650`, flat layout): shapes as in
-    `dequantize_int4_vertical_stacked`."""
+    (`matmul.py:1650`): shapes as in `dequantize_int4_vertical_stacked`;
+    ``w_packed`` flat (L, K//2, N), through ``ff_dequant_paired``
+    (``dequant_paired``), or pre-blocked (L, N//bn, K//2, bn)
+    (`preblock_stacked`, the branch `:1666-1686`), through
+    ``ff_dequant_paired_preblocked`` (``dequant_paired_preblocked``).
+    Bit-exact against the JAX package's CPU path, which restores the flat
+    form first."""
     layer = int(layer)
     if w_packed.device.type == "cpu":
         s_eff = mult[layer].float() * s_col[layer].float()[None, :]
-        return dequantize_int4_paired_reference(w_packed[layer], s_eff, group_size)
+        return dequantize_int4_paired_reference(flat_layer(w_packed, layer), s_eff, group_size)
+    if w_packed.dim() == 4:
+        return _dequant("ff_dequant_paired_preblocked", "dequant_paired_preblocked", w_packed,
+                        mult, s_col, layer, group_size, 2 * group_size, w_packed.shape[3])
     return _dequant("ff_dequant_paired", "dequant_paired", w_packed, mult, s_col, layer,
                     group_size, 2 * group_size)
 

@@ -1,8 +1,9 @@
 """Serving path of the port: frozen quantized weights (two-level int4,
 W8A8, W4A8, W4A16), the per-layer forward over a bf16 or INT8 `KVCache`
 and its greedy decode loop, the checkpoint loader, the stacked forward over
-a bf16 or INT8 KV cache (slab or paged pool), greedy and sampled decoding,
-and the continuous-batching engine."""
+a bf16 or INT8 KV cache (slab or paged pool) with its fused, flat or
+pre-blocked layers (`fuse_stacked_layers`, `unfuse_stacked_layers`),
+greedy and sampled decoding, and the continuous-batching engine."""
 
 from fastforward_tpu_torch.serving.batching import (
     ContinuousBatchingEngine,
@@ -26,6 +27,7 @@ from fastforward_tpu_torch.serving.stacked import (
     random_stacked_params,
     serving_forward_stacked,
     stack_serving_layers,
+    unfuse_stacked_layers,
 )
 
 __all__ = [
@@ -48,4 +50,5 @@ __all__ = [
     "serving_forward",
     "serving_forward_stacked",
     "stack_serving_layers",
+    "unfuse_stacked_layers",
 ]

@@ -39,6 +39,7 @@ from fastforward_tpu_torch.kernels.matmul import (
     dequantize_int4_paired_stacked,
     dequantize_int4_vertical,
     dequantize_int4_vertical_stacked,
+    flat_layer,
     matmul_w4a4_2l_gemv,
     matmul_w4a4_2l_gemv_stacked,
     matmul_w4a8,
@@ -157,9 +158,11 @@ class QuantLinear:
         For the two-level modes the layer index goes into the kernels, so no
         per-layer weight slice is copied: the stacked GEMVs up to
         `GEMV_MAX_M` rows, the stacked dequant before the prefill product
-        above. Other cases (the float-scale modes among them) apply
-        `__call__` to the layer's views, which copy nothing either. A
-        stacked ``in_scale`` (L,) is indexed by the layer.
+        above, on flat or (paired W4A8) pre-blocked weights alike. Other
+        cases (the float-scale modes among them) apply `__call__` to the
+        layer's views, which copy nothing either, or to a pre-blocked
+        layer restored to the flat form. A stacked ``in_scale`` (L,) is
+        indexed by the layer.
         """
         self._check()
         lead = x.shape[:-1]
@@ -194,8 +197,11 @@ class QuantLinear:
                                                group_size=g)
             out = prefill_product(x_q, x_s, w, out_dtype)
         else:
+            # a pre-blocked (L, N//bn, K//2, bn) layer restored to its flat
+            # (K//2, N) form (`engine.py:262-267`)
+            data = flat_layer(self.data, layer) if self.data.dim() == 4 else self.data[layer]
             sliced = QuantLinear(
-                self.data[layer], self.scale[layer], mode=self.mode, group_size=g,
+                data, self.scale[layer], mode=self.mode, group_size=g,
                 mult=None if self.mult is None else self.mult[layer], paired=self.paired,
                 in_scale=in_scale,
             )

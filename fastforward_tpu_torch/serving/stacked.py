@@ -23,7 +23,13 @@ tail (`:744-778`: one call for o_proj through down at B·T <= 64, paired
 ``w4a8_2l`` only; the float-scale modes take a kernel per projection), and,
 under the port's copies of the JAX flags (`fastforward_tpu_torch.flags`,
 off by default), the fused layer head (`:509-551`) and the fused o +
-gate/up head of the tail (`:779-816`). The
+gate/up head of the tail (`:779-816`). Under ``FF_2L_PREBLOCK=1``
+(read at fuse time) `fuse_stacked_layers` pre-blocks the paired W4A8
+weights into panels (`_with_packed_mult`, `:120-146`); their 4-D data
+then takes the pre-blocked GEMV and dequant routes and bypasses every
+fused route, as in the JAX package. The decode loop is greedy
+(``FF_FUSED_ARGMAX``) or sampled (`make_stacked_decode_loop`), and
+`unfuse_stacked_layers` splits fused flat layers back. The
 paged step always calls the paged append kernel (any page and head dim)
 and the paged flash-decode kernel (any page of a multiple of 4 tokens,
 1, 2, 4 or 8 query heads per kv head), also where the JAX package's TPU
@@ -66,6 +72,7 @@ from fastforward_tpu_torch.kernels.matmul import (
     fused_o_gu_stacked,
     fused_o_mlp_stacked,
     matmul_w4a8_2l_gemv_argmax,
+    preblock_stacked,
     quantize_rowwise,
 )
 from fastforward_tpu_torch.kernels.paged_attention import (
@@ -96,6 +103,7 @@ from fastforward_tpu_torch.serving.kv_cache import (
     row_starts,
 )
 from fastforward_tpu_torch.serving.paged import PagedKVCache
+from fastforward_tpu_torch.serving.sampling import SamplingParams, sample_logits
 
 # Largest B·T the fused layer tail serves (`stacked.py:744-749`), and the
 # fused o + gate/up head of the tail (`stacked.py:782`).
@@ -173,9 +181,17 @@ def _concat_ql(qls) -> QuantLinear:
 
 def _with_packed_mult(ql: QuantLinear) -> QuantLinear:
     """Attach the nibble-packed multipliers the stacked decode GEMV reads
-    (`stacked.py:120`)."""
+    (`stacked.py:120`); under ``FF_2L_PREBLOCK=1`` (read here, at fuse
+    time) also pre-block paired ``w4a8_2l`` weights into panels of
+    ``FF_2L_BLOCK_N`` columns where that width divides N (`:132-145`). The
+    layout is carried by the data's rank from then on: 4-D weights take the
+    pre-blocked GEMV and dequant routes and bypass the fused routes."""
     if ql.mult is not None and ql.mult_packed is None:
         ql = dataclasses.replace(ql, mult_packed=pack_mult_nibbles(ql.mult))
+    if flags.two_level_preblock() and ql.mode == "w4a8_2l" and ql.paired and ql.data.dim() == 3:
+        bn = flags.two_level_block_n()
+        if ql.data.shape[2] % bn == 0:
+            ql = dataclasses.replace(ql, data=preblock_stacked(ql.data, bn))
     return ql
 
 
@@ -190,6 +206,41 @@ def fuse_stacked_layers(stacked: ServingLayer) -> FusedServingLayer:
         down_proj=_with_packed_mult(stacked.down_proj),
         input_norm=stacked.input_norm,
         post_norm=stacked.post_norm,
+    )
+
+
+def unfuse_stacked_layers(fused: FusedServingLayer, config: LlamaConfig) -> ServingLayer:
+    """Inverse of `fuse_stacked_layers` (`stacked.py:165`): q/k/v and
+    gate/up split back into their own projections by slicing the N axis
+    of every per-column array (packed nibbles, scales and multipliers are
+    independent per column); the nibble-packed multipliers are dropped, as
+    in the JAX package. Flat layouts only: pre-blocked (L, N//bn, K//2, bn)
+    data raises ValueError, where the JAX slice of the last axis would cut
+    the bn axis instead of N (`ROADMAP.md` Queue 3)."""
+    nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
+    inter = config.intermediate_size
+    for name in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"):
+        if getattr(fused, name).data.dim() == 4:
+            raise ValueError(f"unfuse_stacked_layers takes flat (L, K//2, N) weights; {name} is "
+                             "pre-blocked (FF_2L_PREBLOCK)")
+
+    def split(ql, sizes):
+        outs, n0 = [], 0
+        for n in sizes:
+            def sl(a, n0=n0, n=n):
+                return None if a is None else a[..., n0:n0 + n].contiguous()
+            outs.append(dataclasses.replace(ql, data=sl(ql.data), scale=sl(ql.scale),
+                                            mult=sl(ql.mult), mult_packed=None))
+            n0 += n
+        return outs
+
+    q, k, v = split(fused.qkv_proj, [nh * d, nkv * d, nkv * d])
+    gate, up = split(fused.gateup_proj, [inter, inter])
+    return ServingLayer(
+        q_proj=q, k_proj=k, v_proj=v, o_proj=dataclasses.replace(fused.o_proj, mult_packed=None),
+        gate_proj=gate, up_proj=up,
+        down_proj=dataclasses.replace(fused.down_proj, mult_packed=None),
+        input_norm=fused.input_norm, post_norm=fused.post_norm,
     )
 
 
@@ -609,21 +660,44 @@ def serving_forward_stacked(
     return logits, new_cache
 
 
-def make_stacked_decode_loop(config: LlamaConfig, num_steps: int):
-    """Greedy decode loop over the stacked forward (`stacked.py:912`):
-    ``loop(params, stacked_layers, cache, token (B, 1))`` →
-    ``(tokens (B, num_steps), cache)``. Each step runs the greedy head
-    (the fused GEMV + argmax kernel for a two-level W4A8 lm_head, else f32
-    logits and their argmax); the cache is updated in place."""
+def make_stacked_decode_loop(config: LlamaConfig, num_steps: int, sampling=None):
+    """Decode loop over the stacked forward (`stacked.py:912`); the cache is
+    updated in place.
 
-    def loop(params, stacked_layers, cache, token):
+    Greedy by default: ``loop(params, stacked_layers, cache, token (B, 1))``
+    → ``(tokens (B, num_steps), cache)``. Under ``FF_FUSED_ARGMAX`` (on by
+    default, read here, when the loop is made) each step runs the greedy
+    head (the fused GEMV + argmax kernel for a two-level W4A8 lm_head);
+    with it off, f32 logits and their argmax (`:928-954`). With a
+    `SamplingParams` of ``temperature > 0`` the loop takes a trailing
+    ``torch.Generator`` and draws each token from the last position's f32
+    logits through `sample_logits` (`:956-968`):
+    ``loop(params, stacked_layers, cache, token, generator)``."""
+    sampling = sampling or SamplingParams(temperature=0.0)
+
+    if sampling.is_greedy:
+        fused_argmax = flags.fused_argmax()
+
+        def loop(params, stacked_layers, cache, token):
+            out = []
+            for _ in range(num_steps):
+                tok, cache = serving_forward_stacked(
+                    params, stacked_layers, config, token, cache, greedy_head=fused_argmax,
+                )
+                if not fused_argmax:
+                    tok = torch.argmax(tok[:, -1], dim=-1)
+                token = tok.to(token.dtype)[:, None]
+                out.append(token[:, 0])
+            return torch.stack(out, dim=1), cache
+
+        return loop
+
+    def loop_sampled(params, stacked_layers, cache, token, generator):
         out = []
         for _ in range(num_steps):
-            tok, cache = serving_forward_stacked(
-                params, stacked_layers, config, token, cache, greedy_head=True,
-            )
-            token = tok.to(token.dtype)[:, None]
+            logits, cache = serving_forward_stacked(params, stacked_layers, config, token, cache)
+            token = sample_logits(logits[:, -1], sampling, generator).to(token.dtype)[:, None]
             out.append(token[:, 0])
         return torch.stack(out, dim=1), cache
 
-    return loop
+    return loop_sampled

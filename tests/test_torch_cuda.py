@@ -6,9 +6,10 @@ one. Run them on the card with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest``: the shared conftest imports JAX, which the GPU host
-need not have). Tolerances: the GEMVs (the unpaired two-level one too), the
-W8A8 GEMM, argmax ids, the dequants and the KV appends (slab, per-layer
-and paged) are bit-equal; the W4 GEMV
+need not have). Tolerances: the GEMVs (the unpaired two-level one too, and
+every route of the stacked W4A8 GEMV: flat, pre-blocked, the manual stream
+and split-W), the W8A8 GEMM, argmax ids, the dequants (the pre-blocked one
+too) and the KV appends (slab, per-layer and paged) are bit-equal; the W4 GEMV
 (w4a16) is within 1e-4 of its largest output in f32, one bf16 ulp more in
 bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
 and bf16 K/V) are within one bf16 ulp of the largest output (rtol 8e-3),
@@ -935,3 +936,163 @@ def _map(obj, fn):
     if isinstance(obj, tuple):
         return tuple(_map(o, fn) for o in obj)
     return obj
+
+
+# --- The stacked W4A8 GEMV's routes and the pre-blocked dequant. Every
+# route computes the same integers through the same epilogue, so each is
+# bit-equal to the plain version and to the flat kernel. (K, N, bn, g):
+# Llama-3-8B's qkv at the default panel, a 192-column panel (no power of
+# two), 128-column panels, and a 20-column panel (4-byte copies).
+
+_PB_MS = [1, 8, 192, 256]
+_PB_SHAPES = [(4096, 6144, 512, 128), (1024, 384, 192, 64), (2048, 1024, 128, 128),
+              (1024, 40, 20, 64)]
+
+
+def _flag_env(**flags):
+    """os.environ with the serving flags (FF_2L_*, FF_FUSED_*) set to
+    ``flags`` only."""
+    import os
+    from unittest import mock
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("FF_2L_", "FF_FUSED_"))}
+    return mock.patch.dict(os.environ, {**env, **flags}, clear=True)
+
+
+def _stacked_w4a8(gen, M, K, N, g, dev, L=3):
+    w = _ri(gen, -128, 128, (L, K // 2, N), torch.int8, dev)
+    mult = _ri(gen, 1, 16, (L, K // g, N), torch.int8, dev)
+    mp = pack_mult_nibbles(mult).contiguous()
+    s = torch.rand((L, N), generator=gen, device=dev) * 1e-2
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    return x_q, x_s, w, mult, mp, s
+
+
+def _route_run(route, flags, x_q, x_s, w, mp, s, g, out_dtype):
+    """Each layer's GEMV under ``flags``: the outputs, and the launches
+    counted under ``route``."""
+    before = _build.launch_counts[route]
+    with _flag_env(**flags):
+        outs = [mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w, mp, s, layer, group_size=g,
+                                               out_dtype=out_dtype) for layer in range(3)]
+    return outs, _build.launch_counts[route] - before
+
+
+def _plain_stacked(x_q, x_s, w, mult, s, layer, g, out_dtype):
+    return mm.matmul_w4a8_2l_reference(x_q, x_s, w[layer], mult[layer], s[layer], None, g,
+                                       out_dtype, paired=True)
+
+
+@pytest.mark.parametrize("M", _PB_MS)
+@pytest.mark.parametrize("K,N,bn,g", _PB_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_preblocked_gemv_kernel_bit_equal(dev, M, K, N, bn, g, out_dtype):
+    gen = _gen(dev, M + N + bn)
+    x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
+    w4 = mm.preblock_stacked(w, bn)
+    outs, n = _route_run("w4a8_gemv_preblocked", {}, x_q, x_s, w4, mp, s, g, out_dtype)
+    flat, n_flat = _route_run("w4a8_gemv_stacked", {}, x_q, x_s, w, mp, s, g, out_dtype)
+    assert n == n_flat == 3
+    for layer, (out, f) in enumerate(zip(outs, flat)):
+        assert torch.equal(out, _plain_stacked(x_q, x_s, w, mult, s, layer, g, out_dtype))
+        assert torch.equal(out, f)
+
+
+def test_preblocked_gemv_rejects_a_panel_width_not_a_multiple_of_4(dev):
+    gen = _gen(dev, 6)
+    x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, 8, 256, 12, 64, dev)
+    with pytest.raises(ValueError, match="bn=6"):
+        mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, mm.preblock_stacked(w, 6), mp, s, 0,
+                                       group_size=64)
+
+
+@pytest.mark.parametrize("M", _PB_MS)
+@pytest.mark.parametrize("K,N,bn,g", _PB_SHAPES)
+@pytest.mark.parametrize("nbuf", [2, 3, 64])
+def test_manual_gemv_kernel_bit_equal(dev, M, K, N, bn, g, nbuf):
+    # nbuf 64: above the units of every block's K range (the ring's depth
+    # is cut to them)
+    gen = _gen(dev, M + N + nbuf)
+    x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
+    w4 = mm.preblock_stacked(w, bn)
+    n_split = mm.gemv_split(M, N, K // (2 * g), g)
+    depth = mm.manual_depth(K, g, n_split, nbuf)
+    assert 1 <= depth <= min(nbuf, -(-K // (2 * g) // n_split))
+    outs, n = _route_run("w4a8_gemv_manual", {"FF_2L_MANUAL": str(nbuf)}, x_q, x_s, w4, mp, s,
+                         g, torch.bfloat16)
+    assert n == 3
+    for layer, out in enumerate(outs):
+        assert torch.equal(out, _plain_stacked(x_q, x_s, w, mult, s, layer, g, torch.bfloat16))
+
+
+@pytest.mark.parametrize("M", _PB_MS)
+@pytest.mark.parametrize("K,N,g,route", [
+    (512, 384, 128, "w4a8_gemv_splitw"),       # 4 groups
+    (14336, 4096, 128, "w4a8_gemv_splitw"),    # 112 groups: Llama-3-8B's down_proj
+    (768, 256, 128, "w4a8_gemv_stacked"),      # 6 groups: the flat kernel, as in JAX
+])
+def test_splitw_gemv_kernel_bit_equal(dev, M, K, N, g, route):
+    gen = _gen(dev, M + K)
+    x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
+    outs, n = _route_run(route, {"FF_2L_SPLITW": "1"}, x_q, x_s, w, mp, s, g, torch.bfloat16)
+    assert n == 3
+    for layer, out in enumerate(outs):
+        assert torch.equal(out, _plain_stacked(x_q, x_s, w, mult, s, layer, g, torch.bfloat16))
+
+
+@pytest.mark.parametrize("K,N,bn,g", _PB_SHAPES)
+def test_preblocked_dequant_kernel_bit_equal(dev, K, N, bn, g):
+    gen = _gen(dev, K + bn)
+    L = 3
+    w = _ri(gen, -128, 128, (L, K // 2, N), torch.int8, dev)
+    mult = _ri(gen, 1, 16, (L, K // g, N), torch.int8, dev)
+    s = torch.rand((L, N), generator=gen, device=dev) * 1e-2
+    w4 = mm.preblock_stacked(w, bn)
+    before = _build.launch_counts["dequant_paired_preblocked"]
+    for layer in range(L):
+        out = mm.dequantize_int4_paired_stacked(w4, mult, s, layer, group_size=g)
+        ref = mm.dequantize_int4_paired_reference(w[layer], mult[layer].float() * s[layer][None, :],
+                                                  g)
+        assert torch.equal(out, ref)
+        assert torch.equal(out, mm.dequantize_int4_paired_stacked(w, mult, s, layer, group_size=g))
+    assert _build.launch_counts["dequant_paired_preblocked"] == before + L
+
+
+@pytest.mark.parametrize("B,flags,counts", [
+    (4, {"FF_2L_PREBLOCK": "1", "FF_2L_BLOCK_N": "128"}, {"w4a8_gemv_preblocked": 8}),
+    (4, {"FF_2L_PREBLOCK": "1", "FF_2L_BLOCK_N": "128", "FF_2L_MANUAL": "4"},
+     {"w4a8_gemv_manual": 8}),
+    (72, {"FF_2L_SPLITW": "1"}, {"w4a8_gemv_splitw": 8}),
+])
+def test_stacked_gemv_routes_decode_step(dev, B, flags, counts):
+    """One w4a8_2l decode step of a narrow model fused under the flags:
+    every projection through the route's kernel (pre-blocked weights bypass
+    the fused tail at 4 rows), and the same logits as the flat layers."""
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+    from fastforward_tpu_torch.serving import stacked as stk
+
+    config = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=2, num_kv_heads=1, head_dim=128)
+    params, layers = stk.random_stacked_params(config, mode="w4a8_2l", group_size=64, seed=4,
+                                               device=dev)
+    flat = stk.fuse_stacked_layers(layers)
+    gen = _gen(dev, 17)
+    cache = stk.StackedKVCache.create(2, B, 64, 1, 128, device=dev)
+    for t in (cache.k, cache.v):
+        t.copy_(_ri(gen, -128, 128, t.shape, torch.int8, dev))
+    for t in (cache.k_scale, cache.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.05)
+    cache.length = 40
+    copy = stk.StackedKVCache(*[t.clone() for t in (cache.k, cache.v, cache.k_scale,
+                                                    cache.v_scale)], length=40)
+    tokens = _ri(gen, 0, 512, (B, 1), torch.int64, dev)
+    with _flag_env(**flags):
+        fused = stk.fuse_stacked_layers(layers)
+        before = dict(_build.launch_counts)
+        logits, _ = stk.serving_forward_stacked(params, fused, config, tokens, cache)
+    got = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
+           if k.startswith(("w4a8_gemv_", "fused_")) and v != before.get(k, 0)}
+    assert got == counts
+    with _flag_env(FF_FUSED_LAYER="0"):  # the flat layers through the flat GEMV
+        ref, _ = stk.serving_forward_stacked(params, flat, config, tokens, copy)
+    assert torch.equal(logits, ref)

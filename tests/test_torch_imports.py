@@ -68,3 +68,24 @@ def test_build_table_covers_every_source():
     assert "ff_flash_prefill_bf16" in _build.SIGNATURES["flash_prefill"]
     assert "ff_fused_o_gu" in _build.SIGNATURES["fused_tail"]
     assert sorted(_build.SIGNATURES["fused_head"]) == ["ff_fused_norm_qkv", "ff_fused_norm_qkv_a4"]
+
+
+def _c_params(text, fn):
+    """The parameter types of ``extern "C" int fn(...)`` in a source."""
+    head = text.index(f'extern "C" int {fn}(') + len(f'extern "C" int {fn}(')
+    params = " ".join(text[head:text.index(")", head)].split())
+    return [p.rsplit(" ", 1)[0].strip() for p in params.split(",")]
+
+
+def test_build_table_argument_counts_match_the_sources():
+    # GIVEN every bound C entry point and its ctypes signature
+    for name, entries in _build.SIGNATURES.items():
+        text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        for fn, argtypes in entries.items():
+            params = _c_params(text, fn)
+            # THEN it takes as many arguments as the table passes, each a
+            # pointer where the table passes a pointer, else an int or float
+            assert len(params) == len(argtypes), (fn, params)
+            for p, t in zip(params, argtypes):
+                want = {_build.P: "*", _build.I: "int", _build.F: "float"}[t]
+                assert (p.endswith("*") if want == "*" else p == want), (fn, p, t)
