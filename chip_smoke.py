@@ -15,8 +15,15 @@ each raising on failure:
    per-layer, paged) and flash prefill (int8 and bf16 K/V) within rtol
    8e-3 of the largest output;
    every route of the stacked W4A8 GEMV (flat, pre-blocked, the manual
-   stream at 2 and 4 stages, split-W) and the pre-blocked dequant
-   bit-equal, at M = 192 and 8 with the ring depth of each shape logged;
+   stream at 2 and 4 stages, split-W, dot-raw and concat-pairs at 4 pairs
+   a unit on either layout, concat-pairs at 3, which divides no
+   projection's pair count) and the pre-blocked dequant bit-equal, at M =
+   192 and 8 with the ring depth of each shape logged;
+   the tiled W4A16 kernel (off the serving route) at bench.py's w4a16
+   prefill (M = 24,576, the four projections) within W4_GEMV_RTOL and one
+   bf16 ulp, its bias epilogue exact; every route of the int4/int8 dot
+   probe (dp4a, int8, int4 and bf16 mma.sync) bit-equal, its TOP/s and
+   the tensor-core instructions ptxas chose for each route logged;
    the fused layer tail and the fused o + gate/up head with x1 bit-equal,
    their int8 activations within one level in a stated share of elements
    and their output within rtol 8e-3; the fused layer heads (W4A8, A4) with
@@ -27,7 +34,7 @@ each raising on failure:
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
-   decoding. Fourteen runs, each with its launch counts set to 0 before it
+   decoding. Sixteen runs, each with its launch counts set to 0 before it
    and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
@@ -47,11 +54,13 @@ each raising on failure:
    (m) (b) with FF_2L_PREBLOCK=1: weights pre-blocked into 512-column
        panels at fuse time, the pre-blocked dequant and GEMV;
    (n) (b) with FF_2L_PREBLOCK=1 FF_2L_MANUAL=4: the manual stream;
-   (o) (b) with FF_2L_SPLITW=1: split-W on flat weights.
-   (m), (n) and (o) run on (b)'s seed and weights and must give (b)'s
-   greedy tokens, and its prefill logits bit for bit where (b)'s were
-   bit-equal to its warm-up's. The serving flags (FF_FUSED_*, FF_2L_*) are
-   unset for every other run and set only around (k)-(o)'s.
+   (o) (b) with FF_2L_SPLITW=1: split-W on flat weights;
+   (p) (b) with FF_2L_DOTRAW=1: the dot-raw GEMV;
+   (q) (b) with FF_2L_CONCAT_PAIRS=4: the concat-pairs GEMV.
+   (m)-(q) run on (b)'s seed and weights and must give (b)'s greedy
+   tokens, and its prefill logits bit for bit where (b)'s were bit-equal
+   to its warm-up's. The serving flags (FF_FUSED_*, FF_2L_*) are unset for
+   every other run and set only around (k)-(q)'s.
    Each prints prefill ms, decode tok/s, peak memory and profiles of one
    decode step and one prefill. (h)'s weights also go through
    `stack_serving_layers` and the stacked forward, 8 prompts of 128 tokens
@@ -85,6 +94,7 @@ also writes the log there.
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -130,6 +140,8 @@ FLAGS_L = {"FF_FUSED_QKV": "1", "FF_FUSED_OGU": "1"}     # run (l): head and o +
 FLAGS_M = {"FF_2L_PREBLOCK": "1"}                        # run (m): pre-blocked weights
 FLAGS_N = {"FF_2L_PREBLOCK": "1", "FF_2L_MANUAL": "4"}   # run (n): the manual stream
 FLAGS_O = {"FF_2L_SPLITW": "1"}                          # run (o): split-W
+FLAGS_P = {"FF_2L_DOTRAW": "1"}                          # run (p): dot-raw
+FLAGS_Q = {"FF_2L_CONCAT_PAIRS": "4"}                    # run (q): concat-pairs
 PANEL = 512   # FF_2L_BLOCK_N's default: the pre-blocked panel width of (m), (n)
 # bench.py's engine workload (measure_engine, FF_BENCH_ENGINE_PAGED=1,
 # FF_BENCH_ENGINE_SAT=1) at max_batch 32: 2 x 32 requests, pool of
@@ -142,7 +154,11 @@ _LOG = {"file": None}
 
 # The serving flags the port reads (fastforward_tpu_torch/flags.py).
 FLAG_VARS = ("FF_FUSED_QKV", "FF_FUSED_OGU", "FF_FUSED_LAYER", "FF_FUSED_ARGMAX",
-             "FF_2L_PREBLOCK", "FF_2L_BLOCK_N", "FF_2L_MANUAL", "FF_2L_SPLITW")
+             "FF_2L_PREBLOCK", "FF_2L_BLOCK_N", "FF_2L_MANUAL", "FF_2L_SPLITW", "FF_2L_DOTRAW",
+             "FF_2L_CONCAT_PAIRS")
+# The int4/int8 dot probe: chained calls a route's timing takes (P4_SCAN,
+# cut from the probe's 2000 to keep its phase to seconds) and its passes
+PROBE_SCAN, PROBE_PAIRS = 20, 2
 
 
 def flag_env(**flags):
@@ -246,15 +262,18 @@ def within_rtol(out, ref):
     return err <= FLASH_RTOL * ref.float().abs().max().item(), err
 
 
-# Largest error of the W4 GEMV's f32 outputs relative to the largest plain
-# output, per dtype, over every check of this run (w4_close).
+# Largest error of the W4 GEMV's (and the tiled W4A16 kernel's) outputs
+# relative to the largest plain output, per dtype, over every check of this
+# run (w4_close).
 W4_REL_ERR = collections.Counter()
+W4A16_TILED_REL_ERR = collections.Counter()
 
 
-def w4_close(out, ref):
-    """The W4 GEMV (tensor-core f32 sums in another order than the plain
-    version's): each output within W4_GEMV_RTOL of the largest plain output,
-    plus one bf16 ulp for bf16 outputs."""
+def w4_close(out, ref, record=W4_REL_ERR):
+    """The W4 GEMV and the tiled W4A16 kernel (tensor-core f32 sums in
+    another order than the plain version's): each output within
+    W4_GEMV_RTOL of the largest plain output, plus one bf16 ulp for bf16
+    outputs; the largest relative error kept in ``record``."""
     o, r = out.float(), ref.float()
     top = r.abs().max()
     tol = W4_GEMV_RTOL * top
@@ -263,7 +282,7 @@ def w4_close(out, ref):
         tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
     err = (o - r).abs()
     key = str(out.dtype).split(".")[-1]
-    W4_REL_ERR[key] = max(W4_REL_ERR[key], (err.max() / top).item())
+    record[key] = max(record[key], (err.max() / top).item())
     return bool((err <= tol).all()), err.max().item()
 
 
@@ -349,10 +368,19 @@ def phase_kernels(dev):
     # stream at 2 and 4 stages, split-W) under its flags; the JSON rows are
     # one decode layer at M = 192 (the manual stream at 4 stages, (n)'s)
     g = 128
-    routes = (("w4a8_gemv_stacked", "flat", {}), ("w4a8_gemv_preblocked", "pre", {}),
-              ("w4a8_gemv_manual", "pre", {"FF_2L_MANUAL": "2"}),
-              ("w4a8_gemv_manual", "pre", {"FF_2L_MANUAL": "4"}),
-              ("w4a8_gemv_splitw", "flat", FLAGS_O))
+    # (route, layout, flags, variant, JSON row at M = 192); the plain
+    # version, the same for every route, is timed over 20 calls for the
+    # first and 5 for the others
+    routes = (("w4a8_gemv_stacked", "flat", {}, "", True),
+              ("w4a8_gemv_preblocked", "pre", {}, "", True),
+              ("w4a8_gemv_manual", "pre", {"FF_2L_MANUAL": "2"}, " nbuf=2", False),
+              ("w4a8_gemv_manual", "pre", {"FF_2L_MANUAL": "4"}, " nbuf=4", True),
+              ("w4a8_gemv_splitw", "flat", FLAGS_O, "", True),
+              ("w4a8_gemv_dotraw", "flat", FLAGS_P, " flat", True),
+              ("w4a8_gemv_dotraw", "pre", FLAGS_P, f" bn={PANEL}", False),
+              ("w4a8_gemv_concat", "flat", FLAGS_Q, " cp=4 flat", True),
+              ("w4a8_gemv_concat", "pre", FLAGS_Q, f" cp=4 bn={PANEL}", False),
+              ("w4a8_gemv_concat", "flat", {"FF_2L_CONCAT_PAIRS": "3"}, " cp=3 flat", False))
     for M in (BATCH, 8):
         per = collections.defaultdict(list)
         for pname, (K, N) in PROJ.items():
@@ -364,13 +392,16 @@ def phase_kernels(dev):
             w_bf16 = mm.dequantize_int4_paired_reference(w[1], mult[1].float() * s_col[1][None, :], g)
             nbytes = K * N // 2 + mp[1].numel() * 4 + N * 4 + M * K + M * 4 + M * N * 2
             n_split = mm.gemv_split(M, N, K // (2 * g), g)
-            for name, layout, flags in routes:
+            for i, (name, layout, flags, variant, _) in enumerate(routes):
                 label = f"{pname} M={M} K={K} N={N}"
                 if layout == "pre":
                     label += f" bn={PANEL}"
                 if "FF_2L_MANUAL" in flags:
                     nbuf = int(flags["FF_2L_MANUAL"])
                     label += f" nbuf={nbuf} (ring depth {mm.manual_depth(K, g, n_split, nbuf)})"
+                if "FF_2L_CONCAT_PAIRS" in flags:
+                    cp = int(flags["FF_2L_CONCAT_PAIRS"])
+                    label += f" {cp} pairs a unit ({K // (2 * g)} pairs)"
                 wt = w4 if layout == "pre" else w
                 with flag_env(**flags):
                     r = measure(
@@ -381,24 +412,25 @@ def phase_kernels(dev):
                             x_q, x_s, w[1], unpack_mult_nibbles(mp[1], K // g), s_col[1], None, g,
                             paired=True),
                         nbytes, 2 * M * K * N, INT8_OPS_PER_S, bit_equal,
-                        library=lambda: torch.matmul(xb, w_bf16))
-                per[name, flags.get("FF_2L_MANUAL")].append(r)
+                        library=lambda: torch.matmul(xb, w_bf16), plain_n=20 if i == 0 else 5)
+                per[name, variant].append(r)
             if M == BATCH:  # the pre-blocked prefill dequant
                 nb = K * N // 2 + (K // g) * N + N * 4 + K * N * 2
-                per["dequant_paired_preblocked", None].append(measure(
+                per["dequant_paired_preblocked", ""].append(measure(
                     "dequant_paired_preblocked", f"{pname} K={K} N={N} g={g} bn={PANEL}",
                     lambda: mm.dequantize_int4_paired_stacked(w4, mult, s_col, 1, group_size=g),
                     lambda: mm.dequantize_int4_paired_reference(
                         w[1], mult[1].float() * s_col[1][None, :], g),
                     nb, K * N, F32_OPS_PER_S, bit_equal))
             del w, w4, w_bf16
-        for (name, nbuf), r in per.items():
+        in_json = {(r[0], r[3]) for r in routes if r[4]} | {("dequant_paired_preblocked", "")}
+        for (name, variant), r in per.items():
             total = add_rows(r)
-            log(f"{name}{'' if nbuf is None else f' nbuf={nbuf}'} M={M}, four projections: "
+            log(f"{name}{variant} M={M}, four projections: "
                 f"{total['ms']:.4f} ms, device {fmt_ms(total['device_ms'])}, bound "
                 f"{max(total['bytes_ms'], total['ops_ms']):.4f} ms, library "
                 f"{fmt_ms(total['library_ms'])}")
-            if M == BATCH and nbuf in (None, "4"):
+            if M == BATCH and (name, variant) in in_json:
                 rows[name] = total
         torch.cuda.empty_cache()
 
@@ -531,6 +563,111 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     rows.update(_fused_route_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
+    rows.update(_tiled_w4a16_kernel(dev, gen, randint))
+    torch.cuda.empty_cache()
+    rows.update(_probe_kernels(dev))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _tiled_w4a16_kernel(dev, gen, randint):
+    """The tiled W4A16 kernel (off the serving route) at bench.py's w4a16
+    prefill: M = 192 x 128 rows, the four projections, g128, bf16 out;
+    held within W4_GEMV_RTOL and one bf16 ulp of its plain version (timed
+    over 2 calls), its bias epilogue exactly (gate/up). Library: the route
+    it would replace, the halves dequant (#15) and torch.matmul."""
+    from fastforward_tpu_torch.kernels import matmul as mm
+
+    g, M = 128, BATCH * PROMPT
+    check = functools.partial(w4_close, record=W4A16_TILED_REL_ERR)
+    per = []
+    for pname, (K, N) in PROJ.items():
+        w = randint(-128, 128, (K // 2, N))
+        s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        per.append(measure(
+            "w4a16_gemm", f"{pname} M={M} K={K} N={N} g={g}",
+            lambda: mm.matmul_w4a16_tiled(x, w, s, None, g),
+            lambda: mm.matmul_w4a16_tiled_reference(x, w, s, None, g),
+            M * K * 2 + K * N // 2 + s.numel() * 4 + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S,
+            check, library=lambda: torch.matmul(x, mm.dequantize_int4(w, s, g)), plain_n=2))
+        if pname == "gate_up":
+            bias = torch.randn((N,), generator=gen, device=dev)
+            out = mm.matmul_w4a16_tiled(x, w, s, None, g)
+            if not torch.equal(mm.matmul_w4a16_tiled(x, w, s, bias, g),
+                               (out.float() + bias).to(torch.bfloat16)):
+                raise AssertionError("w4a16_gemm: the bias epilogue is not f32(out) + bias rounded")
+            log("w4a16_gemm gate_up: bias epilogue bit-equal to f32(out) + bias, rounded")
+            del out
+        del w, s, x
+        torch.cuda.empty_cache()
+    log(f"w4a16_gemm: largest error relative to the largest plain output "
+        f"{dict(W4A16_TILED_REL_ERR)} (limit {W4_GEMV_RTOL}, bf16 one ulp more)")
+    return {"w4a16_gemm": add_rows(per)}
+
+
+def _sass_mma(lib_path):
+    """{kernel: {tensor-core instruction: count}} of a built library, from
+    cuobjdump's SASS; empty when cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    found, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"\b([IH]MMA\.[\w.]+)", line)
+        if m and name is not None:
+            found.setdefault(name, collections.Counter())[m.group(1)] += 1
+    return found
+
+
+def _probe_kernels(dev):
+    """Every route of the int4/int8 dot probe at its default knobs (192 x
+    512 activations, 6 panels of 512 x 512, 16 rounds) in as many copies as
+    put two 64-row blocks on each SM: bit-equal to its plain version,
+    timed over PROBE_SCAN chained calls (TOP/s for the card and per SM);
+    and the tensor-core instructions in each route's SASS."""
+    from fastforward_tpu_torch.kernels import _build
+    from fastforward_tpu_torch.scripts import probe_int4 as pr
+
+    knobs = pr.Knobs()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    copies = pr.default_copies(knobs.bm, sms)
+    x, w = pr.inputs(knobs, copies, dev)
+    ops = pr.ops_per_call(knobs, copies)
+    log(f"probe: {copies} copies of ({knobs.bm},{knobs.k}) x {knobs.panels} panels x "
+        f"{knobs.rounds} rounds = {ops / 1e12:.4f} TOP a call; {PROBE_SCAN} chained calls, "
+        f"best of {PROBE_PAIRS} interleaved passes")
+    rows = {}
+    for (inst, int4), (ms, out, ref) in pr.time_routes(knobs, x, w, PROBE_SCAN,
+                                                       PROBE_PAIRS).items():
+        name = f"probe_{inst}{'_int4' if int4 and inst != 'mma_s4' else ''}"
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        tops = ops / (ms * 1e-3) / 1e12
+        log(f"probe {inst} {'int4' if int4 else 'int8'} form: {ms:.4f} ms a call, {tops:.1f} "
+            f"TOP/s on the card, {tops / sms:.3f} TOP/s per SM; output bit-equal")
+        wr = pr.prepare_weights(w, inst, int4)
+        peak = BF16_OPS_PER_S if inst == "mma_bf16" else INT8_OPS_PER_S
+        rows[name] = measure(
+            name, f"{inst} {'int4' if int4 else 'int8'} form",
+            lambda: pr.probe(x, wr, inst, int4, knobs.rounds),
+            lambda: pr.probe_reference(x, w, int4, knobs.rounds),
+            2 * x.numel() + wr.numel() * wr.element_size(), ops, peak, bit_equal, plain_n=3)
+        rows[name]["tops"] = tops
+    insts = {v: k for k, v in pr.INSTRUCTIONS.items()}
+    for fn, counts in _sass_mma(_build._lib_path("probe_int4")).items():
+        inst = fn.split("probe_kernelILi", 1)[-1].split("E", 1)[0]  # the INST argument
+        log(f"probe SASS of the {insts.get(int(inst)) if inst.isdigit() else fn} kernel: "
+            f"tensor-core instructions {dict(counts)}")
     return rows
 
 
@@ -1480,11 +1617,14 @@ def phase_serve(dev):
             {"dequant_paired": 4 * L, "fused_norm_qkv": L * STEPS, "fused_o_gu": L * STEPS,
              "w4a8_gemv_stacked": L * STEPS, **shared})
     # the rest of the stacked configurations, on (b)'s seed and weights: (m)
-    # pre-blocked, (n) pre-blocked through the manual stream, (o) split-W
+    # pre-blocked, (n) pre-blocked through the manual stream, (o) split-W,
+    # (p) dot-raw, (q) concat-pairs
     for run, flags, dequant, gemv in (
             ("m", FLAGS_M, "dequant_paired_preblocked", "w4a8_gemv_preblocked"),
             ("n", FLAGS_N, "dequant_paired_preblocked", "w4a8_gemv_manual"),
-            ("o", FLAGS_O, "dequant_paired", "w4a8_gemv_splitw")):
+            ("o", FLAGS_O, "dequant_paired", "w4a8_gemv_splitw"),
+            ("p", FLAGS_P, "dequant_paired", "w4a8_gemv_dotraw"),
+            ("q", FLAGS_Q, "dequant_paired", "w4a8_gemv_concat")):
         with flag_env(**flags):
             runs[run] = serve_run(f"({run})", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
                                   {dequant: 4 * L, gemv: 4 * L * STEPS, **shared}, against=ref_b)
@@ -1495,7 +1635,8 @@ def phase_serve(dev):
             ("w8a8", 128, "g", None, {}), ("w4a8", 128, "h", "int8", {}),
             ("w4a8_2l", 128, "i", "bf16", {}), ("w4a4_2l", 512, "k", None, FLAGS_K),
             ("w4a8_2l", 128, "l", None, FLAGS_L), ("w4a8_2l", 128, "m", None, FLAGS_M),
-            ("w4a8_2l", 128, "n", None, FLAGS_N), ("w4a8_2l", 128, "o", None, FLAGS_O)):
+            ("w4a8_2l", 128, "n", None, FLAGS_N), ("w4a8_2l", 128, "o", None, FLAGS_O),
+            ("w4a8_2l", 128, "p", None, FLAGS_P), ("w4a8_2l", 128, "q", None, FLAGS_Q)):
         with flag_env(**flags):
             launched = compare_paths(config, mode, g, dev, kv=kv)
         if launched != set(runs[run]["counts"]):
@@ -1790,7 +1931,23 @@ SOURCES = {
     "dequant_paired_preblocked": ("fastforward_tpu_torch/csrc/dequant.cu",
                                   "fastforward_tpu/kernels/matmul.py:1650 (pre-blocked branch "
                                   ":1666-1686, call :1709)"),
+    "w4a8_gemv_dotraw": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                         "fastforward_tpu/kernels/matmul.py:949 (picked at :1205-1208)"),
+    "w4a8_gemv_concat": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                         "fastforward_tpu/kernels/matmul.py:780 (entered at :834-842)"),
+    "w4a16_gemm": ("fastforward_tpu_torch/csrc/w4a16_gemm.cu",
+                   "fastforward_tpu/kernels/matmul.py:1813 (pallas_call :1866)"),
+    **{name: ("fastforward_tpu_torch/csrc/probe_int4.cu",
+              "scripts/tpu_probe_int4.py:67 (kernel :44)")
+       for name in ("probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4", "probe_mma_s4",
+                    "probe_mma_bf16")},
 }
+
+
+# Kernels no path of the JAX package serves through (0 launches, the
+# "main_path" key false): row 18's tiled W4A16 body and row 24's probe.
+OFF_MAIN_PATH = ("w4a16_gemm", "probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4",
+                 "probe_mma_s4", "probe_mma_bf16")
 
 
 def main():
@@ -1829,10 +1986,12 @@ def main():
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "h", "i",
-                                                            "engine", "k", "l", "m", "n", "o")
+                                                            "engine", "k", "l", "m", "n", "o",
+                                                            "p", "q")
                          if runs[k]["counts"].get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,
+            main_path=name not in OFF_MAIN_PATH,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(r["bytes_ms"], r["ops_ms"]),
             bound_by="bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",

@@ -78,9 +78,23 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
 //            tracked by its own mbarrier; depth - 1 units are in flight
 //            while the block computes on one (the TPU's manual
 //            multi-buffered DMA, matmul.py:879).
+// and how its inner loop forms the products (paired, packed multipliers):
+//   kDotRaw: as kDirect, but the raw nibbles u are dotted into one int32
+//            partial per group, row and column, which starts at
+//            -8 * sum(x_g) (the correction, in the unit's first warp) and is
+//            multiplied by the group multiplier once the unit's quads are
+//            done: no byte multiply in the inner loop (the TPU's dot-raw
+//            body, matmul.py:949);
+//   kConcat: as kDirect, but a unit is `cp` adjacent pairs (the last unit
+//            of a split shorter where cp does not divide its pairs): one
+//            quad loop over the unit's cp * group byte rows, the
+//            multipliers fetched as the loop enters each pair, and the
+//            correction of each pair added by the unit's first warp (the
+//            TPU's concat-pairs body, matmul.py:780, without its dropped
+//            trailing pairs).
 // The int32 sums are the same whatever the route: every route is
 // bit-equal to the others.
-enum Route { kDirect = 0, kSplitW = 1, kRing = 2 };
+enum Route { kDirect = 0, kSplitW = 1, kRing = 2, kDotRaw = 3, kConcat = 4 };
 
 // Byte row 0, column n of a layer's packed weights. bn: the panel width
 // of the pre-blocked layout (N/bn, K/2, bn), whose byte (r, n) lies at
@@ -155,6 +169,75 @@ __device__ __forceinline__ void ring_fill(int8_t* dst, uint64_t* bar, const int8
   cp_async_arrive(bar);
 }
 
+// The group multipliers of unit `unit` (a pair, or a group of the
+// group-halves layout) for the 4 columns n0.. : ma for the low nibble
+// plane, mb for the high one. PACKED: (n_pack, N) int32, 8 nibbles a
+// word; else (n_groups, N) int8.
+template <int LAYOUT, bool PACKED>
+__device__ __forceinline__ void unit_mult(const void* __restrict__ mult, int N, int n0, int unit,
+                                          unsigned ma[4], unsigned mb[4]) {
+  if (PACKED) {
+    // paired: groups 2u and 2u + 1, adjacent nibbles of one word (2u % 8
+    // is even); otherwise the unit is group `unit`
+    const int g0 = LAYOUT == kPaired ? 2 * unit : unit;
+    const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
+    const int sh = 4 * (g0 % 8);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
+      mb[c] = LAYOUT == kPaired ? (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu : ma[c];
+    }
+  } else {
+    // paired: multiplier rows 2u and 2u + 1; halves: row u for both planes
+    const int8_t* mr = static_cast<const int8_t*>(mult);
+    const int ra = LAYOUT == kPaired ? 2 * unit : unit;
+    const int rb = LAYOUT == kPaired ? 2 * unit + 1 : unit;
+    const unsigned wa = *reinterpret_cast<const unsigned*>(mr + (size_t)ra * N + n0);
+    const unsigned wb = *reinterpret_cast<const unsigned*>(mr + (size_t)rb * N + n0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ma[c] = (wa >> (8 * c)) & 0xFFu;
+      mb[c] = (wb >> (8 * c)) & 0xFFu;
+    }
+  }
+}
+
+// One quad: the 4 byte rows r[] (4 columns each) at the split's byte row
+// lr, transposed so a word holds one column's 4 rows, split into nibble
+// planes, each plane times its multiplier (MUL) or raw, and dotted (dp4a)
+// against the staged activations of the kBM rows: the low plane into
+// acc_a, the high one into acc_b (the same array unless the planes' sums
+// are kept apart).
+template <int LAYOUT, bool MUL>
+__device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, const int8_t* xb,
+                                         int KR, int lr, const unsigned ma[4],
+                                         const unsigned mb[4], int (&acc_a)[kBM][4],
+                                         int (&acc_b)[kBM][4]) {
+  unsigned col[4];
+  transpose4x4(r, col);
+  unsigned pa[4], pb[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    unsigned lo = col[c] & 0x0F0F0F0Fu, hi = (col[c] >> 4) & 0x0F0F0F0Fu;
+    if (LAYOUT == kVertical) {  // two's complement -> offset binary
+      lo ^= 0x08080808u;
+      hi ^= 0x08080808u;
+    }
+    pa[c] = MUL ? lo * ma[c] : lo;
+    pb[c] = MUL ? hi * mb[c] : hi;
+  }
+#pragma unroll
+  for (int m = 0; m < kBM; ++m) {
+    const int a = *reinterpret_cast<const int*>(xa + m * KR + lr);
+    const int b = *reinterpret_cast<const int*>(xb + m * KR + lr);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc_a[m][c] = dp4a_su(a, pa[c], acc_a[m][c]);
+      acc_b[m][c] = dp4a_su(b, pb[c], acc_b[m][c]);
+    }
+  }
+}
+
 // Split-K partial GEMV.
 //   x        (M, K) int8 activations
 //   w        (K/2, N) int8 packed weights of one layer, or its pre-blocked
@@ -170,14 +253,18 @@ __device__ __forceinline__ void ring_fill(int8_t* dst, uint64_t* bar, const int8
 // gemv_partial_kernel runs one tile per block on the grid
 // (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
 // block of a persistent grid (kDirect).
-// rows_per_unit: byte rows of one unit (group paired, else group/2).
+// rows_per_unit: byte rows of one unit (group paired, else group/2);
+// cp: the pairs of a kConcat unit (units_per_split a multiple of it).
 template <int LAYOUT, bool PACKED, int ROUTE = kDirect>
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
-          int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int depth = 0) {
+          int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int depth = 0,
+          int cp = 1) {
   static_assert(ROUTE != kRing || LAYOUT == kPaired, "the ring streams paired weights");
+  static_assert((ROUTE != kDotRaw && ROUTE != kConcat) || (LAYOUT == kPaired && PACKED),
+                "the dot-raw and concat-pairs routes take the stacked paired layout");
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
@@ -281,82 +368,96 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int half = (n_u + kGroups - 1) / kGroups;
   const int ub = (warp / kGroupWarps) * half;
   const int ue = min(n_u, ub + half);
-  for (int u = ub; u < ue; ++u) {
+  // A warp's quads of byte rows 4q.. of one unit, read straight from
+  // device memory or from the unit's ring stage.
+  auto load_quad = [&](unsigned r[4], int u, int q, int lr) {
+    if constexpr (ROUTE == kRing) {
+      const int8_t* sp = ring + (u % depth) * stage_bytes + 4 * q * kBN + lane * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const unsigned*>(sp + i * kBN);
+    } else {
+      const int8_t* wp = wcol + (size_t)(row0 + lr) * pitch;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * pitch));
+    }
+  };
+  // The offset-binary correction of unit u: once per block, by the first
+  // warp of the unit's group.
+  auto correct = [&](int u, const unsigned ma[4], const unsigned mb[4]) {
+#pragma unroll
+    for (int m = 0; m < kBM; ++m) {
+      const int sa = sxa[m * units_per_split + u], sb = sxb[m * units_per_split + u];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[m][c] -= 8 * (static_cast<int>(ma[c]) * sa + static_cast<int>(mb[c]) * sb);
+    }
+  };
+  constexpr bool kConcatUnits = ROUTE == kConcat;
+  const int step = kConcatUnits ? cp : 1;
+  for (int u = ub; u < ue; u += step) {
     if constexpr (ROUTE == kRing) mbar_wait(bar + u % depth, (u / depth) & 1);
     if (live) {
-      const int unit = u0 + u;
       unsigned ma[4], mb[4];
-      if (PACKED) {
-        // paired: groups 2u and 2u + 1, adjacent nibbles of one word
-        // (2u % 8 is even); otherwise the unit is group `unit`
-        const int g0 = LAYOUT == kPaired ? 2 * unit : unit;
-        const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
-        const int sh = 4 * (g0 % 8);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
-          mb[c] = LAYOUT == kPaired ? (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu : ma[c];
-        }
-      } else {
-        // paired: multiplier rows 2u and 2u + 1; halves: row u for both planes
-        const int8_t* mr = static_cast<const int8_t*>(mult);
-        const int ra = LAYOUT == kPaired ? 2 * unit : unit;
-        const int rb = LAYOUT == kPaired ? 2 * unit + 1 : unit;
-        const unsigned wa = *reinterpret_cast<const unsigned*>(mr + (size_t)ra * N + n0);
-        const unsigned wb = *reinterpret_cast<const unsigned*>(mr + (size_t)rb * N + n0);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ma[c] = (wa >> (8 * c)) & 0xFFu;
-          mb[c] = (wb >> (8 * c)) & 0xFFu;
-        }
-      }
-      // The correction term is added once per block and unit: by the first
-      // warp of the unit's group.
-      if (wq == 0) {
-#pragma unroll
-        for (int m = 0; m < kBM; ++m) {
-          const int sa = sxa[m * units_per_split + u], sb = sxb[m * units_per_split + u];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[m][c] -= 8 * (static_cast<int>(ma[c]) * sa + static_cast<int>(mb[c]) * sb);
-        }
-      }
-      const int quads = rows_per_unit / 4;
-#pragma unroll 2
-      for (int q = wq; q < quads; q += kGroupWarps) {
-        const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
-        unsigned r[4], col[4];
-        if constexpr (ROUTE == kRing) {
-          const int8_t* sp = ring + (u % depth) * stage_bytes + 4 * q * kBN + lane * 4;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const unsigned*>(sp + i * kBN);
-        } else {
-          const int8_t* wp = wcol + (size_t)(row0 + lr) * pitch;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * pitch));
-        }
-        transpose4x4(r, col);
-        unsigned pa[4], pb[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          unsigned lo = col[c] & 0x0F0F0F0Fu, hi = (col[c] >> 4) & 0x0F0F0F0Fu;
-          if (LAYOUT == kVertical) {  // two's complement -> offset binary
-            lo ^= 0x08080808u;
-            hi ^= 0x08080808u;
+      if constexpr (kConcatUnits) {
+        // a unit of up to cp pairs: u .. u_end - 1
+        const int u_end = min(ue, u + cp);
+        if (wq == 0)
+          for (int v = u; v < u_end; ++v) {
+            unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + v, ma, mb);
+            correct(v, ma, mb);
           }
-          pa[c] = lo * ma[c];
-          pb[c] = hi * mb[c];
+        const int quads = (u_end - u) * rows_per_unit / 4;
+        int cur = -1;
+#pragma unroll 2
+        for (int q = wq; q < quads; q += kGroupWarps) {
+          const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
+          const int v = lr / rows_per_unit;
+          if (v != cur) {
+            unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + v, ma, mb);
+            cur = v;
+          }
+          unsigned r[4];
+          load_quad(r, v, q, lr);
+          quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
         }
+      } else if constexpr (ROUTE == kDotRaw) {
+        unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + u, ma, mb);
+        // per group, row and column: -8 sum(x_g) (once per block) + sum x u
+        int pa[kBM][4], pb[kBM][4];
 #pragma unroll
         for (int m = 0; m < kBM; ++m) {
-          const int a = *reinterpret_cast<const int*>(xa + m * KR + lr);
-          const int b = *reinterpret_cast<const int*>(xb + m * KR + lr);
+          const int sa = wq == 0 ? -8 * sxa[m * units_per_split + u] : 0;
+          const int sb = wq == 0 ? -8 * sxb[m * units_per_split + u] : 0;
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            acc[m][c] = dp4a_su(a, pa[c], acc[m][c]);
-            acc[m][c] = dp4a_su(b, pb[c], acc[m][c]);
+            pa[m][c] = sa;
+            pb[m][c] = sb;
           }
+        }
+        const int quads = rows_per_unit / 4;
+#pragma unroll 2
+        for (int q = wq; q < quads; q += kGroupWarps) {
+          const int lr = u * rows_per_unit + 4 * q;
+          unsigned r[4];
+          load_quad(r, u, q, lr);
+          quad_dot<LAYOUT, false>(r, xa, xb, KR, lr, ma, mb, pa, pb);
+        }
+#pragma unroll
+        for (int m = 0; m < kBM; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[m][c] += static_cast<int>(ma[c]) * pa[m][c] + static_cast<int>(mb[c]) * pb[m][c];
+      } else {
+        unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + u, ma, mb);
+        if (wq == 0) correct(u, ma, mb);
+        const int quads = rows_per_unit / 4;
+#pragma unroll 2
+        for (int q = wq; q < quads; q += kGroupWarps) {
+          const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
+          unsigned r[4];
+          load_quad(r, u, q, lr);
+          quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
         }
       }
     }
@@ -392,10 +493,10 @@ __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
                     int M, int K, int N, int group, int units_per_split,
-                    int n_units, int bn, int depth) {
+                    int n_units, int bn, int depth, int cp) {
   extern __shared__ __align__(16) unsigned char smem[];
   gemv_tile<LAYOUT, PACKED, ROUTE>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
-                                   blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, depth);
+                                   blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, depth, cp);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
@@ -403,14 +504,18 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
          (size_t)kWarps * kBM * kBN * 4;
 }
 
-// bn: the pre-blocked panel width (0: flat); depth: the ring's stages (kRing).
+// bn: the pre-blocked panel width (0: flat); depth: the ring's stages
+// (kRing); cp: the pairs of a unit (kConcat), a split covering whole
+// units of cp pairs.
 template <int LAYOUT, bool PACKED = LAYOUT == kVertical, int ROUTE = kDirect>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
-                                int n_split, cudaStream_t stream, int bn = 0, int depth = 0) {
+                                int n_split, cudaStream_t stream, int bn = 0, int depth = 0,
+                                int cp = 1) {
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int n_units = LAYOUT == kPaired ? K / (2 * group) : K / group;
-  const int ups = (n_units + n_split - 1) / n_split;
+  if (cp < 1) return cudaErrorInvalidValue;
+  const int ups = ((n_units + cp - 1) / cp + n_split - 1) / n_split * cp;
   size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
   if (ROUTE == kRing) {
     if (depth < 1) return cudaErrorInvalidValue;
@@ -421,7 +526,7 @@ cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mu
   if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
   gemv_partial_kernel<LAYOUT, PACKED, ROUTE><<<grid, kThreads, smem, stream>>>(
-      x, w, mult, partial, M, K, N, group, ups, n_units, bn, depth);
+      x, w, mult, partial, M, K, N, group, ups, n_units, bn, depth, cp);
   return cudaGetLastError();
 }
 

@@ -1,0 +1,41 @@
+// The tiled W4A16 body: a fused dequant-GEMM of bf16 activations against
+// packed int4 weights, off the serving route.
+//
+// Replaces: fastforward_tpu/kernels/matmul.py _w4a16_kernel (:1813), the
+// body of matmul_w4a16's pallas_call (:1866). No caller of the JAX package
+// reaches it (matmul_w4a16 returns at :1860), and its rounding differs
+// from the route that serves w4a16, so the port's matmul_w4a16 keeps the
+// JAX routing and this kernel is a callable of its own (matmul_w4a16_tiled).
+//   w[k, n] = bf16(bf16(v[k, n]) * bf16(s[k / g, n]))   (two roundings)
+//   y[m, n] = sum_k bf16(x[m, k]) * w[k, n]             (f32 accumulation)
+//   out     = round(y), then round(float(out) + bias[n]) with a bias
+// x (M, K) bf16, w (K/2, N) in pack_int4's group halves, s (K/g, N) f32,
+// bias (N,) f32 or null; out (M, N) f32 or bf16. The TPU body adds one f32
+// dot per group to its accumulator; here the tensor cores' f32 sums run
+// over the k-steps of every group in turn: held within a stated tolerance.
+//
+// Bound on the H100 at bench.py's w4a16 prefill (M = 24,576 rows, a
+// Llama-3-8B layer's four fused projections, g128): 2 M K N = 1.07e13 bf16
+// operations (10.8 ms at 989 TFLOP/s) against 3.5 GB of activations,
+// weights and bf16 outputs (1.06 ms at 3.35 TB/s): operations.
+//
+// Design: w4_tile.cuh's tile at two warp rows, a block of 128 rows x 128
+// columns (8 warps of 64 x 32), the scale rounded to bf16 before the
+// multiply, the bias in the epilogue. Each weight is dequantized twice a
+// 128-row block, in registers, and never written as bf16 to device memory
+// (the route it would replace writes the whole bf16 weight, then reads it
+// in cuBLAS).
+
+#include "w4_tile.cuh"
+
+// x (M, K) bf16, w (K/2, N) pack_int4, w_scale (K/g, N) f32, bias (N,) f32
+// or null, out (M, N) f32 or bf16; group 32, 64 or 128.
+extern "C" int ff_w4a16_gemm(const void* x, const void* w, const void* w_scale, const void* bias,
+                             void* out, int M, int K, int N, int group, int out_bf16,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    return ff::w4::launch_tile<2, true, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, group,
+                                                       st);
+  return ff::w4::launch_tile<2, true, float>(x, w, w_scale, bias, out, M, K, N, group, st);
+}

@@ -5,8 +5,8 @@
 // paired body :537, group-halves body :479), matmul_w4a8_2l_gemv_argmax
 // (:708, body :650) and matmul_w4a8_2l_gemv_stacked (:1023): its default
 // body (:815) on flat and on pre-blocked weights, its manual-DMA kernel
-// (:879) and its split-W kernel (:989), one entry each; its :780 and :949
-// bodies compute the same function in other inner loops.
+// (:879), its split-W kernel (:989), its dot-raw body (:949) and its
+// concat-pairs body (:780), one entry each.
 //   y = (sum_k x[m,k] * w8[k,n]) * s_col[n] * x_scale[m],
 //   w8 = (u * m_g) - 8 * m_g per nibble plane
 // x int8 (M, K); w (K/2, N) offset-binary nibbles in the adjacent-group
@@ -45,7 +45,24 @@
 //                            streams); here warps 0-3 and 4-7 walk the two
 //                            halves of the block's units, two independent
 //                            load streams whose int32 sums the warp
-//                            reduction adds in a fixed order.
+//                            reduction adds in a fixed order;
+//   ff_w4a8_gemv_dotraw      either layout (bn 0: flat), FF_2L_DOTRAW: the
+//                            TPU body dots the sign-restored nibbles u - 8
+//                            and applies the group multiplier to the dot's
+//                            int32 sum; here dp4a runs on the raw u bytes
+//                            into one partial per group, row and column,
+//                            which starts at -8 * sum(x_g) and is
+//                            multiplied by the multiplier once the unit is
+//                            done: no byte multiply in the inner loop, 64
+//                            more registers a lane;
+//   ff_w4a8_gemv_concat      either layout, FF_2L_CONCAT_PAIRS = cp: the
+//                            TPU body folds cp pairs and issues one longer
+//                            dot; here a unit is cp pairs, one quad loop
+//                            over its cp * group byte rows, the splits cut
+//                            at unit boundaries. The TPU body drops the
+//                            trailing pairs when cp does not divide their
+//                            count (ROADMAP.md Queue 3); here the last unit
+//                            is shorter and every pair is computed.
 // Bound: as the decoder layer below for every route (the same bytes and
 // operations); the routes differ only in how the weight bytes travel.
 //
@@ -376,14 +393,14 @@ template <int ROUTE>
 int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_packed,
                  const void* s_col, void* partial, void* out, int M, int K, int N, int layer,
                  int group, int n_pack, int n_split, int out_kind, int bn, int depth,
-                 void* stream) {
+                 void* stream, int cp = 1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
   cudaError_t err = ff::launch_gemv_partial<ff::kPaired, true, ROUTE>(
       static_cast<const int8_t*>(x), wl, ml, static_cast<int32_t*>(partial), M, K, N, group,
-      n_split, st, bn, depth);
+      n_split, st, bn, depth, cp);
   if (err != cudaSuccess) return err;
   const int32_t* p = static_cast<const int32_t*>(partial);
   const float* xsf = static_cast<const float*>(xs);
@@ -401,7 +418,9 @@ int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_
 // the block's units in two halves, one warp group each). Pre-blocked
 // weights (bn % 4 == 0): the default call on panels (:1211-1214), and the
 // manual stream (kernel :879, call :1107: `depth` shared-memory stages,
-// depth - 1 units in flight).
+// depth - 1 units in flight). Either layout (bn 0: flat, else bn % 4 == 0):
+// the dot-raw body (:949, picked at :1205-1208) and the concat-pairs body
+// (:780, entered at :834-842; cp pairs a unit).
 extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w,
                                     const void* mult_packed, const void* s_col, void* partial,
                                     void* out, int M, int K, int N, int L, int layer, int group,
@@ -440,4 +459,25 @@ extern "C" int ff_w4a8_gemv_manual(const void* x, const void* xs, const void* w,
   if (bn <= 0 || bn % 4 != 0 || N % bn != 0) return cudaErrorInvalidValue;
   return gemv_stacked<ff::kRing>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
                                  group, n_pack, n_split, out_kind, bn, depth, stream);
+}
+
+extern "C" int ff_w4a8_gemv_dotraw(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* partial,
+                                   void* out, int M, int K, int N, int L, int layer, int group,
+                                   int n_pack, int n_split, int out_kind, int bn, void* stream) {
+  (void)L;
+  if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0))) return cudaErrorInvalidValue;
+  return gemv_stacked<ff::kDotRaw>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
+                                   group, n_pack, n_split, out_kind, bn, 0, stream);
+}
+
+extern "C" int ff_w4a8_gemv_concat(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* partial,
+                                   void* out, int M, int K, int N, int L, int layer, int group,
+                                   int n_pack, int n_split, int out_kind, int bn, int cp,
+                                   void* stream) {
+  (void)L;
+  if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0)) || cp < 1) return cudaErrorInvalidValue;
+  return gemv_stacked<ff::kConcat>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
+                                   group, n_pack, n_split, out_kind, bn, 0, stream, cp);
 }

@@ -26,7 +26,11 @@ Routes of the stacked W4A8 GEMV (`kernels/matmul.py`), read at each call:
 - ``FF_2L_MANUAL`` (`two_level_manual_bufs`, 0): at 2 or more, pre-blocked
   weights stream through a ring of that many shared-memory stages;
 - ``FF_2L_SPLITW`` (`two_level_split_w`, off): flat weights read as two
-  half-K streams.
+  half-K streams;
+- ``FF_2L_DOTRAW`` (`two_level_dotraw`, off): either layout, the raw
+  nibbles dotted per group and the multiplier applied to the group's sum;
+- ``FF_2L_CONCAT_PAIRS`` (`two_level_concat_pairs`, 1): above 1, either
+  layout walks that many adjacent group pairs as one unit.
 
 The greedy head of `make_stacked_decode_loop`, read when the loop is made:
 
@@ -92,3 +96,15 @@ def two_level_split_w() -> bool:
     """The stacked W4A8 GEMV reads flat weights as two half-K streams
     (FF_2L_SPLITW)."""
     return _env_bool("FF_2L_SPLITW", False)
+
+
+def two_level_dotraw() -> bool:
+    """The stacked W4A8 GEMV dots the raw nibbles and applies each group's
+    multiplier to its sum (FF_2L_DOTRAW)."""
+    return _env_bool("FF_2L_DOTRAW", False)
+
+
+def two_level_concat_pairs() -> int:
+    """Adjacent group pairs one unit of the stacked W4A8 GEMV walks; 1 (the
+    default) or less, one pair (FF_2L_CONCAT_PAIRS)."""
+    return _env_int("FF_2L_CONCAT_PAIRS", 1)

@@ -33,7 +33,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "fastforward_tpu_torch"
 
 SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill",
-           "fused_tail", "w8a8_gemm", "w4_gemv", "fused_head")
+           "fused_tail", "w8a8_gemm", "w4_gemv", "fused_head", "w4a16_gemm", "probe_int4")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -68,6 +68,10 @@ SIGNATURES = {
         # ... out_kind, bn, depth, stream: the manual stream's ring stages
         "ff_w4a8_gemv_preblocked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
         "ff_w4a8_gemv_manual": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+        # ... out_kind, bn (0: flat), stream; ... out_kind, bn, cp (pairs a
+        # unit), stream
+        "ff_w4a8_gemv_dotraw": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+        "ff_w4a8_gemv_concat": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
         # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream
         "ff_w4a8_gemv_halves": [P, P, P, P, P, I, I, I, I, I, P],
     },
@@ -126,6 +130,14 @@ SIGNATURES = {
     "w4_gemv": {
         # x, w, w_scale, out, M, K, N, group, out_bf16, stream
         "ff_w4_gemv": [P, P, P, P, I, I, I, I, I, P],
+    },
+    "w4a16_gemm": {
+        # x, w, w_scale, bias (or NULL), out, M, K, N, group, out_bf16, stream
+        "ff_w4a16_gemm": [P, P, P, P, P, I, I, I, I, I, P],
+    },
+    "probe_int4": {
+        # x, w, out, R, K, N, panels, rounds, int4, inst, stream
+        "ff_probe_int4": [P, P, P, I, I, I, I, I, I, I, P],
     },
 }
 

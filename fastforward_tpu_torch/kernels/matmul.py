@@ -7,7 +7,8 @@ Each wrapper dispatches on the device of its tensors: a CPU tensor runs
 the plain PyTorch version beside it (the port of the JAX oracle), a CUDA
 tensor launches the hand-written kernel (`csrc/a4_gemv.cu`,
 `csrc/w4a8_gemv.cu`, `csrc/w4_gemv.cu`, `csrc/w8a8_gemm.cu`,
-`csrc/dequant.cu`, `csrc/fused_tail.cu`, `csrc/fused_head.cu`) or raises. There is no fallback
+`csrc/dequant.cu`, `csrc/fused_tail.cu`, `csrc/fused_head.cu`,
+`csrc/w4a16_gemm.cu`) or raises. There is no fallback
 from one to the other. `matmul_w4a8` and `matmul_w4a16` take the JAX
 package's TPU routing: a GEMV up to `GEMV_MAX_M` rows, else the dequant
 and a dense product.
@@ -348,17 +349,59 @@ def flat_layer(w_packed, layer):
 
 
 def stacked_gemv_route(preblocked: bool, n_groups: int, half_k: int, manual_bufs: int,
-                       split_w: bool) -> str:
+                       split_w: bool, dotraw: bool = False, concat_pairs: int = 1) -> str:
     """The kernel route of the stacked W4A8 GEMV, in the JAX package's
-    order (`matmul.py:1081-1217`), named by its launch count: the manual
-    stream for pre-blocked weights at ``FF_2L_MANUAL`` >= 2; else split-W
-    (``FF_2L_SPLITW``) for flat weights at a group count divisible by 4 and
-    an even K//2; else the default call on either layout."""
+    order (`matmul.py:1081-1217`, `:834`), named by its launch count: the
+    manual stream for pre-blocked weights at ``FF_2L_MANUAL`` >= 2; else
+    split-W (``FF_2L_SPLITW``) for flat weights at a group count divisible
+    by 4 and an even K//2; else, on either layout, the dot-raw body
+    (``FF_2L_DOTRAW``), then the concat-pairs body (``FF_2L_CONCAT_PAIRS``
+    above 1), then the default call."""
     if preblocked and manual_bufs >= 2:
         return "w4a8_gemv_manual"
     if split_w and not preblocked and n_groups % 4 == 0 and half_k % 2 == 0:
         return "w4a8_gemv_splitw"
+    if dotraw:
+        return "w4a8_gemv_dotraw"
+    if concat_pairs > 1:
+        return "w4a8_gemv_concat"
     return "w4a8_gemv_preblocked" if preblocked else "w4a8_gemv_stacked"
+
+
+def matmul_w4a8_2l_dotraw_reference(x_q, x_scale, w_packed, mult, s_col,
+                                    group_size: int = 128, out_dtype=torch.bfloat16):
+    """Plain version of the dot-raw route (the TPU body `matmul.py:949`):
+    per group the integer dot of x with the sign-restored nibbles u - 8 of
+    the paired layout (K//2, N), times the group's multiplier (K//g, N),
+    summed over groups; the oracle's epilogue. The integers are the
+    oracle's, so the result is `matmul_w4a8_2l_reference`'s bit for bit."""
+    M, K = x_q.shape
+    N = w_packed.shape[1]
+    G = K // group_size
+    v = unpack_uint4_offset_paired(w_packed, group_size).double().reshape(G, group_size, N)
+    xg = x_q.double().reshape(M, G, group_size).transpose(0, 1)
+    acc = (torch.bmm(xg, v) * mult.double()[:, None, :]).sum(0)
+    return _epilogue(acc.float(), s_col, x_scale, None, out_dtype)
+
+
+def matmul_w4a8_2l_concat_reference(x_q, x_scale, w_packed, mult, s_col, concat_pairs: int,
+                                    group_size: int = 128, out_dtype=torch.bfloat16):
+    """Plain version of the concat-pairs route (the TPU body `matmul.py:780`):
+    units of ``concat_pairs`` adjacent group pairs, each unit's weights
+    folded with their multipliers and dotted in one product over its
+    2 * concat_pairs * group rows, the unit products summed. Where
+    ``concat_pairs`` does not divide the pair count the last unit is
+    shorter: every pair is computed, as the oracle computes it (the TPU
+    body drops the trailing pairs, `ROADMAP.md` Queue 3). The result is
+    `matmul_w4a8_2l_reference`'s bit for bit."""
+    K = x_q.shape[1]
+    N = w_packed.shape[1]
+    G = K // group_size
+    v = unpack_uint4_offset_paired(w_packed, group_size).to(torch.int32).reshape(G, group_size, N)
+    w8 = (v * mult.to(torch.int32)[:, None, :]).reshape(K, N).double()
+    rows = 2 * concat_pairs * group_size
+    acc = sum(x_q[:, k0:k0 + rows].double() @ w8[k0:k0 + rows] for k0 in range(0, K, rows))
+    return _epilogue(acc.float(), s_col, x_scale, None, out_dtype)
 
 
 # Shared memory a block may use on the H100, and the constants of
@@ -403,11 +446,15 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     ceil(n_groups/8), N) int32 nibble-packed; ``s_col`` (L, N). Bit-exact
     against `matmul_w4a8_2l_reference` (paired) on layer ``layer``, whose
     weights the plain version restores to the flat form as the JAX CPU
-    path does. On the card one entry of `csrc/w4a8_gemv.cu` per route
-    (`stacked_gemv_route`, the flags read at each call), each under its own
-    launch count: ``w4a8_gemv_stacked`` (flat), ``w4a8_gemv_preblocked``,
+    path does. The route (`stacked_gemv_route`) follows the flags read at
+    each call; on the CPU the dot-raw and concat-pairs routes run their own
+    plain versions, the others the oracle. On the card one entry of
+    `csrc/w4a8_gemv.cu` per route, each under its own launch count:
+    ``w4a8_gemv_stacked`` (flat), ``w4a8_gemv_preblocked``,
     ``w4a8_gemv_manual`` (``FF_2L_MANUAL`` >= 2, pre-blocked; its ring
-    depth `manual_depth`), ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat).
+    depth `manual_depth`), ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat),
+    ``w4a8_gemv_dotraw`` (``FF_2L_DOTRAW=1``) and ``w4a8_gemv_concat``
+    (``FF_2L_CONCAT_PAIRS`` above 1), the last two on either layout.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -417,12 +464,19 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
         N = NB * bn
     else:
         L, Kh, N = w_packed.shape
+        bn = 0
     n_groups = K // group_size
+    manual_bufs, concat_pairs = flags.two_level_manual_bufs(), flags.two_level_concat_pairs()
+    route = stacked_gemv_route(preblocked, n_groups, Kh, manual_bufs, flags.two_level_split_w(),
+                               flags.two_level_dotraw(), concat_pairs)
     if x_q.device.type == "cpu":
-        return matmul_w4a8_2l_reference(
-            x_q, x_scale, flat_layer(w_packed, layer), unpack_mult_nibbles(mult[layer], n_groups),
-            s_col[layer], None, group_size, out_dtype, paired=True,
-        )
+        args = (x_q, x_scale, flat_layer(w_packed, layer),
+                unpack_mult_nibbles(mult[layer], n_groups), s_col[layer])
+        if route == "w4a8_gemv_dotraw":
+            return matmul_w4a8_2l_dotraw_reference(*args, group_size, out_dtype)
+        if route == "w4a8_gemv_concat":
+            return matmul_w4a8_2l_concat_reference(*args, concat_pairs, group_size, out_dtype)
+        return matmul_w4a8_2l_reference(*args, None, group_size, out_dtype, paired=True)
     dev = x_q.device
     _check_gemv(x_q, x_scale, K, N, group_size)
     n_pack = mult.shape[1]
@@ -444,14 +498,21 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     if preblocked and bn % 4 != 0:
         raise ValueError(f"the pre-blocked W4A8 GEMV kernels need a panel width bn that is a "
                          f"multiple of 4 (a lane's 4 columns in one panel), got bn={bn}")
-    manual_bufs = flags.two_level_manual_bufs()
-    route = stacked_gemv_route(preblocked, n_groups, Kh, manual_bufs, flags.two_level_split_w())
-    n_split = gemv_split(M, N, K // (2 * group_size), group_size)
+    n_pairs = K // (2 * group_size)
+    if route == "w4a8_gemv_concat":
+        # a unit of concat_pairs pairs (at most all of them); splits cut at
+        # unit boundaries
+        cp = min(concat_pairs, n_pairs)
+        n_split = gemv_split(M, N, -(-n_pairs // cp), cp * group_size)
+    else:
+        n_split = gemv_split(M, N, n_pairs, group_size)
     partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     extra = ()
-    if route == "w4a8_gemv_preblocked":
+    if route in ("w4a8_gemv_preblocked", "w4a8_gemv_dotraw"):
         extra = (bn,)
+    elif route == "w4a8_gemv_concat":
+        extra = (bn, cp)
     elif route == "w4a8_gemv_manual":
         extra = (bn, manual_depth(K, group_size, n_split, manual_bufs))
     err = getattr(_build.lib("w4a8_gemv"), f"ff_{route}")(
@@ -841,7 +902,8 @@ def matmul_w4a16(x, w_packed, w_scale, bias=None, group_size: int = 128, out_dty
     """Weight-only int4 matmul under the JAX package's TPU routing
     (`matmul.py:1832-1860`): up to `GEMV_MAX_M` rows `matmul_w4_gemv`; more
     rows dequantize the weight to bf16 and take a dense product with f32
-    accumulation. (The tiled Pallas body after `:1860` is unreachable.)"""
+    accumulation. (The tiled Pallas body after `:1860` is unreachable; the
+    port has it as `matmul_w4a16_tiled`.)"""
     out_dtype = out_dtype or x.dtype
     xb = x.to(torch.bfloat16).contiguous()
     if x.shape[0] <= GEMV_MAX_M:
@@ -850,6 +912,71 @@ def matmul_w4a16(x, w_packed, w_scale, bias=None, group_size: int = 128, out_dty
             out = (out.float() + bias.float()).to(out_dtype)
         return out
     return dense_product(xb, dequantize_int4(w_packed, w_scale, group_size), out_dtype, bias)
+
+
+def matmul_w4a16_tiled_reference(x, w_packed, w_scale, bias=None, group_size: int = 128,
+                                 out_dtype=None):
+    """Plain version of `matmul_w4a16_tiled`: what the tiled TPU body
+    `_w4a16_kernel` (`matmul.py:1813`) computes. The weight rounds twice,
+    ``w = bf16(bf16(v) * bf16(s))``; per group the f32 dot of bf16(x) with
+    it, the group dots added to an f32 sum in group order; the sum cast to
+    ``out_dtype`` (x's dtype by default); a bias added in f32 to that
+    rounded output and rounded again (`:1886-1887`)."""
+    out_dtype = out_dtype or x.dtype
+    M, K = x.shape
+    N = w_packed.shape[1]
+    G = K // group_size
+    v = unpack_int4(w_packed, group_size).to(torch.bfloat16).reshape(G, group_size, N)
+    w = (v * w_scale.to(torch.bfloat16)[:, None, :]).float()
+    xg = x.to(torch.bfloat16).float().reshape(M, G, group_size)
+    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        acc = acc + xg[:, g] @ w[g]
+    out = acc.to(out_dtype)
+    if bias is not None:
+        out = (out.float() + bias.float()).to(out_dtype)
+    return out
+
+
+def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, out_dtype=None):
+    """The tiled W4A16 body as a callable kernel (`_w4a16_kernel`,
+    `matmul.py:1813`, `pallas_call` `:1866`): x (M, K), cast to bf16;
+    w_packed (K//2, N) `pack_int4`; w_scale (K//g, N) f32; bias (N,) or
+    None; out_dtype f32 or bf16 (x's dtype by default). No caller of the
+    JAX package reaches that body (`matmul_w4a16` returns at `:1860`) and
+    it rounds the weight twice where the serving route rounds once, so
+    `matmul_w4a16` keeps the JAX routing and nothing in the port calls
+    this. On CUDA `csrc/w4a16_gemm.cu` (bf16 tensor cores, the weight
+    dequantized in registers; counted under ``w4a16_gemm``): its f32 sums
+    run in another order than `matmul_w4a16_tiled_reference`'s, held
+    within a stated tolerance."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return matmul_w4a16_tiled_reference(x, w_packed, w_scale, bias, group_size, out_dtype)
+    M, K = x.shape
+    N = w_packed.shape[1]
+    dev = x.device
+    xb = x.to(torch.bfloat16).contiguous()
+    _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
+    _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
+    if bias is not None:
+        bias = bias.float().contiguous()
+        _build.require(bias, "bias", torch.float32, (N,), dev)
+    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
+            or group_size not in _MMA_GROUPS or K % group_size != 0:
+        raise ValueError(
+            f"W4A16 tiled kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, group 32, 64 or "
+            f"128 and K % group == 0 (out={out_dtype}, M={M}, N={N}, group={group_size}, K={K})"
+        )
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _build.lib("w4a16_gemm").ff_w4a16_gemm(
+        xb.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N, group_size,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.launch_counts["w4a16_gemm"] += 1
+    _build.check(err, "w4a16_gemm")
+    return out
 
 
 # --- Fused W4A8 layer tail (`matmul.py:1909-2049`, `:2263-2433`) -------------

@@ -16,7 +16,11 @@ and bf16 K/V) are within one bf16 ulp of the largest output (rtol 8e-3),
 and paged flash decode gives the slab kernel's bits over the same tokens.
 The fused layer tail: x1 bit-equal, the int8 activations hq and x2 within
 one level (the IEEE rsqrt and exp round unlike PyTorch's in a few rows),
-the output within rtol 8e-3.
+the output within rtol 8e-3. The stacked W4A8 GEMV's dot-raw and
+concat-pairs routes are bit-equal too (either layout; the last unit of a
+concat-pairs split shorter), and so is every route of the int4/int8 dot
+probe; the tiled W4A16 kernel is held as the W4 GEMV (its bias epilogue
+exactly).
 """
 
 import pytest
@@ -1063,6 +1067,10 @@ def test_preblocked_dequant_kernel_bit_equal(dev, K, N, bn, g):
     (4, {"FF_2L_PREBLOCK": "1", "FF_2L_BLOCK_N": "128", "FF_2L_MANUAL": "4"},
      {"w4a8_gemv_manual": 8}),
     (72, {"FF_2L_SPLITW": "1"}, {"w4a8_gemv_splitw": 8}),
+    (4, {"FF_2L_PREBLOCK": "1", "FF_2L_BLOCK_N": "128", "FF_2L_DOTRAW": "1"},
+     {"w4a8_gemv_dotraw": 8}),
+    (72, {"FF_2L_CONCAT_PAIRS": "3"}, {"w4a8_gemv_concat": 8}),
+    (72, {"FF_2L_DOTRAW": "1", "FF_2L_CONCAT_PAIRS": "4"}, {"w4a8_gemv_dotraw": 8}),
 ])
 def test_stacked_gemv_routes_decode_step(dev, B, flags, counts):
     """One w4a8_2l decode step of a narrow model fused under the flags:
@@ -1096,3 +1104,105 @@ def test_stacked_gemv_routes_decode_step(dev, B, flags, counts):
     with _flag_env(FF_FUSED_LAYER="0"):  # the flat layers through the flat GEMV
         ref, _ = stk.serving_forward_stacked(params, flat, config, tokens, copy)
     assert torch.equal(logits, ref)
+
+
+@pytest.mark.parametrize("M", _PB_MS)
+@pytest.mark.parametrize("K,N,bn,g", _PB_SHAPES + [(14336, 4096, None, 128), (768, 260, None, 64)])
+def test_dotraw_gemv_kernel_bit_equal(dev, M, K, N, bn, g):
+    gen = _gen(dev, M + K + N)
+    x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
+    wt = w if bn is None else mm.preblock_stacked(w, bn)
+    outs, n = _route_run("w4a8_gemv_dotraw", {"FF_2L_DOTRAW": "1"}, x_q, x_s, wt, mp, s, g,
+                         torch.bfloat16)
+    assert n == 3
+    for layer, out in enumerate(outs):
+        assert torch.equal(out, _plain_stacked(x_q, x_s, w, mult, s, layer, g, torch.bfloat16))
+
+
+@pytest.mark.parametrize("M", _PB_MS)
+@pytest.mark.parametrize("K,N,bn,g,cp", [
+    (14336, 4096, None, 128, 3),    # 56 pairs: units of 3, the last of 2
+    (14336, 4096, 512, 128, 4),     # Llama-3-8B's down_proj, (q)'s count
+    (4096, 6144, 192, 128, 5),      # 16 pairs: the last unit of 1
+    (768, 384, None, 128, 2),       # 3 pairs: the pair JAX's body drops
+    (1024, 40, 20, 64, 64),         # one unit of every pair
+])
+def test_concat_gemv_kernel_bit_equal(dev, M, K, N, bn, g, cp):
+    gen = _gen(dev, M + K + cp)
+    x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
+    wt = w if bn is None else mm.preblock_stacked(w, bn)
+    outs, n = _route_run("w4a8_gemv_concat", {"FF_2L_CONCAT_PAIRS": str(cp)}, x_q, x_s, wt, mp,
+                         s, g, torch.float32)
+    assert n == 3
+    for layer, out in enumerate(outs):
+        assert torch.equal(out, _plain_stacked(x_q, x_s, w, mult, s, layer, g, torch.float32))
+        assert torch.equal(out, mm.matmul_w4a8_2l_concat_reference(
+            x_q, x_s, w[layer], mult[layer], s[layer], cp, g, torch.float32))
+
+
+@pytest.mark.parametrize("M", [1, 100, 300])
+@pytest.mark.parametrize("K,N,g", [(4096, 6144, 128), (1024, 4100, 64), (256, 40, 32)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a16_tiled_kernel_within_tolerance(dev, M, K, N, g, out_dtype):
+    gen = _gen(dev, M + K + N)
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    s = torch.rand((K // g, N), generator=gen, device=dev) * 1e-2
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn((N,), generator=gen, device=dev)
+    before = _build.launch_counts["w4a16_gemm"]
+    out = mm.matmul_w4a16_tiled(x, w, s, None, g, out_dtype)
+    with_bias = mm.matmul_w4a16_tiled(x, w, s, bias, g, out_dtype)
+    assert _build.launch_counts["w4a16_gemm"] == before + 2
+    # held as the W4 GEMV: within W4_GEMV_RTOL of the largest f32 output,
+    # one bf16 ulp more for bf16 outputs
+    ref32 = mm.matmul_w4a16_tiled_reference(x, w, s, None, g, torch.float32)
+    tol = W4_GEMV_RTOL * ref32.abs().max()
+    if out_dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(ref32)
+    assert out.dtype == out_dtype and ((out.float() - ref32).abs() <= tol).all()
+    # the bias epilogue adds in f32 to the rounded output and rounds again
+    assert torch.equal(with_bias, (out.float() + bias).to(out_dtype))
+
+
+def test_w4a16_tiled_rejects_what_the_kernel_does_not_take(dev):
+    gen = _gen(dev, 9)
+    w = _ri(gen, -128, 128, (128, 64), torch.int8, dev)
+    s = torch.rand((2, 64), generator=gen, device=dev)
+    x = torch.randn((4, 256), generator=gen, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="group 32, 64 or 128"):
+        mm.matmul_w4a16_tiled(x, w, torch.rand((1, 64), device=dev), None, 256)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mm.matmul_w4a16_tiled(x, w, s, None, 128, torch.float16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mm.matmul_w4a16_tiled(x, w.cpu(), s, None, 128)
+
+
+@pytest.mark.parametrize("inst,int4", [("dp4a", False), ("mma_s8", False), ("mma_s8", True),
+                                       ("mma_s4", True), ("mma_bf16", False), ("dp4a", True),
+                                       ("mma_bf16", True)])
+@pytest.mark.parametrize("copies,bm,k,panels,rounds", [(1, 192, 512, 6, 16), (3, 80, 256, 2, 5),
+                                                       (2, 16, 64, 1, 0)])
+def test_probe_kernel_bit_equal(dev, inst, int4, copies, bm, k, panels, rounds):
+    from fastforward_tpu_torch.scripts import probe_int4 as pr
+
+    knobs = pr.Knobs(bm=bm, k=k, n=k, panels=panels, rounds=rounds)
+    x, w = pr.inputs(knobs, copies, dev, seed=copies + bm)
+    before = _build.launch_counts[f"probe_{inst}"]
+    out = pr.make_probe(int4, inst, rounds)(x, w)
+    assert _build.launch_counts[f"probe_{inst}"] == before + 1
+    assert out.shape == x.shape and out.dtype == torch.int8
+    assert torch.equal(out, pr.probe_reference(x, w, int4, rounds))
+
+
+def test_probe_rejects_what_the_kernels_do_not_take(dev):
+    from fastforward_tpu_torch.scripts import probe_int4 as pr
+
+    x, w = pr.inputs(pr.Knobs(bm=16, k=1024, n=1024, panels=2), 1, dev)
+    with pytest.raises(ValueError, match="mma_s4"):
+        pr.make_probe(False, "mma_s4", 2)(x, w)
+    with pytest.raises(ValueError, match="2\\*\\*24"):
+        pr.make_probe(False, "mma_bf16", 2)(x, pr.inputs(pr.Knobs(bm=16, k=1024, n=1024,
+                                                                  panels=9), 1, dev)[1])
+    with pytest.raises(ValueError, match="K % 64"):
+        xs, ws = pr.inputs(pr.Knobs(bm=16, k=96, n=96, panels=1), 1, dev)
+        pr.make_probe(False, "mma_s8", 1)(xs, ws)

@@ -38,7 +38,8 @@ def test_port_modules_import_no_jax():
         fastforward_tpu_torch.__path__, "fastforward_tpu_torch."))
     for name in ("serving.stacked", "serving.sampling", "serving.paged", "serving.batching",
                  "serving.kv_cache", "serving.engine", "serving.loader",
-                 "kernels.paged_attention", "kernels.matmul", "kernels.kv_update", "flags"):
+                 "kernels.paged_attention", "kernels.matmul", "kernels.kv_update", "flags",
+                 "scripts.probe_int4"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -68,6 +69,10 @@ def test_build_table_covers_every_source():
     assert "ff_flash_prefill_bf16" in _build.SIGNATURES["flash_prefill"]
     assert "ff_fused_o_gu" in _build.SIGNATURES["fused_tail"]
     assert sorted(_build.SIGNATURES["fused_head"]) == ["ff_fused_norm_qkv", "ff_fused_norm_qkv_a4"]
+    for fn in ("ff_w4a8_gemv_dotraw", "ff_w4a8_gemv_concat"):
+        assert fn in _build.SIGNATURES["w4a8_gemv"]
+    assert list(_build.SIGNATURES["w4a16_gemm"]) == ["ff_w4a16_gemm"]
+    assert list(_build.SIGNATURES["probe_int4"]) == ["ff_probe_int4"]
 
 
 def _c_params(text, fn):
