@@ -19,6 +19,10 @@ each raising on failure:
    a unit on either layout, concat-pairs at 3, which divides no
    projection's pair count) and the pre-blocked dequant bit-equal, at M =
    192 and 8 with the ring depth of each shape logged;
+   the int8 tensor-core tile's three entries (the W4A8 GEMV paired and
+   unpaired, the manual stream) bit-equal at M = 1, 8, 17, 192 and 256 on
+   the lm_head (g512 and g128, f32 and bf16), the seven unfused and the
+   four fused pre-blocked projections of a layer (nbuf 2 and 4);
    the tiled W4A16 kernel (off the serving route) at bench.py's w4a16
    prefill (M = 24,576, the four projections) within W4_GEMV_RTOL and one
    bf16 ulp, its bias epilogue exact; every route of the int4/int8 dot
@@ -30,7 +34,8 @@ each raising on failure:
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
    print median times, device times, bounds and library times (the
-   two-level GEMVs: torch.matmul of the dequantized operands);
+   two-level GEMVs: torch.matmul of the dequantized operands, also at M =
+   8);
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
@@ -391,14 +396,15 @@ def phase_kernels(dev):
             xb = dequantized(x_q, x_s)
             w_bf16 = mm.dequantize_int4_paired_reference(w[1], mult[1].float() * s_col[1][None, :], g)
             nbytes = K * N // 2 + mp[1].numel() * 4 + N * 4 + M * K + M * 4 + M * N * 2
-            n_split = mm.gemv_split(M, N, K // (2 * g), g)
+            plan = mm.mma_plan(M, K, N, g, True)  # the manual stream's
             for i, (name, layout, flags, variant, _) in enumerate(routes):
                 label = f"{pname} M={M} K={K} N={N}"
                 if layout == "pre":
                     label += f" bn={PANEL}"
                 if "FF_2L_MANUAL" in flags:
                     nbuf = int(flags["FF_2L_MANUAL"])
-                    label += f" nbuf={nbuf} (ring depth {mm.manual_depth(K, g, n_split, nbuf)})"
+                    label += (f" nbuf={nbuf} (ring depth {mm.manual_depth(plan, nbuf)}, "
+                              f"{plan.n_split} splits)")
                 if "FF_2L_CONCAT_PAIRS" in flags:
                     cp = int(flags["FF_2L_CONCAT_PAIRS"])
                     label += f" {cp} pairs a unit ({K // (2 * g)} pairs)"
@@ -451,16 +457,19 @@ def phase_kernels(dev):
         rows[name] = add_rows(per)
 
     # --- W4A8 two-level lm_head, paired, N = 128256, g512: M = 8 and 192,
-    # f32 and bf16 logits and the argmax head; the JSON row is the argmax
-    # head at M = 192 (the decode step's)
+    # f32 and bf16 logits (the tensor-core GEMV, row 5) and the argmax head
+    # (row 4); the JSON rows are the f32 GEMV (the prefill's) and the argmax
+    # head (the decode step's) at M = 192. Library: torch.matmul of the
+    # dequantized activations and weight.
     K, N, g = 4096, 128256, 512
     w = randint(-128, 128, (K // 2, N))
     mult = randint(1, 16, (K // g, N))
     s_col = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    w_bf16 = mm.dequantize_int4_paired_reference(w, mult.float() * s_col[None, :], g)
     for M in (8, BATCH):
         x_q, x_s = mm.quantize_rowwise(act(M, K))
+        xb = dequantized(x_q, x_s)
         nbytes = K * N // 2 + K // g * N + N * 4 + M * K + M * 4
-        errs = []
         for out_dtype in (torch.float32, torch.bfloat16):
             r = measure(
                 "w4a8_gemv", f"lm_head {out_dtype} M={M}",
@@ -468,17 +477,19 @@ def phase_kernels(dev):
                 lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w, mult, s_col, None, g, out_dtype,
                                                     paired=True),
                 nbytes + M * N * (4 if out_dtype == torch.float32 else 2), 2 * M * K * N,
-                INT8_OPS_PER_S, bit_equal)
-            errs.append(r["max_abs_err"])
+                INT8_OPS_PER_S, bit_equal, library=lambda: torch.matmul(xb, w_bf16))
+            if M == BATCH and out_dtype == torch.float32:
+                rows["w4a8_gemv"] = r
         r = measure(
-            "w4a8_gemv", f"lm_head argmax M={M}",
+            "w4a8_gemv_argmax", f"lm_head argmax M={M}",
             lambda: mm.matmul_w4a8_2l_gemv_argmax(x_q, x_s, w, mult, s_col, g, paired=True),
             lambda: torch.argmax(mm.matmul_w4a8_2l_reference(
                 x_q, x_s, w, mult, s_col, None, g, torch.float32, paired=True), dim=-1).to(torch.int32),
             nbytes + M * 4, 2 * M * K * N, INT8_OPS_PER_S, bit_equal)
         if M == BATCH:
-            r["max_abs_err"] = max(errs + [r["max_abs_err"]])
-            rows["w4a8_gemv"] = r
+            rows["w4a8_gemv_argmax"] = r
+    del w_bf16
+    _mma_checks(dev, gen, randint)
 
     # --- KV append and flash decode: Hkv=8, G=4, d=128, S=512, layer 1 of
     # 2; B=8 with lengths 1..300, and the bench decode (B=192, lengths
@@ -568,6 +579,79 @@ def phase_kernels(dev):
     rows.update(_probe_kernels(dev))
     torch.cuda.empty_cache()
     return rows
+
+
+def _mma_checks(dev, gen, randint):
+    """The tensor-core tile's three entries bit-equal to
+    matmul_w4a8_2l_reference at the serve runs' shapes, M = 1, 8, 17, 192
+    and 256: the lm_head (K 4096, N 128256) paired at g512 and g128 and
+    unpaired at g128, f32 and bf16; the seven unfused projections of a
+    layer (LAYER_PROJ) unpaired at g128, bf16; the four fused projections
+    (PROJ) pre-blocked in PANEL-column panels through the manual stream at
+    nbuf 2 and 4, bf16 (layer 1 of 2). Each launch counted."""
+    from fastforward_tpu_torch.kernels import _build
+    from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles
+
+    n = 0
+    ms = (1, 8, 17, BATCH, 256)
+
+    def check(what, name, kern, plain):
+        nonlocal n
+        before = _build.launch_counts[name]
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref) or _build.launch_counts[name] != before + 1:
+            raise AssertionError(f"{name} {what}: not bit-equal to its plain version (err "
+                                 f"{max_err(out, ref):.3g}) or not launched once")
+        n += 1
+
+    def layer(K, N, g, L=None):
+        shape = (K // 2, N) if L is None else (L, K // 2, N)
+        mshape = (K // g, N) if L is None else (L, K // g, N)
+        s_shape = (N,) if L is None else (L, N)
+        return (randint(-128, 128, shape), randint(1, 16, mshape),
+                torch.rand(s_shape, generator=gen, device=dev) * 1e-3)
+
+    for g, paired in ((512, True), (128, True), (128, False)):
+        K, N = 4096, VOCAB
+        w, mult, s_col = layer(K, N, g)
+        name = "w4a8_gemv" if paired else "w4a8_gemv_unpaired"
+        for M in ms:
+            x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+            for dt in (torch.float32, torch.bfloat16):
+                check(f"lm_head g{g} M={M} {dt}", name,
+                      lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w, mult, s_col, g, dt,
+                                                     paired=paired),
+                      lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w, mult, s_col, None, g, dt,
+                                                          paired=paired))
+        del w, mult
+        torch.cuda.empty_cache()
+    g = 128
+    for pname, (K, N) in LAYER_PROJ.items():
+        w, mult, s_col = layer(K, N, g)
+        for M in ms:
+            x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+            check(f"{pname} M={M}", "w4a8_gemv_unpaired",
+                  lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w, mult, s_col, g, paired=False),
+                  lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w, mult, s_col, None, g,
+                                                      paired=False))
+    for pname, (K, N) in PROJ.items():
+        w, mult, s_col = layer(K, N, g, L=2)
+        w4, mp = mm.preblock_stacked(w, PANEL), pack_mult_nibbles(mult).contiguous()
+        for M in ms:
+            x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+            for nbuf in (2, 4):
+                with flag_env(FF_2L_MANUAL=str(nbuf)):
+                    check(f"{pname} M={M} nbuf={nbuf}", "w4a8_gemv_manual",
+                          lambda: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w4, mp, s_col, 1,
+                                                                 group_size=g),
+                          lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s_col[1],
+                                                              None, g, paired=True))
+        del w, w4
+    torch.cuda.empty_cache()
+    log(f"tensor-core W4A8 tile: {n} calls bit-equal (lm_head g512, g128 paired and g128 "
+        f"unpaired; LAYER_PROJ unpaired; PROJ manual at nbuf 2 and 4; M = {ms})")
 
 
 def _tiled_w4a16_kernel(dev, gen, randint):
@@ -1356,7 +1440,8 @@ def _serve(path, ids, steps, dev):
 PORT_KERNELS = ("gemv_partial_kernel", "gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
                 "flash_prefill_kernel", "fused_tail_kernel", "w8a8_kernel",
-                "w4a8_halves_kernel", "w4_gemv_kernel", "norm_quant_kernel")
+                "w4a8_halves_kernel", "w4_gemv_kernel", "norm_quant_kernel",
+                "w4a8_mma_kernel", "stage_x_kernel")
 
 
 def _report_profile(what, wall_ms, rows, top=10):
@@ -1568,11 +1653,13 @@ def phase_serve(dev):
 
     config = LlamaConfig.llama3_8b()
     L = config.num_layers
+    # the two-level lm_head: the prefill's last position through the W4A8
+    # GEMV, each decode step through the argmax head
     shared = {"flash_prefill": L, "kv_append": L * STEPS, "flash_decode": L * STEPS,
-              "w4a8_gemv": 1 + STEPS}
+              "w4a8_gemv": 1, "w4a8_gemv_argmax": STEPS}
     # the float-scale modes: their lm_head (the prefill's last position and
     # each decode step, f32 logits) runs the layers' decode kernel
-    attn = {k: v for k, v in shared.items() if k != "w4a8_gemv"}
+    attn = {k: v for k, v in shared.items() if k not in ("w4a8_gemv", "w4a8_gemv_argmax")}
     decode = 4 * L * STEPS + 1 + STEPS
     # the per-layer path: seven unfused projections a layer, the lm_head in
     # the layers' mode
@@ -1717,7 +1804,7 @@ def engine_run(label, config, params, layers, trace, dev, paged):
     other = ("kv_append", "flash_decode") if paged else ("paged_kv_append", "paged_flash_decode")
     expect = {**{k: L * st.decode_steps for k in decode + ("fused_o_mlp",)},
               **{k: 0 for k in other}, "flash_prefill": L * st.prefills,
-              "w4a8_gemv": st.decode_steps + st.prefills}
+              "w4a8_gemv": st.prefills, "w4a8_gemv_argmax": st.decode_steps}
     wrong = {k: (counts.get(k, 0), v) for k, v in expect.items() if counts.get(k, 0) != v}
     allowed = set(expect) | {"w4a8_gemv_stacked", "dequant_paired"}
     if wrong or not set(counts) <= allowed or counts.get("w4a8_gemv_stacked", 0) < L * st.decode_steps:
@@ -1879,8 +1966,10 @@ def phase_loader(dev):
 SOURCES = {
     "a4_gemv": ("fastforward_tpu_torch/csrc/a4_gemv.cu",
                 "fastforward_tpu/kernels/matmul.py:1406"),
-    "w4a8_gemv": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
-                  "fastforward_tpu/kernels/matmul.py:708 (and :571)"),
+    "w4a8_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
+                  "fastforward_tpu/kernels/matmul.py:571 (paired body :537, pallas_call :620)"),
+    "w4a8_gemv_argmax": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+                         "fastforward_tpu/kernels/matmul.py:708"),
     "kv_append": ("fastforward_tpu_torch/csrc/kv_append.cu",
                   "fastforward_tpu/kernels/kv_update.py:100"),
     "flash_decode": ("fastforward_tpu_torch/csrc/flash_decode.cu",
@@ -1913,7 +2002,7 @@ SOURCES = {
                            "fastforward_tpu/kernels/attention.py:721"),
     "flash_prefill_bf16": ("fastforward_tpu_torch/csrc/flash_prefill.cu",
                            "fastforward_tpu/kernels/attention.py:971 (bf16 KV branch)"),
-    "w4a8_gemv_unpaired": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_unpaired": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                            "fastforward_tpu/kernels/matmul.py:571 (unpaired kernel :479)"),
     "fused_norm_qkv": ("fastforward_tpu_torch/csrc/fused_head.cu",
                        "fastforward_tpu/kernels/matmul.py:2615 (kernel :2436)"),
@@ -1924,7 +2013,7 @@ SOURCES = {
     "w4a8_gemv_preblocked": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
                              "fastforward_tpu/kernels/matmul.py:1023 (pre-blocked layout, "
                              ":1055-1066, :1211-1214)"),
-    "w4a8_gemv_manual": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_manual": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                          "fastforward_tpu/kernels/matmul.py:879 (call :1107)"),
     "w4a8_gemv_splitw": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
                          "fastforward_tpu/kernels/matmul.py:989 (call :1185)"),

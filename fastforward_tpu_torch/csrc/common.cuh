@@ -1,14 +1,17 @@
 // Shared device code of the port's two-level int4 GEMVs (a4_gemv.cu,
-// w4a8_gemv.cu, fused_tail.cu): the split-K partial-sum tile and kernel,
-// and the epilogue, whose compile-time ARGMAX flag turns the logits into
-// token ids.
+// w4a8_gemv.cu, fused_tail.cu, fused_head.cu): the dp4a split-K
+// partial-sum tile and kernel, the layouts, and the epilogue, whose
+// compile-time ARGMAX flag turns the logits into token ids. (The two-level
+// W4A8 GEMV of both layouts and the manual stream run w4a8_mma.cuh's int8
+// tensor-core tile; they share the layouts, the mbarrier helpers and the
+// epilogue.)
 //
 // Both GEMVs compute, per output column n and row m,
 //   acc[m, n] = sum_g m_g[n] * sum_{k in g} x[m, k] * v[k, n]      (int32)
 //   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]
 // with v in [-8, 7] stored as nibbles and m_g in [1, 15]. They differ only
 // in where the two nibbles of a weight byte sit along K (the LAYOUT
-// template argument: vertical, adjacent-group pairs or group halves) and
+// template argument: vertical or adjacent-group pairs) and
 // how the multipliers are stored. A layer's packed weights lie flat
 // (K/2, N) or pre-blocked into contiguous panels (N/bn, K/2, bn), and the
 // ROUTE argument says how a tile reads them (below).
@@ -16,7 +19,7 @@
 // Work split. A block owns 128 columns (32 lanes x 4 adjacent columns,
 // one 4-byte load per lane per byte row, 128 contiguous bytes per warp) and
 // 8 activation rows, over one K split of whole "units" (an adjacent-group
-// pair for the paired layout, else a group). Its 8
+// pair for the paired layout, a group for the vertical one). Its 8
 // warps take interleaved quads of 4 byte rows. A lane transposes the 4x4
 // bytes it loaded so each 32-bit word holds one column's 4 consecutive
 // rows, splits the nibble planes with two masks, multiplies each plane by
@@ -73,11 +76,6 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
 //            units and warps 4-7 the second half: two independent load
 //            streams over disjoint K ranges (the TPU's split-W operand
 //            pair, matmul.py:989);
-//   kRing:   the block's byte rows are streamed unit by unit into a ring of
-//            `depth` shared-memory stages by cp.async, each stage's arrival
-//            tracked by its own mbarrier; depth - 1 units are in flight
-//            while the block computes on one (the TPU's manual
-//            multi-buffered DMA, matmul.py:879).
 // and how its inner loop forms the products (paired, packed multipliers):
 //   kDotRaw: as kDirect, but the raw nibbles u are dotted into one int32
 //            partial per group, row and column, which starts at
@@ -94,7 +92,9 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
 //            trailing pairs).
 // The int32 sums are the same whatever the route: every route is
 // bit-equal to the others.
-enum Route { kDirect = 0, kSplitW = 1, kRing = 2, kDotRaw = 3, kConcat = 4 };
+// (The manual multi-buffered stream, matmul.py:879, runs w4a8_mma.cuh's
+// tile.)
+enum Route { kDirect = 0, kSplitW = 1, kDotRaw = 3, kConcat = 4 };
 
 // Byte row 0, column n of a layer's packed weights. bn: the panel width
 // of the pre-blocked layout (N/bn, K/2, bn), whose byte (r, n) lies at
@@ -129,44 +129,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
-}
-
-// Shared memory of a kRing tile's ring, ahead of the tile's own: `depth`
-// mbarriers (padded to 16 bytes), then `depth` stages of one unit's byte
-// rows x kBN columns each.
-inline __host__ __device__ size_t ring_bar_bytes(int depth) {
-  return ((size_t)depth * 8 + 15) / 16 * 16;
-}
-inline __host__ __device__ size_t ring_smem_bytes(int depth, int rows_per_unit) {
-  return ring_bar_bytes(depth) + (size_t)depth * rows_per_unit * kBN;
-}
-
-// This thread's share of copying byte rows row .. row + rows - 1 of the
-// tile's kBN columns into a ring stage (kBN bytes a row), then its arrival
-// on the stage's barrier. 16-byte copies where the row pitch allows (each
-// then lies inside one panel and is 16-byte aligned), else 4-byte ones;
-// columns past N are not copied (their lanes are not live).
-__device__ __forceinline__ void ring_fill(int8_t* dst, uint64_t* bar, const int8_t* w, int K,
-                                          int N, int bn, int n_tile, int row, int rows) {
-  const int pitch = bn > 0 ? bn : N;
-  if (pitch % 16 == 0) {
-    for (int i = threadIdx.x; i < rows * (kBN / 16); i += kThreads) {
-      const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
-      const int n = n_tile * kBN + c;
-      if (n < N)
-        cp_async<16>(dst + r * kBN + c, panel_col(w, K, N, bn, n) + (size_t)(row + r) * pitch,
-                     true);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * (kBN / 4); i += kThreads) {
-      const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-      const int n = n_tile * kBN + c;
-      if (n < N)
-        cp_async<4>(dst + r * kBN + c, panel_col(w, K, N, bn, n) + (size_t)(row + r) * pitch,
-                    true);
-    }
-  }
-  cp_async_arrive(bar);
 }
 
 // The group multipliers of unit `unit` (a pair, or a group of the
@@ -244,12 +206,11 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
 //            form (N/bn, K/2, bn) when bn > 0 (see panel_col)
 //   mult     PACKED: (n_pack, N) int32, 8 nibble multipliers per word
 //            (always for kVertical; the stacked W4A8 GEMV for kPaired)
-//            else:   (n_groups, N) int8 (kPaired, kHalves)
+//            else:   (n_groups, N) int8 (kPaired)
 //   partial  (n_split, M, N) int32
 // gemv_tile computes one (row tile, column tile, split) of it with all
 // kThreads threads of the block, in dynamic shared memory `smem` of
 // gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes
-// (kRing: ring_smem_bytes(depth, rows_per_unit) more, ahead of it);
 // gemv_partial_kernel runs one tile per block on the grid
 // (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
 // block of a persistent grid (kDirect).
@@ -260,29 +221,14 @@ __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
-          int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int depth = 0,
-          int cp = 1) {
-  static_assert(ROUTE != kRing || LAYOUT == kPaired, "the ring streams paired weights");
+          int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int cp = 1) {
+  static_assert(LAYOUT != kHalves, "the group-halves layout runs w4a8_mma.cuh's tile");
   static_assert((ROUTE != kDotRaw && ROUTE != kConcat) || (LAYOUT == kPaired && PACKED),
                 "the dot-raw and concat-pairs routes take the stacked paired layout");
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
   const int row0 = u0 * rows_per_unit;  // first byte row of this split
-  const int stage_bytes = rows_per_unit * kBN;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  int8_t* ring = reinterpret_cast<int8_t*>(smem + ring_bar_bytes(depth));
-  if constexpr (ROUTE == kRing) {
-    // Start the first `depth` units' copies; they land while the
-    // activations are staged below.
-    if (threadIdx.x == 0)
-      for (int s = 0; s < depth; ++s) mbar_init(bar + s, kThreads);
-    __syncthreads();
-    for (int s = 0; s < depth && s < n_u; ++s)
-      ring_fill(ring + s * stage_bytes, bar + s, w, K, N, bn, n_tile, row0 + s * rows_per_unit,
-                rows_per_unit);
-    smem += ring_smem_bytes(depth, rows_per_unit);
-  }
   const int KR = units_per_split * rows_per_unit;  // smem row pitch (bytes)
   int8_t* xa = reinterpret_cast<int8_t*>(smem);             // [kBM][KR]
   int8_t* xb = xa + kBM * KR;                               // [kBM][KR]
@@ -308,18 +254,12 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const unsigned hi = *reinterpret_cast<const unsigned*>(xr + k + 4);
         a = __byte_perm(lo, hi, 0x6420);
         b = __byte_perm(lo, hi, 0x7531);
-      } else if (LAYOUT == kPaired) {
+      } else {
         // byte row i of pair p holds k = 2pg + i (low) and (2p+1)g + i (high)
         const int r = row0 + 4 * q;
         const int p = r / group, i_in = r % group;
         a = *reinterpret_cast<const unsigned*>(xr + 2 * p * group + i_in);
         b = *reinterpret_cast<const unsigned*>(xr + (2 * p + 1) * group + i_in);
-      } else {
-        // byte row i of group p holds k = pg + i (low) and pg + g/2 + i (high)
-        const int r = row0 + 4 * q;
-        const int p = r / rows_per_unit, i_in = r % rows_per_unit;
-        a = *reinterpret_cast<const unsigned*>(xr + p * group + i_in);
-        b = *reinterpret_cast<const unsigned*>(xr + p * group + rows_per_unit + i_in);
       }
     }
     reinterpret_cast<unsigned*>(xa + m * KR)[q] = a;
@@ -368,19 +308,13 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int half = (n_u + kGroups - 1) / kGroups;
   const int ub = (warp / kGroupWarps) * half;
   const int ue = min(n_u, ub + half);
-  // A warp's quads of byte rows 4q.. of one unit, read straight from
-  // device memory or from the unit's ring stage.
-  auto load_quad = [&](unsigned r[4], int u, int q, int lr) {
-    if constexpr (ROUTE == kRing) {
-      const int8_t* sp = ring + (u % depth) * stage_bytes + 4 * q * kBN + lane * 4;
+  // A warp's quad of byte rows at the split's byte row lr, read straight
+  // from device memory.
+  auto load_quad = [&](unsigned r[4], int lr) {
+    const int8_t* wp = wcol + (size_t)(row0 + lr) * pitch;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const unsigned*>(sp + i * kBN);
-    } else {
-      const int8_t* wp = wcol + (size_t)(row0 + lr) * pitch;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * pitch));
-    }
+    for (int i = 0; i < 4; ++i)
+      r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * pitch));
   };
   // The offset-binary correction of unit u: once per block, by the first
   // warp of the unit's group.
@@ -396,7 +330,6 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   constexpr bool kConcatUnits = ROUTE == kConcat;
   const int step = kConcatUnits ? cp : 1;
   for (int u = ub; u < ue; u += step) {
-    if constexpr (ROUTE == kRing) mbar_wait(bar + u % depth, (u / depth) & 1);
     if (live) {
       unsigned ma[4], mb[4];
       if constexpr (kConcatUnits) {
@@ -418,7 +351,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             cur = v;
           }
           unsigned r[4];
-          load_quad(r, v, q, lr);
+          load_quad(r, lr);
           quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
         }
       } else if constexpr (ROUTE == kDotRaw) {
@@ -440,7 +373,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         for (int q = wq; q < quads; q += kGroupWarps) {
           const int lr = u * rows_per_unit + 4 * q;
           unsigned r[4];
-          load_quad(r, u, q, lr);
+          load_quad(r, lr);
           quad_dot<LAYOUT, false>(r, xa, xb, KR, lr, ma, mb, pa, pb);
         }
 #pragma unroll
@@ -456,18 +389,10 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         for (int q = wq; q < quads; q += kGroupWarps) {
           const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
           unsigned r[4];
-          load_quad(r, u, q, lr);
+          load_quad(r, lr);
           quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
         }
       }
-    }
-    if constexpr (ROUTE == kRing) {
-      // Every warp is done with this stage: refill it with the unit
-      // `depth` ahead.
-      __syncthreads();
-      if (u + depth < n_u)
-        ring_fill(ring + (u % depth) * stage_bytes, bar + u % depth, w, K, N, bn, n_tile,
-                  row0 + (u + depth) * rows_per_unit, rows_per_unit);
     }
   }
 
@@ -493,10 +418,10 @@ __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
                     int M, int K, int N, int group, int units_per_split,
-                    int n_units, int bn, int depth, int cp) {
+                    int n_units, int bn, int cp) {
   extern __shared__ __align__(16) unsigned char smem[];
   gemv_tile<LAYOUT, PACKED, ROUTE>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
-                                   blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, depth, cp);
+                                   blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, cp);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
@@ -504,29 +429,24 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
          (size_t)kWarps * kBM * kBN * 4;
 }
 
-// bn: the pre-blocked panel width (0: flat); depth: the ring's stages
-// (kRing); cp: the pairs of a unit (kConcat), a split covering whole
+// bn: the pre-blocked panel width (0: flat); cp: the pairs of a unit
+// (kConcat), a split covering whole
 // units of cp pairs.
 template <int LAYOUT, bool PACKED = LAYOUT == kVertical, int ROUTE = kDirect>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
-                                int n_split, cudaStream_t stream, int bn = 0, int depth = 0,
-                                int cp = 1) {
+                                int n_split, cudaStream_t stream, int bn = 0, int cp = 1) {
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int n_units = LAYOUT == kPaired ? K / (2 * group) : K / group;
   if (cp < 1) return cudaErrorInvalidValue;
   const int ups = ((n_units + cp - 1) / cp + n_split - 1) / n_split * cp;
-  size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
-  if (ROUTE == kRing) {
-    if (depth < 1) return cudaErrorInvalidValue;
-    smem += ring_smem_bytes(depth, rows_per_unit);
-  }
+  const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
   cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, PACKED, ROUTE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
   gemv_partial_kernel<LAYOUT, PACKED, ROUTE><<<grid, kThreads, smem, stream>>>(
-      x, w, mult, partial, M, K, N, group, ups, n_units, bn, depth, cp);
+      x, w, mult, partial, M, K, N, group, ups, n_units, bn, cp);
   return cudaGetLastError();
 }
 

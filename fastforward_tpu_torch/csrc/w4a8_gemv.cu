@@ -19,27 +19,31 @@
 // epilogue one int32 token id per row (first occurrence wins ties, a NaN
 // counts as the maximum: the ids of torch.argmax over the logits).
 // Bit-exact against matmul_w4a8_2l_reference.
+// ff_w4a8_gemv and ff_w4a8_gemv_unpaired (row 5) run w4a8_mma.cuh's int8
+// tensor-core tile, with its note; the argmax head runs common.cuh's dp4a
+// tile and epilogue.
 //
 // The stacked entries read layer `layer` of (L, K/2, N) weights, or of
 // their pre-blocked form (L, N/bn, K/2, bn) (preblock_stacked, matmul.py:
 // 1240: each bn-column panel one contiguous chunk), its nibble-packed
 // multipliers (L, ceil(K/g/8), N) int32 and s_col (L, N) in place: no
-// per-layer slice is copied. Four routes, all through common.cuh's tile
-// and epilogue, so all bit-equal:
+// per-layer slice is copied. Six routes, all bit-equal (the same int32
+// sums through the same epilogue arithmetic); all but the manual stream
+// run common.cuh's dp4a tile:
 //   ff_w4a8_gemv_stacked     flat, each lane's words by __ldg;
 //   ff_w4a8_gemv_preblocked  pre-blocked: the same tile given the panel
 //                            base and a row pitch of bn (any bn % 4 == 0:
 //                            a lane's 4 columns lie in one panel);
 //   ff_w4a8_gemv_manual      pre-blocked, FF_2L_MANUAL = nbuf: the TPU
 //                            kernel keeps nbuf - 1 panels in flight in a
-//                            ring of nbuf VMEM slots; here each block
-//                            streams its byte rows, unit by unit, through
-//                            a ring of `depth` shared-memory stages by
-//                            cp.async, each stage's arrival on its own
-//                            mbarrier, depth - 1 units in flight while it
-//                            computes on one (the wrapper takes depth =
-//                            min(nbuf, the block's units, what fits in
-//                            227 KB));
+//                            ring of nbuf VMEM slots; here w4a8_mma.cuh's
+//                            tile, whose producer warp bulk-copies each
+//                            block's byte rows into a ring of `depth`
+//                            shared-memory stages (a full and an empty
+//                            mbarrier each), depth - 1 in flight while the
+//                            consumer warps run int8 mma.sync on one (the
+//                            wrapper takes depth = min(nbuf, the block's
+//                            stages, what fits in 227 KB));
 //   ff_w4a8_gemv_splitw      flat, FF_2L_SPLITW: the TPU kernel reads each
 //                            panel as two half-K operands (two DMA
 //                            streams); here warps 0-3 and 4-7 walk the two
@@ -64,7 +68,8 @@
 //                            count (ROADMAP.md Queue 3); here the last unit
 //                            is shorter and every pair is computed.
 // Bound: as the decoder layer below for every route (the same bytes and
-// operations); the routes differ only in how the weight bytes travel.
+// operations); the routes differ in how the weight bytes travel and, for
+// the manual stream, in the instruction that multiplies them.
 //
 // Bound on the H100: the lm_head of Llama-3-8B moves 263 MB of packed
 // weights per call against M <= 256 rows: bandwidth-bound (~78 us). A
@@ -72,13 +77,11 @@
 // 2*M*K*N = 8.4e10 int8 operations (0.042 ms at 1,979 TOP/s on the tensor
 // cores); dp4a on the CUDA cores is far from that rate.
 //
-// Design for that bound: the same split-K partial kernel as the A4 GEMV
-// (common.cuh) reads each weight byte once per 8 rows; the two nibble
-// planes of a byte go to the two groups of its pair (paired) or the two
-// halves of its group (unpaired), each plane scaled by its group
-// multiplier in one register multiply. The TPU's unpaired kernel folded
-// and concatenated the planes before one MXU dot; here the planes never
-// meet: each feeds dp4a against its own staged activations. The TPU kernel
+// Design of the dp4a routes: the same split-K partial kernel as the A4
+// GEMV (common.cuh) reads each weight byte once per 8 rows; the two nibble
+// planes of a byte go to the two groups of its pair, each plane scaled by
+// its group multiplier in one register multiply, each feeding dp4a against
+// its own staged activations. The TPU kernel
 // carried a running (max, index) across its sequential grid; here blocks
 // run in no order, so the argmax epilogue writes one (max, index) pair per
 // row and 1024-column tile and a second tiny pass reduces the pairs in
@@ -116,6 +119,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "w4a8_mma.cuh"
 
 namespace {
 
@@ -324,42 +328,30 @@ extern "C" int ff_w4a8_gemv_halves(const void* x, const void* xs, const void* w,
   return launch_halves_group<float>(x, xs, w, w_scale, out, M, K, N, group, st);
 }
 
-namespace {
-
-template <int LAYOUT>
-int gemv_2l(const void* x, const void* xs, const void* w, const void* mult, const void* s_col,
-            void* partial, void* out, int M, int K, int N, int group, int n_split, int out_kind,
-            cudaStream_t st) {
-  cudaError_t err = ff::launch_gemv_partial<LAYOUT>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), mult,
-      static_cast<int32_t*>(partial), M, K, N, group, n_split, st);
-  if (err != cudaSuccess) return err;
-  const int32_t* p = static_cast<const int32_t*>(partial);
-  const float* sc = static_cast<const float*>(s_col);
-  const float* xsf = static_cast<const float*>(xs);
-  if (out_kind == 0)
-    return ff::launch_gemv_epilogue<float, false>(p, n_split, M, N, sc, xsf,
-                                                  static_cast<float*>(out), nullptr, nullptr, st);
-  return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
-      p, n_split, M, N, sc, xsf, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
-}
-
-}  // namespace
-
+// Row 5 on the int8 tensor-core tile (w4a8_mma.cuh): xf the staged
+// activations (mma_plan's x_bytes), partial (n_split, M, N) int32 or NULL
+// for one split, depth the ring's stages.
 extern "C" int ff_w4a8_gemv(const void* x, const void* xs, const void* w, const void* mult,
-                            const void* s_col, void* partial, void* out, int M, int K, int N,
-                            int group, int n_split, int out_kind, void* stream) {
-  return gemv_2l<ff::kPaired>(x, xs, w, mult, s_col, partial, out, M, K, N, group, n_split,
-                              out_kind, static_cast<cudaStream_t>(stream));
+                            const void* s_col, void* xf, void* partial, void* out, int M, int K,
+                            int N, int group, int n_split, int depth, int out_kind,
+                            void* stream) {
+  return ff::mma8::launch<ff::kPaired, false>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col),
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_kind, M, K, N, group,
+      n_split, 0, depth, static_cast<cudaStream_t>(stream));
 }
 
 // Group-halves layout; group % 8 == 0.
 extern "C" int ff_w4a8_gemv_unpaired(const void* x, const void* xs, const void* w,
-                                     const void* mult, const void* s_col, void* partial,
-                                     void* out, int M, int K, int N, int group, int n_split,
-                                     int out_kind, void* stream) {
-  return gemv_2l<ff::kHalves>(x, xs, w, mult, s_col, partial, out, M, K, N, group, n_split,
-                              out_kind, static_cast<cudaStream_t>(stream));
+                                     const void* mult, const void* s_col, void* xf,
+                                     void* partial, void* out, int M, int K, int N, int group,
+                                     int n_split, int depth, int out_kind, void* stream) {
+  return ff::mma8::launch<ff::kHalves, false>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col),
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_kind, M, K, N, group,
+      n_split, 0, depth, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ff_w4a8_gemv_argmax(const void* x, const void* xs, const void* w,
@@ -388,19 +380,19 @@ namespace {
 // Layer `layer` of stacked weights: flat (L, K/2, N), or pre-blocked
 // (L, N/bn, K/2, bn) when bn > 0 (a layer is K*N/2 bytes either way), its
 // nibble-packed multipliers and s_col; the tile reads it by ROUTE
-// (common.cuh), `depth` ring stages for kRing.
+// (common.cuh).
 template <int ROUTE>
 int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_packed,
                  const void* s_col, void* partial, void* out, int M, int K, int N, int layer,
-                 int group, int n_pack, int n_split, int out_kind, int bn, int depth,
-                 void* stream, int cp = 1) {
+                 int group, int n_pack, int n_split, int out_kind, int bn, void* stream,
+                 int cp = 1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
   cudaError_t err = ff::launch_gemv_partial<ff::kPaired, true, ROUTE>(
       static_cast<const int8_t*>(x), wl, ml, static_cast<int32_t*>(partial), M, K, N, group,
-      n_split, st, bn, depth, cp);
+      n_split, st, bn, cp);
   if (err != cudaSuccess) return err;
   const int32_t* p = static_cast<const int32_t*>(partial);
   const float* xsf = static_cast<const float*>(xs);
@@ -417,8 +409,8 @@ int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_
 // weights: the default call (:1217) and split-W (kernel :989, call :1185:
 // the block's units in two halves, one warp group each). Pre-blocked
 // weights (bn % 4 == 0): the default call on panels (:1211-1214), and the
-// manual stream (kernel :879, call :1107: `depth` shared-memory stages,
-// depth - 1 units in flight). Either layout (bn 0: flat, else bn % 4 == 0):
+// manual stream (kernel :879, call :1107: w4a8_mma.cuh's tile, `depth`
+// bulk-copied stages, depth - 1 in flight). Either layout (bn 0: flat, else bn % 4 == 0):
 // the dot-raw body (:949, picked at :1205-1208) and the concat-pairs body
 // (:780, entered at :834-842; cp pairs a unit).
 extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w,
@@ -427,7 +419,7 @@ extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w
                                     int n_pack, int n_split, int out_kind, void* stream) {
   (void)L;
   return gemv_stacked<ff::kDirect>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, 0, 0, stream);
+                                   group, n_pack, n_split, out_kind, 0, stream);
 }
 
 extern "C" int ff_w4a8_gemv_splitw(const void* x, const void* xs, const void* w,
@@ -436,7 +428,7 @@ extern "C" int ff_w4a8_gemv_splitw(const void* x, const void* xs, const void* w,
                                    int n_pack, int n_split, int out_kind, void* stream) {
   (void)L;
   return gemv_stacked<ff::kSplitW>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, 0, 0, stream);
+                                   group, n_pack, n_split, out_kind, 0, stream);
 }
 
 extern "C" int ff_w4a8_gemv_preblocked(const void* x, const void* xs, const void* w,
@@ -447,18 +439,27 @@ extern "C" int ff_w4a8_gemv_preblocked(const void* x, const void* xs, const void
   (void)L;
   if (bn <= 0 || bn % 4 != 0 || N % bn != 0) return cudaErrorInvalidValue;
   return gemv_stacked<ff::kDirect>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, bn, 0, stream);
+                                   group, n_pack, n_split, out_kind, bn, stream);
 }
 
+// The manual stream on the int8 tensor-core tile's bulk-copy ring
+// (w4a8_mma.cuh): `depth` stages, depth - 1 in flight while the consumer
+// warps compute on one; xf and partial as ff_w4a8_gemv's.
 extern "C" int ff_w4a8_gemv_manual(const void* x, const void* xs, const void* w,
-                                   const void* mult_packed, const void* s_col, void* partial,
-                                   void* out, int M, int K, int N, int L, int layer, int group,
-                                   int n_pack, int n_split, int out_kind, int bn, int depth,
-                                   void* stream) {
+                                   const void* mult_packed, const void* s_col, void* xf,
+                                   void* partial, void* out, int M, int K, int N, int L, int layer,
+                                   int group, int n_pack, int n_split, int out_kind, int bn,
+                                   int depth, void* stream) {
   (void)L;
-  if (bn <= 0 || bn % 4 != 0 || N % bn != 0) return cudaErrorInvalidValue;
-  return gemv_stacked<ff::kRing>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                 group, n_pack, n_split, out_kind, bn, depth, stream);
+  if (bn <= 0 || bn % 4 != 0 || N % bn != 0 || n_pack * 8 < K / group)
+    return cudaErrorInvalidValue;
+  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
+  const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
+  const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
+  return ff::mma8::launch<ff::kPaired, true>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs), wl, ml, sl,
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_kind, M, K, N, group,
+      n_split, bn, depth, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ff_w4a8_gemv_dotraw(const void* x, const void* xs, const void* w,
@@ -468,7 +469,7 @@ extern "C" int ff_w4a8_gemv_dotraw(const void* x, const void* xs, const void* w,
   (void)L;
   if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0))) return cudaErrorInvalidValue;
   return gemv_stacked<ff::kDotRaw>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, bn, 0, stream);
+                                   group, n_pack, n_split, out_kind, bn, stream);
 }
 
 extern "C" int ff_w4a8_gemv_concat(const void* x, const void* xs, const void* w,
@@ -479,5 +480,5 @@ extern "C" int ff_w4a8_gemv_concat(const void* x, const void* xs, const void* w,
   (void)L;
   if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0)) || cp < 1) return cudaErrorInvalidValue;
   return gemv_stacked<ff::kConcat>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, bn, 0, stream, cp);
+                                   group, n_pack, n_split, out_kind, bn, stream, cp);
 }

@@ -1,0 +1,633 @@
+// The two-level W4A8 GEMV on int8 tensor cores: the tile of w4a8_gemv.cu's
+// ff_w4a8_gemv (paired layout), ff_w4a8_gemv_unpaired (group halves) and
+// ff_w4a8_gemv_manual (the pre-blocked manual stream).
+//
+// Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571;
+// paired body :537, group-halves body :479, pallas_call :620) and the
+// manual-DMA kernel of matmul_w4a8_2l_gemv_stacked (:879, called at :1107).
+//   acc[m, n] = sum_k x[m, k] * (m_g[n] * v[k, n])        (int32, exact)
+//   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]      (f32 or bf16)
+// with v = u - 8 stored as offset-binary nibbles u and m_g in [1, 15]. The
+// int32 sum is exact in any order (|acc| <= 128 * 120 * K < 2^31 for
+// K <= 14336), so the tile is bit-equal to matmul_w4a8_2l_reference.
+//
+// Bound on the H100: Llama-3-8B's lm_head at M = 192 does 2.0e11 int8
+// operations (0.10 ms at 1,979 TOP/s) on 263 MB of packed weights (0.08
+// ms); a decoder layer's projections 8.4e10 (0.042 ms) on 110 MB. The dp4a
+// tile these entries ran before (common.cuh gemv_tile) sat at the CUDA
+// cores' dp4a rate, ~30x those bounds; int8 mma.sync runs 6.2x dp4a on
+// this card (PERF.md, row 24's probe).
+//
+// Design:
+// - Fold. The TPU kernels fold each group's multiplier into the nibbles in
+//   registers and feed int8 bytes to the matrix unit. Here too: per 32-bit
+//   word (4 nibble pairs of one column) and nibble plane p,
+//     ((p & 0x0F0F0F0F) * m + (0x80808080 - 8m * 0x01010101)) ^ 0x80808080
+//   is the int8 pattern of m * v in every byte: u * m <= 225 and
+//   m * v + 128 in [8, 233] never carry across bytes (one AND, one IMAD,
+//   one XOR a plane). The paired layout takes m_2p for its low plane and
+//   m_2p+1 for its high one, the group-halves layout m_p for both.
+// - Products. mma.sync.m16n8k32.s8.s8.s32. A k-step is 32 "slots" of one
+//   nibble plane: slot 16h + 4t + i is the byte row 16h + 2t + (i & 1) +
+//   8 (i >> 1) of a 32-row chunk, so a lane (gid, t) reads 4 rows of its
+//   column word and one 4x4 byte transpose gives the B register of slots
+//   4t..4t+3; the 4 lanes of a column read rows 2 apart, which the 128B
+//   swizzle puts in 4 distinct 16-byte chunks (no bank conflict). A warp
+//   owns 32 columns (4 n8 tiles; mma column c of tile j is column 4c + j)
+//   and every activation row of the block: the fold of a weight word feeds
+//   MT m16 tiles. A block owns 16 * MT rows (MT = 1, 2 or 4: 16, 32 or 64;
+//   at M = 8 the 8 activation rows are padded to 16 rather than swapped to
+//   the n side: the folds, not the products, bound small M) and kN = 128
+//   columns, so at M = 192 a weight byte leaves device memory for 3 blocks,
+//   which run side by side (the m tile is the grid's fastest index) and
+//   meet it in L2. Three blocks an SM (128 registers a thread; at MT = 4 a
+//   few bytes spill) measured 8% faster at M = 192 than two at 155.
+// - Activations in fragment order. A first launch (stage_x_kernel) writes x
+//   as the A fragments of every stage, each lane's 16 bytes contiguous in
+//   slot order, nibble planes apart, zeros for padding rows and rows past
+//   M; the tile then reads one 16-byte word a fragment.
+// - Groups shorter than 16 rows a plane (paired group % 16 != 0, or group
+//   halves) are padded to 16 byte rows with zero activations, so the 4 rows
+//   of a word always share one multiplier; the padding rows' weights are
+//   never copied and multiply zeros.
+// - The feed: Hopper's DMA ring. One producer warp streams each stage (kR
+//   padded byte rows) into a ring of `depth` shared-memory stages, each
+//   with a full and an empty mbarrier; four consumer warps wait on a
+//   stage's full barrier, run the fold and the products on it and arrive
+//   on its empty barrier, and the producer refills the stage when all four
+//   have. A stage holds the block's kN columns of its weight rows, the
+//   multiplier rows of its units (so a unit change costs no trip to L2)
+//   and its activation fragments. The weight rows come as one 2-D TMA box
+//   (kN x kR bytes, 128B swizzle) of a tensor map over the flat (K/2, N)
+//   or the pre-blocked (N/bn * K/2, bn) bytes, encoded on the host by
+//   cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint:
+//   nothing more to link); the multiplier rows and
+//   the fragments as cp.async.bulk copies; all counted by the full
+//   barrier's transaction count. One 8 KB request a stage: a first version
+//   copied each 128-byte weight row by its own bulk copy, and the TMA
+//   unit's per-request cost held it to ~0.8 TB/s (PERF.md §7). Where
+//   the box does not fit (N or bn % 16 != 0, a block's columns across
+//   panels, groups padded to 16 rows) the producer's lanes copy 4-byte
+//   words by cp.async to their swizzled places and arrive on the full
+//   barrier when they land (cp.async.mbarrier.arrive.noinc).
+// - Split-K only where the tiles are too few to fill the card (w4a8_gemv's
+//   plan, kernels/matmul.py mma_plan): splits cover whole units, write
+//   int32 partials, and common.cuh's epilogue adds them in split order.
+//   With one split the epilogue runs in the tile:
+//   __fmul_rn(__fmul_rn(__int2float_rn(acc), s_col[n]), x_scale[m]).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>  // CUtensorMap (the encoder is reached through cudaGetDriverEntryPoint)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"  // unit layouts, panel_col, mbarrier init, the split-K epilogue
+#include "mma.cuh"     // cp_async, transpose4x4, store8
+
+namespace ff {
+namespace mma8 {
+
+constexpr int kR = 64;                        // padded byte rows a ring stage holds
+constexpr int kChunks = kR / 32;              // 32-row chunks (two k-steps each) a stage
+constexpr int kN = 128;                       // columns a block owns
+constexpr int kConsumers = 4;                 // consumer warps (32 columns each)
+constexpr int kThreads = 32 * (kConsumers + 1);  // and the producer warp
+constexpr int kFrag = 512;                    // bytes of one m16 x k32 int8 A fragment
+constexpr int kMulSlot = 4 * kN;              // shared bytes of one unit's multipliers
+constexpr int kUnitsPerStage = kR / 16;       // a stage meets at most this many units
+constexpr int kWBytes = kR * kN;              // weight rows, 128B-swizzled
+constexpr int kMBytes = kUnitsPerStage * kMulSlot;
+
+__host__ __device__ constexpr int a_stage_bytes(int mt) { return kChunks * 2 * mt * kFrag; }
+// (a multiple of 1024 bytes: every stage's weight rows start on the
+// swizzle pattern's 1024-byte period)
+__host__ __device__ constexpr int stage_bytes(int mt) { return kWBytes + kMBytes + a_stage_bytes(mt); }
+// m16 tiles a block owns at M rows (kernels/matmul.py mma_tiles).
+__host__ __device__ constexpr int tiles_of(int M) { return M <= 16 ? 1 : M <= 32 ? 2 : 4; }
+
+// The split plan, derived from the launch's n_split the same way on the
+// host, in the kernels and in kernels/matmul.py mma_plan.
+struct Plan {
+  int unit_rows;  // byte rows of one unit: a group pair (paired) or a group
+  int p16;        // unit_rows padded to a multiple of 16
+  int n_units;
+  int ups;        // units a split covers (the last split fewer)
+  int stages;     // ring stages a split streams: ceil(ups * p16 / kR)
+};
+
+__host__ __device__ inline Plan plan_of(int layout, int K, int group, int n_split) {
+  Plan p;
+  p.unit_rows = layout == kPaired ? group : group / 2;
+  p.n_units = layout == kPaired ? K / (2 * group) : K / group;
+  p.p16 = (p.unit_rows + 15) / 16 * 16;
+  p.ups = (p.n_units + n_split - 1) / n_split;
+  p.stages = (p.ups * p.p16 + kR - 1) / kR;
+  return p;
+}
+
+// First k of nibble plane `plane` of unit u (byte row i of the unit holds
+// k = base + i in that plane).
+__host__ __device__ inline int plane_k(int layout, int u, int plane, int group) {
+  return layout == kPaired ? (2 * u + plane) * group : u * group + plane * (group / 2);
+}
+
+// Wait until every cp.async this thread has issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// mbar_wait that gives up: a phase that has not completed after ~2^34
+// cycles (seconds) traps, so a fault in the ring's accounting fails the
+// launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`'s
+// transaction count.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One 2-D TMA box (kN columns x kR rows of `tmap`, 128B-swizzled) at
+// column c, row r into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* tmap, int c, int r,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c), "r"(r),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Byte offset of column c of weight row r in a stage: the 128B swizzle puts
+// the row's 16-byte chunk j at chunk j ^ (r % 8).
+__host__ __device__ constexpr int swz(int r, int c) {
+  return r * kN + (((c / 16) ^ (r % 8)) << 4) + c % 16;
+}
+
+// c += a . b on one 16 x 8 tile, int8, k = 32 (not volatile: the compiler
+// may interleave the products with the next chunk's loads).
+__device__ __forceinline__ void mma16832(int c[4], const uint4& a, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The fold of one nibble plane p (bytes in [0, 15]) by multiplier m with
+// bias = 0x80808080 - m * 0x08080808: the int8 bytes m * (p - 8).
+__device__ __forceinline__ unsigned fold(unsigned p, unsigned m, unsigned bias) {
+  return (p * m + bias) ^ 0x80808080u;
+}
+
+// x (M, K) to the fragments of every (m tile, split, stage): fragment f =
+// ((((m_tile * n_split + split) * stages + s) * kChunks + c) * 2 + plane)
+// * mt + t holds rows 16 t.. of the m tile and the 32 slots of chunk c of
+// stage s in nibble plane `plane`; lane l's 16 bytes at 16 l are its a[0..3]
+// (mma.cuh load_a_s8's order), slot 4 t + i of a 16-slot half being the
+// half's byte row 2t + (i & 1) + 8 (i >> 1) (the tile's B order). One
+// thread a (fragment, row, half): 16 consecutive byte rows of one unit are
+// 16 consecutive k of x.
+template <int LAYOUT>
+__global__ void stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ xf, int M,
+                               int K, int group, int n_split, int mt, long long total) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const Plan pl = plan_of(LAYOUT, K, group, n_split);
+  const int r16 = (int)(t % 32) / 2, h = (int)(t % 2);
+  long long f = t / 32;
+  const int ti = (int)(f % mt);
+  long long g = f / mt;
+  const int plane = (int)(g % 2);
+  g /= 2;
+  const int c = (int)(g % kChunks);
+  g /= kChunks;
+  const int s = (int)(g % pl.stages);
+  g /= pl.stages;
+  const int split = (int)(g % n_split);
+  const int m_tile = (int)(g / n_split);
+  const int m = (m_tile * mt + ti) * 16 + r16;
+  const int q = s * kR + 32 * c + 16 * h;  // first padded row of the half, in the split
+  const int u = split * pl.ups + q / pl.p16, i0 = q % pl.p16;
+  const int u_end = min(pl.n_units, (split + 1) * pl.ups);
+  unsigned wd[4] = {0u, 0u, 0u, 0u};  // wd[i] byte b: byte row i0 + 4i + b
+  if (m < M && u < u_end) {
+    const int8_t* xr = x + (size_t)m * K + plane_k(LAYOUT, u, plane, group) + i0;
+    if (i0 + 16 <= pl.unit_rows && reinterpret_cast<uintptr_t>(xr) % 16 == 0) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr);
+      wd[0] = v.x;
+      wd[1] = v.y;
+      wd[2] = v.z;
+      wd[3] = v.w;
+    } else {
+      for (int b = 0; b < 16 && i0 + b < pl.unit_rows; ++b)
+        wd[b / 4] |= static_cast<unsigned>(static_cast<uint8_t>(xr[b])) << (8 * (b % 4));
+    }
+  }
+  // slot 4 tid + i of the half is its byte row 2 tid + (i & 1) + 8 (i >> 1)
+  const int gid = r16 % 8, reg = 2 * h + r16 / 8;
+  unsigned* frag = reinterpret_cast<unsigned*>(xf + (size_t)f * kFrag);
+#pragma unroll
+  for (int tid = 0; tid < 4; ++tid)
+    frag[(4 * gid + tid) * 4 + reg] =
+        __byte_perm(wd[tid / 2], wd[2 + tid / 2], tid % 2 ? 0x7632 : 0x5410);
+}
+
+// The tile. Grid (m tiles, n tiles, n_split), kThreads threads, dynamic
+// shared memory smem_bytes(MT, depth). Weights flat (K/2, N) (bn 0) or
+// pre-blocked (N/bn, K/2, bn); mult int8 (K/g, N) or, PACKED, nibble-packed
+// int32 (n_pack, N). tma: the weights come as `tmap`'s boxes (flat: the
+// (N, K/2) bytes; pre-blocked: the (bn, N/bn * K/2) bytes, bn % kN == 0),
+// else by 4-byte cp.async. n_split > 1: int32 partials (n_split, M, N) for
+// common.cuh's epilogue; else y as f32 (out_bf16 0) or bf16.
+template <int LAYOUT, bool PACKED, int MT>
+__global__ void __launch_bounds__(kThreads, 3)
+w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
+                const int8_t* __restrict__ xf, const float* __restrict__ xs,
+                const int8_t* __restrict__ w, const void* __restrict__ mult,
+                const float* __restrict__ s_col, int32_t* __restrict__ partial,
+                void* __restrict__ out, int out_bf16, int M, int K, int N, int group,
+                int n_split, int bn, int depth) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle's 1024-byte period (smem_bytes asks for the slack)
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const Plan pl = plan_of(LAYOUT, K, group, n_split);
+  constexpr int kStage = stage_bytes(MT);
+  constexpr int kABytes = a_stage_bytes(MT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)depth * kStage);
+  uint64_t* empty = full + depth;
+  const int m_tile = blockIdx.x, n_tile = blockIdx.y, split = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pitch = bn > 0 ? bn : N;  // bytes between byte rows
+  const int u0 = split * pl.ups, u_end = min(pl.n_units, u0 + pl.ups);
+  const int c0 = n_tile * kN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      // tma: the producer's one arrival; else also its 32 lanes' cp.async ones
+      mbar_init(full + s, tma ? 1 : 33);
+      mbar_init(empty + s, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // ---- the producer warp
+    const int wcols = min(kN, N - c0);  // valid columns of the block
+    const unsigned unit_mbytes = PACKED ? 4u * wcols : (LAYOUT == kPaired ? 2u : 1u) * wcols;
+    const int8_t* xsrc =
+        xf + (size_t)((size_t)m_tile * n_split + split) * pl.stages * kABytes;
+    for (int s = 0; s < pl.stages; ++s) {
+      const int slot = s % depth;
+      if (s >= depth) mbar_wait_or_trap(empty + slot, ((s / depth) - 1) & 1);
+      unsigned char* st = smem + (size_t)slot * kStage;
+      int8_t* sw = reinterpret_cast<int8_t*>(st);
+      unsigned char* sm = st + kWBytes;
+      const int q0 = s * kR;
+      const int uf = u0 + q0 / pl.p16;  // the stage's first unit
+      const int nu = max(0, min(u0 + (q0 + kR - 1) / pl.p16, u_end - 1) - uf + 1);
+      if (tma) {
+        // one box of weight rows, the stage's fragments and its units'
+        // multiplier rows (bulk copies, 16-byte runs: N % 16 == 0 or packed)
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + slot, kWBytes + kABytes + nu * unit_mbytes);
+          const int r0 = u0 * pl.unit_rows + q0;  // p16 == unit_rows: rows are real rows
+          if (bn > 0)
+            tma_box(sw, &tmap, c0 % bn, (c0 / bn) * (K / 2) + r0, full + slot);
+          else
+            tma_box(sw, &tmap, c0, r0, full + slot);
+          bulk_g2s(st + kWBytes + kMBytes, xsrc + (size_t)s * kABytes, kABytes, full + slot);
+        }
+        __syncwarp();
+        if (lane < nu) {
+          const int u = uf + lane;
+          unsigned char* dst = sm + lane * kMulSlot;
+          if (PACKED) {
+            const int32_t* src = static_cast<const int32_t*>(mult) +
+                                 (size_t)((LAYOUT == kPaired ? 2 * u : u) / 8) * N + c0;
+            bulk_g2s(dst, src, 4 * wcols, full + slot);
+          } else {
+            const int8_t* mr = static_cast<const int8_t*>(mult);
+            const int ra = LAYOUT == kPaired ? 2 * u : u;
+            bulk_g2s(dst, mr + (size_t)ra * N + c0, wcols, full + slot);
+            if (LAYOUT == kPaired) bulk_g2s(dst + kN, mr + (size_t)(ra + 1) * N + c0, wcols,
+                                            full + slot);
+          }
+        }
+      } else {
+        // 4-byte copies, each lane one 4-column word a row, to its swizzled
+        // place, padding rows skipped
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + slot, kABytes);
+          bulk_g2s(st + kWBytes + kMBytes, xsrc + (size_t)s * kABytes, kABytes, full + slot);
+        }
+        const int c = c0 + 4 * lane;
+        if (c < N) {
+          for (int rho = 0; rho < kR; ++rho) {
+            const int q = q0 + rho;
+            const int u = u0 + q / pl.p16, i = q % pl.p16;
+            if (u >= u_end || i >= pl.unit_rows) continue;
+            cp_async<4>(sw + swz(rho, 4 * lane),
+                        panel_col(w, K, N, bn, c) + (size_t)((long long)u * pl.unit_rows + i) * pitch,
+                        true);
+          }
+        }
+        for (int v = 0; v < nu; ++v) {
+          const int u = uf + v;
+          unsigned char* dst = sm + v * kMulSlot;
+          if (PACKED) {
+            const int32_t* src = static_cast<const int32_t*>(mult) +
+                                 (size_t)((LAYOUT == kPaired ? 2 * u : u) / 8) * N;
+            for (int cc = lane; cc < kN; cc += 32)
+              if (c0 + cc < N) cp_async<4>(dst + 4 * cc, src + c0 + cc, true);
+          } else if (c < N) {
+            const int8_t* mr = static_cast<const int8_t*>(mult);
+            const int ra = LAYOUT == kPaired ? 2 * u : u;
+            cp_async<4>(dst + 4 * lane, mr + (size_t)ra * N + c, true);
+            if (LAYOUT == kPaired)
+              cp_async<4>(dst + kN + 4 * lane, mr + (size_t)(ra + 1) * N + c, true);
+          }
+        }
+        cp_async_arrive(full + slot);
+      }
+    }
+    if (!tma) cp_async_wait_all();
+    return;
+  }
+
+  // ---- the consumer warps: 32 columns each, every row of the block
+  const int gid = lane / 4, tid = lane % 4;
+  const int cw = warp * 32 + 4 * gid;  // this lane's 4 B columns in the block
+  // its word in rows 2 tid (+ 8, 16, ...) and 2 tid + 1 (+ 8, ...): row r of
+  // a stage at r * kN + xo[r % 2] (the 4 lanes of a column meet 4 distinct
+  // swizzled chunks, rows 2 tid apart: no bank conflict)
+  const int xo[2] = {swz(2 * tid, cw) - 2 * tid * kN, swz(2 * tid + 1, cw) - (2 * tid + 1) * kN};
+  int acc[MT][4][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[t][j][r] = 0;
+  int cur = -1;  // the unit whose multipliers ma, mb (and biases) hold
+  unsigned ma[4], mb[4], ba[4], bb[4];
+  for (int s = 0; s < pl.stages; ++s) {
+    const int slot = s % depth;
+    mbar_wait_or_trap(full + slot, (s / depth) & 1);
+    const unsigned char* st = smem + (size_t)slot * kStage;
+    const int8_t* sw = reinterpret_cast<const int8_t*>(st) + 2 * tid * kN;
+    const unsigned char* sm = st + kWBytes;
+    const unsigned char* sa = st + kWBytes + kMBytes + lane * 16;
+    const int uf = u0 + s * kR / pl.p16;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      unsigned lo[2][4], hi[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int u = u0 + (s * kR + 32 * c + 16 * h) / pl.p16;
+        if (u != cur) {  // warp-uniform
+          cur = u;
+          const unsigned char* mp = sm + (u - uf) * kMulSlot;
+          if (PACKED) {
+            const int sh = 4 * ((LAYOUT == kPaired ? 2 * u : u) % 8);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const unsigned wd = reinterpret_cast<const unsigned*>(mp)[cw + j];
+              ma[j] = (wd >> sh) & 0xFu;
+              mb[j] = LAYOUT == kPaired ? (wd >> (sh + 4)) & 0xFu : ma[j];
+            }
+          } else {
+            const unsigned wa = *reinterpret_cast<const unsigned*>(mp + cw);
+            const unsigned wb =
+                LAYOUT == kPaired ? *reinterpret_cast<const unsigned*>(mp + kN + cw) : wa;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              ma[j] = (wa >> (8 * j)) & 0xFFu;
+              mb[j] = (wb >> (8 * j)) & 0xFFu;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ba[j] = 0x80808080u - ma[j] * 0x08080808u;
+            bb[j] = 0x80808080u - mb[j] * 0x08080808u;
+          }
+        }
+        // slot 4 tid + i: row 32c + 16h + 2 tid + (i & 1) + 8 (i >> 1)
+        unsigned r[4], col[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          r[i] = *reinterpret_cast<const unsigned*>(
+              sw + (32 * c + 16 * h + (i & 1) + 8 * (i >> 1)) * kN + xo[i & 1]);
+        transpose4x4(r, col);  // col[j] byte i: slot 4 tid + i of column 4gid + j
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo[h][j] = fold(col[j] & 0x0F0F0F0Fu, ma[j], ba[j]);
+          hi[h][j] = fold((col[j] >> 4) & 0x0F0F0F0Fu, mb[j], bb[j]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        const uint4 alo = *reinterpret_cast<const uint4*>(sa + ((c * 2 + 0) * MT + t) * kFrag);
+        const uint4 ahi = *reinterpret_cast<const uint4*>(sa + ((c * 2 + 1) * MT + t) * kFrag);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma16832(acc[t][j], alo, lo[0][j], lo[1][j]);
+          mma16832(acc[t][j], ahi, hi[0][j], hi[1][j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+  }
+
+  // ---- epilogue: register r of tile j holds column 8 tid + 4 (r % 2) + j
+  // of row gid + 8 (r / 2) (mma.cuh's column permutation)
+  const int nb = c0 + warp * 32 + 8 * tid;
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = (m_tile * MT + t) * 16 + gid + 8 * hr;
+      if (m >= M || nb >= N) continue;
+      int v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] = acc[t][c % 4][2 * hr + c / 4];
+      if (n_split > 1) {
+        int32_t* p = partial + ((size_t)split * M + m) * N + nb;
+        if (nb + 8 <= N) {
+          reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<int4*>(p)[1] = make_int4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (nb + c < N) p[c] = v[c];
+        }
+        continue;
+      }
+      const float xm = xs[m];
+      float y[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        y[c] = nb + c < N ? __fmul_rn(__fmul_rn(__int2float_rn(v[c]), s_col[nb + c]), xm) : 0.f;
+      if (out_bf16)
+        store8(static_cast<__nv_bfloat16*>(out) + (size_t)m * N, nb, N, y);
+      else
+        store8(static_cast<float*>(out) + (size_t)m * N, nb, N, y);
+    }
+}
+
+// depth stages, their barriers, and the slack to align the stages to 1024
+// bytes.
+inline size_t smem_bytes(int mt, int depth) {
+  return (size_t)depth * stage_bytes(mt) + (size_t)depth * 16 + 1024;
+}
+
+// The tensor-map encoder cuTensorMapEncodeTiled, reached through the
+// runtime (nothing more to link); null where the CUDA installation has
+// none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The weights' tensor map for the TMA feed: `cols` bytes a row, `rows`
+// rows `pitch` bytes apart, boxes of kN x kR bytes, 128B swizzle. False
+// where the shape does not allow one (the tile then takes 4-byte copies).
+inline bool weight_map(CUtensorMap* map, const int8_t* w, long long cols, long long rows,
+                       long long pitch) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr || pitch % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {kN, kR};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims, strides,
+                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int LAYOUT, bool PACKED, int MT>
+cudaError_t launch_tile(const CUtensorMap& tmap, int tma, const int8_t* xf, const float* xs,
+                        const int8_t* w, const void* mult,
+                        const float* s_col, int32_t* partial, void* out, int out_bf16, int M,
+                        int K, int N, int group, int n_split, int bn, int depth,
+                        cudaStream_t stream) {
+  const size_t smem = smem_bytes(MT, depth);
+  auto kernel = w4a8_mma_kernel<LAYOUT, PACKED, MT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + kN - 1) / kN, n_split);
+  kernel<<<grid, kThreads, smem, stream>>>(tmap, tma, xf, xs, w, mult, s_col, partial, out,
+                                           out_bf16, M, K, N, group, n_split, bn, depth);
+  return cudaGetLastError();
+}
+
+// The whole GEMV: stage x into xf (the wrapper sizes it: mma_plan's
+// x_bytes), the tile, and with n_split > 1 common.cuh's epilogue over the
+// int32 partials. Every argument is checked against the plan; a shape the
+// plan does not cover returns cudaErrorInvalidValue.
+template <int LAYOUT, bool PACKED>
+cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void* mult,
+                   const float* s_col, int8_t* xf, int32_t* partial, void* out, int out_bf16,
+                   int M, int K, int N, int group, int n_split, int bn, int depth,
+                   cudaStream_t stream) {
+  if (M < 1 || N < 4 || N % 4 != 0 || n_split < 1 || depth < 1 ||
+      smem_bytes(tiles_of(M), depth) > 232448 || (n_split > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const Plan pl = plan_of(LAYOUT, K, group, n_split);
+  if (pl.unit_rows % 4 != 0 || pl.n_units < 1 || (n_split - 1) * pl.ups >= pl.n_units)
+    return cudaErrorInvalidValue;
+  const int mt = tiles_of(M);
+  const long long total = (long long)((M + 16 * mt - 1) / (16 * mt)) * n_split * pl.stages *
+                          kChunks * 2 * mt * 32;
+  stage_x_kernel<LAYOUT><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      x, xf, M, K, group, n_split, mt, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // The TMA feed where every padded row is a real row (unit_rows % 16 ==
+  // 0), the rows are 16-byte runs and a block's kN columns lie in one panel;
+  // the multipliers then come as bulk copies too (int8 rows of N % 16 == 0
+  // bytes, or packed int32).
+  CUtensorMap tmap = {};
+  const int pitch = bn > 0 ? bn : N;
+  const bool mult_ok = PACKED || (N % 16 == 0 && reinterpret_cast<uintptr_t>(mult) % 16 == 0);
+  const int tma = pl.p16 == pl.unit_rows && mult_ok && (bn == 0 || bn % kN == 0) &&
+                  weight_map(&tmap, w, pitch, bn > 0 ? (long long)(N / bn) * (K / 2) : K / 2,
+                             pitch);
+  switch (mt) {
+    case 1:
+      err = launch_tile<LAYOUT, PACKED, 1>(tmap, tma, xf, xs, w, mult, s_col, partial, out, out_bf16, M, K,
+                                           N, group, n_split, bn, depth, stream);
+      break;
+    case 2:
+      err = launch_tile<LAYOUT, PACKED, 2>(tmap, tma, xf, xs, w, mult, s_col, partial, out, out_bf16, M, K,
+                                           N, group, n_split, bn, depth, stream);
+      break;
+    default:
+      err = launch_tile<LAYOUT, PACKED, 4>(tmap, tma, xf, xs, w, mult, s_col, partial, out, out_bf16, M, K,
+                                           N, group, n_split, bn, depth, stream);
+  }
+  if (err != cudaSuccess || n_split == 1) return err;
+  if (out_bf16)
+    return launch_gemv_epilogue<__nv_bfloat16, false>(partial, n_split, M, N, s_col, xs,
+                                                      static_cast<__nv_bfloat16*>(out), nullptr,
+                                                      nullptr, stream);
+  return launch_gemv_epilogue<float, false>(partial, n_split, M, N, s_col, xs,
+                                            static_cast<float*>(out), nullptr, nullptr, stream);
+}
+
+}  // namespace mma8
+}  // namespace ff

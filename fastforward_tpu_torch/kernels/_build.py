@@ -53,10 +53,11 @@ SIGNATURES = {
         "ff_a4_gemv": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "w4a8_gemv": {
-        # x, xs, w, mult, s_col, partial, out, M, K, N, group, n_split,
-        # out_kind (0 f32, 1 bf16), stream; paired and group-halves layouts
-        "ff_w4a8_gemv": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "ff_w4a8_gemv_unpaired": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        # x, xs, w, mult, s_col, xf (staged activations), partial (or NULL),
+        # out, M, K, N, group, n_split, depth, out_kind (0 f32, 1 bf16),
+        # stream; paired and group-halves layouts (the tensor-core tile)
+        "ff_w4a8_gemv": [P] * 8 + [I] * 7 + [P],
+        "ff_w4a8_gemv_unpaired": [P] * 8 + [I] * 7 + [P],
         # x, xs, w, mult, s_col, partial, pair_val, pair_idx, idx_out,
         # M, K, N, group, n_split, stream
         "ff_w4a8_gemv_argmax": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
@@ -64,10 +65,12 @@ SIGNATURES = {
         # group, n_pack, n_split, out_kind, stream
         "ff_w4a8_gemv_stacked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
         "ff_w4a8_gemv_splitw": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-        # ... out_kind, bn, stream: pre-blocked (L, N/bn, K/2, bn) weights;
-        # ... out_kind, bn, depth, stream: the manual stream's ring stages
+        # ... out_kind, bn, stream: pre-blocked (L, N/bn, K/2, bn) weights
         "ff_w4a8_gemv_preblocked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
-        "ff_w4a8_gemv_manual": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+        # x, xs, w, mult_packed, s_col, xf, partial (or NULL), out, M, K, N,
+        # L, layer, group, n_pack, n_split, out_kind, bn, depth, stream: the
+        # manual stream on the tensor-core tile's ring of `depth` stages
+        "ff_w4a8_gemv_manual": [P] * 8 + [I] * 11 + [P],
         # ... out_kind, bn (0: flat), stream; ... out_kind, bn, cp (pairs a
         # unit), stream
         "ff_w4a8_gemv_dotraw": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],

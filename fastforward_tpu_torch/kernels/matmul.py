@@ -26,7 +26,7 @@ the float64 result to float32 rounds exactly as int32 → float32 does.
 """
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -167,6 +167,115 @@ def gemv_split(M: int, N: int, n_units: int, rows_per_unit: int) -> int:
     return -(-n_units // per)
 
 
+# The int8 tensor-core tile of the two-level W4A8 GEMV (csrc/w4a8_mma.cuh:
+# kR padded byte rows a ring stage, kN columns a block, kUnitsPerStage
+# multiplier slots of 4 * kN bytes, kFrag bytes an A fragment, 1024 bytes
+# of slack to align the stages).
+_MMA_ROWS, _MMA_N, _MMA_FRAG, _MMA_SLACK = 64, 128, 512, 1024
+_MMA_W_STAGE = _MMA_ROWS * _MMA_N + (_MMA_ROWS // 16) * 4 * _MMA_N
+# Blocks a tensor-core GEMV launch aims for (two on each of the 132 SMs;
+# K is split below it), and the ring stages of the non-stacked entries
+# (row 5).
+_MMA_TARGET_BLOCKS = 264
+_MMA_DEPTH = 4
+# Shared memory a block may use on the H100.
+_SMEM_MAX = 232448
+
+
+def mma_tiles(M: int) -> int:
+    """m16 tiles one block of the tensor-core tile owns at M rows
+    (`csrc/w4a8_mma.cuh` tiles_of): 16, 32 or 64 rows."""
+    return 1 if M <= 16 else 2 if M <= 32 else 4
+
+
+class MmaPlan(NamedTuple):
+    """The launch plan of the tensor-core two-level W4A8 tile
+    (`csrc/w4a8_mma.cuh` Plan, derived there from ``n_split``): ``mt`` m16
+    tiles a block, the (m, n) tile grid, a unit's byte rows (a group pair,
+    or a group of the group-halves layout) and their padding to 16, the
+    units, the K splits, the units a split covers (the last split fewer)
+    and the ring stages (`_MMA_ROWS` padded byte rows each) a split
+    streams."""
+    mt: int
+    m_tiles: int
+    n_tiles: int
+    unit_rows: int
+    p16: int
+    n_units: int
+    n_split: int
+    ups: int
+    stages: int
+
+    @property
+    def stage_bytes(self) -> int:
+        """Shared bytes of one ring stage: weight rows, multiplier slots and
+        the activation fragments of two 32-row chunks."""
+        return _MMA_W_STAGE + (_MMA_ROWS // 32) * 2 * self.mt * _MMA_FRAG
+
+    @property
+    def x_bytes(self) -> int:
+        """Bytes of the activations staged in fragment order (the ``xf``
+        buffer): every (m tile, split, stage)."""
+        return (self.m_tiles * self.n_split * self.stages
+                * (_MMA_ROWS // 32) * 2 * self.mt * _MMA_FRAG)
+
+    def unit_ranges(self):
+        """[(first unit, end unit)] of each split, in split order."""
+        return [(s * self.ups, min(self.n_units, (s + 1) * self.ups))
+                for s in range(self.n_split)]
+
+
+def mma_plan(M: int, K: int, N: int, group_size: int, paired: bool) -> MmaPlan:
+    """Plan of the tensor-core two-level W4A8 GEMV: K is split over whole
+    units only where the (m, n) tiles fall short of `_MMA_TARGET_BLOCKS`,
+    each split keeping at least two stages of rows where the units allow."""
+    unit_rows = group_size if paired else group_size // 2
+    n_units = K // (2 * group_size) if paired else K // group_size
+    p16 = -(-unit_rows // 16) * 16
+    mt = mma_tiles(M)
+    m_tiles, n_tiles = -(-M // (16 * mt)), -(-N // _MMA_N)
+    want = -(-_MMA_TARGET_BLOCKS // (m_tiles * n_tiles))
+    most = max(1, n_units * p16 // (2 * _MMA_ROWS))
+    n_split = max(1, min(n_units, want, most))
+    # no empty split, and the units a split the kernel derives from n_split
+    n_split = -(-n_units // -(-n_units // n_split))
+    ups = -(-n_units // n_split)
+    stages = -(-ups * p16 // _MMA_ROWS)
+    return MmaPlan(mt, m_tiles, n_tiles, unit_rows, p16, n_units, n_split, ups, stages)
+
+
+def manual_depth(plan: MmaPlan, nbuf: int) -> int:
+    """Stages of the tensor-core tile's ring (`csrc/w4a8_mma.cuh`): the
+    least of ``nbuf`` (``FF_2L_MANUAL`` for the manual stream), the stages
+    a block streams, and the stages that fit in the 227 KB a block may use
+    (in place of the TPU kernel's 6 MB VMEM cap, `matmul.py:1084-1085`)."""
+    depth = min(nbuf, plan.stages, (_SMEM_MAX - _MMA_SLACK) // (plan.stage_bytes + 16))
+    if depth < 1:
+        raise ValueError(f"the tensor-core W4A8 GEMV ring has no room for a stage ({plan})")
+    return depth
+
+
+def fold_w4a8_2l_words(words: torch.Tensor, m_lo, m_hi=None) -> tuple:
+    """The tensor-core tile's fold (`csrc/w4a8_mma.cuh` fold, the TPU
+    kernels' SWAR fold, `matmul.py:486-491`), in torch integer ops: packed
+    int32 ``words`` of four offset-binary nibble pairs u, and multipliers
+    (broadcast against ``words``; ``m_hi`` defaults to ``m_lo``, the
+    group-halves layout) to the int32 words of the low and of the high
+    plane whose bytes are the int8 ``m * (u - 8)``:
+    ``((u * m + (0x80808080 - 8m * 0x01010101)) ^ 0x80808080)`` per plane."""
+    mask = 0xFFFFFFFF
+    w = words.to(torch.int64) & mask
+    m_lo = torch.as_tensor(m_lo).to(torch.int64)
+    m_hi = m_lo if m_hi is None else torch.as_tensor(m_hi).to(torch.int64)
+
+    def plane(p, m):
+        bias = (0x80808080 - m * 0x08080808) & mask
+        f = ((p * m + bias) & mask) ^ 0x80808080
+        return (f - ((f >> 31) << 32)).to(torch.int32)
+
+    return plane(w & 0x0F0F0F0F, m_lo), plane((w >> 4) & 0x0F0F0F0F, m_hi)
+
+
 def _check_gemv(x_q, x_scale, K, N, group_size):
     dev = x_q.device
     M = x_q.shape[0]
@@ -232,9 +341,9 @@ def matmul_w4a4_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
 
 
 def _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
-    """Check the operands of the two-level W4A8 GEMV kernel; returns (M, K,
-    N, n_split). Paired: an even group count and group % 4 == 0; group
-    halves (unpaired): group % 8 == 0."""
+    """Check the operands of the two-level W4A8 GEMV kernels; returns (M, K,
+    N). Paired: an even group count and group % 4 == 0; group halves
+    (unpaired): group % 8 == 0."""
     M, K = x_q.shape
     N = w_packed.shape[1]
     dev = x_q.device
@@ -248,15 +357,23 @@ def _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
     if not paired and group_size % 8 != 0:
         raise ValueError(f"the unpaired W4A8 GEMV kernel needs group % 8 == 0 "
                          f"(group={group_size})")
-    if paired:
-        return M, K, N, gemv_split(M, N, K // (2 * group_size), group_size)
-    return M, K, N, gemv_split(M, N, K // group_size, group_size // 2)
+    return M, K, N
+
+
+def _mma_scratch(plan: MmaPlan, M: int, N: int, dev):
+    """The tensor-core tile's scratch: the staged activations, and the int32
+    partials (None for one split)."""
+    xf = torch.empty((plan.x_bytes,), dtype=torch.int8, device=dev)
+    partial = (torch.empty((plan.n_split, M, N), dtype=torch.int32, device=dev)
+               if plan.n_split > 1 else None)
+    return xf, partial
 
 
 def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 128,
                         out_dtype=torch.bfloat16, paired: Optional[bool] = None):
     """Two-level W4A8 GEMV (`matmul.py:571`); f32 or bf16 out. On the card
-    `csrc/w4a8_gemv.cu`: the paired layout through ``ff_w4a8_gemv``
+    `csrc/w4a8_gemv.cu` on the int8 tensor-core tile (`csrc/w4a8_mma.cuh`,
+    planned by `mma_plan`): the paired layout through ``ff_w4a8_gemv``
     (counted under ``w4a8_gemv``), the group-halves layout
     (`pack_uint4_offset`, the JAX kernel `:479`) through
     ``ff_w4a8_gemv_unpaired`` (``w4a8_gemv_unpaired``); both bit-exact
@@ -268,20 +385,21 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
         return matmul_w4a8_2l_reference(
             x_q, x_scale, w_packed, mult, s_col, None, group_size, out_dtype, paired=paired,
         )
-    M, K, N, n_split = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    M, K, N = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"W4A8 GEMV kernel writes f32 or bf16, not {out_dtype}")
     dev = x_q.device
-    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
+    plan = mma_plan(M, K, N, group_size, paired)
+    xf, partial = _mma_scratch(plan, M, N, dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = _build.lib("w4a8_gemv")
     entry, name = ((lib.ff_w4a8_gemv, "w4a8_gemv") if paired
                    else (lib.ff_w4a8_gemv_unpaired, "w4a8_gemv_unpaired"))
     err = entry(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-        s_col.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        M, K, N, group_size, n_split, 0 if out_dtype == torch.float32 else 1,
-        _build.stream_ptr(dev),
+        s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), M, K, N, group_size, plan.n_split, manual_depth(plan, _MMA_DEPTH),
+        0 if out_dtype == torch.float32 else 1, _build.stream_ptr(dev),
     )
     _build.launch_counts[name] += 1
     _build.check(err, name)
@@ -293,8 +411,9 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
     """Greedy lm_head (`matmul.py:708`): int32 argmax over N per row of the
     two-level W4A8 logits — the ids of ``torch.argmax`` over the f32
     logits (first occurrence wins ties, a NaN counts as the maximum). The
-    fused kernel takes the paired layout; an unpaired head takes the GEMV
-    and the argmax of its logits, as the JAX TPU route does."""
+    fused kernel (`csrc/w4a8_gemv.cu` ``ff_w4a8_gemv_argmax``, counted under
+    ``w4a8_gemv_argmax``) takes the paired layout; an unpaired head takes
+    the GEMV and the argmax of its logits, as the JAX TPU route does."""
     M, K = x_q.shape
     if paired is None:
         paired = _paired_default(K // group_size)
@@ -310,7 +429,8 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
         logits = matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size,
                                      torch.float32, paired=False)
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    M, K, N, n_split = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    M, K, N = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    n_split = gemv_split(M, N, K // (2 * group_size), group_size)
     dev = x_q.device
     n_tiles = -(-N // _ARGMAX_TILE)
     partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
@@ -322,7 +442,7 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
         s_col.data_ptr(), partial.data_ptr(), pair_val.data_ptr(), pair_idx.data_ptr(),
         idx.data_ptr(), M, K, N, group_size, n_split, _build.stream_ptr(dev),
     )
-    _build.launch_counts["w4a8_gemv"] += 1
+    _build.launch_counts["w4a8_gemv_argmax"] += 1
     _build.check(err, "w4a8_gemv_argmax")
     return idx
 
@@ -404,39 +524,6 @@ def matmul_w4a8_2l_concat_reference(x_q, x_scale, w_packed, mult, s_col, concat_
     return _epilogue(acc.float(), s_col, x_scale, None, out_dtype)
 
 
-# Shared memory a block may use on the H100, and the constants of
-# csrc/common.cuh's tile (gemv_smem_bytes, ring_smem_bytes).
-_SMEM_MAX = 232448
-_WARPS = 8
-
-
-def _tile_smem(units_per_split: int, rows_per_unit: int) -> int:
-    return (2 * _BLOCK_M * units_per_split * rows_per_unit + 2 * _BLOCK_M * units_per_split * 4
-            + _WARPS * _BLOCK_M * _BLOCK_N * 4)
-
-
-def _ring_smem(depth: int, rows_per_unit: int) -> int:
-    return -(-depth * 8 // 16) * 16 + depth * rows_per_unit * _BLOCK_N
-
-
-def manual_depth(K: int, group_size: int, n_split: int, nbuf: int) -> int:
-    """Stages of the manual stream's ring (`csrc/common.cuh` kRing): the
-    least of ``nbuf`` (``FF_2L_MANUAL``), the units (group pairs) of a
-    block's K range, and the stages that fit beside the tile in the 227 KB
-    a block may use (in place of the TPU kernel's 6 MB VMEM cap,
-    `matmul.py:1084-1085`)."""
-    n_units = K // (2 * group_size)
-    ups = -(-n_units // n_split)
-    tile = _tile_smem(ups, group_size)
-    depth = min(nbuf, ups, (_SMEM_MAX - tile) // (group_size * _BLOCK_N))
-    while depth > 0 and tile + _ring_smem(depth, group_size) > _SMEM_MAX:
-        depth -= 1
-    if depth < 1:
-        raise ValueError(f"the manual W4A8 GEMV ring has no room for a stage (K={K}, "
-                         f"group={group_size})")
-    return depth
-
-
 def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
                                 group_size: int = 128, out_dtype=torch.bfloat16):
     """Two-level W4A8 decode GEMV over stacked weights (`matmul.py:1023`).
@@ -451,8 +538,9 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     plain versions, the others the oracle. On the card one entry of
     `csrc/w4a8_gemv.cu` per route, each under its own launch count:
     ``w4a8_gemv_stacked`` (flat), ``w4a8_gemv_preblocked``,
-    ``w4a8_gemv_manual`` (``FF_2L_MANUAL`` >= 2, pre-blocked; its ring
-    depth `manual_depth`), ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat),
+    ``w4a8_gemv_manual`` (``FF_2L_MANUAL`` >= 2, pre-blocked; the int8
+    tensor-core tile of `csrc/w4a8_mma.cuh`, planned by `mma_plan`, its
+    ring depth `manual_depth`), ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat),
     ``w4a8_gemv_dotraw`` (``FF_2L_DOTRAW=1``) and ``w4a8_gemv_concat``
     (``FF_2L_CONCAT_PAIRS`` above 1), the last two on either layout.
     """
@@ -499,6 +587,21 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
         raise ValueError(f"the pre-blocked W4A8 GEMV kernels need a panel width bn that is a "
                          f"multiple of 4 (a lane's 4 columns in one panel), got bn={bn}")
     n_pairs = K // (2 * group_size)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    out_kind = 0 if out_dtype == torch.float32 else 1
+    lib = _build.lib("w4a8_gemv")
+    if route == "w4a8_gemv_manual":
+        plan = mma_plan(M, K, N, group_size, True)
+        xf, partial = _mma_scratch(plan, M, N, dev)
+        err = lib.ff_w4a8_gemv_manual(
+            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
+            s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
+            out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split, out_kind, bn,
+            manual_depth(plan, manual_bufs), _build.stream_ptr(dev),
+        )
+        _build.launch_counts[route] += 1
+        _build.check(err, route)
+        return out
     if route == "w4a8_gemv_concat":
         # a unit of concat_pairs pairs (at most all of them); splits cut at
         # unit boundaries
@@ -507,19 +610,15 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     else:
         n_split = gemv_split(M, N, n_pairs, group_size)
     partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     extra = ()
     if route in ("w4a8_gemv_preblocked", "w4a8_gemv_dotraw"):
         extra = (bn,)
     elif route == "w4a8_gemv_concat":
         extra = (bn, cp)
-    elif route == "w4a8_gemv_manual":
-        extra = (bn, manual_depth(K, group_size, n_split, manual_bufs))
-    err = getattr(_build.lib("w4a8_gemv"), f"ff_{route}")(
+    err = getattr(lib, f"ff_{route}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K, N, L, layer,
-        group_size, n_pack, n_split, 0 if out_dtype == torch.float32 else 1, *extra,
-        _build.stream_ptr(dev),
+        group_size, n_pack, n_split, out_kind, *extra, _build.stream_ptr(dev),
     )
     _build.launch_counts[route] += 1
     _build.check(err, route)

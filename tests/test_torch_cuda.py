@@ -71,7 +71,13 @@ def test_a4_gemv_kernel_bit_equal(dev, M, K, N, g):
     assert _build.launch_counts["a4_gemv"] == before + 2
 
 
-@pytest.mark.parametrize("M,K,N,g", [(1, 256, 1004, 64), (8, 4096, 128256, 512), (20, 1024, 260, 128)])
+@pytest.mark.parametrize("M,K,N,g", [
+    (1, 256, 1004, 64), (8, 4096, 128256, 512), (20, 1024, 260, 128),
+    # the tensor-core tile: odd M, 64-row blocks, a ragged last column tile
+    # on the TMA feed (N % 128 == 16), K split, groups shorter than 16 rows
+    (17, 4096, 128256, 128), (192, 4096, 128256, 512), (256, 2048, 1040, 64),
+    (192, 4096, 1024, 128), (33, 1040, 132, 20), (5, 256, 40, 4),
+])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_w4a8_gemv_kernel_bit_equal(dev, M, K, N, g, out_dtype):
     gen = _gen(dev, M * N)
@@ -79,8 +85,26 @@ def test_w4a8_gemv_kernel_bit_equal(dev, M, K, N, g, out_dtype):
     m = _ri(gen, 1, 16, (K // g, N), torch.int8, dev)
     s = torch.rand((N,), generator=gen, device=dev) * 1e-2
     x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    before = _build.launch_counts["w4a8_gemv"]
     out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, out_dtype, paired=True)
+    assert _build.launch_counts["w4a8_gemv"] == before + 1
     ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, out_dtype, paired=True)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("paired", [True, False])
+def test_w4a8_gemv_kernel_extreme_sums_exact(dev, paired):
+    # x = +-127, m = 15, u = 0 and 15 over K = 14336: the largest int32 sums
+    # the two-level grid allows, exact in any order
+    gen = _gen(dev, 14336 + paired)
+    M, K, N, g = 72, 14336, 256, 128
+    x_q = torch.where(_ri(gen, 0, 2, (M, K), torch.int8, dev) > 0, 127, -127).to(torch.int8)
+    x_s = torch.rand((M,), generator=gen, device=dev) + 0.5
+    w = torch.where(_ri(gen, 0, 2, (K // 2, N), torch.int8, dev) > 0, 0, -1).to(torch.int8)
+    m = torch.full((K // g, N), 15, dtype=torch.int8, device=dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-6
+    out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, torch.float32, paired=paired)
+    ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, torch.float32, paired=paired)
     assert torch.equal(out, ref)
 
 
@@ -428,6 +452,9 @@ def test_paged_decode_step_takes_the_kernels_at_any_page(dev):
 @pytest.mark.parametrize("M,K,N,g", [
     (1, 256, 132, 64), (192, 4096, 4096, 128), (13, 1024, 4100, 32), (192, 14336, 4096, 128),
     (8, 384, 260, 128), (192, 4096, 128256, 128),
+    # the tensor-core tile: odd M on the TMA feed with a ragged last column
+    # tile, K split at N = 1024, 256 rows, groups of 4 and 12 rows a plane
+    (17, 4096, 1040, 128), (256, 4096, 1024, 128), (5, 256, 40, 8), (9, 480, 100, 24),
 ])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_w4a8_unpaired_gemv_kernel_bit_equal(dev, M, K, N, g, out_dtype):
@@ -948,7 +975,7 @@ def _map(obj, fn):
 # Llama-3-8B's qkv at the default panel, a 192-column panel (no power of
 # two), 128-column panels, and a 20-column panel (4-byte copies).
 
-_PB_MS = [1, 8, 192, 256]
+_PB_MS = [1, 8, 17, 192, 256]
 _PB_SHAPES = [(4096, 6144, 512, 128), (1024, 384, 192, 64), (2048, 1024, 128, 128),
               (1024, 40, 20, 64)]
 
@@ -1011,17 +1038,20 @@ def test_preblocked_gemv_rejects_a_panel_width_not_a_multiple_of_4(dev):
 
 
 @pytest.mark.parametrize("M", _PB_MS)
-@pytest.mark.parametrize("K,N,bn,g", _PB_SHAPES)
+@pytest.mark.parametrize("K,N,bn,g", _PB_SHAPES + [
+    # the TMA feed: 2 panels of 512 (fewer than nbuf 3 and 64), and
+    # Llama-3-8B's down_proj at the default panel
+    (4096, 1024, 512, 128), (14336, 4096, 512, 128)])
 @pytest.mark.parametrize("nbuf", [2, 3, 64])
 def test_manual_gemv_kernel_bit_equal(dev, M, K, N, bn, g, nbuf):
-    # nbuf 64: above the units of every block's K range (the ring's depth
+    # nbuf 64: above the stages of every block's K range (the ring's depth
     # is cut to them)
     gen = _gen(dev, M + N + nbuf)
     x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
     w4 = mm.preblock_stacked(w, bn)
-    n_split = mm.gemv_split(M, N, K // (2 * g), g)
-    depth = mm.manual_depth(K, g, n_split, nbuf)
-    assert 1 <= depth <= min(nbuf, -(-K // (2 * g) // n_split))
+    plan = mm.mma_plan(M, K, N, g, True)
+    depth = mm.manual_depth(plan, nbuf)
+    assert 1 <= depth <= min(nbuf, plan.stages)
     outs, n = _route_run("w4a8_gemv_manual", {"FF_2L_MANUAL": str(nbuf)}, x_q, x_s, w4, mp, s,
                          g, torch.bfloat16)
     assert n == 3
