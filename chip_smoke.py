@@ -19,10 +19,13 @@ each raising on failure:
    a unit on either layout, concat-pairs at 3, which divides no
    projection's pair count) and the pre-blocked dequant bit-equal, at M =
    192 and 8 with the ring depth of each shape logged;
-   the int8 tensor-core tile's three entries (the W4A8 GEMV paired and
-   unpaired, the manual stream) bit-equal at M = 1, 8, 17, 192 and 256 on
-   the lm_head (g512 and g128, f32 and bf16), the seven unfused and the
-   four fused pre-blocked projections of a layer (nbuf 2 and 4);
+   the int8 tensor-core tile's five entries (the W4A8 GEMV paired and
+   unpaired, the manual stream, the A4 GEMV, the argmax head) bit-equal at
+   M = 1, 8, 17, 192 and 256 on the lm_head (g512 and g128, f32 and bf16;
+   the argmax head with tied columns, a zero row and a NaN row), the seven
+   unfused and the four fused pre-blocked projections of a layer (nbuf 2
+   and 4), and the A4 GEMV on the four fused projections at g512 and a
+   g128 and a g32 shape;
    the tiled W4A16 kernel (off the serving route) at bench.py's w4a16
    prefill (M = 24,576, the four projections) within W4_GEMV_RTOL and one
    bf16 ulp, its bias epilogue exact; every route of the int4/int8 dot
@@ -396,7 +399,7 @@ def phase_kernels(dev):
             xb = dequantized(x_q, x_s)
             w_bf16 = mm.dequantize_int4_paired_reference(w[1], mult[1].float() * s_col[1][None, :], g)
             nbytes = K * N // 2 + mp[1].numel() * 4 + N * 4 + M * K + M * 4 + M * N * 2
-            plan = mm.mma_plan(M, K, N, g, True)  # the manual stream's
+            plan = mm.mma_plan(M, K, N, g, "paired")  # the manual stream's
             for i, (name, layout, flags, variant, _) in enumerate(routes):
                 label = f"{pname} M={M} K={K} N={N}"
                 if layout == "pre":
@@ -582,13 +585,18 @@ def phase_kernels(dev):
 
 
 def _mma_checks(dev, gen, randint):
-    """The tensor-core tile's three entries bit-equal to
-    matmul_w4a8_2l_reference at the serve runs' shapes, M = 1, 8, 17, 192
-    and 256: the lm_head (K 4096, N 128256) paired at g512 and g128 and
-    unpaired at g128, f32 and bf16; the seven unfused projections of a
-    layer (LAYER_PROJ) unpaired at g128, bf16; the four fused projections
-    (PROJ) pre-blocked in PANEL-column panels through the manual stream at
-    nbuf 2 and 4, bf16 (layer 1 of 2). Each launch counted."""
+    """The tensor-core tile's five entries bit-equal to their plain versions
+    at the serve runs' shapes, M = 1, 8, 17, 192 and 256: the W4A8 GEMV
+    (matmul_w4a8_2l_reference) on the lm_head (K 4096, N 128256) paired at
+    g512 and g128 and unpaired at g128, f32 and bf16, on the seven unfused
+    projections of a layer (LAYER_PROJ) unpaired at g128, bf16, and on the
+    four fused projections (PROJ) pre-blocked in PANEL-column panels
+    through the manual stream at nbuf 2 and 4, bf16 (layer 1 of 2); the A4
+    GEMV (matmul_w4a4_2l_reference) on PROJ at g512, layer 1 of 2, and on
+    one g128 and one g32 shape; the argmax head (torch.argmax of the f32
+    reference logits) on the lm_head at g512 and g128, with tied columns
+    within and across 128-column blocks, a row of zeros (a tie over the
+    whole row) and a row whose scale is NaN. Each launch counted."""
     from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles
@@ -650,8 +658,44 @@ def _mma_checks(dev, gen, randint):
                                                               None, g, paired=True))
         del w, w4
     torch.cuda.empty_cache()
-    log(f"tensor-core W4A8 tile: {n} calls bit-equal (lm_head g512, g128 paired and g128 "
-        f"unpaired; LAYER_PROJ unpaired; PROJ manual at nbuf 2 and 4; M = {ms})")
+    n8, t_a4 = n, time.perf_counter()
+    # the A4 GEMV (vertical layout)
+    a4_shapes = [*((kn, 512) for kn in PROJ.values()), ((4096, 6144), 128), ((1024, 4100), 32)]
+    for (K, N), g in a4_shapes:
+        w, mult, s_col = layer(K, N, g, L=2)
+        mp = pack_mult_nibbles(mult).contiguous()
+        for M in ms:
+            x_q, x_s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
+            check(f"K={K} N={N} g{g} M={M}", "a4_gemv",
+                  lambda: mm.matmul_w4a4_2l_gemv_stacked(x_q, x_s, w, mp, s_col, 1, group_size=g),
+                  lambda: mm.matmul_w4a4_2l_reference(x_q, x_s, w[1], mult[1], s_col[1], None, g))
+        del w
+    n_a4, t_argmax = n - n8, time.perf_counter()
+    # the argmax head: column 3 copied to 77 (its block), 5000 and VOCAB - 2
+    # (the ragged last block), scaled to carry the maximum where their sum
+    # is positive
+    tied = [3, 77, 5000, VOCAB - 2]
+    for g in (512, 128):
+        K, N = 4096, VOCAB
+        w, mult, s_col = layer(K, N, g)
+        w[:, tied], mult[:, tied], s_col[tied] = w[:, 3:4], mult[:, 3:4], 1.0
+        for M in ms:
+            x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+            x_q[0] = 0
+            if M > 1:
+                x_s[M - 1] = float("nan")
+            check(f"lm_head argmax g{g} M={M}", "w4a8_gemv_argmax",
+                  lambda: mm.matmul_w4a8_2l_gemv_argmax(x_q, x_s, w, mult, s_col, g, paired=True),
+                  lambda: torch.argmax(mm.matmul_w4a8_2l_reference(
+                      x_q, x_s, w, mult, s_col, None, g, torch.float32, paired=True),
+                      dim=-1).to(torch.int32))
+        del w, mult
+        torch.cuda.empty_cache()
+    t_end = time.perf_counter()
+    log(f"tensor-core tile: {n} calls bit-equal: {n8} W4A8 (lm_head g512, g128 paired and g128 "
+        f"unpaired; LAYER_PROJ unpaired; PROJ manual at nbuf 2 and 4), {n_a4} A4 (PROJ g512, "
+        f"g128, g32; {t_argmax - t_a4:.1f} s), {n - n8 - n_a4} argmax head (g512, g128; ties, "
+        f"a NaN row; {t_end - t_argmax:.1f} s); M = {ms}")
 
 
 def _tiled_w4a16_kernel(dev, gen, randint):
@@ -1964,12 +2008,12 @@ def phase_loader(dev):
 
 
 SOURCES = {
-    "a4_gemv": ("fastforward_tpu_torch/csrc/a4_gemv.cu",
-                "fastforward_tpu/kernels/matmul.py:1406"),
+    "a4_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
+                "fastforward_tpu/kernels/matmul.py:1406 (body :1342)"),
     "w4a8_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                   "fastforward_tpu/kernels/matmul.py:571 (paired body :537, pallas_call :620)"),
-    "w4a8_gemv_argmax": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
-                         "fastforward_tpu/kernels/matmul.py:708"),
+    "w4a8_gemv_argmax": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
+                         "fastforward_tpu/kernels/matmul.py:708 (kernel :650, pallas_call :744)"),
     "kv_append": ("fastforward_tpu_torch/csrc/kv_append.cu",
                   "fastforward_tpu/kernels/kv_update.py:100"),
     "flash_decode": ("fastforward_tpu_torch/csrc/flash_decode.cu",

@@ -2,17 +2,19 @@
 // w4a8_gemv.cu, fused_tail.cu, fused_head.cu): the dp4a split-K
 // partial-sum tile and kernel, the layouts, and the epilogue, whose
 // compile-time ARGMAX flag turns the logits into token ids. (The two-level
-// W4A8 GEMV of both layouts and the manual stream run w4a8_mma.cuh's int8
-// tensor-core tile; they share the layouts, the mbarrier helpers and the
-// epilogue.)
+// W4A8 GEMV of both layouts, the manual stream, the argmax head and the A4
+// GEMV run w4a8_mma.cuh's int8 tensor-core tile; they share the layouts,
+// the mbarrier helpers, the epilogue and the argmax reduction. The dp4a
+// tile serves the other stacked W4A8 routes, the fused tail and the fused
+// layer heads.)
 //
 // Both GEMVs compute, per output column n and row m,
 //   acc[m, n] = sum_g m_g[n] * sum_{k in g} x[m, k] * v[k, n]      (int32)
 //   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]
 // with v in [-8, 7] stored as nibbles and m_g in [1, 15]. They differ only
 // in where the two nibbles of a weight byte sit along K (the LAYOUT
-// template argument: vertical or adjacent-group pairs) and
-// how the multipliers are stored. A layer's packed weights lie flat
+// template argument: vertical or adjacent-group pairs); the multipliers
+// come nibble-packed, 8 a word. A layer's packed weights lie flat
 // (K/2, N) or pre-blocked into contiguous panels (N/bn, K/2, bn), and the
 // ROUTE argument says how a tile reads them (below).
 //
@@ -132,35 +134,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // The group multipliers of unit `unit` (a pair, or a group of the
-// group-halves layout) for the 4 columns n0.. : ma for the low nibble
-// plane, mb for the high one. PACKED: (n_pack, N) int32, 8 nibbles a
-// word; else (n_groups, N) int8.
-template <int LAYOUT, bool PACKED>
+// vertical layout) for the 4 columns n0.. from the nibble-packed (n_pack,
+// N) int32, 8 nibbles a word: ma for the low nibble plane, mb for the high
+// one.
+template <int LAYOUT>
 __device__ __forceinline__ void unit_mult(const void* __restrict__ mult, int N, int n0, int unit,
                                           unsigned ma[4], unsigned mb[4]) {
-  if (PACKED) {
-    // paired: groups 2u and 2u + 1, adjacent nibbles of one word (2u % 8
-    // is even); otherwise the unit is group `unit`
-    const int g0 = LAYOUT == kPaired ? 2 * unit : unit;
-    const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
-    const int sh = 4 * (g0 % 8);
+  // paired: groups 2u and 2u + 1, adjacent nibbles of one word (2u % 8 is
+  // even); vertical: the unit is group `unit`
+  const int g0 = LAYOUT == kPaired ? 2 * unit : unit;
+  const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
+  const int sh = 4 * (g0 % 8);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
-      mb[c] = LAYOUT == kPaired ? (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu : ma[c];
-    }
-  } else {
-    // paired: multiplier rows 2u and 2u + 1; halves: row u for both planes
-    const int8_t* mr = static_cast<const int8_t*>(mult);
-    const int ra = LAYOUT == kPaired ? 2 * unit : unit;
-    const int rb = LAYOUT == kPaired ? 2 * unit + 1 : unit;
-    const unsigned wa = *reinterpret_cast<const unsigned*>(mr + (size_t)ra * N + n0);
-    const unsigned wb = *reinterpret_cast<const unsigned*>(mr + (size_t)rb * N + n0);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      ma[c] = (wa >> (8 * c)) & 0xFFu;
-      mb[c] = (wb >> (8 * c)) & 0xFFu;
-    }
+  for (int c = 0; c < 4; ++c) {
+    ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
+    mb[c] = LAYOUT == kPaired ? (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu : ma[c];
   }
 }
 
@@ -204,9 +192,7 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
 //   x        (M, K) int8 activations
 //   w        (K/2, N) int8 packed weights of one layer, or its pre-blocked
 //            form (N/bn, K/2, bn) when bn > 0 (see panel_col)
-//   mult     PACKED: (n_pack, N) int32, 8 nibble multipliers per word
-//            (always for kVertical; the stacked W4A8 GEMV for kPaired)
-//            else:   (n_groups, N) int8 (kPaired)
+//   mult     (n_pack, N) int32, 8 nibble multipliers per word
 //   partial  (n_split, M, N) int32
 // gemv_tile computes one (row tile, column tile, split) of it with all
 // kThreads threads of the block, in dynamic shared memory `smem` of
@@ -216,15 +202,15 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
 // block of a persistent grid (kDirect).
 // rows_per_unit: byte rows of one unit (group paired, else group/2);
 // cp: the pairs of a kConcat unit (units_per_split a multiple of it).
-template <int LAYOUT, bool PACKED, int ROUTE = kDirect>
+template <int LAYOUT, int ROUTE = kDirect>
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
           int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int cp = 1) {
   static_assert(LAYOUT != kHalves, "the group-halves layout runs w4a8_mma.cuh's tile");
-  static_assert((ROUTE != kDotRaw && ROUTE != kConcat) || (LAYOUT == kPaired && PACKED),
-                "the dot-raw and concat-pairs routes take the stacked paired layout");
+  static_assert((ROUTE != kDotRaw && ROUTE != kConcat) || LAYOUT == kPaired,
+                "the dot-raw and concat-pairs routes take the paired layout");
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
@@ -337,7 +323,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const int u_end = min(ue, u + cp);
         if (wq == 0)
           for (int v = u; v < u_end; ++v) {
-            unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + v, ma, mb);
+            unit_mult<LAYOUT>(mult, N, n0, u0 + v, ma, mb);
             correct(v, ma, mb);
           }
         const int quads = (u_end - u) * rows_per_unit / 4;
@@ -347,7 +333,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
           const int v = lr / rows_per_unit;
           if (v != cur) {
-            unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + v, ma, mb);
+            unit_mult<LAYOUT>(mult, N, n0, u0 + v, ma, mb);
             cur = v;
           }
           unsigned r[4];
@@ -355,7 +341,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
         }
       } else if constexpr (ROUTE == kDotRaw) {
-        unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + u, ma, mb);
+        unit_mult<LAYOUT>(mult, N, n0, u0 + u, ma, mb);
         // per group, row and column: -8 sum(x_g) (once per block) + sum x u
         int pa[kBM][4], pb[kBM][4];
 #pragma unroll
@@ -382,7 +368,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           for (int c = 0; c < 4; ++c)
             acc[m][c] += static_cast<int>(ma[c]) * pa[m][c] + static_cast<int>(mb[c]) * pb[m][c];
       } else {
-        unit_mult<LAYOUT, PACKED>(mult, N, n0, u0 + u, ma, mb);
+        unit_mult<LAYOUT>(mult, N, n0, u0 + u, ma, mb);
         if (wq == 0) correct(u, ma, mb);
         const int quads = rows_per_unit / 4;
 #pragma unroll 2
@@ -413,15 +399,15 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int LAYOUT, bool PACKED, int ROUTE>
+template <int LAYOUT, int ROUTE>
 __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
                     int M, int K, int N, int group, int units_per_split,
                     int n_units, int bn, int cp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gemv_tile<LAYOUT, PACKED, ROUTE>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
-                                   blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, cp);
+  gemv_tile<LAYOUT, ROUTE>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
+                           blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, cp);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
@@ -432,7 +418,7 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
 // bn: the pre-blocked panel width (0: flat); cp: the pairs of a unit
 // (kConcat), a split covering whole
 // units of cp pairs.
-template <int LAYOUT, bool PACKED = LAYOUT == kVertical, int ROUTE = kDirect>
+template <int LAYOUT, int ROUTE = kDirect>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
                                 int n_split, cudaStream_t stream, int bn = 0, int cp = 1) {
@@ -441,11 +427,11 @@ cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mu
   if (cp < 1) return cudaErrorInvalidValue;
   const int ups = ((n_units + cp - 1) / cp + n_split - 1) / n_split * cp;
   const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
-  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, PACKED, ROUTE>,
+  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, ROUTE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
-  gemv_partial_kernel<LAYOUT, PACKED, ROUTE><<<grid, kThreads, smem, stream>>>(
+  gemv_partial_kernel<LAYOUT, ROUTE><<<grid, kThreads, smem, stream>>>(
       x, w, mult, partial, M, K, N, group, ups, n_units, bn, cp);
   return cudaGetLastError();
 }
@@ -533,20 +519,27 @@ cudaError_t launch_gemv_epilogue(const int32_t* partial, int n_split, int M, int
   return cudaGetLastError();
 }
 
-// Second pass: reduce a row's tile pairs to its token id.
+// Second pass: reduce a row's tile pairs to its token id, one warp a row
+// (a lane's strided pairs, then shuffles; `better` is a total order on
+// (value, index), so any order of reduction gives the same id).
 __global__ void argmax_reduce_kernel(const float* __restrict__ pair_val,
                                      const int* __restrict__ pair_idx, int n_tiles,
                                      int* __restrict__ idx_out) {
-  const int m = blockIdx.x;
-  if (threadIdx.x != 0) return;
-  float bv = pair_val[m * n_tiles];
-  int bi = pair_idx[m * n_tiles];
-  for (int t = 1; t < n_tiles; ++t) {
-    const float v = pair_val[m * n_tiles + t];
-    const int i = pair_idx[m * n_tiles + t];
+  const int m = blockIdx.x, lane = threadIdx.x;
+  float bv = 0.f;
+  int bi = INT_MAX;  // no candidate
+#pragma unroll 4
+  for (int t = lane; t < n_tiles; t += 32) {
+    const float v = pair_val[(size_t)m * n_tiles + t];
+    const int i = pair_idx[(size_t)m * n_tiles + t];
     if (better(v, i, bv, bi)) { bv = v; bi = i; }
   }
-  idx_out[m] = bi;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v = __shfl_xor_sync(0xffffffffu, bv, off);
+    const int i = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (better(v, i, bv, bi)) { bv = v; bi = i; }
+  }
+  if (lane == 0) idx_out[m] = bi;
 }
 
 }  // namespace ff

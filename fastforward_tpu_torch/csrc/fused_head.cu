@@ -139,8 +139,7 @@ int fused_head(const void* x, const void* norm_w, const void* w, const void* mul
   int32_t* p = static_cast<int32_t*>(partial);
   const int8_t* q = static_cast<const int8_t*>(hq);
   err = A4 ? ff::launch_gemv_partial<ff::kVertical>(q, wl, ml, p, M, K, N, group, n_split, st)
-           : ff::launch_gemv_partial<ff::kPaired, true>(q, wl, ml, p, M, K, N, group, n_split,
-                                                        st);
+           : ff::launch_gemv_partial<ff::kPaired>(q, wl, ml, p, M, K, N, group, n_split, st);
   if (err != cudaSuccess) return err;
   const float* s = static_cast<const float*>(hs);
   if (out_bf16)

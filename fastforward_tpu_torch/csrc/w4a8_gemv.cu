@@ -19,9 +19,9 @@
 // epilogue one int32 token id per row (first occurrence wins ties, a NaN
 // counts as the maximum: the ids of torch.argmax over the logits).
 // Bit-exact against matmul_w4a8_2l_reference.
-// ff_w4a8_gemv and ff_w4a8_gemv_unpaired (row 5) run w4a8_mma.cuh's int8
-// tensor-core tile, with its note; the argmax head runs common.cuh's dp4a
-// tile and epilogue.
+// ff_w4a8_gemv and ff_w4a8_gemv_unpaired (row 5) and the argmax head
+// ff_w4a8_gemv_argmax (row 4) run w4a8_mma.cuh's int8 tensor-core tile,
+// with its note.
 //
 // The stacked entries read layer `layer` of (L, K/2, N) weights, or of
 // their pre-blocked form (L, N/bn, K/2, bn) (preblock_stacked, matmul.py:
@@ -77,15 +77,17 @@
 // 2*M*K*N = 8.4e10 int8 operations (0.042 ms at 1,979 TOP/s on the tensor
 // cores); dp4a on the CUDA cores is far from that rate.
 //
-// Design of the dp4a routes: the same split-K partial kernel as the A4
-// GEMV (common.cuh) reads each weight byte once per 8 rows; the two nibble
+// Design of the dp4a routes: common.cuh's split-K partial kernel reads
+// each weight byte once per 8 rows; the two nibble
 // planes of a byte go to the two groups of its pair, each plane scaled by
 // its group multiplier in one register multiply, each feeding dp4a against
-// its own staged activations. The TPU kernel
-// carried a running (max, index) across its sequential grid; here blocks
-// run in no order, so the argmax epilogue writes one (max, index) pair per
-// row and 1024-column tile and a second tiny pass reduces the pairs in
-// tile order. The logits never reach device memory on the argmax path.
+// its own staged activations.
+//
+// The argmax head: the TPU kernel carried a running (max, index) across
+// its sequential grid; here blocks run in no order, so the tile's epilogue
+// writes one (max, first index) pair per row and 128-column block and a
+// second pass, one warp a row, reduces the pairs. The logits never reach
+// device memory.
 //
 // ff_w4a8_gemv_halves: the float-scale W4A8 GEMV (FF_BENCH_MODE=w4a8).
 // Replaces: matmul_w4a8_gemv (:341, kernel _w4a8_gemv_kernel :312).
@@ -354,25 +356,18 @@ extern "C" int ff_w4a8_gemv_unpaired(const void* x, const void* xs, const void* 
       n_split, 0, depth, static_cast<cudaStream_t>(stream));
 }
 
+// Row 4 on the tile with the argmax epilogue: idx_out (M,) int32; pair_val,
+// pair_idx (M, ceil(N / 128)); xf, partial and depth as ff_w4a8_gemv's.
 extern "C" int ff_w4a8_gemv_argmax(const void* x, const void* xs, const void* w,
-                                   const void* mult, const void* s_col, void* partial,
+                                   const void* mult, const void* s_col, void* xf, void* partial,
                                    void* pair_val, void* pair_idx, void* idx_out, int M, int K,
-                                   int N, int group, int n_split, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = ff::launch_gemv_partial<ff::kPaired>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), mult,
-      static_cast<int32_t*>(partial), M, K, N, group, n_split, st);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (N + ff::kEpiTile - 1) / ff::kEpiTile;
-  err = ff::launch_gemv_epilogue<float, true>(
-      static_cast<const int32_t*>(partial), n_split, M, N, static_cast<const float*>(s_col),
-      static_cast<const float*>(xs), nullptr, static_cast<float*>(pair_val),
-      static_cast<int*>(pair_idx), st);
-  if (err != cudaSuccess) return err;
-  ff::argmax_reduce_kernel<<<M, 32, 0, st>>>(static_cast<const float*>(pair_val),
-                                             static_cast<const int*>(pair_idx), n_tiles,
-                                             static_cast<int*>(idx_out));
-  return cudaGetLastError();
+                                   int N, int group, int n_split, int depth, void* stream) {
+  return ff::mma8::launch<ff::kPaired, false, true>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col),
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), idx_out, 0, M, K, N, group,
+      n_split, 0, depth, static_cast<cudaStream_t>(stream), static_cast<float*>(pair_val),
+      static_cast<int*>(pair_idx));
 }
 
 namespace {
@@ -390,7 +385,7 @@ int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
-  cudaError_t err = ff::launch_gemv_partial<ff::kPaired, true, ROUTE>(
+  cudaError_t err = ff::launch_gemv_partial<ff::kPaired, ROUTE>(
       static_cast<const int8_t*>(x), wl, ml, static_cast<int32_t*>(partial), M, K, N, group,
       n_split, st, bn, cp);
   if (err != cudaSuccess) return err;

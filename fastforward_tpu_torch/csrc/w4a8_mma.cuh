@@ -1,15 +1,24 @@
-// The two-level W4A8 GEMV on int8 tensor cores: the tile of w4a8_gemv.cu's
-// ff_w4a8_gemv (paired layout), ff_w4a8_gemv_unpaired (group halves) and
-// ff_w4a8_gemv_manual (the pre-blocked manual stream).
+// The two-level int4 GEMVs on int8 tensor cores: the tile of w4a8_gemv.cu's
+// ff_w4a8_gemv (paired layout), ff_w4a8_gemv_unpaired (group halves),
+// ff_w4a8_gemv_manual (the pre-blocked manual stream) and
+// ff_w4a8_gemv_argmax (paired, an argmax epilogue), and of a4_gemv.cu's
+// ff_a4_gemv (the vertical W4A4 layout).
 //
 // Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571;
-// paired body :537, group-halves body :479, pallas_call :620) and the
-// manual-DMA kernel of matmul_w4a8_2l_gemv_stacked (:879, called at :1107).
+// paired body :537, group-halves body :479, pallas_call :620), the
+// manual-DMA kernel of matmul_w4a8_2l_gemv_stacked (:879, called at :1107),
+// matmul_w4a8_2l_gemv_argmax (:708, kernel :650, pallas_call :744) and
+// matmul_w4a4_2l_gemv_stacked (:1406, body :1342).
 //   acc[m, n] = sum_k x[m, k] * (m_g[n] * v[k, n])        (int32, exact)
 //   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]      (f32 or bf16)
-// with v = u - 8 stored as offset-binary nibbles u and m_g in [1, 15]. The
-// int32 sum is exact in any order (|acc| <= 128 * 120 * K < 2^31 for
-// K <= 14336), so the tile is bit-equal to matmul_w4a8_2l_reference.
+// with v in [-8, 7] stored as nibbles (offset binary u = v + 8 in the W4A8
+// layouts, two's complement in the vertical one) and m_g in [1, 15]; x
+// int8 (W4A8) or int4 values in int8 (W4A4). The int32 sum is exact in any
+// order (|acc| <= 128 * 120 * K < 2^31 for K <= 14336), so the tile is
+// bit-equal to matmul_w4a8_2l_reference and matmul_w4a4_2l_reference. The
+// argmax epilogue reduces y, the value the f32 store would write, to one
+// (max, first index) pair a row and block; argmax_reduce_kernel reduces
+// the pairs: the ids of torch.argmax over the f32 logits.
 //
 // Bound on the H100: Llama-3-8B's lm_head at M = 192 does 2.0e11 int8
 // operations (0.10 ms at 1,979 TOP/s) on 263 MB of packed weights (0.08
@@ -26,7 +35,12 @@
 //   is the int8 pattern of m * v in every byte: u * m <= 225 and
 //   m * v + 128 in [8, 233] never carry across bytes (one AND, one IMAD,
 //   one XOR a plane). The paired layout takes m_2p for its low plane and
-//   m_2p+1 for its high one, the group-halves layout m_p for both.
+//   m_2p+1 for its high one, the group-halves and vertical layouts m_g for
+//   both. The vertical layout's two's-complement nibbles become offset
+//   binary by flipping bit 3 of each (one XOR a word, 0x88888888), so the
+//   same fold follows. The JAX body multiplies each group's int32 dot by
+//   its multiplier instead; that needs a second accumulator set, and the
+//   tile is at its 128 registers: folding is exact, so it is the same sum.
 // - Products. mma.sync.m16n8k32.s8.s8.s32. A k-step is 32 "slots" of one
 //   nibble plane: slot 16h + 4t + i is the byte row 16h + 2t + (i & 1) +
 //   8 (i >> 1) of a 32-row chunk, so a lane (gid, t) reads 4 rows of its
@@ -45,7 +59,10 @@
 // - Activations in fragment order. A first launch (stage_x_kernel) writes x
 //   as the A fragments of every stage, each lane's 16 bytes contiguous in
 //   slot order, nibble planes apart, zeros for padding rows and rows past
-//   M; the tile then reads one 16-byte word a fragment.
+//   M; the tile then reads one 16-byte word a fragment. In the vertical
+//   layout a plane's byte rows are every other k (byte row i of group u:
+//   k = ug + 2i low, ug + 2i + 1 high): 32 contiguous bytes of x are
+//   de-interleaved by __byte_perm into the two planes' 16.
 // - Groups shorter than 16 rows a plane (paired group % 16 != 0, or group
 //   halves) are padded to 16 byte rows with zero activations, so the 4 rows
 //   of a word always share one multiplier; the padding rows' weights are
@@ -75,6 +92,12 @@
 //   int32 partials, and common.cuh's epilogue adds them in split order.
 //   With one split the epilogue runs in the tile:
 //   __fmul_rn(__fmul_rn(__int2float_rn(acc), s_col[n]), x_scale[m]).
+// - The argmax epilogue (ARGMAX, paired): with one split the f32 logits
+//   never leave registers. A row's 8 columns in a lane, then its 4 lanes
+//   (shuffles), then the 4 consumer warps (shared memory: stage 0 of the
+//   ring, free once every consumer warp is past its last stage) give the
+//   block's (max, first index) pair under common.cuh's `better`; split
+//   partials take common.cuh's argmax epilogue instead.
 
 #pragma once
 
@@ -127,11 +150,14 @@ __host__ __device__ inline Plan plan_of(int layout, int K, int group, int n_spli
   return p;
 }
 
-// First k of nibble plane `plane` of unit u (byte row i of the unit holds
-// k = base + i in that plane).
+// First k of nibble plane `plane` of unit u: byte row i of the unit holds
+// k = plane_k + i * plane_step in that plane (vertical: k = ug + 2i + plane).
 __host__ __device__ inline int plane_k(int layout, int u, int plane, int group) {
-  return layout == kPaired ? (2 * u + plane) * group : u * group + plane * (group / 2);
+  return layout == kPaired   ? (2 * u + plane) * group
+         : layout == kHalves ? u * group + plane * (group / 2)
+                             : u * group + plane;
 }
+__host__ __device__ constexpr int plane_step(int layout) { return layout == kVertical ? 2 : 1; }
 
 // Wait until every cp.async this thread has issued has landed.
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -224,7 +250,7 @@ __device__ __forceinline__ unsigned fold(unsigned p, unsigned m, unsigned bias) 
 // (mma.cuh load_a_s8's order), slot 4 t + i of a 16-slot half being the
 // half's byte row 2t + (i & 1) + 8 (i >> 1) (the tile's B order). One
 // thread a (fragment, row, half): 16 consecutive byte rows of one unit are
-// 16 consecutive k of x.
+// 16 consecutive k of x, or every other k of 32 (vertical).
 template <int LAYOUT>
 __global__ void stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ xf, int M,
                                int K, int group, int n_split, int mt, long long total) {
@@ -248,17 +274,30 @@ __global__ void stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict_
   const int u = split * pl.ups + q / pl.p16, i0 = q % pl.p16;
   const int u_end = min(pl.n_units, (split + 1) * pl.ups);
   unsigned wd[4] = {0u, 0u, 0u, 0u};  // wd[i] byte b: byte row i0 + 4i + b
+  constexpr int kStep = plane_step(LAYOUT);
   if (m < M && u < u_end) {
-    const int8_t* xr = x + (size_t)m * K + plane_k(LAYOUT, u, plane, group) + i0;
-    if (i0 + 16 <= pl.unit_rows && reinterpret_cast<uintptr_t>(xr) % 16 == 0) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr);
-      wd[0] = v.x;
-      wd[1] = v.y;
-      wd[2] = v.z;
-      wd[3] = v.w;
+    const int8_t* xr = x + (size_t)m * K + plane_k(LAYOUT, u, plane, group) + kStep * i0;
+    // byte rows i0.. of both planes (vertical) or of this one
+    const int8_t* run = xr - (kStep == 2 ? plane : 0);
+    if (i0 + 16 <= pl.unit_rows && reinterpret_cast<uintptr_t>(run) % 16 == 0) {
+      const uint4 v = *reinterpret_cast<const uint4*>(run);
+      if constexpr (kStep == 2) {
+        // the plane's bytes of 32: even bytes (plane 0) or odd ones
+        const uint4 v2 = *reinterpret_cast<const uint4*>(run + 16);
+        const unsigned sel = plane ? 0x7531u : 0x6420u;
+        wd[0] = __byte_perm(v.x, v.y, sel);
+        wd[1] = __byte_perm(v.z, v.w, sel);
+        wd[2] = __byte_perm(v2.x, v2.y, sel);
+        wd[3] = __byte_perm(v2.z, v2.w, sel);
+      } else {
+        wd[0] = v.x;
+        wd[1] = v.y;
+        wd[2] = v.z;
+        wd[3] = v.w;
+      }
     } else {
       for (int b = 0; b < 16 && i0 + b < pl.unit_rows; ++b)
-        wd[b / 4] |= static_cast<unsigned>(static_cast<uint8_t>(xr[b])) << (8 * (b % 4));
+        wd[b / 4] |= static_cast<unsigned>(static_cast<uint8_t>(xr[kStep * b])) << (8 * (b % 4));
     }
   }
   // slot 4 tid + i of the half is its byte row 2 tid + (i & 1) + 8 (i >> 1)
@@ -270,21 +309,29 @@ __global__ void stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict_
         __byte_perm(wd[tid / 2], wd[2 + tid / 2], tid % 2 ? 0x7632 : 0x5410);
 }
 
+// The consumer warps' barrier (named barrier 1; the producer warp has left).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
+}
+
 // The tile. Grid (m tiles, n tiles, n_split), kThreads threads, dynamic
 // shared memory smem_bytes(MT, depth). Weights flat (K/2, N) (bn 0) or
 // pre-blocked (N/bn, K/2, bn); mult int8 (K/g, N) or, PACKED, nibble-packed
 // int32 (n_pack, N). tma: the weights come as `tmap`'s boxes (flat: the
 // (N, K/2) bytes; pre-blocked: the (bn, N/bn * K/2) bytes, bn % kN == 0),
 // else by 4-byte cp.async. n_split > 1: int32 partials (n_split, M, N) for
-// common.cuh's epilogue; else y as f32 (out_bf16 0) or bf16.
-template <int LAYOUT, bool PACKED, int MT>
+// common.cuh's epilogue; else y as f32 (out_bf16 0) or bf16, or with ARGMAX
+// the (max, first index) pair of each row over the block's columns in
+// pair_val, pair_idx (M, n tiles).
+template <int LAYOUT, bool PACKED, int MT, bool ARGMAX>
 __global__ void __launch_bounds__(kThreads, 3)
 w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
                 const int8_t* __restrict__ xf, const float* __restrict__ xs,
                 const int8_t* __restrict__ w, const void* __restrict__ mult,
                 const float* __restrict__ s_col, int32_t* __restrict__ partial,
                 void* __restrict__ out, int out_bf16, int M, int K, int N, int group,
-                int n_split, int bn, int depth) {
+                int n_split, int bn, int depth, float* __restrict__ pair_val,
+                int* __restrict__ pair_idx) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle's 1024-byte period (smem_bytes asks for the slack)
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
@@ -458,8 +505,10 @@ w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
         transpose4x4(r, col);  // col[j] byte i: slot 4 tid + i of column 4gid + j
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          lo[h][j] = fold(col[j] & 0x0F0F0F0Fu, ma[j], ba[j]);
-          hi[h][j] = fold((col[j] >> 4) & 0x0F0F0F0Fu, mb[j], bb[j]);
+          // vertical: two's complement -> offset binary (bit 3 of each nibble)
+          const unsigned cj = LAYOUT == kVertical ? col[j] ^ 0x88888888u : col[j];
+          lo[h][j] = fold(cj & 0x0F0F0F0Fu, ma[j], ba[j]);
+          hi[h][j] = fold((cj >> 4) & 0x0F0F0F0Fu, mb[j], bb[j]);
         }
       }
 #pragma unroll
@@ -480,6 +529,66 @@ w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
   // ---- epilogue: register r of tile j holds column 8 tid + 4 (r % 2) + j
   // of row gid + 8 (r / 2) (mma.cuh's column permutation)
   const int nb = c0 + warp * 32 + 8 * tid;
+  if (ARGMAX && n_split == 1) {
+    // each row's (max, first index) over the block's columns: the lane's 8,
+    // its row's 4 lanes, then the 4 warps through stage 0 of the ring
+    constexpr int kRows = 16 * MT;
+    float* red_v = reinterpret_cast<float*>(smem);  // [kConsumers][kRows]
+    int* red_i = reinterpret_cast<int*>(red_v + kConsumers * kRows);
+    float sc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) sc[c] = nb + c < N ? s_col[nb + c] : 0.f;
+    consumers_sync();  // every consumer warp is past its last stage
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = t * 16 + gid + 8 * hr;
+        const int m = m_tile * kRows + row;
+        const float xm = m < M ? xs[m] : 0.f;
+        float bv = 0.f;
+        int bi = INT_MAX;  // no candidate
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float y =
+              __fmul_rn(__fmul_rn(__int2float_rn(acc[t][c % 4][2 * hr + c / 4]), sc[c]), xm);
+          // `better` on ascending columns: a later column wins by a larger
+          // value only, or as the first NaN
+          if (nb + c < N && (bi == INT_MAX || y > bv || (isnan(y) && !isnan(bv)))) {
+            bv = y;
+            bi = nb + c;
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+          if (better(ov, oi, bv, bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        if (tid == 0) {
+          red_v[warp * kRows + row] = bv;
+          red_i[warp * kRows + row] = bi;
+        }
+      }
+    consumers_sync();
+    const int row = threadIdx.x, m = m_tile * kRows + row;
+    if (row < kRows && m < M) {
+      float bv = red_v[row];
+      int bi = red_i[row];
+#pragma unroll
+      for (int wi = 1; wi < kConsumers; ++wi)
+        if (better(red_v[wi * kRows + row], red_i[wi * kRows + row], bv, bi)) {
+          bv = red_v[wi * kRows + row];
+          bi = red_i[wi * kRows + row];
+        }
+      pair_val[(size_t)m * gridDim.y + n_tile] = bv;
+      pair_idx[(size_t)m * gridDim.y + n_tile] = bi;
+    }
+    return;
+  }
 #pragma unroll
   for (int t = 0; t < MT; ++t)
 #pragma unroll
@@ -558,34 +667,39 @@ inline bool weight_map(CUtensorMap* map, const int8_t* w, long long cols, long l
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int LAYOUT, bool PACKED, int MT>
+template <int LAYOUT, bool PACKED, bool ARGMAX, int MT>
 cudaError_t launch_tile(const CUtensorMap& tmap, int tma, const int8_t* xf, const float* xs,
                         const int8_t* w, const void* mult,
                         const float* s_col, int32_t* partial, void* out, int out_bf16, int M,
                         int K, int N, int group, int n_split, int bn, int depth,
-                        cudaStream_t stream) {
+                        float* pair_val, int* pair_idx, cudaStream_t stream) {
   const size_t smem = smem_bytes(MT, depth);
-  auto kernel = w4a8_mma_kernel<LAYOUT, PACKED, MT>;
+  auto kernel = w4a8_mma_kernel<LAYOUT, PACKED, MT, ARGMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + kN - 1) / kN, n_split);
   kernel<<<grid, kThreads, smem, stream>>>(tmap, tma, xf, xs, w, mult, s_col, partial, out,
-                                           out_bf16, M, K, N, group, n_split, bn, depth);
+                                           out_bf16, M, K, N, group, n_split, bn, depth,
+                                           pair_val, pair_idx);
   return cudaGetLastError();
 }
 
 // The whole GEMV: stage x into xf (the wrapper sizes it: mma_plan's
 // x_bytes), the tile, and with n_split > 1 common.cuh's epilogue over the
-// int32 partials. Every argument is checked against the plan; a shape the
-// plan does not cover returns cudaErrorInvalidValue.
-template <int LAYOUT, bool PACKED>
+// int32 partials. ARGMAX (paired): out is the int32 token id a row; the
+// tile's pairs (or the split epilogue's, a kEpiTile columns each) go to
+// pair_val, pair_idx (M, ceil(N / kN)), then argmax_reduce_kernel. Every
+// argument is checked against the plan; a shape the plan does not cover
+// returns cudaErrorInvalidValue.
+template <int LAYOUT, bool PACKED, bool ARGMAX = false>
 cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void* mult,
                    const float* s_col, int8_t* xf, int32_t* partial, void* out, int out_bf16,
                    int M, int K, int N, int group, int n_split, int bn, int depth,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, float* pair_val = nullptr, int* pair_idx = nullptr) {
   if (M < 1 || N < 4 || N % 4 != 0 || n_split < 1 || depth < 1 ||
-      smem_bytes(tiles_of(M), depth) > 232448 || (n_split > 1 && partial == nullptr))
+      smem_bytes(tiles_of(M), depth) > 232448 || (n_split > 1 && partial == nullptr) ||
+      (ARGMAX && (pair_val == nullptr || pair_idx == nullptr)))
     return cudaErrorInvalidValue;
   const Plan pl = plan_of(LAYOUT, K, group, n_split);
   if (pl.unit_rows % 4 != 0 || pl.n_units < 1 || (n_split - 1) * pl.ups >= pl.n_units)
@@ -609,18 +723,34 @@ cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void
                              pitch);
   switch (mt) {
     case 1:
-      err = launch_tile<LAYOUT, PACKED, 1>(tmap, tma, xf, xs, w, mult, s_col, partial, out, out_bf16, M, K,
-                                           N, group, n_split, bn, depth, stream);
+      err = launch_tile<LAYOUT, PACKED, ARGMAX, 1>(tmap, tma, xf, xs, w, mult, s_col, partial,
+                                                   out, out_bf16, M, K, N, group, n_split, bn,
+                                                   depth, pair_val, pair_idx, stream);
       break;
     case 2:
-      err = launch_tile<LAYOUT, PACKED, 2>(tmap, tma, xf, xs, w, mult, s_col, partial, out, out_bf16, M, K,
-                                           N, group, n_split, bn, depth, stream);
+      err = launch_tile<LAYOUT, PACKED, ARGMAX, 2>(tmap, tma, xf, xs, w, mult, s_col, partial,
+                                                   out, out_bf16, M, K, N, group, n_split, bn,
+                                                   depth, pair_val, pair_idx, stream);
       break;
     default:
-      err = launch_tile<LAYOUT, PACKED, 4>(tmap, tma, xf, xs, w, mult, s_col, partial, out, out_bf16, M, K,
-                                           N, group, n_split, bn, depth, stream);
+      err = launch_tile<LAYOUT, PACKED, ARGMAX, 4>(tmap, tma, xf, xs, w, mult, s_col, partial,
+                                                   out, out_bf16, M, K, N, group, n_split, bn,
+                                                   depth, pair_val, pair_idx, stream);
   }
-  if (err != cudaSuccess || n_split == 1) return err;
+  if (err != cudaSuccess) return err;
+  if constexpr (ARGMAX) {
+    int n_pairs = (N + kN - 1) / kN;  // the tile's pairs a row
+    if (n_split > 1) {
+      n_pairs = (N + kEpiTile - 1) / kEpiTile;
+      err = launch_gemv_epilogue<float, true>(partial, n_split, M, N, s_col, xs, nullptr,
+                                              pair_val, pair_idx, stream);
+      if (err != cudaSuccess) return err;
+    }
+    argmax_reduce_kernel<<<M, 32, 0, stream>>>(pair_val, pair_idx, n_pairs,
+                                               static_cast<int*>(out));
+    return cudaGetLastError();
+  }
+  if (n_split == 1) return cudaSuccess;
   if (out_bf16)
     return launch_gemv_epilogue<__nv_bfloat16, false>(partial, n_split, M, N, s_col, xs,
                                                       static_cast<__nv_bfloat16*>(out), nullptr,

@@ -48,9 +48,10 @@ F = ctypes.c_float
 # C signatures: every entry point returns int (a cudaError_t).
 SIGNATURES = {
     "a4_gemv": {
-        # x, xs, w, mult_packed, s_col, partial, out, M, K, N, L, layer,
-        # group, n_pack, n_split, stream
-        "ff_a4_gemv": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+        # x, xs, w, mult_packed, s_col, xf (staged activations), partial (or
+        # NULL), out, M, K, N, L, layer, group, n_pack, n_split, depth,
+        # stream (the tensor-core tile)
+        "ff_a4_gemv": [P] * 8 + [I] * 9 + [P],
     },
     "w4a8_gemv": {
         # x, xs, w, mult, s_col, xf (staged activations), partial (or NULL),
@@ -58,9 +59,10 @@ SIGNATURES = {
         # stream; paired and group-halves layouts (the tensor-core tile)
         "ff_w4a8_gemv": [P] * 8 + [I] * 7 + [P],
         "ff_w4a8_gemv_unpaired": [P] * 8 + [I] * 7 + [P],
-        # x, xs, w, mult, s_col, partial, pair_val, pair_idx, idx_out,
-        # M, K, N, group, n_split, stream
-        "ff_w4a8_gemv_argmax": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        # x, xs, w, mult, s_col, xf, partial (or NULL), pair_val, pair_idx,
+        # idx_out, M, K, N, group, n_split, depth, stream (the tile with the
+        # argmax epilogue)
+        "ff_w4a8_gemv_argmax": [P] * 10 + [I] * 6 + [P],
         # x, xs, w, mult_packed, s_col, partial, out, M, K, N, L, layer,
         # group, n_pack, n_split, out_kind, stream
         "ff_w4a8_gemv_stacked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],

@@ -50,8 +50,6 @@ GEMV_MAX_M = 256
 
 # Activation rows and columns one GEMV block covers (csrc/common.cuh kBM, kBN).
 _BLOCK_M, _BLOCK_N = 8, 128
-# Columns per (max, index) pair of the argmax epilogue (csrc/common.cuh kEpiTile).
-_ARGMAX_TILE = 1024
 # Byte rows of packed weight one GEMV split may stage (shared memory cap).
 _SPLIT_ROWS = 2048
 # Blocks a GEMV launch aims to put on the card (132 SMs, a few each).
@@ -167,15 +165,15 @@ def gemv_split(M: int, N: int, n_units: int, rows_per_unit: int) -> int:
     return -(-n_units // per)
 
 
-# The int8 tensor-core tile of the two-level W4A8 GEMV (csrc/w4a8_mma.cuh:
+# The int8 tensor-core tile of the two-level GEMVs (csrc/w4a8_mma.cuh:
 # kR padded byte rows a ring stage, kN columns a block, kUnitsPerStage
 # multiplier slots of 4 * kN bytes, kFrag bytes an A fragment, 1024 bytes
 # of slack to align the stages).
 _MMA_ROWS, _MMA_N, _MMA_FRAG, _MMA_SLACK = 64, 128, 512, 1024
 _MMA_W_STAGE = _MMA_ROWS * _MMA_N + (_MMA_ROWS // 16) * 4 * _MMA_N
 # Blocks a tensor-core GEMV launch aims for (two on each of the 132 SMs;
-# K is split below it), and the ring stages of the non-stacked entries
-# (row 5).
+# K is split below it), and the ring stages of every entry but the manual
+# stream's (rows 1, 4 and 5).
 _MMA_TARGET_BLOCKS = 264
 _MMA_DEPTH = 4
 # Shared memory a block may use on the H100.
@@ -188,14 +186,20 @@ def mma_tiles(M: int) -> int:
     return 1 if M <= 16 else 2 if M <= 32 else 4
 
 
+# The weight layouts of the tensor-core tile (csrc/common.cuh Layout):
+# "vertical" (`pack_int4_vertical`, the W4A4 GEMV), "paired"
+# (`pack_uint4_offset_paired`) and "halves" (`pack_uint4_offset`).
+MMA_LAYOUTS = ("vertical", "paired", "halves")
+
+
 class MmaPlan(NamedTuple):
-    """The launch plan of the tensor-core two-level W4A8 tile
+    """The launch plan of the tensor-core two-level tile
     (`csrc/w4a8_mma.cuh` Plan, derived there from ``n_split``): ``mt`` m16
     tiles a block, the (m, n) tile grid, a unit's byte rows (a group pair,
-    or a group of the group-halves layout) and their padding to 16, the
-    units, the K splits, the units a split covers (the last split fewer)
-    and the ring stages (`_MMA_ROWS` padded byte rows each) a split
-    streams."""
+    or one group of the group-halves or vertical layout) and their padding
+    to 16, the units, the K splits, the units a split covers (the last
+    split fewer) and the ring stages (`_MMA_ROWS` padded byte rows each) a
+    split streams."""
     mt: int
     m_tiles: int
     n_tiles: int
@@ -225,10 +229,14 @@ class MmaPlan(NamedTuple):
                 for s in range(self.n_split)]
 
 
-def mma_plan(M: int, K: int, N: int, group_size: int, paired: bool) -> MmaPlan:
-    """Plan of the tensor-core two-level W4A8 GEMV: K is split over whole
-    units only where the (m, n) tiles fall short of `_MMA_TARGET_BLOCKS`,
-    each split keeping at least two stages of rows where the units allow."""
+def mma_plan(M: int, K: int, N: int, group_size: int, layout: str) -> MmaPlan:
+    """Plan of the tensor-core two-level GEMV on weights of ``layout`` (one
+    of `MMA_LAYOUTS`): K is split over whole units only where the (m, n)
+    tiles fall short of `_MMA_TARGET_BLOCKS`, each split keeping at least
+    two stages of rows where the units allow."""
+    if layout not in MMA_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}, not one of {MMA_LAYOUTS}")
+    paired = layout == "paired"
     unit_rows = group_size if paired else group_size // 2
     n_units = K // (2 * group_size) if paired else K // group_size
     p16 = -(-unit_rows // 16) * 16
@@ -276,6 +284,18 @@ def fold_w4a8_2l_words(words: torch.Tensor, m_lo, m_hi=None) -> tuple:
     return plane(w & 0x0F0F0F0F, m_lo), plane((w >> 4) & 0x0F0F0F0F, m_hi)
 
 
+def fold_w4a4_2l_words(words: torch.Tensor, m) -> tuple:
+    """The tensor-core tile's fold of the vertical layout (`csrc/w4a8_mma.cuh`):
+    packed int32 ``words`` of four two's-complement nibble pairs v (low
+    nibble k = 2r, high k = 2r + 1) and their group's multiplier ``m``
+    (broadcast against ``words``) to the int32 words of the low and high
+    plane whose bytes are the int8 ``m * v``: bit 3 of every nibble flipped
+    (``^ 0x88888888``, two's complement to offset binary u = v + 8), then
+    `fold_w4a8_2l_words` with ``m`` for both planes."""
+    flipped = (words.to(torch.int64) & 0xFFFFFFFF) ^ 0x88888888
+    return fold_w4a8_2l_words(flipped, m)
+
+
 def _check_gemv(x_q, x_scale, K, N, group_size):
     dev = x_q.device
     M = x_q.shape[0]
@@ -291,7 +311,10 @@ def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
 
     ``x_q`` int4-valued int8 (M, K); ``w_packed`` (L, K//2, N) vertical;
     ``mult`` (L, ceil(n_groups/8), N) int32 nibble-packed; ``s_col`` (L, N).
-    Bit-exact against `matmul_w4a4_2l_reference` on layer ``layer``.
+    Bit-exact against `matmul_w4a4_2l_reference` on layer ``layer``. On the
+    card `csrc/a4_gemv.cu` ``ff_a4_gemv`` on the int8 tensor-core tile
+    (`csrc/w4a8_mma.cuh`, its vertical layout case, planned by `mma_plan`),
+    counted under ``a4_gemv``.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -314,13 +337,14 @@ def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
             f"A4 GEMV kernel needs bf16 out, group % 8 == 0, a full multiplier "
             f"pack and a valid layer (out={out_dtype}, group={group_size}, layer={layer})"
         )
-    n_split = gemv_split(M, N, n_groups, group_size // 2)
-    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
+    plan = mma_plan(M, K, N, group_size, "vertical")
+    xf, partial = _mma_scratch(plan, M, N, dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     err = _build.lib("a4_gemv").ff_a4_gemv(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-        s_col.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        M, K, N, L, layer, group_size, n_pack, n_split, _build.stream_ptr(dev),
+        s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split,
+        manual_depth(plan, _MMA_DEPTH), _build.stream_ptr(dev),
     )
     _build.launch_counts["a4_gemv"] += 1
     _build.check(err, "a4_gemv")
@@ -389,7 +413,7 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"W4A8 GEMV kernel writes f32 or bf16, not {out_dtype}")
     dev = x_q.device
-    plan = mma_plan(M, K, N, group_size, paired)
+    plan = mma_plan(M, K, N, group_size, "paired" if paired else "halves")
     xf, partial = _mma_scratch(plan, M, N, dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = _build.lib("w4a8_gemv")
@@ -412,8 +436,11 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
     two-level W4A8 logits — the ids of ``torch.argmax`` over the f32
     logits (first occurrence wins ties, a NaN counts as the maximum). The
     fused kernel (`csrc/w4a8_gemv.cu` ``ff_w4a8_gemv_argmax``, counted under
-    ``w4a8_gemv_argmax``) takes the paired layout; an unpaired head takes
-    the GEMV and the argmax of its logits, as the JAX TPU route does."""
+    ``w4a8_gemv_argmax``: row 5's int8 tensor-core tile with an argmax
+    epilogue, one (max, first index) pair a row and 128-column block, then
+    one warp a row over the pairs) takes the paired layout; an unpaired
+    head takes the GEMV and the argmax of its logits, as the JAX TPU route
+    does."""
     M, K = x_q.shape
     if paired is None:
         paired = _paired_default(K // group_size)
@@ -430,17 +457,19 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
                                      torch.float32, paired=False)
         return torch.argmax(logits, dim=-1).to(torch.int32)
     M, K, N = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
-    n_split = gemv_split(M, N, K // (2 * group_size), group_size)
     dev = x_q.device
-    n_tiles = -(-N // _ARGMAX_TILE)
-    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
-    pair_val = torch.empty((M, n_tiles), dtype=torch.float32, device=dev)
-    pair_idx = torch.empty((M, n_tiles), dtype=torch.int32, device=dev)
+    plan = mma_plan(M, K, N, group_size, "paired")
+    xf, partial = _mma_scratch(plan, M, N, dev)
+    # one pair a row and 128-column block (where K is split, the split
+    # epilogue's 1024-column tiles: fewer)
+    pair_val = torch.empty((M, plan.n_tiles), dtype=torch.float32, device=dev)
+    pair_idx = torch.empty((M, plan.n_tiles), dtype=torch.int32, device=dev)
     idx = torch.empty((M,), dtype=torch.int32, device=dev)
     err = _build.lib("w4a8_gemv").ff_w4a8_gemv_argmax(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-        s_col.data_ptr(), partial.data_ptr(), pair_val.data_ptr(), pair_idx.data_ptr(),
-        idx.data_ptr(), M, K, N, group_size, n_split, _build.stream_ptr(dev),
+        s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
+        pair_val.data_ptr(), pair_idx.data_ptr(), idx.data_ptr(), M, K, N, group_size,
+        plan.n_split, manual_depth(plan, _MMA_DEPTH), _build.stream_ptr(dev),
     )
     _build.launch_counts["w4a8_gemv_argmax"] += 1
     _build.check(err, "w4a8_gemv_argmax")
@@ -591,7 +620,7 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     out_kind = 0 if out_dtype == torch.float32 else 1
     lib = _build.lib("w4a8_gemv")
     if route == "w4a8_gemv_manual":
-        plan = mma_plan(M, K, N, group_size, True)
+        plan = mma_plan(M, K, N, group_size, "paired")
         xf, partial = _mma_scratch(plan, M, N, dev)
         err = lib.ff_w4a8_gemv_manual(
             x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),

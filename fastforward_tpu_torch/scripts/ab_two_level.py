@@ -1,4 +1,4 @@
-"""A/B of the two-level W4A8 GEMV between two checkouts, on one card.
+"""A/B of the two-level int4 GEMVs between two checkouts, on one card.
 
     python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve] [--out DIR]
     python3 fastforward_tpu_torch/scripts/ab_two_level.py --compare A B [--out DIR]
@@ -9,15 +9,17 @@ unpacked with ``git archive`` into a git-ignored directory), builds its
 kernels there, and prints the device time (``torch.profiler``, 30 calls)
 of row 5 (the two-level W4A8 GEMV: the paired lm_head at g512, M = 192
 and 8, f32; the unpaired lm_head at g128, f32, and the seven unfused
-projections of a Llama-3-8B layer, bf16) and row 9m (the manual stream
+projections of a Llama-3-8B layer, bf16), row 9m (the manual stream
 over the four fused projections pre-blocked in 512-column panels, nbuf 2
-and 4, M = 192 and 8), each line tagged TAG. Inputs come from one seed, so
+and 4, M = 192 and 8), row 1 (the A4 GEMV over the four fused
+projections at g512, M = 192 and 8) and row 4 (the argmax lm_head, paired
+g512, M = 192 and 8), each line tagged TAG. Inputs come from one seed, so
 two trees time the same integers; run them in turns on one card (A, B, B,
-A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (i) and (n) at
-bench.py's shape on their seeds and saves the greedy tokens and prefill
-logits under DIR (default build/ab_two_level); ``--compare A B`` then
-says, run by run, whether the two tags' tokens are identical and their
-prefill logits bit-equal, and exits 1 where they are not. Needs a CUDA GPU.
+A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c), (i), (k)
+and (n) on their seeds and saves the greedy tokens and prefill logits
+under DIR (default build/ab_two_level); ``--compare A B`` then says, run
+by run, whether the two tags' tokens are identical and their prefill
+logits bit-equal, and exits 1 where they are not. Needs a CUDA GPU.
 """
 
 import os
@@ -86,6 +88,8 @@ def main():
             show(f"row 5 paired lm_head g512 f32 M={M}", device_ms(
                 lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, 512, torch.float32,
                                                paired=True)))
+            show(f"row 4 argmax lm_head g512 M={M}", device_ms(
+                lambda: mm.matmul_w4a8_2l_gemv_argmax(x_q, x_s, w, m, s, 512, paired=True)))
         m = ri(1, 16, (K // 128, N))
         x_q, x_s = mm.quantize_rowwise(torch.randn((cs.BATCH, K), generator=gen, device=dev))
         show(f"row 5 unpaired lm_head g128 f32 M={cs.BATCH}", device_ms(
@@ -114,6 +118,17 @@ def main():
                             x_q, x_s, w4, mp, s, 1, group_size=128))
                 show(f"row 9m 4 projections M={M} nbuf={nbuf}", total)
         del w, w4
+        for M in (cs.BATCH, 8):
+            total = 0.0
+            for K, N in cs.PROJ.values():
+                w = ri(-128, 128, (2, K // 2, N))
+                mp = pack_mult_nibbles(ri(1, 16, (2, K // 512, N))).contiguous()
+                s = torch.rand((2, N), generator=gen, device=dev) * 1e-2
+                x_q, x_s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
+                total += device_ms(lambda: mm.matmul_w4a4_2l_gemv_stacked(
+                    x_q, x_s, w, mp, s, 1, group_size=512))
+            show(f"row 1 4 projections g512 M={M}", total)
+        del w
         torch.cuda.empty_cache()
 
     if "--serve" in sys.argv:
@@ -121,14 +136,17 @@ def main():
 
         config = LlamaConfig.llama3_8b()
         record = {}
-        for run, mode, g, kv, flags in (("a", "w4a4_2l", 512, None, {}),
-                                        ("b", "w4a8_2l", 128, None, {}),
-                                        ("i", "w4a8_2l", 128, "bf16", {}),
-                                        ("n", "w4a8_2l", 128, None, cs.FLAGS_N)):
+        for run, mode, g, B, T, kv, flags in (
+                ("a", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, {}),
+                ("b", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, {}),
+                ("c", "w4a4_2l", 512, 8, 32, None, {}),
+                ("i", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, "bf16", {}),
+                ("k", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, cs.FLAGS_K),
+                ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N)):
             t0 = time.perf_counter()
             with cs.flag_env(**flags):
                 path = cs.ServePath.random(config, mode, g, 0, dev, kv)
-                ids = torch.randint(0, config.vocab_size, (cs.BATCH, cs.PROMPT), device=dev,
+                ids = torch.randint(0, config.vocab_size, (B, T), device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(7))
                 logits, _, tokens, cache, _, _ = cs._serve(path, ids, cs.STEPS, dev)
                 record[run] = dict(logits=logits.cpu(), tokens=tokens.cpu())

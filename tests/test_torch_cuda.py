@@ -20,7 +20,9 @@ the output within rtol 8e-3. The stacked W4A8 GEMV's dot-raw and
 concat-pairs routes are bit-equal too (either layout; the last unit of a
 concat-pairs split shorter), and so is every route of the int4/int8 dot
 probe; the tiled W4A16 kernel is held as the W4 GEMV (its bias epilogue
-exactly).
+exactly). The A4 GEMV and the argmax head run the tensor-core tile
+(its vertical layout and its argmax epilogue): bit-equal, token ids equal
+to torch.argmax of the f32 logits, ties and NaNs included.
 """
 
 import pytest
@@ -31,7 +33,11 @@ from fastforward_tpu_torch.kernels import attention as att
 from fastforward_tpu_torch.kernels import kv_update as kvu
 from fastforward_tpu_torch.kernels import matmul as mm
 from fastforward_tpu_torch.kernels import paged_attention as pa
-from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles, unpack_mult_nibbles
+from fastforward_tpu_torch.kernels.packing import (
+    pack_int4_vertical,
+    pack_mult_nibbles,
+    unpack_mult_nibbles,
+)
 
 
 @pytest.fixture
@@ -69,6 +75,83 @@ def test_a4_gemv_kernel_bit_equal(dev, M, K, N, g):
                                           s[layer], None, g)
         assert torch.equal(out, ref)
     assert _build.launch_counts["a4_gemv"] == before + 2
+
+
+# the A4 GEMV on the tensor-core tile (vertical layout): run (a)'s four
+# fused projections at g512 and the GEMV's row counts, plus a g128 and a
+# g32 shape (layer 1 of 2)
+_A4_TILE_SHAPES = [(4096, 6144, 512), (4096, 4096, 512), (4096, 28672, 512),
+                   (14336, 4096, 512), (4096, 6144, 128), (1024, 4100, 32)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 192, 256])
+@pytest.mark.parametrize("K,N,g", _A4_TILE_SHAPES)
+def test_a4_gemv_tile_bit_equal(dev, M, K, N, g):
+    gen = _gen(dev, M + K + N + g)
+    w = _ri(gen, -128, 128, (2, K // 2, N), torch.int8, dev)
+    mult = _ri(gen, 1, 16, (2, K // g, N), torch.int8, dev)
+    mp = pack_mult_nibbles(mult).contiguous()
+    s = torch.rand((2, N), generator=gen, device=dev) * 1e-2
+    x_q, x_s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
+    before = _build.launch_counts["a4_gemv"]
+    out = mm.matmul_w4a4_2l_gemv_stacked(x_q, x_s, w, mp, s, 1, group_size=g)
+    assert _build.launch_counts["a4_gemv"] == before + 1
+    ref = mm.matmul_w4a4_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+def test_a4_gemv_tile_extreme_sums_exact(dev):
+    # x, v in {-8, 7}, m = 15 over K = 14336: the largest sums of the grid
+    gen = _gen(dev, 14336)
+    M, K, N, g = 72, 14336, 256, 512
+    x_q = torch.where(_ri(gen, 0, 2, (M, K), torch.int8, dev) > 0, 7, -8).to(torch.int8)
+    x_s = torch.rand((M,), generator=gen, device=dev) + 0.5
+    v = torch.where(_ri(gen, 0, 2, (K, N), torch.int8, dev) > 0, 7, -8).to(torch.int8)
+    w = pack_int4_vertical(v)[None].contiguous()
+    mult = torch.full((1, K // g, N), 15, dtype=torch.int8, device=dev)
+    s = torch.rand((1, N), generator=gen, device=dev) * 1e-6
+    out = mm.matmul_w4a4_2l_gemv_stacked(x_q, x_s, w, pack_mult_nibbles(mult).contiguous(), s,
+                                         0, group_size=g)
+    assert torch.equal(out, mm.matmul_w4a4_2l_reference(x_q, x_s, w[0], mult[0], s[0], None, g))
+
+
+def test_a4_gemv_rejects_a_group_not_a_multiple_of_8(dev):
+    x_q = torch.zeros((2, 48), dtype=torch.int8, device=dev)
+    w = torch.zeros((1, 24, 16), dtype=torch.int8, device=dev)
+    mp = torch.ones((1, 1, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="group % 8"):
+        mm.matmul_w4a4_2l_gemv_stacked(x_q, torch.ones(2, device=dev), w, mp,
+                                       torch.ones((1, 16), device=dev), 0, group_size=12)
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 192, 256])
+@pytest.mark.parametrize("g", [512, 128])
+def test_w4a8_argmax_tile_lm_head_ids_equal(dev, M, g):
+    # the lm_head (K 4096, N 128256): column 3 copied to 77 (its block),
+    # 5000 and N - 2 (the ragged last block) at a scale that makes them the
+    # maximum wherever their sum is positive; row 0 all zeros (a tie over
+    # the whole row); the last row's scale NaN (every logit NaN: id 0)
+    gen = _gen(dev, M + g)
+    K, N = 4096, 128256
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    m = _ri(gen, 1, 16, (K // g, N), torch.int8, dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    tied = [3, 77, 5000, N - 2]
+    w[:, tied] = w[:, 3:4]
+    m[:, tied] = m[:, 3:4]
+    s[tied] = 1.0
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    x_q[0] = 0
+    if M > 1:
+        x_s[M - 1] = float("nan")
+    before = _build.launch_counts["w4a8_gemv_argmax"]
+    ids = mm.matmul_w4a8_2l_gemv_argmax(x_q, x_s, w, m, s, g, paired=True)
+    assert _build.launch_counts["w4a8_gemv_argmax"] == before + 1
+    logits = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, torch.float32, paired=True)
+    want = torch.argmax(logits, dim=-1).to(torch.int32)
+    assert torch.equal(ids, want)
+    assert int(ids[0]) == 0 and (M == 1 or int(ids[M - 1]) == 0)
+    assert all(int(i) == 3 for i in ids[1:M - 1] if int(i) in tied)
 
 
 @pytest.mark.parametrize("M,K,N,g", [
@@ -1049,7 +1132,7 @@ def test_manual_gemv_kernel_bit_equal(dev, M, K, N, bn, g, nbuf):
     gen = _gen(dev, M + N + nbuf)
     x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, g, dev)
     w4 = mm.preblock_stacked(w, bn)
-    plan = mm.mma_plan(M, K, N, g, True)
+    plan = mm.mma_plan(M, K, N, g, "paired")
     depth = mm.manual_depth(plan, nbuf)
     assert 1 <= depth <= min(nbuf, plan.stages)
     outs, n = _route_run("w4a8_gemv_manual", {"FF_2L_MANUAL": str(nbuf)}, x_q, x_s, w4, mp, s,

@@ -69,7 +69,7 @@ def _tile_emulation(x_q, x_s, w_packed, mult, s_col, g, paired, out_dtype):
     split's K range, the splits added in order, the oracle's epilogue."""
     M, K = x_q.shape
     N = w_packed.shape[1]
-    plan = tm.mma_plan(M, K, N, g, paired)
+    plan = tm.mma_plan(M, K, N, g, "paired" if paired else "halves")
     ur = plan.unit_rows
     # (K/8, N) words, byte i of word (r, n) = byte row 4r + i of column n
     words = (w_packed.view(torch.uint8).reshape(K // 8, 4, N).permute(0, 2, 1).contiguous()
@@ -152,7 +152,7 @@ def test_split_plan_and_ring_cover_every_group_and_fit(K, N, g, paired):
     # GIVEN a serve run's shape at every row count of the GEMV (1-256)
     n_groups = K // g
     for M in range(1, 257):
-        plan = tm.mma_plan(M, K, N, g, paired)
+        plan = tm.mma_plan(M, K, N, g, "paired" if paired else "halves")
         # THEN the splits cover every unit, hence every group, once and in order
         ranges = plan.unit_ranges()
         assert len(ranges) == plan.n_split and all(u0 < u1 for u0, u1 in ranges)
