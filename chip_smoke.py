@@ -19,13 +19,13 @@ each raising on failure:
    a unit on either layout, concat-pairs at 3, which divides no
    projection's pair count) and the pre-blocked dequant bit-equal, at M =
    192 and 8 with the ring depth of each shape logged;
-   the int8 tensor-core tile's five entries (the W4A8 GEMV paired and
-   unpaired, the manual stream, the A4 GEMV, the argmax head) bit-equal at
-   M = 1, 8, 17, 192 and 256 on the lm_head (g512 and g128, f32 and bf16;
-   the argmax head with tied columns, a zero row and a NaN row), the seven
-   unfused and the four fused pre-blocked projections of a layer (nbuf 2
-   and 4), and the A4 GEMV on the four fused projections at g512 and a
-   g128 and a g32 shape;
+   the int8 tensor-core tile's entries (the W4A8 GEMV paired and unpaired,
+   the stacked GEMV's six routes, the A4 GEMV, the argmax head) bit-equal
+   at M = 1, 8, 17, 192 and 256 on the lm_head (g512 and g128, f32 and
+   bf16; the argmax head with tied columns, a zero row and a NaN row), the
+   seven unfused projections of a layer and the four fused ones through
+   every stacked route on either layout, and the A4 GEMV on the four fused
+   projections at g512 and a g128 and a g32 shape;
    the tiled W4A16 kernel (off the serving route) at bench.py's w4a16
    prefill (M = 24,576, the four projections) within W4_GEMV_RTOL and one
    bf16 ulp, its bias epilogue exact; every route of the int4/int8 dot
@@ -36,9 +36,9 @@ each raising on failure:
    and their output within rtol 8e-3; the fused layer heads (W4A8, A4) with
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
-   print median times, device times, bounds and library times (the
-   two-level GEMVs: torch.matmul of the dequantized operands, also at M =
-   8);
+   print median times, device times (from profiles that recorded every
+   launch: `device_ms`), bounds and library times (the two-level GEMVs:
+   torch.matmul of the dequantized operands, also at M = 8);
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
@@ -202,29 +202,56 @@ def median_ms(fn, n=20):
     return statistics.median(times)
 
 
-def _profile(fn, n):
+def _profile(fn, n, launches=None, tries=4):
     """(wall ms per call, [(device ms per call, launches per call, kernel
-    name)] sorted by time) of ``n`` calls of ``fn`` under torch.profiler."""
+    name)] sorted by time) of ``n`` calls of ``fn`` under torch.profiler.
+    With ``launches`` (the kernels one call launches) a profile that
+    recorded fewer than ``n * launches`` of them (CUPTI drops records now
+    and then) is refused and taken again, up to ``tries`` times; then
+    RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = [(getattr(e, "self_device_time_total", 0) / n / 1e3, e.count / n, e.key)
-            for e in prof.key_averages()]
-    return wall_ms, sorted((r for r in rows if r[0] > 0), reverse=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+        recorded = sum(e.count for e in events)
+        if launches is None or recorded >= n * launches:
+            rows = [(e.self_device_time_total / n / 1e3, e.count / n, e.key) for e in events]
+            return wall_ms, sorted(rows, reverse=True)
+        log(f"  profiler recorded {recorded} of {n * launches} launches; profiling again")
+    raise RuntimeError(f"the profiler recorded fewer than {n * launches} launches in {tries} "
+                       f"tries")
 
 
-def device_ms(fn, n=20):
+def launches_per_call(fn, probes=6):
+    """The kernels one call of ``fn`` launches: the most that profiles of a
+    single call recorded, once two of them (of at most ``probes``) have
+    recorded that many; 0 when none recorded a launch."""
+    seen = []
+    for _ in range(probes):
+        seen.append(round(sum(r[1] for r in _profile(fn, 1)[1])))
+        if max(seen) > 0 and seen.count(max(seen)) >= 2:
+            break
+    return max(seen)
+
+
+def device_ms(fn, n=20, launches=None):
     """Kernel time on the card per call of ``fn`` (the sum of the device
-    time of every kernel launched), or None when the profiler records none."""
+    time of every kernel launched), from a profile of ``n`` calls that
+    recorded all ``n * launches`` of their launches (``launches``: given,
+    or `launches_per_call`); None when the profiler records none."""
     fn()
-    total = sum(r[0] for r in _profile(fn, n)[1])
-    return total if total > 0 else None
+    if launches is None:
+        launches = launches_per_call(fn)
+    if launches == 0:
+        return None
+    return sum(r[0] for r in _profile(fn, n, launches)[1])
 
 
 def fmt_ms(v):
@@ -585,13 +612,15 @@ def phase_kernels(dev):
 
 
 def _mma_checks(dev, gen, randint):
-    """The tensor-core tile's five entries bit-equal to their plain versions
-    at the serve runs' shapes, M = 1, 8, 17, 192 and 256: the W4A8 GEMV
+    """The tensor-core tile's entries bit-equal to their plain versions at
+    the serve runs' shapes, M = 1, 8, 17, 192 and 256: the W4A8 GEMV
     (matmul_w4a8_2l_reference) on the lm_head (K 4096, N 128256) paired at
     g512 and g128 and unpaired at g128, f32 and bf16, on the seven unfused
     projections of a layer (LAYER_PROJ) unpaired at g128, bf16, and on the
-    four fused projections (PROJ) pre-blocked in PANEL-column panels
-    through the manual stream at nbuf 2 and 4, bf16 (layer 1 of 2); the A4
+    four fused projections (PROJ) through every route of the stacked GEMV,
+    bf16 (layer 1 of 2): flat, pre-blocked in PANEL- and 128-column panels,
+    the manual stream at nbuf 2 and 4, split-W, dot-raw on either layout,
+    concat-pairs at 4 (flat) and 3 (pre-blocked) pairs a unit; the A4
     GEMV (matmul_w4a4_2l_reference) on PROJ at g512, layer 1 of 2, and on
     one g128 and one g32 shape; the argmax head (torch.argmax of the f32
     reference logits) on the lm_head at g512 and g128, with tied columns
@@ -647,16 +676,25 @@ def _mma_checks(dev, gen, randint):
     for pname, (K, N) in PROJ.items():
         w, mult, s_col = layer(K, N, g, L=2)
         w4, mp = mm.preblock_stacked(w, PANEL), pack_mult_nibbles(mult).contiguous()
+        w128 = mm.preblock_stacked(w, 128)
+        # every route of the stacked GEMV: (launch count, flags, weights)
+        routes = [("w4a8_gemv_manual", {"FF_2L_MANUAL": str(nbuf)}, w4) for nbuf in (2, 4)]
+        routes += [("w4a8_gemv_stacked", {}, w), ("w4a8_gemv_preblocked", {}, w4),
+                   ("w4a8_gemv_preblocked", {}, w128), ("w4a8_gemv_splitw", FLAGS_O, w),
+                   ("w4a8_gemv_dotraw", FLAGS_P, w), ("w4a8_gemv_dotraw", FLAGS_P, w4),
+                   ("w4a8_gemv_concat", FLAGS_Q, w),
+                   ("w4a8_gemv_concat", {"FF_2L_CONCAT_PAIRS": "3"}, w4)]
         for M in ms:
             x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
-            for nbuf in (2, 4):
-                with flag_env(FF_2L_MANUAL=str(nbuf)):
-                    check(f"{pname} M={M} nbuf={nbuf}", "w4a8_gemv_manual",
-                          lambda: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w4, mp, s_col, 1,
-                                                                 group_size=g),
-                          lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s_col[1],
-                                                              None, g, paired=True))
-        del w, w4
+            ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s_col[1], None, g,
+                                              paired=True)
+            for name, flags, wt in routes:
+                with flag_env(**flags):
+                    check(f"{pname} M={M} {flags} {tuple(wt.shape)}", name,
+                          lambda wt=wt: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, wt, mp, s_col, 1,
+                                                                       group_size=g),
+                          lambda: ref)
+        del w, w4, w128
     torch.cuda.empty_cache()
     n8, t_a4 = n, time.perf_counter()
     # the A4 GEMV (vertical layout)
@@ -693,7 +731,9 @@ def _mma_checks(dev, gen, randint):
         torch.cuda.empty_cache()
     t_end = time.perf_counter()
     log(f"tensor-core tile: {n} calls bit-equal: {n8} W4A8 (lm_head g512, g128 paired and g128 "
-        f"unpaired; LAYER_PROJ unpaired; PROJ manual at nbuf 2 and 4), {n_a4} A4 (PROJ g512, "
+        f"unpaired; LAYER_PROJ unpaired; PROJ through the stacked GEMV's six routes: flat, "
+        f"pre-blocked at {PANEL} and 128, the manual stream at nbuf 2 and 4, split-W, dot-raw "
+        f"and concat-pairs at 4 and 3 pairs a unit), {n_a4} A4 (PROJ g512, "
         f"g128, g32; {t_argmax - t_a4:.1f} s), {n - n8 - n_a4} argmax head (g512, g128; ties, "
         f"a NaN row; {t_end - t_argmax:.1f} s); M = {ms}")
 
@@ -2022,7 +2062,7 @@ SOURCES = {
                          "fastforward_tpu/kernels/matmul.py:1736"),
     "dequant_paired": ("fastforward_tpu_torch/csrc/dequant.cu",
                        "fastforward_tpu/kernels/matmul.py:1650"),
-    "w4a8_gemv_stacked": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_stacked": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                           "fastforward_tpu/kernels/matmul.py:1023"),
     "flash_prefill": ("fastforward_tpu_torch/csrc/flash_prefill.cu",
                       "fastforward_tpu/kernels/attention.py:971"),
@@ -2054,19 +2094,19 @@ SOURCES = {
                           "fastforward_tpu/kernels/matmul.py:2539 (kernel :2485)"),
     "fused_o_gu": ("fastforward_tpu_torch/csrc/fused_tail.cu",
                    "fastforward_tpu/kernels/matmul.py:2118 (kernel :2051)"),
-    "w4a8_gemv_preblocked": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_preblocked": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                              "fastforward_tpu/kernels/matmul.py:1023 (pre-blocked layout, "
                              ":1055-1066, :1211-1214)"),
     "w4a8_gemv_manual": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                          "fastforward_tpu/kernels/matmul.py:879 (call :1107)"),
-    "w4a8_gemv_splitw": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_splitw": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                          "fastforward_tpu/kernels/matmul.py:989 (call :1185)"),
     "dequant_paired_preblocked": ("fastforward_tpu_torch/csrc/dequant.cu",
                                   "fastforward_tpu/kernels/matmul.py:1650 (pre-blocked branch "
                                   ":1666-1686, call :1709)"),
-    "w4a8_gemv_dotraw": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_dotraw": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                          "fastforward_tpu/kernels/matmul.py:949 (picked at :1205-1208)"),
-    "w4a8_gemv_concat": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
+    "w4a8_gemv_concat": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                          "fastforward_tpu/kernels/matmul.py:780 (entered at :834-842)"),
     "w4a16_gemm": ("fastforward_tpu_torch/csrc/w4a16_gemm.cu",
                    "fastforward_tpu/kernels/matmul.py:1813 (pallas_call :1866)"),

@@ -2,11 +2,11 @@
 // w4a8_gemv.cu, fused_tail.cu, fused_head.cu): the dp4a split-K
 // partial-sum tile and kernel, the layouts, and the epilogue, whose
 // compile-time ARGMAX flag turns the logits into token ids. (The two-level
-// W4A8 GEMV of both layouts, the manual stream, the argmax head and the A4
-// GEMV run w4a8_mma.cuh's int8 tensor-core tile; they share the layouts,
-// the mbarrier helpers, the epilogue and the argmax reduction. The dp4a
-// tile serves the other stacked W4A8 routes, the fused tail and the fused
-// layer heads.)
+// W4A8 GEMV of both layouts, every route of the stacked one, the argmax
+// head and the A4 GEMV run w4a8_mma.cuh's int8 tensor-core tile; they share
+// the layouts, the mbarrier helpers, the epilogue and the argmax
+// reduction. The dp4a tile serves the fused tail and the fused layer
+// heads.)
 //
 // Both GEMVs compute, per output column n and row m,
 //   acc[m, n] = sum_g m_g[n] * sum_{k in g} x[m, k] * v[k, n]      (int32)
@@ -15,8 +15,8 @@
 // in where the two nibbles of a weight byte sit along K (the LAYOUT
 // template argument: vertical or adjacent-group pairs); the multipliers
 // come nibble-packed, 8 a word. A layer's packed weights lie flat
-// (K/2, N) or pre-blocked into contiguous panels (N/bn, K/2, bn), and the
-// ROUTE argument says how a tile reads them (below).
+// (K/2, N), or (w4a8_mma.cuh only) pre-blocked into contiguous panels
+// (N/bn, K/2, bn).
 //
 // Work split. A block owns 128 columns (32 lanes x 4 adjacent columns,
 // one 4-byte load per lane per byte row, 128 contiguous bytes per warp) and
@@ -69,34 +69,6 @@ __device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
   asm("dp4a.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
 }
-
-// Where a tile's weight bytes come from (gemv_tile's ROUTE):
-//   kDirect: each live lane loads its 4 columns of 4 byte rows straight
-//            from device memory (__ldg); the 8 warps interleave quads of
-//            byte rows within each unit;
-//   kSplitW: as kDirect, but warps 0-3 walk the first half of the block's
-//            units and warps 4-7 the second half: two independent load
-//            streams over disjoint K ranges (the TPU's split-W operand
-//            pair, matmul.py:989);
-// and how its inner loop forms the products (paired, packed multipliers):
-//   kDotRaw: as kDirect, but the raw nibbles u are dotted into one int32
-//            partial per group, row and column, which starts at
-//            -8 * sum(x_g) (the correction, in the unit's first warp) and is
-//            multiplied by the group multiplier once the unit's quads are
-//            done: no byte multiply in the inner loop (the TPU's dot-raw
-//            body, matmul.py:949);
-//   kConcat: as kDirect, but a unit is `cp` adjacent pairs (the last unit
-//            of a split shorter where cp does not divide its pairs): one
-//            quad loop over the unit's cp * group byte rows, the
-//            multipliers fetched as the loop enters each pair, and the
-//            correction of each pair added by the unit's first warp (the
-//            TPU's concat-pairs body, matmul.py:780, without its dropped
-//            trailing pairs).
-// The int32 sums are the same whatever the route: every route is
-// bit-equal to the others.
-// (The manual multi-buffered stream, matmul.py:879, runs w4a8_mma.cuh's
-// tile.)
-enum Route { kDirect = 0, kSplitW = 1, kDotRaw = 3, kConcat = 4 };
 
 // Byte row 0, column n of a layer's packed weights. bn: the panel width
 // of the pre-blocked layout (N/bn, K/2, bn), whose byte (r, n) lies at
@@ -154,15 +126,12 @@ __device__ __forceinline__ void unit_mult(const void* __restrict__ mult, int N, 
 
 // One quad: the 4 byte rows r[] (4 columns each) at the split's byte row
 // lr, transposed so a word holds one column's 4 rows, split into nibble
-// planes, each plane times its multiplier (MUL) or raw, and dotted (dp4a)
-// against the staged activations of the kBM rows: the low plane into
-// acc_a, the high one into acc_b (the same array unless the planes' sums
-// are kept apart).
-template <int LAYOUT, bool MUL>
+// planes, each plane times its multiplier, and dotted (dp4a) against the
+// staged activations of the kBM rows.
+template <int LAYOUT>
 __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, const int8_t* xb,
                                          int KR, int lr, const unsigned ma[4],
-                                         const unsigned mb[4], int (&acc_a)[kBM][4],
-                                         int (&acc_b)[kBM][4]) {
+                                         const unsigned mb[4], int (&acc)[kBM][4]) {
   unsigned col[4];
   transpose4x4(r, col);
   unsigned pa[4], pb[4];
@@ -173,8 +142,8 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
       lo ^= 0x08080808u;
       hi ^= 0x08080808u;
     }
-    pa[c] = MUL ? lo * ma[c] : lo;
-    pb[c] = MUL ? hi * mb[c] : hi;
+    pa[c] = lo * ma[c];
+    pb[c] = hi * mb[c];
   }
 #pragma unroll
   for (int m = 0; m < kBM; ++m) {
@@ -182,16 +151,15 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
     const int b = *reinterpret_cast<const int*>(xb + m * KR + lr);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      acc_a[m][c] = dp4a_su(a, pa[c], acc_a[m][c]);
-      acc_b[m][c] = dp4a_su(b, pb[c], acc_b[m][c]);
+      acc[m][c] = dp4a_su(a, pa[c], acc[m][c]);
+      acc[m][c] = dp4a_su(b, pb[c], acc[m][c]);
     }
   }
 }
 
 // Split-K partial GEMV.
 //   x        (M, K) int8 activations
-//   w        (K/2, N) int8 packed weights of one layer, or its pre-blocked
-//            form (N/bn, K/2, bn) when bn > 0 (see panel_col)
+//   w        (K/2, N) int8 packed weights of one layer
 //   mult     (n_pack, N) int32, 8 nibble multipliers per word
 //   partial  (n_split, M, N) int32
 // gemv_tile computes one (row tile, column tile, split) of it with all
@@ -199,18 +167,15 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
 // gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes
 // gemv_partial_kernel runs one tile per block on the grid
 // (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
-// block of a persistent grid (kDirect).
-// rows_per_unit: byte rows of one unit (group paired, else group/2);
-// cp: the pairs of a kConcat unit (units_per_split a multiple of it).
-template <int LAYOUT, int ROUTE = kDirect>
+// block of a persistent grid.
+// rows_per_unit: byte rows of one unit (group paired, else group/2).
+template <int LAYOUT>
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
-          int m_tile, int n_tile, int split, unsigned char* smem, int bn = 0, int cp = 1) {
+          int m_tile, int n_tile, int split, unsigned char* smem) {
   static_assert(LAYOUT != kHalves, "the group-halves layout runs w4a8_mma.cuh's tile");
-  static_assert((ROUTE != kDotRaw && ROUTE != kConcat) || LAYOUT == kPaired,
-                "the dot-raw and concat-pairs routes take the paired layout");
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
@@ -276,109 +241,37 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   const int n0 = n_tile * kBN + lane * 4;
   const bool live = n0 < N;  // N % 4 == 0: a live lane owns 4 valid columns
-  // this lane's 4 columns in byte row 0 (a multiple of 4 columns lies in
-  // one panel), and the row pitch
-  const int8_t* wcol = live ? panel_col(w, K, N, bn, n0) : w;
-  const int pitch = bn > 0 ? bn : N;
+  const int8_t* wcol = w + (live ? n0 : 0);  // this lane's 4 columns in byte row 0
   int acc[kBM][4];
 #pragma unroll
   for (int m = 0; m < kBM; ++m)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = 0;
 
-  // kSplitW: two warp groups, each over its half of the split's units;
-  // otherwise one group of all 8 warps over all of them.
-  constexpr int kGroups = ROUTE == kSplitW ? 2 : 1;
-  constexpr int kGroupWarps = kWarps / kGroups;
-  const int wq = warp % kGroupWarps;  // the warp's place in its group
-  const int half = (n_u + kGroups - 1) / kGroups;
-  const int ub = (warp / kGroupWarps) * half;
-  const int ue = min(n_u, ub + half);
-  // A warp's quad of byte rows at the split's byte row lr, read straight
-  // from device memory.
-  auto load_quad = [&](unsigned r[4], int lr) {
-    const int8_t* wp = wcol + (size_t)(row0 + lr) * pitch;
+  for (int u = 0; u < n_u; ++u) {
+    if (!live) continue;
+    unsigned ma[4], mb[4];
+    unit_mult<LAYOUT>(mult, N, n0, u0 + u, ma, mb);
+    if (warp == 0) {
+      // the offset-binary correction of unit u, once per block
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * pitch));
-  };
-  // The offset-binary correction of unit u: once per block, by the first
-  // warp of the unit's group.
-  auto correct = [&](int u, const unsigned ma[4], const unsigned mb[4]) {
+      for (int m = 0; m < kBM; ++m) {
+        const int sa = sxa[m * units_per_split + u], sb = sxb[m * units_per_split + u];
 #pragma unroll
-    for (int m = 0; m < kBM; ++m) {
-      const int sa = sxa[m * units_per_split + u], sb = sxb[m * units_per_split + u];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        acc[m][c] -= 8 * (static_cast<int>(ma[c]) * sa + static_cast<int>(mb[c]) * sb);
-    }
-  };
-  constexpr bool kConcatUnits = ROUTE == kConcat;
-  const int step = kConcatUnits ? cp : 1;
-  for (int u = ub; u < ue; u += step) {
-    if (live) {
-      unsigned ma[4], mb[4];
-      if constexpr (kConcatUnits) {
-        // a unit of up to cp pairs: u .. u_end - 1
-        const int u_end = min(ue, u + cp);
-        if (wq == 0)
-          for (int v = u; v < u_end; ++v) {
-            unit_mult<LAYOUT>(mult, N, n0, u0 + v, ma, mb);
-            correct(v, ma, mb);
-          }
-        const int quads = (u_end - u) * rows_per_unit / 4;
-        int cur = -1;
-#pragma unroll 2
-        for (int q = wq; q < quads; q += kGroupWarps) {
-          const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
-          const int v = lr / rows_per_unit;
-          if (v != cur) {
-            unit_mult<LAYOUT>(mult, N, n0, u0 + v, ma, mb);
-            cur = v;
-          }
-          unsigned r[4];
-          load_quad(r, lr);
-          quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
-        }
-      } else if constexpr (ROUTE == kDotRaw) {
-        unit_mult<LAYOUT>(mult, N, n0, u0 + u, ma, mb);
-        // per group, row and column: -8 sum(x_g) (once per block) + sum x u
-        int pa[kBM][4], pb[kBM][4];
-#pragma unroll
-        for (int m = 0; m < kBM; ++m) {
-          const int sa = wq == 0 ? -8 * sxa[m * units_per_split + u] : 0;
-          const int sb = wq == 0 ? -8 * sxb[m * units_per_split + u] : 0;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            pa[m][c] = sa;
-            pb[m][c] = sb;
-          }
-        }
-        const int quads = rows_per_unit / 4;
-#pragma unroll 2
-        for (int q = wq; q < quads; q += kGroupWarps) {
-          const int lr = u * rows_per_unit + 4 * q;
-          unsigned r[4];
-          load_quad(r, lr);
-          quad_dot<LAYOUT, false>(r, xa, xb, KR, lr, ma, mb, pa, pb);
-        }
-#pragma unroll
-        for (int m = 0; m < kBM; ++m)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[m][c] += static_cast<int>(ma[c]) * pa[m][c] + static_cast<int>(mb[c]) * pb[m][c];
-      } else {
-        unit_mult<LAYOUT>(mult, N, n0, u0 + u, ma, mb);
-        if (wq == 0) correct(u, ma, mb);
-        const int quads = rows_per_unit / 4;
-#pragma unroll 2
-        for (int q = wq; q < quads; q += kGroupWarps) {
-          const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
-          unsigned r[4];
-          load_quad(r, lr);
-          quad_dot<LAYOUT, true>(r, xa, xb, KR, lr, ma, mb, acc, acc);
-        }
+        for (int c = 0; c < 4; ++c)
+          acc[m][c] -= 8 * (static_cast<int>(ma[c]) * sa + static_cast<int>(mb[c]) * sb);
       }
+    }
+    const int quads = rows_per_unit / 4;
+#pragma unroll 2
+    for (int q = warp; q < quads; q += kWarps) {
+      const int lr = u * rows_per_unit + 4 * q;  // byte row local to the split
+      const int8_t* wp = wcol + (size_t)(row0 + lr) * N;
+      unsigned r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * N));
+      quad_dot<LAYOUT>(r, xa, xb, KR, lr, ma, mb, acc);
     }
   }
 
@@ -399,15 +292,14 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int LAYOUT, int ROUTE>
+template <int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
-                    int M, int K, int N, int group, int units_per_split,
-                    int n_units, int bn, int cp) {
+                    int M, int K, int N, int group, int units_per_split, int n_units) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gemv_tile<LAYOUT, ROUTE>(x, w, mult, partial, M, K, N, group, units_per_split, n_units,
-                           blockIdx.x, blockIdx.y, blockIdx.z, smem, bn, cp);
+  gemv_tile<LAYOUT>(x, w, mult, partial, M, K, N, group, units_per_split, n_units, blockIdx.x,
+                    blockIdx.y, blockIdx.z, smem);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
@@ -415,24 +307,20 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
          (size_t)kWarps * kBM * kBN * 4;
 }
 
-// bn: the pre-blocked panel width (0: flat); cp: the pairs of a unit
-// (kConcat), a split covering whole
-// units of cp pairs.
-template <int LAYOUT, int ROUTE = kDirect>
+template <int LAYOUT>
 cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
                                 int32_t* partial, int M, int K, int N, int group,
-                                int n_split, cudaStream_t stream, int bn = 0, int cp = 1) {
+                                int n_split, cudaStream_t stream) {
   const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
   const int n_units = LAYOUT == kPaired ? K / (2 * group) : K / group;
-  if (cp < 1) return cudaErrorInvalidValue;
-  const int ups = ((n_units + cp - 1) / cp + n_split - 1) / n_split * cp;
+  const int ups = (n_units + n_split - 1) / n_split;
   const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
-  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT, ROUTE>,
+  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
-  gemv_partial_kernel<LAYOUT, ROUTE><<<grid, kThreads, smem, stream>>>(
-      x, w, mult, partial, M, K, N, group, ups, n_units, bn, cp);
+  gemv_partial_kernel<LAYOUT><<<grid, kThreads, smem, stream>>>(x, w, mult, partial, M, K, N,
+                                                                group, ups, n_units);
   return cudaGetLastError();
 }
 

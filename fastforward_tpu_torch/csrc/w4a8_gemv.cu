@@ -19,69 +19,60 @@
 // epilogue one int32 token id per row (first occurrence wins ties, a NaN
 // counts as the maximum: the ids of torch.argmax over the logits).
 // Bit-exact against matmul_w4a8_2l_reference.
-// ff_w4a8_gemv and ff_w4a8_gemv_unpaired (row 5) and the argmax head
-// ff_w4a8_gemv_argmax (row 4) run w4a8_mma.cuh's int8 tensor-core tile,
-// with its note.
+// Every entry of the two-level layouts runs w4a8_mma.cuh's int8
+// tensor-core tile, with its note: ff_w4a8_gemv and ff_w4a8_gemv_unpaired
+// (row 5), the argmax head ff_w4a8_gemv_argmax (row 4) and the six routes
+// of the stacked GEMV (row 9).
 //
 // The stacked entries read layer `layer` of (L, K/2, N) weights, or of
 // their pre-blocked form (L, N/bn, K/2, bn) (preblock_stacked, matmul.py:
 // 1240: each bn-column panel one contiguous chunk), its nibble-packed
 // multipliers (L, ceil(K/g/8), N) int32 and s_col (L, N) in place: no
-// per-layer slice is copied. Six routes, all bit-equal (the same int32
-// sums through the same epilogue arithmetic); all but the manual stream
-// run common.cuh's dp4a tile:
-//   ff_w4a8_gemv_stacked     flat, each lane's words by __ldg;
-//   ff_w4a8_gemv_preblocked  pre-blocked: the same tile given the panel
-//                            base and a row pitch of bn (any bn % 4 == 0:
-//                            a lane's 4 columns lie in one panel);
+// per-layer slice is copied. Six routes, one entry and one launch count
+// each, all the same tile and so bit-equal (the int32 sum is exact in any
+// order; the same epilogue arithmetic):
+//   ff_w4a8_gemv_stacked     flat weights, the tile's TMA box over the
+//                            (K/2, N) bytes;
+//   ff_w4a8_gemv_preblocked  pre-blocked: boxes over the panels where bn %
+//                            128 == 0, else the tile's 4-byte feed (any bn
+//                            % 4 == 0: a lane's 4 columns lie in one panel);
 //   ff_w4a8_gemv_manual      pre-blocked, FF_2L_MANUAL = nbuf: the TPU
 //                            kernel keeps nbuf - 1 panels in flight in a
-//                            ring of nbuf VMEM slots; here w4a8_mma.cuh's
-//                            tile, whose producer warp bulk-copies each
-//                            block's byte rows into a ring of `depth`
-//                            shared-memory stages (a full and an empty
-//                            mbarrier each), depth - 1 in flight while the
-//                            consumer warps run int8 mma.sync on one (the
-//                            wrapper takes depth = min(nbuf, the block's
-//                            stages, what fits in 227 KB));
+//                            ring of nbuf VMEM slots; here the tile's ring
+//                            of depth = min(nbuf, the block's stages, what
+//                            fits in 227 KB) stages (the other routes take
+//                            4);
 //   ff_w4a8_gemv_splitw      flat, FF_2L_SPLITW: the TPU kernel reads each
-//                            panel as two half-K operands (two DMA
-//                            streams); here warps 0-3 and 4-7 walk the two
-//                            halves of the block's units, two independent
-//                            load streams whose int32 sums the warp
-//                            reduction adds in a fixed order;
-//   ff_w4a8_gemv_dotraw      either layout (bn 0: flat), FF_2L_DOTRAW: the
-//                            TPU body dots the sign-restored nibbles u - 8
-//                            and applies the group multiplier to the dot's
-//                            int32 sum; here dp4a runs on the raw u bytes
-//                            into one partial per group, row and column,
-//                            which starts at -8 * sum(x_g) and is
-//                            multiplied by the multiplier once the unit is
-//                            done: no byte multiply in the inner loop, 64
-//                            more registers a lane;
+//                            panel as two half-K operands, two DMA streams;
+//                            the tile's producer warp already keeps depth -
+//                            1 stages in flight, so it runs as it is;
+//   ff_w4a8_gemv_dotraw      either layout, FF_2L_DOTRAW: the TPU body dots
+//                            the sign-restored nibbles and applies the
+//                            group multiplier to each group's int32 dot, to
+//                            spare the VPU a multiply a weight. The tile
+//                            folds the multiplier into the bytes it feeds
+//                            the tensor cores (3 instructions a plane, the
+//                            same sum exactly); a per-group partial would
+//                            need a second accumulator set beyond the
+//                            tile's 128 registers (the dp4a dot-raw body
+//                            took 151 and ran slowest of the routes,
+//                            PERF.md row 9d), so it runs the shared tile;
 //   ff_w4a8_gemv_concat      either layout, FF_2L_CONCAT_PAIRS = cp: the
 //                            TPU body folds cp pairs and issues one longer
-//                            dot; here a unit is cp pairs, one quad loop
-//                            over its cp * group byte rows, the splits cut
-//                            at unit boundaries. The TPU body drops the
+//                            dot; the tile's ring already streams a split's
+//                            units as one run of 64-row stages across pair
+//                            boundaries, so it runs the shared tile, and
+//                            every pair is computed (the TPU body drops the
 //                            trailing pairs when cp does not divide their
-//                            count (ROADMAP.md Queue 3); here the last unit
-//                            is shorter and every pair is computed.
-// Bound: as the decoder layer below for every route (the same bytes and
-// operations); the routes differ in how the weight bytes travel and, for
-// the manual stream, in the instruction that multiplies them.
+//                            count, ROADMAP.md Queue 3).
+// Bound: the decoder layer's below for every route (the same bytes and
+// operations).
 //
 // Bound on the H100: the lm_head of Llama-3-8B moves 263 MB of packed
 // weights per call against M <= 256 rows: bandwidth-bound (~78 us). A
 // decoder layer at M = 192, g128 moves ~110 MB (0.033 ms) but asks
 // 2*M*K*N = 8.4e10 int8 operations (0.042 ms at 1,979 TOP/s on the tensor
-// cores); dp4a on the CUDA cores is far from that rate.
-//
-// Design of the dp4a routes: common.cuh's split-K partial kernel reads
-// each weight byte once per 8 rows; the two nibble
-// planes of a byte go to the two groups of its pair, each plane scaled by
-// its group multiplier in one register multiply, each feeding dp4a against
-// its own staged activations.
+// cores).
 //
 // The argmax head: the TPU kernel carried a running (max, index) across
 // its sequential grid; here blocks run in no order, so the tile's epilogue
@@ -372,81 +363,16 @@ extern "C" int ff_w4a8_gemv_argmax(const void* x, const void* xs, const void* w,
 
 namespace {
 
-// Layer `layer` of stacked weights: flat (L, K/2, N), or pre-blocked
-// (L, N/bn, K/2, bn) when bn > 0 (a layer is K*N/2 bytes either way), its
-// nibble-packed multipliers and s_col; the tile reads it by ROUTE
-// (common.cuh).
-template <int ROUTE>
-int gemv_stacked(const void* x, const void* xs, const void* w, const void* mult_packed,
-                 const void* s_col, void* partial, void* out, int M, int K, int N, int layer,
-                 int group, int n_pack, int n_split, int out_kind, int bn, void* stream,
-                 int cp = 1) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
-  const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
-  const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
-  cudaError_t err = ff::launch_gemv_partial<ff::kPaired, ROUTE>(
-      static_cast<const int8_t*>(x), wl, ml, static_cast<int32_t*>(partial), M, K, N, group,
-      n_split, st, bn, cp);
-  if (err != cudaSuccess) return err;
-  const int32_t* p = static_cast<const int32_t*>(partial);
-  const float* xsf = static_cast<const float*>(xs);
-  if (out_kind == 0)
-    return ff::launch_gemv_epilogue<float, false>(p, n_split, M, N, sl, xsf,
-                                                  static_cast<float*>(out), nullptr, nullptr, st);
-  return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
-      p, n_split, M, N, sl, xsf, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
-}
-
-}  // namespace
-
-// The stacked GEMV's routes (matmul.py:1023-1237), one entry each. Flat
-// weights: the default call (:1217) and split-W (kernel :989, call :1185:
-// the block's units in two halves, one warp group each). Pre-blocked
-// weights (bn % 4 == 0): the default call on panels (:1211-1214), and the
-// manual stream (kernel :879, call :1107: w4a8_mma.cuh's tile, `depth`
-// bulk-copied stages, depth - 1 in flight). Either layout (bn 0: flat, else bn % 4 == 0):
-// the dot-raw body (:949, picked at :1205-1208) and the concat-pairs body
-// (:780, entered at :834-842; cp pairs a unit).
-extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w,
-                                    const void* mult_packed, const void* s_col, void* partial,
-                                    void* out, int M, int K, int N, int L, int layer, int group,
-                                    int n_pack, int n_split, int out_kind, void* stream) {
-  (void)L;
-  return gemv_stacked<ff::kDirect>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, 0, stream);
-}
-
-extern "C" int ff_w4a8_gemv_splitw(const void* x, const void* xs, const void* w,
-                                   const void* mult_packed, const void* s_col, void* partial,
-                                   void* out, int M, int K, int N, int L, int layer, int group,
-                                   int n_pack, int n_split, int out_kind, void* stream) {
-  (void)L;
-  return gemv_stacked<ff::kSplitW>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, 0, stream);
-}
-
-extern "C" int ff_w4a8_gemv_preblocked(const void* x, const void* xs, const void* w,
-                                       const void* mult_packed, const void* s_col, void* partial,
-                                       void* out, int M, int K, int N, int L, int layer,
-                                       int group, int n_pack, int n_split, int out_kind, int bn,
-                                       void* stream) {
-  (void)L;
-  if (bn <= 0 || bn % 4 != 0 || N % bn != 0) return cudaErrorInvalidValue;
-  return gemv_stacked<ff::kDirect>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, bn, stream);
-}
-
-// The manual stream on the int8 tensor-core tile's bulk-copy ring
-// (w4a8_mma.cuh): `depth` stages, depth - 1 in flight while the consumer
-// warps compute on one; xf and partial as ff_w4a8_gemv's.
-extern "C" int ff_w4a8_gemv_manual(const void* x, const void* xs, const void* w,
-                                   const void* mult_packed, const void* s_col, void* xf,
-                                   void* partial, void* out, int M, int K, int N, int L, int layer,
-                                   int group, int n_pack, int n_split, int out_kind, int bn,
-                                   int depth, void* stream) {
-  (void)L;
-  if (bn <= 0 || bn % 4 != 0 || N % bn != 0 || n_pack * 8 < K / group)
+// Layer `layer` of stacked weights on the tensor-core tile: flat (L, K/2,
+// N) (bn 0) or pre-blocked (L, N/bn, K/2, bn) (a layer is K*N/2 bytes
+// either way), its nibble-packed multipliers (L, n_pack, N) and s_col
+// (L, N), offset in place; xf and partial as ff_w4a8_gemv's, `depth` ring
+// stages.
+int stacked_tile(const void* x, const void* xs, const void* w, const void* mult_packed,
+                 const void* s_col, void* xf, void* partial, void* out, int M, int K, int N,
+                 int layer, int group, int n_pack, int n_split, int out_kind, int bn, int depth,
+                 void* stream) {
+  if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0)) || n_pack * 8 < K / group)
     return cudaErrorInvalidValue;
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
@@ -457,23 +383,74 @@ extern "C" int ff_w4a8_gemv_manual(const void* x, const void* xs, const void* w,
       n_split, bn, depth, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ff_w4a8_gemv_dotraw(const void* x, const void* xs, const void* w,
-                                   const void* mult_packed, const void* s_col, void* partial,
-                                   void* out, int M, int K, int N, int L, int layer, int group,
-                                   int n_pack, int n_split, int out_kind, int bn, void* stream) {
+}  // namespace
+
+// The stacked GEMV's routes (matmul.py:1023-1237), one entry each, all on
+// w4a8_mma.cuh's tile with its packed multipliers; the arguments: x, xs,
+// w, mult_packed, s_col, xf, partial (or NULL for one split), out, M, K, N,
+// L, layer, group, n_pack, n_split, out_kind, bn (0: flat), depth, stream.
+// Flat weights: the default call (:1217) and split-W (kernel :989, call
+// :1185). Pre-blocked weights (bn % 4 == 0): the default call on panels
+// (:1211-1214) and the manual stream (kernel :879, call :1107, FF_2L_MANUAL
+// = nbuf: depth = min(nbuf, ...) stages, depth - 1 in flight). Either
+// layout: the dot-raw body (:949, picked at :1205-1208) and the
+// concat-pairs body (:780, entered at :834-842; every pair computed).
+extern "C" int ff_w4a8_gemv_stacked(const void* x, const void* xs, const void* w,
+                                    const void* mult_packed, const void* s_col, void* xf,
+                                    void* partial, void* out, int M, int K, int N, int L,
+                                    int layer, int group, int n_pack, int n_split, int out_kind,
+                                    int bn, int depth, void* stream) {
   (void)L;
-  if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0))) return cudaErrorInvalidValue;
-  return gemv_stacked<ff::kDotRaw>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, bn, stream);
+  return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
+                      n_pack, n_split, out_kind, bn, depth, stream);
+}
+
+extern "C" int ff_w4a8_gemv_preblocked(const void* x, const void* xs, const void* w,
+                                       const void* mult_packed, const void* s_col, void* xf,
+                                       void* partial, void* out, int M, int K, int N, int L,
+                                       int layer, int group, int n_pack, int n_split, int out_kind,
+                                       int bn, int depth, void* stream) {
+  (void)L;
+  return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
+                      n_pack, n_split, out_kind, bn, depth, stream);
+}
+
+extern "C" int ff_w4a8_gemv_manual(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* xf,
+                                   void* partial, void* out, int M, int K, int N, int L,
+                                   int layer, int group, int n_pack, int n_split, int out_kind,
+                                   int bn, int depth, void* stream) {
+  (void)L;
+  return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
+                      n_pack, n_split, out_kind, bn, depth, stream);
+}
+
+extern "C" int ff_w4a8_gemv_splitw(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* xf,
+                                   void* partial, void* out, int M, int K, int N, int L,
+                                   int layer, int group, int n_pack, int n_split, int out_kind,
+                                   int bn, int depth, void* stream) {
+  (void)L;
+  return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
+                      n_pack, n_split, out_kind, bn, depth, stream);
+}
+
+extern "C" int ff_w4a8_gemv_dotraw(const void* x, const void* xs, const void* w,
+                                   const void* mult_packed, const void* s_col, void* xf,
+                                   void* partial, void* out, int M, int K, int N, int L,
+                                   int layer, int group, int n_pack, int n_split, int out_kind,
+                                   int bn, int depth, void* stream) {
+  (void)L;
+  return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
+                      n_pack, n_split, out_kind, bn, depth, stream);
 }
 
 extern "C" int ff_w4a8_gemv_concat(const void* x, const void* xs, const void* w,
-                                   const void* mult_packed, const void* s_col, void* partial,
-                                   void* out, int M, int K, int N, int L, int layer, int group,
-                                   int n_pack, int n_split, int out_kind, int bn, int cp,
-                                   void* stream) {
+                                   const void* mult_packed, const void* s_col, void* xf,
+                                   void* partial, void* out, int M, int K, int N, int L,
+                                   int layer, int group, int n_pack, int n_split, int out_kind,
+                                   int bn, int depth, void* stream) {
   (void)L;
-  if (bn < 0 || (bn > 0 && (bn % 4 != 0 || N % bn != 0)) || cp < 1) return cudaErrorInvalidValue;
-  return gemv_stacked<ff::kConcat>(x, xs, w, mult_packed, s_col, partial, out, M, K, N, layer,
-                                   group, n_pack, n_split, out_kind, bn, stream, cp);
+  return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
+                      n_pack, n_split, out_kind, bn, depth, stream);
 }

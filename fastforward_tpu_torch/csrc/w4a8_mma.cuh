@@ -1,14 +1,16 @@
 // The two-level int4 GEMVs on int8 tensor cores: the tile of w4a8_gemv.cu's
 // ff_w4a8_gemv (paired layout), ff_w4a8_gemv_unpaired (group halves),
-// ff_w4a8_gemv_manual (the pre-blocked manual stream) and
-// ff_w4a8_gemv_argmax (paired, an argmax epilogue), and of a4_gemv.cu's
-// ff_a4_gemv (the vertical W4A4 layout).
+// ff_w4a8_gemv_argmax (paired, an argmax epilogue) and the stacked GEMV's
+// six routes (ff_w4a8_gemv_stacked, _preblocked, _manual, _splitw,
+// _dotraw, _concat: flat or pre-blocked paired layers), and of
+// a4_gemv.cu's ff_a4_gemv (the vertical W4A4 layout).
 //
 // Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571;
-// paired body :537, group-halves body :479, pallas_call :620), the
-// manual-DMA kernel of matmul_w4a8_2l_gemv_stacked (:879, called at :1107),
-// matmul_w4a8_2l_gemv_argmax (:708, kernel :650, pallas_call :744) and
-// matmul_w4a4_2l_gemv_stacked (:1406, body :1342).
+// paired body :537, group-halves body :479, pallas_call :620),
+// matmul_w4a8_2l_gemv_stacked (:1023: default body :815, manual-DMA kernel
+// :879 called at :1107, split-W kernel :989, dot-raw body :949,
+// concat-pairs body :780), matmul_w4a8_2l_gemv_argmax (:708, kernel :650,
+// pallas_call :744) and matmul_w4a4_2l_gemv_stacked (:1406, body :1342).
 //   acc[m, n] = sum_k x[m, k] * (m_g[n] * v[k, n])        (int32, exact)
 //   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]      (f32 or bf16)
 // with v in [-8, 7] stored as nibbles (offset binary u = v + 8 in the W4A8

@@ -63,20 +63,12 @@ SIGNATURES = {
         # idx_out, M, K, N, group, n_split, depth, stream (the tile with the
         # argmax epilogue)
         "ff_w4a8_gemv_argmax": [P] * 10 + [I] * 6 + [P],
-        # x, xs, w, mult_packed, s_col, partial, out, M, K, N, L, layer,
-        # group, n_pack, n_split, out_kind, stream
-        "ff_w4a8_gemv_stacked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-        "ff_w4a8_gemv_splitw": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-        # ... out_kind, bn, stream: pre-blocked (L, N/bn, K/2, bn) weights
-        "ff_w4a8_gemv_preblocked": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
         # x, xs, w, mult_packed, s_col, xf, partial (or NULL), out, M, K, N,
-        # L, layer, group, n_pack, n_split, out_kind, bn, depth, stream: the
-        # manual stream on the tensor-core tile's ring of `depth` stages
-        "ff_w4a8_gemv_manual": [P] * 8 + [I] * 11 + [P],
-        # ... out_kind, bn (0: flat), stream; ... out_kind, bn, cp (pairs a
-        # unit), stream
-        "ff_w4a8_gemv_dotraw": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
-        "ff_w4a8_gemv_concat": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+        # L, layer, group, n_pack, n_split, out_kind, bn (0: flat), depth,
+        # stream: the stacked GEMV's six routes on the tensor-core tile's
+        # ring of `depth` stages
+        **{f"ff_w4a8_gemv_{route}": [P] * 8 + [I] * 11 + [P]
+           for route in ("stacked", "preblocked", "manual", "splitw", "dotraw", "concat")},
         # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream
         "ff_w4a8_gemv_halves": [P, P, P, P, P, I, I, I, I, I, P],
     },

@@ -41,6 +41,13 @@ def flash_decode_int8_reference(q, k, k_scale, v, v_scale, lengths,
     return out.to(q.dtype)
 
 
+def check_kv_alignment(k, v):
+    """Raise unless the int8 K and V tensors start on 16 bytes: the flash
+    decode kernel copies their rows into shared memory 16 bytes at a time."""
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash decode kernel needs K and V starting on 16-byte boundaries")
+
+
 def _flash_decode(q, k, k_scale, v, v_scale, lengths, layer, scale, count):
     """Launch `csrc/flash_decode.cu` on layer ``layer`` of (L, B, Hkv, S, d)
     CUDA tensors, counted under ``count``."""
@@ -59,6 +66,7 @@ def _flash_decode(q, k, k_scale, v, v_scale, lengths, layer, scale, count):
             f"flash decode kernel needs head dim 128 and H/Hkv in (1, 2, 4, 8) "
             f"(d={d}, H={H}, Hkv={Hkv}, layer={layer})"
         )
+    check_kv_alignment(k, v)
     sm_scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     out = torch.empty((B, H, d), dtype=torch.bfloat16, device=dev)
     err = _build.lib("flash_decode").ff_flash_decode(
@@ -75,8 +83,8 @@ def flash_decode_int8_stacked(q, k, k_scale, v, v_scale, lengths, layer,
                               scale: Optional[float] = None, count: str = "flash_decode"):
     """Flash decode over layer ``layer`` of the stacked cache:
     q (B, H, d) bf16; k/v (L, B, Hkv, S, d) int8; scales (L, B, Hkv, S) f32;
-    lengths (B,) int32. Reads ceil(len/256) blocks per sequence. Launches
-    are counted under ``count``."""
+    lengths (B,) int32. Reads the live tokens only, in chunks of 64.
+    Launches are counted under ``count``."""
     layer = int(layer)
     if q.device.type == "cpu":
         return flash_decode_int8_reference(

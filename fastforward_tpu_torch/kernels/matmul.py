@@ -565,13 +565,14 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     path does. The route (`stacked_gemv_route`) follows the flags read at
     each call; on the CPU the dot-raw and concat-pairs routes run their own
     plain versions, the others the oracle. On the card one entry of
-    `csrc/w4a8_gemv.cu` per route, each under its own launch count:
-    ``w4a8_gemv_stacked`` (flat), ``w4a8_gemv_preblocked``,
-    ``w4a8_gemv_manual`` (``FF_2L_MANUAL`` >= 2, pre-blocked; the int8
-    tensor-core tile of `csrc/w4a8_mma.cuh`, planned by `mma_plan`, its
-    ring depth `manual_depth`), ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat),
-    ``w4a8_gemv_dotraw`` (``FF_2L_DOTRAW=1``) and ``w4a8_gemv_concat``
-    (``FF_2L_CONCAT_PAIRS`` above 1), the last two on either layout.
+    `csrc/w4a8_gemv.cu` per route, each under its own launch count, every
+    one on the int8 tensor-core tile of `csrc/w4a8_mma.cuh` (planned by
+    `mma_plan`): ``w4a8_gemv_stacked`` (flat), ``w4a8_gemv_preblocked``,
+    ``w4a8_gemv_manual`` (``FF_2L_MANUAL`` >= 2, pre-blocked; its ring
+    depth `manual_depth` of the flag, the others' of `_MMA_DEPTH`),
+    ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat), ``w4a8_gemv_dotraw``
+    (``FF_2L_DOTRAW=1``) and ``w4a8_gemv_concat`` (``FF_2L_CONCAT_PAIRS``
+    above 1), the last two on either layout.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -615,39 +616,16 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     if preblocked and bn % 4 != 0:
         raise ValueError(f"the pre-blocked W4A8 GEMV kernels need a panel width bn that is a "
                          f"multiple of 4 (a lane's 4 columns in one panel), got bn={bn}")
-    n_pairs = K // (2 * group_size)
+    plan = mma_plan(M, K, N, group_size, "paired")
+    xf, partial = _mma_scratch(plan, M, N, dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    out_kind = 0 if out_dtype == torch.float32 else 1
-    lib = _build.lib("w4a8_gemv")
-    if route == "w4a8_gemv_manual":
-        plan = mma_plan(M, K, N, group_size, "paired")
-        xf, partial = _mma_scratch(plan, M, N, dev)
-        err = lib.ff_w4a8_gemv_manual(
-            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-            s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
-            out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split, out_kind, bn,
-            manual_depth(plan, manual_bufs), _build.stream_ptr(dev),
-        )
-        _build.launch_counts[route] += 1
-        _build.check(err, route)
-        return out
-    if route == "w4a8_gemv_concat":
-        # a unit of concat_pairs pairs (at most all of them); splits cut at
-        # unit boundaries
-        cp = min(concat_pairs, n_pairs)
-        n_split = gemv_split(M, N, -(-n_pairs // cp), cp * group_size)
-    else:
-        n_split = gemv_split(M, N, n_pairs, group_size)
-    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
-    extra = ()
-    if route in ("w4a8_gemv_preblocked", "w4a8_gemv_dotraw"):
-        extra = (bn,)
-    elif route == "w4a8_gemv_concat":
-        extra = (bn, cp)
-    err = getattr(lib, f"ff_{route}")(
+    nbuf = manual_bufs if route == "w4a8_gemv_manual" else _MMA_DEPTH
+    err = getattr(_build.lib("w4a8_gemv"), f"ff_{route}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-        s_col.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K, N, L, layer,
-        group_size, n_pack, n_split, out_kind, *extra, _build.stream_ptr(dev),
+        s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split,
+        0 if out_dtype == torch.float32 else 1, bn, manual_depth(plan, nbuf),
+        _build.stream_ptr(dev),
     )
     _build.launch_counts[route] += 1
     _build.check(err, route)

@@ -5,8 +5,8 @@ Pool layout: k/v (L, P, Hkv, page, d) int8, scales (L, P, Hkv, page) f32;
 table (B, MP) int32, -1 for unallocated. A logical page covers the same
 token span in all L layers.
 
-`paged_flash_decode_int8` runs `csrc/flash_decode.cu`'s kernel with block
-i of sequence b read from page ``table[b, i]``; `paged_kv_append_decode_int8`
+`paged_flash_decode_int8` runs `csrc/flash_decode.cu`'s kernel with token
+t of sequence b read from page ``table[b, t // page]``; `paged_kv_append_decode_int8`
 runs `csrc/kv_append.cu`'s append with the page lookup. On a CPU tensor
 each runs its plain version. A page id of -1 addresses page 0, the trash
 page, as the JAX wrappers' ``max(table, 0)`` makes it (the JAX append
@@ -23,7 +23,10 @@ from typing import Optional
 import torch
 
 from fastforward_tpu_torch.kernels import _build
-from fastforward_tpu_torch.kernels.attention import flash_decode_int8_reference
+from fastforward_tpu_torch.kernels.attention import (
+    check_kv_alignment,
+    flash_decode_int8_reference,
+)
 
 
 def gather_pages(pool: torch.Tensor, table_row: torch.Tensor) -> torch.Tensor:
@@ -51,9 +54,9 @@ def paged_flash_decode_int8(q, k_pool, k_scale, v_pool, v_scale, table, lengths,
                             scale: Optional[float] = None):
     """Length-aware decode attention through the page table
     (`paged_attention.py:156`): q (B, H, 128) bf16; pools of layer
-    ``layer``; lengths (B,) int32. Reads min(ceil(len/page), MP) pages per
-    sequence; the reference attends over all MP pages, masked by length,
-    which is the same function. Within 8e-3 of the largest output of
+    ``layer``; lengths (B,) int32. Reads min(len, MP * page) tokens per
+    sequence, each from its page; the reference attends over all MP pages,
+    masked by length, which is the same function. Within 8e-3 of the largest output of
     `paged_flash_decode_reference`; on the card the same summation order
     as `flash_decode_int8_stacked` over the same tokens."""
     layer = int(layer)
@@ -79,6 +82,7 @@ def paged_flash_decode_int8(q, k_pool, k_scale, v_pool, v_scale, table, lengths,
             f"paged flash decode kernel needs head dim 128, H/Hkv in (1, 2, 4, 8) and a page "
             f"of a multiple of 4 tokens (d={d}, H={H}, Hkv={Hkv}, page={page}, layer={layer})"
         )
+    check_kv_alignment(k_pool, v_pool)
     sm_scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     out = torch.empty((B, H, d), dtype=torch.bfloat16, device=dev)
     err = _build.lib("flash_decode").ff_paged_flash_decode(

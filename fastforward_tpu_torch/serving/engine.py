@@ -66,7 +66,7 @@ PORTED_MODES = ("w4a4_2l", "w4a8_2l", "w8a8", "w4a8", "w4a16")
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 5 and Queue 2)"
+        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 1)"
     )
 
 

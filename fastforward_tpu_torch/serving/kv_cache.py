@@ -112,7 +112,7 @@ class LayerKVCache:
         if quantizer is not None and not getattr(quantizer, "is_stub", True):
             raise NotImplementedError(
                 "the simulation tier's KV quantizer is not ported yet (ROADMAP.md, Queue 1 "
-                "item 13)"
+                "item 7)"
             )
         starts = row_starts(positions, k_new.shape[0])
         return self.write(k_new, v_new, starts, starts if k_new.shape[2] == 1 else starts.tolist())

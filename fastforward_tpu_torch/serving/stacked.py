@@ -294,7 +294,7 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     """
     if mode not in PORTED_MODES:
         raise NotImplementedError(
-            f"random_stacked_params mode {mode!r} is not ported yet (ROADMAP.md, Queue 1 item 5)"
+            f"random_stacked_params mode {mode!r} is not ported yet (ROADMAP.md, Queue 1 item 1)"
         )
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)

@@ -22,7 +22,11 @@ concat-pairs split shorter), and so is every route of the int4/int8 dot
 probe; the tiled W4A16 kernel is held as the W4 GEMV (its bias epilogue
 exactly). The A4 GEMV and the argmax head run the tensor-core tile
 (its vertical layout and its argmax epilogue): bit-equal, token ids equal
-to torch.argmax of the f32 logits, ties and NaNs included.
+to torch.argmax of the f32 logits, ties and NaNs included. Every route
+of the stacked W4A8 GEMV runs that tile too (bit-equal at the 8B widths,
+layers 0 and L - 1, each call counted once), and flash decode walks chunks
+of 64 tokens (within rtol 8e-3 at every chunk and page edge, zeros at
+length 0, the paged and per-layer forms giving the slab form's bits).
 """
 
 import pytest
@@ -1319,3 +1323,130 @@ def test_probe_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="K % 64"):
         xs, ws = pr.inputs(pr.Knobs(bm=16, k=96, n=96, panels=1), 1, dev)
         pr.make_probe(False, "mma_s8", 1)(xs, ws)
+
+
+# --- row 9's routes on the int8 tensor-core tile at the 8B widths, and row
+# 3's chunked flash decode at the chunk and page edges
+
+_R9_SHAPES = [(4096, 1024), (4096, 4096), (4096, 6144), (4096, 28672), (14336, 4096)]
+# (launch count, flags, panel width or None for flat weights); 16 pairs at
+# K 4096 (3 does not divide them), 56 at K 14336 (3 does not divide them)
+_R9_ROUTES = [
+    ("w4a8_gemv_stacked", {}, None),
+    ("w4a8_gemv_preblocked", {}, 128),
+    ("w4a8_gemv_preblocked", {}, 512),
+    ("w4a8_gemv_splitw", {"FF_2L_SPLITW": "1"}, None),
+    ("w4a8_gemv_dotraw", {"FF_2L_DOTRAW": "1"}, None),
+    ("w4a8_gemv_dotraw", {"FF_2L_DOTRAW": "1"}, 512),
+    ("w4a8_gemv_concat", {"FF_2L_CONCAT_PAIRS": "2"}, None),
+    ("w4a8_gemv_concat", {"FF_2L_CONCAT_PAIRS": "3"}, 128),
+    ("w4a8_gemv_concat", {"FF_2L_CONCAT_PAIRS": "4"}, 512),
+]
+_R9_CASES = {}
+
+
+def _r9_case(dev, K, N, M):
+    """Two stacked layers at (K, N), g128, their pre-blocked forms, M rows
+    of activations and each layer's plain output (made once a shape)."""
+    key = (K, N, M)
+    if key not in _R9_CASES:
+        _R9_CASES.clear()
+        gen = _gen(dev, K + N + M)
+        x_q, x_s, w, mult, mp, s = _stacked_w4a8(gen, M, K, N, 128, dev, L=2)
+        pre = {bn: mm.preblock_stacked(w, bn) for bn in (128, 512)}
+        refs = [_plain_stacked(x_q, x_s, w, mult, s, layer, 128, torch.bfloat16)
+                for layer in (0, 1)]
+        _R9_CASES[key] = (x_q, x_s, w, pre, mp, s, refs)
+    return _R9_CASES[key]
+
+
+@pytest.mark.parametrize("name,flags,bn", _R9_ROUTES,
+                         ids=[f"{r[0]}-{r[1]}-{r[2]}" for r in _R9_ROUTES])
+@pytest.mark.parametrize("M", _PB_MS)
+@pytest.mark.parametrize("K,N", _R9_SHAPES)
+def test_stacked_gemv_route_on_the_tile_bit_equal(dev, K, N, M, name, flags, bn):
+    x_q, x_s, w, pre, mp, s, refs = _r9_case(dev, K, N, M)
+    wt = w if bn is None else pre[bn]
+    for layer, ref in zip((0, 1), refs):  # layers 0 and L - 1
+        before = _build.launch_counts[name]
+        with _flag_env(**flags):
+            out = mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, wt, mp, s, layer, group_size=128)
+        assert _build.launch_counts[name] == before + 1
+        assert torch.equal(out, ref)
+
+
+_FD_CHUNK = 64  # tokens a chunk of csrc/flash_decode.cu
+
+
+def _decode_case(dev, B, Hkv, G, S, seed, L=2):
+    gen = _gen(dev, seed)
+    k = _ri(gen, -128, 128, (L, B, Hkv, S, 128), torch.int8, dev)
+    v = _ri(gen, -128, 128, (L, B, Hkv, S, 128), torch.int8, dev)
+    ks = torch.rand((L, B, Hkv, S), generator=gen, device=dev) * 0.05
+    vs = torch.rand((L, B, Hkv, S), generator=gen, device=dev) * 0.05
+    q = torch.randn((B, Hkv * G, 128), generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, ks, v, vs
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_flash_decode_chunk_edges(dev, G):
+    # lengths 0 (zeros, as the kernel has always given), 1, a chunk +- 1,
+    # 256 +- 1, the slab and past it; the per-layer form gives the same bits
+    S = 512
+    lengths = torch.tensor([0, 1, _FD_CHUNK - 1, _FD_CHUNK, _FD_CHUNK + 1, 255, 256, 257, S,
+                            S + 40], dtype=torch.int32, device=dev)
+    B, Hkv = lengths.numel(), 2
+    q, k, ks, v, vs = _decode_case(dev, B, Hkv, G, S, seed=70 + G)
+    before = _build.launch_counts["flash_decode"]
+    out = att.flash_decode_int8_stacked(q, k, ks, v, vs, lengths, 1)
+    assert _build.launch_counts["flash_decode"] == before + 1
+    ref = att.flash_decode_int8_reference(q, k[1], ks[1], v[1], vs[1], lengths)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    err = (out[1:].float() - ref[1:].float()).abs().max().item()
+    assert err <= 8e-3 * ref[1:].float().abs().max().item()
+    layer = att._flash_decode(q, k[1:2].contiguous(), ks[1:2].contiguous(), v[1:2].contiguous(),
+                              vs[1:2].contiguous(), lengths, 0, None, "flash_decode_layer")
+    assert torch.equal(out, layer)
+
+
+@pytest.mark.parametrize("page", [32, 64, 96, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_paged_flash_decode_chunk_edges_give_the_slab_bits(dev, page, G):
+    # every chunk and page edge: the paged form within rtol 8e-3 of its
+    # plain version and equal to the slab form's bits over the same tokens
+    # (chunks of 64 need no page that 64 divides)
+    MP, Hkv = 4, 2
+    lens = [0, 1, _FD_CHUNK - 1, _FD_CHUNK, _FD_CHUNK + 1, page - 1, page, page + 1,
+            MP * page, MP * page + 9]
+    B = len(lens)
+    P = B * MP + 1
+    gen = _gen(dev, page + G)
+    k = _ri(gen, -128, 128, (2, P, Hkv, page, 128), torch.int8, dev)
+    v = _ri(gen, -128, 128, (2, P, Hkv, page, 128), torch.int8, dev)
+    ks = torch.rand((2, P, Hkv, page), generator=gen, device=dev) * 0.05
+    vs = torch.rand((2, P, Hkv, page), generator=gen, device=dev) * 0.05
+    table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(page))[:B * MP] + 1)
+    table = table.reshape(B, MP).to(torch.int32).to(dev)
+    table[1, 2:] = -1
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, Hkv * G, 128), generator=gen, device=dev).to(torch.bfloat16)
+    out = pa.paged_flash_decode_int8(q, k, ks, v, vs, table, lengths, 1)
+    ref = pa.paged_flash_decode_reference(q, k[1], ks[1], v[1], vs[1], table, lengths)
+    live = lengths > 0
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    err = (out[live].float() - ref[live].float()).abs().max().item()
+    assert err <= 8e-3 * ref[live].float().abs().max().item()
+
+    def slab(pool):
+        return torch.stack([pa.gather_pages(pool[1], t) for t in table])[None].contiguous()
+    same = att.flash_decode_int8_stacked(q, slab(k), slab(ks), slab(v), slab(vs), lengths, 0)
+    assert torch.equal(out, same)
+
+
+def test_flash_decode_rejects_unaligned_kv(dev):
+    q, k, ks, v, vs = _decode_case(dev, 2, 2, 4, 64, seed=5)
+    lengths = torch.tensor([3, 64], dtype=torch.int32, device=dev)
+    shifted = torch.empty(k.numel() + 8, dtype=torch.int8, device=dev)[8:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="16-byte"):
+        att.flash_decode_int8_stacked(q, shifted, ks, v, vs, lengths, 1)

@@ -182,7 +182,7 @@ def test_simulation_tier_quantizer_is_not_ported():
 
     tl.append(k, k, torch.tensor([2]), quantizer=Stub())  # a stub changes nothing
     assert torch.equal(tl.k[0, 0, 2], k[0, 0, 0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tl.append(k, k, torch.tensor([3]), quantizer=Real())
 
 
