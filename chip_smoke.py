@@ -26,11 +26,12 @@ each raising on failure:
    seven unfused projections of a layer and the four fused ones through
    every stacked route on either layout, and the A4 GEMV on the four fused
    projections at g512 and a g128 and a g32 shape;
-   the tiled W4A16 kernel (off the serving route) at bench.py's w4a16
-   prefill (M = 24,576, the four projections) within W4_GEMV_RTOL and one
-   bf16 ulp, its bias epilogue exact; every route of the int4/int8 dot
-   probe (dp4a, int8, int4 and bf16 mma.sync) bit-equal, its TOP/s and
-   the tensor-core instructions ptxas chose for each route logged;
+   the tiled W4A16 kernel (off the serving route; wgmma, HGMMA in its
+   SASS) at bench.py's w4a16 prefill (M = 24,576, the four projections)
+   within W4_GEMV_RTOL and one bf16 ulp, its bias epilogue exact; every
+   route of the int4/int8 dot probe (dp4a, int8, int4 and bf16 mma.sync)
+   bit-equal, its TOP/s and the tensor-core instructions ptxas chose for
+   each route logged;
    the fused layer tail and the fused o + gate/up head with x1 bit-equal,
    their int8 activations within one level in a stated share of elements
    and their output within rtol 8e-3; the fused layer heads (W4A8, A4) with
@@ -207,8 +208,11 @@ def _profile(fn, n, launches=None, tries=4):
     name)] sorted by time) of ``n`` calls of ``fn`` under torch.profiler.
     With ``launches`` (the kernels one call launches) a profile that
     recorded fewer than ``n * launches`` of them (CUPTI drops records now
-    and then) is refused and taken again, up to ``tries`` times; then
-    RuntimeError."""
+    and then) is refused and taken again, up to ``tries`` times; if every
+    try lost records, each kernel's device time a call is its mean time a
+    recorded launch times its launches a call (its recorded count over
+    ``n``, rounded), provided those add up to ``launches`` (no kernel lost
+    whole); else RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -225,8 +229,14 @@ def _profile(fn, n, launches=None, tries=4):
             rows = [(e.self_device_time_total / n / 1e3, e.count / n, e.key) for e in events]
             return wall_ms, sorted(rows, reverse=True)
         log(f"  profiler recorded {recorded} of {n * launches} launches; profiling again")
-    raise RuntimeError(f"the profiler recorded fewer than {n * launches} launches in {tries} "
-                       f"tries")
+    per_call = [max(1, round(e.count / n)) for e in events]
+    if sum(per_call) != launches:
+        raise RuntimeError(f"the profiler recorded fewer than {n * launches} launches in {tries} "
+                           f"tries, and some kernel too seldom to time it")
+    log("  every profile lost records: each kernel timed by its mean recorded launch")
+    rows = [(e.self_device_time_total / e.count / 1e3 * k, k, e.key)
+            for e, k in zip(events, per_call)]
+    return wall_ms, sorted(rows, reverse=True)
 
 
 def launches_per_call(fn, probes=6):
@@ -742,23 +752,36 @@ def _tiled_w4a16_kernel(dev, gen, randint):
     """The tiled W4A16 kernel (off the serving route) at bench.py's w4a16
     prefill: M = 192 x 128 rows, the four projections, g128, bf16 out;
     held within W4_GEMV_RTOL and one bf16 ulp of its plain version (timed
-    over 2 calls), its bias epilogue exactly (gate/up). Library: the route
-    it would replace, the halves dequant (#15) and torch.matmul."""
+    over 2 calls), its bias epilogue exactly (gate/up); wgmma (HGMMA) in
+    its kernel's SASS, or the phase fails. Library: one torch.matmul on the
+    weight dequantized beforehand as the kernel rounds it, bf16(bf16(v) *
+    bf16(s)); the route it would replace (the halves dequant, #15, then
+    torch.matmul) is logged beside it."""
+    from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import unpack_int4
 
+    _require_sass(_build._lib_path("w4a16_gemm"), "w4a16_wgmma_kernel", "HGMMA")
     g, M = 128, BATCH * PROMPT
     check = functools.partial(w4_close, record=W4A16_TILED_REL_ERR)
-    per = []
+    per, route = [], 0.0
     for pname, (K, N) in PROJ.items():
         w = randint(-128, 128, (K // 2, N))
         s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        w_bf16 = (unpack_int4(w, g).to(torch.bfloat16).reshape(K // g, g, N)
+                  * s.to(torch.bfloat16)[:, None, :]).reshape(K, N)
         per.append(measure(
             "w4a16_gemm", f"{pname} M={M} K={K} N={N} g={g}",
             lambda: mm.matmul_w4a16_tiled(x, w, s, None, g),
             lambda: mm.matmul_w4a16_tiled_reference(x, w, s, None, g),
             M * K * 2 + K * N // 2 + s.numel() * 4 + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S,
-            check, library=lambda: torch.matmul(x, mm.dequantize_int4(w, s, g)), plain_n=2))
+            check, library=lambda: torch.matmul(x, w_bf16), plain_n=2))
+        del w_bf16
+        ms = median_ms(lambda: torch.matmul(x, mm.dequantize_int4(w, s, g)))
+        route += ms
+        log(f"w4a16_gemm {pname}: the route it would replace (dequant_halves + torch.matmul) "
+            f"{ms:.4f} ms")
         if pname == "gate_up":
             bias = torch.randn((N,), generator=gen, device=dev)
             out = mm.matmul_w4a16_tiled(x, w, s, None, g)
@@ -769,9 +792,13 @@ def _tiled_w4a16_kernel(dev, gen, randint):
             del out
         del w, s, x
         torch.cuda.empty_cache()
+    total = add_rows(per)
     log(f"w4a16_gemm: largest error relative to the largest plain output "
-        f"{dict(W4A16_TILED_REL_ERR)} (limit {W4_GEMV_RTOL}, bf16 one ulp more)")
-    return {"w4a16_gemm": add_rows(per)}
+        f"{dict(W4A16_TILED_REL_ERR)} (limit {W4_GEMV_RTOL}, bf16 one ulp more); four "
+        f"projections: kernel {total['ms']:.4f} ms, device {fmt_ms(total['device_ms'])}, one "
+        f"torch.matmul on the pre-dequantized weight {total['library_ms']:.4f} ms, the dequant + "
+        f"torch.matmul route {route:.4f} ms")
+    return {"w4a16_gemm": total}
 
 
 def _sass_mma(lib_path):
@@ -791,10 +818,22 @@ def _sass_mma(lib_path):
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"\b([IH]MMA\.[\w.]+)", line)
+        m = re.search(r"\b([IH]G?MMA\.[\w.]+)", line)
         if m and name is not None:
             found.setdefault(name, collections.Counter())[m.group(1)] += 1
     return found
+
+
+def _require_sass(lib_path, kernel, inst):
+    """Fail unless every function of the library whose name holds
+    ``kernel`` issues tensor-core instructions starting ``inst`` (HGMMA:
+    bf16 wgmma, IMMA: int8 mma.sync); log what each issues."""
+    found = {fn: c for fn, c in _sass_mma(lib_path).items() if kernel in fn}
+    for fn, counts in found.items():
+        log(f"SASS of {fn[:90]}: tensor-core instructions {dict(counts)}")
+    if not found or not all(any(k.startswith(inst) for k in c) for c in found.values()):
+        raise AssertionError(f"{kernel} in {lib_path}: no {inst} in the SASS of every instance "
+                             f"({len(found)} found)")
 
 
 def _probe_kernels(dev):
@@ -1163,6 +1202,14 @@ def _layer_kernels(dev, gen, randint):
     return rows
 
 
+def _kernel_name(key):
+    """The kernel's name and template arguments in a profiler key."""
+    import re
+
+    m = re.search(r"\w+_kernel(<[^>]*>)?", key)
+    return m.group(0) if m else key[:40]
+
+
 def _level_check(diffs, name, a, b):
     """Int8 (or int4) activations ``a`` of a kernel against ``b`` of its
     plain version: within one level in at most TAIL_LEVEL_SHARE of the
@@ -1175,17 +1222,22 @@ def _level_check(diffs, name, a, b):
 def _fused_route_kernels(dev, gen, randint):
     """The kernels of the flag-gated fused decode routes at the 8B widths,
     M = 192 (the JSON rows, bench.py's decode), 64 and 8, layer 1 of 2: the
-    fused W4A8 layer head (g128) and A4 layer head (g512), K = 4096, N =
-    6144; the fused o + gate/up head of the tail, K1 = H = 4096, gate/up
+    fused W4A8 layer head (g128) and A4 layer head (g512; its product the
+    int8 tensor-core tile, IMMA in its SASS or the phase fails), K = 4096,
+    N = 6144; the fused o + gate/up head of the tail, K1 = H = 4096, gate/up
     2 x 14336, g128. Held to the fused tail's policy (x1 bit-equal, the
     activations one level off in at most TAIL_LEVEL_SHARE of the elements,
     the outputs within rtol 8e-3); whether the heads' activations and
     outputs came out bit-equal is logged. Library: for the heads, one
     `torch.matmul` of the dequantized activations and weight (the product
     alone); none for o + gate/up (two products)."""
+    from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles, unpack_mult_nibbles
 
+    # the A4 head's product is the tensor-core tile (vertical layout: the
+    # template's first argument 0)
+    _require_sass(_build._lib_path("fused_head"), "w4a8_mma_kernelILi0E", "IMMA")
     L, eps = 2, 1e-5
     K, N = PROJ["qkv"]
     rows = {}
@@ -1229,6 +1281,10 @@ def _fused_route_kernels(dev, gen, randint):
                 f"{'bit-equal' if exact['bit-equal'] else 'not bit-equal'} to the plain version; "
                 f"int{4 if a4 else 8} elements one level off: {diffs['hq'][0]} of {diffs['hq'][1]}; "
                 "library: torch.matmul of the dequantized operands (the product alone)")
+            parts = _profile(lambda x=x: mm._fused_head_launch(a4, x, norm, w, mp, s_col, 1, g, eps,
+                                                               torch.bfloat16), 20)[1]
+            log(f"{name} M={M}, device ms a call by kernel: "
+                + "; ".join(f"{_kernel_name(k)} {ms:.4f} (x{n:.0f})" for ms, n, k in parts))
             if M == BATCH:
                 rows[name] = r
         del w, mult, mp, w_bf16
@@ -1524,8 +1580,8 @@ def _serve(path, ids, steps, dev):
 PORT_KERNELS = ("gemv_partial_kernel", "gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
                 "flash_prefill_kernel", "fused_tail_kernel", "w8a8_kernel",
-                "w4a8_halves_kernel", "w4_gemv_kernel", "norm_quant_kernel",
-                "w4a8_mma_kernel", "stage_x_kernel")
+                "w4a8_halves_kernel", "w4::tile_kernel", "w4a16_wgmma_kernel",
+                "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel")
 
 
 def _report_profile(what, wall_ms, rows, top=10):
@@ -2108,7 +2164,7 @@ SOURCES = {
                          "fastforward_tpu/kernels/matmul.py:949 (picked at :1205-1208)"),
     "w4a8_gemv_concat": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                          "fastforward_tpu/kernels/matmul.py:780 (entered at :834-842)"),
-    "w4a16_gemm": ("fastforward_tpu_torch/csrc/w4a16_gemm.cu",
+    "w4a16_gemm": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
                    "fastforward_tpu/kernels/matmul.py:1813 (pallas_call :1866)"),
     **{name: ("fastforward_tpu_torch/csrc/probe_int4.cu",
               "scripts/tpu_probe_int4.py:67 (kernel :44)")
@@ -2154,7 +2210,8 @@ def main():
         runs = timed("serve", phase_serve, dev)
         runs["engine"] = timed("engine", phase_engine, dev)
         runs["j"] = timed("loader", phase_loader, dev)
-    log(f"total {time.perf_counter() - t_all:.1f} s")
+    log(f"total {time.perf_counter() - t_all:.1f} s; work after the build "
+        f"{sum(v for k, v in phases.items() if k != 'build'):.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
@@ -2171,7 +2228,7 @@ def main():
             library_ms=r["library_ms"],
         ))
     if out_dir is not None:
-        _LOG["file"].write(json.dumps({"kernels": kernels, "runs": runs}) + "\n")
+        _LOG["file"].write(json.dumps({"kernels": kernels, "runs": runs, "phases": phases}) + "\n")
         _LOG["file"].close()
     print(card)
     print(json.dumps({"kernels": kernels}))

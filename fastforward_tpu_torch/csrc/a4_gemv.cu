@@ -20,9 +20,8 @@
 // TMA box, the packed multipliers by bulk copy. Each weight word is
 // flipped to offset binary (one XOR) and folded with its multiplier into
 // int8 bytes m * v; the activations are staged once a call in fragment
-// order, the two planes de-interleaved from x's alternate k. The tile
-// replaces common.cuh's dp4a tile (gemv_tile), which stays for the fused
-// A4 layer head (fused_head.cu).
+// order, the two planes de-interleaved from x's alternate k. The fused A4
+// layer head (fused_head.cu) runs the same tile after its prologue.
 
 #include "w4a8_mma.cuh"
 

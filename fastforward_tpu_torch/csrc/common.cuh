@@ -1,33 +1,32 @@
 // Shared device code of the port's two-level int4 GEMVs (a4_gemv.cu,
-// w4a8_gemv.cu, fused_tail.cu, fused_head.cu): the dp4a split-K
-// partial-sum tile and kernel, the layouts, and the epilogue, whose
+// w4a8_gemv.cu, fused_tail.cu, fused_head.cu): the weight layouts, the
+// dp4a split-K partial-sum tile and kernel, and the epilogue, whose
 // compile-time ARGMAX flag turns the logits into token ids. (The two-level
 // W4A8 GEMV of both layouts, every route of the stacked one, the argmax
-// head and the A4 GEMV run w4a8_mma.cuh's int8 tensor-core tile; they share
-// the layouts, the mbarrier helpers, the epilogue and the argmax
-// reduction. The dp4a tile serves the fused tail and the fused layer
-// heads.)
+// head, the A4 GEMV and the fused A4 layer head run w4a8_mma.cuh's int8
+// tensor-core tile; they share the layouts, the mbarrier helpers, the
+// epilogue and the argmax reduction. The dp4a tile serves the paired
+// layout of the fused tail and the fused W4A8 layer head.)
 //
-// Both GEMVs compute, per output column n and row m,
+// The GEMVs compute, per output column n and row m,
 //   acc[m, n] = sum_g m_g[n] * sum_{k in g} x[m, k] * v[k, n]      (int32)
 //   y[m, n]   = (float(acc) * s_col[n]) * x_scale[m]
-// with v in [-8, 7] stored as nibbles and m_g in [1, 15]. They differ only
-// in where the two nibbles of a weight byte sit along K (the LAYOUT
-// template argument: vertical or adjacent-group pairs); the multipliers
-// come nibble-packed, 8 a word. A layer's packed weights lie flat
-// (K/2, N), or (w4a8_mma.cuh only) pre-blocked into contiguous panels
+// with v in [-8, 7] stored as nibbles and m_g in [1, 15]. The layouts
+// differ only in where the two nibbles of a weight byte sit along K; the
+// multipliers come nibble-packed, 8 a word. A layer's packed weights lie
+// flat (K/2, N), or (w4a8_mma.cuh only) pre-blocked into contiguous panels
 // (N/bn, K/2, bn).
 //
-// Work split. A block owns 128 columns (32 lanes x 4 adjacent columns,
-// one 4-byte load per lane per byte row, 128 contiguous bytes per warp) and
-// 8 activation rows, over one K split of whole "units" (an adjacent-group
-// pair for the paired layout, a group for the vertical one). Its 8
-// warps take interleaved quads of 4 byte rows. A lane transposes the 4x4
-// bytes it loaded so each 32-bit word holds one column's 4 consecutive
-// rows, splits the nibble planes with two masks, multiplies each plane by
-// the column's group multiplier (u*m <= 225 fits a byte: no carry) and
-// feeds dp4a dot products against the staged activations. Nibbles
-// are used offset-binary (u = v + 8), so each group contributes
+// Work split of the dp4a tile (paired layout). A block owns 128 columns
+// (32 lanes x 4 adjacent columns, one 4-byte load per lane per byte row,
+// 128 contiguous bytes per warp) and 8 activation rows, over one K split
+// of whole units (adjacent-group pairs). Its 8 warps take interleaved
+// quads of 4 byte rows. A lane transposes the 4x4 bytes it loaded so each
+// 32-bit word holds one column's 4 consecutive rows, splits the nibble
+// planes with two masks, multiplies each plane by the column's group
+// multiplier (u*m <= 225 fits a byte: no carry) and feeds dp4a dot
+// products against the staged activations. Nibbles are used offset-binary
+// (u = v + 8), so each group contributes
 //   m * (sum x*u) - 8 * m * (sum x),
 // the second term from per-group activation sums computed once per block.
 // Warps are summed in shared memory; splits write int32 partials that the
@@ -105,22 +104,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
-// The group multipliers of unit `unit` (a pair, or a group of the
-// vertical layout) for the 4 columns n0.. from the nibble-packed (n_pack,
-// N) int32, 8 nibbles a word: ma for the low nibble plane, mb for the high
-// one.
-template <int LAYOUT>
+// The group multipliers of pair `unit` for the 4 columns n0.. from the
+// nibble-packed (n_pack, N) int32, 8 nibbles a word: ma for the low nibble
+// plane (group 2u), mb for the high one (group 2u + 1, the adjacent nibble
+// of the same word: 2u % 8 is even).
 __device__ __forceinline__ void unit_mult(const void* __restrict__ mult, int N, int n0, int unit,
                                           unsigned ma[4], unsigned mb[4]) {
-  // paired: groups 2u and 2u + 1, adjacent nibbles of one word (2u % 8 is
-  // even); vertical: the unit is group `unit`
-  const int g0 = LAYOUT == kPaired ? 2 * unit : unit;
+  const int g0 = 2 * unit;
   const int32_t* mp = static_cast<const int32_t*>(mult) + (size_t)(g0 / 8) * N + n0;
   const int sh = 4 * (g0 % 8);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     ma[c] = (static_cast<unsigned>(mp[c]) >> sh) & 0xFu;
-    mb[c] = LAYOUT == kPaired ? (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu : ma[c];
+    mb[c] = (static_cast<unsigned>(mp[c]) >> (sh + 4)) & 0xFu;
   }
 }
 
@@ -128,7 +124,6 @@ __device__ __forceinline__ void unit_mult(const void* __restrict__ mult, int N, 
 // lr, transposed so a word holds one column's 4 rows, split into nibble
 // planes, each plane times its multiplier, and dotted (dp4a) against the
 // staged activations of the kBM rows.
-template <int LAYOUT>
 __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, const int8_t* xb,
                                          int KR, int lr, const unsigned ma[4],
                                          const unsigned mb[4], int (&acc)[kBM][4]) {
@@ -137,13 +132,8 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
   unsigned pa[4], pb[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    unsigned lo = col[c] & 0x0F0F0F0Fu, hi = (col[c] >> 4) & 0x0F0F0F0Fu;
-    if (LAYOUT == kVertical) {  // two's complement -> offset binary
-      lo ^= 0x08080808u;
-      hi ^= 0x08080808u;
-    }
-    pa[c] = lo * ma[c];
-    pb[c] = hi * mb[c];
+    pa[c] = (col[c] & 0x0F0F0F0Fu) * ma[c];
+    pb[c] = ((col[c] >> 4) & 0x0F0F0F0Fu) * mb[c];
   }
 #pragma unroll
   for (int m = 0; m < kBM; ++m) {
@@ -168,15 +158,13 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
 // gemv_partial_kernel runs one tile per block on the grid
 // (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
 // block of a persistent grid.
-// rows_per_unit: byte rows of one unit (group paired, else group/2).
-template <int LAYOUT>
+// A unit (a group pair) holds `group` byte rows.
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const void* __restrict__ mult, int32_t* __restrict__ partial,
           int M, int K, int N, int group, int units_per_split, int n_units,
           int m_tile, int n_tile, int split, unsigned char* smem) {
-  static_assert(LAYOUT != kHalves, "the group-halves layout runs w4a8_mma.cuh's tile");
-  const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
+  const int rows_per_unit = group;
   const int u0 = split * units_per_split;
   const int n_u = min(units_per_split, n_units - u0);
   const int row0 = u0 * rows_per_unit;  // first byte row of this split
@@ -198,20 +186,11 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     unsigned a = 0, b = 0;
     if (m0 + m < M) {
       const int8_t* xr = x + (size_t)(m0 + m) * K;
-      if (LAYOUT == kVertical) {
-        // byte row r holds k = 2r (low) and 2r + 1 (high)
-        const int k = 2 * (row0 + 4 * q);
-        const unsigned lo = *reinterpret_cast<const unsigned*>(xr + k);
-        const unsigned hi = *reinterpret_cast<const unsigned*>(xr + k + 4);
-        a = __byte_perm(lo, hi, 0x6420);
-        b = __byte_perm(lo, hi, 0x7531);
-      } else {
-        // byte row i of pair p holds k = 2pg + i (low) and (2p+1)g + i (high)
-        const int r = row0 + 4 * q;
-        const int p = r / group, i_in = r % group;
-        a = *reinterpret_cast<const unsigned*>(xr + 2 * p * group + i_in);
-        b = *reinterpret_cast<const unsigned*>(xr + (2 * p + 1) * group + i_in);
-      }
+      // byte row i of pair p holds k = 2pg + i (low) and (2p+1)g + i (high)
+      const int r = row0 + 4 * q;
+      const int p = r / group, i_in = r % group;
+      a = *reinterpret_cast<const unsigned*>(xr + 2 * p * group + i_in);
+      b = *reinterpret_cast<const unsigned*>(xr + (2 * p + 1) * group + i_in);
     }
     reinterpret_cast<unsigned*>(xa + m * KR)[q] = a;
     reinterpret_cast<unsigned*>(xb + m * KR)[q] = b;
@@ -251,7 +230,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int u = 0; u < n_u; ++u) {
     if (!live) continue;
     unsigned ma[4], mb[4];
-    unit_mult<LAYOUT>(mult, N, n0, u0 + u, ma, mb);
+    unit_mult(mult, N, n0, u0 + u, ma, mb);
     if (warp == 0) {
       // the offset-binary correction of unit u, once per block
 #pragma unroll
@@ -271,7 +250,7 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         r[i] = __ldg(reinterpret_cast<const unsigned*>(wp + (size_t)i * N));
-      quad_dot<LAYOUT>(r, xa, xb, KR, lr, ma, mb, acc);
+      quad_dot(r, xa, xb, KR, lr, ma, mb, acc);
     }
   }
 
@@ -292,14 +271,13 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
 gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const void* __restrict__ mult, int32_t* __restrict__ partial,
                     int M, int K, int N, int group, int units_per_split, int n_units) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gemv_tile<LAYOUT>(x, w, mult, partial, M, K, N, group, units_per_split, n_units, blockIdx.x,
-                    blockIdx.y, blockIdx.z, smem);
+  gemv_tile(x, w, mult, partial, M, K, N, group, units_per_split, n_units, blockIdx.x, blockIdx.y,
+            blockIdx.z, smem);
 }
 
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
@@ -307,20 +285,18 @@ inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
          (size_t)kWarps * kBM * kBN * 4;
 }
 
-template <int LAYOUT>
-cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
-                                int32_t* partial, int M, int K, int N, int group,
-                                int n_split, cudaStream_t stream) {
-  const int rows_per_unit = LAYOUT == kPaired ? group : group / 2;
-  const int n_units = LAYOUT == kPaired ? K / (2 * group) : K / group;
+inline cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
+                                       int32_t* partial, int M, int K, int N, int group,
+                                       int n_split, cudaStream_t stream) {
+  const int n_units = K / (2 * group);
   const int ups = (n_units + n_split - 1) / n_split;
-  const size_t smem = gemv_smem_bytes(ups * rows_per_unit, ups);
-  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel<LAYOUT>,
+  const size_t smem = gemv_smem_bytes(ups * group, ups);
+  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
-  gemv_partial_kernel<LAYOUT><<<grid, kThreads, smem, stream>>>(x, w, mult, partial, M, K, N,
-                                                                group, ups, n_units);
+  gemv_partial_kernel<<<grid, kThreads, smem, stream>>>(x, w, mult, partial, M, K, N, group, ups,
+                                                        n_units);
   return cudaGetLastError();
 }
 

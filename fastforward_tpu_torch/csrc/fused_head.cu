@@ -25,10 +25,15 @@
 // On Hopper the GEMV's blocks run in no order, so the prologue runs first,
 // as its own small kernel (one block per row: the row's sum of squares,
 // the amax, then hq and s written to a scratch the wrapper allocates, 4 KB
-// a row), and the product is common.cuh's split-K GEMV tile (the kPaired
-// layout for W4A8, kVertical for A4) and its epilogue, unchanged. The
-// norm's inputs stay out of any PyTorch op: no bf16 rounding of h and no
-// round trip through the framework between the two.
+// a row). The A4 head's product is then row 1's GEMV exactly
+// (a4_gemv.cu): w4a8_mma.cuh's int8 tensor-core tile on the vertical
+// layout, its activations staged in fragment order from hq, its split-K
+// partials (planned by kernels/matmul.py mma_plan) and its epilogue. The
+// W4A8 head's product is common.cuh's dp4a split-K GEMV tile (paired
+// layout) and its epilogue. The norm's inputs stay out of any PyTorch op:
+// no bf16 rounding of h and no round trip through the framework between
+// the two. Both products compute the same int32 sums (exact in any order)
+// and the same epilogue (float(acc) * s_col) * s.
 //
 // Numerics, bit-exact against the plain version: the squares are summed in
 // the order XLA's CPU compiler uses for a row reduction (windows of 32 in
@@ -38,7 +43,7 @@
 // the correctly rounded __frsqrt_rn, every other step an IEEE
 // round-to-nearest operation; amax is exact in any order.
 
-#include "common.cuh"
+#include "w4a8_mma.cuh"  // (with common.cuh)
 
 namespace {
 
@@ -117,12 +122,10 @@ norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(sh[k], s)), qmin), qmax)));
 }
 
+// The prologue: hq (M, K) and hs (M,) from x and layer `layer`'s norm.
 template <bool A4>
-int fused_head(const void* x, const void* norm_w, const void* w, const void* mult_packed,
-               const void* s_col, void* hq, void* hs, void* partial, void* out, int M, int K,
-               int N, int layer, int group, int n_pack, int n_split, float inv_k, float eps,
-               int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+cudaError_t norm_quant(const void* x, const void* norm_w, void* hq, void* hs, int M, int K,
+                       int layer, float inv_k, float eps, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)K + (K + 31) / 32);
   cudaError_t err = cudaFuncSetAttribute(norm_quant_kernel<A4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -131,22 +134,7 @@ int fused_head(const void* x, const void* norm_w, const void* w, const void* mul
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * K, static_cast<int8_t*>(hq),
       static_cast<float*>(hs), K, inv_k, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
-  const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
-  const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
-  int32_t* p = static_cast<int32_t*>(partial);
-  const int8_t* q = static_cast<const int8_t*>(hq);
-  err = A4 ? ff::launch_gemv_partial<ff::kVertical>(q, wl, ml, p, M, K, N, group, n_split, st)
-           : ff::launch_gemv_partial<ff::kPaired>(q, wl, ml, p, M, K, N, group, n_split, st);
-  if (err != cudaSuccess) return err;
-  const float* s = static_cast<const float*>(hs);
-  if (out_bf16)
-    return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
-        p, n_split, M, N, sl, s, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
-  return ff::launch_gemv_epilogue<float, false>(p, n_split, M, N, sl, s,
-                                                static_cast<float*>(out), nullptr, nullptr, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -160,15 +148,43 @@ extern "C" int ff_fused_norm_qkv(const void* x, const void* norm_w, const void* 
                                  void* partial, void* out, int M, int K, int N, int layer,
                                  int group, int n_pack, int n_split, float inv_k, float eps,
                                  int out_bf16, void* stream) {
-  return fused_head<false>(x, norm_w, w, mult_packed, s_col, hq, hs, partial, out, M, K, N, layer,
-                           group, n_pack, n_split, inv_k, eps, out_bf16, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = norm_quant<false>(x, norm_w, hq, hs, M, K, layer, inv_k, eps, st);
+  if (err != cudaSuccess) return err;
+  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
+  const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
+  const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
+  int32_t* p = static_cast<int32_t*>(partial);
+  err = ff::launch_gemv_partial(static_cast<const int8_t*>(hq), wl, ml, p, M, K, N, group,
+                                n_split, st);
+  if (err != cudaSuccess) return err;
+  const float* s = static_cast<const float*>(hs);
+  if (out_bf16)
+    return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
+        p, n_split, M, N, sl, s, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
+  return ff::launch_gemv_epilogue<float, false>(p, n_split, M, N, sl, s,
+                                                static_cast<float*>(out), nullptr, nullptr, st);
 }
 
+// As ff_fused_norm_qkv on the vertical layout, the product on the int8
+// tensor-core tile: xf the staged activations (mma_plan's x_bytes), partial
+// (n_split, M, N) int32 or NULL for one split, depth the ring's stages.
 extern "C" int ff_fused_norm_qkv_a4(const void* x, const void* norm_w, const void* w,
                                     const void* mult_packed, const void* s_col, void* hq,
-                                    void* hs, void* partial, void* out, int M, int K, int N,
-                                    int layer, int group, int n_pack, int n_split, float inv_k,
-                                    float eps, int out_bf16, void* stream) {
-  return fused_head<true>(x, norm_w, w, mult_packed, s_col, hq, hs, partial, out, M, K, N, layer,
-                          group, n_pack, n_split, inv_k, eps, out_bf16, stream);
+                                    void* hs, void* xf, void* partial, void* out, int M, int K,
+                                    int N, int layer, int group, int n_pack, int n_split,
+                                    int depth, float inv_k, float eps, int out_bf16,
+                                    void* stream) {
+  if (group < 8 || group % 8 != 0 || K % group != 0 || n_pack * 8 < K / group)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = norm_quant<true>(x, norm_w, hq, hs, M, K, layer, inv_k, eps, st);
+  if (err != cudaSuccess) return err;
+  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
+  const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
+  const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
+  return ff::mma8::launch<ff::kVertical, true>(
+      static_cast<const int8_t*>(hq), static_cast<const float*>(hs), wl, ml, sl,
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_bf16, M, K, N, group,
+      n_split, 0, depth, st);
 }

@@ -106,8 +106,8 @@ __device__ void gemv_phase(const int8_t* x, const int8_t* w, const int32_t* mult
   const int items = m_tiles * n_split * n_tiles;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int m_tile = it % m_tiles, rest = it / m_tiles;
-    ff::gemv_tile<ff::kPaired>(x, w, mult, partial, M, K, N, group, ups, n_units,
-                               m_tile, rest / n_split, rest % n_split, smem);
+    ff::gemv_tile(x, w, mult, partial, M, K, N, group, ups, n_units, m_tile, rest / n_split,
+                  rest % n_split, smem);
   }
 }
 

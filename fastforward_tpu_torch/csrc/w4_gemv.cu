@@ -17,9 +17,8 @@
 // (0.085 ms at 989 TFLOP/s): operations. (An FMA loop on the CUDA cores at
 // 67 TFLOP/s would take ~1.3 ms a layer.)
 //
-// Design: w4_tile.cuh's tile at one warp row, a block of 64 rows x 128
-// columns (4 warps of 64 x 32), the scale unrounded, no bias. Every weight
-// is dequantized once per 64-row tile.
+// Design: w4_tile.cuh's tile, a block of 64 rows x 128 columns (4 warps of
+// 64 x 32). Every weight is dequantized once per 64-row tile.
 
 #include "w4_tile.cuh"
 
@@ -29,7 +28,6 @@ extern "C" int ff_w4_gemv(const void* x, const void* w, const void* w_scale, voi
                           int K, int N, int group, int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return ff::w4::launch_tile<1, false, __nv_bfloat16>(x, w, w_scale, nullptr, out, M, K, N,
-                                                        group, st);
-  return ff::w4::launch_tile<1, false, float>(x, w, w_scale, nullptr, out, M, K, N, group, st);
+    return ff::w4::launch_tile<__nv_bfloat16>(x, w, w_scale, out, M, K, N, group, st);
+  return ff::w4::launch_tile<float>(x, w, w_scale, out, M, K, N, group, st);
 }

@@ -1,26 +1,21 @@
-// The bf16 tensor-core tile of the port's weight-only int4 products
-// (w4_gemv.cu, w4a16_gemm.cu): bf16 activations against packed int4
-// weights dequantized in registers.
+// The bf16 tensor-core tile of the port's W4 GEMV (w4_gemv.cu): bf16
+// activations against packed int4 weights dequantized in registers.
 //
-//   w[k, n] = bf16(float(v[k, n]) * s'[k / g, n])      (one rounding)
+//   w[k, n] = bf16(float(v[k, n]) * s[k / g, n])       (one rounding)
 //   y[m, n] = sum_k x[m, k] * w[k, n]                  (f32 accumulation)
 // x (M, K) bf16, w (K/2, N) in pack_int4's group halves (byte row i of
 // group p: k = pg + i low nibble, pg + g/2 + i high, two's complement), s
-// (K/g, N) f32; s' = s, or bf16(s) when ROUND_SCALE (then w = bf16(bf16(v)
-// * bf16(s)): the product of the int4 value and the bf16 scale is exact in
-// f32, so this rounds as the TPU body's bf16 multiply). y (M, N) f32 or
-// bf16, rounded once; with a bias, y = round(float(round(acc)) + bias[n])
-// (the f32 add on the rounded output, matmul.py:1886-1887).
+// (K/g, N) f32. y (M, N) f32 or bf16, rounded once.
 //
-// A block owns 64 * WARPS_M rows x 128 columns: 4 * WARPS_M warps, each 64
-// rows x 32 columns, and walks K one group at a time, the group's
-// activations, packed rows and scales staged by cp.async, two groups in
-// flight. A lane dequantizes the weights of its own B fragments straight
-// from the packed bytes in shared memory: one 4-byte word of a byte row
-// holds its 4 columns (mma.cuh's column permutation), a pair of rows gives
-// the bf16 pair of a B register, and the low nibbles of a row feed the
-// k-step at k < g/2, its high nibbles the one at k >= g/2. Every weight is
-// dequantized once per warp row of the block (WARPS_M times a block).
+// A block owns 64 rows x 128 columns: 4 warps, each 64 rows x 32 columns,
+// and walks K one group at a time, the group's activations, packed rows
+// and scales staged by cp.async, two groups in flight. A lane dequantizes
+// the weights of its own B fragments straight from the packed bytes in
+// shared memory: one 4-byte word of a byte row holds its 4 columns
+// (mma.cuh's column permutation), a pair of rows gives the bf16 pair of a
+// B register, and the low nibbles of a row feed the k-step at k < g/2, its
+// high nibbles the one at k >= g/2. Every weight is dequantized once per
+// 64-row tile.
 
 #pragma once
 
@@ -31,10 +26,10 @@ namespace w4 {
 
 constexpr int kBN = 128;
 
-template <int GROUP, int WARPS_M>
+template <int GROUP>
 struct Smem {
-  static constexpr int kBM = 64 * WARPS_M;
-  static constexpr int kThreads = 128 * WARPS_M;
+  static constexpr int kBM = 64;
+  static constexpr int kThreads = 128;
   static constexpr int kPA = GROUP + 8;   // bf16 elements: conflict-free A fragments
   static constexpr int kPB = kBN + 16;    // bytes
   static constexpr int kA = kBM * kPA * 2, kB = GROUP / 2 * kPB, kS = kBN * 4;
@@ -49,22 +44,12 @@ __device__ __forceinline__ float nib_hi(unsigned word, int j) {
   return static_cast<float>(static_cast<int>(static_cast<int8_t>(word >> (8 * j))) >> 4);
 }
 
-// The output type's rounding of an f32 value, as an f32.
-template <typename OutT>
-__device__ __forceinline__ float round_out(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_out<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Grid: (ceil(M / (64 WARPS_M)), ceil(N / 128)); dynamic shared memory 2
-// stages. bias: (N,) f32 or null.
-template <int GROUP, typename OutT, int WARPS_M, bool ROUND_SCALE>
-__global__ void __launch_bounds__(128 * WARPS_M)
+// Grid: (ceil(M / 64), ceil(N / 128)); dynamic shared memory 2 stages.
+template <int GROUP, typename OutT>
+__global__ void __launch_bounds__(128)
 tile_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-            const float* __restrict__ s, const float* __restrict__ bias, OutT* __restrict__ out,
-            int M, int K, int N, bool vec16) {
-  using L = Smem<GROUP, WARPS_M>;
+            const float* __restrict__ s, OutT* __restrict__ out, int M, int K, int N, bool vec16) {
+  using L = Smem<GROUP>;
   constexpr int kHalf = GROUP / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   auto sa = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(smem + st * L::kStage); };
@@ -75,7 +60,7 @@ tile_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 
   const int m0 = blockIdx.x * L::kBM, n0 = blockIdx.y * kBN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // the warp's 64 rows and 32 columns
+  const int wn = warp;  // the warp's 32 columns (every row of the tile)
   const int gid = lane / 4, tid = lane % 4;
   const int n_groups = K / GROUP;
 
@@ -127,14 +112,10 @@ tile_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
       ff::cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* ta = sa(st) + wm * 64 * L::kPA;
+    const __nv_bfloat16* ta = sa(st);
     const int8_t* tb = sb(st) + wn * 32 + 4 * gid;
     const float4 s4 = *reinterpret_cast<const float4*>(ss(st) + wn * 32 + 4 * gid);
-    float sc[4] = {s4.x, s4.y, s4.z, s4.w};
-    if constexpr (ROUND_SCALE) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[j] = round_out<__nv_bfloat16>(sc[j]);
-    }
+    const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
     // byte rows 16rs..16rs+15: low nibbles are the k-step at k = 16rs, high
     // nibbles the one at k = g/2 + 16rs. B register 0 of a step holds k =
     // 2tid, 2tid + 1, register 1 k = 8 + 2tid, 9 + 2tid.
@@ -172,48 +153,41 @@ tile_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   const int nb = n0 + wn * 32 + 8 * tid;
-  float bv[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) bv[c] = bias != nullptr && nb + c < N ? bias[nb + c] : 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 64 + i * 16 + gid + 8 * h;
+      const int m = m0 + i * 16 + gid + 8 * h;
       if (m >= M) continue;
       float v[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        v[c] = acc[i][c % 4][2 * h + c / 4];
-        if (bias != nullptr) v[c] = round_out<OutT>(v[c]) + bv[c];
-      }
+      for (int c = 0; c < 8; ++c) v[c] = acc[i][c % 4][2 * h + c / 4];
       ff::store8(out + (size_t)m * N, nb, N, v);
     }
   }
 }
 
 // Launch the tile on a (M, K) x (K/2, N) product; group 32, 64 or 128.
-template <int WARPS_M, bool ROUND_SCALE, typename OutT>
-int launch_tile(const void* x, const void* w, const void* s, const void* bias, void* out, int M,
-                int K, int N, int group, cudaStream_t st) {
+template <typename OutT>
+int launch_tile(const void* x, const void* w, const void* s, void* out, int M, int K, int N,
+                int group, cudaStream_t st) {
   auto run = [&](auto kernel, int bytes) -> int {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid((M + 64 * WARPS_M - 1) / (64 * WARPS_M), (N + kBN - 1) / kBN);
-    kernel<<<grid, 128 * WARPS_M, bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(s), static_cast<const float*>(bias), static_cast<OutT*>(out), M,
-        K, N, N % 16 == 0);
+    const dim3 grid((M + 63) / 64, (N + kBN - 1) / kBN);
+    kernel<<<grid, 128, bytes, st>>>(static_cast<const __nv_bfloat16*>(x),
+                                     static_cast<const int8_t*>(w), static_cast<const float*>(s),
+                                     static_cast<OutT*>(out), M, K, N, N % 16 == 0);
     return cudaGetLastError();
   };
   switch (group) {
     case 32:
-      return run(tile_kernel<32, OutT, WARPS_M, ROUND_SCALE>, 2 * Smem<32, WARPS_M>::kStage);
+      return run(tile_kernel<32, OutT>, 2 * Smem<32>::kStage);
     case 64:
-      return run(tile_kernel<64, OutT, WARPS_M, ROUND_SCALE>, 2 * Smem<64, WARPS_M>::kStage);
+      return run(tile_kernel<64, OutT>, 2 * Smem<64>::kStage);
     case 128:
-      return run(tile_kernel<128, OutT, WARPS_M, ROUND_SCALE>, 2 * Smem<128, WARPS_M>::kStage);
+      return run(tile_kernel<128, OutT>, 2 * Smem<128>::kStage);
     default:
       return cudaErrorInvalidValue;
   }

@@ -17,25 +17,26 @@
 // Bound on the H100 at bench.py's w4a16 prefill (M = 24,576 rows, a
 // Llama-3-8B layer's four fused projections, g128): 2 M K N = 1.07e13 bf16
 // operations (10.8 ms at 989 TFLOP/s) against 3.5 GB of activations,
-// weights and bf16 outputs (1.06 ms at 3.35 TB/s): operations.
+// weights and bf16 outputs (1.06 ms at 3.35 TB/s): operations. Only wgmma
+// reaches the card's full bf16 rate.
 //
-// Design: w4_tile.cuh's tile at two warp rows, a block of 128 rows x 128
-// columns (8 warps of 64 x 32), the scale rounded to bf16 before the
-// multiply, the bias in the epilogue. Each weight is dequantized twice a
-// 128-row block, in registers, and never written as bf16 to device memory
-// (the route it would replace writes the whole bf16 weight, then reads it
-// in cuBLAS).
+// Design: w4_wgmma.cuh. A TMA ring fed by one producer warp, the weights
+// dequantized once a 128 x 128 block in bf16x2 straight into the register
+// A fragments of two consumer warpgroups, wgmma.m64n128k16 against x in
+// shared memory (the transposed product), the bias in the epilogue. No
+// bf16 weight is written anywhere (the route it would replace writes the
+// whole bf16 weight to device memory, then reads it in cuBLAS).
 
-#include "w4_tile.cuh"
+#include "w4_wgmma.cuh"
 
-// x (M, K) bf16, w (K/2, N) pack_int4, w_scale (K/g, N) f32, bias (N,) f32
-// or null, out (M, N) f32 or bf16; group 32, 64 or 128.
+// x (M, K) bf16 (16-byte aligned), w (K/2, N) pack_int4, w_scale (K/g, N)
+// f32 (16-byte aligned), bias (N,) f32 or null, out (M, N) f32 or bf16;
+// group 32, 64 or 128.
 extern "C" int ff_w4a16_gemm(const void* x, const void* w, const void* w_scale, const void* bias,
                              void* out, int M, int K, int N, int group, int out_bf16,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return ff::w4::launch_tile<2, true, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, group,
-                                                       st);
-  return ff::w4::launch_tile<2, true, float>(x, w, w_scale, bias, out, M, K, N, group, st);
+    return ff::w4g::launch<__nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, group, st);
+  return ff::w4g::launch<float>(x, w, w_scale, bias, out, M, K, N, group, st);
 }

@@ -651,22 +651,31 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
+// A 2-D tensor map of `rows` rows of `cols` elements, `pitch` bytes apart,
+// boxes of box_c x box_r elements (zeros past the tensor); false where the
+// encoder or the shape refuses one.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                       long long cols, long long rows, long long pitch, int box_c, int box_r,
+                       CUtensorMapSwizzle swizzle) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr || pitch % 16 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_c, (cuuint32_t)box_r};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The weights' tensor map for the TMA feed: `cols` bytes a row, `rows`
 // rows `pitch` bytes apart, boxes of kN x kR bytes, 128B swizzle. False
 // where the shape does not allow one (the tile then takes 4-byte copies).
 inline bool weight_map(CUtensorMap* map, const int8_t* w, long long cols, long long rows,
                        long long pitch) {
-  const auto encode = tensor_map_encoder();
-  if (encode == nullptr || pitch % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
-  const cuuint32_t box[2] = {kN, kR};
-  const cuuint32_t estr[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims, strides,
-                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, cols, rows, pitch, kN, kR,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int LAYOUT, bool PACKED, bool ARGMAX, int MT>

@@ -116,9 +116,13 @@ SIGNATURES = {
     },
     "fused_head": {
         # x, norm_w, w, mult_packed, s_col, hq, hs, partial, out, M, K, N,
-        # layer, group, n_pack, n_split, inv_k, eps, out_bf16, stream
+        # layer, group, n_pack, n_split, inv_k, eps, out_bf16, stream (the
+        # dp4a tile)
         "ff_fused_norm_qkv": [P] * 9 + [I] * 7 + [F, F, I, P],
-        "ff_fused_norm_qkv_a4": [P] * 9 + [I] * 7 + [F, F, I, P],
+        # x, norm_w, w, mult_packed, s_col, hq, hs, xf (staged activations),
+        # partial (or NULL), out, M, K, N, layer, group, n_pack, n_split,
+        # depth, inv_k, eps, out_bf16, stream (the tensor-core tile)
+        "ff_fused_norm_qkv_a4": [P] * 10 + [I] * 8 + [F, F, I, P],
     },
     "w8a8_gemm": {
         # x, xs, w, ws, bias (or NULL), out, M, K, N, out_bf16, stream

@@ -1044,6 +1044,23 @@ def matmul_w4a16_tiled_reference(x, w_packed, w_scale, bias=None, group_size: in
     return out
 
 
+def w4a16_magic_words(words: torch.Tensor) -> tuple:
+    """The tiled W4A16 kernel's dequant (`csrc/w4_wgmma.cuh`
+    dequant_pair), in torch integer ops: int32 ``words`` holding a column's
+    bytes of two byte rows at bytes 0 and 2 to the bf16x2 bit patterns of
+    ``128 + u`` (u = v + 8, offset binary) of their low nibbles and of their
+    high nibbles: ``(w & 0x000F000F) ^ 0x43084308``, then the same of
+    ``w >> 4``. As bf16, each minus 136 is the two's-complement nibble v
+    exactly."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return (w & 0x000F000F) ^ 0x43084308, ((w >> 4) & 0x000F000F) ^ 0x43084308
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it that starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, out_dtype=None):
     """The tiled W4A16 body as a callable kernel (`_w4a16_kernel`,
     `matmul.py:1813`, `pallas_call` `:1866`): x (M, K), cast to bf16;
@@ -1052,19 +1069,21 @@ def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, o
     JAX package reaches that body (`matmul_w4a16` returns at `:1860`) and
     it rounds the weight twice where the serving route rounds once, so
     `matmul_w4a16` keeps the JAX routing and nothing in the port calls
-    this. On CUDA `csrc/w4a16_gemm.cu` (bf16 tensor cores, the weight
-    dequantized in registers; counted under ``w4a16_gemm``): its f32 sums
-    run in another order than `matmul_w4a16_tiled_reference`'s, held
-    within a stated tolerance."""
+    this. On CUDA `csrc/w4a16_gemm.cu` (`csrc/w4_wgmma.cuh`: a TMA ring,
+    the weight dequantized in bf16x2 straight into wgmma's register
+    operand, as `w4a16_magic_words` mirrors; counted under
+    ``w4a16_gemm``): its f32 sums run in another order than
+    `matmul_w4a16_tiled_reference`'s, held within a stated tolerance."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return matmul_w4a16_tiled_reference(x, w_packed, w_scale, bias, group_size, out_dtype)
     M, K = x.shape
     N = w_packed.shape[1]
     dev = x.device
-    xb = x.to(torch.bfloat16).contiguous()
+    xb = _aligned16(x.to(torch.bfloat16).contiguous())
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
+    w_scale = _aligned16(w_scale)  # both reach the kernel through TMA tensor maps
     if bias is not None:
         bias = bias.float().contiguous()
         _build.require(bias, "bias", torch.float32, (N,), dev)
@@ -1312,18 +1331,31 @@ def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group
             f"full multiplier pack and a valid layer (out={out_dtype}, M={M}, N={N}, K={K}, "
             f"group={g}, layer={layer})"
         )
-    n_split = gemv_split(M, N, K // unit, g // 2 if a4 else g)
     h_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     h_s = torch.empty((M,), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
-    err = getattr(_build.lib("fused_head"), f"ff_{name}")(
-        x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
-        s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        M, K, N, layer, g, n_pack, n_split, 1.0 / K, float(eps),
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
-    )
+    lib = _build.lib("fused_head")
+    if a4:  # the tensor-core tile, planned as row 1's GEMV
+        name = "fused_norm_qkv_a4"
+        plan = mma_plan(M, K, N, g, "vertical")
+        xf, partial = _mma_scratch(plan, M, N, dev)
+        err = lib.ff_fused_norm_qkv_a4(
+            x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
+            s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), xf.data_ptr(),
+            None if partial is None else partial.data_ptr(), out.data_ptr(), M, K, N, layer, g,
+            n_pack, plan.n_split, manual_depth(plan, _MMA_DEPTH), 1.0 / K, float(eps),
+            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        )
+    else:  # the dp4a tile
+        name = "fused_norm_qkv"
+        n_split = gemv_split(M, N, K // unit, g)
+        partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
+        err = lib.ff_fused_norm_qkv(
+            x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
+            s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), M, K, N, layer, g, n_pack, n_split, 1.0 / K, float(eps),
+            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        )
     _build.launch_counts[name] += 1
     _build.check(err, name)
     return out, h_q, h_s
@@ -1350,7 +1382,8 @@ def fused_norm_qkv_stacked(x, norm_w, w_packed, mult_packed, s_col, layer,
     weights (L, K//2, N), nibble-packed multipliers (L, ceil(K/g/8), N) and
     column scales (L, N); x (M, K) is the residual stream before the input
     norm, norm_w (L, K). On the card `csrc/fused_head.cu` (bf16 x and
-    norm), bit-exact against `fused_norm_qkv_reference`."""
+    norm; the product on the dp4a tile of `csrc/common.cuh`), bit-exact
+    against `fused_norm_qkv_reference`."""
     return _fused_head(False, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
                        out_dtype)
 
@@ -1360,8 +1393,10 @@ def fused_norm_qkv_stacked_a4(x, norm_w, w_packed, mult_packed, s_col, layer,
                               out_dtype=torch.bfloat16):
     """The A4 layer head in one call (`matmul.py:2539`): int4 row
     quantization and the vertical-layout W4A4 GEMV; operands as
-    `fused_norm_qkv_stacked`. On the card `csrc/fused_head.cu`, bit-exact
-    against `fused_norm_qkv_a4_reference`."""
+    `fused_norm_qkv_stacked`. On the card `csrc/fused_head.cu`: the norm
+    and quantization prologue, then row 1's GEMV on the int8 tensor-core
+    tile (`csrc/w4a8_mma.cuh`, planned by `mma_plan`); bit-exact against
+    `fused_norm_qkv_a4_reference`."""
     return _fused_head(True, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
                        out_dtype)
 

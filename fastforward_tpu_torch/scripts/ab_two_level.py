@@ -21,9 +21,13 @@ Hkv 8, G 4, layer 1 of 2 of a 512-token slab: B = 192 at lengths 129-160,
 bench.py's decode, and B = 8 at 33-64, run (c)'s), row 20 (the per-layer
 form at B = 192) and row 22 (paged flash decode at the engine's decode:
 B = 32, 39 pages of 256 tokens, lengths 17-160 and two rows of 300 and
-512), each line tagged TAG. Inputs come from one seed, so two trees time
-the same integers; run them in turns on one card (A, B, B, A).
-``--serve`` also serves chip_smoke.py's runs (a), (b), (c) and (n) on
+512), row 12 (the fused A4 layer head, K 4096, N 6144, g512, M = 192, 64
+and 8) and row 13 (the fused W4A8 head, g128, M = 192), row 17 (the W4
+GEMV over the four fused projections, g128, M = 192) and row 18t (the
+tiled W4A16 GEMM over the four fused projections, g128, M = 192 x 128 =
+24,576, bf16 out), each line tagged TAG. Inputs come from one seed, so
+two trees time the same integers; run them in turns on one card (A, B, B,
+A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c), (k) and (n) on
 their seeds and saves the greedy tokens and prefill logits under DIR
 (default build/ab_two_level); ``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
@@ -198,6 +202,34 @@ def main():
         del k, v
         torch.cuda.empty_cache()
 
+        # rows 12 and 13: the fused layer heads, layer 1 of 2
+        K, N = cs.PROJ["qkv"]
+        for a4, g, ms in ((True, 512, (cs.BATCH, 64, 8)), (False, 128, (cs.BATCH,))):
+            w = ri(-128, 128, (2, K // 2, N))
+            mp = pack_mult_nibbles(ri(1, 16, (2, K // g, N))).contiguous()
+            s = torch.rand((2, N), generator=gen, device=dev) * 1e-3
+            norm = (torch.rand((2, K), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+            for M in ms:
+                x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(torch.bfloat16)
+                show(f"row {12 if a4 else 13} g{g} M={M}", device_ms(
+                    lambda: mm._fused_head_launch(a4, x, norm, w, mp, s, 1, g, 1e-5,
+                                                  torch.bfloat16)))
+            del w
+        # rows 17 and 18t: the W4 GEMV at the decode, the tiled W4A16 GEMM at
+        # bench.py's w4a16 prefill, four projections each
+        for row, M in (("17", cs.BATCH), ("18t", cs.BATCH * cs.PROMPT)):
+            total = 0.0
+            for K, N in cs.PROJ.values():
+                w = ri(-128, 128, (K // 2, N))
+                s = torch.rand((K // 128, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                fn = mm.matmul_w4_gemv if row == "17" else mm.matmul_w4a16_tiled
+                total += device_ms(lambda: fn(x, w, s, group_size=128),
+                                   n=30 if row == "17" else 10)
+                del w, x
+            show(f"row {row} 4 projections g128 M={M}", total)
+        torch.cuda.empty_cache()
+
     if "--serve" in sys.argv:
         from fastforward_tpu_torch.models.llama import LlamaConfig
 
@@ -207,6 +239,7 @@ def main():
                 ("a", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, {}),
                 ("b", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, {}),
                 ("c", "w4a4_2l", 512, 8, 32, None, {}),
+                ("k", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, cs.FLAGS_K),
                 ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N)):
             t0 = time.perf_counter()
             with cs.flag_env(**flags):

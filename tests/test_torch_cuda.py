@@ -19,8 +19,10 @@ one level (the IEEE rsqrt and exp round unlike PyTorch's in a few rows),
 the output within rtol 8e-3. The stacked W4A8 GEMV's dot-raw and
 concat-pairs routes are bit-equal too (either layout; the last unit of a
 concat-pairs split shorter), and so is every route of the int4/int8 dot
-probe; the tiled W4A16 kernel is held as the W4 GEMV (its bias epilogue
-exactly). The A4 GEMV and the argmax head run the tensor-core tile
+probe; the tiled W4A16 kernel (wgmma) is held as the W4 GEMV (its bias
+epilogue exactly) at every edge of its 128 x 128 tiles and its 128-k
+stages. The fused A4 layer head runs its product on the tensor-core tile
+and stays bit-equal, as the W4A8 head does on the dp4a tile. The A4 GEMV and the argmax head run the tensor-core tile
 (its vertical layout and its argmax epilogue): bit-equal, token ids equal
 to torch.argmax of the f32 logits, ties and NaNs included. Every route
 of the stacked W4A8 GEMV runs that tile too (bit-equal at the 8B widths,
@@ -1279,6 +1281,63 @@ def test_w4a16_tiled_kernel_within_tolerance(dev, M, K, N, g, out_dtype):
     assert out.dtype == out_dtype and ((out.float() - ref32).abs() <= tol).all()
     # the bias epilogue adds in f32 to the rounded output and rounds again
     assert torch.equal(with_bias, (out.float() + bias).to(out_dtype))
+
+
+def _w4a16_tiled_case(dev, M, K, N, g, out_dtype, seed):
+    # the wgmma kernel with and without a bias: within W4_GEMV_RTOL of the
+    # largest f32 output (one bf16 ulp more in bf16), the bias epilogue exact
+    gen = _gen(dev, seed)
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn((N,), generator=gen, device=dev)
+    before = _build.launch_counts["w4a16_gemm"]
+    out = mm.matmul_w4a16_tiled(x, w, s, None, g, out_dtype)
+    with_bias = mm.matmul_w4a16_tiled(x, w, s, bias, g, out_dtype)
+    assert _build.launch_counts["w4a16_gemm"] == before + 2
+    ref32 = mm.matmul_w4a16_tiled_reference(x, w, s, None, g, torch.float32)
+    tol = W4_GEMV_RTOL * ref32.abs().max()
+    if out_dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(ref32)
+    assert out.dtype == out_dtype and ((out.float() - ref32).abs() <= tol).all()
+    assert torch.equal(with_bias, (out.float() + bias).to(out_dtype))
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 127, 129, 300])
+@pytest.mark.parametrize("N", [40, 136, 4100, 6144])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a16_wgmma_kernel_edges(dev, M, N, g, out_dtype):
+    # row tiles of 128 cut at every edge, column blocks of 128 cut (N = 40,
+    # 136, 4100), N % 16 != 0 (the cp.async feed: 40, 4100), K = 10 g: a
+    # last stage of 64 k at g32 (K = 320)
+    _w4a16_tiled_case(dev, M, 10 * g, N, g, out_dtype, M + N + g)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a16_wgmma_kernel_prefill_shape(dev, out_dtype):
+    _w4a16_tiled_case(dev, 2048, 4096, 6144, 128, out_dtype, 2048)
+
+
+@pytest.mark.parametrize("a4,g,N", [(True, 512, 6144), (True, 512, 6148), (False, 128, 6144)])
+@pytest.mark.parametrize("M", [1, 8, 64, 192, 256])
+def test_fused_heads_bit_equal_at_the_decode_rows(dev, a4, g, N, M):
+    # the A4 head (its product on the tensor-core tile: N = 6148 takes the
+    # tile's cp.async feed) and the W4A8 head (the dp4a tile) at
+    # Llama-3-8B's K: output, hq and its scale bit-equal to the plain
+    # version, each call counted once
+    K = 4096
+    x, norm, w, mp, s = _head_case(dev, M, K, N, g, M + N + g)
+    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
+    quant = mm.quantize_rowwise_a4 if a4 else mm.quantize_rowwise
+    before = _build.launch_counts[name]
+    out, hq, hs = mm._fused_head_launch(a4, x, norm, w, mp, s, 1, g, 1e-5, torch.bfloat16)
+    assert _build.launch_counts[name] == before + 1
+    rq, rs = mm._norm_quant(x, norm[1], 1e-5, quant)
+    assert torch.equal(hq, rq) and torch.equal(hs, rs)
+    fn = mm.fused_norm_qkv_stacked_a4 if a4 else mm.fused_norm_qkv_stacked
+    ref = fn(x.cpu(), norm.cpu(), w.cpu(), mp.cpu(), s.cpu(), 1, group_size=g)
+    assert out.dtype == torch.bfloat16 and torch.equal(out.cpu(), ref)
 
 
 def test_w4a16_tiled_rejects_what_the_kernel_does_not_take(dev):
