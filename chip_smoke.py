@@ -11,7 +11,8 @@ each raising on failure:
    the Llama-3-8B shapes of the serving and engine phases and hold them
    together (GEMVs, the unpaired two-level one too, the W8A8 GEMM, argmax
    ids, the dequants and the KV appends, stacked, per-layer and paged,
-   bit-equal; the W4 GEMV within W4_GEMV_RTOL; flash decode (stacked,
+   bit-equal; the W4 GEMV (wgmma, HGMMA in its SASS; also at M = 8)
+   within W4_GEMV_RTOL; flash decode (stacked,
    per-layer, paged) and flash prefill (int8 and bf16 K/V) within rtol
    8e-3 of the largest output;
    every route of the stacked W4A8 GEMV (flat, pre-blocked, the manual
@@ -34,7 +35,8 @@ each raising on failure:
    each route logged;
    the fused layer tail and the fused o + gate/up head with x1 bit-equal,
    their int8 activations within one level in a stated share of elements
-   and their output within rtol 8e-3; the fused layer heads (W4A8, A4) with
+   and their output within rtol 8e-3; the fused layer heads (W4A8, A4;
+   both products the int8 tensor-core tile, IMMA in its SASS) with
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
    print median times, device times (from profiles that recorded every
@@ -203,7 +205,7 @@ def median_ms(fn, n=20):
     return statistics.median(times)
 
 
-def _profile(fn, n, launches=None, tries=4):
+def _profile(fn, n, launches=None, tries=8):
     """(wall ms per call, [(device ms per call, launches per call, kernel
     name)] sorted by time) of ``n`` calls of ``fn`` under torch.profiler.
     With ``launches`` (the kernels one call launches) a profile that
@@ -229,6 +231,7 @@ def _profile(fn, n, launches=None, tries=4):
             rows = [(e.self_device_time_total / n / 1e3, e.count / n, e.key) for e in events]
             return wall_ms, sorted(rows, reverse=True)
         log(f"  profiler recorded {recorded} of {n * launches} launches; profiling again")
+        time.sleep(0.5)  # a lossy profile tends to be followed by another at once
     per_call = [max(1, round(e.count / n)) for e in events]
     if sum(per_call) != launches:
         raise RuntimeError(f"the profiler recorded fewer than {n * launches} launches in {tries} "
@@ -1023,8 +1026,10 @@ def _float_scale_kernels(dev, gen, randint):
     """The kernels of the float-scale modes at the 8B shapes, g128: the
     W8A8 GEMM, the W4A8 halves GEMV and the W4 GEMV over the four fused
     projections at M = 192 (the JSON rows) and the lm_head at M = 192
-    (f32 logits); the W8A8 GEMM at the prefill's M = 24,576; the halves
-    dequant (w4a8 and w4a16 prefill) over the four projections."""
+    (f32 logits); the W4 GEMV again over the four projections at M = 8
+    (its SASS must show HGMMA: wgmma); the W8A8 GEMM at the prefill's M =
+    24,576; the halves dequant (w4a8 and w4a16 prefill) over the four
+    projections."""
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import unpack_int4
 
@@ -1088,6 +1093,33 @@ def _float_scale_kernels(dev, gen, randint):
         del w_bf16, w, s
     for name, r in per.items():
         rows[name] = add_rows(r)
+
+    # The W4 GEMV (wgmma, a call's weights dequantized once) at the decode
+    # of bench.py's 8-row batch: the four projections, bytes-bound
+    from fastforward_tpu_torch.kernels import _build
+
+    _require_sass(_build._lib_path("w4_gemv"), "w4_gemv_wgmma_kernel", "HGMMA")
+    for M in (BATCH, 8):
+        plan = mm.w4_plan(M, *PROJ["qkv"], g)
+        got = tuple(_build.lib("w4_gemv").ff_w4_gemv_clusters(M, plan.depth, c) for c in range(1, 9))
+        log(f"w4_gemv M={M}: clusters of 1-8 blocks the card runs at once {got}; the plan's "
+            f"table {mm.W4_CLUSTERS[plan.per_sm]}")
+    small = []
+    for pname, (K, N) in PROJ.items():
+        x = act(8, K)
+        w, s = w4(K, N)
+        w_bf16 = mm.dequantize_int4_reference(w, s, g)
+        small.append(measure(
+            "w4_gemv", f"{pname} M=8 K={K} N={N} g={g} bf16 "
+                       f"({mm.w4_plan(8, K, N, g).n_split} splits)",
+            lambda: mm.matmul_w4_gemv(x, w, s, g), lambda: mm.matmul_w4_gemv_reference(x, w, s, g),
+            8 * K * 2 + K * N // 2 + s.numel() * 4 + 8 * N * 2, 2 * 8 * K * N, BF16_OPS_PER_S,
+            w4_close, library=lambda: torch.matmul(x, w_bf16)))
+        del w, s, w_bf16
+    rows["w4_gemv"]["m8"] = add_rows(small)
+    r8 = rows["w4_gemv"]["m8"]
+    log(f"w4_gemv four projections M=8: {r8['ms']:.4f} ms, device {fmt_ms(r8['device_ms'])}, "
+        f"bound {max(r8['bytes_ms'], r8['ops_ms']):.4f} ms, library {fmt_ms(r8['library_ms'])}")
     log(f"w4_gemv: largest error relative to the largest plain output {dict(W4_REL_ERR)} "
         f"(limit {W4_GEMV_RTOL}, bf16 one ulp more)")
 
@@ -1222,8 +1254,8 @@ def _level_check(diffs, name, a, b):
 def _fused_route_kernels(dev, gen, randint):
     """The kernels of the flag-gated fused decode routes at the 8B widths,
     M = 192 (the JSON rows, bench.py's decode), 64 and 8, layer 1 of 2: the
-    fused W4A8 layer head (g128) and A4 layer head (g512; its product the
-    int8 tensor-core tile, IMMA in its SASS or the phase fails), K = 4096,
+    fused W4A8 layer head (g128) and A4 layer head (g512; both products
+    the int8 tensor-core tile, IMMA in its SASS or the phase fails), K = 4096,
     N = 6144; the fused o + gate/up head of the tail, K1 = H = 4096, gate/up
     2 x 14336, g128. Held to the fused tail's policy (x1 bit-equal, the
     activations one level off in at most TAIL_LEVEL_SHARE of the elements,
@@ -1235,9 +1267,10 @@ def _fused_route_kernels(dev, gen, randint):
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles, unpack_mult_nibbles
 
-    # the A4 head's product is the tensor-core tile (vertical layout: the
-    # template's first argument 0)
-    _require_sass(_build._lib_path("fused_head"), "w4a8_mma_kernelILi0E", "IMMA")
+    # both heads' products are the tensor-core tile (the template's first
+    # argument: 0 the A4 head's vertical layout, 1 the W4A8 head's paired one)
+    for layout in (0, 1):
+        _require_sass(_build._lib_path("fused_head"), f"w4a8_mma_kernelILi{layout}E", "IMMA")
     L, eps = 2, 1e-5
     K, N = PROJ["qkv"]
     rows = {}
@@ -1577,10 +1610,10 @@ def _serve(path, ids, steps, dev):
 
 
 # substrings of the device names of the port's CUDA kernels
-PORT_KERNELS = ("gemv_partial_kernel", "gemv_epilogue_kernel", "argmax_reduce_kernel",
+PORT_KERNELS = ("gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
                 "flash_prefill_kernel", "fused_tail_kernel", "w8a8_kernel",
-                "w4a8_halves_kernel", "w4::tile_kernel", "w4a16_wgmma_kernel",
+                "w4a8_halves_kernel", "w4_gemv_wgmma_kernel", "w4a16_wgmma_kernel",
                 "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel")
 
 

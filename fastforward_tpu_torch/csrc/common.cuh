@@ -1,12 +1,13 @@
 // Shared device code of the port's two-level int4 GEMVs (a4_gemv.cu,
 // w4a8_gemv.cu, fused_tail.cu, fused_head.cu): the weight layouts, the
-// dp4a split-K partial-sum tile and kernel, and the epilogue, whose
-// compile-time ARGMAX flag turns the logits into token ids. (The two-level
-// W4A8 GEMV of both layouts, every route of the stacked one, the argmax
-// head, the A4 GEMV and the fused A4 layer head run w4a8_mma.cuh's int8
-// tensor-core tile; they share the layouts, the mbarrier helpers, the
-// epilogue and the argmax reduction. The dp4a tile serves the paired
-// layout of the fused tail and the fused W4A8 layer head.)
+// dp4a split-K partial-sum tile, and the epilogue, whose compile-time
+// ARGMAX flag turns the logits into token ids. (The two-level W4A8 GEMV of
+// both layouts, every route of the stacked one, the argmax head, the A4
+// GEMV and both fused layer heads run w4a8_mma.cuh's int8 tensor-core
+// tile; they share the layouts, the mbarrier helpers, the epilogue and
+// the argmax reduction. The dp4a tile serves the paired layout of the
+// fused layer tail only, rows 10 and 11: fused_tail.cu's ff_fused_o_mlp
+// and ff_fused_o_gu.)
 //
 // The GEMVs compute, per output column n and row m,
 //   acc[m, n] = sum_g m_g[n] * sum_{k in g} x[m, k] * v[k, n]      (int32)
@@ -154,10 +155,8 @@ __device__ __forceinline__ void quad_dot(const unsigned r[4], const int8_t* xa, 
 //   partial  (n_split, M, N) int32
 // gemv_tile computes one (row tile, column tile, split) of it with all
 // kThreads threads of the block, in dynamic shared memory `smem` of
-// gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes
-// gemv_partial_kernel runs one tile per block on the grid
-// (ceil(M/8), ceil(N/128), n_split), and fused_tail.cu runs many tiles per
-// block of a persistent grid.
+// gemv_smem_bytes(units_per_split * rows_per_unit, units_per_split) bytes;
+// fused_tail.cu runs many tiles per block of its persistent grid.
 // A unit (a group pair) holds `group` byte rows.
 __device__ __forceinline__ void
 gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
@@ -271,33 +270,9 @@ gemv_tile(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-gemv_partial_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    const void* __restrict__ mult, int32_t* __restrict__ partial,
-                    int M, int K, int N, int group, int units_per_split, int n_units) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  gemv_tile(x, w, mult, partial, M, K, N, group, units_per_split, n_units, blockIdx.x, blockIdx.y,
-            blockIdx.z, smem);
-}
-
 inline size_t gemv_smem_bytes(int rows_per_split, int units_per_split) {
   return (size_t)2 * kBM * rows_per_split + (size_t)2 * kBM * units_per_split * 4 +
          (size_t)kWarps * kBM * kBN * 4;
-}
-
-inline cudaError_t launch_gemv_partial(const int8_t* x, const int8_t* w, const void* mult,
-                                       int32_t* partial, int M, int K, int N, int group,
-                                       int n_split, cudaStream_t stream) {
-  const int n_units = K / (2 * group);
-  const int ups = (n_units + n_split - 1) / n_split;
-  const size_t smem = gemv_smem_bytes(ups * group, ups);
-  cudaError_t err = cudaFuncSetAttribute(gemv_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, n_split);
-  gemv_partial_kernel<<<grid, kThreads, smem, stream>>>(x, w, mult, partial, M, K, N, group, ups,
-                                                        n_units);
-  return cudaGetLastError();
 }
 
 // argmax order: a NaN beats any number; among equals (or among NaNs) the

@@ -25,15 +25,17 @@
 // On Hopper the GEMV's blocks run in no order, so the prologue runs first,
 // as its own small kernel (one block per row: the row's sum of squares,
 // the amax, then hq and s written to a scratch the wrapper allocates, 4 KB
-// a row). The A4 head's product is then row 1's GEMV exactly
-// (a4_gemv.cu): w4a8_mma.cuh's int8 tensor-core tile on the vertical
-// layout, its activations staged in fragment order from hq, its split-K
-// partials (planned by kernels/matmul.py mma_plan) and its epilogue. The
-// W4A8 head's product is common.cuh's dp4a split-K GEMV tile (paired
-// layout) and its epilogue. The norm's inputs stay out of any PyTorch op:
-// no bf16 rounding of h and no round trip through the framework between
-// the two. Both products compute the same int32 sums (exact in any order)
-// and the same epilogue (float(acc) * s_col) * s.
+// a row). The prologue also writes its quantized row straight into the
+// product's staged operand, in fragment order (w4a8_mma.cuh stage_row,
+// stage_x_kernel's order), so the product needs no staging launch. Both
+// products are then w4a8_mma.cuh's int8 tensor-core tile on that operand
+// (launch_staged), with its split-K partials (planned by
+// kernels/matmul.py mma_plan) and its epilogue: the W4A8 head's on the
+// paired layout, row 9's call (w4a8_gemv.cu stacked_tile); the A4 head's
+// on the vertical layout, row 1's (a4_gemv.cu). The norm's inputs stay
+// out of any PyTorch op: no bf16 rounding of h and no round trip through
+// the framework between the two. The int32 sums are exact in any order
+// and the epilogue is (float(acc) * s_col) * s, as the plain version's.
 //
 // Numerics, bit-exact against the plain version: the squares are summed in
 // the order XLA's CPU compiler uses for a row reduction (windows of 32 in
@@ -43,7 +45,7 @@
 // the correctly rounded __frsqrt_rn, every other step an IEEE
 // round-to-nearest operation; amax is exact in any order.
 
-#include "w4a8_mma.cuh"  // (with common.cuh)
+#include "w4a8_mma.cuh"  // the tile, stage_row (with common.cuh)
 
 namespace {
 
@@ -77,18 +79,26 @@ __device__ float window_sum(float* src, float* tmp, int n, float* total) {
   return *total;
 }
 
-// One block per row m. Dynamic shared memory: (K + ceil(K/32)) floats.
+// One block per row m of the staged rows (whole m tiles of the tile's plan
+// at M rows: a block past M writes its row of zeros into xf). Dynamic
+// shared memory: (K + ceil(K/32)) floats and K bytes.
 template <bool A4>
 __global__ void __launch_bounds__(ff::kThreads)
 norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
-                  int8_t* __restrict__ hq, float* __restrict__ hs, int K, float inv_k,
-                  float eps) {
+                  int8_t* __restrict__ hq, float* __restrict__ hs, int8_t* __restrict__ xf,
+                  int M, int K, int group, int n_split, float inv_k, float eps) {
+  constexpr int kLayout = A4 ? ff::kVertical : ff::kPaired;
   extern __shared__ __align__(16) float sh[];
   __shared__ float red[ff::kWarps];
   __shared__ float total;
+  const int m = blockIdx.x, mt = ff::mma8::tiles_of(M);
+  if (m >= M) {
+    ff::mma8::stage_row<kLayout>(nullptr, xf, m, K, group, n_split, mt);
+    return;
+  }
   float* sq = sh;
   float* tmp = sh + K;
-  const int m = blockIdx.x;
+  int8_t* qs = reinterpret_cast<int8_t*>(sh + K + (K + 31) / 32);  // the quantized row
   const __nv_bfloat16* xr = x + (size_t)m * K;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const float v = __bfloat162float(xr[k]);
@@ -117,74 +127,73 @@ norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const float s = fmaxf(__fmul_rn(mx, A4 ? 1.0f / 7.0f : 1.0f / 127.0f), 1e-8f);
   if (threadIdx.x == 0) hs[m] = s;
   int8_t* qr = hq + (size_t)m * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    qr[k] = static_cast<int8_t>(
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const int8_t q = static_cast<int8_t>(
         static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(sh[k], s)), qmin), qmax)));
+    qr[k] = q;
+    qs[k] = q;
+  }
+  __syncthreads();
+  ff::mma8::stage_row<kLayout>(qs, xf, m, K, group, n_split, mt);
 }
 
-// The prologue: hq (M, K) and hs (M,) from x and layer `layer`'s norm.
+// The prologue: hq (M, K), hs (M,) and the staged operand xf from x and
+// layer `layer`'s norm; then the tile on xf.
 template <bool A4>
-cudaError_t norm_quant(const void* x, const void* norm_w, void* hq, void* hs, int M, int K,
-                       int layer, float inv_k, float eps, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)K + (K + 31) / 32);
-  cudaError_t err = cudaFuncSetAttribute(norm_quant_kernel<A4>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t fused_head(const void* x, const void* norm_w, const void* w, const void* mult_packed,
+                       const void* s_col, void* hq, void* hs, void* xf, void* partial, void* out,
+                       int M, int K, int N, int layer, int group, int n_pack, int n_split,
+                       int depth, float inv_k, float eps, int out_bf16, cudaStream_t st) {
+  constexpr int kLayout = A4 ? ff::kVertical : ff::kPaired;
+  if (group < 4 || group % (A4 ? 8 : 4) != 0 || K % (A4 ? group : 2 * group) != 0 ||
+      n_pack * 8 < K / group)
+    return cudaErrorInvalidValue;
+  cudaError_t err = ff::mma8::check_launch<kLayout, false>(
+      M, K, N, group, n_split, depth, static_cast<const int32_t*>(partial), nullptr, nullptr);
   if (err != cudaSuccess) return err;
-  norm_quant_kernel<A4><<<M, ff::kThreads, smem, st>>>(
+  const size_t smem = sizeof(float) * ((size_t)K + (K + 31) / 32) + K;
+  err = cudaFuncSetAttribute(norm_quant_kernel<A4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  norm_quant_kernel<A4><<<ff::mma8::staged_rows(M), ff::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * K, static_cast<int8_t*>(hq),
-      static_cast<float*>(hs), K, inv_k, eps);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// x (M, K) bf16; norm_w (L, K) bf16; w (L, K/2, N) int8; mult_packed
-// (L, n_pack, N) int32; s_col (L, N) f32; scratch hq (M, K) int8, hs (M,)
-// f32, partial (n_split, M, N) int32; out (M, N) bf16 or f32. inv_k is
-// float32(1/K).
-extern "C" int ff_fused_norm_qkv(const void* x, const void* norm_w, const void* w,
-                                 const void* mult_packed, const void* s_col, void* hq, void* hs,
-                                 void* partial, void* out, int M, int K, int N, int layer,
-                                 int group, int n_pack, int n_split, float inv_k, float eps,
-                                 int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = norm_quant<false>(x, norm_w, hq, hs, M, K, layer, inv_k, eps, st);
+      static_cast<float*>(hs), static_cast<int8_t*>(xf), M, K, group, n_split, inv_k, eps);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
-  int32_t* p = static_cast<int32_t*>(partial);
-  err = ff::launch_gemv_partial(static_cast<const int8_t*>(hq), wl, ml, p, M, K, N, group,
-                                n_split, st);
-  if (err != cudaSuccess) return err;
-  const float* s = static_cast<const float*>(hs);
-  if (out_bf16)
-    return ff::launch_gemv_epilogue<__nv_bfloat16, false>(
-        p, n_split, M, N, sl, s, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, st);
-  return ff::launch_gemv_epilogue<float, false>(p, n_split, M, N, sl, s,
-                                                static_cast<float*>(out), nullptr, nullptr, st);
+  return ff::mma8::launch_staged<kLayout, true>(
+      static_cast<const float*>(hs), wl, ml, sl, static_cast<const int8_t*>(xf),
+      static_cast<int32_t*>(partial), out, out_bf16, M, K, N, group, n_split, 0, depth, st);
 }
 
-// As ff_fused_norm_qkv on the vertical layout, the product on the int8
-// tensor-core tile: xf the staged activations (mma_plan's x_bytes), partial
-// (n_split, M, N) int32 or NULL for one split, depth the ring's stages.
+}  // namespace
+
+// x (M, K) bf16; norm_w (L, K) bf16; w (L, K/2, N) int8 (paired layout);
+// mult_packed (L, n_pack, N) int32; s_col (L, N) f32; scratch hq (M, K)
+// int8, hs (M,) f32, xf the staged activations (mma_plan's x_bytes),
+// partial (n_split, M, N) int32 or NULL for one split; out (M, N) bf16 or
+// f32. inv_k is float32(1/K); depth the ring's stages.
+extern "C" int ff_fused_norm_qkv(const void* x, const void* norm_w, const void* w,
+                                 const void* mult_packed, const void* s_col, void* hq, void* hs,
+                                 void* xf, void* partial, void* out, int M, int K, int N,
+                                 int layer, int group, int n_pack, int n_split, int depth,
+                                 float inv_k, float eps, int out_bf16, void* stream) {
+  return fused_head<false>(x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M, K, N,
+                           layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// As ff_fused_norm_qkv on the vertical layout (int4 activations).
 extern "C" int ff_fused_norm_qkv_a4(const void* x, const void* norm_w, const void* w,
                                     const void* mult_packed, const void* s_col, void* hq,
                                     void* hs, void* xf, void* partial, void* out, int M, int K,
                                     int N, int layer, int group, int n_pack, int n_split,
                                     int depth, float inv_k, float eps, int out_bf16,
                                     void* stream) {
-  if (group < 8 || group % 8 != 0 || K % group != 0 || n_pack * 8 < K / group)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = norm_quant<true>(x, norm_w, hq, hs, M, K, layer, inv_k, eps, st);
-  if (err != cudaSuccess) return err;
-  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
-  const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
-  const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
-  return ff::mma8::launch<ff::kVertical, true>(
-      static_cast<const int8_t*>(hq), static_cast<const float*>(hs), wl, ml, sl,
-      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_bf16, M, K, N, group,
-      n_split, 0, depth, st);
+  return fused_head<true>(x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M, K, N,
+                          layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,10 @@
 // ff_w4a8_gemv (paired layout), ff_w4a8_gemv_unpaired (group halves),
 // ff_w4a8_gemv_argmax (paired, an argmax epilogue) and the stacked GEMV's
 // six routes (ff_w4a8_gemv_stacked, _preblocked, _manual, _splitw,
-// _dotraw, _concat: flat or pre-blocked paired layers), and of
-// a4_gemv.cu's ff_a4_gemv (the vertical W4A4 layout).
+// _dotraw, _concat: flat or pre-blocked paired layers), of a4_gemv.cu's
+// ff_a4_gemv (the vertical W4A4 layout), and the product of fused_head.cu's
+// two layer heads (ff_fused_norm_qkv paired, ff_fused_norm_qkv_a4
+// vertical).
 //
 // Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571;
 // paired body :537, group-halves body :479, pallas_call :620),
@@ -58,8 +60,9 @@
 //   which run side by side (the m tile is the grid's fastest index) and
 //   meet it in L2. Three blocks an SM (128 registers a thread; at MT = 4 a
 //   few bytes spill) measured 8% faster at M = 192 than two at 155.
-// - Activations in fragment order. A first launch (stage_x_kernel) writes x
-//   as the A fragments of every stage, each lane's 16 bytes contiguous in
+// - Activations in fragment order. A first launch (stage_x_kernel), or the
+//   fused heads' prologue row by row (stage_row), writes x as the A
+//   fragments of every stage, each lane's 16 bytes contiguous in
 //   slot order, nibble planes apart, zeros for padding rows and rows past
 //   M; the tile then reads one 16-byte word a fragment. In the vertical
 //   layout a plane's byte rows are every other k (byte row i of group u:
@@ -309,6 +312,46 @@ __global__ void stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict_
   for (int tid = 0; tid < 4; ++tid)
     frag[(4 * gid + tid) * 4 + reg] =
         __byte_perm(wd[tid / 2], wd[2 + tid / 2], tid % 2 ? 0x7632 : 0x5410);
+}
+
+// Row m's words of the staged activations, in stage_x_kernel's order, by
+// the threads of one block (the fused heads' prologue, which stages its
+// own quantized row: no staging launch). xr: the row's K bytes (any memory
+// space), or null for a padding row (zeros). Word (split, stage s, chunk
+// c, plane, half h, tid) holds byte rows i0 + 2 tid + {0, 1, 8, 9} of the
+// half's unit (zeros for padding and rows past the split's units) at lane
+// 4 gid + tid, register 2 h + r16 / 8 of fragment f, as stage_x_kernel's
+// __byte_perm of its 16 rows puts them.
+template <int LAYOUT>
+__device__ void stage_row(const int8_t* xr, int8_t* __restrict__ xf, int m, int K, int group,
+                          int n_split, int mt) {
+  const Plan pl = plan_of(LAYOUT, K, group, n_split);
+  constexpr int kStep = plane_step(LAYOUT);
+  const int m_tile = m / (16 * mt), ti = m % (16 * mt) / 16, r16 = m % 16;
+  const int words = n_split * pl.stages * kChunks * 16;
+  for (int wi = threadIdx.x; wi < words; wi += blockDim.x) {
+    const int tid = wi % 4, h = wi / 4 % 2, plane = wi / 8 % 2;
+    int g = wi / 16;
+    const int c = g % kChunks;
+    g /= kChunks;
+    const int s = g % pl.stages, split = g / pl.stages;
+    const int q = s * kR + 32 * c + 16 * h;  // first padded row of the half, in the split
+    const int u = split * pl.ups + q / pl.p16, i0 = q % pl.p16;
+    unsigned word = 0;
+    if (xr != nullptr && u < min(pl.n_units, (split + 1) * pl.ups)) {
+      const int8_t* xp = xr + plane_k(LAYOUT, u, plane, group);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = i0 + 2 * tid + (b & 1) + 8 * (b >> 1);
+        if (i < pl.unit_rows)
+          word |= static_cast<unsigned>(static_cast<uint8_t>(xp[kStep * i])) << (8 * b);
+      }
+    }
+    const long long f =
+        ((((long long)m_tile * n_split + split) * pl.stages + s) * kChunks + c) * 2 + plane;
+    reinterpret_cast<unsigned*>(xf + (size_t)(f * mt + ti) * kFrag)[(4 * (r16 % 8) + tid) * 4 +
+                                                                    2 * h + r16 / 8] = word;
+  }
 }
 
 // The consumer warps' barrier (named barrier 1; the producer warp has left).
@@ -696,18 +739,16 @@ cudaError_t launch_tile(const CUtensorMap& tmap, int tma, const int8_t* xf, cons
   return cudaGetLastError();
 }
 
-// The whole GEMV: stage x into xf (the wrapper sizes it: mma_plan's
-// x_bytes), the tile, and with n_split > 1 common.cuh's epilogue over the
-// int32 partials. ARGMAX (paired): out is the int32 token id a row; the
-// tile's pairs (or the split epilogue's, a kEpiTile columns each) go to
-// pair_val, pair_idx (M, ceil(N / kN)), then argmax_reduce_kernel. Every
-// argument is checked against the plan; a shape the plan does not cover
-// returns cudaErrorInvalidValue.
-template <int LAYOUT, bool PACKED, bool ARGMAX = false>
-cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void* mult,
-                   const float* s_col, int8_t* xf, int32_t* partial, void* out, int out_bf16,
-                   int M, int K, int N, int group, int n_split, int bn, int depth,
-                   cudaStream_t stream, float* pair_val = nullptr, int* pair_idx = nullptr) {
+// Rows of x the staged activations cover at M rows: whole m tiles.
+__host__ __device__ inline int staged_rows(int M) {
+  return (M + 16 * tiles_of(M) - 1) / (16 * tiles_of(M)) * 16 * tiles_of(M);
+}
+
+// Whether a launch of the tile fits its plan: cudaErrorInvalidValue where
+// it does not.
+template <int LAYOUT, bool ARGMAX>
+cudaError_t check_launch(int M, int K, int N, int group, int n_split, int depth,
+                         const int32_t* partial, const float* pair_val, const int* pair_idx) {
   if (M < 1 || N < 4 || N % 4 != 0 || n_split < 1 || depth < 1 ||
       smem_bytes(tiles_of(M), depth) > 232448 || (n_split > 1 && partial == nullptr) ||
       (ARGMAX && (pair_val == nullptr || pair_idx == nullptr)))
@@ -715,13 +756,25 @@ cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void
   const Plan pl = plan_of(LAYOUT, K, group, n_split);
   if (pl.unit_rows % 4 != 0 || pl.n_units < 1 || (n_split - 1) * pl.ups >= pl.n_units)
     return cudaErrorInvalidValue;
-  const int mt = tiles_of(M);
-  const long long total = (long long)((M + 16 * mt - 1) / (16 * mt)) * n_split * pl.stages *
-                          kChunks * 2 * mt * 32;
-  stage_x_kernel<LAYOUT><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      x, xf, M, K, group, n_split, mt, total);
-  cudaError_t err = cudaGetLastError();
+  return cudaSuccess;
+}
+
+// The tile and, with n_split > 1, common.cuh's epilogue over the int32
+// partials, on activations already staged in xf (stage_x_kernel's or
+// stage_row's order). ARGMAX (paired): out is the int32 token id a row;
+// the tile's pairs (or the split epilogue's, a kEpiTile columns each) go
+// to pair_val, pair_idx (M, ceil(N / kN)), then argmax_reduce_kernel.
+template <int LAYOUT, bool PACKED, bool ARGMAX = false>
+cudaError_t launch_staged(const float* xs, const int8_t* w, const void* mult, const float* s_col,
+                          const int8_t* xf, int32_t* partial, void* out, int out_bf16, int M,
+                          int K, int N, int group, int n_split, int bn, int depth,
+                          cudaStream_t stream, float* pair_val = nullptr,
+                          int* pair_idx = nullptr) {
+  cudaError_t err =
+      check_launch<LAYOUT, ARGMAX>(M, K, N, group, n_split, depth, partial, pair_val, pair_idx);
   if (err != cudaSuccess) return err;
+  const Plan pl = plan_of(LAYOUT, K, group, n_split);
+  const int mt = tiles_of(M);
   // The TMA feed where every padded row is a real row (unit_rows % 16 ==
   // 0), the rows are 16-byte runs and a block's kN columns lie in one panel;
   // the multipliers then come as bulk copies too (int8 rows of N % 16 == 0
@@ -768,6 +821,31 @@ cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void
                                                       nullptr, stream);
   return launch_gemv_epilogue<float, false>(partial, n_split, M, N, s_col, xs,
                                             static_cast<float*>(out), nullptr, nullptr, stream);
+}
+
+// The whole GEMV: stage x into xf (the wrapper sizes it: mma_plan's
+// x_bytes) by stage_x_kernel, then launch_staged. Every argument is checked
+// against the plan; a shape the plan does not cover returns
+// cudaErrorInvalidValue.
+template <int LAYOUT, bool PACKED, bool ARGMAX = false>
+cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void* mult,
+                   const float* s_col, int8_t* xf, int32_t* partial, void* out, int out_bf16,
+                   int M, int K, int N, int group, int n_split, int bn, int depth,
+                   cudaStream_t stream, float* pair_val = nullptr, int* pair_idx = nullptr) {
+  cudaError_t err =
+      check_launch<LAYOUT, ARGMAX>(M, K, N, group, n_split, depth, partial, pair_val, pair_idx);
+  if (err != cudaSuccess) return err;
+  const Plan pl = plan_of(LAYOUT, K, group, n_split);
+  const int mt = tiles_of(M);
+  const long long total = (long long)(staged_rows(M) / (16 * mt)) * n_split * pl.stages *
+                          kChunks * 2 * mt * 32;
+  stage_x_kernel<LAYOUT><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      x, xf, M, K, group, n_split, mt, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_staged<LAYOUT, PACKED, ARGMAX>(xs, w, mult, s_col, xf, partial, out, out_bf16, M,
+                                               K, N, group, n_split, bn, depth, stream, pair_val,
+                                               pair_idx);
 }
 
 }  // namespace mma8

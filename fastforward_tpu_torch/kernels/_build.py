@@ -115,22 +115,22 @@ SIGNATURES = {
         "ff_fused_o_gu": [P] * 17 + [I] * 10 + [F, P],
     },
     "fused_head": {
-        # x, norm_w, w, mult_packed, s_col, hq, hs, partial, out, M, K, N,
-        # layer, group, n_pack, n_split, inv_k, eps, out_bf16, stream (the
-        # dp4a tile)
-        "ff_fused_norm_qkv": [P] * 9 + [I] * 7 + [F, F, I, P],
-        # x, norm_w, w, mult_packed, s_col, hq, hs, xf (staged activations),
-        # partial (or NULL), out, M, K, N, layer, group, n_pack, n_split,
-        # depth, inv_k, eps, out_bf16, stream (the tensor-core tile)
-        "ff_fused_norm_qkv_a4": [P] * 10 + [I] * 8 + [F, F, I, P],
+        # x, norm_w, w, mult_packed, s_col, hq, hs, xf (staged activations,
+        # written by the prologue), partial (or NULL), out, M, K, N, layer,
+        # group, n_pack, n_split, depth, inv_k, eps, out_bf16, stream (the
+        # tensor-core tile: paired layout, and vertical for the A4 head)
+        **{f"ff_fused_norm_qkv{sfx}": [P] * 10 + [I] * 8 + [F, F, I, P] for sfx in ("", "_a4")},
     },
     "w8a8_gemm": {
         # x, xs, w, ws, bias (or NULL), out, M, K, N, out_bf16, stream
         "ff_w8a8_gemm": [P, P, P, P, P, P, I, I, I, I, P],
     },
     "w4_gemv": {
-        # x, w, w_scale, out, M, K, N, group, out_bf16, stream
-        "ff_w4_gemv": [P, P, P, P, I, I, I, I, I, P],
+        # x, w, w_scale, out, M, K, N, group, n_split, depth, out_bf16,
+        # stream (wgmma; the plan of matmul.w4_plan)
+        "ff_w4_gemv": [P] * 4 + [I] * 7 + [P],
+        # M, depth, n_split: the clusters the card runs at once
+        "ff_w4_gemv_clusters": [I, I, I],
     },
     "w4a16_gemm": {
         # x, w, w_scale, bias (or NULL), out, M, K, N, group, out_bf16, stream

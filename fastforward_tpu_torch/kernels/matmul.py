@@ -229,6 +229,7 @@ class MmaPlan(NamedTuple):
                 for s in range(self.n_split)]
 
 
+@functools.lru_cache(maxsize=256)
 def mma_plan(M: int, K: int, N: int, group_size: int, layout: str) -> MmaPlan:
     """Plan of the tensor-core two-level GEMV on weights of ``layout`` (one
     of `MMA_LAYOUTS`): K is split over whole units only where the (m, n)
@@ -261,6 +262,46 @@ def manual_depth(plan: MmaPlan, nbuf: int) -> int:
     if depth < 1:
         raise ValueError(f"the tensor-core W4A8 GEMV ring has no room for a stage ({plan})")
     return depth
+
+
+def mma_staged_operand(x_q: torch.Tensor, plan: MmaPlan, group_size: int,
+                       layout: str) -> torch.Tensor:
+    """The tensor-core tile's staged activations (``plan.x_bytes`` int8) as
+    the fused heads' prologue writes them, row by row and word by word
+    (`csrc/w4a8_mma.cuh` stage_row): word (split, stage, chunk, plane, half
+    h, tid) of row m holds byte rows i0 + 2 tid + (0, 1, 8, 9) of the
+    half's unit in plane ``plane`` (x[m, plane's first k + step * i]; zeros
+    past the unit's rows, past the split's units and for the rows of the
+    last m tile past M), at lane 4 (m % 8) + tid, register 2 h + m % 16 // 8
+    of its fragment."""
+    M, K = x_q.shape
+    g, mt, chunks = group_size, plan.mt, _MMA_ROWS // 32
+    rows = plan.m_tiles * 16 * mt
+    wi = torch.arange(plan.n_split * plan.stages * chunks * 16)
+    tid, h, plane = wi % 4, wi // 4 % 2, wi // 8 % 2
+    c = wi // 16 % chunks
+    s = wi // 16 // chunks % plan.stages
+    split = wi // 16 // chunks // plan.stages
+    q = s * _MMA_ROWS + 32 * c + 16 * h
+    u, i0 = split * plan.ups + q // plan.p16, q % plan.p16
+    live = u < torch.clamp((split + 1) * plan.ups, max=plan.n_units)
+    b = torch.arange(4)
+    i = (i0 + 2 * tid)[:, None] + (b & 1) + 8 * (b >> 1)
+    first = {"paired": (2 * u + plane) * g, "halves": u * g + plane * (g // 2),
+             "vertical": u * g + plane}[layout]
+    k = first[:, None] + (2 if layout == "vertical" else 1) * i
+    valid = live[:, None] & (i < plan.unit_rows)
+    xb = torch.zeros((rows, K), dtype=torch.int64)
+    xb[:M] = x_q.view(torch.uint8).long()
+    byte = xb[:, k.clamp(0, K - 1)] * valid
+    word = (byte << (8 * b)).sum(-1)  # (rows, words)
+    m = torch.arange(rows)[:, None]
+    f = ((((m // (16 * mt)) * plan.n_split + split) * plan.stages + s) * chunks + c) * 2 + plane
+    at = (f * mt + m % (16 * mt) // 16) * (_MMA_FRAG // 4) + (4 * (m % 8) + tid) * 4 \
+        + 2 * h + m % 16 // 8
+    out = torch.zeros(plan.x_bytes // 4, dtype=torch.int64)
+    out[at.flatten()] = word.flatten()
+    return (out - ((out >> 31) << 32)).to(torch.int32).view(torch.int8)
 
 
 def fold_w4a8_2l_words(words: torch.Tensor, m_lo, m_hi=None) -> tuple:
@@ -973,13 +1014,104 @@ def matmul_w4_gemv_reference(x, w_packed, w_scale, group_size: int = 128,
     return torch.matmul(x.to(torch.bfloat16).float(), w.float()).to(out_dtype)
 
 
+# The wgmma W4 GEMV (csrc/w4_gemv.cu): _W4_BN weight columns a block, _W4_BK
+# k a ring stage (its x boxes, _W4_BK / 2 packed byte rows and up to
+# _W4_BK / 32 scale rows), K split over at most _W4_MAX_SPLIT blocks of a
+# cluster, token rows up to GEMV_MAX_M.
+_W4_BN, _W4_BK, _W4_MAX_SPLIT, _W4_MAX_DEPTH = 128, 128, 8, 8
+# Clusters of 1-8 blocks the H100 runs at once at one and at two blocks an
+# SM (cudaOccupancyMaxActiveClusters at this kernel's shared memory, which
+# chip_smoke.py logs from `ff_w4_gemv_clusters` beside this table): its 132
+# SMs lie in GPCs, and a cluster must fit in one, so larger clusters leave
+# SMs idle.
+W4_CLUSTERS = {1: (132, 66, 39, 30, 22, 17, 15, 15), 2: (264, 132, 79, 62, 47, 39, 32, 30)}
+# A block's fixed cost in stages of its stream: the ring's fill, the
+# cluster's reduction through distributed shared memory.
+_W4_BLOCK_COST = 3
+_W4_RED_PITCH = _W4_BN + 8  # floats a token row of the reduction tile
+# Shared memory of one H100 SM, and what each of its blocks reserves.
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
+
+
+class W4Plan(NamedTuple):
+    """The launch plan of the wgmma W4 GEMV (`csrc/w4_gemv.cu`): the wgmma n
+    (M rounded up to 8, 16, 32, 64, 128, 192 or 256: the token rows of the
+    x boxes, those past M arriving as zeros), the blocks an SM
+    holds (its launch bounds: two up to n = 64), the 128-column blocks, the
+    128-k stages of K, the K splits (the blocks of a cluster), the stages a
+    split streams (the last split fewer) and the ring's depth."""
+    n: int
+    per_sm: int
+    n_tiles: int
+    stages: int
+    n_split: int
+    sps: int
+    depth: int
+
+    @property
+    def stage_bytes(self) -> int:
+        return 2 * self.n * 128 + _W4_BK // 2 * _W4_BN + _W4_BK // 32 * _W4_BN * 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the ring (or the reduction
+        tile, which reuses it), its barriers and the alignment slack."""
+        red = self.n * _W4_RED_PITCH * 4
+        return max(self.depth * self.stage_bytes, red) + 16 * self.depth + 1024
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.n_split
+
+    def stage_ranges(self):
+        """[(first stage, end stage)] of each split, in split order."""
+        return [(z * self.sps, min(self.stages, (z + 1) * self.sps)) for z in range(self.n_split)]
+
+
+@functools.lru_cache(maxsize=256)
+def w4_plan(M: int, K: int, N: int, group_size: int, n_split: Optional[int] = None) -> W4Plan:
+    """Plan of the wgmma W4 GEMV at M <= 256 token rows: the wgmma n, then
+    the K split over whole 128-k stages (whole groups at g 32, 64, 128), no
+    split empty, the splits of a column block one cluster. Of 1-8 splits it
+    takes the least of (waves of clusters, at `W4_CLUSTERS` of them at
+    once) x (stages a block + `_W4_BLOCK_COST`), fewer splits on a tie (or
+    about ``n_split`` splits where given: the card tests and A/Bs take
+    others); then the deepest ring that fits (at least two stages where a
+    split has two)."""
+    if not 1 <= M <= GEMV_MAX_M or group_size not in _MMA_GROUPS or K % group_size:
+        raise ValueError(f"no W4 GEMV plan for M={M}, K={K}, group={group_size}")
+    n = next(t for t in (8, 16, 32, 64, 128, 192, 256) if M <= t)
+    per_sm = 2 if n <= 64 else 1
+    n_tiles, stages = -(-N // _W4_BN), -(-K // _W4_BK)
+    options = {}
+    for s in range(1, min(_W4_MAX_SPLIT, stages) + 1):
+        sps = -(-stages // s)
+        splits = -(-stages // sps)  # no empty split
+        waves = -(-n_tiles // W4_CLUSTERS[per_sm][splits - 1])
+        options[splits] = (waves * (sps + _W4_BLOCK_COST), splits, sps)
+    best = min(options.values())
+    if n_split is not None:
+        best = options[max(k for k in options if k <= max(1, n_split))]
+    _, n_split, sps = best
+    plan = W4Plan(n, per_sm, n_tiles, stages, n_split, sps, 1)
+    budget = _SM_SMEM // per_sm - _BLOCK_RESERVED
+    depth = min(_W4_MAX_DEPTH, sps, (budget - 1024) // (plan.stage_bytes + 16))
+    plan = plan._replace(depth=depth)
+    if depth < min(2, sps) or plan.smem_bytes > budget:
+        raise ValueError(f"the W4 GEMV ring has no room at M={M} ({plan})")
+    return plan
+
+
 def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.bfloat16):
     """Decode-shaped weight-only int4 matmul (`matmul.py:262`): bf16 x (M,
     K) against the `pack_int4` weight (K//2, N) dequantized to bf16 with
     w_scale (K//g, N), f32 accumulation, rounded once to ``out_dtype``. The
     dequant rounds once, as `dequantize_int4`'s CPU path (the TPU kernel
-    rounds the scale to bf16 first). On CUDA `csrc/w4_gemv.cu` (bf16
-    tensor cores); its sums run in another order than the plain version's."""
+    rounds the scale to bf16 first). On CUDA `csrc/w4_gemv.cu` for M up to
+    `GEMV_MAX_M` (bf16 wgmma, each weight dequantized once a call as
+    `w4_gemv_dequant_words` mirrors, K split by `w4_plan` and the splits
+    added in split order); its sums run in another order than the plain
+    version's, the same bits call to call."""
     if x.device.type == "cpu":
         return matmul_w4_gemv_reference(x, w_packed, w_scale, group_size, out_dtype)
     M, K = x.shape
@@ -988,16 +1120,20 @@ def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.
     _build.require(x, "x", torch.bfloat16, (M, K))
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
-    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
-            or group_size not in _MMA_GROUPS or K % group_size != 0:
+    if out_dtype not in (torch.float32, torch.bfloat16) or not 1 <= M <= GEMV_MAX_M \
+            or N % 4 != 0 or group_size not in _MMA_GROUPS or K % group_size != 0:
         raise ValueError(
-            f"W4 GEMV kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, group 32, 64 or 128 "
-            f"and K % group == 0 (out={out_dtype}, M={M}, N={N}, group={group_size}, K={K})"
+            f"W4 GEMV kernel needs f32 or bf16 out, 1 <= M <= {GEMV_MAX_M}, N % 4 == 0, group "
+            f"32, 64 or 128 and K % group == 0 (out={out_dtype}, M={M}, N={N}, "
+            f"group={group_size}, K={K})"
         )
+    plan = w4_plan(M, K, N, group_size)
+    x, w_scale = _aligned16(x), _aligned16(w_scale)  # both reach the kernel through tensor maps
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _build.lib("w4_gemv").ff_w4_gemv(
         x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
-        group_size, int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        group_size, plan.n_split, plan.depth, int(out_dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
     )
     _build.launch_counts["w4_gemv"] += 1
     _build.check(err, "w4_gemv")
@@ -1054,6 +1190,32 @@ def w4a16_magic_words(words: torch.Tensor) -> tuple:
     exactly."""
     w = words.to(torch.int64) & 0xFFFFFFFF
     return (w & 0x000F000F) ^ 0x43084308, ((w >> 4) & 0x000F000F) ^ 0x43084308
+
+
+# The W4 GEMV's exponent trick (csrc/w4_gemv.cu dequant_reg): a nibble at
+# bit b of a word, its bit 3 flipped, under the exponent of 2^(23 - b) is the
+# float 2^(23 - b) + u; (mask, bits to XOR, the float to subtract) for bits
+# 0, 8 (the low nibble plane of byte rows r, r + 1) and 4, 12 (the high).
+_W4_MAGIC = ((0x000F, 0x4B000008, 8388616.0), (0x0F00, 0x47000800, 32776.0),
+             (0x00F0, 0x49000080, 524296.0), (0xF000, 0x45008000, 2056.0))
+
+
+def w4_gemv_dequant_words(words: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The W4 GEMV kernel's dequant (`csrc/w4_gemv.cu` dequant_reg), in torch
+    ops: int32 ``words`` holding a column's bytes of two byte rows r, r + 1
+    at bytes 0 and 1 (two's-complement nibbles), and the column's f32
+    ``scale`` (broadcast against ``words``), to the bf16 weights
+    (..., 4): row r's and row r + 1's low nibble, then their high nibble.
+    Each nibble becomes a float by one AND-XOR of the word with exponent
+    bits, minus a constant (exactly v), times the scale in f32, rounded
+    once to bf16."""
+    w = words.to(torch.int64) & 0xFFFF
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    out = []
+    for mask, bits, sub in _W4_MAGIC:
+        f = ((w & mask) ^ bits).to(torch.int32).view(torch.float32)
+        out.append(((f - sub) * scale).to(torch.bfloat16))
+    return torch.stack(out, -1)
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -1308,8 +1470,9 @@ def fused_norm_qkv_a4_reference(x, norm_w, w, m, s, group_size: int = 512, eps: 
 
 def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
                        out_dtype):
-    """Launch `csrc/fused_head.cu` (``a4``: the int4 head); returns (out,
-    h_q, h_s)."""
+    """Launch `csrc/fused_head.cu` (``a4``: the int4 head): the prologue,
+    which also writes the tile's staged operand (as `mma_staged_operand`
+    mirrors), then the tensor-core tile; returns (out, h_q, h_s)."""
     layer = int(layer)
     M, K = x.shape
     L, _, N = w_packed.shape
@@ -1334,28 +1497,17 @@ def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group
     h_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     h_s = torch.empty((M,), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    lib = _build.lib("fused_head")
-    if a4:  # the tensor-core tile, planned as row 1's GEMV
-        name = "fused_norm_qkv_a4"
-        plan = mma_plan(M, K, N, g, "vertical")
-        xf, partial = _mma_scratch(plan, M, N, dev)
-        err = lib.ff_fused_norm_qkv_a4(
-            x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
-            s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), xf.data_ptr(),
-            None if partial is None else partial.data_ptr(), out.data_ptr(), M, K, N, layer, g,
-            n_pack, plan.n_split, manual_depth(plan, _MMA_DEPTH), 1.0 / K, float(eps),
-            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
-        )
-    else:  # the dp4a tile
-        name = "fused_norm_qkv"
-        n_split = gemv_split(M, N, K // unit, g)
-        partial = torch.empty((n_split, M, N), dtype=torch.int32, device=dev)
-        err = lib.ff_fused_norm_qkv(
-            x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
-            s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), M, K, N, layer, g, n_pack, n_split, 1.0 / K, float(eps),
-            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
-        )
+    # the tensor-core tile, planned as row 1's (vertical) or row 9's (paired) GEMV
+    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
+    plan = mma_plan(M, K, N, g, "vertical" if a4 else "paired")
+    xf, partial = _mma_scratch(plan, M, N, dev)
+    err = getattr(_build.lib("fused_head"), f"ff_{name}")(
+        x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
+        s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), xf.data_ptr(),
+        None if partial is None else partial.data_ptr(), out.data_ptr(), M, K, N, layer, g,
+        n_pack, plan.n_split, manual_depth(plan, _MMA_DEPTH), 1.0 / K, float(eps),
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
     _build.launch_counts[name] += 1
     _build.check(err, name)
     return out, h_q, h_s
@@ -1382,7 +1534,9 @@ def fused_norm_qkv_stacked(x, norm_w, w_packed, mult_packed, s_col, layer,
     weights (L, K//2, N), nibble-packed multipliers (L, ceil(K/g/8), N) and
     column scales (L, N); x (M, K) is the residual stream before the input
     norm, norm_w (L, K). On the card `csrc/fused_head.cu` (bf16 x and
-    norm; the product on the dp4a tile of `csrc/common.cuh`), bit-exact
+    norm): the norm and quantization prologue, which stages the
+    activations itself, then row 9's GEMV on the int8 tensor-core tile
+    (`csrc/w4a8_mma.cuh`, paired layout, planned by `mma_plan`); bit-exact
     against `fused_norm_qkv_reference`."""
     return _fused_head(False, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
                        out_dtype)
@@ -1394,8 +1548,9 @@ def fused_norm_qkv_stacked_a4(x, norm_w, w_packed, mult_packed, s_col, layer,
     """The A4 layer head in one call (`matmul.py:2539`): int4 row
     quantization and the vertical-layout W4A4 GEMV; operands as
     `fused_norm_qkv_stacked`. On the card `csrc/fused_head.cu`: the norm
-    and quantization prologue, then row 1's GEMV on the int8 tensor-core
-    tile (`csrc/w4a8_mma.cuh`, planned by `mma_plan`); bit-exact against
+    and quantization prologue, which stages the activations itself, then
+    row 1's GEMV on the int8 tensor-core tile (`csrc/w4a8_mma.cuh`,
+    vertical layout, planned by `mma_plan`); bit-exact against
     `fused_norm_qkv_a4_reference`."""
     return _fused_head(True, x, norm_w, w_packed, mult_packed, s_col, layer, group_size, eps,
                        out_dtype)

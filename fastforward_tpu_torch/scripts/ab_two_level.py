@@ -1,7 +1,7 @@
 """A/B of the two-level int4 GEMVs and the INT8 flash decode between two
 checkouts, on one card.
 
-    python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve] [--out DIR]
+    python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve] [--splits] [--out DIR]
     python3 fastforward_tpu_torch/scripts/ab_two_level.py --compare A B [--out DIR]
 
 Run it as a file, not with ``-m``: it imports ``chip_smoke`` and
@@ -22,13 +22,17 @@ bench.py's decode, and B = 8 at 33-64, run (c)'s), row 20 (the per-layer
 form at B = 192) and row 22 (paged flash decode at the engine's decode:
 B = 32, 39 pages of 256 tokens, lengths 17-160 and two rows of 300 and
 512), row 12 (the fused A4 layer head, K 4096, N 6144, g512, M = 192, 64
-and 8) and row 13 (the fused W4A8 head, g128, M = 192), row 17 (the W4
-GEMV over the four fused projections, g128, M = 192) and row 18t (the
-tiled W4A16 GEMM over the four fused projections, g128, M = 192 x 128 =
-24,576, bf16 out), each line tagged TAG. Inputs come from one seed, so
-two trees time the same integers; run them in turns on one card (A, B, B,
-A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c), (k) and (n) on
-their seeds and saves the greedy tokens and prefill logits under DIR
+and 8) and row 13 (the fused W4A8 head, g128, M = 192, 64 and 8), row 17
+(the W4 GEMV over the four fused projections, g128, M = 192 and 8, with
+its caller-visible median; and on the lm_head, f32 out, M = 192) and row
+18t (the tiled W4A16 GEMM over the four fused projections, g128, M = 192
+x 128 = 24,576, bf16 out), each line tagged TAG. Inputs come from one
+seed, so two trees time the same integers; run them in turns on one card
+(A, B, B, A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c),
+(k), (n), (f) and (l) on
+their seeds and saves the greedy tokens and prefill logits under DIR;
+``--splits`` times row 17 at each K split of 1-8 (the four projections,
+M = 192 and 8)
 (default build/ab_two_level); ``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
 prefill logits are bit-equal, and exits 1 where the logits differ. Needs
@@ -204,7 +208,7 @@ def main():
 
         # rows 12 and 13: the fused layer heads, layer 1 of 2
         K, N = cs.PROJ["qkv"]
-        for a4, g, ms in ((True, 512, (cs.BATCH, 64, 8)), (False, 128, (cs.BATCH,))):
+        for a4, g, ms in ((True, 512, (cs.BATCH, 64, 8)), (False, 128, (cs.BATCH, 64, 8))):
             w = ri(-128, 128, (2, K // 2, N))
             mp = pack_mult_nibbles(ri(1, 16, (2, K // g, N))).contiguous()
             s = torch.rand((2, N), generator=gen, device=dev) * 1e-3
@@ -215,10 +219,11 @@ def main():
                     lambda: mm._fused_head_launch(a4, x, norm, w, mp, s, 1, g, 1e-5,
                                                   torch.bfloat16)))
             del w
-        # rows 17 and 18t: the W4 GEMV at the decode, the tiled W4A16 GEMM at
-        # bench.py's w4a16 prefill, four projections each
-        for row, M in (("17", cs.BATCH), ("18t", cs.BATCH * cs.PROMPT)):
-            total = 0.0
+        # rows 17 and 18t: the W4 GEMV at the decode (M = 192 and 8; the
+        # caller-visible median too), the tiled W4A16 GEMM at bench.py's
+        # w4a16 prefill, four projections each; then row 17 on the f32 lm_head
+        for row, M in (("17", cs.BATCH), ("17", 8), ("18t", cs.BATCH * cs.PROMPT)):
+            total = call = 0.0
             for K, N in cs.PROJ.values():
                 w = ri(-128, 128, (K // 2, N))
                 s = torch.rand((K // 128, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
@@ -226,9 +231,44 @@ def main():
                 fn = mm.matmul_w4_gemv if row == "17" else mm.matmul_w4a16_tiled
                 total += device_ms(lambda: fn(x, w, s, group_size=128),
                                    n=30 if row == "17" else 10)
+                call += cs.median_ms(lambda: fn(x, w, s, group_size=128)) if row == "17" else 0.0
                 del w, x
             show(f"row {row} 4 projections g128 M={M}", total)
+            if row == "17":
+                print(f"AB[{tag}] row 17 4 projections g128 M={M}: caller-visible {call:.4f} ms",
+                      flush=True)
+        K, N = cs.PROJ["qkv"][0], cs.VOCAB
+        w = ri(-128, 128, (K // 2, N))
+        s = torch.rand((K // 128, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+        x = torch.randn((cs.BATCH, K), generator=gen, device=dev).to(torch.bfloat16)
+        show(f"row 17 lm_head g128 f32 M={cs.BATCH}", device_ms(
+            lambda: mm.matmul_w4_gemv(x, w, s, group_size=128, out_dtype=torch.float32)))
+        del w, x
         torch.cuda.empty_cache()
+
+    if "--splits" in sys.argv and hasattr(mm, "w4_plan"):
+        # row 17 by K split (1-8: the plan's own and the others), four
+        # projections at M = 192 and 8, device ms per projection
+        plan_of = mm.w4_plan
+        for M in (cs.BATCH, 8):
+            for name, (K, N) in cs.PROJ.items():
+                w = ri(-128, 128, (K // 2, N))
+                s = torch.rand((K // 128, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                own = plan_of(M, K, N, 128).n_split
+                times = {}
+                for split in range(1, 9):
+                    plan = plan_of(M, K, N, 128, split)
+                    if plan.n_split in times:
+                        continue
+                    mm.w4_plan = lambda *a, plan=plan: plan
+                    try:
+                        times[plan.n_split] = device_ms(lambda: mm.matmul_w4_gemv(x, w, s, 128))
+                    finally:
+                        mm.w4_plan = plan_of
+                print(f"AB[{tag}] row 17 {name} M={M} by split (the plan's {own}): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+                del w, x
 
     if "--serve" in sys.argv:
         from fastforward_tpu_torch.models.llama import LlamaConfig
@@ -240,7 +280,9 @@ def main():
                 ("b", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, {}),
                 ("c", "w4a4_2l", 512, 8, 32, None, {}),
                 ("k", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, cs.FLAGS_K),
-                ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N)):
+                ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N),
+                ("f", "w4a16", 128, cs.BATCH, cs.PROMPT, None, {}),
+                ("l", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_L)):
             t0 = time.perf_counter()
             with cs.flag_env(**flags):
                 path = cs.ServePath.random(config, mode, g, 0, dev, kv)

@@ -10,8 +10,9 @@ need not have). Tolerances: the GEMVs (the unpaired two-level one too, and
 every route of the stacked W4A8 GEMV: flat, pre-blocked, the manual stream
 and split-W), the W8A8 GEMM, argmax ids, the dequants (the pre-blocked one
 too) and the KV appends (slab, per-layer and paged) are bit-equal; the W4 GEMV
-(w4a16) is within 1e-4 of its largest output in f32, one bf16 ulp more in
-bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
+(w4a16, wgmma: every token tile edge, split and unsplit, the same bits
+call to call) is within 1e-4 of its largest output in f32, one bf16 ulp
+more in bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
 and bf16 K/V) are within one bf16 ulp of the largest output (rtol 8e-3),
 and paged flash decode gives the slab kernel's bits over the same tokens.
 The fused layer tail: x1 bit-equal, the int8 activations hq and x2 within
@@ -21,8 +22,9 @@ concat-pairs routes are bit-equal too (either layout; the last unit of a
 concat-pairs split shorter), and so is every route of the int4/int8 dot
 probe; the tiled W4A16 kernel (wgmma) is held as the W4 GEMV (its bias
 epilogue exactly) at every edge of its 128 x 128 tiles and its 128-k
-stages. The fused A4 layer head runs its product on the tensor-core tile
-and stays bit-equal, as the W4A8 head does on the dp4a tile. The A4 GEMV and the argmax head run the tensor-core tile
+stages. Both fused layer heads run their product on the tensor-core tile
+(the A4 head on the vertical layout, the W4A8 head on the paired one),
+their prologue staging its operand, and stay bit-equal at every M = 1-256. The A4 GEMV and the argmax head run the tensor-core tile
 (its vertical layout and its argmax epilogue): bit-equal, token ids equal
 to torch.argmax of the f32 logits, ties and NaNs included. Every route
 of the stacked W4A8 GEMV runs that tile too (bit-equal at the 8B widths,
@@ -1323,7 +1325,7 @@ def test_w4a16_wgmma_kernel_prefill_shape(dev, out_dtype):
 @pytest.mark.parametrize("M", [1, 8, 64, 192, 256])
 def test_fused_heads_bit_equal_at_the_decode_rows(dev, a4, g, N, M):
     # the A4 head (its product on the tensor-core tile: N = 6148 takes the
-    # tile's cp.async feed) and the W4A8 head (the dp4a tile) at
+    # tile's cp.async feed) and the W4A8 head (the same tile, paired) at
     # Llama-3-8B's K: output, hq and its scale bit-equal to the plain
     # version, each call counted once
     K = 4096
@@ -1509,3 +1511,64 @@ def test_flash_decode_rejects_unaligned_kv(dev):
     shifted.copy_(k)
     with pytest.raises(ValueError, match="16-byte"):
         att.flash_decode_int8_stacked(q, shifted, ks, v, vs, lengths, 1)
+
+
+# --- the wgmma W4 GEMV (row 17) and the W4A8 head on the tensor-core tile
+# (row 13)
+
+
+@pytest.mark.parametrize("M", [1, 8, 63, 65, 192, 256])
+@pytest.mark.parametrize("K,N,g", [(4096, 6144, 128), (4096, 4100, 128), (14336, 4096, 128),
+                                   (1024, 136, 64), (320, 40, 32)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [None, 1, 8])
+def test_w4_gemv_wgmma_kernel_within_tolerance(dev, monkeypatch, M, K, N, g, out_dtype, split):
+    # token tiles of 8 and sub-tiles of 64 cut at every edge, N % 16 != 0
+    # (the cp.async feed: 4100, 40), column blocks of 128 cut (136, 40),
+    # K = 10 g at g32 (a last stage of 64 k); the plan's split, one split
+    # and the most the cluster takes: within W4_GEMV_RTOL (bf16 one ulp
+    # more) of the plain version, the same bits call to call, each call
+    # counted once
+    plan = mm.w4_plan(M, K, N, g, split)
+    monkeypatch.setattr(mm, "w4_plan", lambda *a: plan)
+    gen = _gen(dev, M + K + N + g)
+    w, s = _w4(gen, K, N, g, dev)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.launch_counts["w4_gemv"]
+    out = mm.matmul_w4_gemv(x, w, s, g, out_dtype)
+    again = mm.matmul_w4_gemv(x, w, s, g, out_dtype)
+    assert _build.launch_counts["w4_gemv"] == before + 2
+    assert out.dtype == out_dtype and torch.equal(out, again)
+    ref32 = mm.matmul_w4_gemv_reference(x, w, s, g, torch.float32)
+    tol = W4_GEMV_RTOL * ref32.abs().max()
+    if out_dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(ref32)
+    assert ((out.float() - ref32).abs() <= tol).all()
+
+
+def test_w4_gemv_rejects_more_than_the_gemv_rows(dev):
+    gen = _gen(dev, 257)
+    w, s = _w4(gen, 256, 64, 128, dev)
+    x = torch.randn((257, 256), generator=gen, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="M <= 256"):
+        mm.matmul_w4_gemv(x, w, s, 128)
+
+
+@pytest.mark.parametrize("a4", [False, True])
+@pytest.mark.parametrize("M", range(1, 257))
+def test_fused_heads_on_the_tile_bit_equal_at_every_decode_row(dev, a4, M):
+    # both heads' prologues stage the tile's operand themselves (no staging
+    # launch): output, hq and its scale bit-equal to the plain version at
+    # Llama-3-8B's widths (W4A8 g128, A4 g512), each call counted once
+    K, N, g = 4096, 6144, 512 if a4 else 128
+    x, norm, w, mp, s = _head_case(dev, M, K, N, g, 7 * M + a4)
+    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
+    quant = mm.quantize_rowwise_a4 if a4 else mm.quantize_rowwise
+    before = _build.launch_counts[name]
+    out, hq, hs = mm._fused_head_launch(a4, x, norm, w, mp, s, 1, g, 1e-5, torch.float32)
+    assert _build.launch_counts[name] == before + 1
+    rq, rs = mm._norm_quant(x, norm[1], 1e-5, quant)
+    assert torch.equal(hq, rq) and torch.equal(hs, rs)
+    ref = (mm.fused_norm_qkv_a4_reference if a4 else mm.fused_norm_qkv_reference)(
+        x.float(), norm[1], w[1], unpack_mult_nibbles(mp[1], K // g), s[1], g)
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
