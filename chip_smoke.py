@@ -33,9 +33,12 @@ each raising on failure:
    route of the int4/int8 dot probe (dp4a, int8, int4 and bf16 mma.sync)
    bit-equal, its TOP/s and the tensor-core instructions ptxas chose for
    each route logged;
-   the fused layer tail and the fused o + gate/up head with x1 bit-equal,
-   their int8 activations within one level in a stated share of elements
-   and their output within rtol 8e-3; the fused layer heads (W4A8, A4;
+   the fused layer tail and the fused o + gate/up head (their products
+   the int8 tensor-core tile: IMMA and no IDP4A in the SASS of the tail's
+   library) with x1 bit-equal, their int8 activations within one level in
+   a stated share of elements and their output within rtol 8e-3, each
+   call's device time logged by kernel beside the unfused route's on the
+   same tile; the fused layer heads (W4A8, A4;
    both products the int8 tensor-core tile, IMMA in its SASS) with
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
@@ -805,8 +808,8 @@ def _tiled_w4a16_kernel(dev, gen, randint):
 
 
 def _sass_mma(lib_path):
-    """{kernel: {tensor-core instruction: count}} of a built library, from
-    cuobjdump's SASS; empty when cuobjdump is missing."""
+    """{kernel: {tensor-core or dp4a instruction: count}} of a built
+    library, from cuobjdump's SASS; empty when cuobjdump is missing."""
     import re
     import shutil
 
@@ -821,22 +824,28 @@ def _sass_mma(lib_path):
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"\b([IH]G?MMA\.[\w.]+)", line)
+        m = re.search(r"\b([IH]G?MMA\.[\w.]+|IDP4A[\w.]*)", line)
         if m and name is not None:
             found.setdefault(name, collections.Counter())[m.group(1)] += 1
     return found
 
 
-def _require_sass(lib_path, kernel, inst):
+def _require_sass(lib_path, kernel, inst, forbid=None):
     """Fail unless every function of the library whose name holds
     ``kernel`` issues tensor-core instructions starting ``inst`` (HGMMA:
-    bf16 wgmma, IMMA: int8 mma.sync); log what each issues."""
-    found = {fn: c for fn, c in _sass_mma(lib_path).items() if kernel in fn}
+    bf16 wgmma, IMMA: int8 mma.sync), and (``forbid``, e.g. IDP4A) unless
+    no function of the library issues an instruction starting ``forbid``;
+    log what each issues."""
+    sass = _sass_mma(lib_path)
+    found = {fn: c for fn, c in sass.items() if kernel in fn}
     for fn, counts in found.items():
-        log(f"SASS of {fn[:90]}: tensor-core instructions {dict(counts)}")
+        log(f"SASS of {fn[:90]}: instructions {dict(counts)}")
     if not found or not all(any(k.startswith(inst) for k in c) for c in found.values()):
         raise AssertionError(f"{kernel} in {lib_path}: no {inst} in the SASS of every instance "
                              f"({len(found)} found)")
+    bad = sorted(fn for fn, c in sass.items() if forbid and any(k.startswith(forbid) for k in c))
+    if bad:
+        raise AssertionError(f"{lib_path}: {forbid} in the SASS of {bad}")
 
 
 def _probe_kernels(dev):
@@ -877,7 +886,7 @@ def _probe_kernels(dev):
     for fn, counts in _sass_mma(_build._lib_path("probe_int4")).items():
         inst = fn.split("probe_kernelILi", 1)[-1].split("E", 1)[0]  # the INST argument
         log(f"probe SASS of the {insts.get(int(inst)) if inst.isdigit() else fn} kernel: "
-            f"tensor-core instructions {dict(counts)}")
+            f"instructions {dict(counts)}")
     return rows
 
 
@@ -949,11 +958,18 @@ def _paged_kernels(dev, gen, randint):
 
 def _fused_tail_kernel(dev, gen, randint):
     """The fused W4A8 layer tail at the 8B widths, M = 8, 32 and 64 rows
-    (the JSON row: M = 32, the engine's decode); layer 1 of 2. Beside it,
-    for information only, the port's unfused route on the same inputs."""
+    (the JSON row: M = 32, the engine's decode); layer 1 of 2. Its three
+    products are the int8 tensor-core tile (IMMA in the SASS of the
+    library's tile, no IDP4A in any of its kernels, or the phase fails); a
+    call's device time is logged by kernel. Beside it, for information
+    only, the port's unfused route on the same inputs (three stacked GEMVs
+    on the same tile and torch glue), caller-visible and on the card."""
+    from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles
     from fastforward_tpu_torch.serving.engine import _rms_norm
+
+    _require_sass(_build._lib_path("fused_tail"), "w4a8_mma_kernel", "IMMA", forbid="IDP4A")
 
     L, H, inter, g, eps = 2, 4096, 14336, 128, 1e-5
     ops, nbytes_w = [], 0
@@ -991,21 +1007,34 @@ def _fused_tail_kernel(dev, gen, randint):
             return x + mm.matmul_w4a8_2l_gemv_stacked(*mm.quantize_rowwise(gated), dn_w, dn_mp,
                                                       dn_sc, 1, group_size=g)
 
+        def kern(attn=attn, x_res=x_res):
+            return mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, eps)
+
         r = measure(
-            "fused_o_mlp", f"M={M} H={H} inter={inter} g={g}",
-            lambda attn=attn, x_res=x_res: mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, eps),
+            "fused_o_mlp", f"M={M} H={H} inter={inter} g={g}", kern,
             lambda attn=attn, x_res=x_res: mm._fused_o_mlp_parts(attn.float(), x_res.float(),
                                                                  *layer_ops, group_size=g, eps=eps),
             nbytes_w + H * 2 + M * H * 2 * 3, 2 * M * (H * H + H * 2 * inter + inter * H),
             INT8_OPS_PER_S, check)
         r["unfused_ms"] = median_ms(unfused)
+        r["unfused_device_ms"] = device_ms(unfused)
         r["level_diffs"] = dict(diffs)
         log(f"fused_o_mlp M={M}: x1 bit-equal; int8 elements one level off: "
             + ", ".join(f"{k} {n} of {t}" for k, (n, t) in diffs.items())
-            + f"; unfused route (3 stacked GEMVs + torch glue) {r['unfused_ms']:.4f} ms")
+            + f"; unfused route (3 stacked GEMVs on the tile + torch glue) {r['unfused_ms']:.4f} "
+            f"ms, device {fmt_ms(r['unfused_device_ms'])}")
+        _log_by_kernel(f"fused_o_mlp M={M}", kern)
         if M == ENGINE_SLOTS:
             rows["fused_o_mlp"] = r
     return rows
+
+
+def _log_by_kernel(what, fn, n=20):
+    """Log the device time of one call of ``fn`` by kernel, from a profile
+    of ``n`` calls that recorded every launch (`launches_per_call`)."""
+    parts = _profile(fn, n, launches_per_call(fn))[1]
+    log(f"{what}, device ms a call by kernel: "
+        + "; ".join(f"{_kernel_name(k)} {ms:.4f} (x{c:.0f})" for ms, c, k in parts))
 
 
 def _greedy_ids_agree(what, logits, ref):
@@ -1262,10 +1291,13 @@ def _fused_route_kernels(dev, gen, randint):
     the outputs within rtol 8e-3); whether the heads' activations and
     outputs came out bit-equal is logged. Library: for the heads, one
     `torch.matmul` of the dequantized activations and weight (the product
-    alone); none for o + gate/up (two products)."""
+    alone); none for o + gate/up (two products), whose device time is
+    logged by kernel beside its unfused route's (two stacked GEMVs on the
+    tile and torch glue)."""
     from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles, unpack_mult_nibbles
+    from fastforward_tpu_torch.serving.engine import _rms_norm
 
     # both heads' products are the tensor-core tile (the template's first
     # argument: 0 the A4 head's vertical layout, 1 the W4A8 head's paired one)
@@ -1314,10 +1346,8 @@ def _fused_route_kernels(dev, gen, randint):
                 f"{'bit-equal' if exact['bit-equal'] else 'not bit-equal'} to the plain version; "
                 f"int{4 if a4 else 8} elements one level off: {diffs['hq'][0]} of {diffs['hq'][1]}; "
                 "library: torch.matmul of the dequantized operands (the product alone)")
-            parts = _profile(lambda x=x: mm._fused_head_launch(a4, x, norm, w, mp, s_col, 1, g, eps,
-                                                               torch.bfloat16), 20)[1]
-            log(f"{name} M={M}, device ms a call by kernel: "
-                + "; ".join(f"{_kernel_name(k)} {ms:.4f} (x{n:.0f})" for ms, n, k in parts))
+            _log_by_kernel(f"{name} M={M}", lambda x=x: mm._fused_head_launch(
+                a4, x, norm, w, mp, s_col, 1, g, eps, torch.bfloat16))
             if M == BATCH:
                 rows[name] = r
         del w, mult, mp, w_bf16
@@ -1344,15 +1374,27 @@ def _fused_route_kernels(dev, gen, randint):
             ok_y, err = within_rtol(out[1], ref[1])
             return ok and ok_y, err
 
+        def kern(attn=attn, x_res=x_res):
+            return mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, eps)
+
+        def unfused(attn=attn, x_res=x_res):
+            x = x_res + mm.matmul_w4a8_2l_gemv_stacked(*mm.quantize_rowwise(attn), o_w, o_mp, o_sc,
+                                                       1, group_size=g)
+            return x, mm.matmul_w4a8_2l_gemv_stacked(
+                *mm.quantize_rowwise(_rms_norm(x, norm[1], eps)), gu_w, gu_mp, gu_sc, 1,
+                group_size=g)
+
         r = measure(
-            "fused_o_gu", f"M={M} H={H} gate/up {2 * inter} g={g}",
-            lambda attn=attn, x_res=x_res: mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, eps),
+            "fused_o_gu", f"M={M} H={H} gate/up {2 * inter} g={g}", kern,
             lambda attn=attn, x_res=x_res: mm._fused_o_gu_parts(attn.float(), x_res.float(),
                                                                 *layer_ops, g, eps),
             nbytes_w + H * 2 + M * H * 2 * 2 + M * H * 4 + M * 2 * inter * 2,
             2 * M * (H * H + H * 2 * inter), INT8_OPS_PER_S, check)
+        r["unfused_ms"], r["unfused_device_ms"] = median_ms(unfused), device_ms(unfused)
         log(f"fused_o_gu M={M}: x1 bit-equal; int8 elements one level off: "
-            f"{diffs['hq'][0]} of {diffs['hq'][1]}")
+            f"{diffs['hq'][0]} of {diffs['hq'][1]}; unfused route (2 stacked GEMVs on the tile + "
+            f"torch glue) {r['unfused_ms']:.4f} ms, device {fmt_ms(r['unfused_device_ms'])}")
+        _log_by_kernel(f"fused_o_gu M={M}", kern)
         if M == BATCH:
             rows["fused_o_gu"] = r
     return rows
@@ -1612,7 +1654,8 @@ def _serve(path, ids, steps, dev):
 # substrings of the device names of the port's CUDA kernels
 PORT_KERNELS = ("gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
-                "flash_prefill_kernel", "fused_tail_kernel", "w8a8_kernel",
+                "flash_prefill_kernel", "tail_quant_kernel", "tail_norm_kernel",
+                "tail_act_kernel", "tail_out_kernel", "w8a8_kernel",
                 "w4a8_halves_kernel", "w4_gemv_wgmma_kernel", "w4a16_wgmma_kernel",
                 "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel")
 

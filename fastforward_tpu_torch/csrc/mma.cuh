@@ -1,6 +1,6 @@
 // Shared device code of the port's tensor-core products (w8a8_gemm.cu,
-// the float-scale entry of w4a8_gemv.cu, w4_gemv.cu) and of the dp4a
-// GEMVs (common.cuh): asynchronous global -> shared copies, the mma.sync
+// the float-scale entry of w4a8_gemv.cu, w4_gemv.cu, w4a8_mma.cuh's
+// two-level tile): asynchronous global -> shared copies, the mma.sync
 // tile products and their operand fragments.
 //
 // Fragments (PTX ISA, mma.m16n8k32 .s8 and mma.m16n8k16 .bf16). In a warp,

@@ -14,9 +14,10 @@
 // chains: R = copies x BM rows fill the card.
 //
 // Routes (INST), each computing the same integers:
-//   kDp4a     dp4a on the CUDA cores, as the two-level GEMVs run today
-//             (common.cuh): a lane owns 4 adjacent columns of 16 rows,
-//             loads 4 byte rows of (K, N) weights and transposes them;
+//   kDp4a     dp4a on the CUDA cores, as the two-level GEMVs ran before
+//             the int8 tensor-core tile: a lane owns 4 adjacent columns
+//             of 16 rows, loads 4 byte rows of (K, N) weights and
+//             transposes them;
 //   kMmaS8    int8 mma.sync.m16n8k32;
 //   kMmaS4    int4 mma.sync.m16n8k64 .s4 (int4 form only): x and w as
 //             packed nibbles;

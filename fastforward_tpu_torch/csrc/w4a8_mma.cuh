@@ -3,9 +3,10 @@
 // ff_w4a8_gemv_argmax (paired, an argmax epilogue) and the stacked GEMV's
 // six routes (ff_w4a8_gemv_stacked, _preblocked, _manual, _splitw,
 // _dotraw, _concat: flat or pre-blocked paired layers), of a4_gemv.cu's
-// ff_a4_gemv (the vertical W4A4 layout), and the product of fused_head.cu's
+// ff_a4_gemv (the vertical W4A4 layout), the product of fused_head.cu's
 // two layer heads (ff_fused_norm_qkv paired, ff_fused_norm_qkv_a4
-// vertical).
+// vertical) and the three products of fused_tail.cu's layer tail
+// (ff_fused_o_mlp, ff_fused_o_gu: paired, partials to its own epilogues).
 //
 // Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_2l_gemv (:571;
 // paired body :537, group-halves body :479, pallas_call :620),
@@ -27,9 +28,9 @@
 // Bound on the H100: Llama-3-8B's lm_head at M = 192 does 2.0e11 int8
 // operations (0.10 ms at 1,979 TOP/s) on 263 MB of packed weights (0.08
 // ms); a decoder layer's projections 8.4e10 (0.042 ms) on 110 MB. The dp4a
-// tile these entries ran before (common.cuh gemv_tile) sat at the CUDA
-// cores' dp4a rate, ~30x those bounds; int8 mma.sync runs 6.2x dp4a on
-// this card (PERF.md, row 24's probe).
+// tile these entries ran before (deleted once the layer tail left it) sat
+// at the CUDA cores' dp4a rate, ~30x those bounds; int8 mma.sync runs 6.2x
+// dp4a on this card (PERF.md, row 24's probe).
 //
 // Design:
 // - Fold. The TPU kernels fold each group's multiplier into the nibbles in
@@ -97,6 +98,9 @@
 //   int32 partials, and common.cuh's epilogue adds them in split order.
 //   With one split the epilogue runs in the tile:
 //   __fmul_rn(__fmul_rn(__int2float_rn(acc), s_col[n]), x_scale[m]).
+//   Output kind kOutPartials (fused_tail.cu) writes every split's partial,
+//   a single split's too, and runs no epilogue: the caller's next kernel
+//   adds them with its own (a residual add or fused multiply-add, SiLU).
 // - The argmax epilogue (ARGMAX, paired): with one split the f32 logits
 //   never leave registers. A row's 8 columns in a lane, then its 4 lanes
 //   (shuffles), then the 4 consumer warps (shared memory: stage 0 of the
@@ -107,6 +111,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <cuda.h>  // CUtensorMap (the encoder is reached through cudaGetDriverEntryPoint)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,6 +132,9 @@ constexpr int kMulSlot = 4 * kN;              // shared bytes of one unit's mult
 constexpr int kUnitsPerStage = kR / 16;       // a stage meets at most this many units
 constexpr int kWBytes = kR * kN;              // weight rows, 128B-swizzled
 constexpr int kMBytes = kUnitsPerStage * kMulSlot;
+// What the tile writes: y as f32 or bf16, or (kOutPartials) the int32
+// partial of every split, one split included, with no epilogue.
+constexpr int kOutF32 = 0, kOutBf16 = 1, kOutPartials = 2;
 
 __host__ __device__ constexpr int a_stage_bytes(int mt) { return kChunks * 2 * mt * kFrag; }
 // (a multiple of 1024 bytes: every stage's weight rows start on the
@@ -315,13 +323,14 @@ __global__ void stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict_
 }
 
 // Row m's words of the staged activations, in stage_x_kernel's order, by
-// the threads of one block (the fused heads' prologue, which stages its
-// own quantized row: no staging launch). xr: the row's K bytes (any memory
-// space), or null for a padding row (zeros). Word (split, stage s, chunk
-// c, plane, half h, tid) holds byte rows i0 + 2 tid + {0, 1, 8, 9} of the
-// half's unit (zeros for padding and rows past the split's units) at lane
-// 4 gid + tid, register 2 h + r16 / 8 of fragment f, as stage_x_kernel's
-// __byte_perm of its 16 rows puts them.
+// the threads of one block (the fused heads' prologue and the fused tail's
+// row kernels, which stage their own quantized rows: no staging launch).
+// xr: the row's K bytes (any memory space), or null for a padding row
+// (zeros). Word (split, stage s, chunk c, plane, half h, tid) holds byte
+// rows i0 + 2 tid + {0, 1, 8, 9} of the half's unit (zeros for padding
+// and rows past the split's units) at lane 4 gid + tid, register 2 h + r16
+// / 8 of fragment f, as stage_x_kernel's __byte_perm of its 16 rows puts
+// them.
 template <int LAYOUT>
 __device__ void stage_row(const int8_t* xr, int8_t* __restrict__ xf, int m, int K, int group,
                           int n_split, int mt) {
@@ -364,8 +373,9 @@ __device__ __forceinline__ void consumers_sync() {
 // pre-blocked (N/bn, K/2, bn); mult int8 (K/g, N) or, PACKED, nibble-packed
 // int32 (n_pack, N). tma: the weights come as `tmap`'s boxes (flat: the
 // (N, K/2) bytes; pre-blocked: the (bn, N/bn * K/2) bytes, bn % kN == 0),
-// else by 4-byte cp.async. n_split > 1: int32 partials (n_split, M, N) for
-// common.cuh's epilogue; else y as f32 (out_bf16 0) or bf16, or with ARGMAX
+// else by 4-byte cp.async. n_split > 1 or out_kind kOutPartials: int32
+// partials (n_split, M, N) for common.cuh's epilogue or the caller's; else
+// y as f32 (out_kind kOutF32) or bf16 (kOutBf16), or with ARGMAX
 // the (max, first index) pair of each row over the block's columns in
 // pair_val, pair_idx (M, n tiles).
 template <int LAYOUT, bool PACKED, int MT, bool ARGMAX>
@@ -374,7 +384,7 @@ w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
                 const int8_t* __restrict__ xf, const float* __restrict__ xs,
                 const int8_t* __restrict__ w, const void* __restrict__ mult,
                 const float* __restrict__ s_col, int32_t* __restrict__ partial,
-                void* __restrict__ out, int out_bf16, int M, int K, int N, int group,
+                void* __restrict__ out, int out_kind, int M, int K, int N, int group,
                 int n_split, int bn, int depth, float* __restrict__ pair_val,
                 int* __restrict__ pair_idx) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -643,7 +653,7 @@ w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
       int v[8];
 #pragma unroll
       for (int c = 0; c < 8; ++c) v[c] = acc[t][c % 4][2 * hr + c / 4];
-      if (n_split > 1) {
+      if (n_split > 1 || out_kind == kOutPartials) {
         int32_t* p = partial + ((size_t)split * M + m) * N + nb;
         if (nb + 8 <= N) {
           reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
@@ -660,7 +670,7 @@ w4a8_mma_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
 #pragma unroll
       for (int c = 0; c < 8; ++c)
         y[c] = nb + c < N ? __fmul_rn(__fmul_rn(__int2float_rn(v[c]), s_col[nb + c]), xm) : 0.f;
-      if (out_bf16)
+      if (out_kind == kOutBf16)
         store8(static_cast<__nv_bfloat16*>(out) + (size_t)m * N, nb, N, y);
       else
         store8(static_cast<float*>(out) + (size_t)m * N, nb, N, y);
@@ -721,10 +731,42 @@ inline bool weight_map(CUtensorMap* map, const int8_t* w, long long cols, long l
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// weight_map through a direct-mapped cache keyed on every argument of the
+// encoding: the map is a function of them alone, so a hit is the map the
+// encoder would give (a refusal is kept too). A decode step asks for the
+// same few hundred maps (a layer's products) every step; the host then
+// encodes each once.
+inline bool cached_weight_map(CUtensorMap* map, const int8_t* w, long long cols, long long rows,
+                              long long pitch) {
+  struct Entry {
+    const int8_t* w;
+    long long cols, rows, pitch;
+    bool ok;
+    CUtensorMap map;
+  };
+  constexpr size_t kEntries = 1024;
+  static Entry cache[kEntries] = {};
+  static std::mutex mu;
+  constexpr size_t kMul = 0x9E3779B97F4A7C15ull;
+  size_t h = reinterpret_cast<uintptr_t>(w) >> 8;
+  h = ((h * kMul + (size_t)cols) * kMul + (size_t)rows) * kMul + (size_t)pitch;
+  Entry& e = cache[(h ^ (h >> 29)) % kEntries];
+  std::lock_guard<std::mutex> lock(mu);
+  if (e.w != w || e.cols != cols || e.rows != rows || e.pitch != pitch) {
+    e.w = w;
+    e.cols = cols;
+    e.rows = rows;
+    e.pitch = pitch;
+    e.ok = weight_map(&e.map, w, cols, rows, pitch);
+  }
+  if (e.ok) *map = e.map;
+  return e.ok;
+}
+
 template <int LAYOUT, bool PACKED, bool ARGMAX, int MT>
 cudaError_t launch_tile(const CUtensorMap& tmap, int tma, const int8_t* xf, const float* xs,
                         const int8_t* w, const void* mult,
-                        const float* s_col, int32_t* partial, void* out, int out_bf16, int M,
+                        const float* s_col, int32_t* partial, void* out, int out_kind, int M,
                         int K, int N, int group, int n_split, int bn, int depth,
                         float* pair_val, int* pair_idx, cudaStream_t stream) {
   const size_t smem = smem_bytes(MT, depth);
@@ -734,7 +776,7 @@ cudaError_t launch_tile(const CUtensorMap& tmap, int tma, const int8_t* xf, cons
   if (err != cudaSuccess) return err;
   const dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + kN - 1) / kN, n_split);
   kernel<<<grid, kThreads, smem, stream>>>(tmap, tma, xf, xs, w, mult, s_col, partial, out,
-                                           out_bf16, M, K, N, group, n_split, bn, depth,
+                                           out_kind, M, K, N, group, n_split, bn, depth,
                                            pair_val, pair_idx);
   return cudaGetLastError();
 }
@@ -766,13 +808,16 @@ cudaError_t check_launch(int M, int K, int N, int group, int n_split, int depth,
 // to pair_val, pair_idx (M, ceil(N / kN)), then argmax_reduce_kernel.
 template <int LAYOUT, bool PACKED, bool ARGMAX = false>
 cudaError_t launch_staged(const float* xs, const int8_t* w, const void* mult, const float* s_col,
-                          const int8_t* xf, int32_t* partial, void* out, int out_bf16, int M,
+                          const int8_t* xf, int32_t* partial, void* out, int out_kind, int M,
                           int K, int N, int group, int n_split, int bn, int depth,
                           cudaStream_t stream, float* pair_val = nullptr,
                           int* pair_idx = nullptr) {
   cudaError_t err =
       check_launch<LAYOUT, ARGMAX>(M, K, N, group, n_split, depth, partial, pair_val, pair_idx);
   if (err != cudaSuccess) return err;
+  if (out_kind < kOutF32 || out_kind > kOutPartials ||
+      (out_kind == kOutPartials && (ARGMAX || partial == nullptr)))
+    return cudaErrorInvalidValue;
   const Plan pl = plan_of(LAYOUT, K, group, n_split);
   const int mt = tiles_of(M);
   // The TMA feed where every padded row is a real row (unit_rows % 16 ==
@@ -783,22 +828,22 @@ cudaError_t launch_staged(const float* xs, const int8_t* w, const void* mult, co
   const int pitch = bn > 0 ? bn : N;
   const bool mult_ok = PACKED || (N % 16 == 0 && reinterpret_cast<uintptr_t>(mult) % 16 == 0);
   const int tma = pl.p16 == pl.unit_rows && mult_ok && (bn == 0 || bn % kN == 0) &&
-                  weight_map(&tmap, w, pitch, bn > 0 ? (long long)(N / bn) * (K / 2) : K / 2,
-                             pitch);
+                  cached_weight_map(&tmap, w, pitch,
+                                    bn > 0 ? (long long)(N / bn) * (K / 2) : K / 2, pitch);
   switch (mt) {
     case 1:
       err = launch_tile<LAYOUT, PACKED, ARGMAX, 1>(tmap, tma, xf, xs, w, mult, s_col, partial,
-                                                   out, out_bf16, M, K, N, group, n_split, bn,
+                                                   out, out_kind, M, K, N, group, n_split, bn,
                                                    depth, pair_val, pair_idx, stream);
       break;
     case 2:
       err = launch_tile<LAYOUT, PACKED, ARGMAX, 2>(tmap, tma, xf, xs, w, mult, s_col, partial,
-                                                   out, out_bf16, M, K, N, group, n_split, bn,
+                                                   out, out_kind, M, K, N, group, n_split, bn,
                                                    depth, pair_val, pair_idx, stream);
       break;
     default:
       err = launch_tile<LAYOUT, PACKED, ARGMAX, 4>(tmap, tma, xf, xs, w, mult, s_col, partial,
-                                                   out, out_bf16, M, K, N, group, n_split, bn,
+                                                   out, out_kind, M, K, N, group, n_split, bn,
                                                    depth, pair_val, pair_idx, stream);
   }
   if (err != cudaSuccess) return err;
@@ -814,8 +859,8 @@ cudaError_t launch_staged(const float* xs, const int8_t* w, const void* mult, co
                                                static_cast<int*>(out));
     return cudaGetLastError();
   }
-  if (n_split == 1) return cudaSuccess;
-  if (out_bf16)
+  if (n_split == 1 || out_kind == kOutPartials) return cudaSuccess;
+  if (out_kind == kOutBf16)
     return launch_gemv_epilogue<__nv_bfloat16, false>(partial, n_split, M, N, s_col, xs,
                                                       static_cast<__nv_bfloat16*>(out), nullptr,
                                                       nullptr, stream);
@@ -829,7 +874,7 @@ cudaError_t launch_staged(const float* xs, const int8_t* w, const void* mult, co
 // cudaErrorInvalidValue.
 template <int LAYOUT, bool PACKED, bool ARGMAX = false>
 cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void* mult,
-                   const float* s_col, int8_t* xf, int32_t* partial, void* out, int out_bf16,
+                   const float* s_col, int8_t* xf, int32_t* partial, void* out, int out_kind,
                    int M, int K, int N, int group, int n_split, int bn, int depth,
                    cudaStream_t stream, float* pair_val = nullptr, int* pair_idx = nullptr) {
   cudaError_t err =
@@ -843,7 +888,7 @@ cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void
       x, xf, M, K, group, n_split, mt, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_staged<LAYOUT, PACKED, ARGMAX>(xs, w, mult, s_col, xf, partial, out, out_bf16, M,
+  return launch_staged<LAYOUT, PACKED, ARGMAX>(xs, w, mult, s_col, xf, partial, out, out_kind, M,
                                                K, N, group, n_split, bn, depth, stream, pair_val,
                                                pair_idx);
 }

@@ -104,15 +104,17 @@ SIGNATURES = {
         "ff_flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, F, P],
     },
     "fused_tail": {
-        # xq, xs, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m,
-        # dn_s, partial, x1, hq, gated, x2, red_a, red_b, scales, out, M, K1,
-        # H, I, L, layer, group, n_pack_o, n_pack_gu, n_pack_dn, split_o,
-        # split_gu, split_dn, eps, out_bf16, stream
-        "ff_fused_o_mlp": [P] * 22 + [I] * 13 + [F, I, P],
-        # xq, xs, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, partial, hq,
-        # red_a, red_b, scales, x1, gu, M, K1, H, I, layer, group, n_pack_o,
-        # n_pack_gu, split_o, split_gu, eps, stream
-        "ff_fused_o_gu": [P] * 17 + [I] * 10 + [F, P],
+        # attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m,
+        # dn_s, scratch xs, scales, x1, hq, x2, xf_o, xf_gu, xf_dn, partial
+        # (matmul.tail_plan's regions), out, M, K1, H, I, layer, group,
+        # n_pack_o, n_pack_gu, n_pack_dn, split_o, split_gu, split_dn,
+        # depth_o, depth_gu, depth_dn, eps, attn_bf16, out_bf16, stream
+        "ff_fused_o_mlp": [P] * 22 + [I] * 15 + [F, I, I, P],
+        # attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, scratch xs,
+        # scales, hq, xf_o, xf_gu, partial, x1, gu, M, K1, H, N_GU, layer,
+        # group, n_pack_o, n_pack_gu, split_o, split_gu, depth_o, depth_gu,
+        # eps, attn_bf16, stream
+        "ff_fused_o_gu": [P] * 17 + [I] * 12 + [F, I, P],
     },
     "fused_head": {
         # x, norm_w, w, mult_packed, s_col, hq, hs, xf (staged activations,

@@ -48,14 +48,6 @@ from fastforward_tpu_torch.kernels.packing import (
 # the prefill path: dequantize to bf16, then a dense product.
 GEMV_MAX_M = 256
 
-# Activation rows and columns one GEMV block covers (csrc/common.cuh kBM, kBN).
-_BLOCK_M, _BLOCK_N = 8, 128
-# Byte rows of packed weight one GEMV split may stage (shared memory cap).
-_SPLIT_ROWS = 2048
-# Blocks a GEMV launch aims to put on the card (132 SMs, a few each).
-_TARGET_BLOCKS = 512
-
-
 def _paired_default(n_groups: int) -> bool:
     return n_groups % 2 == 0
 
@@ -154,27 +146,17 @@ def matmul_w4a4_2l_reference(x_q, x_scale, w_packed, mult, s_col, bias=None,
     return _epilogue(_int_dot(x_q, w8), s_col, x_scale, bias, out_dtype)
 
 
-def gemv_split(M: int, N: int, n_units: int, rows_per_unit: int) -> int:
-    """Number of K splits for a GEMV launch: enough blocks to fill the card,
-    few enough byte rows per split for its shared memory."""
-    tiles = -(-M // _BLOCK_M) * -(-N // _BLOCK_N)
-    want = -(-_TARGET_BLOCKS // tiles)
-    need = -(-n_units * rows_per_unit // _SPLIT_ROWS)
-    n_split = min(n_units, max(want, need))
-    per = -(-n_units // n_split)
-    return -(-n_units // per)
-
-
 # The int8 tensor-core tile of the two-level GEMVs (csrc/w4a8_mma.cuh:
 # kR padded byte rows a ring stage, kN columns a block, kUnitsPerStage
 # multiplier slots of 4 * kN bytes, kFrag bytes an A fragment, 1024 bytes
 # of slack to align the stages).
 _MMA_ROWS, _MMA_N, _MMA_FRAG, _MMA_SLACK = 64, 128, 512, 1024
 _MMA_W_STAGE = _MMA_ROWS * _MMA_N + (_MMA_ROWS // 16) * 4 * _MMA_N
-# Blocks a tensor-core GEMV launch aims for (two on each of the 132 SMs;
-# K is split below it), and the ring stages of every entry but the manual
-# stream's (rows 1, 4 and 5).
-_MMA_TARGET_BLOCKS = 264
+# The H100's SMs. Blocks a tensor-core GEMV launch aims for (two on each
+# SM; K is split below it), and the ring stages of every entry but the
+# manual stream's (rows 1, 4 and 5).
+_SMS = 132
+_MMA_TARGET_BLOCKS = 2 * _SMS
 _MMA_DEPTH = 4
 # Shared memory a block may use on the H100.
 _SMEM_MAX = 232448
@@ -230,11 +212,13 @@ class MmaPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def mma_plan(M: int, K: int, N: int, group_size: int, layout: str) -> MmaPlan:
+def mma_plan(M: int, K: int, N: int, group_size: int, layout: str,
+             n_split: Optional[int] = None) -> MmaPlan:
     """Plan of the tensor-core two-level GEMV on weights of ``layout`` (one
     of `MMA_LAYOUTS`): K is split over whole units only where the (m, n)
     tiles fall short of `_MMA_TARGET_BLOCKS`, each split keeping at least
-    two stages of rows where the units allow."""
+    two stages of rows where the units allow; or into ``n_split`` splits
+    where given (at most one a unit, none empty)."""
     if layout not in MMA_LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}, not one of {MMA_LAYOUTS}")
     paired = layout == "paired"
@@ -243,9 +227,11 @@ def mma_plan(M: int, K: int, N: int, group_size: int, layout: str) -> MmaPlan:
     p16 = -(-unit_rows // 16) * 16
     mt = mma_tiles(M)
     m_tiles, n_tiles = -(-M // (16 * mt)), -(-N // _MMA_N)
-    want = -(-_MMA_TARGET_BLOCKS // (m_tiles * n_tiles))
-    most = max(1, n_units * p16 // (2 * _MMA_ROWS))
-    n_split = max(1, min(n_units, want, most))
+    if n_split is None:
+        want = -(-_MMA_TARGET_BLOCKS // (m_tiles * n_tiles))
+        most = max(1, n_units * p16 // (2 * _MMA_ROWS))
+        n_split = min(want, most)
+    n_split = max(1, min(n_units, n_split))
     # no empty split, and the units a split the kernel derives from n_split
     n_split = -(-n_units // -(-n_units // n_split))
     ups = -(-n_units // n_split)
@@ -1320,20 +1306,62 @@ def _fused_o_mlp_layer(norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
             _layer_mult(dn_mp, dn_w, layer, g), dn_sc[layer])
 
 
+def _tail_product_plan(M: int, K: int, N: int, group_size: int) -> MmaPlan:
+    """`mma_plan` of one of the tail's products, unsplit where its (m, n)
+    tiles already give every SM a block (gate/up: 224 column tiles a row
+    tile). The tile's own target would split it in two below M = 65, and
+    the row kernels would then read twice the partials (or the head's gu
+    take a split epilogue); unsplit measured faster at every row count of
+    rows 10 and 11 (PERF.md §6; ab_two_level.py --splits)."""
+    plan = mma_plan(M, K, N, group_size, "paired")
+    if plan.n_split > 1 and plan.m_tiles * plan.n_tiles >= _SMS:
+        return mma_plan(M, K, N, group_size, "paired", 1)
+    return plan
+
+
+class TailPlan(NamedTuple):
+    """The launch plan of `csrc/fused_tail.cu`: each product's tensor-core
+    tile plan (`mma_plan`, paired layout) and ring depth in launch order
+    (o_proj, gate/up and, for the full tail, down), and its one scratch
+    buffer: (name, byte offset, bytes) of each region in the order of the
+    C entry's arguments, each 256-byte aligned, and the total bytes."""
+    plans: tuple
+    depths: tuple
+    regions: tuple
+    total: int
+
+    @property
+    def splits(self) -> tuple:
+        return tuple(p.n_split for p in self.plans)
+
+
 @functools.lru_cache(maxsize=64)
-def _fused_layout(M, g, shapes, regions):
-    """K splits of the products ``shapes`` ((K, N), ...) of one
-    `csrc/fused_tail.cu` launch and its scratch layout: the split partials,
-    then ``regions`` ((name, bytes), ...) in the argument order of its C
-    entry, each 256-byte aligned. Returns (splits, byte sizes, byte
-    offsets, total bytes)."""
-    splits = tuple(gemv_split(M, N, K // (2 * g), g) for K, N in shapes)
-    sizes = {"partial": 4 * max(s * M * N for s, (_, N) in zip(splits, shapes)), **dict(regions)}
-    offsets, total = {}, 0
-    for name, size in sizes.items():
-        offsets[name] = total
+def tail_plan(M: int, K1: int, H: int, N_GU: int, group_size: int, full: bool = True) -> TailPlan:
+    """Plan of one `csrc/fused_tail.cu` call at M rows: ``full`` the layer
+    tail (``ff_fused_o_mlp``: o_proj (K1, H), gate/up (H, N_GU), down
+    (N_GU / 2, H)), else its o + gate/up head (``ff_fused_o_gu``). Regions:
+    the activation scales ``xs`` (M,), ``scales`` (2, M) (s_h, s_g), the
+    tail's x1 (M, H) f32, ``hq`` (M, H) and the tail's ``x2`` (M, N_GU / 2)
+    int8, each product's staged operand ``xf_*`` (its plan's x_bytes), and
+    the int32 ``partial`` of the largest product that hands its partials
+    to a row kernel (every product of the tail; the head's o_proj, and its
+    gate/up only where that splits)."""
+    g = group_size
+    shapes = ((K1, H), (H, N_GU)) + (((N_GU // 2, H),) if full else ())
+    plans = tuple(_tail_product_plan(M, K, N, g) for K, N in shapes)
+    depths = tuple(manual_depth(p, _MMA_DEPTH) for p in plans)
+    partial = [p.n_split * M * N for p, (_, N) in zip(plans, shapes)]
+    if not full and plans[1].n_split == 1:
+        partial[1] = 0  # the head's gate/up writes gu itself
+    staged = [(f"xf_{name}", p.x_bytes) for name, p in zip(("o", "gu", "dn"), plans)]
+    rows = [("xs", 4 * M), ("scales", 8 * M)]
+    rows += ([("x1", 4 * M * H), ("hq", M * H), ("x2", M * (N_GU // 2))] if full
+             else [("hq", M * H)])
+    regions, total = [], 0
+    for name, size in rows + staged + [("partial", 4 * max(partial))]:
+        regions.append((name, total, size))
         total += -(-size // 256) * 256
-    return splits, sizes, offsets, total
+    return TailPlan(plans, depths, tuple(regions), total)
 
 
 def _check_tail(attn, x_res, norm_w, products, layer, g):
@@ -1360,22 +1388,25 @@ def _check_tail(attn, x_res, norm_w, products, layer, g):
                              f"multiplier pack and N % 4 == 0 (K={K}, N={N}, group={g})")
 
 
-def _scratch(layout, dev):
-    """One scratch buffer of a fused launch: ({region: pointer},
-    view(region, dtype, shape)); the view function holds the buffer."""
-    _, sizes, offsets, total = layout
-    scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
+def _scratch(plan: TailPlan, dev):
+    """One scratch buffer of a fused launch: ([region pointers in argument
+    order], view(region, dtype, shape)); the view function holds the
+    buffer."""
+    scratch = torch.empty((plan.total,), dtype=torch.uint8, device=dev)
+    at = {name: (off, size) for name, off, size in plan.regions}
 
     def view(name, dtype, shape):
-        return scratch[offsets[name]:offsets[name] + sizes[name]].view(dtype).view(shape)
+        off, size = at[name]
+        return scratch[off:off + size].view(dtype).view(shape)
 
-    return {name: scratch.data_ptr() + off for name, off in offsets.items()}, view
+    return [scratch.data_ptr() + off for _, off, _ in plan.regions], view
 
 
 def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
                         dn_sc, layer, group_size, eps):
-    """Launch `csrc/fused_tail.cu`; returns (y in attn's dtype, scratch
-    views x1, hq, s_h, x2, s_g)."""
+    """Launch `csrc/fused_tail.cu` ``ff_fused_o_mlp``; returns (y in
+    attn's dtype, then scratch views x1, hq, s_h, x2, s_g and the staged
+    operands of gate/up and down, int8 (x_bytes,))."""
     layer = int(layer)
     M, K1 = attn.shape
     L, _, H = o_w.shape
@@ -1385,26 +1416,27 @@ def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
     _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
                                       ("gu", gu_w, gu_mp, gu_sc, H, 2 * I),
                                       ("dn", dn_w, dn_mp, dn_sc, I, H)), layer, g)
-    x_q, x_s = quantize_rowwise(attn)
-    n_chunks = -(-max(H, I) // 128)  # the row reductions' 128-column chunks
-    layout = _fused_layout(M, g, ((K1, H), (H, 2 * I), (I, H)), (
-        ("x1", 4 * M * H), ("hq", M * H), ("gated", 4 * M * I), ("x2", M * I),
-        ("red_a", 4 * M * n_chunks), ("red_b", 4 * M * n_chunks), ("scales", 4 * 2 * M)))
-    ptr, view = _scratch(layout, dev)
+    if I % 4 != 0:
+        raise ValueError(f"fused tail needs an intermediate width % 4 == 0, got {I}")
+    plan = tail_plan(M, K1, H, 2 * I, g, True)
+    ptrs, view = _scratch(plan, dev)
     out = torch.empty((M, H), dtype=attn.dtype, device=dev)
+    bf16 = int(attn.dtype == torch.bfloat16)
     err = _build.lib("fused_tail").ff_fused_o_mlp(
-        x_q.data_ptr(), x_s.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
+        attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
         gu_sc.data_ptr(), dn_w.data_ptr(), dn_mp.data_ptr(), dn_sc.data_ptr(),
-        *ptr.values(), out.data_ptr(),
-        M, K1, H, I, L, layer, g, o_mp.shape[1], gu_mp.shape[1], dn_mp.shape[1], *layout[0],
-        float(eps), int(attn.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        *ptrs, out.data_ptr(), M, K1, H, I, layer, g, o_mp.shape[1], gu_mp.shape[1],
+        dn_mp.shape[1], *plan.splits, *plan.depths, float(eps), bf16, bf16,
+        _build.stream_ptr(dev),
     )
     _build.launch_counts["fused_o_mlp"] += 1
     _build.check(err, "fused_o_mlp")
     scales = view("scales", torch.float32, (2, M))
     return (out, view("x1", torch.float32, (M, H)), view("hq", torch.int8, (M, H)), scales[0],
-            view("x2", torch.int8, (M, I)), scales[1])
+            view("x2", torch.int8, (M, I)), scales[1],
+            view("xf_gu", torch.int8, (plan.plans[1].x_bytes,)),
+            view("xf_dn", torch.int8, (plan.plans[2].x_bytes,)))
 
 
 def fused_o_mlp_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
@@ -1414,9 +1446,12 @@ def fused_o_mlp_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
     o_proj(attn)``, on layer ``layer`` of stacked paired two-level weights
     (L, K//2, N) with nibble-packed multipliers and column scales (L, N).
     attn (M, K1); x_res (M, H) bf16; norm_w (L, H) bf16. Returns (M, H) in
-    attn's dtype. On the card `csrc/fused_tail.cu`: x1 bit-equal to the
-    oracle, the int8 hq and x2 within one level where the IEEE rsqrt and
-    exp round differently, y within 8e-3 of its largest value."""
+    attn's dtype. On the card `csrc/fused_tail.cu` ``ff_fused_o_mlp``:
+    its three products on the int8 tensor-core tile (`csrc/w4a8_mma.cuh`,
+    paired, planned by `tail_plan`), a row kernel between each two; x1
+    bit-equal to the oracle, the int8 hq and x2 within one level where the
+    IEEE rsqrt and exp round differently, y within 8e-3 of its largest
+    value."""
     if attn.device.type == "cpu":
         return fused_o_mlp_reference(
             attn.float(), x_res.float(),
@@ -1580,7 +1615,7 @@ def fused_o_gu_reference(attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s,
 def _fused_o_gu_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer,
                        group_size, eps):
     """Launch `ff_fused_o_gu` of `csrc/fused_tail.cu`; returns (x1, gu,
-    hq, s_h)."""
+    then scratch views hq, s_h and gate/up's staged operand)."""
     layer = int(layer)
     M, K1 = attn.shape
     L, _, H = o_w.shape
@@ -1591,24 +1626,21 @@ def _fused_o_gu_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc,
                                       ("gu", gu_w, gu_mp, gu_sc, H, N_GU)), layer, g)
     if N_GU % 2 != 0:
         raise ValueError(f"fused o + gate/up needs an even gate/up width, got {N_GU}")
-    x_q, x_s = quantize_rowwise(attn)
-    n_chunks = -(-H // 128)
-    layout = _fused_layout(M, g, ((K1, H), (H, N_GU)), (
-        ("hq", M * H), ("red_a", 4 * M * n_chunks), ("red_b", 4 * M * n_chunks),
-        ("scales", 4 * 2 * M)))
-    ptr, view = _scratch(layout, dev)
+    plan = tail_plan(M, K1, H, N_GU, g, False)
+    ptrs, view = _scratch(plan, dev)
     x1 = torch.empty((M, H), dtype=torch.float32, device=dev)
     gu = torch.empty((M, N_GU), dtype=torch.bfloat16, device=dev)
     err = _build.lib("fused_tail").ff_fused_o_gu(
-        x_q.data_ptr(), x_s.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
+        attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
-        gu_sc.data_ptr(), *ptr.values(), x1.data_ptr(), gu.data_ptr(),
-        M, K1, H, N_GU // 2, layer, g, o_mp.shape[1], gu_mp.shape[1], *layout[0], float(eps),
-        _build.stream_ptr(dev),
+        gu_sc.data_ptr(), *ptrs, x1.data_ptr(), gu.data_ptr(),
+        M, K1, H, N_GU, layer, g, o_mp.shape[1], gu_mp.shape[1], *plan.splits, *plan.depths,
+        float(eps), int(attn.dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.launch_counts["fused_o_gu"] += 1
     _build.check(err, "fused_o_gu")
-    return x1, gu, view("hq", torch.int8, (M, H)), view("scales", torch.float32, (2, M))[0]
+    return (x1, gu, view("hq", torch.int8, (M, H)), view("scales", torch.float32, (2, M))[0],
+            view("xf_gu", torch.int8, (plan.plans[1].x_bytes,)))
 
 
 def fused_o_gu_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer,
@@ -1619,9 +1651,10 @@ def fused_o_gu_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc,
     layer ``layer`` of stacked paired two-level weights (the caller finishes
     the MLP). attn (M, K1); x_res (M, H) bf16; norm_w (L, H) bf16. Each
     product's multipliers are unpacked to its own K's group count. On the
-    card `ff_fused_o_gu` of `csrc/fused_tail.cu`: x1 bit-equal to the
-    oracle, hq within one level where the row sums round differently, gu
-    within 8e-3 of its largest value."""
+    card `ff_fused_o_gu` of `csrc/fused_tail.cu`: the tail's launches
+    through gate/up on the int8 tensor-core tile (`tail_plan`), x1
+    bit-equal to the oracle, hq within one level where the row sums round
+    differently, gu within 8e-3 of its largest value."""
     if attn.device.type == "cpu":
         layer, g = int(layer), group_size
         return fused_o_gu_reference(

@@ -26,17 +26,23 @@ and 8) and row 13 (the fused W4A8 head, g128, M = 192, 64 and 8), row 17
 (the W4 GEMV over the four fused projections, g128, M = 192 and 8, with
 its caller-visible median; and on the lm_head, f32 out, M = 192) and row
 18t (the tiled W4A16 GEMM over the four fused projections, g128, M = 192
-x 128 = 24,576, bf16 out), each line tagged TAG. Inputs come from one
+x 128 = 24,576, bf16 out), and rows 10 (the fused W4A8 layer tail, M =
+8, 32 and 64) and 11 (its o + gate/up head, M = 192, 64 and 8) at the 8B
+widths, g128, layer 1 of 2, each with its caller-visible median, their
+outputs (y or gu, x1, the int8 activations and their scales) saved under
+DIR; each line tagged TAG. Inputs come from one
 seed, so two trees time the same integers; run them in turns on one card
 (A, B, B, A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c),
-(k), (n), (f) and (l) on
-their seeds and saves the greedy tokens and prefill logits under DIR;
+(k), (n), (f) and (l) on their seeds and the engine workload (d), paged
+and on the slab, and saves the greedy tokens and prefill logits under DIR;
 ``--splits`` times row 17 at each K split of 1-8 (the four projections,
-M = 192 and 8)
+M = 192 and 8), and rows 10 and 11 with their gate/up in one K split and
+in two
 (default build/ab_two_level); ``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
-prefill logits are bit-equal, and exits 1 where the logits differ. Needs
-a CUDA GPU.
+prefill logits are bit-equal, and whether rows 10 and 11 gave the same
+bits, and exits 1 where the logits or those outputs differ. Needs a CUDA
+GPU.
 """
 
 import os
@@ -52,18 +58,28 @@ def _out_dir():
 
 
 def compare(a, b):
-    ra, rb = (torch.load(os.path.join(_out_dir(), f"{t}.pt")) for t in (a, b))
     same = True
-    for run in ra:
-        ta, tb = ra[run]["tokens"], rb[run]["tokens"]
-        differ = ta != tb
-        logits = torch.equal(ra[run]["logits"], rb[run]["logits"])
-        same = same and logits
-        first = differ.long().argmax(dim=1)[differ.any(dim=1)]
-        print(f"AB ({run}) {a} vs {b}: {int(differ.sum())} of {ta.numel()} greedy tokens differ "
-              f"(in {int(differ.any(dim=1).sum())} of {ta.shape[0]} rows, the earliest at step "
-              f"{int(first.min()) if first.numel() else '-'}), prefill logits "
-              f"{'bit-equal' if logits else 'DIFFER'}")
+    path = os.path.join(_out_dir(), "{}.pt")
+    if all(os.path.exists(path.format(t)) for t in (a, b)):
+        ra, rb = (torch.load(path.format(t)) for t in (a, b))
+        for run in ra:
+            ta, tb = ra[run]["tokens"], rb[run]["tokens"]
+            differ = ta != tb
+            first = differ.long().argmax(dim=1)[differ.any(dim=1)]
+            line = (f"AB ({run}) {a} vs {b}: {int(differ.sum())} of {ta.numel()} greedy tokens "
+                    f"differ (in {int(differ.any(dim=1).sum())} of {ta.shape[0]} rows, the "
+                    f"earliest at step {int(first.min()) if first.numel() else '-'})")
+            if "logits" in ra[run]:  # the engine runs keep tokens only
+                logits = torch.equal(ra[run]["logits"], rb[run]["logits"])
+                same = same and logits
+                line += f", prefill logits {'bit-equal' if logits else 'DIFFER'}"
+            print(line)
+    ra, rb = (torch.load(path.format(f"{t}_tail")) for t in (a, b))
+    for label in ra:
+        equal = [torch.equal(x, y) for x, y in zip(ra[label], rb[label])]
+        same = same and all(equal)
+        print(f"AB {label} {a} vs {b}: outputs "
+              + ("bit-equal" if all(equal) else f"DIFFER (equal by output: {equal})"))
     return 0 if same else 1
 
 
@@ -246,6 +262,57 @@ def main():
         del w, x
         torch.cuda.empty_cache()
 
+        # rows 10 and 11: the fused layer tail and its o + gate/up head,
+        # Llama-3-8B widths, g128, layer 1 of 2
+        H, inter, g = 4096, 14336, 128
+        ops = []
+        for K, N in ((H, H), (H, 2 * inter), (inter, H)):
+            ops += [ri(-128, 128, (2, K // 2, N)),
+                    pack_mult_nibbles(ri(1, 16, (2, K // g, N))).contiguous(),
+                    torch.rand((2, N), generator=gen, device=dev) * (4.0 / K)]
+        norm = (torch.rand((2, H), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+        outputs = {}
+        for row, ms in (("10", (8, cs.ENGINE_SLOTS, 64)), ("11", (cs.BATCH, 64, 8))):
+            for M in ms:
+                attn = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+                x_res = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+                if row == "10":  # (y, x1, hq, s_h, x2, s_g)
+                    fn, keep = (lambda: mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g,
+                                                               1e-5)), 6
+                else:  # (x1, gu, hq, s_h)
+                    fn, keep = (lambda: mm._fused_o_gu_launch(attn, x_res, norm, *ops[:6], 1, g,
+                                                              1e-5)), 4
+                show(f"row {row} g{g} M={M}", device_ms(fn))
+                print(f"AB[{tag}] row {row} g{g} M={M}: caller-visible "
+                      f"{cs.median_ms(fn):.4f} ms", flush=True)
+                outputs[f"row {row} M={M}"] = [t.cpu() for t in fn()[:keep]]
+        os.makedirs(_out_dir(), exist_ok=True)
+        torch.save(outputs, os.path.join(_out_dir(), f"{tag}_tail.pt"))
+
+    if "--splits" in sys.argv and hasattr(mm, "_tail_product_plan"):
+        # rows 10 and 11 with their gate/up in one K split (the plan's) and
+        # in two (the tile's own target below M = 65), device ms a call
+        own = mm._tail_product_plan
+        for split in (1, 2):
+            mm._tail_product_plan = lambda M, K, N, g, split=split: (
+                mm.mma_plan(M, K, N, g, "paired", split) if N == 2 * inter else own(M, K, N, g))
+            mm.tail_plan.cache_clear()
+            try:
+                for row, ms in (("10", (8, cs.ENGINE_SLOTS, 64)), ("11", (cs.BATCH, 64, 8))):
+                    for M in ms:
+                        attn = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+                        x_res = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+                        fn = ((lambda: mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, 1e-5))
+                              if row == "10" else
+                              (lambda: mm._fused_o_gu_launch(attn, x_res, norm, *ops[:6], 1, g,
+                                                             1e-5)))
+                        show(f"row {row} g{g} M={M} gate/up split {split}", device_ms(fn))
+            finally:
+                mm._tail_product_plan = own
+                mm.tail_plan.cache_clear()
+    del ops
+    torch.cuda.empty_cache()
+
     if "--splits" in sys.argv and hasattr(mm, "w4_plan"):
         # row 17 by K split (1-8: the plan's own and the others), four
         # projections at M = 192 and 8, device ms per projection
@@ -293,6 +360,19 @@ def main():
                 del path, cache, logits
                 torch.cuda.empty_cache()
             print(f"AB[{tag}] served ({run}) in {time.perf_counter() - t0:.1f} s", flush=True)
+        # (d): bench.py's engine workload, paged and on the slab
+        path = cs.ServePath.random(config, "w4a8_2l", 128, 0, dev)
+        trace = cs._engine_trace(config.vocab_size)
+        for run, paged in (("d paged", True), ("d slab", False)):
+            t0 = time.perf_counter()
+            eng, tokens, _, summary = cs.engine_run(run, config, path.params, path.layers, trace,
+                                                    dev, paged)
+            record[run] = dict(tokens=torch.tensor(tokens))
+            del eng
+            torch.cuda.empty_cache()
+            print(f"AB[{tag}] served ({run}) in {time.perf_counter() - t0:.1f} s, "
+                  f"{summary['tok_s']:.1f} tok/s", flush=True)
+        del path
         os.makedirs(_out_dir(), exist_ok=True)
         torch.save(record, os.path.join(_out_dir(), f"{tag}.pt"))
     return 0

@@ -9,7 +9,7 @@ sign-extends x and w to 4 bits, and its output lies in [-8, 7]). Calls are
 chained ``P4_SCAN`` times, each call's output the next call's x.
 
 Here it runs through each instruction the two-level GEMVs could be built
-on (`csrc/probe_int4.cu`): dp4a (what they use today), int8
+on (`csrc/probe_int4.cu`): dp4a (what they used first), int8
 ``mma.sync.m16n8k32``, int4 ``mma.sync.m16n8k64 .s4`` and bf16
 ``mma.sync.m16n8k16`` (exact: integer operands of at most 128 in
 magnitude, sums below 2**24). Every row is an independent chain, so

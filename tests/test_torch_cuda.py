@@ -15,9 +15,11 @@ call to call) is within 1e-4 of its largest output in f32, one bf16 ulp
 more in bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
 and bf16 K/V) are within one bf16 ulp of the largest output (rtol 8e-3),
 and paged flash decode gives the slab kernel's bits over the same tokens.
-The fused layer tail: x1 bit-equal, the int8 activations hq and x2 within
+The fused layer tail and its o + gate/up head (their products on the int8
+tensor-core tile): x1 bit-equal, the int8 activations hq and x2 within
 one level (the IEEE rsqrt and exp round unlike PyTorch's in a few rows),
-the output within rtol 8e-3. The stacked W4A8 GEMV's dot-raw and
+the output within rtol 8e-3, the staged operands where the tile reads
+them, the same bits call to call. The stacked W4A8 GEMV's dot-raw and
 concat-pairs routes are bit-equal too (either layout; the last unit of a
 concat-pairs split shorter), and so is every route of the int4/int8 dot
 probe; the tiled W4A16 kernel (wgmma) is held as the W4 GEMV (its bias
@@ -451,18 +453,27 @@ def _tail_case(dev, M, K1, H, inter, g, seed):
     return attn, x_res, norm, ops
 
 
+def _tail_plain(attn, x_res, norm, ops, g):
+    layer_ops = mm._fused_o_mlp_layer(norm, *ops, 1, g)
+    return mm._fused_o_mlp_parts(attn.float(), x_res.float(), *layer_ops, group_size=g)
+
+
+def _staged(q, plan, g):
+    """The staged operand of int8 rows ``q`` as the tile reads it."""
+    return mm.mma_staged_operand(q.cpu(), plan, g, "paired").to(q.device)
+
+
 @pytest.mark.parametrize("M,K1,H,inter,g", [
-    (1, 4096, 4096, 14336, 128), (8, 4096, 4096, 14336, 128), (64, 4096, 4096, 14336, 128),
-    (5, 512, 256, 384, 64), (33, 256, 256, 512, 32),
+    (1, 4096, 4096, 14336, 128), (8, 4096, 4096, 14336, 128), (32, 4096, 4096, 14336, 128),
+    (64, 4096, 4096, 14336, 128), (5, 512, 256, 384, 64), (33, 256, 256, 512, 32),
 ])
 def test_fused_o_mlp_kernel(dev, M, K1, H, inter, g):
     attn, x_res, norm, ops = _tail_case(dev, M, K1, H, inter, g, M + H)
     before = _build.launch_counts["fused_o_mlp"]
-    out, x1, hq, hs, x2, gs = mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, 1e-5)
+    out, x1, hq, hs, x2, gs, xf_gu, xf_dn = mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g,
+                                                                   1e-5)
     assert _build.launch_counts["fused_o_mlp"] == before + 1
-    layer_ops = mm._fused_o_mlp_layer(norm, *ops, 1, g)
-    y, rx1, rhq, rhs, rx2, rgs = mm._fused_o_mlp_parts(attn.float(), x_res.float(), *layer_ops,
-                                                       group_size=g)
+    y, rx1, rhq, rhs, rx2, rgs = _tail_plain(attn, x_res, norm, ops, g)
     torch.cuda.synchronize()
     assert torch.equal(x1, rx1)
     for a, b in ((hq, rhq), (x2, rx2)):
@@ -474,20 +485,49 @@ def test_fused_o_mlp_kernel(dev, M, K1, H, inter, g):
     assert out.dtype == torch.bfloat16
     err = (out.float() - y).abs().max().item()
     assert err <= 8e-3 * y.abs().max().item()
+    # the row kernels staged hq and x2 where gate/up's and down's tiles read them
+    plan = mm.tail_plan(M, K1, H, 2 * inter, g, True)
+    assert torch.equal(xf_gu, _staged(hq, plan.plans[1], g))
+    assert torch.equal(xf_dn, _staged(x2, plan.plans[2], g))
     # the public wrapper returns the same output, and again the same bits
     again = mm.fused_o_mlp_stacked(attn, x_res, norm, *ops, 1, group_size=g)
     assert torch.equal(again, out)
 
 
+@pytest.mark.parametrize("M", [8, 32])
+def test_fused_o_mlp_kernel_same_bits_each_call(dev, M):
+    """Two calls on the same inputs give the same bits (y and every
+    intermediate), each counted once; f32 attn and output too."""
+    attn, x_res, norm, ops = _tail_case(dev, M, 4096, 4096, 14336, 128, 21 + M)
+    for a in (attn, attn.float()):
+        before = _build.launch_counts["fused_o_mlp"]
+        first = [t.clone() for t in mm._fused_o_mlp_launch(a, x_res, norm, *ops, 1, 128, 1e-5)]
+        assert _build.launch_counts["fused_o_mlp"] == before + 1
+        second = mm._fused_o_mlp_launch(a, x_res, norm, *ops, 1, 128, 1e-5)
+        assert _build.launch_counts["fused_o_mlp"] == before + 2
+        assert first[0].dtype == a.dtype
+        assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
 def test_fused_o_mlp_kernel_after_other_shapes(dev):
-    """The launch's cached grid and shared-memory attribute: a large tile,
-    then a small one, then the large one again give the first bits."""
+    """The tensor maps cached by weight pointer and shape, and the plans by
+    shape: a large call, a small one, then the large one again give the
+    first bits; weights freed and made anew (the allocator hands back their
+    blocks, under other shapes too) still match the plain version."""
     big = _tail_case(dev, 64, 4096, 4096, 14336, 128, 7)
     small = _tail_case(dev, 5, 512, 256, 384, 64, 8)
     first = mm.fused_o_mlp_stacked(big[0], big[1], big[2], *big[3], 1, group_size=128)
     mm.fused_o_mlp_stacked(small[0], small[1], small[2], *small[3], 1, group_size=64)
     again = mm.fused_o_mlp_stacked(big[0], big[1], big[2], *big[3], 1, group_size=128)
     assert torch.equal(first, again)
+    del big, small
+    for case in ((8, 4096, 4096, 14336, 128, 17), (33, 256, 256, 512, 32, 18),
+                 (5, 512, 256, 384, 64, 19)):
+        M, K1, H, inter, g, seed = case
+        attn, x_res, norm, ops = _tail_case(dev, M, K1, H, inter, g, seed)
+        x1 = mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, 1e-5)[1]
+        assert torch.equal(x1, _tail_plain(attn, x_res, norm, ops, g)[1])
+        del attn, x_res, norm, ops
 
 
 def test_paged_decode_step_takes_the_kernels_at_any_page(dev):
@@ -935,22 +975,27 @@ def _ogu_case(dev, M, K1, H, inter, g, seed):
     return attn, x_res, norm, ops
 
 
+def _ogu_plain(attn, x_res, norm, ops, K1, H, g):
+    o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc = ops
+    return mm._fused_o_gu_parts(
+        attn.float(), x_res.float(), norm[1], o_w[1], unpack_mult_nibbles(o_mp[1], K1 // g),
+        o_sc[1], gu_w[1], unpack_mult_nibbles(gu_mp[1], H // g), gu_sc[1], g)
+
+
 @pytest.mark.parametrize("M,K1,H,inter,g", [
     (1, 4096, 4096, 14336, 128), (8, 4096, 4096, 14336, 128), (64, 4096, 4096, 14336, 128),
-    (192, 4096, 4096, 14336, 128), (256, 4096, 4096, 14336, 128), (5, 512, 256, 384, 64),
-    (33, 256, 256, 512, 32), (72, 2048, 1024, 384, 512),
+    (128, 4096, 4096, 14336, 128), (192, 4096, 4096, 14336, 128),
+    (256, 4096, 4096, 14336, 128), (5, 512, 256, 384, 64), (33, 256, 256, 512, 32),
+    (72, 2048, 1024, 384, 512),
 ])
 def test_fused_o_gu_kernel(dev, M, K1, H, inter, g):
     # x1 bit-equal (the residual add fused with the o_proj epilogue), hq
     # within one level in a few elements, gu within rtol 8e-3; layer 1 of 2
     attn, x_res, norm, ops = _ogu_case(dev, M, K1, H, inter, g, M + K1 + g)
     before = _build.launch_counts["fused_o_gu"]
-    x1, gu, hq, hs = mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, 1e-5)
+    x1, gu, hq, hs, xf_gu = mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, 1e-5)
     assert _build.launch_counts["fused_o_gu"] == before + 1
-    o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc = ops
-    rx1, rgu, rhq, rhs = mm._fused_o_gu_parts(
-        attn.float(), x_res.float(), norm[1], o_w[1], unpack_mult_nibbles(o_mp[1], K1 // g),
-        o_sc[1], gu_w[1], unpack_mult_nibbles(gu_mp[1], H // g), gu_sc[1], g)
+    rx1, rgu, rhq, rhs = _ogu_plain(attn, x_res, norm, ops, K1, H, g)
     torch.cuda.synchronize()
     assert torch.equal(x1, rx1)
     diff = (hq.int() - rhq.int()).abs()
@@ -960,14 +1005,31 @@ def test_fused_o_gu_kernel(dev, M, K1, H, inter, g):
     assert gu.dtype == torch.bfloat16 and tuple(gu.shape) == (M, 2 * inter)
     err = (gu.float() - rgu.float()).abs().max().item()
     assert err <= 8e-3 * rgu.float().abs().max().item()
+    # the norm kernel staged hq where gate/up's tile reads it
+    assert torch.equal(xf_gu, _staged(hq, mm.tail_plan(M, K1, H, 2 * inter, g, False).plans[1], g))
     again = mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 1, group_size=g)
     assert torch.equal(again[0], x1) and torch.equal(again[1], gu)
 
 
+@pytest.mark.parametrize("M", [8, 192])
+def test_fused_o_gu_kernel_same_bits_each_call(dev, M):
+    """Two calls on the same inputs give the same bits, each counted once
+    (gate/up split at M = 8, not at 192); f32 attn too."""
+    attn, x_res, norm, ops = _ogu_case(dev, M, 4096, 4096, 14336, 128, 31 + M)
+    for a in (attn, attn.float()):
+        before = _build.launch_counts["fused_o_gu"]
+        first = [t.clone() for t in mm._fused_o_gu_launch(a, x_res, norm, *ops, 1, 128, 1e-5)]
+        assert _build.launch_counts["fused_o_gu"] == before + 1
+        second = mm._fused_o_gu_launch(a, x_res, norm, *ops, 1, 128, 1e-5)
+        assert _build.launch_counts["fused_o_gu"] == before + 2
+        assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
 def test_fused_o_gu_kernel_after_other_shapes(dev):
-    """The cooperative grid and shared-memory attribute cached per shape: a
-    bench-sized launch, a small one, the fused tail's, then the first again
-    give the first bits."""
+    """The plans and tensor maps cached per shape and pointer: a
+    bench-sized call, a small one, the fused tail's, then the first again
+    give the first bits; weights freed and made anew at other shapes still
+    match the plain version."""
     big = _ogu_case(dev, 192, 4096, 4096, 14336, 128, 9)
     small = _ogu_case(dev, 5, 512, 256, 384, 64, 10)
     first = mm.fused_o_gu_stacked(big[0], big[1], big[2], *big[3], 1, group_size=128)
@@ -976,6 +1038,13 @@ def test_fused_o_gu_kernel_after_other_shapes(dev):
     mm.fused_o_mlp_stacked(tail[0], tail[1], tail[2], *tail[3], 1, group_size=128)
     again = mm.fused_o_gu_stacked(big[0], big[1], big[2], *big[3], 1, group_size=128)
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    del big, small, tail
+    for M, K1, H, inter, g, seed in ((8, 4096, 4096, 14336, 128, 27),
+                                     (72, 2048, 1024, 384, 512, 28), (33, 256, 256, 512, 32, 29)):
+        attn, x_res, norm, ops = _ogu_case(dev, M, K1, H, inter, g, seed)
+        x1 = mm._fused_o_gu_launch(attn, x_res, norm, *ops, 1, g, 1e-5)[0]
+        assert torch.equal(x1, _ogu_plain(attn, x_res, norm, ops, K1, H, g)[0])
+        del attn, x_res, norm, ops
 
 
 def test_fused_o_gu_rejects_what_the_kernel_does_not_take(dev):

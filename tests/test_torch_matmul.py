@@ -166,20 +166,6 @@ def test_w4a8_argmax_ids_bit_exact_with_ties_and_nan():
         assert int(b[5]) == 0
 
 
-@pytest.mark.parametrize("M,N,n_units,rows", [
-    (8, 6144, 8, 256), (8, 4096, 28, 256), (256, 28672, 8, 256), (8, 128256, 4, 512),
-    (1, 64, 2, 16),
-])
-def test_gemv_split_covers_every_unit(M, N, n_units, rows):
-    # GIVEN a GEMV launch shape WHEN split over K THEN every unit lands in
-    # exactly one split and no split stages more rows than shared memory holds
-    n_split = tm.gemv_split(M, N, n_units, rows)
-    per = -(-n_units // n_split)
-    assert 1 <= n_split <= n_units
-    assert (n_split - 1) * per < n_units <= n_split * per
-    assert per * rows <= max(tm._SPLIT_ROWS, rows)
-
-
 def _stacked_two_level(L, K, N, g, seed):
     rs = np.random.RandomState(seed)
     w = rs.randint(-128, 128, (L, K // 2, N)).astype(np.int8)
