@@ -11,8 +11,12 @@ each raising on failure:
    the Llama-3-8B shapes of the serving and engine phases and hold them
    together (GEMVs, the unpaired two-level one too, the W8A8 GEMM, argmax
    ids, the dequants and the KV appends, stacked, per-layer and paged,
-   bit-equal; the W4 GEMV (wgmma, HGMMA in its SASS; also at M = 8)
-   within W4_GEMV_RTOL; flash decode (stacked,
+   bit-equal; the W8A8 GEMM and the float-scale W4A8 GEMV on int8 wgmma
+   (IGMMA and no IMMA in their libraries' SASS), bit-equal also at M = 1,
+   8, 17 and 256 on the four projections and the f32 lm_head, the GEMM at
+   the prefill's M = 24,576, their library the faster of torch._int_mm on
+   the weight as it lies and on a K-major copy; the W4 GEMV (wgmma, HGMMA
+   in its SASS; also at M = 8) within W4_GEMV_RTOL; flash decode (stacked,
    per-layer, paged) and flash prefill (int8 and bf16 K/V) within rtol
    8e-3 of the largest output;
    every route of the stacked W4A8 GEMV (flat, pre-blocked, the manual
@@ -833,7 +837,8 @@ def _sass_mma(lib_path):
 def _require_sass(lib_path, kernel, inst, forbid=None):
     """Fail unless every function of the library whose name holds
     ``kernel`` issues tensor-core instructions starting ``inst`` (HGMMA:
-    bf16 wgmma, IMMA: int8 mma.sync), and (``forbid``, e.g. IDP4A) unless
+    bf16 wgmma, IGMMA: int8 wgmma, IMMA: int8 mma.sync), and (``forbid``,
+    e.g. IDP4A) unless
     no function of the library issues an instruction starting ``forbid``;
     log what each issues."""
     sass = _sass_mma(lib_path)
@@ -1051,19 +1056,41 @@ def _greedy_ids_agree(what, logits, ref):
         raise AssertionError(f"{what}: argmax ids differ where the margin exceeds the error: {wrong}")
 
 
+def _int_mm_yardstick(what, x_q, w):
+    """One torch._int_mm computing x_q @ w (int32, no scales) on the weight
+    as it lies (N-contiguous) and on a K-major copy made outside the timed
+    window (the layout cuBLASLt's int8 GEMM takes): both logged, the faster
+    returned."""
+    wt = w.t().contiguous()
+    n_major = median_ms(lambda: torch._int_mm(x_q, w))
+    k_major = median_ms(lambda: torch._int_mm(x_q, wt.t()))
+    del wt
+    log(f"{what}: library torch._int_mm on the N-contiguous weight {n_major:.4f} ms, on a "
+        f"K-major copy {k_major:.4f} ms")
+    return min(n_major, k_major)
+
+
 def _float_scale_kernels(dev, gen, randint):
     """The kernels of the float-scale modes at the 8B shapes, g128: the
     W8A8 GEMM, the W4A8 halves GEMV and the W4 GEMV over the four fused
     projections at M = 192 (the JSON rows) and the lm_head at M = 192
-    (f32 logits); the W4 GEMV again over the four projections at M = 8
-    (its SASS must show HGMMA: wgmma); the W8A8 GEMM at the prefill's M =
+    (f32 logits); the W8A8 GEMM and the W4A8 GEMV (both int8 wgmma: IGMMA
+    and no IMMA in their libraries' SASS, or the phase fails) also
+    bit-equal at M = 1, 8, 17 and 256 on the four projections and the
+    lm_head; the W4 GEMV again over the four projections at M = 8 (its
+    SASS must show HGMMA: wgmma); the W8A8 GEMM at the prefill's M =
     24,576; the halves dequant (w4a8 and w4a16 prefill) over the four
-    projections."""
+    projections. Library for the int8 products: the faster of
+    torch._int_mm on the N-contiguous weight and on a K-major copy
+    (`_int_mm_yardstick`)."""
+    from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import unpack_int4
 
     g, M = 128, BATCH
     rows, shapes = {}, dict(PROJ, lm_head=(PROJ["qkv"][0], VOCAB))
+    _require_sass(_build._lib_path("w8a8_gemm"), "w8a8_wgmma_kernel", "IGMMA", forbid="IMMA")
+    _require_sass(_build._lib_path("w4a8_halves"), "w4a8_wgmma_kernel", "IGMMA", forbid="IMMA")
 
     def w4(K, N):
         w = randint(-128, 128, (K // 2, N))
@@ -1072,6 +1099,30 @@ def _float_scale_kernels(dev, gen, randint):
 
     def act(M, K):
         return torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    # rows 19 and 16 at the decode's edges: one row, an 8-row tile, a
+    # ragged 17, the GEMV limit (two row tiles of 128; three row blocks)
+    t0, calls = time.perf_counter(), 0
+    for pname, (K, N) in shapes.items():
+        out_dtype = torch.float32 if pname == "lm_head" else torch.bfloat16
+        w8 = randint(-127, 128, (K, N))
+        ws = torch.rand((N,), generator=gen, device=dev) * (0.02 / K ** 0.5)
+        wq, s = w4(K, N)
+        for Me in (1, 8, 17, 256):
+            x_q, x_s = mm.quantize_rowwise(act(Me, K))
+            for name, out, ref in (
+                    ("w8a8_gemm", mm.matmul_w8a8(x_q, x_s, w8, ws, out_dtype=out_dtype),
+                     mm.matmul_w8a8_reference(x_q, x_s, w8, ws, out_dtype=out_dtype)),
+                    ("w4a8_gemv_halves", mm.matmul_w4a8_gemv(x_q, x_s, wq, s, g, out_dtype),
+                     mm.matmul_w4a8_reference(x_q, x_s, wq, s, None, g, out_dtype))):
+                calls += 1
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{name} {pname} M={Me}: kernel disagrees with its plain "
+                                         f"version (err {max_err(out, ref):.3g})")
+        del w8, wq
+    torch.cuda.empty_cache()
+    log(f"w8a8_gemm, w4a8_gemv_halves: bit-equal to their plain versions at M = 1, 8, 17, 256 on "
+        f"the four projections and the f32 lm_head ({calls} calls, {time.perf_counter() - t0:.1f} s)")
 
     per = {k: [] for k in ("w8a8_gemm", "w4a8_gemv_halves", "w4_gemv", "dequant_halves")}
     for pname, (K, N) in shapes.items():
@@ -1086,8 +1137,8 @@ def _float_scale_kernels(dev, gen, randint):
             "w8a8_gemm", f"{pname} M={M} K={K} N={N} {out_dtype}",
             lambda: mm.matmul_w8a8(x_q, x_s, w8, ws, out_dtype=out_dtype),
             lambda: mm.matmul_w8a8_reference(x_q, x_s, w8, ws, out_dtype=out_dtype),
-            M * K + M * 4 + K * N + N * 4 + osz, 2 * M * K * N, INT8_OPS_PER_S, bit_equal,
-            library=lambda: torch._int_mm(x_q, w8))
+            M * K + M * 4 + K * N + N * 4 + osz, 2 * M * K * N, INT8_OPS_PER_S, bit_equal)
+        r["library_ms"] = _int_mm_yardstick(f"w8a8_gemm {pname}", x_q, w8)
         if not head:
             per["w8a8_gemm"].append(r)
         del w8
@@ -1098,7 +1149,9 @@ def _float_scale_kernels(dev, gen, randint):
             lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype),
             lambda: mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, out_dtype),
             M * K + M * 4 + K * N // 2 + s.numel() * 4 + osz, 2 * M * K * N, INT8_OPS_PER_S,
-            bit_equal, library=lambda: torch._int_mm(x_q, w_int8))
+            bit_equal)
+        r["library_ms"] = _int_mm_yardstick(
+            f"w4a8_gemv_halves {pname} (the unpacked int8 weight: no group scales)", x_q, w_int8)
         if not head:
             per["w4a8_gemv_halves"].append(r)
         del w_int8
@@ -1165,7 +1218,8 @@ def _float_scale_kernels(dev, gen, randint):
             lambda: mm.matmul_w8a8(x_q, x_s, w8, ws),
             lambda: mm.matmul_w8a8_reference(x_q, x_s, w8, ws),
             MP * K + MP * 4 + K * N + N * 4 + MP * N * 2, 2 * MP * K * N, INT8_OPS_PER_S,
-            bit_equal, library=lambda: torch._int_mm(x_q, w8), plain_n=2))
+            bit_equal, plain_n=2))
+        pre[-1]["library_ms"] = _int_mm_yardstick(f"w8a8_gemm prefill {pname}", x_q, w8)
         del x_q, w8
         torch.cuda.empty_cache()
     rows["w8a8_gemm"]["prefill"] = add_rows(pre)
@@ -1655,8 +1709,8 @@ def _serve(path, ids, steps, dev):
 PORT_KERNELS = ("gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "kv_append_kernel", "flash_decode_kernel", "dequant_kernel",
                 "flash_prefill_kernel", "tail_quant_kernel", "tail_norm_kernel",
-                "tail_act_kernel", "tail_out_kernel", "w8a8_kernel",
-                "w4a8_halves_kernel", "w4_gemv_wgmma_kernel", "w4a16_wgmma_kernel",
+                "tail_act_kernel", "tail_out_kernel", "w8a8_wgmma_kernel",
+                "w4a8_wgmma_kernel", "w4_gemv_wgmma_kernel", "w4a16_wgmma_kernel",
                 "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel")
 
 
@@ -2206,12 +2260,12 @@ SOURCES = {
                     "fastforward_tpu/kernels/matmul.py:2298"),
     "dequant_halves": ("fastforward_tpu_torch/csrc/dequant.cu",
                        "fastforward_tpu/kernels/matmul.py:1561 (kernel :1535)"),
-    "w4a8_gemv_halves": ("fastforward_tpu_torch/csrc/w4a8_gemv.cu",
-                         "fastforward_tpu/kernels/matmul.py:341 (kernel :312)"),
+    "w4a8_gemv_halves": ("fastforward_tpu_torch/csrc/w4a8_halves.cu",
+                         "fastforward_tpu/kernels/matmul.py:341 (kernel :312, pallas_call :363)"),
     "w4_gemv": ("fastforward_tpu_torch/csrc/w4_gemv.cu",
                 "fastforward_tpu/kernels/matmul.py:262 (kernel :240; routed by :1832)"),
     "w8a8_gemm": ("fastforward_tpu_torch/csrc/w8a8_gemm.cu",
-                  "fastforward_tpu/kernels/matmul.py:95 (kernel :78)"),
+                  "fastforward_tpu/kernels/matmul.py:95 (kernel :78, pallas_call :127)"),
     "kv_append_layer": ("fastforward_tpu_torch/csrc/kv_append.cu",
                         "fastforward_tpu/kernels/kv_update.py:219"),
     "flash_decode_layer": ("fastforward_tpu_torch/csrc/flash_decode.cu",

@@ -1,7 +1,7 @@
-// Shared device code of the port's tensor-core products (w8a8_gemm.cu,
-// the float-scale entry of w4a8_gemv.cu, w4_gemv.cu, w4a8_mma.cuh's
-// two-level tile): asynchronous global -> shared copies, the mma.sync
-// tile products and their operand fragments.
+// Shared device code of the port's tensor-core products (w4a8_mma.cuh's
+// two-level tile, flash decode and prefill, the int4/int8 probe, and the
+// copies and packing of the wgmma kernels): asynchronous global -> shared
+// copies, the mma.sync tile products and their operand fragments.
 //
 // Fragments (PTX ISA, mma.m16n8k32 .s8 and mma.m16n8k16 .bf16). In a warp,
 // lane = 4 * gid + tid. A (16 x k, row-major) and C (16 x 8) cover rows gid
@@ -102,16 +102,6 @@ __device__ __forceinline__ void load_a_bf16(unsigned a[4], const __nv_bfloat16* 
   a[1] = *reinterpret_cast<const unsigned*>(p + 8 * pitch);
   a[2] = *reinterpret_cast<const unsigned*>(p + 8);
   a[3] = *reinterpret_cast<const unsigned*>(p + 8 * pitch + 8);
-}
-
-// Four int8 B registers (n8 tiles j = 0..3) of 4 consecutive k from an
-// N-contiguous tile: `p` points at row k, column 4gid of the warp's 32;
-// one word from each of the 4 rows, transposed.
-__device__ __forceinline__ void load_b_s8(unsigned b[4], const int8_t* p, int pitch) {
-  unsigned r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const unsigned*>(p + i * pitch);
-  transpose4x4(r, b);
 }
 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {

@@ -1,0 +1,495 @@
+// The float-scale W4A8 GEMV (FF_BENCH_MODE=w4a8) on Hopper's int8 warpgroup
+// tensor cores: int8 activations against pack_int4 group-halves weights,
+// each group's int32 dot folded into f32 sums in the jitted oracle's order.
+//
+// Replaces: fastforward_tpu/kernels/matmul.py matmul_w4a8_gemv (:341,
+// kernel _w4a8_gemv_kernel :312, pallas_call :363), which matmul_w4a8
+// takes up to 256 rows.
+//   gd_g[m, n] = sum_{k in group g} x[m, k] * v[k, n]     (int32, exact)
+//   acc[m, n]  = sum_g float(gd_g) * s[g, n]               (f32, fixed order)
+//   y[m, n]    = acc * xs[m]                               (f32 or bf16)
+// x (M <= 256, K) int8, xs (M,) f32, w (K/2, N) in pack_int4's group
+// halves (byte row i of group p: k = pg + i low nibble, pg + g/2 + i high,
+// two's complement), s (K/g, N) f32, g 32, 64 or 128. The group sum runs in
+// the order of the jitted JAX oracle, which the port's
+// matmul_w4a8_reference writes out (kernels/matmul.py _group_sum): up to
+// 32 groups a chain of fused multiply-adds in group order from +0; beyond,
+// the rounded products in windows of 32 (the first shortened by lo = (32
+// ceil(G/32) - G) / 2), each summed in order from +0, then the window sums
+// in order from +0. Bit for bit. The TPU kernel added the same products in
+// group order without fusing.
+//
+// Bound on the H100 at M = 192: a Llama-3-8B layer's four projections read
+// 109 MB of packed weights and 1.7 MB of scales (0.033 ms at 3.35 TB/s)
+// and do 8.4e10 int8 operations (0.042 ms at 1,979 TOP/s): operations, by
+// a little.
+//
+// Design (int8_wgmma.cuh's block: 128 weight columns, two consumer
+// warpgroups of 64, a producer warp, x by TMA):
+// - The nibbles enter wgmma's register operand as signed bytes 16 v (the
+//   high nibble masked in place, the low one shifted up by 4), so the int32
+//   dot is 16 gd exactly (group_dot turns it into the float gd). A 16-row
+//   run of byte rows gives a thread two words (its two columns); their low
+//   nibbles feed the k of the group's first half, their high nibbles the k
+//   g/2 further on.
+// - A group is g/32 m64nNk32 products into a fresh int32 accumulator (the
+//   first with scale-d 0); after their wait each thread folds its own
+//   outputs' group dots into their f32 sums with its columns' two scales:
+//   every output's sum lives in one thread, in group order.
+// - Registers bound the token rows: an int32 accumulator and the f32 sums
+//   (and a window sum beyond 32 groups without a split) are NT/2 each a
+//   thread, so a block takes at most 96 token rows (64 with three sets);
+//   more rows split over blocks (`row_blocks`, kernels/matmul.py
+//   w4a8_plan, which also splits narrow projections' rows to fill the
+//   card). (Two accumulators, one group folded while the next runs, did
+//   not fit: ptxas kept the 168 registers a thread of a 9-warp block gets
+//   even under setmaxnreg, spilled and serialized the products, and the
+//   M = 8 product, whose chain it was to shorten, ran no faster.)
+// - K splits only at window boundaries (33-256 groups): block z of a
+//   cluster sums window z from +0 (Llama-3-8B's down_proj at g128, 112
+//   groups: windows of 24, 32, 32, 24, a cluster of 4), and after a cluster
+//   barrier the window sums are added in window order from +0 through
+//   distributed shared memory. Up to 32 groups (qkv, o and gate/up at K =
+//   4096) the chain cannot split: those products take their parallelism
+//   from column and row blocks alone. Beyond 256 groups one block walks
+//   every window.
+// - The ring's stages hold 128 k: x (one box), the 64 packed byte rows (one
+//   128B-swizzled box; the 4-byte cp.async feed where N % 16 != 0) and the
+//   128/g scale rows. A split starts at its first group, so its last stage
+//   may hold groups of the next window, which it folds with a zero scale.
+
+#include "int8_wgmma.cuh"
+
+namespace ff {
+namespace w4h {
+
+using i8w::kBK;
+using i8w::kBN;
+using i8w::kConsumers;
+using i8w::kRedPitch;
+using i8w::kThreads;
+
+constexpr int kRows = kBK / 2;                 // packed byte rows a stage
+constexpr int kWBytes = kRows * kBN;           // 8 KB
+constexpr int kSBytes = (kBK / 32) * kBN * 4;  // the scale rows at g 32: 2 KB
+constexpr int kWindow = 32;                    // the oracle's window of summation
+constexpr int kMaxRows = 96;                   // token rows a block (64 with three sum sets)
+// How a block folds its group dots (kernels/matmul.py W4A8_FOLDS): one
+// fused multiply-add chain (up to 32 groups, no split); the sum of one
+// window's rounded products, window z in split z; every window in one
+// block (a chain sum and a window sum).
+constexpr int kChain = 0, kWindowSplit = 1, kMulti = 2;
+
+__host__ __device__ constexpr int stage_bytes(int nt) { return nt * kBK + kWBytes + kSBytes; }
+
+// The ring, or the reduction tile (f32 window sums) where K is split,
+// which reuses it; its barriers; the slack to align it to 1024 bytes.
+inline size_t smem_bytes(int nt, int depth, int n_split) {
+  const size_t ring = (size_t)depth * stage_bytes(nt);
+  const size_t red = n_split > 1 ? (size_t)nt * kRedPitch * 4 : 0;
+  return (ring > red ? ring : red) + (size_t)depth * 16 + 1024;
+}
+
+// The first window's shortening and split z's groups [g0, g1).
+__host__ __device__ inline int window_lo(int G) {
+  return ((G + kWindow - 1) / kWindow * kWindow - G) / 2;
+}
+__host__ __device__ inline void split_groups(int fold, int G, int z, int& g0, int& g1) {
+  g0 = 0;
+  g1 = G;
+  if (fold == kWindowSplit) {
+    const int lo = window_lo(G);
+    g0 = kWindow * z - lo > 0 ? kWindow * z - lo : 0;
+    g1 = kWindow * (z + 1) - lo < G ? kWindow * (z + 1) - lo : G;
+  }
+}
+
+// 16 v of the low and of the high nibble of each byte, as signed bytes.
+__device__ __forceinline__ unsigned nib_lo16(unsigned w) { return (w << 4) & 0xF0F0F0F0u; }
+__device__ __forceinline__ unsigned nib_hi16(unsigned w) { return w & 0xF0F0F0F0u; }
+
+// A thread's raw words of one stage: f[b] columns cb, cb + 1 over byte rows
+// 16 b + 4 tid .. + 3.
+__device__ __forceinline__ void load_raw(const unsigned char* sw, const i8w::Lane& l,
+                                         unsigned (&f)[4][2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned c[4];
+    i8w::col_words(sw, l, 32 * h, c);
+    f[2 * h][0] = c[0];
+    f[2 * h][1] = c[1];
+    f[2 * h + 1][0] = c[2];
+    f[2 * h + 1][1] = c[3];
+  }
+}
+
+// The A registers of k32 step t of group q of a stage (rows gid, gid + 8:
+// columns cb, cb + 1; slots 4 tid.. then 16 + 4 tid..), and the step's
+// first k in the stage. g 32: one step, slots 0-15 the low nibbles of the
+// group's 16 byte rows, 16-31 their high nibbles. g 64 and 128: a step is
+// 32 byte rows of one nibble plane (g 64: plane t of group q's rows; g 128:
+// plane t / 2 of chunk t % 2).
+__device__ __forceinline__ void step_regs(int group, int q, int t, const unsigned (&f)[4][2],
+                                          unsigned (&a)[4]) {
+  if (group == 32) {
+    a[0] = nib_lo16(f[q][0]);
+    a[1] = nib_lo16(f[q][1]);
+    a[2] = nib_hi16(f[q][0]);
+    a[3] = nib_hi16(f[q][1]);
+    return;
+  }
+  const int b = group == 64 ? 2 * q : 2 * (t % 2);
+  const bool hi = group == 64 ? t == 1 : t >= 2;
+  a[0] = hi ? nib_hi16(f[b][0]) : nib_lo16(f[b][0]);
+  a[1] = hi ? nib_hi16(f[b][1]) : nib_lo16(f[b][1]);
+  a[2] = hi ? nib_hi16(f[b + 1][0]) : nib_lo16(f[b + 1][0]);
+  a[3] = hi ? nib_hi16(f[b + 1][1]) : nib_lo16(f[b + 1][1]);
+}
+
+__host__ __device__ constexpr int step_k(int group, int q, int t) {
+  return group == 32 ? 32 * q : group == 64 ? 64 * q + 32 * t : 64 * (t / 2) + 32 * (t % 2);
+}
+
+// The f32 sums of a consumer thread: fs its outputs' chain or window sum
+// (MULTI: the closed windows' sum), wsum (MULTI) the open window's.
+template <int NT, bool MULTI>
+struct Sums {
+  float fs[NT / 2];
+  float wsum[MULTI ? NT / 2 : 1];
+};
+
+// gd = acc / 16 as a float, exactly, without the conversion unit (a
+// quarter of the FMA rate): |acc| <= 16 * 8 * 128 * 128 < 2^22, so adding
+// acc to the bits of 1.5 * 2^23 gives the float 1.5 * 2^23 + acc, and one
+// fused multiply-add by 1/16 minus 1.5 * 2^19 leaves acc / 16 (every step
+// exact).
+__device__ __forceinline__ float group_dot(int acc) {
+  return __fmaf_rn(__int_as_float(acc + 0x4B400000), 0.0625f, -786432.0f);
+}
+
+// Fold one group's dots (acc, 16 gd) into the sums with the scales of
+// columns cb (sc.x) and cb + 1 (sc.y); `close` (MULTI): the group opens a
+// window, so the open window's sum joins the closed ones first.
+template <int NT, bool MULTI>
+__device__ __forceinline__ void fold(const int (&acc)[NT / 2], Sums<NT, MULTI>& sm, float2 sc,
+                                     int fold_mode, bool close) {
+  // acc[4i + h] is column cb, acc[4i + 2 + h] column cb + 1
+  if constexpr (MULTI) {
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      if (close) {
+        sm.fs[j] = __fadd_rn(sm.fs[j], sm.wsum[j]);
+        sm.wsum[j] = 0.f;
+      }
+      sm.wsum[j] = __fadd_rn(sm.wsum[j], __fmul_rn(group_dot(acc[j]), j & 2 ? sc.y : sc.x));
+    }
+  } else if (fold_mode == kChain) {
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      sm.fs[j] = __fmaf_rn(group_dot(acc[j]), j & 2 ? sc.y : sc.x, sm.fs[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      sm.fs[j] = __fadd_rn(sm.fs[j], __fmul_rn(group_dot(acc[j]), j & 2 ? sc.y : sc.x));
+  }
+}
+
+// One stage of a consumer warpgroup at GROUP: for each of its groups, the
+// group's products into `acc` (fresh), the wait, the fold. The next
+// stage's raw words go into `nxt` while the stage's last group runs. The
+// groups of the stage past the split's end (g1: a window's last stage may
+// hold the next window's first groups, or k past K) run with a zero scale,
+// so their fold adds +-0, which leaves a sum that is never -0 as it is:
+// no branch around the products. The A registers and scales are pinned
+// before the fence that precedes the products, and the scales are read
+// before the products are issued, so once the last group's products are
+// done every warp of the warpgroup is past its reads of the slot, which
+// then goes back to the producer (one arrival a warpgroup).
+template <int NT, int GROUP, bool MULTI>
+__device__ __forceinline__ void run_stage(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                          int s, int stages, int depth, int gs, int g1, int lo,
+                                          int fold_mode, const i8w::Lane& l, int cb,
+                                          int (&acc)[NT / 2], Sums<NT, MULTI>& sm,
+                                          unsigned (&cur)[4][2], unsigned (&nxt)[4][2]) {
+  constexpr int kStage = stage_bytes(NT), kXBytes = NT * kBK;
+  constexpr int kGps = kBK / GROUP, kSteps = GROUP / 32;
+  const unsigned char* st = smem + (size_t)(s % depth) * kStage;
+  const unsigned xb = smem_u32(st);
+#pragma unroll
+  for (int q = 0; q < kGps; ++q) {
+    unsigned a[kSteps][4];
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) step_regs(GROUP, q, t, cur, a[t]);
+    float2 sc = *reinterpret_cast<const float2*>(st + kXBytes + kWBytes + 4 * (q * kBN + cb));
+    const bool live = gs + q < g1;
+    sc.x = live ? sc.x : 0.f;
+    sc.y = live ? sc.y : 0.f;
+    w4g::fence_reg(sc.x);
+    w4g::fence_reg(sc.y);
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) w4g::fence_reg(a[t][r]);
+    w4g::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t)
+      i8w::Mma<NT>::run(acc, a[t], w4g::x_desc(xb + step_k(GROUP, q, t)), t > 0);
+    w4g::wgmma_commit();
+    if (q == kGps - 1 && s + 1 < stages) {
+      const int slot = (s + 1) % depth;
+      mma8::mbar_wait_or_trap(full + slot, ((s + 1) / depth) & 1);
+      load_raw(smem + (size_t)slot * kStage + kXBytes, l, nxt);
+    }
+    w4g::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) i8w::fence_reg(acc[j]);
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) w4g::fence_reg(a[t][r]);
+    const int gi = gs + q;
+    fold<NT, MULTI>(acc, sm, sc, fold_mode, MULTI && gi > 0 && (gi + lo) % kWindow == 0);
+  }
+  if (threadIdx.x % 128 == 0) mma8::mbar_arrive(empty + s % depth);
+}
+
+// The consumer warpgroups' walk over a split's groups [g0, g1).
+template <int NT, int GROUP, bool MULTI>
+__device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                        int stages, int depth, int g0, int g1, int lo,
+                                        int fold_mode, int cb, int tid, Sums<NT, MULTI>& sm) {
+  constexpr int kGps = kBK / GROUP;
+  const i8w::Lane l = i8w::lane_of(cb, tid);
+  int acc[NT / 2];
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) acc[j] = 0;
+  unsigned f0[4][2], f1[4][2];
+  mma8::mbar_wait_or_trap(full, 0);
+  load_raw(smem + NT * kBK, l, f0);
+  for (int s = 0; s < stages; s += 2) {
+    const int gs = g0 + s * kGps;
+    run_stage<NT, GROUP, MULTI>(smem, full, empty, s, stages, depth, gs, g1, lo, fold_mode, l, cb,
+                                acc, sm, f0, f1);
+    if (s + 1 < stages)
+      run_stage<NT, GROUP, MULTI>(smem, full, empty, s + 1, stages, depth, gs + kGps, g1, lo,
+                                  fold_mode, l, cb, acc, sm, f1, f0);
+  }
+}
+
+// Grid (n_split, column blocks, row_blocks), clusters of (n_split, 1, 1);
+// kThreads threads; dynamic shared memory smem_bytes(NT, depth, n_split).
+// x_map: x (M, K) int8, boxes of 128 k x NT rows; w_map (when w_tma): w's
+// (K/2, N) bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32, boxes of kBN
+// x (kBK / g). Row block z owns token rows [z rows, min(M, (z + 1) rows)),
+// rows = ceil(M / row_blocks) <= NT.
+template <int NT, bool MULTI>
+__global__ void __launch_bounds__(kThreads, NT <= 32 ? 2 : 1)
+w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap s_map, int w_tma,
+                  const int8_t* __restrict__ w, const float* __restrict__ xs,
+                  void* __restrict__ out, int out_bf16, int M, int K, int N, int group,
+                  int row_blocks, int n_split, int fold_mode, int depth) {
+  constexpr int kXBytes = NT * kBK;
+  constexpr int kStage = stage_bytes(NT);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle's 1024-byte period (smem_bytes asks for the slack)
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const size_t ring = (size_t)depth * kStage;
+  const size_t red_bytes = n_split > 1 ? (size_t)NT * kRedPitch * 4 : 0;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (ring > red_bytes ? ring : red_bytes));
+  uint64_t* empty = full + depth;
+  const int G = K / group, lo = window_lo(G), gps = kBK / group;
+  const int split = blockIdx.x, n0 = blockIdx.y * kBN;
+  const int rows = (M + row_blocks - 1) / row_blocks, m0 = blockIdx.z * rows;
+  const int rows_here = min(rows, M - m0);
+  int g0, g1;
+  split_groups(fold_mode, G, split, g0, g1);
+  const int stages = (g1 - g0 + gps - 1) / gps;
+  const int k0 = g0 * group;  // the split's first k
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      // TMA: the producer's one arrival; else also its 32 lanes' cp.async ones
+      mbar_init(full + s, w_tma ? 1 : 33);
+      mbar_init(empty + s, kConsumers);
+    }
+    mma8::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {
+    // ---- the producer warp
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s % depth;
+      if (s >= depth) mma8::mbar_wait_or_trap(empty + slot, ((s / depth) - 1) & 1);
+      unsigned char* st = smem + (size_t)slot * kStage;
+      if (lane == 0) {
+        mma8::mbar_arrive_expect_tx(full + slot,
+                                    kXBytes + (w_tma ? kWBytes : 0) + gps * kBN * 4);
+        mma8::tma_box(st, &x_map, k0 + s * kBK, m0, full + slot);
+        if (w_tma) mma8::tma_box(st + kXBytes, &w_map, n0, k0 / 2 + s * kRows, full + slot);
+        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, g0 + s * gps, full + slot);
+      }
+      if (!w_tma)
+        i8w::copy_weight_rows(st + kXBytes, w, n0, N, k0 / 2 + s * kRows, kRows, K / 2,
+                              full + slot, lane);
+    }
+    if (!w_tma) mma8::cp_async_wait_all();
+    if (n_split == 1) return;
+  } else {
+    // ---- the consumer warpgroups: 64 weight columns each, the block's
+    // token rows
+    const int wg = warp / 4, gid = lane / 4, tid = lane % 4;
+    const int cb = 64 * wg + 16 * (warp % 4) + 2 * gid;  // this thread's columns cb, cb + 1
+    Sums<NT, MULTI> sm;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) sm.fs[j] = 0.f;
+    if constexpr (MULTI) {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) sm.wsum[j] = 0.f;
+    }
+    if (group == 32)
+      consume<NT, 32, MULTI>(smem, full, empty, stages, depth, g0, g1, lo, fold_mode, cb, tid, sm);
+    else if (group == 64)
+      consume<NT, 64, MULTI>(smem, full, empty, stages, depth, g0, g1, lo, fold_mode, cb, tid, sm);
+    else
+      consume<NT, 128, MULTI>(smem, full, empty, stages, depth, g0, g1, lo, fold_mode, cb, tid,
+                              sm);
+    // fs[4i + h] is column cb, fs[4i + 2 + h] column cb + 1, of token row
+    // 8i + 2tid + h of the block
+    const int n = n0 + cb;
+    if (n_split == 1) {
+      if (n >= N) return;  // N % 4 == 0: cb even, so cb + 1 < N too
+#pragma unroll
+      for (int i = 0; i < NT / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * i + 2 * tid + h;
+          if (r >= rows_here) continue;
+          float v0 = sm.fs[4 * i + h], v1 = sm.fs[4 * i + 2 + h];
+          if constexpr (MULTI) {
+            v0 = __fadd_rn(v0, sm.wsum[4 * i + h]);
+            v1 = __fadd_rn(v1, sm.wsum[4 * i + 2 + h]);
+          }
+          const float xm = xs[m0 + r];
+          i8w::store2(out, (size_t)(m0 + r) * N + n, out_bf16, __fmul_rn(v0, xm),
+                      __fmul_rn(v1, xm));
+        }
+      return;
+    }
+    i8w::consumers_sync();  // both warpgroups are past the ring
+    float* red = reinterpret_cast<float*>(smem);  // [NT][kRedPitch]
+#pragma unroll
+    for (int i = 0; i < NT / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(red + (8 * i + 2 * tid + h) * kRedPitch + cb) =
+            make_float2(sm.fs[4 * i + h], sm.fs[4 * i + 2 + h]);
+  }
+
+  // ---- the cluster's reduction (window splits): block `split` adds the
+  // window sums of token rows split, split + n_split, ... in window order
+  // from +0
+  i8w::cluster_sync();
+  const unsigned red_addr = smem_u32(smem);
+  const int mine = split < rows_here ? (rows_here - split + n_split - 1) / n_split : 0;
+  for (int e = threadIdx.x; e < mine * (kBN / 4); e += kThreads) {
+    const int r = split + e / (kBN / 4) * n_split, c4 = 4 * (e % (kBN / 4)), n = n0 + c4;
+    if (n >= N) continue;  // N % 4 == 0
+    const unsigned at = red_addr + (unsigned)(r * kRedPitch + c4) * 4u;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z = 0; z < n_split; ++z) {
+      const uint4 o = i8w::ld_cluster(at, (unsigned)z);
+      v = make_float4(__fadd_rn(v.x, __uint_as_float(o.x)), __fadd_rn(v.y, __uint_as_float(o.y)),
+                      __fadd_rn(v.z, __uint_as_float(o.z)), __fadd_rn(v.w, __uint_as_float(o.w)));
+    }
+    const float xm = xs[m0 + r];
+    i8w::store4(out, (size_t)(m0 + r) * N + n, out_bf16,
+                make_float4(__fmul_rn(v.x, xm), __fmul_rn(v.y, xm), __fmul_rn(v.z, xm),
+                            __fmul_rn(v.w, xm)));
+  }
+  i8w::cluster_sync();  // no block leaves while another reads its tile
+}
+
+// Launch the GEMV on a (M, K) x (K/2, N) product, the plan of
+// kernels/matmul.py w4a8_plan: nt token rows a block (wgmma's n), the rows
+// in row_blocks blocks, n_split K splits (window splits only), the fold, a
+// ring of `depth` stages. x and s must admit a tensor map (16-byte
+// aligned); the weights take the cp.async feed where they do not.
+cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, void* out,
+                   int M, int K, int N, int group, int out_bf16, int nt, int row_blocks,
+                   int n_split, int fold_mode, int depth, cudaStream_t st) {
+  if (M < 1 || N < 4 || N % 4 != 0 || (group != 32 && group != 64 && group != 128) ||
+      K < group || K % group != 0 || row_blocks < 1 || nt < 1 || nt > kMaxRows ||
+      i8w::tile_n(nt) != nt)
+    return cudaErrorInvalidValue;
+  const int G = K / group, gps = kBK / group;
+  const int rows = (M + row_blocks - 1) / row_blocks;
+  if (rows > nt || (row_blocks - 1) * rows >= M || G > kWindow * kWindow) return cudaErrorInvalidValue;
+  const int windows = (G + kWindow - 1) / kWindow;
+  const bool ok = fold_mode == kChain ? G <= kWindow && n_split == 1
+                  : fold_mode == kWindowSplit
+                      ? G > kWindow && windows <= i8w::kMaxSplit && n_split == windows
+                      : fold_mode == kMulti && G > kWindow && n_split == 1 && nt <= 64;
+  if (!ok) return cudaErrorInvalidValue;
+  int most = 0;  // the stages of the longest split
+  for (int z = 0; z < n_split; ++z) {
+    int g0, g1;
+    split_groups(fold_mode, G, z, g0, g1);
+    const int stages = (g1 - g0 + gps - 1) / gps;
+    if (stages > most) most = stages;
+  }
+  // the next stage's weight rows are read before a stage's slot is
+  // released: two slots unless a split streams one stage
+  if (depth < 1 || (depth < 2 && most > 1)) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(nt, depth, n_split);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  CUtensorMap xm = {}, wm = {}, sm = {};
+  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, M, K, kBK, nt,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, G, 4ll * N, kBN, gps,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const int w_tma = mma8::tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, kBN,
+                                     kRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  const int n_tiles = (N + kBN - 1) / kBN;
+  auto run = [&](auto kernel) -> cudaError_t {
+    return i8w::launch_clusters(kernel, n_split, n_tiles, row_blocks, smem, st, xm, wm, sm, w_tma,
+                                static_cast<const int8_t*>(w), static_cast<const float*>(xs),
+                                out, out_bf16, M, K, N, group, row_blocks, n_split, fold_mode,
+                                depth);
+  };
+  if (fold_mode == kMulti) {
+    switch (nt) {
+      case 8: return run(w4a8_wgmma_kernel<8, true>);
+      case 16: return run(w4a8_wgmma_kernel<16, true>);
+      case 32: return run(w4a8_wgmma_kernel<32, true>);
+      case 48: return run(w4a8_wgmma_kernel<48, true>);
+      default: return run(w4a8_wgmma_kernel<64, true>);
+    }
+  }
+  switch (nt) {
+    case 8: return run(w4a8_wgmma_kernel<8, false>);
+    case 16: return run(w4a8_wgmma_kernel<16, false>);
+    case 32: return run(w4a8_wgmma_kernel<32, false>);
+    case 48: return run(w4a8_wgmma_kernel<48, false>);
+    case 64: return run(w4a8_wgmma_kernel<64, false>);
+    default: return run(w4a8_wgmma_kernel<96, false>);
+  }
+}
+
+}  // namespace w4h
+}  // namespace ff
+
+// x (M, K) int8 (16-byte aligned), xs (M,) f32, w (K/2, N) pack_int4,
+// w_scale (K/g, N) f32 (16-byte aligned), out (M, N) f32 or bf16; group 32,
+// 64 or 128; nt, row_blocks, n_split, fold (0 chain, 1 window splits, 2
+// every window in one block) and depth from kernels/matmul.py w4a8_plan.
+extern "C" int ff_w4a8_gemv_halves(const void* x, const void* xs, const void* w,
+                                   const void* w_scale, void* out, int M, int K, int N, int group,
+                                   int out_bf16, int nt, int row_blocks, int n_split, int fold,
+                                   int depth, void* stream) {
+  return ff::w4h::launch(x, xs, w, w_scale, out, M, K, N, group, out_bf16, nt, row_blocks,
+                         n_split, fold, depth, static_cast<cudaStream_t>(stream));
+}

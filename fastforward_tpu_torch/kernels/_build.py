@@ -33,7 +33,8 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "fastforward_tpu_torch"
 
 SOURCES = ("a4_gemv", "w4a8_gemv", "kv_append", "flash_decode", "dequant", "flash_prefill",
-           "fused_tail", "w8a8_gemm", "w4_gemv", "fused_head", "w4a16_gemm", "probe_int4")
+           "fused_tail", "w8a8_gemm", "w4a8_halves", "w4_gemv", "fused_head", "w4a16_gemm",
+           "probe_int4")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,8 +70,12 @@ SIGNATURES = {
         # ring of `depth` stages
         **{f"ff_w4a8_gemv_{route}": [P] * 8 + [I] * 11 + [P]
            for route in ("stacked", "preblocked", "manual", "splitw", "dotraw", "concat")},
-        # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream
-        "ff_w4a8_gemv_halves": [P, P, P, P, P, I, I, I, I, I, P],
+    },
+    "w4a8_halves": {
+        # x, xs, w, w_scale, out, M, K, N, group, out_bf16, nt, row_blocks,
+        # n_split, fold, depth, stream (int8 wgmma; the plan of
+        # matmul.w4a8_plan)
+        "ff_w4a8_gemv_halves": [P] * 5 + [I] * 10 + [P],
     },
     "kv_append": {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts,
@@ -124,8 +129,9 @@ SIGNATURES = {
         **{f"ff_fused_norm_qkv{sfx}": [P] * 10 + [I] * 8 + [F, F, I, P] for sfx in ("", "_a4")},
     },
     "w8a8_gemm": {
-        # x, xs, w, ws, bias (or NULL), out, M, K, N, out_bf16, stream
-        "ff_w8a8_gemm": [P, P, P, P, P, P, I, I, I, I, P],
+        # x, xs, w, ws, bias (or NULL), out, M, K, N, out_bf16, nt, n_split,
+        # depth, group_m, stream (int8 wgmma; the plan of matmul.w8a8_plan)
+        "ff_w8a8_gemm": [P] * 6 + [I] * 8 + [P],
     },
     "w4_gemv": {
         # x, w, w_scale, out, M, K, N, group, n_split, depth, out_bf16,

@@ -6,7 +6,7 @@ the fused layer heads.
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs
 the plain PyTorch version beside it (the port of the JAX oracle), a CUDA
 tensor launches the hand-written kernel (`csrc/a4_gemv.cu`,
-`csrc/w4a8_gemv.cu`, `csrc/w4_gemv.cu`, `csrc/w8a8_gemm.cu`,
+`csrc/w4a8_gemv.cu`, `csrc/w4a8_halves.cu`, `csrc/w4_gemv.cu`, `csrc/w8a8_gemm.cu`,
 `csrc/dequant.cu`, `csrc/fused_tail.cu`, `csrc/fused_head.cu`,
 `csrc/w4a16_gemm.cu`) or raises. There is no fallback
 from one to the other. `matmul_w4a8` and `matmul_w4a16` take the JAX
@@ -817,7 +817,7 @@ def prefill_product(x_q, x_s, w, out_dtype, bias=None):
 # those orders out.
 
 _SUM_WINDOW = 32  # XLA CPU's tree-reduction window
-# Group sizes the tensor-core GEMVs (csrc/w4a8_gemv.cu halves, csrc/w4_gemv.cu) take.
+# Group sizes the tensor-core GEMVs (csrc/w4a8_halves.cu, csrc/w4_gemv.cu) take.
 _MMA_GROUPS = (32, 64, 128)
 
 
@@ -887,7 +887,8 @@ def matmul_w8a8(x_q, x_scale, w_q, w_scale, bias=None, out_dtype=torch.bfloat16)
     """W8A8 matmul (`matmul.py:95`): x_q (M, K) int8 with per-row scale
     x_scale (M,) f32, w_q (K, N) int8 with per-column scale w_scale (N,)
     f32, bias (N,) or None; bf16 or f32 out. On CUDA `csrc/w8a8_gemm.cu`
-    (int8 tensor cores; any M, the decode's and the prefill's), bit-exact
+    (int8 wgmma, the weights transposed into its register operand; any M,
+    the decode's and the prefill's, planned by `w8a8_plan`), bit-exact
     against `matmul_w8a8_reference`."""
     if x_q.device.type == "cpu":
         return matmul_w8a8_reference(x_q, x_scale, w_q, w_scale, bias, out_dtype)
@@ -899,16 +900,21 @@ def matmul_w8a8(x_q, x_scale, w_q, w_scale, bias=None, out_dtype=torch.bfloat16)
     _build.require(w_q, "w_q", torch.int8, (K, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (N,), dev)
     if bias is not None:
-        bias = bias.float().contiguous()
+        bias = _aligned16(bias.float().contiguous())
         _build.require(bias, "bias", torch.float32, (N,), dev)
     if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or K % 16 != 0 or N % 4 != 0:
         raise ValueError(f"W8A8 GEMM kernel needs f32 or bf16 out, M >= 1, K % 16 == 0 and "
                          f"N % 4 == 0 (out={out_dtype}, M={M}, K={K}, N={N})")
+    plan = w8a8_plan(M, K, N)
+    # x reaches the kernel through a tensor map; the split epilogue reads
+    # w_scale and bias four at a time
+    x_q, w_scale = _aligned16(x_q), _aligned16(w_scale)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _build.lib("w8a8_gemm").ff_w8a8_gemm(
         x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N,
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        int(out_dtype == torch.bfloat16), plan.n, plan.n_split, plan.depth, plan.group_m,
+        _build.stream_ptr(dev),
     )
     _build.launch_counts["w8a8_gemm"] += 1
     _build.check(err, "w8a8_gemm")
@@ -939,9 +945,10 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
                      out_dtype=torch.bfloat16):
     """Decode-shaped W4A8 with float per-group scales (`matmul.py:341`):
     x_q (M, K) int8, x_scale (M,) f32, w_packed (K//2, N) `pack_int4`
-    layout, w_scale (K//g, N) f32; bf16 or f32 out. On CUDA the halves
-    entry of `csrc/w4a8_gemv.cu`, bit-exact against
-    `matmul_w4a8_reference` (the same group-sum order)."""
+    layout, w_scale (K//g, N) f32; bf16 or f32 out. On CUDA
+    `csrc/w4a8_halves.cu` (int8 wgmma, each group's dot folded in the
+    oracle's order; rows, K splits at window boundaries and the fold from
+    `w4a8_plan`), bit-exact against `matmul_w4a8_reference`."""
     if x_q.device.type == "cpu":
         return matmul_w4a8_reference(x_q, x_scale, w_packed, w_scale, None, group_size, out_dtype)
     M, K = x_q.shape
@@ -951,15 +958,19 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
     if out_dtype not in (torch.float32, torch.bfloat16) or group_size not in _MMA_GROUPS \
-            or K // group_size > _SUM_WINDOW ** 2:
+            or K // group_size > _SUM_WINDOW ** 2 or M > GEMV_MAX_M:
         raise ValueError(
-            f"W4A8 halves GEMV kernel needs f32 or bf16 out, group 32, 64 or 128 and at most "
-            f"{_SUM_WINDOW ** 2} groups (out={out_dtype}, group={group_size}, K={K})"
+            f"W4A8 halves GEMV kernel needs f32 or bf16 out, group 32, 64 or 128, at most "
+            f"{_SUM_WINDOW ** 2} groups and M <= {GEMV_MAX_M} (out={out_dtype}, "
+            f"group={group_size}, K={K}, M={M})"
         )
+    plan = w4a8_plan(M, K, N, group_size)
+    x_q, w_scale = _aligned16(x_q), _aligned16(w_scale)  # both reach the kernel through tensor maps
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    err = _build.lib("w4a8_gemv").ff_w4a8_gemv_halves(
+    err = _build.lib("w4a8_halves").ff_w4a8_gemv_halves(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16),
+        out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16), plan.n,
+        plan.row_blocks, plan.n_split, W4A8_FOLDS.index(plan.fold), plan.depth,
         _build.stream_ptr(dev),
     )
     _build.launch_counts["w4a8_gemv_halves"] += 1
@@ -979,6 +990,311 @@ def matmul_w4a8(x_q, x_scale, w_packed, w_scale, bias=None, group_size: int = 12
         return out
     w = dequantize_int4(w_packed, w_scale, group_size)
     return prefill_product(x_q, x_scale, w, out_dtype, bias)
+
+
+# The int8 wgmma kernels of rows 19 and 16 (csrc/int8_wgmma.cuh): _I8_BN
+# weight columns a block, _I8_BK k a ring stage (one x box of 128 bytes a
+# token row), a block's token rows rounded up to one of _I8_TILES (wgmma's
+# n). The W8A8 GEMM's stage holds 128 weight rows, the W4A8 GEMV's 64
+# packed byte rows and up to 4 scale rows.
+_I8_BN, _I8_BK, _I8_MAX_DEPTH = 128, 128, 8
+_I8_TILES = (8, 16, 32, 48, 64, 96, 128, 192)
+_I8_RED_PITCH = _I8_BN + 8  # 4-byte words a token row of the split reduction tile
+
+
+def i8_tile(rows: int) -> int:
+    """wgmma's n for ``rows`` token rows (`csrc/int8_wgmma.cuh` tile_n)."""
+    return next(t for t in _I8_TILES if rows <= t)
+
+
+def _i8_smem(n, depth, stage_bytes, n_split):
+    red = n * _I8_RED_PITCH * 4 if n_split > 1 else 0
+    return max(depth * stage_bytes, red) + 16 * depth + 1024
+
+
+def _i8_depth(stage_bytes, most, per_sm, n, n_split, what):
+    """The deepest ring (at most `_I8_MAX_DEPTH` stages, no more than a
+    split streams) that fits the block's share of an SM; two stages where
+    a split streams two or more."""
+    budget = _SM_SMEM // per_sm - _BLOCK_RESERVED
+    depth = min(_I8_MAX_DEPTH, most, (budget - 1024) // (stage_bytes + 16))
+    if depth < min(2, most) or _i8_smem(n, depth, stage_bytes, n_split) > budget:
+        raise ValueError(f"the {what} ring has no room (n={n}, depth={depth})")
+    return depth
+
+
+class W8A8Plan(NamedTuple):
+    """The launch plan of the W8A8 GEMM (`csrc/w8a8_gemm.cu`): the token
+    rows of a tile (wgmma's n: M rounded up by `i8_tile` up to 192 rows,
+    128 for 193-256, 192 above), the blocks an SM holds (two up to n =
+    64), the row and column tiles, the 128-k stages of K, the K splits (the
+    blocks of a cluster), the stages a split streams (the last split
+    fewer), the ring's depth and the row tiles of a visiting group."""
+    n: int
+    per_sm: int
+    m_tiles: int
+    n_tiles: int
+    stages: int
+    n_split: int
+    sps: int
+    depth: int
+    group_m: int
+
+    @property
+    def stage_bytes(self) -> int:
+        return self.n * _I8_BK + _I8_BK * _I8_BN
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the ring (or the reduction
+        tile of a split, which reuses it), its barriers, the alignment
+        slack."""
+        return _i8_smem(self.n, self.depth, self.stage_bytes, self.n_split)
+
+    def stage_ranges(self):
+        """[(first stage, end stage)] of each split, in split order."""
+        return [(z * self.sps, min(self.stages, (z + 1) * self.sps)) for z in range(self.n_split)]
+
+
+def _split_choice(tiles, stages, per_sm, n_split):
+    """(splits, stages a split) of 1-8 K splits over whole stages, none
+    empty, for ``tiles`` column (and row) tiles: the least (waves of
+    clusters, at `W4_CLUSTERS` of them at once) x (stages a block +
+    `_W4_BLOCK_COST`), fewer splits on a tie; or about ``n_split`` where
+    given (the W4 GEMV's and the W8A8 GEMM's plans)."""
+    options = {}
+    for s in range(1, min(_W4_MAX_SPLIT, stages) + 1):
+        sps = -(-stages // s)
+        splits = -(-stages // sps)
+        waves = -(-tiles // W4_CLUSTERS[per_sm][splits - 1])
+        options[splits] = (waves * (sps + _W4_BLOCK_COST), splits, sps)
+    best = min(options.values())
+    if n_split is not None:
+        best = options[max(k for k in options if k <= max(1, n_split))]
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=256)
+def w8a8_plan(M: int, K: int, N: int, n_split: Optional[int] = None) -> W8A8Plan:
+    """Plan of the W8A8 GEMM. Up to 192 rows every token row is on
+    wgmma's n side (one row tile, each weight byte read once a call); up to
+    `GEMV_MAX_M` two row tiles of 128; above, row tiles of 192 (the
+    kernel's largest n, `csrc/int8_wgmma.cuh` kMaxRows). K splits as
+    `_split_choice` picks (about ``n_split`` where given); the row tiles of
+    a group keep the group's x tiles within 16 MB of L2."""
+    if M < 1 or K < 16 or K % 16 or N < 4 or N % 4:
+        raise ValueError(f"no W8A8 GEMM plan for M={M}, K={K}, N={N} (K % 16, N % 4)")
+    n = i8_tile(M) if M <= _I8_TILES[-1] else 128 if M <= GEMV_MAX_M else _I8_TILES[-1]
+    per_sm = 2 if n <= 64 else 1
+    m_tiles, n_tiles, stages = -(-M // n), -(-N // _I8_BN), -(-K // _I8_BK)
+    splits, sps = _split_choice(m_tiles * n_tiles, stages, per_sm, n_split)
+    group_m = max(1, min(16, (16 << 20) // (n * K)))
+    plan = W8A8Plan(n, per_sm, m_tiles, n_tiles, stages, splits, sps, 1, group_m)
+    return plan._replace(depth=_i8_depth(plan.stage_bytes, sps, per_sm, n, splits, "W8A8 GEMM"))
+
+
+# How the W4A8 GEMV's block folds its group dots (`csrc/w4a8_halves.cu`
+# kChain, kWindowSplit, kMulti): up to 32 groups one fused multiply-add
+# chain (K unsplit); 33-256 groups one window's rounded products a block,
+# window z in split z of a cluster, the window sums added in order through
+# distributed shared memory; beyond, every window in one block.
+W4A8_FOLDS = ("chain", "window", "multi")
+
+
+class W4A8Plan(NamedTuple):
+    """The launch plan of the W4A8 GEMV (`csrc/w4a8_halves.cu`): the fold
+    (`W4A8_FOLDS`), wgmma's n, the token rows of a row block and the row
+    blocks, the blocks an SM holds (two up to n = 32), the column blocks,
+    the K splits (window splits only), the first window's shortening, the
+    stages of the longest split and the ring's depth."""
+    fold: str
+    n: int
+    rows: int
+    row_blocks: int
+    per_sm: int
+    n_tiles: int
+    n_split: int
+    lo: int
+    stages: int
+    depth: int
+
+    @property
+    def stage_bytes(self) -> int:
+        return self.n * _I8_BK + _I8_BK // 2 * _I8_BN + _I8_BK // 32 * _I8_BN * 4
+
+    @property
+    def smem_bytes(self) -> int:
+        return _i8_smem(self.n, self.depth, self.stage_bytes, self.n_split)
+
+    def group_ranges(self, n_groups: int):
+        """[(first group, end group)] of each split, in split order: the
+        windows of the oracle's sum where K is split, else every group."""
+        if self.fold != "window":
+            return [(0, n_groups)]
+        return [(max(0, _SUM_WINDOW * z - self.lo), min(n_groups, _SUM_WINDOW * (z + 1) - self.lo))
+                for z in range(self.n_split)]
+
+
+@functools.lru_cache(maxsize=256)
+def w4a8_plan(M: int, K: int, N: int, group_size: int) -> W4A8Plan:
+    """Plan of the W4A8 GEMV at M <= 256 token rows. The fold follows the
+    group count G = K / g (`W4A8_FOLDS`): K is split only at the windows
+    of the oracle's sum, ceil(G / 32) splits for 33-256 groups, none
+    otherwise. A block holds at most 96 token rows (64 where it keeps a
+    third set of sums), so more rows take more row blocks; of one to two
+    times the fewest row blocks it takes the least (waves of clusters) x
+    (wgmma's n + 32), fewer row blocks on a tie (narrow projections split
+    their rows to fill the card)."""
+    if not 1 <= M <= GEMV_MAX_M or group_size not in _MMA_GROUPS or K < group_size \
+            or K % group_size or N < 4 or N % 4:
+        raise ValueError(f"no W4A8 GEMV plan for M={M}, K={K}, N={N}, group={group_size}")
+    G = K // group_size
+    windows = -(-G // _SUM_WINDOW)
+    if windows > _SUM_WINDOW:
+        raise ValueError(f"the W4A8 GEMV sums at most {_SUM_WINDOW ** 2} groups (G={G})")
+    fold = "chain" if G <= _SUM_WINDOW else "window" if windows <= _W4_MAX_SPLIT else "multi"
+    n_split = windows if fold == "window" else 1
+    lo = (windows * _SUM_WINDOW - G) // 2
+    plan = W4A8Plan(fold, 0, 0, 0, 0, -(-N // _I8_BN), n_split, lo, 0, 1)
+    gps = _I8_BK // group_size
+    stages = max(-(-(g1 - g0) // gps) for g0, g1 in plan.group_ranges(G))
+    most = 64 if fold == "multi" else 96
+    fewest = -(-M // most)
+    best = None
+    for rb in range(fewest, 2 * fewest + 1):
+        rows = -(-M // rb)
+        if (rb - 1) * rows >= M:  # a row block would be empty
+            continue
+        n = i8_tile(rows)
+        per_sm = 2 if n <= 32 else 1
+        waves = -(-plan.n_tiles * rb // W4_CLUSTERS[per_sm][n_split - 1])
+        cost = waves * (n + 32)
+        if best is None or cost < best[0]:
+            best = (cost, n, rows, rb, per_sm)
+    _, n, rows, rb, per_sm = best
+    plan = plan._replace(n=n, rows=rows, row_blocks=rb, per_sm=per_sm, stages=stages)
+    return plan._replace(depth=_i8_depth(plan.stage_bytes, stages, per_sm, n, n_split,
+                                         "W4A8 GEMV"))
+
+
+def _byte_perm(x, y, sel: int):
+    """CUDA's __byte_perm on int64 tensors of 32-bit words: byte i of the
+    result is byte (sel >> 4i) & 7 of the 8 bytes (y << 32) | x."""
+    both = ((y & 0xFFFFFFFF) << 32) | (x & 0xFFFFFFFF)
+    out = torch.zeros_like(both)
+    for i in range(4):
+        out |= ((both >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+    return out
+
+
+def i8_operand_words(rows: torch.Tensor) -> torch.Tensor:
+    """The register words the int8 wgmma kernels (`csrc/int8_wgmma.cuh`
+    lane_of, col_words) build from a stage's weight rows: ``rows`` (R, 128)
+    int8 (R % 32 == 0: k rows of W8A8, packed byte rows of W4A8) laid out
+    as TMA's 128B swizzle lands them; each warp's lane L addresses row L % 8
+    of matrix L // 8 of an ldmatrix.x4.trans over a 32-row run (a column
+    pair as one 16-bit element), thread 4 gid + tid receives matrix rows 2
+    tid, 2 tid + 1 of pair gid, and two byte permutes a matrix pair give its
+    columns' words. Returns (R // 16, 128, 4) int64: [b, c, tid] the word of
+    column c over rows 16 b + 4 tid .. + 3, the lowest row in the lowest
+    byte."""
+    R = rows.shape[0]
+    image = torch.zeros(R * _I8_BN, dtype=torch.int64)
+    r = torch.arange(R)[:, None]
+    c = torch.arange(_I8_BN)[None, :]
+    image[r * _I8_BN + (((c // 16) ^ (r % 8)) * 16) + c % 16] = rows.to(torch.int64) & 0xFF
+    lane = torch.arange(32)
+    lr, lj = lane % 8, lane // 8
+    k = 16 * (lj // 2) + 4 * (lr // 2) + 2 * ((lj % 2) ^ (lr // 4)) + lr % 2  # each lane's row
+    out = torch.zeros((R // 16, _I8_BN, 4), dtype=torch.int64)
+    for run in range(R // 32):
+        for chunk in range(_I8_BN // 16):
+            # the 16 bytes each lane addresses: row k of the run, the chunk swizzled
+            at = (32 * run + k) * _I8_BN + ((chunk ^ (k & 7)) << 4)
+            lines = image[at[:, None] + torch.arange(16)[None, :]]  # (lane, 16)
+            elem = lines[:, 0::2] | (lines[:, 1::2] << 8)  # (lane, pair): 16-bit elements
+            mat = elem.reshape(4, 8, 8)  # [matrix j, row, pair]
+            for gid in range(8):
+                cb = 16 * chunk + 2 * gid
+                for tid in range(4):
+                    m = mat[:, 2 * tid, gid] | (mat[:, 2 * tid + 1, gid] << 16)
+                    lo, hi = (0x2064, 0x3175) if tid & 2 else (0x6420, 0x7531)
+                    for h in range(2):
+                        out[2 * run + h, cb, tid] = _byte_perm(m[2 * h], m[2 * h + 1], lo)
+                        out[2 * run + h, cb + 1, tid] = _byte_perm(m[2 * h], m[2 * h + 1], hi)
+    return out
+
+
+def _slot_bytes(w0, w1):
+    """(128, 32) signed bytes of a step's slots from its two register
+    words per (column, tid): slot 4 tid + i is byte i of ``w0``, slot 16 +
+    4 tid + i byte i of ``w1``."""
+    shifts = torch.arange(4) * 8
+    b0 = (w0[..., None] >> shifts) & 0xFF  # (128, tid, i)
+    b1 = (w1[..., None] >> shifts) & 0xFF
+    out = torch.cat([b0.reshape(-1, 16), b1.reshape(-1, 16)], -1)
+    return torch.where(out >= 128, out - 256, out)
+
+
+def w4a8_step_operands(words: torch.Tensor, group_size: int) -> list:
+    """The A operand of each k32 step of a W4A8 GEMV stage
+    (`csrc/w4a8_halves.cu` step_regs, step_k) from its 64 byte rows'
+    `i8_operand_words` (4, 128, 4): [(group q, the step's first k in the
+    stage, (128, 32) the signed byte of each column at each of the step's
+    32 k)], each 16 v of the weight there (the low nibble shifted up, the
+    high one masked in place)."""
+    lo = lambda w: (w << 4) & 0xF0F0F0F0  # noqa: E731
+    hi = lambda w: w & 0xF0F0F0F0  # noqa: E731
+    steps = []
+    for q in range(_I8_BK // group_size):
+        for t in range(group_size // 32):
+            if group_size == 32:
+                w0, w1, k = lo(words[q]), hi(words[q]), 32 * q
+            else:
+                b = 2 * q if group_size == 64 else 2 * (t % 2)
+                plane = hi if (t == 1 if group_size == 64 else t >= 2) else lo
+                w0, w1 = plane(words[b]), plane(words[b + 1])
+                k = 64 * q + 32 * t if group_size == 64 else 64 * (t // 2) + 32 * (t % 2)
+            steps.append((q, k, _slot_bytes(w0, w1)))
+    return steps
+
+
+def w4a8_split_fold(x_q, x_scale, w_packed, w_scale, group_size: int, out_dtype,
+                    plan: Optional[W4A8Plan] = None):
+    """The W4A8 GEMV's arithmetic (`csrc/w4a8_halves.cu`) written out in
+    torch under ``plan`` (default `w4a8_plan`): per output the int32 group
+    dots, folded per the plan's fold: one fused multiply-add chain from +0;
+    or each split's window of rounded products summed from +0, then the
+    window sums in window order from +0; or (every window in one block) the
+    closed windows' chain plus the open window's sum. Times x_scale."""
+    M, K = x_q.shape
+    N = w_packed.shape[1]
+    G = K // group_size
+    plan = plan or w4a8_plan(M, K, N, group_size)
+    v = unpack_int4(w_packed, group_size).double().reshape(G, group_size, N)
+    xg = x_q.double().reshape(M, G, group_size)
+    gd = [(xg[:, g] @ v[g]).float() for g in range(G)]
+    s = w_scale.float()
+    zero = torch.zeros((M, N))
+    if plan.fold == "chain":
+        acc = zero
+        for g in range(G):
+            acc = _fma_f32(gd[g], s[g].expand_as(acc), acc)
+    elif plan.fold == "window":
+        acc = zero
+        for g0, g1 in plan.group_ranges(G):
+            w = zero
+            for g in range(g0, g1):
+                w = w + gd[g] * s[g]
+            acc = acc + w
+    else:
+        acc, w = zero, zero
+        for g in range(G):
+            if g > 0 and (g + plan.lo) % _SUM_WINDOW == 0:
+                acc, w = acc + w, zero
+            w = w + gd[g] * s[g]
+        acc = acc + w
+    return (acc * x_scale.float()[:, None]).to(out_dtype)
 
 
 def matmul_w4a16_reference(x, w_packed, w_scale, bias=None, group_size: int = 128,
@@ -1069,16 +1385,7 @@ def w4_plan(M: int, K: int, N: int, group_size: int, n_split: Optional[int] = No
     n = next(t for t in (8, 16, 32, 64, 128, 192, 256) if M <= t)
     per_sm = 2 if n <= 64 else 1
     n_tiles, stages = -(-N // _W4_BN), -(-K // _W4_BK)
-    options = {}
-    for s in range(1, min(_W4_MAX_SPLIT, stages) + 1):
-        sps = -(-stages // s)
-        splits = -(-stages // sps)  # no empty split
-        waves = -(-n_tiles // W4_CLUSTERS[per_sm][splits - 1])
-        options[splits] = (waves * (sps + _W4_BLOCK_COST), splits, sps)
-    best = min(options.values())
-    if n_split is not None:
-        best = options[max(k for k in options if k <= max(1, n_split))]
-    _, n_split, sps = best
+    n_split, sps = _split_choice(n_tiles, stages, per_sm, n_split)
     plan = W4Plan(n, per_sm, n_tiles, stages, n_split, sps, 1)
     budget = _SM_SMEM // per_sm - _BLOCK_RESERVED
     depth = min(_W4_MAX_DEPTH, sps, (budget - 1024) // (plan.stage_bytes + 16))

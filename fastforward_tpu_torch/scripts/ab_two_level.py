@@ -30,18 +30,23 @@ x 128 = 24,576, bf16 out), and rows 10 (the fused W4A8 layer tail, M =
 8, 32 and 64) and 11 (its o + gate/up head, M = 192, 64 and 8) at the 8B
 widths, g128, layer 1 of 2, each with its caller-visible median, their
 outputs (y or gu, x1, the int8 activations and their scales) saved under
-DIR; each line tagged TAG. Inputs come from one
+DIR; and rows 19 (the W8A8 GEMM) and 16 (the float-scale W4A8 GEMV) over
+the four projections at M = 192 and 8, g128, and on the f32 lm_head at M
+= 192, row 19 also at the prefill's M = 24,576, with caller-visible
+medians (the prefill's device time only) and their outputs saved (the
+prefill's as an exact digest); each line tagged TAG. Inputs come from one
 seed, so two trees time the same integers; run them in turns on one card
 (A, B, B, A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c),
-(k), (n), (f) and (l) on their seeds and the engine workload (d), paged
-and on the slab, and saves the greedy tokens and prefill logits under DIR;
+(k), (n), (f), (l), (e), (g) and (h) on their seeds and the engine
+workload (d), paged and on the slab, and saves the greedy tokens and
+prefill logits under DIR;
 ``--splits`` times row 17 at each K split of 1-8 (the four projections,
 M = 192 and 8), and rows 10 and 11 with their gate/up in one K split and
 in two
 (default build/ab_two_level); ``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
-prefill logits are bit-equal, and whether rows 10 and 11 gave the same
-bits, and exits 1 where the logits or those outputs differ. Needs a CUDA
+prefill logits are bit-equal, and whether rows 10, 11, 19 and 16 gave the
+same bits, and exits 1 where the logits or those outputs differ. Needs a CUDA
 GPU.
 """
 
@@ -50,6 +55,18 @@ import sys
 import time
 
 import torch
+
+
+def _digest(t):
+    """An exact int64 digest of a tensor's bytes (each byte times its
+    position mod 65,521, plus one, summed in chunks): equal bytes give equal
+    digests, and a change of any byte changes it."""
+    b = t.contiguous().view(torch.uint8).flatten()
+    total = 0
+    for i in range(0, b.numel(), 1 << 26):
+        c = b[i:i + (1 << 26)].to(torch.int64)
+        total += int((c * (torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1)).sum())
+    return torch.tensor([total])
 
 
 def _out_dir():
@@ -286,6 +303,55 @@ def main():
                 print(f"AB[{tag}] row {row} g{g} M={M}: caller-visible "
                       f"{cs.median_ms(fn):.4f} ms", flush=True)
                 outputs[f"row {row} M={M}"] = [t.cpu() for t in fn()[:keep]]
+
+        # rows 19 and 16: the W8A8 GEMM and the float-scale W4A8 GEMV at the
+        # decode (M = 192 and 8, four projections, bf16), on the f32 lm_head
+        # (M = 192) and, row 19, at bench.py's prefill (M = 24,576), g128,
+        # with caller-visible medians and their outputs saved (the
+        # prefill's as a digest)
+        for row, M in (("19", cs.BATCH), ("19", 8), ("16", cs.BATCH), ("16", 8),
+                       ("19", cs.BATCH * cs.PROMPT)):
+            total = call = 0.0
+            got = []
+            for K, N in cs.PROJ.values():
+                x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+                if row == "19":
+                    w = ri(-127, 128, (K, N))
+                    ws = torch.rand((N,), generator=gen, device=dev) * (0.02 / K ** 0.5)
+                    fn = (lambda: mm.matmul_w8a8(x_q, x_s, w, ws))
+                else:
+                    w = ri(-128, 128, (K // 2, N))
+                    ws = torch.rand((K // 128, N), generator=gen, device=dev) * 1e-3 + 1e-4
+                    fn = (lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, ws, 128))
+                prefill = M > 256
+                total += device_ms(fn, n=5 if prefill else 30)
+                call += 0.0 if prefill else cs.median_ms(fn)
+                out = fn()
+                got.append(_digest(out) if prefill else out.cpu())
+                del w, x_q, out
+                torch.cuda.empty_cache()
+            label = f"row {row} 4 projections M={M}"
+            show(label, total)
+            if M <= 256:
+                print(f"AB[{tag}] {label}: caller-visible {call:.4f} ms", flush=True)
+            outputs[label] = got
+        K, N = cs.PROJ["qkv"][0], cs.VOCAB
+        x_q, x_s = mm.quantize_rowwise(torch.randn((cs.BATCH, K), generator=gen, device=dev))
+        for row in ("19", "16"):
+            if row == "19":
+                w = ri(-127, 128, (K, N))
+                ws = torch.rand((N,), generator=gen, device=dev) * (0.02 / K ** 0.5)
+                fn = (lambda: mm.matmul_w8a8(x_q, x_s, w, ws, out_dtype=torch.float32))
+            else:
+                w = ri(-128, 128, (K // 2, N))
+                ws = torch.rand((K // 128, N), generator=gen, device=dev) * 1e-3 + 1e-4
+                fn = (lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, ws, 128, torch.float32))
+            label = f"row {row} lm_head f32 M={cs.BATCH}"
+            show(label, device_ms(fn))
+            print(f"AB[{tag}] {label}: caller-visible {cs.median_ms(fn):.4f} ms", flush=True)
+            outputs[label] = [fn().cpu()]
+            del w
+        torch.cuda.empty_cache()
         os.makedirs(_out_dir(), exist_ok=True)
         torch.save(outputs, os.path.join(_out_dir(), f"{tag}_tail.pt"))
 
@@ -349,7 +415,10 @@ def main():
                 ("k", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, cs.FLAGS_K),
                 ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N),
                 ("f", "w4a16", 128, cs.BATCH, cs.PROMPT, None, {}),
-                ("l", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_L)):
+                ("l", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_L),
+                ("e", "w4a8", 128, cs.BATCH, cs.PROMPT, None, {}),
+                ("g", "w8a8", 128, cs.BATCH, cs.PROMPT, None, {}),
+                ("h", "w4a8", 128, cs.BATCH, cs.PROMPT, "int8", {})):
             t0 = time.perf_counter()
             with cs.flag_env(**flags):
                 path = cs.ServePath.random(config, mode, g, 0, dev, kv)

@@ -33,6 +33,10 @@ of the stacked W4A8 GEMV runs that tile too (bit-equal at the 8B widths,
 layers 0 and L - 1, each call counted once), and flash decode walks chunks
 of 64 tokens (within rtol 8e-3 at every chunk and page edge, zeros at
 length 0, the paged and per-layer forms giving the slab form's bits).
+The W8A8 GEMM and the float-scale W4A8 GEMV run int8 wgmma: bit-equal at
+every token-tile and row-block edge (the prefill's ragged row tile, a
+bias, ragged K, N % 16 != 0, g 32/64/128), under every K split and row
+split, the same bits call to call.
 """
 
 import pytest
@@ -1641,3 +1645,98 @@ def test_fused_heads_on_the_tile_bit_equal_at_every_decode_row(dev, a4, M):
     ref = (mm.fused_norm_qkv_a4_reference if a4 else mm.fused_norm_qkv_reference)(
         x.float(), norm[1], w[1], unpack_mult_nibbles(mp[1], K // g), s[1], g)
     assert out.dtype == torch.float32 and torch.equal(out, ref)
+
+
+# --- rows 19 and 16 on int8 wgmma (csrc/int8_wgmma.cuh): every token-tile
+# edge of the W8A8 GEMM (decode tiles of 8-192, two row tiles of 128 at M =
+# 193-256, prefill tiles of 192 with a ragged last one), with and without a
+# bias, ragged K (80: a 128-k stage cut), N % 16 != 0 (the 4-byte weight
+# feed, an odd count of column tiles); the W4A8 GEMV at every edge of its
+# row blocks at g 32, 64 and 128 (chain, window splits, every window in one
+# block); each K split count and row-block count forced; two calls
+# bit-identical, each call counted once
+
+_I8_EDGES = [1, 8, 9, 16, 17, 32, 33, 48, 49, 64, 65, 96, 97, 128, 129, 192, 193, 255, 256]
+
+
+@pytest.mark.parametrize("M", _I8_EDGES + [257, 385, 1000])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (1024, 4100), (80, 136)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_w8a8_wgmma_kernel_edges(dev, M, K, N, bias):
+    gen = _gen(dev, 3 * M + K + N + bias)
+    w = _ri(gen, -127, 128, (K, N), torch.int8, dev)
+    ws = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    b = torch.randn((N,), generator=gen, device=dev) if bias else None
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = _build.launch_counts["w8a8_gemm"]
+        out = mm.matmul_w8a8(x_q, x_s, w, ws, b, out_dtype)
+        again = mm.matmul_w8a8(x_q, x_s, w, ws, b, out_dtype)
+        assert _build.launch_counts["w8a8_gemm"] == before + 2
+        assert torch.equal(out, again)
+        assert torch.equal(out, mm.matmul_w8a8_reference(x_q, x_s, w, ws, b, out_dtype))
+
+
+@pytest.mark.parametrize("M", [8, 192, 256])
+@pytest.mark.parametrize("split", range(1, 9))
+def test_w8a8_wgmma_kernel_every_split(dev, monkeypatch, M, split):
+    # K = 4,096: 32 stages over 1-8 blocks of a cluster, the int32 partials
+    # added through distributed shared memory; N = 4,100 (33 column tiles)
+    K, N = 4096, 4100
+    plan = mm.w8a8_plan(M, K, N, split)
+    assert plan.n_split == split
+    monkeypatch.setattr(mm, "w8a8_plan", lambda *a: plan)
+    gen = _gen(dev, 11 * M + split)
+    w = _ri(gen, -127, 128, (K, N), torch.int8, dev)
+    ws = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    bias = torch.randn((N,), generator=gen, device=dev)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    out = mm.matmul_w8a8(x_q, x_s, w, ws, bias, torch.float32)
+    assert torch.equal(out, mm.matmul_w8a8(x_q, x_s, w, ws, bias, torch.float32))
+    assert torch.equal(out, mm.matmul_w8a8_reference(x_q, x_s, w, ws, bias, torch.float32))
+
+
+@pytest.mark.parametrize("M", _I8_EDGES)
+@pytest.mark.parametrize("K,N,g", [(4096, 4100, 128), (14336, 260, 128), (1056, 132, 32),
+                                   (2560, 136, 64), (8448, 256, 32)])
+def test_w4a8_wgmma_kernel_edges(dev, M, K, N, g):
+    gen = _gen(dev, 5 * M + K + N + g)
+    w, s = _w4(gen, K, N, g, dev)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = _build.launch_counts["w4a8_gemv_halves"]
+        out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype)
+        again = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype)
+        assert _build.launch_counts["w4a8_gemv_halves"] == before + 2
+        assert torch.equal(out, again)
+        assert torch.equal(out, mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, out_dtype))
+
+
+def _row_splits():
+    """(M, row blocks, K, g) where the row blocks hold M's rows: at most 96
+    a block (64 where one block walks every window: K = 8,448 at g32), no
+    row block empty."""
+    cases = []
+    for K, g, most in ((4096, 128, 96), (14336, 128, 96), (8448, 32, 64)):
+        for M in (17, 96, 192, 256):
+            for rb in (1, 2, 3, 4, 6):
+                rows = -(-M // rb)
+                if rows <= most and (rb - 1) * rows < M:
+                    cases.append((M, rb, K, g))
+    return cases
+
+
+@pytest.mark.parametrize("M,row_blocks,K,g", _row_splits())
+def test_w4a8_wgmma_kernel_every_row_block(dev, monkeypatch, M, row_blocks, K, g):
+    # the token rows split over 1-6 row blocks
+    base = mm.w4a8_plan(M, K, 4096, g)
+    rows = -(-M // row_blocks)
+    n = mm.i8_tile(rows)
+    plan = base._replace(n=n, rows=rows, row_blocks=row_blocks, per_sm=2 if n <= 32 else 1,
+                         depth=min(base.depth, 4))
+    monkeypatch.setattr(mm, "w4a8_plan", lambda *a: plan)
+    gen = _gen(dev, 13 * M + row_blocks + K)
+    w, s = _w4(gen, K, 4096, g, dev)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, torch.float32)
+    assert torch.equal(out, mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, torch.float32))

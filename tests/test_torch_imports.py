@@ -63,7 +63,7 @@ def test_build_table_covers_every_source():
         text = (_build.CSRC_DIR / f"{name}.cu").read_text()
         for fn in entries:
             assert f'extern "C" int {fn}(' in text, (name, fn)
-    assert "ff_w4a8_gemv_halves" in _build.SIGNATURES["w4a8_gemv"]
+    assert "ff_w4a8_gemv_halves" in _build.SIGNATURES["w4a8_halves"]
     assert "ff_dequant_halves" in _build.SIGNATURES["dequant"]
     assert "ff_w4a8_gemv_unpaired" in _build.SIGNATURES["w4a8_gemv"]
     assert "ff_flash_prefill_bf16" in _build.SIGNATURES["flash_prefill"]
