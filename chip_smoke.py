@@ -31,6 +31,10 @@ each raising on failure:
    seven unfused projections of a layer and the four fused ones through
    every stacked route on either layout, and the A4 GEMV on the four fused
    projections at g512 and a g128 and a g32 shape;
+   the float-scale W4A8 GEMV bit-equal and the W4 GEMV within
+   W4_GEMV_RTOL at g256 and g512 (groups over several 128-k stages) on the
+   four projections and the f32 lm_head, M = 192; flash prefill over a
+   bf16 cache also at the ragged chunk (B 16, T 77, starts 0..300);
    the tiled W4A16 kernel (off the serving route; wgmma, HGMMA in its
    SASS) at bench.py's w4a16 prefill (M = 24,576, the four projections)
    within W4_GEMV_RTOL and one bf16 ulp, its bias epilogue exact; every
@@ -86,8 +90,9 @@ each raising on failure:
    at depth 2 for every run but (c), the kernel path is compared with the
    plain path on the card, 192 prompts of 128 tokens, under the run's flags;
    8 prompts with FF_FUSED_LAYER=0 FF_FUSED_OGU=1 (the o + gate/up head
-   at 8 rows); and 8 prompts with FF_2L_PREBLOCK=1 (the pre-blocked GEMV,
-   not the fused tail);
+   at 8 rows); 8 prompts with FF_2L_PREBLOCK=1 (the pre-blocked GEMV,
+   not the fused tail); and w4a8 and w4a16 at g256 (their decode GEMVs
+   with groups of two 128-k stages), 192 prompts;
 4. engine — bench.py's continuous-batching workload (measure_engine with
    FF_BENCH_MODE=w4a8_2l FF_BENCH_ENGINE_PAGED=1 FF_BENCH_ENGINE_SAT=1,
    one pass): Llama-3-8B w4a8_2l g128 at full depth, 32 slots on the paged
@@ -241,7 +246,7 @@ def _profile(fn, n, launches=None, tries=8):
         time.sleep(0.5)  # a lossy profile tends to be followed by another at once
     per_call = [max(1, round(e.count / n)) for e in events]
     if sum(per_call) != launches:
-        raise RuntimeError(f"the profiler recorded fewer than {n * launches} launches in {tries} "
+        raise ProfileLost(f"the profiler recorded fewer than {n * launches} launches in {tries} "
                            f"tries, and some kernel too seldom to time it")
     log("  every profile lost records: each kernel timed by its mean recorded launch")
     rows = [(e.self_device_time_total / e.count / 1e3 * k, k, e.key)
@@ -261,17 +266,27 @@ def launches_per_call(fn, probes=6):
     return max(seen)
 
 
+class ProfileLost(RuntimeError):
+    """The profiler lost records of every try at a profile."""
+
+
 def device_ms(fn, n=20, launches=None):
     """Kernel time on the card per call of ``fn`` (the sum of the device
     time of every kernel launched), from a profile of ``n`` calls that
     recorded all ``n * launches`` of their launches (``launches``: given,
-    or `launches_per_call`); None when the profiler records none."""
+    or `launches_per_call`); None ("not measured") when the profiler
+    records none, or loses records of every try: a time is a measurement,
+    not a check of the kernel, and none is made up."""
     fn()
     if launches is None:
         launches = launches_per_call(fn)
     if launches == 0:
         return None
-    return sum(r[0] for r in _profile(fn, n, launches)[1])
+    try:
+        return sum(r[0] for r in _profile(fn, n, launches)[1])
+    except ProfileLost as e:
+        log(f"  device time not measured: {e}")
+        return None
 
 
 def fmt_ms(v):
@@ -1037,7 +1052,11 @@ def _fused_tail_kernel(dev, gen, randint):
 def _log_by_kernel(what, fn, n=20):
     """Log the device time of one call of ``fn`` by kernel, from a profile
     of ``n`` calls that recorded every launch (`launches_per_call`)."""
-    parts = _profile(fn, n, launches_per_call(fn))[1]
+    try:
+        parts = _profile(fn, n, launches_per_call(fn))[1]
+    except ProfileLost as e:
+        log(f"{what}, device ms a call by kernel: not measured ({e})")
+        return
     log(f"{what}, device ms a call by kernel: "
         + "; ".join(f"{_kernel_name(k)} {ms:.4f} (x{c:.0f})" for ms, c, k in parts))
 
@@ -1223,6 +1242,41 @@ def _float_scale_kernels(dev, gen, randint):
         del x_q, w8
         torch.cuda.empty_cache()
     rows["w8a8_gemm"]["prefill"] = add_rows(pre)
+
+    # Rows 16 and 17 at groups of 256 and 512 (FF_BENCH_GROUP; a group then
+    # spans several 128-k stages): the four projections (bf16) and the f32
+    # lm_head at M = 192, row 16 bit-equal, row 17 within W4_GEMV_RTOL; the
+    # device time of the four projections logged beside g128's
+    t0, M = time.perf_counter(), BATCH
+    for gb in (256, 512):
+        dev_ms = {"w4a8_gemv_halves": [], "w4_gemv": []}
+        for pname, (K, N) in shapes.items():
+            head = pname == "lm_head"
+            out_dtype = torch.float32 if head else torch.bfloat16
+            x = act(M, K)
+            x_q, x_s = mm.quantize_rowwise(x)
+            w = randint(-128, 128, (K // 2, N))
+            s = torch.rand((K // gb, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+            for name, kern, plain, check in (
+                    ("w4a8_gemv_halves", lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, gb, out_dtype),
+                     lambda: mm.matmul_w4a8_reference(x_q, x_s, w, s, None, gb, out_dtype),
+                     bit_equal),
+                    ("w4_gemv", lambda: mm.matmul_w4_gemv(x, w, s, gb, out_dtype),
+                     lambda: mm.matmul_w4_gemv_reference(x, w, s, gb, out_dtype), w4_close)):
+                ok, err = check(kern(), plain())
+                if not ok:
+                    raise AssertionError(f"{name} {pname} g{gb}: kernel disagrees with its plain "
+                                         f"version (err {err:.3g})")
+                if not head:
+                    dev_ms[name].append(device_ms(kern))
+            del w, s
+        got = [None if None in v else sum(v) for v in dev_ms.values()]
+        g128 = [rows[k]["device_ms"] for k in dev_ms]
+        log(f"w4a8_gemv_halves, w4_gemv g{gb} M={M}: bit-equal and within {W4_GEMV_RTOL} on the "
+            f"four projections and the f32 lm_head; device time of the four projections "
+            f"{fmt_ms(got[0])} and {fmt_ms(got[1])} (g128: {fmt_ms(g128[0])}, {fmt_ms(g128[1])})")
+    torch.cuda.empty_cache()
+    log(f"rows 16 and 17 at g256 and g512: {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1306,6 +1360,20 @@ def _layer_kernels(dev, gen, randint):
     starts = torch.zeros((B,), dtype=torch.int32, device=dev)
     pos = torch.arange(T, device=dev)
     cmask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[None, None]
+    # the ragged chunk over a bf16 cache (B 16, T 77, starts 0..300): held,
+    # not a JSON row
+    kr = torch.randn((16, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    vr = torch.randn((16, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    qr = torch.randn((16, H, 77, d), generator=gen, device=dev).to(torch.bfloat16)
+    sr = torch.randint(0, 301, (16,), generator=gen, device=dev, dtype=torch.int32)
+    pos = sr[:, None].long() + torch.arange(77, device=dev)[None, :]
+    live = int(torch.clamp(sr.long() + 77, max=S).sum())
+    measure("flash_prefill_bf16", f"B=16 H={H} Hkv={Hkv} T=77 S={S} starts 0..300",
+            lambda: att.flash_prefill(qr, kr, None, vr, None, sr),
+            lambda: att.flash_prefill_reference(qr, kr, None, vr, None, sr),
+            2 * 16 * H * 77 * d * 2 + live * Hkv * 2 * d * 2,
+            4 * H * d * int(torch.clamp(pos + 1, max=S).sum()), BF16_OPS_PER_S, within_rtol)
+    del kr, vr, qr
     rows["flash_prefill_bf16"] = measure(
         "flash_prefill_bf16", f"B={B} H={H} Hkv={Hkv} T={T} S={S} starts 0",
         lambda: att.flash_prefill(q, k, None, v, None, starts),
@@ -2010,6 +2078,12 @@ def phase_serve(dev):
         launched = compare_paths(config, "w4a8_2l", 128, dev, batch=8)
     if "w4a8_gemv_preblocked" not in launched or "fused_o_mlp" in launched:
         raise AssertionError(f"FF_2L_PREBLOCK=1 at 8 rows launched {sorted(launched)}")
+    # the float-scale decode GEMVs at g256 (FF_BENCH_GROUP=256: a group spans
+    # two 128-k stages), through the same kernels as at g128
+    for mode, gemv in (("w4a8", "w4a8_gemv_halves"), ("w4a16", "w4_gemv")):
+        launched = compare_paths(config, mode, 256, dev)
+        if launched != {"dequant_halves", gemv, "flash_prefill", "kv_append", "flash_decode"}:
+            raise AssertionError(f"{mode} g256 launched {sorted(launched)}")
     return runs
 
 

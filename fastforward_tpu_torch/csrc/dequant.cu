@@ -23,23 +23,32 @@
 //             pg + g/2 + i (high), two's complement or offset binary.
 // Byte (r, n) lies at r * N + n (flat), or in the pre-blocked form
 // (N/bn, K/2, bn) of preblock_stacked at (n / bn) * (K/2) * bn + r * bn +
-// n % bn: a thread's columns lie in one panel (16 of them where
-// bn % 16 == 0, else one), and rows lie bn bytes apart. The output is the
-// flat (K, N) either way.
+// n % bn: a thread's columns lie in one panel (8 of them where bn % 8 ==
+// 0, else one), and rows lie bn bytes apart. The output is the flat (K, N)
+// either way.
 //
 // Bound on the H100: bytes. K*N/2 packed bytes read and K*N*2 bf16 bytes
 // written per call (the multipliers and scales are 1/g of that): 545 MB
 // for the four projections of a Llama-3-8B layer, ~0.16 ms at 3.35 TB/s,
-// with a few integer and float operations per byte.
+// with a few integer and float operations per byte. Four fifths of the
+// bytes are the writes.
 //
-// Design for that bound: a thread owns 16 adjacent columns and walks 8
-// byte rows: per row one 16-byte load of packed weights and four 16-byte
-// stores (two output rows of 32 bytes); neighbouring threads take
-// neighbouring columns, so a warp moves 512 contiguous bytes in and two
-// 1 KB runs out per row. The 16 per-group scales are formed in registers
-// and re-formed only when a row enters another group. An N that is not a
-// multiple of 16 (pre-blocked: a bn that is not) takes the same kernel
-// with one column per thread.
+// Design for that bound (kernels/matmul.py dequant_plan mirrors the grid):
+// - A thread owns 8 adjacent columns and R byte rows of one tile. It
+//   issues all R of its 8-byte loads before it converts any (R loads in
+//   flight a thread, where a loop of one load a row kept one), then writes
+//   each byte row's two output rows as one 16-byte store each: a warp's 32
+//   stores of a row are 512 contiguous bytes.
+// - A block of 256 threads covers 2048 columns; the blocks walk the (row
+//   tile, column tile) grid with the column tile fastest. R is 8, or 4
+//   where 8 leaves fewer blocks than four of 256 threads on each SM (the
+//   narrow projections, e.g. o_proj: 1,024 blocks, not 512), so every SM
+//   has loads in flight from its first wave.
+// - The per-group scales of the thread's columns are formed once a tile
+//   (a tile's R rows lie in one group unit wherever a unit spans R byte
+//   rows) and again only where a row enters another group.
+// - An N that is not a multiple of 8 (pre-blocked: a bn that is not) takes
+//   the same kernel with one column a thread.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -47,8 +56,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsPerBlock = 8;  // packed byte rows per block
+constexpr int kThreads = 256;
+constexpr int kMinBlocksPerSm = 4;  // R drops to 4 where 8 leaves fewer blocks an SM
 enum Layout { kVertical = 0, kPaired = 1, kHalves = 2, kHalvesOffset = 3 };
 
 // The V per-group scales of group `gi` at columns col0.. (f32).
@@ -72,57 +81,80 @@ __device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
          (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
 }
 
-// Writes V bf16 values of one output row at columns col0...
+// A thread's packed bytes of one byte row: 8 columns (one 8-byte load) or 1.
+template <int V>
+struct Packed;
+template <>
+struct Packed<8> {
+  uint2 w;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    w = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ unsigned byte(int c) const {
+    return ((c < 4 ? w.x : w.y) >> (8 * (c % 4))) & 0xFFu;
+  }
+};
+template <>
+struct Packed<1> {
+  unsigned b;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    b = static_cast<unsigned char>(__ldg(p));
+  }
+  __device__ __forceinline__ unsigned byte(int) const { return b; }
+};
+
+// Writes V bf16 values of one output row at columns col0..: one 16-byte
+// store for 8.
 template <int V>
 __device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ dst, const float y[V]) {
-  if constexpr (V == 16) {
-    uint4 a, b;
-    a.x = bf16x2(y[0], y[1]);
-    a.y = bf16x2(y[2], y[3]);
-    a.z = bf16x2(y[4], y[5]);
-    a.w = bf16x2(y[6], y[7]);
-    b.x = bf16x2(y[8], y[9]);
-    b.y = bf16x2(y[10], y[11]);
-    b.z = bf16x2(y[12], y[13]);
-    b.w = bf16x2(y[14], y[15]);
-    reinterpret_cast<uint4*>(dst)[0] = a;
-    reinterpret_cast<uint4*>(dst)[1] = b;
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(bf16x2(y[0], y[1]), bf16x2(y[2], y[3]),
+                                                bf16x2(y[4], y[5]), bf16x2(y[6], y[7]));
   } else {
 #pragma unroll
     for (int c = 0; c < V; ++c) dst[c] = __float2bfloat16_rn(y[c]);
   }
 }
 
-// Grid: (ceil(N / V / kThreads), ceil(K/2 / kRowsPerBlock)). w, mult and
-// scale point at the selected layer. MULT: scale is s_col (N,) and mult
-// (K/g, N) int8; else scale is s_eff (K/g, N) f32 and mult is unused.
-// bn: the pre-blocked panel width, or N for the flat layout (one panel).
-template <int LAYOUT, int V, bool MULT>
+// Grid: col_tiles * ceil(K/2 / R) blocks (column tile fastest), kThreads
+// threads; block b covers byte rows R (b / col_tiles) .. and columns
+// kThreads V (b % col_tiles) ... w, mult and scale point at the selected
+// layer. MULT: scale is s_col (N,) and mult (K/g, N) int8; else scale is
+// s_eff (K/g, N) f32 and mult is unused. bn: the pre-blocked panel width,
+// or N for the flat layout (one panel).
+template <int LAYOUT, int V, bool MULT, int R>
 __global__ void __launch_bounds__(kThreads)
 dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int K,
-               int N, int group, int bn) {
-  const int col0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+               int N, int group, int bn, int col_tiles) {
+  const int col0 = ((blockIdx.x % col_tiles) * kThreads + threadIdx.x) * V;
   if (col0 >= N) return;
   const int8_t* wcol = w + (size_t)(col0 / bn) * (K / 2) * bn + col0 % bn;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  const int r1 = min(K / 2, r0 + kRowsPerBlock);
+  const int r0 = (blockIdx.x / col_tiles) * R;
+  const int rows = min(R, K / 2 - r0);
+  Packed<V> pk[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)  // every load before any conversion
+    if (i < rows) pk[i].load(wcol + (size_t)(r0 + i) * bn);
   float s_lo[V], s_hi[V];
   int cur = -1;  // group of the low plane whose scales s_lo holds
-  for (int r = r0; r < r1; ++r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i >= rows) break;
+    const int r = r0 + i;
     int row_lo, row_hi, g_lo;
     if (LAYOUT == kVertical) {
       row_lo = 2 * r;
       row_hi = row_lo + 1;
       g_lo = row_lo / group;
     } else if (LAYOUT == kPaired) {
-      const int p = r / group, i = r % group;
-      row_lo = 2 * p * group + i;
+      const int p = r / group, j = r % group;
+      row_lo = 2 * p * group + j;
       row_hi = row_lo + group;
       g_lo = 2 * p;
     } else {
-      const int half = group / 2, p = r / half, i = r % half;
-      row_lo = p * group + i;
+      const int half = group / 2, p = r / half, j = r % half;
+      row_lo = p * group + j;
       row_hi = row_lo + half;
       g_lo = p;
     }
@@ -136,27 +168,17 @@ dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
         group_scales<V, MULT>(mult, scale, g_lo + 1, col0, N, s_hi);
       }
     }
-    unsigned bytes[V];
-    const int8_t* wp = wcol + (size_t)r * bn;
-    if constexpr (V == 16) {
-      const uint4 pk = *reinterpret_cast<const uint4*>(wp);
-      const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-      for (int c = 0; c < V; ++c) bytes[c] = (words[c / 4] >> (8 * (c % 4))) & 0xFFu;
-    } else {
-#pragma unroll
-      for (int c = 0; c < V; ++c) bytes[c] = static_cast<unsigned char>(wp[c]);
-    }
     float y_lo[V], y_hi[V];
 #pragma unroll
     for (int c = 0; c < V; ++c) {
+      const unsigned b = pk[i].byte(c);
       int v_lo, v_hi;
       if (LAYOUT == kVertical || LAYOUT == kHalves) {  // two's complement nibbles
-        v_lo = static_cast<int>((bytes[c] & 0xFu) ^ 8u) - 8;
-        v_hi = static_cast<int>(static_cast<int8_t>(bytes[c])) >> 4;
+        v_lo = static_cast<int>((b & 0xFu) ^ 8u) - 8;
+        v_hi = static_cast<int>(static_cast<int8_t>(b)) >> 4;
       } else {  // offset binary
-        v_lo = static_cast<int>(bytes[c] & 0xFu) - 8;
-        v_hi = static_cast<int>(bytes[c] >> 4) - 8;
+        v_lo = static_cast<int>(b & 0xFu) - 8;
+        v_hi = static_cast<int>(b >> 4) - 8;
       }
       y_lo[c] = __fmul_rn(static_cast<float>(v_lo), s_lo[c]);
       y_hi[c] = __fmul_rn(static_cast<float>(v_hi), s_hi[c]);
@@ -164,6 +186,30 @@ dequant_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ mult,
     store_row<V>(out + (size_t)row_lo * N + col0, y_lo);
     store_row<V>(out + (size_t)row_hi * N + col0, y_hi);
   }
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 132;
+    return v;
+  }();
+  return n;
+}
+
+template <int LAYOUT, int V, bool MULT>
+cudaError_t run(int R, int blocks, const int8_t* w, const int8_t* m, const float* s,
+                __nv_bfloat16* o, int K, int N, int group, int bn, int col_tiles,
+                cudaStream_t st) {
+  if (R == 8)
+    dequant_kernel<LAYOUT, V, MULT, 8><<<blocks, kThreads, 0, st>>>(w, m, s, o, K, N, group, bn,
+                                                                     col_tiles);
+  else
+    dequant_kernel<LAYOUT, V, MULT, 4><<<blocks, kThreads, 0, st>>>(w, m, s, o, K, N, group, bn,
+                                                                     col_tiles);
+  return cudaGetLastError();
 }
 
 template <int LAYOUT>
@@ -177,20 +223,17 @@ int launch(const void* w, const void* mult, const void* scale, void* out, int K,
   const float* sl = static_cast<const float*>(scale) + (mult ? (size_t)layer * N : 0);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   if (bn <= 0) bn = N;
-  const int v = bn % 16 == 0 ? 16 : 1;
-  const dim3 grid((N / v + kThreads - 1) / kThreads, (K / 2 + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (v == 16) {
-    if (ml)
-      dequant_kernel<LAYOUT, 16, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
-    else
-      dequant_kernel<LAYOUT, 16, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
-  } else {
-    if (ml)
-      dequant_kernel<LAYOUT, 1, true><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
-    else
-      dequant_kernel<LAYOUT, 1, false><<<grid, kThreads, 0, st>>>(wl, ml, sl, o, K, N, group, bn);
-  }
-  return cudaGetLastError();
+  // the plan of kernels/matmul.py dequant_plan
+  const int v = bn % 8 == 0 ? 8 : 1;
+  const int col_tiles = (N / v + kThreads - 1) / kThreads;
+  int R = 8;
+  if (col_tiles * ((K / 2 + 7) / 8) < kMinBlocksPerSm * sm_count()) R = 4;
+  const int blocks = col_tiles * ((K / 2 + R - 1) / R);
+  if (v == 8)
+    return ml ? run<LAYOUT, 8, true>(R, blocks, wl, ml, sl, o, K, N, group, bn, col_tiles, st)
+              : run<LAYOUT, 8, false>(R, blocks, wl, ml, sl, o, K, N, group, bn, col_tiles, st);
+  return ml ? run<LAYOUT, 1, true>(R, blocks, wl, ml, sl, o, K, N, group, bn, col_tiles, st)
+            : run<LAYOUT, 1, false>(R, blocks, wl, ml, sl, o, K, N, group, bn, col_tiles, st);
 }
 
 }  // namespace

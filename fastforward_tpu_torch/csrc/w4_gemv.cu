@@ -9,7 +9,8 @@
 //   y[m, n] = sum_k x[m, k] * w[k, n]                    (f32 accumulation)
 // x (M <= 256, K) bf16, w (K/2, N) in pack_int4's group halves (byte row i
 // of group p: k = pg + i low nibble, pg + g/2 + i high, two's complement),
-// s (K/g, N) f32; y (M, N) f32 or bf16, rounded once. The dequant rounds
+// s (K/g, N) f32, g 32, 64 or 128 or a multiple of 128 from 256 up to K; y
+// (M, N) f32 or bf16, rounded once. The dequant rounds
 // as dequantize_int4's CPU path (the TPU kernel rounds the scale to bf16
 // and multiplies in bf16 instead, :256). The f32 sums run in the tensor
 // cores' order and, split over K, add the splits in split order: held
@@ -51,10 +52,13 @@
 //   producer warp. The producer keeps a ring of `depth` stages in flight,
 //   each 128 k: x as two 64-k boxes (every token row), the 64 packed byte
 //   rows as one 128B-swizzled box and the 128 / g scale rows as one box; a
-//   4-byte cp.async feed where N % 16 != 0. A consumer warpgroup works a
-//   stage in two halves of four k16 steps: it issues a half's wgmmas
-//   (async) and dequantizes the next half into the other register set while
-//   they run, then waits for them.
+//   4-byte cp.async feed where N % 16 != 0. A group of g = 128 j (j >= 2)
+//   spans j stages: a stage's two x boxes are then the 64-k runs of its
+//   byte rows' low and high nibbles (w4_wgmma.cuh stage_k), g/2 apart, and
+//   its one scale row the group's, so the consumers read it as at g 128.
+//   A consumer warpgroup works a stage in two halves of four k16 steps: it
+//   issues a half's wgmmas (async) and dequantizes the next half into the
+//   other register set while they run, then waits for them.
 // - Split-K where the column blocks fall short of the card: K splits over
 //   whole stages (whole groups), 1-8 ways. The splits of a column block
 //   form one thread-block cluster; a cluster must fit in one GPC, so larger
@@ -421,9 +425,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // Grid (n_split, column blocks), clusters of (n_split, 1, 1); kThreads
 // threads; dynamic shared memory smem_bytes(NT, depth). x_map: x (M, K)
 // bf16, boxes of 64 k x NT rows; w_map (when w_tma): w's (K/2, N)
-// bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32, boxes of kBN x (kBK
-// / g). Split z streams the stages [z sps, min(stages, (z + 1) sps)) of
-// ceil(K / kBK).
+// bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32, boxes of kBN x
+// max(1, kBK / g). Split z streams the stages [z sps, min(stages, (z + 1)
+// sps)) of ceil(K / kBK).
 template <int NT, typename OutT>
 __global__ void __launch_bounds__(kThreads, NT <= 64 ? 2 : 1)
 w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
@@ -443,7 +447,7 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int split = blockIdx.x, n0 = blockIdx.y * kBN;
   const int total = (K + kBK - 1) / kBK, sps = (total + n_split - 1) / n_split;
   const int s0 = split * sps, stages = min(total, s0 + sps) - s0;
-  const int kSRows = kBK / group;
+  const int kSRows = group > kBK ? 1 : kBK / group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < depth; ++s) {
@@ -463,12 +467,15 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       if (s >= depth) mma8::mbar_wait_or_trap(empty + slot, ((s / depth) - 1) & 1);
       unsigned char* st = smem + (size_t)slot * kStage;
       if (lane == 0) {
+        int k_lo, k_hi;
+        w4g::stage_k(sg, group, k_lo, k_hi);
         mma8::mbar_arrive_expect_tx(full + slot,
                                     2 * kXHalf + (w_tma ? kWBytes : 0) + kSRows * kBN * 4);
-        mma8::tma_box(st, &x_map, sg * kBK, 0, full + slot);
-        mma8::tma_box(st + kXHalf, &x_map, sg * kBK + 64, 0, full + slot);
+        mma8::tma_box(st, &x_map, k_lo, 0, full + slot);
+        mma8::tma_box(st + kXHalf, &x_map, k_hi, 0, full + slot);
         if (w_tma) mma8::tma_box(st + 2 * kXHalf, &w_map, n0, sg * kRows, full + slot);
-        mma8::tma_box(st + 2 * kXHalf + kWBytes, &s_map, n0, sg * kSRows, full + slot);
+        mma8::tma_box(st + 2 * kXHalf + kWBytes, &s_map, n0,
+                      group > kBK ? k_lo / group : sg * kSRows, full + slot);
       }
       if (!w_tma) {
         // lane: the 4-byte word at column 4 lane of each byte row, to its
@@ -489,7 +496,7 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     // ---- the consumer warpgroups: 64 weight columns each, every token row
     const int wg = warp / 4, gid = lane / 4, tid = lane % 4;
     const int cb = 64 * wg + 16 * (warp % 4) + 2 * gid;  // this thread's columns cb, cb + 1
-    const Thread t = thread_of(cb, tid, group, kXHalf);
+    const Thread t = thread_of(cb, tid, group > kBK ? kBK : group, kXHalf);
     float acc[NT / 2];
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
@@ -554,15 +561,15 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   cluster_sync();  // no block leaves while another reads its tile
 }
 
-// Launch the GEMV on a (M, K) x (K/2, N) product; M <= 256, group 32, 64 or
-// 128, K split n_split ways over whole stages, a ring of `depth` stages (the
-// plan of kernels/matmul.py w4_plan). x and s must admit a tensor map
-// (16-byte aligned); the weights take the cp.async feed where they do not.
+// Launch the GEMV on a (M, K) x (K/2, N) product; M <= 256,
+// w4g::group_ok(K, group), K split n_split ways over whole stages, a ring of
+// `depth` stages (the plan of kernels/matmul.py w4_plan). x and s must admit
+// a tensor map (16-byte aligned); the weights take the cp.async feed where
+// they do not.
 template <typename OutT>
 cudaError_t launch(const void* x, const void* w, const void* s, void* out, int M, int K, int N,
                    int group, int n_split, int depth, cudaStream_t st) {
-  if (M < 1 || M > kMaxRows || N < 4 || N % 4 != 0 ||
-      (group != 32 && group != 64 && group != 128) || K < group || K % group != 0 ||
+  if (M < 1 || M > kMaxRows || N < 4 || N % 4 != 0 || !w4g::group_ok(K, group) ||
       n_split < 1 || n_split > kMaxSplit)
     return cudaErrorInvalidValue;
   const int total = (K + kBK - 1) / kBK, sps = (total + n_split - 1) / n_split;
@@ -576,7 +583,7 @@ cudaError_t launch(const void* x, const void* w, const void* s, void* out, int M
   if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ll * K, 64, rows,
                         CU_TENSOR_MAP_SWIZZLE_128B) ||
       !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, K / group, 4ll * N, kBN,
-                        kBK / group, CU_TENSOR_MAP_SWIZZLE_NONE))
+                        group > kBK ? 1 : kBK / group, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const int w_tma = mma8::tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, kBN,
                                      kRows, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -624,7 +631,8 @@ cudaError_t launch(const void* x, const void* w, const void* s, void* out, int M
 
 // x (M, K) bf16 (16-byte aligned), w (K/2, N) pack_int4, w_scale (K/g, N)
 // f32 (16-byte aligned), out (M, N) f32 or bf16; M <= 256; group 32, 64 or
-// 128; n_split and depth from kernels/matmul.py w4_plan.
+// 128, or a multiple of 128 from 256 up to K; n_split and depth from
+// kernels/matmul.py w4_plan.
 extern "C" int ff_w4_gemv(const void* x, const void* w, const void* w_scale, void* out, int M,
                           int K, int N, int group, int n_split, int depth, int out_bf16,
                           void* stream) {

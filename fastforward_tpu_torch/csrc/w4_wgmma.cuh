@@ -8,7 +8,7 @@
 // x (M, K) bf16, w (K/2, N) in pack_int4's group halves (byte row i of
 // group p: k = pg + i low nibble, pg + g/2 + i high, two's complement), s
 // (K/g, N) f32, bias (N,) f32 or null; out (M, N) f32 or bf16; g 32, 64 or
-// 128.
+// 128, or a multiple of 128 from 256 up to K.
 //
 // Design:
 // - The transposed product. wgmma takes its A operand from registers and
@@ -28,7 +28,12 @@
 //   each with a full and an empty mbarrier. A stage holds 128 k: the x tile
 //   as two 2-D TMA boxes (64 k x 128 rows each, 128B-swizzled), the 64
 //   packed byte rows of those k (one box of 128 columns, 128B-swizzled) and
-//   the 128 / g scale rows (one box). Where the weights' row pitch N is not
+//   the 128 / g scale rows (one box). A group of g = 128 j (j >= 2) spans j
+//   stages: stage c of group p holds byte rows pg/2 + 64c.., whose low
+//   nibbles are k = pg + 64c.. and high nibbles k = pg + g/2 + 64c.., so
+//   its two x boxes are those two 64-k runs and its one scale row is p's;
+//   the consumers then read the stage as at g 128. Where the weights' row
+//   pitch N is not
 //   a multiple of 16 bytes, the producer's lanes copy their 4-byte words by
 //   cp.async to the swizzled places instead and arrive on the full barrier
 //   when they land. Rows and columns past the tensors arrive as zeros.
@@ -220,18 +225,34 @@ __device__ __forceinline__ void run_stage(unsigned char* smem, uint64_t* full, u
   if (s + 1 < stages) load_stage<GROUP>(smem, full, s + 1, cb, tid, nxt);
 }
 
+// The k of the two 64-k x boxes of stage s (group-halves layout): at g <=
+// 128 the stage's 128 contiguous k; at g = 128 j (j >= 2) the runs of its
+// byte rows' low and high nibbles, g/2 apart.
+__host__ __device__ inline void stage_k(int s, int group, int& k_lo, int& k_hi) {
+  if (group <= kBK) {
+    k_lo = s * kBK;
+    k_hi = k_lo + 64;
+    return;
+  }
+  const int r = s * kRows, half = group / 2;  // the stage's first byte row
+  k_lo = r / half * group + r % half;
+  k_hi = k_lo + half;
+}
+
 // Grid: (m tiles * n tiles), kThreads threads, dynamic shared memory
 // smem_bytes(). x_map: x (M, K) bf16, boxes of 64 k x kBM rows; w_map (when
 // w_tma): w's (K/2, N) bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32,
-// boxes of kBN x (kBK / g).
+// boxes of kBN x max(1, kBK / g). GROUP 0: g = `group`, a multiple of 128
+// from 256 (a stage then reads as at g 128).
 template <int GROUP, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
 w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                    const __grid_constant__ CUtensorMap w_map,
                    const __grid_constant__ CUtensorMap s_map, int w_tma,
                    const int8_t* __restrict__ w, const float* __restrict__ bias,
-                   OutT* __restrict__ out, int M, int K, int N, int group_m) {
-  constexpr int kSRows = kBK / GROUP;
+                   OutT* __restrict__ out, int M, int K, int N, int group, int group_m) {
+  constexpr int kSRows = GROUP ? kBK / GROUP : 1;
+  constexpr int kDq = GROUP ? GROUP : kBK;  // the group a stage reads as
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle's 1024-byte period (smem_bytes asks for the slack)
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
@@ -260,12 +281,15 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       if (s >= kDepth) mma8::mbar_wait_or_trap(empty + slot, ((s / kDepth) - 1) & 1);
       unsigned char* st = smem + (size_t)slot * kStage;
       if (lane == 0) {
+        int k_lo, k_hi;
+        stage_k(s, group, k_lo, k_hi);
         mma8::mbar_arrive_expect_tx(full + slot,
                                     kXBytes + (w_tma ? kWBytes : 0) + kSRows * kBN * 4);
-        mma8::tma_box(st, &x_map, s * kBK, m0, full + slot);
-        mma8::tma_box(st + kXHalf, &x_map, s * kBK + 64, m0, full + slot);
+        mma8::tma_box(st, &x_map, k_lo, m0, full + slot);
+        mma8::tma_box(st + kXHalf, &x_map, k_hi, m0, full + slot);
         if (w_tma) mma8::tma_box(st + kXBytes, &w_map, n0, s * kRows, full + slot);
-        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, s * kSRows, full + slot);
+        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, GROUP ? s * kSRows : k_lo / group,
+                      full + slot);
       }
       if (!w_tma) {
         // lane: the 4-byte word at column 4 lane of each byte row, to its
@@ -293,10 +317,10 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   unsigned a0[8][4], a1[8][4];
 
-  load_stage<GROUP>(smem, full, 0, cb, tid, a0);
+  load_stage<kDq>(smem, full, 0, cb, tid, a0);
   for (int s = 0; s < stages; s += 2) {
-    run_stage<GROUP>(smem, full, empty, s, stages, cb, tid, acc, a0, a1);
-    if (s + 1 < stages) run_stage<GROUP>(smem, full, empty, s + 1, stages, cb, tid, acc, a1, a0);
+    run_stage<kDq>(smem, full, empty, s, stages, cb, tid, acc, a0, a1);
+    if (s + 1 < stages) run_stage<kDq>(smem, full, empty, s + 1, stages, cb, tid, acc, a1, a0);
   }
   wgmma_wait<0>();
 #pragma unroll
@@ -322,20 +346,26 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     }
 }
 
-// Launch the GEMM on a (M, K) x (K/2, N) product; group 32, 64 or 128.
-// x and s must admit a tensor map (16-byte aligned); the weights take the
+// The groups the group-halves tensor-core kernels take (w4_gemv.cu,
+// w4a8_halves.cu, this GEMM; kernels/matmul.py float_scale_group_ok): g 32,
+// 64 or 128, or g = 128 j (j >= 2) up to K; K a whole number of groups.
+__host__ __device__ inline bool group_ok(int K, int group) {
+  const bool small = group == 32 || group == 64 || group == 128;
+  return (small || (group >= 2 * kBK && group % kBK == 0)) && K >= group && K % group == 0;
+}
+
+// Launch the GEMM on a (M, K) x (K/2, N) product; group_ok(K, group). x and
+// s must admit a tensor map (16-byte aligned); the weights take the
 // cp.async feed where they do not.
 template <typename OutT>
 cudaError_t launch(const void* x, const void* w, const void* s, const void* bias, void* out,
                    int M, int K, int N, int group, cudaStream_t st) {
-  if (M < 1 || N < 4 || N % 4 != 0 || (group != 32 && group != 64 && group != 128) ||
-      K < group || K % group != 0)
-    return cudaErrorInvalidValue;
+  if (M < 1 || N < 4 || N % 4 != 0 || !group_ok(K, group)) return cudaErrorInvalidValue;
   CUtensorMap xm = {}, wm = {}, sm = {};
   if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ll * K, 64, kBM,
                         CU_TENSOR_MAP_SWIZZLE_128B) ||
       !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, K / group, 4ll * N, kBN,
-                        kBK / group, CU_TENSOR_MAP_SWIZZLE_NONE))
+                        group > kBK ? 1 : kBK / group, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const int w_tma = mma8::tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, kBN,
                                      kRows, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -349,7 +379,7 @@ cudaError_t launch(const void* x, const void* w, const void* s, const void* bias
     if (err != cudaSuccess) return err;
     kernel<<<blocks, kThreads, smem, st>>>(xm, wm, sm, w_tma, static_cast<const int8_t*>(w),
                                            static_cast<const float*>(bias),
-                                           static_cast<OutT*>(out), M, K, N, group_m);
+                                           static_cast<OutT*>(out), M, K, N, group, group_m);
     return cudaGetLastError();
   };
   switch (group) {
@@ -357,8 +387,10 @@ cudaError_t launch(const void* x, const void* w, const void* s, const void* bias
       return run(w4a16_wgmma_kernel<32, OutT>);
     case 64:
       return run(w4a16_wgmma_kernel<64, OutT>);
-    default:
+    case 128:
       return run(w4a16_wgmma_kernel<128, OutT>);
+    default:
+      return run(w4a16_wgmma_kernel<0, OutT>);
   }
 }
 

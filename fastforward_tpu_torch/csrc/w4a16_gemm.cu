@@ -31,7 +31,7 @@
 
 // x (M, K) bf16 (16-byte aligned), w (K/2, N) pack_int4, w_scale (K/g, N)
 // f32 (16-byte aligned), bias (N,) f32 or null, out (M, N) f32 or bf16;
-// group 32, 64 or 128.
+// group 32, 64 or 128, or a multiple of 128 from 256 up to K.
 extern "C" int ff_w4a16_gemm(const void* x, const void* w, const void* w_scale, const void* bias,
                              void* out, int M, int K, int N, int group, int out_bf16,
                              void* stream) {

@@ -10,7 +10,8 @@
 //   y[m, n]    = acc * xs[m]                               (f32 or bf16)
 // x (M <= 256, K) int8, xs (M,) f32, w (K/2, N) in pack_int4's group
 // halves (byte row i of group p: k = pg + i low nibble, pg + g/2 + i high,
-// two's complement), s (K/g, N) f32, g 32, 64 or 128. The group sum runs in
+// two's complement), s (K/g, N) f32, g 32, 64 or 128 or a multiple of 128
+// from 256 up to K (w4_wgmma.cuh group_ok). The group sum runs in
 // the order of the jitted JAX oracle, which the port's
 // matmul_w4a8_reference writes out (kernels/matmul.py _group_sum): up to
 // 32 groups a chain of fused multiply-adds in group order from +0; beyond,
@@ -57,6 +58,15 @@
 //   128B-swizzled box; the 4-byte cp.async feed where N % 16 != 0) and the
 //   128/g scale rows. A split starts at its first group, so its last stage
 //   may hold groups of the next window, which it folds with a zero scale.
+// - A group of g = 128 j (j >= 2) spans j stages (consume_big). Stage c of
+//   group p holds byte rows pg/2 + 64c.., whose low nibbles are k = pg +
+//   64c.. and high nibbles k = pg + g/2 + 64c..: x arrives as those two
+//   64-k runs, each a box of 64 bytes a token row with the 64B swizzle
+//   (x_desc64), and the stage's four k32 steps read them as the g 128
+//   steps read their one box. The group's int32 dot accumulates over its j
+//   stages (16 |gd| <= 16 * 128 * 8 * g < 2^31 up to g = 2^16) and is
+//   folded once, after its last stage, in the same order as at g <= 128;
+//   window splits (every 32 groups) fall on stage boundaries.
 
 #include "int8_wgmma.cuh"
 
@@ -162,15 +172,27 @@ struct Sums {
 // quarter of the FMA rate): |acc| <= 16 * 8 * 128 * 128 < 2^22, so adding
 // acc to the bits of 1.5 * 2^23 gives the float 1.5 * 2^23 + acc, and one
 // fused multiply-add by 1/16 minus 1.5 * 2^19 leaves acc / 16 (every step
-// exact).
+// exact). BIG (g > 128, one conversion a group of several stages): float(acc)
+// rounded once, times 1/16, which is float(gd) rounded once as the oracle's
+// f64 dot is (acc = 16 gd: the power of two commutes with the rounding).
+template <bool BIG = false>
 __device__ __forceinline__ float group_dot(int acc) {
+  if constexpr (BIG) return __fmul_rn(__int2float_rn(acc), 0.0625f);
   return __fmaf_rn(__int_as_float(acc + 0x4B400000), 0.0625f, -786432.0f);
+}
+
+// The wgmma descriptor of a K-major tile of 64-byte rows with the 64B
+// swizzle (x's two 64-k boxes of a stage at g > 128): 8-row atoms of 512
+// bytes (SBO); LBO unused (1).
+__device__ __forceinline__ uint64_t x_desc64(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
 }
 
 // Fold one group's dots (acc, 16 gd) into the sums with the scales of
 // columns cb (sc.x) and cb + 1 (sc.y); `close` (MULTI): the group opens a
 // window, so the open window's sum joins the closed ones first.
-template <int NT, bool MULTI>
+template <int NT, bool MULTI, bool BIG = false>
 __device__ __forceinline__ void fold(const int (&acc)[NT / 2], Sums<NT, MULTI>& sm, float2 sc,
                                      int fold_mode, bool close) {
   // acc[4i + h] is column cb, acc[4i + 2 + h] column cb + 1
@@ -181,16 +203,17 @@ __device__ __forceinline__ void fold(const int (&acc)[NT / 2], Sums<NT, MULTI>& 
         sm.fs[j] = __fadd_rn(sm.fs[j], sm.wsum[j]);
         sm.wsum[j] = 0.f;
       }
-      sm.wsum[j] = __fadd_rn(sm.wsum[j], __fmul_rn(group_dot(acc[j]), j & 2 ? sc.y : sc.x));
+      sm.wsum[j] =
+          __fadd_rn(sm.wsum[j], __fmul_rn(group_dot<BIG>(acc[j]), j & 2 ? sc.y : sc.x));
     }
   } else if (fold_mode == kChain) {
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j)
-      sm.fs[j] = __fmaf_rn(group_dot(acc[j]), j & 2 ? sc.y : sc.x, sm.fs[j]);
+      sm.fs[j] = __fmaf_rn(group_dot<BIG>(acc[j]), j & 2 ? sc.y : sc.x, sm.fs[j]);
   } else {
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j)
-      sm.fs[j] = __fadd_rn(sm.fs[j], __fmul_rn(group_dot(acc[j]), j & 2 ? sc.y : sc.x));
+      sm.fs[j] = __fadd_rn(sm.fs[j], __fmul_rn(group_dot<BIG>(acc[j]), j & 2 ? sc.y : sc.x));
   }
 }
 
@@ -276,12 +299,92 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uin
   }
 }
 
+// The consumer warpgroups' walk over a split's groups [g0, g1) at g = 128 j
+// (j >= 2): stage s is stage c = s % j of group g0 + s / j. Its four k32
+// steps are the g 128 steps (step_regs), on x's low-nibble box (steps 0, 1)
+// and high-nibble box (2, 3); the group's dot accumulates from its first
+// step (scale-d 0) over its j stages and is folded after the last. The next
+// stage's raw words are read while a stage's products run; its slot goes
+// back to the producer once they are done.
+// One stage s (stage c = s % spg of group gi = g0 + s / spg) at g > 128:
+// its four products on `cur` into the group's dot, the next stage's raw
+// words into `nxt` while they run, the wait, the slot's release, and after
+// the group's last stage the fold.
+template <int NT, bool MULTI>
+__device__ __forceinline__ void run_stage_big(unsigned char* smem, uint64_t* full,
+                                              uint64_t* empty, int s, int stages, int depth,
+                                              int spg, int g0, int lo, int fold_mode,
+                                              const i8w::Lane& l, int cb, int (&acc)[NT / 2],
+                                              Sums<NT, MULTI>& sm, unsigned (&cur)[4][2],
+                                              unsigned (&nxt)[4][2]) {
+  constexpr int kStage = stage_bytes(NT), kXBytes = NT * kBK, kBox = NT * 64;
+  const unsigned char* st = smem + (size_t)(s % depth) * kStage;
+  const unsigned xb = smem_u32(st);
+  const int c = s % spg, gi = g0 + s / spg;
+  unsigned a[4][4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) step_regs(128, 0, t, cur, a[t]);
+  float2 sc = *reinterpret_cast<const float2*>(st + kXBytes + kWBytes + 4 * cb);
+  w4g::fence_reg(sc.x);
+  w4g::fence_reg(sc.y);
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w4g::fence_reg(a[t][r]);
+  w4g::wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    i8w::Mma<NT>::run(acc, a[t], x_desc64(xb + (t / 2) * kBox + (t % 2) * 32), c > 0 || t > 0);
+  w4g::wgmma_commit();
+  if (s + 1 < stages) {
+    const int slot = (s + 1) % depth;
+    mma8::mbar_wait_or_trap(full + slot, ((s + 1) / depth) & 1);
+    load_raw(smem + (size_t)slot * kStage + kXBytes, l, nxt);
+  }
+  w4g::wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) i8w::fence_reg(acc[j]);
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w4g::fence_reg(a[t][r]);
+  if (threadIdx.x % 128 == 0) mma8::mbar_arrive(empty + s % depth);
+  if (c == spg - 1)
+    fold<NT, MULTI, true>(acc, sm, sc, fold_mode, MULTI && gi > 0 && (gi + lo) % kWindow == 0);
+}
+
+// The consumer warpgroups' walk over a split's groups [g0, g1) at g = 128 j
+// (j >= 2, `spg`): stage s is stage s % j of group g0 + s / j. Its four k32
+// steps are the g 128 steps (step_regs), on x's low-nibble box (steps 0, 1)
+// and high-nibble box (2, 3); the group's dot accumulates from its first
+// step (scale-d 0) over its j stages and is folded after the last.
+template <int NT, bool MULTI>
+__device__ __forceinline__ void consume_big(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                            int stages, int depth, int spg, int g0, int lo,
+                                            int fold_mode, int cb, int tid,
+                                            Sums<NT, MULTI>& sm) {
+  const i8w::Lane l = i8w::lane_of(cb, tid);
+  int acc[NT / 2];
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) acc[j] = 0;
+  unsigned f0[4][2], f1[4][2];
+  mma8::mbar_wait_or_trap(full, 0);
+  load_raw(smem + NT * kBK, l, f0);
+  for (int s = 0; s < stages; s += 2) {  // stages = (groups) * spg: even
+    run_stage_big<NT, MULTI>(smem, full, empty, s, stages, depth, spg, g0, lo, fold_mode, l, cb,
+                             acc, sm, f0, f1);
+    run_stage_big<NT, MULTI>(smem, full, empty, s + 1, stages, depth, spg, g0, lo, fold_mode, l,
+                             cb, acc, sm, f1, f0);
+  }
+}
+
 // Grid (n_split, column blocks, row_blocks), clusters of (n_split, 1, 1);
 // kThreads threads; dynamic shared memory smem_bytes(NT, depth, n_split).
-// x_map: x (M, K) int8, boxes of 128 k x NT rows; w_map (when w_tma): w's
-// (K/2, N) bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32, boxes of kBN
-// x (kBK / g). Row block z owns token rows [z rows, min(M, (z + 1) rows)),
-// rows = ceil(M / row_blocks) <= NT.
+// x_map: x (M, K) int8, boxes of 128 k x NT rows (g > 128: 64 k, 64B
+// swizzle); w_map (when w_tma): w's (K/2, N) bytes, boxes of kBN x kRows;
+// s_map: s (K/g, N) f32, boxes of kBN x max(1, kBK / g). Row block z owns
+// token rows [z rows, min(M, (z + 1) rows)), rows = ceil(M / row_blocks) <=
+// NT.
 template <int NT, bool MULTI>
 __global__ void __launch_bounds__(kThreads, NT <= 32 ? 2 : 1)
 w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
@@ -299,13 +402,15 @@ w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const size_t red_bytes = n_split > 1 ? (size_t)NT * kRedPitch * 4 : 0;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + (ring > red_bytes ? ring : red_bytes));
   uint64_t* empty = full + depth;
-  const int G = K / group, lo = window_lo(G), gps = kBK / group;
+  // groups a stage holds (g <= 128), or stages a group spans (g > 128)
+  const int G = K / group, lo = window_lo(G), gps = group > kBK ? 1 : kBK / group;
+  const int spg = group > kBK ? group / kBK : 1;
   const int split = blockIdx.x, n0 = blockIdx.y * kBN;
   const int rows = (M + row_blocks - 1) / row_blocks, m0 = blockIdx.z * rows;
   const int rows_here = min(rows, M - m0);
   int g0, g1;
   split_groups(fold_mode, G, split, g0, g1);
-  const int stages = (g1 - g0 + gps - 1) / gps;
+  const int stages = (g1 - g0 + gps - 1) / gps * spg;
   const int k0 = g0 * group;  // the split's first k
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -327,9 +432,16 @@ w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       if (lane == 0) {
         mma8::mbar_arrive_expect_tx(full + slot,
                                     kXBytes + (w_tma ? kWBytes : 0) + gps * kBN * 4);
-        mma8::tma_box(st, &x_map, k0 + s * kBK, m0, full + slot);
+        if (spg > 1) {  // the stage's two 64-k runs
+          int k_lo, k_hi;
+          w4g::stage_k(g0 * spg + s, group, k_lo, k_hi);
+          mma8::tma_box(st, &x_map, k_lo, m0, full + slot);
+          mma8::tma_box(st + NT * 64, &x_map, k_hi, m0, full + slot);
+        } else {
+          mma8::tma_box(st, &x_map, k0 + s * kBK, m0, full + slot);
+        }
         if (w_tma) mma8::tma_box(st + kXBytes, &w_map, n0, k0 / 2 + s * kRows, full + slot);
-        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, g0 + s * gps, full + slot);
+        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, g0 + s / spg * gps, full + slot);
       }
       if (!w_tma)
         i8w::copy_weight_rows(st + kXBytes, w, n0, N, k0 / 2 + s * kRows, kRows, K / 2,
@@ -349,7 +461,10 @@ w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) sm.wsum[j] = 0.f;
     }
-    if (group == 32)
+    if (spg > 1)
+      consume_big<NT, MULTI>(smem, full, empty, stages, depth, spg, g0, lo, fold_mode, cb, tid,
+                             sm);
+    else if (group == 32)
       consume<NT, 32, MULTI>(smem, full, empty, stages, depth, g0, g1, lo, fold_mode, cb, tid, sm);
     else if (group == 64)
       consume<NT, 64, MULTI>(smem, full, empty, stages, depth, g0, g1, lo, fold_mode, cb, tid, sm);
@@ -420,11 +535,11 @@ w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, void* out,
                    int M, int K, int N, int group, int out_bf16, int nt, int row_blocks,
                    int n_split, int fold_mode, int depth, cudaStream_t st) {
-  if (M < 1 || N < 4 || N % 4 != 0 || (group != 32 && group != 64 && group != 128) ||
-      K < group || K % group != 0 || row_blocks < 1 || nt < 1 || nt > kMaxRows ||
-      i8w::tile_n(nt) != nt)
+  if (M < 1 || N < 4 || N % 4 != 0 || !w4g::group_ok(K, group) || group > (1 << 16) ||
+      row_blocks < 1 || nt < 1 || nt > kMaxRows || i8w::tile_n(nt) != nt)
     return cudaErrorInvalidValue;
-  const int G = K / group, gps = kBK / group;
+  const int G = K / group, gps = group > kBK ? 1 : kBK / group;
+  const int spg = group > kBK ? group / kBK : 1;
   const int rows = (M + row_blocks - 1) / row_blocks;
   if (rows > nt || (row_blocks - 1) * rows >= M || G > kWindow * kWindow) return cudaErrorInvalidValue;
   const int windows = (G + kWindow - 1) / kWindow;
@@ -437,7 +552,7 @@ cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, 
   for (int z = 0; z < n_split; ++z) {
     int g0, g1;
     split_groups(fold_mode, G, z, g0, g1);
-    const int stages = (g1 - g0 + gps - 1) / gps;
+    const int stages = (g1 - g0 + gps - 1) / gps * spg;
     if (stages > most) most = stages;
   }
   // the next stage's weight rows are read before a stage's slot is
@@ -446,8 +561,8 @@ cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, 
   const size_t smem = smem_bytes(nt, depth, n_split);
   if (smem > 232448) return cudaErrorInvalidValue;
   CUtensorMap xm = {}, wm = {}, sm = {};
-  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, M, K, kBK, nt,
-                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, M, K, spg > 1 ? 64 : kBK, nt,
+                        spg > 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B) ||
       !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, G, 4ll * N, kBN, gps,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
@@ -484,8 +599,9 @@ cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, 
 
 // x (M, K) int8 (16-byte aligned), xs (M,) f32, w (K/2, N) pack_int4,
 // w_scale (K/g, N) f32 (16-byte aligned), out (M, N) f32 or bf16; group 32,
-// 64 or 128; nt, row_blocks, n_split, fold (0 chain, 1 window splits, 2
-// every window in one block) and depth from kernels/matmul.py w4a8_plan.
+// 64 or 128, or a multiple of 128 from 256 up to K and 2^16; nt,
+// row_blocks, n_split, fold (0 chain, 1 window splits, 2 every window in
+// one block) and depth from kernels/matmul.py w4a8_plan.
 extern "C" int ff_w4a8_gemv_halves(const void* x, const void* xs, const void* w,
                                    const void* w_scale, void* out, int M, int K, int N, int group,
                                    int out_bf16, int nt, int row_blocks, int n_split, int fold,

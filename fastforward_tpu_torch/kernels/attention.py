@@ -7,16 +7,18 @@ whole-slab `flash_decode_int8_stacked` (:271) and the length-aware
 the CUDA kernel (`csrc/flash_decode.cu`) always reads only the live blocks.
 `flash_decode_int8` (:721) is the same kernel over one layer's cache.
 `flash_prefill` (:971) is the blocked causal prefill attention
-(`csrc/flash_prefill.cu`) over an int8 or a bf16 cache, reading only the
-key tiles at or below each query tile's causal frontier.
+(`csrc/flash_prefill.cu`, wgmma fed by TMA) over an int8 or a bf16 cache,
+reading only the key tiles at or below each query tile's causal frontier;
+`prefill_plan` mirrors its grid and tiles.
 """
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from fastforward_tpu_torch.kernels import _build
+from fastforward_tpu_torch.kernels.matmul import H100_SMS, _aligned16
 
 NEG_INF = -1e30
 
@@ -134,12 +136,92 @@ def flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale: Optional[f
     return torch.einsum("bhts,bhsd->bhtd", weights, vf).to(q.dtype)
 
 
+# The prefill kernel's tiles (csrc/flash_prefill.cu): a work item is 128
+# query rows (the G heads x 128 / G positions of a position tile), two
+# consumer warpgroups of 64; keys in tiles of 64; one persistent block an
+# SM (`H100_SMS`; the kernel asks the card).
+PREFILL_ROWS, PREFILL_WG_ROWS, PREFILL_KEYS = 128, 64, 64
+
+
+class PrefillPlan(NamedTuple):
+    """The grid of the flash prefill kernel for (B, H, Hkv, T, S): ``P``
+    positions a work item, ``pw`` positions and ``gw`` heads a warpgroup,
+    ``n_pt`` position tiles, ``items`` work items and ``grid`` persistent
+    blocks (block z takes items z, z + grid, ...)."""
+    B: int
+    Hkv: int
+    G: int
+    T: int
+    S: int
+    P: int
+    pw: int
+    gw: int
+    n_pt: int
+    items: int
+    grid: int
+
+    def item(self, i: int):
+        """(b, kv head, position tile) of item ``i``: (b, h) in order, the
+        position tiles in snake order (reversed for odd (b, h))."""
+        bh, pt = divmod(i, self.n_pt)
+        if bh % 2:
+            pt = self.n_pt - 1 - pt
+        return bh // self.Hkv, bh % self.Hkv, pt
+
+    def block_items(self, z: int):
+        return list(range(z, self.items, self.grid))
+
+    def key_tiles(self, start: int, last: int) -> int:
+        """Key tiles up to the frontier ``start + last``, within S."""
+        return min(-(-self.S // PREFILL_KEYS), (start + last) // PREFILL_KEYS + 1)
+
+    def item_tiles(self, i: int, start: int) -> int:
+        """The key tiles the producer streams for item ``i`` (its last
+        position's frontier)."""
+        pt = self.item(i)[2]
+        return self.key_tiles(start, min((pt + 1) * self.P, self.T) - 1)
+
+    def wg_rows(self, i: int, wg: int):
+        """[(head, position)] of warpgroup ``wg``'s 64 rows of item ``i`` in
+        row order (head-major; positions past T included: they read zeros
+        and are not stored)."""
+        b, h, pt = self.item(i)
+        p_off = PREFILL_WG_ROWS * wg if self.P > PREFILL_WG_ROWS else 0
+        h_off = 0 if self.P > PREFILL_WG_ROWS else wg * self.gw
+        return [(h * self.G + h_off + r // self.pw, pt * self.P + p_off + r % self.pw)
+                for r in range(PREFILL_WG_ROWS)]
+
+    def wg_tiles(self, i: int, wg: int, start: int):
+        """(tiles warpgroup ``wg`` computes, tiles it leaves unmasked) of
+        item ``i``: none where its first position is past T."""
+        t0 = self.wg_rows(i, wg)[0][1]
+        if t0 >= self.T:
+            return 0, 0
+        n = self.key_tiles(start, min(t0 + self.pw, self.T) - 1)
+        return n, min((start + t0 + 1) // PREFILL_KEYS, self.S // PREFILL_KEYS)
+
+
+def prefill_plan(B: int, H: int, Hkv: int, T: int, S: int, sms: int = H100_SMS) -> PrefillPlan:
+    """The flash prefill kernel's work items and grid (C ``launch``)."""
+    if H % Hkv or H // Hkv not in (1, 2, 4, 8) or min(B, T, S) < 1:
+        raise ValueError(f"no flash prefill plan for H={H}, Hkv={Hkv}, T={T}, S={S}")
+    G = H // Hkv
+    P = PREFILL_ROWS // G
+    pw = min(P, PREFILL_WG_ROWS)
+    n_pt = -(-T // P)
+    items = B * Hkv * n_pt
+    return PrefillPlan(B, Hkv, G, T, S, P, pw, PREFILL_WG_ROWS // pw, n_pt, items,
+                       min(items, sms))
+
+
 def flash_prefill(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = None):
     """Blocked causal prefill attention (`attention.py:971`) over one
     layer's cache: q (B, H, T, 128) bf16; k/v (B, Hkv, S, 128) int8 with
     f32 scales (B, Hkv, S), or bf16 with None scales (counted under
     ``flash_prefill_bf16``); starts (B,) int32; H / Hkv in (1, 2, 4, 8).
-    Within 8e-3 of the largest output of `flash_prefill_reference`."""
+    On CUDA `csrc/flash_prefill.cu` (wgmma; grid and tiles as
+    `prefill_plan`). Within 8e-3 of the largest output of
+    `flash_prefill_reference`."""
     if q.device.type == "cpu":
         return flash_prefill_reference(q, k, k_scale, v, v_scale, starts, scale)
     B, H, T, d = q.shape
@@ -163,6 +245,8 @@ def flash_prefill(q, k, k_scale, v, v_scale, starts, scale: Optional[float] = No
             f"(d={d}, H={H}, Hkv={Hkv}, T={T}, S={S})"
         )
     sm_scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    # the kernel reaches q, k, v and out through TMA tensor maps
+    q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     out = torch.empty_like(q)
     lib = _build.lib("flash_prefill")
     if bf16_kv:

@@ -690,6 +690,48 @@ def dequantize_int4_paired_reference(w_packed, w_scale, group_size: int = 128):
     return dequantize_int4_reference(w_packed, w_scale, group_size, paired=True)
 
 
+# The prefill dequant's grid (csrc/dequant.cu): 256 threads a block, 8
+# columns a thread (1 where the panel width is no multiple of 8), R byte
+# rows a thread, R = 8 unless that leaves fewer than 4 blocks an SM.
+_DQ_THREADS, _DQ_MIN_BLOCKS_PER_SM = 256, 4
+H100_SMS = 132
+
+
+class DequantPlan(NamedTuple):
+    """The grid of `csrc/dequant.cu` (C ``launch``): the columns and byte
+    rows a thread owns, the column tiles of a row of blocks (``threads *
+    cols`` columns each) and the row tiles (``rows`` byte rows each); the
+    blocks walk them with the column tile fastest."""
+    cols: int
+    rows: int
+    col_tiles: int
+    row_tiles: int
+    threads: int = _DQ_THREADS
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.row_tiles
+
+    def block_tile(self, b: int):
+        """(byte rows, columns) ranges of block ``b``."""
+        ct, rt = b % self.col_tiles, b // self.col_tiles
+        c0 = ct * self.threads * self.cols
+        return (rt * self.rows, (rt + 1) * self.rows), (c0, c0 + self.threads * self.cols)
+
+
+def dequant_plan(K: int, N: int, bn: int = 0, sms: int = H100_SMS) -> DequantPlan:
+    """The prefill dequant's grid for a (K/2, N) packed weight (panels of
+    ``bn`` columns, 0: flat) on a card of ``sms`` SMs: each thread issues its
+    R 8-byte loads before converting any; R = 8, or 4 where 8 leaves fewer
+    than `_DQ_MIN_BLOCKS_PER_SM` blocks an SM (o_proj: 1,024 blocks of 4
+    rows, not 512 of 8)."""
+    bn = bn if bn > 0 else N
+    cols = 8 if bn % 8 == 0 else 1
+    col_tiles = -(-(N // cols) // _DQ_THREADS)
+    rows = 8 if col_tiles * -(-(K // 2) // 8) >= _DQ_MIN_BLOCKS_PER_SM * sms else 4
+    return DequantPlan(cols, rows, col_tiles, -(-(K // 2) // rows))
+
+
 def _dequant(entry, count, w_packed, mult, scale, layer, group_size, unit, *extra):
     """Launch `csrc/dequant.cu` on layer ``layer`` of (L, K//2, N) weights
     (or of their pre-blocked form (L, N//bn, K//2, bn), whose entry takes
@@ -817,8 +859,28 @@ def prefill_product(x_q, x_s, w, out_dtype, bias=None):
 # those orders out.
 
 _SUM_WINDOW = 32  # XLA CPU's tree-reduction window
-# Group sizes the tensor-core GEMVs (csrc/w4a8_halves.cu, csrc/w4_gemv.cu) take.
-_MMA_GROUPS = (32, 64, 128)
+_STAGE_K = 128  # k a ring stage of the group-halves tensor-core kernels
+_MAX_BIG_GROUP = 1 << 16  # the W4A8 GEMV's int32 dot of a group: 16 * 128 * 8 * g < 2^31
+
+
+def float_scale_group_ok(K: int, group_size: int) -> bool:
+    """Whether the group-halves tensor-core kernels (rows 16, 17 and 18t:
+    `csrc/w4a8_halves.cu`, `csrc/w4_gemv.cu`, `csrc/w4a16_gemm.cu`; C
+    `group_ok`) take group ``group_size`` at depth K: g 32, 64 or 128, or g
+    = 128 j with j >= 2 up to g = K (a group then spans j of their 128-k
+    stages); K a whole number of groups."""
+    g = group_size
+    small = g in (32, 64, 128)
+    return (small or (g >= 2 * _STAGE_K and g % _STAGE_K == 0)) and K >= g and K % g == 0
+
+
+def stage_groups(group_size: int) -> tuple:
+    """(groups a 128-k stage holds, stages a group spans) of the
+    group-halves tensor-core kernels: (128 / g, 1) up to g = 128, (1, g /
+    128) above."""
+    if group_size <= _STAGE_K:
+        return _STAGE_K // group_size, 1
+    return 1, group_size // _STAGE_K
 
 
 def _fma_f32(a, b, c):
@@ -957,10 +1019,12 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
     _check_gemv(x_q, x_scale, K, N, group_size)
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
-    if out_dtype not in (torch.float32, torch.bfloat16) or group_size not in _MMA_GROUPS \
+    if out_dtype not in (torch.float32, torch.bfloat16) \
+            or not float_scale_group_ok(K, group_size) or group_size > _MAX_BIG_GROUP \
             or K // group_size > _SUM_WINDOW ** 2 or M > GEMV_MAX_M:
         raise ValueError(
-            f"W4A8 halves GEMV kernel needs f32 or bf16 out, group 32, 64 or 128, at most "
+            f"W4A8 halves GEMV kernel needs f32 or bf16 out, group 32, 64 or 128 or a "
+            f"multiple of 128 from 256 up to K and {_MAX_BIG_GROUP}, at most "
             f"{_SUM_WINDOW ** 2} groups and M <= {GEMV_MAX_M} (out={out_dtype}, "
             f"group={group_size}, K={K}, M={M})"
         )
@@ -1144,9 +1208,10 @@ def w4a8_plan(M: int, K: int, N: int, group_size: int) -> W4A8Plan:
     third set of sums), so more rows take more row blocks; of one to two
     times the fewest row blocks it takes the least (waves of clusters) x
     (wgmma's n + 32), fewer row blocks on a tie (narrow projections split
-    their rows to fill the card)."""
-    if not 1 <= M <= GEMV_MAX_M or group_size not in _MMA_GROUPS or K < group_size \
-            or K % group_size or N < 4 or N % 4:
+    their rows to fill the card). A group of g = 128 j (j >= 2) spans j
+    stages (`stage_groups`), so every split starts on a stage boundary."""
+    if not 1 <= M <= GEMV_MAX_M or not float_scale_group_ok(K, group_size) \
+            or group_size > _MAX_BIG_GROUP or N < 4 or N % 4:
         raise ValueError(f"no W4A8 GEMV plan for M={M}, K={K}, N={N}, group={group_size}")
     G = K // group_size
     windows = -(-G // _SUM_WINDOW)
@@ -1156,8 +1221,8 @@ def w4a8_plan(M: int, K: int, N: int, group_size: int) -> W4A8Plan:
     n_split = windows if fold == "window" else 1
     lo = (windows * _SUM_WINDOW - G) // 2
     plan = W4A8Plan(fold, 0, 0, 0, 0, -(-N // _I8_BN), n_split, lo, 0, 1)
-    gps = _I8_BK // group_size
-    stages = max(-(-(g1 - g0) // gps) for g0, g1 in plan.group_ranges(G))
+    gps, spg = stage_groups(group_size)
+    stages = max(-(-(g1 - g0) // gps) * spg for g0, g1 in plan.group_ranges(G))
     most = 64 if fold == "multi" else 96
     fewest = -(-M // most)
     best = None
@@ -1373,14 +1438,14 @@ class W4Plan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def w4_plan(M: int, K: int, N: int, group_size: int, n_split: Optional[int] = None) -> W4Plan:
     """Plan of the wgmma W4 GEMV at M <= 256 token rows: the wgmma n, then
-    the K split over whole 128-k stages (whole groups at g 32, 64, 128), no
-    split empty, the splits of a column block one cluster. Of 1-8 splits it
-    takes the least of (waves of clusters, at `W4_CLUSTERS` of them at
+    the K split over whole 128-k stages (whole groups at g 32, 64, 128; at
+    g = 128 j a j-th of a group), no split empty, the splits of a column
+    block one cluster. Of 1-8 splits it takes the least of (waves of clusters, at `W4_CLUSTERS` of them at
     once) x (stages a block + `_W4_BLOCK_COST`), fewer splits on a tie (or
     about ``n_split`` splits where given: the card tests and A/Bs take
     others); then the deepest ring that fits (at least two stages where a
     split has two)."""
-    if not 1 <= M <= GEMV_MAX_M or group_size not in _MMA_GROUPS or K % group_size:
+    if not 1 <= M <= GEMV_MAX_M or not float_scale_group_ok(K, group_size):
         raise ValueError(f"no W4 GEMV plan for M={M}, K={K}, group={group_size}")
     n = next(t for t in (8, 16, 32, 64, 128, 192, 256) if M <= t)
     per_sm = 2 if n <= 64 else 1
@@ -1414,11 +1479,11 @@ def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
     if out_dtype not in (torch.float32, torch.bfloat16) or not 1 <= M <= GEMV_MAX_M \
-            or N % 4 != 0 or group_size not in _MMA_GROUPS or K % group_size != 0:
+            or N % 4 != 0 or not float_scale_group_ok(K, group_size):
         raise ValueError(
             f"W4 GEMV kernel needs f32 or bf16 out, 1 <= M <= {GEMV_MAX_M}, N % 4 == 0, group "
-            f"32, 64 or 128 and K % group == 0 (out={out_dtype}, M={M}, N={N}, "
-            f"group={group_size}, K={K})"
+            f"32, 64 or 128 or a multiple of 128 from 256 up to K, and K % group == 0 "
+            f"(out={out_dtype}, M={M}, N={N}, group={group_size}, K={K})"
         )
     plan = w4_plan(M, K, N, group_size)
     x, w_scale = _aligned16(x), _aligned16(w_scale)  # both reach the kernel through tensor maps
@@ -1543,10 +1608,11 @@ def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, o
         bias = bias.float().contiguous()
         _build.require(bias, "bias", torch.float32, (N,), dev)
     if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
-            or group_size not in _MMA_GROUPS or K % group_size != 0:
+            or not float_scale_group_ok(K, group_size):
         raise ValueError(
             f"W4A16 tiled kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, group 32, 64 or "
-            f"128 and K % group == 0 (out={out_dtype}, M={M}, N={N}, group={group_size}, K={K})"
+            f"128 or a multiple of 128 from 256 up to K, and K % group == 0 (out={out_dtype}, "
+            f"M={M}, N={N}, group={group_size}, K={K})"
         )
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _build.lib("w4a16_gemm").ff_w4a16_gemm(

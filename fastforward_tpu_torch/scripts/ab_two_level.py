@@ -34,7 +34,14 @@ DIR; and rows 19 (the W8A8 GEMM) and 16 (the float-scale W4A8 GEMV) over
 the four projections at M = 192 and 8, g128, and on the f32 lm_head at M
 = 192, row 19 also at the prefill's M = 24,576, with caller-visible
 medians (the prefill's device time only) and their outputs saved (the
-prefill's as an exact digest); each line tagged TAG. Inputs come from one
+prefill's as an exact digest); row 7 (flash prefill, int8 and bf16 K/V,
+Hkv 8, G 4, a 512-token slab: bench.py's prefill, B = 192, T = 128,
+starts 0, and a ragged chunk, B = 16, T = 77, starts 0-300) with its
+caller-visible median; the prefill dequant over the four projections,
+rows 15 (group halves g128), 14 (paired g128), 14p (the same pre-blocked
+at bn 512) and 8 (vertical g512); and the device time of the yardstick of
+rows 19 and 16, one torch._int_mm on a K-major int8 weight (four
+projections and the lm_head, M = 192); each line tagged TAG. Inputs come from one
 seed, so two trees time the same integers; run them in turns on one card
 (A, B, B, A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c),
 (k), (n), (f), (l), (e), (g) and (h) on their seeds and the engine
@@ -351,6 +358,66 @@ def main():
             print(f"AB[{tag}] {label}: caller-visible {cs.median_ms(fn):.4f} ms", flush=True)
             outputs[label] = [fn().cpu()]
             del w
+        torch.cuda.empty_cache()
+
+        # row 7, flash prefill over int8 and bf16 K/V (Hkv 8, G 4, a
+        # 512-token slab): bench.py's prefill (B 192, T 128, starts 0) and a
+        # ragged chunk (B 16, T 77, starts 0..300)
+        Hkv, G, d, S = 8, 4, 128, cs.SLAB
+        for B, T, smax in ((cs.BATCH, cs.PROMPT, 0), (16, 77, 300)):
+            q = torch.randn((B, Hkv * G, T, d), generator=gen, device=dev).to(torch.bfloat16)
+            starts = torch.randint(0, smax + 1, (B,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            for kv in ("int8", "bf16"):
+                if kv == "int8":
+                    k, v = ri(-128, 128, (B, Hkv, S, d)), ri(-128, 128, (B, Hkv, S, d))
+                    ks = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.02
+                    vs = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+                else:
+                    k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+                    v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+                    ks = vs = None
+                fn = (lambda: att.flash_prefill(q, k, ks, v, vs, starts))
+                show(f"row 7 {kv} B={B} T={T} starts 0..{smax}", device_ms(fn))
+                print(f"AB[{tag}] row 7 {kv} B={B} T={T} starts 0..{smax}: caller-visible "
+                      f"{cs.median_ms(fn):.4f} ms", flush=True)
+                del k, v
+        torch.cuda.empty_cache()
+
+        # the prefill dequant over the four projections: rows 15 (group
+        # halves g128), 14 (paired g128), 14p (paired g128, pre-blocked at
+        # bn 512) and 8 (vertical g512)
+        for row, layout, g in (("15", "halves", 128), ("14", "paired", 128),
+                               ("14p", "paired", 128), ("8", "vertical", 512)):
+            total = 0.0
+            for K, N in cs.PROJ.values():
+                w = ri(-128, 128, (2, K // 2, N))
+                if row == "15":
+                    s = torch.rand((K // g, N), generator=gen, device=dev) * 1e-3
+                    fn = (lambda: mm.dequantize_int4(w[1], s, g))
+                else:
+                    m, s = ri(1, 16, (2, K // g, N)), torch.rand((2, N), generator=gen,
+                                                                 device=dev) * 1e-3
+                    wt = mm.preblock_stacked(w, cs.PANEL) if row == "14p" else w
+                    stacked = getattr(mm, f"dequantize_int4_{layout}_stacked")
+                    fn = (lambda: stacked(wt, m, s, 1, group_size=g))
+                total += device_ms(fn)
+                del w
+                torch.cuda.empty_cache()
+            show(f"row {row} dequant 4 projections g{g}", total)
+
+        # the yardstick of rows 19 and 16: one torch._int_mm (the int32
+        # product alone) on a K-major copy of an int8 weight, device time,
+        # four projections at M = 192 and the lm_head
+        for name, shapes in (("4 projections", list(cs.PROJ.values())),
+                             ("lm_head", [(cs.PROJ["qkv"][0], cs.VOCAB)])):
+            total = 0.0
+            for K, N in shapes:
+                x_q = ri(-127, 128, (cs.BATCH, K))
+                wt = ri(-127, 128, (N, K))
+                total += device_ms(lambda: torch._int_mm(x_q, wt.t()))
+                del wt
+            show(f"torch._int_mm K-major {name} M={cs.BATCH}", total)
         torch.cuda.empty_cache()
         os.makedirs(_out_dir(), exist_ok=True)
         torch.save(outputs, os.path.join(_out_dir(), f"{tag}_tail.pt"))

@@ -13,7 +13,8 @@ too) and the KV appends (slab, per-layer and paged) are bit-equal; the W4 GEMV
 (w4a16, wgmma: every token tile edge, split and unsplit, the same bits
 call to call) is within 1e-4 of its largest output in f32, one bf16 ulp
 more in bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
-and bf16 K/V) are within one bf16 ulp of the largest output (rtol 8e-3),
+and bf16 K/V; wgmma fed by TMA, persistent blocks, T above the 128-row
+work item) are within one bf16 ulp of the largest output (rtol 8e-3),
 and paged flash decode gives the slab kernel's bits over the same tokens.
 The fused layer tail and its o + gate/up head (their products on the int8
 tensor-core tile): x1 bit-equal, the int8 activations hq and x2 within
@@ -36,7 +37,11 @@ length 0, the paged and per-layer forms giving the slab form's bits).
 The W8A8 GEMM and the float-scale W4A8 GEMV run int8 wgmma: bit-equal at
 every token-tile and row-block edge (the prefill's ragged row tile, a
 bias, ragged K, N % 16 != 0, g 32/64/128), under every K split and row
-split, the same bits call to call.
+split, the same bits call to call; the W4A8 GEMV stays bit-equal, the W4
+GEMV and the tiled W4A16 GEMM within their tolerance, at groups of 256,
+512 and g = K at the 8B shapes (g 192 still refused). The prefill
+dequant's four rows are bit-equal at the 8B projections (pre-blocked at
+bn 128 and 512).
 """
 
 import pytest
@@ -332,7 +337,8 @@ def test_dequant_kernels_bit_equal(dev, layout, K, N, g):
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("T,S,starts", [(128, 512, (0, 0, 0)), (40, 100, (0, 7, 60)),
-                                        (77, 300, (5, 0, 223)), (1, 64, (63, 0, 10))])
+                                        (77, 300, (5, 0, 223)), (1, 64, (63, 0, 10)),
+                                        (200, 260, (0, 30, 60)), (300, 333, (0, 11, 33))])
 def test_flash_prefill_kernel_within_tolerance(dev, G, T, S, starts):
     # ragged T (not a multiple of the 64/G positions of a block), nonzero
     # starts, a slab S that is not a multiple of the 64-key tile, and rows
@@ -670,7 +676,8 @@ def test_flash_decode_select_lifts_a_per_layer_cache_to_the_kernel(dev, G):
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("T,S,starts", [(128, 512, (0, 0, 0)), (40, 100, (0, 7, 60)),
-                                        (77, 300, (5, 0, 223))])
+                                        (77, 300, (5, 0, 223)), (1, 64, (63, 0, 10)),
+                                        (200, 260, (0, 30, 60)), (300, 333, (0, 11, 33))])
 def test_flash_prefill_bf16_kernel_within_tolerance(dev, G, T, S, starts):
     gen = _gen(dev, 7 * G + T + S)
     B, Hkv, d = 3, 2, 128
@@ -684,6 +691,67 @@ def test_flash_prefill_bf16_kernel_within_tolerance(dev, G, T, S, starts):
     ref = att.flash_prefill_reference(q, k, None, v, None, st)
     err = (out.float() - ref.float()).abs().max().item()
     assert out.shape == q.shape and err <= 8e-3 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("G,T", [(4, 128), (1, 77), (8, 200)])
+def test_flash_prefill_kernel_persistent_blocks(dev, kv, G, T):
+    # more work items than SMs: each persistent block walks several items
+    # (their K/V tiles through one ring, Q double-buffered, the stores
+    # draining behind); the same bits call to call
+    gen = _gen(dev, 31 * G + T)
+    B, Hkv, S, d = 64, 8, 384, 128
+    H = Hkv * G
+    q = torch.randn((B, H, T, d), generator=gen, device=dev).to(torch.bfloat16)
+    if kv == "int8":
+        k = _ri(gen, -128, 128, (B, Hkv, S, d), torch.int8, dev)
+        v = _ri(gen, -128, 128, (B, Hkv, S, d), torch.int8, dev)
+        ks = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.02
+        vs = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.05
+    else:
+        k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
+        ks = vs = None
+    st = torch.randint(0, S - T + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    assert att.prefill_plan(B, H, Hkv, T, S).items > 132
+    out = att.flash_prefill(q, k, ks, v, vs, st)
+    ref = att.flash_prefill_reference(q, k, ks, v, vs, st)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 8e-3 * ref.float().abs().max().item()
+    assert torch.equal(out, att.flash_prefill(q, k, ks, v, vs, st))
+
+
+@pytest.mark.parametrize("K,N", [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)])
+def test_dequant_every_layout_at_the_8b_shapes(dev, K, N):
+    # the four prefill dequant rows at Llama-3-8B's projections, on the
+    # grid of matmul.dequant_plan: vertical g512, paired g128 flat and
+    # pre-blocked at bn 128 and 512, group halves g128 (two's complement
+    # and offset binary); bit-equal, each call counted once
+    gen = _gen(dev, K + N)
+    L = 2
+    for layout, g in (("vertical", 512), ("paired", 128)):
+        w = _ri(gen, -128, 128, (L, K // 2, N), torch.int8, dev)
+        m = _ri(gen, 1, 16, (L, K // g, N), torch.int8, dev)
+        s = torch.rand((L, N), generator=gen, device=dev) * 1e-2
+        ref = getattr(mm, f"dequantize_int4_{layout}_reference")(w[1], m[1].float() * s[1][None, :],
+                                                                g)
+        stacked = getattr(mm, f"dequantize_int4_{layout}_stacked")
+        forms = [(w, f"dequant_{layout}")]
+        if layout == "paired":
+            forms += [(mm.preblock_stacked(w, bn), "dequant_paired_preblocked")
+                      for bn in (128, 512)]
+        for wt, count in forms:
+            before = _build.launch_counts[count]
+            assert torch.equal(stacked(wt, m, s, 1, group_size=g), ref)
+            assert _build.launch_counts[count] == before + 1
+        del w, forms, ref
+    w, s = _w4(gen, K, N, 128, dev)
+    for offset_binary in (False, True):
+        before = _build.launch_counts["dequant_halves"]
+        out = mm.dequantize_int4(w, s, 128, offset_binary=offset_binary)
+        assert _build.launch_counts["dequant_halves"] == before + 1
+        ref = mm.dequantize_int4_reference(w, s, 128, offset_binary=offset_binary)
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("mode,quantized", [("w4a8_2l", False), ("w4a8", True)])
@@ -885,14 +953,58 @@ def test_float_scale_routing_takes_the_kernels(dev):
         assert tuple(_build.launch_counts[n] - b for n, b in zip(names, before)) == expect
 
 
-def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev):
-    x_q = torch.zeros((2, 256), dtype=torch.int8, device=dev)
+_8B_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
+              "down": (14336, 4096), "lm_head": (4096, 128256)}
+
+
+@pytest.mark.parametrize("g", [256, 512, "K"])
+def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev, g):
+    # groups of 256 and more (a multiple of 128, up to g = K) are kernel
+    # groups: at Llama-3-8B's four projections and the f32 lm_head, row 16
+    # is bit-equal, rows 17 and 18t within W4_GEMV_RTOL of the largest f32
+    # output; each call counted once
+    gen = _gen(dev, 256 if g == "K" else g)
+    for name, (K, N) in _8B_SHAPES.items():
+        gk = K if g == "K" else g
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        w, s = _w4(gen, K, N, gk, dev)
+        for M in (8, 192):
+            x = torch.randn((M, K), generator=gen, device=dev)
+            x_q, x_s = mm.quantize_rowwise(x)
+            before = _build.launch_counts["w4a8_gemv_halves"]
+            out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, gk, out_dtype)
+            assert _build.launch_counts["w4a8_gemv_halves"] == before + 1
+            assert torch.equal(out, mm.matmul_w4a8_reference(x_q, x_s, w, s, None, gk, out_dtype))
+            xb = x.to(torch.bfloat16)
+            before = _build.launch_counts["w4_gemv"]
+            out = mm.matmul_w4_gemv(xb, w, s, gk, torch.float32)
+            assert _build.launch_counts["w4_gemv"] == before + 1
+            ref = mm.matmul_w4_gemv_reference(xb, w, s, gk, torch.float32)
+            assert (out - ref).abs().max() <= W4_GEMV_RTOL * ref.abs().max()
+        if name != "lm_head":
+            xb = torch.randn((200, K), generator=gen, device=dev).to(torch.bfloat16)
+            before = _build.launch_counts["w4a16_gemm"]
+            out = mm.matmul_w4a16_tiled(xb, w, s, None, gk, torch.float32)
+            assert _build.launch_counts["w4a16_gemm"] == before + 1
+            ref = mm.matmul_w4a16_tiled_reference(xb, w, s, None, gk, torch.float32)
+            assert (out - ref).abs().max() <= W4_GEMV_RTOL * ref.abs().max()
+        del w, s
+    # what they still refuse: group 192 (no multiple of 128), K % 128 != 0
+    x_q = torch.zeros((2, 384), dtype=torch.int8, device=dev)
     x_s = torch.ones((2,), device=dev)
-    w = torch.zeros((128, 64), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="group"):  # group 256 is not a kernel group
-        mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((1, 64), device=dev), 256)
+    w = torch.zeros((192, 64), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="group"):
-        mm.matmul_w4_gemv(x_q.to(torch.bfloat16), w, torch.ones((1, 64), device=dev), 256)
+        mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((2, 64), device=dev), 192)
+    with pytest.raises(ValueError, match="group"):
+        mm.matmul_w4_gemv(x_q.to(torch.bfloat16), w, torch.ones((2, 64), device=dev), 192)
+    with pytest.raises(ValueError, match="group"):  # K = 320 = g: no multiple of 128
+        mm.matmul_w4a8_gemv(x_q[:, :320].contiguous(), x_s, w[:160],
+                            torch.ones((1, 64), device=dev), 320)
+    with pytest.raises(ValueError, match="group"):
+        mm.matmul_w4a16_tiled(x_q[:, :320].to(torch.bfloat16), w[:160],
+                              torch.ones((1, 64), device=dev), None, 320)
+    x_q = torch.zeros((2, 256), dtype=torch.int8, device=dev)
+    w = torch.zeros((128, 64), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="shape"):  # scales of another group count
         mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((4, 64), device=dev), 128)
     with pytest.raises(ValueError, match="K % 16"):
@@ -1420,8 +1532,8 @@ def test_w4a16_tiled_rejects_what_the_kernel_does_not_take(dev):
     w = _ri(gen, -128, 128, (128, 64), torch.int8, dev)
     s = torch.rand((2, 64), generator=gen, device=dev)
     x = torch.randn((4, 256), generator=gen, device=dev).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="group 32, 64 or 128"):
-        mm.matmul_w4a16_tiled(x, w, torch.rand((1, 64), device=dev), None, 256)
+    with pytest.raises(ValueError, match="group 32, 64 or 128"):  # 192: no multiple of 128
+        mm.matmul_w4a16_tiled(x[:, :192], w[:96], torch.rand((1, 64), device=dev), None, 192)
     with pytest.raises(ValueError, match="f32 or bf16"):
         mm.matmul_w4a16_tiled(x, w, s, None, 128, torch.float16)
     with pytest.raises(ValueError, match="CUDA"):

@@ -5,8 +5,10 @@ scales, row 16, `csrc/w4a8_halves.cu`), on the CPU.
 Their plans: the W4A8 GEMV splits K only at the windows of the jitted
 oracle's group sum (`w4a8_plan`: none up to 32 groups, one split a window
 for 33-256 groups, e.g. 4 at Llama-3-8B's down_proj, K = 14,336 g128, and
-2 at K = 1,056 g32), keeps at most 96 token rows a block, and refuses what
-the kernel does not take; the W8A8 GEMM's (`w8a8_plan`) covers every
+2 at K = 1,056 g32), keeps at most 96 token rows a block, takes groups
+of 128 j (j >= 2) up to g = K as j stages each (`stage_groups`, the
+windows on stage boundaries), and refuses what the kernel does not take
+(g 192, K % 128 != 0 at such groups); the W8A8 GEMM's (`w8a8_plan`) covers every
 stage once with no split empty. The GEMV's fold written out in torch under
 its plan (`w4a8_split_fold`: each split's window summed from +0, then the
 window sums in order) equals the port's plain version and the jitted JAX
@@ -91,14 +93,52 @@ def test_w4a8_plan_window_splits_at_other_groups(K, g, splits):
     assert plan.stages == max(-(-(g1 - g0) // gps) for g0, g1 in plan.group_ranges(G))
 
 
-@pytest.mark.parametrize("args", [(0, 4096, 64, 128), (257, 4096, 64, 128), (8, 4096, 64, 256),
-                                  (8, 4000, 64, 128), (8, 4096, 66, 128), (8, 64, 64, 128),
-                                  (8, 32 * 1025, 64, 32)])
+@pytest.mark.parametrize("args", [(0, 4096, 64, 128), (257, 4096, 64, 128), (8, 4096, 64, 192),
+                                  (8, 4160, 64, 256), (8, 320, 64, 320), (8, 4000, 64, 128),
+                                  (8, 4096, 66, 128), (8, 64, 64, 128), (8, 32 * 1025, 64, 32)])
 def test_w4a8_plan_refuses_what_the_kernel_does_not_take(args):
-    # no row, more than the GEMV's 256 rows, group 256, K not whole groups,
-    # N % 4 != 0, K below a group, more than 32 x 32 groups
+    # no row, more than the GEMV's 256 rows, group 192 (no multiple of 128),
+    # K % 128 != 0 at g256, g = K = 320, K not whole groups, N % 4 != 0, K
+    # below a group, more than 32 x 32 groups
     with pytest.raises(ValueError):
         mm.w4a8_plan(*args)
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("g", [256, 512, "K"])
+@pytest.mark.parametrize("M", [1, 8, 192, 256])
+def test_w4a8_plan_at_large_groups(name, g, M):
+    # GIVEN a Llama-3-8B projection at g 256, 512 or g = K (the loader's
+    # fallback), which the GEMV now takes
+    K, N = SHAPES[name]
+    g = K if g == "K" else g
+    assert mm.float_scale_group_ok(K, g)
+    plan = mm.w4a8_plan(M, K, N, g)
+    G = K // g
+    # THEN a group spans g / 128 stages and a stage holds one group's scale row
+    gps, spg = mm.stage_groups(g)
+    assert (gps, spg) == (1, g // 128)
+    # AND K splits only at the oracle's windows (down_proj at g256: 56
+    # groups, windows 28-28), each window starting on a stage boundary
+    ranges = plan.group_ranges(G)
+    assert ranges[0][0] == 0 and ranges[-1][1] == G
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if G <= 32:
+        assert plan.fold == "chain" and ranges == [(0, G)]
+    else:
+        assert plan.fold == "window" and ranges == _windows(G)
+    assert all(g0 * g % 128 == 0 for g0, _ in ranges)
+    # AND the longest split streams its groups' stages, the ring fits
+    assert plan.stages == max((g1 - g0) * spg for g0, g1 in ranges)
+    assert plan.rows <= plan.n <= 96 and plan.rows * plan.row_blocks >= M
+    assert 2 <= plan.depth <= 8 and plan.smem_bytes <= SMEM_BUDGET[plan.per_sm]
+
+
+@pytest.mark.parametrize("g", [32, 64, 128, 256, 512, 4096])
+def test_stage_groups_cover_a_stage_or_a_group(g):
+    gps, spg = mm.stage_groups(g)
+    assert gps * g == 128 * spg  # a stage's k, or a group's stages
+    assert (gps == 1) or (spg == 1)
 
 
 @pytest.mark.parametrize("name", list(SHAPES))
@@ -144,10 +184,12 @@ def _w4a8_case(M, K, N, g, seed):
 
 
 @pytest.mark.parametrize("M", [1, 8, 192])
-@pytest.mark.parametrize("K,g", [(4096, 128), (14336, 128), (1056, 32), (2560, 64), (8448, 32)])
+@pytest.mark.parametrize("K,g", [(4096, 128), (14336, 128), (1056, 32), (2560, 64), (8448, 32),
+                                 (2048, 256), (2048, 512), (1024, 1024), (12288, 256)])
 def test_split_fold_equals_the_oracle(M, K, g):
     # GIVEN W4A8 weights of 32 groups (the chain), 112, 33 and 40 (window
-    # splits) and 264 (every window in one block)
+    # splits) and 264 (every window in one block); and groups that span
+    # several stages: 8, 4 and 1 (g = K) groups, and 48 at g256 (windows)
     N = 12
     x_q, xs, w, s = _w4a8_case(M, K, N, g, M + K)
     t = [torch.from_numpy(a) for a in (x_q, xs, w, s)]

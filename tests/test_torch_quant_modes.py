@@ -181,6 +181,45 @@ def test_w4a8_gemv_bit_exact(M, K, g, out_dtype):
     _eq(a, b)
 
 
+@pytest.mark.parametrize("M", [1, 8, 192])
+@pytest.mark.parametrize("K,g", [(1024, 256), (2048, 256), (1024, 512), (2048, 512)])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_w4a8_gemv_bit_exact_at_large_groups(M, K, g, out_dtype):
+    # GIVEN float-per-group W4A8 weights whose groups span several of the
+    # kernel's 128-k stages (FF_BENCH_GROUP=256 and 512)
+    N = 20
+    w, s = _w4(K, N, g, seed=K + M + g)
+    (qj, sj), (qt, st) = _int8_act(M, K, M + g)
+    # WHEN the port's GEMV runs its plain version and JAX its oracle, jitted
+    a = _jit(lambda q, xs, w, s: jm.matmul_w4a8_reference(
+        q, xs, w, s, None, g, getattr(jnp, out_dtype)), qj, sj, jnp.asarray(w), jnp.asarray(s))
+    b = tm.matmul_w4a8_gemv(qt, st, _t(w), _t(s), g, getattr(torch, out_dtype))
+    # THEN the outputs are bit-equal, and the kernel's fold under its plan
+    # gives the same bits
+    _eq(a, b)
+    _eq(a, tm.w4a8_split_fold(qt, st, _t(w), _t(s), g, getattr(torch, out_dtype)))
+
+
+@pytest.mark.parametrize("M", [1, 8, 192])
+@pytest.mark.parametrize("K,g", [(1024, 256), (2048, 512)])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_w4_gemv_within_tolerance_at_large_groups(M, K, g, out_dtype):
+    # GIVEN bf16 activations and a weight-only int4 weight at g 256 and 512
+    N = 20
+    w, s = _w4(K, N, g, seed=K + 5 * M + g)
+    xj, xt = _act((M, K), seed=M + g)
+    # WHEN the port's GEMV (its plain version here) and the JAX TPU route's
+    # function run
+    a = _np(_jit(lambda x, w, s: _jax_w4a16_tpu(x, w, s, None, g, getattr(jnp, out_dtype)),
+                 xj, jnp.asarray(w), jnp.asarray(s)))
+    b = _np(tm.matmul_w4_gemv(xt, _t(w), _t(s), g, getattr(torch, out_dtype)))
+    # THEN f32 within W4_F32_RTOL of the largest, bf16 within one bf16 ulp more
+    if out_dtype == "float32":
+        assert np.abs(a - b).max() <= W4_F32_RTOL * np.abs(a).max()
+    else:
+        assert _within_bf16(a, b)
+
+
 def test_w4a8_reference_with_bias_bit_exact():
     M, K, N, g = 6, 4096, 16, 128
     w, s = _w4(K, N, g, seed=77)

@@ -7,7 +7,8 @@ The W4 GEMV turns a nibble at bit b of a word into the float 2^(23-b) + u
 the f32 scale and rounds to bf16 (`w4_gemv_dequant_words` mirrors it): for
 every nibble and a spread of f32 scales (both signs, subnormal to large)
 that is `dequantize_int4_reference`'s bf16 bit for bit. Its plan
-(`w4_plan`) splits K over whole stages of 128 k (whole groups), none empty,
+(`w4_plan`) splits K over whole stages of 128 k (whole groups up to g128;
+a group of 128 j spans j stages), none empty,
 and fills at least 70% of the card's block slots at the Llama-3-8B shapes
 of run (f). Written out in
 torch, its split arithmetic (f32 partials over each split's k, added in
@@ -113,9 +114,30 @@ def test_w4_plan_splits_whole_groups_and_fills_the_card(M, name):
 
 
 def test_w4_plan_refuses_what_the_kernel_does_not_take():
-    for M, K, g in ((0, 4096, 128), (257, 4096, 128), (8, 4096, 256), (8, 4000, 128)):
+    for M, K, g in ((0, 4096, 128), (257, 4096, 128), (8, 4096, 192), (8, 4160, 256),
+                    (8, 4000, 128), (8, 256, 512)):
         with pytest.raises(ValueError, match="W4 GEMV plan"):
             mm.w4_plan(M, K, 64, g)
+
+
+@pytest.mark.parametrize("M", [1, 8, 192, 256])
+@pytest.mark.parametrize("name", list(SHAPES_F))
+def test_w4_plan_at_large_groups(M, name):
+    # GIVEN a projection of run (f) at g 256, 512 and g = K
+    K, N = SHAPES_F[name]
+    for g in (256, 512, K):
+        plan = mm.w4_plan(M, K, N, g)
+        # THEN the splits cover every 128-k stage once, none empty; a
+        # group spans g / 128 stages, so a split may start inside one (the
+        # f32 sums need no group boundary)
+        ranges = plan.stage_ranges()
+        assert [t for a, b in ranges for t in range(a, b)] == list(range(K // 128))
+        assert all(a < b for a, b in ranges)
+        assert mm.stage_groups(g) == (1, g // 128)
+        assert min(2, plan.sps) <= plan.depth <= plan.sps
+        assert plan.smem_bytes <= 233472 // plan.per_sm - 1024
+        # AND the plan is g128's: the stages do not depend on the group
+        assert plan == mm.w4_plan(M, K, N, 128)
 
 
 def _mirror_weights(w_packed, s, g):
@@ -137,7 +159,8 @@ def _mirror_weights(w_packed, s, g):
 
 
 @pytest.mark.parametrize("M,K,g", [(8, 14336, 128), (192, 4096, 128), (65, 1024, 64),
-                                   (3, 320, 32)])
+                                   (3, 320, 32), (8, 2048, 256), (192, 1024, 512),
+                                   (17, 1024, 1024)])
 def test_split_arithmetic_within_tolerance_of_jax(M, K, g):
     # GIVEN numpy-seeded activations, packed weights and f32 scales
     N = 136
