@@ -50,13 +50,20 @@ each raising on failure:
    both products the int8 tensor-core tile, IMMA in its SASS) with
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
+   the CUDA-core route of rows 16, 17 and 18t at groups no tensor-core
+   route takes (Llama-3-8B's down_proj at g 112, M = 192, timed; K = g =
+   192 and 320 at M = 8 and 192): row 16 bit-equal, 17 and 18t within
+   W4_GEMV_RTOL; the decode step's fused K/V quantize and append in its
+   three forms (stacked, per layer, paged) at B = 192, Hkv 8, D 128, v a
+   strided view, starts -1 and S, a page id of -1: bit-equal to the
+   quantizer and the plain append;
    print median times, device times (from profiles that recorded every
    launch: `device_ms`), bounds and library times (the two-level GEMVs:
    torch.matmul of the dequantized operands, also at M = 8);
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
-   decoding. Sixteen runs, each with its launch counts set to 0 before it
+   decoding. Seventeen runs, each with its launch counts set to 0 before it
    and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
@@ -78,8 +85,13 @@ each raising on failure:
    (n) (b) with FF_2L_PREBLOCK=1 FF_2L_MANUAL=4: the manual stream;
    (o) (b) with FF_2L_SPLITW=1: split-W on flat weights;
    (p) (b) with FF_2L_DOTRAW=1: the dot-raw GEMV;
-   (q) (b) with FF_2L_CONCAT_PAIRS=4: the concat-pairs GEMV.
-   (m)-(q) run on (b)'s seed and weights and must give (b)'s greedy
+   (q) (b) with FF_2L_CONCAT_PAIRS=4: the concat-pairs GEMV;
+   (r) bench.py's baseline tier, sim_w4 g128: dense bf16 weights
+       quantized and dequantized on every use, one torch.matmul a
+       projection; attention through the port's kernels.
+   Every int8-cache decode step quantizes and appends its K/V in one
+   launch a layer (counted under kv_append, kv_append_layer or
+   paged_kv_append). (m)-(q) run on (b)'s seed and weights and must give (b)'s greedy
    tokens, and its prefill logits bit for bit where (b)'s were bit-equal
    to its warm-up's. The serving flags (FF_FUSED_*, FF_2L_*) are unset for
    every other run and set only around (k)-(q)'s.
@@ -99,7 +111,10 @@ each raising on failure:
    INT8 pool (39 pages of 256 tokens), 64 requests of 16-96 prompt tokens
    and 32 new tokens each, bursts of 8. Launch counts asserted exactly
    from the engine's own counters; the same trace through a slab engine
-   gives the same tokens, request by request; at depth 2 the paged decode
+   gives the same tokens, request by request; the trace through a slab
+   engine with a bf16 cache (quantized_cache=False) gives in-vocabulary
+   tokens and launches no append or flash-decode kernel; at depth 2 the
+   paged decode
    at 32 rows (paged append, paged flash decode, fused layer tail) is
    compared with the plain path;
 5. loader — (j): a Llama-3-8B-wide, 2-layer bf16 checkpoint in HF layout
@@ -142,8 +157,10 @@ W4_GEMV_RTOL = 1e-4
 # (see compare_paths). Measured on an H100 at the prefill: 0.144 (w4a4_2l),
 # 0.0099 (w4a8_2l), 0.058 (w8a8: its random int8 weights amplify each
 # layer's input more), 0.0012 (w4a8), 0.0005 (w4a16); the limits leave
-# room for other weights and inputs.
-LOGIT_RMS = {"w4a4_2l": 0.3, "w4a8_2l": 0.03, "w8a8": 0.15, "w4a8": 0.03, "w4a16": 0.03}
+# room for other weights and inputs. sim_w4 (bf16 activations, as w4a16's)
+# takes w4a16's limit.
+LOGIT_RMS = {"w4a4_2l": 0.3, "w4a8_2l": 0.03, "w8a8": 0.15, "w4a8": 0.03, "w4a16": 0.03,
+             "sim_w4": 0.03}
 
 # The fused layer tail's int8 activations (hq, x2) may sit one level from
 # the plain version's where the IEEE rsqrt and the row sums round unlike
@@ -635,6 +652,8 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     rows.update(_float_scale_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
+    rows.update(_any_group_kernels(dev, gen, randint))
+    rows.update(_fused_append_kernels(dev, gen, randint))
     rows.update(_layer_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
     rows.update(_fused_route_kernels(dev, gen, randint))
@@ -1280,6 +1299,160 @@ def _float_scale_kernels(dev, gen, randint):
     return rows
 
 
+def _any_group_kernels(dev, gen, randint):
+    """Rows 16, 17 and 18t at groups no tensor-core route takes: their
+    CUDA-core route (`float_scale_route` "any"; counts w4a8_gemv_halves_any,
+    w4_gemv_any, w4a16_gemm_any; no served default reaches it). Timed at
+    M = 192 on Llama-3-8B's down_proj at g 112 (128 groups: the oracle's
+    window fold); neither 8B K (4,096, 14,336) is a multiple of 96. Checked
+    also at K = g = 192 and 320, M = 8 and 192. Row 16 bit-equal, 17 and 18t
+    within W4_GEMV_RTOL of the largest plain output (one bf16 ulp more)."""
+    from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import unpack_int4
+
+    t0, rows, M = time.perf_counter(), {}, BATCH
+    K, N = PROJ["down"]
+    g = 112
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    x_q, x_s = mm.quantize_rowwise(x)
+    w = randint(-128, 128, (K // 2, N))
+    s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+    if mm.float_scale_route(K, g, mm._MAX_BIG_GROUP) != "any":
+        raise AssertionError(f"g {g} at K {K} is not an any-group shape")
+    wbytes = K * N // 2 + s.numel() * 4
+    rows["w4a8_gemv_halves_any"] = measure(
+        "w4a8_gemv_halves_any", f"down M={M} K={K} N={N} g={g} bf16",
+        lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, g),
+        lambda: mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g),
+        M * K + M * 4 + wbytes + M * N * 2, 2 * M * K * N, INT8_OPS_PER_S, bit_equal, plain_n=3)
+    rows["w4a8_gemv_halves_any"]["library_ms"] = _int_mm_yardstick(
+        "w4a8_gemv_halves_any down (the unpacked int8 weight: no group scales)", x_q,
+        unpack_int4(w, g))
+    w_bf16 = mm.dequantize_int4_reference(w, s, g)
+    rows["w4_gemv_any"] = measure(
+        "w4_gemv_any", f"down M={M} K={K} N={N} g={g} bf16",
+        lambda: mm.matmul_w4_gemv(x, w, s, g), lambda: mm.matmul_w4_gemv_reference(x, w, s, g),
+        M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S, w4_close,
+        library=lambda: torch.matmul(x, w_bf16))
+    v = unpack_int4(w, g).to(torch.bfloat16).reshape(K // g, g, N)
+    w_tiled = (v * s.to(torch.bfloat16)[:, None, :]).reshape(K, N)  # 18t's two roundings
+    del w_bf16, v
+    rows["w4a16_gemm_any"] = measure(
+        "w4a16_gemm_any", f"down M={M} K={K} N={N} g={g} bf16",
+        lambda: mm.matmul_w4a16_tiled(x, w, s, None, g),
+        lambda: mm.matmul_w4a16_tiled_reference(x, w, s, None, g),
+        M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S,
+        lambda o, r: w4_close(o, r, W4A16_TILED_REL_ERR), library=lambda: torch.matmul(x, w_tiled))
+    del w_tiled, w, s
+    # g = K at 192 and 320 (K % 128 != 0 at 320), 8 and 192 rows, both outputs
+    calls = 0
+    for K, Me in ((192, 8), (192, 192), (320, 8), (320, 192)):
+        N = 4096
+        x = torch.randn((Me, K), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, x_s = mm.quantize_rowwise(x)
+        w = randint(-128, 128, (K // 2, N))
+        s = torch.rand((1, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            tiled = mm.matmul_w4a16_tiled(x, w, s, None, K, out_dtype)
+            checks = (
+                ("w4a8_gemv_halves_any", mm.matmul_w4a8_gemv(x_q, x_s, w, s, K, out_dtype),
+                 mm.matmul_w4a8_reference(x_q, x_s, w, s, None, K, out_dtype), bit_equal),
+                ("w4_gemv_any", mm.matmul_w4_gemv(x, w, s, K, out_dtype),
+                 mm.matmul_w4_gemv_reference(x, w, s, K, out_dtype), w4_close),
+                ("w4a16_gemm_any", tiled,
+                 mm.matmul_w4a16_tiled_reference(x, w, s, None, K, out_dtype),
+                 lambda o, r: w4_close(o, r, W4A16_TILED_REL_ERR)),
+                # the bias epilogue, exactly: round(round(y) + bias)
+                ("w4a16_gemm_any bias", mm.matmul_w4a16_tiled(x, w, s, bias, K, out_dtype),
+                 (tiled.float() + bias).to(out_dtype), bit_equal))
+            for name, out, ref, check in checks:
+                calls += 1
+                ok, err = check(out, ref)
+                if not ok:
+                    raise AssertionError(f"{name} K = g = {K} M={Me} {out_dtype}: kernel "
+                                         f"disagrees with its plain version (err {err:.3g})")
+    log(f"any-group routes: bit-equal (row 16) and within {W4_GEMV_RTOL} (rows 17, 18t; 18t's "
+        f"bias epilogue exact) at K = g = 192 and 320, M = 8 and 192, both outputs ({calls} "
+        f"checks); the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _fused_append_kernels(dev, gen, randint):
+    """The decode step's fused K/V quantize and append (rows 2, 21 and 23,
+    counted under kv_append, kv_append_layer, paged_kv_append) at bench.py's
+    decode: B = 192, Hkv 8, D 128; bf16 k contiguous (RoPE's output) and v
+    a strided view of a qkv row; layer 1 of 2 of a 512-token slab (starts
+    129..160 with a -1 and an S: no write), one layer's slab, and a pool of
+    page 256 (a row of -1 page ids and a row past the table: page 0). Each
+    bit-equal to quantize_kv and the row's plain append: int8 bytes and f32
+    scales. No single PyTorch call quantizes and appends: no library."""
+    from fastforward_tpu_torch.kernels import kv_update as kvu
+    from fastforward_tpu_torch.kernels import paged_attention as pa
+
+    t0, rows = time.perf_counter(), {}
+    L, B, Hkv, d, S = 2, BATCH, 8, 128, SLAB
+    qkv = (torch.randn((B, 1, 6 * Hkv, d), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    k = qkv[:, :, 4 * Hkv:5 * Hkv].transpose(1, 2).contiguous()
+    v = qkv[:, :, 5 * Hkv:].transpose(1, 2)
+    starts = torch.randint(PROMPT, PROMPT + STEPS, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    starts[2], starts[3] = -1, S
+    new_bytes = 2 * B * Hkv * d * 2 + 2 * B * Hkv * (d + 4) + B * 4
+    ops = 5 * 2 * B * Hkv * d  # |x|, max, divide, round, clamp an element
+
+    def append_check(out, ref):
+        return all(torch.equal(a, r) for a, r in zip(out, ref)), \
+            max(max_err(a, r) for a, r in zip(out, ref))
+
+    slab = [randint(-128, 128, (L, B, Hkv, S, d)) for _ in range(2)]
+    slab += [torch.rand((L, B, Hkv, S), generator=gen, device=dev) for _ in range(2)]
+    bufs, ref_bufs = [t.clone() for t in slab], [t.clone() for t in slab]
+    rows["kv_quantize_append"] = measure(
+        "kv_quantize_append", f"B={B} Hkv={Hkv} d={d} S={S} (starts -1 and S, v strided)",
+        lambda: kvu.kv_quantize_append_stacked(*bufs, k, v, starts, 1),
+        lambda: kvu.kv_quantize_append_stacked_reference(*ref_bufs, k, v, starts, 1),
+        new_bytes, ops, F32_OPS_PER_S, append_check)
+
+    def unfused():  # the route it replaces: quantize_kv of k and v, then the int8 append
+        (kq, ksn), (vq, vsn) = kvu.quantize_kv(k), kvu.quantize_kv(v)
+        kvu.kv_append_decode_int8_stacked(*bufs, kq.contiguous(), vq.contiguous(),
+                                          ksn.contiguous(), vsn.contiguous(), starts, 1)
+    log(f"kv_quantize_append: the unfused route it replaces (quantize_kv x 2 + the int8 "
+        f"append, {launches_per_call(unfused)} launches) {median_ms(unfused):.4f} ms, device "
+        f"{fmt_ms(device_ms(unfused))}")
+    layer = [t[1] for t in slab]
+    bufs, ref_bufs = [t.clone() for t in layer], [t.clone() for t in layer]
+    rows["kv_quantize_append_layer"] = measure(
+        "kv_quantize_append_layer", f"B={B} Hkv={Hkv} d={d} S={S} (starts -1 and S, v strided)",
+        lambda: kvu.kv_quantize_append(*bufs, k, v, starts),
+        lambda: kvu.kv_quantize_append_reference(*ref_bufs, k, v, starts),
+        new_bytes, ops, F32_OPS_PER_S, append_check)
+    del slab, layer, bufs, ref_bufs
+    page, MP = ENGINE_PAGE, 2
+    P = B + 9
+    pools = [randint(-128, 128, (L, P, Hkv, page, d)) for _ in range(2)]
+    pools += [torch.rand((L, P, Hkv, page), generator=gen, device=dev) for _ in range(2)]
+    table = torch.full((B, MP), -1, dtype=torch.int32, device=dev)
+    table[:, 0] = (torch.randperm(P - 1, generator=gen, device=dev)[:B] + 1).to(torch.int32)
+    pos = (starts % page).clone()
+    pos[2], table[2] = 7, -1          # a retired slot: its -1 page id is page 0
+    pos[3] = MP * page + 9            # past the table: page 0, another row
+    bufs, ref_bufs = [t.clone() for t in pools], [t.clone() for t in pools]
+    rows["paged_kv_quantize_append"] = measure(
+        "paged_kv_quantize_append",
+        f"B={B} P={P} page={page} Hkv={Hkv} d={d} (a -1 row, a row past the table, v strided)",
+        lambda: pa.paged_kv_quantize_append(*bufs, k, v, pos, table, 1),
+        lambda: pa.paged_kv_quantize_append_reference(*ref_bufs, k, v, pos, table, 1),
+        new_bytes + B * MP * 4, ops, F32_OPS_PER_S, append_check)
+    del pools, bufs, ref_bufs
+    torch.cuda.empty_cache()
+    log(f"fused K/V quantize and append, three forms: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def _layer_kernels(dev, gen, randint):
     """The per-layer cache path's kernels at bench.py's shapes: the
     unpaired two-level W4A8 GEMV over the seven projections of a layer at
@@ -1563,11 +1736,6 @@ def _plain_versions():
     def flash(q, k, ks, v, vs, lengths, layer, count=None):
         return att.flash_decode_int8_reference(q, k[layer], ks[layer], v[layer], vs[layer], lengths)
 
-    def layer_append(kc, vc, ks, vs, *new):
-        for dst, src in zip((kc, vc, ks, vs), kvu.kv_append_decode_reference(kc, vc, ks, vs, *new)):
-            dst.copy_(src)
-        return kc, vc, ks, vs
-
     def paged_flash(q, k, ks, v, vs, table, lengths, layer):
         return pa.paged_flash_decode_reference(q, k[layer], ks[layer], v[layer], vs[layer], table,
                                                lengths)
@@ -1614,16 +1782,16 @@ def _plain_versions():
         (f"{mmod}.matmul_w4_gemv", mm.matmul_w4_gemv_reference, w4_close),
         (f"{mmod}.dequantize_int4", mm.dequantize_int4_reference, bit_equal),
         (f"{stk}.matmul_w4a8_2l_gemv_argmax", argmax, bit_equal),
-        (f"{stk}.kv_append_decode_int8_stacked", kvu.kv_append_decode_stacked_reference, None),
+        (f"{stk}.kv_quantize_append_stacked", kvu.kv_quantize_append_stacked_reference, None),
         (f"{stk}.flash_decode_int8_stacked", flash, within_rtol),
         (f"{stk}.flash_prefill", att.flash_prefill_reference, within_rtol),
-        (f"{stk}.paged_kv_append_decode_int8", pa.paged_kv_append_reference, None),
+        (f"{stk}.paged_kv_quantize_append", pa.paged_kv_quantize_append_reference, None),
         (f"{stk}.paged_flash_decode_int8", paged_flash, within_rtol),
         (f"{stk}.fused_o_mlp_stacked", fused_tail, within_rtol),
         (f"{stk}.fused_norm_qkv_stacked", head(mm.fused_norm_qkv_reference), within_rtol),
         (f"{stk}.fused_norm_qkv_stacked_a4", head(mm.fused_norm_qkv_a4_reference), within_rtol),
         (f"{stk}.fused_o_gu_stacked", o_gu, o_gu_check),
-        (f"{kvc}.kv_append_decode_int8", layer_append, "layer_append"),
+        (f"{kvc}.kv_quantize_append", kvu.kv_quantize_append_reference, "layer_append"),
     ]
 
 
@@ -2054,6 +2222,10 @@ def phase_serve(dev):
             runs[run] = serve_run(f"({run})", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
                                   {dequant: 4 * L, gemv: 4 * L * STEPS, **shared}, against=ref_b)
     del ref_b
+    # (r): bench.py's baseline tier, sim_w4 g128 (dense bf16 weights
+    # quantized and dequantized on every use, torch.matmul): attention
+    # through the port's kernels, no projection kernel
+    runs["r"] = serve_run("(r)", config, "sim_w4", 128, BATCH, PROMPT, STEPS, dev, dict(attn))
     for mode, g, run, kv, flags in (
             ("w4a4_2l", 512, "a", None, {}), ("w4a8_2l", 128, "b", None, {}),
             ("w4a8", 128, "e", None, {}), ("w4a16", 128, "f", None, {}),
@@ -2061,7 +2233,8 @@ def phase_serve(dev):
             ("w4a8_2l", 128, "i", "bf16", {}), ("w4a4_2l", 512, "k", None, FLAGS_K),
             ("w4a8_2l", 128, "l", None, FLAGS_L), ("w4a8_2l", 128, "m", None, FLAGS_M),
             ("w4a8_2l", 128, "n", None, FLAGS_N), ("w4a8_2l", 128, "o", None, FLAGS_O),
-            ("w4a8_2l", 128, "p", None, FLAGS_P), ("w4a8_2l", 128, "q", None, FLAGS_Q)):
+            ("w4a8_2l", 128, "p", None, FLAGS_P), ("w4a8_2l", 128, "q", None, FLAGS_Q),
+            ("sim_w4", 128, "r", None, {})):
         with flag_env(**flags):
             launched = compare_paths(config, mode, g, dev, kv=kv)
         if launched != set(runs[run]["counts"]):
@@ -2098,17 +2271,20 @@ def _engine_trace(vocab_size):
     return trace
 
 
-def engine_run(label, config, params, layers, trace, dev, paged):
+def engine_run(label, config, params, layers, trace, dev, paged, quantized_cache=True):
     """bench.py's saturated engine trace, one pass: every request queued up
     front, bursts of 8 until all are done. Launch counts set to 0 just
-    before and read just after. Returns (engine, tokens per request, launch
-    counts, summary)."""
+    before and read just after. ``quantized_cache`` False: a bf16 slab,
+    whose decode appends by slice assignment and attends densely (no append
+    or flash-decode kernel) and whose prefill takes flash prefill's bf16
+    form. Returns (engine, tokens per request, launch counts, summary)."""
     from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
     from fastforward_tpu_torch.serving import ContinuousBatchingEngine, EngineStats
 
     kw = dict(paged=True, page_size=ENGINE_PAGE, num_pages=ENGINE_PAGES) if paged else {}
     eng = ContinuousBatchingEngine(config, params, layers, max_batch=ENGINE_SLOTS,
-                                   max_len=ENGINE_MAXLEN, device=dev, **kw)
+                                   max_len=ENGINE_MAXLEN, quantized_cache=quantized_cache,
+                                   device=dev, **kw)
     for plen in ENGINE_PROMPTS:  # warm-up: one request per prompt length, as bench.py
         eng.submit(list(range(1, plen + 1)), max_new_tokens=ENGINE_BURST)
         eng.run_until_complete(burst=ENGINE_BURST)
@@ -2146,8 +2322,11 @@ def engine_run(label, config, params, layers, trace, dev, paged):
     L = config.num_layers
     decode = ("paged_kv_append", "paged_flash_decode") if paged else ("kv_append", "flash_decode")
     other = ("kv_append", "flash_decode") if paged else ("paged_kv_append", "paged_flash_decode")
+    if not quantized_cache:
+        decode, other = (), decode + other
+    prefill = "flash_prefill" if quantized_cache else "flash_prefill_bf16"
     expect = {**{k: L * st.decode_steps for k in decode + ("fused_o_mlp",)},
-              **{k: 0 for k in other}, "flash_prefill": L * st.prefills,
+              **{k: 0 for k in other}, prefill: L * st.prefills,
               "w4a8_gemv": st.prefills, "w4a8_gemv_argmax": st.decode_steps}
     wrong = {k: (counts.get(k, 0), v) for k, v in expect.items() if counts.get(k, 0) != v}
     allowed = set(expect) | {"w4a8_gemv_stacked", "dequant_paired"}
@@ -2205,13 +2384,26 @@ def phase_engine(dev):
         f"identical")
     if differ:
         raise AssertionError(f"engine: paged and slab tokens differ in requests {differ[:8]}")
+    # the bf16 slab (quantized_cache=False): in-vocabulary tokens and its own
+    # launch counts (engine_run); held to the JAX engine on the CPU only
+    t1 = time.perf_counter()
+    eng, bf16_tokens, bf16_counts, bf16 = engine_run("slab bf16", config, params, layers, trace,
+                                                     dev, paged=False, quantized_cache=False)
+    bf16["burst"] = profile_burst(eng, trace)
+    b = bf16["burst"]
+    same = sum(a == c for a, c in zip(bf16_tokens, slab_tokens))
+    log(f"engine slab bf16 decode step: wall {b['step_wall_ms']:.2f} ms, device busy "
+        f"{b['step_busy_ms']:.3f} ms ({100 * b['busy_share']:.1f}%); {same} of {len(trace)} "
+        f"requests' tokens equal to the int8 slab's; {time.perf_counter() - t1:.1f} s")
+    del eng
     del params, layers
     torch.cuda.empty_cache()
     launched = compare_paths(config, "w4a8_2l", 128, dev, batch=ENGINE_SLOTS, paged=True)
     if launched != set(counts):
         raise AssertionError(f"paged: the checked run launched {sorted(launched)}, the engine "
                              f"{sorted(counts)}")
-    return dict(counts=counts, paged=paged, slab=slab, slab_counts=slab_counts)
+    return dict(counts=counts, paged=paged, slab=slab, slab_counts=slab_counts, bf16=bf16,
+                bf16_counts=bf16_counts)
 
 
 def phase_loader(dev):
@@ -2370,6 +2562,21 @@ SOURCES = {
                          "fastforward_tpu/kernels/matmul.py:780 (entered at :834-842)"),
     "w4a16_gemm": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
                    "fastforward_tpu/kernels/matmul.py:1813 (pallas_call :1866)"),
+    "kv_quantize_append": ("fastforward_tpu_torch/csrc/kv_append.cu",
+                           "fastforward_tpu/kernels/kv_update.py:100 (after "
+                           "serving/kv_cache.py:24 _quantize_kv)"),
+    "kv_quantize_append_layer": ("fastforward_tpu_torch/csrc/kv_append.cu",
+                                 "fastforward_tpu/kernels/kv_update.py:219 (after "
+                                 "serving/kv_cache.py:24 _quantize_kv)"),
+    "paged_kv_quantize_append": ("fastforward_tpu_torch/csrc/kv_append.cu",
+                                 "fastforward_tpu/kernels/paged_attention.py:293 (after "
+                                 "serving/kv_cache.py:24 _quantize_kv)"),
+    "w4a8_gemv_halves_any": ("fastforward_tpu_torch/csrc/w4a8_halves.cu",
+                             "fastforward_tpu/kernels/matmul.py:341 (kernel :312, any group)"),
+    "w4_gemv_any": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
+                    "fastforward_tpu/kernels/matmul.py:262 (kernel :240, any group)"),
+    "w4a16_gemm_any": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
+                       "fastforward_tpu/kernels/matmul.py:1813 (any group)"),
     **{name: ("fastforward_tpu_torch/csrc/probe_int4.cu",
               "scripts/tpu_probe_int4.py:67 (kernel :44)")
        for name in ("probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4", "probe_mma_s4",
@@ -2377,10 +2584,18 @@ SOURCES = {
 }
 
 
-# Kernels no path of the JAX package serves through (0 launches, the
-# "main_path" key false): row 18's tiled W4A16 body and row 24's probe.
+# Entries the port's main path does not launch (0 launches, the
+# "main_path" key false): row 18's tiled W4A16 body and row 24's probe (no
+# path of the JAX package serves through them), the any-group routes of
+# rows 16, 17 and 18t (no served default reaches their groups), and the
+# int8-input appends, whose rows the decode step now launches through the
+# fused K/V quantize and append under the same counts (COUNT_OF).
 OFF_MAIN_PATH = ("w4a16_gemm", "probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4",
-                 "probe_mma_s4", "probe_mma_bf16")
+                 "probe_mma_s4", "probe_mma_bf16", "w4a8_gemv_halves_any", "w4_gemv_any",
+                 "w4a16_gemm_any", "kv_append", "kv_append_layer", "paged_kv_append")
+# The launch count a kernels-line entry reads where it is not its own name.
+COUNT_OF = {"kv_quantize_append": "kv_append", "kv_quantize_append_layer": "kv_append_layer",
+            "paged_kv_quantize_append": "paged_kv_append"}
 
 
 def main():
@@ -2419,10 +2634,11 @@ def main():
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
-        launches = next((runs[k]["counts"][name] for k in ("a", "b", "e", "f", "g", "h", "i",
-                                                            "engine", "k", "l", "m", "n", "o",
-                                                            "p", "q")
-                         if runs[k]["counts"].get(name)), 0)
+        count = COUNT_OF.get(name, name)
+        launches = 0 if name in OFF_MAIN_PATH else next(
+            (runs[k]["counts"][count] for k in ("a", "b", "e", "f", "g", "h", "i", "engine", "k",
+                                                "l", "m", "n", "o", "p", "q", "r")
+             if runs[k]["counts"].get(count)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,
             main_path=name not in OFF_MAIN_PATH,

@@ -29,8 +29,27 @@
 // (paged_kv_append_reference), where the TPU kernel reads the flat table
 // at b * MP + pos / page, the next sequence's entry. Bound and design as
 // the slab append: a few KB per layer, launch latency.
+//
+// The decode step's entries (ff_kv_quantize_append, ff_paged_kv_quantize_
+// append) fuse the K/V quantizer into the append, so a layer's decode
+// quantize-and-append is one launch where it was nineteen (the quantizer's
+// nine elementwise kernels a tensor in PyTorch, then the copy). They take
+// the token's bf16 (or f32) k and v (B, Hkv, 1, D) as they lie, through
+// their strides (v is a view of the qkv projection's output), and compute
+// the serving package's _quantize_kv (JAX: serving/kv_cache.py:24) per
+// (b, head) row, bit for bit:
+//   amax  = max_d |f32(x[d])|                        (exact in any order)
+//   scale = max(amax * f32(1/127), 1e-8)             (one rounded multiply)
+//   q[d]  = clamp(rint(f32(x[d]) / scale), -128, 127) (IEEE division, ties
+//                                                      to even)
+// then write the row as the int8 entries do (for finite k and v: a NaN
+// row's bytes are not held to PyTorch's casts). One block per (b, kv head),
+// a thread per d: a warp-shuffle max, one more through shared memory, one
+// store a byte. The int8-input entries stay the counterparts of the JAX
+// functions of their names.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,6 +103,99 @@ __global__ void paged_kv_append_kernel(int8_t* __restrict__ kc, int8_t* __restri
   }
 }
 
+
+// The larger of two |x|, a NaN winning as in torch.amax.
+__device__ __forceinline__ float nan_max(float a, float b) { return (b > a || b != b) ? b : a; }
+
+template <typename T>
+__device__ __forceinline__ float load_f32(const T* p);
+template <>
+__device__ __forceinline__ float load_f32<float>(const float* p) { return *p; }
+template <>
+__device__ __forceinline__ float load_f32<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// The row (b, h) of k and v quantized and written at cache row `row` (of D
+// bytes and one scale), or nowhere where row < 0. blockDim.x = D rounded up
+// to a warp, at most 1024.
+template <typename T>
+__device__ __forceinline__ void quantize_rows(int8_t* __restrict__ kc, int8_t* __restrict__ vc,
+                                              float* __restrict__ ks, float* __restrict__ vs,
+                                              const T* __restrict__ k, const T* __restrict__ v,
+                                              const int* sk, const int* sv, int D, long long row) {
+  __shared__ float red[2][32];
+  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  const int lane = d % 32, warp = d / 32;
+  const float kf = d < D ? load_f32(k + (size_t)b * sk[0] + (size_t)h * sk[1] + (size_t)d * sk[2])
+                         : 0.f;
+  const float vf = d < D ? load_f32(v + (size_t)b * sv[0] + (size_t)h * sv[1] + (size_t)d * sv[2])
+                         : 0.f;
+  float ka = fabsf(kf), va = fabsf(vf);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    ka = nan_max(ka, __shfl_xor_sync(0xffffffffu, ka, o));
+    va = nan_max(va, __shfl_xor_sync(0xffffffffu, va, o));
+  }
+  if (lane == 0) {
+    red[0][warp] = ka;
+    red[1][warp] = va;
+  }
+  __syncthreads();
+  ka = red[0][0];
+  va = red[1][0];
+  for (int w = 1; w < (int)(blockDim.x / 32); ++w) {
+    ka = nan_max(ka, red[0][w]);
+    va = nan_max(va, red[1][w]);
+  }
+  if (row < 0) return;
+  float s_k = __fmul_rn(ka, 1.0f / 127.0f), s_v = __fmul_rn(va, 1.0f / 127.0f);
+  s_k = s_k != s_k ? s_k : fmaxf(s_k, 1e-8f);  // torch.clamp keeps a NaN
+  s_v = s_v != s_v ? s_v : fmaxf(s_v, 1e-8f);
+  if (d < D) {
+    const float qk = fminf(fmaxf(rintf(__fdiv_rn(kf, s_k)), -128.f), 127.f);
+    const float qv = fminf(fmaxf(rintf(__fdiv_rn(vf, s_v)), -128.f), 127.f);
+    kc[row * D + d] = (int8_t)(int)qk;
+    vc[row * D + d] = (int8_t)(int)qv;
+  }
+  if (d == 0) {
+    ks[row] = s_k;
+    vs[row] = s_v;
+  }
+}
+
+// Slab (L, B, Hkv, S, D): row starts[b] of layer `layer`; none outside [0, S).
+template <typename T>
+__global__ void kv_quantize_append_kernel(int8_t* kc, int8_t* vc, float* ks, float* vs,
+                                          const T* k, const T* v, const int* __restrict__ starts,
+                                          int B, int Hkv, int S, int D, int layer, int k_sb,
+                                          int k_sh, int k_sd, int v_sb, int v_sh, int v_sd) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int s = starts[b];
+  const long long row = s < 0 || s >= S ? -1 : (((long long)layer * B + b) * Hkv + h) * S + s;
+  const int sk[3] = {k_sb, k_sh, k_sd}, sv[3] = {v_sb, v_sh, v_sd};
+  quantize_rows(kc, vc, ks, vs, k, v, sk, sv, D, row);
+}
+
+// Paged pool (L, P, Hkv, page, D): row pos % page of page table[b, pos /
+// page], page 0 for a page id of -1 or an index at or beyond MP.
+template <typename T>
+__global__ void paged_kv_quantize_append_kernel(int8_t* kc, int8_t* vc, float* ks, float* vs,
+                                                const T* k, const T* v,
+                                                const int* __restrict__ positions,
+                                                const int* __restrict__ table, int P, int Hkv,
+                                                int page, int MP, int D, int layer, int k_sb,
+                                                int k_sh, int k_sd, int v_sb, int v_sh, int v_sd) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int pos = positions[b];
+  const int idx = pos / page;
+  int pid = (idx >= 0 && idx < MP) ? table[(size_t)b * MP + idx] : 0;
+  pid = min(max(pid, 0), P - 1);
+  const long long row = (((long long)layer * P + pid) * Hkv + h) * page + pos % page;
+  const int sk[3] = {k_sb, k_sh, k_sd}, sv[3] = {v_sb, v_sh, v_sd};
+  quantize_rows(kc, vc, ks, vs, k, v, sk, sv, D, row);
+}
+
 }  // namespace
 
 // Positions must be >= 0 (the engine's positions are).
@@ -111,5 +223,56 @@ extern "C" int ff_kv_append(void* kc, void* vc, void* ks, void* vs, const void* 
       static_cast<float*>(vs), static_cast<const int8_t*>(k_new),
       static_cast<const int8_t*>(v_new), static_cast<const float*>(ks_new),
       static_cast<const float*>(vs_new), static_cast<const int*>(starts), B, Hkv, S, D, layer);
+  return cudaGetLastError();
+}
+
+// The decode step's fused entries: k, v (B, Hkv, 1, D) bf16 (in_bf16) or
+// f32 at element strides (b, h, d); D <= 1024; starts (B,) int32.
+extern "C" int ff_kv_quantize_append(void* kc, void* vc, void* ks, void* vs, const void* k,
+                                     const void* v, const void* starts, int L, int B, int Hkv,
+                                     int S, int D, int layer, int k_sb, int k_sh, int k_sd,
+                                     int v_sb, int v_sh, int v_sd, int in_bf16, void* stream) {
+  (void)L;
+  if (D < 1 || D > 1024) return cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv), block((D + 31) / 32 * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t *kq = static_cast<int8_t*>(kc), *vq = static_cast<int8_t*>(vc);
+  float *kscale = static_cast<float*>(ks), *vscale = static_cast<float*>(vs);
+  const int* rows = static_cast<const int*>(starts);
+  if (in_bf16)
+    kv_quantize_append_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        kq, vq, kscale, vscale, static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), rows, B, Hkv, S, D, layer, k_sb, k_sh, k_sd, v_sb,
+        v_sh, v_sd);
+  else
+    kv_quantize_append_kernel<float><<<grid, block, 0, st>>>(
+        kq, vq, kscale, vscale, static_cast<const float*>(k), static_cast<const float*>(v), rows,
+        B, Hkv, S, D, layer, k_sb, k_sh, k_sd, v_sb, v_sh, v_sd);
+  return cudaGetLastError();
+}
+
+// Positions must be >= 0 (the engine's are); table (B, MP) int32.
+extern "C" int ff_paged_kv_quantize_append(void* kc, void* vc, void* ks, void* vs, const void* k,
+                                           const void* v, const void* positions,
+                                           const void* table, int L, int P, int B, int Hkv,
+                                           int page, int MP, int D, int layer, int k_sb,
+                                           int k_sh, int k_sd, int v_sb, int v_sh, int v_sd,
+                                           int in_bf16, void* stream) {
+  (void)L;
+  if (D < 1 || D > 1024) return cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv), block((D + 31) / 32 * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t *kq = static_cast<int8_t*>(kc), *vq = static_cast<int8_t*>(vc);
+  float *kscale = static_cast<float*>(ks), *vscale = static_cast<float*>(vs);
+  const int *pos = static_cast<const int*>(positions), *tab = static_cast<const int*>(table);
+  if (in_bf16)
+    paged_kv_quantize_append_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        kq, vq, kscale, vscale, static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), pos, tab, P, Hkv, page, MP, D, layer, k_sb, k_sh,
+        k_sd, v_sb, v_sh, v_sd);
+  else
+    paged_kv_quantize_append_kernel<float><<<grid, block, 0, st>>>(
+        kq, vq, kscale, vscale, static_cast<const float*>(k), static_cast<const float*>(v), pos,
+        tab, P, Hkv, page, MP, D, layer, k_sb, k_sh, k_sd, v_sb, v_sh, v_sd);
   return cudaGetLastError();
 }

@@ -687,3 +687,18 @@ extern "C" int ff_w4_gemv_clusters(int M, int depth, int n_split) {
       return query(w4_gemv_wgmma_kernel<256, float>);
   }
 }
+
+// Any other group the reference takes (w4g::any_group_ok: g even, K a whole
+// number of groups; kernels/matmul.py float_scale_route): the plain CUDA-core
+// loop of w4_wgmma.cuh (w4_any_group_kernel), each weight dequantized with
+// this GEMV's one rounding. x (M, K) bf16, w (K/2, N) pack_int4, w_scale
+// (K/g, N) f32, out (M, N) f32 or bf16; M <= 256.
+extern "C" int ff_w4_gemv_any(const void* x, const void* w, const void* w_scale, void* out,
+                              int M, int K, int N, int group, int out_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M > ff::w4v::kMaxRows) return cudaErrorInvalidValue;
+  if (out_bf16)
+    return ff::w4g::launch_any<__nv_bfloat16, false>(x, w, w_scale, nullptr, out, M, K, N, group,
+                                                     st);
+  return ff::w4g::launch_any<float, false>(x, w, w_scale, nullptr, out, M, K, N, group, st);
+}

@@ -394,5 +394,87 @@ cudaError_t launch(const void* x, const void* w, const void* s, const void* bias
   }
 }
 
+// ---- Any group: the route of every group the reference takes that
+// group_ok does not (g even, K a whole number of groups; kernels/matmul.py
+// float_scale_route), for the W4 GEMV (row 17, w4_gemv.cu) and this GEMM
+// (row 18t). No served default reaches these groups, so the kernel is the
+// plain loop on the CUDA cores: a thread owns one weight column and
+// kAnyRows token rows; byte row r of group p holds k = pg + r in its low
+// nibble and pg + g/2 + r in its high nibble, so a run of kAnyRun byte rows
+// needs x at two runs of k, which the block stages in shared memory as f32.
+// Each weight is dequantized as the row's tensor-core kernel does it: row
+// 17 bf16(f32(v) * s), 18t bf16(v * bf16(s)) (TILED; the product is exact
+// before its one rounding), and enters one f32 fused multiply-add a token
+// row, in k order within a group and group order overall.
+constexpr int kAnyCols = 128;  // weight columns a block, one a thread
+constexpr int kAnyRows = 8;    // token rows a block
+constexpr int kAnyRun = 64;    // byte rows a staged run
+
+__host__ __device__ inline bool any_group_ok(int K, int group) {
+  return group >= 2 && group % 2 == 0 && K >= group && K % group == 0;
+}
+
+template <typename OutT, bool TILED>
+__global__ void __launch_bounds__(kAnyCols)
+    w4_any_group_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                        const float* __restrict__ s, const float* __restrict__ bias,
+                        OutT* __restrict__ out, int M, int K, int N, int group) {
+  __shared__ float xr[kAnyRows][2 * kAnyRun];  // a run's low-nibble k, then its high-nibble k
+  const int n = blockIdx.x * kAnyCols + threadIdx.x, m0 = blockIdx.y * kAnyRows;
+  const int half = group / 2, G = K / group;
+  float acc[kAnyRows];
+#pragma unroll
+  for (int i = 0; i < kAnyRows; ++i) acc[i] = 0.f;
+  for (int p = 0; p < G; ++p) {
+    float sc = n < N ? s[(size_t)p * N + n] : 0.f;
+    if (TILED) sc = __bfloat162float(__float2bfloat16_rn(sc));
+    for (int r0 = 0; r0 < half; r0 += kAnyRun) {
+      const int run = min(kAnyRun, half - r0);
+      __syncthreads();  // the previous run is consumed
+      for (int e = threadIdx.x; e < kAnyRows * 2 * kAnyRun; e += kAnyCols) {
+        const int i = e / (2 * kAnyRun), j = e % (2 * kAnyRun), r = j % kAnyRun;
+        const int k = p * group + (j < kAnyRun ? 0 : half) + r0 + r;
+        xr[i][j] = m0 + i < M && r < run ? __bfloat162float(x[(size_t)(m0 + i) * K + k]) : 0.f;
+      }
+      __syncthreads();
+      if (n >= N) continue;
+      for (int r = 0; r < run; ++r) {
+        const int b = w[(size_t)(p * half + r0 + r) * N + n];  // sign-extended byte
+        const int lo = (int)((unsigned)b << 28) >> 28, hi = b >> 4;
+        const float wl = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)lo, sc)));
+        const float wh = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)hi, sc)));
+#pragma unroll
+        for (int i = 0; i < kAnyRows; ++i) {
+          acc[i] = __fmaf_rn(xr[i][r], wl, acc[i]);
+          acc[i] = __fmaf_rn(xr[i][kAnyRun + r], wh, acc[i]);
+        }
+      }
+    }
+  }
+  if (n >= N) return;
+  const float b = bias != nullptr ? bias[n] : 0.f;
+#pragma unroll
+  for (int i = 0; i < kAnyRows; ++i) {
+    if (m0 + i >= M) break;
+    const float y = bias != nullptr ? __fadd_rn(round_out<OutT>(acc[i]), b) : acc[i];
+    store<OutT>(out + (size_t)(m0 + i) * N + n, y);
+  }
+}
+
+// Launch the any-group kernel on a (M, K) x (K/2, N) product; any_group_ok.
+template <typename OutT, bool TILED>
+cudaError_t launch_any(const void* x, const void* w, const void* s, const void* bias, void* out,
+                       int M, int K, int N, int group, cudaStream_t st) {
+  const int row_blocks = (M + kAnyRows - 1) / kAnyRows;
+  if (M < 1 || N < 1 || !any_group_ok(K, group) || row_blocks > 65535)
+    return cudaErrorInvalidValue;
+  w4_any_group_kernel<OutT, TILED><<<dim3((N + kAnyCols - 1) / kAnyCols, row_blocks), kAnyCols,
+                                     0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(s), static_cast<const float*>(bias), static_cast<OutT*>(out), M,
+      K, N, group);
+  return cudaGetLastError();
+}
+
 }  // namespace w4g
 }  // namespace ff

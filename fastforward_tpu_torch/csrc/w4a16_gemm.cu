@@ -40,3 +40,16 @@ extern "C" int ff_w4a16_gemm(const void* x, const void* w, const void* w_scale, 
     return ff::w4g::launch<__nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, group, st);
   return ff::w4g::launch<float>(x, w, w_scale, bias, out, M, K, N, group, st);
 }
+
+// Any other group the reference takes (w4g::any_group_ok; kernels/matmul.py
+// float_scale_route): the plain CUDA-core loop of w4_wgmma.cuh
+// (w4_any_group_kernel), each weight rounded twice as above, the same bias
+// epilogue. Arguments as ff_w4a16_gemm's; x needs no alignment.
+extern "C" int ff_w4a16_gemm_any(const void* x, const void* w, const void* w_scale,
+                                 const void* bias, void* out, int M, int K, int N, int group,
+                                 int out_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    return ff::w4g::launch_any<__nv_bfloat16, true>(x, w, w_scale, bias, out, M, K, N, group, st);
+  return ff::w4g::launch_any<float, true>(x, w, w_scale, bias, out, M, K, N, group, st);
+}

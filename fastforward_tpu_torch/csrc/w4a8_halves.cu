@@ -594,6 +594,148 @@ cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, 
   }
 }
 
+
+// ---- Any group: the route of every group the reference takes that the
+// tensor-core kernel does not (w4g::group_ok, at most 32 x 32 groups, g <=
+// 2^16): g even, K a whole number of groups (kernels/matmul.py
+// float_scale_route). No served default reaches these groups, so the kernel
+// is the plain loop on the CUDA cores: a thread owns one weight column and
+// w4g::kAnyRows token rows. Byte row r of group p holds k = pg + r in its
+// low nibble and pg + g/2 + r in its high nibble (sign-extended), so a run
+// of kAnyRun byte rows needs x at two runs of k, which the block stages in
+// shared memory. Each group's dot is exact: int32 over a run (|sum| <= 64 *
+// 2 * 128 * 8), int64 over the group. Then the jitted oracle's sum, in one
+// thread an output: up to 32 groups a fused multiply-add chain from +0;
+// beyond, the rounded products through its window tree (WindowTree: at 33
+// to 1,024 groups the tensor-core kernel's windows, beyond that windows of
+// window sums, as kernels/matmul.py _window_sum recurses); times xs[m] last.
+constexpr int kLevels = 6;  // levels of the window tree: up to 32^6 terms
+
+// The window tree of the jitted oracle's sum of n terms (kernels/matmul.py
+// _window_sum): at each level the terms padded with zeros to whole windows
+// of 32 (the smaller half of the padding in front), each window summed in
+// order from +0, the window sums the terms of the next level, up to a level
+// of at most 32 terms (top), summed in order from +0. The padding adds +0,
+// which moves no sum. Per-thread bookkeeping, the same in every thread.
+struct WindowTree {
+  int top;            // the level summed without windows
+  int lo[kLevels];    // the front padding of each windowed level
+  int cnt[kLevels];   // the terms each level has taken
+
+  __device__ explicit WindowTree(int n) : top(0) {
+    for (int l = 0; l < kLevels; ++l) lo[l] = cnt[l] = 0;
+    while (n > kWindow && top < kLevels - 1) {
+      const int windows = (n + kWindow - 1) / kWindow;
+      lo[top++] = (windows * kWindow - n) / 2;
+      n = windows;
+    }
+  }
+
+  // Add term v[i] of each row at level l: a term that starts a window
+  // closes the one before, whose sum goes up as the next level's term.
+  template <int R>
+  __device__ void push(float (&acc)[R][kLevels], float (&v)[R], int l) {
+    for (;; ++l) {
+      const int idx = cnt[l]++;
+      const bool closes = l < top && idx > 0 && (idx + lo[l]) % kWindow == 0;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float up = acc[i][l];
+        acc[i][l] = __fadd_rn(closes ? 0.f : up, v[i]);
+        v[i] = up;
+      }
+      if (!closes) return;
+    }
+  }
+
+  // Close every level's last window; the sum is then acc[i][top].
+  template <int R>
+  __device__ void finish(float (&acc)[R][kLevels]) {
+    for (int l = 0; l < top; ++l) {
+      float v[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[i] = acc[i][l];
+      push(acc, v, l + 1);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(w4g::kAnyCols)
+    w4a8_any_group_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
+                          const int8_t* __restrict__ w, const float* __restrict__ s,
+                          void* __restrict__ out, int out_bf16, int M, int K, int N, int group) {
+  constexpr int R = w4g::kAnyRows, RUN = w4g::kAnyRun;
+  __shared__ int xr[R][2 * RUN];  // a run's low-nibble k, then its high-nibble k
+  const int n = blockIdx.x * w4g::kAnyCols + threadIdx.x, m0 = blockIdx.y * R;
+  const int half = group / 2, G = K / group;
+  WindowTree tree(G);  // top 0: up to 32 groups, the fused multiply-add chain
+  float acc[R][kLevels];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) acc[i][l] = 0.f;
+  for (int p = 0; p < G; ++p) {
+    long long gd[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) gd[i] = 0;
+    for (int r0 = 0; r0 < half; r0 += RUN) {
+      const int run = min(RUN, half - r0);
+      __syncthreads();  // the previous run is consumed
+      for (int e = threadIdx.x; e < R * 2 * RUN; e += w4g::kAnyCols) {
+        const int i = e / (2 * RUN), j = e % (2 * RUN), r = j % RUN;
+        const int k = p * group + (j < RUN ? 0 : half) + r0 + r;
+        xr[i][j] = m0 + i < M && r < run ? (int)x[(size_t)(m0 + i) * K + k] : 0;
+      }
+      __syncthreads();
+      if (n >= N) continue;
+      int part[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) part[i] = 0;
+      for (int r = 0; r < run; ++r) {
+        const int b = w[(size_t)(p * half + r0 + r) * N + n];  // sign-extended byte
+        const int vl = (int)((unsigned)b << 28) >> 28, vh = b >> 4;
+#pragma unroll
+        for (int i = 0; i < R; ++i) part[i] += xr[i][r] * vl + xr[i][RUN + r] * vh;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) gd[i] += part[i];
+    }
+    if (n >= N) continue;
+    const float sc = s[(size_t)p * N + n];
+    if (tree.top == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i][0] = __fmaf_rn(__ll2float_rn(gd[i]), sc, acc[i][0]);
+    } else {
+      float v[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[i] = __fmul_rn(__ll2float_rn(gd[i]), sc);
+      tree.push(acc, v, 0);
+    }
+  }
+  if (n >= N) return;
+  tree.finish(acc);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int m = m0 + i;
+    if (m >= M) break;
+    const float y = __fmul_rn(acc[i][tree.top], xs[m]);
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(y);
+    else
+      static_cast<float*>(out)[(size_t)m * N + n] = y;
+  }
+}
+
+cudaError_t launch_any(const void* x, const void* xs, const void* w, const void* s, void* out,
+                       int M, int K, int N, int group, int out_bf16, cudaStream_t st) {
+  if (M < 1 || M > 256 || N < 1 || !w4g::any_group_ok(K, group)) return cudaErrorInvalidValue;
+  const dim3 grid((N + w4g::kAnyCols - 1) / w4g::kAnyCols, (M + w4g::kAnyRows - 1) / w4g::kAnyRows);
+  w4a8_any_group_kernel<<<grid, w4g::kAnyCols, 0, st>>>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs), static_cast<const int8_t*>(w),
+      static_cast<const float*>(s), out, out_bf16, M, K, N, group);
+  return cudaGetLastError();
+}
+
 }  // namespace w4h
 }  // namespace ff
 
@@ -608,4 +750,15 @@ extern "C" int ff_w4a8_gemv_halves(const void* x, const void* xs, const void* w,
                                    int depth, void* stream) {
   return ff::w4h::launch(x, xs, w, w_scale, out, M, K, N, group, out_bf16, nt, row_blocks,
                          n_split, fold, depth, static_cast<cudaStream_t>(stream));
+}
+
+// Any other group the reference takes (w4g::any_group_ok), and more than 32
+// x 32 groups: the plain CUDA-core loop above, bit-exact as the tensor-core
+// kernel. Arguments as ff_w4a8_gemv_halves's without the plan; x and
+// w_scale need no alignment.
+extern "C" int ff_w4a8_gemv_halves_any(const void* x, const void* xs, const void* w,
+                                       const void* w_scale, void* out, int M, int K, int N,
+                                       int group, int out_bf16, void* stream) {
+  return ff::w4h::launch_any(x, xs, w, w_scale, out, M, K, N, group, out_bf16,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -76,6 +76,9 @@ SIGNATURES = {
         # n_split, fold, depth, stream (int8 wgmma; the plan of
         # matmul.w4a8_plan)
         "ff_w4a8_gemv_halves": [P] * 5 + [I] * 10 + [P],
+        # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream (any other
+        # group: the CUDA-core loop)
+        "ff_w4a8_gemv_halves_any": [P] * 5 + [I] * 5 + [P],
     },
     "kv_append": {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts,
@@ -84,6 +87,12 @@ SIGNATURES = {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, positions, table,
         # L, P, B, Hkv, page, MP, D, layer, stream
         "ff_paged_kv_append": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+        # kc, vc, ks, vs, k, v (bf16 or f32, strided), starts, L, B, Hkv, S,
+        # D, layer, k strides (b, h, d), v strides, in_bf16, stream
+        "ff_kv_quantize_append": [P] * 7 + [I] * 13 + [P],
+        # kc, vc, ks, vs, k, v, positions, table, L, P, B, Hkv, page, MP, D,
+        # layer, k strides, v strides, in_bf16, stream
+        "ff_paged_kv_quantize_append": [P] * 8 + [I] * 15 + [P],
     },
     "flash_decode": {
         # q, k, ks, v, vs, lengths, out, L, B, H, Hkv, S, D, layer,
@@ -139,10 +148,15 @@ SIGNATURES = {
         "ff_w4_gemv": [P] * 4 + [I] * 7 + [P],
         # M, depth, n_split: the clusters the card runs at once
         "ff_w4_gemv_clusters": [I, I, I],
+        # x, w, w_scale, out, M, K, N, group, out_bf16, stream (any other
+        # group: the CUDA-core loop)
+        "ff_w4_gemv_any": [P] * 4 + [I] * 5 + [P],
     },
     "w4a16_gemm": {
         # x, w, w_scale, bias (or NULL), out, M, K, N, group, out_bf16, stream
         "ff_w4a16_gemm": [P, P, P, P, P, I, I, I, I, I, P],
+        # the same arguments (any other group: the CUDA-core loop)
+        "ff_w4a16_gemm_any": [P, P, P, P, P, I, I, I, I, I, P],
     },
     "probe_int4": {
         # x, w, out, R, K, N, panels, rounds, int4, inst, stream

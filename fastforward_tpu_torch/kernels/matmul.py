@@ -863,7 +863,7 @@ _STAGE_K = 128  # k a ring stage of the group-halves tensor-core kernels
 _MAX_BIG_GROUP = 1 << 16  # the W4A8 GEMV's int32 dot of a group: 16 * 128 * 8 * g < 2^31
 
 
-def float_scale_group_ok(K: int, group_size: int) -> bool:
+def wgmma_group_ok(K: int, group_size: int) -> bool:
     """Whether the group-halves tensor-core kernels (rows 16, 17 and 18t:
     `csrc/w4a8_halves.cu`, `csrc/w4_gemv.cu`, `csrc/w4a16_gemm.cu`; C
     `group_ok`) take group ``group_size`` at depth K: g 32, 64 or 128, or g
@@ -872,6 +872,68 @@ def float_scale_group_ok(K: int, group_size: int) -> bool:
     g = group_size
     small = g in (32, 64, 128)
     return (small or (g >= 2 * _STAGE_K and g % _STAGE_K == 0)) and K >= g and K % g == 0
+
+
+def float_scale_group_ok(K: int, group_size: int) -> bool:
+    """Whether the reference takes group ``group_size`` at depth K
+    (`pack_int4`'s group halves, `matmul_w4a8_gemv` and `matmul_w4_gemv`
+    unroll K // g groups; C `any_group_ok`): g even, K a whole number of
+    groups."""
+    g = group_size
+    return g >= 2 and g % 2 == 0 and K >= g and K % g == 0
+
+
+def float_scale_route(K: int, group_size: int, max_group: Optional[int] = None,
+                      max_groups: Optional[int] = None) -> str:
+    """The route of rows 16, 17 and 18t at group g, chosen by shape:
+    "wgmma", the tensor-core kernels, where `wgmma_group_ok` (and g <=
+    ``max_group``, K / g <= ``max_groups`` where given: row 16's int32 group
+    dot and its fold of at most 32 x 32 groups); else "any", the CUDA-core
+    loop of the same source (`w4_any_group_kernel`, `w4a8_any_group_kernel`),
+    for every other group the reference takes. Raises for a group the
+    reference does not take."""
+    if not float_scale_group_ok(K, group_size):
+        raise ValueError(f"group {group_size} at K={K}: the reference takes an even group with "
+                         f"K a whole number of groups")
+    if wgmma_group_ok(K, group_size) and (max_group is None or group_size <= max_group) \
+            and (max_groups is None or K // group_size <= max_groups):
+        return "wgmma"
+    return "any"
+
+
+def window_tree_sum(terms):
+    """The CUDA-core route's fold of row 16 (`csrc/w4a8_halves.cu`
+    WindowTree) written out in torch: the (..., n) f32 ``terms`` pushed one
+    at a time through the oracle's window tree (per level: windows of 32
+    after the smaller half of the padding, each summed from +0, a term that
+    starts a window sending the closed window's sum up a level; at most 32
+    terms on the top level, summed from +0), then every level's last window
+    closed. Equals `_window_sum` bit for bit."""
+    n = terms.shape[-1]
+    lo, top = [], 0
+    while n > _SUM_WINDOW:
+        windows = -(-n // _SUM_WINDOW)
+        lo.append((windows * _SUM_WINDOW - n) // 2)
+        n, top = windows, top + 1
+    acc = [torch.zeros_like(terms[..., 0]) for _ in range(top + 1)]
+    cnt = [0] * (top + 1)
+
+    def push(v, level):
+        while True:
+            idx = cnt[level]
+            cnt[level] += 1
+            closes = level < top and idx > 0 and (idx + lo[level]) % _SUM_WINDOW == 0
+            up = acc[level]
+            acc[level] = (torch.zeros_like(up) if closes else up) + v
+            if not closes:
+                return
+            v, level = up, level + 1
+
+    for i in range(terms.shape[-1]):
+        push(terms[..., i], 0)
+    for level in range(top):
+        push(acc[level], level + 1)
+    return acc[top]
 
 
 def stage_groups(group_size: int) -> tuple:
@@ -1010,7 +1072,10 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
     layout, w_scale (K//g, N) f32; bf16 or f32 out. On CUDA
     `csrc/w4a8_halves.cu` (int8 wgmma, each group's dot folded in the
     oracle's order; rows, K splits at window boundaries and the fold from
-    `w4a8_plan`), bit-exact against `matmul_w4a8_reference`."""
+    `w4a8_plan`; any other group the reference takes, and more than 32 x 32
+    groups, through the same source's CUDA-core loop, counted under
+    ``w4a8_gemv_halves_any``: `float_scale_route`), bit-exact against
+    `matmul_w4a8_reference`."""
     if x_q.device.type == "cpu":
         return matmul_w4a8_reference(x_q, x_scale, w_packed, w_scale, None, group_size, out_dtype)
     M, K = x_q.shape
@@ -1020,17 +1085,24 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(w_scale, "w_scale", torch.float32, (K // group_size, N), dev)
     if out_dtype not in (torch.float32, torch.bfloat16) \
-            or not float_scale_group_ok(K, group_size) or group_size > _MAX_BIG_GROUP \
-            or K // group_size > _SUM_WINDOW ** 2 or M > GEMV_MAX_M:
+            or not float_scale_group_ok(K, group_size) or M > GEMV_MAX_M:
         raise ValueError(
-            f"W4A8 halves GEMV kernel needs f32 or bf16 out, group 32, 64 or 128 or a "
-            f"multiple of 128 from 256 up to K and {_MAX_BIG_GROUP}, at most "
-            f"{_SUM_WINDOW ** 2} groups and M <= {GEMV_MAX_M} (out={out_dtype}, "
-            f"group={group_size}, K={K}, M={M})"
+            f"W4A8 halves GEMV kernel needs f32 or bf16 out, an even group with K a whole "
+            f"number of groups and M <= {GEMV_MAX_M} (out={out_dtype}, group={group_size}, "
+            f"K={K}, M={M})"
         )
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if float_scale_route(K, group_size, _MAX_BIG_GROUP, _SUM_WINDOW ** 2) == "any":
+        err = _build.lib("w4a8_halves").ff_w4a8_gemv_halves_any(
+            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
+            out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16),
+            _build.stream_ptr(dev),
+        )
+        _build.launch_counts["w4a8_gemv_halves_any"] += 1
+        _build.check(err, "w4a8_gemv_halves_any")
+        return out
     plan = w4a8_plan(M, K, N, group_size)
     x_q, w_scale = _aligned16(x_q), _aligned16(w_scale)  # both reach the kernel through tensor maps
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _build.lib("w4a8_halves").ff_w4a8_gemv_halves(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
         out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16), plan.n,
@@ -1210,7 +1282,7 @@ def w4a8_plan(M: int, K: int, N: int, group_size: int) -> W4A8Plan:
     (wgmma's n + 32), fewer row blocks on a tie (narrow projections split
     their rows to fill the card). A group of g = 128 j (j >= 2) spans j
     stages (`stage_groups`), so every split starts on a stage boundary."""
-    if not 1 <= M <= GEMV_MAX_M or not float_scale_group_ok(K, group_size) \
+    if not 1 <= M <= GEMV_MAX_M or not wgmma_group_ok(K, group_size) \
             or group_size > _MAX_BIG_GROUP or N < 4 or N % 4:
         raise ValueError(f"no W4A8 GEMV plan for M={M}, K={K}, N={N}, group={group_size}")
     G = K // group_size
@@ -1445,7 +1517,7 @@ def w4_plan(M: int, K: int, N: int, group_size: int, n_split: Optional[int] = No
     about ``n_split`` splits where given: the card tests and A/Bs take
     others); then the deepest ring that fits (at least two stages where a
     split has two)."""
-    if not 1 <= M <= GEMV_MAX_M or not float_scale_group_ok(K, group_size):
+    if not 1 <= M <= GEMV_MAX_M or not wgmma_group_ok(K, group_size):
         raise ValueError(f"no W4 GEMV plan for M={M}, K={K}, group={group_size}")
     n = next(t for t in (8, 16, 32, 64, 128, 192, 256) if M <= t)
     per_sm = 2 if n <= 64 else 1
@@ -1468,7 +1540,9 @@ def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.
     rounds the scale to bf16 first). On CUDA `csrc/w4_gemv.cu` for M up to
     `GEMV_MAX_M` (bf16 wgmma, each weight dequantized once a call as
     `w4_gemv_dequant_words` mirrors, K split by `w4_plan` and the splits
-    added in split order); its sums run in another order than the plain
+    added in split order; any other group the reference takes through the
+    same source's CUDA-core loop, counted under ``w4_gemv_any``:
+    `float_scale_route`); its sums run in another order than the plain
     version's, the same bits call to call."""
     if x.device.type == "cpu":
         return matmul_w4_gemv_reference(x, w_packed, w_scale, group_size, out_dtype)
@@ -1481,13 +1555,21 @@ def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.
     if out_dtype not in (torch.float32, torch.bfloat16) or not 1 <= M <= GEMV_MAX_M \
             or N % 4 != 0 or not float_scale_group_ok(K, group_size):
         raise ValueError(
-            f"W4 GEMV kernel needs f32 or bf16 out, 1 <= M <= {GEMV_MAX_M}, N % 4 == 0, group "
-            f"32, 64 or 128 or a multiple of 128 from 256 up to K, and K % group == 0 "
-            f"(out={out_dtype}, M={M}, N={N}, group={group_size}, K={K})"
+            f"W4 GEMV kernel needs f32 or bf16 out, 1 <= M <= {GEMV_MAX_M}, N % 4 == 0 and an "
+            f"even group with K a whole number of groups (out={out_dtype}, M={M}, N={N}, "
+            f"group={group_size}, K={K})"
         )
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if float_scale_route(K, group_size) == "any":
+        err = _build.lib("w4_gemv").ff_w4_gemv_any(
+            x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
+            group_size, int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        )
+        _build.launch_counts["w4_gemv_any"] += 1
+        _build.check(err, "w4_gemv_any")
+        return out
     plan = w4_plan(M, K, N, group_size)
     x, w_scale = _aligned16(x), _aligned16(w_scale)  # both reach the kernel through tensor maps
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _build.lib("w4_gemv").ff_w4_gemv(
         x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
         group_size, plan.n_split, plan.depth, int(out_dtype == torch.bfloat16),
@@ -1592,7 +1674,9 @@ def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, o
     this. On CUDA `csrc/w4a16_gemm.cu` (`csrc/w4_wgmma.cuh`: a TMA ring,
     the weight dequantized in bf16x2 straight into wgmma's register
     operand, as `w4a16_magic_words` mirrors; counted under
-    ``w4a16_gemm``): its f32 sums run in another order than
+    ``w4a16_gemm``; any other group the reference takes through the
+    CUDA-core loop of the same header, counted under ``w4a16_gemm_any``:
+    `float_scale_route`): its f32 sums run in another order than
     `matmul_w4a16_tiled_reference`'s, held within a stated tolerance."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -1610,11 +1694,20 @@ def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, o
     if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
             or not float_scale_group_ok(K, group_size):
         raise ValueError(
-            f"W4A16 tiled kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, group 32, 64 or "
-            f"128 or a multiple of 128 from 256 up to K, and K % group == 0 (out={out_dtype}, "
-            f"M={M}, N={N}, group={group_size}, K={K})"
+            f"W4A16 tiled kernel needs f32 or bf16 out, M >= 1, N % 4 == 0 and an even group "
+            f"with K a whole number of groups (out={out_dtype}, M={M}, N={N}, "
+            f"group={group_size}, K={K})"
         )
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if float_scale_route(K, group_size) == "any":
+        err = _build.lib("w4a16_gemm").ff_w4a16_gemm_any(
+            xb.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N, group_size,
+            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        )
+        _build.launch_counts["w4a16_gemm_any"] += 1
+        _build.check(err, "w4a16_gemm_any")
+        return out
     err = _build.lib("w4a16_gemm").ff_w4a16_gemm(
         xb.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N, group_size,

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from fastforward_tpu_torch.kernels import _build
+from fastforward_tpu_torch.kernels.kv_update import quantize_kv, require_token_kv, token_strides
 from fastforward_tpu_torch.kernels.attention import (
     check_kv_alignment,
     flash_decode_int8_reference,
@@ -157,6 +158,50 @@ def paged_kv_append_decode_int8(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, 
         k_pool.data_ptr(), v_pool.data_ptr(), ks_pool.data_ptr(), vs_pool.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), ks_new.data_ptr(), vs_new.data_ptr(),
         positions.data_ptr(), table.data_ptr(), L, P, B, Hkv, page, MP, D, layer,
+        _build.stream_ptr(dev),
+    )
+    _build.launch_counts["paged_kv_append"] += 1
+    _build.check(err, "paged_kv_append")
+    return k_pool, v_pool, ks_pool, vs_pool
+
+
+def paged_kv_quantize_append_reference(k_pool, v_pool, ks_pool, vs_pool, k, v, positions, table,
+                                       layer):
+    """Plain version of `paged_kv_quantize_append` (any device):
+    `quantize_kv` of k and v, then `paged_kv_append_reference`."""
+    (kq, ksn), (vq, vsn) = quantize_kv(k), quantize_kv(v)
+    return paged_kv_append_reference(k_pool, v_pool, ks_pool, vs_pool, kq, vq, ksn, vsn,
+                                     positions, table, layer)
+
+
+def paged_kv_quantize_append(k_pool, v_pool, ks_pool, vs_pool, k, v, positions, table, layer):
+    """The decode step's K/V quantizer and paged append in one: k, v
+    (B, Hkv, 1, d) bf16 (or f32, any strides) quantized as `quantize_kv`
+    does and written in place at row ``pos % page`` of page ``table[b, pos
+    // page]`` of layer ``layer`` (page 0 for a page id of -1 or an index at
+    or beyond MP). Returns the pools. On the card `csrc/kv_append.cu`
+    (`ff_paged_kv_quantize_append`), bit-exact against
+    `paged_kv_quantize_append_reference`, counted under ``paged_kv_append``."""
+    if k_pool.device.type == "cpu":
+        return paged_kv_quantize_append_reference(k_pool, v_pool, ks_pool, vs_pool, k, v,
+                                                  positions, table, layer)
+    layer = int(layer)
+    L, P, Hkv, page, D = k_pool.shape
+    B, MP = table.shape
+    dev = k_pool.device
+    _build.require(k_pool, "k_pool", torch.int8, (L, P, Hkv, page, D), dev)
+    _build.require(v_pool, "v_pool", torch.int8, (L, P, Hkv, page, D), dev)
+    _build.require(ks_pool, "ks_pool", torch.float32, (L, P, Hkv, page), dev)
+    _build.require(vs_pool, "vs_pool", torch.float32, (L, P, Hkv, page), dev)
+    require_token_kv(k, v, B, Hkv, D, dev)
+    _build.require(positions, "positions", torch.int32, (B,), dev)
+    _build.require(table, "table", torch.int32, (B, MP), dev)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside [0, {L})")
+    err = _build.lib("kv_append").ff_paged_kv_quantize_append(
+        k_pool.data_ptr(), v_pool.data_ptr(), ks_pool.data_ptr(), vs_pool.data_ptr(),
+        k.data_ptr(), v.data_ptr(), positions.data_ptr(), table.data_ptr(), L, P, B, Hkv, page,
+        MP, D, layer, *token_strides(k), *token_strides(v), int(k.dtype == torch.bfloat16),
         _build.stream_ptr(dev),
     )
     _build.launch_counts["paged_kv_append"] += 1

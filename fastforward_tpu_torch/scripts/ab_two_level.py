@@ -1,7 +1,8 @@
 """A/B of the two-level int4 GEMVs and the INT8 flash decode between two
 checkouts, on one card.
 
-    python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve] [--splits] [--out DIR]
+    python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve | --serve-only]
+        [--splits] [--out DIR]
     python3 fastforward_tpu_torch/scripts/ab_two_level.py --compare A B [--out DIR]
 
 Run it as a file, not with ``-m``: it imports ``chip_smoke`` and
@@ -45,15 +46,18 @@ projections and the lm_head, M = 192); each line tagged TAG. Inputs come from on
 seed, so two trees time the same integers; run them in turns on one card
 (A, B, B, A). ``--serve`` also serves chip_smoke.py's runs (a), (b), (c),
 (k), (n), (f), (l), (e), (g) and (h) on their seeds and the engine
-workload (d), paged and on the slab, and saves the greedy tokens and
-prefill logits under DIR;
+workload (d), paged and on the slab, profiles each run's decode step and
+prefill (the engine: a decode burst of 8 steps) as chip_smoke.py does
+(wall, device busy, kernels launched), and saves the greedy tokens and
+prefill logits under DIR (``--serve-only``: that alone, no kernel timed);
 ``--splits`` times row 17 at each K split of 1-8 (the four projections,
 M = 192 and 8), and rows 10 and 11 with their gate/up in one K split and
 in two
 (default build/ab_two_level); ``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
 prefill logits are bit-equal, and whether rows 10, 11, 19 and 16 gave the
-same bits, and exits 1 where the logits or those outputs differ. Needs a CUDA
+same bits (where both tags timed them), and exits 1 where the tokens, the
+logits or those outputs differ. Needs a CUDA
 GPU.
 """
 
@@ -89,6 +93,7 @@ def compare(a, b):
         for run in ra:
             ta, tb = ra[run]["tokens"], rb[run]["tokens"]
             differ = ta != tb
+            same = same and not bool(differ.any())
             first = differ.long().argmax(dim=1)[differ.any(dim=1)]
             line = (f"AB ({run}) {a} vs {b}: {int(differ.sum())} of {ta.numel()} greedy tokens "
                     f"differ (in {int(differ.any(dim=1).sum())} of {ta.shape[0]} rows, the "
@@ -98,13 +103,63 @@ def compare(a, b):
                 same = same and logits
                 line += f", prefill logits {'bit-equal' if logits else 'DIFFER'}"
             print(line)
-    ra, rb = (torch.load(path.format(f"{t}_tail")) for t in (a, b))
+    tails = [path.format(f"{t}_tail") for t in (a, b)]
+    ra, rb = (torch.load(p) for p in tails) if all(map(os.path.exists, tails)) else ({}, {})
     for label in ra:
         equal = [torch.equal(x, y) for x, y in zip(ra[label], rb[label])]
         same = same and all(equal)
         print(f"AB {label} {a} vs {b}: outputs "
               + ("bit-equal" if all(equal) else f"DIFFER (equal by output: {equal})"))
     return 0 if same else 1
+
+
+def serve_runs(cs, tag, dev):
+    """``--serve``: chip_smoke.py's runs on their seeds, profiled, their
+    greedy tokens and prefill logits saved under DIR."""
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+
+    config = LlamaConfig.llama3_8b()
+    record = {}
+    for run, mode, g, B, T, kv, flags in (
+            ("a", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, {}),
+            ("b", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, {}),
+            ("c", "w4a4_2l", 512, 8, 32, None, {}),
+            ("k", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, cs.FLAGS_K),
+            ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N),
+            ("f", "w4a16", 128, cs.BATCH, cs.PROMPT, None, {}),
+            ("l", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_L),
+            ("e", "w4a8", 128, cs.BATCH, cs.PROMPT, None, {}),
+            ("g", "w8a8", 128, cs.BATCH, cs.PROMPT, None, {}),
+            ("h", "w4a8", 128, cs.BATCH, cs.PROMPT, "int8", {})):
+        t0 = time.perf_counter()
+        with cs.flag_env(**flags):
+            path = cs.ServePath.random(config, mode, g, 0, dev, kv)
+            ids = torch.randint(0, config.vocab_size, (B, T), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(7))
+            logits, _, tokens, cache, _, _ = cs._serve(path, ids, cs.STEPS, dev)
+            record[run] = dict(logits=logits.cpu(), tokens=tokens.cpu())
+            print(f"AB[{tag}] ({run}) profiles:", flush=True)
+            cs.profile_steps(path, cache, tokens[:, -1:], ids)
+            del path, cache, logits
+            torch.cuda.empty_cache()
+        print(f"AB[{tag}] served ({run}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    # (d): bench.py's engine workload, paged and on the slab
+    path = cs.ServePath.random(config, "w4a8_2l", 128, 0, dev)
+    trace = cs._engine_trace(config.vocab_size)
+    for run, paged in (("d paged", True), ("d slab", False)):
+        t0 = time.perf_counter()
+        eng, tokens, _, summary = cs.engine_run(run, config, path.params, path.layers, trace,
+                                                dev, paged)
+        record[run] = dict(tokens=torch.tensor(tokens))
+        print(f"AB[{tag}] ({run}) profile:", flush=True)
+        cs.profile_burst(eng, trace)
+        del eng
+        torch.cuda.empty_cache()
+        print(f"AB[{tag}] served ({run}) in {time.perf_counter() - t0:.1f} s, "
+              f"{summary['tok_s']:.1f} tok/s", flush=True)
+    del path
+    os.makedirs(_out_dir(), exist_ok=True)
+    torch.save(record, os.path.join(_out_dir(), f"{tag}.pt"))
 
 
 def main():
@@ -154,6 +209,10 @@ def main():
 
     def show(label, ms):
         print(f"AB[{tag}] {label}: device {ms:.4f} ms", flush=True)
+
+    if "--serve-only" in sys.argv:
+        serve_runs(cs, tag, dev)
+        return 0
 
     with cs.flag_env():
         K, N = 4096, cs.VOCAB
@@ -471,46 +530,7 @@ def main():
                 del w, x
 
     if "--serve" in sys.argv:
-        from fastforward_tpu_torch.models.llama import LlamaConfig
-
-        config = LlamaConfig.llama3_8b()
-        record = {}
-        for run, mode, g, B, T, kv, flags in (
-                ("a", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, {}),
-                ("b", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, {}),
-                ("c", "w4a4_2l", 512, 8, 32, None, {}),
-                ("k", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, cs.FLAGS_K),
-                ("n", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_N),
-                ("f", "w4a16", 128, cs.BATCH, cs.PROMPT, None, {}),
-                ("l", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_L),
-                ("e", "w4a8", 128, cs.BATCH, cs.PROMPT, None, {}),
-                ("g", "w8a8", 128, cs.BATCH, cs.PROMPT, None, {}),
-                ("h", "w4a8", 128, cs.BATCH, cs.PROMPT, "int8", {})):
-            t0 = time.perf_counter()
-            with cs.flag_env(**flags):
-                path = cs.ServePath.random(config, mode, g, 0, dev, kv)
-                ids = torch.randint(0, config.vocab_size, (B, T), device=dev,
-                                    generator=torch.Generator(device=dev).manual_seed(7))
-                logits, _, tokens, cache, _, _ = cs._serve(path, ids, cs.STEPS, dev)
-                record[run] = dict(logits=logits.cpu(), tokens=tokens.cpu())
-                del path, cache, logits
-                torch.cuda.empty_cache()
-            print(f"AB[{tag}] served ({run}) in {time.perf_counter() - t0:.1f} s", flush=True)
-        # (d): bench.py's engine workload, paged and on the slab
-        path = cs.ServePath.random(config, "w4a8_2l", 128, 0, dev)
-        trace = cs._engine_trace(config.vocab_size)
-        for run, paged in (("d paged", True), ("d slab", False)):
-            t0 = time.perf_counter()
-            eng, tokens, _, summary = cs.engine_run(run, config, path.params, path.layers, trace,
-                                                    dev, paged)
-            record[run] = dict(tokens=torch.tensor(tokens))
-            del eng
-            torch.cuda.empty_cache()
-            print(f"AB[{tag}] served ({run}) in {time.perf_counter() - t0:.1f} s, "
-                  f"{summary['tok_s']:.1f} tok/s", flush=True)
-        del path
-        os.makedirs(_out_dir(), exist_ok=True)
-        torch.save(record, os.path.join(_out_dir(), f"{tag}.pt"))
+        serve_runs(cs, tag, dev)
     return 0
 
 

@@ -106,6 +106,7 @@ class ContinuousBatchingEngine:
         *,
         max_batch: int = 8,
         max_len: int = 1024,
+        quantized_cache: bool = True,
         sampling: Optional[SamplingParams] = None,
         seed: int = 0,
         prefill_chunk: int = 256,
@@ -123,6 +124,8 @@ class ContinuousBatchingEngine:
         ``truncated``); "requeue" re-submits prompt + generated as a fresh
         request. ``paged``: a pool of ``num_pages`` pages of ``page_size``
         tokens (page 0 reserved) instead of the (max_batch, max_len) slab.
+        ``quantized_cache``: an int8 slab or pool with f32 scales (the
+        default), else a bf16 slab (`batching.py:186`); paged needs it.
         ``device=None`` means the GPU; the weights must lie there too."""
         if cache_overflow not in ("truncate", "requeue"):
             raise ValueError(f"unknown cache_overflow policy {cache_overflow}")
@@ -148,6 +151,8 @@ class ContinuousBatchingEngine:
                     f"max_len {max_len} must be a multiple of page_size {page_size} for the "
                     f"paged cache"
                 )
+            if not quantized_cache:
+                raise ValueError("paged cache requires quantized_cache=True")
             mp = max_len // page_size
             if num_pages is None:
                 num_pages = max_batch * mp + 1  # full coverage; pass less to cap pool memory
@@ -164,8 +169,9 @@ class ContinuousBatchingEngine:
             self.cache = StackedKVCache.create(
                 num_layers=config.num_layers, batch_size=max_batch, max_len=max_len,
                 num_kv_heads=config.num_kv_heads, head_dim=config.head_dim,
-                device=self.device,
+                quantized=quantized_cache, device=self.device,
             )
+        self._quantized_cache = quantized_cache
 
         # Host-side slot state.
         self.slot_request: list = [None] * max_batch
@@ -243,7 +249,8 @@ class ContinuousBatchingEngine:
         for big, part in ((self.cache.k, small.k), (self.cache.v, small.v),
                           (self.cache.k_scale, small.k_scale),
                           (self.cache.v_scale, small.v_scale)):
-            big[:, idx, :, :s_len] = part[:, :n_rows]
+            if big is not None:  # a bf16 slab has no scales
+                big[:, idx, :, :s_len] = part[:, :n_rows]
 
     # -- public API ---------------------------------------------------------
 
@@ -477,7 +484,7 @@ class ContinuousBatchingEngine:
         small = StackedKVCache.create(
             num_layers=self.config.num_layers, batch_size=nb, max_len=small_len,
             num_kv_heads=self.config.num_kv_heads, head_dim=self.config.head_dim,
-            device=self.device,
+            quantized=self._quantized_cache, device=self.device,
         )
         if t_bucket > self.prefill_chunk:
             # chunked prefill, with decode for the active slots between chunks

@@ -16,7 +16,9 @@ where ``<field>`` is an array of a QuantLinear (``data``, ``scale``,
 static fields (``mode``, ``group_size``, ``paired``) as a 0-d numpy array.
 Arrays are copied byte for byte: bf16 arrives as 2-byte words and is
 reinterpreted, never converted, so both packages compute the same function
-on the same bits.
+on the same bits. That holds for every mode's arrays: packed int4 or int8
+data, or the sim tier's dense data (bf16, or float32 as JAX's
+`random_stacked_params` makes it), with f32 scales.
 """
 
 from typing import Dict

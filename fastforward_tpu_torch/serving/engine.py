@@ -10,7 +10,11 @@ routing on every device (its ``_on_tpu()`` read as true): up to
 `GEMV_MAX_M` rows take the decode GEMVs (W8A8: its GEMM at any size); more
 rows (prefill) dequantize the weight to bf16 and take a dense product with
 f32 accumulation. Only the kernel wrappers look at the device. The
-baseline tier's ``sim_w8`` and ``sim_w4`` are not ported.
+baseline tier's ``sim_w8`` and ``sim_w4`` (bench.py's baseline) keep dense
+bf16 weights and quantize-dequantize them in f32 on every use before one
+bf16 product (`sim_weight`), as the JAX package does outside any kernel;
+`quantize_linear` and `random_serving_params` take the packed modes only,
+as the JAX functions do.
 
 `serving_forward` runs a per-layer `ServingParams` (a tuple of
 `ServingLayer`) over a per-layer `KVCache` (`serving/kv_cache.py`), int8
@@ -61,13 +65,25 @@ from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.models.llama import LlamaConfig, rope_frequencies
 from fastforward_tpu_torch.serving.kv_cache import KVCache, causal_mask, row_starts
 
-PORTED_MODES = ("w4a4_2l", "w4a8_2l", "w8a8", "w4a8", "w4a16")
+PACKED_MODES = ("w4a4_2l", "w4a8_2l", "w8a8", "w4a8", "w4a16")
+SIM_MODES = ("sim_w8", "sim_w4")
+PORTED_MODES = PACKED_MODES + SIM_MODES
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 1)"
-    )
+def sim_weight(data: torch.Tensor, scale: torch.Tensor, mode: str,
+               group_size: int) -> torch.Tensor:
+    """The fake-quantized f32 weight of the sim tier (`engine.py:144-158`):
+    dense ``data`` (K, N) in f32, ``w / scale`` (a true division), rounded
+    half to even, clipped to [-128, 127] (``sim_w8``, scale (N,) per column)
+    or [-8, 7] (``sim_w4``, scale (K//g, N) per group), times the scale."""
+    w = data.float()
+    if mode == "sim_w8":
+        q = torch.clamp(torch.round(w / scale[None, :]), -128, 127)
+        return q * scale[None, :]
+    K = w.shape[0]
+    wg = w.reshape(K // group_size, group_size, -1)
+    q = torch.clamp(torch.round(wg / scale[:, None, :]), -8, 7)
+    return (q * scale[:, None, :]).reshape(K, -1)
 
 
 def quantize_static(x2: torch.Tensor, scale: torch.Tensor):
@@ -105,7 +121,7 @@ class QuantLinear:
 
     def _check(self) -> None:
         if self.mode not in PORTED_MODES:
-            raise _not_ported(f"QuantLinear mode {self.mode!r}")
+            raise ValueError(f"unknown mode {self.mode}")
 
     def _quantize_input(self, x2, in_scale):
         if in_scale is not None:
@@ -128,6 +144,10 @@ class QuantLinear:
         elif self.mode == "w4a16":
             out = matmul_w4a16(x2.to(torch.bfloat16), self.data, self.scale, group_size=g,
                                out_dtype=out_dtype)
+        elif self.mode in SIM_MODES:
+            # the plain large product JAX computes outside any kernel: bf16 in, bf16 out
+            w = sim_weight(self.data, self.scale, self.mode, g).to(torch.bfloat16)
+            out = torch.matmul(x2.to(torch.bfloat16), w).to(out_dtype)
         elif self.mode == "w4a8_2l":
             x_q, x_s = self._quantize_input(x2, self.in_scale)
             if decode:
@@ -214,8 +234,8 @@ def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
     """Quantize a dense (K, N) weight into frozen storage (`engine.py:289`);
     symmetric min-max scales (per column for w8a8, per group for the int4
     modes) unless ``scale`` is given."""
-    if mode not in PORTED_MODES:
-        raise _not_ported(f"quantize_linear mode {mode!r}")
+    if mode not in PACKED_MODES:
+        raise ValueError(f"unknown mode {mode}")
     w = w.float()
     K, N = w.shape
     if mode == "w8a8":
@@ -316,8 +336,10 @@ def random_serving_params(config: LlamaConfig, mode: str = "w4a8", group_size: i
     embedding N(0, 0.02^2) in bf16, unit norms. The lm_head is in the
     layers' mode, a two-level W4A8 head for w4a4_2l.
     """
-    if mode not in PORTED_MODES:
-        raise _not_ported(f"random_serving_params mode {mode!r}")
+    if mode not in PACKED_MODES:
+        # the JAX function has no sim branch (its int4 branch would pack them)
+        raise ValueError(f"random_serving_params takes the packed modes {PACKED_MODES}, "
+                         f"not {mode!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -7,9 +7,9 @@ host integer.
 The JAX cache is a pure pytree; here an append writes the layer's tensors
 in place (they are the serving loop's only copy) and returns a cache that
 shares them, so call sites read as in the JAX package. A one-token int8
-append runs `kv_append_decode_int8` (`csrc/kv_append.cu` on the card); a
-longer block is quantized by `_quantize_kv` and written by slice
-assignment; a bf16 cache takes the new rows as they are. A one-token
+append quantizes and writes in one `kv_quantize_append` (`csrc/kv_append.cu`
+on the card); a longer block is quantized by `_quantize_kv` and written by
+slice assignment; a bf16 cache takes the new rows as they are. A one-token
 write outside [0, S) writes nothing, as the JAX masked select and its
 kernel's oracle do. A block of T > 1 rows that would leave [0, S) raises:
 JAX's ``dynamic_update_slice`` would clamp it back inside the cache and
@@ -22,20 +22,10 @@ from typing import Optional, Sequence
 import torch
 
 from fastforward_tpu_torch.device import resolve_device
-from fastforward_tpu_torch.kernels.kv_update import kv_append_decode_int8
+from fastforward_tpu_torch.kernels.kv_update import kv_quantize_append
+from fastforward_tpu_torch.kernels.kv_update import quantize_kv as _quantize_kv
 
 NEG_INF = -1e30
-
-
-def _quantize_kv(x: torch.Tensor):
-    """Symmetric per-(batch, head, token) int8 quantization of (B, H, T, D):
-    returns (int8 values, f32 scales (B, H, T))."""
-    amax = x.float().abs().amax(dim=-1, keepdim=True)
-    # XLA compiles the division by 127 inside jit to this multiply by the
-    # float32 reciprocal; written out so the scales agree bit for bit.
-    scale = torch.clamp(amax * (1.0 / 127.0), min=1e-8)
-    q = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
-    return q, scale.squeeze(-1)
 
 
 def write_rows(buf: torch.Tensor, new: torch.Tensor, starts) -> None:
@@ -128,13 +118,11 @@ class LayerKVCache:
             write_rows(self.k, k_new, rows)
             write_rows(self.v, v_new, rows)
             return LayerKVCache(k=self.k, v=self.v)
-        kq8, ks = _quantize_kv(k_new)
-        vq8, vs = _quantize_kv(v_new)
         if T == 1:
-            kv_append_decode_int8(self.k, self.v, self.k_scale, self.v_scale,
-                                  kq8.contiguous(), vq8.contiguous(), ks.contiguous(),
-                                  vs.contiguous(), starts)
+            kv_quantize_append(self.k, self.v, self.k_scale, self.v_scale, k_new, v_new, starts)
         else:
+            kq8, ks = _quantize_kv(k_new)
+            vq8, vs = _quantize_kv(v_new)
             for buf, new in ((self.k, kq8), (self.v, vq8), (self.k_scale, ks),
                              (self.v_scale, vs)):
                 write_rows(buf, new, rows)

@@ -65,7 +65,7 @@ from fastforward_tpu_torch.kernels.attention import (
     flash_prefill,
     flash_prefill_reference,
 )
-from fastforward_tpu_torch.kernels.kv_update import kv_append_decode_int8_stacked
+from fastforward_tpu_torch.kernels.kv_update import kv_quantize_append_stacked
 from fastforward_tpu_torch.kernels.matmul import (
     fused_norm_qkv_stacked,
     fused_norm_qkv_stacked_a4,
@@ -78,7 +78,7 @@ from fastforward_tpu_torch.kernels.matmul import (
 from fastforward_tpu_torch.kernels.paged_attention import (
     paged_flash_decode_int8,
     paged_flash_decode_reference,
-    paged_kv_append_decode_int8,
+    paged_kv_quantize_append,
 )
 from fastforward_tpu_torch.kernels.packing import (
     pack_int4,
@@ -90,6 +90,7 @@ from fastforward_tpu_torch.kernels.packing import (
 from fastforward_tpu_torch.models.llama import LlamaConfig, apply_rope, rope_frequencies
 from fastforward_tpu_torch.serving.engine import (
     PORTED_MODES,
+    SIM_MODES,
     QuantLinear,
     ServingLayer,
     ServingParams,
@@ -98,7 +99,6 @@ from fastforward_tpu_torch.serving.engine import (
 )
 from fastforward_tpu_torch.serving.kv_cache import (
     LayerKVCache,
-    _quantize_kv,
     causal_mask,
     row_starts,
 )
@@ -286,16 +286,16 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     w8a8 int8 weights uniform in [-127, 127] with per-column scales
     0.02/sqrt(K); w4a8 and w4a16 uniform int4 grid values (`pack_int4`)
     with per-group scales 0.25/sqrt(K); the two-level modes uniform int4
-    values, multipliers uniform in [1, 15], s_col = 0.25/sqrt(K)/8;
-    embedding N(0, 0.02^2) in bf16, unit norms. Layer weights are packed
-    one layer at a time so no int8 copy of the whole stack exists besides
-    the result. The lm_head is in the layers' mode, except that both
-    two-level modes take a two-level W4A8 head.
+    values, multipliers uniform in [1, 15], s_col = 0.25/sqrt(K)/8; the sim
+    tier dense bf16 weights N(0, 1)/sqrt(K) with sim_w8's per-column scales
+    0.02/sqrt(K) or sim_w4's per-group 0.25/sqrt(K) (g = K where K % g !=
+    0); embedding N(0, 0.02^2) in bf16, unit norms. Layer weights are made
+    one layer at a time so no int8 (or f32) copy of the whole stack exists
+    besides the result. The lm_head is in the layers' mode, except that
+    both two-level modes take a two-level W4A8 head.
     """
     if mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"random_stacked_params mode {mode!r} is not ported yet (ROADMAP.md, Queue 1 item 1)"
-        )
+        raise ValueError(f"unknown mode {mode}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -315,11 +315,27 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
         return pack(_rand_nibbles(gen, (K, N), dev), group_size=g)
 
     def float_scale(shape, K):
-        return torch.full(shape, (0.02 if mode == "w8a8" else 0.25) / math.sqrt(K),
+        return torch.full(shape, (0.02 if mode in ("w8a8", "sim_w8") else 0.25) / math.sqrt(K),
                           dtype=torch.float32, device=dev)
+
+    def dense(K, N):
+        return (torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+                / math.sqrt(K))
+
+    def sim_ql(K, N, lead):
+        """A sim-tier projection: ``lead`` (L,) for stacked layers, () for the head."""
+        g = groups(K)
+        data = torch.empty((*lead, K, N), dtype=torch.bfloat16, device=dev)
+        for w in data.view(-1, K, N):
+            w.copy_(dense(K, N))
+        if mode == "sim_w8":
+            return QuantLinear(data, float_scale((*lead, N), K), mode=mode)
+        return QuantLinear(data, float_scale((*lead, K // g, N), K), mode=mode, group_size=g)
 
     def ql(K, N):
         g = groups(K)
+        if mode in SIM_MODES:
+            return sim_ql(K, N, (L,))
         if mode == "w8a8":
             data = torch.randint(-127, 128, (L, K, N), generator=gen, dtype=torch.int8, device=dev)
             return QuantLinear(data, float_scale((L, N), K), mode=mode)
@@ -352,7 +368,9 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     if not config.tie_embeddings:
         K, N = h, config.vocab_size
         g = groups(K)
-        if mode == "w8a8":
+        if mode in SIM_MODES:
+            lm_head = sim_ql(K, N, ())
+        elif mode == "w8a8":
             lm_head = QuantLinear(
                 torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8, device=dev),
                 float_scale((N,), K), mode=mode,
@@ -439,13 +457,15 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
     ``starts`` / ``rows``, see `LayerKVCache.write`) and the step attends
     over it; ``cache`` is a per-layer `LayerKVCache`, or a `StackedKVCache`
     or `PagedKVCache` at layer ``layer``:
-    - paged (one-token steps): the paged append kernel, then the paged
+    - paged (one-token steps): the paged append kernel (the K/V quantizer
+      fused into it: `paged_kv_quantize_append`), then the paged
       flash-decode kernel (its plain version by name at a head dim other
       than 128);
-    - int8, one token: the append kernel (stacked, or per-layer under its
-      own count), then `flash_decode_select`: always for a stacked cache
-      (`stacked.py:590-608`), with at least 2 query heads per kv head for a
-      per-layer one (`engine.py:620-637`; dense otherwise);
+    - int8, one token: the append kernel with the K/V quantizer fused into
+      it (stacked, or per-layer under its own count), then
+      `flash_decode_select`: always for a stacked cache (`stacked.py:590-608`),
+      with at least 2 query heads per kv head for a per-layer one
+      (`engine.py:620-637`; dense otherwise);
     - a block with 1-D positions at a head dim that is a multiple of 128:
       `flash_prefill` over the layer's just-written int8 or bf16 K/V; a
       per-layer cache at another head dim takes its plain version by name,
@@ -457,11 +477,8 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
     if cache is None:
         return _attention_grouped(q, k, v, mask)
     if isinstance(cache, PagedKVCache):
-        kq8, ksc = _quantize_kv(k)
-        vq8, vsc = _quantize_kv(v)
         kc, vc, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
-        paged_kv_append_decode_int8(kc, vc, ks, vs, kq8.contiguous(), vq8.contiguous(),
-                                    ksc.contiguous(), vsc.contiguous(), starts, cache.table, layer)
+        paged_kv_quantize_append(kc, vc, ks, vs, k, v, starts, cache.table, layer)
         q3 = q[:, :, 0, :].contiguous()
         if d == 128:
             attn = paged_flash_decode_int8(q3, kc, ks, vc, vs, cache.table, starts + 1, layer)
@@ -476,11 +493,8 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
         lc = LayerKVCache(cache.k[layer], cache.v[layer],
                           *(None if s is None else s[layer] for s in (cache.k_scale, cache.v_scale)))
     if T == 1 and lc.is_quantized and not per_layer:
-        kq8, ksc = _quantize_kv(k)
-        vq8, vsc = _quantize_kv(v)
-        kv_append_decode_int8_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                                      kq8.contiguous(), vq8.contiguous(), ksc.contiguous(),
-                                      vsc.contiguous(), starts, layer)
+        kv_quantize_append_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale, k, v, starts,
+                                   layer)
     else:
         lc.write(k, v, starts, rows)
     if T == 1 and lc.is_quantized and (not per_layer or q.shape[1] // k.shape[1] >= 2):

@@ -145,6 +145,28 @@ def test_engine_matches_jax(models, routes, paged):
     assert expect <= routes
 
 
+def test_bf16_cache_engine_matches_jax(models, routes):
+    # GIVEN the slab engine with a bf16 cache (quantized_cache=False): its
+    # prefill writes bf16 K/V, its decode steps attend densely over them
+    def drive(eng):
+        for p in PROMPTS:
+            eng.submit(p, max_new_tokens=6)
+        return eng.run_until_complete(burst=3)
+
+    # WHEN both engines run THEN tokens and counters agree
+    eng = _compare(models, drive, max_batch=2, max_len=256, quantized_cache=False)
+    assert eng.cache.k.dtype == torch.bfloat16 and eng.cache.k_scale is None
+    assert eng.stats.admitted == 5
+    # AND a paged engine needs the int8 cache in both packages
+    jc, jp, jl, tc, tp, tl = models
+    with pytest.raises(ValueError, match="paged cache requires quantized_cache=True"):
+        jb.ContinuousBatchingEngine(jc, jp, jl, max_len=256, paged=True, page_size=128,
+                                    quantized_cache=False)
+    with pytest.raises(ValueError, match="paged cache requires quantized_cache=True"):
+        tb.ContinuousBatchingEngine(tc, tp, tl, max_len=256, paged=True, page_size=128,
+                                    quantized_cache=False, device="cpu")
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_staggered_admission_matches_jax(models, routes, paged):
     # GIVEN a request admitted while another is mid-generation, single steps

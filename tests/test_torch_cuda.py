@@ -9,7 +9,8 @@ one. Run them on the card with
 need not have). Tolerances: the GEMVs (the unpaired two-level one too, and
 every route of the stacked W4A8 GEMV: flat, pre-blocked, the manual stream
 and split-W), the W8A8 GEMM, argmax ids, the dequants (the pre-blocked one
-too) and the KV appends (slab, per-layer and paged) are bit-equal; the W4 GEMV
+too) and the KV appends (slab, per-layer and paged; the decode step's
+fused K/V quantize and append too) are bit-equal; the W4 GEMV
 (w4a16, wgmma: every token tile edge, split and unsplit, the same bits
 call to call) is within 1e-4 of its largest output in f32, one bf16 ulp
 more in bf16; flash decode (slab, per-layer and paged) and flash prefill (int8
@@ -39,7 +40,9 @@ every token-tile and row-block edge (the prefill's ragged row tile, a
 bias, ragged K, N % 16 != 0, g 32/64/128), under every K split and row
 split, the same bits call to call; the W4A8 GEMV stays bit-equal, the W4
 GEMV and the tiled W4A16 GEMM within their tolerance, at groups of 256,
-512 and g = K at the 8B shapes (g 192 still refused). The prefill
+512 and g = K at the 8B shapes. Every other even group (2, 16, 48, 96,
+112, 192, 320; g = K at 192 and 320) takes the same sources' CUDA-core
+route, held the same way and counted under its own name. The prefill
 dequant's four rows are bit-equal at the 8B projections (pre-blocked at
 bn 128 and 512).
 """
@@ -252,6 +255,76 @@ def test_kv_append_kernel_bit_equal(dev):
     out = kvu.kv_append_decode_int8_stacked(*[t.clone() for t in cache], *new, starts, 2)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+def _token_kv(gen, B, Hkv, D, dtype, dev):
+    """One decode token's k (contiguous, as RoPE leaves it) and v (a view of
+    a qkv row, as the projection leaves it), (B, Hkv, 1, D); row 0 of v
+    zero (the scale's floor), a few exact ties."""
+    qkv = torch.randn((B, 1, 4 * Hkv, D), generator=gen, device=dev) * 3
+    qkv[0, 0, 3 * Hkv] = 0
+    qkv[1, 0, 2 * Hkv, :5] = 0.5
+    qkv = qkv.to(dtype)
+    k = qkv[:, :, 2 * Hkv:3 * Hkv].transpose(1, 2).contiguous()
+    v = qkv[:, :, 3 * Hkv:].transpose(1, 2)
+    assert not v.is_contiguous()
+    return k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_quantize_append_kernels_bit_equal(dev, dtype):
+    # the fused K/V quantizer and append in its three forms: int8 bytes and
+    # f32 scales bit-equal to quantize_kv and the plain append, starts 0,
+    # S - 1, -1 and S (no write) and one inside, a page id of -1 and a page
+    # index past the table (page 0); one launch under the row's name
+    gen = _gen(dev, 41)
+    L, B, Hkv, S, D = 3, 5, 8, 512, 128
+    k, v = _token_kv(gen, B, Hkv, D, dtype, dev)
+    cache = [_ri(gen, -128, 128, (L, B, Hkv, S, D), torch.int8, dev) for _ in range(2)]
+    cache += [torch.rand((L, B, Hkv, S), generator=gen, device=dev) for _ in range(2)]
+    starts = torch.tensor([0, S - 1, -1, S, 77], dtype=torch.int32, device=dev)
+    ref = kvu.kv_quantize_append_stacked_reference(*[t.clone() for t in cache], k, v, starts, 2)
+    bufs = [t.clone() for t in cache]
+    before = _build.launch_counts["kv_append"]
+    out = kvu.kv_quantize_append_stacked(*bufs, k, v, starts, 2)
+    assert _build.launch_counts["kv_append"] == before + 1
+    for a, b, r in zip(out, bufs, ref):
+        assert a is b and torch.equal(a, r)
+    layer = [t[1].clone() for t in cache]
+    ref = kvu.kv_quantize_append_reference(*[t.clone() for t in layer], k, v, starts)
+    before = _build.launch_counts["kv_append_layer"]
+    out = kvu.kv_quantize_append(*layer, k, v, starts)
+    assert _build.launch_counts["kv_append_layer"] == before + 1
+    for a, b, r in zip(out, layer, ref):
+        assert a is b and torch.equal(a, r)
+    P, page, MP = 9, 64, 4
+    pools = [_ri(gen, -128, 128, (L, P, Hkv, page, D), torch.int8, dev) for _ in range(2)]
+    pools += [torch.rand((L, P, Hkv, page), generator=gen, device=dev) for _ in range(2)]
+    table = torch.tensor([[1, 2, -1, -1], [3, -1, -1, -1], [4, 5, 6, -1], [7, -1, -1, -1],
+                          [8, -1, -1, -1]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([page + 3, page + 1, 2 * page + 5, MP * page + 7, 9], dtype=torch.int32,
+                       device=dev)
+    ref = pa.paged_kv_quantize_append_reference(*[t.clone() for t in pools], k, v, pos, table, 1)
+    bufs = [t.clone() for t in pools]
+    before = _build.launch_counts["paged_kv_append"]
+    out = pa.paged_kv_quantize_append(*bufs, k, v, pos, table, 1)
+    assert _build.launch_counts["paged_kv_append"] == before + 1
+    for a, b, r in zip(out, bufs, ref):
+        assert a is b and torch.equal(a, r)
+
+
+def test_kv_quantize_append_at_bench_batch(dev):
+    # B = 192 x 8 kv heads, the stacked form: the same bits at the served shape
+    gen = _gen(dev, 42)
+    L, B, Hkv, S, D = 2, 192, 8, 256, 128
+    k, v = _token_kv(gen, B, Hkv, D, torch.bfloat16, dev)
+    cache = [torch.zeros((L, B, Hkv, S, D), dtype=torch.int8, device=dev) for _ in range(2)]
+    cache += [torch.zeros((L, B, Hkv, S), device=dev) for _ in range(2)]
+    starts = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    ref = kvu.kv_quantize_append_stacked_reference(*[t.clone() for t in cache], k, v, starts, 1)
+    out = kvu.kv_quantize_append_stacked(*cache, k, v, starts, 1)
+    for a, r in zip(out, ref):
+        assert torch.equal(a, r)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
@@ -572,7 +645,8 @@ def test_paged_decode_step_takes_the_kernels_at_any_page(dev):
     logits, _ = stk.serving_forward_stacked(params, fused, config, tokens, cache, positions)
     for name, count in before.items():
         assert _build.launch_counts[name] == count + config.num_layers
-    with mock.patch.object(stk, "paged_kv_append_decode_int8", pa.paged_kv_append_reference), \
+    with mock.patch.object(stk, "paged_kv_quantize_append",
+                           pa.paged_kv_quantize_append_reference), \
             mock.patch.object(stk, "paged_flash_decode_int8",
                               lambda q, k, ks, v, vs, t, n, l: pa.paged_flash_decode_reference(
                                   q, k[l], ks[l], v[l], vs[l], t, n)):
@@ -957,6 +1031,78 @@ _8B_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
               "down": (14336, 4096), "lm_head": (4096, 128256)}
 
 
+_ANY_NAMES = ("w4a8_gemv_halves_any", "w4_gemv_any", "w4a16_gemm_any")
+_WGMMA_NAMES = ("w4a8_gemv_halves", "w4_gemv", "w4a16_gemm")
+
+
+def _any_group_case(x_q, x_s, xb, w, s, g, out_dtype, tiled=True):
+    """Rows 16, 17 (and 18t) at a group their CUDA-core route takes: row 16
+    bit-equal, 17 and 18t within W4_GEMV_RTOL of the largest f32 output
+    (one bf16 ulp more in bf16), 18t's bias epilogue exact; each call
+    counted once under the name of the route `float_scale_route` picks (row
+    16's tensor-core fold stops at 32 x 32 groups, rows 17 and 18t have no
+    such limit)."""
+    K = x_q.shape[1]
+    names = _ANY_NAMES + _WGMMA_NAMES
+    row16 = mm.float_scale_route(K, g, mm._MAX_BIG_GROUP, 32 * 32) == "any"
+    row17 = mm.float_scale_route(K, g) == "any"
+    expect = dict.fromkeys(names, 0)
+    expect["w4a8_gemv_halves_any" if row16 else "w4a8_gemv_halves"] += 1
+    expect["w4_gemv_any" if row17 else "w4_gemv"] += 1
+    if tiled:
+        expect["w4a16_gemm_any" if row17 else "w4a16_gemm"] += 2
+    before = {n: _build.launch_counts[n] for n in names}
+    out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype)
+    assert out.dtype == out_dtype
+    assert torch.equal(out, mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, out_dtype))
+    outs = [(mm.matmul_w4_gemv(xb, w, s, g, out_dtype),
+             mm.matmul_w4_gemv_reference(xb, w, s, g, torch.float32))]
+    if tiled:
+        bias = torch.randn((w.shape[1],), device=w.device)
+        o = mm.matmul_w4a16_tiled(xb, w, s, None, g, out_dtype)
+        assert torch.equal(mm.matmul_w4a16_tiled(xb, w, s, bias, g, out_dtype),
+                           (o.float() + bias).to(out_dtype))
+        outs.append((o, mm.matmul_w4a16_tiled_reference(xb, w, s, None, g, torch.float32)))
+    for o, ref32 in outs:
+        tol = W4_GEMV_RTOL * ref32.abs().max()
+        if out_dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(ref32)
+        assert o.dtype == out_dtype and ((o.float() - ref32).abs() <= tol).all()
+    assert {n: _build.launch_counts[n] - b for n, b in before.items()} == expect
+
+
+@pytest.mark.parametrize("K,g", [(80, 2), (640, 16), (1920, 48), (3840, 96), (7680, 192),
+                                 (12800, 320), (192, 192), (320, 320), (1536, 96), (2050, 2),
+                                 (32 * 1056, 32)])
+@pytest.mark.parametrize("M", [1, 8, 192])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_float_scale_any_group_route(dev, K, g, M, out_dtype):
+    # groups no tensor-core route takes: 40 groups (the oracle's 32-wide
+    # windows, the first shortened), g = K at 192 and 320, 16 groups (the
+    # fused multiply-add chain); 1,025 and 1,056 groups (windows of window
+    # sums: row 16's tensor-core fold stops at 32 x 32, so g 32 takes this
+    # route there, rows 17 and 18t their tensor-core ones); N = 260: a
+    # ragged column block
+    gen = _gen(dev, K + g + M)
+    w, s = _w4(gen, K, 260, g, dev)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    x_q, x_s = mm.quantize_rowwise(x)
+    _any_group_case(x_q, x_s, x.to(torch.bfloat16), w, s, g, out_dtype)
+
+
+@pytest.mark.parametrize("name,g", [("down", 112), ("o", 16)])
+@pytest.mark.parametrize("M", [8, 192])
+def test_float_scale_any_group_route_at_8b_projections(dev, name, g, M):
+    # Llama-3-8B's down_proj at g 112 (128 groups: four windows) and o_proj
+    # at g 16 (256 groups); their K (14,336 and 4,096) take no multiple of 96
+    K, N = _8B_SHAPES[name]
+    gen = _gen(dev, K + g + M)
+    w, s = _w4(gen, K, N, g, dev)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    x_q, x_s = mm.quantize_rowwise(x)
+    _any_group_case(x_q, x_s, x.to(torch.bfloat16), w, s, g, torch.bfloat16, tiled=M == 192)
+
+
 @pytest.mark.parametrize("g", [256, 512, "K"])
 def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev, g):
     # groups of 256 and more (a multiple of 128, up to g = K) are kernel
@@ -989,20 +1135,36 @@ def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev, g):
             ref = mm.matmul_w4a16_tiled_reference(xb, w, s, None, gk, torch.float32)
             assert (out - ref).abs().max() <= W4_GEMV_RTOL * ref.abs().max()
         del w, s
-    # what they still refuse: group 192 (no multiple of 128), K % 128 != 0
+    # group 192 (no multiple of 128) and K = g = 320 (K % 128 != 0) take
+    # the same sources' CUDA-core route: row 16 bit-equal, rows 17 and 18t
+    # within W4_GEMV_RTOL, each counted once under its any-group name
+    for K, g in ((384, 192), (320, 320)):
+        w, s = _w4(gen, K, 64, g, dev)
+        x = torch.randn((2, K), generator=gen, device=dev)
+        x_q, x_s = mm.quantize_rowwise(x)
+        _any_group_case(x_q, x_s, x.to(torch.bfloat16), w, s, g, torch.float32)
+    # and past the tensor-core fold's 32 x 32 groups: 1,025 groups of 2
+    w, s = _w4(gen, 2050, 64, 2, dev)
+    x = torch.randn((2, 2050), generator=gen, device=dev)
+    x_q, x_s = mm.quantize_rowwise(x)
+    _any_group_case(x_q, x_s, x.to(torch.bfloat16), w, s, 2, torch.float32)
+    # what they still refuse: an odd group, more than the GEMVs' 256 rows
     x_q = torch.zeros((2, 384), dtype=torch.int8, device=dev)
     x_s = torch.ones((2,), device=dev)
     w = torch.zeros((192, 64), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="group"):
-        mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((2, 64), device=dev), 192)
+        mm.matmul_w4a8_gemv(x_q, x_s, w, torch.ones((128, 64), device=dev), 3)
     with pytest.raises(ValueError, match="group"):
-        mm.matmul_w4_gemv(x_q.to(torch.bfloat16), w, torch.ones((2, 64), device=dev), 192)
-    with pytest.raises(ValueError, match="group"):  # K = 320 = g: no multiple of 128
-        mm.matmul_w4a8_gemv(x_q[:, :320].contiguous(), x_s, w[:160],
-                            torch.ones((1, 64), device=dev), 320)
+        mm.matmul_w4_gemv(x_q.to(torch.bfloat16), w, torch.ones((128, 64), device=dev), 3)
     with pytest.raises(ValueError, match="group"):
-        mm.matmul_w4a16_tiled(x_q[:, :320].to(torch.bfloat16), w[:160],
-                              torch.ones((1, 64), device=dev), None, 320)
+        mm.matmul_w4a16_tiled(x_q.to(torch.bfloat16), w, torch.ones((128, 64), device=dev),
+                              None, 3)
+    with pytest.raises(ValueError, match="M <= 256"):
+        mm.matmul_w4a8_gemv(torch.zeros((257, 384), dtype=torch.int8, device=dev),
+                            torch.ones((257,), device=dev), w, torch.ones((4, 64), device=dev), 96)
+    with pytest.raises(ValueError, match="M <= 256"):
+        mm.matmul_w4_gemv(torch.zeros((257, 384), dtype=torch.bfloat16, device=dev), w,
+                          torch.ones((4, 64), device=dev), 96)
     x_q = torch.zeros((2, 256), dtype=torch.int8, device=dev)
     w = torch.zeros((128, 64), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="shape"):  # scales of another group count
@@ -1532,8 +1694,8 @@ def test_w4a16_tiled_rejects_what_the_kernel_does_not_take(dev):
     w = _ri(gen, -128, 128, (128, 64), torch.int8, dev)
     s = torch.rand((2, 64), generator=gen, device=dev)
     x = torch.randn((4, 256), generator=gen, device=dev).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="group 32, 64 or 128"):  # 192: no multiple of 128
-        mm.matmul_w4a16_tiled(x[:, :192], w[:96], torch.rand((1, 64), device=dev), None, 192)
+    with pytest.raises(ValueError, match="even group"):  # an odd group: no reference takes it
+        mm.matmul_w4a16_tiled(x[:, :192], w[:96], torch.rand((64, 64), device=dev), None, 3)
     with pytest.raises(ValueError, match="f32 or bf16"):
         mm.matmul_w4a16_tiled(x, w, s, None, 128, torch.float16)
     with pytest.raises(ValueError, match="CUDA"):

@@ -8,7 +8,8 @@ for 33-256 groups, e.g. 4 at Llama-3-8B's down_proj, K = 14,336 g128, and
 2 at K = 1,056 g32), keeps at most 96 token rows a block, takes groups
 of 128 j (j >= 2) up to g = K as j stages each (`stage_groups`, the
 windows on stage boundaries), and refuses what the kernel does not take
-(g 192, K % 128 != 0 at such groups); the W8A8 GEMM's (`w8a8_plan`) covers every
+(g 192, K % 128 != 0 at such groups: those take the same sources'
+CUDA-core loop, `float_scale_route`); the W8A8 GEMM's (`w8a8_plan`) covers every
 stage once with no split empty. The GEMV's fold written out in torch under
 its plan (`w4a8_split_fold`: each split's window summed from +0, then the
 window sums in order) equals the port's plain version and the jitted JAX
@@ -112,7 +113,7 @@ def test_w4a8_plan_at_large_groups(name, g, M):
     # fallback), which the GEMV now takes
     K, N = SHAPES[name]
     g = K if g == "K" else g
-    assert mm.float_scale_group_ok(K, g)
+    assert mm.wgmma_group_ok(K, g) and mm.float_scale_route(K, g) == "wgmma"
     plan = mm.w4a8_plan(M, K, N, g)
     G = K // g
     # THEN a group spans g / 128 stages and a stage holds one group's scale row
@@ -273,3 +274,61 @@ def test_group_dot_conversion_is_exact():
     t = (acc + np.int32(0x4B400000)).view(np.float32).astype(np.float64)
     got = (t * 0.0625 - 786432.0).astype(np.float32)  # every step exact in float64 and float32
     np.testing.assert_array_equal(got, (acc / 16).astype(np.float32))
+
+
+# (K, g): the groups of 32, 64, 128 and 128 j that the tensor-core kernels
+# take, and others the reference takes (g even, K a whole number of groups)
+_WGMMA_GROUPS = [(4096, 32), (4096, 64), (4096, 128), (4096, 256), (14336, 512), (4096, 4096),
+                 (14336, 14336)]
+_ANY_GROUPS = [(64, 2), (4096, 16), (1536, 48), (1536, 96), (14336, 112), (192, 192), (384, 192),
+               (320, 320), (4160, 320), (2880, 320), (14336, 448)]
+
+
+@pytest.mark.parametrize("K,g", _WGMMA_GROUPS + _ANY_GROUPS)
+def test_group_predicates_split_the_routes(K, g):
+    # GIVEN a group the reference takes at depth K
+    assert mm.float_scale_group_ok(K, g)
+    wgmma = (K, g) in _WGMMA_GROUPS
+    # THEN the tensor-core predicate (today's kernels) takes exactly the
+    # first list, and the route is chosen by shape alone
+    assert mm.wgmma_group_ok(K, g) == wgmma
+    assert mm.float_scale_route(K, g) == ("wgmma" if wgmma else "any")
+    # AND the tensor-core plans exist at those groups and refuse the others
+    for M in (1, 8, 192):
+        if wgmma:
+            assert mm.w4a8_plan(M, K, 4096, g).depth >= 1
+            assert mm.w4_plan(M, K, 4096, g).depth >= 1
+        else:
+            with pytest.raises(ValueError):
+                mm.w4a8_plan(M, K, 4096, g)
+            with pytest.raises(ValueError):
+                mm.w4_plan(M, K, 4096, g)
+
+
+@pytest.mark.parametrize("K,g", [(96, 3), (192, 0), (96, 192), (100, 16), (4096, 7)])
+def test_group_predicates_refuse_what_the_reference_does_not_take(K, g):
+    # an odd group, no group, a group above K, K not whole groups
+    assert not mm.float_scale_group_ok(K, g) and not mm.wgmma_group_ok(K, g)
+    with pytest.raises(ValueError, match="group"):
+        mm.float_scale_route(K, g)
+
+
+def test_row_16_route_keeps_its_int32_group_limit():
+    # row 16's tensor-core kernel sums 16 v a group in int32 up to g = 2^16;
+    # a larger multiple of 128 takes the CUDA-core loop (int64 group dots)
+    g = 1 << 17
+    assert mm.float_scale_route(g, g) == "wgmma"
+    assert mm.float_scale_route(g, g, max_group=1 << 16) == "any"
+    assert mm.float_scale_route(1 << 16, 1 << 16, max_group=1 << 16) == "wgmma"
+    # and its fold takes at most 32 x 32 groups: more take the CUDA-core loop
+    assert mm.float_scale_route(32 * 1024, 32, max_groups=1024) == "wgmma"
+    assert mm.float_scale_route(32 * 1025, 32, max_groups=1024) == "any"
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 100, 1024, 1025, 1056, 2047, 33000])
+def test_window_tree_sum_is_the_oracles_order(n):
+    # the CUDA-core route's streaming window tree (one term at a time, a
+    # window's sum sent up a level as the next window starts) against the
+    # oracle's order written out (`_window_sum`: padded windows, recursing)
+    t = torch.from_numpy(np.random.RandomState(n).randn(3, n).astype(np.float32) * 100)
+    assert torch.equal(mm.window_tree_sum(t), mm._window_sum(t))

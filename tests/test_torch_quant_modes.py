@@ -220,6 +220,36 @@ def test_w4_gemv_within_tolerance_at_large_groups(M, K, g, out_dtype):
         assert _within_bf16(a, b)
 
 
+# Groups that only the kernels' CUDA-core route takes on the card
+# (`float_scale_route` "any"): g = K at 192 and 320, 16 and 40 groups of 96
+# (the fused multiply-add chain; XLA's windows), 32 groups of 2, and 1,025
+# groups (XLA's windows of window sums, past the tensor-core fold's 32 x 32)
+@pytest.mark.parametrize("M", [1, 192])
+@pytest.mark.parametrize("K,g", [(192, 192), (320, 320), (1536, 96), (3840, 96), (64, 2),
+                                 (2050, 2)])
+def test_float_scale_gemvs_at_any_group(M, K, g):
+    N = 20
+    w, s = _w4(K, N, g, seed=K + M + g)
+    (qj, sj), (qt, st) = _int8_act(M, K, M + g)
+    xj, xt = _act((M, K), seed=M + g + 1)
+    for out_dtype in ("bfloat16", "float32"):
+        # WHEN both packages' W4A8 GEMV (the port's plain version, JAX's
+        # oracle, jitted) and W4 GEMV (JAX: its TPU route's function) run
+        a = _jit(lambda q, xs, w, s: jm.matmul_w4a8_reference(
+            q, xs, w, s, None, g, getattr(jnp, out_dtype)), qj, sj, jnp.asarray(w),
+            jnp.asarray(s))
+        # THEN the W4A8 outputs are bit-equal
+        _eq(a, tm.matmul_w4a8_gemv(qt, st, _t(w), _t(s), g, getattr(torch, out_dtype)))
+        a = _np(_jit(lambda x, w, s: _jax_w4a16_tpu(x, w, s, None, g, getattr(jnp, out_dtype)),
+                     xj, jnp.asarray(w), jnp.asarray(s)))
+        b = _np(tm.matmul_w4_gemv(xt, _t(w), _t(s), g, getattr(torch, out_dtype)))
+        # AND the W4 outputs within W4_F32_RTOL (f32), one bf16 ulp more (bf16)
+        if out_dtype == "float32":
+            assert np.abs(a - b).max() <= W4_F32_RTOL * np.abs(a).max()
+        else:
+            assert _within_bf16(a, b)
+
+
 def test_w4a8_reference_with_bias_bit_exact():
     M, K, N, g = 6, 4096, 16, 128
     w, s = _w4(K, N, g, seed=77)
@@ -393,8 +423,8 @@ def test_random_stacked_params_layouts(mode):
             assert tuple(a.shape) == tuple(b.shape) and str(a.dtype) == str(b.dtype).split(".")[1]
     assert tp.lm_head.mode == jp.lm_head.mode == mode
     assert tuple(tp.lm_head.scale.shape) == tuple(jp.lm_head.scale.shape)
-    with pytest.raises(NotImplementedError):
-        ts.random_stacked_params(cfg, "sim_w8", device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        ts.random_stacked_params(cfg, "bogus", device="cpu")
 
 
 # --- end to end --------------------------------------------------------------

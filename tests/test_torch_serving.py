@@ -117,12 +117,15 @@ def test_quantize_linear_and_quant_linear_bit_exact(mode):
 
 
 def test_quant_linear_rejects_what_is_not_ported(tpu_routing):
-    # bench.py's baseline tier (sim_w8, sim_w4) is not ported
-    ql = te.QuantLinear(torch.zeros(4, 4, dtype=torch.bfloat16), torch.ones(4), mode="sim_w8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mode the JAX package does not know raises its error; quantize_linear
+    # takes the packed modes only, as JAX's does (the sim tier has none)
+    ql = te.QuantLinear(torch.zeros(4, 4, dtype=torch.bfloat16), torch.ones(4), mode="bogus")
+    with pytest.raises(ValueError, match="unknown mode"):
         ql(torch.zeros(1, 4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown mode"):
         te.quantize_linear(torch.zeros(8, 4), "sim_w4")
+    with pytest.raises(ValueError, match="unknown mode"):
+        je.quantize_linear(jnp.zeros((8, 4)), "sim_w4")
     # more than 256 rows take the prefill dequant + dense product, as the
     # JAX package's TPU route does: within 1e-5 of the largest output (the
     # f32 sums run in another order)
@@ -253,8 +256,8 @@ def test_no_cache_forward_and_limits(tiny_models, tpu_routing):
         jp, jl, jnp.asarray(ids)))
     b = ts.serving_forward_stacked(tp, tl, tc, torch.from_numpy(ids))[0].numpy()
     assert _rel_rms(a, b) <= 2e-2
-    with pytest.raises(NotImplementedError):
-        ts.random_stacked_params(tc, "sim_w8", device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        ts.random_stacked_params(tc, "bogus", device="cpu")
 
 
 # Relative RMS error of the prefill logits, per mode. The port attends
