@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Five phases,
+Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Seven phases,
 each raising on failure:
 
 1. build  — compile every CUDA kernel of the port from `csrc/` (one nvcc
@@ -56,7 +56,11 @@ each raising on failure:
    W4_GEMV_RTOL; the decode step's fused K/V quantize and append in its
    three forms (stacked, per layer, paged) at B = 192, Hkv 8, D 128, v a
    strided view, starts -1 and S, a page id of -1: bit-equal to the
-   quantizer and the plain append;
+   quantizer and the plain append; the two-level GEMVs' CUDA-core route
+   (groups the tensor-core tile does not take: row 1 at g 12, rows 5, 4
+   and 9 at g 2, row 5's group halves at g 4, bit-equal; timed on
+   down_proj at g 14, M = 192) and the fused heads, tail and o + gate/up
+   head at g 2 and 4 (M = 8, held as on the tile);
    print median times, device times (from profiles that recorded every
    launch: `device_ms`), bounds and library times (the two-level GEMVs:
    torch.matmul of the dequantized operands, also at M = 8);
@@ -122,7 +126,19 @@ each raising on failure:
    directory) loaded by `load_llama` on the card in w8a8 and w4a8 (load
    time and GB/s printed); the card's quantized q_proj and lm_head equal
    the plain quantizer's on the CPU byte for byte; the loaded model serves
-   8 prompts of 32 tokens and 8 greedy steps over an INT8 cache.
+   8 prompts of 32 tokens and 8 greedy steps over an INT8 cache;
+6. moe — (s): one MoE block at Mixtral-8x7B's expert widths (hidden 4096,
+   intermediate 14336, 8 experts, top 2; w4a8_2l g128, 0.7 GB packed) at
+   192 and 8 tokens: launches exact (16 of row 5), every kernel call held
+   against its plain version, wall and device ms, device ms by kernel;
+7. parallel — two processes on the one card over gloo (NCCL takes one
+   rank a device): (t) Llama-3-8B w4a8_2l g128 at tp 2, a 192 x 128
+   prefill through the TP stacked forward and 32 greedy steps through
+   `make_tp_decode_loop`, launches exact on both ranks, identical tokens,
+   a step's wall and device time (`make_tp_decode_step`), and at depth 2
+   every kernel call checked and the logits within TP_LOGIT_RMS of the
+   one-card path; (u) (s)'s block at EP 2 (`expert_parallel_moe`), its
+   output within one bf16 ulp of the largest of (s)'s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -653,6 +669,8 @@ def phase_kernels(dev):
     rows.update(_float_scale_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
     rows.update(_any_group_kernels(dev, gen, randint))
+    torch.cuda.empty_cache()
+    rows.update(_two_level_any_kernels(dev, gen, randint))
     rows.update(_fused_append_kernels(dev, gen, randint))
     rows.update(_layer_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
@@ -1376,6 +1394,220 @@ def _any_group_kernels(dev, gen, randint):
         f"bias epilogue exact) at K = g = 192 and 320, M = 8 and 192, both outputs ({calls} "
         f"checks); the phase "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _two_level_any_kernels(dev, gen, randint):
+    """The two-level GEMVs at groups the int8 tensor-core tile does not take
+    (`two_level_route` "any": `csrc/common.cuh` two_level_any_kernel; no
+    served default reaches them). Checked bit-equal against their plain
+    versions: row 1 at g 12 in bf16 and f32, row 5 paired at g 2 and group
+    halves at g 4, row 4 at g 2, row 9 at g 2 flat and pre-blocked, M = 8
+    and 192. Timed at M = 192 on Llama-3-8B's down_proj at g 14 (1,024
+    groups; counts a4_gemv_any, w4a8_gemv_any, w4a8_gemv_unpaired_any,
+    w4a8_gemv_stacked_any), library torch.matmul of the dequantized
+    operands. The fused heads (W4A8 at g 2, A4 at g 4) and the fused tail
+    and its o + gate/up head (g 2) at the 8B widths, M = 8, held to the
+    fused routes' policy and timed (counts fused_norm_qkv_any,
+    fused_norm_qkv_a4_any, fused_o_mlp_any, fused_o_gu_any)."""
+    from fastforward_tpu_torch.kernels import _build
+    from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles
+
+    t0, rows, calls = time.perf_counter(), {}, 0
+
+    def layer(K, N, g, L=1):
+        return (randint(-128, 128, (L, K // 2, N)), randint(1, 16, (L, K // g, N)),
+                torch.rand((L, N), generator=gen, device=dev) * 1e-3)
+
+    def act(M, K, a4=False):
+        x = torch.randn((M, K), generator=gen, device=dev)
+        return mm.quantize_rowwise_a4(x) if a4 else mm.quantize_rowwise(x)
+
+    def count(name, fn):
+        before = _build.launch_counts[name]
+        out = fn()
+        if _build.launch_counts[name] != before + 1:
+            raise AssertionError(f"{name}: the call did not take the CUDA-core route")
+        return out
+
+    # the checks: (name, K, g, layout), N 4096, M 8 and 192
+    K, N = 384, 4096
+    for M in (8, BATCH):
+        w, mult, s = layer(K, N, 12)
+        mp = pack_mult_nibbles(mult).contiguous()
+        x4, x4s = act(M, K, a4=True)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = count("a4_gemv_any", lambda: mm.matmul_w4a4_2l_gemv_stacked(
+                x4, x4s, w, mp, s, 0, group_size=12, out_dtype=out_dtype))
+            ok, err = bit_equal(out, mm.matmul_w4a4_2l_reference(x4, x4s, w[0], mult[0], s[0],
+                                                                 None, 12, out_dtype))
+            calls += 1
+            if not ok:
+                raise AssertionError(f"a4_gemv_any g 12 M={M} {out_dtype}: err {err}")
+        x_q, x_s = act(M, K)
+        for name, g, paired in (("w4a8_gemv_any", 2, True), ("w4a8_gemv_unpaired_any", 4, False)):
+            w, mult, s = layer(K, N, g)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                out = count(name, lambda: mm.matmul_w4a8_2l_gemv(
+                    x_q, x_s, w[0], mult[0], s[0], g, out_dtype, paired=paired))
+                ok, err = bit_equal(out, mm.matmul_w4a8_2l_reference(
+                    x_q, x_s, w[0], mult[0], s[0], None, g, out_dtype, paired=paired))
+                calls += 1
+                if not ok:
+                    raise AssertionError(f"{name} g {g} M={M} {out_dtype}: err {err}")
+        w, mult, s = layer(K, N, 2, L=2)
+        mp = pack_mult_nibbles(mult).contiguous()
+        ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, 2,
+                                          torch.float32, paired=True)
+        ids = count("w4a8_gemv_any", lambda: mm.matmul_w4a8_2l_gemv_argmax(
+            x_q, x_s, w[1], mult[1], s[1], 2, paired=True))
+        calls += 1
+        if not torch.equal(ids, torch.argmax(ref, dim=-1).to(torch.int32)):
+            raise AssertionError(f"the argmax head at g 2 M={M}: ids differ")
+        for wt in (w, mm.preblock_stacked(w, PANEL)):
+            out = count("w4a8_gemv_stacked_any", lambda wt=wt: mm.matmul_w4a8_2l_gemv_stacked(
+                x_q, x_s, wt, mp, s, 1, group_size=2))
+            ok, err = bit_equal(out, ref.to(torch.bfloat16))
+            calls += 1
+            if not ok:
+                raise AssertionError(f"w4a8_gemv_stacked_any g 2 M={M}: err {err}")
+    log(f"two-level any-group routes: bit-equal at g 12 (row 1, bf16 and f32), g 2 (rows 5, 4, "
+        f"9 flat and pre-blocked), g 4 (row 5 group halves), M = 8 and 192 ({calls} checks)")
+    # timed: down_proj at g 14, M = 192 (1,024 groups; 512 pairs)
+    M, (K, N), g = BATCH, PROJ["down"], 14
+    for layout in ("vertical", "paired", "halves"):
+        if mm.two_level_route(layout, K, N, g) != "any":
+            raise AssertionError(f"g {g} at K {K} is not an any-group shape of {layout}")
+    w, mult, s = layer(K, N, g, L=2)
+    mp = pack_mult_nibbles(mult).contiguous()
+    x_q, x_s = act(M, K)
+    x4, x4s = act(M, K, a4=True)
+    xb = (x_q.float() * x_s[:, None]).to(torch.bfloat16)
+    x4b = (x4.float() * x4s[:, None]).to(torch.bfloat16)
+    wbytes = K * N // 2 + (K // g) * N + N * 4
+    io = M * K + M * 4 + M * N * 2
+    ops = 2 * M * K * N
+    s_eff = mult[1].float() * s[1][None, :]
+    w_bf16 = mm.dequantize_int4_vertical_reference(w[1], s_eff, g)
+    rows["a4_gemv_any"] = measure(
+        "a4_gemv_any", f"down M={M} K={K} N={N} g={g}",
+        lambda: mm.matmul_w4a4_2l_gemv_stacked(x4, x4s, w, mp, s, 1, group_size=g),
+        lambda: mm.matmul_w4a4_2l_reference(x4, x4s, w[1], mult[1], s[1], None, g),
+        wbytes - (K // g) * N + mp[1].numel() * 4 + io, ops, INT8_OPS_PER_S, bit_equal,
+        library=lambda: torch.matmul(x4b, w_bf16), plain_n=3)
+    w_bf16 = mm.dequantize_int4_paired_reference(w[1], s_eff, g)
+    rows["w4a8_gemv_any"] = measure(
+        "w4a8_gemv_any", f"down M={M} K={K} N={N} g={g} paired",
+        lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w[1], mult[1], s[1], g, paired=True),
+        lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g, paired=True),
+        wbytes + io, ops, INT8_OPS_PER_S, bit_equal, library=lambda: torch.matmul(xb, w_bf16),
+        plain_n=3)
+    rows["w4a8_gemv_stacked_any"] = measure(
+        "w4a8_gemv_stacked_any", f"down M={M} K={K} N={N} g={g}",
+        lambda: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w, mp, s, 1, group_size=g),
+        lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g, paired=True),
+        wbytes - (K // g) * N + mp[1].numel() * 4 + io, ops, INT8_OPS_PER_S, bit_equal,
+        library=lambda: torch.matmul(xb, w_bf16), plain_n=3)
+    w_bf16 = mm.dequantize_int4_reference(w[1], s_eff, g, offset_binary=True)
+    rows["w4a8_gemv_unpaired_any"] = measure(
+        "w4a8_gemv_unpaired_any", f"down M={M} K={K} N={N} g={g} group halves",
+        lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w[1], mult[1], s[1], g, paired=False),
+        lambda: mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g, paired=False),
+        wbytes + io, ops, INT8_OPS_PER_S, bit_equal, library=lambda: torch.matmul(xb, w_bf16),
+        plain_n=3)
+    del w, mult, s, mp, w_bf16, s_eff
+    torch.cuda.empty_cache()
+    rows.update(_fused_any_kernels(dev, gen, randint))
+    log(f"two-level any-group routes: the phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _fused_any_kernels(dev, gen, randint):
+    """The fused heads, tail and o + gate/up head at groups the tile does not
+    take, Llama-3-8B widths, M = 8, layer 1 of 2 (see
+    `_two_level_any_kernels`); held as on the tile (`_fused_route_kernels`,
+    `_fused_tail_kernel`): x1 bit-equal, int8 activations one level off in
+    at most TAIL_LEVEL_SHARE of the elements, outputs within rtol 8e-3."""
+    from fastforward_tpu_torch.kernels import matmul as mm
+    from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles, unpack_mult_nibbles
+
+    rows, L, eps, M = {}, 2, 1e-5, 8
+    K, N = PROJ["qkv"]
+    for name, a4, g in (("fused_norm_qkv_any", False, 2), ("fused_norm_qkv_a4_any", True, 4)):
+        w, mult = randint(-128, 128, (L, K // 2, N)), randint(1, 16, (L, K // g, N))
+        mp = pack_mult_nibbles(mult).contiguous()
+        s_col = torch.rand((L, N), generator=gen, device=dev) * 1e-3
+        norm = (torch.rand((L, K), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+        quant = mm.quantize_rowwise_a4 if a4 else mm.quantize_rowwise
+        x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        diffs = {}
+
+        def plain():
+            h_q, h_s = mm._norm_quant(x, norm[1], eps, quant)
+            ref = (mm.matmul_w4a4_2l_reference if a4 else mm.matmul_w4a8_2l_reference)(
+                h_q, h_s, w[1], mult[1], s_col[1], None, g, torch.float32)
+            return ref.to(torch.bfloat16), h_q, h_s
+
+        def check(out, ref, _d=diffs):
+            ok = _level_check(_d, "hq", out[1], ref[1])
+            ok_y, err = within_rtol(out[0], ref[0])
+            return ok and ok_y, err
+
+        rows[name] = measure(
+            name, f"M={M} K={K} N={N} g={g}",
+            lambda: mm._fused_head_launch(a4, x, norm, w, mp, s_col, 1, g, eps, torch.bfloat16),
+            plain, K * N // 2 + mp[1].numel() * 4 + N * 4 + K * 2 + M * K * 2 + M * N * 2,
+            2 * M * K * N, INT8_OPS_PER_S, check, plain_n=3)
+        log(f"{name}: int{4 if a4 else 8} elements one level off: {diffs['hq'][0]} of "
+            f"{diffs['hq'][1]}")
+        del w, mult, mp
+    H, inter, g = 4096, 14336, 2
+    ops, nbytes_w = [], 0
+    for Kp, Np in ((H, H), (H, 2 * inter), (inter, H)):
+        w = randint(-128, 128, (L, Kp // 2, Np))
+        mp = pack_mult_nibbles(randint(1, 16, (L, Kp // g, Np))).contiguous()
+        sc = torch.rand((L, Np), generator=gen, device=dev) * (4.0 / Kp)
+        ops += [w, mp, sc]
+        nbytes_w += Kp * Np // 2 + mp[1].numel() * 4 + Np * 4
+    norm = (torch.rand((L, H), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    attn = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+    x_res = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+    layer_ops = mm._fused_o_mlp_layer(norm, *ops, 1, g)
+    diffs = {}
+
+    def tail_check(out, ref):
+        ok = torch.equal(out[1], ref[1]) and _level_check(diffs, "hq", out[2], ref[2]) \
+            and _level_check(diffs, "x2", out[4], ref[4])
+        ok_y, err = within_rtol(out[0], ref[0])
+        return ok and ok_y, err
+
+    rows["fused_o_mlp_any"] = measure(
+        "fused_o_mlp_any", f"M={M} H={H} inter={inter} g={g}",
+        lambda: mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, eps),
+        lambda: mm._fused_o_mlp_parts(attn.float(), x_res.float(), *layer_ops, group_size=g),
+        nbytes_w + H * 2 + M * H * 2 * 3, 2 * M * (H * H + H * 2 * inter + inter * H),
+        INT8_OPS_PER_S, tail_check, plain_n=3)
+    o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc = ops[:6]
+
+    def ogu_check(out, ref):
+        ok = torch.equal(out[0], ref[0]) and _level_check(diffs, "hq_ogu", out[2], ref[2])
+        ok_y, err = within_rtol(out[1], ref[1])
+        return ok and ok_y, err
+
+    rows["fused_o_gu_any"] = measure(
+        "fused_o_gu_any", f"M={M} H={H} gate/up {2 * inter} g={g}",
+        lambda: mm._fused_o_gu_launch(attn, x_res, norm, *ops[:6], 1, g, eps),
+        lambda: mm._fused_o_gu_parts(
+            attn.float(), x_res.float(), norm[1], o_w[1], unpack_mult_nibbles(o_mp[1], H // g),
+            o_sc[1], gu_w[1], unpack_mult_nibbles(gu_mp[1], H // g), gu_sc[1], g, eps),
+        nbytes_w - (inter * H // 2 + ops[7][1].numel() * 4 + H * 4) + H * 2 + M * H * 2 * 2
+        + M * H * 4 + M * 2 * inter * 2, 2 * M * (H * H + H * 2 * inter), INT8_OPS_PER_S,
+        ogu_check, plain_n=3)
+    log(f"fused tail and o + gate/up at g {g}: x1 bit-equal; int8 elements one level off: "
+        + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in diffs.items()))
+    del ops, layer_ops
     torch.cuda.empty_cache()
     return rows
 
@@ -2499,6 +2731,339 @@ def phase_loader(dev):
     return out
 
 
+# Run (s): one MoE block at Mixtral-8x7B's expert widths
+# (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
+# intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
+# w4a8_2l g128, at bench.py's decode batch and at 8 tokens; run (u) the same
+# block at EP 2.
+MOE = dict(hidden=4096, intermediate=14336, num_experts=8, top_k=2)
+MOE_SEED, MOE_TOKENS = 21, (BATCH, 8)
+# Runs (t) and (u): two processes on the one card over gloo (NCCL refuses
+# two ranks on one device); gloo's all_reduce takes CUDA tensors and stages
+# them through host memory itself. (t)'s depth-2 logits against the
+# one-card path: relative RMS error at most this (each shard quantizes its
+# own rows of o_proj's and down_proj's inputs: TP's own numerics).
+PARALLEL_RANKS = 2
+TP_LOGIT_RMS = 0.1
+
+
+def _moe_inputs(dev):
+    """(s)'s block and token rows, the same in every process on the card:
+    made from fixed seeds on the device."""
+    from fastforward_tpu_torch.serving.moe import make_moe_block
+
+    block = make_moe_block(torch.Generator(device=dev).manual_seed(MOE_SEED), MOE["hidden"],
+                           MOE["intermediate"], MOE["num_experts"], "w4a8_2l", 128,
+                           MOE["top_k"], device=dev)
+    xs = {T: torch.randn((T, MOE["hidden"]), generator=torch.Generator(device=dev).manual_seed(T),
+                         device=dev).to(torch.bfloat16) for T in MOE_TOKENS}
+    return block, xs
+
+
+def _checked(fn, checked):
+    """``fn()`` with every kernel call held against its plain version."""
+    patches = _checked_patches(checked)
+    for p in patches:
+        p.start()
+    try:
+        return fn()
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def phase_moe(dev):
+    """Run (s): `moe_forward` of one Mixtral-8x7B-wide w4a8_2l block on the
+    card: each expert's gate/up and down through row 5 (the W4A8 GEMV on the
+    int8 tensor-core tile), 2 launches an expert. Per token count: launches
+    asserted exactly, every kernel call held against its plain version
+    (bit-equal), wall and device ms a block, device ms by kernel."""
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.serving.moe import moe_forward
+
+    t0 = time.perf_counter()
+    block, xs = _moe_inputs(dev)
+    torch.cuda.synchronize()
+    packed = sum(t.numel() * t.element_size() for ql in (block.gate_up, block.down)
+                 for t in (ql.data, ql.scale, ql.mult))
+    log(f"moe (s): Mixtral-8x7B expert widths (hidden {MOE['hidden']}, intermediate "
+        f"{MOE['intermediate']}, {MOE['num_experts']} experts, top {MOE['top_k']}), w4a8_2l g128, "
+        f"{packed / 1e9:.3f} GB of packed experts, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for T, x in xs.items():
+        fn = functools.partial(moe_forward, x, block)
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        expect = {"w4a8_gemv": 2 * MOE["num_experts"]}
+        if counts != expect:
+            raise AssertionError(f"moe (s) T={T}: launch counts {counts} != expected {expect}")
+        checked = collections.Counter()
+        if not torch.equal(_checked(fn, checked), y):
+            raise AssertionError(f"moe (s) T={T}: the checked call gave other bits")
+        ms, dms = median_ms(fn), device_ms(fn)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"moe (s) T={T}: {ms:.4f} ms a block, device {fmt_ms(dms)}; launches {counts}; "
+            f"kernel calls held against their plain versions: {dict(checked)}; peak "
+            f"{peak:.2f} GiB")
+        _log_by_kernel(f"moe (s) T={T}", fn)
+        if tuple(y.shape) != (T, MOE["hidden"]) or not torch.isfinite(y.float()).all():
+            raise AssertionError(f"moe (s) T={T}: output not finite ({T}, hidden)")
+        out[T] = dict(counts=counts, ms=ms, device_ms=dms, peak_gib=peak, checked=dict(checked),
+                      y=y.float().cpu())
+    del block, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_run(rank, dev, say):
+    """Run (t) on this rank: Llama-3-8B w4a8_2l g128 at tp 2 (heads,
+    columns and o/down rows split over the ``model`` dim), prefill of
+    bench.py's 192 x 128 through the stacked forward with the TP group, 32
+    greedy steps through `make_tp_decode_loop`, one step profiled through
+    `make_tp_decode_step`; then at depth 2 every kernel call checked and
+    the logits held to the one-card path."""
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.models.llama import LlamaConfig
+    from fastforward_tpu_torch.parallel import (
+        make_mesh,
+        make_tp_decode_loop,
+        make_tp_decode_step,
+        shard_for_tp,
+    )
+    from fastforward_tpu_torch.serving import (
+        StackedKVCache,
+        random_stacked_params,
+        serving_forward_stacked,
+    )
+
+    t0 = time.perf_counter()
+    config = LlamaConfig.llama3_8b()
+    L, tp = config.num_layers, PARALLEL_RANKS
+    mesh = make_mesh({"data": 1, "model": tp})
+    group = mesh.get_group("model")
+    local = dataclasses.replace(config, num_heads=config.num_heads // tp,
+                                num_kv_heads=config.num_kv_heads // tp)
+
+    def shard(cfg, seed):
+        params, layers = random_stacked_params(cfg, "w4a8_2l", 128, seed=seed, device=dev)
+        cache = StackedKVCache.create(cfg.num_layers, BATCH, SLAB, cfg.num_kv_heads,
+                                      cfg.head_dim, device=dev)
+        return (params, layers) + shard_for_tp(params, layers, cache, mesh, config=cfg)[1:]
+
+    def new_cache(cfg, B):
+        return StackedKVCache.create(cfg.num_layers, B, SLAB, cfg.num_kv_heads // tp,
+                                     cfg.head_dim, device=dev)
+
+    params, layers, s, c = shard(config, 0)
+    del layers
+    torch.cuda.empty_cache()
+    ids = torch.randint(0, config.vocab_size, (BATCH, PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+
+    def prefill(cache, rows=ids):
+        logits, cache = serving_forward_stacked(params, s, local, rows, cache=cache,
+                                                logits_positions="last", tp_group=group)
+        return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
+
+    # warm-up (the kernels' first calls) on 8 rows of 16 tokens (each
+    # o_proj and MLP output of a prefill crosses host memory through gloo)
+    rows = min(8, BATCH)
+    tok, warm = prefill(new_cache(config, rows), ids[:rows, :16].contiguous())
+    make_tp_decode_loop(config, mesh, s, params, warm, 2)(params, s, warm, tok)
+    del warm
+    loop = make_tp_decode_loop(config, mesh, s, params, c, STEPS)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    first, c = prefill(c)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tokens, c = loop(params, s, c, first)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    expect = {"dequant_paired": 7 * L, "flash_prefill": L, "w4a8_gemv": 1 + 7 * L * STEPS,
+              "kv_append": L * STEPS, "flash_decode": L * STEPS, "w4a8_gemv_argmax": STEPS}
+    if counts != expect:
+        raise AssertionError(f"(t) rank {rank}: launch counts {counts} != expected {expect}")
+    if c.length != PROMPT + STEPS or not ((tokens >= 0) & (tokens < config.vocab_size)).all():
+        raise AssertionError(f"(t) rank {rank}: cache length or tokens out of range")
+    # one decode step, rewriting the last row: wall by CUDA events on every
+    # rank, device time from a profile on rank 0 (the same calls on both)
+    step = make_tp_decode_step(config, mesh, s, params, c)
+    pos = torch.tensor([PROMPT + STEPS - 1], device=dev)
+    tok = tokens[:, -1:]
+    step_ms = median_ms(lambda: step(params, s, c, tok, pos), n=5)
+    step_dev = None
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with (profile(activities=[ProfilerActivity.CUDA]) if rank == 0 else nullcontext()) as prof:
+        for _ in range(3):
+            step(params, s, c, tok, pos)
+        torch.cuda.synchronize()
+    if rank == 0:
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total", 0) > 0)
+        step_dev = busy / 3 / 1e3 if busy > 0 else None
+    out = dict(counts=counts, prefill_ms=(t2 - t1) * 1e3,
+               tok_s=BATCH * STEPS / (t3 - t2), step_ms=step_ms, step_device_ms=step_dev,
+               peak_gib=peak, tokens=tokens.cpu())
+    say(f"serve (t) rank {rank}: Llama-3-8B w4a8_2l g128 tp {tp}, prefill {BATCH}x{PROMPT} "
+        f"{out['prefill_ms']:.1f} ms; decode {BATCH}x{STEPS} tokens {out['tok_s']:.1f} tok/s; "
+        f"step wall {step_ms:.2f} ms, device {fmt_ms(step_dev)}; peak {peak:.2f} GiB; "
+        f"launches {counts}")
+    del params, s, c, loop, step
+    torch.cuda.empty_cache()
+    # depth 2: the one-card path on this rank, then the TP path with every
+    # kernel call held against its plain version
+    small = dataclasses.replace(config, num_layers=2)
+    small_local = dataclasses.replace(local, num_layers=2)
+    params, layers, s, c = shard(small, 1)
+    ids = torch.randint(0, config.vocab_size, (BATCH, PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(11))
+    one = StackedKVCache.create(2, BATCH, SLAB, config.num_kv_heads, config.head_dim, device=dev)
+    ref, one = serving_forward_stacked(params, layers, small, ids, cache=one,
+                                       logits_positions="last")
+    first = torch.argmax(ref[:, -1], dim=-1)[:, None]
+    ref_step, _ = serving_forward_stacked(params, layers, small, first, one)
+    checked = collections.Counter()
+
+    def tp_path():
+        logits, cache = serving_forward_stacked(params, s, small_local, ids, cache=c,
+                                                logits_positions="last", tp_group=group)
+        return logits, serving_forward_stacked(params, s, small_local, first, cache,
+                                               tp_group=group)[0]
+
+    got, got_step = _checked(tp_path, checked)
+    rms = [_rel_rms(got[:, -1], ref[:, -1]), _rel_rms(got_step[:, -1], ref_step[:, -1])]
+    say(f"serve (t) rank {rank} depth 2: kernel calls held against their plain versions: "
+        f"{dict(checked)}; logits against the one-card path: relative RMS error prefill "
+        f"{rms[0]:.4g}, decode step {rms[1]:.4g} (limit {TP_LOGIT_RMS})")
+    if max(rms) > TP_LOGIT_RMS:
+        raise AssertionError(f"(t) rank {rank}: TP logits off the one-card path: {rms}")
+    out.update(depth2_rms=rms, checked=dict(checked), seconds=time.perf_counter() - t0)
+    del params, layers, s, c, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_run(rank, dev, say):
+    """Run (u) on this rank: (s)'s block at EP 2 (`expert_parallel_moe`:
+    this rank's 4 experts, the output combined by all_reduce)."""
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.parallel import make_mesh
+    from fastforward_tpu_torch.serving.moe import expert_parallel_moe
+
+    mesh = make_mesh({"expert": PARALLEL_RANKS})
+    block, xs = _moe_inputs(dev)
+    out = {}
+    for T, x in xs.items():
+        fn = functools.partial(expert_parallel_moe, mesh, block, x)
+        fn()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        expect = {"w4a8_gemv": 2 * MOE["num_experts"] // PARALLEL_RANKS}
+        if counts != expect:
+            raise AssertionError(f"(u) rank {rank} T={T}: launch counts {counts} != {expect}")
+        ms = median_ms(fn)
+        say(f"moe (u) rank {rank} T={T}: EP {PARALLEL_RANKS}, {ms:.4f} ms a block (gloo "
+            f"all_reduce included); launches {counts}")
+        out[T] = dict(counts=counts, ms=ms, y=y.float().cpu())
+    del block, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_worker(rank, world, port, tmp):
+    """One rank of runs (t) and (u): a gloo process group over localhost,
+    both ranks on cuda:0; its results pickled to ``tmp``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    lines = []
+
+    def say(line):
+        print(line, flush=True)
+        lines.append(line)
+
+    try:
+        res = {"t": _tp_run(rank, dev, say), "u": _ep_run(rank, dev, say), "lines": lines}
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(dev, moe_ref):
+    """Runs (t) and (u) in PARALLEL_RANKS processes on the one card over
+    gloo (`_parallel_worker`); both ranks must emit identical tokens, and
+    (u)'s output must match (s)'s within one bf16 ulp of the largest output
+    (FLASH_RTOL: the two ranks' f32 partial sums are added in another order
+    than one process's expert loop)."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_parallel_worker, args=(PARALLEL_RANKS, port, tmp), nprocs=PARALLEL_RANKS,
+                 join=True)
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        for line in res["lines"]:
+            if _LOG["file"] is not None:
+                _LOG["file"].write(line + "\n")
+    log(f"parallel (t), (u): {PARALLEL_RANKS} processes on cuda:0 over gloo (its all_reduce "
+        f"stages CUDA tensors through host memory: not NCCL's transport), "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    t = [res["t"] for res in ranks]
+    if not all(torch.equal(x["tokens"], t[0]["tokens"]) for x in t[1:]):
+        raise AssertionError("(t): the ranks emitted different tokens")
+    log(f"serve (t): both ranks emitted identical tokens ({BATCH}x{STEPS})")
+    for T in MOE_TOKENS:
+        ys = [res["u"][T]["y"] for res in ranks]
+        if not all(torch.equal(y, ys[0]) for y in ys[1:]):
+            raise AssertionError(f"(u) T={T}: the ranks hold different outputs")
+        ref = moe_ref[T]["y"]
+        err = (ys[0] - ref).abs().max().item()
+        ok = err <= FLASH_RTOL * ref.abs().max().item()
+        same = "bit-equal" if torch.equal(ys[0], ref) else "not bit-equal"
+        log(f"moe (u) T={T}: EP {PARALLEL_RANKS} output {same} to (s)'s, max err {err:.4g} of "
+            f"{ref.abs().max().item():.4g} (limit rtol {FLASH_RTOL})")
+        if not ok:
+            raise AssertionError(f"(u) T={T}: EP output off (s)'s")
+    return dict(t={k: v for k, v in t[0].items() if k != "tokens"},
+                t_rank1_tok_s=t[1]["tok_s"],
+                u={T: {k: v for k, v in ranks[0]["u"][T].items() if k != "y"} for T in MOE_TOKENS})
+
+
 SOURCES = {
     "a4_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                 "fastforward_tpu/kernels/matmul.py:1406 (body :1342)"),
@@ -2577,6 +3142,24 @@ SOURCES = {
                     "fastforward_tpu/kernels/matmul.py:262 (kernel :240, any group)"),
     "w4a16_gemm_any": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
                        "fastforward_tpu/kernels/matmul.py:1813 (any group)"),
+    "a4_gemv_any": ("fastforward_tpu_torch/csrc/common.cuh",
+                    "fastforward_tpu/kernels/matmul.py:1406 (body :1342, any group)"),
+    "w4a8_gemv_any": ("fastforward_tpu_torch/csrc/common.cuh",
+                      "fastforward_tpu/kernels/matmul.py:571 (paired body :537, any group)"),
+    "w4a8_gemv_unpaired_any": ("fastforward_tpu_torch/csrc/common.cuh",
+                               "fastforward_tpu/kernels/matmul.py:571 (unpaired kernel :479, "
+                               "any group)"),
+    "w4a8_gemv_stacked_any": ("fastforward_tpu_torch/csrc/common.cuh",
+                              "fastforward_tpu/kernels/matmul.py:1023 (any group, flat and "
+                              "pre-blocked)"),
+    "fused_norm_qkv_any": ("fastforward_tpu_torch/csrc/fused_head.cu",
+                           "fastforward_tpu/kernels/matmul.py:2615 (kernel :2436, any group)"),
+    "fused_norm_qkv_a4_any": ("fastforward_tpu_torch/csrc/fused_head.cu",
+                              "fastforward_tpu/kernels/matmul.py:2539 (kernel :2485, any group)"),
+    "fused_o_mlp_any": ("fastforward_tpu_torch/csrc/fused_tail.cu",
+                        "fastforward_tpu/kernels/matmul.py:2298 (any group)"),
+    "fused_o_gu_any": ("fastforward_tpu_torch/csrc/fused_tail.cu",
+                       "fastforward_tpu/kernels/matmul.py:2118 (kernel :2051, any group)"),
     **{name: ("fastforward_tpu_torch/csrc/probe_int4.cu",
               "scripts/tpu_probe_int4.py:67 (kernel :44)")
        for name in ("probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4", "probe_mma_s4",
@@ -2587,12 +3170,16 @@ SOURCES = {
 # Entries the port's main path does not launch (0 launches, the
 # "main_path" key false): row 18's tiled W4A16 body and row 24's probe (no
 # path of the JAX package serves through them), the any-group routes of
-# rows 16, 17 and 18t (no served default reaches their groups), and the
-# int8-input appends, whose rows the decode step now launches through the
-# fused K/V quantize and append under the same counts (COUNT_OF).
+# rows 16, 17 and 18t and of the two-level GEMVs and fused routes (no
+# served default reaches their groups), and the int8-input appends, whose
+# rows the decode step now launches through the fused K/V quantize and
+# append under the same counts (COUNT_OF).
 OFF_MAIN_PATH = ("w4a16_gemm", "probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4",
                  "probe_mma_s4", "probe_mma_bf16", "w4a8_gemv_halves_any", "w4_gemv_any",
-                 "w4a16_gemm_any", "kv_append", "kv_append_layer", "paged_kv_append")
+                 "w4a16_gemm_any", "kv_append", "kv_append_layer", "paged_kv_append",
+                 "a4_gemv_any", "w4a8_gemv_any", "w4a8_gemv_unpaired_any", "w4a8_gemv_stacked_any",
+                 "fused_norm_qkv_any", "fused_norm_qkv_a4_any", "fused_o_mlp_any",
+                 "fused_o_gu_any")
 # The launch count a kernels-line entry reads where it is not its own name.
 COUNT_OF = {"kv_quantize_append": "kv_append", "kv_quantize_append_layer": "kv_append_layer",
             "paged_kv_quantize_append": "paged_kv_append"}
@@ -2629,6 +3216,10 @@ def main():
         runs = timed("serve", phase_serve, dev)
         runs["engine"] = timed("engine", phase_engine, dev)
         runs["j"] = timed("loader", phase_loader, dev)
+        moe = timed("moe", phase_moe, dev)
+        runs["s"] = {"counts": moe[BATCH]["counts"],
+                     **{f"T{T}": {k: v for k, v in r.items() if k != "y"} for T, r in moe.items()}}
+        runs["tu"] = timed("parallel", phase_parallel, dev, moe)
     log(f"total {time.perf_counter() - t_all:.1f} s; work after the build "
         f"{sum(v for k, v in phases.items() if k != 'build'):.1f} s")
     kernels = []

@@ -36,6 +36,10 @@
 // out of any PyTorch op: no bf16 rounding of h and no round trip through
 // the framework between the two. The int32 sums are exact in any order
 // and the epilogue is (float(acc) * s_col) * s, as the plain version's.
+// Groups the tile does not take (W4A8 g % 4 != 0, A4 g % 8 != 0:
+// kernels/matmul.py two_level_route) run the same prologue without the
+// staging, then common.cuh's CUDA-core loop on hq (ff_fused_norm_qkv_any,
+// ff_fused_norm_qkv_a4_any): the same integers and epilogue.
 //
 // Numerics, bit-exact against the plain version: the squares are summed in
 // the order XLA's CPU compiler uses for a row reduction (windows of 32 in
@@ -80,8 +84,9 @@ __device__ float window_sum(float* src, float* tmp, int n, float* total) {
 }
 
 // One block per row m of the staged rows (whole m tiles of the tile's plan
-// at M rows: a block past M writes its row of zeros into xf). Dynamic
-// shared memory: (K + ceil(K/32)) floats and K bytes.
+// at M rows: a block past M writes its row of zeros into xf; xf NULL: M
+// blocks, no staging). Dynamic shared memory: (K + ceil(K/32)) floats and
+// K bytes.
 template <bool A4>
 __global__ void __launch_bounds__(ff::kThreads)
 norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
@@ -93,7 +98,7 @@ norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   __shared__ float total;
   const int m = blockIdx.x, mt = ff::mma8::tiles_of(M);
   if (m >= M) {
-    ff::mma8::stage_row<kLayout>(nullptr, xf, m, K, group, n_split, mt);
+    if (xf) ff::mma8::stage_row<kLayout>(nullptr, xf, m, K, group, n_split, mt);
     return;
   }
   float* sq = sh;
@@ -133,29 +138,35 @@ norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     qr[k] = q;
     qs[k] = q;
   }
+  if (!xf) return;
   __syncthreads();
   ff::mma8::stage_row<kLayout>(qs, xf, m, K, group, n_split, mt);
 }
 
 // The prologue: hq (M, K), hs (M,) and the staged operand xf from x and
-// layer `layer`'s norm; then the tile on xf.
+// layer `layer`'s norm; then the tile on xf. xf NULL: the prologue without
+// the staging, then the CUDA-core loop on hq.
 template <bool A4>
 cudaError_t fused_head(const void* x, const void* norm_w, const void* w, const void* mult_packed,
                        const void* s_col, void* hq, void* hs, void* xf, void* partial, void* out,
                        int M, int K, int N, int layer, int group, int n_pack, int n_split,
                        int depth, float inv_k, float eps, int out_bf16, cudaStream_t st) {
   constexpr int kLayout = A4 ? ff::kVertical : ff::kPaired;
-  if (group < 4 || group % (A4 ? 8 : 4) != 0 || K % (A4 ? group : 2 * group) != 0 ||
-      n_pack * 8 < K / group)
+  const bool any = xf == nullptr;
+  if (group < 1 || (!any && (group < 4 || group % (A4 ? 8 : 4) != 0)) ||
+      K % (A4 ? group : 2 * group) != 0 || n_pack * 8 < K / group || M < 1 || N < 1)
     return cudaErrorInvalidValue;
-  cudaError_t err = ff::mma8::check_launch<kLayout, false>(
-      M, K, N, group, n_split, depth, static_cast<const int32_t*>(partial), nullptr, nullptr);
+  cudaError_t err =
+      any ? cudaSuccess
+          : ff::mma8::check_launch<kLayout, false>(M, K, N, group, n_split, depth,
+                                                    static_cast<const int32_t*>(partial), nullptr,
+                                                    nullptr);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * ((size_t)K + (K + 31) / 32) + K;
   err = cudaFuncSetAttribute(norm_quant_kernel<A4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  norm_quant_kernel<A4><<<ff::mma8::staged_rows(M), ff::kThreads, smem, st>>>(
+  norm_quant_kernel<A4><<<any ? M : ff::mma8::staged_rows(M), ff::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * K, static_cast<int8_t*>(hq),
       static_cast<float*>(hs), static_cast<int8_t*>(xf), M, K, group, n_split, inv_k, eps);
@@ -164,6 +175,10 @@ cudaError_t fused_head(const void* x, const void* norm_w, const void* w, const v
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
+  if (any)
+    return ff::launch_two_level_any<kLayout, true>(
+        static_cast<const int8_t*>(hq), static_cast<const float*>(hs), wl, ml, sl, out,
+        out_bf16 ? ff::kAnyBf16 : ff::kAnyF32, M, K, N, group, 0, st);
   return ff::mma8::launch_staged<kLayout, true>(
       static_cast<const float*>(hs), wl, ml, sl, static_cast<const int8_t*>(xf),
       static_cast<int32_t*>(partial), out, out_bf16, M, K, N, group, n_split, 0, depth, st);
@@ -181,6 +196,7 @@ extern "C" int ff_fused_norm_qkv(const void* x, const void* norm_w, const void* 
                                  void* xf, void* partial, void* out, int M, int K, int N,
                                  int layer, int group, int n_pack, int n_split, int depth,
                                  float inv_k, float eps, int out_bf16, void* stream) {
+  if (xf == nullptr) return cudaErrorInvalidValue;
   return fused_head<false>(x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M, K, N,
                            layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
                            static_cast<cudaStream_t>(stream));
@@ -193,7 +209,30 @@ extern "C" int ff_fused_norm_qkv_a4(const void* x, const void* norm_w, const voi
                                     int N, int layer, int group, int n_pack, int n_split,
                                     int depth, float inv_k, float eps, int out_bf16,
                                     void* stream) {
+  if (xf == nullptr) return cudaErrorInvalidValue;
   return fused_head<true>(x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M, K, N,
                           layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The two heads at the groups the tile does not take: the arguments of
+// ff_fused_norm_qkv without xf, partial, n_split and depth.
+extern "C" int ff_fused_norm_qkv_any(const void* x, const void* norm_w, const void* w,
+                                     const void* mult_packed, const void* s_col, void* hq,
+                                     void* hs, void* out, int M, int K, int N, int layer,
+                                     int group, int n_pack, float inv_k, float eps, int out_bf16,
+                                     void* stream) {
+  return fused_head<false>(x, norm_w, w, mult_packed, s_col, hq, hs, nullptr, nullptr, out, M, K,
+                           N, layer, group, n_pack, 1, 1, inv_k, eps, out_bf16,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ff_fused_norm_qkv_a4_any(const void* x, const void* norm_w, const void* w,
+                                        const void* mult_packed, const void* s_col, void* hq,
+                                        void* hs, void* out, int M, int K, int N, int layer,
+                                        int group, int n_pack, float inv_k, float eps,
+                                        int out_bf16, void* stream) {
+  return fused_head<true>(x, norm_w, w, mult_packed, s_col, hq, hs, nullptr, nullptr, out, M, K,
+                          N, layer, group, n_pack, 1, 1, inv_k, eps, out_bf16,
                           static_cast<cudaStream_t>(stream));
 }

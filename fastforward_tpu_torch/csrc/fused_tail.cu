@@ -68,6 +68,12 @@
 // operation (expf, __frsqrt_rn, __fdiv_rn, no fast-math intrinsics); the
 // amax is exact in any order. Against the plain version: x1 bit-equal, hq
 // and x2 within one level where the row sums and exp round differently.
+//
+// Groups the tile does not take (g % 4 != 0: kernels/matmul.py
+// two_level_route) take the same launches from ff_fused_o_mlp_any and
+// ff_fused_o_gu_any, with each product on common.cuh's CUDA-core loop
+// (two_level_any_kernel) over the int8 rows the row kernels write (xq, hq,
+// x2), and no staging: the same integers, so the same numerics.
 
 #include "w4a8_mma.cuh"  // the tile, stage_row (with common.cuh)
 
@@ -167,16 +173,17 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 
 // One block a row of the staged rows (a block past M stages zeros): the
 // row quantizer on x (M, K), scale into xs, the int8 row staged into xf
-// for the tile's plan at n_split. Dynamic shared memory: K bytes.
+// for the tile's plan at n_split, or (xf NULL: the CUDA-core route) written
+// to xq (M, K). Dynamic shared memory: K bytes.
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-tail_quant_kernel(const T* __restrict__ x, float* __restrict__ xs, int8_t* __restrict__ xf, int M,
-                  int K, int group, int n_split) {
+tail_quant_kernel(const T* __restrict__ x, float* __restrict__ xs, int8_t* __restrict__ xf,
+                  int8_t* __restrict__ xq, int M, int K, int group, int n_split) {
   extern __shared__ __align__(16) int8_t qs[];
   __shared__ float red[kRowWarps];
   const int m = blockIdx.x, mt = ff::mma8::tiles_of(M);
   if (m >= M) {
-    ff::mma8::stage_row<ff::kPaired>(nullptr, xf, m, K, group, n_split, mt);
+    if (xf) ff::mma8::stage_row<ff::kPaired>(nullptr, xf, m, K, group, n_split, mt);
     return;
   }
   const T* xr = x + (size_t)m * K;
@@ -190,6 +197,11 @@ tail_quant_kernel(const T* __restrict__ x, float* __restrict__ xs, int8_t* __res
   for (int w = 1; w < kRowWarps; ++w) mx = fmaxf(mx, red[w]);
   const float s = row_scale(mx);
   if (threadIdx.x == 0) xs[m] = s;
+  if (!xf) {
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      xq[(size_t)m * K + k] = quant8(to_float(xr[k]), s);
+    return;
+  }
 #pragma unroll 4
   for (int k = threadIdx.x; k < K; k += blockDim.x) qs[k] = quant8(to_float(xr[k]), s);
   __syncthreads();
@@ -199,8 +211,8 @@ tail_quant_kernel(const T* __restrict__ x, float* __restrict__ xs, int8_t* __res
 // One block a staged row: x1 from o_proj's partials (FMA: the o + gate/up
 // head's fused multiply-add, else the tail's add of the rounded epilogue),
 // the RMSNorm and the row quantizer; writes x1 (M, H), hq (M, H), s_h[m]
-// and stages hq into xf for gate/up's plan at n_split_gu. Dynamic shared
-// memory: 4 H + 4 ceil(H / 128) + H bytes.
+// and stages hq into xf for gate/up's plan at n_split_gu (xf NULL: no
+// staging). Dynamic shared memory: 4 H + 4 ceil(H / 128) + H bytes.
 template <bool FMA>
 __global__ void __launch_bounds__(kRowThreads)
 tail_norm_kernel(const int32_t* __restrict__ partial, int n_split_o, const float* __restrict__ o_s,
@@ -212,7 +224,7 @@ tail_norm_kernel(const int32_t* __restrict__ partial, int n_split_o, const float
   __shared__ float slot;
   const int m = blockIdx.x, mt = ff::mma8::tiles_of(M);
   if (m >= M) {
-    ff::mma8::stage_row<ff::kPaired>(nullptr, xf, m, H, group, n_split_gu, mt);
+    if (xf) ff::mma8::stage_row<ff::kPaired>(nullptr, xf, m, H, group, n_split_gu, mt);
     return;
   }
   const int nck = (H + kChunk - 1) / kChunk;
@@ -261,6 +273,7 @@ tail_norm_kernel(const int32_t* __restrict__ partial, int n_split_o, const float
     hq[(size_t)m * H + n] = q;
     qs[n] = q;
   }
+  if (!xf) return;
   __syncthreads();
   ff::mma8::stage_row<ff::kPaired>(qs, xf, m, H, group, n_split_gu, mt);
 }
@@ -268,7 +281,7 @@ tail_norm_kernel(const int32_t* __restrict__ partial, int n_split_o, const float
 // One block a staged row: gate and up (bf16 of their epilogues from the
 // gate/up partials, (n_split_gu, M, 2I)), g = (gate * sigmoid(gate)) * up,
 // the row quantizer; writes x2 (M, I), s_g[m] and stages x2 into xf for
-// down's plan at n_split_dn. Dynamic shared memory: 4 I + 4 ceil(I / 128)
+// down's plan at n_split_dn (xf NULL: no staging). Dynamic shared memory: 4 I + 4 ceil(I / 128)
 // + I bytes.
 __global__ void __launch_bounds__(kRowThreads)
 tail_act_kernel(const int32_t* __restrict__ partial, int n_split_gu, const float* __restrict__ gu_s,
@@ -278,7 +291,7 @@ tail_act_kernel(const int32_t* __restrict__ partial, int n_split_gu, const float
   __shared__ float slot;
   const int m = blockIdx.x, mt = ff::mma8::tiles_of(M);
   if (m >= M) {
-    ff::mma8::stage_row<ff::kPaired>(nullptr, xf, m, I, group, n_split_dn, mt);
+    if (xf) ff::mma8::stage_row<ff::kPaired>(nullptr, xf, m, I, group, n_split_dn, mt);
     return;
   }
   const int nck = (I + kChunk - 1) / kChunk;
@@ -317,6 +330,7 @@ tail_act_kernel(const int32_t* __restrict__ partial, int n_split_gu, const float
     x2[(size_t)m * I + n] = q;
     qs[n] = q;
   }
+  if (!xf) return;
   __syncthreads();
   ff::mma8::stage_row<ff::kPaired>(qs, xf, m, I, group, n_split_dn, mt);
 }
@@ -368,36 +382,48 @@ Product layer_product(const void* w, const void* m, const void* s, int K, int N,
           static_cast<const float*>(s) + (size_t)layer * N, K, N, n_split, depth};
 }
 
-// Whether the tile takes product p at this group: whole group pairs along
-// K, N % 4 == 0 (the row kernels' 16-byte loads of its partials).
-bool takes(const Product& p, int group) {
-  return group >= 4 && group % 4 == 0 && p.K % (2 * group) == 0 && p.N % 4 == 0;
+// Whether the route takes product p at this group: whole group pairs
+// along K, N % 4 == 0 (the row kernels' 16-byte loads of its partials),
+// and on the tile (not `any`) group % 4 == 0.
+bool takes(const Product& p, int group, bool any) {
+  return group >= 1 && (any || (group >= 4 && group % 4 == 0)) && p.K % (2 * group) == 0 &&
+         p.N % 4 == 0;
 }
 
-cudaError_t product(const Product& p, const float* xs, const int8_t* xf, int32_t* partial,
-                    void* out, int out_kind, int M, int group, cudaStream_t st) {
+// Product p on the tile over the staged xf, or (xf NULL) on the CUDA-core
+// loop over the int8 rows xq (M, p.K); the loop's partials are one split's.
+cudaError_t product(const Product& p, const float* xs, const int8_t* xf, const int8_t* xq,
+                    int32_t* partial, void* out, int out_kind, int M, int group, cudaStream_t st) {
+  if (!xf)
+    return ff::launch_two_level_any<ff::kPaired, true>(
+        xq, xs, p.w, p.m, p.s, out_kind == ff::mma8::kOutPartials ? partial : out,
+        out_kind == ff::mma8::kOutPartials ? ff::kAnyPartials : out_kind, M, p.K, p.N, group, 0,
+        st);
   return ff::mma8::launch_staged<ff::kPaired, true>(xs, p.w, p.m, p.s, xf, partial, out, out_kind,
                                                     M, p.K, p.N, group, p.n_split, 0, p.depth,
                                                     st);
 }
 
 // The head, through hq staged for gate/up: the quantizer of attn (bf16 or
-// f32), o_proj's partials, x1, hq, s_h.
+// f32), o_proj's partials, x1, hq, s_h. xf_o and xf_gu NULL: the
+// CUDA-core route, attn's int8 rows into xq (M, K1) and no staging.
 cudaError_t head(bool fma, const void* attn, int attn_bf16, const void* x_res,
                  const __nv_bfloat16* norm_w, const Product& o, int gu_split, float* xs,
-                 int8_t* xf_o, int8_t* xf_gu, int32_t* partial, float* x1, int8_t* hq,
-                 float* s_h, int M, int group, float eps, cudaStream_t st) {
-  if (M < 1 || !takes(o, group)) return cudaErrorInvalidValue;
-  const int rows = ff::mma8::staged_rows(M);
+                 int8_t* xf_o, int8_t* xf_gu, int8_t* xq, int32_t* partial, float* x1,
+                 int8_t* hq, float* s_h, int M, int group, float eps, cudaStream_t st) {
+  const bool any = xf_o == nullptr;
+  if (M < 1 || !takes(o, group, any) || (any && (xq == nullptr || xf_gu != nullptr)))
+    return cudaErrorInvalidValue;
+  const int rows = any ? M : ff::mma8::staged_rows(M);
   if (attn_bf16)
     tail_quant_kernel<__nv_bfloat16><<<rows, kRowThreads, o.K, st>>>(
-        static_cast<const __nv_bfloat16*>(attn), xs, xf_o, M, o.K, group, o.n_split);
+        static_cast<const __nv_bfloat16*>(attn), xs, xf_o, xq, M, o.K, group, o.n_split);
   else
     tail_quant_kernel<float><<<rows, kRowThreads, o.K, st>>>(
-        static_cast<const float*>(attn), xs, xf_o, M, o.K, group, o.n_split);
+        static_cast<const float*>(attn), xs, xf_o, xq, M, o.K, group, o.n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((err = product(o, xs, xf_o, partial, nullptr, ff::mma8::kOutPartials, M, group, st)) !=
+  if ((err = product(o, xs, xf_o, xq, partial, nullptr, ff::mma8::kOutPartials, M, group, st)) !=
       cudaSuccess)
     return err;
   const int H = o.N;
@@ -408,6 +434,71 @@ cudaError_t head(bool fma, const void* attn, int attn_bf16, const void* x_res,
                                         static_cast<const __nv_bfloat16*>(x_res), norm_w, x1, hq,
                                         s_h, xf_gu, M, H, group, gu_split, eps);
   return cudaGetLastError();
+}
+
+// The tail's launches (the tile where xf_o is set, else the CUDA-core
+// route over xq, hq and x2); ff_fused_o_mlp's arguments.
+cudaError_t o_mlp(const void* attn, const void* x_res, const void* norm_w, const Product& o,
+                  const Product& gu, const Product& dn, void* xs, void* scales, void* x1,
+                  void* xq, void* hq, void* x2, void* xf_o, void* xf_gu, void* xf_dn,
+                  void* partial, void* out, int M, int H, int I, int layer, int group, float eps,
+                  int attn_bf16, int out_bf16, cudaStream_t st) {
+  const bool any = xf_o == nullptr;
+  if (I % 4 != 0 || !takes(gu, group, any) || !takes(dn, group, any) ||
+      (any && (xf_gu != nullptr || xf_dn != nullptr)))
+    return cudaErrorInvalidValue;
+  float* s_h = static_cast<float*>(scales);
+  float* s_g = s_h + M;
+  int32_t* part = static_cast<int32_t*>(partial);
+  cudaError_t err = head(false, attn, attn_bf16, x_res,
+                         static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H, o,
+                         gu.n_split, static_cast<float*>(xs), static_cast<int8_t*>(xf_o),
+                         static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(xq), part,
+                         static_cast<float*>(x1), static_cast<int8_t*>(hq), s_h, M, group, eps,
+                         st);
+  if (err != cudaSuccess) return err;
+  if ((err = product(gu, s_h, static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(hq), part,
+                     nullptr, ff::mma8::kOutPartials, M, group, st)) != cudaSuccess)
+    return err;
+  const size_t smem = row_smem(tail_act_kernel, I);
+  if (smem == 0) return cudaErrorInvalidValue;
+  tail_act_kernel<<<any ? M : ff::mma8::staged_rows(M), kRowThreads, smem, st>>>(
+      part, gu.n_split, gu.s, s_h, static_cast<int8_t*>(x2), s_g, static_cast<int8_t*>(xf_dn), M,
+      I, group, dn.n_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = product(dn, s_g, static_cast<int8_t*>(xf_dn), static_cast<int8_t*>(x2), part,
+                     nullptr, ff::mma8::kOutPartials, M, group, st)) != cudaSuccess)
+    return err;
+  const int blocks = (M * H / 4 + 255) / 256;
+  if (out_bf16)
+    tail_out_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        part, dn.n_split, dn.s, s_g, static_cast<const float*>(x1),
+        static_cast<__nv_bfloat16*>(out), M, H);
+  else
+    tail_out_kernel<float><<<blocks, 256, 0, st>>>(part, dn.n_split, dn.s, s_g,
+                                                   static_cast<const float*>(x1),
+                                                   static_cast<float*>(out), M, H);
+  return cudaGetLastError();
+}
+
+// The o + gate/up head's launches (the tile where xf_o is set, else the
+// CUDA-core route over xq and hq).
+cudaError_t o_gu(const void* attn, const void* x_res, const void* norm_w, const Product& o,
+                 const Product& g, void* xs, void* scales, void* xq, void* hq, void* xf_o,
+                 void* xf_gu, void* partial, void* x1, void* gu, int M, int H, int layer,
+                 int group, float eps, int attn_bf16, cudaStream_t st) {
+  if (!takes(g, group, xf_o == nullptr)) return cudaErrorInvalidValue;
+  float* s_h = static_cast<float*>(scales);
+  int32_t* part = static_cast<int32_t*>(partial);
+  cudaError_t err = head(true, attn, attn_bf16, x_res,
+                         static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H, o,
+                         g.n_split, static_cast<float*>(xs), static_cast<int8_t*>(xf_o),
+                         static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(xq), part,
+                         static_cast<float*>(x1), static_cast<int8_t*>(hq), s_h, M, group, eps,
+                         st);
+  if (err != cudaSuccess) return err;
+  return product(g, s_h, static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(hq), part, gu,
+                 ff::mma8::kOutBf16, M, group, st);
 }
 
 }  // namespace
@@ -432,43 +523,13 @@ extern "C" int ff_fused_o_mlp(const void* attn, const void* x_res, const void* n
                               int n_pack_dn, int split_o, int split_gu, int split_dn,
                               int depth_o, int depth_gu, int depth_dn, float eps, int attn_bf16,
                               int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Product o = layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o);
-  const Product gu =
-      layer_product(gu_w, gu_m, gu_s, H, 2 * I, layer, n_pack_gu, split_gu, depth_gu);
-  const Product dn = layer_product(dn_w, dn_m, dn_s, I, H, layer, n_pack_dn, split_dn, depth_dn);
-  if (I % 4 != 0 || !takes(gu, group) || !takes(dn, group)) return cudaErrorInvalidValue;
-  float* s_h = static_cast<float*>(scales);
-  float* s_g = s_h + M;
-  int32_t* part = static_cast<int32_t*>(partial);
-  cudaError_t err = head(false, attn, attn_bf16, x_res,
-                         static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H, o,
-                         split_gu, static_cast<float*>(xs), static_cast<int8_t*>(xf_o),
-                         static_cast<int8_t*>(xf_gu), part, static_cast<float*>(x1),
-                         static_cast<int8_t*>(hq), s_h, M, group, eps, st);
-  if (err != cudaSuccess) return err;
-  if ((err = product(gu, s_h, static_cast<int8_t*>(xf_gu), part, nullptr,
-                     ff::mma8::kOutPartials, M, group, st)) != cudaSuccess)
-    return err;
-  const size_t smem = row_smem(tail_act_kernel, I);
-  if (smem == 0) return cudaErrorInvalidValue;
-  tail_act_kernel<<<ff::mma8::staged_rows(M), kRowThreads, smem, st>>>(
-      part, split_gu, gu.s, s_h, static_cast<int8_t*>(x2), s_g, static_cast<int8_t*>(xf_dn), M, I,
-      group, split_dn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = product(dn, s_g, static_cast<int8_t*>(xf_dn), part, nullptr,
-                     ff::mma8::kOutPartials, M, group, st)) != cudaSuccess)
-    return err;
-  const int blocks = (M * H / 4 + 255) / 256;
-  if (out_bf16)
-    tail_out_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        part, split_dn, dn.s, s_g, static_cast<const float*>(x1),
-        static_cast<__nv_bfloat16*>(out), M, H);
-  else
-    tail_out_kernel<float><<<blocks, 256, 0, st>>>(part, split_dn, dn.s, s_g,
-                                                   static_cast<const float*>(x1),
-                                                   static_cast<float*>(out), M, H);
-  return cudaGetLastError();
+  if (xf_o == nullptr || xf_gu == nullptr || xf_dn == nullptr) return cudaErrorInvalidValue;
+  return o_mlp(attn, x_res, norm_w,
+               layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o),
+               layer_product(gu_w, gu_m, gu_s, H, 2 * I, layer, n_pack_gu, split_gu, depth_gu),
+               layer_product(dn_w, dn_m, dn_s, I, H, layer, n_pack_dn, split_dn, depth_dn), xs,
+               scales, x1, nullptr, hq, x2, xf_o, xf_gu, xf_dn, partial, out, M, H, I, layer,
+               group, eps, attn_bf16, out_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The o + gate/up head: o (L, K1/2, H), gu (L, H/2, N_GU); scratch xs,
@@ -483,18 +544,46 @@ extern "C" int ff_fused_o_gu(const void* attn, const void* x_res, const void* no
                              int n_pack_o, int n_pack_gu, int split_o, int split_gu,
                              int depth_o, int depth_gu, float eps, int attn_bf16,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Product o = layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o);
-  const Product g = layer_product(gu_w, gu_m, gu_s, H, N_GU, layer, n_pack_gu, split_gu, depth_gu);
-  if (!takes(g, group)) return cudaErrorInvalidValue;
-  float* s_h = static_cast<float*>(scales);
-  int32_t* part = static_cast<int32_t*>(partial);
-  cudaError_t err = head(true, attn, attn_bf16, x_res,
-                         static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H, o,
-                         split_gu, static_cast<float*>(xs), static_cast<int8_t*>(xf_o),
-                         static_cast<int8_t*>(xf_gu), part, static_cast<float*>(x1),
-                         static_cast<int8_t*>(hq), s_h, M, group, eps, st);
-  if (err != cudaSuccess) return err;
-  return product(g, s_h, static_cast<int8_t*>(xf_gu), part, gu, ff::mma8::kOutBf16, M, group, st);
+  if (xf_o == nullptr || xf_gu == nullptr) return cudaErrorInvalidValue;
+  return o_gu(attn, x_res, norm_w,
+              layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o),
+              layer_product(gu_w, gu_m, gu_s, H, N_GU, layer, n_pack_gu, split_gu, depth_gu), xs,
+              scales, nullptr, hq, xf_o, xf_gu, partial, x1, gu, M, H, layer, group, eps,
+              attn_bf16, static_cast<cudaStream_t>(stream));
 }
 
+// The same launches at the groups the tile does not take (g % 4 != 0;
+// whole group pairs, N % 4 == 0), each product on the CUDA-core loop:
+// ff_fused_o_mlp's arguments without the staged operands, splits and
+// depths, and with xq (M, K1) int8 scratch; partial (M, max(H, 2I)) int32.
+extern "C" int ff_fused_o_mlp_any(const void* attn, const void* x_res, const void* norm_w,
+                                  const void* o_w, const void* o_m, const void* o_s,
+                                  const void* gu_w, const void* gu_m, const void* gu_s,
+                                  const void* dn_w, const void* dn_m, const void* dn_s, void* xs,
+                                  void* scales, void* x1, void* xq, void* hq, void* x2,
+                                  void* partial, void* out, int M, int K1, int H, int I,
+                                  int layer, int group, int n_pack_o, int n_pack_gu,
+                                  int n_pack_dn, float eps, int attn_bf16, int out_bf16,
+                                  void* stream) {
+  return o_mlp(attn, x_res, norm_w, layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, 1, 1),
+               layer_product(gu_w, gu_m, gu_s, H, 2 * I, layer, n_pack_gu, 1, 1),
+               layer_product(dn_w, dn_m, dn_s, I, H, layer, n_pack_dn, 1, 1), xs, scales, x1, xq,
+               hq, x2, nullptr, nullptr, nullptr, partial, out, M, H, I, layer, group, eps,
+               attn_bf16, out_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// ff_fused_o_gu's launches on the CUDA-core loop: its arguments without
+// the staged operands, splits and depths, with xq (M, K1) int8 scratch;
+// partial (M, H) int32.
+extern "C" int ff_fused_o_gu_any(const void* attn, const void* x_res, const void* norm_w,
+                                 const void* o_w, const void* o_m, const void* o_s,
+                                 const void* gu_w, const void* gu_m, const void* gu_s, void* xs,
+                                 void* scales, void* xq, void* hq, void* partial, void* x1,
+                                 void* gu, int M, int K1, int H, int N_GU, int layer, int group,
+                                 int n_pack_o, int n_pack_gu, float eps, int attn_bf16,
+                                 void* stream) {
+  return o_gu(attn, x_res, norm_w, layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, 1, 1),
+              layer_product(gu_w, gu_m, gu_s, H, N_GU, layer, n_pack_gu, 1, 1), xs, scales, xq,
+              hq, nullptr, nullptr, partial, x1, gu, M, H, layer, group, eps, attn_bf16,
+              static_cast<cudaStream_t>(stream));
+}

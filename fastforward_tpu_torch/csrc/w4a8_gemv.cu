@@ -80,6 +80,12 @@
 // second pass, one warp a row, reduces the pairs. The logits never reach
 // device memory.
 //
+// Groups the tile does not take (paired g % 4 != 0, group halves g % 8 !=
+// 0, N % 4 != 0) run common.cuh's CUDA-core loop, one entry a layout and
+// one for the stacked GEMV's every route (the *_any entries below), chosen
+// by kernels/matmul.py two_level_route; row 4 then takes row 5's f32
+// logits and their argmax.
+//
 // The float-scale W4A8 GEMV (ff_w4a8_gemv_halves, row 16) is w4a8_halves.cu.
 
 #include "common.cuh"
@@ -217,4 +223,47 @@ extern "C" int ff_w4a8_gemv_concat(const void* x, const void* xs, const void* w,
   (void)L;
   return stacked_tile(x, xs, w, mult_packed, s_col, xf, partial, out, M, K, N, layer, group,
                       n_pack, n_split, out_kind, bn, depth, stream);
+}
+
+// The CUDA-core route (common.cuh two_level_any_kernel). Rows 5 and 4:
+// x, xs, w, mult (K/g, N) int8, s_col, out, M, K, N, group, out_kind (0
+// f32, 1 bf16), stream; paired (whole group pairs) and group halves (g
+// even).
+extern "C" int ff_w4a8_gemv_any(const void* x, const void* xs, const void* w, const void* mult,
+                                const void* s_col, void* out, int M, int K, int N, int group,
+                                int out_kind, void* stream) {
+  if (out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16) return cudaErrorInvalidValue;
+  return ff::launch_two_level_any<ff::kPaired, false>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col), out, out_kind, M, K,
+      N, group, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ff_w4a8_gemv_unpaired_any(const void* x, const void* xs, const void* w,
+                                         const void* mult, const void* s_col, void* out, int M,
+                                         int K, int N, int group, int out_kind, void* stream) {
+  if (out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16) return cudaErrorInvalidValue;
+  return ff::launch_two_level_any<ff::kHalves, false>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col), out, out_kind, M, K,
+      N, group, 0, static_cast<cudaStream_t>(stream));
+}
+
+// Row 9 at those groups, every route: layer `layer` of flat (bn 0) or
+// pre-blocked (L, N/bn, K/2, bn) weights, nibble-packed multipliers (L,
+// n_pack, N), s_col (L, N); x, xs, w, mult_packed, s_col, out, M, K, N, L,
+// layer, group, n_pack, out_kind, bn, stream.
+extern "C" int ff_w4a8_gemv_stacked_any(const void* x, const void* xs, const void* w,
+                                        const void* mult_packed, const void* s_col, void* out,
+                                        int M, int K, int N, int L, int layer, int group,
+                                        int n_pack, int out_kind, int bn, void* stream) {
+  if (layer < 0 || layer >= L || group < 1 || n_pack * 8 < K / group ||
+      out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16)
+    return cudaErrorInvalidValue;
+  return ff::launch_two_level_any<ff::kPaired, true>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N,
+      static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N,
+      static_cast<const float*>(s_col) + (size_t)layer * N, out, out_kind, M, K, N, group, bn,
+      static_cast<cudaStream_t>(stream));
 }

@@ -52,20 +52,24 @@ def _paired_default(n_groups: int) -> bool:
     return n_groups % 2 == 0
 
 
-def quantize_rowwise(x: torch.Tensor):
+def quantize_rowwise(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """Symmetric per-row int8 quantization: (x_q int8, scale (M,) f32)
-    (`matmul.py:1896`)."""
+    (`matmul.py:1896`). ``amax``: each row's absolute maximum to scale by,
+    in place of the row's own (a row-parallel shard quantizing with its
+    whole row's)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 127.0), min=1e-8)
+    amax = xf.abs().amax(dim=-1) if amax is None else amax.float()
+    scale = torch.clamp(amax * (1.0 / 127.0), min=1e-8)
     x_q = torch.clamp(torch.round(xf / scale[..., None]), -128, 127)
     return x_q.to(torch.int8), scale
 
 
-def quantize_rowwise_a4(x: torch.Tensor):
+def quantize_rowwise_a4(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """Symmetric per-row int4 quantization: (x_q int8 in [-8, 7], scale)
-    (`matmul.py:1282`)."""
+    (`matmul.py:1282`); ``amax`` as `quantize_rowwise`'s."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 7.0), min=1e-8)
+    amax = xf.abs().amax(dim=-1) if amax is None else amax.float()
+    scale = torch.clamp(amax * (1.0 / 7.0), min=1e-8)
     x_q = torch.clamp(torch.round(xf / scale[..., None]), -8, 7)
     return x_q.to(torch.int8), scale
 
@@ -290,6 +294,60 @@ def mma_staged_operand(x_q: torch.Tensor, plan: MmaPlan, group_size: int,
     return (out - ((out >> 31) << 32)).to(torch.int32).view(torch.int8)
 
 
+def two_level_any_dot(x_q: torch.Tensor, w_packed: torch.Tensor, mult: torch.Tensor,
+                      group_size: int, layout: str) -> torch.Tensor:
+    """The integer product (M, N) int64 of the two-level GEMVs' CUDA-core
+    loop (`csrc/common.cuh` two_level_any_kernel), in torch integer ops:
+    byte rows taken in pairs (r, r + 1), a token row's dp4a word x[lo(r)],
+    x[hi(r)], x[lo(r + 1)], x[hi(r + 1)] against a column's folded weight
+    word in the same slot order. Where both rows of a pair lie in each
+    plane's group, the word is folded as the kernel's fast path does
+    (bytes r, r, r + 1, r + 1 of the column; the low nibbles times the
+    plane-0 multiplier and the high nibbles, shifted down 4, times the
+    plane-1 one, as 16-bit lanes; plus the bytes 128 - 8 m; ^ 0x80808080),
+    else slot by slot. ``w_packed`` (K/2, N) in ``layout``'s nibble order
+    (vertical two's complement, else offset binary); ``mult`` (K/g, N)
+    int8 multipliers in [0, 15]."""
+    M, K = x_q.shape
+    N, g, rows = w_packed.shape[1], group_size, K // 2
+    r = torch.arange(rows + rows % 2)
+    if layout == "vertical":
+        klo, khi = 2 * r, 2 * r + 1
+        glo, ghi = klo // g, khi // g
+    elif layout == "paired":
+        p, i = r // g, r % g
+        klo, khi, glo, ghi = 2 * p * g + i, (2 * p + 1) * g + i, 2 * p, 2 * p + 1
+    else:
+        h = g // 2
+        p, i = r // h, r % h
+        klo, khi, glo, ghi = p * g + i, p * g + h + i, p, p
+    past = r >= rows  # an odd row count's last pair: its x is 0
+    glo, ghi = torch.where(past, glo.roll(1), glo), torch.where(past, ghi.roll(1), ghi)
+    wb = torch.zeros((rows + rows % 2, N), dtype=torch.int64)
+    wb[:rows] = w_packed.view(torch.uint8).long()
+    if layout == "vertical":
+        wb ^= 0x88
+    xb = torch.cat([x_q.long(), torch.zeros((M, 1), dtype=torch.int64)], dim=1)
+    kx = torch.stack([klo, khi], -1).masked_fill(past[:, None], K).reshape(-1, 4)
+    xs = xb[:, kx]  # (M, pairs, 4) signed slots
+    a, b = wb[0::2], wb[1::2]  # (pairs, N) bytes of rows r and r + 1
+    gs = torch.stack([glo[0::2], ghi[0::2], glo[1::2], ghi[1::2]], -1)  # (pairs, 4)
+    m = mult.long()[gs]  # (pairs, 4, N)
+    u = torch.stack([a & 15, a >> 4, b & 15, b >> 4], 1)
+    slow = (u * m + 128 - 8 * m) << (8 * torch.arange(4))[None, :, None]
+    slow = slow.sum(1) ^ 0x80808080
+    B = a | a << 8 | b << 16 | b << 24
+    ml, mh = m[:, 0], m[:, 1]
+    bias = (128 - 8 * ml) * 0x00010001 + (128 - 8 * mh) * 0x01000100
+    fast = (((B & 0x000F000F) * ml + ((B >> 4) & 0x0F000F00) * mh + bias)
+            & 0xFFFFFFFF) ^ 0x80808080
+    same = ((gs[:, 0] == gs[:, 2]) & (gs[:, 1] == gs[:, 3]))[:, None]
+    wd = torch.where(same, fast, slow)  # (pairs, N) unsigned words
+    wbytes = (wd[:, None, :] >> (8 * torch.arange(4))[None, :, None]) & 255
+    wbytes = wbytes - ((wbytes >> 7) << 8)  # signed int8 slots
+    return torch.einsum("mps,psn->mn", xs, wbytes)
+
+
 def fold_w4a8_2l_words(words: torch.Tensor, m_lo, m_hi=None) -> tuple:
     """The tensor-core tile's fold (`csrc/w4a8_mma.cuh` fold, the TPU
     kernels' SWAR fold, `matmul.py:486-491`), in torch integer ops: packed
@@ -323,13 +381,48 @@ def fold_w4a4_2l_words(words: torch.Tensor, m) -> tuple:
     return fold_w4a8_2l_words(flipped, m)
 
 
-def _check_gemv(x_q, x_scale, K, N, group_size):
+def _check_gemv(x_q, x_scale, K, N, group_size, n4: bool = True):
     dev = x_q.device
     M = x_q.shape[0]
     _build.require(x_q, "x_q", torch.int8, (M, K))
     _build.require(x_scale, "x_scale", torch.float32, (M,), dev)
-    if M < 1 or N % 4 != 0 or K % group_size != 0:
+    if M < 1 or N < 1 or (n4 and N % 4 != 0) or K % group_size != 0:
         raise ValueError(f"GEMV needs M >= 1, N % 4 == 0, K % group == 0 (M={M}, N={N}, K={K})")
+
+
+def two_level_route(layout: str, K: int, N: int, group_size: int) -> str:
+    """The route of the two-level GEMVs (rows 1, 4, 5 and 9, and the
+    products of the fused heads and tail) on weights of ``layout`` (one of
+    `MMA_LAYOUTS`), chosen by shape: "tile", the int8 tensor-core tile
+    (`csrc/w4a8_mma.cuh`), where a unit's byte rows a plane are a multiple of
+    4 (paired g % 4 == 0, vertical and group halves g % 8 == 0) and N % 4 ==
+    0; else "any", the CUDA-core loop of the same sources (`csrc/common.cuh`
+    two_level_any_kernel), for every other group the reference takes.
+    Raises ValueError for a group the reference does not take: vertical K
+    even and whole groups, paired whole group pairs, group halves an even
+    group."""
+    if layout not in MMA_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}, not one of {MMA_LAYOUTS}")
+    g = group_size
+    ok = g >= 1 and K >= 2 and K % 2 == 0 and {
+        "vertical": K % g == 0,
+        "paired": K % (2 * g) == 0,
+        "halves": g % 2 == 0 and K % g == 0,
+    }[layout]
+    if not ok:
+        need = {"vertical": "K even and K % group == 0",
+                "paired": "K % (2 * group) == 0 (whole group pairs)",
+                "halves": "an even group and K % group == 0"}[layout]
+        raise ValueError(f"the {layout} two-level layout needs {need} (K={K}, group={g})")
+    unit = 4 if layout == "paired" else 8
+    return "tile" if g % unit == 0 and N % 4 == 0 else "any"
+
+
+def _out_kind(out_dtype) -> int:
+    """The C entries' out_kind: 0 f32, 1 bf16; raises for any other dtype."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the two-level GEMV kernels write f32 or bf16, not {out_dtype}")
+    return int(out_dtype == torch.bfloat16)
 
 
 def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
@@ -337,11 +430,13 @@ def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     """W4A4 decode GEMV over stacked weights (`matmul.py:1406`).
 
     ``x_q`` int4-valued int8 (M, K); ``w_packed`` (L, K//2, N) vertical;
-    ``mult`` (L, ceil(n_groups/8), N) int32 nibble-packed; ``s_col`` (L, N).
-    Bit-exact against `matmul_w4a4_2l_reference` on layer ``layer``. On the
-    card `csrc/a4_gemv.cu` ``ff_a4_gemv`` on the int8 tensor-core tile
-    (`csrc/w4a8_mma.cuh`, its vertical layout case, planned by `mma_plan`),
-    counted under ``a4_gemv``.
+    ``mult`` (L, ceil(n_groups/8), N) int32 nibble-packed; ``s_col`` (L, N);
+    f32 or bf16 out. Bit-exact against `matmul_w4a4_2l_reference` on layer
+    ``layer``. On the card `csrc/a4_gemv.cu` ``ff_a4_gemv`` on the int8
+    tensor-core tile (`csrc/w4a8_mma.cuh`, its vertical layout case, planned
+    by `mma_plan`), counted under ``a4_gemv``; any other group
+    (`two_level_route`) ``ff_a4_gemv_any``, the CUDA-core loop, counted
+    under ``a4_gemv_any``.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -353,25 +448,34 @@ def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
             x_q, x_scale, w_packed[layer], ml, s_col[layer], None, group_size, out_dtype,
         )
     dev = x_q.device
-    _check_gemv(x_q, x_scale, K, N, group_size)
+    route = two_level_route("vertical", K, N, group_size)
+    _check_gemv(x_q, x_scale, K, N, group_size, n4=route == "tile")
     n_pack = mult.shape[1]
     _build.require(w_packed, "w_packed", torch.int8, (L, K // 2, N), dev)
     _build.require(mult, "mult", torch.int32, (L, n_pack, N), dev)
     _build.require(s_col, "s_col", torch.float32, (L, N), dev)
-    if out_dtype != torch.bfloat16 or group_size % 8 != 0 or n_pack * 8 < n_groups \
-            or not 0 <= layer < L:
-        raise ValueError(
-            f"A4 GEMV kernel needs bf16 out, group % 8 == 0, a full multiplier "
-            f"pack and a valid layer (out={out_dtype}, group={group_size}, layer={layer})"
+    kind = _out_kind(out_dtype)
+    if n_pack * 8 < n_groups or not 0 <= layer < L:
+        raise ValueError(f"A4 GEMV kernel needs a full multiplier pack and a valid layer "
+                         f"(groups={n_groups}, n_pack={n_pack}, layer={layer})")
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    lib = _build.lib("a4_gemv")
+    if route == "any":
+        err = lib.ff_a4_gemv_any(
+            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
+            s_col.data_ptr(), out.data_ptr(), M, K, N, L, layer, group_size, n_pack, kind,
+            _build.stream_ptr(dev),
         )
+        _build.launch_counts["a4_gemv_any"] += 1
+        _build.check(err, "a4_gemv_any")
+        return out
     plan = mma_plan(M, K, N, group_size, "vertical")
     xf, partial = _mma_scratch(plan, M, N, dev)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    err = _build.lib("a4_gemv").ff_a4_gemv(
+    err = lib.ff_a4_gemv(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
         out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split,
-        manual_depth(plan, _MMA_DEPTH), _build.stream_ptr(dev),
+        manual_depth(plan, _MMA_DEPTH), kind, _build.stream_ptr(dev),
     )
     _build.launch_counts["a4_gemv"] += 1
     _build.check(err, "a4_gemv")
@@ -393,22 +497,18 @@ def matmul_w4a4_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
 
 def _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
     """Check the operands of the two-level W4A8 GEMV kernels; returns (M, K,
-    N). Paired: an even group count and group % 4 == 0; group halves
-    (unpaired): group % 8 == 0."""
+    N, route) with the route of `two_level_route` (which raises for a group
+    the layout does not take: paired whole group pairs, group halves an
+    even group)."""
     M, K = x_q.shape
     N = w_packed.shape[1]
     dev = x_q.device
-    _check_gemv(x_q, x_scale, K, N, group_size)
+    route = two_level_route("paired" if paired else "halves", K, N, group_size)
+    _check_gemv(x_q, x_scale, K, N, group_size, n4=route == "tile")
     _build.require(w_packed, "w_packed", torch.int8, (K // 2, N), dev)
     _build.require(mult, "mult", torch.int8, (K // group_size, N), dev)
     _build.require(s_col, "s_col", torch.float32, (N,), dev)
-    if paired and (K % (2 * group_size) != 0 or group_size % 4 != 0):
-        raise ValueError(f"the paired W4A8 GEMV kernel needs an even group count and group % 4 "
-                         f"== 0 (K={K}, group={group_size})")
-    if not paired and group_size % 8 != 0:
-        raise ValueError(f"the unpaired W4A8 GEMV kernel needs group % 8 == 0 "
-                         f"(group={group_size})")
-    return M, K, N
+    return M, K, N, route
 
 
 def _mma_scratch(plan: MmaPlan, M: int, N: int, dev):
@@ -427,8 +527,11 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
     planned by `mma_plan`): the paired layout through ``ff_w4a8_gemv``
     (counted under ``w4a8_gemv``), the group-halves layout
     (`pack_uint4_offset`, the JAX kernel `:479`) through
-    ``ff_w4a8_gemv_unpaired`` (``w4a8_gemv_unpaired``); both bit-exact
-    against `matmul_w4a8_2l_reference`."""
+    ``ff_w4a8_gemv_unpaired`` (``w4a8_gemv_unpaired``); any other group
+    (`two_level_route`) through the CUDA-core loop ``ff_w4a8_gemv_any``
+    (``w4a8_gemv_any``) and ``ff_w4a8_gemv_unpaired_any``
+    (``w4a8_gemv_unpaired_any``); all bit-exact against
+    `matmul_w4a8_2l_reference`."""
     M, K = x_q.shape
     if paired is None:
         paired = _paired_default(K // group_size)
@@ -436,21 +539,27 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
         return matmul_w4a8_2l_reference(
             x_q, x_scale, w_packed, mult, s_col, None, group_size, out_dtype, paired=paired,
         )
-    M, K, N = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"W4A8 GEMV kernel writes f32 or bf16, not {out_dtype}")
+    M, K, N, route = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    kind = _out_kind(out_dtype)
     dev = x_q.device
-    plan = mma_plan(M, K, N, group_size, "paired" if paired else "halves")
-    xf, partial = _mma_scratch(plan, M, N, dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = _build.lib("w4a8_gemv")
-    entry, name = ((lib.ff_w4a8_gemv, "w4a8_gemv") if paired
-                   else (lib.ff_w4a8_gemv_unpaired, "w4a8_gemv_unpaired"))
-    err = entry(
+    name = ("w4a8_gemv" if paired else "w4a8_gemv_unpaired") + ("_any" if route == "any" else "")
+    if route == "any":
+        err = getattr(lib, f"ff_{name}")(
+            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
+            s_col.data_ptr(), out.data_ptr(), M, K, N, group_size, kind, _build.stream_ptr(dev),
+        )
+        _build.launch_counts[name] += 1
+        _build.check(err, name)
+        return out
+    plan = mma_plan(M, K, N, group_size, "paired" if paired else "halves")
+    xf, partial = _mma_scratch(plan, M, N, dev)
+    err = getattr(lib, f"ff_{name}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
         out.data_ptr(), M, K, N, group_size, plan.n_split, manual_depth(plan, _MMA_DEPTH),
-        0 if out_dtype == torch.float32 else 1, _build.stream_ptr(dev),
+        kind, _build.stream_ptr(dev),
     )
     _build.launch_counts[name] += 1
     _build.check(err, name)
@@ -465,9 +574,10 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
     fused kernel (`csrc/w4a8_gemv.cu` ``ff_w4a8_gemv_argmax``, counted under
     ``w4a8_gemv_argmax``: row 5's int8 tensor-core tile with an argmax
     epilogue, one (max, first index) pair a row and 128-column block, then
-    one warp a row over the pairs) takes the paired layout; an unpaired
-    head takes the GEMV and the argmax of its logits, as the JAX TPU route
-    does."""
+    one warp a row over the pairs) takes the paired layout on the tile; an
+    unpaired head, and a group the tile does not take (`two_level_route`),
+    takes row 5's f32 logits and their argmax, as the JAX TPU route does for
+    an unpaired head."""
     M, K = x_q.shape
     if paired is None:
         paired = _paired_default(K // group_size)
@@ -477,13 +587,13 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
             paired=paired,
         )
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    if not paired:
-        # the JAX TPU route (`matmul.py:730-737`): the unpaired GEMV's f32
-        # logits, then their argmax
+    if not paired or two_level_route("paired", K, w_packed.shape[1], group_size) == "any":
+        # the JAX TPU route of an unpaired head (`matmul.py:730-737`): the
+        # GEMV's f32 logits (checked there), then their argmax
         logits = matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size,
-                                     torch.float32, paired=False)
+                                     torch.float32, paired=paired)
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    M, K, N = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
+    M, K, N, _ = _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired)
     dev = x_q.device
     plan = mma_plan(M, K, N, group_size, "paired")
     xf, partial = _mma_scratch(plan, M, N, dev)
@@ -599,7 +709,10 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     depth `manual_depth` of the flag, the others' of `_MMA_DEPTH`),
     ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat), ``w4a8_gemv_dotraw``
     (``FF_2L_DOTRAW=1``) and ``w4a8_gemv_concat`` (``FF_2L_CONCAT_PAIRS``
-    above 1), the last two on either layout.
+    above 1), the last two on either layout. A group the tile does not take
+    (`two_level_route`) runs the CUDA-core loop ``ff_w4a8_gemv_stacked_any``
+    on either layout whatever the flags, counted under
+    ``w4a8_gemv_stacked_any``.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -623,23 +736,29 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
             return matmul_w4a8_2l_concat_reference(*args, concat_pairs, group_size, out_dtype)
         return matmul_w4a8_2l_reference(*args, None, group_size, out_dtype, paired=True)
     dev = x_q.device
-    _check_gemv(x_q, x_scale, K, N, group_size)
+    tile = two_level_route("paired", K, N, group_size) == "tile"
+    _check_gemv(x_q, x_scale, K, N, group_size, n4=tile)
     n_pack = mult.shape[1]
     _build.require(w_packed, "w_packed", torch.int8,
                    (L, NB, K // 2, bn) if preblocked else (L, K // 2, N), dev)
     _build.require(mult, "mult", torch.int32, (L, n_pack, N), dev)
     _build.require(s_col, "s_col", torch.float32, (L, N), dev)
-    if K % (2 * group_size) != 0 or group_size % 4 != 0:
-        raise NotImplementedError(
-            "the stacked W4A8 GEMV kernel takes the paired layout (even group count, "
-            "group % 4 == 0) only"
-        )
-    if out_dtype not in (torch.float32, torch.bfloat16) or n_pack * 8 < n_groups \
-            or not 0 <= layer < L:
+    kind = _out_kind(out_dtype)
+    if n_pack * 8 < n_groups or not 0 <= layer < L:
         raise ValueError(
-            f"stacked W4A8 GEMV kernel needs f32 or bf16 out, a full multiplier pack and "
-            f"a valid layer (out={out_dtype}, layer={layer})"
+            f"stacked W4A8 GEMV kernel needs a full multiplier pack and a valid layer "
+            f"(groups={n_groups}, n_pack={n_pack}, layer={layer})"
         )
+    if not tile:
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
+        err = _build.lib("w4a8_gemv").ff_w4a8_gemv_stacked_any(
+            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
+            s_col.data_ptr(), out.data_ptr(), M, K, N, L, layer, group_size, n_pack, kind, bn,
+            _build.stream_ptr(dev),
+        )
+        _build.launch_counts["w4a8_gemv_stacked_any"] += 1
+        _build.check(err, "w4a8_gemv_stacked_any")
+        return out
     if preblocked and bn % 4 != 0:
         raise ValueError(f"the pre-blocked W4A8 GEMV kernels need a panel width bn that is a "
                          f"multiple of 4 (a lane's 4 columns in one panel), got bn={bn}")
@@ -650,8 +769,8 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     err = getattr(_build.lib("w4a8_gemv"), f"ff_{route}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
-        out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split,
-        0 if out_dtype == torch.float32 else 1, bn, manual_depth(plan, nbuf),
+        out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split, kind, bn,
+        manual_depth(plan, nbuf),
         _build.stream_ptr(dev),
     )
     _build.launch_counts[route] += 1
@@ -1830,21 +1949,23 @@ def tail_plan(M: int, K1: int, H: int, N_GU: int, group_size: int, full: bool = 
     return TailPlan(plans, depths, tuple(regions), total)
 
 
-def _check_tail(attn, x_res, norm_w, products, layer, g):
+def _check_tail(attn, x_res, norm_w, products, layer, g) -> str:
     """Check the operands of a `csrc/fused_tail.cu` launch; ``products``:
-    (name, w, mp, sc, K, N) of each product it runs."""
+    (name, w, mp, sc, K, N) of each product it runs. Returns the route:
+    "tile" where `two_level_route` gives it for every product, else "any"
+    (the CUDA-core loop for all of them)."""
     M, K1 = attn.shape
     L, H = norm_w.shape
     dev = attn.device
     _build.require(attn, "attn", attn.dtype, (M, K1), dev)
     _build.require(x_res, "x_res", torch.bfloat16, (M, H), dev)
     _build.require(norm_w, "norm_w", torch.bfloat16, (L, H), dev)
-    if attn.dtype not in (torch.float32, torch.bfloat16) or g % 4 != 0 \
-            or not 0 <= layer < L or M < 1:
+    if attn.dtype not in (torch.float32, torch.bfloat16) or not 0 <= layer < L or M < 1:
         raise ValueError(
-            f"fused tail kernel needs f32 or bf16 attn, group % 4 == 0 and a valid layer "
+            f"fused tail kernel needs f32 or bf16 attn and a valid layer "
             f"(attn={attn.dtype}, group={g}, layer={layer})"
         )
+    routes = set()
     for name, w, mp, sc, K, N in products:
         _build.require(w, f"{name}_w", torch.int8, (L, K // 2, N), dev)
         _build.require(mp, f"{name}_mp", torch.int32, (L, mp.shape[1], N), dev)
@@ -1852,6 +1973,8 @@ def _check_tail(attn, x_res, norm_w, products, layer, g):
         if K % (2 * g) != 0 or mp.shape[1] * 8 < K // g or N % 4 != 0:
             raise ValueError(f"fused tail: {name} needs K % (2 * group) == 0, a full "
                              f"multiplier pack and N % 4 == 0 (K={K}, N={N}, group={g})")
+        routes.add(two_level_route("paired", K, N, g))
+    return "tile" if routes == {"tile"} else "any"
 
 
 def _scratch(plan: TailPlan, dev):
@@ -1872,22 +1995,43 @@ def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
                         dn_sc, layer, group_size, eps):
     """Launch `csrc/fused_tail.cu` ``ff_fused_o_mlp``; returns (y in
     attn's dtype, then scratch views x1, hq, s_h, x2, s_g and the staged
-    operands of gate/up and down, int8 (x_bytes,))."""
+    operands of gate/up and down, int8 (x_bytes,)). A group the tile does
+    not take (`_check_tail`) launches ``ff_fused_o_mlp_any`` (counted under
+    ``fused_o_mlp_any``), which stages nothing: None for both operands."""
     layer = int(layer)
     M, K1 = attn.shape
     L, _, H = o_w.shape
     I = gu_w.shape[2] // 2
     dev = attn.device
     g = group_size
-    _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
-                                      ("gu", gu_w, gu_mp, gu_sc, H, 2 * I),
-                                      ("dn", dn_w, dn_mp, dn_sc, I, H)), layer, g)
+    route = _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
+                                              ("gu", gu_w, gu_mp, gu_sc, H, 2 * I),
+                                              ("dn", dn_w, dn_mp, dn_sc, I, H)), layer, g)
     if I % 4 != 0:
         raise ValueError(f"fused tail needs an intermediate width % 4 == 0, got {I}")
+    bf16 = int(attn.dtype == torch.bfloat16)
+    if route == "any":
+        xs = torch.empty((M,), dtype=torch.float32, device=dev)
+        scales = torch.empty((2, M), dtype=torch.float32, device=dev)
+        x1 = torch.empty((M, H), dtype=torch.float32, device=dev)
+        xq, hq, x2 = (torch.empty((M, n), dtype=torch.int8, device=dev) for n in (K1, H, I))
+        partial = torch.empty((M, max(H, 2 * I)), dtype=torch.int32, device=dev)
+        out = torch.empty((M, H), dtype=attn.dtype, device=dev)
+        err = _build.lib("fused_tail").ff_fused_o_mlp_any(
+            attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
+            o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
+            gu_sc.data_ptr(), dn_w.data_ptr(), dn_mp.data_ptr(), dn_sc.data_ptr(),
+            xs.data_ptr(), scales.data_ptr(), x1.data_ptr(), xq.data_ptr(), hq.data_ptr(),
+            x2.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K1, H, I, layer, g,
+            o_mp.shape[1], gu_mp.shape[1], dn_mp.shape[1], float(eps), bf16, bf16,
+            _build.stream_ptr(dev),
+        )
+        _build.launch_counts["fused_o_mlp_any"] += 1
+        _build.check(err, "fused_o_mlp_any")
+        return out, x1, hq, scales[0], x2, scales[1], None, None
     plan = tail_plan(M, K1, H, 2 * I, g, True)
     ptrs, view = _scratch(plan, dev)
     out = torch.empty((M, H), dtype=attn.dtype, device=dev)
-    bf16 = int(attn.dtype == torch.bfloat16)
     err = _build.lib("fused_tail").ff_fused_o_mlp(
         attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
@@ -1973,7 +2117,10 @@ def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group
                        out_dtype):
     """Launch `csrc/fused_head.cu` (``a4``: the int4 head): the prologue,
     which also writes the tile's staged operand (as `mma_staged_operand`
-    mirrors), then the tensor-core tile; returns (out, h_q, h_s)."""
+    mirrors), then the tensor-core tile; returns (out, h_q, h_s). A group
+    the tile does not take (`two_level_route`): the prologue without the
+    staging, then the CUDA-core loop (``ff_fused_norm_qkv_any``,
+    ``ff_fused_norm_qkv_a4_any``, counted under those names)."""
     layer = int(layer)
     M, K = x.shape
     L, _, N = w_packed.shape
@@ -1985,22 +2132,33 @@ def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group
     _build.require(w_packed, "w_packed", torch.int8, (L, K // 2, N), dev)
     _build.require(mult_packed, "mult_packed", torch.int32, (L, n_pack, N), dev)
     _build.require(s_col, "s_col", torch.float32, (L, N), dev)
-    unit = g if a4 else 2 * g  # K rows of one GEMV unit: a group, or a group pair
-    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or N % 4 != 0 \
-            or g % (8 if a4 else 4) != 0 or K % unit != 0 or n_pack * 8 < K // g \
+    layout = "vertical" if a4 else "paired"
+    route = two_level_route(layout, K, N, g)
+    if out_dtype not in (torch.float32, torch.bfloat16) or M < 1 or n_pack * 8 < K // g \
             or not 0 <= layer < L:
         raise ValueError(
-            f"fused {'A4 ' if a4 else ''}head kernel needs f32 or bf16 out, M >= 1, N % 4 == 0, "
-            f"group % {8 if a4 else 4} == 0, K % {'group' if a4 else '(2 * group)'} == 0, a "
-            f"full multiplier pack and a valid layer (out={out_dtype}, M={M}, N={N}, K={K}, "
+            f"fused {'A4 ' if a4 else ''}head kernel needs f32 or bf16 out, M >= 1, a full "
+            f"multiplier pack and a valid layer (out={out_dtype}, M={M}, N={N}, K={K}, "
             f"group={g}, layer={layer})"
         )
     h_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     h_s = torch.empty((M,), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    # the tensor-core tile, planned as row 1's (vertical) or row 9's (paired) GEMV
     name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
-    plan = mma_plan(M, K, N, g, "vertical" if a4 else "paired")
+    if route == "any":
+        # the prologue, then the CUDA-core loop on h_q
+        name += "_any"
+        err = getattr(_build.lib("fused_head"), f"ff_{name}")(
+            x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
+            s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), out.data_ptr(), M, K, N, layer, g,
+            n_pack, 1.0 / K, float(eps), int(out_dtype == torch.bfloat16),
+            _build.stream_ptr(dev),
+        )
+        _build.launch_counts[name] += 1
+        _build.check(err, name)
+        return out, h_q, h_s
+    # the tensor-core tile, planned as row 1's (vertical) or row 9's (paired) GEMV
+    plan = mma_plan(M, K, N, g, layout)
     xf, partial = _mma_scratch(plan, M, N, dev)
     err = getattr(_build.lib("fused_head"), f"ff_{name}")(
         x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
@@ -2088,14 +2246,30 @@ def _fused_o_gu_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc,
     N_GU = gu_w.shape[2]
     dev = attn.device
     g = group_size
-    _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
-                                      ("gu", gu_w, gu_mp, gu_sc, H, N_GU)), layer, g)
+    route = _check_tail(attn, x_res, norm_w, (("o", o_w, o_mp, o_sc, K1, H),
+                                              ("gu", gu_w, gu_mp, gu_sc, H, N_GU)), layer, g)
     if N_GU % 2 != 0:
         raise ValueError(f"fused o + gate/up needs an even gate/up width, got {N_GU}")
-    plan = tail_plan(M, K1, H, N_GU, g, False)
-    ptrs, view = _scratch(plan, dev)
     x1 = torch.empty((M, H), dtype=torch.float32, device=dev)
     gu = torch.empty((M, N_GU), dtype=torch.bfloat16, device=dev)
+    if route == "any":
+        xs = torch.empty((M,), dtype=torch.float32, device=dev)
+        scales = torch.empty((2, M), dtype=torch.float32, device=dev)
+        xq, hq = (torch.empty((M, n), dtype=torch.int8, device=dev) for n in (K1, H))
+        partial = torch.empty((M, H), dtype=torch.int32, device=dev)
+        err = _build.lib("fused_tail").ff_fused_o_gu_any(
+            attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
+            o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
+            gu_sc.data_ptr(), xs.data_ptr(), scales.data_ptr(), xq.data_ptr(), hq.data_ptr(),
+            partial.data_ptr(), x1.data_ptr(), gu.data_ptr(), M, K1, H, N_GU, layer, g,
+            o_mp.shape[1], gu_mp.shape[1], float(eps), int(attn.dtype == torch.bfloat16),
+            _build.stream_ptr(dev),
+        )
+        _build.launch_counts["fused_o_gu_any"] += 1
+        _build.check(err, "fused_o_gu_any")
+        return x1, gu, hq, scales[0], None
+    plan = tail_plan(M, K1, H, N_GU, g, False)
+    ptrs, view = _scratch(plan, dev)
     err = _build.lib("fused_tail").ff_fused_o_gu(
         attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
@@ -2120,7 +2294,9 @@ def fused_o_gu_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc,
     card `ff_fused_o_gu` of `csrc/fused_tail.cu`: the tail's launches
     through gate/up on the int8 tensor-core tile (`tail_plan`), x1
     bit-equal to the oracle, hq within one level where the row sums round
-    differently, gu within 8e-3 of its largest value."""
+    differently, gu within 8e-3 of its largest value; a group the tile does
+    not take, the same launches with the products on the CUDA-core loop
+    (``ff_fused_o_gu_any``, counted under ``fused_o_gu_any``)."""
     if attn.device.type == "cpu":
         layer, g = int(layer), group_size
         return fused_o_gu_reference(

@@ -3,7 +3,8 @@ W8A8, W4A8, W4A16), the per-layer forward over a bf16 or INT8 `KVCache`
 and its greedy decode loop, the checkpoint loader, the stacked forward over
 a bf16 or INT8 KV cache (slab or paged pool) with its fused, flat or
 pre-blocked layers (`fuse_stacked_layers`, `unfuse_stacked_layers`),
-greedy and sampled decoding, and the continuous-batching engine."""
+greedy and sampled decoding, the continuous-batching engine, and the
+quantized MoE block (`serving.moe`)."""
 
 from fastforward_tpu_torch.serving.batching import (
     ContinuousBatchingEngine,

@@ -94,6 +94,15 @@ def params_from_flat(flat: Dict[str, np.ndarray], device=None):
     return params, (None if per_layer else _layer(flat, "layers", dev))
 
 
+def _put_ql(flat: Dict[str, np.ndarray], prefix: str, ql: QuantLinear) -> None:
+    for f in _QL_ARRAYS:
+        t = getattr(ql, f)
+        if t is not None:
+            flat[f"{prefix}.{f}"] = _numpy(t)
+    for f in _QL_STATIC:
+        flat[f"{prefix}.{f}"] = np.asarray(getattr(ql, f))
+
+
 def params_to_flat(params: ServingParams, layers=None) -> Dict[str, np.ndarray]:
     """Inverse of `params_from_flat` (bf16 arrays come back as int16
     words): the stacked ``layers`` when given, else ``params.layers``."""
@@ -102,24 +111,35 @@ def params_to_flat(params: ServingParams, layers=None) -> Dict[str, np.ndarray]:
         "params.final_norm": _numpy(params.final_norm),
     }
 
-    def put_ql(prefix, ql):
-        for f in _QL_ARRAYS:
-            t = getattr(ql, f)
-            if t is not None:
-                flat[f"{prefix}.{f}"] = _numpy(t)
-        for f in _QL_STATIC:
-            flat[f"{prefix}.{f}"] = np.asarray(getattr(ql, f))
-
     def put_layer(prefix, layer):
         for name in _FUSED if isinstance(layer, FusedServingLayer) else _UNFUSED:
-            put_ql(f"{prefix}.{name}", getattr(layer, name))
+            _put_ql(flat, f"{prefix}.{name}", getattr(layer, name))
         flat[f"{prefix}.input_norm"] = _numpy(layer.input_norm)
         flat[f"{prefix}.post_norm"] = _numpy(layer.post_norm)
 
     if params.lm_head is not None:
-        put_ql("params.lm_head", params.lm_head)
+        _put_ql(flat, "params.lm_head", params.lm_head)
     if layers is not None:
         put_layer("layers", layers)
     for i, layer in enumerate(params.layers):
         put_layer(f"layers.{i}", layer)
+    return flat
+
+
+def moe_block_from_flat(flat: Dict[str, np.ndarray], device=None):
+    """The port's `MoEBlock` from a flat dict of a JAX ``MoEBlock``:
+    ``router``, ``gate_up.<field>`` and ``down.<field>`` as for a
+    QuantLinear above (expert-stacked arrays), ``top_k`` a 0-d array."""
+    from fastforward_tpu_torch.serving.moe import MoEBlock
+
+    dev = resolve_device(device)
+    return MoEBlock(router=_tensor(flat["router"], dev), gate_up=_ql(flat, "gate_up", dev),
+                    down=_ql(flat, "down", dev), top_k=int(flat["top_k"]))
+
+
+def moe_block_to_flat(block) -> Dict[str, np.ndarray]:
+    """Inverse of `moe_block_from_flat` (bf16 arrays as int16 words)."""
+    flat = {"router": _numpy(block.router), "top_k": np.asarray(block.top_k)}
+    for name in ("gate_up", "down"):
+        _put_ql(flat, name, getattr(block, name))
     return flat

@@ -33,6 +33,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fastforward_tpu_torch.kernels.matmul import (
@@ -123,23 +124,29 @@ class QuantLinear:
         if self.mode not in PORTED_MODES:
             raise ValueError(f"unknown mode {self.mode}")
 
-    def _quantize_input(self, x2, in_scale):
+    def _quantize_input(self, x2, in_scale, row_amax=None):
         if in_scale is not None:
             return quantize_static(x2, in_scale)
-        return quantize_rowwise(x2)
+        return quantize_rowwise(x2, row_amax)
 
-    def __call__(self, x: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-        """y = x @ W with the mode's kernel (`engine.py:85`). x: (..., K)."""
+    def __call__(self, x: torch.Tensor, out_dtype=torch.bfloat16,
+                 row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y = x @ W with the mode's kernel (`engine.py:85`). x: (..., K).
+        ``row_amax`` (rows of x,): the absolute maximum each activation row
+        is quantized by, in place of its own (a row-parallel shard of the
+        sharded forward, `parallel/sharding.py`)."""
         self._check()
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
+        if row_amax is not None:
+            row_amax = row_amax.reshape(-1)
         decode = x2.shape[0] <= GEMV_MAX_M
         g = self.group_size
         if self.mode == "w8a8":
-            x_q, x_s = self._quantize_input(x2, self.in_scale)
+            x_q, x_s = self._quantize_input(x2, self.in_scale, row_amax)
             out = matmul_w8a8(x_q, x_s, self.data, self.scale, out_dtype=out_dtype)
         elif self.mode == "w4a8":
-            x_q, x_s = self._quantize_input(x2, self.in_scale)
+            x_q, x_s = self._quantize_input(x2, self.in_scale, row_amax)
             out = matmul_w4a8(x_q, x_s, self.data, self.scale, group_size=g, out_dtype=out_dtype)
         elif self.mode == "w4a16":
             out = matmul_w4a16(x2.to(torch.bfloat16), self.data, self.scale, group_size=g,
@@ -149,7 +156,7 @@ class QuantLinear:
             w = sim_weight(self.data, self.scale, self.mode, g).to(torch.bfloat16)
             out = torch.matmul(x2.to(torch.bfloat16), w).to(out_dtype)
         elif self.mode == "w4a8_2l":
-            x_q, x_s = self._quantize_input(x2, self.in_scale)
+            x_q, x_s = self._quantize_input(x2, self.in_scale, row_amax)
             if decode:
                 out = matmul_w4a8_2l_gemv(
                     x_q, x_s, self.data, self.mult, self.scale,
@@ -160,7 +167,7 @@ class QuantLinear:
                 w = dequantize_int4(self.data, s_eff, g, offset_binary=True, paired=self.paired)
                 out = prefill_product(x_q, x_s, w, out_dtype)
         else:
-            x_q, x_s = quantize_rowwise_a4(x2)
+            x_q, x_s = quantize_rowwise_a4(x2, row_amax)
             if decode:
                 out = matmul_w4a4_2l_gemv(
                     x_q, x_s, self.data, self.mult, self.scale,
@@ -386,7 +393,7 @@ def random_serving_params(config: LlamaConfig, mode: str = "w4a8", group_size: i
 
 def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch.Tensor,
                     cache: Optional[KVCache] = None, positions: Optional[torch.Tensor] = None,
-                    logits_positions="all"):
+                    logits_positions="all", tp_group=None):
     """One forward pass over per-layer params (`engine.py:564`); returns
     (f32 logits, new cache).
 
@@ -395,6 +402,14 @@ def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch
     (the (B, T, vocab) logits of a prefill are never made) or a (B,)
     position per row. The cache's tensors are written in place; the
     returned cache shares them and is ``length + T`` long.
+
+    ``tp_group``: the params, the cache and ``config`` are this rank's
+    tensor-parallel shard (`parallel/sharding.py`), and the forward computes
+    the single-device function, as JAX's GSPMD placement of the same params
+    does: a row-parallel projection quantizes by the whole row's amax and
+    sums its f32 partial products over the group; the column-parallel
+    lm_head's logits are gathered over the group. (Megatron TP, each shard
+    quantizing by its own rows' amax, is the stacked forward's.)
     """
     # the layer and its attention routing are shared with the stacked
     # forward, which imports this module
@@ -413,7 +428,8 @@ def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch
     mask = causal_mask(positions, T if cache is None else cache.max_len)
     for i, layer in enumerate(params.layers):
         x = decoder_layer(x, LayerWeights(layer), config, positions, inv_freq,
-                          None if cache is None else cache.layer(i), starts, rows, mask)
+                          None if cache is None else cache.layer(i), starts, rows, mask,
+                          tp_group=tp_group, tp_exact=True)
 
     x = _rms_norm(x, params.final_norm, config.rms_norm_eps)
     if isinstance(logits_positions, str):
@@ -425,6 +441,10 @@ def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch
         )
     if params.lm_head is not None:
         logits = params.lm_head(x, out_dtype=torch.float32)
+        if tp_group is not None:
+            parts = [torch.empty_like(logits) for _ in range(dist.get_world_size(tp_group))]
+            dist.all_gather(parts, logits.contiguous(), group=tp_group)
+            logits = torch.cat(parts, dim=-1)
     else:
         logits = torch.einsum("bth,vh->btv", x, params.embedding).float()
     if cache is not None:

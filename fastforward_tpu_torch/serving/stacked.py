@@ -56,6 +56,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fastforward_tpu_torch import flags
@@ -424,9 +425,9 @@ class LayerWeights:
     layer: object
     index: Optional[int] = None
 
-    def proj(self, name: str, t: torch.Tensor) -> torch.Tensor:
+    def proj(self, name: str, t: torch.Tensor, **kw) -> torch.Tensor:
         ql = getattr(self.layer, name)
-        return ql(t) if self.index is None else ql.call_layer(t, self.index)
+        return ql(t, **kw) if self.index is None else ql.call_layer(t, self.index, **kw)
 
     def norm(self, name: str) -> torch.Tensor:
         w = getattr(self.layer, name)
@@ -510,8 +511,38 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
     return _attention_grouped(q, k_all.to(q.dtype), v_all.to(q.dtype), mask)
 
 
+def tp_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (JAX's ``psum`` over the
+    model axis): bf16 partials are summed in f32 and rounded once, as XLA's
+    CPU all-reduce of bf16 does (a ring of bf16 adds rounds at every hop);
+    others in their own dtype."""
+    acc = t.float() if t.dtype == torch.bfloat16 else t.clone()
+    dist.all_reduce(acc, group=group)
+    return acc.to(t.dtype)
+
+
+def _row_parallel(weights: LayerWeights, name: str, t: torch.Tensor, tp_group, tp_exact: bool):
+    """A row-parallel projection of this rank's K shard ``t``, summed over
+    ``tp_group``. Megatron (`tp_exact` False, JAX's shard_map TP): each
+    shard quantizes its rows by their own amax, and the bf16 outputs are
+    summed (`tp_all_reduce`). The single-device function (`tp_exact`, the
+    GSPMD placement of `parallel/sharding.py`): every shard quantizes by the
+    whole row's amax (an all_reduce MAX), and the f32 partial products are
+    summed before the output's one rounding."""
+    if tp_group is None:
+        return weights.proj(name, t)
+    if not tp_exact:
+        return tp_all_reduce(weights.proj(name, t), tp_group)
+    amax = t.float().abs().amax(dim=-1)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=tp_group)
+    out = weights.proj(name, t, out_dtype=torch.float32, row_amax=amax)
+    dist.all_reduce(out, group=tp_group)
+    return out.to(t.dtype)
+
+
 def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_freq, cache,
-                  starts, rows, mask, fused_head: bool = False, tail: Optional[str] = None):
+                  starts, rows, mask, fused_head: bool = False, tail: Optional[str] = None,
+                  tp_group=None, tp_exact: bool = False):
     """One decoder layer (`engine.py:592-652`, `stacked.py:495-816`), for
     both forwards: RMSNorm, the q/k/v projections, RoPE, `layer_attention`
     over ``cache`` (at ``weights.index`` for a stacked cache), o_proj and
@@ -520,7 +551,13 @@ def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_
     picks them): ``fused_head``, the input RMSNorm and the qkv projection as
     one kernel (paired W4A8 or W4A4); ``tail`` "fused_tail", o_proj through
     down_proj as one kernel, or "fused_ogu", o_proj through gate/up as one
-    kernel with SiLU and down_proj after it (paired W4A8)."""
+    kernel with SiLU and down_proj after it (paired W4A8). ``tp_group``:
+    this rank holds a tensor-parallel shard (its heads, its MLP columns,
+    its K rows of o_proj and down_proj; ``config`` the local head counts),
+    and o_proj's and the MLP's outputs are summed over the group
+    (`_row_parallel`): with ``tp_exact`` (the per-layer `serving_forward`)
+    as the single-device function, else (`serving_forward_stacked`) as
+    JAX's shard_map TP."""
     B, T, _ = x.shape
     nh, nkv, d = config.num_heads, config.num_kv_heads, config.head_dim
     eps = config.rms_norm_eps
@@ -558,10 +595,11 @@ def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_
         gated = (gate * torch.sigmoid(gate) * up).to(x.dtype)
         mlp_out = weights.proj("down_proj", gated[:, None, :])
         return (x1[:, None, :] + mlp_out.float()).to(x.dtype)
-    x = x + weights.proj("o_proj", attn)
+    x = x + _row_parallel(weights, "o_proj", attn, tp_group, tp_exact)
     h = _rms_norm(x, weights.norm("post_norm"), eps)
     gate, up = weights.gate_up(h)
-    return x + weights.proj("down_proj", F.silu(gate.float()).to(x.dtype) * up)
+    return x + _row_parallel(weights, "down_proj", F.silu(gate.float()).to(x.dtype) * up,
+                             tp_group, tp_exact)
 
 
 def serving_forward_stacked(
@@ -573,6 +611,7 @@ def serving_forward_stacked(
     positions: Optional[torch.Tensor] = None,
     greedy_head: bool = False,
     logits_positions: str = "all",
+    tp_group=None,
 ):
     """Forward over the stacked layers; returns (logits, new_cache), or
     (token ids (B,) int32, new_cache) with ``greedy_head`` (`stacked.py:378`).
@@ -598,6 +637,11 @@ def serving_forward_stacked(
     GEMV + argmax kernel, so the logits never reach device memory; another
     lm_head (w8a8, w4a8, w4a16) computes f32 logits and takes their argmax
     (`stacked.py:903-908`).
+    ``tp_group`` (JAX's ``tp_axis``, `stacked.py:385`): the layers, the
+    cache and ``config`` are this rank's tensor-parallel shard
+    (`parallel/tp_serving.py`); o_proj's and the MLP's outputs are summed
+    over the group, and the fused head and tail are not taken (`:511`,
+    `:750`, `:783`). The lm_head is replicated.
     """
     B, T = input_ids.shape
     dev = input_ids.device
@@ -620,7 +664,7 @@ def serving_forward_stacked(
     mask = causal_mask(positions, T if cache is None else cache.max_len)
 
     layer = stacked_layers
-    fused = T == 1 and isinstance(layer, FusedServingLayer)
+    fused = T == 1 and isinstance(layer, FusedServingLayer) and tp_group is None
     qp, o = layer.qkv_proj if fused else None, layer.o_proj
     fused_head = (
         fused
@@ -643,7 +687,7 @@ def serving_forward_stacked(
         tail = "fused_ogu"
     for l in range(config.num_layers):
         x = decoder_layer(x, LayerWeights(layer, l), config, positions, inv_freq, cache, starts,
-                          rows, mask, fused_head=fused_head, tail=tail)
+                          rows, mask, fused_head=fused_head, tail=tail, tp_group=tp_group)
 
     new_cache = None
     if cache is not None:

@@ -42,7 +42,11 @@ split, the same bits call to call; the W4A8 GEMV stays bit-equal, the W4
 GEMV and the tiled W4A16 GEMM within their tolerance, at groups of 256,
 512 and g = K at the 8B shapes. Every other even group (2, 16, 48, 96,
 112, 192, 320; g = K at 192 and 320) takes the same sources' CUDA-core
-route, held the same way and counted under its own name. The prefill
+route, held the same way and counted under its own name. The two-level
+GEMVs (rows 1, 4, 5, 9) and the fused heads and tail take every other
+group their references take (2-14, and 1,024 groups of 14 along K) on
+one CUDA-core loop (csrc/common.cuh): the GEMVs and heads bit-equal, the
+tail held as on the tile. The prefill
 dequant's four rows are bit-equal at the 8B projections (pre-blocked at
 bn 128 and 512).
 """
@@ -137,13 +141,21 @@ def test_a4_gemv_tile_extreme_sums_exact(dev):
     assert torch.equal(out, mm.matmul_w4a4_2l_reference(x_q, x_s, w[0], mult[0], s[0], None, g))
 
 
-def test_a4_gemv_rejects_a_group_not_a_multiple_of_8(dev):
-    x_q = torch.zeros((2, 48), dtype=torch.int8, device=dev)
-    w = torch.zeros((1, 24, 16), dtype=torch.int8, device=dev)
-    mp = torch.ones((1, 1, 16), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="group % 8"):
-        mm.matmul_w4a4_2l_gemv_stacked(x_q, torch.ones(2, device=dev), w, mp,
-                                       torch.ones((1, 16), device=dev), 0, group_size=12)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_a4_gemv_serves_a_group_not_a_multiple_of_8(dev, out_dtype):
+    # the smallest case the tile refuses (M 2, K 48, N 16, g 12): the
+    # CUDA-core route, bit-equal, f32 and bf16
+    gen = _gen(dev, 48)
+    x_q, x_s = mm.quantize_rowwise_a4(torch.randn((2, 48), generator=gen, device=dev))
+    w = _ri(gen, -128, 128, (1, 24, 16), torch.int8, dev)
+    mult = _ri(gen, 1, 16, (1, 4, 16), torch.int8, dev)
+    s = torch.rand((1, 16), generator=gen, device=dev) * 1e-2
+    before = _build.launch_counts["a4_gemv_any"]
+    out = mm.matmul_w4a4_2l_gemv_stacked(x_q, x_s, w, pack_mult_nibbles(mult).contiguous(), s, 0,
+                                         group_size=12, out_dtype=out_dtype)
+    assert _build.launch_counts["a4_gemv_any"] == before + 1
+    ref = mm.matmul_w4a4_2l_reference(x_q, x_s, w[0], mult[0], s[0], None, 12, out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("M", [1, 8, 17, 192, 256])
@@ -232,15 +244,23 @@ def test_w4a8_argmax_kernel_ids_equal(dev, M, N):
     assert int(ids[M - 1]) == 0
 
 
-def test_w4a8_kernel_rejects_unpaired_layout(dev):
-    # the group-halves kernel stages 4 byte rows of one group at a time: an
-    # unpaired layout whose group is no multiple of 8 is refused
-    x_q = torch.zeros((1, 256), dtype=torch.int8, device=dev)
-    x_s = torch.ones((1,), device=dev)
-    w = torch.zeros((128, 64), dtype=torch.int8, device=dev)
-    m = torch.ones((64, 64), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="group % 8"):
-        mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, torch.ones(64, device=dev), 4, paired=False)
+@pytest.mark.parametrize("paired,g", [(False, 4), (True, 2)])
+def test_w4a8_kernel_serves_unpaired_and_paired_small_groups(dev, paired, g):
+    # the tile stages 4 byte rows of one unit at a time; an unpaired group
+    # no multiple of 8 (M 1, K 256, N 64, g 4) and a paired group no
+    # multiple of 4 (M 1, K 8, N 4, g 2) take the CUDA-core route, bit-equal
+    K, N = (8, 4) if paired else (256, 64)
+    gen = _gen(dev, K + g)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((1, K), generator=gen, device=dev))
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    m = _ri(gen, 1, 16, (K // g, N), torch.int8, dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-2
+    name = "w4a8_gemv_any" if paired else "w4a8_gemv_unpaired_any"
+    before = _build.launch_counts[name]
+    out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, paired=paired)
+    assert _build.launch_counts[name] == before + 1
+    ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, paired=paired)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
 
 
 def test_kv_append_kernel_bit_equal(dev):
@@ -1227,8 +1247,6 @@ def test_fused_heads_reject_what_the_kernels_do_not_take(dev):
     x, norm, w, mp, s = _head_case(dev, 4, 384, 132, 64, 1)
     with pytest.raises(ValueError, match="2 \\* group"):  # 6 groups of 64: 3 pairs, but
         mm.fused_norm_qkv_stacked(x, norm, w, mp, s, 0, group_size=128)  # 3 groups of 128
-    with pytest.raises(ValueError, match="group % 8"):
-        mm.fused_norm_qkv_stacked_a4(x, norm, w, mp, s, 0, group_size=4)
     with pytest.raises(ValueError, match="layer"):
         mm.fused_norm_qkv_stacked(x, norm, w, mp, s, 3, group_size=64)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -1329,8 +1347,6 @@ def test_fused_o_gu_rejects_what_the_kernel_does_not_take(dev):
     attn, x_res, norm, ops = _ogu_case(dev, 4, 256, 256, 384, 64, 12)
     with pytest.raises(ValueError, match="2 \\* group"):  # 4 groups of 64 are 2 of 128
         mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 0, group_size=256)
-    with pytest.raises(ValueError, match="group % 4"):
-        mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 0, group_size=2)
     with pytest.raises(ValueError, match="layer"):
         mm.fused_o_gu_stacked(attn, x_res, norm, *ops, 2, group_size=64)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -2014,3 +2030,175 @@ def test_w4a8_wgmma_kernel_every_row_block(dev, monkeypatch, M, row_blocks, K, g
     x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
     out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, torch.float32)
     assert torch.equal(out, mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, torch.float32))
+
+
+# --- the CUDA-core route of the two-level GEMVs (csrc/common.cuh
+# two_level_any_kernel): every group from 2 to 14 the reference takes,
+# bit-equal, at M = 1, 8, 17, 192, 256; and 1,024 groups of 14 along K
+
+_ANY_M = [1, 8, 17, 192, 256]
+
+
+def _route_name(base, layout, K, N, g):
+    return base + ("_any" if mm.two_level_route(layout, K, N, g) == "any" else "")
+
+
+@pytest.mark.parametrize("M", _ANY_M)
+@pytest.mark.parametrize("g", range(2, 15))
+def test_a4_gemv_every_group_bit_equal(dev, M, g):
+    K, N = 2 * g * 9, 132 if g % 2 else 130  # N % 4 != 0 takes the CUDA-core route too
+    gen = _gen(dev, M * 100 + g)
+    x_q, x_s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
+    w = _ri(gen, -128, 128, (2, K // 2, N), torch.int8, dev)
+    mult = _ri(gen, 1, 16, (2, K // g, N), torch.int8, dev)
+    s = torch.rand((2, N), generator=gen, device=dev) * 1e-2
+    name = _route_name("a4_gemv", "vertical", K, N, g)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = _build.launch_counts[name]
+        out = mm.matmul_w4a4_2l_gemv_stacked(x_q, x_s, w, pack_mult_nibbles(mult).contiguous(),
+                                             s, 1, group_size=g, out_dtype=out_dtype)
+        assert _build.launch_counts[name] == before + 1
+        ref = mm.matmul_w4a4_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g, out_dtype)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", _ANY_M)
+@pytest.mark.parametrize("paired,g", [(True, g) for g in range(2, 15) if g % 4]
+                         + [(False, g) for g in range(2, 15, 2) if g % 8])
+def test_w4a8_gemv_every_group_bit_equal(dev, M, paired, g):
+    # row 5 (f32 and bf16) and row 4 (the argmax of row 5's f32 logits)
+    K, N = 2 * g * 9, 260
+    gen = _gen(dev, M * 100 + g + paired)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    m = _ri(gen, 1, 16, (K // g, N), torch.int8, dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-2
+    name = "w4a8_gemv_any" if paired else "w4a8_gemv_unpaired_any"
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = _build.launch_counts[name]
+        out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, out_dtype, paired=paired)
+        assert _build.launch_counts[name] == before + 1
+        ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, out_dtype, paired=paired)
+        assert torch.equal(out, ref)
+    before, head = _build.launch_counts[name], _build.launch_counts["w4a8_gemv_argmax"]
+    ids = mm.matmul_w4a8_2l_gemv_argmax(x_q, x_s, w, m, s, g, paired=paired)
+    assert _build.launch_counts[name] == before + 1
+    assert _build.launch_counts["w4a8_gemv_argmax"] == head
+    logits = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, torch.float32, paired=paired)
+    assert torch.equal(ids, torch.argmax(logits, dim=-1).to(torch.int32))
+
+
+@pytest.mark.parametrize("M", _ANY_M)
+@pytest.mark.parametrize("g", [g for g in range(2, 15) if g % 4])
+@pytest.mark.parametrize("bn", [0, 4, 132])
+def test_stacked_gemv_every_group_bit_equal(dev, M, g, bn):
+    # row 9 on flat (bn 0) and pre-blocked weights, layer 1 of 2, under the
+    # default flags and the dot-raw flag: one route whatever the flags
+    K, N = 2 * g * 7, 264
+    gen = _gen(dev, M * 100 + g + bn)
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    w = _ri(gen, -128, 128, (2, K // 2, N), torch.int8, dev)
+    mult = _ri(gen, 1, 16, (2, K // g, N), torch.int8, dev)
+    s = torch.rand((2, N), generator=gen, device=dev) * 1e-2
+    wb = mm.preblock_stacked(w, bn) if bn else w
+    ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g, paired=True)
+    for flag in ("0", "1"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("FF_2L_DOTRAW", flag)
+            before = _build.launch_counts["w4a8_gemv_stacked_any"]
+            out = mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, wb, pack_mult_nibbles(mult).contiguous(),
+                                                 s, 1, group_size=g)
+            assert _build.launch_counts["w4a8_gemv_stacked_any"] == before + 1
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", _ANY_M)
+def test_two_level_any_route_over_1024_groups(dev, M):
+    # K 14336 in 1,024 groups of 14 (512 pairs): rows 1, 5 (both layouts) and 9
+    K, N, g = 14336, 516, 14
+    gen = _gen(dev, M + K)
+    w = _ri(gen, -128, 128, (K // 2, N), torch.int8, dev)
+    m = _ri(gen, 1, 16, (K // g, N), torch.int8, dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+    for paired in (True, False):
+        out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, torch.float32, paired=paired)
+        ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, torch.float32,
+                                          paired=paired)
+        assert torch.equal(out, ref)
+    mp = pack_mult_nibbles(m)[None].contiguous()
+    out = mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w[None].contiguous(), mp, s[None], 0,
+                                         group_size=g)
+    assert torch.equal(out, mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, paired=True))
+    x4, x4s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
+    out = mm.matmul_w4a4_2l_gemv_stacked(x4, x4s, w[None].contiguous(), mp, s[None], 0,
+                                         group_size=g)
+    assert torch.equal(out, mm.matmul_w4a4_2l_reference(x4, x4s, w, m, s, None, g))
+
+
+def test_two_level_any_route_extreme_sums_exact(dev):
+    # x = +-127, m = 15, u = 0 and 15 at g 6 over K = 14,328: the largest
+    # int32 sums the grid allows, the run sums added in int64
+    gen = _gen(dev, 14328)
+    M, K, N, g = 9, 14328, 132, 6
+    x_q = torch.where(_ri(gen, 0, 2, (M, K), torch.int8, dev) > 0, 127, -127).to(torch.int8)
+    x_s = torch.rand((M,), generator=gen, device=dev) + 0.5
+    w = torch.where(_ri(gen, 0, 2, (K // 2, N), torch.int8, dev) > 0, 0, -1).to(torch.int8)
+    m = torch.full((K // g, N), 15, dtype=torch.int8, device=dev)
+    s = torch.rand((N,), generator=gen, device=dev) * 1e-6
+    out = mm.matmul_w4a8_2l_gemv(x_q, x_s, w, m, s, g, torch.float32, paired=True)
+    assert torch.equal(out, mm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g,
+                                                         torch.float32, paired=True))
+
+
+@pytest.mark.parametrize("a4,g", [(False, 2), (False, 6), (False, 10), (True, 2), (True, 6),
+                                  (True, 12)])
+@pytest.mark.parametrize("M", [1, 8, 64, 192])
+def test_fused_head_any_group_bit_equal(dev, a4, g, M):
+    # the prologue without staging, then the CUDA-core route on hq
+    K, N = 2 * g * 16, 132
+    x, norm, w, mp, s = _head_case(dev, M, K, N, g, M + g)
+    name = ("fused_norm_qkv_a4" if a4 else "fused_norm_qkv") + "_any"
+    quant = mm.quantize_rowwise_a4 if a4 else mm.quantize_rowwise
+    before = _build.launch_counts[name]
+    out, hq, hs = mm._fused_head_launch(a4, x, norm, w, mp, s, 2, g, 1e-5, torch.bfloat16)
+    assert _build.launch_counts[name] == before + 1
+    rq, rs = mm._norm_quant(x, norm[2], 1e-5, quant)
+    assert torch.equal(hq, rq) and torch.equal(hs, rs)
+    fn = mm.fused_norm_qkv_stacked_a4 if a4 else mm.fused_norm_qkv_stacked
+    ref = fn(x.cpu(), norm.cpu(), w.cpu(), mp.cpu(), s.cpu(), 2, group_size=g)
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("M,K1,H,inter,g", [
+    (1, 384, 384, 768, 2), (5, 384, 384, 768, 6), (33, 768, 384, 1152, 6),
+    (64, 4104, 4104, 14364, 6), (8, 4096, 4096, 14336, 2),
+])
+def test_fused_tail_any_group(dev, M, K1, H, inter, g):
+    # the tail and its o + gate/up head at groups the tile does not take:
+    # the row kernels as on the tile, each product on the CUDA-core route;
+    # held as the tile's tail (x1 bit-equal, hq and x2 within one level in
+    # a few elements, the outputs within rtol 8e-3)
+    attn, x_res, norm, ops = _tail_case(dev, M, K1, H, inter, g, M + H + g)
+    before = _build.launch_counts["fused_o_mlp_any"]
+    out, x1, hq, hs, x2, gs, xf_gu, xf_dn = mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g,
+                                                                   1e-5)
+    assert _build.launch_counts["fused_o_mlp_any"] == before + 1 and xf_gu is None
+    y, rx1, rhq, rhs, rx2, rgs = _tail_plain(attn, x_res, norm, ops, g)
+    assert torch.equal(x1, rx1)
+    for a, b in ((hq, rhq), (x2, rx2)):
+        diff = (a.int() - b.int()).abs()
+        assert diff.max().item() <= 1
+        assert diff.count_nonzero().item() <= max(4, a.numel() // 1000)
+    torch.testing.assert_close(hs, rhs, rtol=1e-6, atol=0)
+    torch.testing.assert_close(gs, rgs, rtol=1e-6, atol=0)
+    assert (out.float() - y).abs().max().item() <= 8e-3 * y.abs().max().item()
+    before = _build.launch_counts["fused_o_gu_any"]
+    gx1, gu, ghq, ghs, gxf = mm._fused_o_gu_launch(attn, x_res, norm, *ops[:6], 1, g, 1e-5)
+    assert _build.launch_counts["fused_o_gu_any"] == before + 1 and gxf is None
+    rx1, rgu, rhq, rhs = _ogu_plain(attn, x_res, norm, ops[:6], K1, H, g)
+    assert torch.equal(gx1, rx1)
+    diff = (ghq.int() - rhq.int()).abs()
+    assert diff.max().item() <= 1 and diff.count_nonzero().item() <= max(4, ghq.numel() // 1000)
+    err = (gu.float() - rgu.float()).abs().max().item()
+    assert err <= 8e-3 * rgu.float().abs().max().item()

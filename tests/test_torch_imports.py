@@ -1,8 +1,8 @@
 """The port imports torch and never JAX or the JAX package.
 
 Every module of `fastforward_tpu_torch` is imported in a fresh Python
-process; afterwards neither ``jax`` nor any ``fastforward_tpu.`` module may
-be loaded there. The kernel build table names every CUDA source of
+process; afterwards neither ``jax``, any ``fastforward_tpu.`` module nor
+``safetensors`` may be loaded there. The kernel build table names every CUDA source of
 `csrc/`, and each C entry point it binds is defined in its source.
 """
 
@@ -26,8 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(fastforward_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "fastforward_tpu"
-                or m.startswith("fastforward_tpu."))
+                if m.split(".")[0] in ("jax", "fastforward_tpu", "safetensors"))
 print(json.dumps({"modules": names, "forbidden": loaded}))
 """
 
@@ -39,7 +38,8 @@ def test_port_modules_import_no_jax():
     for name in ("serving.stacked", "serving.sampling", "serving.paged", "serving.batching",
                  "serving.kv_cache", "serving.engine", "serving.loader",
                  "kernels.paged_attention", "kernels.matmul", "kernels.kv_update", "flags",
-                 "scripts.probe_int4"):
+                 "scripts.probe_int4", "serving.moe", "parallel", "parallel.mesh",
+                 "parallel.tp_serving", "parallel.sharding", "parallel.multihost"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -68,7 +68,14 @@ def test_build_table_covers_every_source():
     assert "ff_w4a8_gemv_unpaired" in _build.SIGNATURES["w4a8_gemv"]
     assert "ff_flash_prefill_bf16" in _build.SIGNATURES["flash_prefill"]
     assert "ff_fused_o_gu" in _build.SIGNATURES["fused_tail"]
-    assert sorted(_build.SIGNATURES["fused_head"]) == ["ff_fused_norm_qkv", "ff_fused_norm_qkv_a4"]
+    assert sorted(_build.SIGNATURES["fused_head"]) == ["ff_fused_norm_qkv", "ff_fused_norm_qkv_a4",
+                                                       "ff_fused_norm_qkv_a4_any",
+                                                       "ff_fused_norm_qkv_any"]
+    for fn in ("ff_w4a8_gemv_any", "ff_w4a8_gemv_unpaired_any", "ff_w4a8_gemv_stacked_any"):
+        assert fn in _build.SIGNATURES["w4a8_gemv"]
+    assert list(_build.SIGNATURES["a4_gemv"]) == ["ff_a4_gemv", "ff_a4_gemv_any"]
+    for fn in ("ff_fused_o_mlp_any", "ff_fused_o_gu_any"):
+        assert fn in _build.SIGNATURES["fused_tail"]
     for fn in ("ff_w4a8_gemv_dotraw", "ff_w4a8_gemv_concat"):
         assert fn in _build.SIGNATURES["w4a8_gemv"]
     assert list(_build.SIGNATURES["w4a16_gemm"]) == ["ff_w4a16_gemm", "ff_w4a16_gemm_any"]
