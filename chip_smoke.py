@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Seven phases,
+Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Eight phases,
 each raising on failure:
 
 1. build  — compile every CUDA kernel of the port from `csrc/` (one nvcc
@@ -138,7 +138,24 @@ each raising on failure:
    a step's wall and device time (`make_tp_decode_step`), and at depth 2
    every kernel call checked and the logits within TP_LOGIT_RMS of the
    one-card path; (u) (s)'s block at EP 2 (`expert_parallel_moe`), its
-   output within one bf16 ulp of the largest of (s)'s.
+   output within one bf16 ulp of the largest of (s)'s; (v) ring attention
+   (`context_parallel_attention`) at SP 2 on Llama-3-8B's attention widths
+   (B 1, H 32, D 128, T 4,096, bf16, causal), both ranks' full outputs
+   bit-equal and within one bf16 ulp of the largest output of a
+   one-process dense attention, a K/V hop and the output's gather timed;
+   (w) a GPipe pipeline (`pipeline_forward`) at PP 2 of 32 w4a8_2l g128
+   layers at o_proj's 4,096 x 4,096, x (192, 4,096) f32 in 4 microbatches:
+   64 row-5 launches a rank, every kernel call held against its plain
+   version, bit-equal to the rank's sequential loop; `dryrun_multichip` on
+   both ranks (its line printed);
+8. quant — (x) the simulation tier's core: `quantize_by_tile` and
+   `dequantize_by_tile` and their LSQ backward on gate_proj's 4,096 x
+   14,336 f32 per channel (8-bit) and per (128, 1) block (4-bit), and
+   `quantize_dynamic_by_tile` per row on (192, 4,096), bit-equal to the
+   same functions on a CPU copy (scale and offset gradients within
+   QUANT_GRAD_RTOL); then `LayerKVCache.append(quantizer=)` at (h)'s cache
+   shape: one fused K/V quantize-append launch, bit-equal to the plain
+   append of the quantizer's QDQ'd k/v, and one flash decode over it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -2745,6 +2762,19 @@ MOE_SEED, MOE_TOKENS = 21, (BATCH, 8)
 # own rows of o_proj's and down_proj's inputs: TP's own numerics).
 PARALLEL_RANKS = 2
 TP_LOGIT_RMS = 0.1
+# Run (v): ring attention at SP 2 on Llama-3-8B's attention widths (32
+# heads of 128), causal, bf16, 4,096 tokens (2,048 a rank); run (w): a GPipe
+# pipeline at PP 2 of 32 stacked w4a8_2l g128 QuantLinear layers at
+# o_proj's 4,096 x 4,096, x (192, 4,096) f32 in 4 microbatches. Both in the
+# spawn of (t) and (u), where every ring hop crosses host memory (gloo).
+SP_SHAPE = (1, 32, 4096, 128)
+PP_LAYERS, PP_WIDTH, PP_MICRO = 32, 4096, 4
+# Run (x): the simulation tier's core on gate_proj's (K, N) = (4,096,
+# 14,336) in f32, per channel 8-bit and per block (128, 1) 4-bit, dynamic
+# per-row on (192, 4,096); then one sim-tier KV append at (h)'s cache shape.
+# Scale and offset gradients (per-tile sums in another order on the card)
+# within this share of the largest |gradient| of the CPU copy's.
+QUANT_SHAPE, QUANT_GRAD_RTOL = (4096, 14336), 1e-6
 
 
 def _moe_inputs(dev):
@@ -2903,19 +2933,7 @@ def _tp_run(rank, dev, say):
     pos = torch.tensor([PROMPT + STEPS - 1], device=dev)
     tok = tokens[:, -1:]
     step_ms = median_ms(lambda: step(params, s, c, tok, pos), n=5)
-    step_dev = None
-    from contextlib import nullcontext
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with (profile(activities=[ProfilerActivity.CUDA]) if rank == 0 else nullcontext()) as prof:
-        for _ in range(3):
-            step(params, s, c, tok, pos)
-        torch.cuda.synchronize()
-    if rank == 0:
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if getattr(e, "self_device_time_total", 0) > 0)
-        step_dev = busy / 3 / 1e3 if busy > 0 else None
+    step_dev = _rank_device_ms(rank, lambda: step(params, s, c, tok, pos))
     out = dict(counts=counts, prefill_ms=(t2 - t1) * 1e3,
                tok_s=BATCH * STEPS / (t3 - t2), step_ms=step_ms, step_device_ms=step_dev,
                peak_gib=peak, tokens=tokens.cpu())
@@ -2988,8 +3006,166 @@ def _ep_run(rank, dev, say):
     return out
 
 
+def _rank_device_ms(rank, fn, n=3):
+    """Device busy time a call of ``fn`` (kernels and copies), profiled on
+    rank 0; every rank makes the same ``n`` calls (``fn`` may hold
+    collectives). None on the other ranks, or where nothing was recorded."""
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CUDA]) if rank == 0 else nullcontext()) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    if rank != 0:
+        return None
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0)
+    return busy / n / 1e3 if busy > 0 else None
+
+
+def _sp_inputs(dev):
+    """(v)'s q, k, v, the same in every process on the card."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    return [torch.randn(SP_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def _sp_run(rank, dev, say):
+    """Run (v) on this rank: `context_parallel_attention` over an ``sp`` dim
+    of both ranks (each its 2,048 positions; K/V one hop around the ring,
+    through host memory under gloo), the full output on both."""
+    from fastforward_tpu_torch.parallel import context_parallel_attention, make_mesh
+    from fastforward_tpu_torch.parallel.transport import all_gather_cat, host_staged, ring_shift
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"sp": PARALLEL_RANKS})
+    q, k, v = _sp_inputs(dev)
+    fn = functools.partial(context_parallel_attention, mesh, q, k, v, "sp")
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = median_ms(fn, n=5)
+    dms = _rank_device_ms(rank, fn)
+    group = mesh.get_group("sp")
+    hop = "host memory (gloo)" if host_staged(q, group) else \
+        f"{torch.distributed.get_backend(group)} on {q.device.type}"
+    # the transport alone: one hop of a rank's K and V blocks, and the
+    # output's gather
+    half = SP_SHAPE[2] // PARALLEL_RANKS
+    kv = [t[:, :, :half].contiguous() for t in (k, v)]
+    hop_ms = median_ms(lambda: ring_shift(kv, group), n=5)
+    gather_ms = median_ms(lambda: all_gather_cat(out[:, :, :half].contiguous(), 2, group), n=5)
+    say(f"context (v) rank {rank}: ring attention SP {PARALLEL_RANKS}, B {SP_SHAPE[0]} H "
+        f"{SP_SHAPE[1]} T {SP_SHAPE[2]} D {SP_SHAPE[3]} bf16 causal, {ms:.2f} ms a call, device "
+        f"{fmt_ms(dms)} (hops and the output's gather through {hop}: a K/V hop "
+        f"{hop_ms:.2f} ms, the gather {gather_ms:.2f} ms); peak {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if tuple(out.shape) != SP_SHAPE or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"(v) rank {rank}: output not finite {SP_SHAPE}")
+    res = dict(ms=ms, device_ms=dms, hop_ms=hop_ms, gather_ms=gather_ms, peak_gib=peak,
+               out=out.cpu(), seconds=time.perf_counter() - t0)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_layers(dev):
+    """(w)'s stacked QuantLinear, the same in every process on the card."""
+    from fastforward_tpu_torch.serving.engine import QuantLinear, quantize_linear
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    qls = [quantize_linear(torch.randn((PP_WIDTH, PP_WIDTH), generator=gen, device=dev)
+                           / PP_WIDTH ** 0.5, "w4a8_2l", 128) for _ in range(PP_LAYERS)]
+    return QuantLinear(data=torch.stack([q.data for q in qls]),
+                       scale=torch.stack([q.scale for q in qls]), mode="w4a8_2l",
+                       group_size=128, mult=torch.stack([q.mult for q in qls]),
+                       paired=qls[0].paired)
+
+
+def _pp_run(rank, dev, say):
+    """Run (w) on this rank: `pipeline_forward` over a ``stage`` dim of both
+    ranks (16 layers each; microbatches sent stage to stage through host
+    memory under gloo), every row-5 launch counted, every kernel call held
+    against its plain version in a second call, and the output held bit for
+    bit to this process's sequential loop over all 32 layers."""
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.parallel import make_mesh, pipeline_forward
+    from fastforward_tpu_torch.serving.engine import QuantLinear
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"stage": PARALLEL_RANKS})
+    layers = _pp_layers(dev)
+    x = torch.randn((BATCH, PP_WIDTH), generator=torch.Generator(device=dev).manual_seed(43),
+                    device=dev)
+
+    def layer_fn(ql, h):
+        return ql(h, out_dtype=torch.float32)
+
+    fn = functools.partial(pipeline_forward, mesh, layers, x, layer_fn,
+                           n_microbatches=PP_MICRO)
+    fn()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y = fn()
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    expect = {"w4a8_gemv": PP_LAYERS // PARALLEL_RANKS * PP_MICRO}
+    if counts != expect:
+        raise AssertionError(f"(w) rank {rank}: launch counts {counts} != expected {expect}")
+    checked = collections.Counter()
+    if not torch.equal(_checked(fn, checked), y):
+        raise AssertionError(f"(w) rank {rank}: the checked call gave other bits")
+
+    def sequential():
+        h = x
+        for i in range(PP_LAYERS):
+            h = layer_fn(QuantLinear(layers.data[i], layers.scale[i], "w4a8_2l", 128,
+                                     layers.mult[i], layers.paired), h)
+        return h
+
+    ref = sequential()
+    same = torch.equal(y, ref)
+    ms, seq_ms = median_ms(fn, n=5), median_ms(sequential, n=5)
+    dms, seq_dms = _rank_device_ms(rank, fn), _rank_device_ms(rank, sequential)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    say(f"pipeline (w) rank {rank}: PP {PARALLEL_RANKS}, {PP_LAYERS} w4a8_2l g128 layers of "
+        f"{PP_WIDTH} x {PP_WIDTH}, x ({BATCH}, {PP_WIDTH}) f32 in {PP_MICRO} microbatches: "
+        f"{ms:.2f} ms a forward, device {fmt_ms(dms)} (one process's sequential loop "
+        f"{seq_ms:.2f} ms, device {fmt_ms(seq_dms)}); peak {peak:.2f} GiB; launches "
+        f"{counts}; kernel calls held against their plain versions: {dict(checked)}; "
+        f"{'bit-equal' if same else 'NOT bit-equal'} to the sequential loop; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError(f"(w) rank {rank}: pipeline output off the sequential loop")
+    res = dict(counts=counts, ms=ms, device_ms=dms, sequential_ms=seq_ms,
+               sequential_device_ms=seq_dms, peak_gib=peak, checked=dict(checked), y=y.cpu(),
+               seconds=time.perf_counter() - t0)
+    del layers, x, y, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dry_run(rank, dev, lines):
+    """`dryrun_multichip` on both ranks (it prints its line on rank 0)."""
+    from fastforward_tpu_torch.parallel import dryrun_multichip
+
+    t0 = time.perf_counter()
+    shapes = dryrun_multichip()
+    lines.append(shapes["line"])
+    return dict(line=shapes["line"], seconds=time.perf_counter() - t0)
+
+
 def _parallel_worker(rank, world, port, tmp):
-    """One rank of runs (t) and (u): a gloo process group over localhost,
+    """One rank of runs (t), (u), (v), (w) and the dry run: a gloo process
+    group over localhost,
     both ranks on cuda:0; its results pickled to ``tmp``."""
     import pickle
 
@@ -3006,7 +3182,9 @@ def _parallel_worker(rank, world, port, tmp):
         lines.append(line)
 
     try:
-        res = {"t": _tp_run(rank, dev, say), "u": _ep_run(rank, dev, say), "lines": lines}
+        res = {"t": _tp_run(rank, dev, say), "u": _ep_run(rank, dev, say),
+               "v": _sp_run(rank, dev, say), "w": _pp_run(rank, dev, say),
+               "dry": _dry_run(rank, dev, lines), "lines": lines}
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -3014,11 +3192,13 @@ def _parallel_worker(rank, world, port, tmp):
 
 
 def phase_parallel(dev, moe_ref):
-    """Runs (t) and (u) in PARALLEL_RANKS processes on the one card over
-    gloo (`_parallel_worker`); both ranks must emit identical tokens, and
-    (u)'s output must match (s)'s within one bf16 ulp of the largest output
-    (FLASH_RTOL: the two ranks' f32 partial sums are added in another order
-    than one process's expert loop)."""
+    """Runs (t), (u), (v), (w) and the dry run in PARALLEL_RANKS processes
+    on the one card over gloo (`_parallel_worker`); both ranks must emit
+    identical tokens, (u)'s output must match (s)'s within one bf16 ulp of
+    the largest output (FLASH_RTOL: the two ranks' f32 partial sums are
+    added in another order than one process's expert loop), (v)'s the
+    dense attention's the same way, and (w)'s must be bit-equal on both
+    ranks."""
     import pickle
     import socket
     import tempfile
@@ -3040,8 +3220,9 @@ def phase_parallel(dev, moe_ref):
         for line in res["lines"]:
             if _LOG["file"] is not None:
                 _LOG["file"].write(line + "\n")
-    log(f"parallel (t), (u): {PARALLEL_RANKS} processes on cuda:0 over gloo (its all_reduce "
-        f"stages CUDA tensors through host memory: not NCCL's transport), "
+    log(f"parallel (t)-(w): {PARALLEL_RANKS} processes on cuda:0 over gloo (its all_reduce, "
+        f"and the ring hops and sends of (v) and (w), stage CUDA tensors through host memory: "
+        f"not NCCL's transport), "
         f"{time.perf_counter() - t0:.1f} s with the spawn")
     t = [res["t"] for res in ranks]
     if not all(torch.equal(x["tokens"], t[0]["tokens"]) for x in t[1:]):
@@ -3059,9 +3240,172 @@ def phase_parallel(dev, moe_ref):
             f"{ref.abs().max().item():.4g} (limit rtol {FLASH_RTOL})")
         if not ok:
             raise AssertionError(f"(u) T={T}: EP output off (s)'s")
+    # (v): both ranks' full outputs bit-equal, and within one bf16 ulp of
+    # the largest output of a one-process dense causal attention on the card
+    outs = [res["v"]["out"] for res in ranks]
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError("(v): the ranks hold different outputs")
+    t0 = time.perf_counter()
+    q, k, v = _sp_inputs(dev)
+    T = SP_SHAPE[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / SP_SHAPE[3] ** 0.5
+    causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    scores = torch.where(causal, scores, -1e30)
+    dense = torch.matmul(torch.softmax(scores, dim=-1).to(torch.bfloat16), v).float().cpu()
+    del q, k, v, scores, causal
+    torch.cuda.empty_cache()
+    err = (outs[0].float() - dense).abs().max().item()
+    top = dense.abs().max().item()
+    log(f"context (v): both ranks bit-equal; max err {err:.4g} of {top:.4g} against one "
+        f"process's dense attention (limit rtol {FLASH_RTOL}); dense reference "
+        f"{time.perf_counter() - t0:.1f} s")
+    if err > FLASH_RTOL * top:
+        raise AssertionError(f"(v): ring attention off the dense attention: {err} of {top}")
+    ys = [res["w"]["y"] for res in ranks]
+    if not all(torch.equal(y, ys[0]) for y in ys[1:]):
+        raise AssertionError("(w): the ranks hold different outputs")
+    log(f"pipeline (w): both ranks bit-equal, each to its own sequential loop; row-5 launches "
+        f"a rank {[res['w']['counts'] for res in ranks]}")
+    work = [round(res["v"]["seconds"] + res["w"]["seconds"] + res["dry"]["seconds"], 1)
+            for res in ranks]
+    log(f"parallel (v), (w), dry run: {work} s of the ranks' work")
     return dict(t={k: v for k, v in t[0].items() if k != "tokens"},
                 t_rank1_tok_s=t[1]["tok_s"],
-                u={T: {k: v for k, v in ranks[0]["u"][T].items() if k != "y"} for T in MOE_TOKENS})
+                u={T: {k: v for k, v in ranks[0]["u"][T].items() if k != "y"} for T in MOE_TOKENS},
+                v={k: val for k, val in ranks[0]["v"].items() if k != "out"},
+                w={k: val for k, val in ranks[0]["w"].items() if k != "y"},
+                dry=ranks[0]["dry"])
+
+
+def _quant_case(name, x, scale, offset, tile, bits, gen):
+    """One static granularity of (x): quantize, dequantize and their
+    backward on the card and on a CPU copy; forwards and the data gradient
+    bit-equal, the scale and offset gradients within QUANT_GRAD_RTOL."""
+    from fastforward_tpu_torch.quantization import affine
+
+    def run(d, s, o, g):
+        d, s, o = (t.clone().requires_grad_() for t in (d, s, o))
+        q = affine.quantize_by_tile(d, s, o, tile_size=tile, num_bits=bits)
+        y = affine.dequantize_by_tile(q, s, o, tile_size=tile)
+        q.backward(g)
+        return q.detach(), y.detach(), d.grad, s.grad, o.grad
+
+    g = torch.randn(x.shape, generator=gen, device=x.device)
+    run(x, scale, offset, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run(x, scale, offset, g)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    dms = device_ms(lambda: run(x, scale, offset, g), n=5)
+    cpu = run(*(t.cpu() for t in (x, scale, offset, g)))
+    card = [t.cpu() for t in card]
+    for what, a, b in zip(("grid values", "dequantized", "data gradient"), card, cpu):
+        if not torch.equal(a, b):
+            raise AssertionError(f"(x) {name}: {what} not bit-equal to the CPU copy's")
+    errs = []
+    for what, a, b in zip(("scale", "offset"), card[3:], cpu[3:]):
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        errs.append(err)
+        if err > QUANT_GRAD_RTOL:
+            raise AssertionError(f"(x) {name}: {what} gradient {err:.3g} of the largest off")
+    clipped = (card[2] == 0).float().mean().item()
+    log(f"quant (x) {name} {tuple(x.shape)} tile {tile} {bits}-bit: forward, dequantize and "
+        f"data gradient bit-equal to the CPU copy's; scale / offset gradients within "
+        f"{errs[0]:.3g} / {errs[1]:.3g} of the largest (limit {QUANT_GRAD_RTOL}); "
+        f"{clipped:.4f} of the values clipped; {card_ms:.1f} ms on the card for the three, "
+        f"device {fmt_ms(dms)}")
+    return dict(card_ms=card_ms, device_ms=dms, grad_rel_err=errs, clipped=clipped)
+
+
+def phase_quant(dev):
+    """Run (x): the simulation tier's core on the card, then the sim-tier KV
+    append (`LayerKVCache.append(quantizer=)`): one fused K/V quantize-append
+    launch at (h)'s cache shape, bit-equal to the plain append of the
+    quantizer's QDQ'd k/v, then one flash decode over the cache."""
+    from fastforward_tpu_torch import quantization as tq
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.kernels.attention import (
+        flash_decode_int8,
+        flash_decode_int8_reference,
+    )
+    from fastforward_tpu_torch.quantization import affine
+    from fastforward_tpu_torch.serving.kv_cache import LayerKVCache
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(51)
+    K, N = QUANT_SHAPE
+    w = torch.randn(QUANT_SHAPE, generator=gen, device=dev) / K ** 0.5
+    out = {}
+    # per output channel, 8-bit, symmetric-range scales with offsets of a few levels
+    s_ch = (w.abs().amax(dim=0) / 127.0) * 0.8
+    o_ch = torch.randint(-3, 4, (N,), generator=gen, device=dev).float()
+    out["per_channel"] = _quant_case("per channel", w, s_ch, o_ch, (K, 1), 8, gen)
+    # per block of 128 along K, 4-bit
+    s_blk = (w.reshape(K // 128, 128, N).abs().amax(dim=1) / 7.0 * 0.9).reshape(-1)
+    o_blk = torch.randint(-1, 2, (K // 128 * N,), generator=gen, device=dev).float()
+    out["per_block"] = _quant_case("per block", w, s_blk, o_blk, (128, 1), 4, gen)
+    del w
+    # dynamic per row on the decode batch's activations
+    x = torch.randn((BATCH, 4096), generator=gen, device=dev) * 3
+    card = affine.quantize_dynamic_by_tile(x, tile_size=(1, 4096))
+    cpu = affine.quantize_dynamic_by_tile(x.cpu(), tile_size=(1, 4096))
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+        raise AssertionError("(x) dynamic per row: not bit-equal to the CPU copy's")
+    log(f"quant (x) dynamic per row ({BATCH}, 4096) 8-bit: grid values, scales and offsets "
+        f"bit-equal to the CPU copy's")
+
+    # the sim-tier KV append at (h)'s shape: B 192, 8 kv heads, d 128, INT8
+    class RowQuantizer:  # dynamic symmetric 8-bit per (batch, head, token) row
+        is_stub = False
+
+        def __call__(self, t):
+            return tq.quantize_dynamically(t, tq.PerChannel((0, 1, 2)), num_bits=8,
+                                           symmetric=True)
+
+    Hkv, D, H = 8, 128, 32
+    shape = (BATCH, Hkv, SLAB, D)
+    cache = LayerKVCache(
+        k=torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8),
+        v=torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8),
+        k_scale=torch.rand(shape[:3], generator=gen, device=dev) * 0.02,
+        v_scale=torch.rand(shape[:3], generator=gen, device=dev) * 0.02)
+    plain = LayerKVCache(*(t.cpu() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+    k_new, v_new = (torch.randn((BATCH, Hkv, 1, D), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+    pos = torch.randint(0, SLAB, (BATCH, 1), generator=gen, device=dev, dtype=torch.int32)
+    quantizer = RowQuantizer()
+    qdq = [t.cpu() for t in (quantizer(k_new).dequantize(), quantizer(v_new).dequantize())]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    cache.append(k_new, v_new, pos, quantizer=quantizer)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    if counts != {"kv_append_layer": 1}:
+        raise AssertionError(f"(x) sim-tier append: launch counts {counts}")
+    plain.append(*qdq, pos.cpu())
+    for f in ("k", "v", "k_scale", "v_scale"):
+        if not torch.equal(getattr(cache, f).cpu(), getattr(plain, f)):
+            raise AssertionError(f"(x) sim-tier append: {f} not bit-equal to the plain append")
+    q = torch.randn((BATCH, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = (pos[:, 0] + 1).contiguous()
+    reset_launch_counts()
+    att = flash_decode_int8(q, cache.k, cache.k_scale, cache.v, cache.v_scale, lengths)
+    torch.cuda.synchronize()
+    counts_fd = dict(launch_counts)
+    ref = flash_decode_int8_reference(q, cache.k, cache.k_scale, cache.v, cache.v_scale, lengths)
+    err = (att.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    log(f"quant (x) sim-tier KV append (B {BATCH}, {Hkv} kv heads, S {SLAB}, d {D}, INT8): "
+        f"launches {counts}, bit-equal to the plain append of the quantizer's QDQ'd k/v; flash "
+        f"decode over it: launches {counts_fd}, max err {err:.4g} of {top:.4g} (limit rtol "
+        f"{FLASH_RTOL}); phase work {time.perf_counter() - t0:.1f} s")
+    if counts_fd != {"flash_decode_layer": 1} or err > FLASH_RTOL * top:
+        raise AssertionError("(x) flash decode over the sim-tier cache off its plain version")
+    del cache, plain
+    torch.cuda.empty_cache()
+    out["kv"] = dict(append_counts=counts, flash_counts=counts_fd, flash_err=err)
+    return out
 
 
 SOURCES = {
@@ -3220,6 +3564,7 @@ def main():
         runs["s"] = {"counts": moe[BATCH]["counts"],
                      **{f"T{T}": {k: v for k, v in r.items() if k != "y"} for T, r in moe.items()}}
         runs["tu"] = timed("parallel", phase_parallel, dev, moe)
+        runs["x"] = timed("quant", phase_quant, dev)
     log(f"total {time.perf_counter() - t_all:.1f} s; work after the build "
         f"{sum(v for k, v in phases.items() if k != 'build'):.1f} s")
     kernels = []

@@ -1,5 +1,19 @@
-"""The serving flags the port reads, with the JAX package's names, defaults
-and parsing (`fastforward_tpu/flags.py`): an unset variable gives the
+"""The port's flags (`fastforward_tpu/flags.py`).
+
+Context flags (`flags.py:23-86`): a (getter, setter, context manager)
+triple each, backed by a `contextvars.ContextVar`, and the `context`
+decorator that runs a function under one of them:
+
+- ``strict_quantization`` (on): an operator refuses a quantized input it
+  would silently dequantize, and a `QuantizedTensor` refuses implicit
+  conversion (`quantization/quantized_array.py`);
+- ``export_mode`` (off): quantizers return quantize-dequantized plain
+  tensors in place of `QuantizedTensor`s;
+- ``use_kernels`` (on): quantized operators may dispatch to the low-bit
+  kernels, else everything runs the simulation tier.
+
+The serving flags the port reads, with the JAX package's names, defaults
+and parsing: an unset variable gives the
 default, the value ``"1"`` alone turns a boolean flag on, and an integer
 flag is ``int`` of its value.
 
@@ -38,7 +52,60 @@ The greedy head of `make_stacked_decode_loop`, read when the loop is made:
   lm_head, else f32 logits and their argmax.
 """
 
+import contextlib
+import functools
 import os
+from contextvars import ContextVar
+from typing import Any, Callable, Iterator
+
+_FLAGS: dict = {}
+
+
+def _context_flag(name: str, default: bool):
+    """A (getter, setter, context manager) triple for a boolean flag
+    (`flags.py:23`)."""
+    var: ContextVar = ContextVar(name, default=default)
+    _FLAGS[name] = var
+
+    def getter() -> bool:
+        return var.get()
+
+    def setter(value: bool) -> None:
+        var.set(bool(value))
+
+    @contextlib.contextmanager
+    def manager(value: bool = True) -> Iterator[None]:
+        token = var.set(bool(value))
+        try:
+            yield
+        finally:
+            var.reset(token)
+
+    getter.__name__ = f"get_{name}"
+    setter.__name__ = f"set_{name}"
+    manager.__name__ = name
+    return getter, setter, manager
+
+
+def context(flag_manager: Callable[[bool], Any], value: bool = True) -> Callable[..., Any]:
+    """Decorator running the wrapped function under ``flag_manager(value)``
+    (`flags.py:53`)."""
+
+    def decorator(func):
+        @functools.wraps(func)
+        def wrapper(*args, **kwargs):
+            with flag_manager(value):
+                return func(*args, **kwargs)
+
+        return wrapper
+
+    return decorator
+
+
+get_strict_quantization, set_strict_quantization, strict_quantization = _context_flag(
+    "strict_quantization", default=True)
+get_export_mode, set_export_mode, export_mode = _context_flag("export_mode", default=False)
+get_use_kernels, set_use_kernels, use_kernels = _context_flag("use_kernels", default=True)
 
 
 def _env_bool(name: str, default: bool) -> bool:

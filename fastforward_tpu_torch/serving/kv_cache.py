@@ -13,7 +13,9 @@ slice assignment; a bf16 cache takes the new rows as they are. A one-token
 write outside [0, S) writes nothing, as the JAX masked select and its
 kernel's oracle do. A block of T > 1 rows that would leave [0, S) raises:
 JAX's ``dynamic_update_slice`` would clamp it back inside the cache and
-write rows other than the positions name.
+write rows other than the positions name. A simulation-tier quantizer
+given to `append` quantize-dequantizes the new K/V before that write
+(`kv_cache.py:59-65`).
 """
 
 import dataclasses
@@ -95,15 +97,16 @@ class LayerKVCache:
                quantizer=None) -> "LayerKVCache":
         """Write (B, n_kv, T, d) entries at the per-row offsets of
         ``positions`` ((T,) or (B, T) absolute positions; a row writes from
-        its first), in place; returns a cache sharing the tensors. The
-        simulation tier's ``quantizer`` is not ported: anything but None or
-        a stub (``is_stub`` true or absent, as the JAX check reads it)
-        raises."""
+        its first), in place; returns a cache sharing the tensors. A
+        simulation-tier ``quantizer`` that is no stub (``is_stub`` false;
+        true or absent is a stub, as the JAX check reads it) is applied to
+        k_new and v_new first, a `QuantizedTensor` result dequantized
+        (`kv_cache.py:59-65`); the write below then takes that QDQ'd K/V."""
         if quantizer is not None and not getattr(quantizer, "is_stub", True):
-            raise NotImplementedError(
-                "the simulation tier's KV quantizer is not ported yet (ROADMAP.md, Queue 1 "
-                "item 7)"
-            )
+            from fastforward_tpu_torch.quantization.quantized_array import dequantize_if_quantized
+
+            k_new = dequantize_if_quantized(quantizer(k_new))
+            v_new = dequantize_if_quantized(quantizer(v_new))
         starts = row_starts(positions, k_new.shape[0])
         return self.write(k_new, v_new, starts, starts if k_new.shape[2] == 1 else starts.tolist())
 

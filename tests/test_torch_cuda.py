@@ -2202,3 +2202,107 @@ def test_fused_tail_any_group(dev, M, K1, H, inter, g):
     assert diff.max().item() <= 1 and diff.count_nonzero().item() <= max(4, ghq.numel() // 1000)
     err = (gu.float() - rgu.float()).abs().max().item()
     assert err <= 8e-3 * rgu.float().abs().max().item()
+
+
+# --- the simulation tier's core and the sim-tier KV append (run (x)) --------
+
+
+@pytest.mark.parametrize("tile,bits", [((256, 1), 8), ((64, 1), 4), ((1, 96), 4)])
+def test_quantize_by_tile_on_the_card_matches_the_cpu(dev, tile, bits):
+    from fastforward_tpu_torch.quantization import affine
+
+    gen = _gen(dev, 61)
+    x = torch.randn((256, 96), generator=gen, device=dev)
+    n = (256 // tile[0]) * (96 // tile[1])
+    s = torch.rand((n,), generator=gen, device=dev) * 0.05 + 0.01
+    o = torch.randint(-2, 3, (n,), generator=gen, device=dev).float()
+    g = torch.randn((256, 96), generator=gen, device=dev)
+
+    def run(d, s, o, g):
+        d, s, o = (t.clone().requires_grad_() for t in (d, s, o))
+        q = affine.quantize_by_tile(d, s, o, tile_size=tile, num_bits=bits)
+        y = affine.dequantize_by_tile(q, s, o, tile_size=tile)
+        q.backward(g)
+        return [t.detach().cpu() for t in (q, y, d.grad, s.grad, o.grad)]
+
+    card, cpu = run(x, s, o, g), run(*(t.cpu() for t in (x, s, o, g)))
+    for a, b in zip(card[:3], cpu[:3]):  # forwards and the data gradient bit-equal
+        assert torch.equal(a, b)
+    for a, b in zip(card[3:], cpu[3:]):  # per-tile sums in another order
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+    dyn = affine.quantize_dynamic_by_tile(x, tile_size=(1, 96))
+    for a, b in zip(dyn, affine.quantize_dynamic_by_tile(x.cpu(), tile_size=(1, 96))):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sim_tier_kv_append_one_fused_launch_bit_equal(dev):
+    from fastforward_tpu_torch import quantization as tq
+    from fastforward_tpu_torch.kernels import reset_launch_counts
+    from fastforward_tpu_torch.serving.kv_cache import LayerKVCache
+
+    class Quantizer:
+        is_stub = False
+
+        def __call__(self, t):
+            return tq.quantize_dynamically(t, tq.PerChannel((0, 1, 2)), num_bits=8,
+                                           symmetric=True)
+
+    gen = _gen(dev, 62)
+    B, Hkv, S, D = 5, 2, 64, 128
+    cache = LayerKVCache(*(_ri(gen, -127, 128, (B, Hkv, S, D), torch.int8, dev) for _ in range(2)),
+                         *(torch.rand((B, Hkv, S), generator=gen, device=dev) for _ in range(2)))
+    plain = LayerKVCache(*(t.cpu() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+    k, v = (torch.randn((B, Hkv, 1, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.tensor([[0], [63], [7], [31], [40]], dtype=torch.int32, device=dev)
+    qz = Quantizer()
+    qdq = [qz(t).dequantize().cpu() for t in (k, v)]
+    reset_launch_counts()
+    cache.append(k, v, pos, quantizer=qz)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"kv_append_layer": 1}
+    plain.append(*qdq, pos.cpu())
+    for f in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(cache, f).cpu(), getattr(plain, f))
+
+
+# --- ring attention and the pipeline, two ranks on the card (runs (v), (w)) --
+
+
+def test_ring_attention_and_pipeline_two_ranks_on_the_card(dev):
+    import numpy as np
+
+    from fastforward_tpu_torch.serving.engine import QuantLinear, quantize_linear
+    from tests import torch_dist
+
+    gen = _gen(dev, 63)
+    q, k, v = (torch.randn((1, 4, 256, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qls = [quantize_linear(torch.randn((256, 256), generator=gen, device=dev) / 16, "w4a8_2l",
+                           128) for _ in range(4)]
+    layers = QuantLinear(torch.stack([q_.data for q_ in qls]),
+                         torch.stack([q_.scale for q_ in qls]), "w4a8_2l", 128,
+                         torch.stack([q_.mult for q_ in qls]), qls[0].paired)
+    x = torch.randn((16, 256), generator=gen, device=dev)
+    payload = dict(q=q.float().cpu().numpy(), k=k.float().cpu().numpy(),
+                   v=v.float().cpu().numpy(), x=x.cpu().numpy(), microbatches=4,
+                   layers=dict(data=layers.data.cpu().numpy(), scale=layers.scale.cpu().numpy(),
+                               mult=layers.mult.cpu().numpy(), paired=layers.paired,
+                               group_size=128))
+    ranks = torch_dist.run(2, "parallel_cuda", payload)
+    # ring attention: both ranks equal, within one bf16 ulp of dense attention
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / 8.0
+    scores = torch.where(torch.ones((256, 256), dtype=torch.bool, device=dev).tril(), scores,
+                         -1e30)
+    dense = torch.matmul(torch.softmax(scores, -1).to(torch.bfloat16), v).float().cpu().numpy()
+    for res in ranks:
+        np.testing.assert_array_equal(res["ring"], ranks[0]["ring"])
+        assert np.abs(res["ring"] - dense).max() <= 8e-3 * np.abs(dense).max()
+    # the pipeline: bit-equal to the sequential loop, 2 layers x 4
+    # microbatches of row-5 launches a rank
+    h = x
+    for ql in qls:
+        h = ql(h, out_dtype=torch.float32)
+    for res in ranks:
+        np.testing.assert_array_equal(res["pipeline"], h.cpu().numpy())
+        assert res["counts"] == {"w4a8_gemv": 8}

@@ -1,8 +1,9 @@
 """The port imports torch and never JAX or the JAX package.
 
 Every module of `fastforward_tpu_torch` is imported in a fresh Python
-process; afterwards neither ``jax``, any ``fastforward_tpu.`` module nor
-``safetensors`` may be loaded there. The kernel build table names every CUDA source of
+process; afterwards neither ``jax``, any ``fastforward_tpu.`` module,
+``safetensors`` nor ``yaml`` (PyYAML, which the JAX package's granularities
+import for their YAML registration) may be loaded there. The kernel build table names every CUDA source of
 `csrc/`, and each C entry point it binds is defined in its source.
 """
 
@@ -26,7 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(fastforward_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "fastforward_tpu", "safetensors"))
+                if m.split(".")[0] in ("jax", "fastforward_tpu", "safetensors", "yaml"))
 print(json.dumps({"modules": names, "forbidden": loaded}))
 """
 
@@ -39,7 +40,13 @@ def test_port_modules_import_no_jax():
                  "serving.kv_cache", "serving.engine", "serving.loader",
                  "kernels.paged_attention", "kernels.matmul", "kernels.kv_update", "flags",
                  "scripts.probe_int4", "serving.moe", "parallel", "parallel.mesh",
-                 "parallel.tp_serving", "parallel.sharding", "parallel.multihost"):
+                 "parallel.tp_serving", "parallel.sharding", "parallel.multihost",
+                 "parallel.context", "parallel.pipeline", "parallel.dryrun", "parallel.transport",
+                 "exceptions", "dispatcher", "forward_override", "quantization",
+                 "quantization.tiling", "quantization.granularity", "quantization.function",
+                 "quantization.quantized_array", "quantization.affine",
+                 "quantization.affine_function", "quantization.ste", "quantization.random",
+                 "quantization.strict_quantization"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))

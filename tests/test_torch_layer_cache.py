@@ -169,7 +169,51 @@ def test_read_mask_and_create_match_jax():
         assert moved.length == 7 and moved.layer(2) is tc.layer(2)
 
 
+class _SimQuantizer:
+    """A simulation-tier KV quantizer on either package: dynamic symmetric
+    8-bit per (batch, head, token) row, or static 4-bit per tensor (scale
+    0.05); not a stub."""
+
+    is_stub = False
+
+    def __init__(self, pkg, kind):
+        self.pkg, self.kind = pkg, kind
+
+    def __call__(self, x):
+        if self.kind == "dynamic":
+            return self.pkg.quantize_dynamically(x, self.pkg.PerChannel((0, 1, 2)), num_bits=8,
+                                                 symmetric=True)
+        return self.pkg.quantize_per_tensor(x, 0.05, num_bits=4)
+
+
+def _sim_append_parity(quantized, T, kind):
+    """The port's append with a real quantizer against JAX's (jitted without
+    excess precision), from the same cache and new rows."""
+    from fastforward_tpu import quantization as jq
+    from fastforward_tpu_torch import quantization as tq
+
+    B, H, S, D = 3, 2, 32, 16
+    cache = _kv_state(B, H, S, D, seed=7 + T, quantized=quantized)
+    rs = np.random.RandomState(8)
+    kn, vn = (rs.randn(B, H, T, D).astype(np.float32) for _ in range(2))
+    pos = np.arange(T, dtype=np.int32) + 5
+    jl, tl = _jax_layer(cache, quantized), _torch_layer(cache, quantized)
+    jquant = _SimQuantizer(jq, kind)
+    args = (jl, *(jnp.asarray(a).astype(jnp.bfloat16) for a in (kn, vn)), jnp.asarray(pos))
+    ja = jax.jit(lambda c, k, v, p: c.append(k, v, p, quantizer=jquant)).lower(*args).compile(
+        compiler_options=EXACT)(*args)
+    ta = tl.append(*(_t(a).to(torch.bfloat16) for a in (kn, vn)), _t(pos),
+                   quantizer=_SimQuantizer(tq, kind))
+    for f in ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v"):
+        _eq(getattr(ja, f), getattr(ta, f))
+    # the quantizer acted: without it the same append writes other values
+    plain = _torch_layer(cache, quantized).append(*(_t(a).to(torch.bfloat16) for a in (kn, vn)),
+                                                  _t(pos))
+    assert not torch.equal(plain.k, ta.k)
+
+
 def test_simulation_tier_quantizer_is_not_ported():
+    # a stub changes nothing; a real quantizer gives JAX's append bit for bit
     B, H, S, D = 1, 1, 8, 16
     tl = _torch_layer(_kv_state(B, H, S, D, seed=7, quantized=False), False)
     k = torch.ones((B, H, 1, D), dtype=torch.bfloat16)
@@ -177,13 +221,17 @@ def test_simulation_tier_quantizer_is_not_ported():
     class Stub:
         is_stub = True
 
-    class Real:
-        is_stub = False
-
     tl.append(k, k, torch.tensor([2]), quantizer=Stub())  # a stub changes nothing
     assert torch.equal(tl.k[0, 0, 2], k[0, 0, 0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tl.append(k, k, torch.tensor([3]), quantizer=Real())
+    # the decode step's int8 append (the fused quantize-append at T = 1)
+    _sim_append_parity(True, 1, "dynamic")
+
+
+@pytest.mark.parametrize("quantized,T,kind", [(True, 1, "static"), (True, 4, "dynamic"),
+                                              (True, 4, "static"), (False, 1, "dynamic"),
+                                              (False, 4, "static")])
+def test_simulation_tier_quantizer_matches_jax(quantized, T, kind):
+    _sim_append_parity(quantized, T, kind)
 
 
 @pytest.mark.parametrize("G", [1, 4])

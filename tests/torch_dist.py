@@ -220,3 +220,86 @@ def multihost(rank, world, payload):
     _MESHES[(("dcn", 2), ("model", 2))] = mesh
     res["tp"] = tp(rank, world, payload)
     return res
+
+
+def context_pipeline(rank, world, payload):
+    """Ring attention (`parallel/context.py`), the GPipe pipeline
+    (`parallel/pipeline.py`) with its errors, and the dry run
+    (`parallel/dryrun.py`)."""
+    from fastforward_tpu_torch.parallel import (
+        context_parallel_attention,
+        dryrun_multichip,
+        pipeline_forward,
+    )
+    from fastforward_tpu_torch.serving.engine import QuantLinear
+
+    res = {"ring": [], "pipeline": [], "errors": {}}
+    for case in payload["ring"]:
+        mesh = _mesh(case["axes"])
+        dtype = getattr(torch, case["dtype"])
+        q, k, v = (torch.from_numpy(case[n]).to(dtype) for n in "qkv")
+        res["ring"].append(_np(context_parallel_attention(mesh, q, k, v, "sp",
+                                                          causal=case["causal"])))
+
+    def stacked(a):
+        return QuantLinear(data=torch.from_numpy(a["data"]), scale=torch.from_numpy(a["scale"]),
+                           mode="w4a8_2l", group_size=a["group_size"],
+                           mult=torch.from_numpy(a["mult"]), paired=a["paired"])
+
+    def layer_fn(ql, h):
+        return ql(h, out_dtype=torch.float32)
+
+    layers = stacked(payload["layers"])
+    x = torch.from_numpy(payload["x"])
+    h = x
+    for i in range(layers.data.shape[0]):  # the sequential loop, one process
+        h = layer_fn(QuantLinear(layers.data[i], layers.scale[i], "w4a8_2l",
+                                 layers.group_size, layers.mult[i], layers.paired), h)
+    res["sequential"] = _np(h)
+    for case in payload["pipeline"]:
+        mesh = _mesh(case["axes"])
+        res["pipeline"].append(_np(pipeline_forward(mesh, layers, x, layer_fn,
+                                                    n_microbatches=case["microbatches"])))
+    mesh = _mesh({"rep": world // 2, "stage": 2})
+    for name, call in (
+            ("batch", lambda: pipeline_forward(mesh, layers, x[:5], layer_fn, n_microbatches=2)),
+            ("layers", lambda: pipeline_forward(mesh, QuantLinear(
+                layers.data[:3], layers.scale[:3], "w4a8_2l", layers.group_size,
+                layers.mult[:3], layers.paired), x, layer_fn, n_microbatches=2)),
+            ("ring", lambda: context_parallel_attention(
+                _mesh({"sp": world}), *(torch.zeros(1, 2, 6, 8) for _ in range(3))))):
+        try:
+            call()
+        except ValueError as e:
+            res["errors"][name] = str(e)
+    res["dryrun"] = dryrun_multichip("cpu")
+    return res
+
+
+def parallel_cuda(rank, world, payload):
+    """Ring attention and the pipeline with every rank on cuda:0 (gloo:
+    the hops cross host memory); run by the card-only tests."""
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.parallel import (
+        context_parallel_attention,
+        make_mesh,
+        pipeline_forward,
+    )
+    from fastforward_tpu_torch.serving.engine import QuantLinear
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    q, k, v = (torch.from_numpy(payload[n]).to(dev, torch.bfloat16) for n in "qkv")
+    ring = context_parallel_attention(make_mesh({"sp": world}), q, k, v, "sp")
+    a = payload["layers"]
+    layers = QuantLinear(data=torch.from_numpy(a["data"]).to(dev),
+                         scale=torch.from_numpy(a["scale"]).to(dev), mode="w4a8_2l",
+                         group_size=a["group_size"], mult=torch.from_numpy(a["mult"]).to(dev),
+                         paired=a["paired"])
+    reset_launch_counts()
+    x = torch.from_numpy(payload["x"]).to(dev)
+    y = pipeline_forward(make_mesh({"stage": world}), layers, x,
+                         lambda ql, h: ql(h, out_dtype=torch.float32),
+                         n_microbatches=payload["microbatches"])
+    torch.cuda.synchronize()
+    return {"ring": _np(ring.cpu()), "pipeline": _np(y.cpu()), "counts": dict(launch_counts)}
