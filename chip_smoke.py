@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Eight phases,
+Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Nine phases,
 each raising on failure:
 
 1. build  — compile every CUDA kernel of the port from `csrc/` (one nvcc
@@ -155,7 +155,22 @@ each raising on failure:
    same functions on a CPU copy (scale and offset gradients within
    QUANT_GRAD_RTOL); then `LayerKVCache.append(quantizer=)` at (h)'s cache
    shape: one fused K/V quantize-append launch, bit-equal to the plain
-   append of the quantizer's QDQ'd k/v, and one flash decode over it.
+   append of the quantizer's QDQ'd k/v, and one flash decode over it;
+9. sim — (y) the FastForward workflow on one Llama-3-8B layer's seven
+   projections (bf16 `torch.nn.Linear`s, no bias): `quantize_model`, an
+   int8 symmetric per-output-channel `LinearQuantizer` on each weight
+   (min-max range), then each projection at M = 192 and 8 through
+   `ops.linear`, which the dispatcher sends to the W8A8 GEMM (row 19):
+   exactly 7 launches a pass, each output bit-equal to
+   `matmul_w8a8_reference` on the same `quantize_rowwise` operands, within
+   SIM_RMS (relative RMS) of the dense fallback `F.linear(x,
+   qt.dequantize())`; `F.linear(x, qt)` through `__torch_function__` one
+   launch and the same bits; `qt * 2.0`, `-qt`, `torch.transpose` and a
+   per-tensor `torch.reshape` equal to a CPU copy's; `qt + qt` refused
+   under strict quantization, the dense sum without it; after
+   `freeze_parameters` no launch and the dense fallback's bits. Wall and
+   device ms a pass, split into the weight quantizers, the transposed
+   weight copy, `quantize_rowwise` and row 19; the peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -320,20 +335,21 @@ class ProfileLost(RuntimeError):
     """The profiler lost records of every try at a profile."""
 
 
-def device_ms(fn, n=20, launches=None):
+def device_ms(fn, n=20, launches=None, tries=8):
     """Kernel time on the card per call of ``fn`` (the sum of the device
     time of every kernel launched), from a profile of ``n`` calls that
     recorded all ``n * launches`` of their launches (``launches``: given,
-    or `launches_per_call`); None ("not measured") when the profiler
-    records none, or loses records of every try: a time is a measurement,
-    not a check of the kernel, and none is made up."""
+    or `launches_per_call`; at most ``tries`` profiles); None ("not
+    measured") when the profiler records none, or loses records of every
+    try: a time is a measurement, not a check of the kernel, and none is
+    made up."""
     fn()
     if launches is None:
         launches = launches_per_call(fn)
     if launches == 0:
         return None
     try:
-        return sum(r[0] for r in _profile(fn, n, launches)[1])
+        return sum(r[0] for r in _profile(fn, n, launches, tries)[1])
     except ProfileLost as e:
         log(f"  device time not measured: {e}")
         return None
@@ -2775,6 +2791,9 @@ PP_LAYERS, PP_WIDTH, PP_MICRO = 32, 4096, 4
 # Scale and offset gradients (per-tile sums in another order on the card)
 # within this share of the largest |gradient| of the CPU copy's.
 QUANT_SHAPE, QUANT_GRAD_RTOL = (4096, 14336), 1e-6
+# Run (y): largest relative RMS of a projection's W8A8 output against the
+# dense fallback on the same dequantized weight (the int8 activations)
+SIM_RMS = 2e-2
 
 
 def _moe_inputs(dev):
@@ -3408,6 +3427,180 @@ def phase_quant(dev):
     return out
 
 
+def _sim_layer(dev, gen):
+    """One Llama-3-8B layer's seven projections as bf16 `torch.nn.Linear`s
+    (weights N(0, 1 / in)), converted by `quantize_model`, each weight given
+    an int8 symmetric per-output-channel `LinearQuantizer` at its min-max
+    range."""
+    from fastforward_tpu_torch import nn as tnn
+    from fastforward_tpu_torch import quantization as tq
+
+    layer = torch.nn.ModuleDict()
+    for name, (K, N) in LAYER_PROJ.items():
+        lin = torch.nn.Linear(K, N, bias=False, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn((N, K), generator=gen, device=dev) / K ** 0.5)
+        layer[name] = lin
+    tnn.quantize_model(layer)
+    for lin in layer.values():
+        quant = tnn.LinearQuantizer(8, symmetric=True, granularity=tq.PerChannel(0),
+                                    quantized_dtype=torch.int8)
+        quant.quantization_range = (lin.weight.amin(dim=1), lin.weight.amax(dim=1))
+        lin.weight_quantizer = quant
+    return layer
+
+
+def _cpu_copy(qt):
+    from fastforward_tpu_torch.quantization import QuantizedTensor
+
+    scale = qt.quant_args().scale
+    scale = scale.detach().cpu() if isinstance(scale, torch.Tensor) else scale
+    return QuantizedTensor(qt.raw_data.cpu(), qt.quantization_context.with_changes(scale=scale))
+
+
+def _same_grid(what, card, cpu):
+    a, b = card.quant_args(), cpu.quant_args()
+    if not (torch.equal(card.raw_data.cpu(), cpu.raw_data)
+            and torch.equal(torch.as_tensor(a.scale).detach().cpu(), torch.as_tensor(b.scale))
+            and a.granularity == b.granularity):
+        raise AssertionError(f"(y) {what}: grid, scale or granularity off the CPU copy's")
+
+
+def phase_sim(dev):
+    """Run (y): `quantize_model` on one Llama-3-8B layer's seven
+    projections, int8 per-channel weight quantizers, the projections through
+    `ops.linear` and the dispatcher onto row 19 at M = 192 and 8; checks,
+    times and `freeze_parameters` as the module docstring says."""
+    import torch.nn.functional as F
+
+    from fastforward_tpu_torch import flags
+    from fastforward_tpu_torch import quantization as tq
+    from fastforward_tpu_torch.exceptions import QuantizationError
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.kernels.matmul import (
+        matmul_w8a8,
+        matmul_w8a8_reference,
+        quantize_rowwise,
+    )
+    from fastforward_tpu_torch.quantization.freeze import freeze_parameters
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(61)
+    torch.cuda.synchronize(dev)  # the context exists before the memory statistics are read
+    base = torch.cuda.memory_allocated(dev)
+    layer = _sim_layer(dev, gen)
+    out = {"rel_rms": {}, "M": {}}
+    with torch.no_grad():
+        for M in (BATCH, 8):
+            xs = {K: torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                  for K in {k for k, _ in LAYER_PROJ.values()}}
+
+            def one_pass():
+                return {name: lin(xs[LAYER_PROJ[name][0]]) for name, lin in layer.items()}
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            reset_launch_counts()
+            ys = one_pass()
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+            # the layer's weights and what the pass allocates above them
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+            pass_peak = (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 30
+            if counts != {"w8a8_gemm": 7}:
+                raise AssertionError(f"(y) M={M}: launch counts {counts}, expected 7 w8a8_gemm")
+            qts, ops_in = {}, {}
+            for name, lin in layer.items():
+                x = xs[LAYER_PROJ[name][0]]
+                qt = lin.weight_quantizer(lin.weight)
+                x_q, x_s = quantize_rowwise(x)
+                w_t = qt.raw_data.t().contiguous()
+                w_s = qt.quant_args().scale.float().reshape(-1)
+                ref = matmul_w8a8_reference(x_q, x_s, w_t, w_s, out_dtype=torch.bfloat16)
+                if not torch.equal(ys[name], ref):
+                    raise AssertionError(f"(y) M={M} {name}: row 19 off matmul_w8a8_reference "
+                                         f"(err {max_err(ys[name], ref):.3g})")
+                dense = F.linear(x, qt.dequantize())
+                rms = _rel_rms(ys[name], dense)
+                out["rel_rms"][f"{name} M={M}"] = rms
+                if rms > SIM_RMS:
+                    raise AssertionError(f"(y) M={M} {name}: relative RMS {rms:.4g} against the "
+                                         f"dense fallback, limit {SIM_RMS}")
+                reset_launch_counts()
+                routed = F.linear(x, qt)
+                torch.cuda.synchronize()
+                if dict(launch_counts) != {"w8a8_gemm": 1} or not torch.equal(routed, ys[name]):
+                    raise AssertionError(f"(y) M={M} {name}: F.linear on the QuantizedTensor "
+                                         f"launched {dict(launch_counts)}, or other bits")
+                qts[name], ops_in[name] = qt, (x, x_q, x_s, w_t, w_s)
+            # the pass split into its parts, each timed alone on the same inputs
+            parts = {
+                "pass": one_pass,
+                "weight quantizers": lambda: [lin.weight_quantizer(lin.weight)
+                                              for lin in layer.values()],
+                "transpose copy": lambda: [qt.raw_data.t().contiguous() for qt in qts.values()],
+                "quantize_rowwise": lambda: [quantize_rowwise(o[0]) for o in ops_in.values()],
+                "row 19": lambda: [matmul_w8a8(o[1], o[2], o[3], o[4], out_dtype=torch.bfloat16)
+                                   for o in ops_in.values()],
+            }
+            # two profiles at most a part: a profiler that loses records
+            # retries after half a second, and (y) is to stay cheap
+            times = {k: dict(wall_ms=median_ms(fn, n=10), device_ms=device_ms(fn, n=5, tries=2))
+                     for k, fn in parts.items()}
+            out["M"][M] = dict(times=times, peak_gib=peak, pass_peak_gib=pass_peak)
+            log(f"sim (y) M={M}: 7 w8a8_gemm launches a pass, each bit-equal to "
+                f"matmul_w8a8_reference; relative RMS against the dense fallback up to "
+                f"{max(v for k, v in out['rel_rms'].items() if k.endswith(f'M={M}')):.4g} "
+                f"(limit {SIM_RMS}); F.linear(x, qt) one launch, same bits; peak "
+                f"{peak:.2f} GiB above the phase's start, {pass_peak:.2f} GiB above the pass's")
+            for k, v in times.items():
+                log(f"sim (y) M={M} {k}: wall {v['wall_ms']:.4f} ms, device "
+                    f"{fmt_ms(v['device_ms'])}")
+            if M != 8:
+                del ys, ops_in, parts
+        # the QuantizedTensor operators against a CPU copy (strict quantization on)
+        qt = qts["q"]
+        cpu = _cpu_copy(qt)
+        for what, fn in (("qt * 2.0", lambda t: t * 2.0), ("-qt", lambda t: -t),
+                         ("torch.transpose", lambda t: torch.transpose(t, 0, 1))):
+            _same_grid(what, fn(qt), fn(cpu))
+        w = layer["q"].weight
+        qpt = tq.quantize_per_tensor(w, (w.abs().amax().float() / 127).item(),
+                                     quantized_dtype=torch.int8)
+        _same_grid("torch.reshape", torch.reshape(qpt, (-1, 1024)),
+                   torch.reshape(_cpu_copy(qpt), (-1, 1024)))
+        try:
+            qt + qt
+        except QuantizationError:
+            pass
+        else:
+            raise AssertionError("(y) qt + qt under strict quantization: no QuantizationError")
+        with flags.strict_quantization(False):
+            if not torch.equal(qt + qt, qt.dequantize() + qt.dequantize()):
+                raise AssertionError("(y) qt + qt without strict quantization: not the dense sum")
+        # frozen: the weights baked to their grid, no launch, the dense fallback's bits
+        deq = {name: qts[name].dequantize() for name in layer}
+        handles = freeze_parameters(layer)
+        reset_launch_counts()
+        with flags.strict_quantization(False):
+            frozen = {name: lin(xs[LAYER_PROJ[name][0]]) for name, lin in layer.items()}
+        torch.cuda.synchronize()
+        if len(handles) != 7 or dict(launch_counts):
+            raise AssertionError(f"(y) frozen: {len(handles)} handles, launches "
+                                 f"{dict(launch_counts)}")
+        for name in layer:
+            if not torch.equal(frozen[name], F.linear(xs[LAYER_PROJ[name][0]], deq[name])):
+                raise AssertionError(f"(y) frozen {name}: not the dense fallback's bits")
+    log(f"sim (y): QuantizedTensor operators equal to the CPU copy's, qt + qt refused under "
+        f"strict quantization; frozen: 0 launches, the dense fallback's bits; phase work "
+        f"{time.perf_counter() - t0:.1f} s")
+    del layer, qts, ops_in, deq, frozen
+    torch.cuda.empty_cache()
+    out["counts"] = {"w8a8_gemm": 7}
+    return out
+
+
 SOURCES = {
     "a4_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                 "fastforward_tpu/kernels/matmul.py:1406 (body :1342)"),
@@ -3565,6 +3758,7 @@ def main():
                      **{f"T{T}": {k: v for k, v in r.items() if k != "y"} for T, r in moe.items()}}
         runs["tu"] = timed("parallel", phase_parallel, dev, moe)
         runs["x"] = timed("quant", phase_quant, dev)
+        runs["y"] = timed("sim", phase_sim, dev)
     log(f"total {time.perf_counter() - t_all:.1f} s; work after the build "
         f"{sum(v for k, v in phases.items() if k != 'build'):.1f} s")
     kernels = []

@@ -9,8 +9,10 @@ decorator that runs a function under one of them:
   conversion (`quantization/quantized_array.py`);
 - ``export_mode`` (off): quantizers return quantize-dequantized plain
   tensors in place of `QuantizedTensor`s;
-- ``use_kernels`` (on): quantized operators may dispatch to the low-bit
-  kernels, else everything runs the simulation tier.
+- ``use_kernels`` (on): declared as the JAX package declares it, to let
+  quantized operators dispatch to the low-bit kernels; no code of either
+  package reads it (the dispatcher sends a matching call to its kernel
+  whatever its value).
 
 The serving flags the port reads, with the JAX package's names, defaults
 and parsing: an unset variable gives the

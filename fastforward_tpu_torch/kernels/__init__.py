@@ -1,7 +1,8 @@
 """Kernels of the port: packing, the two-level int4 GEMVs, the
 float-scale W8A8 GEMM and W4A8 / W4A16 GEMVs, the prefill dequant, the
 fused W4A8 layer tail, KV append and flash attention over the slab, one
-layer's cache and the paged pool. Each CUDA wrapper keeps its plain
+layer's cache and the paged pool; importing the package registers the W8A8
+GEMM for `ops.linear` on an int8 per-channel weight (`dispatch.py`). Each CUDA wrapper keeps its plain
 PyTorch version beside it and counts its launches in `launch_counts`.
 The exported names are the JAX package's (`fastforward_tpu/kernels`)."""
 
@@ -30,6 +31,7 @@ from fastforward_tpu_torch.kernels.packing import (
     unpack_int4,
     unpack_uint4_offset,
 )
+from fastforward_tpu_torch.kernels import dispatch as _dispatch  # noqa: F401  (registers kernels)
 
 __all__ = [
     "launch_counts",

@@ -18,9 +18,10 @@ asserting JAX's shapes:
 Each rank returns the gathered global shapes; rank 0 prints one summary
 line, as JAX's does. A CUDA run takes head dim 128 and hidden 1,024 (8 x
 128) where the flagship has 32 and 256: the flash-decode kernel takes head
-dim 128 only. JAX's QAT training step (`__graft_entry__.py:178-231`) needs
-the port of ``nn/`` (ROADMAP Queue 1 item 9) and is not run; its place in
-the summary line says so. Weights are the port's random generators', not
+dim 128 only. JAX's QAT training step (`__graft_entry__.py:178-231`)
+configures its quantizers through ``QuantizationConfig``, whose module
+(``quant_init.py``, ROADMAP Queue 1 item 9) is not ported yet, and is not
+run; its place in the summary line says so. Weights are the port's random generators', not
 JAX's bits.
 """
 
@@ -179,7 +180,7 @@ def dryrun_multichip(device=None) -> dict:
     shapes["line"] = (
         f"dryrun_multichip OK: mesh={shapes['mesh']}, serve logits {shapes['serve']}, "
         f"paged-tp logits {shapes['paged']} (pool {shapes['pool']}), tp-decode-loop tokens "
-        f"{shapes['loop']}, qat not run (needs nn/, ROADMAP Queue 1 item 9), "
+        f"{shapes['loop']}, qat not run (needs quant_init.py, ROADMAP Queue 1 item 9), "
         f"sp {shapes['sp']}, pp {shapes['pp']}, ep {shapes['ep']}")
     if dist.get_rank() == 0:
         print(shapes["line"], flush=True)

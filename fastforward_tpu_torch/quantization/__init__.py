@@ -1,9 +1,10 @@
 """The simulation tier's core, ported from `fastforward_tpu/quantization/`:
 tiling, granularities, the quantization-function framework, `QuantizedTensor`,
 affine quantization with its LSQ/STE gradients, straight-through
-estimators, random quantized tensors and per-module strict quantization.
-``freeze``, ``quantizer_annotations`` and the package's ``overrides`` need
-``nn/`` and come with it (ROADMAP Queue 1 item 9)."""
+estimators, random quantized tensors and per-module strict quantization; ``freeze``
+(baking weight quantizers into their parameters) and
+``quantizer_annotations`` (the operator that fed each quantizer), which
+import ``nn/`` and so are imported from their modules, not here."""
 
 from fastforward_tpu_torch.quantization import affine, granularity, tiling
 from fastforward_tpu_torch.quantization.affine import (

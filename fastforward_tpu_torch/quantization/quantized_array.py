@@ -11,10 +11,20 @@ Its API is JAX's: ``raw_data``, ``quant_args()``, ``dequantize()``,
 Implicit conversion to an array (``numpy.asarray``, the counterpart of
 ``__jax_array__``) dequantizes, and under strict quantization raises
 `QuantizationError` instead. The Python operators (``+ - * / @``, unary
-``-``) route through the quantized operators of ``ops/`` in the JAX
-package; those and the ``__torch_function__`` routing of torch functions
-come with the port of ``ops/`` (ROADMAP Queue 1 item 8), and until then the
-operators raise `NotImplementedError`.
+``-``) route through the quantized operators of `fastforward_tpu_torch.ops`,
+the reflected ones with the operands in their written order (``1 - qt`` is
+``ops.sub(1, qt)``). ``__torch_function__`` does the same for torch
+functions: one whose qualified name is an alias of an operator
+(`ops.optable.torch_alias`: ``torch.nn.functional.linear``,
+``torch.matmul``, ``torch.Tensor.add`` for ``x + qt``, ...) runs that
+operator; any other gets the implicit conversion: `QuantizationError` under
+strict quantization, else the function on the dequantized arguments.
+
+The JAX ``_binop`` also asks autoquant's ``operator_site`` for an output
+quantizer (`fastforward_tpu/autoquant.py:218-239`). That hook comes with
+the port of autoquant (ROADMAP Queue 1 item 12); outside an autoquant
+context it returns ``(None, False)``, so calling the operator directly, as
+here, gives the same results.
 """
 
 from typing import Any
@@ -107,31 +117,31 @@ class QuantizedTensor:
         out = (out.float() if out.dtype == torch.bfloat16 else out).numpy()
         return out if dtype is None else out.astype(dtype)
 
-    # -- Python operators: the quantized operators of ops/ ------------------
+    # -- Python operators and torch functions → the quantized operators ----
 
-    def _binop(self, name: str, *args: Any):
-        raise NotImplementedError(
-            f"QuantizedTensor's operator {name!r} routes through the quantized operators "
-            "of ops/, not ported yet (ROADMAP.md, Queue 1 item 8); dequantize() first"
-        )
+    def _binop(self, name: str, other: Any, reverse: bool = False):
+        from fastforward_tpu_torch import ops
+
+        fn = getattr(ops, name)
+        return fn(other, self) if reverse else fn(self, other)
 
     def __add__(self, other):
         return self._binop("add", other)
 
     def __radd__(self, other):
-        return self._binop("add", other)
+        return self._binop("add", other, reverse=True)
 
     def __sub__(self, other):
         return self._binop("sub", other)
 
     def __rsub__(self, other):
-        return self._binop("sub", other)
+        return self._binop("sub", other, reverse=True)
 
     def __mul__(self, other):
         return self._binop("mul", other)
 
     def __rmul__(self, other):
-        return self._binop("mul", other)
+        return self._binop("mul", other, reverse=True)
 
     def __truediv__(self, other):
         return self._binop("div", other)
@@ -140,7 +150,34 @@ class QuantizedTensor:
         return self._binop("matmul", other)
 
     def __neg__(self):
-        return self._binop("negative")
+        from fastforward_tpu_torch import ops
+
+        return ops.negative(self)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        """A torch function called with a QuantizedTensor among its
+        arguments: its quantized operator where its qualified name is an
+        alias of one, else the implicit conversion."""
+        from fastforward_tpu_torch import flags, ops  # noqa: F401  (fills the table)
+        from fastforward_tpu_torch.exceptions import QuantizationError
+        from fastforward_tpu_torch.ops import optable
+
+        kwargs = kwargs or {}
+        spec = optable.torch_alias(func)
+        if spec is not None:
+            op_kwargs = optable.operator_kwargs(spec, kwargs)
+            if op_kwargs is not None:
+                return spec.wrapper(*args, **op_kwargs)
+        if flags.get_strict_quantization():
+            name = getattr(func, "__qualname__", None) or getattr(func, "__name__", repr(func))
+            raise QuantizationError(
+                f"A QuantizedTensor reached {name}, which is no quantized operator and would "
+                "implicitly dequantize it. Use the quantized operators, call .dequantize() "
+                "explicitly, or disable strict quantization."
+            )
+        return func(*optable._dequantize_tree(args),
+                    **{k: optable._dequantize_tree(v) for k, v in kwargs.items()})
 
     def __repr__(self) -> str:
         num_bits = getattr(self._context.quantization_params, "num_bits", "?")

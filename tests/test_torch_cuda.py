@@ -2306,3 +2306,55 @@ def test_ring_attention_and_pipeline_two_ranks_on_the_card(dev):
     for res in ranks:
         np.testing.assert_array_equal(res["pipeline"], h.cpu().numpy())
         assert res["counts"] == {"w4a8_gemv": 8}
+
+
+# --- the W8A8 dispatcher registration (kernels/dispatch.py) on a CUDA weight
+
+
+def _int8_weight(dev, gen, N, K):
+    from fastforward_tpu_torch import quantization as tq
+
+    w = torch.randn((N, K), generator=gen, device=dev) / K ** 0.5
+    return tq.quantize_per_channel(w, 0, w.abs().amax(dim=1) / 127, quantized_dtype=torch.int8)
+
+
+@pytest.mark.parametrize("lead,K,N,dtype,bias", [
+    ((8,), 4096, 1024, torch.bfloat16, False), ((192,), 1024, 520, torch.bfloat16, True),
+    ((2, 3), 256, 132, torch.float32, False), ((17,), 14336, 256, torch.float32, True),
+])
+def test_w8a8_dispatch_launches_row_19_on_a_cuda_weight(dev, lead, K, N, dtype, bias):
+    import torch.nn.functional as F
+
+    import fastforward_tpu_torch.kernels  # noqa: F401  (the registration)
+    from fastforward_tpu_torch import ops
+
+    gen = _gen(dev, K + N)
+    qt = _int8_weight(dev, gen, N, K)
+    x = torch.randn((*lead, K), generator=gen, device=dev).to(dtype)
+    b = torch.randn((N,), generator=gen, device=dev) if bias else None
+    before = _build.launch_counts["w8a8_gemm"]
+    out = ops.linear(x, qt, b)
+    assert _build.launch_counts["w8a8_gemm"] == before + 1
+    # the kernel against its plain version on the same operands, on the card
+    x_q, x_s = mm.quantize_rowwise(x.reshape(-1, K))
+    ref = mm.matmul_w8a8_reference(x_q, x_s, qt.raw_data.t().contiguous(),
+                                   qt.quant_args().scale.float(), b,
+                                   torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    assert out.dtype == ref.dtype and torch.equal(out, ref.reshape(*lead, N))
+    # torch's linear on the QuantizedTensor: the same call, one launch
+    assert torch.equal(F.linear(x, qt, b), out)
+    assert _build.launch_counts["w8a8_gemm"] == before + 2
+
+
+def test_w8a8_dispatch_raises_where_row_19_refuses(dev):
+    from fastforward_tpu_torch import ops
+
+    gen = _gen(dev, 5)
+    before = _build.launch_counts["w8a8_gemm"]
+    # K % 16 != 0: the kernel's ValueError, no plain route
+    with pytest.raises(ValueError, match="W8A8 GEMM kernel needs"):
+        ops.linear(torch.randn((4, 40), device=dev), _int8_weight(dev, gen, 16, 40))
+    # x on the CPU, the int8 weight on the card
+    with pytest.raises(ValueError, match="x is on cpu"):
+        ops.linear(torch.randn((4, 64)), _int8_weight(dev, gen, 16, 64))
+    assert _build.launch_counts["w8a8_gemm"] == before

@@ -46,7 +46,11 @@ def test_port_modules_import_no_jax():
                  "quantization.tiling", "quantization.granularity", "quantization.function",
                  "quantization.quantized_array", "quantization.affine",
                  "quantization.affine_function", "quantization.ste", "quantization.random",
-                 "quantization.strict_quantization"):
+                 "quantization.strict_quantization", "ops", "ops.optable", "ops.operators",
+                 "ops.sdpa", "ops.linear_quantized_ops", "ops.spec", "kernels.dispatch", "nn",
+                 "nn.functional", "nn.quantizer", "nn.linear_quantizer", "nn.quantized_module",
+                 "nn.layers", "nn.convert", "quantization.freeze",
+                 "quantization.quantizer_annotations", "overrides"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -14,7 +14,11 @@ Tolerances:
   order than XLA's) within GRAD_RTOL of the largest |gradient|;
 - straight-through estimators: forward bit-equal, gradient the identity;
 - `random_quantized` (no bits shared across generators): shape, dtypes,
-  grid range and ``dequantize`` equal to JAX's formula on the port's data.
+  grid range and ``dequantize`` equal to JAX's formula on the port's data;
+- `QuantizedTensor`'s Python operators against the jitted JAX
+  `QuantizedArray`'s: grid results bit-equal, float results within 8 f32
+  ulps of the largest (jitted XLA fuses the dequantize product into a
+  following sum).
 """
 
 import jax
@@ -372,11 +376,27 @@ def test_quantized_tensor_api_and_strict_conversion():
         np.testing.assert_array_equal(np.asarray(qt), qt.dequantize().numpy())
     with jflags.strict_quantization(True), pytest.raises(JQuantizationError):
         jnp.asarray(jq.quantize_per_tensor(jnp.asarray(x.numpy()), 0.01))
-    # the Python operators wait for ops/
-    for op in (lambda a: a + 1, lambda a: 1 - a, lambda a: a * 2, lambda a: a / 2,
-               lambda a: a @ x.T, lambda a: -a):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            op(qt)
+    # the Python operators run the quantized operators of ops/, as JAX's
+    # do, the reflected ones with the operands in their written order
+    qa = jq.quantize_per_tensor(jnp.asarray(x.numpy()), 0.01, num_bits=8,
+                                quantized_dtype=jnp.int8)
+    xt = jnp.asarray(x.numpy().T)
+    ops_ = (lambda a, m: a + 1, lambda a, m: 1 - a, lambda a, m: a - 1, lambda a, m: a * 2,
+            lambda a, m: 2 * a, lambda a, m: a / 2, lambda a, m: a @ m, lambda a, m: -a)
+    with tflags.strict_quantization(False), jflags.strict_quantization(False):
+        want = _jit(lambda a, m: [op(a, m) for op in ops_], qa, xt)
+        for op, w in zip(ops_, want):
+            got = op(qt, x.T)
+            if isinstance(w, jq.QuantizedArray):
+                assert isinstance(got, tq.QuantizedTensor)
+                _eq(w.raw_data, got.raw_data)
+                _eq(_jit(lambda a: a.dequantize(), w), got.dequantize())
+            else:  # jitted XLA fuses the dequantize product into the sum: 8 ulps
+                np.testing.assert_allclose(_np(got), _np(w), rtol=0,
+                                           atol=8 * 2.0 ** -23 * float(np.abs(_np(w)).max()))
+        assert not torch.equal(1 - qt, qt - 1)
+    with pytest.raises(QuantizationError):
+        _ = 1 - qt  # a dense result needs an output quantizer under strict quantization
     # re-quantization moves a QuantizedTensor onto the new grid via its reals
     again = tq.quantize_per_tensor(qt, 0.02)
     assert torch.equal(again.raw_data, tq.quantize_per_tensor(qt.dequantize(), 0.02).raw_data)
