@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Nine phases,
+Needs one NVIDIA GPU (built for the H100, sm_90a) and nvcc. Ten phases,
 each raising on failure:
 
 1. build  — compile every CUDA kernel of the port from `csrc/` (one nvcc
@@ -170,7 +170,26 @@ each raising on failure:
    under strict quantization, the dense sum without it; after
    `freeze_parameters` no launch and the dense fallback's bits. Wall and
    device ms a pass, split into the weight quantizers, the transposed
-   weight copy, `quantize_rowwise` and row 19; the peak memory.
+   weight copy, `quantize_rowwise` and row 19; the peak memory;
+10. quickstart — (z) the quickstart's simulation-to-serving path
+   (`docs/quickstart_llm.md:14-60`) on Llama-3-8B's widths at 2 layers
+   (bf16 weights from a seeded generator): `quantize_model`, three
+   `QuantizationConfig` rules (8-bit parameters per tensor; 4-bit
+   symmetric Linear weights in g128 blocks along the in-features, one per
+   output channel; 8-bit symmetric layer inputs per tensor), the quantizers
+   counted per bits, granularity and tag; `estimate_ranges` (smoothed
+   min-max) over 8 seeded 128-token sequences; GPTQ stage by stage
+   (`layerwise_optimize_staged` over ``layers/*``), each projection's
+   error on its captured inputs no larger than round-to-nearest's on the
+   same grid; `freeze_llama` (w4a8 g128, static input scales), each frozen
+   projection's grid, scales and bf16 weight bit-equal to the simulated
+   ones; then the per-layer serve (192 x 128 prefill, 32 greedy steps, INT8
+   cache) with every kernel call held against its plain version, launch
+   counts exact (rows 15, 16, 7, 21, 20), the prefill logits within
+   QUICKSTART_RMS (relative RMS) of the simulated model's on 16 prompts;
+   seconds for the configuration, a calibration batch, GPTQ a layer (its
+   Hessians, inversions and column loop), the freeze, prefill ms, decode
+   step ms, tok/s and the peak; at most QUICKSTART_BUDGET_S seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -3601,6 +3620,251 @@ def phase_sim(dev):
     return out
 
 
+QUICKSTART_LAYERS = 2       # (z): Llama-3-8B's widths, depth cut for GPTQ's column loop
+QUICKSTART_CALIB = (8, 128)  # (z): calibration sequences x tokens, seeded random ids
+QUICKSTART_SIM = 16          # (z): prompts whose simulated logits the frozen ones are held to
+QUICKSTART_RMS = 0.25        # (z): relative RMS of the frozen prefill logits to the simulated
+QUICKSTART_BUDGET_S = 60.0   # (z): the phase's time limit
+
+
+def _quickstart_rules(tnn, PerBlock):
+    """The quickstart's three `QuantizationConfig` rules
+    (`docs/quickstart_llm.md:27-46`, in torch's (out, in) layout): 8-bit per
+    tensor on the parameters, 4-bit symmetric g128 blocks along the
+    in-features (one per output channel) on Linear weights, 8-bit symmetric
+    per tensor on every layer input."""
+    from fastforward_tpu_torch import QuantizationConfig
+
+    cfg = QuantizationConfig()
+    cfg.add_rule("**/[quantizer:parameter]", tnn.LinearQuantizer, num_bits=8, symmetric=True)
+    cfg.add_rule("**/[cls:Linear]/[quantizer:parameter/weight]", tnn.LinearQuantizer,
+                 num_bits=4, symmetric=True,
+                 granularity=PerBlock(block_dims=1, block_sizes=128, per_channel_dims=0))
+    cfg.add_rule("**/[quantizer:activation/input]", tnn.LinearQuantizer, num_bits=8,
+                 symmetric=True)
+    return cfg
+
+
+def _quantizer_census(tnn, model):
+    """{"<bits>-bit <granularity> <first tag>" or "stub": count} over the
+    model's quantizer slots."""
+    census = collections.Counter()
+    for _, q in tnn.named_quantizers(model):
+        if isinstance(q, tnn.QuantizerStub):
+            census["stub"] += 1
+        else:
+            census[f"{q.num_bits}-bit {type(q.granularity).__name__} "
+                   f"{q.quant_metadata.tags[0].name}"] += 1
+    return dict(census)
+
+
+def phase_quickstart(dev):
+    """Run (z): the quickstart's simulation-to-serving path
+    (`docs/quickstart_llm.md:14-60`) on a 2-layer Llama-3-8B: build,
+    `quantize_model`, three `QuantizationConfig` rules, `estimate_ranges`
+    (smoothed min-max) over 8 seeded 128-token sequences, GPTQ layer by
+    layer (`layerwise_optimize_staged` over ``layers/*``), `freeze_llama`
+    (w4a8 g128, static activations) and the per-layer serve (192 x 128
+    prefill, 32 greedy steps, INT8 cache). Raises where a check fails (the
+    module docstring lists them)."""
+    import contextlib
+    import importlib
+
+    from fastforward_tpu_torch import estimate_ranges, flags, range_setting
+    from fastforward_tpu_torch import nn as tnn
+    from fastforward_tpu_torch.algorithms import layerwise_optimize_staged
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.kernels.matmul import dequantize_int4_reference
+    from fastforward_tpu_torch.kernels.packing import unpack_int4
+    from fastforward_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from fastforward_tpu_torch.quantization import PerBlock
+    from fastforward_tpu_torch.serving.engine import freeze_llama
+
+    # the module (the package's name `gptq` is the function)
+    gptq_mod = importlib.import_module("fastforward_tpu_torch.algorithms.gptq")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)  # the context exists before the memory statistics are read
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    config = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=QUICKSTART_LAYERS)
+    L, g = config.num_layers, 128
+    secs = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize(dev)
+        secs[name] = time.perf_counter() - t0
+        return secs[name]
+
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(config, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(71))
+    mark("build", t0)
+
+    # 1-2. convert and place the quantizers
+    t0 = time.perf_counter()
+    tnn.quantize_model(model)
+    _quickstart_rules(tnn, PerBlock).initialize(model)
+    mark("configuration", t0)
+    census = _quantizer_census(tnn, model)
+    n_lin, n_norm = 7 * L + 1, 2 * L + 1
+    expect = {"4-bit PerBlock parameter/weight": n_lin,
+              "8-bit PerTensor parameter/weight": n_norm + 1,  # the norms and the embedding
+              "8-bit PerTensor parameter/bias": n_lin,  # installed; the Linears have no bias
+              "8-bit PerTensor activation/input": n_lin + n_norm,
+              "stub": n_lin + n_norm + 1 + 3 * L}  # outputs; attention scores, weights, KV
+    log(f"quickstart (z): quantizers by bits, granularity and tag {census}")
+    if census != expect:
+        raise AssertionError(f"(z) the rules installed {census}, expected {expect}")
+
+    # 3. calibrate
+    gen = torch.Generator(device=dev).manual_seed(72)
+    n_cal, t_cal = QUICKSTART_CALIB
+    calib = [torch.randint(0, config.vocab_size, (1, t_cal), generator=gen, device=dev)
+             for _ in range(n_cal)]
+    cal_s = []
+    with flags.strict_quantization(False), torch.no_grad():
+        with estimate_ranges(model, range_setting.smoothed_minmax):
+            for batch in calib:
+                t0 = time.perf_counter()
+                model(batch)
+                cal_s.append(mark("calibration batch", t0))
+    uninit = [n for n, q in tnn.named_quantizers(model)
+              if getattr(q, "has_uninitialized_params", False) and not n.endswith("bias_quantizer")]
+    if uninit:
+        raise AssertionError(f"(z) quantizers left without a range after calibration: {uninit}")
+
+    # 4. GPTQ, stage by stage; each projection held against round-to-nearest
+    layer_of = {id(m): i for i, block in enumerate(model.layers) for m in block.modules()}
+    name_of = {id(m): n for n, m in model.named_modules()}
+    split = collections.defaultdict(lambda: collections.Counter())
+    current = {"layer": 0}
+
+    def timed_fn(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            split[current["layer"]][key] += time.perf_counter() - t
+            return out
+        return run
+
+    worst = {}
+
+    def algorithm(module, inputs, **kw):
+        current["layer"] = layer_of[id(module)]
+        w0 = module.weight.detach().clone()
+        t = time.perf_counter()
+        gptq_mod.gptq(module, inputs, **kw)
+        torch.cuda.synchronize(dev)
+        split[current["layer"]]["gptq"] += time.perf_counter() - t
+        with torch.no_grad(), gptq_mod.full_f32_precision():
+            quant = module.weight_quantizer
+            x = inputs.float()
+            ref = x @ w0.float().T
+            err_gptq = torch.linalg.norm(x @ quant(module.weight).dequantize().float().T - ref)
+            err_rtn = torch.linalg.norm(x @ quant(w0).dequantize().float().T - ref)
+        name = name_of[id(module)]
+        worst[name] = max(worst.get(name, 0.0), (err_gptq / err_rtn).item())
+        if not err_gptq <= err_rtn:
+            raise AssertionError(f"(z) GPTQ error {err_gptq.item():.6g} above round-to-nearest's "
+                                 f"{err_rtn.item():.6g} on {name}")
+
+    t0 = time.perf_counter()
+    patched = [mock.patch.object(gptq_mod, k, timed_fn(k, getattr(gptq_mod, k)))
+               for k in ("calculate_hessian", "invert_hessian", "_gptq_core")]
+    with contextlib.ExitStack() as stack:
+        for p in patched:
+            stack.enter_context(p)
+        optimized = layerwise_optimize_staged(
+            model, calib, algorithm, stages="layers/*", forward=lambda m, b: m(b)[0],
+            num_bits=4, granularity=PerBlock(block_dims=1, block_sizes=g, per_channel_dims=0))
+    mark("gptq", t0)
+    if len(optimized) != 7 * L:
+        raise AssertionError(f"(z) GPTQ optimized {len(optimized)} projections, expected {7 * L}")
+    for i in range(L):
+        s_ = split[i]
+        log(f"quickstart (z) GPTQ layer {i}: {s_['gptq']:.2f} s in gptq (Hessian "
+            f"{s_['calculate_hessian']:.3f} s, inversion {s_['invert_hessian']:.3f} s, column "
+            f"loop {s_['_gptq_core']:.2f} s)")
+    log(f"quickstart (z): GPTQ error / round-to-nearest's on the captured inputs, per "
+        f"projection: {', '.join(f'{k} {v:.4f}' for k, v in sorted(worst.items()))}")
+
+    # 5. freeze; the frozen grids against the simulated ones
+    t0 = time.perf_counter()
+    params = freeze_llama(model, "w4a8", g, static_activations=True)
+    mark("freeze", t0)
+    static = 0
+    with torch.no_grad():
+        for i, (block, layer) in enumerate(zip(model.layers, params.layers)):
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                         "down_proj"):
+                mod = getattr(block.self_attn if name[0] in "qkvo" else block.mlp, name)
+                ql = getattr(layer, name)
+                sim = mod.weight_quantizer(mod.weight)
+                N, K = mod.weight.shape
+                grid_sim = sim.raw_data.float()
+                grid_frozen = unpack_int4(ql.data, g).float().t()
+                scale_sim = sim.quant_args().scale.detach().reshape(N, K // g).t()
+                deq_frozen = dequantize_int4_reference(ql.data, ql.scale, g).t()
+                if not (torch.equal(grid_sim, grid_frozen) and torch.equal(scale_sim, ql.scale)
+                        and torch.equal(sim.dequantize().to(torch.bfloat16), deq_frozen)):
+                    raise AssertionError(f"(z) layer {i} {name}: the frozen grid, scales or "
+                                         "dequantized weight differ from the simulated ones")
+                static += ql.in_scale is not None
+    if static != 7 * L:
+        raise AssertionError(f"(z) {static} projections took a static input scale, expected {7 * L}")
+    log(f"quickstart (z): {7 * L} frozen projections reproduce the simulated grids, scales and "
+        f"dequantized bf16 weights bit for bit; {static} static input scales")
+
+    # 6. serve: every kernel call against its plain version, then the measured run
+    path = ServePath(config, params, kv="int8")
+    ids = torch.randint(0, config.vocab_size, (BATCH, PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(73))
+    checked = collections.Counter()
+    with contextlib.ExitStack() as stack:
+        for p in _checked_patches(checked):
+            stack.enter_context(p)
+        _serve(path, ids, STEPS, dev)
+    log(f"quickstart (z): kernel calls held against their plain versions on the same inputs: "
+        f"{dict(checked)}")
+    expect_counts = {"dequant_halves": 7 * L, "w4a8_gemv_halves": 7 * L * STEPS + 1 + STEPS,
+                     "flash_prefill": L, "kv_append_layer": L * STEPS,
+                     "flash_decode_layer": L * STEPS}
+    reset_launch_counts()
+    logits, first, tokens, cache, prefill_ms, decode_s = _serve(path, ids, STEPS, dev)
+    counts = dict(launch_counts)
+    log(f"quickstart (z): launches {counts}")
+    if counts != expect_counts:
+        raise AssertionError(f"(z) launch counts {counts} != expected {expect_counts}")
+    if not torch.isfinite(logits).all() or not ((tokens >= 0) & (tokens < config.vocab_size)).all():
+        raise AssertionError("(z) prefill logits not finite or tokens out of range")
+    del cache
+    with flags.strict_quantization(False), torch.no_grad():
+        sim_logits = model(ids[:QUICKSTART_SIM])[0][:, -1].float()
+    rms = _rel_rms(logits[:QUICKSTART_SIM, -1], sim_logits)
+    log(f"quickstart (z): frozen prefill logits against the simulated model's, {QUICKSTART_SIM} "
+        f"prompts: relative RMS {rms:.4g} (limit {QUICKSTART_RMS})")
+    if not rms <= QUICKSTART_RMS:
+        raise AssertionError(f"(z) frozen logits relative RMS {rms:.4g} > {QUICKSTART_RMS}")
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    out = dict(counts=counts, seconds=secs, calibration_batch_s=cal_s,
+               gptq_split={i: dict(v) for i, v in split.items()}, gptq_vs_rtn=worst,
+               prefill_ms=prefill_ms, decode_step_ms=decode_s * 1e3 / STEPS,
+               tok_s=BATCH * STEPS / decode_s, rel_rms=rms, peak_gib=peak)
+    log(f"quickstart (z): build {secs['build']:.2f} s, configuration {secs['configuration']:.3f} "
+        f"s, calibration {min(cal_s):.3f}-{max(cal_s):.3f} s a batch, GPTQ {secs['gptq']:.2f} s "
+        f"(2 stage passes and {7 * L} projections), freeze {secs['freeze']:.3f} s; prefill "
+        f"{BATCH}x{PROMPT} {prefill_ms:.1f} ms, decode {out['decode_step_ms']:.2f} ms a step = "
+        f"{out['tok_s']:.1f} tok/s; peak {peak:.2f} GiB above the phase's start")
+    del model, params, path, logits, sim_logits
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    if took > QUICKSTART_BUDGET_S:
+        raise AssertionError(f"(z) took {took:.1f} s, above its {QUICKSTART_BUDGET_S} s")
+    return out
+
+
 SOURCES = {
     "a4_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                 "fastforward_tpu/kernels/matmul.py:1406 (body :1342)"),
@@ -3759,6 +4023,7 @@ def main():
         runs["tu"] = timed("parallel", phase_parallel, dev, moe)
         runs["x"] = timed("quant", phase_quant, dev)
         runs["y"] = timed("sim", phase_sim, dev)
+        runs["z"] = timed("quickstart", phase_quickstart, dev)
     log(f"total {time.perf_counter() - t_all:.1f} s; work after the build "
         f"{sum(v for k, v in phases.items() if k != 'build'):.1f} s")
     kernels = []

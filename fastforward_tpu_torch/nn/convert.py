@@ -12,6 +12,7 @@ container's own children). Each lands in torch's layout:
 - ``embedding`` becomes ``weight``; a norm's ``scale`` becomes ``weight``;
   an `Einsum` ``kernel`` becomes ``weight`` as it is (its einsum string
   fixes the layout);
+- bf16 arrays (flax's bf16 parameters) come over through f32, exactly;
 - a `LinearQuantizer`'s ``scale`` and ``offset`` are reordered into the
   tile order of the tensor its slot quantizes in torch's layout (this
   matters where the tiles span more than one dim, e.g. a
@@ -167,6 +168,8 @@ def load_nnx_params(model: torch.nn.Module, params: Mapping[str, np.ndarray]) ->
             raise KeyError(f"{path}: a kernel of {type(owner).__name__}")
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"{path}: shape {value.shape} for {tuple(target.shape)}")
+        if value.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes): through f32, exactly
+            value = value.astype(np.float32)
         with torch.no_grad():
             target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))
 

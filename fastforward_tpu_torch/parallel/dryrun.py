@@ -13,16 +13,19 @@ asserting JAX's shapes:
 - a GPipe pipeline of 4 w4a8_2l g128 `QuantLinear` layers over 2 stages
   (`parallel/pipeline.py`; 1 stage at an odd world);
 - a w4a8_2l MoE block with its experts over an ``expert`` dim of every rank
-  (`serving.moe.expert_parallel_moe`).
+  (`serving.moe.expert_parallel_moe`);
+- the QAT training step (`__graft_entry__.py:178-231`): a two-layer MLP
+  (32 → 64 → 32) through `quantize_model`, 8-bit weight and activation
+  quantizers placed by two `QuantizationConfig` rules, every range (-3, 3),
+  and one SGD step at lr 1e-3 on the global batch's MSE, the batch split
+  over the ``data`` dim and the gradients averaged over every rank
+  (`qat_model`, `qat_step`).
 
-Each rank returns the gathered global shapes; rank 0 prints one summary
-line, as JAX's does. A CUDA run takes head dim 128 and hidden 1,024 (8 x
-128) where the flagship has 32 and 256: the flash-decode kernel takes head
-dim 128 only. JAX's QAT training step (`__graft_entry__.py:178-231`)
-configures its quantizers through ``QuantizationConfig``, whose module
-(``quant_init.py``, ROADMAP Queue 1 item 9) is not ported yet, and is not
-run; its place in the summary line says so. Weights are the port's random generators', not
-JAX's bits.
+Each rank returns the gathered global shapes and the QAT loss; rank 0
+prints one summary line, as JAX's does. A CUDA run takes head dim 128 and
+hidden 1,024 (8 x 128) where the flagship has 32 and 256: the flash-decode
+kernel takes head dim 128 only. Weights are the port's random generators',
+not JAX's bits.
 """
 
 import dataclasses
@@ -50,7 +53,7 @@ from fastforward_tpu_torch.parallel.tp_serving import (
 )
 from fastforward_tpu_torch.parallel.transport import all_gather_cat
 
-__all__ = ["flagship_config", "dryrun_multichip"]
+__all__ = ["flagship_config", "dryrun_multichip", "qat_model", "qat_step"]
 
 
 def flagship_config(head_dim: int = 32) -> LlamaConfig:
@@ -73,6 +76,75 @@ def _global_rows(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         if name not in names:
             keep = np.take(keep, [0], axis=d)
     return torch.cat([every[int(r)] for r in keep.reshape(-1)], dim=0)
+
+
+class QatMLP(torch.nn.Module):
+    """The dry run's QAT model (`__graft_entry__.py:184-194`): fc1 (32 → 64),
+    ReLU on its dequantized output, fc2 (64 → 32), the output dequantized."""
+
+    def __init__(self, device=None, generator=None):
+        super().__init__()
+        from fastforward_tpu_torch.models.llama import _linear, _placement
+
+        dev, gen = _placement(device, generator)
+        self.fc1 = _linear(32, 64, torch.float32, dev, gen, bias=True)
+        self.fc2 = _linear(64, 32, torch.float32, dev, gen, bias=True)
+
+    def forward(self, x):
+        from fastforward_tpu_torch.quantization.quantized_array import dequantize_if_quantized
+
+        h = torch.relu(dequantize_if_quantized(self.fc1(x)))
+        return dequantize_if_quantized(self.fc2(h))
+
+
+def qat_model(device=None, generator=None) -> QatMLP:
+    """`QatMLP` on ``device`` (default: the GPU) converted by
+    `quantize_model`, with 8-bit `LinearQuantizer`s placed by JAX's two
+    rules (parameters symmetric, activations asymmetric) and every range set
+    to (-3, 3)."""
+    from fastforward_tpu_torch import nn as ffnn
+    from fastforward_tpu_torch.quant_init import QuantizationConfig
+
+    model = QatMLP(device, generator)
+    ffnn.quantize_model(model)
+    cfg = QuantizationConfig()
+    cfg.add_rule("**/[quantizer:parameter]", ffnn.LinearQuantizer, num_bits=8, symmetric=True)
+    cfg.add_rule("**/[quantizer:activation]", ffnn.LinearQuantizer, num_bits=8,
+                 symmetric=False)
+    cfg.initialize(model)
+    dev = model.fc1.weight.device
+    for _, q in ffnn.named_quantizers(model):
+        if isinstance(q, ffnn.LinearQuantizer):
+            q.quantization_range = (torch.tensor(-3.0, device=dev), torch.tensor(3.0, device=dev))
+    return model
+
+
+def qat_step(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor, lr: float = 1e-3,
+             group=None) -> float:
+    """One SGD step (lr ``lr``) on the MSE of ``model(x)`` against ``y``,
+    without strict quantization. ``x``, ``y``: this rank's equal share of
+    the global batch; the gradients (and the reported loss) are averaged
+    over ``group`` (default: the world, where a process group exists), so
+    every rank takes the global batch's step. Every parameter that requires
+    a gradient is updated, as JAX differentiates every float leaf of the
+    NNX state: weights, biases, the quantizers' scales and learnable
+    offsets. Returns the global loss."""
+    from fastforward_tpu_torch import flags
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = torch.optim.SGD(params, lr=lr)
+    opt.zero_grad()
+    with flags.strict_quantization(False):
+        loss = torch.mean((model(x) - y) ** 2)
+    loss.backward()
+    loss = loss.detach()
+    if dist.is_available() and dist.is_initialized():
+        n = dist.get_world_size(group)
+        for t in [p.grad for p in params] + [loss]:
+            dist.all_reduce(t, group=group)
+            t.div_(n)
+    opt.step()
+    return float(loss)
 
 
 def dryrun_multichip(device=None) -> dict:
@@ -177,10 +249,20 @@ def dryrun_multichip(device=None) -> dict:
     ep_out = expert_parallel_moe(make_mesh({"expert": n}, device_type=dev.type), moe, x_ep)
     shapes["ep"] = _expect(ep_out, tuple(x_ep.shape), "ep")
 
+    # --- QAT: one data-parallel SGD step through the simulation tier, the
+    # global batch split over "data"
+    model = qat_model(dev, torch.Generator(device=dev).manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(1).randn(batch, 32).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.random.RandomState(2).randn(batch, 32).astype(np.float32)).to(dev)
+    shapes["qat_loss"] = qat_step(model, take_shard(x, ("data", None), mesh),
+                                  take_shard(y, ("data", None), mesh))
+    if not np.isfinite(shapes["qat_loss"]):
+        raise AssertionError(f"dryrun_multichip qat: loss {shapes['qat_loss']}")
+
     shapes["line"] = (
         f"dryrun_multichip OK: mesh={shapes['mesh']}, serve logits {shapes['serve']}, "
         f"paged-tp logits {shapes['paged']} (pool {shapes['pool']}), tp-decode-loop tokens "
-        f"{shapes['loop']}, qat not run (needs quant_init.py, ROADMAP Queue 1 item 9), "
+        f"{shapes['loop']}, qat loss {shapes['qat_loss']:.4f}, "
         f"sp {shapes['sp']}, pp {shapes['pp']}, ep {shapes['ep']}")
     if dist.get_rank() == 0:
         print(shapes["line"], flush=True)

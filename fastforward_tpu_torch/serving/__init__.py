@@ -3,8 +3,9 @@ W8A8, W4A8, W4A16), the per-layer forward over a bf16 or INT8 `KVCache`
 and its greedy decode loop, the checkpoint loader, the stacked forward over
 a bf16 or INT8 KV cache (slab or paged pool) with its fused, flat or
 pre-blocked layers (`fuse_stacked_layers`, `unfuse_stacked_layers`),
-greedy and sampled decoding, the continuous-batching engine, and the
-quantized MoE block (`serving.moe`)."""
+greedy and sampled decoding, the continuous-batching engine, the
+quantized MoE block (`serving.moe`), and `freeze_llama`, the bridge from
+a simulation-tier `models.LlamaForCausalLM` to frozen serving params."""
 
 from fastforward_tpu_torch.serving.batching import (
     ContinuousBatchingEngine,
@@ -12,6 +13,7 @@ from fastforward_tpu_torch.serving.batching import (
     Request,
 )
 from fastforward_tpu_torch.serving.engine import (
+    freeze_llama,
     make_decode_loop,
     random_serving_params,
     repack_unpaired,
@@ -41,6 +43,7 @@ __all__ = [
     "Request",
     "SamplingParams",
     "StackedKVCache",
+    "freeze_llama",
     "fuse_stacked_layers",
     "load_llama",
     "make_decode_loop",

@@ -240,7 +240,8 @@ def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
                     scale: Optional[torch.Tensor] = None) -> QuantLinear:
     """Quantize a dense (K, N) weight into frozen storage (`engine.py:289`);
     symmetric min-max scales (per column for w8a8, per group for the int4
-    modes) unless ``scale`` is given."""
+    modes) unless ``scale`` is given (a view of any strides; stored
+    contiguous, as the card's kernels read it)."""
     if mode not in PACKED_MODES:
         raise ValueError(f"unknown mode {mode}")
     w = w.float()
@@ -248,14 +249,14 @@ def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
     if mode == "w8a8":
         if scale is None:
             scale = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-8)
-        scale = scale.float().reshape(N)
+        scale = scale.float().reshape(N).contiguous()
         q = torch.clamp(torch.round(w / scale[None, :]), -128, 127).to(torch.int8)
         return QuantLinear(q, scale, mode=mode)
     g = group_size if K % group_size == 0 else K
     wg = w.reshape(K // g, g, N)
     if scale is None:
         scale = torch.clamp(wg.abs().amax(dim=1) / 7.0, min=1e-8)
-    scale = scale.float().reshape(K // g, N)
+    scale = scale.float().reshape(K // g, N).contiguous()
     q = torch.clamp(torch.round(wg / scale[:, None, :]), -8, 7).to(torch.int8)
     packed = pack_int4(q.reshape(K, N), group_size=g)
     if mode == "w4a8_2l":
@@ -287,6 +288,118 @@ class ServingParams:
     layers: tuple
     final_norm: torch.Tensor
     lm_head: Optional[QuantLinear]  # None => tied embeddings
+
+
+def _scale_from_quantizer(module, w_shape, mode: str, group_size: int):
+    """Frozen-storage scales from an initialized symmetric `LinearQuantizer`
+    on ``module``'s weight, where its granularity matches the serving mode's
+    layout (`engine.py:331`); else None. ``w_shape`` is the JAX layout (K,
+    N) of the (N, K) torch weight: w8a8 takes one scale per output channel
+    (torch's ``PerChannel(0)``) or one per tensor, the int4 modes a
+    ``PerBlock`` whose tile is g along the in-features, (1, g) in torch's
+    layout and (g, 1) in JAX's, reordered into JAX's (K // g, N)."""
+    from fastforward_tpu_torch.nn.linear_quantizer import LinearQuantizer
+    from fastforward_tpu_torch.quantization.granularity import PerBlock, PerChannel
+
+    q = getattr(module, "weight_quantizer", None)
+    if not isinstance(q, LinearQuantizer) or q.scale is None or q.offset is not None:
+        return None
+    K, N = w_shape
+    scale = q.scale.detach().reshape(-1)
+    gran = q.granularity
+    if mode == "w8a8":
+        if q.num_bits != 8:
+            return None
+        if isinstance(gran, PerChannel) and gran.channel_dims == (0,) and scale.numel() == N:
+            return scale
+        if scale.numel() == 1:
+            return scale.expand(N)
+        return None
+    if q.num_bits != 4:
+        return None
+    g = group_size if K % group_size == 0 else K
+    if isinstance(gran, PerBlock) and tuple(gran.tile_size((N, K))) == (1, g):
+        return scale.reshape(N, K // g).t()
+    return None
+
+
+def _input_scale_from_quantizer(module):
+    """The calibrated static activation scale of an initialized symmetric
+    per-tensor 8-bit input `LinearQuantizer` on ``module`` (`engine.py:370`),
+    f32 0-d; else None."""
+    from fastforward_tpu_torch.nn.linear_quantizer import LinearQuantizer
+    from fastforward_tpu_torch.quantization.granularity import PerTensor
+
+    q = getattr(module, "input_quantizer", None)
+    if not isinstance(q, LinearQuantizer) or q.scale is None:
+        return None
+    if q.offset is not None or q.num_bits != 8:
+        return None
+    if not isinstance(q.granularity, PerTensor):
+        return None
+    return q.scale.detach().float().reshape(())
+
+
+@torch.no_grad()
+def freeze_llama(model, mode: str = "w4a8", group_size: int = 128,
+                 static_activations: bool = False) -> ServingParams:
+    """Convert a `models.llama.LlamaForCausalLM` into frozen serving params
+    (`engine.py:401`), on the model's device.
+
+    Where the model was calibrated or GPTQ'd in the simulation tier (its
+    QuantizedLinear weight quantizers hold symmetric grids of a granularity
+    that matches the mode's layout, `_scale_from_quantizer`), those scales
+    carry over, and the frozen weights dequantize to the simulated grid bit
+    for bit. Each (N, K) torch weight is frozen in JAX's (K, N) layout.
+
+    ``static_activations``: also lift calibrated *input* quantizer ranges
+    (symmetric per-tensor 8-bit `LinearQuantizer`s) into
+    `QuantLinear.in_scale`; activations then quantize on that static grid
+    instead of a dynamic per-row one. Layers whose input quantizer is
+    absent or uninitialized stay dynamic.
+
+    The lm_head takes fresh min-max scales in the layers' mode (``w4a8_2l``
+    for ``w4a4_2l``), as the JAX function's head policy does.
+    """
+
+    def ql(module):
+        w = module.weight.detach().t().contiguous()
+        scale = _scale_from_quantizer(module, tuple(w.shape), mode, group_size)
+        out = quantize_linear(w, mode, group_size, scale=scale)
+        if static_activations:
+            in_scale = _input_scale_from_quantizer(module)
+            if in_scale is not None:
+                out = dataclasses.replace(out, in_scale=in_scale)
+        return out
+
+    layers = []
+    for block in model.layers:
+        attn, mlp = block.self_attn, block.mlp
+        layers.append(
+            ServingLayer(
+                q_proj=ql(attn.q_proj),
+                k_proj=ql(attn.k_proj),
+                v_proj=ql(attn.v_proj),
+                o_proj=ql(attn.o_proj),
+                gate_proj=ql(mlp.gate_proj),
+                up_proj=ql(mlp.up_proj),
+                down_proj=ql(mlp.down_proj),
+                input_norm=block.input_layernorm.weight.detach().to(torch.bfloat16),
+                post_norm=block.post_attention_layernorm.weight.detach().to(torch.bfloat16),
+            )
+        )
+    lm_head = None
+    if model.lm_head is not None:
+        # A4 applies to the decoder matmuls only: the lm_head keeps A8
+        head_mode = "w4a8_2l" if mode == "w4a4_2l" else mode
+        lm_head = quantize_linear(model.lm_head.weight.detach().t().contiguous(), head_mode,
+                                  group_size)
+    return ServingParams(
+        embedding=model.embed_tokens.weight.detach().to(torch.bfloat16),
+        layers=tuple(layers),
+        final_norm=model.norm.weight.detach().to(torch.bfloat16),
+        lm_head=lm_head,
+    )
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

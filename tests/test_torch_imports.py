@@ -50,7 +50,11 @@ def test_port_modules_import_no_jax():
                  "ops.sdpa", "ops.linear_quantized_ops", "ops.spec", "kernels.dispatch", "nn",
                  "nn.functional", "nn.quantizer", "nn.linear_quantizer", "nn.quantized_module",
                  "nn.layers", "nn.convert", "quantization.freeze",
-                 "quantization.quantizer_annotations", "overrides"):
+                 "quantization.quantizer_annotations", "overrides", "mpath", "mpath.fragments",
+                 "mpath.selector", "mpath.parser", "mpath.search", "quant_init",
+                 "range_setting", "range_setting.common", "range_setting.minmax",
+                 "range_setting.min_error", "algorithms", "algorithms.gptq",
+                 "algorithms.layerwise", "models.llama", "models.mlp"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))

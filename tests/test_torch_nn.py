@@ -316,7 +316,12 @@ def test_named_quantizers_summaries_and_annotations_match_nnx():
                                   repr(convert.transpose_granularity(jquant.granularity, perm)))
         want.append(f"{_torch_path(name)}: {state}")
     assert tnn.summarize_quantizers(tmodel).splitlines() == want
-    # annotate_operator_metadata: each quantizer tagged with the same operator
+    # annotate_operator_metadata: each quantizer tagged with the same operator.
+    # Both packages keep the last operator of an earlier annotation run (a
+    # JAX-only test in the same process may have left one) and tag a model's
+    # first quantizers with it: start both from no operator.
+    jannot._LAST_OP.set(None)
+    tannot._LAST_OP.set(None)
     jannot.annotate_operator_metadata(jmodel, jnp.asarray(x))
     tannot.annotate_operator_metadata(tmodel, torch.from_numpy(x))
     jtags = {_torch_path(n): getattr(q.quant_metadata, "producing_operator", None)

@@ -303,3 +303,26 @@ def parallel_cuda(rank, world, payload):
                          n_microbatches=payload["microbatches"])
     torch.cuda.synchronize()
     return {"ring": _np(ring.cpu()), "pipeline": _np(y.cpu()), "counts": dict(launch_counts)}
+
+
+def qat(rank, world, payload):
+    """The dry run's QAT step (`parallel/dryrun.py` `qat_model`, `qat_step`)
+    from the JAX model's parameters: on a group of this rank alone over the
+    whole batch, then on the world over this rank's rows; the loss and every
+    parameter after each step."""
+    import torch.distributed as dist
+
+    from fastforward_tpu_torch.nn.convert import load_nnx_params
+    from fastforward_tpu_torch.parallel.dryrun import qat_model, qat_step
+
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+    out = {}
+    for size, group in ((1, alone), (world, dist.group.WORLD)):
+        model = qat_model("cpu")
+        load_nnx_params(model, payload["params"])
+        rows = payload["x"].shape[0] // size
+        part = slice(rank % size * rows, (rank % size + 1) * rows)
+        loss = qat_step(model, torch.from_numpy(payload["x"][part]),
+                        torch.from_numpy(payload["y"][part]), group=group)
+        out[size] = {"loss": loss, "params": {n: _np(p) for n, p in model.named_parameters()}}
+    return out
