@@ -20,11 +20,14 @@ functions: one whose qualified name is an alias of an operator
 operator; any other gets the implicit conversion: `QuantizationError` under
 strict quantization, else the function on the dequantized arguments.
 
-The JAX ``_binop`` also asks autoquant's ``operator_site`` for an output
-quantizer (`fastforward_tpu/autoquant.py:218-239`). That hook comes with
-the port of autoquant (ROADMAP Queue 1 item 12); outside an autoquant
-context it returns ``(None, False)``, so calling the operator directly, as
-here, gives the same results.
+Operator syntax asks autoquant's `operator_site` for an output quantizer,
+as the JAX ``_binop`` does (`fastforward_tpu/autoquant.py:218-239`): inside
+an autoquant context ``qt + y`` is a call site, recorded in discovery and
+given its site's quantizer in apply mode; outside one the hook returns
+``(None, False)`` and the operator runs as called. A plain tensor on the
+left (``x * qt``, which torch hands to ``__torch_function__`` as
+``torch.Tensor.mul``) is no site, as in JAX, where the plain array's own
+operator converts the QuantizedArray implicitly.
 """
 
 from typing import Any
@@ -121,9 +124,14 @@ class QuantizedTensor:
 
     def _binop(self, name: str, other: Any, reverse: bool = False):
         from fastforward_tpu_torch import ops
+        from fastforward_tpu_torch.autoquant import operator_site
 
         fn = getattr(ops, name)
-        return fn(other, self) if reverse else fn(self, other)
+        quantizer, active = operator_site(name)
+        args = (other, self) if reverse else (self, other)
+        if active and quantizer is not None:
+            return fn(*args, output_quantizer=quantizer)
+        return fn(*args)
 
     def __add__(self, other):
         return self._binop("add", other)

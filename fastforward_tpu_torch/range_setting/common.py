@@ -87,8 +87,30 @@ class _StepEstimator(RangeEstimator):
         self._step_cls = step_cls
         self._step_kwargs = step_kwargs
 
+    def make_step(self, quantizer: Quantizer) -> SimpleEstimatorStep:
+        """The step this estimator installs on ``quantizer``; what consumers
+        that are not modules (the fx autoquant plan) call."""
+        return self._step_cls(quantizer, **self._step_kwargs)
+
     def prepare(self, quantizer: Quantizer) -> OverrideHandle:
-        return quantizer.register_override(self._step_cls(quantizer, **self._step_kwargs))
+        return quantizer.register_override(self.make_step(quantizer))
+
+
+def step_factory(estimator: Any = None):
+    """Any estimator spec as ``callable(quantizer) -> step``: None (running
+    min-max), a `SimpleEstimatorStep` subclass, or a step estimator's class
+    or instance (`running_minmax`, `smoothed_minmax`). The one step API of
+    the module path and the fx plan (`autoquant_fx`)."""
+    if estimator is None:
+        from fastforward_tpu_torch.range_setting.minmax import RunningMinMaxEstimatorStep
+
+        return RunningMinMaxEstimatorStep
+    if isinstance(estimator, type) and issubclass(estimator, SimpleEstimatorStep):
+        return estimator
+    inst = estimator() if isinstance(estimator, type) else estimator
+    if isinstance(inst, _StepEstimator):
+        return inst.make_step
+    raise TypeError(f"unsupported estimator {estimator!r}")
 
 
 @contextlib.contextmanager

@@ -1,9 +1,10 @@
 """The port imports torch and never JAX or the JAX package.
 
 Every module of `fastforward_tpu_torch` is imported in a fresh Python
-process; afterwards neither ``jax``, any ``fastforward_tpu.`` module,
-``safetensors`` nor ``yaml`` (PyYAML, which the JAX package's granularities
-import for their YAML registration) may be loaded there. The kernel build table names every CUDA source of
+process; afterwards neither ``jax``, ``flax``, ``triton``, any
+``fastforward_tpu.`` module, ``safetensors`` nor ``yaml`` (PyYAML, which the
+JAX package's granularities import for their YAML registration) may be
+loaded there. The kernel build table names every CUDA source of
 `csrc/`, and each C entry point it binds is defined in its source.
 """
 
@@ -27,7 +28,8 @@ names = [m.name for m in pkgutil.walk_packages(fastforward_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "fastforward_tpu", "safetensors", "yaml"))
+                if m.split(".")[0] in ("jax", "flax", "triton", "fastforward_tpu", "safetensors",
+                                       "yaml"))
 print(json.dumps({"modules": names, "forbidden": loaded}))
 """
 
@@ -54,7 +56,9 @@ def test_port_modules_import_no_jax():
                  "mpath.selector", "mpath.parser", "mpath.search", "quant_init",
                  "range_setting", "range_setting.common", "range_setting.minmax",
                  "range_setting.min_error", "algorithms", "algorithms.gptq",
-                 "algorithms.layerwise", "models.llama", "models.mlp"):
+                 "algorithms.layerwise", "models.llama", "models.mlp", "models.gpt2", "graph",
+                 "orchestration", "autoquant", "autoquant_fx", "export", "export.encodings",
+                 "export.pipeline", "export.torch_export"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))

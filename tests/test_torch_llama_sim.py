@@ -300,6 +300,25 @@ def _fresh_port(state):
 CALIB = [_ids(10, (2, 128))]
 
 
+def _jstaged_restoring(model, *args, **kwargs):
+    """JAX's `layerwise_optimize_staged`, then the class state it leaves
+    behind undone. Its stage-input catcher restores ``type(stage).__call__``
+    by assignment (`fastforward_tpu/algorithms/layerwise.py:140-153`), so a
+    class that inherited ``__call__`` (the converted block's) keeps an own
+    copy that shadows any later patch of its base:
+    `tests/algorithms/test_layerwise_staged.py` then counts no calls of a
+    patched `LlamaBlock.__call__` when it runs after this file in one
+    process."""
+    classes = {type(m) for _, m in nnx.iter_modules(model)}
+    inherited = [c for c in classes if "__call__" not in vars(c)]
+    try:
+        return jstaged(model, *args, **kwargs)
+    finally:
+        for c in inherited:
+            if "__call__" in vars(c):
+                del c.__call__
+
+
 @pytest.fixture(scope="module")
 def flows():
     """Both packages' quickstart path from the same float weights: after
@@ -323,7 +342,7 @@ def flows():
 
     kw = dict(stages="layers/*", forward=jforward, num_bits=4, block_size=G)
     out["paths"] = (
-        jstaged(j, [jnp.asarray(b) for b in CALIB], jgptq, granularity=JGRAN, **kw),
+        _jstaged_restoring(j, [jnp.asarray(b) for b in CALIB], jgptq, granularity=JGRAN, **kw),
         tstaged(t, [torch.from_numpy(b) for b in CALIB], tgptq, granularity=TGRAN, **kw))
     out["gptq_state"] = _flat(j)
     out["models"] = (j, t)
