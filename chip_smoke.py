@@ -209,7 +209,25 @@ each raising on failure:
    graph of the quantized model (`trace_modules`), its coarse execution and
    `run_scheduled` over its nodes bit-equal to the model; `export` of blocks
    0-1 to a `.pt2`, reloaded and run against the export-mode forward; at
-   most GPT2_BUDGET_S seconds.
+   most GPT2_BUDGET_S seconds;
+12. tier — (ab) BASELINE's tier-parity criterion and the checkpoint
+   formats on (z)'s 2-layer Llama-3-8B (no GPTQ): `quantize_model`, 4-bit
+   symmetric g128 blocks on every Linear weight with min-max ranges from
+   the weights; over 4 seeded batches of 2 x 128 ids (256 rows, the modes'
+   GEMVs) `perplexity_delta` of the simulated tier against `serving_forward`
+   of `freeze_llama` w4a16 (row 17), then, after 8-bit per-tensor input
+   quantizers calibrated by running min-max on the same batches, of w4a8
+   with static input scales (row 16): each relative delta below
+   TIER_REL_DELTA, the exec logits' SQNR against the simulated ones logged,
+   launch counts exact, every kernel call held once against its plain
+   version; `save_quantization_state` into a temporary directory and
+   `load_quantization_state` into a fresh model of the same seed (every
+   scale and offset bit-equal, both frozen in w4a8 byte-equal);
+   `save_params` / `load_params` of the frozen params onto the card (bytes
+   and logits equal, write and read GB/s); a traced exec forward
+   (`profiling.trace_to`, `annotate`) whose trace names the annotation and
+   a kernel of the port, `profiling.benchmark` of it and the peak from
+   `device_memory_stats`; at most TIER_BUDGET_S seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -4188,6 +4206,283 @@ def phase_gpt2(dev):
 
 
 
+TIER_LAYERS = 2               # (ab): (z)'s model, Llama-3-8B's widths at 2 layers
+TIER_BATCHES = (4, 2, 128)    # (ab): seeded batches x sequences x tokens (256 rows: the GEMVs)
+TIER_REL_DELTA = 0.02         # (ab): |ppl_exec - ppl_sim| / ppl_sim (tests/test_tier_parity.py)
+TIER_TRACE_TRIES = 4          # (ab): traced forwards until the trace holds the annotation and a kernel
+TIER_BENCH_ITERS = 5          # (ab): profiling.benchmark's timed calls of the exec forward
+TIER_BUDGET_S = 60.0          # (ab): the phase's time limit
+
+
+def _tier_rules(tnn, tq, inputs):
+    """(ab)'s `QuantizationConfig` (tests/test_tier_parity.py:26-32,
+    :95-101, in torch's (out, in) layout): 4-bit symmetric g128 blocks
+    along the in-features on every Linear weight, or (``inputs``) 8-bit
+    symmetric per-tensor Linear inputs."""
+    from fastforward_tpu_torch import QuantizationConfig
+
+    cfg = QuantizationConfig()
+    if inputs:
+        cfg.add_rule("**/[cls:Linear]/[quantizer:activation/input]", tnn.LinearQuantizer,
+                     num_bits=8, symmetric=True, allow_one_sided=False,
+                     granularity=tq.PerTensor())
+    else:
+        cfg.add_rule("**/[cls:Linear]/[quantizer:parameter/weight]", tnn.LinearQuantizer,
+                     num_bits=4, symmetric=True, allow_one_sided=False,
+                     granularity=tq.PerBlock(block_dims=1, block_sizes=128, per_channel_dims=0))
+    return cfg
+
+
+def _tier_weight_ranges(tnn, model, g=128):
+    """Symmetric min-max ranges from each Linear's weight, one a g-block of
+    the in-features (tests/test_tier_parity.py:35-46)."""
+    for m in model.modules():
+        if isinstance(m, tnn.QuantizedLinear):
+            w = m.weight.detach().float()
+            N, K = w.shape
+            mabs = w.reshape(N, K // g, g).abs().amax(-1).reshape(-1)
+            m.weight_quantizer.quantization_range = (-mabs, mabs)
+
+
+def _tree_tensors(tree, path=""):
+    """(path, tensor) of every tensor of a params tree (dataclasses,
+    tuples, lists, dicts)."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tree_tensors(getattr(tree, f.name), f"{path}.{f.name}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _tree_tensors(v, f"{path}.{i}")
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_tensors(v, f"{path}.{k}")
+
+
+def _same_bytes(what, a, b):
+    """Raise unless two params trees hold the same tensors byte for byte
+    (dtypes, shapes, devices); returns (tensors, bytes)."""
+    ta, tb = list(_tree_tensors(a)), list(_tree_tensors(b))
+    if [p for p, _ in ta] != [p for p, _ in tb]:
+        raise AssertionError(f"(ab) {what}: the trees differ")
+    nbytes = 0
+    for (path, x), (_, y) in zip(ta, tb):
+        if (x.dtype, x.shape, x.device) != (y.dtype, y.shape, y.device) or not torch.equal(
+                x.contiguous().view(-1).view(torch.uint8), y.contiguous().view(-1).view(torch.uint8)):
+            raise AssertionError(f"(ab) {what}: {path} differs")
+        nbytes += x.numel() * x.element_size()
+    return len(ta), nbytes
+
+
+def phase_tier(dev):
+    """Run (ab): BASELINE's tier-parity criterion and the checkpoint round
+    trips on a 2-layer Llama-3-8B (the module docstring lists the checks).
+    Raises where a check fails."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from fastforward_tpu_torch import estimate_ranges, flags, range_setting
+    from fastforward_tpu_torch import nn as tnn
+    from fastforward_tpu_torch import quantization as tq
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fastforward_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from fastforward_tpu_torch.serving.engine import freeze_llama, serving_forward
+    from fastforward_tpu_torch.utils import checkpoint, profiling
+    from fastforward_tpu_torch.utils.evaluation import perplexity_delta
+    from fastforward_tpu_torch.utils.metrics import sqnr
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)  # the context exists before the memory statistics are read
+    torch.cuda.reset_peak_memory_stats(dev)
+    config = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=TIER_LAYERS)
+    L, g = config.num_layers, 128
+    per_forward = 7 * L + 1  # the projections and the lm_head, each one GEMV at 256 rows
+    secs = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize(dev)
+        secs[name] = time.perf_counter() - t0
+        return secs[name]
+
+    def build():
+        model = LlamaForCausalLM(config, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(74))
+        tnn.quantize_model(model)
+        _tier_rules(tnn, tq, inputs=False).initialize(model)
+        return model
+
+    def counted(what, fn, expect):
+        reset_launch_counts()
+        out = fn()
+        counts = dict(launch_counts)
+        if counts != expect:
+            raise AssertionError(f"(ab) {what}: launch counts {counts} != expected {expect}")
+        return out, counts
+
+    t0 = time.perf_counter()
+    model = build()
+    _tier_weight_ranges(tnn, model, g)
+    mark("build and weight ranges", t0)
+    n, B, T = TIER_BATCHES
+    gen = torch.Generator(device=dev).manual_seed(75)
+    batches = [torch.randint(0, config.vocab_size, (B, T), generator=gen, device=dev)
+               for _ in range(n)]
+
+    def sim_forward(ids):
+        with flags.strict_quantization(False), torch.no_grad():
+            return model(ids)[0]
+
+    def exec_of(params):
+        return lambda ids: serving_forward(params, config, ids)[0]
+
+    parity = {}
+
+    def tier_parity(label, params, count):
+        fwd = exec_of(params)
+        checked = collections.Counter()
+        with contextlib.ExitStack() as stack:
+            for p in _checked_patches(checked):
+                stack.enter_context(p)
+            fwd(batches[0])
+        t0 = time.perf_counter()
+        (ppl_sim, ppl_exec, delta), counts = counted(
+            f"{label} perplexities", lambda: perplexity_delta(sim_forward, fwd, batches),
+            {count: n * per_forward})
+        took = mark(f"{label} perplexities", t0)
+        rel = delta / ppl_sim
+        db = sqnr(sim_forward(batches[0]), fwd(batches[0])).item()
+        log(f"tier (ab) {label}: ppl sim {ppl_sim:.6g}, exec {ppl_exec:.6g}, delta {delta:.6g} "
+            f"(relative {rel:.4g}, limit {TIER_REL_DELTA}); exec logits SQNR against the sim "
+            f"tier's {db:.2f} dB; {n} x {B} x {T} ids, {took:.2f} s; launches {counts}; kernel "
+            f"calls held against their plain versions {dict(checked)}")
+        if not rel < TIER_REL_DELTA:
+            raise AssertionError(f"(ab) {label}: relative perplexity delta {rel:.4g} >= "
+                                 f"{TIER_REL_DELTA}")
+        parity[label] = dict(ppl_sim=ppl_sim, ppl_exec=ppl_exec, delta=delta, rel_delta=rel,
+                             sqnr_db=db, counts=counts, checked=dict(checked), seconds=took)
+
+    # 1-2. W4A16 on the weight-only model (row 17), then static A8 (row 16)
+    t0 = time.perf_counter()
+    params16 = freeze_llama(model, "w4a16", g)
+    mark("freeze w4a16", t0)
+    tier_parity("w4a16", params16, "w4_gemv")
+    del params16
+    t0 = time.perf_counter()
+    _tier_rules(tnn, tq, inputs=True).initialize(model)
+    with flags.strict_quantization(False), torch.no_grad():
+        with estimate_ranges(model, range_setting.running_minmax):
+            for ids in batches:
+                model(ids)
+    mark("input calibration", t0)
+    t0 = time.perf_counter()
+    params8 = freeze_llama(model, "w4a8", g, static_activations=True)
+    mark("freeze w4a8", t0)
+    static = sum(getattr(layer, name).in_scale is not None for layer in params8.layers
+                 for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                              "down_proj"))
+    if static != 7 * L:
+        raise AssertionError(f"(ab) {static} projections took a static input scale, expected {7 * L}")
+    tier_parity("w4a8 static", params8, "w4a8_gemv_halves")
+
+    tmp = tempfile.mkdtemp(prefix="ff_tier_")
+    try:
+        # 3. the quantization state, into a fresh model of the same seed
+        state_dir = os.path.join(tmp, "state")
+        t0 = time.perf_counter()
+        checkpoint.save_quantization_state(model, state_dir, name_or_path="llama-3-8b-2-layers")
+        mark("state save", t0)
+        fresh = build()
+        _tier_rules(tnn, tq, inputs=True).initialize(fresh)
+        t0 = time.perf_counter()
+        checkpoint.load_quantization_state(fresh, state_dir, name_or_path="llama-3-8b-2-layers")
+        mark("state load", t0)
+        pairs = list(zip(tnn.named_quantizers(model), tnn.named_quantizers(fresh)))
+        n_params = 0
+        for (name, q), (name2, q2) in pairs:
+            if name != name2 or type(q) is not type(q2):
+                raise AssertionError(f"(ab) state: {name} / {name2} differ after the load")
+            for attr in ("scale", "offset"):
+                a, b = getattr(q, attr, None), getattr(q2, attr, None)
+                if (a is None) != (b is None) or (a is not None and not (
+                        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))):
+                    raise AssertionError(f"(ab) state: {name}.{attr} not bit-equal after the load")
+                n_params += a is not None
+        frozen = freeze_llama(fresh, "w4a8", g, static_activations=True)
+        n_t, n_b = _same_bytes("frozen w4a8 params of the reloaded state", params8, frozen)
+        state_bytes = sum(os.path.getsize(os.path.join(state_dir, f)) for f in os.listdir(state_dir))
+        log(f"tier (ab) state: {len(pairs)} quantizer slots, {n_params} scales and offsets "
+            f"bit-equal after the round trip; the reloaded model frozen in w4a8 gives {n_t} "
+            f"tensors ({n_b / 1e9:.3f} GB) byte-equal to the calibrated model's; {state_bytes} "
+            f"bytes on disk, save {secs['state save']:.3f} s, load {secs['state load']:.3f} s")
+        del fresh, frozen
+
+        # 4. the frozen params, onto the card
+        params_dir = os.path.join(tmp, "params")
+        fwd8 = exec_of(params8)
+        before, _ = counted("params before", lambda: fwd8(batches[0]),
+                            {"w4a8_gemv_halves": per_forward})
+        t0 = time.perf_counter()
+        written = checkpoint.save_params(params8, params_dir)
+        write_s = mark("params save", t0)
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_params(params_dir, template=params8)
+        read_s = mark("params load", t0)
+        n_t, n_b = _same_bytes("loaded params", params8, loaded)
+        after, _ = counted("params after", lambda: exec_of(loaded)(batches[0]),
+                           {"w4a8_gemv_halves": per_forward})
+        if not torch.equal(before, after):
+            raise AssertionError("(ab) params: serving_forward's logits differ after the round trip")
+        log(f"tier (ab) params: {n_t} tensors ({n_b / 1e9:.3f} GB) byte-equal after save_params / "
+            f"load_params, logits bit-equal; {written / 1e9:.3f} GB written in {write_s:.3f} s "
+            f"({written / 1e9 / write_s:.2f} GB/s), read onto the card in {read_s:.3f} s "
+            f"({written / 1e9 / read_s:.2f} GB/s)")
+        del loaded, before, after
+
+        # 5. profiling
+        trace_dir = os.path.join(tmp, "trace")
+        found, tries = [], 0
+        while not found and tries < TIER_TRACE_TRIES:
+            tries += 1
+            reset_launch_counts()
+            with profiling.trace_to(trace_dir):
+                with profiling.annotate("tier/exec_forward"):
+                    fwd8(batches[0])
+                    torch.cuda.synchronize(dev)
+            if dict(launch_counts) != {"w4a8_gemv_halves": per_forward}:
+                raise AssertionError(f"(ab) traced forward: launch counts {dict(launch_counts)}")
+            with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+                text = f.read()
+            if "tier/exec_forward" in text:
+                found = [k for k in PORT_KERNELS if k in text]
+        if not found:
+            raise AssertionError(f"(ab) no trace of {TIER_TRACE_TRIES} names the annotation and "
+                                 "a kernel of the port")
+        bench, _ = counted("benchmark", lambda: profiling.benchmark(
+            fwd8, batches[0], iters=TIER_BENCH_ITERS, warmup=1),
+            {"w4a8_gemv_halves": (TIER_BENCH_ITERS + 1) * per_forward})
+        mem = profiling.device_memory_stats(dev)
+        peak = mem["peak_bytes_in_use"] / 2 ** 30
+        log(f"tier (ab) profiling: the trace names 'tier/exec_forward' and {found} (try {tries}); "
+            f"exec forward of {B} x {T} ids: mean {bench['mean_s'] * 1e3:.2f} ms, best "
+            f"{bench['best_s'] * 1e3:.2f} ms over {TIER_BENCH_ITERS}; peak {peak:.2f} GiB "
+            f"(device_memory_stats)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, params8, fwd8
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    log(f"tier (ab): {took:.1f} s; " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    if took > TIER_BUDGET_S:
+        raise AssertionError(f"(ab) took {took:.1f} s, above its {TIER_BUDGET_S} s")
+    return dict(parity=parity, seconds=secs, phase_s=took, state_bytes=state_bytes,
+                params_bytes=written, write_gb_s=written / 1e9 / write_s,
+                read_gb_s=written / 1e9 / read_s, trace_kernels=found, trace_tries=tries,
+                benchmark=bench, peak_gib=peak)
+
+
+
 SOURCES = {
     "a4_gemv": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                 "fastforward_tpu/kernels/matmul.py:1406 (body :1342)"),
@@ -4348,6 +4643,7 @@ def main():
         runs["y"] = timed("sim", phase_sim, dev)
         runs["z"] = timed("quickstart", phase_quickstart, dev)
         runs["aa"] = timed("gpt2", phase_gpt2, dev)
+        runs["ab"] = timed("tier", phase_tier, dev)
     log(f"total {time.perf_counter() - t_all:.1f} s; work after the build "
         f"{sum(v for k, v in phases.items() if k != 'build'):.1f} s")
     kernels = []

@@ -4,17 +4,17 @@ A granularity maps a data shape to a *tile size*; one (scale, offset) pair
 is used per tile: one for the tensor, one per channel, per block, or per
 arbitrary tile. Granularities are immutable and hashable.
 
-The JAX classes are also registered for YAML (`utils.serialization.yamlable`,
-which imports PyYAML); these are not. That registration comes with the port
-of ``utils/serialization`` (ROADMAP Queue 1 item 14), which is to import
-yaml inside its dump and load only, so that importing the port loads no
-yaml.
+The four concrete classes are registered for YAML as the JAX ones are
+(`utils.serialization.yamlable`: their constructor arguments recorded, so a
+quantization state's ``config.yaml`` can name them); only
+`utils.serialization.dump` and ``load`` import PyYAML.
 """
 
 import abc
 from typing import Any, Literal, Sequence
 
 from fastforward_tpu_torch.quantization.tiling import check_tile_compatibility
+from fastforward_tpu_torch.utils.serialization import yamlable
 
 Shape = tuple[int, ...]
 TileSize = tuple[int, ...]
@@ -71,6 +71,7 @@ class Granularity(abc.ABC):
         return ()
 
 
+@yamlable
 class PerTensor(Granularity):
     """One parameter set for the whole tensor."""
 
@@ -78,6 +79,7 @@ class PerTensor(Granularity):
         return "data_shape"
 
 
+@yamlable
 class PerChannel(Granularity):
     """One parameter set per index along ``channel_dims``."""
 
@@ -98,6 +100,7 @@ class PerChannel(Granularity):
         return (self.channel_dims,)
 
 
+@yamlable
 class PerBlock(Granularity):
     """Blocked quantization: fixed-size blocks along ``block_dims``, optionally
     per-channel along ``per_channel_dims``.
@@ -153,6 +156,7 @@ class PerBlock(Granularity):
         return (self.block_dims, self.block_sizes, self.per_channel_dims, self.strict_blocks)
 
 
+@yamlable
 class PerTile(Granularity):
     """Explicit tile shape."""
 

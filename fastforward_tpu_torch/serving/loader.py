@@ -3,8 +3,9 @@ HF-layout Llama safetensors to per-layer `ServingParams`.
 
 `load_tensors` reads the safetensors format itself (an 8-byte
 little-endian header length, a JSON header of dtype, shape and byte
-offsets, then the raw bytes), F32, F16 and BF16, with `torch.frombuffer`;
-`write_safetensors` writes it: the ``safetensors`` package is not needed. HF stores a linear weight as
+offsets, then the raw bytes), float (F64, F32, F16, BF16), integer (I64,
+I32, I16, I8, U8) and BOOL, with `torch.frombuffer`; `write_safetensors`
+writes it: the ``safetensors`` package is not needed. HF stores a linear weight as
 (out, in); the serving layout is (in, out), transposed on load.
 
 The JAX loader quantizes on the host through its C++ library
@@ -35,7 +36,9 @@ from fastforward_tpu_torch.serving.engine import QuantLinear, ServingLayer, Serv
 
 LOADER_MODES = ("w8a8", "w4a8", "w4a16")
 
-_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+           "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+           "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
 
 
 def _iter_safetensor_files(path: str) -> Iterator[str]:
@@ -72,7 +75,7 @@ def read_safetensors(file: str) -> Dict[str, torch.Tensor]:
 
 
 def write_safetensors(file: str, tensors: Dict[str, torch.Tensor]) -> None:
-    """Write CPU or GPU tensors (F32, F16, BF16) as one safetensors file."""
+    """Write CPU or GPU tensors of those dtypes as one safetensors file."""
     names = {v: k for k, v in _DTYPES.items()}
     header, offset = {}, 0
     for name, t in tensors.items():

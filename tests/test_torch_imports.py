@@ -2,9 +2,10 @@
 
 Every module of `fastforward_tpu_torch` is imported in a fresh Python
 process; afterwards neither ``jax``, ``flax``, ``triton``, any
-``fastforward_tpu.`` module, ``safetensors`` nor ``yaml`` (PyYAML, which the
-JAX package's granularities import for their YAML registration) may be
-loaded there. The kernel build table names every CUDA source of
+``fastforward_tpu.`` module, ``safetensors``, ``yaml`` (PyYAML, which the
+JAX package's granularities import for their YAML registration),
+``transformers`` nor ``orbax`` may be loaded there. Nor may they after
+``import fastforward_tpu_torch`` and its checkpoint module alone. The kernel build table names every CUDA source of
 `csrc/`, and each C entry point it binds is defined in its source.
 """
 
@@ -29,7 +30,7 @@ for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "triton", "fastforward_tpu", "safetensors",
-                                       "yaml"))
+                                       "yaml", "transformers", "orbax"))
 print(json.dumps({"modules": names, "forbidden": loaded}))
 """
 
@@ -58,7 +59,11 @@ def test_port_modules_import_no_jax():
                  "range_setting.min_error", "algorithms", "algorithms.gptq",
                  "algorithms.layerwise", "models.llama", "models.mlp", "models.gpt2", "graph",
                  "orchestration", "autoquant", "autoquant_fx", "export", "export.encodings",
-                 "export.pipeline", "export.torch_export"):
+                 "export.pipeline", "export.torch_export", "utils", "utils.common",
+                 "utils.dataclasses", "utils.logging_utils", "utils.cache", "utils.metrics",
+                 "utils.serialization", "utils.block_yaml", "utils.checkpoint",
+                 "utils.evaluation", "utils.profiling", "native", "testing",
+                 "testing.initialization", "testing.package_mock", "testing.hf_golden"):
         assert f"fastforward_tpu_torch.{name}" in expected
     # WHEN all are imported in a fresh interpreter
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -68,6 +73,24 @@ def test_port_modules_import_no_jax():
     # THEN each imported, and no JAX module was loaded
     assert sorted(result["modules"]) == expected
     assert result["forbidden"] == []
+
+
+_TOP = """
+import json, sys
+import fastforward_tpu_torch
+import fastforward_tpu_torch.utils.checkpoint
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "yaml", "safetensors", "transformers", "orbax"))))
+"""
+
+
+def test_package_and_checkpoint_import_nothing_forbidden():
+    # GIVEN a fresh interpreter WHEN the package and its checkpoint module are imported
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _TOP], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=300, check=True)
+    # THEN none of the JAX stack, PyYAML, safetensors, transformers or orbax is loaded
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_build_table_covers_every_source():
