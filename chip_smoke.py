@@ -50,10 +50,18 @@ each raising on failure:
    both products the int8 tensor-core tile, IMMA in its SASS) with
    their activations within one level in that share and their output
    within rtol 8e-3, bit-equality logged);
-   the CUDA-core route of rows 16, 17 and 18t at groups no tensor-core
-   route takes (Llama-3-8B's down_proj at g 112, M = 192, timed; K = g =
-   192 and 320 at M = 8 and 192): row 16 bit-equal, 17 and 18t within
-   W4_GEMV_RTOL; the decode step's fused K/V quantize and append in its
+   rows 16, 17 and 18t at the groups their tensor-core kernels read x for
+   permuted into byte-row order (IGMMA in row 16's permuted kernel): the
+   four projections and the f32 lm_head at g 16 (M = 1, 8, 17, 192, 256),
+   down_proj at g 112 and at g 8 (1,792 groups: the window tree; M = 8,
+   192), K = g = 192 and 320 (M = 8, 192, both outputs), g 2 (K = 64 and
+   4,096), row 16 at K = g = 2^17 (int64 group dots), at g 2 beyond 32^4
+   groups (the tree's fifth level) and at g = 2^16 + 2 with 257 and 1,025
+   groups (int64 dots, every window and the tree): row 16 bit-equal, 17
+   and 18t within W4_GEMV_RTOL, 18t's bias epilogue exact, one launch a
+   call under the row's own count; down_proj at g 112 and g 128 and the
+   four projections at g 16 timed (M = 192) beside their bounds and
+   libraries; the decode step's fused K/V quantize and append in its
    three forms (stacked, per layer, paged) at B = 192, Hkv 8, D 128, v a
    strided view, starts -1 and S, a page id of -1: bit-equal to the
    quantizer and the plain append; the two-level GEMVs' CUDA-core route
@@ -67,7 +75,7 @@ each raising on failure:
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
-   decoding. Seventeen runs, each with its launch counts set to 0 before it
+   decoding. Nineteen runs, each with its launch counts set to 0 before it
    and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
@@ -92,7 +100,11 @@ each raising on failure:
    (q) (b) with FF_2L_CONCAT_PAIRS=4: the concat-pairs GEMV;
    (r) bench.py's baseline tier, sim_w4 g128: dense bf16 weights
        quantized and dequantized on every use, one torch.matmul a
-       projection; attention through the port's kernels.
+       projection; attention through the port's kernels;
+   (ac) FF_BENCH_MODE=w4a8 and w4a16 at FF_BENCH_GROUP=16, bench.py's
+       shape, the lm_head in the layers' mode: every decode GEMV (129 a
+       step) on the permuted route of rows 16 and 17, counted under
+       w4a8_gemv_halves and w4_gemv, and compared at depth 2 as below.
    Every int8-cache decode step quantizes and appends its K/V in one
    launch a layer (counted under kv_append, kv_append_layer or
    paged_kv_append). (m)-(q) run on (b)'s seed and weights and must give (b)'s greedy
@@ -107,8 +119,8 @@ each raising on failure:
    plain path on the card, 192 prompts of 128 tokens, under the run's flags;
    8 prompts with FF_FUSED_LAYER=0 FF_FUSED_OGU=1 (the o + gate/up head
    at 8 rows); 8 prompts with FF_2L_PREBLOCK=1 (the pre-blocked GEMV,
-   not the fused tail); and w4a8 and w4a16 at g256 (their decode GEMVs
-   with groups of two 128-k stages), 192 prompts;
+   not the fused tail); w4a8 and w4a16 at g256 (their decode GEMVs
+   with groups of two 128-k stages) and at g 16 (run (ac)'s), 192 prompts;
 4. engine — bench.py's continuous-batching workload (measure_engine with
    FF_BENCH_MODE=w4a8_2l FF_BENCH_ENGINE_PAGED=1 FF_BENCH_ENGINE_SAT=1,
    one pass): Llama-3-8B w4a8_2l g128 at full depth, 32 slots on the paged
@@ -758,7 +770,7 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     rows.update(_float_scale_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
-    rows.update(_any_group_kernels(dev, gen, randint))
+    rows.update(_float_scale_group_kernels(dev, gen, randint))
     torch.cuda.empty_cache()
     rows.update(_two_level_any_kernels(dev, gen, randint))
     rows.update(_fused_append_kernels(dev, gen, randint))
@@ -1407,83 +1419,201 @@ def _float_scale_kernels(dev, gen, randint):
     return rows
 
 
-def _any_group_kernels(dev, gen, randint):
-    """Rows 16, 17 and 18t at groups no tensor-core route takes: their
-    CUDA-core route (`float_scale_route` "any"; counts w4a8_gemv_halves_any,
-    w4_gemv_any, w4a16_gemm_any; no served default reaches it). Timed at
-    M = 192 on Llama-3-8B's down_proj at g 112 (128 groups: the oracle's
-    window fold); neither 8B K (4,096, 14,336) is a multiple of 96. Checked
-    also at K = g = 192 and 320, M = 8 and 192. Row 16 bit-equal, 17 and 18t
-    within W4_GEMV_RTOL of the largest plain output (one bf16 ulp more)."""
+def _by_columns(plain, N, rows, groups, budget=1 << 29):
+    """``plain(cols)`` (a plain version on the weight's columns ``cols``)
+    over every column in chunks whose (rows, cols, groups) f32 group
+    products stay within ``budget`` elements (the W4A8 oracle stacks them
+    before its window sum), concatenated: the same bits as one call, each
+    output column depending on its own weight column only."""
+    step = max(128, budget // max(1, rows * groups) // 128 * 128)
+    return torch.cat([plain(slice(c, min(N, c + step))) for c in range(0, N, step)], 1)
+
+
+def _float_scale_group_kernels(dev, gen, randint):
+    """Rows 16, 17 and 18t at groups their kernels read x for permuted into
+    byte-row order (`float_scale_route` "permuted": one permute pass, then
+    the tensor-core kernel, counted once under the row's name), row 16
+    bit-equal, 17 and 18t within W4_GEMV_RTOL of the largest plain output
+    (one bf16 ulp more), 18t's bias epilogue exact: the four projections
+    and the f32 lm_head at g 16, M = 1, 8, 17, 192 and 256; down_proj at
+    g 112 (M = 8, 192) and at g 8 (1,792 groups: the window tree; M = 8,
+    192); K = g = 192 and 320 (M = 8, 192, both outputs); g 2 at K = 64 and
+    4,096 (2,048 groups); row 16 at K = g = 2^17 (int64 group dots, M = 8),
+    at g 2 beyond 32^4 groups (the tree's fifth level) and at g = 2^16 + 2
+    with 257 and 1,025 groups (int64 dots under every fold).
+    IGMMA in the SASS of row 16's permuted kernel. Timed: down_proj at g 112
+    and g 128 (M = 192) and the four projections at g 16 (M = 192, the JSON
+    rows w4a8_gemv_halves_g16, w4_gemv_g16, w4a16_gemm_g16), against their
+    bounds (the scales' bytes counted) and libraries (`_int_mm_yardstick`
+    on the unpacked weight; torch.matmul on the dequantized one)."""
+    from fastforward_tpu_torch.kernels import _build
+    from fastforward_tpu_torch.kernels import launch_counts
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import unpack_int4
 
-    t0, rows, M = time.perf_counter(), {}, BATCH
-    K, N = PROJ["down"]
-    g = 112
-    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-    x_q, x_s = mm.quantize_rowwise(x)
-    w = randint(-128, 128, (K // 2, N))
-    s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
-    if mm.float_scale_route(K, g, mm._MAX_BIG_GROUP) != "any":
-        raise AssertionError(f"g {g} at K {K} is not an any-group shape")
-    wbytes = K * N // 2 + s.numel() * 4
-    rows["w4a8_gemv_halves_any"] = measure(
-        "w4a8_gemv_halves_any", f"down M={M} K={K} N={N} g={g} bf16",
-        lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, g),
-        lambda: mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g),
-        M * K + M * 4 + wbytes + M * N * 2, 2 * M * K * N, INT8_OPS_PER_S, bit_equal, plain_n=3)
-    rows["w4a8_gemv_halves_any"]["library_ms"] = _int_mm_yardstick(
-        "w4a8_gemv_halves_any down (the unpacked int8 weight: no group scales)", x_q,
-        unpack_int4(w, g))
-    w_bf16 = mm.dequantize_int4_reference(w, s, g)
-    rows["w4_gemv_any"] = measure(
-        "w4_gemv_any", f"down M={M} K={K} N={N} g={g} bf16",
-        lambda: mm.matmul_w4_gemv(x, w, s, g), lambda: mm.matmul_w4_gemv_reference(x, w, s, g),
-        M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S, w4_close,
-        library=lambda: torch.matmul(x, w_bf16))
-    v = unpack_int4(w, g).to(torch.bfloat16).reshape(K // g, g, N)
-    w_tiled = (v * s.to(torch.bfloat16)[:, None, :]).reshape(K, N)  # 18t's two roundings
-    del w_bf16, v
-    rows["w4a16_gemm_any"] = measure(
-        "w4a16_gemm_any", f"down M={M} K={K} N={N} g={g} bf16",
-        lambda: mm.matmul_w4a16_tiled(x, w, s, None, g),
-        lambda: mm.matmul_w4a16_tiled_reference(x, w, s, None, g),
-        M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S,
-        lambda o, r: w4_close(o, r, W4A16_TILED_REL_ERR), library=lambda: torch.matmul(x, w_tiled))
-    del w_tiled, w, s
-    # g = K at 192 and 320 (K % 128 != 0 at 320), 8 and 192 rows, both outputs
-    calls = 0
-    for K, Me in ((192, 8), (192, 192), (320, 8), (320, 192)):
-        N = 4096
-        x = torch.randn((Me, K), generator=gen, device=dev).to(torch.bfloat16)
-        x_q, x_s = mm.quantize_rowwise(x)
+    _require_sass(_build._lib_path("w4a8_halves"), "w4a8_perm_kernel", "IGMMA", forbid="IMMA")
+    t0, rows, calls = time.perf_counter(), {}, 0
+    names = ("w4a8_gemv_halves", "w4_gemv", "w4a16_gemm")
+    tiled_check = functools.partial(w4_close, record=W4A16_TILED_REL_ERR)
+
+    def weights(K, N, g):
         w = randint(-128, 128, (K // 2, N))
-        s = torch.rand((1, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
-        bias = torch.randn((N,), generator=gen, device=dev)
-        for out_dtype in (torch.bfloat16, torch.float32):
-            tiled = mm.matmul_w4a16_tiled(x, w, s, None, K, out_dtype)
-            checks = (
-                ("w4a8_gemv_halves_any", mm.matmul_w4a8_gemv(x_q, x_s, w, s, K, out_dtype),
-                 mm.matmul_w4a8_reference(x_q, x_s, w, s, None, K, out_dtype), bit_equal),
-                ("w4_gemv_any", mm.matmul_w4_gemv(x, w, s, K, out_dtype),
-                 mm.matmul_w4_gemv_reference(x, w, s, K, out_dtype), w4_close),
-                ("w4a16_gemm_any", tiled,
-                 mm.matmul_w4a16_tiled_reference(x, w, s, None, K, out_dtype),
-                 lambda o, r: w4_close(o, r, W4A16_TILED_REL_ERR)),
-                # the bias epilogue, exactly: round(round(y) + bias)
-                ("w4a16_gemm_any bias", mm.matmul_w4a16_tiled(x, w, s, bias, K, out_dtype),
-                 (tiled.float() + bias).to(out_dtype), bit_equal))
-            for name, out, ref, check in checks:
+        s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+        return w, s
+
+    def check(what, M, K, N, g, w, s, out_dtypes, rows_16_only=False, bias=False):
+        """Each row once a dtype at (M, K, N, g) against its plain version
+        (column chunks), its count one a call."""
+        nonlocal calls
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, x_s = mm.quantize_rowwise(x)
+        for out_dtype in out_dtypes:
+            before = {n: launch_counts[n] for n in names}
+            got = [("w4a8_gemv_halves", mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype),
+                    _by_columns(lambda c: mm.matmul_w4a8_reference(
+                        x_q, x_s, w[:, c], s[:, c], None, g, out_dtype), N, M, K // g),
+                    bit_equal)]
+            if not rows_16_only:
+                got.append(("w4_gemv", mm.matmul_w4_gemv(x, w, s, g, out_dtype),
+                            mm.matmul_w4_gemv_reference(x, w, s, g, out_dtype), w4_close))
+                tiled = mm.matmul_w4a16_tiled(x, w, s, None, g, out_dtype)
+                got.append(("w4a16_gemm", tiled, _by_columns(
+                    lambda c: mm.matmul_w4a16_tiled_reference(x, w[:, c], s[:, c], None, g,
+                                                              out_dtype), N, M, 1),
+                    tiled_check))
+                if bias:  # the bias epilogue, exactly: round(round(y) + bias)
+                    b = torch.randn((N,), generator=gen, device=dev)
+                    got.append(("w4a16_gemm bias", mm.matmul_w4a16_tiled(x, w, s, b, g, out_dtype),
+                                (tiled.float() + b).to(out_dtype), bit_equal))
+            expect = {"w4a8_gemv_halves": 1, "w4_gemv": 0 if rows_16_only else 1,
+                      "w4a16_gemm": 0 if rows_16_only else 1 + bias}
+            counted = {n: launch_counts[n] - before[n] for n in names}
+            if counted != expect:
+                raise AssertionError(f"{what} M={M} g={g}: launches {counted} != {expect}")
+            for name, out, ref, ok_fn in got:
                 calls += 1
-                ok, err = check(out, ref)
+                ok, err = ok_fn(out, ref)
                 if not ok:
-                    raise AssertionError(f"{name} K = g = {K} M={Me} {out_dtype}: kernel "
-                                         f"disagrees with its plain version (err {err:.3g})")
-    log(f"any-group routes: bit-equal (row 16) and within {W4_GEMV_RTOL} (rows 17, 18t; 18t's "
-        f"bias epilogue exact) at K = g = 192 and 320, M = 8 and 192, both outputs ({calls} "
-        f"checks); the phase "
-        f"{time.perf_counter() - t0:.1f} s")
+                    raise AssertionError(f"{name} {what} M={M} K={K} N={N} g={g} {out_dtype}: "
+                                         f"kernel disagrees with its plain version (err {err:.3g})")
+            del got
+
+    # the four projections and the f32 lm_head at g 16
+    shapes = dict(PROJ, lm_head=(PROJ["qkv"][0], VOCAB))
+    for pname, (K, N) in shapes.items():
+        w, s = weights(K, N, 16)
+        for M in (1, 8, 17, BATCH, 256):
+            check(pname, M, K, N, 16, w, s,
+                  (torch.float32,) if pname == "lm_head" else (torch.bfloat16,))
+        del w, s
+        torch.cuda.empty_cache()
+    # down_proj at g 112 and 8 (1,792 groups), K = g = 192 and 320, g 2
+    K, N = PROJ["down"]
+    for g in (112, 8):
+        w, s = weights(K, N, g)
+        for M in (8, BATCH):
+            check(f"down g{g}", M, K, N, g, w, s, (torch.bfloat16,))
+        del w, s
+    for K, g, Ms in ((192, 192, (8, BATCH)), (320, 320, (8, BATCH)), (64, 2, (8,)),
+                     (4096, 2, (8,))):
+        w, s = weights(K, 4096, g)
+        for M in Ms:
+            check(f"K={K}", M, K, 4096, g, w, s, (torch.bfloat16, torch.float32), bias=True)
+        del w, s
+    # row 16 at K = g = 2^17: each stage's int32 partial widened into int64
+    w, s = weights(1 << 17, 4096, 1 << 17)
+    check("K = g = 2^17", 8, 1 << 17, 4096, 1 << 17, w, s, (torch.bfloat16, torch.float32),
+          rows_16_only=True)
+    del w, s
+    torch.cuda.empty_cache()
+    # row 16 at the group counts only a deeper fold reaches: g 2 beyond 32^4
+    # groups (the window tree's fifth level), and g = 2^16 + 2 at 257 groups
+    # (int64 dots, every window in one block) and 1,025 (int64 dots, the
+    # tree), against the oracle's arithmetic with every group dot in one
+    # batched product (`matmul_w4a8_reference` loops over the groups)
+    for M, K, N, g in ((8, 2 * (32 ** 4 + 1), 64, 2), (8, 257 * 65538, 16, 65538),
+                       (2, 1025 * 65538, 4, 65538)):
+        w, s = weights(K, N, g)
+        x_q, x_s = mm.quantize_rowwise(
+            torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16))
+        before = launch_counts["w4a8_gemv_halves"]
+        out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, torch.float32)
+        if launch_counts["w4a8_gemv_halves"] - before != 1:
+            raise AssertionError(f"w4a8_gemv_halves K={K} g={g}: not one launch")
+        plan = mm.w4a8_plan(M, K, N, g)
+        gd = torch.bmm(x_q.double().reshape(M, K // g, g).transpose(0, 1),
+                       unpack_int4(w, g).double().reshape(K // g, g, N)).float()
+        ref = mm._window_sum((gd * s[:, None, :]).permute(1, 2, 0)) * x_s.float()[:, None]
+        del gd, w, s, x_q
+        ok, err = bit_equal(out, ref)
+        calls += 1
+        if not ok:
+            raise AssertionError(f"w4a8_gemv_halves M={M} K={K} N={N} g={g} ({plan.fold}): "
+                                 f"kernel disagrees with the oracle (err {err:.3g})")
+        log(f"w4a8_gemv_halves M={M} K={K} N={N} g={g}: fold {plan.fold}, {plan.n} rows a "
+            f"block, bit-equal")
+        torch.cuda.empty_cache()
+    log(f"permuted route of rows 16, 17, 18t: bit-equal (row 16) and within {W4_GEMV_RTOL} "
+        f"(rows 17, 18t; 18t's bias epilogue exact) at g 16 (four projections, f32 lm_head, "
+        f"M = 1-256), down_proj g 112 and g 8, K = g = 192 and 320, g 2, row 16 at g = 2^17, "
+        f"beyond 32^4 groups and at 257 and 1,025 groups above 2^16 "
+        f"({calls} checks, {time.perf_counter() - t0:.1f} s)")
+
+    def timed(label, M, K, N, g):
+        """Rows 16, 17 and 18t at one shape: measured rows."""
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, x_s = mm.quantize_rowwise(x)
+        w, s = weights(K, N, g)
+        wbytes = K * N // 2 + s.numel() * 4
+        out = {"w4a8_gemv_halves": measure(
+            "w4a8_gemv_halves", f"{label} M={M} K={K} N={N} g={g} bf16",
+            lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, g),
+            lambda: _by_columns(lambda c: mm.matmul_w4a8_reference(
+                x_q, x_s, w[:, c], s[:, c], None, g), N, M, K // g),
+            M * K + M * 4 + wbytes + M * N * 2, 2 * M * K * N, INT8_OPS_PER_S, bit_equal,
+            plain_n=3)}
+        out["w4a8_gemv_halves"]["library_ms"] = _int_mm_yardstick(
+            f"w4a8_gemv_halves {label} g{g} (the unpacked int8 weight: no group scales)", x_q,
+            unpack_int4(w, g))
+        w_bf16 = mm.dequantize_int4_reference(w, s, g)
+        out["w4_gemv"] = measure(
+            "w4_gemv", f"{label} M={M} K={K} N={N} g={g} bf16",
+            lambda: mm.matmul_w4_gemv(x, w, s, g), lambda: mm.matmul_w4_gemv_reference(x, w, s, g),
+            M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S, w4_close,
+            library=lambda: torch.matmul(x, w_bf16))
+        del w_bf16
+        v = unpack_int4(w, g).to(torch.bfloat16).reshape(K // g, g, N)
+        w_tiled = (v * s.to(torch.bfloat16)[:, None, :]).reshape(K, N)  # 18t's two roundings
+        del v
+        out["w4a16_gemm"] = measure(
+            "w4a16_gemm", f"{label} M={M} K={K} N={N} g={g} bf16",
+            lambda: mm.matmul_w4a16_tiled(x, w, s, None, g),
+            lambda: mm.matmul_w4a16_tiled_reference(x, w, s, None, g),
+            M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, BF16_OPS_PER_S, tiled_check,
+            library=lambda: torch.matmul(x, w_tiled), plain_n=3)
+        del w_tiled, w, s
+        torch.cuda.empty_cache()
+        return out
+
+    K, N = PROJ["down"]
+    down = {g: timed("down", BATCH, K, N, g) for g in (112, 128)}
+    for name in names:
+        a, b = down[112][name], down[128][name]
+        log(f"{name} down M={BATCH}: g112 device {fmt_ms(a['device_ms'])} ({a['ms']:.4f} ms), "
+            f"g128 device {fmt_ms(b['device_ms'])} ({b['ms']:.4f} ms); bound g112 "
+            f"{max(a['bytes_ms'], a['ops_ms']):.4f} ms")
+        rows[f"{name}_down_g112"] = a
+    per = {name: [] for name in names}
+    for pname, (K, N) in PROJ.items():
+        for name, r in timed(pname, BATCH, K, N, 16).items():
+            per[name].append(r)
+    for name in names:
+        rows[f"{name}_g16"] = total = add_rows(per[name])
+        log(f"{name} four projections g16 M={BATCH}: {total['ms']:.4f} ms, device "
+            f"{fmt_ms(total['device_ms'])}, bound {max(total['bytes_ms'], total['ops_ms']):.4f} ms "
+            f"(bytes {total['bytes_ms']:.4f} ms: packed weights and f32 scales), library "
+            f"{fmt_ms(total['library_ms'])}")
+    log(f"rows 16, 17, 18t at other groups: the phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return rows
 
@@ -2053,7 +2183,11 @@ def _plain_versions():
         return plain
 
     def w4a8_halves(x_q, x_s, w, s, group_size, out_dtype):
-        return mm.matmul_w4a8_reference(x_q, x_s, w, s, None, group_size, out_dtype)
+        # in column chunks: the oracle stacks every group's products (the
+        # f32 lm_head at g 16: 256 groups of 192 x 128,256)
+        return _by_columns(lambda c: mm.matmul_w4a8_reference(
+            x_q, x_s, w[:, c], s[:, c], None, group_size, out_dtype), w.shape[1], x_q.shape[0],
+            x_q.shape[1] // group_size)
 
     def flash(q, k, ks, v, vs, lengths, layer, count=None):
         return att.flash_decode_int8_reference(q, k[layer], ks[layer], v[layer], vs[layer], lengths)
@@ -2269,7 +2403,8 @@ PORT_KERNELS = ("gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "flash_prefill_kernel", "tail_quant_kernel", "tail_norm_kernel",
                 "tail_act_kernel", "tail_out_kernel", "w8a8_wgmma_kernel",
                 "w4a8_wgmma_kernel", "w4_gemv_wgmma_kernel", "w4a16_wgmma_kernel",
-                "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel")
+                "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel",
+                "w4a8_perm_kernel", "permute_x_kernel")
 
 
 def _report_profile(what, wall_ms, rows, top=10):
@@ -2579,6 +2714,19 @@ def phase_serve(dev):
         launched = compare_paths(config, mode, 256, dev)
         if launched != {"dequant_halves", gemv, "flash_prefill", "kv_append", "flash_decode"}:
             raise AssertionError(f"{mode} g256 launched {sorted(launched)}")
+    # (ac): w4a8 and w4a16 at g 16 (FF_BENCH_GROUP=16), bench.py's shape, the
+    # lm_head in the layers' mode: every decode GEMV on the permuted route of
+    # rows 16 and 17 (x in byte-row order), counted under the rows' names;
+    # then the kernel path against the plain path at depth 2
+    t0 = time.perf_counter()
+    for key, mode, gemv in (("ac8", "w4a8", "w4a8_gemv_halves"), ("ac16", "w4a16", "w4_gemv")):
+        runs[key] = serve_run(f"(ac) {mode} g16", config, mode, 16, BATCH, PROMPT, STEPS, dev,
+                              {"dequant_halves": 4 * L, gemv: decode, **attn})
+        launched = compare_paths(config, mode, 16, dev)
+        if launched != {"dequant_halves", gemv, "flash_prefill", "kv_append", "flash_decode"}:
+            raise AssertionError(f"{mode} g16 launched {sorted(launched)}")
+    log(f"serve (ac): {time.perf_counter() - t0:.1f} s (both modes, depth 32 and the depth-2 "
+        f"checks)")
     return runs
 
 
@@ -4555,12 +4703,18 @@ SOURCES = {
     "paged_kv_quantize_append": ("fastforward_tpu_torch/csrc/kv_append.cu",
                                  "fastforward_tpu/kernels/paged_attention.py:293 (after "
                                  "serving/kv_cache.py:24 _quantize_kv)"),
-    "w4a8_gemv_halves_any": ("fastforward_tpu_torch/csrc/w4a8_halves.cu",
-                             "fastforward_tpu/kernels/matmul.py:341 (kernel :312, any group)"),
-    "w4_gemv_any": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
-                    "fastforward_tpu/kernels/matmul.py:262 (kernel :240, any group)"),
-    "w4a16_gemm_any": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
-                       "fastforward_tpu/kernels/matmul.py:1813 (any group)"),
+    "w4a8_gemv_halves_down_g112": ("fastforward_tpu_torch/csrc/w4a8_halves.cu",
+                                   "fastforward_tpu/kernels/matmul.py:341 (kernel :312, g 112)"),
+    "w4_gemv_down_g112": ("fastforward_tpu_torch/csrc/w4_gemv.cu",
+                          "fastforward_tpu/kernels/matmul.py:262 (kernel :240, g 112)"),
+    "w4a16_gemm_down_g112": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
+                             "fastforward_tpu/kernels/matmul.py:1813 (g 112)"),
+    "w4a8_gemv_halves_g16": ("fastforward_tpu_torch/csrc/w4a8_halves.cu",
+                             "fastforward_tpu/kernels/matmul.py:341 (kernel :312, g 16)"),
+    "w4_gemv_g16": ("fastforward_tpu_torch/csrc/w4_gemv.cu",
+                    "fastforward_tpu/kernels/matmul.py:262 (kernel :240, g 16)"),
+    "w4a16_gemm_g16": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
+                       "fastforward_tpu/kernels/matmul.py:1813 (g 16)"),
     "a4_gemv_any": ("fastforward_tpu_torch/csrc/common.cuh",
                     "fastforward_tpu/kernels/matmul.py:1406 (body :1342, any group)"),
     "w4a8_gemv_any": ("fastforward_tpu_torch/csrc/common.cuh",
@@ -4587,21 +4741,29 @@ SOURCES = {
 
 
 # Entries the port's main path does not launch (0 launches, the
-# "main_path" key false): row 18's tiled W4A16 body and row 24's probe (no
-# path of the JAX package serves through them), the any-group routes of
-# rows 16, 17 and 18t and of the two-level GEMVs and fused routes (no
-# served default reaches their groups), and the int8-input appends, whose
+# "main_path" key false): row 18's tiled W4A16 body (at g128 and at the
+# permuted route's groups) and row 24's probe (no path of the JAX package
+# serves through them), rows 16 and 17 at g 112 (no run serves that
+# group), the any-group routes of the two-level GEMVs and
+# fused routes (no served default reaches their groups), and the int8-input appends, whose
 # rows the decode step now launches through the fused K/V quantize and
 # append under the same counts (COUNT_OF).
 OFF_MAIN_PATH = ("w4a16_gemm", "probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4",
-                 "probe_mma_s4", "probe_mma_bf16", "w4a8_gemv_halves_any", "w4_gemv_any",
-                 "w4a16_gemm_any", "kv_append", "kv_append_layer", "paged_kv_append",
+                 "probe_mma_s4", "probe_mma_bf16", "w4a16_gemm_down_g112", "w4a16_gemm_g16",
+                 "w4a8_gemv_halves_down_g112", "w4_gemv_down_g112",
+                 "kv_append", "kv_append_layer", "paged_kv_append",
                  "a4_gemv_any", "w4a8_gemv_any", "w4a8_gemv_unpaired_any", "w4a8_gemv_stacked_any",
                  "fused_norm_qkv_any", "fused_norm_qkv_a4_any", "fused_o_mlp_any",
                  "fused_o_gu_any")
 # The launch count a kernels-line entry reads where it is not its own name.
 COUNT_OF = {"kv_quantize_append": "kv_append", "kv_quantize_append_layer": "kv_append_layer",
-            "paged_kv_quantize_append": "paged_kv_append"}
+            "paged_kv_quantize_append": "paged_kv_append",
+            **{f"{row}_{at}": row for row in ("w4a8_gemv_halves", "w4_gemv", "w4a16_gemm")
+               for at in ("down_g112", "g16")}}
+# The runs whose launch counts a kernels-line entry reads where the first
+# run of the main path that launched its count served another group: the
+# permuted route of rows 16 and 17 at g 16 (run (ac)).
+RUN_OF = {"w4a8_gemv_halves_g16": ("ac8",), "w4_gemv_g16": ("ac16",)}
 
 
 def main():
@@ -4651,9 +4813,9 @@ def main():
         r = rows[name]
         count = COUNT_OF.get(name, name)
         launches = 0 if name in OFF_MAIN_PATH else next(
-            (runs[k]["counts"][count] for k in ("a", "b", "e", "f", "g", "h", "i", "engine", "k",
-                                                "l", "m", "n", "o", "p", "q", "r")
-             if runs[k]["counts"].get(count)), 0)
+            (runs[k]["counts"][count] for k in RUN_OF.get(name, (
+                "a", "b", "e", "f", "g", "h", "i", "engine", "k", "l", "m", "n", "o", "p", "q",
+                "r")) if runs[k]["counts"].get(count)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches,
             main_path=name not in OFF_MAIN_PATH,

@@ -9,8 +9,8 @@
 //   y[m, n] = sum_k x[m, k] * w[k, n]                    (f32 accumulation)
 // x (M <= 256, K) bf16, w (K/2, N) in pack_int4's group halves (byte row i
 // of group p: k = pg + i low nibble, pg + g/2 + i high, two's complement),
-// s (K/g, N) f32, g 32, 64 or 128 or a multiple of 128 from 256 up to K; y
-// (M, N) f32 or bf16, rounded once. The dequant rounds
+// s (K/g, N) f32, any group the reference takes (g even, K a whole number
+// of groups); y (M, N) f32 or bf16, rounded once. The dequant rounds
 // as dequantize_int4's CPU path (the TPU kernel rounds the scale to bf16
 // and multiplies in bf16 instead, :256). The f32 sums run in the tensor
 // cores' order and, split over K, add the splits in split order: held
@@ -56,6 +56,10 @@
 //   spans j stages: a stage's two x boxes are then the 64-k runs of its
 //   byte rows' low and high nibbles (w4_wgmma.cuh stage_k), g/2 apart, and
 //   its one scale row the group's, so the consumers read it as at g 128.
+//   Every other group reads x permuted into byte-row order (w4_wgmma.cuh
+//   permute_x, one pass before the GEMV: a stage then reads it as at g 32)
+//   and the scale rows of every group its 64 byte rows touch; each pair of
+//   byte rows is dequantized with its two rows' own scales.
 //   A consumer warpgroup works a stage in two halves of four k16 steps: it
 //   issues a half's wgmmas (async) and dequantizes the next half into the
 //   other register set while they run, then waits for them.
@@ -96,12 +100,19 @@ __host__ __device__ constexpr int tile_n(int M) {
 // a multiple of 1024: every box starts on the swizzle's period).
 __host__ __device__ constexpr int stage_bytes(int rows) { return 2 * rows * 128 + kWBytes + kSBytes; }
 
-// The ring (or the reduction tile, which reuses it), its barriers and the
-// slack to align it to 1024 bytes.
-inline size_t smem_bytes(int rows, int depth) {
-  const size_t ring = (size_t)depth * stage_bytes(rows), red = (size_t)rows * kRedPitch * 4;
+// The same on the permuted route (w4_wgmma.cuh perm_scale_bytes: the scale
+// rows of every group a stage touches).
+__host__ __device__ inline int perm_stage_bytes(int rows, int K, int group) {
+  return 2 * rows * 128 + kWBytes + w4g::perm_scale_bytes(K, group, kBN);
+}
+
+// The ring of `stage`-byte stages (or the reduction tile, which reuses it),
+// its barriers and the slack to align it to 1024 bytes.
+inline size_t smem_bytes(int rows, int depth, int stage) {
+  const size_t ring = (size_t)depth * stage, red = (size_t)rows * kRedPitch * 4;
   return (ring > red ? ring : red) + (size_t)depth * 16 + 1024;
 }
+inline size_t smem_bytes(int rows, int depth) { return smem_bytes(rows, depth, stage_bytes(rows)); }
 
 template <int N>
 struct Wgmma;
@@ -307,6 +318,22 @@ __device__ __forceinline__ unsigned dequant_reg(unsigned p, float s, const unsig
   return cvt_bf16x2(__fmul_rn(v0, s), __fmul_rn(v1, s));
 }
 
+// The same with row r's scale s0 and row r + 1's s1 (the permuted route:
+// the two rows may lie in two groups).
+template <bool HI>
+__device__ __forceinline__ unsigned dequant_reg2(unsigned p, float s0, float s1,
+                                                 const unsigned (&mk)[4]) {
+  float v0, v1;
+  if (HI) {
+    v0 = __fadd_rn(__uint_as_float(and_xor<0x49000080u>(p, mk[2])), -524296.0f);
+    v1 = __fadd_rn(__uint_as_float(and_xor<0x45008000u>(p, mk[3])), -2056.0f);
+  } else {
+    v0 = __fadd_rn(__uint_as_float(and_xor<0x4B000008u>(p, mk[0])), -8388616.0f);
+    v1 = __fadd_rn(__uint_as_float(and_xor<0x47000800u>(p, mk[1])), -32776.0f);
+  }
+  return cvt_bf16x2(__fmul_rn(v0, s0), __fmul_rn(v1, s1));
+}
+
 // A consumer thread's fixed offsets into a stage (every stage has the same
 // layout): its two columns' 16-bit words in byte rows 2 tid and 2 tid + 1 of
 // the swizzled weight box (rows 8 and 16 further keep the swizzle: it
@@ -370,6 +397,38 @@ __device__ __forceinline__ void dequant_half(const unsigned char* st, const Thre
   }
 }
 
+// dequant_half on the permuted route: byte rows 16q + 2tid, + 1, + 8, + 9
+// take the scales of their own groups, scale rows gd(rem + row) of the
+// stage's (rem: its first byte row's place in its group).
+template <int HH>
+__device__ __forceinline__ void dequant_half_perm(const unsigned char* st, const Thread& t,
+                                                  int sbase, int cb, int tid,
+                                                  const w4g::GroupDiv& gd, int rem,
+                                                  unsigned (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int q = 2 * HH + j;
+    float2 sv[4];
+    unsigned h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * q + 2 * tid + (i & 1) + 8 * (i >> 1);
+      sv[i] = *reinterpret_cast<const float2*>(st + sbase + 4 * (gd(rem + row) * kBN + cb));
+      h[i] = *reinterpret_cast<const unsigned short*>(st + t.w[i & 1] +
+                                                      (16 * q + 8 * (i >> 1)) * kBN);
+    }
+    const unsigned p[4] = {__byte_perm(h[0], h[1], 0x0040), __byte_perm(h[0], h[1], 0x0051),
+                           __byte_perm(h[2], h[3], 0x0040), __byte_perm(h[2], h[3], 0x0051)};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 s0 = sv[r / 2 * 2], s1 = sv[r / 2 * 2 + 1];
+      const float a0 = r % 2 ? s0.y : s0.x, a1 = r % 2 ? s1.y : s1.x;
+      a[2 * j][r] = dequant_reg2<false>(p[r], a0, a1, t.mk);
+      a[2 * j + 1][r] = dequant_reg2<true>(p[r], a0, a1, t.mk);
+    }
+  }
+}
+
 // Issue half HH of a stage's products: its four k16 steps on `a`, each
 // against every token sub-tile of x at shared address `xb`, as one
 // committed group (queued behind the previous half's).
@@ -423,12 +482,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 }
 
 // Grid (n_split, column blocks), clusters of (n_split, 1, 1); kThreads
-// threads; dynamic shared memory smem_bytes(NT, depth). x_map: x (M, K)
-// bf16, boxes of 64 k x NT rows; w_map (when w_tma): w's (K/2, N)
-// bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32, boxes of kBN x
-// max(1, kBK / g). Split z streams the stages [z sps, min(stages, (z + 1)
-// sps)) of ceil(K / kBK).
-template <int NT, typename OutT>
+// threads; dynamic shared memory smem_bytes(NT, depth) (PERM: at
+// perm_stage_bytes). x_map: x (M, K) bf16 (PERM: xp), boxes of 64 k x NT
+// rows; w_map (when w_tma): w's (K/2, N) bytes, boxes of kBN x kRows; s_map:
+// s (K/g, N) f32, boxes of kBN x max(1, kBK / g) (PERM: perm_scale_box).
+// Split z streams the stages [z sps, min(stages, (z + 1) sps)) of ceil(K /
+// kBK).
+template <int NT, typename OutT, bool PERM = false>
 __global__ void __launch_bounds__(kThreads, NT <= 64 ? 2 : 1)
 w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                      const __grid_constant__ CUtensorMap w_map,
@@ -437,7 +497,7 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                      int group, int n_split, int depth) {
   constexpr int kXRows = NT;
   constexpr int kXHalf = kXRows * 128;  // one 64-k box of x
-  constexpr int kStage = stage_bytes(kXRows);
+  const int kStage = PERM ? perm_stage_bytes(kXRows, K, group) : stage_bytes(kXRows);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle's 1024-byte period (smem_bytes asks for the slack)
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
@@ -447,7 +507,8 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int split = blockIdx.x, n0 = blockIdx.y * kBN;
   const int total = (K + kBK - 1) / kBK, sps = (total + n_split - 1) / n_split;
   const int s0 = split * sps, stages = min(total, s0 + sps) - s0;
-  const int kSRows = group > kBK ? 1 : kBK / group;
+  const int kSRows = PERM ? w4g::perm_scale_box(K, group) : group > kBK ? 1 : kBK / group;
+  const w4g::GroupDiv gd(PERM ? group : 2, kSRows - 1);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < depth; ++s) {
@@ -468,14 +529,15 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       unsigned char* st = smem + (size_t)slot * kStage;
       if (lane == 0) {
         int k_lo, k_hi;
-        w4g::stage_k(sg, group, k_lo, k_hi);
+        w4g::stage_k(sg, PERM ? kBK : group, k_lo, k_hi);
         mma8::mbar_arrive_expect_tx(full + slot,
                                     2 * kXHalf + (w_tma ? kWBytes : 0) + kSRows * kBN * 4);
         mma8::tma_box(st, &x_map, k_lo, 0, full + slot);
         mma8::tma_box(st + kXHalf, &x_map, k_hi, 0, full + slot);
         if (w_tma) mma8::tma_box(st + 2 * kXHalf, &w_map, n0, sg * kRows, full + slot);
         mma8::tma_box(st + 2 * kXHalf + kWBytes, &s_map, n0,
-                      group > kBK ? k_lo / group : sg * kSRows, full + slot);
+                      PERM ? sg * kRows / gd.h : group > kBK ? k_lo / group : sg * kSRows,
+                      full + slot);
       }
       if (!w_tma) {
         // lane: the 4-byte word at column 4 lane of each byte row, to its
@@ -496,7 +558,15 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     // ---- the consumer warpgroups: 64 weight columns each, every token row
     const int wg = warp / 4, gid = lane / 4, tid = lane % 4;
     const int cb = 64 * wg + 16 * (warp % 4) + 2 * gid;  // this thread's columns cb, cb + 1
-    const Thread t = thread_of(cb, tid, group > kBK ? kBK : group, kXHalf);
+    const Thread t = thread_of(cb, tid, PERM ? 32 : group > kBK ? kBK : group, kXHalf);
+    const int sbase = 2 * kXHalf + kWBytes;  // the stage's scale rows
+    // the first half's fragments (the permuted route: from its groups' scales)
+    auto first_half = [&](const unsigned char* st, int sg, unsigned(&a)[4][4]) {
+      if constexpr (PERM)
+        dequant_half_perm<0>(st, t, sbase, cb, tid, gd, sg * kRows % gd.h, a);
+      else
+        dequant_half<0>(st, t, a);
+    };
     float acc[NT / 2];
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
@@ -507,7 +577,7 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     int slot = 0;
     unsigned phase = 0;
     mma8::mbar_wait_or_trap(full, 0);
-    dequant_half<0>(smem, t, a0);
+    first_half(smem, s0, a0);
     for (int s = 0; s < stages; ++s) {
       const unsigned char* st = smem + (size_t)slot * kStage;
       const unsigned xb = smem_u32(st);
@@ -515,7 +585,10 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       retire(a1);  // the previous stage's second half is done: its slot is free
       if (s > 0 && threadIdx.x % 128 == 0)
         mma8::mbar_arrive(empty + (slot == 0 ? depth - 1 : slot - 1));
-      dequant_half<1>(st, t, a1);
+      if constexpr (PERM)
+        dequant_half_perm<1>(st, t, sbase, cb, tid, gd, (s0 + s) * kRows % gd.h, a1);
+      else
+        dequant_half<1>(st, t, a1);
       issue_half<NT, 1>(xb, t, acc, a1);
       retire(a0);
       if (s + 1 < stages) {
@@ -524,7 +597,7 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
           phase ^= 1;
         }
         mma8::mbar_wait_or_trap(full + slot, phase);
-        dequant_half<0>(smem + (size_t)slot * kStage, t, a0);
+        first_half(smem + (size_t)slot * kStage, s0 + s + 1, a0);
       }
     }
     w4g::wgmma_wait<0>();
@@ -562,28 +635,38 @@ w4_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 }
 
 // Launch the GEMV on a (M, K) x (K/2, N) product; M <= 256,
-// w4g::group_ok(K, group), K split n_split ways over whole stages, a ring of
-// `depth` stages (the plan of kernels/matmul.py w4_plan). x and s must admit
-// a tensor map (16-byte aligned); the weights take the cp.async feed where
-// they do not.
+// w4g::reference_group_ok(K, group), K split n_split ways over whole stages,
+// a ring of `depth` stages (the plan of kernels/matmul.py w4_plan). x and s
+// must admit a tensor map (16-byte aligned); the weights take the cp.async
+// feed where they do not. Where w4g::group_ok does not take the group, x is
+// first permuted into xp (M, w4g::perm_cols(K)) bf16, 16-byte aligned.
 template <typename OutT>
-cudaError_t launch(const void* x, const void* w, const void* s, void* out, int M, int K, int N,
-                   int group, int n_split, int depth, cudaStream_t st) {
-  if (M < 1 || M > kMaxRows || N < 4 || N % 4 != 0 || !w4g::group_ok(K, group) ||
+cudaError_t launch(const void* x, const void* w, const void* s, void* out, void* xp, int M,
+                   int K, int N, int group, int n_split, int depth, cudaStream_t st) {
+  if (M < 1 || M > kMaxRows || N < 4 || N % 4 != 0 || !w4g::reference_group_ok(K, group) ||
       n_split < 1 || n_split > kMaxSplit)
     return cudaErrorInvalidValue;
+  const bool perm = !w4g::group_ok(K, group);
   const int total = (K + kBK - 1) / kBK, sps = (total + n_split - 1) / n_split;
   // a stage's slot is released while the next stage is worked: two slots
   // unless a split streams one stage
   if (depth < (sps > 1 ? 2 : 1)) return cudaErrorInvalidValue;
   const int rows = tile_n(M);
-  const size_t smem = smem_bytes(rows, depth);
-  if ((n_split - 1) * sps >= total || smem > 232448) return cudaErrorInvalidValue;
+  const size_t smem =
+      smem_bytes(rows, depth, perm ? perm_stage_bytes(rows, K, group) : stage_bytes(rows));
+  if ((n_split - 1) * sps >= total || smem > 232448 || (perm && xp == nullptr))
+    return cudaErrorInvalidValue;
+  if (perm) {
+    const cudaError_t err = w4g::permute_x<unsigned short>(x, xp, M, K, group, st);
+    if (err != cudaSuccess) return err;
+  }
+  const int xcols = perm ? w4g::perm_cols(K) : K;
   CUtensorMap xm = {}, wm = {}, sm = {};
-  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ll * K, 64, rows,
-                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, perm ? xp : x, xcols, M,
+                        2ll * xcols, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, K / group, 4ll * N, kBN,
-                        group > kBK ? 1 : kBK / group, CU_TENSOR_MAP_SWIZZLE_NONE))
+                        perm ? w4g::perm_scale_box(K, group) : group > kBK ? 1 : kBK / group,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const int w_tma = mma8::tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, kBN,
                                      kRows, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -608,6 +691,24 @@ cudaError_t launch(const void* x, const void* w, const void* s, void* out, int M
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
   };
+  if (perm) {
+    switch (rows) {
+      case 8:
+        return run(w4_gemv_wgmma_kernel<8, OutT, true>);
+      case 16:
+        return run(w4_gemv_wgmma_kernel<16, OutT, true>);
+      case 32:
+        return run(w4_gemv_wgmma_kernel<32, OutT, true>);
+      case 64:
+        return run(w4_gemv_wgmma_kernel<64, OutT, true>);
+      case 128:
+        return run(w4_gemv_wgmma_kernel<128, OutT, true>);
+      case 192:
+        return run(w4_gemv_wgmma_kernel<192, OutT, true>);
+      default:
+        return run(w4_gemv_wgmma_kernel<256, OutT, true>);
+    }
+  }
   switch (rows) {
     case 8:
       return run(w4_gemv_wgmma_kernel<8, OutT>);
@@ -630,16 +731,18 @@ cudaError_t launch(const void* x, const void* w, const void* s, void* out, int M
 }  // namespace ff
 
 // x (M, K) bf16 (16-byte aligned), w (K/2, N) pack_int4, w_scale (K/g, N)
-// f32 (16-byte aligned), out (M, N) f32 or bf16; M <= 256; group 32, 64 or
-// 128, or a multiple of 128 from 256 up to K; n_split and depth from
-// kernels/matmul.py w4_plan.
-extern "C" int ff_w4_gemv(const void* x, const void* w, const void* w_scale, void* out, int M,
-                          int K, int N, int group, int n_split, int depth, int out_bf16,
+// f32 (16-byte aligned), out (M, N) f32 or bf16; M <= 256; any group the
+// reference takes (g even, K a whole number of groups); xp (M,
+// w4g::perm_cols(K)) bf16 scratch where w4g::group_ok does not take the
+// group, else null; n_split and depth from kernels/matmul.py w4_plan.
+extern "C" int ff_w4_gemv(const void* x, const void* w, const void* w_scale, void* out, void* xp,
+                          int M, int K, int N, int group, int n_split, int depth, int out_bf16,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return ff::w4v::launch<__nv_bfloat16>(x, w, w_scale, out, M, K, N, group, n_split, depth, st);
-  return ff::w4v::launch<float>(x, w, w_scale, out, M, K, N, group, n_split, depth, st);
+    return ff::w4v::launch<__nv_bfloat16>(x, w, w_scale, out, xp, M, K, N, group, n_split, depth,
+                                          st);
+  return ff::w4v::launch<float>(x, w, w_scale, out, xp, M, K, N, group, n_split, depth, st);
 }
 
 // The clusters of n_split blocks the card runs at once for the launch of
@@ -686,19 +789,4 @@ extern "C" int ff_w4_gemv_clusters(int M, int depth, int n_split) {
     default:
       return query(w4_gemv_wgmma_kernel<256, float>);
   }
-}
-
-// Any other group the reference takes (w4g::any_group_ok: g even, K a whole
-// number of groups; kernels/matmul.py float_scale_route): the plain CUDA-core
-// loop of w4_wgmma.cuh (w4_any_group_kernel), each weight dequantized with
-// this GEMV's one rounding. x (M, K) bf16, w (K/2, N) pack_int4, w_scale
-// (K/g, N) f32, out (M, N) f32 or bf16; M <= 256.
-extern "C" int ff_w4_gemv_any(const void* x, const void* w, const void* w_scale, void* out,
-                              int M, int K, int N, int group, int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M > ff::w4v::kMaxRows) return cudaErrorInvalidValue;
-  if (out_bf16)
-    return ff::w4g::launch_any<__nv_bfloat16, false>(x, w, w_scale, nullptr, out, M, K, N, group,
-                                                     st);
-  return ff::w4g::launch_any<float, false>(x, w, w_scale, nullptr, out, M, K, N, group, st);
 }

@@ -32,8 +32,11 @@
 //   stages: stage c of group p holds byte rows pg/2 + 64c.., whose low
 //   nibbles are k = pg + 64c.. and high nibbles k = pg + g/2 + 64c.., so
 //   its two x boxes are those two 64-k runs and its one scale row is p's;
-//   the consumers then read the stage as at g 128. Where the weights' row
-//   pitch N is not
+//   the consumers then read the stage as at g 128. Every other group the
+//   reference takes (g even, K a whole number of groups) reads x permuted
+//   into byte-row order (permute_x below), which a stage reads as at g 32;
+//   only the scales follow the group, one scale row a byte row. Where the
+//   weights' row pitch N is not
 //   a multiple of 16 bytes, the producer's lanes copy their 4-byte words by
 //   cp.async to the swizzled places instead and arrive on the full barrier
 //   when they land. Rows and columns past the tensors arrive as zeros.
@@ -155,6 +158,105 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<unsigned*>(p) = pack_bf16x2(a, b);
 }
 
+// ---- Every other group the reference takes (g even, K a whole number of
+// groups; kernels/matmul.py float_scale_route "permuted"): byte row b of
+// pack_int4's group halves (group p = b / h, h = g/2, i = b % h) holds k =
+// pg + i in its low nibble and pg + h + i in its high one, so a stage's x
+// are whole TMA boxes only at the groups group_ok takes. Every other group
+// first permutes x once a call (permute_x_kernel) into xp (M, perm_cols(K)):
+// columns 32 r .. 32 r + 15 of run r are x at the low-nibble k of byte rows
+// 16 r .. 16 r + 15, columns 32 r + 16 .. 32 r + 31 at their high-nibble k,
+// zeros past byte row K/2 - 1. That is the g 32 layout of x for every group:
+// the kernels read xp as they read x at g 32, and only the scales follow the
+// group. A stage (64 byte rows from a 16-row run) loads the scale rows of
+// every group it touches, perm_scale_box of them from its first byte row's
+// group.
+__host__ __device__ inline bool reference_group_ok(int K, int group) {
+  return group >= 2 && group % 2 == 0 && K >= group && K % group == 0;
+}
+__host__ __device__ inline int perm_cols(int K) { return (K + 31) / 32 * 32; }
+__host__ __device__ inline int gcd_int(int a, int b) {
+  while (b != 0) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+// Scale rows a stage loads: a stage starting on a 16-row run lies rem =
+// (16 j) % h rows into its first group, rem <= h - gcd(16, h), so its 64
+// rows touch at most (h - gcd(16, h) + 63) / h + 1 groups; no more than G.
+__host__ __device__ inline int perm_scale_box(int K, int group) {
+  const int h = group / 2, G = K / group, r = (h - gcd_int(16, h) + 63) / h + 1;
+  return r < G ? r : G;
+}
+// Bytes of a stage's scale region: the box rounded up to an even row count,
+// so a stage stays a whole number of the 128B swizzle's 1024-byte periods.
+__host__ __device__ inline int perm_scale_bytes(int K, int group, int cols) {
+  return (perm_scale_box(K, group) + 1) / 2 * 2 * cols * 4;
+}
+
+// The scale row of byte row B + o of a stage whose first byte row B lies rem
+// = B % h rows into its group (the stage's first scale row): (rem + o) / h
+// for o < 64, by a compare (h >= 64: the quotient is 0 or 1) or a multiply
+// by ceil(2^16 / h) and a shift (exact for numerators below 128); at most
+// `last`, the box's last row (only rows past K/2, whose weights arrive as
+// zeros, would reach further where the box stops at G rows).
+struct GroupDiv {
+  int h, last;
+  unsigned magic;
+  __host__ __device__ GroupDiv(int group, int last_row)
+      : h(group / 2), last(last_row),
+        magic((65536u + (unsigned)(group / 2) - 1) / (unsigned)(group / 2)) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    const int q = h >= 64 ? (int)(n >= h) : (int)(((unsigned)n * magic) >> 16);
+    return q < last ? q : last;
+  }
+};
+
+// xp = x in byte-row order (above). T: the raw element (2 bytes for bf16 x,
+// 1 for int8). Item e writes the 16 columns of plane e % 2 of run (e / 2) %
+// runs of row e / (2 runs): the 16 byte rows' k within a group are
+// consecutive, so it steps p and i instead of dividing each.
+template <typename T>
+__global__ void permute_x_kernel(const T* __restrict__ x, T* __restrict__ xp, int M, int K,
+                                 int group) {
+  const int cols = perm_cols(K), runs = cols / 32, half = group / 2, byte_rows = K / 2;
+  const long long items = 2ll * M * runs;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < items;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int plane = (int)(e % 2), r = (int)(e / 2 % runs), m = (int)(e / 2 / runs);
+    const T* row = x + (size_t)m * K;
+    int p = 16 * r / half, i = 16 * r % half;
+    alignas(16) T v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      v[j] = 16 * r + j < byte_rows ? row[p * group + plane * half + i] : T(0);
+      if (++i == half) {
+        i = 0;
+        ++p;
+      }
+    }
+    uint4* dst = reinterpret_cast<uint4*>(xp + (size_t)m * cols + 32 * r + 16 * plane);
+#pragma unroll
+    for (int j = 0; j < (int)(16 * sizeof(T) / 16); ++j) dst[j] = reinterpret_cast<const uint4*>(v)[j];
+  }
+}
+
+// Launch permute_x_kernel: x (M, K) of T, xp (M, perm_cols(K)) of T, both
+// 16-byte aligned.
+template <typename T>
+cudaError_t permute_x(const void* x, void* xp, int M, int K, int group, cudaStream_t st) {
+  if (M < 1 || !reference_group_ok(K, group) || reinterpret_cast<uintptr_t>(xp) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long items = 2ll * M * (perm_cols(K) / 32);
+  const int threads = 256;
+  const long long want = (items + threads - 1) / threads;
+  permute_x_kernel<T><<<(int)(want < 8192 ? want : 8192), threads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(xp), M, K, group);
+  return cudaGetLastError();
+}
+
 // The A fragments of one stage for this thread: a[t] of the k16 step t (k
 // = 16t.. of the stage), registers as mma.m16n8k16's A (rows gid, gid + 8:
 // the weight columns cb, cb + 1; k 2tid.., 2tid + 8..). sw: the stage's 64
@@ -189,14 +291,51 @@ __device__ __forceinline__ void dequant_stage(const unsigned char* sw, const flo
   }
 }
 
-// Wait for stage s to land, then dequantize its A fragments into `a`.
-template <int GROUP>
+// dequant_stage on the permuted route (x in byte-row order, GROUP 32's
+// layout: k16 steps 2q and 2q + 1 are byte rows 16q.. low and high): each
+// byte row takes the scale row gd(rem + its row), rem the stage's first
+// byte row's place in its group.
+__device__ __forceinline__ void dequant_stage_perm(const unsigned char* sw, const float* ss,
+                                                   int cb, int tid, unsigned (&a)[8][4],
+                                                   const GroupDiv& gd, int rem) {
+  const int chunk = cb >> 4, off = cb & 15;
+#pragma unroll
+  for (int q = 0; q < kRows / 16; ++q) {
+    const int r0 = 16 * q;
+    unsigned h[4];  // byte rows r0 + 2tid, + 1, + 8, + 9: columns cb (byte 0), cb + 1 (byte 1)
+    float2 sv[4];   // their scales
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = r0 + 2 * tid + (j & 1) + 8 * (j >> 1);
+      h[j] = *reinterpret_cast<const unsigned short*>(sw + row * kBN + ((chunk ^ (row & 7)) << 4) +
+                                                      off);
+      sv[j] = *reinterpret_cast<const float2*>(ss + gd(rem + row) * kBN + cb);
+    }
+    const unsigned p[4] = {__byte_perm(h[0], h[1], 0x0400), __byte_perm(h[0], h[1], 0x0501),
+                           __byte_perm(h[2], h[3], 0x0400), __byte_perm(h[2], h[3], 0x0501)};
+    const unsigned s2[4] = {pack_bf16x2(sv[0].x, sv[1].x), pack_bf16x2(sv[0].y, sv[1].y),
+                            pack_bf16x2(sv[2].x, sv[3].x), pack_bf16x2(sv[2].y, sv[3].y)};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[2 * q][r] = dequant_pair(p[r], s2[r]);
+      a[2 * q + 1][r] = dequant_pair(p[r] >> 4, s2[r]);
+    }
+  }
+}
+
+// Wait for stage s of a ring of `depth` slots of `stage` bytes to land,
+// then dequantize its A fragments into `a`.
+template <int GROUP, bool PERM>
 __device__ __forceinline__ void load_stage(unsigned char* smem, uint64_t* full, int s, int cb,
-                                           int tid, unsigned (&a)[8][4]) {
-  mma8::mbar_wait_or_trap(full + s % kDepth, (s / kDepth) & 1);
-  const unsigned char* st = smem + (size_t)(s % kDepth) * kStage;
-  dequant_stage<GROUP>(st + kXBytes, reinterpret_cast<const float*>(st + kXBytes + kWBytes), cb,
-                       tid, a);
+                                           int tid, unsigned (&a)[8][4], int depth, int stage,
+                                           const GroupDiv& gd) {
+  mma8::mbar_wait_or_trap(full + s % depth, (s / depth) & 1);
+  const unsigned char* st = smem + (size_t)(s % depth) * stage;
+  const float* ss = reinterpret_cast<const float*>(st + kXBytes + kWBytes);
+  if constexpr (PERM)
+    dequant_stage_perm(st + kXBytes, ss, cb, tid, a, gd, s * kRows % gd.h);
+  else
+    dequant_stage<GROUP>(st + kXBytes, ss, cb, tid, a);
 }
 
 // One stage of a consumer warpgroup: its eight k16 products on the
@@ -206,11 +345,12 @@ __device__ __forceinline__ void load_stage(unsigned char* smem, uint64_t* full, 
 // completes only once all four warps have issued those products, so all
 // have read the slot), then the next stage's fragments into `nxt` while
 // this stage's products run.
-template <int GROUP>
+template <int GROUP, bool PERM>
 __device__ __forceinline__ void run_stage(unsigned char* smem, uint64_t* full, uint64_t* empty,
                                           int s, int stages, int cb, int tid, float (&acc)[64],
-                                          unsigned (&cur)[8][4], unsigned (&nxt)[8][4]) {
-  const unsigned xb = smem_u32(smem + (size_t)(s % kDepth) * kStage);
+                                          unsigned (&cur)[8][4], unsigned (&nxt)[8][4], int depth,
+                                          int stage, const GroupDiv& gd) {
+  const unsigned xb = smem_u32(smem + (size_t)(s % depth) * stage);
   wgmma_fence();
 #pragma unroll
   for (int t = 0; t < 8; ++t)
@@ -221,8 +361,8 @@ __device__ __forceinline__ void run_stage(unsigned char* smem, uint64_t* full, u
   for (int t = 0; t < 8; ++t)
 #pragma unroll
     for (int r = 0; r < 4; ++r) fence_reg(nxt[t][r]);
-  if (s > 0 && threadIdx.x % 128 == 0) mma8::mbar_arrive(empty + (s - 1) % kDepth);
-  if (s + 1 < stages) load_stage<GROUP>(smem, full, s + 1, cb, tid, nxt);
+  if (s > 0 && threadIdx.x % 128 == 0) mma8::mbar_arrive(empty + (s - 1) % depth);
+  if (s + 1 < stages) load_stage<GROUP, PERM>(smem, full, s + 1, cb, tid, nxt, depth, stage, gd);
 }
 
 // The k of the two 64-k x boxes of stage s (group-halves layout): at g <=
@@ -239,25 +379,24 @@ __host__ __device__ inline void stage_k(int s, int group, int& k_lo, int& k_hi) 
   k_hi = k_lo + half;
 }
 
-// Grid: (m tiles * n tiles), kThreads threads, dynamic shared memory
-// smem_bytes(). x_map: x (M, K) bf16, boxes of 64 k x kBM rows; w_map (when
-// w_tma): w's (K/2, N) bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32,
-// boxes of kBN x max(1, kBK / g). GROUP 0: g = `group`, a multiple of 128
-// from 256 (a stage then reads as at g 128).
-template <int GROUP, typename OutT>
-__global__ void __launch_bounds__(kThreads, 1)
-w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
-                   const __grid_constant__ CUtensorMap w_map,
-                   const __grid_constant__ CUtensorMap s_map, int w_tma,
-                   const int8_t* __restrict__ w, const float* __restrict__ bias,
-                   OutT* __restrict__ out, int M, int K, int N, int group, int group_m) {
-  constexpr int kSRows = GROUP ? kBK / GROUP : 1;
+// The GEMM's block (w4a16_wgmma_kernel, w4a16_perm_kernel below): a ring
+// of `depth` stages.
+template <int GROUP, typename OutT, bool PERM>
+__device__ __forceinline__ void w4a16_block(const CUtensorMap& x_map, const CUtensorMap& w_map,
+                                            const CUtensorMap& s_map, int w_tma,
+                                            const int8_t* __restrict__ w,
+                                            const float* __restrict__ bias,
+                                            OutT* __restrict__ out, int M, int K, int N,
+                                            int group, int group_m, int depth) {
   constexpr int kDq = GROUP ? GROUP : kBK;  // the group a stage reads as
+  const int stage = PERM ? kXBytes + kWBytes + perm_scale_bytes(K, group, kBN) : kStage;
+  const int s_rows = PERM ? perm_scale_box(K, group) : GROUP ? kBK / GROUP : 1;
+  const GroupDiv gd(PERM ? group : 2, s_rows - 1);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle's 1024-byte period (smem_bytes asks for the slack)
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)kDepth * kStage);
-  uint64_t* empty = full + kDepth;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)depth * stage);
+  uint64_t* empty = full + depth;
   const int m_tiles = (M + kBM - 1) / kBM, n_tiles = (N + kBN - 1) / kBN;
   const int per_group = group_m * n_tiles, first = blockIdx.x / per_group * group_m;
   const int gm = min(group_m, m_tiles - first), local = blockIdx.x % per_group;
@@ -265,7 +404,7 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int stages = (K + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kDepth; ++s) {
+    for (int s = 0; s < depth; ++s) {
       // TMA: the producer's one arrival; else also its 32 lanes' cp.async ones
       mbar_init(full + s, w_tma ? 1 : 33);
       mbar_init(empty + s, kConsumers);
@@ -277,19 +416,19 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   if (warp == 4 * kConsumers) {
     // ---- the producer warp
     for (int s = 0; s < stages; ++s) {
-      const int slot = s % kDepth;
-      if (s >= kDepth) mma8::mbar_wait_or_trap(empty + slot, ((s / kDepth) - 1) & 1);
-      unsigned char* st = smem + (size_t)slot * kStage;
+      const int slot = s % depth;
+      if (s >= depth) mma8::mbar_wait_or_trap(empty + slot, ((s / depth) - 1) & 1);
+      unsigned char* st = smem + (size_t)slot * stage;
       if (lane == 0) {
         int k_lo, k_hi;
-        stage_k(s, group, k_lo, k_hi);
+        stage_k(s, PERM ? kBK : group, k_lo, k_hi);
         mma8::mbar_arrive_expect_tx(full + slot,
-                                    kXBytes + (w_tma ? kWBytes : 0) + kSRows * kBN * 4);
+                                    kXBytes + (w_tma ? kWBytes : 0) + s_rows * kBN * 4);
         mma8::tma_box(st, &x_map, k_lo, m0, full + slot);
         mma8::tma_box(st + kXHalf, &x_map, k_hi, m0, full + slot);
         if (w_tma) mma8::tma_box(st + kXBytes, &w_map, n0, s * kRows, full + slot);
-        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, GROUP ? s * kSRows : k_lo / group,
-                      full + slot);
+        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0,
+                      PERM ? s * kRows / gd.h : GROUP ? s * s_rows : k_lo / group, full + slot);
       }
       if (!w_tma) {
         // lane: the 4-byte word at column 4 lane of each byte row, to its
@@ -317,10 +456,12 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   unsigned a0[8][4], a1[8][4];
 
-  load_stage<kDq>(smem, full, 0, cb, tid, a0);
+  load_stage<kDq, PERM>(smem, full, 0, cb, tid, a0, depth, stage, gd);
   for (int s = 0; s < stages; s += 2) {
-    run_stage<kDq>(smem, full, empty, s, stages, cb, tid, acc, a0, a1);
-    if (s + 1 < stages) run_stage<kDq>(smem, full, empty, s + 1, stages, cb, tid, acc, a1, a0);
+    run_stage<kDq, PERM>(smem, full, empty, s, stages, cb, tid, acc, a0, a1, depth, stage, gd);
+    if (s + 1 < stages)
+      run_stage<kDq, PERM>(smem, full, empty, s + 1, stages, cb, tid, acc, a1, a0, depth, stage,
+                           gd);
   }
   wgmma_wait<0>();
 #pragma unroll
@@ -346,42 +487,99 @@ w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     }
 }
 
-// The groups the group-halves tensor-core kernels take (w4_gemv.cu,
-// w4a8_halves.cu, this GEMM; kernels/matmul.py float_scale_group_ok): g 32,
-// 64 or 128, or g = 128 j (j >= 2) up to K; K a whole number of groups.
+// Grid: (m tiles * n tiles), kThreads threads, dynamic shared memory
+// smem_bytes(). x_map: x (M, K) bf16, boxes of 64 k x kBM rows; w_map (when
+// w_tma): w's (K/2, N) bytes, boxes of kBN x kRows; s_map: s (K/g, N) f32,
+// boxes of kBN x max(1, kBK / g). GROUP 0: g = `group`, a multiple of 128
+// from 256 (a stage then reads as at g 128).
+template <int GROUP, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+w4a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap w_map,
+                   const __grid_constant__ CUtensorMap s_map, int w_tma,
+                   const int8_t* __restrict__ w, const float* __restrict__ bias,
+                   OutT* __restrict__ out, int M, int K, int N, int group, int group_m) {
+  w4a16_block<GROUP, OutT, false>(x_map, w_map, s_map, w_tma, w, bias, out, M, K, N, group,
+                                  group_m, kDepth);
+}
+
+// The permuted route: any group the reference takes, x in byte-row order
+// (x_map: xp, boxes of 64 k x kBM rows, read as at g 32), s_map's boxes
+// perm_scale_box rows, a ring of `depth` stages of kXBytes + kWBytes +
+// perm_scale_bytes (launch: perm_depth).
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+w4a16_perm_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap s_map, int w_tma,
+                  const int8_t* __restrict__ w, const float* __restrict__ bias,
+                  OutT* __restrict__ out, int M, int K, int N, int group, int group_m,
+                  int depth) {
+  w4a16_block<32, OutT, true>(x_map, w_map, s_map, w_tma, w, bias, out, M, K, N, group,
+                              group_m, depth);
+}
+
+// The groups the group-halves tensor-core kernels read x for as it lies
+// (w4_gemv.cu, w4a8_halves.cu, this GEMM; kernels/matmul.py wgmma_group_ok):
+// g 32, 64 or 128, or g = 128 j (j >= 2) up to K; K a whole number of
+// groups. Every other group the reference takes reads xp (permute_x).
 __host__ __device__ inline bool group_ok(int K, int group) {
   const bool small = group == 32 || group == 64 || group == 128;
   return (small || (group >= 2 * kBK && group % kBK == 0)) && K >= group && K % group == 0;
 }
 
-// Launch the GEMM on a (M, K) x (K/2, N) product; group_ok(K, group). x and
-// s must admit a tensor map (16-byte aligned); the weights take the
-// cp.async feed where they do not.
+// Shared memory of the GEMM's block on the permuted route: the deepest ring
+// of at most kDepth stages that fits an SM (the scale region grows as the
+// group shrinks: 32 KB a stage at g 2).
+inline int perm_depth(int K, int group) {
+  const int stage = kXBytes + kWBytes + perm_scale_bytes(K, group, kBN);
+  const int depth = (232448 - 1024 - 2 * kDepth * 8) / stage;
+  return depth < kDepth ? depth : kDepth;
+}
+
+// Launch the GEMM on a (M, K) x (K/2, N) product; reference_group_ok(K,
+// group). x and s must admit a tensor map (16-byte aligned); the weights
+// take the cp.async feed where they do not. Where group_ok does not take the
+// group, x is first permuted into xp (M, perm_cols(K)) bf16, 16-byte aligned.
 template <typename OutT>
 cudaError_t launch(const void* x, const void* w, const void* s, const void* bias, void* out,
-                   int M, int K, int N, int group, cudaStream_t st) {
-  if (M < 1 || N < 4 || N % 4 != 0 || !group_ok(K, group)) return cudaErrorInvalidValue;
+                   void* xp, int M, int K, int N, int group, cudaStream_t st) {
+  if (M < 1 || N < 4 || N % 4 != 0 || !reference_group_ok(K, group)) return cudaErrorInvalidValue;
+  const bool perm = !group_ok(K, group);
+  if (perm) {
+    if (xp == nullptr) return cudaErrorInvalidValue;
+    const cudaError_t err = permute_x<unsigned short>(x, xp, M, K, group, st);
+    if (err != cudaSuccess) return err;
+  }
   CUtensorMap xm = {}, wm = {}, sm = {};
-  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ll * K, 64, kBM,
+  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, perm ? xp : x,
+                        perm ? perm_cols(K) : K, M, 2ll * (perm ? perm_cols(K) : K), 64, kBM,
                         CU_TENSOR_MAP_SWIZZLE_128B) ||
       !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, K / group, 4ll * N, kBN,
-                        group > kBK ? 1 : kBK / group, CU_TENSOR_MAP_SWIZZLE_NONE))
+                        perm ? perm_scale_box(K, group) : group > kBK ? 1 : kBK / group,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const int w_tma = mma8::tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, kBN,
                                      kRows, CU_TENSOR_MAP_SWIZZLE_128B);
   // m tiles a group: the group's x tiles (kBM x K bf16 each) within ~16 MB of L2
   const int group_m = max(1, min(16, (16 << 20) / (kBM * K * 2)));
   const int blocks = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  const size_t smem = smem_bytes();
-  auto run = [&](auto kernel) -> cudaError_t {
+  const int depth = perm ? perm_depth(K, group) : kDepth;
+  const size_t smem = perm ? (size_t)depth * (kXBytes + kWBytes + perm_scale_bytes(K, group, kBN)) +
+                                 2 * depth * 8 + 1024
+                           : smem_bytes();
+  if (depth < 2) return cudaErrorInvalidValue;
+  auto run = [&](auto kernel, auto... extra) -> cudaError_t {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<blocks, kThreads, smem, st>>>(xm, wm, sm, w_tma, static_cast<const int8_t*>(w),
                                            static_cast<const float*>(bias),
-                                           static_cast<OutT*>(out), M, K, N, group, group_m);
+                                           static_cast<OutT*>(out), M, K, N, group, group_m,
+                                           extra...);
     return cudaGetLastError();
   };
+  if (perm) return run(w4a16_perm_kernel<OutT>, depth);
   switch (group) {
     case 32:
       return run(w4a16_wgmma_kernel<32, OutT>);
@@ -392,88 +590,6 @@ cudaError_t launch(const void* x, const void* w, const void* s, const void* bias
     default:
       return run(w4a16_wgmma_kernel<0, OutT>);
   }
-}
-
-// ---- Any group: the route of every group the reference takes that
-// group_ok does not (g even, K a whole number of groups; kernels/matmul.py
-// float_scale_route), for the W4 GEMV (row 17, w4_gemv.cu) and this GEMM
-// (row 18t). No served default reaches these groups, so the kernel is the
-// plain loop on the CUDA cores: a thread owns one weight column and
-// kAnyRows token rows; byte row r of group p holds k = pg + r in its low
-// nibble and pg + g/2 + r in its high nibble, so a run of kAnyRun byte rows
-// needs x at two runs of k, which the block stages in shared memory as f32.
-// Each weight is dequantized as the row's tensor-core kernel does it: row
-// 17 bf16(f32(v) * s), 18t bf16(v * bf16(s)) (TILED; the product is exact
-// before its one rounding), and enters one f32 fused multiply-add a token
-// row, in k order within a group and group order overall.
-constexpr int kAnyCols = 128;  // weight columns a block, one a thread
-constexpr int kAnyRows = 8;    // token rows a block
-constexpr int kAnyRun = 64;    // byte rows a staged run
-
-__host__ __device__ inline bool any_group_ok(int K, int group) {
-  return group >= 2 && group % 2 == 0 && K >= group && K % group == 0;
-}
-
-template <typename OutT, bool TILED>
-__global__ void __launch_bounds__(kAnyCols)
-    w4_any_group_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                        const float* __restrict__ s, const float* __restrict__ bias,
-                        OutT* __restrict__ out, int M, int K, int N, int group) {
-  __shared__ float xr[kAnyRows][2 * kAnyRun];  // a run's low-nibble k, then its high-nibble k
-  const int n = blockIdx.x * kAnyCols + threadIdx.x, m0 = blockIdx.y * kAnyRows;
-  const int half = group / 2, G = K / group;
-  float acc[kAnyRows];
-#pragma unroll
-  for (int i = 0; i < kAnyRows; ++i) acc[i] = 0.f;
-  for (int p = 0; p < G; ++p) {
-    float sc = n < N ? s[(size_t)p * N + n] : 0.f;
-    if (TILED) sc = __bfloat162float(__float2bfloat16_rn(sc));
-    for (int r0 = 0; r0 < half; r0 += kAnyRun) {
-      const int run = min(kAnyRun, half - r0);
-      __syncthreads();  // the previous run is consumed
-      for (int e = threadIdx.x; e < kAnyRows * 2 * kAnyRun; e += kAnyCols) {
-        const int i = e / (2 * kAnyRun), j = e % (2 * kAnyRun), r = j % kAnyRun;
-        const int k = p * group + (j < kAnyRun ? 0 : half) + r0 + r;
-        xr[i][j] = m0 + i < M && r < run ? __bfloat162float(x[(size_t)(m0 + i) * K + k]) : 0.f;
-      }
-      __syncthreads();
-      if (n >= N) continue;
-      for (int r = 0; r < run; ++r) {
-        const int b = w[(size_t)(p * half + r0 + r) * N + n];  // sign-extended byte
-        const int lo = (int)((unsigned)b << 28) >> 28, hi = b >> 4;
-        const float wl = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)lo, sc)));
-        const float wh = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)hi, sc)));
-#pragma unroll
-        for (int i = 0; i < kAnyRows; ++i) {
-          acc[i] = __fmaf_rn(xr[i][r], wl, acc[i]);
-          acc[i] = __fmaf_rn(xr[i][kAnyRun + r], wh, acc[i]);
-        }
-      }
-    }
-  }
-  if (n >= N) return;
-  const float b = bias != nullptr ? bias[n] : 0.f;
-#pragma unroll
-  for (int i = 0; i < kAnyRows; ++i) {
-    if (m0 + i >= M) break;
-    const float y = bias != nullptr ? __fadd_rn(round_out<OutT>(acc[i]), b) : acc[i];
-    store<OutT>(out + (size_t)(m0 + i) * N + n, y);
-  }
-}
-
-// Launch the any-group kernel on a (M, K) x (K/2, N) product; any_group_ok.
-template <typename OutT, bool TILED>
-cudaError_t launch_any(const void* x, const void* w, const void* s, const void* bias, void* out,
-                       int M, int K, int N, int group, cudaStream_t st) {
-  const int row_blocks = (M + kAnyRows - 1) / kAnyRows;
-  if (M < 1 || N < 1 || !any_group_ok(K, group) || row_blocks > 65535)
-    return cudaErrorInvalidValue;
-  w4_any_group_kernel<OutT, TILED><<<dim3((N + kAnyCols - 1) / kAnyCols, row_blocks), kAnyCols,
-                                     0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<const float*>(bias), static_cast<OutT*>(out), M,
-      K, N, group);
-  return cudaGetLastError();
 }
 
 }  // namespace w4g

@@ -20,7 +20,10 @@
 // weights and bf16 outputs (1.06 ms at 3.35 TB/s): operations. Only wgmma
 // reaches the card's full bf16 rate.
 //
-// Design: w4_wgmma.cuh. A TMA ring fed by one producer warp, the weights
+// Design: w4_wgmma.cuh. Every group the reference takes runs on it: at
+// groups other than 32, 64, 128 and 128 j, x is first permuted into
+// byte-row order (w4_wgmma.cuh permute_x) and each byte row dequantized
+// with its own group's scale. A TMA ring fed by one producer warp, the weights
 // dequantized once a 128 x 128 block in bf16x2 straight into the register
 // A fragments of two consumer warpgroups, wgmma.m64n128k16 against x in
 // shared memory (the transposed product), the bias in the epilogue. No
@@ -30,26 +33,15 @@
 #include "w4_wgmma.cuh"
 
 // x (M, K) bf16 (16-byte aligned), w (K/2, N) pack_int4, w_scale (K/g, N)
-// f32 (16-byte aligned), bias (N,) f32 or null, out (M, N) f32 or bf16;
-// group 32, 64 or 128, or a multiple of 128 from 256 up to K.
+// f32 (16-byte aligned), bias (N,) f32 or null, out (M, N) f32 or bf16; any
+// group the reference takes (g even, K a whole number of groups). xp: (M,
+// w4g::perm_cols(K)) bf16 scratch, 16-byte aligned, where w4g::group_ok does
+// not take the group (x is permuted into it first); else null.
 extern "C" int ff_w4a16_gemm(const void* x, const void* w, const void* w_scale, const void* bias,
-                             void* out, int M, int K, int N, int group, int out_bf16,
+                             void* out, void* xp, int M, int K, int N, int group, int out_bf16,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return ff::w4g::launch<__nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, group, st);
-  return ff::w4g::launch<float>(x, w, w_scale, bias, out, M, K, N, group, st);
-}
-
-// Any other group the reference takes (w4g::any_group_ok; kernels/matmul.py
-// float_scale_route): the plain CUDA-core loop of w4_wgmma.cuh
-// (w4_any_group_kernel), each weight rounded twice as above, the same bias
-// epilogue. Arguments as ff_w4a16_gemm's; x needs no alignment.
-extern "C" int ff_w4a16_gemm_any(const void* x, const void* w, const void* w_scale,
-                                 const void* bias, void* out, int M, int K, int N, int group,
-                                 int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    return ff::w4g::launch_any<__nv_bfloat16, true>(x, w, w_scale, bias, out, M, K, N, group, st);
-  return ff::w4g::launch_any<float, true>(x, w, w_scale, bias, out, M, K, N, group, st);
+    return ff::w4g::launch<__nv_bfloat16>(x, w, w_scale, bias, out, xp, M, K, N, group, st);
+  return ff::w4g::launch<float>(x, w, w_scale, bias, out, xp, M, K, N, group, st);
 }

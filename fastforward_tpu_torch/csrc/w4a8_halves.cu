@@ -10,8 +10,8 @@
 //   y[m, n]    = acc * xs[m]                               (f32 or bf16)
 // x (M <= 256, K) int8, xs (M,) f32, w (K/2, N) in pack_int4's group
 // halves (byte row i of group p: k = pg + i low nibble, pg + g/2 + i high,
-// two's complement), s (K/g, N) f32, g 32, 64 or 128 or a multiple of 128
-// from 256 up to K (w4_wgmma.cuh group_ok). The group sum runs in
+// two's complement), s (K/g, N) f32, any group the reference takes (g even,
+// K a whole number of groups). The group sum runs in
 // the order of the jitted JAX oracle, which the port's
 // matmul_w4a8_reference writes out (kernels/matmul.py _group_sum): up to
 // 32 groups a chain of fused multiply-adds in group order from +0; beyond,
@@ -67,6 +67,10 @@
 //   stages (16 |gd| <= 16 * 128 * 8 * g < 2^31 up to g = 2^16) and is
 //   folded once, after its last stage, in the same order as at g <= 128;
 //   window splits (every 32 groups) fall on stage boundaries.
+// - Every other group (and more than 32 x 32 groups, or g above 2^16) takes
+//   the permuted route (w4a8_perm_kernel below): x permuted into byte-row
+//   order (w4_wgmma.cuh permute_x), which a stage reads as at g 32, and the
+//   group pieces of each k32 step masked apart in the register operand.
 
 #include "int8_wgmma.cuh"
 
@@ -527,6 +531,13 @@ w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   i8w::cluster_sync();  // no block leaves while another reads its tile
 }
 
+// The groups the kernel above reads x for as it lies (kernels/matmul.py
+// float_scale_route "direct" under row 16's limits): w4g::group_ok, g <=
+// 2^16 (its int32 group dot) and at most 32 x 32 groups (its folds).
+inline bool direct_ok(int K, int group) {
+  return w4g::group_ok(K, group) && group <= (1 << 16) && K / group <= kWindow * kWindow;
+}
+
 // Launch the GEMV on a (M, K) x (K/2, N) product, the plan of
 // kernels/matmul.py w4a8_plan: nt token rows a block (wgmma's n), the rows
 // in row_blocks blocks, n_split K splits (window splits only), the fold, a
@@ -535,13 +546,13 @@ w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, void* out,
                    int M, int K, int N, int group, int out_bf16, int nt, int row_blocks,
                    int n_split, int fold_mode, int depth, cudaStream_t st) {
-  if (M < 1 || N < 4 || N % 4 != 0 || !w4g::group_ok(K, group) || group > (1 << 16) ||
-      row_blocks < 1 || nt < 1 || nt > kMaxRows || i8w::tile_n(nt) != nt)
+  if (M < 1 || N < 4 || N % 4 != 0 || !direct_ok(K, group) || row_blocks < 1 || nt < 1 ||
+      nt > kMaxRows || i8w::tile_n(nt) != nt)
     return cudaErrorInvalidValue;
   const int G = K / group, gps = group > kBK ? 1 : kBK / group;
   const int spg = group > kBK ? group / kBK : 1;
   const int rows = (M + row_blocks - 1) / row_blocks;
-  if (rows > nt || (row_blocks - 1) * rows >= M || G > kWindow * kWindow) return cudaErrorInvalidValue;
+  if (rows > nt || (row_blocks - 1) * rows >= M) return cudaErrorInvalidValue;
   const int windows = (G + kWindow - 1) / kWindow;
   const bool ok = fold_mode == kChain ? G <= kWindow && n_split == 1
                   : fold_mode == kWindowSplit
@@ -595,170 +606,498 @@ cudaError_t launch(const void* x, const void* xs, const void* w, const void* s, 
 }
 
 
-// ---- Any group: the route of every group the reference takes that the
-// tensor-core kernel does not (w4g::group_ok, at most 32 x 32 groups, g <=
-// 2^16): g even, K a whole number of groups (kernels/matmul.py
-// float_scale_route). No served default reaches these groups, so the kernel
-// is the plain loop on the CUDA cores: a thread owns one weight column and
-// w4g::kAnyRows token rows. Byte row r of group p holds k = pg + r in its
-// low nibble and pg + g/2 + r in its high nibble (sign-extended), so a run
-// of kAnyRun byte rows needs x at two runs of k, which the block stages in
-// shared memory. Each group's dot is exact: int32 over a run (|sum| <= 64 *
-// 2 * 128 * 8), int64 over the group. Then the jitted oracle's sum, in one
-// thread an output: up to 32 groups a fused multiply-add chain from +0;
-// beyond, the rounded products through its window tree (WindowTree: at 33
-// to 1,024 groups the tensor-core kernel's windows, beyond that windows of
-// window sums, as kernels/matmul.py _window_sum recurses); times xs[m] last.
-constexpr int kLevels = 6;  // levels of the window tree: up to 32^6 terms
+// ---- The permuted route: every group the reference takes that the kernel
+// above does not (w4_wgmma.cuh group_ok), more than 32 x 32 groups, and g
+// above 2^16 (kernels/matmul.py float_scale_route "permuted"). x arrives
+// permuted into byte-row order (w4_wgmma.cuh permute_x): run r of xp (32
+// columns) holds the low-nibble k of byte rows 16 r .. 16 r + 15, then their
+// high-nibble k, so k32 step q of a stage (byte rows 16 q .. of its 64) is
+// step_regs' g 32 step for every group: slot 4 tid + i (and 16 + 4 tid + i)
+// of each register is byte row 16 q + 4 tid + i. A step holds pieces of the
+// groups its 16 byte rows meet (g even: up to 16 / h + 2 of them, h = g /
+// 2); each piece is one product on the step's registers with the other
+// groups' bytes masked to zero, into the open group's int32 dot (scale-d 0
+// on its first piece). A group's dot is folded after its last piece, in
+// group order, as the kernel above folds: the oracle's order bit for bit.
+// The register sets: a piece that closes its group waits for its products
+// at once; the open piece of step q keeps its own set until the stage's
+// last wait. A split (window splits: every 32 groups) starts on the 16-row
+// run of its first group's first byte row and skips the pieces of groups
+// outside it. Beyond 32 x 32 groups the fold is the oracle's deeper window
+// tree (Tree, kTree: four levels up to 32^4 groups; beyond, kDeep, six: 32^6
+// = 2^30 groups, every K below 2^31); above g = 2^16 (WIDE, any fold) a
+// group's dot is widened into int64 at every stage's end (16 |partial| <=
+// 16 * 128 * 8 * 128 a stage).
+constexpr int kTree = 3;  // the fold beyond 32 x 32 groups (kernels/matmul.py W4A8_FOLDS)
+constexpr int kDeep = 4;  // the kernel's KIND for kTree beyond 32^4 groups
+constexpr int kTreeGroups = kWindow * kWindow * kWindow * kWindow;
 
-// The window tree of the jitted oracle's sum of n terms (kernels/matmul.py
-// _window_sum): at each level the terms padded with zeros to whole windows
-// of 32 (the smaller half of the padding in front), each window summed in
-// order from +0, the window sums the terms of the next level, up to a level
-// of at most 32 terms (top), summed in order from +0. The padding adds +0,
-// which moves no sum. Per-thread bookkeeping, the same in every thread.
-struct WindowTree {
-  int top;            // the level summed without windows
-  int lo[kLevels];    // the front padding of each windowed level
-  int cnt[kLevels];   // the terms each level has taken
+// The oracle's window tree over the group products of R outputs (kernels/
+// matmul.py _window_sum): at each level the terms padded with zeros to
+// whole windows of 32 (the smaller half of the padding in front), each
+// window summed in order from +0, the window sums the terms of the next
+// level, up to a level of at most 32 terms (top) summed in order from +0.
+// The padding adds +0, which moves no sum. The LEVELS levels are unrolled,
+// so the sums stay in registers; the bookkeeping is the same in every thread.
+template <int R, int LEVELS>
+struct Tree {
+  float lv[LEVELS][R];
+  int cnt[LEVELS], lo[LEVELS], top;
 
-  __device__ explicit WindowTree(int n) : top(0) {
-    for (int l = 0; l < kLevels; ++l) lo[l] = cnt[l] = 0;
-    while (n > kWindow && top < kLevels - 1) {
-      const int windows = (n + kWindow - 1) / kWindow;
-      lo[top++] = (windows * kWindow - n) / 2;
-      n = windows;
+  __device__ explicit Tree(int n) : top(0) {
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l) {
+      cnt[l] = lo[l] = 0;
+#pragma unroll
+      for (int i = 0; i < R; ++i) lv[l][i] = 0.f;
+    }
+#pragma unroll
+    for (int l = 0; l < LEVELS - 1; ++l) {
+      if (n > kWindow) {
+        const int windows = (n + kWindow - 1) / kWindow;
+        lo[l] = (windows * kWindow - n) / 2;
+        n = windows;
+        top = l + 1;
+      }
     }
   }
 
-  // Add term v[i] of each row at level l: a term that starts a window
-  // closes the one before, whose sum goes up as the next level's term.
-  template <int R>
-  __device__ void push(float (&acc)[R][kLevels], float (&v)[R], int l) {
-    for (;; ++l) {
+  // Add the terms v from level `from` up: a term that starts a window closes
+  // the one before, whose sum goes up as the next level's term.
+  __device__ __forceinline__ void push(float (&v)[R], int from) {
+    bool go = true;
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l) {
+      if (l < from || !go) continue;
       const int idx = cnt[l]++;
       const bool closes = l < top && idx > 0 && (idx + lo[l]) % kWindow == 0;
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const float up = acc[i][l];
-        acc[i][l] = __fadd_rn(closes ? 0.f : up, v[i]);
+        const float up = lv[l][i];
+        lv[l][i] = __fadd_rn(closes ? 0.f : up, v[i]);
         v[i] = up;
       }
-      if (!closes) return;
+      go = closes;
     }
   }
 
-  // Close every level's last window; the sum is then acc[i][top].
-  template <int R>
-  __device__ void finish(float (&acc)[R][kLevels]) {
-    for (int l = 0; l < top; ++l) {
+  // Close every level's last window; the sums are then level top's.
+  __device__ __forceinline__ void finish(float (&out)[R]) {
+#pragma unroll
+    for (int l = 0; l < LEVELS - 1; ++l) {
+      if (l >= top) continue;
       float v[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) v[i] = acc[i][l];
-      push(acc, v, l + 1);
+      for (int i = 0; i < R; ++i) v[i] = lv[l][i];
+      push(v, l + 1);
+    }
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l)
+      if (l == top)
+#pragma unroll
+        for (int i = 0; i < R; ++i) out[i] = lv[l][i];
+  }
+};
+
+// w4a8_wgmma_kernel's cluster reduction (window splits), which that kernel
+// keeps inline (its served instances compile as they did): after the
+// cluster barrier, block `split` adds the window sums (each block's tile at
+// the start of its shared memory) of token rows split, split + n_split, ...
+// in window order from +0, times xs; the second barrier keeps every block
+// until the others have read its tile.
+__device__ __forceinline__ void reduce_windows(unsigned char* smem, const float* xs, void* out,
+                                               int out_bf16, int N, int n0, int m0,
+                                               int rows_here, int split, int n_split) {
+  i8w::cluster_sync();
+  const unsigned red_addr = smem_u32(smem);
+  const int mine = split < rows_here ? (rows_here - split + n_split - 1) / n_split : 0;
+  for (int e = threadIdx.x; e < mine * (kBN / 4); e += kThreads) {
+    const int r = split + e / (kBN / 4) * n_split, c4 = 4 * (e % (kBN / 4)), n = n0 + c4;
+    if (n >= N) continue;  // N % 4 == 0
+    const unsigned at = red_addr + (unsigned)(r * kRedPitch + c4) * 4u;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z = 0; z < n_split; ++z) {
+      const uint4 o = i8w::ld_cluster(at, (unsigned)z);
+      v = make_float4(__fadd_rn(v.x, __uint_as_float(o.x)), __fadd_rn(v.y, __uint_as_float(o.y)),
+                      __fadd_rn(v.z, __uint_as_float(o.z)), __fadd_rn(v.w, __uint_as_float(o.w)));
+    }
+    const float xm = xs[m0 + r];
+    i8w::store4(out, (size_t)(m0 + r) * N + n, out_bf16,
+                make_float4(__fmul_rn(v.x, xm), __fmul_rn(v.y, xm), __fmul_rn(v.z, xm),
+                            __fmul_rn(v.w, xm)));
+  }
+  i8w::cluster_sync();
+}
+
+// The byte lanes of a register word (slot i: byte row 4 tid + i of the
+// step) that lie in the piece's rows [a0, a1) of the step.
+__device__ __forceinline__ unsigned piece_mask(int a0, int a1, int tid) {
+  const int lo = min(max(a0 - 4 * tid, 0), 4), hi = min(max(a1 - 4 * tid, 0), 4);
+  return (unsigned)((1ull << (8 * hi)) - 1) & ~(unsigned)((1ull << (8 * lo)) - 1);
+}
+
+// The f32 sums of a consumer thread on the permuted route: fs and wsum as
+// Sums (chain, window, multi), or the window tree (KIND kTree, kDeep).
+template <int NT, int KIND>
+struct PermSums {
+  static constexpr bool kTreeFold = KIND == kTree || KIND == kDeep;
+  Sums<NT, KIND == kMulti> sm;
+  Tree<kTreeFold ? NT / 2 : 1, KIND == kDeep ? 6 : 4> tree;
+  __device__ explicit PermSums(int G) : tree(kTreeFold ? G : 1) {
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) sm.fs[j] = 0.f;
+    if constexpr (KIND == kMulti) {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) sm.wsum[j] = 0.f;
+    }
+  }
+
+  // Fold group gi's dots gd (floats) with its columns' scales.
+  __device__ __forceinline__ void fold(float (&gd)[NT / 2], float2 sc, int fold_mode, int gi,
+                                       int lo) {
+    if constexpr (kTreeFold) {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) gd[j] = __fmul_rn(gd[j], j & 2 ? sc.y : sc.x);
+      tree.push(gd, 0);
+    } else if constexpr (KIND == kMulti) {
+      const bool close = gi > 0 && (gi + lo) % kWindow == 0;
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        if (close) {
+          sm.fs[j] = __fadd_rn(sm.fs[j], sm.wsum[j]);
+          sm.wsum[j] = 0.f;
+        }
+        sm.wsum[j] = __fadd_rn(sm.wsum[j], __fmul_rn(gd[j], j & 2 ? sc.y : sc.x));
+      }
+    } else if (fold_mode == kChain) {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) sm.fs[j] = __fmaf_rn(gd[j], j & 2 ? sc.y : sc.x, sm.fs[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j)
+        sm.fs[j] = __fadd_rn(sm.fs[j], __fmul_rn(gd[j], j & 2 ? sc.y : sc.x));
+    }
+  }
+
+  // The block's sums: fs (plus the open window, or the tree's top).
+  __device__ __forceinline__ void result(float (&out)[NT / 2]) {
+    if constexpr (kTreeFold) {
+      tree.finish(out);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j)
+        out[j] = KIND == kMulti ? __fadd_rn(sm.fs[j], sm.wsum[j]) : sm.fs[j];
     }
   }
 };
 
-__global__ void __launch_bounds__(w4g::kAnyCols)
-    w4a8_any_group_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
-                          const int8_t* __restrict__ w, const float* __restrict__ s,
-                          void* __restrict__ out, int out_bf16, int M, int K, int N, int group) {
-  constexpr int R = w4g::kAnyRows, RUN = w4g::kAnyRun;
-  __shared__ int xr[R][2 * RUN];  // a run's low-nibble k, then its high-nibble k
-  const int n = blockIdx.x * w4g::kAnyCols + threadIdx.x, m0 = blockIdx.y * R;
-  const int half = group / 2, G = K / group;
-  WindowTree tree(G);  // top 0: up to 32 groups, the fused multiply-add chain
-  float acc[R][kLevels];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int l = 0; l < kLevels; ++l) acc[i][l] = 0.f;
-  for (int p = 0; p < G; ++p) {
-    long long gd[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) gd[i] = 0;
-    for (int r0 = 0; r0 < half; r0 += RUN) {
-      const int run = min(RUN, half - r0);
-      __syncthreads();  // the previous run is consumed
-      for (int e = threadIdx.x; e < R * 2 * RUN; e += w4g::kAnyCols) {
-        const int i = e / (2 * RUN), j = e % (2 * RUN), r = j % RUN;
-        const int k = p * group + (j < RUN ? 0 : half) + r0 + r;
-        xr[i][j] = m0 + i < M && r < run ? (int)x[(size_t)(m0 + i) * K + k] : 0;
-      }
-      __syncthreads();
-      if (n >= N) continue;
-      int part[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) part[i] = 0;
-      for (int r = 0; r < run; ++r) {
-        const int b = w[(size_t)(p * half + r0 + r) * N + n];  // sign-extended byte
-        const int vl = (int)((unsigned)b << 28) >> 28, vh = b >> 4;
-#pragma unroll
-        for (int i = 0; i < R; ++i) part[i] += xr[i][r] * vl + xr[i][RUN + r] * vh;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) gd[i] += part[i];
+// Grid, clusters and shared memory as w4a8_wgmma_kernel's, a stage
+// kXBytes + kWBytes + w4_wgmma.cuh perm_scale_bytes. x_map: xp (M,
+// perm_cols(K)) int8, boxes of 128 k x NT rows (128B swizzle); s_map: s,
+// boxes of kBN x perm_scale_box. KIND: kChain (chain and window folds),
+// kMulti, kTree, kDeep.
+template <int NT, int KIND, bool WIDE>
+__global__ void __launch_bounds__(kThreads, NT <= 32 ? 2 : 1)
+w4a8_perm_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap s_map, int w_tma,
+                 const int8_t* __restrict__ w, const float* __restrict__ xs,
+                 void* __restrict__ out, int out_bf16, int M, int K, int N, int group,
+                 int row_blocks, int n_split, int fold_mode, int depth) {
+  constexpr int kXBytes = NT * kBK;
+  const int stage = kXBytes + kWBytes + w4g::perm_scale_bytes(K, group, kBN);
+  const int s_rows = w4g::perm_scale_box(K, group);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle's 1024-byte period (smem_bytes asks for the slack)
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const size_t ring = (size_t)depth * stage;
+  const size_t red_bytes = n_split > 1 ? (size_t)NT * kRedPitch * 4 : 0;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (ring > red_bytes ? ring : red_bytes));
+  uint64_t* empty = full + depth;
+  const int half = group / 2, G = K / group, lo = window_lo(G);
+  const int split = blockIdx.x, n0 = blockIdx.y * kBN;
+  const int rows = (M + row_blocks - 1) / row_blocks, m0 = blockIdx.z * rows;
+  const int rows_here = min(rows, M - m0);
+  int g0, g1;
+  split_groups(fold_mode, G, split, g0, g1);
+  // the split's 16-row runs: from its first group's first byte row's run
+  const int r0 = g0 * half / 16, r1 = (g1 * half + 15) / 16;
+  const int stages = (r1 - r0 + 3) / 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      // TMA: the producer's one arrival; else also its 32 lanes' cp.async ones
+      mbar_init(full + s, w_tma ? 1 : 33);
+      mbar_init(empty + s, kConsumers);
     }
-    if (n >= N) continue;
-    const float sc = s[(size_t)p * N + n];
-    if (tree.top == 0) {
-#pragma unroll
-      for (int i = 0; i < R; ++i) acc[i][0] = __fmaf_rn(__ll2float_rn(gd[i]), sc, acc[i][0]);
-    } else {
-      float v[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) v[i] = __fmul_rn(__ll2float_rn(gd[i]), sc);
-      tree.push(acc, v, 0);
+    mma8::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {
+    // ---- the producer warp: stage s holds byte rows 16 r0 + 64 s .. + 63
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s % depth, b0 = 16 * r0 + 64 * s;
+      if (s >= depth) mma8::mbar_wait_or_trap(empty + slot, ((s / depth) - 1) & 1);
+      unsigned char* st = smem + (size_t)slot * stage;
+      if (lane == 0) {
+        mma8::mbar_arrive_expect_tx(full + slot,
+                                    kXBytes + (w_tma ? kWBytes : 0) + s_rows * kBN * 4);
+        mma8::tma_box(st, &x_map, 2 * b0, m0, full + slot);
+        if (w_tma) mma8::tma_box(st + kXBytes, &w_map, n0, b0, full + slot);
+        mma8::tma_box(st + kXBytes + kWBytes, &s_map, n0, b0 / half, full + slot);
+      }
+      if (!w_tma)
+        i8w::copy_weight_rows(st + kXBytes, w, n0, N, b0, kRows, K / 2, full + slot, lane);
     }
-  }
-  if (n >= N) return;
-  tree.finish(acc);
+    if (!w_tma) mma8::cp_async_wait_all();
+    if (n_split == 1) return;
+  } else {
+    // ---- the consumer warpgroups: 64 weight columns each, the block's
+    // token rows
+    const int wg = warp / 4, gid = lane / 4, tid = lane % 4;
+    const int cb = 64 * wg + 16 * (warp % 4) + 2 * gid;  // this thread's columns cb, cb + 1
+    const i8w::Lane l = i8w::lane_of(cb, tid);
+    PermSums<NT, KIND> ps(G);
+    // the group of the next step's first byte row and that row's place in
+    // it, stepped a piece at a time (no division in the loop)
+    int pg = 16 * r0 / half, pr = 16 * r0 % half;
+    int acc[NT / 2];
+    long long wide[WIDE ? NT / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int m = m0 + i;
-    if (m >= M) break;
-    const float y = __fmul_rn(acc[i][tree.top], xs[m]);
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(y);
-    else
-      static_cast<float*>(out)[(size_t)m * N + n] = y;
+    for (int j = 0; j < NT / 2; ++j) acc[j] = 0;
+#pragma unroll
+    for (int j = 0; j < (WIDE ? NT / 2 : 1); ++j) wide[j] = 0;
+    bool fresh = true;  // the next product starts the open group's dot
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s % depth, b0 = 16 * r0 + 64 * s, p0 = b0 / half;
+      mma8::mbar_wait_or_trap(full + slot, (s / depth) & 1);
+      const unsigned char* st = smem + (size_t)slot * stage;
+      const unsigned xb = smem_u32(st);
+      const float* ss = reinterpret_cast<const float*>(st + kXBytes + kWBytes);
+      unsigned f[4][2];
+      load_raw(st + kXBytes, l, f);
+      unsigned open[4][4];  // the open piece's registers of each step, kept to the stage's end
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) open[q][r] = 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned a[4];
+        step_regs(32, q, 0, f, a);
+        const uint64_t desc = w4g::x_desc(xb + 32 * q);
+        // the step's pieces: rows [a0, a1) of group p, from row pr of it
+        for (int a0 = 0; a0 < 16;) {
+          const int p = pg, a1 = min(a0 + half - pr, 16);
+          const bool closes = pr + (a1 - a0) == half;
+          pr = closes ? 0 : pr + (a1 - a0);
+          pg += closes;
+          const int start = a0;
+          a0 = a1;
+          if (p < g0 || p >= g1) continue;  // another split's group, or rows past K/2
+          const unsigned mk = piece_mask(start, a1, tid);
+          if (!closes) {  // the group goes on past this step
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              open[q][r] = a[r] & mk;
+              w4g::fence_reg(open[q][r]);
+            }
+            w4g::wgmma_fence();
+            i8w::Mma<NT>::run(acc, open[q], desc, !fresh);
+            fresh = false;
+            break;  // the step's last piece
+          }
+          // the group's last piece: its products, the wait, the fold
+          unsigned am[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            am[r] = a[r] & mk;
+            w4g::fence_reg(am[r]);
+          }
+          float2 sc = *reinterpret_cast<const float2*>(ss + (p - p0) * kBN + cb);
+          w4g::fence_reg(sc.x);
+          w4g::fence_reg(sc.y);
+          w4g::wgmma_fence();
+          i8w::Mma<NT>::run(acc, am, desc, !fresh);
+          w4g::wgmma_commit();
+          w4g::wgmma_wait<0>();
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j) i8w::fence_reg(acc[j]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) w4g::fence_reg(am[r]);
+          float gd[NT / 2];
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j) {
+            if constexpr (WIDE) {
+              gd[j] = __fmul_rn(__ll2float_rn(wide[j] + acc[j]), 0.0625f);
+              wide[j] = 0;
+            } else {
+              gd[j] = group > kBK ? group_dot<true>(acc[j]) : group_dot<false>(acc[j]);
+            }
+          }
+          ps.fold(gd, sc, fold_mode, p, lo);
+          fresh = true;
+        }
+      }
+      if (!fresh) {  // the open group's products read this slot: wait for them
+        w4g::wgmma_commit();
+        w4g::wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) i8w::fence_reg(acc[j]);
+        if constexpr (WIDE) {
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j) wide[j] += acc[j];
+          fresh = true;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) w4g::fence_reg(open[q][r]);
+      if (threadIdx.x % 128 == 0) mma8::mbar_arrive(empty + slot);
+    }
+    float fin[NT / 2];
+    ps.result(fin);
+    // fin[4i + h] is column cb, fin[4i + 2 + h] column cb + 1, of token row
+    // 8i + 2tid + h of the block
+    const int n = n0 + cb;
+    if (n_split == 1) {
+      if (n >= N) return;  // N % 4 == 0: cb even, so cb + 1 < N too
+#pragma unroll
+      for (int i = 0; i < NT / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * i + 2 * tid + h;
+          if (r >= rows_here) continue;
+          const float xm = xs[m0 + r];
+          i8w::store2(out, (size_t)(m0 + r) * N + n, out_bf16, __fmul_rn(fin[4 * i + h], xm),
+                      __fmul_rn(fin[4 * i + 2 + h], xm));
+        }
+      return;
+    }
+    i8w::consumers_sync();  // both warpgroups are past the ring
+    float* red = reinterpret_cast<float*>(smem);  // [NT][kRedPitch]
+#pragma unroll
+    for (int i = 0; i < NT / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(red + (8 * i + 2 * tid + h) * kRedPitch + cb) =
+            make_float2(fin[4 * i + h], fin[4 * i + 2 + h]);
   }
+  reduce_windows(smem, xs, out, out_bf16, N, n0, m0, rows_here, split, n_split);
 }
 
-cudaError_t launch_any(const void* x, const void* xs, const void* w, const void* s, void* out,
-                       int M, int K, int N, int group, int out_bf16, cudaStream_t st) {
-  if (M < 1 || M > 256 || N < 1 || !w4g::any_group_ok(K, group)) return cudaErrorInvalidValue;
-  const dim3 grid((N + w4g::kAnyCols - 1) / w4g::kAnyCols, (M + w4g::kAnyRows - 1) / w4g::kAnyRows);
-  w4a8_any_group_kernel<<<grid, w4g::kAnyCols, 0, st>>>(
-      static_cast<const int8_t*>(x), static_cast<const float*>(xs), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), out, out_bf16, M, K, N, group);
-  return cudaGetLastError();
+// Launch the permuted route (the plan of kernels/matmul.py w4a8_plan, its
+// fold kTree beyond 32 x 32 groups): x is first permuted into xp (M,
+// perm_cols(K)) int8, 16-byte aligned.
+cudaError_t launch_perm(const void* x, const void* xs, const void* w, const void* s, void* out,
+                        void* xp, int M, int K, int N, int group, int out_bf16, int nt,
+                        int row_blocks, int n_split, int fold_mode, int depth, cudaStream_t st) {
+  if (M < 1 || N < 4 || N % 4 != 0 || !w4g::reference_group_ok(K, group) || row_blocks < 1 ||
+      nt < 1 || nt > kMaxRows || i8w::tile_n(nt) != nt || xp == nullptr)
+    return cudaErrorInvalidValue;
+  const int G = K / group, half = group / 2, wide = group > (1 << 16);
+  const int rows = (M + row_blocks - 1) / row_blocks;
+  if (rows > nt || (row_blocks - 1) * rows >= M) return cudaErrorInvalidValue;
+  const int windows = (G + kWindow - 1) / kWindow;
+  const bool ok = fold_mode == kChain ? G <= kWindow && n_split == 1
+                  : fold_mode == kWindowSplit
+                      ? G > kWindow && windows <= i8w::kMaxSplit && n_split == windows
+                  : fold_mode == kMulti ? G > kWindow && windows <= kWindow && n_split == 1 && nt <= 64
+                  : fold_mode == kTree && windows > kWindow && n_split == 1 && nt <= 16;
+  // beyond 32^4 groups (kDeep) and above g = 2^16 the tree takes 8 rows a
+  // block, every other fold above 2^16 32 (their sums' registers)
+  const bool deep = fold_mode == kTree && G > kTreeGroups;
+  if (!ok || (fold_mode == kTree && (deep || wide) && nt > 8) || (wide && nt > 32))
+    return cudaErrorInvalidValue;
+  int most = 0;  // the stages of the longest split
+  for (int z = 0; z < n_split; ++z) {
+    int g0, g1;
+    split_groups(fold_mode, G, z, g0, g1);
+    const int runs = (g1 * half + 15) / 16 - g0 * half / 16;
+    if ((runs + 3) / 4 > most) most = (runs + 3) / 4;
+  }
+  if (depth < 1 || (depth < 2 && most > 1)) return cudaErrorInvalidValue;
+  const int stage = nt * kBK + kWBytes + w4g::perm_scale_bytes(K, group, kBN);
+  const size_t ring = (size_t)depth * stage, red = n_split > 1 ? (size_t)nt * kRedPitch * 4 : 0;
+  const size_t smem = (ring > red ? ring : red) + (size_t)depth * 16 + 1024;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t err = w4g::permute_x<unsigned char>(x, xp, M, K, group, st);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xm = {}, wm = {}, sm = {};
+  if (!mma8::tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, xp, w4g::perm_cols(K), M,
+                        w4g::perm_cols(K), kBK, nt, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !mma8::tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, G, 4ll * N, kBN,
+                        w4g::perm_scale_box(K, group), CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const int w_tma = mma8::tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, kBN,
+                                     kRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  const int n_tiles = (N + kBN - 1) / kBN;
+  auto run = [&](auto kernel) -> cudaError_t {
+    return i8w::launch_clusters(kernel, n_split, n_tiles, row_blocks, smem, st, xm, wm, sm, w_tma,
+                                static_cast<const int8_t*>(w), static_cast<const float*>(xs),
+                                out, out_bf16, M, K, N, group, row_blocks, n_split, fold_mode,
+                                depth);
+  };
+  if (wide) {
+    if (fold_mode == kTree)
+      return deep ? run(w4a8_perm_kernel<8, kDeep, true>) : run(w4a8_perm_kernel<8, kTree, true>);
+    if (fold_mode == kMulti) {
+      switch (nt) {
+        case 8: return run(w4a8_perm_kernel<8, kMulti, true>);
+        case 16: return run(w4a8_perm_kernel<16, kMulti, true>);
+        default: return run(w4a8_perm_kernel<32, kMulti, true>);
+      }
+    }
+    switch (nt) {
+      case 8: return run(w4a8_perm_kernel<8, kChain, true>);
+      case 16: return run(w4a8_perm_kernel<16, kChain, true>);
+      default: return run(w4a8_perm_kernel<32, kChain, true>);
+    }
+  }
+  if (fold_mode == kTree) {
+    if (deep) return run(w4a8_perm_kernel<8, kDeep, false>);
+    if (nt == 8) return run(w4a8_perm_kernel<8, kTree, false>);
+    return run(w4a8_perm_kernel<16, kTree, false>);
+  }
+  if (fold_mode == kMulti) {
+    switch (nt) {
+      case 8: return run(w4a8_perm_kernel<8, kMulti, false>);
+      case 16: return run(w4a8_perm_kernel<16, kMulti, false>);
+      case 32: return run(w4a8_perm_kernel<32, kMulti, false>);
+      case 48: return run(w4a8_perm_kernel<48, kMulti, false>);
+      default: return run(w4a8_perm_kernel<64, kMulti, false>);
+    }
+  }
+  switch (nt) {
+    case 8: return run(w4a8_perm_kernel<8, kChain, false>);
+    case 16: return run(w4a8_perm_kernel<16, kChain, false>);
+    case 32: return run(w4a8_perm_kernel<32, kChain, false>);
+    case 48: return run(w4a8_perm_kernel<48, kChain, false>);
+    case 64: return run(w4a8_perm_kernel<64, kChain, false>);
+    default: return run(w4a8_perm_kernel<96, kChain, false>);
+  }
 }
 
 }  // namespace w4h
 }  // namespace ff
 
 // x (M, K) int8 (16-byte aligned), xs (M,) f32, w (K/2, N) pack_int4,
-// w_scale (K/g, N) f32 (16-byte aligned), out (M, N) f32 or bf16; group 32,
-// 64 or 128, or a multiple of 128 from 256 up to K and 2^16; nt,
-// row_blocks, n_split, fold (0 chain, 1 window splits, 2 every window in
-// one block) and depth from kernels/matmul.py w4a8_plan.
+// w_scale (K/g, N) f32 (16-byte aligned), out (M, N) f32 or bf16; any group
+// the reference takes (g even, K a whole number of groups); xp (M,
+// w4g::perm_cols(K)) int8 scratch on the permuted route (the groups
+// direct_ok does not take), else null; nt, row_blocks, n_split, fold (0
+// chain, 1 window splits, 2 every window in one block, 3 the window tree)
+// and depth from kernels/matmul.py w4a8_plan.
 extern "C" int ff_w4a8_gemv_halves(const void* x, const void* xs, const void* w,
-                                   const void* w_scale, void* out, int M, int K, int N, int group,
-                                   int out_bf16, int nt, int row_blocks, int n_split, int fold,
-                                   int depth, void* stream) {
+                                   const void* w_scale, void* out, void* xp, int M, int K, int N,
+                                   int group, int out_bf16, int nt, int row_blocks, int n_split,
+                                   int fold, int depth, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!ff::w4h::direct_ok(K, group))
+    return ff::w4h::launch_perm(x, xs, w, w_scale, out, xp, M, K, N, group, out_bf16, nt,
+                                row_blocks, n_split, fold, depth, st);
   return ff::w4h::launch(x, xs, w, w_scale, out, M, K, N, group, out_bf16, nt, row_blocks,
-                         n_split, fold, depth, static_cast<cudaStream_t>(stream));
-}
-
-// Any other group the reference takes (w4g::any_group_ok), and more than 32
-// x 32 groups: the plain CUDA-core loop above, bit-exact as the tensor-core
-// kernel. Arguments as ff_w4a8_gemv_halves's without the plan; x and
-// w_scale need no alignment.
-extern "C" int ff_w4a8_gemv_halves_any(const void* x, const void* xs, const void* w,
-                                       const void* w_scale, void* out, int M, int K, int N,
-                                       int group, int out_bf16, void* stream) {
-  return ff::w4h::launch_any(x, xs, w, w_scale, out, M, K, N, group, out_bf16,
-                             static_cast<cudaStream_t>(stream));
+                         n_split, fold, depth, st);
 }

@@ -82,13 +82,10 @@ SIGNATURES = {
         "ff_w4a8_gemv_stacked_any": [P] * 6 + [I] * 9 + [P],
     },
     "w4a8_halves": {
-        # x, xs, w, w_scale, out, M, K, N, group, out_bf16, nt, row_blocks,
-        # n_split, fold, depth, stream (int8 wgmma; the plan of
-        # matmul.w4a8_plan)
-        "ff_w4a8_gemv_halves": [P] * 5 + [I] * 10 + [P],
-        # x, xs, w, w_scale, out, M, K, N, group, out_bf16, stream (any other
-        # group: the CUDA-core loop)
-        "ff_w4a8_gemv_halves_any": [P] * 5 + [I] * 5 + [P],
+        # x, xs, w, w_scale, out, xp (x in byte-row order, or NULL), M, K,
+        # N, group, out_bf16, nt, row_blocks, n_split, fold, depth, stream
+        # (int8 wgmma; the plan of matmul.w4a8_plan)
+        "ff_w4a8_gemv_halves": [P] * 6 + [I] * 10 + [P],
     },
     "kv_append": {
         # kc, vc, ks, vs, k_new, v_new, ks_new, vs_new, starts,
@@ -168,20 +165,17 @@ SIGNATURES = {
         "ff_w8a8_gemm": [P] * 6 + [I] * 8 + [P],
     },
     "w4_gemv": {
-        # x, w, w_scale, out, M, K, N, group, n_split, depth, out_bf16,
-        # stream (wgmma; the plan of matmul.w4_plan)
-        "ff_w4_gemv": [P] * 4 + [I] * 7 + [P],
+        # x, w, w_scale, out, xp (x in byte-row order, or NULL), M, K, N,
+        # group, n_split, depth, out_bf16, stream (wgmma; the plan of
+        # matmul.w4_plan)
+        "ff_w4_gemv": [P] * 5 + [I] * 7 + [P],
         # M, depth, n_split: the clusters the card runs at once
         "ff_w4_gemv_clusters": [I, I, I],
-        # x, w, w_scale, out, M, K, N, group, out_bf16, stream (any other
-        # group: the CUDA-core loop)
-        "ff_w4_gemv_any": [P] * 4 + [I] * 5 + [P],
     },
     "w4a16_gemm": {
-        # x, w, w_scale, bias (or NULL), out, M, K, N, group, out_bf16, stream
-        "ff_w4a16_gemm": [P, P, P, P, P, I, I, I, I, I, P],
-        # the same arguments (any other group: the CUDA-core loop)
-        "ff_w4a16_gemm_any": [P, P, P, P, P, I, I, I, I, I, P],
+        # x, w, w_scale, bias (or NULL), out, xp (x in byte-row order, or
+        # NULL), M, K, N, group, out_bf16, stream
+        "ff_w4a16_gemm": [P] * 6 + [I] * 5 + [P],
     },
     "probe_int4": {
         # x, w, out, R, K, N, panels, rounds, int4, inst, stream

@@ -26,6 +26,7 @@ the float64 result to float32 rounds exactly as int32 → float32 does.
 """
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -985,9 +986,10 @@ _MAX_BIG_GROUP = 1 << 16  # the W4A8 GEMV's int32 dot of a group: 16 * 128 * 8 *
 def wgmma_group_ok(K: int, group_size: int) -> bool:
     """Whether the group-halves tensor-core kernels (rows 16, 17 and 18t:
     `csrc/w4a8_halves.cu`, `csrc/w4_gemv.cu`, `csrc/w4a16_gemm.cu`; C
-    `group_ok`) take group ``group_size`` at depth K: g 32, 64 or 128, or g
-    = 128 j with j >= 2 up to g = K (a group then spans j of their 128-k
-    stages); K a whole number of groups."""
+    `group_ok`) read x as it lies at group ``group_size`` and depth K: g
+    32, 64 or 128, or g = 128 j with j >= 2 up to g = K (a group then spans
+    j of their 128-k stages); K a whole number of groups. Every other group
+    the reference takes reads x permuted into byte-row order (`permute_x`)."""
     g = group_size
     small = g in (32, 64, 128)
     return (small or (g >= 2 * _STAGE_K and g % _STAGE_K == 0)) and K >= g and K % g == 0
@@ -996,19 +998,20 @@ def wgmma_group_ok(K: int, group_size: int) -> bool:
 def float_scale_group_ok(K: int, group_size: int) -> bool:
     """Whether the reference takes group ``group_size`` at depth K
     (`pack_int4`'s group halves, `matmul_w4a8_gemv` and `matmul_w4_gemv`
-    unroll K // g groups; C `any_group_ok`): g even, K a whole number of
-    groups."""
+    unroll K // g groups; C `reference_group_ok`): g even, K a whole number
+    of groups."""
     g = group_size
     return g >= 2 and g % 2 == 0 and K >= g and K % g == 0
 
 
 def float_scale_route(K: int, group_size: int, max_group: Optional[int] = None,
                       max_groups: Optional[int] = None) -> str:
-    """The route of rows 16, 17 and 18t at group g, chosen by shape:
-    "wgmma", the tensor-core kernels, where `wgmma_group_ok` (and g <=
-    ``max_group``, K / g <= ``max_groups`` where given: row 16's int32 group
-    dot and its fold of at most 32 x 32 groups); else "any", the CUDA-core
-    loop of the same source (`w4_any_group_kernel`, `w4a8_any_group_kernel`),
+    """The route of rows 16, 17 and 18t at group g, chosen by shape; both
+    run on the tensor cores. "direct": x read as it lies, where
+    `wgmma_group_ok` (and g <= ``max_group``, K / g <= ``max_groups`` where
+    given: row 16's int32 group dot and its fold of at most 32 x 32 groups
+    on that route); "permuted": x first permuted into byte-row order
+    (`permute_x`, one pass a call) and each byte row's scale its group's,
     for every other group the reference takes. Raises for a group the
     reference does not take."""
     if not float_scale_group_ok(K, group_size):
@@ -1016,13 +1019,80 @@ def float_scale_route(K: int, group_size: int, max_group: Optional[int] = None,
                          f"K a whole number of groups")
     if wgmma_group_ok(K, group_size) and (max_group is None or group_size <= max_group) \
             and (max_groups is None or K // group_size <= max_groups):
-        return "wgmma"
-    return "any"
+        return "direct"
+    return "permuted"
+
+
+def perm_cols(K: int) -> int:
+    """Columns of x permuted into byte-row order (C `perm_cols`): K rounded
+    up to whole 16-row runs of 32 columns."""
+    return -(-K // 32) * 32
+
+
+def permute_x(x: torch.Tensor, group_size: int) -> torch.Tensor:
+    """x (M, K) in byte-row order (`csrc/w4_wgmma.cuh` permute_x_kernel):
+    byte row b of `pack_int4`'s group halves (group p = b // h, h = g / 2, i
+    = b % h) holds k = p g + i in its low nibble and p g + h + i in its high
+    one; columns 32 r .. 32 r + 15 of the result are x at the low-nibble k
+    of byte rows 16 r .. 16 r + 15, columns 32 r + 16 .. 32 r + 31 at their
+    high-nibble k, zeros past byte row K/2 - 1. The permuted route's stages
+    read it as the direct route reads x at g 32."""
+    M, K = x.shape
+    h, cols = group_size // 2, perm_cols(K)
+    b = torch.arange(cols // 2).reshape(-1, 16)  # (runs, 16) byte rows
+    k = (b // h) * group_size + b % h
+    k = torch.stack([k, k + h], 1).reshape(-1)  # each run: low plane, then high plane
+    valid = (b < K // 2).repeat_interleave(2, 0).reshape(-1)
+    out = x[:, k.clamp(max=K - 1)]
+    return torch.where(valid[None, :].to(x.device), out, torch.zeros_like(out))
+
+
+def perm_scale_box(K: int, group_size: int) -> int:
+    """Scale rows a permuted stage loads (C `perm_scale_box`): a stage of
+    64 byte rows starts on a 16-row run, rem = (16 j) % h <= h - gcd(16, h)
+    rows into its first group, so it touches at most (h - gcd(16, h) + 63)
+    // h + 1 groups; no more than K / g."""
+    h = group_size // 2
+    return min((h - math.gcd(16, h) + 63) // h + 1, K // group_size)
+
+
+def perm_scale_bytes(K: int, group_size: int) -> int:
+    """Shared bytes of a permuted stage's scale rows: the box rounded up to
+    an even row count of 128 f32 (a stage stays on the 128B swizzle's
+    1024-byte period)."""
+    return -(-perm_scale_box(K, group_size) // 2) * 2 * 128 * 4
+
+
+def perm_stage_scale_rows(b0: int, K: int, group_size: int) -> torch.Tensor:
+    """The scale row (index into w_scale) of each of the 64 byte rows of
+    the permuted stage whose first byte row is ``b0`` (`csrc/w4_wgmma.cuh`
+    GroupDiv): its first group b0 // h plus (b0 % h + o) // h, clamped to
+    the box's last row (only rows past K/2, whose weights arrive as zeros,
+    reach past it)."""
+    h = group_size // 2
+    o = torch.arange(64)
+    return b0 // h + torch.clamp((b0 % h + o) // h, max=perm_scale_box(K, group_size) - 1)
+
+
+def perm_stage_pieces(b0: int, group_size: int, g0: int, g1: int) -> list:
+    """The group pieces of the four k32 steps of row 16's permuted stage
+    whose first byte row is ``b0`` (`csrc/w4a8_halves.cu`
+    w4a8_perm_kernel), for a split over groups [g0, g1): [(step q, group p,
+    first row a0, end row a1 of the piece within the step's 16 byte rows,
+    whether the piece closes its group)] in the order the kernel takes them."""
+    h = group_size // 2
+    out = []
+    for q in range(4):
+        b = b0 + 16 * q
+        for p in range(max(b // h, g0), min((b + 15) // h, g1 - 1) + 1):
+            out.append((q, p, max(p * h, b) - b, min((p + 1) * h, b + 16) - b,
+                        (p + 1) * h <= b + 16))
+    return out
 
 
 def window_tree_sum(terms):
-    """The CUDA-core route's fold of row 16 (`csrc/w4a8_halves.cu`
-    WindowTree) written out in torch: the (..., n) f32 ``terms`` pushed one
+    """Row 16's fold beyond 32 x 32 groups (`csrc/w4a8_halves.cu` Tree, the
+    permuted route's kTree) written out in torch: the (..., n) f32 ``terms`` pushed one
     at a time through the oracle's window tree (per level: windows of 32
     after the smaller half of the padding, each summed from +0, a term that
     starts a window sending the closed window's sum up a level; at most 32
@@ -1190,10 +1260,10 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
     x_q (M, K) int8, x_scale (M,) f32, w_packed (K//2, N) `pack_int4`
     layout, w_scale (K//g, N) f32; bf16 or f32 out. On CUDA
     `csrc/w4a8_halves.cu` (int8 wgmma, each group's dot folded in the
-    oracle's order; rows, K splits at window boundaries and the fold from
-    `w4a8_plan`; any other group the reference takes, and more than 32 x 32
-    groups, through the same source's CUDA-core loop, counted under
-    ``w4a8_gemv_halves_any``: `float_scale_route`), bit-exact against
+    oracle's order; rows, K splits at window boundaries, the fold and the
+    route from `w4a8_plan`: at groups `wgmma_group_ok` does not take, more
+    than 32 x 32 groups or g above 2^16, x is first permuted into byte-row
+    order, `permute_x`, in the same call), bit-exact against
     `matmul_w4a8_reference`."""
     if x_q.device.type == "cpu":
         return matmul_w4a8_reference(x_q, x_scale, w_packed, w_scale, None, group_size, out_dtype)
@@ -1211,22 +1281,14 @@ def matmul_w4a8_gemv(x_q, x_scale, w_packed, w_scale, group_size: int = 128,
             f"K={K}, M={M})"
         )
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    if float_scale_route(K, group_size, _MAX_BIG_GROUP, _SUM_WINDOW ** 2) == "any":
-        err = _build.lib("w4a8_halves").ff_w4a8_gemv_halves_any(
-            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
-            out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16),
-            _build.stream_ptr(dev),
-        )
-        _build.launch_counts["w4a8_gemv_halves_any"] += 1
-        _build.check(err, "w4a8_gemv_halves_any")
-        return out
     plan = w4a8_plan(M, K, N, group_size)
+    xp = torch.empty((M, perm_cols(K)), dtype=torch.int8, device=dev) if plan.permuted else None
     x_q, w_scale = _aligned16(x_q), _aligned16(w_scale)  # both reach the kernel through tensor maps
     err = _build.lib("w4a8_halves").ff_w4a8_gemv_halves(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), M, K, N, group_size, int(out_dtype == torch.bfloat16), plan.n,
-        plan.row_blocks, plan.n_split, W4A8_FOLDS.index(plan.fold), plan.depth,
-        _build.stream_ptr(dev),
+        out.data_ptr(), None if xp is None else xp.data_ptr(), M, K, N, group_size,
+        int(out_dtype == torch.bfloat16), plan.n, plan.row_blocks, plan.n_split,
+        W4A8_FOLDS.index(plan.fold), plan.depth, _build.stream_ptr(dev),
     )
     _build.launch_counts["w4a8_gemv_halves"] += 1
     _build.check(err, "w4a8_gemv_halves")
@@ -1349,11 +1411,22 @@ def w8a8_plan(M: int, K: int, N: int, n_split: Optional[int] = None) -> W8A8Plan
 
 
 # How the W4A8 GEMV's block folds its group dots (`csrc/w4a8_halves.cu`
-# kChain, kWindowSplit, kMulti): up to 32 groups one fused multiply-add
-# chain (K unsplit); 33-256 groups one window's rounded products a block,
-# window z in split z of a cluster, the window sums added in order through
-# distributed shared memory; beyond, every window in one block.
-W4A8_FOLDS = ("chain", "window", "multi")
+# kChain, kWindowSplit, kMulti, kTree): up to 32 groups one fused
+# multiply-add chain (K unsplit); 33-256 groups one window's rounded
+# products a block, window z in split z of a cluster, the window sums added
+# in order through distributed shared memory; up to 32 x 32 groups every
+# window in one block; beyond, the oracle's deeper window tree in one block
+# (the permuted route).
+W4A8_FOLDS = ("chain", "window", "multi", "tree")
+# Token rows a block of the W4A8 GEMV holds by its sums' registers: the
+# chain and window folds, every window (a third set), the window tree (four
+# levels up to 32^4 groups; 8 rows beyond, six levels: up to 32^6 = 2^30
+# groups, every K below 2^31), and at a group above 2^16 (its int64 dot
+# beside the int32 one) at most 32, the tree 8.
+_W4A8_ROWS = {"chain": 96, "window": 96, "multi": 64, "tree": 16}
+_W4A8_WIDE_ROWS = {"chain": 32, "window": 32, "multi": 32, "tree": 8}
+_W4A8_DEEP_ROWS = 8
+_W4A8_TREE_LEVELS = 6
 
 
 class W4A8Plan(NamedTuple):
@@ -1372,10 +1445,12 @@ class W4A8Plan(NamedTuple):
     lo: int
     stages: int
     depth: int
+    permuted: bool = False  # x in byte-row order (`float_scale_route` "permuted")
+    scale_bytes: int = _I8_BK // 32 * _I8_BN * 4  # a stage's scale rows
 
     @property
     def stage_bytes(self) -> int:
-        return self.n * _I8_BK + _I8_BK // 2 * _I8_BN + _I8_BK // 32 * _I8_BN * 4
+        return self.n * _I8_BK + _I8_BK // 2 * _I8_BN + self.scale_bytes
 
     @property
     def smem_bytes(self) -> int:
@@ -1392,29 +1467,44 @@ class W4A8Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def w4a8_plan(M: int, K: int, N: int, group_size: int) -> W4A8Plan:
-    """Plan of the W4A8 GEMV at M <= 256 token rows. The fold follows the
-    group count G = K / g (`W4A8_FOLDS`): K is split only at the windows
-    of the oracle's sum, ceil(G / 32) splits for 33-256 groups, none
-    otherwise. A block holds at most 96 token rows (64 where it keeps a
-    third set of sums), so more rows take more row blocks; of one to two
-    times the fewest row blocks it takes the least (waves of clusters) x
-    (wgmma's n + 32), fewer row blocks on a tie (narrow projections split
-    their rows to fill the card). A group of g = 128 j (j >= 2) spans j
-    stages (`stage_groups`), so every split starts on a stage boundary."""
-    if not 1 <= M <= GEMV_MAX_M or not wgmma_group_ok(K, group_size) \
-            or group_size > _MAX_BIG_GROUP or N < 4 or N % 4:
+    """Plan of the W4A8 GEMV at M <= 256 token rows, at every group the
+    reference takes. The fold follows the group count G = K / g
+    (`W4A8_FOLDS`): K is split only at the windows of the oracle's sum,
+    ceil(G / 32) splits for 33-256 groups, none otherwise. The route
+    (`float_scale_route`): x as it lies at the groups `wgmma_group_ok`
+    takes up to g = 2^16 and 32 x 32 groups, a group of g = 128 j (j >= 2)
+    spanning j stages (`stage_groups`), so every split starts on a stage
+    boundary; else x in byte-row order (`permute_x`), a split starting on
+    the 16-row run of its first byte row, and the scale rows of every group
+    a stage touches (`perm_scale_bytes`). A block holds at most
+    `_W4A8_ROWS` token rows (`_W4A8_DEEP_ROWS` beyond 32^4 groups, no more
+    than `_W4A8_WIDE_ROWS` above g = 2^16), so more rows take more row
+    blocks; of one to two times the fewest row blocks it takes the least
+    (waves of clusters) x (wgmma's n + 32), fewer row blocks on a tie
+    (narrow projections split their rows to fill the card)."""
+    if not 1 <= M <= GEMV_MAX_M or not float_scale_group_ok(K, group_size) or N < 4 or N % 4:
         raise ValueError(f"no W4A8 GEMV plan for M={M}, K={K}, N={N}, group={group_size}")
     G = K // group_size
     windows = -(-G // _SUM_WINDOW)
-    if windows > _SUM_WINDOW:
-        raise ValueError(f"the W4A8 GEMV sums at most {_SUM_WINDOW ** 2} groups (G={G})")
-    fold = "chain" if G <= _SUM_WINDOW else "window" if windows <= _W4_MAX_SPLIT else "multi"
+    if G > _SUM_WINDOW ** _W4A8_TREE_LEVELS:
+        raise ValueError(f"the W4A8 GEMV sums at most {_SUM_WINDOW ** _W4A8_TREE_LEVELS} groups "
+                         f"(G={G})")
+    permuted = float_scale_route(K, group_size, _MAX_BIG_GROUP, _SUM_WINDOW ** 2) == "permuted"
+    fold = "chain" if G <= _SUM_WINDOW else "window" if windows <= _W4_MAX_SPLIT \
+        else "multi" if windows <= _SUM_WINDOW else "tree"
     n_split = windows if fold == "window" else 1
     lo = (windows * _SUM_WINDOW - G) // 2
-    plan = W4A8Plan(fold, 0, 0, 0, 0, -(-N // _I8_BN), n_split, lo, 0, 1)
-    gps, spg = stage_groups(group_size)
-    stages = max(-(-(g1 - g0) // gps) * spg for g0, g1 in plan.group_ranges(G))
-    most = 64 if fold == "multi" else 96
+    plan = W4A8Plan(fold, 0, 0, 0, 0, -(-N // _I8_BN), n_split, lo, 0, 1, permuted)
+    if permuted:
+        h = group_size // 2
+        plan = plan._replace(scale_bytes=perm_scale_bytes(K, group_size))
+        stages = max(-(-(-(-g1 * h // 16) - g0 * h // 16) // 4) for g0, g1 in plan.group_ranges(G))
+    else:
+        gps, spg = stage_groups(group_size)
+        stages = max(-(-(g1 - g0) // gps) * spg for g0, g1 in plan.group_ranges(G))
+    most = _W4A8_DEEP_ROWS if G > _SUM_WINDOW ** 4 else _W4A8_ROWS[fold]
+    if group_size > _MAX_BIG_GROUP:
+        most = min(most, _W4A8_WIDE_ROWS[fold])
     fewest = -(-M // most)
     best = None
     for rb in range(fewest, 2 * fewest + 1):
@@ -1515,23 +1605,13 @@ def w4a8_step_operands(words: torch.Tensor, group_size: int) -> list:
     return steps
 
 
-def w4a8_split_fold(x_q, x_scale, w_packed, w_scale, group_size: int, out_dtype,
-                    plan: Optional[W4A8Plan] = None):
-    """The W4A8 GEMV's arithmetic (`csrc/w4a8_halves.cu`) written out in
-    torch under ``plan`` (default `w4a8_plan`): per output the int32 group
-    dots, folded per the plan's fold: one fused multiply-add chain from +0;
-    or each split's window of rounded products summed from +0, then the
-    window sums in window order from +0; or (every window in one block) the
-    closed windows' chain plus the open window's sum. Times x_scale."""
-    M, K = x_q.shape
-    N = w_packed.shape[1]
-    G = K // group_size
-    plan = plan or w4a8_plan(M, K, N, group_size)
-    v = unpack_int4(w_packed, group_size).double().reshape(G, group_size, N)
-    xg = x_q.double().reshape(M, G, group_size)
-    gd = [(xg[:, g] @ v[g]).float() for g in range(G)]
-    s = w_scale.float()
-    zero = torch.zeros((M, N))
+def _fold_terms(plan: W4A8Plan, gd, s, G):
+    """(M, N) f32 sum of the group products gd[g] * s[g] under the plan's
+    fold (`W4A8_FOLDS`): one fused multiply-add chain from +0; each split's
+    window of rounded products from +0, then the window sums in window
+    order from +0; the closed windows' sum plus the open window's (every
+    window in one block); the window tree (`window_tree_sum`)."""
+    zero = torch.zeros_like(gd[0])
     if plan.fold == "chain":
         acc = zero
         for g in range(G):
@@ -1543,14 +1623,118 @@ def w4a8_split_fold(x_q, x_scale, w_packed, w_scale, group_size: int, out_dtype,
             for g in range(g0, g1):
                 w = w + gd[g] * s[g]
             acc = acc + w
-    else:
+    elif plan.fold == "multi":
         acc, w = zero, zero
         for g in range(G):
             if g > 0 and (g + plan.lo) % _SUM_WINDOW == 0:
                 acc, w = acc + w, zero
             w = w + gd[g] * s[g]
         acc = acc + w
+    else:
+        acc = window_tree_sum(torch.stack([gd[g] * s[g] for g in range(G)], -1))
+    return acc
+
+
+def w4a8_split_fold(x_q, x_scale, w_packed, w_scale, group_size: int, out_dtype,
+                    plan: Optional[W4A8Plan] = None):
+    """The W4A8 GEMV's arithmetic (`csrc/w4a8_halves.cu`) written out in
+    torch under ``plan`` (default `w4a8_plan`): per output the int32 group
+    dots, folded per the plan's fold (`_fold_terms`), times x_scale."""
+    M, K = x_q.shape
+    N = w_packed.shape[1]
+    G = K // group_size
+    plan = plan or w4a8_plan(M, K, N, group_size)
+    v = unpack_int4(w_packed, group_size).double().reshape(G, group_size, N)
+    xg = x_q.double().reshape(M, G, group_size)
+    gd = [(xg[:, g] @ v[g]).float() for g in range(G)]
+    acc = _fold_terms(plan, gd, w_scale.float(), G)
     return (acc * x_scale.float()[:, None]).to(out_dtype)
+
+
+def w4a8_perm_fold(x_q, x_scale, w_packed, w_scale, group_size: int, out_dtype,
+                   plan: Optional[W4A8Plan] = None):
+    """Row 16's permuted route (`csrc/w4a8_halves.cu` w4a8_perm_kernel)
+    written out in torch under ``plan`` (default `w4a8_plan`): x permuted
+    into byte-row order (`permute_x`); each split's stages of 64 byte rows
+    from the 16-row run of its first group's first byte row; each stage's
+    k32 steps (16 byte rows: slots 0-15 their low nibbles, 16-31 their high
+    nibbles, 16 v each) cut into group pieces (`perm_stage_pieces`), each
+    piece's int32 product with the other groups' bytes masked to zero added
+    to its group's dot (an int64 sum of per-stage int32 partials, as WIDE
+    widens them); each closed group's dot, as a float, folded with its
+    scale from the stage's scale rows in group order under the plan's fold;
+    the window sums added in split order; times x_scale."""
+    M, K = x_q.shape
+    N = w_packed.shape[1]
+    G, h = K // group_size, group_size // 2
+    plan = plan or w4a8_plan(M, K, N, group_size)
+    # int64 values as float64: every partial sum is an integer below 2^53,
+    # so the products are exact (and take the BLAS path)
+    xp = permute_x(x_q, group_size).double()
+    w = w_packed.to(torch.int64)
+    rows = K // 2
+    s = w_scale.float()
+    gd = [None] * G
+    for g0, g1 in plan.group_ranges(G):
+        r0, r1 = g0 * h // 16, -(-g1 * h // 16)
+        dots = {}
+        for st in range(-(-(r1 - r0) // 4)):
+            b0 = 16 * r0 + 64 * st
+            part = {}
+            for q, p, a0, a1, closes in perm_stage_pieces(b0, group_size, g0, g1):
+                b = b0 + 16 * q
+                byte = torch.zeros((16, N), dtype=torch.int64)
+                n_in = max(0, min(16, rows - b))
+                byte[:n_in] = w[b:b + n_in]
+                keep = torch.zeros((16, 1), dtype=torch.int64)
+                keep[a0:a1] = 1
+                lo = (((byte << 4) & 0xF0) ^ 0x80) - 0x80  # 16 v of the low nibbles
+                hi = ((byte & 0xF0) ^ 0x80) - 0x80  # 16 v of the high nibbles
+                step = torch.cat([lo * keep, hi * keep], 0).double()  # (32 slots, N)
+                prod = xp[:, 32 * (b // 16):32 * (b // 16) + 32] @ step
+                assert prod.abs().max() < 2 ** 31  # the step's int32 product
+                part[p] = part.get(p, 0) + prod
+                if closes:  # its scale: row p - b0 // h of the stage's box
+                    assert p - b0 // h < perm_scale_box(K, group_size)
+                    total = dots.pop(p, 0) + part.pop(p)
+                    gd[p] = (total / 16).float()
+            for p, v in part.items():  # the open group's stage partial, widened
+                dots[p] = dots.get(p, 0) + v
+    acc = _fold_terms(plan, gd, s, G)
+    return (acc * x_scale.float()[:, None]).to(out_dtype)
+
+
+def w4_perm_product(x, w_packed, w_scale, group_size: int, tiled: bool = False):
+    """Rows 17 and 18t's permuted route (`csrc/w4_gemv.cu`,
+    `csrc/w4_wgmma.cuh` with PERM) written out in torch, f32: x permuted
+    into byte-row order (`permute_x`); each 128-k stage s of it (byte rows
+    64 s .. 64 s + 63) times its byte rows' weights, each byte row
+    dequantized with the scale row its stage gives it
+    (`perm_stage_scale_rows`): row 17 bf16(f32(v) s), 18t (``tiled``)
+    bf16(bf16(v) bf16(s)); the stages summed in order."""
+    M, K = x.shape
+    N = w_packed.shape[1]
+    xp = permute_x(x.to(torch.bfloat16), group_size).float()
+    xp = torch.nn.functional.pad(xp, (0, -(-K // 128) * 128 - xp.shape[1]))  # TMA's zeros
+    rows = K // 2
+    w = w_packed.to(torch.int32)
+    s = w_scale.float()
+    acc = torch.zeros((M, N), dtype=torch.float32)
+    for st in range(-(-K // 128)):
+        b0 = 64 * st
+        n_in = max(0, min(64, rows - b0))
+        byte = torch.zeros((64, N), dtype=torch.int32)
+        byte[:n_in] = w[b0:b0 + n_in]
+        lo = (((byte & 0xF) ^ 8) - 8).float()
+        hi = (byte >> 4).float()
+        sc = s[perm_stage_scale_rows(b0, K, group_size).clamp(max=s.shape[0] - 1)]
+        if tiled:
+            sc = sc.to(torch.bfloat16).float()
+        dq = [(v * sc).to(torch.bfloat16).float() for v in (lo, hi)]
+        xs = xp[:, 2 * b0:2 * b0 + 128].reshape(M, 4, 2, 16)  # runs of (low plane, high plane)
+        for q in range(4):
+            acc = acc + xs[:, q, 0] @ dq[0][16 * q:16 * q + 16] + xs[:, q, 1] @ dq[1][16 * q:16 * q + 16]
+    return acc
 
 
 def matmul_w4a16_reference(x, w_packed, w_scale, bias=None, group_size: int = 128,
@@ -1605,10 +1789,12 @@ class W4Plan(NamedTuple):
     n_split: int
     sps: int
     depth: int
+    permuted: bool = False  # x in byte-row order (`float_scale_route` "permuted")
+    scale_bytes: int = _W4_BK // 32 * _W4_BN * 4  # a stage's scale rows
 
     @property
     def stage_bytes(self) -> int:
-        return 2 * self.n * 128 + _W4_BK // 2 * _W4_BN + _W4_BK // 32 * _W4_BN * 4
+        return 2 * self.n * 128 + _W4_BK // 2 * _W4_BN + self.scale_bytes
 
     @property
     def smem_bytes(self) -> int:
@@ -1628,21 +1814,26 @@ class W4Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def w4_plan(M: int, K: int, N: int, group_size: int, n_split: Optional[int] = None) -> W4Plan:
-    """Plan of the wgmma W4 GEMV at M <= 256 token rows: the wgmma n, then
-    the K split over whole 128-k stages (whole groups at g 32, 64, 128; at
-    g = 128 j a j-th of a group), no split empty, the splits of a column
-    block one cluster. Of 1-8 splits it takes the least of (waves of clusters, at `W4_CLUSTERS` of them at
+    """Plan of the wgmma W4 GEMV at M <= 256 token rows, at every group the
+    reference takes: the route (`float_scale_route`: x as it lies, or
+    permuted into byte-row order with the scale rows of every group a stage
+    touches, `perm_scale_bytes`), the wgmma n, then the K split over whole
+    128-k stages (whole groups at g 32, 64, 128; at g = 128 j a j-th of a
+    group; on the permuted route any 64 byte rows), no split empty, the
+    splits of a column block one cluster. Of 1-8 splits it takes the least of (waves of clusters, at `W4_CLUSTERS` of them at
     once) x (stages a block + `_W4_BLOCK_COST`), fewer splits on a tie (or
     about ``n_split`` splits where given: the card tests and A/Bs take
     others); then the deepest ring that fits (at least two stages where a
     split has two)."""
-    if not 1 <= M <= GEMV_MAX_M or not wgmma_group_ok(K, group_size):
+    if not 1 <= M <= GEMV_MAX_M or not float_scale_group_ok(K, group_size):
         raise ValueError(f"no W4 GEMV plan for M={M}, K={K}, group={group_size}")
     n = next(t for t in (8, 16, 32, 64, 128, 192, 256) if M <= t)
     per_sm = 2 if n <= 64 else 1
     n_tiles, stages = -(-N // _W4_BN), -(-K // _W4_BK)
     n_split, sps = _split_choice(n_tiles, stages, per_sm, n_split)
     plan = W4Plan(n, per_sm, n_tiles, stages, n_split, sps, 1)
+    if float_scale_route(K, group_size) == "permuted":
+        plan = plan._replace(permuted=True, scale_bytes=perm_scale_bytes(K, group_size))
     budget = _SM_SMEM // per_sm - _BLOCK_RESERVED
     depth = min(_W4_MAX_DEPTH, sps, (budget - 1024) // (plan.stage_bytes + 16))
     plan = plan._replace(depth=depth)
@@ -1659,10 +1850,10 @@ def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.
     rounds the scale to bf16 first). On CUDA `csrc/w4_gemv.cu` for M up to
     `GEMV_MAX_M` (bf16 wgmma, each weight dequantized once a call as
     `w4_gemv_dequant_words` mirrors, K split by `w4_plan` and the splits
-    added in split order; any other group the reference takes through the
-    same source's CUDA-core loop, counted under ``w4_gemv_any``:
-    `float_scale_route`); its sums run in another order than the plain
-    version's, the same bits call to call."""
+    added in split order; at groups `wgmma_group_ok` does not take, x is
+    first permuted into byte-row order, `permute_x`, in the same call); its
+    sums run in another order than the plain version's, the same bits call
+    to call."""
     if x.device.type == "cpu":
         return matmul_w4_gemv_reference(x, w_packed, w_scale, group_size, out_dtype)
     M, K = x.shape
@@ -1679,20 +1870,14 @@ def matmul_w4_gemv(x, w_packed, w_scale, group_size: int = 128, out_dtype=torch.
             f"group={group_size}, K={K})"
         )
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    if float_scale_route(K, group_size) == "any":
-        err = _build.lib("w4_gemv").ff_w4_gemv_any(
-            x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
-            group_size, int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
-        )
-        _build.launch_counts["w4_gemv_any"] += 1
-        _build.check(err, "w4_gemv_any")
-        return out
     plan = w4_plan(M, K, N, group_size)
+    xp = torch.empty((M, perm_cols(K)), dtype=torch.bfloat16, device=dev) if plan.permuted \
+        else None
     x, w_scale = _aligned16(x), _aligned16(w_scale)  # both reach the kernel through tensor maps
     err = _build.lib("w4_gemv").ff_w4_gemv(
-        x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
-        group_size, plan.n_split, plan.depth, int(out_dtype == torch.bfloat16),
-        _build.stream_ptr(dev),
+        x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+        None if xp is None else xp.data_ptr(), M, K, N, group_size, plan.n_split, plan.depth,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.launch_counts["w4_gemv"] += 1
     _build.check(err, "w4_gemv")
@@ -1793,10 +1978,10 @@ def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, o
     this. On CUDA `csrc/w4a16_gemm.cu` (`csrc/w4_wgmma.cuh`: a TMA ring,
     the weight dequantized in bf16x2 straight into wgmma's register
     operand, as `w4a16_magic_words` mirrors; counted under
-    ``w4a16_gemm``; any other group the reference takes through the
-    CUDA-core loop of the same header, counted under ``w4a16_gemm_any``:
-    `float_scale_route`): its f32 sums run in another order than
-    `matmul_w4a16_tiled_reference`'s, held within a stated tolerance."""
+    ``w4a16_gemm``; at groups `wgmma_group_ok` does not take, x is first
+    permuted into byte-row order, `permute_x`, in the same call): its f32
+    sums run in another order than `matmul_w4a16_tiled_reference`'s, held
+    within a stated tolerance."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return matmul_w4a16_tiled_reference(x, w_packed, w_scale, bias, group_size, out_dtype)
@@ -1818,18 +2003,12 @@ def matmul_w4a16_tiled(x, w_packed, w_scale, bias=None, group_size: int = 128, o
             f"group={group_size}, K={K})"
         )
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    if float_scale_route(K, group_size) == "any":
-        err = _build.lib("w4a16_gemm").ff_w4a16_gemm_any(
-            xb.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N, group_size,
-            int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
-        )
-        _build.launch_counts["w4a16_gemm_any"] += 1
-        _build.check(err, "w4a16_gemm_any")
-        return out
+    xp = torch.empty((M, perm_cols(K)), dtype=torch.bfloat16, device=dev) \
+        if float_scale_route(K, group_size) == "permuted" else None
     err = _build.lib("w4a16_gemm").ff_w4a16_gemm(
         xb.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), M, K, N, group_size,
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if xp is None else xp.data_ptr(), M, K, N, group_size,
         int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.launch_counts["w4a16_gemm"] += 1

@@ -3,6 +3,7 @@ checkouts, on one card.
 
     python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve | --serve-only]
         [--splits] [--out DIR]
+    python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG --groups [--serve] [--out DIR]
     python3 fastforward_tpu_torch/scripts/ab_two_level.py --compare A B [--out DIR]
 
 Run it as a file, not with ``-m``: it imports ``chip_smoke`` and
@@ -53,7 +54,14 @@ prefill logits under DIR (``--serve-only``: that alone, no kernel timed);
 ``--splits`` times row 17 at each K split of 1-8 (the four projections,
 M = 192 and 8), and rows 10 and 11 with their gate/up in one K split and
 in two
-(default build/ab_two_level); ``--compare A B`` then says, run by run,
+(default build/ab_two_level). ``--groups`` instead times rows 16, 17 and
+18t (the float-scale W4A8 GEMV, the W4 GEMV, the tiled W4A16 GEMM) on
+Llama-3-8B's down_proj at g 112 and g 128 (M = 192 and 8) and over the four
+projections at g 128 (M = 192 and 8), device and caller-visible ms, and
+saves row 16's outputs at every shape and rows 17 and 18t's at g 128 (the
+same bits in every tree); with ``--serve`` it then serves runs (e) and
+(f) only, their tokens and prefill logits saved.
+``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
 prefill logits are bit-equal, and whether rows 10, 11, 19 and 16 gave the
 same bits (where both tags timed them), and exits 1 where the tokens, the
@@ -113,9 +121,10 @@ def compare(a, b):
     return 0 if same else 1
 
 
-def serve_runs(cs, tag, dev):
-    """``--serve``: chip_smoke.py's runs on their seeds, profiled, their
-    greedy tokens and prefill logits saved under DIR."""
+def serve_runs(cs, tag, dev, only=None):
+    """``--serve``: chip_smoke.py's runs on their seeds (``only``: those
+    named, the engine's as "d"), profiled, their greedy tokens and prefill
+    logits saved under DIR."""
     from fastforward_tpu_torch.models.llama import LlamaConfig
 
     config = LlamaConfig.llama3_8b()
@@ -131,6 +140,8 @@ def serve_runs(cs, tag, dev):
             ("e", "w4a8", 128, cs.BATCH, cs.PROMPT, None, {}),
             ("g", "w8a8", 128, cs.BATCH, cs.PROMPT, None, {}),
             ("h", "w4a8", 128, cs.BATCH, cs.PROMPT, "int8", {})):
+        if only is not None and run not in only:
+            continue
         t0 = time.perf_counter()
         with cs.flag_env(**flags):
             path = cs.ServePath.random(config, mode, g, 0, dev, kv)
@@ -146,7 +157,8 @@ def serve_runs(cs, tag, dev):
     # (d): bench.py's engine workload, paged and on the slab
     path = cs.ServePath.random(config, "w4a8_2l", 128, 0, dev)
     trace = cs._engine_trace(config.vocab_size)
-    for run, paged in (("d paged", True), ("d slab", False)):
+    for run, paged in ((("d paged", True), ("d slab", False))
+                       if only is None or "d" in only else ()):
         t0 = time.perf_counter()
         eng, tokens, _, summary = cs.engine_run(run, config, path.params, path.layers, trace,
                                                 dev, paged)
@@ -212,6 +224,35 @@ def main():
 
     if "--serve-only" in sys.argv:
         serve_runs(cs, tag, dev)
+        return 0
+    if "--groups" in sys.argv:
+        outputs = {}
+        for label, g, shapes in (("down", 112, [cs.PROJ["down"]]), ("down", 128, [cs.PROJ["down"]]),
+                                 ("4 projections", 128, list(cs.PROJ.values()))):
+            for M in (cs.BATCH, 8):
+                totals = {"16": 0.0, "17": 0.0, "18t": 0.0}
+                visible = dict(totals)
+                for i, (K, N) in enumerate(shapes):
+                    w = ri(-128, 128, (K // 2, N))
+                    s = torch.rand((K // g, N), generator=gen, device=dev) * (0.5 / K ** 0.5) + 1e-4
+                    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                    x_q, x_s = mm.quantize_rowwise(x)
+                    for row, fn in (("16", lambda: mm.matmul_w4a8_gemv(x_q, x_s, w, s, g)),
+                                    ("17", lambda: mm.matmul_w4_gemv(x, w, s, g)),
+                                    ("18t", lambda: mm.matmul_w4a16_tiled(x, w, s, None, g))):
+                        totals[row] += device_ms(fn)
+                        visible[row] += cs.median_ms(fn)
+                        if row == "16" or g == 128:
+                            outputs[f"row {row} {label} g{g} M={M} #{i}"] = [fn().cpu()]
+                    del w, s, x
+                    torch.cuda.empty_cache()
+                for row in totals:
+                    print(f"AB[{tag}] row {row} {label} g{g} M={M}: device {totals[row]:.4f} ms, "
+                          f"caller-visible {visible[row]:.4f} ms", flush=True)
+        os.makedirs(_out_dir(), exist_ok=True)
+        torch.save(outputs, os.path.join(_out_dir(), f"{tag}_tail.pt"))
+        if "--serve" in sys.argv:
+            serve_runs(cs, tag, dev, {"e", "f"})
         return 0
 
     with cs.flag_env():

@@ -1051,26 +1051,18 @@ _8B_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
               "down": (14336, 4096), "lm_head": (4096, 128256)}
 
 
-_ANY_NAMES = ("w4a8_gemv_halves_any", "w4_gemv_any", "w4a16_gemm_any")
 _WGMMA_NAMES = ("w4a8_gemv_halves", "w4_gemv", "w4a16_gemm")
 
 
 def _any_group_case(x_q, x_s, xb, w, s, g, out_dtype, tiled=True):
-    """Rows 16, 17 (and 18t) at a group their CUDA-core route takes: row 16
-    bit-equal, 17 and 18t within W4_GEMV_RTOL of the largest f32 output
-    (one bf16 ulp more in bf16), 18t's bias epilogue exact; each call
-    counted once under the name of the route `float_scale_route` picks (row
-    16's tensor-core fold stops at 32 x 32 groups, rows 17 and 18t have no
-    such limit)."""
-    K = x_q.shape[1]
-    names = _ANY_NAMES + _WGMMA_NAMES
-    row16 = mm.float_scale_route(K, g, mm._MAX_BIG_GROUP, 32 * 32) == "any"
-    row17 = mm.float_scale_route(K, g) == "any"
-    expect = dict.fromkeys(names, 0)
-    expect["w4a8_gemv_halves_any" if row16 else "w4a8_gemv_halves"] += 1
-    expect["w4_gemv_any" if row17 else "w4_gemv"] += 1
-    if tiled:
-        expect["w4a16_gemm_any" if row17 else "w4a16_gemm"] += 2
+    """Rows 16, 17 (and 18t) at any group the reference takes, on their
+    tensor-core kernels (x permuted into byte-row order first where
+    `float_scale_route` says "permuted"): row 16 bit-equal, 17 and 18t
+    within W4_GEMV_RTOL of the largest f32 output (one bf16 ulp more in
+    bf16), 18t's bias epilogue exact; each call counted once under the
+    row's own name."""
+    names = _WGMMA_NAMES
+    expect = {"w4a8_gemv_halves": 1, "w4_gemv": 1, "w4a16_gemm": 2 if tiled else 0}
     before = {n: _build.launch_counts[n] for n in names}
     out = mm.matmul_w4a8_gemv(x_q, x_s, w, s, g, out_dtype)
     assert out.dtype == out_dtype
@@ -1097,12 +1089,12 @@ def _any_group_case(x_q, x_s, xb, w, s, g, out_dtype, tiled=True):
 @pytest.mark.parametrize("M", [1, 8, 192])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_float_scale_any_group_route(dev, K, g, M, out_dtype):
-    # groups no tensor-core route takes: 40 groups (the oracle's 32-wide
-    # windows, the first shortened), g = K at 192 and 320, 16 groups (the
-    # fused multiply-add chain); 1,025 and 1,056 groups (windows of window
-    # sums: row 16's tensor-core fold stops at 32 x 32, so g 32 takes this
-    # route there, rows 17 and 18t their tensor-core ones); N = 260: a
-    # ragged column block
+    # groups the kernels read x for permuted into byte-row order: 40 groups
+    # (the oracle's 32-wide windows, the first shortened), g = K at 192 and
+    # 320, 16 groups (the fused multiply-add chain); 1,025 and 1,056 groups
+    # (windows of window sums: row 16's direct fold stops at 32 x 32, so g
+    # 32 takes its permuted route and window tree there, rows 17 and 18t
+    # their direct ones); N = 260: a ragged column block
     gen = _gen(dev, K + g + M)
     w, s = _w4(gen, K, 260, g, dev)
     x = torch.randn((M, K), generator=gen, device=dev)
@@ -1156,14 +1148,15 @@ def test_float_scale_wrappers_reject_what_the_kernels_do_not_take(dev, g):
             assert (out - ref).abs().max() <= W4_GEMV_RTOL * ref.abs().max()
         del w, s
     # group 192 (no multiple of 128) and K = g = 320 (K % 128 != 0) take
-    # the same sources' CUDA-core route: row 16 bit-equal, rows 17 and 18t
-    # within W4_GEMV_RTOL, each counted once under its any-group name
+    # the kernels' permuted route: row 16 bit-equal, rows 17 and 18t within
+    # W4_GEMV_RTOL, each counted once under its row's name
     for K, g in ((384, 192), (320, 320)):
         w, s = _w4(gen, K, 64, g, dev)
         x = torch.randn((2, K), generator=gen, device=dev)
         x_q, x_s = mm.quantize_rowwise(x)
         _any_group_case(x_q, x_s, x.to(torch.bfloat16), w, s, g, torch.float32)
-    # and past the tensor-core fold's 32 x 32 groups: 1,025 groups of 2
+    # and past the direct fold's 32 x 32 groups: 1,025 groups of 2 (the
+    # window tree)
     w, s = _w4(gen, 2050, 64, 2, dev)
     x = torch.randn((2, 2050), generator=gen, device=dev)
     x_q, x_s = mm.quantize_rowwise(x)

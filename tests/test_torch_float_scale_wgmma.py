@@ -7,9 +7,10 @@ oracle's group sum (`w4a8_plan`: none up to 32 groups, one split a window
 for 33-256 groups, e.g. 4 at Llama-3-8B's down_proj, K = 14,336 g128, and
 2 at K = 1,056 g32), keeps at most 96 token rows a block, takes groups
 of 128 j (j >= 2) up to g = K as j stages each (`stage_groups`, the
-windows on stage boundaries), and refuses what the kernel does not take
-(g 192, K % 128 != 0 at such groups: those take the same sources'
-CUDA-core loop, `float_scale_route`); the W8A8 GEMM's (`w8a8_plan`) covers every
+windows on stage boundaries), takes every other group the reference takes
+on the permuted route (x in byte-row order: `float_scale_route`,
+`tests/test_torch_float_scale_groups.py`), and refuses what the reference
+does not take; the W8A8 GEMM's (`w8a8_plan`) covers every
 stage once with no split empty. The GEMV's fold written out in torch under
 its plan (`w4a8_split_fold`: each split's window summed from +0, then the
 window sums in order) equals the port's plain version and the jitted JAX
@@ -94,13 +95,14 @@ def test_w4a8_plan_window_splits_at_other_groups(K, g, splits):
     assert plan.stages == max(-(-(g1 - g0) // gps) for g0, g1 in plan.group_ranges(G))
 
 
-@pytest.mark.parametrize("args", [(0, 4096, 64, 128), (257, 4096, 64, 128), (8, 4096, 64, 192),
-                                  (8, 4160, 64, 256), (8, 320, 64, 320), (8, 4000, 64, 128),
-                                  (8, 4096, 66, 128), (8, 64, 64, 128), (8, 32 * 1025, 64, 32)])
+@pytest.mark.parametrize("args", [(0, 4096, 64, 128), (257, 4096, 64, 128), (8, 4096, 64, 3),
+                                  (8, 4096, 64, 0), (8, 2 * (32 ** 6 + 1), 64, 2),
+                                  (8, 4000, 64, 128), (8, 4096, 66, 128), (8, 64, 64, 128),
+                                  (8, 4096, 64, -2)])
 def test_w4a8_plan_refuses_what_the_kernel_does_not_take(args):
-    # no row, more than the GEMV's 256 rows, group 192 (no multiple of 128),
-    # K % 128 != 0 at g256, g = K = 320, K not whole groups, N % 4 != 0, K
-    # below a group, more than 32 x 32 groups
+    # no row, more than the GEMV's 256 rows, an odd group, no group, more
+    # than the window tree's 32^6 groups (K then passes C's int), K not
+    # whole groups, N % 4 != 0, K below a group, a negative group
     with pytest.raises(ValueError):
         mm.w4a8_plan(*args)
 
@@ -113,8 +115,9 @@ def test_w4a8_plan_at_large_groups(name, g, M):
     # fallback), which the GEMV now takes
     K, N = SHAPES[name]
     g = K if g == "K" else g
-    assert mm.wgmma_group_ok(K, g) and mm.float_scale_route(K, g) == "wgmma"
+    assert mm.wgmma_group_ok(K, g) and mm.float_scale_route(K, g) == "direct"
     plan = mm.w4a8_plan(M, K, N, g)
+    assert not plan.permuted
     G = K // g
     # THEN a group spans g / 128 stages and a stage holds one group's scale row
     gps, spg = mm.stage_groups(g)
@@ -288,21 +291,18 @@ _ANY_GROUPS = [(64, 2), (4096, 16), (1536, 48), (1536, 96), (14336, 112), (192, 
 def test_group_predicates_split_the_routes(K, g):
     # GIVEN a group the reference takes at depth K
     assert mm.float_scale_group_ok(K, g)
-    wgmma = (K, g) in _WGMMA_GROUPS
-    # THEN the tensor-core predicate (today's kernels) takes exactly the
-    # first list, and the route is chosen by shape alone
-    assert mm.wgmma_group_ok(K, g) == wgmma
-    assert mm.float_scale_route(K, g) == ("wgmma" if wgmma else "any")
-    # AND the tensor-core plans exist at those groups and refuse the others
+    direct = (K, g) in _WGMMA_GROUPS
+    # THEN the predicate of x as it lies takes exactly the first list, and
+    # the route is chosen by shape alone: x as it lies, or x permuted into
+    # byte-row order
+    assert mm.wgmma_group_ok(K, g) == direct
+    assert mm.float_scale_route(K, g) == ("direct" if direct else "permuted")
+    # AND every one of them has a tensor-core plan, on that route, whose
+    # ring fits the SM's shared memory
     for M in (1, 8, 192):
-        if wgmma:
-            assert mm.w4a8_plan(M, K, 4096, g).depth >= 1
-            assert mm.w4_plan(M, K, 4096, g).depth >= 1
-        else:
-            with pytest.raises(ValueError):
-                mm.w4a8_plan(M, K, 4096, g)
-            with pytest.raises(ValueError):
-                mm.w4_plan(M, K, 4096, g)
+        for plan in (mm.w4a8_plan(M, K, 4096, g), mm.w4_plan(M, K, 4096, g)):
+            assert plan.permuted == (not direct) and plan.depth >= 1
+            assert plan.smem_bytes <= SMEM_BUDGET[plan.per_sm]
 
 
 @pytest.mark.parametrize("K,g", [(96, 3), (192, 0), (96, 192), (100, 16), (4096, 7)])
@@ -314,20 +314,39 @@ def test_group_predicates_refuse_what_the_reference_does_not_take(K, g):
 
 
 def test_row_16_route_keeps_its_int32_group_limit():
-    # row 16's tensor-core kernel sums 16 v a group in int32 up to g = 2^16;
-    # a larger multiple of 128 takes the CUDA-core loop (int64 group dots)
+    # row 16's direct route sums 16 v a group in int32 up to g = 2^16; a
+    # larger multiple of 128 takes the permuted route, which widens each
+    # stage's int32 partial into an int64 dot (at most 32 token rows a block)
     g = 1 << 17
-    assert mm.float_scale_route(g, g) == "wgmma"
-    assert mm.float_scale_route(g, g, max_group=1 << 16) == "any"
-    assert mm.float_scale_route(1 << 16, 1 << 16, max_group=1 << 16) == "wgmma"
-    # and its fold takes at most 32 x 32 groups: more take the CUDA-core loop
-    assert mm.float_scale_route(32 * 1024, 32, max_groups=1024) == "wgmma"
-    assert mm.float_scale_route(32 * 1025, 32, max_groups=1024) == "any"
+    assert mm.float_scale_route(g, g) == "direct"
+    assert mm.float_scale_route(g, g, max_group=1 << 16) == "permuted"
+    assert mm.float_scale_route(1 << 16, 1 << 16, max_group=1 << 16) == "direct"
+    plan = mm.w4a8_plan(8, g, 4096, g)
+    assert plan.permuted and plan.fold == "chain" and plan.n == 8
+    assert mm.w4a8_plan(256, g, 4096, g).n <= 32
+    assert not mm.w4a8_plan(8, 1 << 16, 4096, 1 << 16).permuted
+    # and its direct fold takes at most 32 x 32 groups: more take the
+    # permuted route's window tree (at most 16 token rows a block)
+    assert mm.float_scale_route(32 * 1024, 32, max_groups=1024) == "direct"
+    assert mm.float_scale_route(32 * 1025, 32, max_groups=1024) == "permuted"
+    plan = mm.w4a8_plan(192, 32 * 1025, 4096, 32)
+    assert plan.permuted and plan.fold == "tree" and plan.n <= 16
+    assert mm.w4a8_plan(192, 32 * 1024, 4096, 32).fold == "multi"
+    # the tree goes as deep as K allows (g 2 beyond 32^4 groups: five of its
+    # six levels, 8 rows a block)
+    plan = mm.w4a8_plan(192, 2 * (32 ** 4 + 1), 64, 2)
+    assert plan.permuted and plan.fold == "tree" and plan.n == 8 and plan.depth >= 1
+    # and the int64 dots above 2^16 take every fold: every window in one
+    # block at 257 groups (at most 32 rows a block), the tree at 1,025 (8)
+    plan = mm.w4a8_plan(256, 257 << 17, 64, 1 << 17)
+    assert plan.permuted and plan.fold == "multi" and plan.n <= 32
+    plan = mm.w4a8_plan(256, 1025 * (1 << 17), 64, 1 << 17)
+    assert plan.permuted and plan.fold == "tree" and plan.n == 8
 
 
 @pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 100, 1024, 1025, 1056, 2047, 33000])
 def test_window_tree_sum_is_the_oracles_order(n):
-    # the CUDA-core route's streaming window tree (one term at a time, a
+    # the permuted route's streaming window tree (one term at a time, a
     # window's sum sent up a level as the next window starts) against the
     # oracle's order written out (`_window_sum`: padded windows, recursing)
     t = torch.from_numpy(np.random.RandomState(n).randn(3, n).astype(np.float32) * 100)

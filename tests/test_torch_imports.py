@@ -120,9 +120,9 @@ def test_build_table_covers_every_source():
         assert fn in _build.SIGNATURES["fused_tail"]
     for fn in ("ff_w4a8_gemv_dotraw", "ff_w4a8_gemv_concat"):
         assert fn in _build.SIGNATURES["w4a8_gemv"]
-    assert list(_build.SIGNATURES["w4a16_gemm"]) == ["ff_w4a16_gemm", "ff_w4a16_gemm_any"]
-    assert "ff_w4a8_gemv_halves_any" in _build.SIGNATURES["w4a8_halves"]
-    assert "ff_w4_gemv_any" in _build.SIGNATURES["w4_gemv"]
+    assert list(_build.SIGNATURES["w4a16_gemm"]) == ["ff_w4a16_gemm"]
+    assert list(_build.SIGNATURES["w4a8_halves"]) == ["ff_w4a8_gemv_halves"]
+    assert list(_build.SIGNATURES["w4_gemv"]) == ["ff_w4_gemv", "ff_w4_gemv_clusters"]
     for fn in ("ff_kv_quantize_append", "ff_paged_kv_quantize_append"):
         assert fn in _build.SIGNATURES["kv_append"]
     assert list(_build.SIGNATURES["probe_int4"]) == ["ff_probe_int4"]

@@ -220,10 +220,10 @@ def test_w4_gemv_within_tolerance_at_large_groups(M, K, g, out_dtype):
         assert _within_bf16(a, b)
 
 
-# Groups that only the kernels' CUDA-core route takes on the card
-# (`float_scale_route` "any"): g = K at 192 and 320, 16 and 40 groups of 96
-# (the fused multiply-add chain; XLA's windows), 32 groups of 2, and 1,025
-# groups (XLA's windows of window sums, past the tensor-core fold's 32 x 32)
+# Groups the kernels read x for permuted into byte-row order on the card
+# (`float_scale_route` "permuted"): g = K at 192 and 320, 16 and 40 groups
+# of 96 (the fused multiply-add chain; XLA's windows), 32 groups of 2, and
+# 1,025 groups (XLA's windows of window sums, past the direct fold's 32 x 32)
 @pytest.mark.parametrize("M", [1, 192])
 @pytest.mark.parametrize("K,g", [(192, 192), (320, 320), (1536, 96), (3840, 96), (64, 2),
                                  (2050, 2)])

@@ -114,7 +114,9 @@ def test_w4_plan_splits_whole_groups_and_fills_the_card(M, name):
 
 
 def test_w4_plan_refuses_what_the_kernel_does_not_take():
-    for M, K, g in ((0, 4096, 128), (257, 4096, 128), (8, 4096, 192), (8, 4160, 256),
+    # no row, more than 256 rows, an odd group, no group, K not whole groups,
+    # a group above K (g 192 and K % 128 != 0 at g256 take the permuted route)
+    for M, K, g in ((0, 4096, 128), (257, 4096, 128), (8, 4096, 3), (8, 4160, 0),
                     (8, 4000, 128), (8, 256, 512)):
         with pytest.raises(ValueError, match="W4 GEMV plan"):
             mm.w4_plan(M, K, 64, g)
