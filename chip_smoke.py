@@ -75,7 +75,7 @@ each raising on failure:
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
-   decoding. Nineteen runs, each with its launch counts set to 0 before it
+   decoding. Twenty-six runs, each with its launch counts set to 0 before it
    and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
@@ -104,13 +104,32 @@ each raising on failure:
    (ac) FF_BENCH_MODE=w4a8 and w4a16 at FF_BENCH_GROUP=16, bench.py's
        shape, the lm_head in the layers' mode: every decode GEMV (129 a
        step) on the permuted route of rows 16 and 17, counted under
-       w4a8_gemv_halves and w4_gemv, and compared at depth 2 as below.
+       w4a8_gemv_halves and w4_gemv, and compared at depth 2 as below;
+   (ad) (b)'s weights, right after (b) in the same process, under
+       FF_KV_STACKED=0 (the slab flow: per-layer append and flash decode,
+       kv_append_layer and flash_decode_layer 1,024 each in place of the
+       stacked ones), FF_KV_WRITE=mask and =scatter (plain-torch writes,
+       no append kernel, flash_decode_layer 1,024) and
+       FF_PREFILL_STACKED=0 (the prefill written a sequence at a time; no
+       count moves): (b)'s greedy tokens and prefill logits bit for bit;
+       FF_KV_STACKED=0 also at depth 2 with every kernel call checked;
+   (ae) the same weights under FF_BENCH_FLASH=0 (dense decode attention,
+       no flash decode) and FF_FLASH_PREFILL=0 (dense prefill attention,
+       no flash prefill): the share of (b)'s tokens kept logged; at depth 2,
+       stacked and per layer (INT8 KVCache), each route's logits row by row
+       within LOGIT_RMS["w4a8_2l"] of the flash routes' but for at most
+       AE_ROW_SHARE of the rows;
+   (af) (b)'s weights repacked into the group-halves layout
+       (`repack_unpaired`) under FF_2L_PAIRED=0: every decode GEMV and the
+       lm_head on the unpaired GEMV (w4a8_gemv_unpaired 4,129), (b)'s
+       tokens and prefill logits; at depth 2 (weights packed under the
+       flag) every kernel call checked. (b)'s weights are freed after (af).
    Every int8-cache decode step quantizes and appends its K/V in one
    launch a layer (counted under kv_append, kv_append_layer or
    paged_kv_append). (m)-(q) run on (b)'s seed and weights and must give (b)'s greedy
    tokens, and its prefill logits bit for bit where (b)'s were bit-equal
-   to its warm-up's. The serving flags (FF_FUSED_*, FF_2L_*) are unset for
-   every other run and set only around (k)-(q)'s.
+   to its warm-up's. The serving flags (FLAG_VARS) are unset for every
+   other run and set only around (k)-(q)'s and (ad)-(af)'s.
    Each prints prefill ms, decode tok/s, peak memory and profiles of one
    decode step and one prefill. (h)'s weights also go through
    `stack_serving_layers` and the stacked forward, 8 prompts of 128 tokens
@@ -299,6 +318,19 @@ FLAGS_N = {"FF_2L_PREBLOCK": "1", "FF_2L_MANUAL": "4"}   # run (n): the manual s
 FLAGS_O = {"FF_2L_SPLITW": "1"}                          # run (o): split-W
 FLAGS_P = {"FF_2L_DOTRAW": "1"}                          # run (p): dot-raw
 FLAGS_Q = {"FF_2L_CONCAT_PAIRS": "4"}                    # run (q): concat-pairs
+# runs (ad): (b)'s weights through the slab flow's KV writes and attention;
+# (ae): the dense attention routes; (af): (b)'s weights repacked unpaired
+FLAGS_AD = ({"FF_KV_STACKED": "0"}, {"FF_KV_WRITE": "mask"}, {"FF_KV_WRITE": "scatter"},
+            {"FF_PREFILL_STACKED": "0"})
+FLAGS_AE = ({"FF_BENCH_FLASH": "0"}, {"FF_FLASH_PREFILL": "0"})
+FLAGS_AF = {"FF_2L_PAIRED": "0"}
+# (ae) at depth 2: the dense routes' logits against the flash routes', row by
+# row. A row of the random model can land in another of its attractors when
+# its attention rounds otherwise, and the two routes' plain f32 forms differ
+# so in whole rows too (fastforward_tpu_torch/scripts/dense_rows.py; PERF.md
+# §7). At most this share of the rows may lie beyond LOGIT_RMS["w4a8_2l"]
+# (relative error of the row), every other row within it.
+AE_ROW_SHARE = 0.02
 PANEL = 512   # FF_2L_BLOCK_N's default: the pre-blocked panel width of (m), (n)
 # bench.py's engine workload (measure_engine, FF_BENCH_ENGINE_PAGED=1,
 # FF_BENCH_ENGINE_SAT=1) at max_batch 32: 2 x 32 requests, pool of
@@ -312,7 +344,8 @@ _LOG = {"file": None}
 # The serving flags the port reads (fastforward_tpu_torch/flags.py).
 FLAG_VARS = ("FF_FUSED_QKV", "FF_FUSED_OGU", "FF_FUSED_LAYER", "FF_FUSED_ARGMAX",
              "FF_2L_PREBLOCK", "FF_2L_BLOCK_N", "FF_2L_MANUAL", "FF_2L_SPLITW", "FF_2L_DOTRAW",
-             "FF_2L_CONCAT_PAIRS")
+             "FF_2L_CONCAT_PAIRS", "FF_KV_WRITE", "FF_KV_STACKED", "FF_PREFILL_STACKED",
+             "FF_BENCH_FLASH", "FF_FLASH_PREFILL", "FF_2L_PAIRED")
 # The int4/int8 dot probe: chained calls a route's timing takes (P4_SCAN,
 # cut from the probe's 2000 to keep its phase to seconds) and its passes
 PROBE_SCAN, PROBE_PAIRS = 20, 2
@@ -2240,6 +2273,7 @@ def _plain_versions():
         (f"{stk}.matmul_w4a8_2l_gemv_argmax", argmax, bit_equal),
         (f"{stk}.kv_quantize_append_stacked", kvu.kv_quantize_append_stacked_reference, None),
         (f"{stk}.flash_decode_int8_stacked", flash, within_rtol),
+        (f"{stk}.flash_decode_int8", att.flash_decode_int8_reference, within_rtol),
         (f"{stk}.flash_prefill", att.flash_prefill_reference, within_rtol),
         (f"{stk}.paged_kv_quantize_append", pa.paged_kv_quantize_append_reference, None),
         (f"{stk}.paged_flash_decode_int8", paged_flash, within_rtol),
@@ -2434,22 +2468,28 @@ def profile_steps(path, cache, token, ids):
 
 
 def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=False,
-              record=None, against=None):
+              record=None, against=None, path=None, gate=True):
     """One main-path run: warm-up, then the measured run with the launch
     counts set to 0 before it and asserted equal to ``expect`` after it.
     ``kv`` "int8" or "bf16": the per-layer forward over a KVCache of that
-    kind. ``keep``: also return the path. ``record`` (a dict): filled with
+    kind. ``keep``: also return the path. ``path``: serve these weights
+    (an earlier run's) in place of new ones. ``record`` (a dict): filled with
     the run's prefill logits and greedy tokens (on the host), and whether
     its prefill logits were bit-equal to the warm-up's; ``against`` (such a
     dict of another run on the same seed): the tokens must be identical,
-    and the prefill logits bit-equal where that run's were stable."""
+    and the prefill logits bit-equal where that run's were stable (with
+    ``gate`` False only logged, with the share of equal tokens)."""
     from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
-    path = ServePath.random(config, mode, g, 0, dev, kv)
-    torch.cuda.synchronize()
-    log(f"serve {label}: Llama-3-8B {mode} g{g} ({path.label}), {config.num_layers} layers, "
-        f"weights on the card in {time.perf_counter() - t0:.1f} s")
+    if path is None:
+        path = ServePath.random(config, mode, g, 0, dev, kv)
+        torch.cuda.synchronize()
+        log(f"serve {label}: Llama-3-8B {mode} g{g} ({path.label}), {config.num_layers} layers, "
+            f"weights on the card in {time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"serve {label}: Llama-3-8B {mode} g{g} ({path.label}), {config.num_layers} layers, "
+            "an earlier run's weights")
     ids = torch.randint(0, config.vocab_size, (B, T), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(7))
     warm = _serve(path, ids, 2, dev)[0]  # warm-up: no first-call costs below
@@ -2467,11 +2507,14 @@ def serve_run(label, config, mode, g, B, T, steps, dev, expect, kv=None, keep=Fa
     same = None
     if against is not None:
         same = dict(tokens=torch.equal(tokens.cpu(), against["tokens"]),
-                    logits=torch.equal(logits.cpu(), against["logits"]))
-        log(f"serve {label}: greedy tokens {'identical' if same['tokens'] else 'DIFFER'}, "
-            f"prefill logits {'bit-equal' if same['logits'] else 'NOT bit-equal'} to the "
-            "reference run's on the same seed")
-        if not same["tokens"] or (against["stable"] and not same["logits"]):
+                    logits=torch.equal(logits.cpu(), against["logits"]),
+                    token_share=(tokens.cpu() == against["tokens"]).float().mean().item(),
+                    logits_rel_rms=_rel_rms(logits.cpu().float(), against["logits"].float()))
+        log(f"serve {label}: greedy tokens {'identical' if same['tokens'] else 'DIFFER'} "
+            f"({same['token_share']:.4f} of {tokens.numel()} equal), prefill logits "
+            f"{'bit-equal' if same['logits'] else 'NOT bit-equal'} (relative RMS "
+            f"{same['logits_rel_rms']:.4g}) to the reference run's on the same seed")
+        if gate and (not same["tokens"] or (against["stable"] and not same["logits"])):
             raise AssertionError(f"{label}: tokens or prefill logits differ from the reference run")
     log(f"serve {label}: prefill {B}x{T} {prefill_ms:.1f} ms; decode {B}x{steps} tokens in "
         f"{decode_s:.3f} s = {B * steps / decode_s:.1f} tok/s; peak memory {peak:.2f} GiB")
@@ -2611,6 +2654,143 @@ def per_layer_vs_stacked(path, dev):
     return dict(identical_tokens=same_tokens, identical_logits=same_logits)
 
 
+def _flags_label(flags):
+    return " ".join(f"{k}={v}" for k, v in flags.items())
+
+
+def dense_vs_flash(config, dev, kv=None):
+    """(ae) at depth 2: w4a8_2l g128 (stacked, or per layer over an INT8
+    KVCache with ``kv`` "int8"), 192 prompts of 128 tokens and one decode
+    step from the same first tokens, on the flash routes and under each of
+    FLAGS_AE: FF_BENCH_FLASH=0 attends the step densely over the
+    dequantized cache (and launches no flash decode), FF_FLASH_PREFILL=0
+    the prefill (no flash prefill). Each row of the dense logits must lie
+    within LOGIT_RMS["w4a8_2l"] (relative error) of the flash route's, but
+    for at most AE_ROW_SHARE of the rows; the relative RMS over the batch,
+    the rows beyond the limit and the greedy tokens' share of equal ones
+    are logged."""
+    from fastforward_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    small = dataclasses.replace(config, num_layers=2)
+    path = ServePath.random(small, "w4a8_2l", 128, 1, dev, kv)
+    ids = torch.randint(0, small.vocab_size, (BATCH, PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(11))
+    label = "stacked" if kv is None else f"per-layer {kv}"
+    token = None
+
+    def run(flags):
+        nonlocal token
+        with flag_env(**flags):
+            reset_launch_counts()
+            cache = path.new_cache(BATCH, dev)
+            logits, cache = path.forward(ids, cache, logits_positions="last")
+            if token is None:
+                token = torch.argmax(logits[:, -1], dim=-1).to(ids.dtype)[:, None]
+            step, _ = path.forward(token, cache)
+            torch.cuda.synchronize()
+            return logits[:, -1].float(), step[:, -1].float(), dict(launch_counts)
+
+    flash = run({})
+    out = {}
+    for flags in FLAGS_AE:
+        dense = run(flags)
+        gone = ("flash_decode", "flash_decode_layer") if "FF_BENCH_FLASH" in flags else (
+            "flash_prefill",)
+        if any(dense[2].get(k) for k in gone) or not any(flash[2].get(k) for k in gone):
+            raise AssertionError(f"(ae) {label} {_flags_label(flags)}: launches {dense[2]} "
+                                 f"(flash routes {flash[2]})")
+        res = {}
+        for what, i in (("prefill", 0), ("decode step", 1)):
+            rms = _rel_rms(dense[i], flash[i])
+            row = ((dense[i] - flash[i]).norm(dim=-1) / flash[i].norm(dim=-1)).cpu()
+            beyond = (row > LOGIT_RMS["w4a8_2l"]).nonzero().flatten().tolist()
+            share = (dense[i].argmax(-1) == flash[i].argmax(-1)).float().mean().item()
+            log(f"serve (ae) {label} depth 2, {_flags_label(flags)}, {what}: logits relative RMS "
+                f"{rms:.4g} to the flash routes', median row {row.median().item():.4g}, "
+                f"{len(beyond)} of {len(row)} rows beyond {LOGIT_RMS['w4a8_2l']} "
+                f"({', '.join(f'{b}: {row[b].item():.4g}' for b in beyond) or 'none'}; at most "
+                f"{AE_ROW_SHARE:.0%}), greedy tokens {share:.4f} equal")
+            if not (row.isfinite().all() and len(beyond) <= AE_ROW_SHARE * len(row)):
+                raise AssertionError(f"(ae) {label} {_flags_label(flags)} {what}: dense logits "
+                                     f"differ from the flash routes'")
+            res[what] = dict(rel_rms=rms, median_row=row.median().item(), rows_beyond=beyond,
+                             token_share=share)
+        out[_flags_label(flags)] = res
+    del path
+    torch.cuda.empty_cache()
+    log(f"serve (ae) {label} depth 2: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def repack_unpaired_in_place(path):
+    """A stacked path's weights into the group-halves layout, in place (the
+    paired ones freed projection by projection): every two-level W4A8
+    projection and the lm_head through `repack_unpaired` (a relabelling of
+    the same nibbles, bit-exact), the layers' packed multipliers kept."""
+    from fastforward_tpu_torch.serving import repack_unpaired
+
+    for f in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"):
+        ql = getattr(path.layers, f)
+        setattr(path.layers, f, dataclasses.replace(repack_unpaired(ql),
+                                                    mult_packed=ql.mult_packed))
+    path.params.lm_head = repack_unpaired(path.params.lm_head)
+
+
+def serve_switches(config, dev, path, ref_b):
+    """Runs (ad)-(af) on (b)'s weights in this process, each with its flag
+    set only around it, and their depth-2 checks. (ad): the slab flow
+    (FLAGS_AD: FF_KV_STACKED=0, FF_KV_WRITE=mask and =scatter,
+    FF_PREFILL_STACKED=0) must give (b)'s greedy tokens and prefill logits
+    bit for bit, its stacked append and flash decode (1,024 each) replaced
+    by the per-layer kernels or by plain-torch writes and the per-layer
+    flash decode; (ae): the dense attention routes (FLAGS_AE), their tokens'
+    share equal to (b)'s logged; (af): (b)'s weights repacked into the
+    group-halves layout under FF_2L_PAIRED=0, every decode GEMV on the
+    unpaired GEMV (row 5), (b)'s tokens: ``path`` holds them after this."""
+    t0 = time.perf_counter()
+    L = config.num_layers
+    n = L * STEPS
+    b = {"dequant_paired": 4 * L, "w4a8_gemv_stacked": 4 * n, "flash_prefill": L,
+         "kv_append": n, "flash_decode": n, "w4a8_gemv": 1, "w4a8_gemv_argmax": STEPS}
+    slab = {k: v for k, v in b.items() if k not in ("kv_append", "flash_decode")}
+    runs = {}
+    for key, flags, expect in (
+            ("ad_kv0", FLAGS_AD[0], {**slab, "kv_append_layer": n, "flash_decode_layer": n}),
+            ("ad_mask", FLAGS_AD[1], {**slab, "flash_decode_layer": n}),
+            ("ad_scatter", FLAGS_AD[2], {**slab, "flash_decode_layer": n}),
+            ("ad_prefill", FLAGS_AD[3], b),
+            ("ae_decode", FLAGS_AE[0], {**slab, "kv_append_layer": n}),
+            ("ae_prefill", FLAGS_AE[1], {k: v for k, v in b.items() if k != "flash_prefill"})):
+        with flag_env(**flags):
+            runs[key] = serve_run(f"({key[:2]}) {_flags_label(flags)}", config, "w4a8_2l", 128,
+                                  BATCH, PROMPT, STEPS, dev, expect, against=ref_b, path=path,
+                                  gate=key.startswith("ad"))
+    # the slab flow's kernel calls against their plain versions at depth 2
+    with flag_env(**FLAGS_AD[0]):
+        launched = compare_paths(config, "w4a8_2l", 128, dev)
+    if launched != set(runs["ad_kv0"]["counts"]):
+        raise AssertionError(f"(ad) FF_KV_STACKED=0 at depth 2 launched {sorted(launched)}")
+    runs["ae_depth2"] = {"stacked": dense_vs_flash(config, dev),
+                         "per_layer": dense_vs_flash(config, dev, kv="int8")}
+    log(f"serve (ad), (ae): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    repack_unpaired_in_place(path)
+    torch.cuda.synchronize()
+    log(f"serve (af): (b)'s weights repacked unpaired in {time.perf_counter() - t1:.1f} s")
+    unpaired = {"dequant_halves": 4 * L, "w4a8_gemv_unpaired": 4 * n + 1 + STEPS,
+                "flash_prefill": L, "kv_append": n, "flash_decode": n}
+    with flag_env(**FLAGS_AF):
+        runs["af"] = serve_run(f"(af) {_flags_label(FLAGS_AF)}", config, "w4a8_2l", 128, BATCH,
+                               PROMPT, STEPS, dev, unpaired, against=ref_b, path=path)
+        launched = compare_paths(config, "w4a8_2l", 128, dev)
+    if launched != set(unpaired):
+        raise AssertionError(f"(af) at depth 2 launched {sorted(launched)}")
+    torch.cuda.empty_cache()
+    log(f"serve (ad)-(af): {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def phase_serve(dev):
     from fastforward_tpu_torch.models.llama import LlamaConfig
 
@@ -2631,9 +2811,17 @@ def phase_serve(dev):
     runs = {
         "a": serve_run("(a)", config, "w4a4_2l", 512, BATCH, PROMPT, STEPS, dev,
                        {"dequant_vertical": 4 * L, "a4_gemv": 4 * L * STEPS, **shared}),
-        "b": serve_run("(b)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
-                       {"dequant_paired": 4 * L, "w4a8_gemv_stacked": 4 * L * STEPS, **shared},
-                       record=ref_b),
+    }
+    runs["b"], path = serve_run(
+        "(b)", config, "w4a8_2l", 128, BATCH, PROMPT, STEPS, dev,
+        {"dequant_paired": 4 * L, "w4a8_gemv_stacked": 4 * L * STEPS, **shared}, record=ref_b,
+        keep=True)
+    # (ad)-(af): the serving switches of the slab flow, the dense attention
+    # and the unpaired layout on (b)'s weights (repacked in place for (af))
+    runs.update(serve_switches(config, dev, path, ref_b))
+    del path
+    torch.cuda.empty_cache()
+    runs.update({
         "c": serve_run("(c)", config, "w4a4_2l", 512, 8, 32, STEPS, dev,
                        {"a4_gemv": 4 * L * (STEPS + 1), **shared}),
         "e": serve_run("(e)", config, "w4a8", 128, BATCH, PROMPT, STEPS, dev,
@@ -2642,7 +2830,7 @@ def phase_serve(dev):
                        {"dequant_halves": 4 * L, "w4_gemv": decode, **attn}),
         "g": serve_run("(g)", config, "w8a8", 128, BATCH, PROMPT, STEPS, dev,
                        {"w8a8_gemm": decode + 4 * L, **attn}),
-    }
+    })
     runs["h"], path = serve_run(
         "(h)", config, "w4a8", 128, BATCH, PROMPT, STEPS, dev,
         {"dequant_halves": 7 * L, "w4a8_gemv_halves": layer_decode, "flash_prefill": L,

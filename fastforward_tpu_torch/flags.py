@@ -52,6 +52,38 @@ The greedy head of `make_stacked_decode_loop`, read when the loop is made:
 
 - ``FF_FUSED_ARGMAX`` (`fused_argmax`, on): the fused GEMV + argmax
   lm_head, else f32 logits and their argmax.
+
+The KV-cache flow and the attention of both forwards (`serving/stacked.py`
+`attention_route`), read on every forward call; a string flag is the
+variable's value as it stands:
+
+- ``FF_KV_STACKED`` (`kv_stacked_mode`, "1"): "1" and "force" (the port
+  reads the JAX package's TPU test as true, so the two are one) take the
+  stacked decode step, the stacked append and `flash_decode_select`; any
+  other value the slab flow, a layer's own append and flash decode
+  (`flash_decode_int8`), dense attention below 2 query heads per kv head;
+- ``FF_KV_WRITE`` (`kv_write_mode`, "kernel"): the slab flow's one-token
+  append, "kernel" the per-layer append kernel, "mask" a select over the
+  cache's S rows in plain torch, any other value a per-row write in plain
+  torch; another value than "kernel" also leaves the stacked step;
+- ``FF_PREFILL_STACKED`` (`prefill_stacked`, on): the int8 prefill writes
+  a layer's block at once; off, row by row (the slab flow's write; the
+  same bytes);
+- ``FF_BENCH_FLASH`` (`use_flash_attention`, on): off, a one-token step
+  attends densely over the dequantized cache, and the stacked forward
+  leaves the stacked step;
+- ``FF_FLASH_PREFILL`` (`use_flash_prefill`, on): off, a prefill attends
+  densely (masked grouped attention over the dequantized int8 or the bf16
+  cache) in place of `flash_prefill`.
+
+The at-rest layout of newly packed two-level W4A8 weights, read at pack
+time (`kernels/matmul.py` `convert_two_level` and the ``paired=None``
+defaults of the two-level GEMV wrappers, `serving/engine.py`
+`quantize_linear`, `serving/stacked.py` `random_stacked_params`):
+
+- ``FF_2L_PAIRED`` (`default_paired_layout`, on): an even group count
+  packs adjacent groups in pairs; off, every count takes the group-halves
+  layout. The decode follows the layout the weights carry (``paired``).
 """
 
 import contextlib
@@ -122,6 +154,10 @@ def _env_int(name: str, default: int) -> int:
     return default if raw is None else int(raw)
 
 
+def _env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
 def fused_qkv() -> bool:
     """The fused layer head in the stacked decode step (FF_FUSED_QKV)."""
     return _env_bool("FF_FUSED_QKV", False)
@@ -177,3 +213,37 @@ def two_level_concat_pairs() -> int:
     """Adjacent group pairs one unit of the stacked W4A8 GEMV walks; 1 (the
     default) or less, one pair (FF_2L_CONCAT_PAIRS)."""
     return _env_int("FF_2L_CONCAT_PAIRS", 1)
+
+
+def kv_write_mode() -> str:
+    """The slab flow's one-token KV append: kernel | mask | scatter
+    (FF_KV_WRITE); a value other than "kernel" or "mask" is the scatter."""
+    return _env_str("FF_KV_WRITE", "kernel")
+
+
+def kv_stacked_mode() -> str:
+    """The stacked decode step's KV flow: 1 | 0 | force (FF_KV_STACKED)."""
+    return _env_str("FF_KV_STACKED", "1")
+
+
+def prefill_stacked() -> bool:
+    """The int8 prefill writes a layer's block at once, else row by row
+    (FF_PREFILL_STACKED)."""
+    return _env_bool("FF_PREFILL_STACKED", True)
+
+
+def use_flash_attention() -> bool:
+    """Flash decode, else dense attention over the dequantized cache
+    (FF_BENCH_FLASH)."""
+    return _env_bool("FF_BENCH_FLASH", True)
+
+
+def use_flash_prefill() -> bool:
+    """Flash prefill, else dense masked attention (FF_FLASH_PREFILL)."""
+    return _env_bool("FF_FLASH_PREFILL", True)
+
+
+def default_paired_layout() -> bool:
+    """Pack-time layout of two-level W4A8 weights: adjacent-group pairs
+    where the group count is even, else group halves (FF_2L_PAIRED)."""
+    return _env_bool("FF_2L_PAIRED", True)

@@ -49,8 +49,11 @@ from fastforward_tpu_torch.kernels.packing import (
 # the prefill path: dequantize to bf16, then a dense product.
 GEMV_MAX_M = 256
 
-def _paired_default(n_groups: int) -> bool:
-    return n_groups % 2 == 0
+def paired_default(n_groups: int) -> bool:
+    """The pack-time layout of ``n_groups`` two-level W4A8 groups
+    (`matmul.py:428`): paired where ``FF_2L_PAIRED`` is on (the default)
+    and the count is even, else group halves."""
+    return flags.default_paired_layout() and n_groups % 2 == 0
 
 
 def quantize_rowwise(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
@@ -91,10 +94,10 @@ def _two_level(w_packed, w_scale, group_size):
 def convert_two_level(w_packed, w_scale, group_size: int = 128,
                       paired: Optional[bool] = None):
     """Requantize float-per-group W4 (`pack_int4`) onto the two-level grid:
-    ``(packed', mult, s_col)`` with offset-binary nibbles, paired by default
-    for an even group count (`matmul.py:410`)."""
+    ``(packed', mult, s_col)`` with offset-binary nibbles, by default paired
+    as `paired_default` decides (`matmul.py:410`)."""
     if paired is None:
-        paired = _paired_default(w_scale.shape[0])
+        paired = paired_default(w_scale.shape[0])
     v2, m, s_col = _two_level(w_packed, w_scale, group_size)
     pack = pack_uint4_offset_paired if paired else pack_uint4_offset
     return pack(v2, group_size=group_size), m, s_col
@@ -135,7 +138,7 @@ def matmul_w4a8_2l_reference(x_q, x_scale, w_packed, mult, s_col, bias=None,
                              paired: Optional[bool] = None):
     """Oracle: integer math end to end, one float scaling (`matmul.py:444`)."""
     if paired is None:
-        paired = _paired_default(x_q.shape[1] // group_size)
+        paired = paired_default(x_q.shape[1] // group_size)
     return _epilogue(_w4a8_2l_dot(x_q, w_packed, mult, group_size, paired), s_col, x_scale,
                      bias, out_dtype)
 
@@ -535,7 +538,7 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
     `matmul_w4a8_2l_reference`."""
     M, K = x_q.shape
     if paired is None:
-        paired = _paired_default(K // group_size)
+        paired = paired_default(K // group_size)
     if x_q.device.type == "cpu":
         return matmul_w4a8_2l_reference(
             x_q, x_scale, w_packed, mult, s_col, None, group_size, out_dtype, paired=paired,
@@ -581,7 +584,7 @@ def matmul_w4a8_2l_gemv_argmax(x_q, x_scale, w_packed, mult, s_col,
     an unpaired head."""
     M, K = x_q.shape
     if paired is None:
-        paired = _paired_default(K // group_size)
+        paired = paired_default(K // group_size)
     if x_q.device.type == "cpu":
         logits = matmul_w4a8_2l_reference(
             x_q, x_scale, w_packed, mult, s_col, None, group_size, torch.float32,

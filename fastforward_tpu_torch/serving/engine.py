@@ -24,8 +24,11 @@ or bf16, with the JAX package's TPU routing of attention
 flash-decode kernel at L = 1); a prefill with 1-D positions through
 `flash_prefill` (its kernel at a head dim that is a multiple of 128, its
 plain version by name otherwise); everything else through dense grouped
-attention over the dequantized cache. Its layer is `serving/stacked.py`'s
-`decoder_layer`, which the layer-stacked forward runs too.
+attention over the dequantized cache, as do the decode step under
+``FF_BENCH_FLASH=0`` and the prefill under ``FF_FLASH_PREFILL=0`` (read
+on each call, `serving/stacked.py` `layer_attention_route`). Its layer is
+`serving/stacked.py`'s `decoder_layer`, which the layer-stacked forward
+runs too.
 """
 
 import dataclasses
@@ -52,6 +55,7 @@ from fastforward_tpu_torch.kernels.matmul import (
     matmul_w4a8_2l_gemv_stacked,
     matmul_w4a16,
     matmul_w8a8,
+    paired_default,
     prefill_product,
     quantize_rowwise,
     quantize_rowwise_a4,
@@ -241,7 +245,9 @@ def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
     """Quantize a dense (K, N) weight into frozen storage (`engine.py:289`);
     symmetric min-max scales (per column for w8a8, per group for the int4
     modes) unless ``scale`` is given (a view of any strides; stored
-    contiguous, as the card's kernels read it)."""
+    contiguous, as the card's kernels read it). ``w4a8_2l`` packs adjacent
+    groups in pairs where ``FF_2L_PAIRED`` (read here) is on and the group
+    count is even, else in group halves."""
     if mode not in PACKED_MODES:
         raise ValueError(f"unknown mode {mode}")
     w = w.float()
@@ -260,7 +266,7 @@ def quantize_linear(w: torch.Tensor, mode: str, group_size: int = 128,
     q = torch.clamp(torch.round(wg / scale[:, None, :]), -8, 7).to(torch.int8)
     packed = pack_int4(q.reshape(K, N), group_size=g)
     if mode == "w4a8_2l":
-        paired = (K // g) % 2 == 0
+        paired = paired_default(K // g)
         packed, mult, s_col = convert_two_level(packed, scale, g, paired=paired)
         return QuantLinear(packed, s_col, mode=mode, group_size=g, mult=mult, paired=paired)
     if mode == "w4a4_2l":
@@ -526,7 +532,11 @@ def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch
     """
     # the layer and its attention routing are shared with the stacked
     # forward, which imports this module
-    from fastforward_tpu_torch.serving.stacked import LayerWeights, decoder_layer
+    from fastforward_tpu_torch.serving.stacked import (
+        LayerWeights,
+        decoder_layer,
+        layer_attention_route,
+    )
 
     B, T = input_ids.shape
     dev = input_ids.device
@@ -539,9 +549,10 @@ def serving_forward(params: ServingParams, config: LlamaConfig, input_ids: torch
         starts = row_starts(positions, B)
         rows = starts if T == 1 else starts.tolist()
     mask = causal_mask(positions, T if cache is None else cache.max_len)
+    route = layer_attention_route(cache, T, positions, config.num_heads // config.num_kv_heads)
     for i, layer in enumerate(params.layers):
         x = decoder_layer(x, LayerWeights(layer), config, positions, inv_freq,
-                          None if cache is None else cache.layer(i), starts, rows, mask,
+                          None if cache is None else cache.layer(i), starts, rows, mask, route,
                           tp_group=tp_group, tp_exact=True)
 
     x = _rms_norm(x, params.final_norm, config.rms_norm_eps)

@@ -30,13 +30,15 @@ from fastforward_tpu_torch.kernels.kv_update import quantize_kv as _quantize_kv
 NEG_INF = -1e30
 
 
-def write_rows(buf: torch.Tensor, new: torch.Tensor, starts) -> None:
+def write_rows(buf: torch.Tensor, new: torch.Tensor, starts, per_row: bool = False) -> None:
     """Write ``new`` (B, H, T, ...) into ``buf`` (B, H, S, ...) at rows
     ``starts[b]`` .. ``starts[b] + T - 1`` of each sequence, in place, cast
     to buf's dtype. T = 1: ``starts`` a (B,) tensor; a start outside
     [0, S) writes nothing (no host synchronization). T > 1: ``starts`` a
     list of host ints (or a tensor); raises where a block would leave
-    [0, S)."""
+    [0, S); one slice assignment where every row starts at the same
+    position, unless ``per_row`` (one assignment a sequence, as the JAX slab
+    flow's per-row ``dynamic_update_slice``: the same bytes)."""
     B, S, T = buf.shape[0], buf.shape[2], new.shape[2]
     new = new.to(buf.dtype)
     if T == 1:
@@ -52,7 +54,7 @@ def write_rows(buf: torch.Tensor, new: torch.Tensor, starts) -> None:
     if bad:
         raise ValueError(f"a block of {T} rows from start {bad[0]} leaves the cache of {S} "
                          "rows (JAX would clamp it back inside and write other rows)")
-    if all(s == host[0] for s in host):
+    if not per_row and all(s == host[0] for s in host):
         buf[:, :, host[0]:host[0] + T] = new
         return
     for b, s in enumerate(host):
@@ -111,15 +113,16 @@ class LayerKVCache:
         return self.write(k_new, v_new, starts, starts if k_new.shape[2] == 1 else starts.tolist())
 
     def write(self, k_new: torch.Tensor, v_new: torch.Tensor, starts: torch.Tensor,
-              rows) -> "LayerKVCache":
+              rows, per_row: bool = False) -> "LayerKVCache":
         """`append` at the rows' first positions ``starts`` ((B,) int32);
         ``rows`` is ``starts`` itself for one token and the same starts as
         host ints for a block, so that a forward reads them from the device
-        once and not in every layer."""
+        once and not in every layer. ``per_row``: a block is written a
+        sequence at a time (`write_rows`)."""
         T = k_new.shape[2]
         if not self.is_quantized:
-            write_rows(self.k, k_new, rows)
-            write_rows(self.v, v_new, rows)
+            write_rows(self.k, k_new, rows, per_row)
+            write_rows(self.v, v_new, rows, per_row)
             return LayerKVCache(k=self.k, v=self.v)
         if T == 1:
             kv_quantize_append(self.k, self.v, self.k_scale, self.v_scale, k_new, v_new, starts)
@@ -128,7 +131,7 @@ class LayerKVCache:
             vq8, vs = _quantize_kv(v_new)
             for buf, new in ((self.k, kq8), (self.v, vq8), (self.k_scale, ks),
                              (self.v_scale, vs)):
-                write_rows(buf, new, rows)
+                write_rows(buf, new, rows, per_row)
         return LayerKVCache(k=self.k, v=self.v, k_scale=self.k_scale, v_scale=self.v_scale)
 
     def read(self, dtype=None):

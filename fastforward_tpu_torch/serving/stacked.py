@@ -35,19 +35,35 @@ and the paged flash-decode kernel (any page of a multiple of 4 tokens,
 1, 2, 4 or 8 query heads per kv head), also where the JAX package's TPU
 tile limits send a shape to its reference; only a head dim other than
 128, which the flash-decode kernel cannot run, calls the plain attention
-by name. Tensor parallelism is not ported. The JAX slab flow
-(``FF_KV_STACKED=0``: per-layer cache slabs as scan inputs and outputs,
-per-layer append and flash decode) is no mode of its own here: eagerly, a
-layer's view of the stacked cache is that slab, written in place, so the
-one loop below computes it; its per-row prefill writes (2-D positions) and
-their dense attention are the branch this loop takes for 2-D positions.
+by name. ``tp_group`` runs a rank's tensor-parallel shard
+(`parallel/tp_serving.py`), as JAX's ``tp_axis`` does.
+
+The JAX slab flow (per-layer cache slabs as scan inputs and outputs) and
+the dense attention routes are taken under the JAX package's switches,
+read on every call (`stacked_attention_route`): ``FF_KV_STACKED`` other
+than "1" or "force", ``FF_KV_WRITE`` other than "kernel" or
+``FF_BENCH_FLASH=0`` send a one-token int8 step through the slab flow
+(`:650-698`): the layer's own append (the per-layer quantize-and-append
+kernel; under ``FF_KV_WRITE=mask`` or any other value a plain-torch select
+over S or per-row write), then the per-layer flash decode
+(`flash_decode_int8`, `:693-698`) at 2 or more query heads per kv head,
+dense attention otherwise or under ``FF_BENCH_FLASH=0``.
+``FF_PREFILL_STACKED=0`` writes an int8 prefill's block a sequence at a
+time (`:486-493`, the slab flow's per-row ``dynamic_update_slice``):
+eagerly the same bytes as the carry's one block write, and no memory of
+its own (the JAX carry saves XLA scan temporaries the port never makes).
+``FF_FLASH_PREFILL=0`` attends a prefill densely over the layer's
+dequantized int8 or bf16 cache (`:634`, `:700-737`). On a slab the
+layer's view of the stacked cache is written in place, so the slab flow
+is the same loop over the layers.
 
 One decoder layer (`decoder_layer`) and its attention routing
 (`layer_attention`) serve this forward and the per-layer
-`engine.serving_forward` alike; they differ only where the JAX package's
-two forwards do (the one-token int8 append's kernel, the group condition
-of the flash decode, the plain prefill at a head dim that is no multiple
-of 128).
+`engine.serving_forward` alike; each forward picks its `AttentionRoute`
+once a call by its own JAX conditions (`engine.py:600-646` for the per-layer
+one: the one-token int8 append's kernel, the group condition of the flash
+decode, the plain prefill at a head dim that is no multiple of 128, no
+``FF_KV_WRITE``).
 """
 
 import dataclasses
@@ -62,17 +78,23 @@ import torch.nn.functional as F
 from fastforward_tpu_torch import flags
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.kernels.attention import (
+    flash_decode_int8,
     flash_decode_int8_stacked,
     flash_prefill,
     flash_prefill_reference,
 )
-from fastforward_tpu_torch.kernels.kv_update import kv_quantize_append_stacked
+from fastforward_tpu_torch.kernels.kv_update import (
+    kv_append_decode_reference,
+    kv_quantize_append_stacked,
+    quantize_kv,
+)
 from fastforward_tpu_torch.kernels.matmul import (
     fused_norm_qkv_stacked,
     fused_norm_qkv_stacked_a4,
     fused_o_gu_stacked,
     fused_o_mlp_stacked,
     matmul_w4a8_2l_gemv_argmax,
+    paired_default,
     preblock_stacked,
     quantize_rowwise,
 )
@@ -102,6 +124,7 @@ from fastforward_tpu_torch.serving.kv_cache import (
     LayerKVCache,
     causal_mask,
     row_starts,
+    write_rows,
 )
 from fastforward_tpu_torch.serving.paged import PagedKVCache
 from fastforward_tpu_torch.serving.sampling import SamplingParams, sample_logits
@@ -290,7 +313,10 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
     values, multipliers uniform in [1, 15], s_col = 0.25/sqrt(K)/8; the sim
     tier dense bf16 weights N(0, 1)/sqrt(K) with sim_w8's per-column scales
     0.02/sqrt(K) or sim_w4's per-group 0.25/sqrt(K) (g = K where K % g !=
-    0); embedding N(0, 0.02^2) in bf16, unit norms. Layer weights are made
+    0); embedding N(0, 0.02^2) in bf16, unit norms. Two-level W4A8 weights
+    (layers and lm_head) pack adjacent groups in pairs where ``FF_2L_PAIRED``
+    (read here) is on and the group count is even, else group halves: the
+    same nibble values either way, one layout or the other. Layer weights are made
     one layer at a time so no int8 (or f32) copy of the whole stack exists
     besides the result. The lm_head is in the layers' mode, except that
     both two-level modes take a two-level W4A8 head.
@@ -345,7 +371,7 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
             for l in range(L):
                 data[l] = packed(K, N, g, "int4")
             return QuantLinear(data, float_scale((L, K // g, N), K), mode=mode, group_size=g)
-        paired = mode == "w4a8_2l" and (K // g) % 2 == 0
+        paired = mode == "w4a8_2l" and paired_default(K // g)
         layout = "vertical" if mode == "w4a4_2l" else ("paired" if paired else "halves")
         for l in range(L):
             data[l] = packed(K, N, g, layout)
@@ -380,7 +406,7 @@ def random_stacked_params(config: LlamaConfig, mode: str = "w4a4_2l",
             lm_head = QuantLinear(packed(K, N, g, "int4"), float_scale((K // g, N), K),
                                   mode=mode, group_size=g)
         else:
-            paired = (K // g) % 2 == 0
+            paired = paired_default(K // g)
             lm_head = QuantLinear(
                 packed(K, N, g, "paired" if paired else "halves"),
                 torch.full((N,), 0.25 / math.sqrt(K) / 8.0, dtype=torch.float32, device=dev),
@@ -448,10 +474,111 @@ class LayerWeights:
         return self.proj("gate_proj", h), self.proj("up_proj", h)
 
 
-def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
+@dataclasses.dataclass(frozen=True)
+class AttentionRoute:
+    """How a forward call's layers write their K/V into the cache and
+    attend, chosen once a call under the JAX package's conditions (TPU
+    routing; `stacked_attention_route`, `layer_attention_route`) and taken
+    by `layer_attention` in every layer.
+
+    ``write``: "none" (no cache); "paged", the paged quantize-and-append
+    kernel; "stacked", the stacked one at the layer; "cache",
+    `LayerKVCache.write` on the layer's slab (an int8 token through the
+    per-layer quantize-and-append kernel, a block at once); "rows", the same
+    with a block written a sequence at a time; "mask" and "scatter", an int8
+    token quantized and written in plain torch, by a select over the slab's
+    S rows or by a write at each row's start (both write nothing outside
+    [0, S)).
+    ``attend``: "dense", masked grouped attention over this step's K/V or
+    the layer's dequantized cache; "paged", the paged flash decode;
+    "select", `flash_decode_select`; "layer", the per-layer flash decode
+    (`flash_decode_int8`); "prefill", `flash_prefill` over the layer's
+    cache (its plain version by name at a head dim that is no multiple of
+    128)."""
+
+    write: str
+    attend: str
+
+
+NO_CACHE = AttentionRoute("none", "dense")
+
+
+def stacked_attention_route(cache, T: int, positions: torch.Tensor, groups: int,
+                            d: int) -> AttentionRoute:
+    """The stacked forward's route (`stacked.py:450-493`, `:566-742`),
+    reading ``FF_KV_WRITE``, ``FF_KV_STACKED``, ``FF_PREFILL_STACKED``,
+    ``FF_BENCH_FLASH`` and ``FF_FLASH_PREFILL`` now. An int8 token step
+    takes the stacked append and `flash_decode_select` (the stacked KV
+    carry) under the defaults; ``FF_KV_STACKED`` other than "1" or "force"
+    (the TPU test read as true makes the two one), ``FF_KV_WRITE`` other
+    than "kernel" or ``FF_BENCH_FLASH=0`` take the slab flow: the write
+    ``FF_KV_WRITE`` names, then the per-layer flash decode at 2 or more
+    query heads per kv head under ``FF_BENCH_FLASH``, dense attention
+    otherwise. An int8 prefill writes its block at once with 1-D positions
+    under ``FF_PREFILL_STACKED`` (the carry), else a sequence at a time;
+    every prefill with 1-D positions at a head dim that is a multiple of
+    128 takes `flash_prefill` under ``FF_FLASH_PREFILL``, dense attention
+    otherwise."""
+    if cache is None:
+        return NO_CACHE
+    if isinstance(cache, PagedKVCache):
+        return AttentionRoute("paged", "paged")
+    flat = positions.dim() == 1
+    prefill = "prefill" if flat and flags.use_flash_prefill() and d % 128 == 0 else "dense"
+    if not cache.is_quantized:
+        return AttentionRoute("cache", prefill if T > 1 else "dense")
+    if T > 1:
+        return AttentionRoute("cache" if flat and flags.prefill_stacked() else "rows", prefill)
+    kv_write = flags.kv_write_mode()
+    flash = flags.use_flash_attention()
+    if kv_write == "kernel" and flash and flags.kv_stacked_mode() in ("1", "force"):
+        return AttentionRoute("stacked", "select")
+    return AttentionRoute({"kernel": "cache", "mask": "mask"}.get(kv_write, "scatter"),
+                          "layer" if groups >= 2 and flash else "dense")
+
+
+def layer_attention_route(cache, T: int, positions: torch.Tensor, groups: int) -> AttentionRoute:
+    """The per-layer forward's route (`engine.py:600-646`), reading
+    ``FF_FLASH_PREFILL`` and ``FF_BENCH_FLASH`` now: the cache's own write;
+    a prefill with 1-D positions through `flash_prefill` under
+    ``FF_FLASH_PREFILL`` (at any head dim: no TPU term in the JAX
+    condition), an int8 token step with at least 2 query heads per kv head
+    through `flash_decode_select` under ``FF_BENCH_FLASH``; dense attention
+    otherwise. ``FF_KV_WRITE`` is the stacked forward's only, as in JAX."""
+    if cache is None:
+        return NO_CACHE
+    if T > 1 and positions.dim() == 1 and flags.use_flash_prefill():
+        return AttentionRoute("cache", "prefill")
+    if (T == 1 and cache.layer(0).is_quantized and groups >= 2
+            and flags.use_flash_attention()):
+        return AttentionRoute("cache", "select")
+    return AttentionRoute("cache", "dense")
+
+
+def _append_plain(lc: LayerKVCache, k, v, starts, how: str) -> None:
+    """The slab flow's one-token int8 append in plain torch, in place
+    (`stacked.py:653-687`): k, v quantized by `quantize_kv`, then "mask" a
+    select over the S rows (`kv_append_decode_reference`, the K/V bytes and
+    the first scale column) or "scatter" a write at each row's start
+    (`write_rows`). A start outside [0, S) writes nothing in both; JAX's
+    scatter (``dynamic_update_slice``) would clamp it to row 0 or S - 1
+    (`ROADMAP.md` Queue 3)."""
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    bufs = (lc.k, lc.v, lc.k_scale, lc.v_scale)
+    if how == "mask":
+        for buf, new in zip(bufs, kv_append_decode_reference(*bufs, kq, vq, ks, vs, starts)):
+            buf.copy_(new)
+        return
+    for buf, new in zip(bufs, (kq, vq, ks, vs)):
+        write_rows(buf, new, starts)
+
+
+def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask,
+                    route: AttentionRoute):
     """One decoder layer's attention with this step's q (B, H, T, d) and
-    k, v (B, Hkv, T, d), by the JAX package's TPU routing; both forwards
-    call it (`engine.py:600-646`, `stacked.py:566-742`).
+    k, v (B, Hkv, T, d) by ``route`` (`AttentionRoute`, chosen once a call
+    by the forward: `stacked_attention_route`, `layer_attention_route`);
+    both forwards call it (`engine.py:600-646`, `stacked.py:566-742`).
 
     ``cache`` None: dense grouped attention over k, v under ``mask``.
     Otherwise k, v are written into the cache in place (rows from
@@ -463,21 +590,22 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
       flash-decode kernel (its plain version by name at a head dim other
       than 128);
     - int8, one token: the append kernel with the K/V quantizer fused into
-      it (stacked, or per-layer under its own count), then
-      `flash_decode_select`: always for a stacked cache (`stacked.py:590-608`),
-      with at least 2 query heads per kv head for a per-layer one
-      (`engine.py:620-637`; dense otherwise);
-    - a block with 1-D positions at a head dim that is a multiple of 128:
-      `flash_prefill` over the layer's just-written int8 or bf16 K/V; a
-      per-layer cache at another head dim takes its plain version by name,
-      as JAX's `flash_prefill` does (`attention.py:998`);
-    - otherwise dense grouped attention over the layer's (dequantized)
-      cache under ``mask``.
+      it (stacked, or per layer under its own count), or the slab flow's
+      plain-torch mask or scatter write; then `flash_decode_select` (the
+      stacked decode step; the per-layer forward at 2 or more query heads
+      per kv head), the per-layer `flash_decode_int8` (the stacked slab
+      flow), or dense attention;
+    - a block: `flash_prefill` over the layer's just-written int8 or bf16
+      K/V (a per-layer cache at a head dim that is no multiple of 128
+      takes its plain version by name, as JAX's `flash_prefill` does,
+      `attention.py:998`), or dense attention;
+    - dense: grouped attention over the layer's (dequantized) cache under
+      ``mask``.
     """
-    T, d = q.shape[2], q.shape[3]
+    d = q.shape[3]
     if cache is None:
         return _attention_grouped(q, k, v, mask)
-    if isinstance(cache, PagedKVCache):
+    if route.write == "paged":
         kc, vc, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
         paged_kv_quantize_append(kc, vc, ks, vs, k, v, starts, cache.table, layer)
         q3 = q[:, :, 0, :].contiguous()
@@ -487,21 +615,25 @@ def layer_attention(q, k, v, cache, layer, positions, starts, rows, mask):
             attn = paged_flash_decode_reference(q3, kc[layer], ks[layer], vc[layer], vs[layer],
                                                 cache.table, starts + 1)
         return attn[:, :, None, :]
-    per_layer = isinstance(cache, LayerKVCache)
-    if per_layer:
+    if isinstance(cache, LayerKVCache):
         lc = cache
     else:
         lc = LayerKVCache(cache.k[layer], cache.v[layer],
                           *(None if s is None else s[layer] for s in (cache.k_scale, cache.v_scale)))
-    if T == 1 and lc.is_quantized and not per_layer:
+    if route.write == "stacked":
         kv_quantize_append_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale, k, v, starts,
                                    layer)
+    elif route.write in ("mask", "scatter"):
+        _append_plain(lc, k, v, starts, route.write)
     else:
-        lc.write(k, v, starts, rows)
-    if T == 1 and lc.is_quantized and (not per_layer or q.shape[1] // k.shape[1] >= 2):
+        lc.write(k, v, starts, rows, per_row=route.write == "rows")
+    if route.attend == "select":
         return flash_decode_select(q[:, :, 0, :].contiguous(), cache.k, cache.k_scale, cache.v,
                                    cache.v_scale, lengths=starts + 1, layer=layer)[:, :, None, :]
-    if T > 1 and positions.dim() == 1 and (d % 128 == 0 or per_layer):
+    if route.attend == "layer":
+        return flash_decode_int8(q[:, :, 0, :].contiguous(), lc.k, lc.k_scale, lc.v, lc.v_scale,
+                                 starts + 1)[:, :, None, :]
+    if route.attend == "prefill":
         k_all, v_all = lc.k, lc.v
         if not lc.is_quantized:
             k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
@@ -541,12 +673,13 @@ def _row_parallel(weights: LayerWeights, name: str, t: torch.Tensor, tp_group, t
 
 
 def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_freq, cache,
-                  starts, rows, mask, fused_head: bool = False, tail: Optional[str] = None,
-                  tp_group=None, tp_exact: bool = False):
+                  starts, rows, mask, route: AttentionRoute, fused_head: bool = False,
+                  tail: Optional[str] = None, tp_group=None, tp_exact: bool = False):
     """One decoder layer (`engine.py:592-652`, `stacked.py:495-816`), for
     both forwards: RMSNorm, the q/k/v projections, RoPE, `layer_attention`
     over ``cache`` (at ``weights.index`` for a stacked cache), o_proj and
-    the residual, RMSNorm, the gated MLP and the residual. The fused routes
+    the residual, RMSNorm, the gated MLP and the residual; ``route`` is the
+    forward's `AttentionRoute`. The fused routes
     of stacked `FusedServingLayer`s at one token (`serving_forward_stacked`
     picks them): ``fused_head``, the input RMSNorm and the qkv projection as
     one kernel (paired W4A8 or W4A4); ``tail`` "fused_tail", o_proj through
@@ -572,7 +705,7 @@ def decoder_layer(x, weights: LayerWeights, config: LlamaConfig, positions, inv_
     q, k, v = (t.reshape(B, T, n, d).transpose(1, 2) for t, n in zip(qkv, (nh, nkv, nkv)))
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
-    attn = layer_attention(q, k, v, cache, weights.index, positions, starts, rows, mask)
+    attn = layer_attention(q, k, v, cache, weights.index, positions, starts, rows, mask, route)
     attn = attn.transpose(1, 2).reshape(B, T, nh * d)
     layer, l = weights.layer, weights.index
     if tail == "fused_tail":
@@ -624,7 +757,11 @@ def serving_forward_stacked(
     (1-D positions and a head dim that is a multiple of 128; plain grouped
     attention otherwise). A bf16 cache takes its rows as they are; its
     prefill runs the same flash-prefill kernel over bf16 K/V, its decode
-    step dense grouped attention. The cache tensors are updated in place;
+    step dense grouped attention. These are the default routes of
+    `stacked_attention_route`; ``FF_KV_STACKED``, ``FF_KV_WRITE``,
+    ``FF_PREFILL_STACKED``, ``FF_BENCH_FLASH`` and ``FF_FLASH_PREFILL``
+    (read on each call) take the slab flow's writes and per-layer flash
+    decode or dense attention in their place. The cache tensors are updated in place;
     the returned cache shares them. A one-token step
     of at most 64 rows over fused paired W4A8 layers runs the layer tail
     (o_proj through down) as one fused kernel (``FF_FUSED_LAYER``, on by
@@ -662,6 +799,8 @@ def serving_forward_stacked(
         starts = row_starts(positions, B)
         rows = starts if T == 1 else starts.tolist()
     mask = causal_mask(positions, T if cache is None else cache.max_len)
+    route = stacked_attention_route(cache, T, positions, config.num_heads // config.num_kv_heads,
+                                    config.head_dim)
 
     layer = stacked_layers
     fused = T == 1 and isinstance(layer, FusedServingLayer) and tp_group is None
@@ -687,7 +826,7 @@ def serving_forward_stacked(
         tail = "fused_ogu"
     for l in range(config.num_layers):
         x = decoder_layer(x, LayerWeights(layer, l), config, positions, inv_freq, cache, starts,
-                          rows, mask, fused_head=fused_head, tail=tail, tp_group=tp_group)
+                          rows, mask, route, fused_head=fused_head, tail=tail, tp_group=tp_group)
 
     new_cache = None
     if cache is not None:

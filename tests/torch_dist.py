@@ -1,9 +1,13 @@
 """The port's side of the multi-process CPU tests: ``world`` gloo processes.
 
 `run` spawns ``world`` processes (`torch.multiprocessing`), each a rank of
-one gloo process group over localhost, hands each the same payload (numpy
-arrays and plain values, pickled), runs one worker function of this module
-in every rank, and returns the ranks' results. This module imports torch,
+one gloo process group, hands each the same payload (numpy arrays and plain
+values, pickled), runs one worker function of this module in every rank,
+and returns the ranks' results. The ranks meet through a file store in the
+spawn's own temporary directory, not at a TCP port: a port number picked
+free and released before rank 0 binds it (seconds later, under a loaded
+test run) can be taken meanwhile by another process, such as the sockets of
+another test module's gloo ranks, and a group then meets foreign peers. This module imports torch,
 numpy and the port only, never JAX or the JAX package; every rank reports
 whether either was loaded in it (``"jax_loaded"``), and `run` raises if so.
 The test modules compute the JAX side in the pytest process and spawn once
@@ -22,6 +26,7 @@ import torch.multiprocessing as mp
 
 
 def _free_port() -> int:
+    """A TCP port free at the time of the call (for a test that needs one)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -32,7 +37,7 @@ def run(world: int, worker: str, payload) -> list:
     with tempfile.TemporaryDirectory() as d:
         with open(os.path.join(d, "in.pkl"), "wb") as f:
             pickle.dump(payload, f)
-        mp.spawn(_entry, args=(world, _free_port(), d, worker), nprocs=world, join=True)
+        mp.spawn(_entry, args=(world, d, worker), nprocs=world, join=True)
         out = []
         for r in range(world):
             with open(os.path.join(d, f"out{r}.pkl"), "rb") as f:
@@ -43,12 +48,12 @@ def run(world: int, worker: str, payload) -> list:
     return [res["result"] for res in out]
 
 
-def _entry(rank: int, world: int, port: int, d: str, worker: str) -> None:
+def _entry(rank: int, world: int, d: str, worker: str) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, 'store')}",
+                            rank=rank, world_size=world)
     try:
         with open(os.path.join(d, "in.pkl"), "rb") as f:
             payload = pickle.load(f)
