@@ -64,19 +64,22 @@ each raising on failure:
    libraries; the decode step's fused K/V quantize and append in its
    three forms (stacked, per layer, paged) at B = 192, Hkv 8, D 128, v a
    strided view, starts -1 and S, a page id of -1: bit-equal to the
-   quantizer and the plain append; the two-level GEMVs' CUDA-core route
-   (groups the tensor-core tile does not take: row 1 at g 12, rows 5, 4
-   and 9 at g 2, row 5's group halves at g 4, bit-equal; timed on
-   down_proj at g 14, M = 192) and the fused heads, tail and o + gate/up
-   head at g 2 and 4 (M = 8, held as on the tile);
+   quantizer and the plain append; the two-level GEMVs' any-group route
+   (groups the tensor-core tile does not take, on the same tensor cores:
+   rows 1 (f32 and bf16), 5 (both layouts), 4 and 9 at every group 1-14
+   their layouts take, M = 1, 8, 17, 192, bit-equal; N % 4 != 0, panel
+   widths 4 and 6, and 1,024 groups of 14 along K; timed on down_proj at g
+   14, M = 192, beside the tile at g 16) and the fused heads, tail and
+   o + gate/up head at g 2 and 4 (M = 8, held as on the tile, timed beside
+   the tile at g 4 and 8);
    print median times, device times (from profiles that recorded every
    launch: `device_ms`), bounds and library times (the two-level GEMVs:
    torch.matmul of the dequantized operands, also at M = 8);
 3. serve  — Llama-3-8B at full width and depth (32 layers), random weights
    from the port's own `random_stacked_params` (stacked runs) or
    `random_serving_params` (per-layer runs), a 512-token cache, greedy
-   decoding. Twenty-six runs, each with its launch counts set to 0 before it
-   and asserted exactly after it:
+   decoding. Twenty-eight runs, each with its launch counts set to 0 before
+   it and asserted exactly after it:
    (a) bench.py's default: W4A4 at group 512 (lm_head W4A8), 192 prompts
        of 128 tokens, then 32 tokens each;
    (b) bench.py's FF_BENCH_MODE=w4a8_2l: W4A8 at group 128, same shape;
@@ -105,6 +108,11 @@ each raising on failure:
        shape, the lm_head in the layers' mode: every decode GEMV (129 a
        step) on the permuted route of rows 16 and 17, counted under
        w4a8_gemv_halves and w4_gemv, and compared at depth 2 as below;
+   (ag) FF_BENCH_MODE=w4a4_2l and w4a8_2l at FF_BENCH_GROUP=14, bench.py's
+       shape: down_proj (K = 14,336, 1,024 groups of 14) on the two-level
+       GEMVs' any-group route at every layer and step (a4_gemv_any,
+       w4a8_gemv_stacked_any), every other projection and the lm_head at
+       g = K = 4,096 on the tile, and compared at depth 2 as below;
    (ad) (b)'s weights, right after (b) in the same process, under
        FF_KV_STACKED=0 (the slab flow: per-layer append and flash decode,
        kv_append_layer and flash_decode_layer 1,024 each in place of the
@@ -1653,17 +1661,24 @@ def _float_scale_group_kernels(dev, gen, randint):
 
 def _two_level_any_kernels(dev, gen, randint):
     """The two-level GEMVs at groups the int8 tensor-core tile does not take
-    (`two_level_route` "any": `csrc/common.cuh` two_level_any_kernel; no
-    served default reaches them). Checked bit-equal against their plain
-    versions: row 1 at g 12 in bf16 and f32, row 5 paired at g 2 and group
-    halves at g 4, row 4 at g 2, row 9 at g 2 flat and pre-blocked, M = 8
-    and 192. Timed at M = 192 on Llama-3-8B's down_proj at g 14 (1,024
-    groups; counts a4_gemv_any, w4a8_gemv_any, w4a8_gemv_unpaired_any,
+    (`two_level_route` "any": `csrc/w4a8_mma.cuh` w4a8_rows_kernel, byte
+    rows in memory order on the int8 tensor cores; run (ag) serves rows 1
+    and 9 at g 14). Checked bit-equal against their plain versions: row 1
+    (bf16 and f32), rows 5 paired and 9 (flat), row 5's group halves, at
+    every group 1-14 each layout takes (K = 64 units, N 260: three column
+    tiles, the last ragged) and M = 1, 8, 17, 192; row 4 at g 2 and 6;
+    every row at N = 258 (N % 4 != 0: the byte feed); row 9 pre-blocked at
+    bn 4 and 6 and flat at g 2 (the old checks' shapes, K 384, N 4,096);
+    rows 1, 5 and 9 at K = 14,336 in 1,024 groups of 14, M = 8. Timed at M
+    = 192 on Llama-3-8B's down_proj at g 14 (1,024 groups; counts
+    a4_gemv_any, w4a8_gemv_any, w4a8_gemv_unpaired_any,
     w4a8_gemv_stacked_any), library torch.matmul of the dequantized
-    operands. The fused heads (W4A8 at g 2, A4 at g 4) and the fused tail
-    and its o + gate/up head (g 2) at the 8B widths, M = 8, held to the
-    fused routes' policy and timed (counts fused_norm_qkv_any,
-    fused_norm_qkv_a4_any, fused_o_mlp_any, fused_o_gu_any)."""
+    operands, beside the tile on the same shape at g 16 (rows 1, 5 paired,
+    9: logged). The fused heads (W4A8 at g 2, A4 at g 4) and the fused
+    tail and its o + gate/up head (g 2) at the 8B widths, M = 8, held to
+    the fused routes' policy and timed (counts fused_norm_qkv_any,
+    fused_norm_qkv_a4_any, fused_o_mlp_any, fused_o_gu_any), beside the
+    tile at g 4 (W4A8) and 8 (A4)."""
     from fastforward_tpu_torch.kernels import _build
     from fastforward_tpu_torch.kernels import matmul as mm
     from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles
@@ -1682,10 +1697,78 @@ def _two_level_any_kernels(dev, gen, randint):
         before = _build.launch_counts[name]
         out = fn()
         if _build.launch_counts[name] != before + 1:
-            raise AssertionError(f"{name}: the call did not take the CUDA-core route")
+            raise AssertionError(f"{name}: the call did not take the any-group route")
         return out
 
-    # the checks: (name, K, g, layout), N 4096, M 8 and 192
+    def held(name, what, out, ref):
+        nonlocal calls
+        ok, err = bit_equal(out, ref)
+        calls += 1
+        if not ok:
+            raise AssertionError(f"{name} {what}: err {err}")
+
+    # every group 1-14 of every layout, M = 1, 8, 17, 192, N 260 (and 258:
+    # N % 4 != 0), K = 64 units (128 for the smallest units)
+    for layout in ("vertical", "paired", "halves"):
+        for g in range(1, 15):
+            if layout == "halves" and g % 2 or mm.two_level_route(layout, 8 * g, 260, g) == "tile":
+                continue
+            unit = 2 * g if layout == "paired" else g
+            K = unit * (128 if unit < 4 else 64)
+            for M, N in ((1, 260), (8, 260), (17, 260), (BATCH, 260), (17, 258)):
+                w, mult, s = layer(K, N, g, L=2)
+                at = f"g {g} M={M} N={N}"
+                if layout == "vertical":
+                    x4, x4s = act(M, K, a4=True)
+                    mp = pack_mult_nibbles(mult).contiguous()
+                    for out_dtype in (torch.bfloat16, torch.float32):
+                        out = count("a4_gemv_any", lambda: mm.matmul_w4a4_2l_gemv_stacked(
+                            x4, x4s, w, mp, s, 1, group_size=g, out_dtype=out_dtype))
+                        held("a4_gemv_any", f"{at} {out_dtype}", out, mm.matmul_w4a4_2l_reference(
+                            x4, x4s, w[1], mult[1], s[1], None, g, out_dtype))
+                    continue
+                paired = layout == "paired"
+                name = "w4a8_gemv_any" if paired else "w4a8_gemv_unpaired_any"
+                x_q, x_s = act(M, K)
+                ref = mm.matmul_w4a8_2l_reference(x_q, x_s, w[1], mult[1], s[1], None, g,
+                                                  torch.float32, paired=paired)
+                out = count(name, lambda: mm.matmul_w4a8_2l_gemv(
+                    x_q, x_s, w[1], mult[1], s[1], g, torch.float32, paired=paired))
+                held(name, at, out, ref)
+                if paired:
+                    mp = pack_mult_nibbles(mult).contiguous()
+                    out = count("w4a8_gemv_stacked_any", lambda: mm.matmul_w4a8_2l_gemv_stacked(
+                        x_q, x_s, w, mp, s, 1, group_size=g))
+                    held("w4a8_gemv_stacked_any", at, out, ref.to(torch.bfloat16))
+                    if g in (2, 6) and M in (8, BATCH):
+                        ids = count(name, lambda: mm.matmul_w4a8_2l_gemv_argmax(
+                            x_q, x_s, w[1], mult[1], s[1], g, paired=True))
+                        calls += 1
+                        if not torch.equal(ids, torch.argmax(ref, dim=-1).to(torch.int32)):
+                            raise AssertionError(f"the argmax head at {at}: ids differ")
+    log(f"two-level any-group routes: bit-equal at every group 1-14 of each layout, M = 1, 8, "
+        f"17, 192 (N 260) and N 258 ({calls} checks)")
+    # 1,024 groups of 14 along K (down_proj's K), M = 8
+    K, N, g = PROJ["down"][0], 516, 14
+    w, mult, s = layer(K, N, g)
+    mp = pack_mult_nibbles(mult).contiguous()
+    x_q, x_s = act(8, K)
+    x4, x4s = act(8, K, a4=True)
+    held("a4_gemv_any", "K 14336 g 14", count("a4_gemv_any", lambda: mm.matmul_w4a4_2l_gemv_stacked(
+        x4, x4s, w, mp, s, 0, group_size=g)), mm.matmul_w4a4_2l_reference(
+        x4, x4s, w[0], mult[0], s[0], None, g))
+    for paired in (True, False):
+        name = "w4a8_gemv_any" if paired else "w4a8_gemv_unpaired_any"
+        held(name, "K 14336 g 14", count(name, lambda: mm.matmul_w4a8_2l_gemv(
+            x_q, x_s, w[0], mult[0], s[0], g, paired=paired)), mm.matmul_w4a8_2l_reference(
+            x_q, x_s, w[0], mult[0], s[0], None, g, paired=paired))
+    held("w4a8_gemv_stacked_any", "K 14336 g 14", count(
+        "w4a8_gemv_stacked_any", lambda: mm.matmul_w4a8_2l_gemv_stacked(
+            x_q, x_s, w, mp, s, 0, group_size=g)), mm.matmul_w4a8_2l_reference(
+        x_q, x_s, w[0], mult[0], s[0], None, g, paired=True))
+    del w, mult, s, mp
+    # the old checks' shapes: N 4096, M 8 and 192; row 9 pre-blocked at bn
+    # 4 and 6 (the word and the byte feeds) on N 4,098 and 4,096
     K, N = 384, 4096
     for M in (8, BATCH):
         w, mult, s = layer(K, N, 12)
@@ -1719,15 +1802,19 @@ def _two_level_any_kernels(dev, gen, randint):
         calls += 1
         if not torch.equal(ids, torch.argmax(ref, dim=-1).to(torch.int32)):
             raise AssertionError(f"the argmax head at g 2 M={M}: ids differ")
-        for wt in (w, mm.preblock_stacked(w, PANEL)):
+        for wt in (w, mm.preblock_stacked(w, PANEL), mm.preblock_stacked(w, 4)):
             out = count("w4a8_gemv_stacked_any", lambda wt=wt: mm.matmul_w4a8_2l_gemv_stacked(
                 x_q, x_s, wt, mp, s, 1, group_size=2))
-            ok, err = bit_equal(out, ref.to(torch.bfloat16))
-            calls += 1
-            if not ok:
-                raise AssertionError(f"w4a8_gemv_stacked_any g 2 M={M}: err {err}")
+            held("w4a8_gemv_stacked_any", f"g 2 M={M}", out, ref.to(torch.bfloat16))
+        w, mult, s = layer(K, N + 2, 6, L=2)
+        mp = pack_mult_nibbles(mult).contiguous()
+        out = count("w4a8_gemv_stacked_any", lambda: mm.matmul_w4a8_2l_gemv_stacked(
+            x_q, x_s, mm.preblock_stacked(w, 6), mp, s, 1, group_size=6))
+        held("w4a8_gemv_stacked_any", f"g 6 bn 6 M={M}", out, mm.matmul_w4a8_2l_reference(
+            x_q, x_s, w[1], mult[1], s[1], None, 6, paired=True))
     log(f"two-level any-group routes: bit-equal at g 12 (row 1, bf16 and f32), g 2 (rows 5, 4, "
-        f"9 flat and pre-blocked), g 4 (row 5 group halves), M = 8 and 192 ({calls} checks)")
+        f"9 flat and pre-blocked at bn 512 and 4), g 4 (row 5 group halves), g 6 (row 9 at bn "
+        f"6), M = 8 and 192; in all {calls} checks")
     # timed: down_proj at g 14, M = 192 (1,024 groups; 512 pairs)
     M, (K, N), g = BATCH, PROJ["down"], 14
     for layout in ("vertical", "paired", "halves"):
@@ -1771,6 +1858,17 @@ def _two_level_any_kernels(dev, gen, randint):
         wbytes + io, ops, INT8_OPS_PER_S, bit_equal, library=lambda: torch.matmul(xb, w_bf16),
         plain_n=3)
     del w, mult, s, mp, w_bf16, s_eff
+    # the yardstick: the tile on the same shape at g 16 (units of 16 rows)
+    w, mult, s = layer(K, N, 16, L=2)
+    mp = pack_mult_nibbles(mult).contiguous()
+    tile = {"a4_gemv": lambda: mm.matmul_w4a4_2l_gemv_stacked(x4, x4s, w, mp, s, 1, group_size=16),
+            "w4a8_gemv": lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w[1], mult[1], s[1], 16,
+                                                        paired=True),
+            "w4a8_gemv_stacked": lambda: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w, mp, s, 1,
+                                                                        group_size=16)}
+    log(f"two-level tile on down M={M} K={K} N={N} at g 16 (the any-group route's yardstick): "
+        + ", ".join(f"{k} device {fmt_ms(device_ms(fn))}" for k, fn in tile.items()))
+    del w, mult, s, mp, tile
     torch.cuda.empty_cache()
     rows.update(_fused_any_kernels(dev, gen, randint))
     log(f"two-level any-group routes: the phase {time.perf_counter() - t0:.1f} s")
@@ -1788,7 +1886,17 @@ def _fused_any_kernels(dev, gen, randint):
 
     rows, L, eps, M = {}, 2, 1e-5, 8
     K, N = PROJ["qkv"]
-    for name, a4, g in (("fused_norm_qkv_any", False, 2), ("fused_norm_qkv_a4_any", True, 4)):
+    for name, a4, g, g_tile in (("fused_norm_qkv_any", False, 2, 4),
+                                ("fused_norm_qkv_a4_any", True, 4, 8)):
+        # the yardstick: the tile at the nearest group it takes
+        w, mp = randint(-128, 128, (L, K // 2, N)), pack_mult_nibbles(
+            randint(1, 16, (L, K // g_tile, N))).contiguous()
+        s_col = torch.rand((L, N), generator=gen, device=dev) * 1e-3
+        norm = (torch.rand((L, K), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+        x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        log(f"{name}: the tile at g {g_tile} on the same shape, device " + fmt_ms(device_ms(
+            lambda: mm._fused_head_launch(a4, x, norm, w, mp, s_col, 1, g_tile, eps,
+                                          torch.bfloat16))))
         w, mult = randint(-128, 128, (L, K // 2, N)), randint(1, 16, (L, K // g, N))
         mp = pack_mult_nibbles(mult).contiguous()
         s_col = torch.rand((L, N), generator=gen, device=dev) * 1e-3
@@ -1860,7 +1968,16 @@ def _fused_any_kernels(dev, gen, randint):
         ogu_check, plain_n=3)
     log(f"fused tail and o + gate/up at g {g}: x1 bit-equal; int8 elements one level off: "
         + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in diffs.items()))
-    del ops, layer_ops
+    # the yardstick: the tile at g 4 on the same shapes (the multipliers
+    # repacked for 4: their values do not move a time)
+    ops4 = list(ops)
+    for i, (Kp, Np) in enumerate(((H, H), (H, 2 * inter), (inter, H))):
+        ops4[3 * i + 1] = pack_mult_nibbles(randint(1, 16, (L, Kp // 4, Np))).contiguous()
+    log("fused tail and o + gate/up: the tile at g 4 on the same shapes, device "
+        + fmt_ms(device_ms(lambda: mm._fused_o_mlp_launch(attn, x_res, norm, *ops4, 1, 4, eps)))
+        + " and " + fmt_ms(device_ms(
+            lambda: mm._fused_o_gu_launch(attn, x_res, norm, *ops4[:6], 1, 4, eps))))
+    del ops, ops4, layer_ops
     torch.cuda.empty_cache()
     return rows
 
@@ -2438,7 +2555,8 @@ PORT_KERNELS = ("gemv_epilogue_kernel", "argmax_reduce_kernel",
                 "tail_act_kernel", "tail_out_kernel", "w8a8_wgmma_kernel",
                 "w4a8_wgmma_kernel", "w4_gemv_wgmma_kernel", "w4a16_wgmma_kernel",
                 "norm_quant_kernel", "w4a8_mma_kernel", "stage_x_kernel",
-                "w4a8_perm_kernel", "permute_x_kernel")
+                "w4a8_perm_kernel", "permute_x_kernel", "w4a8_rows_kernel",
+                "stage_rows_kernel", "rows_epilogue_kernel")
 
 
 def _report_profile(what, wall_ms, rows, top=10):
@@ -2914,6 +3032,28 @@ def phase_serve(dev):
         if launched != {"dequant_halves", gemv, "flash_prefill", "kv_append", "flash_decode"}:
             raise AssertionError(f"{mode} g16 launched {sorted(launched)}")
     log(f"serve (ac): {time.perf_counter() - t0:.1f} s (both modes, depth 32 and the depth-2 "
+        f"checks)")
+    # (ag): w4a4_2l and w4a8_2l at g 14 (FF_BENCH_GROUP=14), bench.py's
+    # shape. The packer's rule gives down_proj (K = 14,336) 1,024 groups of
+    # 14, paired in w4a8_2l, and every other projection and the lm_head g =
+    # K = 4,096 (one group: group halves in w4a8_2l, on the tile): down_proj
+    # runs the any-group route at every layer and step; the unpaired lm_head
+    # takes row 5's f32 logits and their argmax. Then depth 2 as above.
+    t0 = time.perf_counter()
+    head = {"w4a8_gemv_unpaired": 1 + STEPS}
+    for key, mode, expect in (
+            ("ag4", "w4a4_2l", {"dequant_vertical": 4 * L, "a4_gemv": 3 * L * STEPS,
+                                "a4_gemv_any": L * STEPS, **head}),
+            ("ag8", "w4a8_2l", {"dequant_halves": 3 * L, "dequant_paired": L,
+                                "w4a8_gemv_stacked_any": L * STEPS,
+                                "w4a8_gemv_unpaired": 3 * L * STEPS + head["w4a8_gemv_unpaired"]})):
+        runs[key] = serve_run(f"(ag) {mode} g14", config, mode, 14, BATCH, PROMPT, STEPS, dev,
+                              {**expect, **attn})
+        launched = compare_paths(config, mode, 14, dev)
+        if launched != set(runs[key]["counts"]):
+            raise AssertionError(f"{mode} g14 launched {sorted(launched)}, the main path "
+                                 f"{sorted(runs[key]['counts'])}")
+    log(f"serve (ag): {time.perf_counter() - t0:.1f} s (both modes, depth 32 and the depth-2 "
         f"checks)")
     return runs
 
@@ -4903,14 +5043,14 @@ SOURCES = {
                     "fastforward_tpu/kernels/matmul.py:262 (kernel :240, g 16)"),
     "w4a16_gemm_g16": ("fastforward_tpu_torch/csrc/w4_wgmma.cuh",
                        "fastforward_tpu/kernels/matmul.py:1813 (g 16)"),
-    "a4_gemv_any": ("fastforward_tpu_torch/csrc/common.cuh",
+    "a4_gemv_any": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                     "fastforward_tpu/kernels/matmul.py:1406 (body :1342, any group)"),
-    "w4a8_gemv_any": ("fastforward_tpu_torch/csrc/common.cuh",
+    "w4a8_gemv_any": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                       "fastforward_tpu/kernels/matmul.py:571 (paired body :537, any group)"),
-    "w4a8_gemv_unpaired_any": ("fastforward_tpu_torch/csrc/common.cuh",
+    "w4a8_gemv_unpaired_any": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                                "fastforward_tpu/kernels/matmul.py:571 (unpaired kernel :479, "
                                "any group)"),
-    "w4a8_gemv_stacked_any": ("fastforward_tpu_torch/csrc/common.cuh",
+    "w4a8_gemv_stacked_any": ("fastforward_tpu_torch/csrc/w4a8_mma.cuh",
                               "fastforward_tpu/kernels/matmul.py:1023 (any group, flat and "
                               "pre-blocked)"),
     "fused_norm_qkv_any": ("fastforward_tpu_torch/csrc/fused_head.cu",
@@ -4932,15 +5072,16 @@ SOURCES = {
 # "main_path" key false): row 18's tiled W4A16 body (at g128 and at the
 # permuted route's groups) and row 24's probe (no path of the JAX package
 # serves through them), rows 16 and 17 at g 112 (no run serves that
-# group), the any-group routes of the two-level GEMVs and
-# fused routes (no served default reaches their groups), and the int8-input appends, whose
+# group), the any-group routes of row 5 (both layouts) and of the fused
+# routes (no served default reaches their groups; rows 1 and 9 at g 14 are
+# run (ag)'s), and the int8-input appends, whose
 # rows the decode step now launches through the fused K/V quantize and
 # append under the same counts (COUNT_OF).
 OFF_MAIN_PATH = ("w4a16_gemm", "probe_dp4a", "probe_mma_s8", "probe_mma_s8_int4",
                  "probe_mma_s4", "probe_mma_bf16", "w4a16_gemm_down_g112", "w4a16_gemm_g16",
                  "w4a8_gemv_halves_down_g112", "w4_gemv_down_g112",
                  "kv_append", "kv_append_layer", "paged_kv_append",
-                 "a4_gemv_any", "w4a8_gemv_any", "w4a8_gemv_unpaired_any", "w4a8_gemv_stacked_any",
+                 "w4a8_gemv_any", "w4a8_gemv_unpaired_any",
                  "fused_norm_qkv_any", "fused_norm_qkv_a4_any", "fused_o_mlp_any",
                  "fused_o_gu_any")
 # The launch count a kernels-line entry reads where it is not its own name.
@@ -4950,8 +5091,10 @@ COUNT_OF = {"kv_quantize_append": "kv_append", "kv_quantize_append_layer": "kv_a
                for at in ("down_g112", "g16")}}
 # The runs whose launch counts a kernels-line entry reads where the first
 # run of the main path that launched its count served another group: the
-# permuted route of rows 16 and 17 at g 16 (run (ac)).
-RUN_OF = {"w4a8_gemv_halves_g16": ("ac8",), "w4_gemv_g16": ("ac16",)}
+# permuted route of rows 16 and 17 at g 16 (run (ac)), the two-level
+# GEMVs' any-group route at g 14 (run (ag)).
+RUN_OF = {"w4a8_gemv_halves_g16": ("ac8",), "w4_gemv_g16": ("ac16",),
+          "a4_gemv_any": ("ag4",), "w4a8_gemv_stacked_any": ("ag8",)}
 
 
 def main():

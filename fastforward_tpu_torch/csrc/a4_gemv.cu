@@ -8,8 +8,8 @@
 // row 2r low nibble, row 2r+1 high nibble, two's complement); m
 // nibble-packed 8 per int32 (L, ceil(K/g/8), N); int32 accumulation; f32
 // or bf16 out. Bit-exact against matmul_w4a4_2l_reference. Groups the tile
-// does not take (g % 8 != 0, N % 4 != 0) run common.cuh's CUDA-core loop
-// (ff_a4_gemv_any).
+// does not take (g % 8 != 0, N % 4 != 0) run w4a8_mma.cuh's any-group
+// route on the same tensor cores (ff_a4_gemv_any).
 //
 // Bound on the H100: a Llama-3-8B layer (its four fused projections) at
 // M = 192 does 8.4e10 int8 operations (0.042 ms at 1,979 TOP/s) on 110 MB
@@ -47,20 +47,23 @@ extern "C" int ff_a4_gemv(const void* x, const void* xs, const void* w,
       n_split, 0, depth, static_cast<cudaStream_t>(stream));
 }
 
-// Any group of the vertical layout (K even, whole groups) on the CUDA-core
-// loop: the arguments of ff_a4_gemv without the tile's xf, partial, n_split
-// and depth.
+// Any group of the vertical layout (K even, whole groups), N any, on
+// w4a8_mma.cuh's any-group route (launch_rows): the arguments of
+// ff_a4_gemv, xf sized and n_split, depth planned by kernels/matmul.py
+// rows_plan.
 extern "C" int ff_a4_gemv_any(const void* x, const void* xs, const void* w,
-                              const void* mult_packed, const void* s_col, void* out, int M,
-                              int K, int N, int L, int layer, int group, int n_pack,
-                              int out_kind, void* stream) {
+                              const void* mult_packed, const void* s_col, void* xf,
+                              void* partial, void* out, int M, int K, int N, int L, int layer,
+                              int group, int n_pack, int n_split, int depth, int out_kind,
+                              void* stream) {
   if (layer < 0 || layer >= L || group < 1 || K % group != 0 || n_pack * 8 < K / group ||
-      out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16)
+      out_kind < ff::mma8::kOutF32 || out_kind > ff::mma8::kOutBf16)
     return cudaErrorInvalidValue;
-  return ff::launch_two_level_any<ff::kVertical, true>(
+  return ff::mma8::launch_rows<ff::kVertical, true>(
       static_cast<const int8_t*>(x), static_cast<const float*>(xs),
       static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N,
       static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N,
-      static_cast<const float*>(s_col) + (size_t)layer * N, out, out_kind, M, K, N, group, 0,
+      static_cast<const float*>(s_col) + (size_t)layer * N, static_cast<int8_t*>(xf),
+      static_cast<int32_t*>(partial), out, out_kind, M, K, N, group, n_split, 0, depth,
       static_cast<cudaStream_t>(stream));
 }

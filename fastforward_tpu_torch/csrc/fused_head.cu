@@ -36,10 +36,12 @@
 // out of any PyTorch op: no bf16 rounding of h and no round trip through
 // the framework between the two. The int32 sums are exact in any order
 // and the epilogue is (float(acc) * s_col) * s, as the plain version's.
-// Groups the tile does not take (W4A8 g % 4 != 0, A4 g % 8 != 0:
-// kernels/matmul.py two_level_route) run the same prologue without the
-// staging, then common.cuh's CUDA-core loop on hq (ff_fused_norm_qkv_any,
-// ff_fused_norm_qkv_a4_any): the same integers and epilogue.
+// Groups the tile does not take (W4A8 g % 4 != 0, A4 g % 8 != 0, N % 4 !=
+// 0: kernels/matmul.py two_level_route) run the same prologue without the
+// staging, then w4a8_mma.cuh's any-group route on hq (launch_rows: its
+// own staging launch, byte rows in memory order; ff_fused_norm_qkv_any,
+// ff_fused_norm_qkv_a4_any, planned by kernels/matmul.py rows_plan): the
+// same integers and epilogue.
 //
 // Numerics, bit-exact against the plain version: the squares are summed in
 // the order XLA's CPU compiler uses for a row reduction (windows of 32 in
@@ -144,16 +146,16 @@ norm_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 }
 
 // The prologue: hq (M, K), hs (M,) and the staged operand xf from x and
-// layer `layer`'s norm; then the tile on xf. xf NULL: the prologue without
-// the staging, then the CUDA-core loop on hq.
+// layer `layer`'s norm; then the tile on xf. `any`: the prologue without
+// the staging, then the any-group route on hq (which stages hq into xf).
 template <bool A4>
-cudaError_t fused_head(const void* x, const void* norm_w, const void* w, const void* mult_packed,
-                       const void* s_col, void* hq, void* hs, void* xf, void* partial, void* out,
-                       int M, int K, int N, int layer, int group, int n_pack, int n_split,
-                       int depth, float inv_k, float eps, int out_bf16, cudaStream_t st) {
+cudaError_t fused_head(bool any, const void* x, const void* norm_w, const void* w,
+                       const void* mult_packed, const void* s_col, void* hq, void* hs, void* xf,
+                       void* partial, void* out, int M, int K, int N, int layer, int group,
+                       int n_pack, int n_split, int depth, float inv_k, float eps, int out_bf16,
+                       cudaStream_t st) {
   constexpr int kLayout = A4 ? ff::kVertical : ff::kPaired;
-  const bool any = xf == nullptr;
-  if (group < 1 || (!any && (group < 4 || group % (A4 ? 8 : 4) != 0)) ||
+  if (xf == nullptr || group < 1 || (!any && (group < 4 || group % (A4 ? 8 : 4) != 0)) ||
       K % (A4 ? group : 2 * group) != 0 || n_pack * 8 < K / group || M < 1 || N < 1)
     return cudaErrorInvalidValue;
   cudaError_t err =
@@ -169,16 +171,18 @@ cudaError_t fused_head(const void* x, const void* norm_w, const void* w, const v
   norm_quant_kernel<A4><<<any ? M : ff::mma8::staged_rows(M), ff::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * K, static_cast<int8_t*>(hq),
-      static_cast<float*>(hs), static_cast<int8_t*>(xf), M, K, group, n_split, inv_k, eps);
+      static_cast<float*>(hs), any ? nullptr : static_cast<int8_t*>(xf), M, K, group, n_split,
+      inv_k, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N;
   const int32_t* ml = static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N;
   const float* sl = static_cast<const float*>(s_col) + (size_t)layer * N;
   if (any)
-    return ff::launch_two_level_any<kLayout, true>(
-        static_cast<const int8_t*>(hq), static_cast<const float*>(hs), wl, ml, sl, out,
-        out_bf16 ? ff::kAnyBf16 : ff::kAnyF32, M, K, N, group, 0, st);
+    return ff::mma8::launch_rows<kLayout, true>(
+        static_cast<const int8_t*>(hq), static_cast<const float*>(hs), wl, ml, sl,
+        static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_bf16, M, K, N, group,
+        n_split, 0, depth, st);
   return ff::mma8::launch_staged<kLayout, true>(
       static_cast<const float*>(hs), wl, ml, sl, static_cast<const int8_t*>(xf),
       static_cast<int32_t*>(partial), out, out_bf16, M, K, N, group, n_split, 0, depth, st);
@@ -196,9 +200,8 @@ extern "C" int ff_fused_norm_qkv(const void* x, const void* norm_w, const void* 
                                  void* xf, void* partial, void* out, int M, int K, int N,
                                  int layer, int group, int n_pack, int n_split, int depth,
                                  float inv_k, float eps, int out_bf16, void* stream) {
-  if (xf == nullptr) return cudaErrorInvalidValue;
-  return fused_head<false>(x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M, K, N,
-                           layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
+  return fused_head<false>(false, x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M,
+                           K, N, layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -209,30 +212,31 @@ extern "C" int ff_fused_norm_qkv_a4(const void* x, const void* norm_w, const voi
                                     int N, int layer, int group, int n_pack, int n_split,
                                     int depth, float inv_k, float eps, int out_bf16,
                                     void* stream) {
-  if (xf == nullptr) return cudaErrorInvalidValue;
-  return fused_head<true>(x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M, K, N,
-                          layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
+  return fused_head<true>(false, x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M,
+                          K, N, layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
                           static_cast<cudaStream_t>(stream));
 }
 
-// The two heads at the groups the tile does not take: the arguments of
-// ff_fused_norm_qkv without xf, partial, n_split and depth.
+// The two heads at the groups the tile does not take: the same arguments,
+// xf sized and n_split, depth planned by kernels/matmul.py rows_plan.
 extern "C" int ff_fused_norm_qkv_any(const void* x, const void* norm_w, const void* w,
                                      const void* mult_packed, const void* s_col, void* hq,
-                                     void* hs, void* out, int M, int K, int N, int layer,
-                                     int group, int n_pack, float inv_k, float eps, int out_bf16,
+                                     void* hs, void* xf, void* partial, void* out, int M, int K,
+                                     int N, int layer, int group, int n_pack, int n_split,
+                                     int depth, float inv_k, float eps, int out_bf16,
                                      void* stream) {
-  return fused_head<false>(x, norm_w, w, mult_packed, s_col, hq, hs, nullptr, nullptr, out, M, K,
-                           N, layer, group, n_pack, 1, 1, inv_k, eps, out_bf16,
+  return fused_head<false>(true, x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M,
+                           K, N, layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ff_fused_norm_qkv_a4_any(const void* x, const void* norm_w, const void* w,
                                         const void* mult_packed, const void* s_col, void* hq,
-                                        void* hs, void* out, int M, int K, int N, int layer,
-                                        int group, int n_pack, float inv_k, float eps,
+                                        void* hs, void* xf, void* partial, void* out, int M,
+                                        int K, int N, int layer, int group, int n_pack,
+                                        int n_split, int depth, float inv_k, float eps,
                                         int out_bf16, void* stream) {
-  return fused_head<true>(x, norm_w, w, mult_packed, s_col, hq, hs, nullptr, nullptr, out, M, K,
-                          N, layer, group, n_pack, 1, 1, inv_k, eps, out_bf16,
+  return fused_head<true>(true, x, norm_w, w, mult_packed, s_col, hq, hs, xf, partial, out, M,
+                          K, N, layer, group, n_pack, n_split, depth, inv_k, eps, out_bf16,
                           static_cast<cudaStream_t>(stream));
 }

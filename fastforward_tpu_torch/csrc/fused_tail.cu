@@ -71,9 +71,11 @@
 //
 // Groups the tile does not take (g % 4 != 0: kernels/matmul.py
 // two_level_route) take the same launches from ff_fused_o_mlp_any and
-// ff_fused_o_gu_any, with each product on common.cuh's CUDA-core loop
-// (two_level_any_kernel) over the int8 rows the row kernels write (xq, hq,
-// x2), and no staging: the same integers, so the same numerics.
+// ff_fused_o_gu_any, the row kernels writing int8 rows (xq, hq, x2) in
+// place of staged operands, and each product on w4a8_mma.cuh's any-group
+// route over them (launch_rows: its staging launch, then the tensor-core
+// tile in byte-row order; planned by kernels/matmul.py tail_plan with
+// rows_plan): the same integers, so the same numerics.
 
 #include "w4a8_mma.cuh"  // the tile, stage_row (with common.cuh)
 
@@ -173,8 +175,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 
 // One block a row of the staged rows (a block past M stages zeros): the
 // row quantizer on x (M, K), scale into xs, the int8 row staged into xf
-// for the tile's plan at n_split, or (xf NULL: the CUDA-core route) written
-// to xq (M, K). Dynamic shared memory: K bytes.
+// for the tile's plan at n_split, or (xf NULL: the any-group route, which
+// stages it itself) written to xq (M, K). Dynamic shared memory: K bytes.
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 tail_quant_kernel(const T* __restrict__ x, float* __restrict__ xs, int8_t* __restrict__ xf,
@@ -390,41 +392,42 @@ bool takes(const Product& p, int group, bool any) {
          p.N % 4 == 0;
 }
 
-// Product p on the tile over the staged xf, or (xf NULL) on the CUDA-core
-// loop over the int8 rows xq (M, p.K); the loop's partials are one split's.
-cudaError_t product(const Product& p, const float* xs, const int8_t* xf, const int8_t* xq,
-                    int32_t* partial, void* out, int out_kind, int M, int group, cudaStream_t st) {
-  if (!xf)
-    return ff::launch_two_level_any<ff::kPaired, true>(
-        xq, xs, p.w, p.m, p.s, out_kind == ff::mma8::kOutPartials ? partial : out,
-        out_kind == ff::mma8::kOutPartials ? ff::kAnyPartials : out_kind, M, p.K, p.N, group, 0,
-        st);
+// Product p on the tile over the staged xf, or (any) on the any-group
+// route over the int8 rows xq (M, p.K), which it stages into xf.
+cudaError_t product(bool any, const Product& p, const float* xs, int8_t* xf, const int8_t* xq,
+                    int32_t* partial, void* out, int out_kind, int M, int group,
+                    cudaStream_t st) {
+  if (any)
+    return ff::mma8::launch_rows<ff::kPaired, true>(xq, xs, p.w, p.m, p.s, xf, partial, out,
+                                                    out_kind, M, p.K, p.N, group, p.n_split, 0,
+                                                    p.depth, st);
   return ff::mma8::launch_staged<ff::kPaired, true>(xs, p.w, p.m, p.s, xf, partial, out, out_kind,
                                                     M, p.K, p.N, group, p.n_split, 0, p.depth,
                                                     st);
 }
 
 // The head, through hq staged for gate/up: the quantizer of attn (bf16 or
-// f32), o_proj's partials, x1, hq, s_h. xf_o and xf_gu NULL: the
-// CUDA-core route, attn's int8 rows into xq (M, K1) and no staging.
-cudaError_t head(bool fma, const void* attn, int attn_bf16, const void* x_res,
+// f32), o_proj's partials, x1, hq, s_h. `any`: attn's int8 rows into xq
+// (M, K1), no staging by the row kernels.
+cudaError_t head(bool any, bool fma, const void* attn, int attn_bf16, const void* x_res,
                  const __nv_bfloat16* norm_w, const Product& o, int gu_split, float* xs,
                  int8_t* xf_o, int8_t* xf_gu, int8_t* xq, int32_t* partial, float* x1,
                  int8_t* hq, float* s_h, int M, int group, float eps, cudaStream_t st) {
-  const bool any = xf_o == nullptr;
-  if (M < 1 || !takes(o, group, any) || (any && (xq == nullptr || xf_gu != nullptr)))
+  if (M < 1 || !takes(o, group, any) || xf_o == nullptr || xf_gu == nullptr ||
+      (any && xq == nullptr))
     return cudaErrorInvalidValue;
   const int rows = any ? M : ff::mma8::staged_rows(M);
+  int8_t* stage_o = any ? nullptr : xf_o;
   if (attn_bf16)
     tail_quant_kernel<__nv_bfloat16><<<rows, kRowThreads, o.K, st>>>(
-        static_cast<const __nv_bfloat16*>(attn), xs, xf_o, xq, M, o.K, group, o.n_split);
+        static_cast<const __nv_bfloat16*>(attn), xs, stage_o, xq, M, o.K, group, o.n_split);
   else
     tail_quant_kernel<float><<<rows, kRowThreads, o.K, st>>>(
-        static_cast<const float*>(attn), xs, xf_o, xq, M, o.K, group, o.n_split);
+        static_cast<const float*>(attn), xs, stage_o, xq, M, o.K, group, o.n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((err = product(o, xs, xf_o, xq, partial, nullptr, ff::mma8::kOutPartials, M, group, st)) !=
-      cudaSuccess)
+  if ((err = product(any, o, xs, xf_o, xq, partial, nullptr, ff::mma8::kOutPartials, M, group,
+                     st)) != cudaSuccess)
     return err;
   const int H = o.N;
   auto norm = fma ? tail_norm_kernel<true> : tail_norm_kernel<false>;
@@ -432,41 +435,39 @@ cudaError_t head(bool fma, const void* attn, int attn_bf16, const void* x_res,
   if (smem == 0) return cudaErrorInvalidValue;
   norm<<<rows, kRowThreads, smem, st>>>(partial, o.n_split, o.s, xs,
                                         static_cast<const __nv_bfloat16*>(x_res), norm_w, x1, hq,
-                                        s_h, xf_gu, M, H, group, gu_split, eps);
+                                        s_h, any ? nullptr : xf_gu, M, H, group, gu_split, eps);
   return cudaGetLastError();
 }
 
-// The tail's launches (the tile where xf_o is set, else the CUDA-core
-// route over xq, hq and x2); ff_fused_o_mlp's arguments.
-cudaError_t o_mlp(const void* attn, const void* x_res, const void* norm_w, const Product& o,
-                  const Product& gu, const Product& dn, void* xs, void* scales, void* x1,
-                  void* xq, void* hq, void* x2, void* xf_o, void* xf_gu, void* xf_dn,
+// The tail's launches (the tile, or `any` the any-group route over xq, hq
+// and x2); ff_fused_o_mlp's arguments.
+cudaError_t o_mlp(bool any, const void* attn, const void* x_res, const void* norm_w,
+                  const Product& o, const Product& gu, const Product& dn, void* xs, void* scales,
+                  void* x1, void* xq, void* hq, void* x2, void* xf_o, void* xf_gu, void* xf_dn,
                   void* partial, void* out, int M, int H, int I, int layer, int group, float eps,
                   int attn_bf16, int out_bf16, cudaStream_t st) {
-  const bool any = xf_o == nullptr;
-  if (I % 4 != 0 || !takes(gu, group, any) || !takes(dn, group, any) ||
-      (any && (xf_gu != nullptr || xf_dn != nullptr)))
+  if (I % 4 != 0 || !takes(gu, group, any) || !takes(dn, group, any) || xf_dn == nullptr)
     return cudaErrorInvalidValue;
   float* s_h = static_cast<float*>(scales);
   float* s_g = s_h + M;
   int32_t* part = static_cast<int32_t*>(partial);
-  cudaError_t err = head(false, attn, attn_bf16, x_res,
+  cudaError_t err = head(any, false, attn, attn_bf16, x_res,
                          static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H, o,
                          gu.n_split, static_cast<float*>(xs), static_cast<int8_t*>(xf_o),
                          static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(xq), part,
                          static_cast<float*>(x1), static_cast<int8_t*>(hq), s_h, M, group, eps,
                          st);
   if (err != cudaSuccess) return err;
-  if ((err = product(gu, s_h, static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(hq), part,
+  if ((err = product(any, gu, s_h, static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(hq), part,
                      nullptr, ff::mma8::kOutPartials, M, group, st)) != cudaSuccess)
     return err;
   const size_t smem = row_smem(tail_act_kernel, I);
   if (smem == 0) return cudaErrorInvalidValue;
   tail_act_kernel<<<any ? M : ff::mma8::staged_rows(M), kRowThreads, smem, st>>>(
-      part, gu.n_split, gu.s, s_h, static_cast<int8_t*>(x2), s_g, static_cast<int8_t*>(xf_dn), M,
-      I, group, dn.n_split);
+      part, gu.n_split, gu.s, s_h, static_cast<int8_t*>(x2), s_g,
+      any ? nullptr : static_cast<int8_t*>(xf_dn), M, I, group, dn.n_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = product(dn, s_g, static_cast<int8_t*>(xf_dn), static_cast<int8_t*>(x2), part,
+  if ((err = product(any, dn, s_g, static_cast<int8_t*>(xf_dn), static_cast<int8_t*>(x2), part,
                      nullptr, ff::mma8::kOutPartials, M, group, st)) != cudaSuccess)
     return err;
   const int blocks = (M * H / 4 + 255) / 256;
@@ -481,23 +482,23 @@ cudaError_t o_mlp(const void* attn, const void* x_res, const void* norm_w, const
   return cudaGetLastError();
 }
 
-// The o + gate/up head's launches (the tile where xf_o is set, else the
-// CUDA-core route over xq and hq).
-cudaError_t o_gu(const void* attn, const void* x_res, const void* norm_w, const Product& o,
-                 const Product& g, void* xs, void* scales, void* xq, void* hq, void* xf_o,
-                 void* xf_gu, void* partial, void* x1, void* gu, int M, int H, int layer,
-                 int group, float eps, int attn_bf16, cudaStream_t st) {
-  if (!takes(g, group, xf_o == nullptr)) return cudaErrorInvalidValue;
+// The o + gate/up head's launches (the tile, or `any` the any-group route
+// over xq and hq).
+cudaError_t o_gu(bool any, const void* attn, const void* x_res, const void* norm_w,
+                 const Product& o, const Product& g, void* xs, void* scales, void* xq, void* hq,
+                 void* xf_o, void* xf_gu, void* partial, void* x1, void* gu, int M, int H,
+                 int layer, int group, float eps, int attn_bf16, cudaStream_t st) {
+  if (!takes(g, group, any)) return cudaErrorInvalidValue;
   float* s_h = static_cast<float*>(scales);
   int32_t* part = static_cast<int32_t*>(partial);
-  cudaError_t err = head(true, attn, attn_bf16, x_res,
+  cudaError_t err = head(any, true, attn, attn_bf16, x_res,
                          static_cast<const __nv_bfloat16*>(norm_w) + (size_t)layer * H, o,
                          g.n_split, static_cast<float*>(xs), static_cast<int8_t*>(xf_o),
                          static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(xq), part,
                          static_cast<float*>(x1), static_cast<int8_t*>(hq), s_h, M, group, eps,
                          st);
   if (err != cudaSuccess) return err;
-  return product(g, s_h, static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(hq), part, gu,
+  return product(any, g, s_h, static_cast<int8_t*>(xf_gu), static_cast<int8_t*>(hq), part, gu,
                  ff::mma8::kOutBf16, M, group, st);
 }
 
@@ -523,8 +524,7 @@ extern "C" int ff_fused_o_mlp(const void* attn, const void* x_res, const void* n
                               int n_pack_dn, int split_o, int split_gu, int split_dn,
                               int depth_o, int depth_gu, int depth_dn, float eps, int attn_bf16,
                               int out_bf16, void* stream) {
-  if (xf_o == nullptr || xf_gu == nullptr || xf_dn == nullptr) return cudaErrorInvalidValue;
-  return o_mlp(attn, x_res, norm_w,
+  return o_mlp(false, attn, x_res, norm_w,
                layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o),
                layer_product(gu_w, gu_m, gu_s, H, 2 * I, layer, n_pack_gu, split_gu, depth_gu),
                layer_product(dn_w, dn_m, dn_s, I, H, layer, n_pack_dn, split_dn, depth_dn), xs,
@@ -544,8 +544,7 @@ extern "C" int ff_fused_o_gu(const void* attn, const void* x_res, const void* no
                              int n_pack_o, int n_pack_gu, int split_o, int split_gu,
                              int depth_o, int depth_gu, float eps, int attn_bf16,
                              void* stream) {
-  if (xf_o == nullptr || xf_gu == nullptr) return cudaErrorInvalidValue;
-  return o_gu(attn, x_res, norm_w,
+  return o_gu(false, attn, x_res, norm_w,
               layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o),
               layer_product(gu_w, gu_m, gu_s, H, N_GU, layer, n_pack_gu, split_gu, depth_gu), xs,
               scales, nullptr, hq, xf_o, xf_gu, partial, x1, gu, M, H, layer, group, eps,
@@ -553,37 +552,42 @@ extern "C" int ff_fused_o_gu(const void* attn, const void* x_res, const void* no
 }
 
 // The same launches at the groups the tile does not take (g % 4 != 0;
-// whole group pairs, N % 4 == 0), each product on the CUDA-core loop:
-// ff_fused_o_mlp's arguments without the staged operands, splits and
-// depths, and with xq (M, K1) int8 scratch; partial (M, max(H, 2I)) int32.
+// whole group pairs, N % 4 == 0), each product on the any-group route:
+// ff_fused_o_mlp's arguments with xq (M, K1) int8 scratch after x1, each
+// product's xf, split and depth planned by rows_plan (kernels/matmul.py
+// tail_plan).
 extern "C" int ff_fused_o_mlp_any(const void* attn, const void* x_res, const void* norm_w,
                                   const void* o_w, const void* o_m, const void* o_s,
                                   const void* gu_w, const void* gu_m, const void* gu_s,
                                   const void* dn_w, const void* dn_m, const void* dn_s, void* xs,
                                   void* scales, void* x1, void* xq, void* hq, void* x2,
-                                  void* partial, void* out, int M, int K1, int H, int I,
-                                  int layer, int group, int n_pack_o, int n_pack_gu,
-                                  int n_pack_dn, float eps, int attn_bf16, int out_bf16,
+                                  void* xf_o, void* xf_gu, void* xf_dn, void* partial, void* out,
+                                  int M, int K1, int H, int I, int layer, int group,
+                                  int n_pack_o, int n_pack_gu, int n_pack_dn, int split_o,
+                                  int split_gu, int split_dn, int depth_o, int depth_gu,
+                                  int depth_dn, float eps, int attn_bf16, int out_bf16,
                                   void* stream) {
-  return o_mlp(attn, x_res, norm_w, layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, 1, 1),
-               layer_product(gu_w, gu_m, gu_s, H, 2 * I, layer, n_pack_gu, 1, 1),
-               layer_product(dn_w, dn_m, dn_s, I, H, layer, n_pack_dn, 1, 1), xs, scales, x1, xq,
-               hq, x2, nullptr, nullptr, nullptr, partial, out, M, H, I, layer, group, eps,
-               attn_bf16, out_bf16, static_cast<cudaStream_t>(stream));
+  return o_mlp(true, attn, x_res, norm_w,
+               layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o),
+               layer_product(gu_w, gu_m, gu_s, H, 2 * I, layer, n_pack_gu, split_gu, depth_gu),
+               layer_product(dn_w, dn_m, dn_s, I, H, layer, n_pack_dn, split_dn, depth_dn), xs,
+               scales, x1, xq, hq, x2, xf_o, xf_gu, xf_dn, partial, out, M, H, I, layer, group,
+               eps, attn_bf16, out_bf16, static_cast<cudaStream_t>(stream));
 }
 
-// ff_fused_o_gu's launches on the CUDA-core loop: its arguments without
-// the staged operands, splits and depths, with xq (M, K1) int8 scratch;
-// partial (M, H) int32.
+// ff_fused_o_gu's launches on the any-group route: its arguments with xq
+// (M, K1) int8 scratch after scales.
 extern "C" int ff_fused_o_gu_any(const void* attn, const void* x_res, const void* norm_w,
                                  const void* o_w, const void* o_m, const void* o_s,
                                  const void* gu_w, const void* gu_m, const void* gu_s, void* xs,
-                                 void* scales, void* xq, void* hq, void* partial, void* x1,
-                                 void* gu, int M, int K1, int H, int N_GU, int layer, int group,
-                                 int n_pack_o, int n_pack_gu, float eps, int attn_bf16,
-                                 void* stream) {
-  return o_gu(attn, x_res, norm_w, layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, 1, 1),
-              layer_product(gu_w, gu_m, gu_s, H, N_GU, layer, n_pack_gu, 1, 1), xs, scales, xq,
-              hq, nullptr, nullptr, partial, x1, gu, M, H, layer, group, eps, attn_bf16,
+                                 void* scales, void* xq, void* hq, void* xf_o, void* xf_gu,
+                                 void* partial, void* x1, void* gu, int M, int K1, int H,
+                                 int N_GU, int layer, int group, int n_pack_o, int n_pack_gu,
+                                 int split_o, int split_gu, int depth_o, int depth_gu, float eps,
+                                 int attn_bf16, void* stream) {
+  return o_gu(true, attn, x_res, norm_w,
+              layer_product(o_w, o_m, o_s, K1, H, layer, n_pack_o, split_o, depth_o),
+              layer_product(gu_w, gu_m, gu_s, H, N_GU, layer, n_pack_gu, split_gu, depth_gu), xs,
+              scales, xq, hq, xf_o, xf_gu, partial, x1, gu, M, H, layer, group, eps, attn_bf16,
               static_cast<cudaStream_t>(stream));
 }

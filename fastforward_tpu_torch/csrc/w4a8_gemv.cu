@@ -81,10 +81,11 @@
 // device memory.
 //
 // Groups the tile does not take (paired g % 4 != 0, group halves g % 8 !=
-// 0, N % 4 != 0) run common.cuh's CUDA-core loop, one entry a layout and
-// one for the stacked GEMV's every route (the *_any entries below), chosen
-// by kernels/matmul.py two_level_route; row 4 then takes row 5's f32
-// logits and their argmax.
+// 0, N % 4 != 0) run w4a8_mma.cuh's any-group route on the same tensor
+// cores, one entry a layout and one for the stacked GEMV's every route (the
+// *_any entries below, the tile entries' arguments), chosen by
+// kernels/matmul.py two_level_route; row 4 then takes row 5's f32 logits
+// and their argmax.
 //
 // The float-scale W4A8 GEMV (ff_w4a8_gemv_halves, row 16) is w4a8_halves.cu.
 
@@ -225,45 +226,49 @@ extern "C" int ff_w4a8_gemv_concat(const void* x, const void* xs, const void* w,
                       n_pack, n_split, out_kind, bn, depth, stream);
 }
 
-// The CUDA-core route (common.cuh two_level_any_kernel). Rows 5 and 4:
-// x, xs, w, mult (K/g, N) int8, s_col, out, M, K, N, group, out_kind (0
-// f32, 1 bf16), stream; paired (whole group pairs) and group halves (g
-// even).
+// The any-group route (w4a8_mma.cuh launch_rows), planned by
+// kernels/matmul.py rows_plan. Rows 5 and 4: ff_w4a8_gemv's arguments;
+// paired (whole group pairs) and group halves (g even), N any.
 extern "C" int ff_w4a8_gemv_any(const void* x, const void* xs, const void* w, const void* mult,
-                                const void* s_col, void* out, int M, int K, int N, int group,
-                                int out_kind, void* stream) {
-  if (out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16) return cudaErrorInvalidValue;
-  return ff::launch_two_level_any<ff::kPaired, false>(
+                                const void* s_col, void* xf, void* partial, void* out, int M,
+                                int K, int N, int group, int n_split, int depth, int out_kind,
+                                void* stream) {
+  if (out_kind < ff::mma8::kOutF32 || out_kind > ff::mma8::kOutBf16) return cudaErrorInvalidValue;
+  return ff::mma8::launch_rows<ff::kPaired, false>(
       static_cast<const int8_t*>(x), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col), out, out_kind, M, K,
-      N, group, 0, static_cast<cudaStream_t>(stream));
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col),
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_kind, M, K, N, group,
+      n_split, 0, depth, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ff_w4a8_gemv_unpaired_any(const void* x, const void* xs, const void* w,
-                                         const void* mult, const void* s_col, void* out, int M,
-                                         int K, int N, int group, int out_kind, void* stream) {
-  if (out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16) return cudaErrorInvalidValue;
-  return ff::launch_two_level_any<ff::kHalves, false>(
+                                         const void* mult, const void* s_col, void* xf,
+                                         void* partial, void* out, int M, int K, int N,
+                                         int group, int n_split, int depth, int out_kind,
+                                         void* stream) {
+  if (out_kind < ff::mma8::kOutF32 || out_kind > ff::mma8::kOutBf16) return cudaErrorInvalidValue;
+  return ff::mma8::launch_rows<ff::kHalves, false>(
       static_cast<const int8_t*>(x), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col), out, out_kind, M, K,
-      N, group, 0, static_cast<cudaStream_t>(stream));
+      static_cast<const int8_t*>(w), mult, static_cast<const float*>(s_col),
+      static_cast<int8_t*>(xf), static_cast<int32_t*>(partial), out, out_kind, M, K, N, group,
+      n_split, 0, depth, static_cast<cudaStream_t>(stream));
 }
 
-// Row 9 at those groups, every route: layer `layer` of flat (bn 0) or
-// pre-blocked (L, N/bn, K/2, bn) weights, nibble-packed multipliers (L,
-// n_pack, N), s_col (L, N); x, xs, w, mult_packed, s_col, out, M, K, N, L,
-// layer, group, n_pack, out_kind, bn, stream.
+// Row 9 at those groups, every route: ff_w4a8_gemv_stacked's arguments,
+// layer `layer` of flat (bn 0) or pre-blocked (L, N/bn, K/2, bn) weights.
 extern "C" int ff_w4a8_gemv_stacked_any(const void* x, const void* xs, const void* w,
-                                        const void* mult_packed, const void* s_col, void* out,
-                                        int M, int K, int N, int L, int layer, int group,
-                                        int n_pack, int out_kind, int bn, void* stream) {
+                                        const void* mult_packed, const void* s_col, void* xf,
+                                        void* partial, void* out, int M, int K, int N, int L,
+                                        int layer, int group, int n_pack, int n_split,
+                                        int out_kind, int bn, int depth, void* stream) {
   if (layer < 0 || layer >= L || group < 1 || n_pack * 8 < K / group ||
-      out_kind < ff::kAnyF32 || out_kind > ff::kAnyBf16)
+      out_kind < ff::mma8::kOutF32 || out_kind > ff::mma8::kOutBf16)
     return cudaErrorInvalidValue;
-  return ff::launch_two_level_any<ff::kPaired, true>(
+  return ff::mma8::launch_rows<ff::kPaired, true>(
       static_cast<const int8_t*>(x), static_cast<const float*>(xs),
       static_cast<const int8_t*>(w) + (size_t)layer * (K / 2) * N,
       static_cast<const int32_t*>(mult_packed) + (size_t)layer * n_pack * N,
-      static_cast<const float*>(s_col) + (size_t)layer * N, out, out_kind, M, K, N, group, bn,
+      static_cast<const float*>(s_col) + (size_t)layer * N, static_cast<int8_t*>(xf),
+      static_cast<int32_t*>(partial), out, out_kind, M, K, N, group, n_split, bn, depth,
       static_cast<cudaStream_t>(stream));
 }

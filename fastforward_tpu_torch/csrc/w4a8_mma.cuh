@@ -25,6 +25,17 @@
 // (max, first index) pair a row and block; argmax_reduce_kernel reduces
 // the pairs: the ids of torch.argmax over the f32 logits.
 //
+// Two kernels. w4a8_mma_kernel, "the tile", takes every shape where a
+// unit's byte rows a plane are a multiple of 4 (paired g % 4 == 0,
+// vertical and group halves g % 8 == 0) and N % 4 == 0.
+// w4a8_rows_kernel, "the any-group route", takes every other group and
+// width the references take, on the same int8 tensor cores (the entries
+// *_any: ff_a4_gemv_any, ff_w4a8_gemv_any, ff_w4a8_gemv_unpaired_any,
+// ff_w4a8_gemv_stacked_any, and the fused heads' and tail's products at
+// those groups); kernels/matmul.py two_level_route picks by shape. The
+// design notes below are the tile's; "The any-group route" says where the
+// second kernel differs.
+//
 // Bound on the H100: Llama-3-8B's lm_head at M = 192 does 2.0e11 int8
 // operations (0.10 ms at 1,979 TOP/s) on 263 MB of packed weights (0.08
 // ms); a decoder layer's projections 8.4e10 (0.042 ms) on 110 MB. The dp4a
@@ -107,6 +118,58 @@
 //   ring, free once every consumer warp is past its last stage) give the
 //   block's (max, first index) pair under common.cuh's `better`; split
 //   partials take common.cuh's argmax epilogue instead.
+//
+// The any-group route (w4a8_rows_kernel, launch_rows). It replaces a
+// CUDA-core loop (dp4a on folded words, x gathered byte by byte into
+// shared memory once per 32-row run and row block, weights by synchronous
+// 4-byte loads, multipliers re-read from global memory at every group
+// change, int64 shared-memory atomics; 60-70x its bound at down_proj g 14,
+// PERF.md §6). The padding above would cost 16 / 7 of the products at a
+// vertical g of 14 and 4-16x at g <= 4, and an odd vertical group puts a
+// byte row's two nibbles in different groups, so this route pads nothing:
+// - Byte rows in memory order. A split covers rps byte rows (whole kR-row
+//   stages; RowsPlan, kernels/matmul.py rows_plan); slot 4 t + i of half h
+//   of a stage's chunk c is byte row 32 c + 16 h + 4 t + i, so a lane
+//   reads 4 consecutive rows of its column word (the swizzle puts rows 4t
+//   and 4t + 8 in one bank: 2-way conflicts) and a stage is kR contiguous
+//   rows: the tile's TMA box, with no padding rows to skip.
+// - x staged once a call in that order (stage_rows_kernel: a thread a
+//   32-bit fragment word, the k of each slot from the layout, slot_k;
+//   vertical rows as the even or odd bytes of one 8-byte load), zeros past
+//   the split's rows and past M. The fused heads and tail write their int8
+//   rows unstaged and stage them by the same launch.
+// - The fold. Each stage brings the multiplier rows of every group its
+//   rows meet (int8 group rows, or packed words of 8 groups). A word's 4
+//   rows are aligned to 4 (splits and stages start on multiples of 64), so
+//   they meet at most two groups a plane wherever a unit has >= 2 rows
+//   (paired g >= 2, group halves g >= 4, vertical g = 4 or >= 6:
+//   RowsPlan.pairs). Then fold2 folds the plane once with the first row's
+//   multiplier and once with the last row's, and takes the bytes past the
+//   first group's rows from the second (d * m + 0x80808080 with d the
+//   signed nibbles as packed bytes: the tile's fold with its bias folded
+//   into d, carry-free by the same argument); 6 instructions a plane word
+//   where the tile takes 3. Elsewhere (paired g 1, group halves g 2,
+//   vertical g 1, 2, 3, 5) each slot is folded with its own row's
+//   multiplier. Rows past the split multiply zero activations; their
+//   groups are clamped to the split's last row.
+// - Exactness. A split adds at most kMaxSplitRows byte rows in int32
+//   (|acc| <= 65,536 * 2 * 128 * 120 < 2^31); the plan splits K further
+//   where it must. One split: the tile's epilogue in registers
+//   (__int2float_rn of the int32 sum, the value __ll2float_rn gives); more:
+//   int32 partials, summed in int64 by rows_epilogue_kernel, then
+//   __ll2float_rn and the two products; kOutPartials writes each split's
+//   int32 partial for the fused tail's row kernels, as on the tile.
+// - Width. The producer fills a stage by the tile's TMA box and bulk
+//   copies where rows are 16-byte runs (N % 16 == 0, a pre-blocked panel
+//   a multiple of kN), else by 4-byte cp.async (N % 4 == 0, bn % 4 == 0),
+//   else byte by byte (N % 4 != 0 or bn % 4 != 0); the consumers read
+//   the same swizzled stage whatever filled it. The epilogue stores 16
+//   bytes only where N % 4 == 0.
+// - Splits. Two blocks an SM; kernels/matmul.py rows_plan picks the K
+//   splits whose blocks the SMs finish first when they take them in turns
+//   (a partial last wave costs a whole block's time: at down_proj g 14, M
+//   = 192, 4 splits beat the tile's rule of 3 by a fifth). Bound: that
+//   shape's 2.3e10 int8 operations, 0.0114 ms at 1,979 TOP/s.
 
 #pragma once
 
@@ -891,6 +954,602 @@ cudaError_t launch(const int8_t* x, const float* xs, const int8_t* w, const void
   return launch_staged<LAYOUT, PACKED, ARGMAX>(xs, w, mult, s_col, xf, partial, out, out_kind, M,
                                                K, N, group, n_split, bn, depth, stream, pair_val,
                                                pair_idx);
+}
+
+// --- The any-group route: byte rows in memory order ------------------------
+// (the header's "The any-group route"). Host and kernels derive the same
+// RowsPlan from (layout, K, group, n_split); kernels/matmul.py rows_plan
+// mirrors it.
+
+constexpr int kMaxSplitRows = 65536;  // byte rows one split sums in int32
+// How the producer fills a stage: one TMA box, 4-byte cp.async words, or
+// byte loads and stores (N % 4 != 0, or a panel width bn % 4 != 0).
+constexpr int kFeedTma = 0, kFeedWords = 1, kFeedBytes = 2;
+
+// Whether the reference takes LAYOUT at (K, group): vertical K even and
+// whole groups; paired whole group pairs; group halves an even group.
+template <int LAYOUT>
+__host__ __device__ inline bool layout_takes(int K, int group) {
+  if (group < 1 || K < 2 || K % 2 != 0) return false;
+  if (LAYOUT == kPaired) return K % (2 * group) == 0;
+  if (LAYOUT == kHalves) return group % 2 == 0 && K % group == 0;
+  return K % group == 0;
+}
+
+struct RowsPlan {
+  int rows;        // byte rows of the layer, K / 2
+  int rps;         // byte rows a split covers (whole stages; the last split fewer)
+  int n_split;
+  int stages;      // ring stages a split streams: rps / kR
+  int mult_rows;   // multiplier rows a stage holds: int8 group rows, or packed words
+  int mult_bytes;  // their shared bytes
+  bool pairs;      // a word's 4 rows meet at most 2 groups in each plane
+};
+
+__host__ __device__ inline RowsPlan rows_plan_of(int layout, bool packed, int K, int group,
+                                                 int n_split) {
+  RowsPlan p;
+  p.rows = K / 2;
+  const int per = (p.rows + n_split - 1) / n_split;
+  p.rps = (per + kR - 1) / kR * kR;
+  p.n_split = (p.rows + p.rps - 1) / p.rps;
+  p.stages = p.rps / kR;
+  // the groups kR consecutive byte rows can meet, in both planes
+  const int n_groups = K / group;
+  const int span = layout == kPaired   ? 2 * ((kR - 1) / group + 2)
+                   : layout == kHalves ? (kR - 1) / (group / 2) + 2
+                                       : (2 * kR - 1) / group + 2;
+  const int groups = span < n_groups ? span : n_groups;
+  const int words = (n_groups + 7) / 8;
+  p.mult_rows = packed ? ((groups - 1) / 8 + 2 < words ? (groups - 1) / 8 + 2 : words) : groups;
+  p.mult_bytes = p.mult_rows * kN * (packed ? 4 : 1);
+  // aligned 4-row words: paired units of g >= 2 rows, group halves of
+  // g / 2 >= 2, vertical k = 8a + {0, 2, 4, 6} (+1) at g = 4 or g >= 6
+  p.pairs = layout == kPaired   ? group >= 2
+            : layout == kHalves ? group >= 4
+                                : group == 4 || group >= 6;
+  return p;
+}
+
+// A stage: the weight rows, the multiplier rows, the activation fragments
+// (a multiple of 1024 bytes: the swizzle's period).
+__host__ __device__ constexpr int rows_stage_bytes(int mt, int mult_bytes) {
+  return (kWBytes + mult_bytes + a_stage_bytes(mt) + 1023) / 1024 * 1024;
+}
+inline size_t rows_smem_bytes(int mt, int depth, int mult_bytes) {
+  return (size_t)depth * rows_stage_bytes(mt, mult_bytes) + (size_t)depth * 16 + 1024;
+}
+
+// Division by a launch-uniform divisor d as one multiply-high: m =
+// floor((2^32 - 1) / d) + 1 gives floor(n / d) for every n with n * d <
+// 2^32 (launch_rows checks (K + 2) * group < 2^32).
+struct FastDiv {
+  unsigned d, m;
+  __host__ __device__ explicit FastDiv(unsigned d_)
+      : d(d_), m(d_ <= 1 ? 0u : 0xFFFFFFFFu / d_ + 1u) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    return d <= 1 ? n : (int)__umulhi((unsigned)n, m);
+  }
+};
+
+// The group of the nibble of byte row r in plane p, and the first byte row
+// past group G's rows in plane p. Paired rows come in units of g (groups 2u
+// and 2u + 1), group halves in units of g / 2 (group u in both planes), and
+// so does the vertical layout at an even g (k = 2r, 2r + 1 both in group
+// r / (g / 2)); at an odd g its planes change group at different rows.
+template <int LAYOUT>
+struct RowGroups {
+  FastDiv gdiv, hdiv;
+  int group;
+  __device__ __forceinline__ int of(int r, int p) const {
+    if (LAYOUT == kVertical) return gdiv(2 * r + p);
+    if (LAYOUT == kPaired) return 2 * gdiv(r) + p;
+    return hdiv(r);
+  }
+  __device__ __forceinline__ int end(int G, int p) const {
+    if (LAYOUT == kVertical) return ((G + 1) * group - p + 1) / 2;
+    if (LAYOUT == kPaired) return (G / 2 + 1) * group;
+    return (G + 1) * (group / 2);
+  }
+};
+
+// k of the nibble of byte row r in plane p (pack_int4_vertical,
+// pack_uint4_offset_paired, pack_uint4_offset).
+template <int LAYOUT>
+__device__ __forceinline__ int slot_k(int r, int p, int group) {
+  if (LAYOUT == kVertical) return 2 * r + p;
+  if (LAYOUT == kPaired) {
+    const int u = r / group;
+    return (2 * u + p) * group + (r - u * group);
+  }
+  const int h = group / 2, u = r / h;
+  return u * group + p * h + (r - u * h);
+}
+
+// x (M, K) to the fragments of every (m tile, split, stage) in the order of
+// stage_x_kernel, with the slots in byte-row order: slot 4 t + i of half h
+// of chunk c of stage s holds byte row split * rps + s * kR + 32 c + 16 h +
+// 4 t + i (its k in `plane`); zeros past the split's rows and past M. One
+// thread a 32-bit word (a lane's register of a fragment).
+template <int LAYOUT>
+__global__ void stage_rows_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ xf, int M,
+                                  int K, int group, int rps, int n_split, int stages, int mt,
+                                  long long words) {
+  const long long wi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (wi >= words) return;
+  const int reg = (int)(wi & 3), lane = (int)((wi >> 2) & 31);
+  long long f = wi >> 7;
+  const int ti = (int)(f % mt);
+  f /= mt;
+  const int plane = (int)(f % 2);
+  f /= 2;
+  const int c = (int)(f % kChunks);
+  f /= kChunks;
+  const int s = (int)(f % stages);
+  f /= stages;
+  const int split = (int)(f % n_split), m_tile = (int)(f / n_split);
+  const int m = (m_tile * mt + ti) * 16 + lane / 4 + 8 * (reg & 1);
+  const int rows = K / 2;
+  const int ra = split * rps + s * kR + 32 * c + 16 * (reg >> 1) + 4 * (lane % 4);
+  const int re = min(rows, (split + 1) * rps);
+  unsigned word = 0;
+  if (m < M) {
+    const int8_t* xr = x + (size_t)m * K;
+    if (LAYOUT == kVertical && ra + 4 <= re &&
+        reinterpret_cast<uintptr_t>(xr + 2 * ra) % 8 == 0) {
+      // k = 2 ra + plane + {0, 2, 4, 6}: the even or odd bytes of 8
+      const uint2 v = *reinterpret_cast<const uint2*>(xr + 2 * ra);
+      word = __byte_perm(v.x, v.y, plane ? 0x7531u : 0x6420u);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (ra + i < re)
+          word |= static_cast<unsigned>(static_cast<uint8_t>(xr[slot_k<LAYOUT>(ra + i, plane, group)]))
+                  << (8 * i);
+    }
+  }
+  reinterpret_cast<unsigned*>(xf)[wi] = word;
+}
+
+// Columns cw..cw + 3 of group G's multipliers in a stage's rows (first row
+// `base`: a group, or PACKED a word of 8 groups).
+template <bool PACKED>
+__device__ __forceinline__ void stage_mult(const unsigned char* sm, int G, int base, int cw,
+                                           unsigned m[4]) {
+  if (PACKED) {
+    const uint4 v = *reinterpret_cast<const uint4*>(sm + ((size_t)((G >> 3) - base) * kN + cw) * 4);
+    const int sh = 4 * (G & 7);
+    m[0] = (v.x >> sh) & 15u, m[1] = (v.y >> sh) & 15u;
+    m[2] = (v.z >> sh) & 15u, m[3] = (v.w >> sh) & 15u;
+  } else {
+    const unsigned v = *reinterpret_cast<const unsigned*>(sm + (size_t)(G - base) * kN + cw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m[j] = (v >> (8 * j)) & 255u;
+  }
+}
+
+// Both planes' multipliers of paired unit u (groups 2u, 2u + 1: one packed
+// word, bits 8 (u % 4) and up).
+template <bool PACKED>
+__device__ __forceinline__ void stage_mult_pair(const unsigned char* sm, int u, int base, int cw,
+                                                unsigned lo[4], unsigned hi[4]) {
+  if (PACKED) {
+    const uint4 v = *reinterpret_cast<const uint4*>(sm + ((size_t)((u >> 2) - base) * kN + cw) * 4);
+    const int sh = 8 * (u & 3);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) lo[j] = (w[j] >> sh) & 15u, hi[j] = (w[j] >> (sh + 4)) & 15u;
+  } else {
+    stage_mult<false>(sm, 2 * u, base, cw, lo);
+    stage_mult<false>(sm, 2 * u + 1, base, cw, hi);
+  }
+}
+
+// Bytes i >= n of a word (n rows of the word in its first group).
+__device__ __forceinline__ unsigned tail_mask(int n) {
+  return n >= 4 ? 0u : n <= 0 ? 0xFFFFFFFFu : 0xFFFFFFFFu << (8 * n);
+}
+
+// One plane of a column word with two multipliers: the fold of the tile
+// (d = the signed nibbles as packed bytes, d * m + 0x80808080 is m * v +
+// 128 in every byte, no carry: m * v + 128 in [8, 233]), once with mA and
+// once with mB, the bytes of `mask` from the second; ^ 0x80808080 gives
+// the int8 bytes m * v.
+__device__ __forceinline__ unsigned fold2(unsigned nib, unsigned mA, unsigned mB,
+                                          unsigned mask) {
+  const unsigned d = nib - 0x08080808u;
+  const unsigned fa = d * mA + 0x80808080u, fb = d * mB + 0x80808080u;
+  return ((fa & ~mask) | (fb & mask)) ^ 0x80808080u;
+}
+
+// The folded B registers of one half: col[j] holds byte rows ra..ra + 3 of
+// column cw + j (byte i row ra + i); rows past `rlast` multiply zero
+// activations, so their groups are clamped to rlast's (the stage holds
+// them). PAIRS: each plane meets groups gA (the first row's) and gB (the
+// last's); else slot by slot, each row with its own group.
+template <int LAYOUT, bool PACKED, bool PAIRS>
+__device__ __forceinline__ void fold_rows(const unsigned col[4], int ra, int rlast,
+                                          const RowGroups<LAYOUT>& grp, const unsigned char* sm,
+                                          int base, int cw, unsigned lo[4], unsigned hi[4]) {
+  unsigned v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = LAYOUT == kVertical ? col[j] ^ 0x88888888u : col[j];
+  const int r0 = min(ra, rlast), r3 = min(ra + 3, rlast);
+  if constexpr (PAIRS) {
+    unsigned a0[4], a1[4], b0[4], b1[4], mask0, mask1;
+    if (LAYOUT == kPaired) {
+      const int uA = grp.gdiv(r0), uB = grp.gdiv(r3);
+      mask0 = mask1 = tail_mask((uA + 1) * grp.group - ra);
+      stage_mult_pair<PACKED>(sm, uA, base, cw, a0, a1);
+      stage_mult_pair<PACKED>(sm, uB, base, cw, b0, b1);
+    } else if (LAYOUT == kHalves || grp.group % 2 == 0) {
+      const int uA = grp.hdiv(r0), uB = grp.hdiv(r3);
+      mask0 = mask1 = tail_mask((uA + 1) * (grp.group / 2) - ra);
+      stage_mult<PACKED>(sm, uA, base, cw, a0);
+      stage_mult<PACKED>(sm, uB, base, cw, b0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a1[j] = a0[j], b1[j] = b0[j];
+    } else {
+      const int gA0 = grp.of(r0, 0), gA1 = grp.of(r0, 1);
+      mask0 = tail_mask(grp.end(gA0, 0) - ra);
+      mask1 = tail_mask(grp.end(gA1, 1) - ra);
+      stage_mult<PACKED>(sm, gA0, base, cw, a0);
+      stage_mult<PACKED>(sm, grp.of(r3, 0), base, cw, b0);
+      stage_mult<PACKED>(sm, gA1, base, cw, a1);
+      stage_mult<PACKED>(sm, grp.of(r3, 1), base, cw, b1);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo[j] = fold2(v[j] & 0x0F0F0F0Fu, a0[j], b0[j], mask0);
+      hi[j] = fold2((v[j] >> 4) & 0x0F0F0F0Fu, a1[j], b1[j], mask1);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      unsigned m[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) stage_mult<PACKED>(sm, grp.of(min(ra + i, r3), p), base, cw, m[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned f = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int u = (int)((v[j] >> (8 * i + 4 * p)) & 15u);
+          f |= ((unsigned)((u - 8) * (int)m[i][j]) & 255u) << (8 * i);
+        }
+        (p ? hi : lo)[j] = f;
+      }
+    }
+  }
+}
+
+// The any-group tile. Grid (m tiles, n tiles, n_split), kThreads threads,
+// dynamic shared memory rows_smem_bytes(MT, depth, mult_bytes). Operands
+// as w4a8_mma_kernel's; xf staged by stage_rows_kernel; feed kFeedTma,
+// kFeedWords or kFeedBytes. n_split > 1 or out_kind kOutPartials: int32
+// partials (n_split, M, N); else y as f32 or bf16.
+// Two blocks an SM (up to 204 registers; MT = 4 takes ~145, no spill).
+template <int LAYOUT, bool PACKED, int MT, bool PAIRS>
+__global__ void __launch_bounds__(kThreads, 2)
+w4a8_rows_kernel(const __grid_constant__ CUtensorMap tmap, int feed,
+                 const int8_t* __restrict__ xf, const float* __restrict__ xs,
+                 const int8_t* __restrict__ w, const void* __restrict__ mult,
+                 const float* __restrict__ s_col, int32_t* __restrict__ partial,
+                 void* __restrict__ out, int out_kind, int M, int K, int N, int group,
+                 int n_split, int rps, int bn, int depth, int mult_bytes) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  constexpr int kABytes = a_stage_bytes(MT);
+  const int stage_b = rows_stage_bytes(MT, mult_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)depth * stage_b);
+  uint64_t* empty = full + depth;
+  const int m_tile = blockIdx.x, n_tile = blockIdx.y, split = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = K / 2, pitch = bn > 0 ? bn : N;
+  const int rs = split * rps, re = min(rows, rs + rps);
+  const int stages = (re - rs + kR - 1) / kR;  // this split's; rps / kR in xf
+  const int c0 = n_tile * kN;
+  const RowGroups<LAYOUT> grp{FastDiv(group), FastDiv(max(1, group / 2)), group};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(full + s, feed == kFeedTma ? 1 : 33);
+      mbar_init(empty + s, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // ---- the producer warp
+    const int wcols = min(kN, N - c0);
+    const unsigned mrow = PACKED ? 4u * wcols : (unsigned)wcols;  // bytes of a multiplier row
+    const int8_t* xsrc = xf + ((size_t)m_tile * n_split + split) * (rps / kR) * kABytes;
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s % depth;
+      if (s >= depth) mbar_wait_or_trap(empty + slot, ((s / depth) - 1) & 1);
+      unsigned char* st = smem + (size_t)slot * stage_b;
+      int8_t* sw = reinterpret_cast<int8_t*>(st);
+      unsigned char* sm = st + kWBytes;
+      unsigned char* sa = sm + mult_bytes;
+      const int ra0 = rs + s * kR, n_rows = min(kR, re - ra0);
+      const int g0 = grp.of(ra0, 0), g1 = grp.of(ra0 + n_rows - 1, 1);
+      const int base = PACKED ? g0 >> 3 : g0;
+      const int nm = (PACKED ? g1 >> 3 : g1) - base + 1;
+      if (feed == kFeedTma) {
+        // one box of weight rows (rows past the layer read as zeros, rows
+        // of the next split multiply zeros), the fragments, and one bulk
+        // copy a multiplier row
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + slot, kWBytes + kABytes + nm * mrow);
+          if (bn > 0)
+            tma_box(sw, &tmap, c0 % bn, (c0 / bn) * rows + ra0, full + slot);
+          else
+            tma_box(sw, &tmap, c0, ra0, full + slot);
+          bulk_g2s(sa, xsrc + (size_t)s * kABytes, kABytes, full + slot);
+        }
+        __syncwarp();
+        for (int v = lane; v < nm; v += 32) {
+          if (PACKED)
+            bulk_g2s(sm + (size_t)v * kN * 4,
+                     static_cast<const int32_t*>(mult) + (size_t)(base + v) * N + c0, mrow,
+                     full + slot);
+          else
+            bulk_g2s(sm + (size_t)v * kN,
+                     static_cast<const int8_t*>(mult) + (size_t)(base + v) * N + c0, mrow,
+                     full + slot);
+        }
+        continue;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + slot, kABytes);
+        bulk_g2s(sa, xsrc + (size_t)s * kABytes, kABytes, full + slot);
+      }
+      if (feed == kFeedWords) {
+        // each lane one 4-column word a row, to its swizzled place
+        const int c = c0 + 4 * lane;
+        if (c < N) {
+          const int8_t* wc = panel_col(w, K, N, bn, c);
+          for (int rho = 0; rho < n_rows; ++rho)
+            cp_async<4>(sw + swz(rho, 4 * lane), wc + (size_t)(ra0 + rho) * pitch, true);
+        }
+        for (int v = 0; v < nm; ++v) {
+          if (PACKED) {
+            const int32_t* src = static_cast<const int32_t*>(mult) + (size_t)(base + v) * N + c0;
+            for (int cc = lane; cc < wcols; cc += 32)
+              cp_async<4>(sm + ((size_t)v * kN + cc) * 4, src + cc, true);
+          } else if (c < N) {
+            cp_async<4>(sm + (size_t)v * kN + 4 * lane,
+                        static_cast<const int8_t*>(mult) + (size_t)(base + v) * N + c, true);
+          }
+        }
+        cp_async_arrive(full + slot);
+      } else {
+        // byte by byte (no 4-byte run is aligned)
+        for (int rho = 0; rho < n_rows; ++rho)
+          for (int cc = lane; cc < wcols; cc += 32)
+            sw[swz(rho, cc)] = panel_col(w, K, N, bn, c0 + cc)[(size_t)(ra0 + rho) * pitch];
+        for (int v = 0; v < nm; ++v)
+          for (int cc = lane; cc < wcols; cc += 32) {
+            const size_t at = (size_t)(base + v) * N + c0 + cc;
+            if (PACKED)
+              reinterpret_cast<int32_t*>(sm)[(size_t)v * kN + cc] =
+                  static_cast<const int32_t*>(mult)[at];
+            else
+              sm[(size_t)v * kN + cc] =
+                  static_cast<uint8_t>(static_cast<const int8_t*>(mult)[at]);
+          }
+        mbar_arrive(full + slot);
+      }
+    }
+    if (feed == kFeedWords) cp_async_wait_all();
+    return;
+  }
+
+  // ---- the consumer warps: 32 columns each, every row of the block
+  const int gid = lane / 4, tid = lane % 4;
+  const int cw = warp * 32 + 4 * gid;  // this lane's 4 B columns in the block
+  // its word in rows 4 tid + i of each 16-row half: row r0 + 4 tid + i of
+  // a stage (r0 a multiple of 16) at r0 * kN + 4 tid * kN + xo[i]
+  int xo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xo[i] = swz(4 * tid + i, cw) - 4 * tid * kN;
+  int acc[MT][4][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[t][j][r] = 0;
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % depth;
+    mbar_wait_or_trap(full + slot, (s / depth) & 1);
+    const unsigned char* st = smem + (size_t)slot * stage_b;
+    const int8_t* sw = reinterpret_cast<const int8_t*>(st) + 4 * tid * kN;
+    const unsigned char* sm = st + kWBytes;
+    const unsigned char* sa = sm + mult_bytes + lane * 16;
+    const int ra0 = rs + s * kR, rlast = min(ra0 + kR, re) - 1;
+    const int base = PACKED ? grp.of(ra0, 0) >> 3 : grp.of(ra0, 0);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      unsigned lo[2][4], hi[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned r[4], col[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          r[i] = *reinterpret_cast<const unsigned*>(sw + (32 * c + 16 * h) * kN + xo[i]);
+        transpose4x4(r, col);  // col[j] byte i: row 4 tid + i of column cw + j
+        fold_rows<LAYOUT, PACKED, PAIRS>(col, ra0 + 32 * c + 16 * h + 4 * tid, rlast, grp, sm,
+                                         base, cw, lo[h], hi[h]);
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        const uint4 alo = *reinterpret_cast<const uint4*>(sa + ((c * 2 + 0) * MT + t) * kFrag);
+        const uint4 ahi = *reinterpret_cast<const uint4*>(sa + ((c * 2 + 1) * MT + t) * kFrag);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma16832(acc[t][j], alo, lo[0][j], lo[1][j]);
+          mma16832(acc[t][j], ahi, hi[0][j], hi[1][j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+  }
+
+  // ---- epilogue: register r of tile j holds column 8 tid + 4 (r % 2) + j
+  // of row gid + 8 (r / 2); 16-byte stores only where N % 4 == 0
+  const int nb = c0 + warp * 32 + 8 * tid;
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = (m_tile * MT + t) * 16 + gid + 8 * hr;
+      if (m >= M || nb >= N) continue;
+      int v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] = acc[t][c % 4][2 * hr + c / 4];
+      if (n_split > 1 || out_kind == kOutPartials) {
+        int32_t* p = partial + ((size_t)split * M + m) * N + nb;
+        if (N % 4 == 0 && nb + 8 <= N) {
+          reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<int4*>(p)[1] = make_int4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (nb + c < N) p[c] = v[c];
+        }
+        continue;
+      }
+      const float xm = xs[m];
+      float y[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        y[c] = nb + c < N ? __fmul_rn(__fmul_rn(__int2float_rn(v[c]), s_col[nb + c]), xm) : 0.f;
+      if (out_kind == kOutBf16) {
+        store8(static_cast<__nv_bfloat16*>(out) + (size_t)m * N, nb, N, y);  // 16 bytes at N % 8 == 0
+      } else if (N % 4 == 0) {
+        store8(static_cast<float*>(out) + (size_t)m * N, nb, N, y);
+      } else {
+        float* row = static_cast<float*>(out) + (size_t)m * N;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (nb + c < N) row[nb + c] = y[c];
+      }
+    }
+}
+
+// The split epilogue of the any-group route: the int32 partials summed in
+// int64 (exact for every K), then __ll2float_rn and the tile's two
+// round-to-nearest products. One thread an output.
+template <typename OutT>
+__global__ void rows_epilogue_kernel(const int32_t* __restrict__ partial, int n_split, int M,
+                                     int N, const float* __restrict__ s_col,
+                                     const float* __restrict__ xs, OutT* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long MN = (long long)M * N;
+  if (i >= MN) return;
+  long long acc = 0;
+  for (int s = 0; s < n_split; ++s) acc += partial[s * MN + i];
+  store<OutT>(out + i,
+              __fmul_rn(__fmul_rn(__ll2float_rn(acc), s_col[i % N]), xs[i / N]));
+}
+
+template <int LAYOUT, bool PACKED, int MT, bool PAIRS>
+cudaError_t launch_rows_tile(const CUtensorMap& tmap, int feed, const int8_t* xf,
+                             const float* xs, const int8_t* w, const void* mult,
+                             const float* s_col, int32_t* partial, void* out, int out_kind,
+                             int M, int K, int N, int group, const RowsPlan& pl, int bn,
+                             int depth, cudaStream_t stream) {
+  const size_t smem = rows_smem_bytes(MT, depth, pl.mult_bytes);
+  auto kernel = w4a8_rows_kernel<LAYOUT, PACKED, MT, PAIRS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + kN - 1) / kN, pl.n_split);
+  kernel<<<grid, kThreads, smem, stream>>>(tmap, feed, xf, xs, w, mult, s_col, partial, out,
+                                           out_kind, M, K, N, group, pl.n_split, pl.rps, bn,
+                                           depth, pl.mult_bytes);
+  return cudaGetLastError();
+}
+
+template <int LAYOUT, bool PACKED, bool PAIRS>
+cudaError_t launch_rows_mt(const CUtensorMap& tmap, int feed, const int8_t* xf, const float* xs,
+                           const int8_t* w, const void* mult, const float* s_col,
+                           int32_t* partial, void* out, int out_kind, int M, int K, int N,
+                           int group, const RowsPlan& pl, int bn, int depth,
+                           cudaStream_t stream) {
+  switch (tiles_of(M)) {
+    case 1:
+      return launch_rows_tile<LAYOUT, PACKED, 1, PAIRS>(tmap, feed, xf, xs, w, mult, s_col,
+                                                        partial, out, out_kind, M, K, N, group,
+                                                        pl, bn, depth, stream);
+    case 2:
+      return launch_rows_tile<LAYOUT, PACKED, 2, PAIRS>(tmap, feed, xf, xs, w, mult, s_col,
+                                                        partial, out, out_kind, M, K, N, group,
+                                                        pl, bn, depth, stream);
+    default:
+      return launch_rows_tile<LAYOUT, PACKED, 4, PAIRS>(tmap, feed, xf, xs, w, mult, s_col,
+                                                        partial, out, out_kind, M, K, N, group,
+                                                        pl, bn, depth, stream);
+  }
+}
+
+// The whole any-group GEMV: stage x (M, K) into xf (the wrapper sizes it:
+// rows_plan's x_bytes) by stage_rows_kernel, the tile, and with n_split > 1
+// (f32 or bf16 out) rows_epilogue_kernel. Weights flat (K/2, N) or
+// pre-blocked (N/bn, K/2, bn); mult int8 (K/g, N) or PACKED nibble-packed
+// int32. cudaErrorInvalidValue for a shape the plan does not cover.
+template <int LAYOUT, bool PACKED>
+cudaError_t launch_rows(const int8_t* x, const float* xs, const int8_t* w, const void* mult,
+                        const float* s_col, int8_t* xf, int32_t* partial, void* out,
+                        int out_kind, int M, int K, int N, int group, int n_split, int bn,
+                        int depth, cudaStream_t stream) {
+  if (M < 1 || N < 1 || n_split < 1 || depth < 1 || out_kind < kOutF32 ||
+      out_kind > kOutPartials || !layout_takes<LAYOUT>(K, group) || bn < 0 ||
+      (bn > 0 && N % bn != 0) || (long long)(K + 2) * group >= (1ll << 32))
+    return cudaErrorInvalidValue;
+  const RowsPlan pl = rows_plan_of(LAYOUT, PACKED, K, group, n_split);
+  if (pl.n_split != n_split || pl.rps > kMaxSplitRows ||
+      rows_smem_bytes(tiles_of(M), depth, pl.mult_bytes) > 232448 ||
+      ((n_split > 1 || out_kind == kOutPartials) && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const int mt = tiles_of(M);
+  const long long words = (long long)(staged_rows(M) / (16 * mt)) * n_split * pl.stages *
+                          (a_stage_bytes(mt) / 4);
+  stage_rows_kernel<LAYOUT><<<(unsigned)((words + 255) / 256), 256, 0, stream>>>(
+      x, xf, M, K, group, pl.rps, n_split, pl.stages, mt, words);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the feed: the tile's TMA box and bulk copies where rows are 16-byte
+  // runs and a block's columns lie in one panel, else 4-byte words, else
+  // bytes
+  const int pitch = bn > 0 ? bn : N;
+  const bool words_ok = N % 4 == 0 && pitch % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(w) % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(mult) % 4 == 0;
+  const bool mult_ok = reinterpret_cast<uintptr_t>(mult) % 16 == 0 && (PACKED || N % 16 == 0);
+  CUtensorMap tmap = {};
+  const bool tma = words_ok && mult_ok && (bn == 0 || bn % kN == 0) &&
+                   cached_weight_map(&tmap, w, pitch,
+                                     bn > 0 ? (long long)(N / bn) * (K / 2) : K / 2, pitch);
+  const int feed = tma ? kFeedTma : words_ok ? kFeedWords : kFeedBytes;
+  err = pl.pairs ? launch_rows_mt<LAYOUT, PACKED, true>(tmap, feed, xf, xs, w, mult, s_col,
+                                                        partial, out, out_kind, M, K, N, group,
+                                                        pl, bn, depth, stream)
+                 : launch_rows_mt<LAYOUT, PACKED, false>(tmap, feed, xf, xs, w, mult, s_col,
+                                                         partial, out, out_kind, M, K, N, group,
+                                                         pl, bn, depth, stream);
+  if (err != cudaSuccess || n_split == 1 || out_kind == kOutPartials) return err;
+  const long long outs = (long long)M * N;
+  const unsigned blocks = (unsigned)((outs + 255) / 256);
+  if (out_kind == kOutBf16)
+    rows_epilogue_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+        partial, n_split, M, N, s_col, xs, static_cast<__nv_bfloat16*>(out));
+  else
+    rows_epilogue_kernel<float><<<blocks, 256, 0, stream>>>(partial, n_split, M, N, s_col, xs,
+                                                           static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace mma8

@@ -53,9 +53,9 @@ SIGNATURES = {
         # NULL), out, M, K, N, L, layer, group, n_pack, n_split, depth,
         # out_kind (0 f32, 1 bf16), stream (the tensor-core tile)
         "ff_a4_gemv": [P] * 8 + [I] * 10 + [P],
-        # x, xs, w, mult_packed, s_col, out, M, K, N, L, layer, group,
-        # n_pack, out_kind, stream (any other group: the CUDA-core loop)
-        "ff_a4_gemv_any": [P] * 6 + [I] * 8 + [P],
+        # the same arguments at any other group (the any-group route on the
+        # same tensor cores; xf, n_split and depth of matmul.rows_plan)
+        "ff_a4_gemv_any": [P] * 8 + [I] * 10 + [P],
     },
     "w4a8_gemv": {
         # x, xs, w, mult, s_col, xf (staged activations), partial (or NULL),
@@ -73,13 +73,12 @@ SIGNATURES = {
         # ring of `depth` stages
         **{f"ff_w4a8_gemv_{route}": [P] * 8 + [I] * 11 + [P]
            for route in ("stacked", "preblocked", "manual", "splitw", "dotraw", "concat")},
-        # x, xs, w, mult, s_col, out, M, K, N, group, out_kind, stream (any
-        # other group: the CUDA-core loop), paired and group halves
-        "ff_w4a8_gemv_any": [P] * 6 + [I] * 5 + [P],
-        "ff_w4a8_gemv_unpaired_any": [P] * 6 + [I] * 5 + [P],
-        # x, xs, w, mult_packed, s_col, out, M, K, N, L, layer, group,
-        # n_pack, out_kind, bn, stream (the stacked GEMV's every route)
-        "ff_w4a8_gemv_stacked_any": [P] * 6 + [I] * 9 + [P],
+        # any other group (the any-group route; xf, n_split and depth of
+        # matmul.rows_plan): ff_w4a8_gemv's arguments, paired and group
+        # halves, and ff_w4a8_gemv_stacked's (the stacked GEMV's every route)
+        "ff_w4a8_gemv_any": [P] * 8 + [I] * 7 + [P],
+        "ff_w4a8_gemv_unpaired_any": [P] * 8 + [I] * 7 + [P],
+        "ff_w4a8_gemv_stacked_any": [P] * 8 + [I] * 11 + [P],
     },
     "w4a8_halves": {
         # x, xs, w, w_scale, out, xp (x in byte-row order, or NULL), M, K,
@@ -136,16 +135,11 @@ SIGNATURES = {
         # group, n_pack_o, n_pack_gu, split_o, split_gu, depth_o, depth_gu,
         # eps, attn_bf16, stream
         "ff_fused_o_gu": [P] * 17 + [I] * 12 + [F, I, P],
-        # the same on the CUDA-core loop (any other group): attn, x_res,
-        # norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, dn_w, dn_m, dn_s, scratch
-        # xs, scales, x1, xq, hq, x2, partial, out, M, K1, H, I, layer,
-        # group, n_pack_o, n_pack_gu, n_pack_dn, eps, attn_bf16, out_bf16,
-        # stream
-        "ff_fused_o_mlp_any": [P] * 20 + [I] * 9 + [F, I, I, P],
-        # attn, x_res, norm_w, o_w, o_m, o_s, gu_w, gu_m, gu_s, scratch xs,
-        # scales, xq, hq, partial, x1, gu, M, K1, H, N_GU, layer, group,
-        # n_pack_o, n_pack_gu, eps, attn_bf16, stream
-        "ff_fused_o_gu_any": [P] * 16 + [I] * 8 + [F, I, P],
+        # the same on the any-group route (any other group): the scratch
+        # regions of matmul.tail_plan(..., route="any"), with xq (M, K1)
+        # int8 after x1 (the tail) or after scales (the head)
+        "ff_fused_o_mlp_any": [P] * 23 + [I] * 15 + [F, I, I, P],
+        "ff_fused_o_gu_any": [P] * 18 + [I] * 12 + [F, I, P],
     },
     "fused_head": {
         # x, norm_w, w, mult_packed, s_col, hq, hs, xf (staged activations,
@@ -153,10 +147,9 @@ SIGNATURES = {
         # group, n_pack, n_split, depth, inv_k, eps, out_bf16, stream (the
         # tensor-core tile: paired layout, and vertical for the A4 head)
         **{f"ff_fused_norm_qkv{sfx}": [P] * 10 + [I] * 8 + [F, F, I, P] for sfx in ("", "_a4")},
-        # x, norm_w, w, mult_packed, s_col, hq, hs, out, M, K, N, layer,
-        # group, n_pack, inv_k, eps, out_bf16, stream (any other group: the
-        # prologue, then the CUDA-core loop on hq)
-        **{f"ff_fused_norm_qkv{sfx}_any": [P] * 8 + [I] * 6 + [F, F, I, P]
+        # the same arguments at any other group: the prologue, then the
+        # any-group route on hq (xf, n_split and depth of matmul.rows_plan)
+        **{f"ff_fused_norm_qkv{sfx}_any": [P] * 10 + [I] * 8 + [F, F, I, P]
            for sfx in ("", "_a4")},
     },
     "w8a8_gemm": {

@@ -298,58 +298,244 @@ def mma_staged_operand(x_q: torch.Tensor, plan: MmaPlan, group_size: int,
     return (out - ((out >> 31) << 32)).to(torch.int32).view(torch.int8)
 
 
-def two_level_any_dot(x_q: torch.Tensor, w_packed: torch.Tensor, mult: torch.Tensor,
-                      group_size: int, layout: str) -> torch.Tensor:
-    """The integer product (M, N) int64 of the two-level GEMVs' CUDA-core
-    loop (`csrc/common.cuh` two_level_any_kernel), in torch integer ops:
-    byte rows taken in pairs (r, r + 1), a token row's dp4a word x[lo(r)],
-    x[hi(r)], x[lo(r + 1)], x[hi(r + 1)] against a column's folded weight
-    word in the same slot order. Where both rows of a pair lie in each
-    plane's group, the word is folded as the kernel's fast path does
-    (bytes r, r, r + 1, r + 1 of the column; the low nibbles times the
-    plane-0 multiplier and the high nibbles, shifted down 4, times the
-    plane-1 one, as 16-bit lanes; plus the bytes 128 - 8 m; ^ 0x80808080),
-    else slot by slot. ``w_packed`` (K/2, N) in ``layout``'s nibble order
-    (vertical two's complement, else offset binary); ``mult`` (K/g, N)
-    int8 multipliers in [0, 15]."""
+# The any-group route (`csrc/w4a8_mma.cuh` w4a8_rows_kernel): byte rows in
+# memory order, at most this many a split (its int32 sums cannot overflow).
+_ROWS_MAX_SPLIT = 65536
+
+
+class RowsPlan(NamedTuple):
+    """The launch plan of the any-group route (`csrc/w4a8_mma.cuh` RowsPlan,
+    derived there from ``n_split``): ``mt`` m16 tiles a block, the (m, n)
+    tile grid, the layer's byte rows, the byte rows a split covers (whole
+    `_MMA_ROWS`-row stages, the last split fewer), the splits, the ring
+    stages a split streams, the multiplier rows a stage holds (int8 group
+    rows, or nibble-packed words of 8 groups) and their bytes, and whether
+    every 4-row word meets at most two groups in each plane (the fold of
+    two multipliers; else slot by slot)."""
+    mt: int
+    m_tiles: int
+    n_tiles: int
+    rows: int
+    rps: int
+    n_split: int
+    stages: int
+    mult_rows: int
+    mult_bytes: int
+    pairs: bool
+
+    @property
+    def stage_bytes(self) -> int:
+        """Shared bytes of one ring stage: weight rows, multiplier rows and
+        the activation fragments, rounded up to the swizzle's 1024 bytes."""
+        a = (_MMA_ROWS // 32) * 2 * self.mt * _MMA_FRAG
+        return -(-(_MMA_ROWS * _MMA_N + self.mult_bytes + a) // 1024) * 1024
+
+    @property
+    def x_bytes(self) -> int:
+        """Bytes of the activations staged in fragment order (``xf``)."""
+        return self.m_tiles * self.n_split * self.stages * (_MMA_ROWS // 32) * 2 * self.mt \
+            * _MMA_FRAG
+
+    def row_ranges(self):
+        """[(first byte row, end row)] of each split, in split order."""
+        return [(s * self.rps, min(self.rows, (s + 1) * self.rps)) for s in range(self.n_split)]
+
+
+def _rows_per_split(rows: int, n_split: int) -> tuple:
+    """(rps, n_split) as `csrc/w4a8_mma.cuh` rows_plan_of derives them from
+    ``n_split``, taken to the fixed point the kernel's check expects."""
+    while True:
+        rps = -(-(-(-rows // n_split)) // _MMA_ROWS) * _MMA_ROWS
+        got = -(-rows // rps)
+        if got == n_split:
+            return rps, n_split
+        n_split = got
+
+
+def _rows_split(rows: int, tiles: int) -> int:
+    """The K splits of the any-group route over ``tiles`` (m, n) tiles: the
+    count whose blocks finish first when the SMs take them in turns, each
+    SM's time its most blocks times a block's stages plus two (its ring's
+    fill and drain; two blocks share an SM, one alone runs ~10% slower a
+    stage), the fewer splits on a tie (each writes and reads its int32
+    partials). Measured at down_proj g 14 on the H100, 700 W
+    (`scripts/ab_two_level.py --any --splits`): M = 192 best at 4 splits
+    (0.0810 ms; 8: 0.0840, 3: 0.1018), M = 64 and 24 at 8, M = 8 at 8-16."""
+    best = None
+    for n in range(1, max(1, rows // (2 * _MMA_ROWS)) + 1):
+        rps, n = _rows_per_split(rows, n)
+        blocks = tiles * n
+        cost = -(-blocks // _SMS) * (rps // _MMA_ROWS + 2) * (11 if blocks <= _SMS else 10)
+        if best is None or cost < best[0]:
+            best = (cost, n)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def rows_plan(M: int, K: int, N: int, group_size: int, layout: str,
+              n_split: Optional[int] = None, packed: bool = True) -> RowsPlan:
+    """Plan of the any-group route on weights of ``layout`` (one of
+    `MMA_LAYOUTS`; ``packed``: nibble-packed multipliers, else int8 rows):
+    K is split along whole stages, at most `_ROWS_MAX_SPLIT` rows a split,
+    into the count that `_rows_split` picks; or into ``n_split`` splits
+    where given (none empty)."""
+    if layout not in MMA_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}, not one of {MMA_LAYOUTS}")
+    g, rows = group_size, K // 2
+    mt = mma_tiles(M)
+    m_tiles, n_tiles = -(-M // (16 * mt)), -(-N // _MMA_N)
+    if n_split is None:
+        n_split = _rows_split(rows, m_tiles * n_tiles)
+    n_split = max(1, n_split, -(-rows // _ROWS_MAX_SPLIT))
+    rps, n_split = _rows_per_split(rows, n_split)
+    n_groups = K // g
+    span = {"paired": 2 * ((_MMA_ROWS - 1) // g + 2),
+            "halves": (_MMA_ROWS - 1) // max(1, g // 2) + 2,
+            "vertical": (2 * _MMA_ROWS - 1) // g + 2}[layout]
+    groups = min(span, n_groups)
+    mult_rows = min((groups - 1) // 8 + 2, -(-n_groups // 8)) if packed else groups
+    pairs = {"paired": g >= 2, "halves": g >= 4, "vertical": g == 4 or g >= 6}[layout]
+    return RowsPlan(mt, m_tiles, n_tiles, rows, rps, n_split, rps // _MMA_ROWS, mult_rows,
+                    mult_rows * _MMA_N * (4 if packed else 1), pairs)
+
+
+def _slot_k(r: torch.Tensor, plane, g: int, layout: str) -> torch.Tensor:
+    """k of the nibble of byte row ``r`` in ``plane`` (`csrc/w4a8_mma.cuh`
+    slot_k)."""
+    if layout == "vertical":
+        return 2 * r + plane
+    if layout == "paired":
+        u = r // g
+        return (2 * u + plane) * g + r - u * g
+    h = g // 2
+    u = r // h
+    return u * g + plane * h + r - u * h
+
+
+def _row_group(r: torch.Tensor, plane, g: int, layout: str) -> torch.Tensor:
+    """The group of the nibble of byte row ``r`` in ``plane``."""
+    if layout == "vertical":
+        return (2 * r + plane) // g
+    if layout == "paired":
+        return 2 * (r // g) + plane
+    return r // (g // 2)
+
+
+def _rows_word_slots(plan: RowsPlan) -> tuple:
+    """(token row, first byte row, plane, split) of each 32-bit word of the
+    any-group route's staged operand, by stage_rows_kernel's index
+    arithmetic: word 4 lane + reg of fragment ((((m tile * n_split + split)
+    * stages + stage) * 2 + chunk) * 2 + plane) * mt + m16 tile; its bytes
+    are the byte rows first + 0..3."""
+    mt = plan.mt
+    wi = torch.arange(plan.x_bytes // 4)
+    reg, lane, f = wi % 4, wi // 4 % 32, wi // 128
+    ti, f = f % mt, f // mt
+    plane, f = f % 2, f // 2
+    c, f = f % 2, f // 2
+    s, f = f % plan.stages, f // plan.stages
+    split, m_tile = f % plan.n_split, f // plan.n_split
+    m = (m_tile * mt + ti) * 16 + lane // 4 + 8 * (reg % 2)
+    ra = split * plan.rps + s * _MMA_ROWS + 32 * c + 16 * (reg // 2) + 4 * (lane % 4)
+    return m, ra, plane, split
+
+
+def rows_staged_operand(x_q: torch.Tensor, plan: RowsPlan, group_size: int,
+                        layout: str) -> torch.Tensor:
+    """The any-group route's staged activations (``plan.x_bytes`` int8) as
+    `csrc/w4a8_mma.cuh` stage_rows_kernel writes them: the fragments of every
+    (m tile, split, stage, chunk, plane, m16 tile) in stage_x_kernel's order,
+    slot 4 t + i of half h holding byte row split * rps + stage * 64 + 32
+    chunk + 16 h + 4 t + i (x at its k in the plane; zeros past the split's
+    rows and past M)."""
     M, K = x_q.shape
-    N, g, rows = w_packed.shape[1], group_size, K // 2
-    r = torch.arange(rows + rows % 2)
-    if layout == "vertical":
-        klo, khi = 2 * r, 2 * r + 1
-        glo, ghi = klo // g, khi // g
-    elif layout == "paired":
-        p, i = r // g, r % g
-        klo, khi, glo, ghi = 2 * p * g + i, (2 * p + 1) * g + i, 2 * p, 2 * p + 1
-    else:
-        h = g // 2
-        p, i = r // h, r % h
-        klo, khi, glo, ghi = p * g + i, p * g + h + i, p, p
-    past = r >= rows  # an odd row count's last pair: its x is 0
-    glo, ghi = torch.where(past, glo.roll(1), glo), torch.where(past, ghi.roll(1), ghi)
-    wb = torch.zeros((rows + rows % 2, N), dtype=torch.int64)
+    m, ra, plane, split = _rows_word_slots(plan)
+    re = torch.clamp((split + 1) * plan.rps, max=plan.rows)
+    r = ra[:, None] + torch.arange(4)
+    valid = (r < re[:, None]) & (m < M)[:, None]
+    k = _slot_k(r, plane[:, None], group_size, layout).clamp(0, K - 1)
+    xb = x_q.view(torch.uint8).long()[m.clamp(max=M - 1)[:, None], k] * valid
+    word = (xb << (8 * torch.arange(4))).sum(-1)
+    return (word - ((word >> 31) << 32)).to(torch.int32).view(torch.int8)
+
+
+def _fold2(nib, m_a, m_b, mask):
+    """`csrc/w4a8_mma.cuh` fold2 on int64 words: the fold by m_a, and by m_b
+    in the bytes of ``mask``."""
+    d = (nib - 0x08080808) & 0xFFFFFFFF
+    fa = (d * m_a + 0x80808080) & 0xFFFFFFFF
+    fb = (d * m_b + 0x80808080) & 0xFFFFFFFF
+    return ((fa & ~mask & 0xFFFFFFFF) | (fb & mask)) ^ 0x80808080
+
+
+def rows_folded_weights(w_packed: torch.Tensor, mult: torch.Tensor, group_size: int,
+                        layout: str, plan: RowsPlan) -> torch.Tensor:
+    """The int8 B operand of the any-group route (``(rows, 2, N)`` int64:
+    byte row, nibble plane, column) as `csrc/w4a8_mma.cuh` fold_rows makes
+    it: each aligned 4-row word of a column (rows past K / 2 zero bytes),
+    the vertical layout's nibbles flipped to offset binary, folded in each
+    plane with the multipliers of the groups of its first and last rows
+    (clamped to the split's last row) where ``plan.pairs``, the bytes past
+    the first group's rows from the second, else slot by slot. ``w_packed``
+    (K/2, N) flat or (N/bn, K/2, bn) pre-blocked; ``mult`` (K/g, N) int8."""
+    g = group_size
+    if w_packed.dim() == 3:
+        nb, kh, bn = w_packed.shape
+        w_packed = w_packed.permute(1, 0, 2).reshape(kh, nb * bn)
+    rows, N = w_packed.shape
+    words = -(-rows // 4)
+    wb = torch.zeros((4 * words, N), dtype=torch.int64)
     wb[:rows] = w_packed.view(torch.uint8).long()
+    ra = 4 * torch.arange(words)
+    re = torch.clamp((ra // plan.rps + 1) * plan.rps, max=rows)  # the word's split's end
+    v = (wb.view(words, 4, N) << (8 * torch.arange(4))[None, :, None]).sum(1)
     if layout == "vertical":
-        wb ^= 0x88
-    xb = torch.cat([x_q.long(), torch.zeros((M, 1), dtype=torch.int64)], dim=1)
-    kx = torch.stack([klo, khi], -1).masked_fill(past[:, None], K).reshape(-1, 4)
-    xs = xb[:, kx]  # (M, pairs, 4) signed slots
-    a, b = wb[0::2], wb[1::2]  # (pairs, N) bytes of rows r and r + 1
-    gs = torch.stack([glo[0::2], ghi[0::2], glo[1::2], ghi[1::2]], -1)  # (pairs, 4)
-    m = mult.long()[gs]  # (pairs, 4, N)
-    u = torch.stack([a & 15, a >> 4, b & 15, b >> 4], 1)
-    slow = (u * m + 128 - 8 * m) << (8 * torch.arange(4))[None, :, None]
-    slow = slow.sum(1) ^ 0x80808080
-    B = a | a << 8 | b << 16 | b << 24
-    ml, mh = m[:, 0], m[:, 1]
-    bias = (128 - 8 * ml) * 0x00010001 + (128 - 8 * mh) * 0x01000100
-    fast = (((B & 0x000F000F) * ml + ((B >> 4) & 0x0F000F00) * mh + bias)
-            & 0xFFFFFFFF) ^ 0x80808080
-    same = ((gs[:, 0] == gs[:, 2]) & (gs[:, 1] == gs[:, 3]))[:, None]
-    wd = torch.where(same, fast, slow)  # (pairs, N) unsigned words
-    wbytes = (wd[:, None, :] >> (8 * torch.arange(4))[None, :, None]) & 255
-    wbytes = wbytes - ((wbytes >> 7) << 8)  # signed int8 slots
-    return torch.einsum("mps,psn->mn", xs, wbytes)
+        v = v ^ 0x88888888
+    ml = mult.long()
+    r3 = torch.minimum(ra + 3, re - 1)
+    r0 = torch.minimum(ra, re - 1)
+    out = []
+    for p in (0, 1):
+        nib = (v >> (4 * p)) & 0x0F0F0F0F
+        if plan.pairs:
+            ga, gb = _row_group(r0, p, g, layout), _row_group(r3, p, g, layout)
+            first = {"vertical": ((ga + 1) * g - p + 1) // 2, "paired": (ga // 2 + 1) * g,
+                     "halves": (ga + 1) * (g // 2)}[layout]
+            n = (first - ra).clamp(0, 4)
+            mask = (0xFFFFFFFF << (8 * n)) & 0xFFFFFFFF
+            f = _fold2(nib, ml[ga], ml[gb], mask[:, None])
+            byte = (f[:, None, :] >> (8 * torch.arange(4))[None, :, None]) & 255
+        else:
+            gi = _row_group(torch.minimum(ra[:, None] + torch.arange(4), r3[:, None]), p, g,
+                            layout)
+            u = (nib[:, None, :] >> (8 * torch.arange(4))[None, :, None]) & 15
+            byte = ((u - 8) * ml[gi]) & 255
+        out.append(byte.reshape(4 * words, N))
+    b = torch.stack(out, 1)[:rows]
+    return b - ((b >> 7) << 8)
+
+
+def two_level_rows_dot(x_q: torch.Tensor, w_packed: torch.Tensor, mult: torch.Tensor,
+                       group_size: int, layout: str, plan: Optional[RowsPlan] = None):
+    """The integer product (M, N) int64 of the any-group route, in torch
+    integer ops: the activations staged in slot order (`rows_staged_operand`)
+    read back by the fragments' index arithmetic, against the B operand of
+    `rows_folded_weights`, summed over every byte row and plane. ``plan``
+    defaults to `rows_plan` at (M, K, N)."""
+    M, K = x_q.shape
+    N = w_packed.shape[-1] * (w_packed.shape[0] if w_packed.dim() == 3 else 1)
+    if plan is None:
+        plan = rows_plan(M, K, N, group_size, layout)
+    xf = rows_staged_operand(x_q, plan, group_size, layout).view(torch.int32).long()
+    m, ra, plane, _ = _rows_word_slots(plan)
+    r = (ra[:, None] + torch.arange(4)).flatten()
+    byte = ((xf[:, None] >> (8 * torch.arange(4))) & 255).flatten()
+    byte = byte - ((byte >> 7) << 8)
+    keep = (r < plan.rows) & (m.repeat_interleave(4) < M)
+    a = torch.zeros((M, plan.rows, 2), dtype=torch.int64)
+    a[m.repeat_interleave(4)[keep], r[keep], plane.repeat_interleave(4)[keep]] = byte[keep]
+    b = rows_folded_weights(w_packed, mult, group_size, layout, plan)
+    return torch.einsum("mrp,rpn->mn", a.double(), b.double()).long()
 
 
 def fold_w4a8_2l_words(words: torch.Tensor, m_lo, m_hi=None) -> tuple:
@@ -398,10 +584,11 @@ def two_level_route(layout: str, K: int, N: int, group_size: int) -> str:
     """The route of the two-level GEMVs (rows 1, 4, 5 and 9, and the
     products of the fused heads and tail) on weights of ``layout`` (one of
     `MMA_LAYOUTS`), chosen by shape: "tile", the int8 tensor-core tile
-    (`csrc/w4a8_mma.cuh`), where a unit's byte rows a plane are a multiple of
-    4 (paired g % 4 == 0, vertical and group halves g % 8 == 0) and N % 4 ==
-    0; else "any", the CUDA-core loop of the same sources (`csrc/common.cuh`
-    two_level_any_kernel), for every other group the reference takes.
+    (`csrc/w4a8_mma.cuh` w4a8_mma_kernel), where a unit's byte rows a plane
+    are a multiple of 4 (paired g % 4 == 0, vertical and group halves g % 8
+    == 0) and N % 4 == 0; else "any", the any-group route on the same
+    tensor cores (w4a8_rows_kernel: byte rows in memory order, planned by
+    `rows_plan`), for every other group the reference takes.
     Raises ValueError for a group the reference does not take: vertical K
     even and whole groups, paired whole group pairs, group halves an even
     group."""
@@ -439,8 +626,8 @@ def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     ``layer``. On the card `csrc/a4_gemv.cu` ``ff_a4_gemv`` on the int8
     tensor-core tile (`csrc/w4a8_mma.cuh`, its vertical layout case, planned
     by `mma_plan`), counted under ``a4_gemv``; any other group
-    (`two_level_route`) ``ff_a4_gemv_any``, the CUDA-core loop, counted
-    under ``a4_gemv_any``.
+    (`two_level_route`) ``ff_a4_gemv_any``, the any-group route on the same
+    tensor cores (planned by `rows_plan`), counted under ``a4_gemv_any``.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -463,26 +650,17 @@ def matmul_w4a4_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
         raise ValueError(f"A4 GEMV kernel needs a full multiplier pack and a valid layer "
                          f"(groups={n_groups}, n_pack={n_pack}, layer={layer})")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    lib = _build.lib("a4_gemv")
-    if route == "any":
-        err = lib.ff_a4_gemv_any(
-            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-            s_col.data_ptr(), out.data_ptr(), M, K, N, L, layer, group_size, n_pack, kind,
-            _build.stream_ptr(dev),
-        )
-        _build.launch_counts["a4_gemv_any"] += 1
-        _build.check(err, "a4_gemv_any")
-        return out
-    plan = mma_plan(M, K, N, group_size, "vertical")
+    name = "a4_gemv" if route == "tile" else "a4_gemv_any"
+    plan = _route_plan(route, M, K, N, group_size, "vertical", True)
     xf, partial = _mma_scratch(plan, M, N, dev)
-    err = lib.ff_a4_gemv(
+    err = getattr(_build.lib("a4_gemv"), f"ff_{name}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
         s_col.data_ptr(), xf.data_ptr(), None if partial is None else partial.data_ptr(),
         out.data_ptr(), M, K, N, L, layer, group_size, n_pack, plan.n_split,
         manual_depth(plan, _MMA_DEPTH), kind, _build.stream_ptr(dev),
     )
-    _build.launch_counts["a4_gemv"] += 1
-    _build.check(err, "a4_gemv")
+    _build.launch_counts[name] += 1
+    _build.check(err, name)
     return out
 
 
@@ -515,9 +693,18 @@ def _check_2l(x_q, x_scale, w_packed, mult, s_col, group_size, paired):
     return M, K, N, route
 
 
-def _mma_scratch(plan: MmaPlan, M: int, N: int, dev):
-    """The tensor-core tile's scratch: the staged activations, and the int32
-    partials (None for one split)."""
+def _route_plan(route: str, M: int, K: int, N: int, group_size: int, layout: str,
+                packed: bool):
+    """The plan of `two_level_route`'s route: `mma_plan` for the tile,
+    `rows_plan` for the any-group route."""
+    if route == "tile":
+        return mma_plan(M, K, N, group_size, layout)
+    return rows_plan(M, K, N, group_size, layout, packed=packed)
+
+
+def _mma_scratch(plan, M: int, N: int, dev):
+    """The tensor-core tiles' scratch (an `MmaPlan` or a `RowsPlan`): the
+    staged activations, and the int32 partials (None for one split)."""
     xf = torch.empty((plan.x_bytes,), dtype=torch.int8, device=dev)
     partial = (torch.empty((plan.n_split, M, N), dtype=torch.int32, device=dev)
                if plan.n_split > 1 else None)
@@ -532,10 +719,10 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
     (counted under ``w4a8_gemv``), the group-halves layout
     (`pack_uint4_offset`, the JAX kernel `:479`) through
     ``ff_w4a8_gemv_unpaired`` (``w4a8_gemv_unpaired``); any other group
-    (`two_level_route`) through the CUDA-core loop ``ff_w4a8_gemv_any``
-    (``w4a8_gemv_any``) and ``ff_w4a8_gemv_unpaired_any``
-    (``w4a8_gemv_unpaired_any``); all bit-exact against
-    `matmul_w4a8_2l_reference`."""
+    (`two_level_route`) through the any-group route on the same tensor cores
+    (planned by `rows_plan`), ``ff_w4a8_gemv_any`` (``w4a8_gemv_any``) and
+    ``ff_w4a8_gemv_unpaired_any`` (``w4a8_gemv_unpaired_any``); all
+    bit-exact against `matmul_w4a8_2l_reference`."""
     M, K = x_q.shape
     if paired is None:
         paired = paired_default(K // group_size)
@@ -549,15 +736,7 @@ def matmul_w4a8_2l_gemv(x_q, x_scale, w_packed, mult, s_col, group_size: int = 1
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = _build.lib("w4a8_gemv")
     name = ("w4a8_gemv" if paired else "w4a8_gemv_unpaired") + ("_any" if route == "any" else "")
-    if route == "any":
-        err = getattr(lib, f"ff_{name}")(
-            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-            s_col.data_ptr(), out.data_ptr(), M, K, N, group_size, kind, _build.stream_ptr(dev),
-        )
-        _build.launch_counts[name] += 1
-        _build.check(err, name)
-        return out
-    plan = mma_plan(M, K, N, group_size, "paired" if paired else "halves")
+    plan = _route_plan(route, M, K, N, group_size, "paired" if paired else "halves", False)
     xf, partial = _mma_scratch(plan, M, N, dev)
     err = getattr(lib, f"ff_{name}")(
         x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
@@ -714,9 +893,9 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
     ``w4a8_gemv_splitw`` (``FF_2L_SPLITW=1``, flat), ``w4a8_gemv_dotraw``
     (``FF_2L_DOTRAW=1``) and ``w4a8_gemv_concat`` (``FF_2L_CONCAT_PAIRS``
     above 1), the last two on either layout. A group the tile does not take
-    (`two_level_route`) runs the CUDA-core loop ``ff_w4a8_gemv_stacked_any``
-    on either layout whatever the flags, counted under
-    ``w4a8_gemv_stacked_any``.
+    (`two_level_route`) runs the any-group route ``ff_w4a8_gemv_stacked_any``
+    (planned by `rows_plan`) on either layout and any panel width whatever
+    the flags, counted under ``w4a8_gemv_stacked_any``.
     """
     layer = int(layer)
     M, K = x_q.shape
@@ -753,20 +932,12 @@ def matmul_w4a8_2l_gemv_stacked(x_q, x_scale, w_packed, mult, s_col, layer,
             f"stacked W4A8 GEMV kernel needs a full multiplier pack and a valid layer "
             f"(groups={n_groups}, n_pack={n_pack}, layer={layer})"
         )
-    if not tile:
-        out = torch.empty((M, N), dtype=out_dtype, device=dev)
-        err = _build.lib("w4a8_gemv").ff_w4a8_gemv_stacked_any(
-            x_q.data_ptr(), x_scale.data_ptr(), w_packed.data_ptr(), mult.data_ptr(),
-            s_col.data_ptr(), out.data_ptr(), M, K, N, L, layer, group_size, n_pack, kind, bn,
-            _build.stream_ptr(dev),
-        )
-        _build.launch_counts["w4a8_gemv_stacked_any"] += 1
-        _build.check(err, "w4a8_gemv_stacked_any")
-        return out
-    if preblocked and bn % 4 != 0:
+    if tile and preblocked and bn % 4 != 0:
         raise ValueError(f"the pre-blocked W4A8 GEMV kernels need a panel width bn that is a "
                          f"multiple of 4 (a lane's 4 columns in one panel), got bn={bn}")
-    plan = mma_plan(M, K, N, group_size, "paired")
+    if not tile:
+        route = "w4a8_gemv_stacked_any"
+    plan = _route_plan("tile" if tile else "any", M, K, N, group_size, "paired", True)
     xf, partial = _mma_scratch(plan, M, N, dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     nbuf = manual_bufs if route == "w4a8_gemv_manual" else _MMA_DEPTH
@@ -2073,22 +2244,25 @@ def _fused_o_mlp_layer(norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
             _layer_mult(dn_mp, dn_w, layer, g), dn_sc[layer])
 
 
-def _tail_product_plan(M: int, K: int, N: int, group_size: int) -> MmaPlan:
+def _tail_product_plan(M: int, K: int, N: int, group_size: int, route: str = "tile"):
     """`mma_plan` of one of the tail's products, unsplit where its (m, n)
     tiles already give every SM a block (gate/up: 224 column tiles a row
     tile). The tile's own target would split it in two below M = 65, and
     the row kernels would then read twice the partials (or the head's gu
     take a split epilogue); unsplit measured faster at every row count of
-    rows 10 and 11 (PERF.md §6; ab_two_level.py --splits)."""
-    plan = mma_plan(M, K, N, group_size, "paired")
+    rows 10 and 11 (PERF.md §6; ab_two_level.py --splits). ``route`` "any":
+    `rows_plan`'s, by the same rule."""
+    plan_of = mma_plan if route == "tile" else rows_plan
+    plan = plan_of(M, K, N, group_size, "paired")
     if plan.n_split > 1 and plan.m_tiles * plan.n_tiles >= _SMS:
-        return mma_plan(M, K, N, group_size, "paired", 1)
+        return plan_of(M, K, N, group_size, "paired", 1)
     return plan
 
 
 class TailPlan(NamedTuple):
     """The launch plan of `csrc/fused_tail.cu`: each product's tensor-core
-    tile plan (`mma_plan`, paired layout) and ring depth in launch order
+    plan (`mma_plan`, or `rows_plan` on the any-group route; paired layout)
+    and ring depth in launch order
     (o_proj, gate/up and, for the full tail, down), and its one scratch
     buffer: (name, byte offset, bytes) of each region in the order of the
     C entry's arguments, each 256-byte aligned, and the total bytes."""
@@ -2103,7 +2277,8 @@ class TailPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def tail_plan(M: int, K1: int, H: int, N_GU: int, group_size: int, full: bool = True) -> TailPlan:
+def tail_plan(M: int, K1: int, H: int, N_GU: int, group_size: int, full: bool = True,
+              route: str = "tile") -> TailPlan:
     """Plan of one `csrc/fused_tail.cu` call at M rows: ``full`` the layer
     tail (``ff_fused_o_mlp``: o_proj (K1, H), gate/up (H, N_GU), down
     (N_GU / 2, H)), else its o + gate/up head (``ff_fused_o_gu``). Regions:
@@ -2112,18 +2287,21 @@ def tail_plan(M: int, K1: int, H: int, N_GU: int, group_size: int, full: bool = 
     int8, each product's staged operand ``xf_*`` (its plan's x_bytes), and
     the int32 ``partial`` of the largest product that hands its partials
     to a row kernel (every product of the tail; the head's o_proj, and its
-    gate/up only where that splits)."""
+    gate/up only where that splits). ``route`` "any" (`two_level_route`):
+    the products on the any-group route (`rows_plan`), and attn's int8 rows
+    ``xq`` (M, K1) after x1 (the tail) or after the scales (the head)."""
     g = group_size
     shapes = ((K1, H), (H, N_GU)) + (((N_GU // 2, H),) if full else ())
-    plans = tuple(_tail_product_plan(M, K, N, g) for K, N in shapes)
+    plans = tuple(_tail_product_plan(M, K, N, g, route) for K, N in shapes)
     depths = tuple(manual_depth(p, _MMA_DEPTH) for p in plans)
     partial = [p.n_split * M * N for p, (_, N) in zip(plans, shapes)]
     if not full and plans[1].n_split == 1:
         partial[1] = 0  # the head's gate/up writes gu itself
     staged = [(f"xf_{name}", p.x_bytes) for name, p in zip(("o", "gu", "dn"), plans)]
+    xq = [("xq", M * K1)] if route == "any" else []
     rows = [("xs", 4 * M), ("scales", 8 * M)]
-    rows += ([("x1", 4 * M * H), ("hq", M * H), ("x2", M * (N_GU // 2))] if full
-             else [("hq", M * H)])
+    rows += ([("x1", 4 * M * H)] + xq + [("hq", M * H), ("x2", M * (N_GU // 2))] if full
+             else xq + [("hq", M * H)])
     regions, total = [], 0
     for name, size in rows + staged + [("partial", 4 * max(partial))]:
         regions.append((name, total, size))
@@ -2135,7 +2313,7 @@ def _check_tail(attn, x_res, norm_w, products, layer, g) -> str:
     """Check the operands of a `csrc/fused_tail.cu` launch; ``products``:
     (name, w, mp, sc, K, N) of each product it runs. Returns the route:
     "tile" where `two_level_route` gives it for every product, else "any"
-    (the CUDA-core loop for all of them)."""
+    (the any-group route for all of them)."""
     M, K1 = attn.shape
     L, H = norm_w.shape
     dev = attn.device
@@ -2179,7 +2357,8 @@ def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
     attn's dtype, then scratch views x1, hq, s_h, x2, s_g and the staged
     operands of gate/up and down, int8 (x_bytes,)). A group the tile does
     not take (`_check_tail`) launches ``ff_fused_o_mlp_any`` (counted under
-    ``fused_o_mlp_any``), which stages nothing: None for both operands."""
+    ``fused_o_mlp_any``), the products on the any-group route, whose staged
+    operands are in byte-row order: None for both."""
     layer = int(layer)
     M, K1 = attn.shape
     L, _, H = o_w.shape
@@ -2192,29 +2371,11 @@ def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
     if I % 4 != 0:
         raise ValueError(f"fused tail needs an intermediate width % 4 == 0, got {I}")
     bf16 = int(attn.dtype == torch.bfloat16)
-    if route == "any":
-        xs = torch.empty((M,), dtype=torch.float32, device=dev)
-        scales = torch.empty((2, M), dtype=torch.float32, device=dev)
-        x1 = torch.empty((M, H), dtype=torch.float32, device=dev)
-        xq, hq, x2 = (torch.empty((M, n), dtype=torch.int8, device=dev) for n in (K1, H, I))
-        partial = torch.empty((M, max(H, 2 * I)), dtype=torch.int32, device=dev)
-        out = torch.empty((M, H), dtype=attn.dtype, device=dev)
-        err = _build.lib("fused_tail").ff_fused_o_mlp_any(
-            attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
-            o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
-            gu_sc.data_ptr(), dn_w.data_ptr(), dn_mp.data_ptr(), dn_sc.data_ptr(),
-            xs.data_ptr(), scales.data_ptr(), x1.data_ptr(), xq.data_ptr(), hq.data_ptr(),
-            x2.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K1, H, I, layer, g,
-            o_mp.shape[1], gu_mp.shape[1], dn_mp.shape[1], float(eps), bf16, bf16,
-            _build.stream_ptr(dev),
-        )
-        _build.launch_counts["fused_o_mlp_any"] += 1
-        _build.check(err, "fused_o_mlp_any")
-        return out, x1, hq, scales[0], x2, scales[1], None, None
-    plan = tail_plan(M, K1, H, 2 * I, g, True)
+    name = "fused_o_mlp" if route == "tile" else "fused_o_mlp_any"
+    plan = tail_plan(M, K1, H, 2 * I, g, True, route)
     ptrs, view = _scratch(plan, dev)
     out = torch.empty((M, H), dtype=attn.dtype, device=dev)
-    err = _build.lib("fused_tail").ff_fused_o_mlp(
+    err = getattr(_build.lib("fused_tail"), f"ff_{name}")(
         attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
         gu_sc.data_ptr(), dn_w.data_ptr(), dn_mp.data_ptr(), dn_sc.data_ptr(),
@@ -2222,13 +2383,14 @@ def _fused_o_mlp_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc
         dn_mp.shape[1], *plan.splits, *plan.depths, float(eps), bf16, bf16,
         _build.stream_ptr(dev),
     )
-    _build.launch_counts["fused_o_mlp"] += 1
-    _build.check(err, "fused_o_mlp")
+    _build.launch_counts[name] += 1
+    _build.check(err, name)
     scales = view("scales", torch.float32, (2, M))
+    staged = ((view("xf_gu", torch.int8, (plan.plans[1].x_bytes,)),
+               view("xf_dn", torch.int8, (plan.plans[2].x_bytes,))) if route == "tile"
+              else (None, None))
     return (out, view("x1", torch.float32, (M, H)), view("hq", torch.int8, (M, H)), scales[0],
-            view("x2", torch.int8, (M, I)), scales[1],
-            view("xf_gu", torch.int8, (plan.plans[1].x_bytes,)),
-            view("xf_dn", torch.int8, (plan.plans[2].x_bytes,)))
+            view("x2", torch.int8, (M, I)), scales[1], *staged)
 
 
 def fused_o_mlp_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, dn_w, dn_mp,
@@ -2301,8 +2463,9 @@ def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group
     which also writes the tile's staged operand (as `mma_staged_operand`
     mirrors), then the tensor-core tile; returns (out, h_q, h_s). A group
     the tile does not take (`two_level_route`): the prologue without the
-    staging, then the CUDA-core loop (``ff_fused_norm_qkv_any``,
-    ``ff_fused_norm_qkv_a4_any``, counted under those names)."""
+    staging, then the any-group route on h_q (``ff_fused_norm_qkv_any``,
+    ``ff_fused_norm_qkv_a4_any``, counted under those names, planned by
+    `rows_plan`)."""
     layer = int(layer)
     M, K = x.shape
     L, _, N = w_packed.shape
@@ -2326,21 +2489,9 @@ def _fused_head_launch(a4, x, norm_w, w_packed, mult_packed, s_col, layer, group
     h_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     h_s = torch.empty((M,), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    name = "fused_norm_qkv_a4" if a4 else "fused_norm_qkv"
-    if route == "any":
-        # the prologue, then the CUDA-core loop on h_q
-        name += "_any"
-        err = getattr(_build.lib("fused_head"), f"ff_{name}")(
-            x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
-            s_col.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), out.data_ptr(), M, K, N, layer, g,
-            n_pack, 1.0 / K, float(eps), int(out_dtype == torch.bfloat16),
-            _build.stream_ptr(dev),
-        )
-        _build.launch_counts[name] += 1
-        _build.check(err, name)
-        return out, h_q, h_s
-    # the tensor-core tile, planned as row 1's (vertical) or row 9's (paired) GEMV
-    plan = mma_plan(M, K, N, g, layout)
+    name = ("fused_norm_qkv_a4" if a4 else "fused_norm_qkv") + ("_any" if route == "any" else "")
+    # planned as row 1's (vertical) or row 9's (paired) GEMV on its route
+    plan = _route_plan(route, M, K, N, g, layout, True)
     xf, partial = _mma_scratch(plan, M, N, dev)
     err = getattr(_build.lib("fused_head"), f"ff_{name}")(
         x.data_ptr(), norm_w.data_ptr(), w_packed.data_ptr(), mult_packed.data_ptr(),
@@ -2434,35 +2585,20 @@ def _fused_o_gu_launch(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc,
         raise ValueError(f"fused o + gate/up needs an even gate/up width, got {N_GU}")
     x1 = torch.empty((M, H), dtype=torch.float32, device=dev)
     gu = torch.empty((M, N_GU), dtype=torch.bfloat16, device=dev)
-    if route == "any":
-        xs = torch.empty((M,), dtype=torch.float32, device=dev)
-        scales = torch.empty((2, M), dtype=torch.float32, device=dev)
-        xq, hq = (torch.empty((M, n), dtype=torch.int8, device=dev) for n in (K1, H))
-        partial = torch.empty((M, H), dtype=torch.int32, device=dev)
-        err = _build.lib("fused_tail").ff_fused_o_gu_any(
-            attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
-            o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
-            gu_sc.data_ptr(), xs.data_ptr(), scales.data_ptr(), xq.data_ptr(), hq.data_ptr(),
-            partial.data_ptr(), x1.data_ptr(), gu.data_ptr(), M, K1, H, N_GU, layer, g,
-            o_mp.shape[1], gu_mp.shape[1], float(eps), int(attn.dtype == torch.bfloat16),
-            _build.stream_ptr(dev),
-        )
-        _build.launch_counts["fused_o_gu_any"] += 1
-        _build.check(err, "fused_o_gu_any")
-        return x1, gu, hq, scales[0], None
-    plan = tail_plan(M, K1, H, N_GU, g, False)
+    name = "fused_o_gu" if route == "tile" else "fused_o_gu_any"
+    plan = tail_plan(M, K1, H, N_GU, g, False, route)
     ptrs, view = _scratch(plan, dev)
-    err = _build.lib("fused_tail").ff_fused_o_gu(
+    err = getattr(_build.lib("fused_tail"), f"ff_{name}")(
         attn.data_ptr(), x_res.data_ptr(), norm_w.data_ptr(),
         o_w.data_ptr(), o_mp.data_ptr(), o_sc.data_ptr(), gu_w.data_ptr(), gu_mp.data_ptr(),
         gu_sc.data_ptr(), *ptrs, x1.data_ptr(), gu.data_ptr(),
         M, K1, H, N_GU, layer, g, o_mp.shape[1], gu_mp.shape[1], *plan.splits, *plan.depths,
         float(eps), int(attn.dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
-    _build.launch_counts["fused_o_gu"] += 1
-    _build.check(err, "fused_o_gu")
+    _build.launch_counts[name] += 1
+    _build.check(err, name)
     return (x1, gu, view("hq", torch.int8, (M, H)), view("scales", torch.float32, (2, M))[0],
-            view("xf_gu", torch.int8, (plan.plans[1].x_bytes,)))
+            view("xf_gu", torch.int8, (plan.plans[1].x_bytes,)) if route == "tile" else None)
 
 
 def fused_o_gu_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc, layer,
@@ -2477,7 +2613,7 @@ def fused_o_gu_stacked(attn, x_res, norm_w, o_w, o_mp, o_sc, gu_w, gu_mp, gu_sc,
     through gate/up on the int8 tensor-core tile (`tail_plan`), x1
     bit-equal to the oracle, hq within one level where the row sums round
     differently, gu within 8e-3 of its largest value; a group the tile does
-    not take, the same launches with the products on the CUDA-core loop
+    not take, the same launches with the products on the any-group route
     (``ff_fused_o_gu_any``, counted under ``fused_o_gu_any``)."""
     if attn.device.type == "cpu":
         layer, g = int(layer), group_size

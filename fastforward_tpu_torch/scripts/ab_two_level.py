@@ -4,6 +4,7 @@ checkouts, on one card.
     python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG [--serve | --serve-only]
         [--splits] [--out DIR]
     python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG --groups [--serve] [--out DIR]
+    python3 fastforward_tpu_torch/scripts/ab_two_level.py TREE TAG --any [--serve] [--out DIR]
     python3 fastforward_tpu_torch/scripts/ab_two_level.py --compare A B [--out DIR]
 
 Run it as a file, not with ``-m``: it imports ``chip_smoke`` and
@@ -60,7 +61,17 @@ Llama-3-8B's down_proj at g 112 and g 128 (M = 192 and 8) and over the four
 projections at g 128 (M = 192 and 8), device and caller-visible ms, and
 saves row 16's outputs at every shape and rows 17 and 18t's at g 128 (the
 same bits in every tree); with ``--serve`` it then serves runs (e) and
-(f) only, their tokens and prefill logits saved.
+(f) only, their tokens and prefill logits saved. ``--any`` instead times
+the two-level GEMVs' any-group route on Llama-3-8B's down_proj at g 14
+(1,024 groups; M = 192 and 8): rows 1 (A4, vertical), 5 (paired and
+group halves) and 9 (stacked, flat), beside the tile on the same shape
+at g 16 (rows 1, 5 paired, 9; with ``--splits`` row 9 at each K split
+of 3-16, M = 192, 64, 24 and 8), and the fused routes at the groups
+chip_smoke.py's `_fused_any_kernels` uses (the W4A8 head g 2, the A4 head
+g 4, the tail and its o + gate/up head g 2; M = 8), device and
+caller-visible ms, their outputs saved; with ``--serve`` it then serves
+run (ag) only (w4a4_2l and w4a8_2l at g 14), tokens and prefill logits
+saved.
 ``--compare A B`` then says, run by run,
 how many greedy tokens differ between the two tags and whether their
 prefill logits are bit-equal, and whether rows 10, 11, 19 and 16 gave the
@@ -123,13 +134,15 @@ def compare(a, b):
 
 def serve_runs(cs, tag, dev, only=None):
     """``--serve``: chip_smoke.py's runs on their seeds (``only``: those
-    named, the engine's as "d"), profiled, their greedy tokens and prefill
-    logits saved under DIR."""
+    named, the engine's as "d"; (ag) only where named), profiled, their
+    greedy tokens and prefill logits saved under DIR."""
     from fastforward_tpu_torch.models.llama import LlamaConfig
 
     config = LlamaConfig.llama3_8b()
     record = {}
-    for run, mode, g, B, T, kv, flags in (
+    for run, mode, g, B, T, kv, flags in [
+            ("ag4", "w4a4_2l", 14, cs.BATCH, cs.PROMPT, None, {}),
+            ("ag8", "w4a8_2l", 14, cs.BATCH, cs.PROMPT, None, {}),
             ("a", "w4a4_2l", 512, cs.BATCH, cs.PROMPT, None, {}),
             ("b", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, {}),
             ("c", "w4a4_2l", 512, 8, 32, None, {}),
@@ -139,8 +152,9 @@ def serve_runs(cs, tag, dev, only=None):
             ("l", "w4a8_2l", 128, cs.BATCH, cs.PROMPT, None, cs.FLAGS_L),
             ("e", "w4a8", 128, cs.BATCH, cs.PROMPT, None, {}),
             ("g", "w8a8", 128, cs.BATCH, cs.PROMPT, None, {}),
-            ("h", "w4a8", 128, cs.BATCH, cs.PROMPT, "int8", {})):
-        if only is not None and run not in only:
+            ("h", "w4a8", 128, cs.BATCH, cs.PROMPT, "int8", {})]:
+        if run not in (("a", "b", "c", "k", "n", "f", "l", "e", "g", "h") if only is None
+                       else only):
             continue
         t0 = time.perf_counter()
         with cs.flag_env(**flags):
@@ -172,6 +186,84 @@ def serve_runs(cs, tag, dev, only=None):
     del path
     os.makedirs(_out_dir(), exist_ok=True)
     torch.save(record, os.path.join(_out_dir(), f"{tag}.pt"))
+
+
+def any_group(cs, mm, tag, dev, gen, ri, device_ms):
+    """``--any``: the any-group route at down_proj g 14 beside the tile at
+    g 16, and the fused routes at chip_smoke.py's groups; outputs saved."""
+    from fastforward_tpu_torch.kernels.packing import pack_mult_nibbles
+
+    outputs = {}
+
+    def timed(label, fn):
+        ms, vis = device_ms(fn), cs.median_ms(fn)
+        print(f"AB[{tag}] {label}: device {ms:.4f} ms, caller-visible {vis:.4f} ms", flush=True)
+        out = fn()
+        outputs[label] = [t.cpu() for t in (out if isinstance(out, tuple) else (out,))
+                          if isinstance(t, torch.Tensor)]
+
+    K, N = cs.PROJ["down"]
+    for g in (14, 16):
+        w, m = ri(-128, 128, (2, K // 2, N)), ri(1, 16, (2, K // g, N))
+        mp = pack_mult_nibbles(m).contiguous()
+        s = torch.rand((2, N), generator=gen, device=dev) * 1e-3
+        if "--splits" in sys.argv and g == 14 and hasattr(mm, "rows_plan"):
+            # row 9 at each K split of the any-group route (its plan's marked)
+            own = mm.rows_plan
+            for M in (cs.BATCH, 64, 24, 8):
+                x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+                times = {}
+                for split in (3, 4, 5, 6, 8, 9, 12, 16):
+                    mm.rows_plan = lambda *a, split=split, **k: own(*a[:5], split, **k)
+                    try:
+                        times[split] = device_ms(lambda: mm.matmul_w4a8_2l_gemv_stacked(
+                            x_q, x_s, w, mp, s, 1, group_size=g))
+                    finally:
+                        mm.rows_plan = own
+                print(f"AB[{tag}] row 9 down g14 M={M} by split (the plan's "
+                      f"{own(M, K, N, g, 'paired').n_split}): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+        for M in (cs.BATCH, 8):
+            x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
+            x4, x4s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
+            at = f"down g{g} M={M}"
+            timed(f"row 1 {at}", lambda: mm.matmul_w4a4_2l_gemv_stacked(x4, x4s, w, mp, s, 1,
+                                                                        group_size=g))
+            for paired in (True, False) if g == 14 else (True,):
+                timed(f"row 5 {'paired' if paired else 'halves'} {at}",
+                      lambda: mm.matmul_w4a8_2l_gemv(x_q, x_s, w[1], m[1], s[1], g,
+                                                     paired=paired))
+            timed(f"row 9 {at}", lambda: mm.matmul_w4a8_2l_gemv_stacked(x_q, x_s, w, mp, s, 1,
+                                                                        group_size=g))
+        del w, m, mp
+        torch.cuda.empty_cache()
+    L, eps, M = 2, 1e-5, 8
+    K, N = cs.PROJ["qkv"]
+    for a4, g in ((False, 2), (True, 4)):
+        w, mp = ri(-128, 128, (L, K // 2, N)), pack_mult_nibbles(ri(1, 16, (L, K // g, N)))
+        s_col = torch.rand((L, N), generator=gen, device=dev) * 1e-3
+        norm = (torch.rand((L, K), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+        x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        timed(f"fused {'A4 ' if a4 else ''}head g{g} M={M}",
+              lambda: mm._fused_head_launch(a4, x, norm, w, mp.contiguous(), s_col, 1, g, eps,
+                                            torch.bfloat16))
+        del w, mp
+    H, inter, g = 4096, 14336, 2
+    ops = []
+    for Kp, Np in ((H, H), (H, 2 * inter), (inter, H)):
+        ops += [ri(-128, 128, (L, Kp // 2, Np)),
+                pack_mult_nibbles(ri(1, 16, (L, Kp // g, Np))).contiguous(),
+                torch.rand((L, Np), generator=gen, device=dev) * (4.0 / Kp)]
+    norm = (torch.rand((L, H), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    attn = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+    x_res = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+    timed(f"fused tail g{g} M={M}",
+          lambda: mm._fused_o_mlp_launch(attn, x_res, norm, *ops, 1, g, eps)[:6])
+    timed(f"fused o + gate/up g{g} M={M}",
+          lambda: mm._fused_o_gu_launch(attn, x_res, norm, *ops[:6], 1, g, eps)[:4])
+    del ops
+    os.makedirs(_out_dir(), exist_ok=True)
+    torch.save(outputs, os.path.join(_out_dir(), f"{tag}_tail.pt"))
 
 
 def main():
@@ -224,6 +316,11 @@ def main():
 
     if "--serve-only" in sys.argv:
         serve_runs(cs, tag, dev)
+        return 0
+    if "--any" in sys.argv:
+        any_group(cs, mm, tag, dev, gen, ri, device_ms)
+        if "--serve" in sys.argv:
+            serve_runs(cs, tag, dev, {"ag4", "ag8"})
         return 0
     if "--groups" in sys.argv:
         outputs = {}
@@ -527,8 +624,9 @@ def main():
         # in two (the tile's own target below M = 65), device ms a call
         own = mm._tail_product_plan
         for split in (1, 2):
-            mm._tail_product_plan = lambda M, K, N, g, split=split: (
-                mm.mma_plan(M, K, N, g, "paired", split) if N == 2 * inter else own(M, K, N, g))
+            mm._tail_product_plan = lambda M, K, N, g, route="tile", split=split: (
+                mm.mma_plan(M, K, N, g, "paired", split) if N == 2 * inter
+                else own(M, K, N, g, route))
             mm.tail_plan.cache_clear()
             try:
                 for row, ms in (("10", (8, cs.ENGINE_SLOTS, 64)), ("11", (cs.BATCH, 64, 8))):

@@ -41,12 +41,13 @@ bias, ragged K, N % 16 != 0, g 32/64/128), under every K split and row
 split, the same bits call to call; the W4A8 GEMV stays bit-equal, the W4
 GEMV and the tiled W4A16 GEMM within their tolerance, at groups of 256,
 512 and g = K at the 8B shapes. Every other even group (2, 16, 48, 96,
-112, 192, 320; g = K at 192 and 320) takes the same sources' CUDA-core
-route, held the same way and counted under its own name. The two-level
-GEMVs (rows 1, 4, 5, 9) and the fused heads and tail take every other
-group their references take (2-14, and 1,024 groups of 14 along K) on
-one CUDA-core loop (csrc/common.cuh): the GEMVs and heads bit-equal, the
-tail held as on the tile. The prefill
+112, 192, 320; g = K at 192 and 320) takes the same sources' permuted
+route, held the same way. The two-level GEMVs (rows 1, 4, 5, 9) and the
+fused heads and tail take every other group their references take (1-14,
+N % 4 != 0, any panel width, and 1,024 groups of 14 along K) on the
+any-group route of the same tensor cores (csrc/w4a8_mma.cuh
+w4a8_rows_kernel), counted under its own names: the GEMVs and heads
+bit-equal, the tail held as on the tile. The prefill
 dequant's four rows are bit-equal at the 8B projections (pre-blocked at
 bn 128 and 512).
 """
@@ -144,7 +145,7 @@ def test_a4_gemv_tile_extreme_sums_exact(dev):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_a4_gemv_serves_a_group_not_a_multiple_of_8(dev, out_dtype):
     # the smallest case the tile refuses (M 2, K 48, N 16, g 12): the
-    # CUDA-core route, bit-equal, f32 and bf16
+    # any-group route, bit-equal, f32 and bf16
     gen = _gen(dev, 48)
     x_q, x_s = mm.quantize_rowwise_a4(torch.randn((2, 48), generator=gen, device=dev))
     w = _ri(gen, -128, 128, (1, 24, 16), torch.int8, dev)
@@ -248,7 +249,7 @@ def test_w4a8_argmax_kernel_ids_equal(dev, M, N):
 def test_w4a8_kernel_serves_unpaired_and_paired_small_groups(dev, paired, g):
     # the tile stages 4 byte rows of one unit at a time; an unpaired group
     # no multiple of 8 (M 1, K 256, N 64, g 4) and a paired group no
-    # multiple of 4 (M 1, K 8, N 4, g 2) take the CUDA-core route, bit-equal
+    # multiple of 4 (M 1, K 8, N 4, g 2) take the any-group route, bit-equal
     K, N = (8, 4) if paired else (256, 64)
     gen = _gen(dev, K + g)
     x_q, x_s = mm.quantize_rowwise(torch.randn((1, K), generator=gen, device=dev))
@@ -2025,9 +2026,10 @@ def test_w4a8_wgmma_kernel_every_row_block(dev, monkeypatch, M, row_blocks, K, g
     assert torch.equal(out, mm.matmul_w4a8_reference(x_q, x_s, w, s, None, g, torch.float32))
 
 
-# --- the CUDA-core route of the two-level GEMVs (csrc/common.cuh
-# two_level_any_kernel): every group from 2 to 14 the reference takes,
-# bit-equal, at M = 1, 8, 17, 192, 256; and 1,024 groups of 14 along K
+# --- the any-group route of the two-level GEMVs (csrc/w4a8_mma.cuh
+# w4a8_rows_kernel): every group from 1 to 14 the reference takes, N % 4 !=
+# 0 and panel widths that are no multiple of 4, bit-equal, at M = 1, 8, 17,
+# 192, 256; and 1,024 groups of 14 along K
 
 _ANY_M = [1, 8, 17, 192, 256]
 
@@ -2037,9 +2039,9 @@ def _route_name(base, layout, K, N, g):
 
 
 @pytest.mark.parametrize("M", _ANY_M)
-@pytest.mark.parametrize("g", range(2, 15))
+@pytest.mark.parametrize("g", range(1, 15))
 def test_a4_gemv_every_group_bit_equal(dev, M, g):
-    K, N = 2 * g * 9, 132 if g % 2 else 130  # N % 4 != 0 takes the CUDA-core route too
+    K, N = 2 * g * 9, 132 if g % 2 else 130  # N % 4 != 0 takes the any-group route too
     gen = _gen(dev, M * 100 + g)
     x_q, x_s = mm.quantize_rowwise_a4(torch.randn((M, K), generator=gen, device=dev))
     w = _ri(gen, -128, 128, (2, K // 2, N), torch.int8, dev)
@@ -2056,7 +2058,7 @@ def test_a4_gemv_every_group_bit_equal(dev, M, g):
 
 
 @pytest.mark.parametrize("M", _ANY_M)
-@pytest.mark.parametrize("paired,g", [(True, g) for g in range(2, 15) if g % 4]
+@pytest.mark.parametrize("paired,g", [(True, g) for g in range(1, 15) if g % 4]
                          + [(False, g) for g in range(2, 15, 2) if g % 8])
 def test_w4a8_gemv_every_group_bit_equal(dev, M, paired, g):
     # row 5 (f32 and bf16) and row 4 (the argmax of row 5's f32 logits)
@@ -2082,11 +2084,12 @@ def test_w4a8_gemv_every_group_bit_equal(dev, M, paired, g):
 
 
 @pytest.mark.parametrize("M", _ANY_M)
-@pytest.mark.parametrize("g", [g for g in range(2, 15) if g % 4])
-@pytest.mark.parametrize("bn", [0, 4, 132])
+@pytest.mark.parametrize("g", [g for g in range(1, 15) if g % 4])
+@pytest.mark.parametrize("bn", [0, 4, 6, 132])
 def test_stacked_gemv_every_group_bit_equal(dev, M, g, bn):
-    # row 9 on flat (bn 0) and pre-blocked weights, layer 1 of 2, under the
-    # default flags and the dot-raw flag: one route whatever the flags
+    # row 9 on flat (bn 0) and pre-blocked weights (bn 6: byte loads),
+    # layer 1 of 2, under the default flags and the dot-raw flag: one route
+    # whatever the flags
     K, N = 2 * g * 7, 264
     gen = _gen(dev, M * 100 + g + bn)
     x_q, x_s = mm.quantize_rowwise(torch.randn((M, K), generator=gen, device=dev))
@@ -2131,7 +2134,7 @@ def test_two_level_any_route_over_1024_groups(dev, M):
 
 def test_two_level_any_route_extreme_sums_exact(dev):
     # x = +-127, m = 15, u = 0 and 15 at g 6 over K = 14,328: the largest
-    # int32 sums the grid allows, the run sums added in int64
+    # int32 sums the grid allows, the splits' sums added in int64
     gen = _gen(dev, 14328)
     M, K, N, g = 9, 14328, 132, 6
     x_q = torch.where(_ri(gen, 0, 2, (M, K), torch.int8, dev) > 0, 127, -127).to(torch.int8)
@@ -2148,7 +2151,7 @@ def test_two_level_any_route_extreme_sums_exact(dev):
                                   (True, 12)])
 @pytest.mark.parametrize("M", [1, 8, 64, 192])
 def test_fused_head_any_group_bit_equal(dev, a4, g, M):
-    # the prologue without staging, then the CUDA-core route on hq
+    # the prologue without staging, then the any-group route on hq
     K, N = 2 * g * 16, 132
     x, norm, w, mp, s = _head_case(dev, M, K, N, g, M + g)
     name = ("fused_norm_qkv_a4" if a4 else "fused_norm_qkv") + "_any"
@@ -2169,7 +2172,7 @@ def test_fused_head_any_group_bit_equal(dev, a4, g, M):
 ])
 def test_fused_tail_any_group(dev, M, K1, H, inter, g):
     # the tail and its o + gate/up head at groups the tile does not take:
-    # the row kernels as on the tile, each product on the CUDA-core route;
+    # the row kernels as on the tile, each product on the any-group route;
     # held as the tile's tail (x1 bit-equal, hq and x2 within one level in
     # a few elements, the outputs within rtol 8e-3)
     attn, x_res, norm, ops = _tail_case(dev, M, K1, H, inter, g, M + H + g)

@@ -2,8 +2,9 @@
 
 The card's tensor-core tile takes a unit of 4 byte rows a plane (paired
 groups a multiple of 4, vertical and group-halves groups a multiple of 8)
-and N % 4 == 0; every other group the references take runs a CUDA-core
-loop of the same sources (`two_level_route`). Here each wrapper's CPU path
+and N % 4 == 0; every other group the references take runs the any-group
+route on the same tensor cores (`two_level_route`, `rows_plan`), whose
+arithmetic `two_level_rows_dot` mirrors. Here each wrapper's CPU path
 (the plain version the card is held to) is held bit for bit against the
 jitted JAX function on the same inputs, made with numpy from a seed, at
 groups 2-14 and at 1,024 groups along K: rows 1 (A4 GEMV, f32 and bf16
@@ -89,26 +90,74 @@ def _any_cases():
             yield layout, g, next((K for K in Ks if K % 4 == 2), Ks[0])
 
 
-@pytest.mark.parametrize("layout,g,K", list(_any_cases()) + [("paired", 14, 14336)])
-def test_any_loop_arithmetic_equals_the_plain_version(layout, g, K):
-    # GIVEN the CUDA-core loop's slot order and folds (fast where both rows
-    # of a pair share each plane's group, else slot by slot), mirrored by
-    # two_level_any_dot WHEN its integer product goes through the oracle's
-    # epilogue THEN it equals the plain version bit for bit
+def _jax_oracle(layout, g, x_q, x_s, w, m, s):
+    """The JAX package's oracle of ``layout`` in f32 (eager)."""
+    if layout == "vertical":
+        return np.asarray(jm.matmul_w4a4_2l_reference(x_q, x_s, w, m, s, None, g, jnp.float32))
+    return np.asarray(jm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, jnp.float32,
+                                                  paired=layout == "paired"))
+
+
+@pytest.mark.parametrize("layout,g,K,N,bn", [(lay, g, K, 12, 0) for lay, g, K in _any_cases()]
+                         + [("paired", 14, 14336, 12, 0), ("paired", 6, 120, 18, 0),
+                            ("paired", 6, 120, 16, 4)])
+def test_any_loop_arithmetic_equals_the_plain_version(layout, g, K, N, bn):
+    # GIVEN the any-group route's arithmetic, mirrored by two_level_rows_dot:
+    # x staged in byte-row slot order by the fragments' index arithmetic,
+    # each 4-row word folded per plane with its first and last rows' group
+    # multipliers (the bytes past the first group's rows from the second),
+    # or slot by slot where a word meets more groups; N % 4 != 0 (18) and
+    # pre-blocked weights (bn 4) as the kernel reads them WHEN its integer
+    # product goes through the oracle's epilogue THEN it equals the port's
+    # plain version and the JAX oracle bit for bit
     rs = np.random.RandomState(K * 16 + g)
-    M, N = 17, 12
+    M = 17
     a4 = layout == "vertical"
     x_q, x_s = _x(rs, M, K, a4=a4)
     w, m, s = _weights(rs, K, N, g)
-    x_q, x_s, w, m, s = _t(x_q, x_s, w, m, s)
-    acc = tm.two_level_any_dot(x_q, w, m, g, layout)
-    got = tm._epilogue(acc.double().float(), s, x_s, None, torch.float32)
+    tx, ts, tw, tmul, tsc = _t(x_q, x_s, w, m, s)
+    plan = tm.rows_plan(M, K, N, g, layout)
+    assert plan.pairs == (g >= {"paired": 2, "halves": 4, "vertical": 6}[layout] or
+                          (layout == "vertical" and g == 4))
+    wk = tm.preblock_stacked(tw[None], bn)[0] if bn else tw
+    acc = tm.two_level_rows_dot(tx, wk, tmul, g, layout, plan)
+    got = tm._epilogue(acc.double().float(), tsc, ts, None, torch.float32)
     if a4:
-        want = tm.matmul_w4a4_2l_reference(x_q, x_s, w, m, s, None, g, torch.float32)
+        want = tm.matmul_w4a4_2l_reference(tx, ts, tw, tmul, tsc, None, g, torch.float32)
     else:
-        want = tm.matmul_w4a8_2l_reference(x_q, x_s, w, m, s, None, g, torch.float32,
+        want = tm.matmul_w4a8_2l_reference(tx, ts, tw, tmul, tsc, None, g, torch.float32,
                                            paired=layout == "paired")
     assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), _jax_oracle(layout, g, x_q, x_s, w, m, s))
+
+
+@pytest.mark.parametrize("M,K,N,g,layout,packed", [
+    (192, 14336, 4096, 14, "paired", True), (192, 14336, 4096, 14, "vertical", True),
+    (8, 14336, 4096, 14, "halves", False), (8, 4096, 28672, 2, "paired", True),
+    (1, 18, 130, 1, "vertical", True), (17, 28, 12, 1, "paired", False),
+])
+def test_rows_plan_covers_every_row_once(M, K, N, g, layout, packed):
+    # GIVEN an any-group shape WHEN rows_plan splits it THEN the splits cover
+    # every byte row once in whole 64-row stages (none empty, each within
+    # the int32 bound), the stage's multiplier rows hold every group its
+    # rows meet, and one ring stage fits with room for the kernel's depth
+    plan = tm.rows_plan(M, K, N, g, layout, packed=packed)
+    ranges = plan.row_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == K // 2
+    assert all(a < b and b - a <= plan.rps for a, b in ranges)
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    assert plan.rps % 64 == 0 and plan.rps <= tm._ROWS_MAX_SPLIT
+    assert plan == tm.rows_plan(M, K, N, g, layout, plan.n_split, packed)
+    r = torch.arange(K // 2)
+    for a, _ in ranges:
+        for s0 in range(a, min(a + plan.rps, K // 2), 64):
+            rr = r[s0:min(s0 + 64, K // 2, a + plan.rps)]
+            lo, hi = tm._row_group(rr[0], 0, g, layout), tm._row_group(rr[-1], 1, g, layout)
+            need = (hi // 8 - lo // 8 + 1) if packed else (hi - lo + 1)
+            assert need <= plan.mult_rows
+    assert 1 <= tm.manual_depth(plan, 4) <= 4
+    assert plan.x_bytes == len(tm.rows_staged_operand(
+        torch.zeros((M, K), dtype=torch.int8), plan, g, layout))
 
 
 @pytest.mark.parametrize("M", [1, 17])
@@ -250,3 +299,29 @@ def test_fused_tail_and_o_gu_serve_the_groups_jax_serves(rounded_rsqrt, g):
     assert ty.dtype == torch.bfloat16 and tuple(ty.shape) == (M, H)
     a, b = _np(y), _np(ty)
     assert np.abs(a - b).max() <= 1e-2 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["tail", "o_gu"])
+def test_tail_plan_of_the_any_group_route(full):
+    # GIVEN the fused tail (or its o + gate/up head) at g 2, the 8B widths,
+    # M = 8 WHEN it is planned for the any-group route THEN each product
+    # takes rows_plan's plan, and the scratch regions follow the C entry's
+    # argument order, xq (M, K1) after x1 (the tail) or the scales (the
+    # head), each 256-byte aligned and disjoint
+    M, K1, H, N_GU, g = 8, 4096, 4096, 28672, 2
+    plan = tm.tail_plan(M, K1, H, N_GU, g, full, "any")
+    names = [name for name, _, _ in plan.regions]
+    assert names == (["xs", "scales", "x1", "xq", "hq", "x2", "xf_o", "xf_gu", "xf_dn", "partial"]
+                     if full else ["xs", "scales", "xq", "hq", "xf_o", "xf_gu", "partial"])
+    shapes = ((K1, H), (H, N_GU)) + (((N_GU // 2, H),) if full else ())
+    assert all(isinstance(p, tm.RowsPlan) and p.rows == K // 2
+               for p, (K, _) in zip(plan.plans, shapes))
+    sizes = {name: size for name, _, size in plan.regions}
+    assert sizes["xq"] == M * K1
+    assert [sizes[f"xf_{n}"] for n in ("o", "gu", "dn")[:len(shapes)]] == \
+        [p.x_bytes for p in plan.plans]
+    ends = 0
+    for _, off, size in plan.regions:
+        assert off % 256 == 0 and off >= ends
+        ends = off + size
+    assert plan.total >= ends
